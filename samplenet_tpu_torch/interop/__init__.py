@@ -1,0 +1,8 @@
+"""Weights carried between the JAX package and the port (counterpart of
+samplenet_tpu/interop)."""
+
+from samplenet_tpu_torch.interop.jax_import import (  # noqa: F401
+    infer_samplenet_config,
+    load_sampler_weights,
+    samplenet_state_dict_from_jax,
+)

@@ -1,0 +1,112 @@
+"""Weights carried from the JAX package into the port.
+
+Mirrors samplenet_tpu/interop/torch_import.py:105-240 without importing the
+JAX package: `samplenet_state_dict_from_jax` maps the flax variable tree of
+`samplenet_tpu.models.SampleNet` (nested dicts of numpy arrays) to the
+reference torch key surface, exactly as `samplenet_to_torch(variables,
+prefix=...)` does, and the port's SampleNet loads that state_dict as is.
+Conventions converted:
+
+  * Dense kernel [in, out]      -> Conv1d weight [out, in, 1] / Linear [out, in]
+  * BN scale/bias (params)      -> BatchNorm1d weight/bias
+    BN mean/var (batch_stats)   -> running_mean/running_var
+  * project/temperature ()      -> project._temperature
+
+To serve a JAX orbax checkpoint, convert it in the JAX environment:
+`samplenet_tpu.interop.samplenet_to_torch(variables)` and `torch.save` of
+its values as tensors; `load_sampler_weights` reads that file.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any
+
+import numpy as np
+import torch
+
+
+def samplenet_state_dict_from_jax(
+    variables: dict[str, Any], prefix: str = ""
+) -> dict[str, np.ndarray]:
+    """The reference torch state_dict (numpy values) of a flax SampleNet
+    variable tree ({"params", "batch_stats"})."""
+    p, s = variables["params"], variables.get("batch_stats", {})
+    simp_p, simp_s = p["simplifier"], s.get("simplifier", {})
+    sd: dict[str, np.ndarray] = {}
+
+    convs = simp_p["convs"]
+    n_conv = sum(1 for k in convs if k.startswith("dense_"))
+    for i in range(n_conv):
+        k = np.asarray(convs[f"dense_{i}"]["kernel"])
+        sd[f"{prefix}conv{i+1}.weight"] = np.ascontiguousarray(k.T)[:, :, None]
+        sd[f"{prefix}conv{i+1}.bias"] = np.asarray(convs[f"dense_{i}"]["bias"])
+        sd[f"{prefix}bn{i+1}.weight"] = np.asarray(convs[f"bn_{i}"]["scale"])
+        sd[f"{prefix}bn{i+1}.bias"] = np.asarray(convs[f"bn_{i}"]["bias"])
+        bs = simp_s["convs"][f"bn_{i}"]
+        sd[f"{prefix}bn{i+1}.running_mean"] = np.asarray(bs["mean"])
+        sd[f"{prefix}bn{i+1}.running_var"] = np.asarray(bs["var"])
+        sd[f"{prefix}bn{i+1}.num_batches_tracked"] = np.asarray(0)
+
+    fcs = simp_p["fcs"]
+    n_fc = sum(1 for k in fcs if k.startswith("dense_"))
+    for i in range(n_fc):
+        k = np.asarray(fcs[f"dense_{i}"]["kernel"])
+        sd[f"{prefix}fc{i+1}.weight"] = np.ascontiguousarray(k.T)
+        sd[f"{prefix}fc{i+1}.bias"] = np.asarray(fcs[f"dense_{i}"]["bias"])
+        if f"bn_{i}" in fcs:
+            sd[f"{prefix}bn_fc{i+1}.weight"] = np.asarray(fcs[f"bn_{i}"]["scale"])
+            sd[f"{prefix}bn_fc{i+1}.bias"] = np.asarray(fcs[f"bn_{i}"]["bias"])
+            bs = simp_s["fcs"][f"bn_{i}"]
+            sd[f"{prefix}bn_fc{i+1}.running_mean"] = np.asarray(bs["mean"])
+            sd[f"{prefix}bn_fc{i+1}.running_var"] = np.asarray(bs["var"])
+            sd[f"{prefix}bn_fc{i+1}.num_batches_tracked"] = np.asarray(0)
+
+    sd[f"{prefix}fc{n_fc+1}.weight"] = np.ascontiguousarray(
+        np.asarray(simp_p["out"]["kernel"]).T)
+    sd[f"{prefix}fc{n_fc+1}.bias"] = np.asarray(simp_p["out"]["bias"])
+    sd[f"{prefix}project._temperature"] = np.asarray(
+        p["project"]["temperature"], np.float32).reshape(())
+    return sd
+
+
+def infer_samplenet_config(sd: dict[str, Any], prefix: str = ""
+                           ) -> dict[str, Any]:
+    """Constructor kwargs for the port's `SampleNet` read off the weight
+    shapes of a reference-keyed state_dict (torch_import.py:105-137)."""
+    convs = sorted(
+        int(m.group(1)) for k in sd
+        if (m := re.fullmatch(re.escape(prefix) + r"conv(\d+)\.weight", k)))
+    if not convs:
+        raise KeyError(f"no {prefix}conv*.weight keys in the state_dict")
+    widths = [sd[f"{prefix}conv{i}.weight"].shape[0] for i in convs]
+    fcs = sorted(
+        int(m.group(1)) for k in sd
+        if (m := re.fullmatch(re.escape(prefix) + r"fc(\d+)\.weight", k)))
+    fc_widths = [sd[f"{prefix}fc{i}.weight"].shape[0] for i in fcs[:-1]]
+    out_dim = sd[f"{prefix}fc{fcs[-1]}.weight"].shape[0]
+    if out_dim % 3:
+        raise ValueError(f"final FC emits {out_dim} values; expected 3*m")
+    return {
+        "num_out_points": out_dim // 3,
+        "bottleneck_size": widths[-1],
+        "conv_widths": tuple(widths[:-1]),
+        "fc_widths": tuple(fc_widths),
+        "fc_bn": any(k.startswith(f"{prefix}bn_fc") for k in sd),
+    }
+
+
+def load_sampler_weights(path: str) -> dict[str, torch.Tensor]:
+    """A sampler state_dict from a .pth file: a bare state_dict or one under
+    "model", with DataParallel "module." prefixes stripped and, where the
+    file is a joint SP-PCRNet checkpoint (registration/main.py:296), only
+    the "sampler." entries kept, unprefixed."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(obj, dict) and isinstance(obj.get("model"), dict):
+        obj = obj["model"]
+    sd = {k.removeprefix("module."): torch.as_tensor(v)
+          for k, v in obj.items() if hasattr(v, "shape")}
+    if any(k.startswith("sampler.") for k in sd):
+        sd = {k.removeprefix("sampler."): v for k, v in sd.items()
+              if k.startswith("sampler.")}
+    return sd

@@ -1,0 +1,124 @@
+"""SampleNet eval forward: simplification network + on-device hard matching.
+
+Mirrors samplenet_tpu/models/samplenet.py:36-200. The simplification
+network is a per-point MLP (3->64->64->64->128->bottleneck, BN+ReLU), a
+global max over points and an FC head (256->256->256->3m, BN+ReLU except
+the linear output), registration/src/samplenet.py:40-59,90-104. At eval,
+SampleNet matches each simplified point to its nearest input point,
+de-duplicates, and completes the set by seeded FPS, all on the device
+(samplenet.py:119-141, which the reference runs per cloud in numpy).
+
+As in the reference torch SampleNet, the layers sit flat on the module
+(conv1..5, bn1..5, fc1..4, bn_fc1..3, project._temperature), so the
+state_dict has the reference's key surface. SampleNet is the
+simplification network plus the projector and the matcher. Clouds are
+[B, N, 3] ("bnc") inside; "bcn" is accepted at the edges. Train mode
+(soft projection, batch-statistics BN) is slice 2 and raises.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from samplenet_tpu_torch.models.soft_projection import SoftProjection
+from samplenet_tpu_torch.nn.layers import (
+    Linear,
+    add_mlp_head,
+    add_point_mlp,
+    default_generator,
+    mlp_head,
+    point_mlp,
+)
+from samplenet_tpu_torch.ops.matching import nn_match_from_clouds
+
+_TRAIN_MSG = "SampleNet train mode (soft projection) is slice 2 of the port"
+
+
+def _to_bnc(x: torch.Tensor, shape: str) -> torch.Tensor:
+    return x.transpose(1, 2).contiguous() if shape == "bcn" else x
+
+
+def _from_bnc(x: torch.Tensor, shape: str) -> torch.Tensor:
+    return x.transpose(1, 2) if shape == "bcn" else x
+
+
+class SimplificationNet(nn.Module):
+    """PointNet-style regressor emitting `num_out_points` coordinates."""
+
+    def __init__(self, num_out_points: int, bottleneck_size: int = 128,
+                 conv_widths: tuple = (64, 64, 64, 128),
+                 fc_widths: tuple = (256, 256, 256), fc_bn: bool = True, *,
+                 device=None, generator: torch.Generator | None = None):
+        super().__init__()
+        gen = default_generator(generator)
+        self.num_out_points = num_out_points
+        self._n_conv = len(conv_widths) + 1
+        self._n_fc = len(fc_widths)
+        add_point_mlp(self, 3, (*conv_widths, bottleneck_size),
+                      device=device, generator=gen)
+        add_mlp_head(self, bottleneck_size, fc_widths, use_bn=fc_bn,
+                     activate_final=True, device=device, generator=gen)
+        self.add_module(f"fc{self._n_fc + 1}", Linear(
+            fc_widths[-1], 3 * num_out_points, device=device, generator=gen))
+
+    def forward(self, x: torch.Tensor, training: bool = False) -> torch.Tensor:
+        """x [B, N, 3] -> simplified [B, num_out_points, 3]."""
+        g = point_mlp(self, self._n_conv, x, training=training,
+                      pool_max=True)                          # [B, bottleneck]
+        y = mlp_head(self, self._n_fc, g, activate_final=True,
+                     training=training)
+        y = getattr(self, f"fc{self._n_fc + 1}")(y)
+        return y.reshape(-1, self.num_out_points, 3)
+
+
+class SampleNet(SimplificationNet):
+    """Sampler with the reference's constructor surface
+    (registration/src/samplenet.py:23-35). `forward(x)` returns
+    (simplified, matched) in `output_shape` layout."""
+
+    def __init__(self, num_out_points: int, bottleneck_size: int = 128,
+                 group_size: int = 7, initial_temperature: float = 1.0,
+                 is_temperature_trainable: bool = True,
+                 min_sigma: float = 1e-2, input_shape: str = "bnc",
+                 output_shape: str = "bnc", complete_fps: bool = True,
+                 sigma_mode: str = "torch",
+                 conv_widths: tuple = (64, 64, 64, 128),
+                 fc_widths: tuple = (256, 256, 256), fc_bn: bool = True, *,
+                 device=None, generator: torch.Generator | None = None):
+        if input_shape not in ("bnc", "bcn"):
+            raise ValueError("input_shape must be 'bnc' or 'bcn'")
+        if output_shape not in ("bnc", "bcn"):
+            raise ValueError("output_shape must be 'bnc' or 'bcn'")
+        super().__init__(num_out_points, bottleneck_size, conv_widths,
+                         fc_widths, fc_bn, device=device, generator=generator)
+        self.input_shape = input_shape
+        self.output_shape = output_shape
+        self.complete_fps = complete_fps
+        self.project = SoftProjection(
+            group_size, initial_temperature, is_temperature_trainable,
+            min_sigma, sigma_mode, device=device)
+
+    def forward(self, x: torch.Tensor, training: bool = False
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(simplified, matched): matched is the unique + FPS-completed
+        hard sample of the input, all on the device."""
+        if training:
+            raise NotImplementedError(_TRAIN_MSG)
+        x = _to_bnc(x, self.input_shape)
+        simp = super().forward(x)
+        out, _ = nn_match_from_clouds(x, simp, self.num_out_points,
+                                      complete_fps=self.complete_fps)
+        return _from_bnc(simp, self.output_shape), _from_bnc(
+            out, self.output_shape)
+
+    def simplify(self, x: torch.Tensor, training: bool = False
+                 ) -> torch.Tensor:
+        """Simplified cloud only (no matching)."""
+        if training:
+            raise NotImplementedError(_TRAIN_MSG)
+        x = _to_bnc(x, self.input_shape)
+        return _from_bnc(super().forward(x), self.output_shape)
+
+    def sigma(self) -> torch.Tensor:
+        return self.project.sigma()

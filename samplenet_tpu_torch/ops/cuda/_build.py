@@ -1,0 +1,129 @@
+"""Builds the port's CUDA kernels with nvcc and loads them with ctypes.
+
+`samplenet_tpu_torch/csrc/*.cu` compile, at first use, into one shared
+library with a plain C interface under `build/kernels/<source hash>/` at
+the checkout root (listed in .gitignore). A later process with the same
+sources loads the existing library. Nothing here runs at import time, and
+a missing nvcc or a failed build raises: there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+PACKAGE_DIR = Path(__file__).resolve().parents[2]
+CSRC = PACKAGE_DIR / "csrc"
+BUILD_ROOT = PACKAGE_DIR.parent / "build" / "kernels"
+LIB_NAME = "libsamplenet_kernels.so"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lib: ctypes.CDLL | None = None
+_lib_lock = threading.Lock()
+
+
+def find_nvcc() -> str | None:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+                 "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.isfile(cand) and os.access(cand, os.X_OK):
+            return cand
+    return None
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _headers() -> list[Path]:
+    return sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    """Where the library for the current sources lives once built."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources() + _headers():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16] / LIB_NAME
+
+
+def build() -> tuple[Path, float]:
+    """Compiles the kernels unless the library for these sources exists.
+    Returns (library path, seconds spent compiling; 0.0 when it existed)."""
+    out = library_path()
+    if out.exists():
+        return out, 0.0
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
+            "CUDA kernels of samplenet_tpu_torch cannot be built")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    (out.parent / "build.log").write_text(
+        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    return out, seconds
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            path, _ = build()
+            _lib = _bind(ctypes.CDLL(str(path)))
+        return _lib
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.snt_error_string.argtypes = [i]
+    lib.snt_error_string.restype = ctypes.c_char_p
+    lib.snt_nn_direction.argtypes = [p, p, p, p, i, i, i, p]
+    lib.snt_nn_direction.restype = i
+    lib.snt_fps.argtypes = [p, p, p, p, p, i, i, i, p]
+    lib.snt_fps.restype = i
+    lib.snt_point_mlp_max_smem.argtypes = [ctypes.POINTER(i), i]
+    lib.snt_point_mlp_max_smem.restype = ctypes.c_size_t
+    lib.snt_point_mlp_max.argtypes = [p, p, ctypes.POINTER(i), i, p, i, i, p]
+    lib.snt_point_mlp_max.restype = i
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raises if a C entry point reported a CUDA error."""
+    if err:
+        msg = library().snt_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def stream_handle(t: torch.Tensor) -> int:
+    """The current stream of `t`'s device, as the pointer the C side takes."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def max_dynamic_smem(device: torch.device) -> int:
+    """Shared memory one block may opt into on `device` (232,448 bytes on
+    an H100)."""
+    props = torch.cuda.get_device_properties(device)
+    return int(getattr(props, "shared_memory_per_block_optin", 232448))
