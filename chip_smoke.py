@@ -5,11 +5,13 @@
 
 Run it from the root of a checkout on a machine with one NVIDIA H100 (the
 kernels are built for sm_90a). It imports torch, numpy and the port, never
-jax. It drives the port's serving path, the SampleNet eval forward with
-on-device hard matching at 1024 -> 32 points, bottleneck 128, B=1024, and:
+jax. It drives the port's two paths at 1024 -> 32 points, bottleneck 128,
+B=1024: the serving path (the SampleNet eval forward with on-device hard
+matching) and the classification-track train step (SampleNet, k=7,
+sigma = t^2, against a frozen vanilla PointNet with 40 classes), and:
 
   1. prints the card (nvidia-smi name and power limit), nvcc and triton;
-  2. builds the three CUDA kernels from csrc/ and prints the build time;
+  2. builds the CUDA kernels from csrc/ and prints the build time;
   3. holds each kernel against its plain PyTorch version on the card, at
      the serving path's shapes and at a ragged shape: nn_direction and FPS
      bit for bit, point_mlp_max within rtol = atol = 1e-4 (f32 sums taken
@@ -20,8 +22,30 @@ on-device hard matching at 1024 -> 32 points, bottleneck 128, B=1024, and:
   5. starts `python -m samplenet_tpu_torch.serve` on port 0, posts 4
      concurrent requests (64 clouds) and requires answers bit-equal to a
      direct BatchedSampler call and kernel launches in the server;
-  6. times each kernel and the forward against the plain versions, per
-     call with CUDA events and as device time with torch.profiler.
+  6. holds the train kernels against their plain versions: point_mlp_exact
+     (exact-BN conv chain + max, forward and backward) and soft_projection
+     (k-NN softmax mixture, forward and backward), at the train step's
+     shapes and at ragged ones; both backward kernels bit for bit from run
+     to run;
+  7. runs one train step on the kernel path and on the plain path from
+     the same state, holds both against the plain path in float64, then
+     resets the launch counters, runs five augmented train steps and
+     requires every train kernel, and nn_direction, to have launched;
+  8. runs `python -m samplenet_tpu_torch.train.train_samplenet` for one
+     epoch of 3 steps and again with --resume;
+  9. times each kernel, the eval forward and the train step against the
+     plain versions, per call with CUDA events and as device time with
+     torch.profiler.
+
+Tolerances of the train kernels against their plain versions: outputs and
+batch statistics rtol = atol = 1e-4 (point_mlp_exact) and 1e-5 with idx
+bit-equal (soft_projection); gradients rtol 1e-3 / atol 1e-5
+(point_mlp_exact, at the ragged shape) and rtol 1e-4 / atol 1e-5
+(soft_projection). At the train shape the exact-BN chain's lower-layer
+gradients are sums over 1M points that BN's correction makes nearly
+cancel, so neither f32 path holds an elementwise 1e-3 there; the kernel
+is held instead to at least the plain f32 version's accuracy (within 2x)
+against the plain version run in float64 on the card.
 
 Any failure raises and exits non-zero; so does a run without CUDA or
 outside a checkout. The last two lines are the kernels' JSON summary and
@@ -49,6 +73,9 @@ WIDTHS = (3, 64, 64, 64, 128, 128)       # per-point MLP at bottleneck 128
 RAGGED_B, RAGGED_N, RAGGED_M = 3, 1000, 33
 SEED = 0
 DEVICE = "cuda"
+K = 7                                    # the classification track's k
+NUM_CLASSES = 40
+TRAIN_STEPS = 5
 KERNELS = {   # name -> (source, the Pallas entry point it replaces)
     "nn_direction": ("samplenet_tpu_torch/csrc/nn_direction.cu",
                      "samplenet_tpu/ops/pallas/chamfer_kernel.py:176"),
@@ -57,6 +84,24 @@ KERNELS = {   # name -> (source, the Pallas entry point it replaces)
     "point_mlp_max": ("samplenet_tpu_torch/csrc/point_mlp_max.cu",
                       "samplenet_tpu/ops/pallas/point_mlp_kernel.py:128"),
 }
+TRAIN_KERNELS = {  # forward and backward counted apart
+    "point_mlp_exact_fwd": (
+        "samplenet_tpu_torch/csrc/point_mlp_exact.cu",
+        "samplenet_tpu/ops/pallas/point_mlp_exact_kernel.py:499"),
+    "point_mlp_exact_bwd": (
+        "samplenet_tpu_torch/csrc/point_mlp_exact.cu",
+        "samplenet_tpu/ops/pallas/point_mlp_exact_kernel.py:499"),
+    "soft_projection_fwd": (
+        "samplenet_tpu_torch/csrc/soft_projection.cu",
+        "samplenet_tpu/ops/pallas/soft_projection_kernel.py:161"),
+    "soft_projection_bwd": (
+        "samplenet_tpu_torch/csrc/soft_projection.cu",
+        "samplenet_tpu/ops/pallas/soft_projection_kernel.py:161"),
+}
+# zero gradient in exact arithmetic: dense biases followed by BN, and the
+# last conv BN's beta (a shift of every pooled feature that fc1's BN undoes)
+CANCELLED = {f"conv{i}.bias" for i in range(1, 6)} | {
+    "bn5.bias", "fc1.bias", "fc2.bias", "fc3.bias"}
 
 
 def log(phase: str, msg: str) -> None:
@@ -105,7 +150,8 @@ def phase_build() -> None:
     path, seconds = _build.build()
     log("build", f"{path.relative_to(HERE)} built from "
                  f"{[s.name for s in _build._sources()]} in {seconds:.1f} s "
-                 f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
+                 f"(one nvcc {' '.join(_build.NVCC_FLAGS)} -c per source, "
+                 f"all at once, then nvcc {' '.join(_build.LINK_FLAGS)})")
     for line in (path.parent / "build.log").read_text().splitlines():
         if "registers" in line or "Compiling entry" in line:
             log("build", line.strip())
@@ -378,16 +424,18 @@ def _device_ms(torch, fn, iters: int) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
-    if us <= 0:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return us / iters / 1e3
+    for _ in range(3):      # the profiler now and then records no kernels
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA
+                 and not e.is_user_annotation)
+        if us > 0:
+            return us / iters / 1e3
+    raise RuntimeError("torch.profiler recorded no device time, 3 times")
 
 
 def phase_times(torch, model, clouds, card) -> dict[str, tuple]:
@@ -442,6 +490,382 @@ def phase_times(torch, model, clouds, card) -> dict[str, tuple]:
     return times
 
 
+# --------------------------------------------------------- train path phases
+
+def _rel_err(t, ref) -> float:
+    """max |t - ref| / max |ref|, in float64."""
+    ref = ref.double()
+    return float((t.double() - ref).abs().max() / ref.abs().max().clamp_min(
+        1e-30))
+
+
+def _outside(a, b, rtol=1e-3, atol=1e-5) -> float:
+    """Share of elements of a outside rtol/atol of b."""
+    a, b = a.double(), b.double()
+    return float(((a - b).abs() > atol + rtol * b.abs()).double().mean())
+
+
+def _no_worse_than_plain(name, k, p, ref) -> tuple[float, float]:
+    """The kernel's error against the float64 reference, as a share of the
+    reference's largest entry, is at most twice the plain f32 version's,
+    or 1e-5 where both are below that."""
+    ek, ep = _rel_err(k, ref), _rel_err(p, ref)
+    if not ek <= max(2 * ep, 1e-5):
+        raise AssertionError(f"{name}: kernel error {ek!r} of the f64 scale, "
+                             f"plain f32 {ep!r}")
+    return ek, ep
+
+
+def _ctx(plain: bool):
+    import contextlib
+
+    from samplenet_tpu_torch.ops.dispatch import plain_on_cuda
+
+    return plain_on_cuda() if plain else contextlib.nullcontext()
+
+
+def _exact_inputs(torch, rng, b, n):
+    x = torch.from_numpy(rng.standard_normal((b, n, WIDTHS[0]))
+                         .astype(np.float32)).to(DEVICE)
+    groups = [[], [], [], []]          # weights, biases, gammas, betas
+    for cin, cout in zip(WIDTHS[:-1], WIDTHS[1:]):
+        vals = ((rng.standard_normal((cin, cout)) / np.sqrt(cin)),
+                0.1 * rng.standard_normal(cout),
+                1 + 0.1 * rng.standard_normal(cout),
+                0.1 * rng.standard_normal(cout))
+        for g, v in zip(groups, vals):
+            g.append(torch.from_numpy(v.astype(np.float32)).to(DEVICE))
+    g = torch.from_numpy(rng.standard_normal((b, WIDTHS[-1]))
+                         .astype(np.float32)).to(DEVICE)
+    return x, groups, g
+
+
+def _exact_call(torch, x, groups, g, *, plain=False, dtype=None):
+    """(pooled, stats, grads): grads are dx, then dW, d bias, d gamma,
+    d beta per layer."""
+    from samplenet_tpu_torch.ops.cuda import point_mlp_exact_train_max
+
+    dtype = dtype or x.dtype
+    x = x.to(dtype).clone().requires_grad_(True)
+    groups = [[t.to(dtype).clone().requires_grad_(True) for t in grp]
+              for grp in groups]
+    with _ctx(plain):
+        pooled, means, vars_ = point_mlp_exact_train_max(x, *groups)
+    (pooled * g.to(dtype)).sum().backward()
+    torch.cuda.synchronize()
+    return (pooled.detach(), [*means, *vars_],
+            [x.grad] + [t.grad for grp in groups for t in grp])
+
+
+def _soft_inputs(torch, rng, b, n, m):
+    pts, qs, cot = (torch.from_numpy(rng.standard_normal(shape)
+                                     .astype(np.float32)).to(DEVICE)
+                    for shape in ((b, n, 3), (b, m, 3), (b, m, 3)))
+    return pts, qs, torch.tensor(0.7, device=DEVICE), cot
+
+
+def _soft_call(torch, pts, qs, sigma, k, cot, *, plain=False):
+    from samplenet_tpu_torch.ops.cuda import soft_project
+
+    p, q, s = (t.clone().requires_grad_(True) for t in (pts, qs, sigma))
+    with _ctx(plain):
+        out, idx = soft_project(p, q, s, k)
+    (out * cot).sum().backward()
+    torch.cuda.synchronize()
+    return out.detach(), idx, [p.grad, q.grad, s.grad]
+
+
+def phase_compare_train(torch) -> dict[str, float]:
+    """The train kernels against their plain versions; returns max |error|
+    at the train step's shapes."""
+    rng = np.random.default_rng(SEED + 10)
+    errs = {}
+    nl = len(WIDTHS) - 1
+    for label, (b, n) in (("main", (B, N)), ("ragged", (RAGGED_B, RAGGED_N))):
+        x, groups, g = _exact_inputs(torch, rng, b, n)
+        pk, sk, gk = _exact_call(torch, x, groups, g)
+        pp, sp, gp = _exact_call(torch, x, groups, g, plain=True)
+        torch.testing.assert_close(pk, pp, rtol=1e-4, atol=1e-4)
+        for a, c in zip(sk, sp):
+            torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-4)
+        for grads in (gk, gp):
+            if any(t.any() for t in grads[1 + nl:1 + 2 * nl]):
+                raise AssertionError("a dense bias got a nonzero gradient")
+        _, _, gk2 = _exact_call(torch, x, groups, g)
+        if not all(torch.equal(a, c) for a, c in zip(gk, gk2)):
+            raise AssertionError("point_mlp_exact backward is not "
+                                 "deterministic")
+        graded = [i for i in range(len(gk)) if not 1 + nl <= i < 1 + 2 * nl]
+        if label == "ragged":
+            for i in graded:
+                torch.testing.assert_close(gk[i], gp[i], rtol=1e-3, atol=1e-5)
+            log("compare", f"point_mlp_exact ragged x{tuple(x.shape)}: "
+                           f"pooled, means, vars within 1e-4; dx, dW, "
+                           f"dgamma, dbeta within rtol 1e-3 / atol 1e-5; "
+                           f"dense-bias gradients 0; backward bit-equal "
+                           f"across two runs")
+            continue
+        _, _, gr = _exact_call(torch, x, groups, g, plain=True,
+                               dtype=torch.float64)
+        worst = (0.0, 0.0)
+        for i in graded:
+            ek, ep = _no_worse_than_plain(f"point_mlp_exact grad {i}",
+                                          gk[i], gp[i], gr[i])
+            worst = max(worst, (ek, ep))
+        log("compare", f"point_mlp_exact main x{tuple(x.shape)} widths "
+                       f"{WIDTHS}: pooled max |k - p| "
+                       f"{float((pk - pp).abs().max())!r}, stats within "
+                       f"1e-4; gradients against the f64 plain version: "
+                       f"worst kernel error {worst[0]!r} of scale (plain "
+                       f"f32 {worst[1]!r}); elements outside rtol 1e-3 / "
+                       f"atol 1e-5: kernel vs plain "
+                       f"{max(_outside(gk[i], gp[i]) for i in graded)!r}"
+                       f", plain f32 vs f64 "
+                       f"{max(_outside(gp[i], gr[i]) for i in graded)!r}"
+                       f"; dense-bias gradients 0; backward bit-equal")
+        errs["point_mlp_exact_fwd"] = float((pk - pp).abs().max())
+        errs["point_mlp_exact_bwd"] = max(
+            float((gk[i] - gp[i]).abs().max()) for i in graded)
+
+    for label, (b, n, m, k) in (("main", (B, N, M, K)),
+                                ("ragged", (RAGGED_B, RAGGED_N, RAGGED_M,
+                                            16))):
+        pts, qs, sigma, cot = _soft_inputs(torch, rng, b, n, m)
+        ok, ik, gk = _soft_call(torch, pts, qs, sigma, k, cot)
+        op, ip, gp = _soft_call(torch, pts, qs, sigma, k, cot, plain=True)
+        if not torch.equal(ik, ip):
+            raise AssertionError(f"soft_projection {label}: idx differ in "
+                                 f"{int((ik != ip).sum())} places")
+        torch.testing.assert_close(ok, op, rtol=0, atol=1e-5)
+        for a, c in zip(gk, gp):
+            torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-5)
+        _, _, gk2 = _soft_call(torch, pts, qs, sigma, k, cot)
+        if not all(torch.equal(a, c) for a, c in zip(gk, gk2)):
+            raise AssertionError("soft_projection backward is not "
+                                 "deterministic")
+        log("compare", f"soft_projection {label} points{tuple(pts.shape)} "
+                       f"queries{tuple(qs.shape)} k={k}: idx bit-equal, out "
+                       f"max |k - p| {float((ok - op).abs().max())!r} "
+                       f"(atol 1e-5), d points / d queries / d sigma^2 "
+                       f"within rtol 1e-4 / atol 1e-5, backward bit-equal "
+                       f"across two runs")
+        if label == "main":
+            errs["soft_projection_fwd"] = float((ok - op).abs().max())
+            errs["soft_projection_bwd"] = max(
+                float((a - c).abs().max()) for a, c in zip(gk, gp))
+    return errs
+
+
+def make_train_setup(torch):
+    """The procedural data (B clouds of N points from SEED) and a seeded
+    frozen vanilla PointNet(40)."""
+    from samplenet_tpu_torch.data import make_dataset
+    from samplenet_tpu_torch.models import PointNetClassifier
+
+    data, labels = make_dataset(B, N, seed=SEED)
+    classifier = PointNetClassifier(
+        NUM_CLASSES, generator=torch.Generator().manual_seed(SEED + 5))
+    return data, labels.astype(np.int64), classifier.to(DEVICE)
+
+
+def _train_step(torch, classifier, *, dtype=None, augment=False):
+    """A fresh sampler state from SEED and its train step; with `dtype`
+    the sampler and a copy of the classifier run in that dtype."""
+    import copy
+
+    from samplenet_tpu_torch.train.classification import (
+        SampleNetConfig,
+        create_samplenet_state,
+        make_samplenet_train_step,
+    )
+
+    scfg = SampleNetConfig(batch_size=B)
+    net, state = create_samplenet_state(scfg, device=DEVICE, seed=SEED)
+    if dtype is not None:
+        net.to(dtype)             # in place: the optimiser keeps its params
+        classifier = copy.deepcopy(classifier).to(dtype)
+    step = make_samplenet_train_step(net, classifier, scfg,
+                                     augment_data=augment)
+    return net, state, step
+
+
+def phase_train_step(torch, data, labels, classifier) -> dict[str, int]:
+    """One step on the kernel path and on the plain path from the same
+    state, both held against the plain path in float64; then the main
+    path: TRAIN_STEPS augmented steps with the launch counters around."""
+    from samplenet_tpu_torch.ops.dispatch import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    x = torch.from_numpy(data).to(DEVICE)
+    y = torch.from_numpy(labels).to(DEVICE)
+    runs = {}
+    for name, plain, dtype in (("kernel", False, None), ("plain", True, None),
+                               ("f64", True, torch.float64)):
+        net, state, step = _train_step(torch, classifier, dtype=dtype)
+        with _ctx(plain):
+            metrics = step(state, x if dtype is None else x.to(dtype), y)
+        torch.cuda.synchronize()
+        runs[name] = (
+            metrics,
+            {k: p.grad.detach().clone() for k, p in net.named_parameters()},
+            {k: v.detach().clone() for k, v in net.named_buffers()
+             if "running_" in k})
+        del net, state, step
+    (mk, gk, sk), (mp, gp, sp), (_, gr, _) = (runs["kernel"], runs["plain"],
+                                             runs["f64"])
+    for k in ("loss", "task", "simplification", "projection"):
+        if not bool(torch.isfinite(mk[k])):
+            raise AssertionError(f"train step {k} is not finite")
+        torch.testing.assert_close(mk[k], mp[k], rtol=1e-4, atol=0)
+    scale = max(float(g.abs().max()) for g in gr.values())
+    worst = (0.0, 0.0, "")
+    for name in gk:
+        if name in CANCELLED:
+            for g in (gk[name], gp[name]):
+                if float(g.abs().max()) > 1e-4 * scale:
+                    raise AssertionError(f"{name}: gradient not round-off")
+            if name.startswith("conv") and bool(gk[name].any()):
+                raise AssertionError(f"{name}: kernel gradient is not 0")
+            continue
+        ek, ep = _no_worse_than_plain(name, gk[name], gp[name], gr[name])
+        worst = max(worst, (ek, ep, name))
+    for name in sk:
+        torch.testing.assert_close(sk[name], sp[name], rtol=1e-3, atol=1e-5)
+    log("train", f"one step at B={B}, {N}->{M}, k={K}, augmentation off: "
+                 f"loss {float(mk['loss'])!r} (plain {float(mp['loss'])!r}); "
+                 f"task, simplification, projection within rtol 1e-4; "
+                 f"gradients against the f64 plain path: worst kernel "
+                 f"error {worst[0]!r} of scale at {worst[2]} (plain f32 "
+                 f"{worst[1]!r}); BN-cancelled gradients round-off, conv "
+                 f"biases 0; new running stats within rtol 1e-3 / atol 1e-5")
+
+    net, state, step = _train_step(torch, classifier, augment=True)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    reset_launch_counts()
+    losses = [step(state, x, y, gen)["loss"] for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)) or state.optimizer.count != TRAIN_STEPS:
+        raise AssertionError(f"train steps: losses {losses}, applied "
+                             f"{state.optimizer.count}")
+    missing = [k for k in (*TRAIN_KERNELS, "nn_direction")
+               if counts.get(k, 0) < 1]
+    if missing:
+        raise AssertionError(f"the train path launched no {missing}")
+    log("train", f"{TRAIN_STEPS} augmented steps on the kernel path: "
+                 f"losses {losses}; kernel launches {counts}")
+    return counts
+
+
+def phase_train_cli(torch, classifier) -> None:
+    """The train CLI on the card, then resumed from its snapshot."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cls_path = os.path.join(tmp, "classifier.pth")
+        torch.save({k: v.cpu() for k, v in classifier.state_dict().items()},
+                   cls_path)
+        log_dir = os.path.join(tmp, "log")
+        cmd = [sys.executable, "-m", "samplenet_tpu_torch.train.train_samplenet",
+               "--device", "cuda", "--dataset", "procedural", "--epochs", "1",
+               "--steps-per-epoch", "3", "--train-size", "256",
+               "--test-size", "64", "--classifier-weights", cls_path,
+               "--log-dir", log_dir, "--seed", str(SEED)]
+        env = dict(os.environ)
+        env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+        outs = []
+        for extra in ([], ["--resume"]):
+            t0 = time.monotonic()
+            proc = subprocess.run(cmd + extra, cwd=HERE, env=env,
+                                  capture_output=True, text=True, timeout=600)
+            if proc.returncode:
+                raise RuntimeError(f"train CLI {extra} exited "
+                                   f"{proc.returncode}:\n"
+                                   f"{(proc.stdout + proc.stderr)[-4000:]}")
+            outs.append((proc.stdout, time.monotonic() - t0))
+        acc = [line.split("eval_acc@32=")[1].split()[0]
+               for line in outs[0][0].splitlines() if "eval_acc@32=" in line]
+        if len(acc) != 1 or not np.isfinite(float(acc[0])):
+            raise AssertionError(f"train CLI logged no eval_acc: {outs[0][0]}")
+        for rel in ("snap_last/state.pt", "ckpt/sampler.pth"):
+            if not os.path.exists(os.path.join(log_dir, rel)):
+                raise AssertionError(f"train CLI wrote no {rel}")
+        if "at epoch 1" not in outs[1][0]:
+            raise AssertionError(f"--resume did not start at epoch 1: "
+                                 f"{outs[1][0]}")
+    log("train-cli", f"train_samplenet --device cuda, 1 epoch of 3 steps: "
+                     f"exit 0 in {outs[0][1]:.1f} s, eval_acc@32={acc[0]}, "
+                     f"snap_last and ckpt written; --resume started at "
+                     f"epoch 1 (exit 0 in {outs[1][1]:.1f} s)")
+
+
+def phase_times_train(torch, data, labels, classifier, card
+                      ) -> dict[str, tuple]:
+    """The train kernels fwd and bwd and the train step, each against the
+    plain versions: CUDA-event time per call and profiler device time."""
+    from samplenet_tpu_torch.ops.cuda import point_mlp_exact_kernel as pme
+    from samplenet_tpu_torch.ops.cuda import soft_projection_kernel as spk
+    from samplenet_tpu_torch.ops.dispatch import plain_on_cuda
+
+    rng = np.random.default_rng(SEED + 11)
+    x, (ws, _, gs, bes), g = _exact_inputs(torch, rng, B, N)
+    saved_k = pme.point_mlp_exact_fwd_cuda(x, ws, gs, bes, 1e-5)[3]
+    saved_p = pme.point_mlp_exact_fwd_plain(x, ws, gs, bes, 1e-5)[3]
+    pts, qs, sigma, cot = _soft_inputs(torch, rng, B, N, M)
+    sigma = sigma.reshape(1)
+    idx_k = spk.soft_project_fwd_cuda(pts, qs, sigma, K)[1]
+    cases = {
+        "point_mlp_exact_fwd": (
+            lambda: pme.point_mlp_exact_fwd_cuda(x, ws, gs, bes, 1e-5),
+            lambda: pme.point_mlp_exact_fwd_plain(x, ws, gs, bes, 1e-5), 10),
+        "point_mlp_exact_bwd": (
+            lambda: pme.point_mlp_exact_bwd_cuda(x, ws, gs, bes, saved_k, g),
+            lambda: pme.point_mlp_exact_bwd_plain(x, ws, gs, bes, saved_p, g),
+            10),
+        "soft_projection_fwd": (
+            lambda: spk.soft_project_fwd_cuda(pts, qs, sigma, K),
+            lambda: spk.soft_project_fwd_plain(pts, qs, sigma, K), 20),
+        "soft_projection_bwd": (
+            lambda: spk.soft_project_bwd_cuda(pts, qs, sigma, idx_k, cot),
+            lambda: spk.soft_project_bwd_plain(pts, qs, sigma, idx_k, cot),
+            20),
+    }
+    times = {}
+    for name, (kernel_fn, plain_fn, iters) in cases.items():
+        times[name] = _pair_ms(torch, kernel_fn, plain_fn, iters)
+        k_dev = _device_ms(torch, kernel_fn, iters)
+        p_dev = _device_ms(torch, plain_fn, iters)
+        log("times", f"{name} at the train shape: kernel {times[name][0]!r} "
+                     f"ms per call, {k_dev!r} ms device; plain "
+                     f"{times[name][1]!r} ms per call, {p_dev!r} ms device "
+                     f"({card})")
+    del saved_k, saved_p
+
+    xd = torch.from_numpy(data).to(DEVICE)
+    yd = torch.from_numpy(labels).to(DEVICE)
+    _, kstate, kstep = _train_step(torch, classifier, augment=True)
+    _, pstate, pstep = _train_step(torch, classifier, augment=True)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+
+    def kernel_step():
+        kstep(kstate, xd, yd, gen)
+
+    def plain_step():
+        with plain_on_cuda():
+            pstep(pstate, xd, yd, gen)
+
+    k, p = _pair_ms(torch, kernel_step, plain_step, 5)
+    k_dev = _device_ms(torch, kernel_step, 3)
+    p_dev = _device_ms(torch, plain_step, 3)
+    log("times", f"train step, B={B}, {N}->{M}, k={K}, augmented: kernel "
+                 f"path {k!r} ms = {B / k * 1e3!r} clouds/s, {k_dev!r} ms "
+                 f"device (busy {k_dev / k!r}); plain path {p!r} ms = "
+                 f"{B / p * 1e3!r} clouds/s, {p_dev!r} ms device (busy "
+                 f"{p_dev / p!r}) ({card})")
+    return times
+
+
 def main() -> int:
     import torch
 
@@ -469,12 +893,19 @@ def main() -> int:
         torch.save({f"sampler.{k}": v.cpu() for k, v in
                     model.state_dict().items()}, weights)
         phase_serve(torch, model, weights)
+    train_errs = phase_compare_train(torch)
+    data, labels, classifier = make_train_setup(torch)
+    train_counts = phase_train_step(torch, data, labels, classifier)
+    phase_train_cli(torch, classifier)
     times = phase_times(torch, model, clouds, card)
+    times.update(phase_times_train(torch, data, labels, classifier, card))
+    counts = {**counts, **{k: train_counts[k] for k in TRAIN_KERNELS}}
+    errs.update(train_errs)
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[name], "max_abs_err": errs[name],
          "ms": times[name][0], "plain_ms": times[name][1]}
-        for name, (src, rep) in KERNELS.items()]}
+        for name, (src, rep) in {**KERNELS, **TRAIN_KERNELS}.items()]}
     log("done", f"all phases passed in {time.monotonic() - t0:.1f} s")
     print(json.dumps(summary))
     print(card)

@@ -1,12 +1,13 @@
-"""samplenet-tpu, PyTorch/CUDA port: the SampleNet serving path on PyTorch
-with hand-written Hopper kernels.
+"""samplenet-tpu, PyTorch/CUDA port: the SampleNet serving path and the
+classification-track sampler training on PyTorch with hand-written
+Hopper kernels.
 
 The counterpart of samplenet_tpu/__init__.py. The JAX package stays the
 reference; this package imports torch and never jax or samplenet_tpu, and
 mirrors its layout: ops/ (ops/cuda for ops/pallas, CUDA sources in csrc/),
-nn/, models/, interop/, serving.py and serve.py. Importing builds and
-loads no kernel. A CPU tensor runs each kernel's plain PyTorch version, a
-CUDA tensor the kernel (ops/dispatch.py).
+nn/, models/, data/, train/, interop/, serving.py and serve.py. Importing
+builds and loads no kernel. A CPU tensor runs each kernel's plain PyTorch
+version, a CUDA tensor the kernel (ops/dispatch.py).
 """
 
 __version__ = "0.1.0"

@@ -4,5 +4,6 @@ samplenet_tpu/interop)."""
 from samplenet_tpu_torch.interop.jax_import import (  # noqa: F401
     infer_samplenet_config,
     load_sampler_weights,
+    pointnet_state_dict_from_jax,
     samplenet_state_dict_from_jax,
 )

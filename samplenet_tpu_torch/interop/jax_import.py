@@ -70,6 +70,48 @@ def samplenet_state_dict_from_jax(
     return sd
 
 
+def pointnet_state_dict_from_jax(variables: dict[str, Any]
+                                 ) -> dict[str, np.ndarray]:
+    """The port's `PointNetClassifier` state_dict (numpy values) of a flax
+    vanilla `PointNetClassifier` variable tree ({"params",
+    "batch_stats"}; use_tnets=False). Keys:
+
+      convs/dense_i, convs/bn_i  -> conv{i+1}.weight [out, in, 1],
+                                    conv{i+1}.bias, bn{i+1}.weight/bias/
+                                    running_mean/running_var/
+                                    num_batches_tracked  (i = 0..4)
+      fc1, bn_fc1, fc2, bn_fc2   -> fc1.weight [out, in], fc1.bias,
+                                    bn_fc1.*, fc2.*, bn_fc2.*
+      fc3                        -> fc3.weight [num_classes, 256], fc3.bias
+    """
+    p, s = variables["params"], variables.get("batch_stats", {})
+    if "convs" not in p:
+        raise KeyError("not a vanilla PointNetClassifier tree (no 'convs'; "
+                       "the T-net variant is not ported yet)")
+    sd: dict[str, np.ndarray] = {}
+
+    def bn(name: str, params: dict, stats: dict) -> None:
+        sd[f"{name}.weight"] = np.asarray(params["scale"])
+        sd[f"{name}.bias"] = np.asarray(params["bias"])
+        sd[f"{name}.running_mean"] = np.asarray(stats["mean"])
+        sd[f"{name}.running_var"] = np.asarray(stats["var"])
+        sd[f"{name}.num_batches_tracked"] = np.asarray(0)
+
+    convs = p["convs"]
+    for i in range(sum(1 for k in convs if k.startswith("dense_"))):
+        k = np.asarray(convs[f"dense_{i}"]["kernel"])
+        sd[f"conv{i+1}.weight"] = np.ascontiguousarray(k.T)[:, :, None]
+        sd[f"conv{i+1}.bias"] = np.asarray(convs[f"dense_{i}"]["bias"])
+        bn(f"bn{i+1}", convs[f"bn_{i}"], s["convs"][f"bn_{i}"])
+    for i in (1, 2, 3):
+        sd[f"fc{i}.weight"] = np.ascontiguousarray(
+            np.asarray(p[f"fc{i}"]["kernel"]).T)
+        sd[f"fc{i}.bias"] = np.asarray(p[f"fc{i}"]["bias"])
+        if i < 3:
+            bn(f"bn_fc{i}", p[f"bn_fc{i}"], s[f"bn_fc{i}"])
+    return sd
+
+
 def infer_samplenet_config(sd: dict[str, Any], prefix: str = ""
                            ) -> dict[str, Any]:
     """Constructor kwargs for the port's `SampleNet` read off the weight

@@ -1,4 +1,5 @@
-"""SampleNet eval forward: simplification network + on-device hard matching.
+"""SampleNet: simplification network + soft projection (training) or
+on-device hard matching (eval).
 
 Mirrors samplenet_tpu/models/samplenet.py:36-200. The simplification
 network is a per-point MLP (3->64->64->64->128->bottleneck, BN+ReLU), a
@@ -12,8 +13,10 @@ As in the reference torch SampleNet, the layers sit flat on the module
 (conv1..5, bn1..5, fc1..4, bn_fc1..3, project._temperature), so the
 state_dict has the reference's key surface. SampleNet is the
 simplification network plus the projector and the matcher. Clouds are
-[B, N, 3] ("bnc") inside; "bcn" is accepted at the edges. Train mode
-(soft projection, batch-statistics BN) is slice 2 and raises.
+[B, N, 3] ("bnc") inside; "bcn" is accepted at the edges. In training,
+the forward returns (simplified, projected): batch-statistics BN (the
+conv chain as the exact-BN kernel) and the soft projection of the
+simplified points onto the input (samplenet.py:147-200).
 """
 
 from __future__ import annotations
@@ -21,8 +24,10 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from samplenet_tpu_torch.models import losses as losses_lib
 from samplenet_tpu_torch.models.soft_projection import SoftProjection
 from samplenet_tpu_torch.nn.layers import (
+    BN_MOMENTUM,
     Linear,
     add_mlp_head,
     add_point_mlp,
@@ -31,8 +36,6 @@ from samplenet_tpu_torch.nn.layers import (
     point_mlp,
 )
 from samplenet_tpu_torch.ops.matching import nn_match_from_clouds
-
-_TRAIN_MSG = "SampleNet train mode (soft projection) is slice 2 of the port"
 
 
 def _to_bnc(x: torch.Tensor, shape: str) -> torch.Tensor:
@@ -49,16 +52,18 @@ class SimplificationNet(nn.Module):
     def __init__(self, num_out_points: int, bottleneck_size: int = 128,
                  conv_widths: tuple = (64, 64, 64, 128),
                  fc_widths: tuple = (256, 256, 256), fc_bn: bool = True, *,
-                 device=None, generator: torch.Generator | None = None):
+                 bn_momentum: float = BN_MOMENTUM, device=None,
+                 generator: torch.Generator | None = None):
         super().__init__()
         gen = default_generator(generator)
         self.num_out_points = num_out_points
         self._n_conv = len(conv_widths) + 1
         self._n_fc = len(fc_widths)
         add_point_mlp(self, 3, (*conv_widths, bottleneck_size),
-                      device=device, generator=gen)
+                      bn_momentum=bn_momentum, device=device, generator=gen)
         add_mlp_head(self, bottleneck_size, fc_widths, use_bn=fc_bn,
-                     activate_final=True, device=device, generator=gen)
+                     activate_final=True, bn_momentum=bn_momentum,
+                     device=device, generator=gen)
         self.add_module(f"fc{self._n_fc + 1}", Linear(
             fc_widths[-1], 3 * num_out_points, device=device, generator=gen))
 
@@ -75,50 +80,75 @@ class SimplificationNet(nn.Module):
 class SampleNet(SimplificationNet):
     """Sampler with the reference's constructor surface
     (registration/src/samplenet.py:23-35). `forward(x)` returns
-    (simplified, matched) in `output_shape` layout."""
+    (simplified, matched) in `output_shape` layout; `forward(x,
+    training=True)` returns (simplified, projected), or (simplified,
+    simplified) with `skip_projection`. The classification track uses
+    sigma_mode="tf"; the default stays "torch", as in the JAX package."""
 
     def __init__(self, num_out_points: int, bottleneck_size: int = 128,
                  group_size: int = 7, initial_temperature: float = 1.0,
                  is_temperature_trainable: bool = True,
                  min_sigma: float = 1e-2, input_shape: str = "bnc",
                  output_shape: str = "bnc", complete_fps: bool = True,
-                 sigma_mode: str = "torch",
+                 skip_projection: bool = False, sigma_mode: str = "torch",
                  conv_widths: tuple = (64, 64, 64, 128),
                  fc_widths: tuple = (256, 256, 256), fc_bn: bool = True, *,
-                 device=None, generator: torch.Generator | None = None):
+                 bn_momentum: float = BN_MOMENTUM, device=None,
+                 generator: torch.Generator | None = None):
         if input_shape not in ("bnc", "bcn"):
             raise ValueError("input_shape must be 'bnc' or 'bcn'")
         if output_shape not in ("bnc", "bcn"):
             raise ValueError("output_shape must be 'bnc' or 'bcn'")
         super().__init__(num_out_points, bottleneck_size, conv_widths,
-                         fc_widths, fc_bn, device=device, generator=generator)
+                         fc_widths, fc_bn, bn_momentum=bn_momentum,
+                         device=device, generator=generator)
         self.input_shape = input_shape
         self.output_shape = output_shape
         self.complete_fps = complete_fps
+        self.skip_projection = skip_projection
         self.project = SoftProjection(
             group_size, initial_temperature, is_temperature_trainable,
             min_sigma, sigma_mode, device=device)
 
     def forward(self, x: torch.Tensor, training: bool = False
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-        """(simplified, matched): matched is the unique + FPS-completed
-        hard sample of the input, all on the device."""
-        if training:
-            raise NotImplementedError(_TRAIN_MSG)
+        """(simplified, sampled). At eval, sampled is the unique +
+        FPS-completed hard sample of the input, all on the device; in
+        training, the soft projection of the simplified points."""
         x = _to_bnc(x, self.input_shape)
-        simp = super().forward(x)
-        out, _ = nn_match_from_clouds(x, simp, self.num_out_points,
-                                      complete_fps=self.complete_fps)
+        simp = super().forward(x, training=training)
+        if not training:
+            out, _ = nn_match_from_clouds(x, simp, self.num_out_points,
+                                          complete_fps=self.complete_fps)
+        elif self.skip_projection:
+            out = simp
+        else:
+            out, _, _ = self.project.project(x, simp)
         return _from_bnc(simp, self.output_shape), _from_bnc(
             out, self.output_shape)
 
     def simplify(self, x: torch.Tensor, training: bool = False
                  ) -> torch.Tensor:
-        """Simplified cloud only (no matching)."""
-        if training:
-            raise NotImplementedError(_TRAIN_MSG)
+        """Simplified cloud only (no projection or matching)."""
         x = _to_bnc(x, self.input_shape)
-        return _from_bnc(super().forward(x), self.output_shape)
+        return _from_bnc(super().forward(x, training=training),
+                         self.output_shape)
 
     def sigma(self) -> torch.Tensor:
         return self.project.sigma()
+
+    def get_simplification_loss(self, ref_pc: torch.Tensor,
+                                samp_pc: torch.Tensor, pc_size: int,
+                                gamma: float = 1.0, delta: float = 0.0,
+                                training: bool = True) -> torch.Tensor:
+        """Zero at inference or with skip_projection (samplenet.py:
+        182-195); clouds are [B, N, 3]."""
+        if self.skip_projection or not training:
+            return torch.zeros((), device=ref_pc.device)
+        return losses_lib.simplification_loss(ref_pc, samp_pc, pc_size,
+                                              gamma, delta)
+
+    def get_projection_loss(self, training: bool = True) -> torch.Tensor:
+        if self.skip_projection or not training:
+            return torch.zeros((), device=self.project._temperature.device)
+        return losses_lib.projection_loss(self.project.sigma())

@@ -1,9 +1,15 @@
-"""Soft projection's temperature parameter and sigma^2.
+"""Soft projection: the differentiable-sampling relaxation of SampleNet.
 
-Mirrors samplenet_tpu/models/soft_projection.py:30-77 (the parameter and
-`sigma()` in its three conventions), so the sampler's weights are complete
-and carry the reference key `project._temperature`. `project()`, the
-differentiable k-NN mixture used in training, is slice 2 of the port.
+Mirrors samplenet_tpu/models/soft_projection.py:30-130: the temperature
+parameter (reference key `project._temperature`), `sigma()` in its three
+conventions, and `project`, which replaces each query point by the
+softmax(-d^2 / sigma^2) mixture of its k nearest input points. `project`
+always runs `ops/cuda/soft_projection_kernel.py::soft_project`: the
+kernels on a CUDA tensor, their plain version on a CPU tensor (as JAX
+picks the Pallas kernel on a TPU). `_group` and `_weights` are JAX's XLA
+formulation (k-NN by |x|^2 + |y|^2 - 2xy, gather, softmax), kept for the
+feature propagation of the reconstruction track. The hard projection
+needs the 1-NN snap kernel, which is not ported yet.
 
   * torch (registration/src/soft_projection.py:92-99): sigma^2 = max(t^2, min_sigma)
   * tf (classification/soft_projection.py:41): sigma^2 = t^2
@@ -14,6 +20,12 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+
+from samplenet_tpu_torch.ops.cuda.soft_projection_kernel import soft_project
+from samplenet_tpu_torch.ops.knn import group_point, knn_point
+
+_HARD_MSG = ("SoftProjection.project(hard=True) needs the nn_snap kernel, "
+             "which is not ported yet (ROADMAP Queue 2 item 6)")
 
 
 def sigma_from_temperature(temperature: torch.Tensor, mode: str,
@@ -49,3 +61,32 @@ class SoftProjection(nn.Module):
     def sigma(self) -> torch.Tensor:
         return sigma_from_temperature(self._temperature, self.sigma_mode,
                                       self.min_sigma)
+
+    def _group(self, point_cloud: torch.Tensor, query_cloud: torch.Tensor,
+               point_features: torch.Tensor | None = None):
+        """(grouped points [B, M, k, 3], grouped features or None)."""
+        _, idx = knn_point(self.group_size, point_cloud, query_cloud)
+        grouped = group_point(point_cloud, idx)
+        feats = None if point_features is None \
+            else group_point(point_features, idx)
+        return grouped, feats
+
+    def _weights(self, grouped_points: torch.Tensor,
+                 query_cloud: torch.Tensor):
+        """(softmax weights [B, M, k], scaled distances [B, M, k])."""
+        deltas = grouped_points - query_cloud[:, :, None, :]
+        dist = (deltas * deltas).sum(-1) / self.sigma()
+        return torch.softmax(-dist, dim=-1), dist
+
+    def project(self, point_cloud: torch.Tensor, query_cloud: torch.Tensor,
+                hard: bool = False):
+        """(projected [B, M, 3], None, None) for point_cloud [B, N, 3] and
+        query_cloud [B, M, 3]; differentiable in both clouds and in the
+        temperature. The weights and distances live only inside the
+        kernel, as on the JAX package's Pallas path (soft_projection.py:
+        116-121)."""
+        if hard:
+            raise NotImplementedError(_HARD_MSG)
+        projected, _ = soft_project(point_cloud, query_cloud, self.sigma(),
+                                    self.group_size)
+        return projected, None, None

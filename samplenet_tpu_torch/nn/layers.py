@@ -1,4 +1,4 @@
-"""Shared neural building blocks, eval forward.
+"""Shared neural building blocks, eval and train forward.
 
 Mirrors samplenet_tpu/nn/layers.py:54-312 (`PointMLP`, `MLPHead`). A 1x1
 conv over points is a per-point matmul: each conv keeps the reference's
@@ -13,8 +13,15 @@ by `point_mlp` / `mlp_head`; `PointMLP` and `MLPHead` own them alone, and
 models/samplenet.py adds them flat to SampleNet, as the reference does.
 
 Initialisation follows flax, from an explicit torch.Generator: lecun-normal
-kernels, zero biases, BN scale 1 / bias 0 / mean 0 / var 1. Train mode
-(batch-statistics BN and its fused kernels) is slice 2 and raises.
+kernels, zero biases, BN scale 1 / bias 0 / mean 0 / var 1.
+
+Train mode is flax's BatchNorm, not torch's BatchNorm1d: batch statistics
+over every axis but the last, the fast variance mean(x^2) - mean(x)^2
+clamped at 0 (biased), and running averages m * old + (1 - m) * batch
+with flax's momentum m (0.9). With `pool_max` the conv chain runs as
+`point_mlp_exact_train_max` (exact global statistics; the kernel on a
+CUDA tensor), which reports the statistics that update the running
+averages, as samplenet_tpu/nn/layers.py:48-51 (`BNTrainStats.update`).
 """
 
 from __future__ import annotations
@@ -25,13 +32,16 @@ from collections.abc import Sequence
 import torch
 from torch import nn
 
+from samplenet_tpu_torch.ops.cuda.point_mlp_exact_kernel import (
+    point_mlp_exact_train_max,
+)
 from samplenet_tpu_torch.ops.cuda.point_mlp_kernel import (
     fold_bn_affine,
     point_mlp_max,
 )
 
 BN_EPS = 1e-5
-_TRAIN_MSG = "train mode (batch-statistics BN) is slice 2 of the port"
+BN_MOMENTUM = 0.9
 
 
 def lecun_normal_(w: torch.Tensor, fan_in: int,
@@ -81,12 +91,16 @@ class Linear(nn.Linear):
 
 
 class BatchNorm(nn.Module):
-    """Eval BatchNorm over the last axis, flax's arithmetic:
-    (x - mean) * (rsqrt(var + eps) * scale) + bias. Its parameters and
-    buffers carry BatchNorm1d's names, num_batches_tracked included."""
+    """BatchNorm over the last axis, flax's arithmetic:
+    (x - mean) * (rsqrt(var + eps) * scale) + bias, with the running
+    statistics at eval and the batch statistics in training. Its
+    parameters and buffers carry BatchNorm1d's names, num_batches_tracked
+    included. `momentum` is flax's (the weight of the old average)."""
 
-    def __init__(self, features: int, *, device=None):
+    def __init__(self, features: int, *, momentum: float = BN_MOMENTUM,
+                 device=None):
         super().__init__()
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(features, device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
         self.register_buffer("running_mean",
@@ -96,13 +110,29 @@ class BatchNorm(nn.Module):
         self.register_buffer("num_batches_tracked",
                              torch.tensor(0, dtype=torch.long, device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.running_var + BN_EPS) * self.weight
-        return (x - self.running_mean) * mul + self.bias
+    def update_stats(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """Running averages from one batch's mean and biased variance."""
+        m = self.momentum
+        with torch.no_grad():
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+            self.num_batches_tracked += 1
+
+    def forward(self, x: torch.Tensor, training: bool = False) -> torch.Tensor:
+        if not training:
+            mean, var = self.running_mean, self.running_var
+        else:
+            flat = x.reshape(-1, x.shape[-1])
+            mean = flat.mean(0)
+            var = torch.clamp((flat * flat).mean(0) - mean * mean, min=0.0)
+            self.update_stats(mean.detach(), var.detach())
+        mul = torch.rsqrt(var + BN_EPS) * self.weight
+        return (x - mean) * mul + self.bias
 
 
 def add_point_mlp(owner: nn.Module, in_features: int,
-                  features: Sequence[int], *, device=None,
+                  features: Sequence[int], *,
+                  bn_momentum: float = BN_MOMENTUM, device=None,
                   generator: torch.Generator | None = None) -> None:
     """Adds conv1..L and bn1..L to `owner`."""
     gen = default_generator(generator)
@@ -110,19 +140,28 @@ def add_point_mlp(owner: nn.Module, in_features: int,
     for i in range(len(features)):
         owner.add_module(f"conv{i + 1}", PointConv(
             widths[i], widths[i + 1], device=device, generator=gen))
-        owner.add_module(f"bn{i + 1}", BatchNorm(widths[i + 1], device=device))
+        owner.add_module(f"bn{i + 1}", BatchNorm(
+            widths[i + 1], momentum=bn_momentum, device=device))
 
 
 def point_mlp(owner: nn.Module, n_layers: int, x: torch.Tensor, *,
               training: bool = False, pool_max: bool = False) -> torch.Tensor:
     """conv -> BN -> ReLU per layer over x [B, N, C]. With `pool_max` the
-    result is the max over points, [B, C_out]: each BN folds into its
-    layer's affine and the chain runs as `point_mlp_max`, the kernel on a
-    CUDA tensor (samplenet_tpu/nn/layers.py:196-223)."""
-    if training:
-        raise NotImplementedError(_TRAIN_MSG)
+    result is the max over points, [B, C_out], and the chain runs as one
+    kernel on a CUDA tensor: at eval each BN folds into its layer's affine
+    and the chain is `point_mlp_max` (samplenet_tpu/nn/layers.py:196-223);
+    in training it is `point_mlp_exact_train_max` (:151-186)."""
     layers = [(getattr(owner, f"conv{i + 1}"), getattr(owner, f"bn{i + 1}"))
               for i in range(n_layers)]
+    if pool_max and training:
+        pooled, means, vars_ = point_mlp_exact_train_max(
+            x, [conv.kernel() for conv, _ in layers],
+            [conv.bias for conv, _ in layers],
+            [bn.weight for _, bn in layers], [bn.bias for _, bn in layers],
+            eps=BN_EPS)
+        for (_, bn), mean, var in zip(layers, means, vars_):
+            bn.update_stats(mean, var)
+        return pooled
     if pool_max:
         wbs = []
         for conv, bn in layers:
@@ -131,13 +170,14 @@ def point_mlp(owner: nn.Module, n_layers: int, x: torch.Tensor, *,
                                   BN_EPS)
         return point_mlp_max(x, tuple(wbs))
     for conv, bn in layers:
-        x = torch.relu(bn(conv(x)))
+        x = torch.relu(bn(conv(x), training))
     return x
 
 
 def add_mlp_head(owner: nn.Module, in_features: int,
                  features: Sequence[int], *, use_bn: bool = True,
-                 activate_final: bool = False, device=None,
+                 activate_final: bool = False,
+                 bn_momentum: float = BN_MOMENTUM, device=None,
                  generator: torch.Generator | None = None) -> None:
     """Adds fc1..L to `owner`, and with `use_bn` a bn_fc{i} for each layer
     that is activated (all but the last unless `activate_final`)."""
@@ -148,23 +188,21 @@ def add_mlp_head(owner: nn.Module, in_features: int,
         owner.add_module(f"fc{i + 1}", Linear(
             widths[i], widths[i + 1], device=device, generator=gen))
         if use_bn and (i < n - 1 or activate_final):
-            owner.add_module(f"bn_fc{i + 1}",
-                             BatchNorm(widths[i + 1], device=device))
+            owner.add_module(f"bn_fc{i + 1}", BatchNorm(
+                widths[i + 1], momentum=bn_momentum, device=device))
 
 
 def mlp_head(owner: nn.Module, n_layers: int, x: torch.Tensor, *,
              activate_final: bool = False,
              training: bool = False) -> torch.Tensor:
     """fc -> (BN) -> ReLU over x [B, C], leaving the last layer linear
-    unless `activate_final`."""
-    if training:
-        raise NotImplementedError(_TRAIN_MSG)
+    unless `activate_final`. Plain torch in both modes."""
     for i in range(n_layers):
         x = getattr(owner, f"fc{i + 1}")(x)
         if i < n_layers - 1 or activate_final:
             bn = getattr(owner, f"bn_fc{i + 1}", None)
             if bn is not None:
-                x = bn(x)
+                x = bn(x, training)
             x = torch.relu(x)
     return x
 

@@ -8,8 +8,18 @@ from samplenet_tpu_torch.ops.cuda.chamfer_kernel import (  # noqa: F401
     nn_direction_plain,
 )
 from samplenet_tpu_torch.ops.cuda.fps_kernel import fps, fps_plain  # noqa: F401
+from samplenet_tpu_torch.ops.cuda.point_mlp_exact_kernel import (  # noqa: F401
+    point_mlp_exact_bwd_plain,
+    point_mlp_exact_fwd_plain,
+    point_mlp_exact_train_max,
+)
 from samplenet_tpu_torch.ops.cuda.point_mlp_kernel import (  # noqa: F401
     fold_bn_affine,
     point_mlp_max,
     point_mlp_max_plain,
+)
+from samplenet_tpu_torch.ops.cuda.soft_projection_kernel import (  # noqa: F401
+    soft_project,
+    soft_project_bwd_plain,
+    soft_project_fwd_plain,
 )

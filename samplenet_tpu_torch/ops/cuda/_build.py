@@ -2,9 +2,11 @@
 
 `samplenet_tpu_torch/csrc/*.cu` compile, at first use, into one shared
 library with a plain C interface under `build/kernels/<source hash>/` at
-the checkout root (listed in .gitignore). A later process with the same
-sources loads the existing library. Nothing here runs at import time, and
-a missing nvcc or a failed build raises: there is no fallback.
+the checkout root (listed in .gitignore): one nvcc per source, all started
+together, then one link, so the build takes as long as the slowest source.
+A later process with the same sources loads the existing library. Nothing
+here runs at import time, and a missing nvcc or a failed build raises:
+there is no fallback.
 """
 
 from __future__ import annotations
@@ -24,10 +26,11 @@ PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_ROOT = PACKAGE_DIR.parent / "build" / "kernels"
 LIB_NAME = "libsamplenet_kernels.so"
-NVCC_FLAGS = (
+NVCC_FLAGS = (           # compiling one source into an object
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-shared",)
 
 _lib: ctypes.CDLL | None = None
 _lib_lock = threading.Lock()
@@ -52,7 +55,7 @@ def _headers() -> list[Path]:
 
 def library_path() -> Path:
     """Where the library for the current sources lives once built."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in _sources() + _headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -71,16 +74,34 @@ def build() -> tuple[Path, float]:
             "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
             "CUDA kernels of samplenet_tpu_torch cannot be built")
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    tag = f"{os.getpid()}.tmp"
+    tmp = out.with_name(f"{LIB_NAME}.{tag}")
+    objs = [out.with_name(f"{src.stem}.{tag}.o") for src in _sources()]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src, obj in zip(_sources(), objs):
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    log, failed = [], None
+    for cmd, proc in jobs:           # waits for every compile, failed or not
+        stdout, stderr = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + stdout + stderr)
+        if proc.returncode and failed is None:
+            failed = (proc.returncode, stderr)
+    if failed is None:
+        cmd = [nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode:
+            failed = (proc.returncode, proc.stderr)
     seconds = time.perf_counter() - t0
-    (out.parent / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    (out.parent / "build.log").write_text("".join(log))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed is not None:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({failed[0]}):\n{failed[1][-4000:]}")
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     return out, seconds
 
@@ -107,6 +128,26 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.snt_point_mlp_max_smem.restype = ctypes.c_size_t
     lib.snt_point_mlp_max.argtypes = [p, p, ctypes.POINTER(i), i, p, i, i, p]
     lib.snt_point_mlp_max.restype = i
+    ll, pp, sz = ctypes.c_longlong, ctypes.POINTER(p), ctypes.c_size_t
+    lib.snt_soft_project_fwd.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    lib.snt_soft_project_fwd.restype = i
+    lib.snt_soft_project_bwd_smem.argtypes = [i, i]
+    lib.snt_soft_project_bwd_smem.restype = sz
+    lib.snt_soft_project_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
+    lib.snt_soft_project_bwd.restype = i
+    lib.snt_pme_dense_smem.argtypes = [i, i]
+    lib.snt_pme_dense_smem.restype = sz
+    lib.snt_pme_bwd_smem.argtypes = [i, i]
+    lib.snt_pme_bwd_smem.restype = sz
+    lib.snt_pme_dense.argtypes = [p, i, pp, p, i, p, p, ll, i, p]
+    lib.snt_pme_dense.restype = i
+    lib.snt_pme_pool.argtypes = [p, pp, i, i, i, p, p, p]
+    lib.snt_pme_pool.restype = i
+    lib.snt_pme_rows.argtypes = [p, pp, i, p, p, p, i, i, p, i, p]
+    lib.snt_pme_rows.restype = i
+    lib.snt_pme_bwd.argtypes = [p, i, i, pp, p, pp, i, p, p, p, i, i, p, p,
+                                p, p, p, i, p]
+    lib.snt_pme_bwd.restype = i
     return lib
 
 

@@ -28,8 +28,9 @@ def _check_args(x: torch.Tensor, y: torch.Tensor) -> None:
             f"{tuple(x.shape)} and {tuple(y.shape)}")
     if x.shape[1] == 0 or y.shape[1] == 0:
         raise ValueError("nn_direction needs N1 >= 1 and N2 >= 1")
-    if x.dtype != torch.float32 or y.dtype != torch.float32:
-        raise TypeError(f"nn_direction takes float32, got {x.dtype}, {y.dtype}")
+    if x.dtype != y.dtype or x.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"nn_direction takes float32 (or float64 on the plain "
+                        f"path), got {x.dtype}, {y.dtype}")
     if x.device != y.device:
         raise ValueError(f"x on {x.device} but y on {y.device}")
 
@@ -64,6 +65,8 @@ def _nn_direction_cuda(x: torch.Tensor, y: torch.Tensor
                          f"got {x.device}")
     if not (x.is_contiguous() and y.is_contiguous()):
         raise ValueError("the nn_direction kernel takes contiguous x and y")
+    if x.dtype != torch.float32:
+        raise TypeError(f"the nn_direction kernel takes float32, got {x.dtype}")
     b, n1, _ = x.shape
     n2 = y.shape[1]
     if -(-n1 // _QUERY_TILE) > _MAX_GRID_Y:

@@ -66,7 +66,7 @@ def _check_args(x: torch.Tensor, pairs) -> list[int]:
 
 
 @contextlib.contextmanager
-def _full_f32_matmul():
+def full_f32_matmul():
     """Plain f32 matmuls: TF32 off for the block, as the reference holds."""
     prev = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
@@ -82,7 +82,7 @@ def _full_f32_matmul():
 def point_mlp_max_plain(x: torch.Tensor, weights_and_biases) -> torch.Tensor:
     """max over points of the ReLU-chained per-point MLP: [B, C_out]."""
     h = x
-    with _full_f32_matmul():
+    with full_f32_matmul():
         for w, b in _pairs(weights_and_biases):
             h = torch.relu(torch.matmul(h, w) + b)
     return h.amax(dim=1)

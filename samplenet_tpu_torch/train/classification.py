@@ -1,0 +1,210 @@
+"""Classification track: SampleNet trained against a frozen PointNet.
+
+Mirrors the sampler half of samplenet_tpu/train/classification.py:57-374
+(classification/train_samplenet.py and evaluate_samplenet.py). A train
+step is: on-device augmentation, the sampler's train forward (exact-BN
+conv chain and soft projection, each a kernel on a CUDA tensor), the
+frozen classifier on the projected cloud, L = task + alpha * simplification
+(Chamfer, through the nn_direction kernel) + lmbda * projection, backward,
+and one guarded Adam step. The classifier is frozen: eval mode and
+requires_grad off, while the gradient still flows through it into the
+projected cloud (train_samplenet.py:169-171,195-199). Eval is hard
+matching (unique + FPS) then the classifier, all on the device.
+
+The JAX config's TPU knobs (bf16, remat, conv_layout, fused_*) have no
+counterpart: the port runs f32 and takes the exact-BN kernel on a CUDA
+tensor.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Callable
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+from torch import nn
+
+from samplenet_tpu_torch.data import (
+    augment,
+    iterate_batches,
+    iterate_batches_padded,
+)
+from samplenet_tpu_torch.models.pointnet_cls import classification_loss
+from samplenet_tpu_torch.models.samplenet import SampleNet
+from samplenet_tpu_torch.train.state import (
+    TrainState,
+    adam_with_schedule,
+    bn_decay_schedule,
+    bn_running_stats,
+    scheduled_bn_update,
+    staircase_lr,
+)
+
+
+@dataclass
+class SampleNetConfig:
+    num_out_points: int = 32
+    bottleneck_size: int = 128
+    group_size: int = 7
+    initial_temperature: float = 1.0
+    min_sigma: float = 1e-2
+    skip_projection: bool = False
+    # loss weights (classification defaults, train_samplenet.py:39-47)
+    alpha: float = 30.0
+    lmbda: float = 1.0
+    gamma: float = 1.0
+    delta: float = 0.0
+    learning_rate: float = 0.01
+    decay_step: float = 600000.0
+    decay_rate: float = 0.7
+    batch_size: int = 32
+    # TF-style scheduled BN decay 0.5 -> 0.99 (train_samplenet.py:124-133):
+    # the BatchNorms run with momentum 0 and the EMA happens in the step
+    bn_schedule: bool = False
+
+
+def create_samplenet_state(scfg: SampleNetConfig, *, device="cpu",
+                           seed: int = 0) -> tuple[SampleNet, TrainState]:
+    """The classification-track sampler (sigma = t^2, no clamp) with
+    flax-style initialisation from `seed`, and its guarded Adam."""
+    sampler = SampleNet(
+        num_out_points=scfg.num_out_points,
+        bottleneck_size=scfg.bottleneck_size,
+        group_size=scfg.group_size,
+        initial_temperature=scfg.initial_temperature,
+        min_sigma=scfg.min_sigma,
+        skip_projection=scfg.skip_projection,
+        sigma_mode="tf",
+        bn_momentum=0.0 if scfg.bn_schedule else 0.9,
+        generator=torch.Generator().manual_seed(seed),
+    ).to(device)
+    opt = adam_with_schedule(
+        sampler.parameters(),
+        staircase_lr(scfg.learning_rate, scfg.batch_size, scfg.decay_step,
+                     scfg.decay_rate))
+    return sampler, TrainState(model=sampler, optimizer=opt)
+
+
+def freeze(classifier: nn.Module) -> nn.Module:
+    """Eval mode and no parameter gradients; inputs still get gradients."""
+    classifier.eval()
+    for p in classifier.parameters():
+        p.requires_grad_(False)
+    return classifier
+
+
+def make_samplenet_train_step(sampler: SampleNet, classifier: nn.Module,
+                              scfg: SampleNetConfig,
+                              augment_data: bool = True) -> Callable:
+    """step(state, points [B, N, 3], labels [B], generator) -> metrics,
+    each a 0-d tensor on the points' device; updates state in place."""
+    freeze(classifier)
+
+    def step(state: TrainState, points: torch.Tensor, labels: torch.Tensor,
+             generator: torch.Generator | None = None) -> dict:
+        if augment_data:
+            points = augment.augment_for_classification(generator, points)
+        old_stats = bn_running_stats(sampler) if scfg.bn_schedule else None
+        simp, proj = sampler(points, training=True)
+        logits, _ = classifier(proj)
+        task_loss = classification_loss(logits, labels)
+        simp_loss = sampler.get_simplification_loss(
+            points, simp, scfg.num_out_points, scfg.gamma, scfg.delta)
+        proj_loss = sampler.get_projection_loss()
+        loss = task_loss + scfg.alpha * simp_loss + scfg.lmbda * proj_loss
+        state.optimizer.zero_grad()
+        loss.backward()
+        if scfg.bn_schedule:
+            decay = bn_decay_schedule(state.step, scfg.batch_size,
+                                      decay_step_samples=scfg.decay_step)
+            new = scheduled_bn_update(old_stats, bn_running_stats(sampler),
+                                      decay)
+            with torch.no_grad():
+                for name, value in new.items():
+                    sampler.get_buffer(name).copy_(value)
+        state.optimizer.step()
+        state.step += 1
+        acc = (logits.argmax(-1) == labels).float().mean()
+        return {"loss": loss.detach(), "task": task_loss.detach(),
+                "simplification": simp_loss.detach(),
+                "projection": proj_loss.detach(), "acc": acc}
+
+    return step
+
+
+def make_samplenet_eval_step(sampler: SampleNet,
+                             classifier: nn.Module) -> Callable:
+    """step(state, points, labels) -> [B] bool: hard matching, then the
+    frozen classifier (evaluate_samplenet.py:99-277)."""
+    freeze(classifier)
+
+    def step(state: TrainState, points: torch.Tensor,
+             labels: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode():
+            _, matched = sampler(points, training=False)
+            logits, _ = classifier(matched)
+            return logits.argmax(-1) == labels
+
+    return step
+
+
+def _to_device(bx: np.ndarray, by: np.ndarray, device):
+    return (torch.from_numpy(np.ascontiguousarray(bx)).to(device),
+            torch.from_numpy(np.asarray(by, np.int64)).to(device))
+
+
+def evaluate_samplenet(eval_step, state, test_data, batch_size: int, *,
+                       device) -> float:
+    """Accuracy over every test cloud (pad-and-slice)."""
+    data, labels = test_data
+    correct = []
+    for bx, by, real in iterate_batches_padded(data, labels, batch_size):
+        ok = eval_step(state, *_to_device(bx, by, device))
+        correct.append(ok[:real].cpu().numpy())
+    return float(np.mean(np.concatenate(correct)))
+
+
+def per_class_accuracy(eval_step, state, test_data, batch_size: int,
+                       num_classes: int, *, device) -> np.ndarray:
+    """Per-class accuracy table (evaluate_samplenet.py:273-277)."""
+    data, labels = test_data
+    correct = np.zeros(num_classes)
+    seen = np.zeros(num_classes)
+    for bx, by, real in iterate_batches_padded(data, labels, batch_size):
+        ok = eval_step(state, *_to_device(bx, by, device)).cpu().numpy()
+        np.add.at(seen, by[:real], 1)
+        np.add.at(correct, by[:real], ok[:real])
+    return correct / np.maximum(seen, 1)
+
+
+def train_samplenet_loop(sampler, state, scfg: SampleNetConfig, classifier,
+                         train_data, test_data, *, epochs: int, logger,
+                         device, seed: int = 0,
+                         steps_per_epoch: int | None = None,
+                         start_epoch: int = 0, epoch_callback=None):
+    train_step = make_samplenet_train_step(sampler, classifier, scfg)
+    eval_step = make_samplenet_eval_step(sampler, classifier)
+    data, labels = train_data
+    np_rng = np.random.RandomState(start_epoch)
+    generator = torch.Generator(device=device).manual_seed(seed)
+    for epoch in range(start_epoch, epochs):
+        agg: dict[str, list] = {}
+        for bi, (bx, by) in enumerate(iterate_batches(
+                data, labels, scfg.batch_size, rng=np_rng)):
+            if steps_per_epoch is not None and bi >= steps_per_epoch:
+                break
+            metrics = train_step(state, *_to_device(bx, by, device),
+                                 generator)
+            for k, v in metrics.items():
+                agg.setdefault(k, []).append(v)
+        means = {k: float(torch.stack(v).mean()) for k, v in agg.items()}
+        test_acc = evaluate_samplenet(eval_step, state, test_data,
+                                      scfg.batch_size, device=device)
+        logger.log(f"epoch {epoch}: " +
+                   " ".join(f"{k}={v:.4f}" for k, v in means.items()) +
+                   f" eval_acc@{scfg.num_out_points}={test_acc:.4f}")
+        logger.metrics(state.step, eval_acc=test_acc, **means)
+        if epoch_callback is not None:
+            epoch_callback(epoch, state, test_acc)
+    return state

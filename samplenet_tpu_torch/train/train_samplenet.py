@@ -1,0 +1,166 @@
+"""CLI: train SampleNet against a frozen PointNet classifier
+(classification/train_samplenet.py pipeline), on the port.
+
+    python -m samplenet_tpu_torch.train.train_samplenet --device cuda \\
+        --classifier-weights classifier.pth --num-out-points 32
+
+`--classifier-weights` is a `PointNetClassifier` state_dict of the port
+(torch.save); a JAX classifier checkpoint converts to one with
+`samplenet_tpu_torch.interop.pointnet_state_dict_from_jax`. Each epoch
+writes `--log-dir`/snap_last (and snap_best when the eval accuracy
+improves); `--resume` continues from snap_last. At the end the best
+snapshot is published as `--log-dir`/ckpt (sampler.pth + config.json).
+
+Flags of the JAX CLI left out: --bf16, --fused-train/--no-fused-train,
+--fused-mode, --fused-f32 and --conv-layout select TPU code paths (the
+port runs f32 and its exact-BN kernel); --data-parallel waits for the
+multi-device slice; --classifier-ckpt (orbax) becomes --classifier-weights.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import torch
+
+from samplenet_tpu_torch.data import CLASS_NAMES, load_split, make_dataset
+from samplenet_tpu_torch.models.pointnet_cls import PointNetClassifier
+from samplenet_tpu_torch.train import checkpoints
+from samplenet_tpu_torch.train.classification import (
+    SampleNetConfig,
+    create_samplenet_state,
+    make_samplenet_eval_step,
+    per_class_accuracy,
+    train_samplenet_loop,
+)
+from samplenet_tpu_torch.utils import Logger
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser("train_samplenet")
+    p.add_argument("--device", default="cuda", choices=["cpu", "cuda"])
+    p.add_argument("--dataset", default="procedural",
+                   choices=["procedural", "modelnet40"])
+    p.add_argument("--data-dir", default="data")
+    p.add_argument("--num-points", type=int, default=1024)
+    p.add_argument("--batch-size", type=int, default=32)
+    p.add_argument("--epochs", type=int, default=50)
+    p.add_argument("--steps-per-epoch", type=int, default=None)
+    p.add_argument("--num-out-points", type=int, default=32)
+    p.add_argument("--bottleneck-size", type=int, default=128)
+    p.add_argument("--group-size", type=int, default=7)
+    p.add_argument("--alpha", type=float, default=30.0)
+    p.add_argument("--lmbda", type=float, default=1.0)
+    p.add_argument("--gamma", type=float, default=1.0)
+    p.add_argument("--delta", type=float, default=0.0)
+    p.add_argument("--learning-rate", type=float, default=0.01)
+    p.add_argument("--skip-projection", action="store_true")
+    p.add_argument("--bn-schedule", action="store_true",
+                   help="TF-style scheduled BN decay 0.5->0.99")
+    p.add_argument("--classifier-weights", required=True,
+                   help="a PointNetClassifier state_dict of the port")
+    p.add_argument("--train-size", type=int, default=2000)
+    p.add_argument("--test-size", type=int, default=400)
+    p.add_argument("--log-dir", default="log/samplenet")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the snap_last snapshot in --log-dir")
+    return p.parse_args(argv)
+
+
+def load_data(args):
+    """(train, test, num_classes), clouds cut to --num-points."""
+    if args.dataset == "modelnet40":
+        train = load_split(args.data_dir, "train")
+        test = load_split(args.data_dir, "test")
+        num_classes = 40
+    else:
+        train = make_dataset(args.train_size, args.num_points, seed=args.seed)
+        test = make_dataset(args.test_size, args.num_points,
+                            seed=args.seed + 1)
+        num_classes = len(CLASS_NAMES)
+    train = (train[0][:, :args.num_points], train[1])
+    test = (test[0][:, :args.num_points], test[1])
+    return train, test, num_classes
+
+
+def load_classifier(path: str, device) -> PointNetClassifier:
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    classifier = PointNetClassifier(num_classes=sd["fc3.weight"].shape[0])
+    classifier.load_state_dict(sd)
+    return classifier.to(device)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda, but CUDA is not available")
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    logger = Logger(args.log_dir, "samplenet")
+    train, test, num_classes = load_data(args)
+    classifier = load_classifier(args.classifier_weights, device)
+
+    scfg = SampleNetConfig(
+        num_out_points=args.num_out_points,
+        bottleneck_size=args.bottleneck_size,
+        group_size=args.group_size,
+        alpha=args.alpha, lmbda=args.lmbda,
+        gamma=args.gamma, delta=args.delta,
+        learning_rate=args.learning_rate,
+        skip_projection=args.skip_projection,
+        batch_size=args.batch_size,
+        bn_schedule=args.bn_schedule,
+    )
+    sampler, state = create_samplenet_state(scfg, device=device,
+                                            seed=args.seed)
+
+    start_epoch = 0
+    best = {"acc": -1.0}
+    snap_last = os.path.join(args.log_dir, "snap_last")
+    snap_best = os.path.join(args.log_dir, "snap_best")
+    if args.resume and os.path.isdir(snap_last):
+        state, extras = checkpoints.restore_train_state(snap_last, state)
+        start_epoch = int(extras.get("epoch", -1)) + 1
+        best["acc"] = float(extras.get("best_acc", -1.0))
+        logger.log(f"resumed from {snap_last} at epoch {start_epoch} "
+                   f"(best_acc={best['acc']:.4f})")
+
+    def on_epoch_end(epoch, st, test_acc):
+        extras = {"epoch": epoch, "best_acc": max(best["acc"], test_acc)}
+        checkpoints.save_train_state(snap_last, st, extras=extras)
+        if test_acc > best["acc"]:
+            best["acc"] = test_acc
+            checkpoints.save_train_state(snap_best, st, extras=extras)
+
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" \
+        else "cpu"
+    logger.log(f"training SampleNet {args.num_points}->{args.num_out_points} "
+               f"against frozen classifier, device={name}")
+    state = train_samplenet_loop(
+        sampler, state, scfg, classifier, train, test,
+        epochs=args.epochs, logger=logger, device=device, seed=args.seed,
+        steps_per_epoch=args.steps_per_epoch, start_epoch=start_epoch,
+        epoch_callback=on_epoch_end)
+    # the published checkpoint is the best-eval snapshot, not the last epoch
+    if os.path.isdir(snap_best):
+        state, extras = checkpoints.restore_train_state(snap_best, state)
+        logger.log(f"published checkpoint = best snapshot "
+                   f"(eval_acc={best['acc']:.4f}, epoch {extras.get('epoch')})")
+    eval_step = make_samplenet_eval_step(sampler, classifier)
+    table = per_class_accuracy(eval_step, state, test, scfg.batch_size,
+                               num_classes, device=device)
+    for ci, acc in enumerate(table):
+        logger.log(f"  class {ci}: acc={acc:.4f}")
+    ckpt_path = os.path.join(args.log_dir, "ckpt")
+    checkpoints.save_published(ckpt_path, sampler.state_dict(), vars(args))
+    logger.log(f"saved checkpoint to {ckpt_path}")
+    logger.close()
+    return state
+
+
+if __name__ == "__main__":
+    main()

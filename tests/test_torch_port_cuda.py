@@ -11,8 +11,15 @@ suite's conftest:
 
 Tolerances: nn_direction and FPS bit for bit (same roundings, same
 tie-breaks); point_mlp_max at rtol = atol = 1e-4 (f32 sums in another
-order).
+order). The train kernels: soft_projection's idx bit for bit, its output
+within 1e-5 and its gradients at rtol 1e-4 / atol 1e-5; point_mlp_exact's
+outputs and statistics at rtol = atol = 1e-4 and its gradients at least
+as accurate as the plain f32 version's (within 2x, or 1e-5 of their
+scale), both measured against the plain version in float64; both
+backward kernels bit for bit from run to run.
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -158,3 +165,162 @@ def test_samplenet_kernel_path_matches_plain_path(dev):
     assert counts == {"point_mlp_max": 1, "nn_direction": 1, "fps": 1}
     torch.testing.assert_close(sk, sp, rtol=1e-4, atol=1e-4)
     assert torch.equal(mk, mp)
+
+
+def _exact_args(rng, b, n, widths, dev):
+    x = _randn(rng, b, n, widths[0], dev=dev)
+    layers = []
+    for cin, cout in zip(widths[:-1], widths[1:]):
+        layers.append([_randn(rng, cin, cout, dev=dev) / cin ** 0.5,
+                       0.1 * _randn(rng, cout, dev=dev),
+                       1 + 0.1 * _randn(rng, cout, dev=dev),
+                       0.1 * _randn(rng, cout, dev=dev)])
+    return x, [list(t) for t in zip(*layers)]
+
+
+def _exact_run(x, params, g, plain=False, dtype=torch.float32):
+    from samplenet_tpu_torch.ops.cuda import point_mlp_exact_train_max
+    from samplenet_tpu_torch.ops.dispatch import plain_on_cuda
+
+    x = x.detach().to(dtype).clone().requires_grad_(True)
+    params = [[t.detach().to(dtype).clone().requires_grad_(True)
+               for t in group] for group in params]
+    with plain_on_cuda() if plain else contextlib.nullcontext():
+        pooled, means, vars_ = point_mlp_exact_train_max(x, *params)
+    (pooled * g.to(dtype)).sum().backward()
+    grads = [x.grad] + [t.grad for group in params for t in group]
+    return pooled.detach(), list(means) + list(vars_), grads
+
+
+@pytest.mark.parametrize("b,n", [(1, 1024), (3, 1000), (2, 65), (4, 1)])
+def test_point_mlp_exact_matches_plain(dev, b, n):
+    widths = (3, 64, 64, 64, 128, 128)
+    rng = np.random.default_rng(b * 1000 + n)
+    x, params = _exact_args(rng, b, n, widths, dev)
+    g = _randn(rng, b, widths[-1], dev=dev)
+    pk, sk, gk = _exact_run(x, params, g)
+    pp, sp, gp = _exact_run(x, params, g, plain=True)
+    _, _, gr = _exact_run(x, params, g, plain=True, dtype=torch.float64)
+    torch.testing.assert_close(pk, pp, rtol=1e-4, atol=1e-4)
+    for a, c in zip(sk, sp):
+        torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-4)
+    nl = len(widths) - 1
+    for i, (a, c, r) in enumerate(zip(gk, gp, gr)):
+        if 1 + nl <= i < 1 + 2 * nl:            # dense biases: exact zeros
+            assert not a.any() and not c.any()
+            continue
+        # with few points (B*N = 4) BN's gradient is ill-conditioned, so
+        # each f32 path is held to the f64 plain version instead
+        scale = float(r.abs().max())
+        ek = float((a.double() - r).abs().max()) / scale
+        ep = float((c.double() - r).abs().max()) / scale
+        assert ek <= max(2 * ep, 1e-5), (i, ek, ep)
+
+
+def test_point_mlp_exact_backward_is_deterministic(dev):
+    rng = np.random.default_rng(7)
+    x, params = _exact_args(rng, 64, 1024, (3, 64, 128, 128), dev)
+    g = _randn(rng, 64, 128, dev=dev)
+    _, _, first = _exact_run(x, params, g)
+    _, _, second = _exact_run(x, params, g)
+    assert all(torch.equal(a, c) for a, c in zip(first, second))
+
+
+def _soft_run(pts, qs, sigma, k, g, plain=False):
+    from samplenet_tpu_torch.ops.cuda import soft_project
+    from samplenet_tpu_torch.ops.dispatch import plain_on_cuda
+
+    p, q, s = (t.clone().requires_grad_(True) for t in (pts, qs, sigma))
+    with plain_on_cuda() if plain else contextlib.nullcontext():
+        out, idx = soft_project(p, q, s, k)
+    (out * g).sum().backward()
+    return out.detach(), idx, (p.grad, q.grad, s.grad)
+
+
+@pytest.mark.parametrize("k", [1, 16])
+def test_soft_projection_ties_on_a_grid(dev, k):
+    """Points on an integer grid and queries on grid points and cell
+    centres: many equal distances, resolved to the lowest index."""
+    g1 = torch.arange(8, dtype=torch.float32)
+    grid = torch.stack(torch.meshgrid(g1, g1, g1, indexing="ij"), -1)
+    pts = grid.reshape(1, -1, 3).repeat(2, 1, 1).to(dev).contiguous()
+    qs = torch.cat([pts[:, ::37], pts[:, ::41] + 0.5], 1).contiguous()
+    sigma = torch.tensor(0.5, device=dev)
+    cot = _randn(np.random.default_rng(k), *qs.shape, dev=dev)
+    ok, ik, gk = _soft_run(pts, qs, sigma, k, cot)
+    op, ip, gp = _soft_run(pts, qs, sigma, k, cot, plain=True)
+    assert torch.equal(ik, ip)
+    torch.testing.assert_close(ok, op, rtol=1e-5, atol=1e-5)
+    for a, c in zip(gk, gp):
+        torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-5)
+
+
+def test_soft_projection_backward_is_deterministic(dev):
+    rng = np.random.default_rng(3)
+    pts = _randn(rng, 16, 1024, 3, dev=dev)
+    qs = _randn(rng, 16, 300, 3, dev=dev)
+    sigma = torch.tensor(0.3, device=dev)
+    cot = _randn(rng, 16, 300, 3, dev=dev)
+    first = _soft_run(pts, qs, sigma, 7, cot)[2]
+    second = _soft_run(pts, qs, sigma, 7, cot)[2]
+    assert all(torch.equal(a, c) for a, c in zip(first, second))
+
+
+def test_train_kernels_refuse_what_they_do_not_take(dev):
+    from samplenet_tpu_torch.ops.cuda import (
+        point_mlp_exact_train_max,
+        soft_project,
+    )
+
+    pts = torch.zeros(1, 40, 3, device=dev)
+    with pytest.raises(ValueError, match="k <= 16"):
+        soft_project(pts, pts[:, :4].contiguous(),
+                     torch.tensor(1.0, device=dev), 17)
+    w = torch.zeros(3, 6, device=dev)
+    v = torch.zeros(6, device=dev)
+    with pytest.raises(ValueError, match="divisible by 4"):
+        point_mlp_exact_train_max(pts, [w], [v], [v], [v])
+
+
+def test_train_step_kernel_path_matches_plain_path(dev):
+    from samplenet_tpu_torch.models import PointNetClassifier
+    from samplenet_tpu_torch.ops.dispatch import (
+        launch_counts,
+        plain_on_cuda,
+        reset_launch_counts,
+    )
+    from samplenet_tpu_torch.train.classification import (
+        SampleNetConfig,
+        create_samplenet_state,
+        make_samplenet_train_step,
+    )
+
+    cfg = SampleNetConfig(batch_size=32)
+    rng = np.random.default_rng(5)
+    x = _randn(rng, 32, 1024, 3, dev=dev)
+    y = torch.from_numpy(rng.integers(0, 40, 32)).to(dev)
+    results = []
+    for plain in (False, True):
+        net, state = create_samplenet_state(cfg, device=dev, seed=1)
+        cls = PointNetClassifier(40, generator=torch.Generator()
+                                 .manual_seed(2)).to(dev)
+        step = make_samplenet_train_step(net, cls, cfg, augment_data=False)
+        reset_launch_counts()
+        with plain_on_cuda() if plain else contextlib.nullcontext():
+            m = step(state, x, y)
+            torch.cuda.synchronize()
+        results.append((m, launch_counts(),
+                        {k: p.grad.clone() for k, p in
+                         net.named_parameters()}))
+    (mk, ck, gk), (mp, cp, gp) = results
+    assert cp == {}
+    for name in ("point_mlp_exact_fwd", "point_mlp_exact_bwd",
+                 "soft_projection_fwd", "soft_projection_bwd"):
+        assert ck.get(name) == 1, ck
+    assert ck.get("nn_direction") == 2
+    for k in mk:
+        torch.testing.assert_close(mk[k], mp[k], rtol=1e-4, atol=1e-6)
+    for name in gk:
+        scale = float(gp[name].abs().max())
+        torch.testing.assert_close(gk[name], gp[name], rtol=1e-3,
+                                   atol=1e-5 + 1e-4 * scale)

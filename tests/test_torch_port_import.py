@@ -17,7 +17,9 @@ from samplenet_tpu_torch.ops.cuda import (
     _build,
     chamfer_kernel,
     fps_kernel,
+    point_mlp_exact_kernel,
     point_mlp_kernel,
+    soft_projection_kernel,
 )
 
 torch.set_num_threads(1)
@@ -77,6 +79,11 @@ def test_other_devices_raise():
         torch.ones(2, dtype=torch.int32), 4)),
     (point_mlp_kernel, lambda x: point_mlp_kernel.point_mlp_max(
         x, (torch.zeros(3, 4), torch.zeros(4)))),
+    (point_mlp_exact_kernel,
+     lambda x: point_mlp_exact_kernel.point_mlp_exact_train_max(
+         x, [torch.zeros(3, 4)], *([torch.zeros(4)],) * 3)),
+    (soft_projection_kernel, lambda x: soft_projection_kernel.soft_project(
+        x, x[:, :2], torch.ones(()), 2)),
 ])
 def test_wrappers_do_not_fall_back(module, call, monkeypatch):
     """Where dispatch picks the kernel, a wrapper that cannot launch it
@@ -93,6 +100,57 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.library()
     assert list(tmp_path.iterdir()) == []
+
+
+_FAKE_NVCC = """#!{python}
+import json, os, sys
+args = sys.argv[1:]
+with open(os.path.join(os.path.dirname(sys.argv[0]), "calls.jsonl"), "a") as f:
+    f.write(json.dumps(args) + "\\n")
+fail = os.environ.get("FAKE_NVCC_FAIL")
+if fail and any(a.endswith(fail) for a in args):
+    sys.exit(3)
+open(args[args.index("-o") + 1], "w").close()
+"""
+
+
+@pytest.mark.parametrize("fail", [None, "soft_projection.cu"])
+def test_build_compiles_each_source_apart_then_links(fail, tmp_path,
+                                                     monkeypatch):
+    """One nvcc -c per source (started together), then one -shared link of
+    the objects; the objects are removed, and a failed compile raises and
+    leaves no library."""
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.parent.mkdir()
+    nvcc.write_text(_FAKE_NVCC.format(python=sys.executable))
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "kernels")
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(nvcc))
+    if fail:
+        monkeypatch.setenv("FAKE_NVCC_FAIL", fail)
+    sources = [str(s) for s in _build._sources()]
+    if fail:
+        with pytest.raises(RuntimeError, match="nvcc failed \\(3\\)"):
+            _build.build()
+    else:
+        path, _ = _build.build()
+        assert path == _build.library_path() and path.exists()
+    calls = [json.loads(line) for line in
+             (nvcc.parent / "calls.jsonl").read_text().splitlines()]
+    compiles = [c for c in calls if "-c" in c]
+    assert sorted(c[-1] for c in compiles) == sorted(sources)
+    assert all(list(_build.NVCC_FLAGS) == c[:len(_build.NVCC_FLAGS)]
+               for c in compiles)
+    links = [c for c in calls if "-c" not in c]
+    if fail:
+        assert links == []
+    else:
+        objs = [c[c.index("-o") + 1] for c in compiles]
+        assert len(links) == 1 and links[0][0] == "-shared"
+        assert sorted(links[0][3:]) == sorted(objs)
+    left = sorted(p.name for p in _build.library_path().parent.iterdir())
+    assert left == (["build.log"] if fail else
+                    ["build.log", _build.LIB_NAME])
 
 
 def test_plain_on_cuda_scope_and_launch_counters():

@@ -116,9 +116,13 @@ def test_mlp_head_matches_jax(activate_final):
 
 
 def test_train_mode_is_not_ported_yet(point_mlp):
-    _, _, tm, x = point_mlp
-    with pytest.raises(NotImplementedError):
-        tm(torch.from_numpy(x), training=True, pool_max=True)
+    """The sampler's train mode is ported (test_torch_port_train_*.py);
+    the classifier's, with its dropout, comes with its trainer."""
+    from samplenet_tpu_torch.models import PointNetClassifier
+
+    _, _, _, x = point_mlp
+    with pytest.raises(NotImplementedError, match="trainer"):
+        PointNetClassifier(10)(torch.from_numpy(x), training=True)
 
 
 def test_init_follows_flax_and_generator():

@@ -135,9 +135,15 @@ def test_bcn_layouts(nets):
 
 
 def test_train_mode_raises(nets):
+    """Train mode runs the soft projection; the hard projection of the
+    progressive track needs the nn_snap kernel, not ported yet."""
     *_, port, x = nets
-    with pytest.raises(NotImplementedError):
-        port(torch.from_numpy(x), training=True)
+    xt = torch.from_numpy(x)
+    with torch.no_grad():
+        simp, proj = port(xt, training=True)
+        with pytest.raises(NotImplementedError, match="Queue 2 item 6"):
+            port.project.project(xt, simp, hard=True)
+    assert proj.shape == simp.shape
 
 
 def test_weights_file_with_or_without_sampler_prefix(nets, tmp_path):
