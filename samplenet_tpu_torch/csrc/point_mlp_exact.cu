@@ -32,7 +32,16 @@
 //   pme_bwd     dz = rstd * (gamma*dy - r1 - xhat*r2) (r1, r2 from the
 //               reduced rows), then per block the partial dW = h_prev^T dz
 //               accumulated in shared memory over its tiles, and
-//               dh_prev = dz W^T (dx for the first layer) to HBM.
+//               dh_prev = dz W^T (dx for the first layer) to HBM. A block
+//               takes a slab of the input channels (grid.y = slab): it
+//               holds the f64 dW rows [slab, cout] and the h_prev tile of
+//               its slab only, recomputes the (elementwise) dz tile for
+//               all of cout, and writes dh_prev for its slab, so no sum
+//               crosses slabs. The slab is all of cin where that fits 227 KB
+//               (every width up to 128 in and out: one slab, the layout of
+//               the classification track), and smaller where it does not:
+//               the reconstruction track's 128->256 takes slabs of 64
+//               (218,112 bytes), its 256->128 slabs of 128 (200,704).
 //
 // Every partial (stats rows, BN rows, dW) is summed by the caller with a
 // torch reduction over a grid fixed by the shape, so two runs give the
@@ -82,22 +91,22 @@ __device__ __forceinline__ float bn_relu(const BN& bn, int c, float z) {
                             bn.beta[c]));
 }
 
-// Loads tile rows [p0, p0 + np) of in [P, cin] channel-major into
-// hs[c * kStride + p] for c < cin_pad, as act(in) (BN + ReLU of `prev`
-// when has_prev), with a block of kT threads; padded points and channels
-// are 0.
+// Loads tile rows [p0, p0 + np) of in [P, cin], channels [c0, c0 + width),
+// channel-major into hs[(c - c0) * kStride + p], as act(in) (BN + ReLU of
+// `prev` when has_prev), with a block of kT threads; padded points and
+// channels are 0.
 template <int kT>
 __device__ __forceinline__ void load_act_tile(
-    float* hs, const float* __restrict__ in, int cin, int cin_pad,
+    float* hs, const float* __restrict__ in, int cin, int c0, int width,
     const BN& prev, int has_prev, long long p0, int np) {
-  for (int e = threadIdx.x; e < kTileP * cin_pad; e += kT) {
-    const int p = e / cin_pad, c = e % cin_pad;
+  for (int e = threadIdx.x; e < kTileP * width; e += kT) {
+    const int p = e / width, c = c0 + e % width;
     float v = 0.0f;
     if (p < np && c < cin) {
       v = in[(p0 + p) * cin + c];
       if (has_prev) v = bn_relu(prev, c, v);
     }
-    hs[c * kStride + p] = v;
+    hs[(c - c0) * kStride + p] = v;
   }
 }
 
@@ -119,7 +128,7 @@ pme_dense_kernel(const float* __restrict__ in, int cin, BN prev, int has_prev,
     const long long p0 = t * kTileP;
     const int np = static_cast<int>(min(static_cast<long long>(kTileP), n_points - p0));
     __syncthreads();  // the previous tile's hs and zs are no longer read
-    load_act_tile<kThreads>(hs, in, cin, cin, prev, has_prev, p0, np);
+    load_act_tile<kThreads>(hs, in, cin, 0, cin, prev, has_prev, p0, np);
     __syncthreads();
     for (int u = threadIdx.x; u < (kTileP / 4) * oq; u += kThreads) {
       const int o0 = (u % oq) * 4;
@@ -242,28 +251,31 @@ pme_rows_kernel(const float* __restrict__ z, BN bn, int c_out,
 }
 
 __global__ void __launch_bounds__(kBwdThreads)
-pme_bwd_kernel(const float* __restrict__ in, int cin, int cin_pad, BN prev,
-               int has_prev, const float* __restrict__ z, BN bn, int cout,
-               const float* __restrict__ dh, const float* __restrict__ g,
-               const int* __restrict__ argmax, int n,
-               const float* __restrict__ r1, const float* __restrict__ r2,
+pme_bwd_kernel(const float* __restrict__ in, int cin, int cin_pad, int slab,
+               BN prev, int has_prev, const float* __restrict__ z, BN bn,
+               int cout, const float* __restrict__ dh,
+               const float* __restrict__ g, const int* __restrict__ argmax,
+               int n, const float* __restrict__ r1,
+               const float* __restrict__ r2,
                const float* __restrict__ wt,     // [cout, cin_pad] = W^T
-               double* __restrict__ dw_part,     // [grid, cin_pad, cout]
+               double* __restrict__ dw_part,     // [grid.x, cin_pad, cout]
                float* __restrict__ dh_prev,      // [P, cin_pad]
                long long n_points) {
   extern __shared__ float4 smem4[];
-  float* hs = reinterpret_cast<float*>(smem4);  // [cin_pad][kStride]
-  float* dzs = hs + cin_pad * kStride;          // [cout][kStride]
-  double* dws = reinterpret_cast<double*>(dzs + cout * kStride);  // [cin_pad][cout]
-  const int iq = cin_pad / 4, oq = cout / 4;
-  for (int e = threadIdx.x; e < cin_pad * cout; e += kBwdThreads) dws[e] = 0.0;
+  const int c0 = blockIdx.y * slab;             // this block's input channels
+  const int width = min(slab, cin_pad - c0);    // a multiple of 4
+  float* hs = reinterpret_cast<float*>(smem4);  // [slab][kStride]
+  float* dzs = hs + slab * kStride;             // [cout][kStride]
+  double* dws = reinterpret_cast<double*>(dzs + cout * kStride);  // [slab][cout]
+  const int iq = width / 4, oq = cout / 4;
+  for (int e = threadIdx.x; e < width * cout; e += kBwdThreads) dws[e] = 0.0;
   const long long tiles = (n_points + kTileP - 1) / kTileP;
 
   for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
     const long long p0 = t * kTileP;
     const int np = static_cast<int>(min(static_cast<long long>(kTileP), n_points - p0));
     __syncthreads();  // the previous tile's hs and dzs are no longer read
-    load_act_tile<kBwdThreads>(hs, in, cin, cin_pad, prev, has_prev, p0, np);
+    load_act_tile<kBwdThreads>(hs, in, cin, c0, width, prev, has_prev, p0, np);
     for (int e = threadIdx.x; e < kTileP * cout; e += kBwdThreads) {
       const int p = e / cout, o = e % cout;
       float v = 0.0f;
@@ -311,7 +323,7 @@ pme_bwd_kernel(const float* __restrict__ in, int cin, int cin_pad, BN prev,
       for (int o = 0; o < cout; ++o) {
         const float4 dv = *reinterpret_cast<const float4*>(dzs + o * kStride + pp);
         const float4 wv = __ldg(reinterpret_cast<const float4*>(
-            wt + static_cast<size_t>(o) * cin_pad + i0));
+            wt + static_cast<size_t>(o) * cin_pad + c0 + i0));
         const float dr[4] = {dv.x, dv.y, dv.z, dv.w};
         const float wr[4] = {wv.x, wv.y, wv.z, wv.w};
 #pragma unroll
@@ -323,16 +335,15 @@ pme_bwd_kernel(const float* __restrict__ in, int cin, int cin_pad, BN prev,
 #pragma unroll
       for (int pi = 0; pi < 4; ++pi) {
         if (pp + pi < np) {
-          *reinterpret_cast<float4*>(dh_prev + (p0 + pp + pi) * cin_pad + i0) =
+          *reinterpret_cast<float4*>(dh_prev + (p0 + pp + pi) * cin_pad + c0 + i0) =
               make_float4(a[pi][0], a[pi][1], a[pi][2], a[pi][3]);
         }
       }
     }
   }
   __syncthreads();
-  for (int e = threadIdx.x; e < cin_pad * cout; e += kBwdThreads) {
-    dw_part[static_cast<size_t>(blockIdx.x) * cin_pad * cout + e] = dws[e];
-  }
+  double* out = dw_part + (static_cast<size_t>(blockIdx.x) * cin_pad + c0) * cout;
+  for (int e = threadIdx.x; e < width * cout; e += kBwdThreads) out[e] = dws[e];
 }
 
 cudaError_t set_smem(const void* kernel, size_t smem) {
@@ -350,9 +361,10 @@ extern "C" size_t snt_pme_dense_smem(int cin, int cout) {
          2 * static_cast<size_t>(cout) * sizeof(double);
 }
 
-extern "C" size_t snt_pme_bwd_smem(int cin_pad, int cout) {
-  return static_cast<size_t>(cin_pad + cout) * kStride * sizeof(float) +
-         static_cast<size_t>(cin_pad) * cout * sizeof(double);
+// A pme_bwd block that takes `slab` input channels.
+extern "C" size_t snt_pme_bwd_smem(int slab, int cout) {
+  return static_cast<size_t>(slab + cout) * kStride * sizeof(float) +
+         static_cast<size_t>(slab) * cout * sizeof(double);
 }
 
 // prev_bn holds (mu, rstd, gamma, beta) of the layer below, or is null for
@@ -391,22 +403,25 @@ extern "C" int snt_pme_rows(const float* z, const float* const* bn, int c_out,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int snt_pme_bwd(const float* in, int cin, int cin_pad,
+// grid blocks over the point tiles for each of ceil(cin_pad / slab) slabs.
+extern "C" int snt_pme_bwd(const float* in, int cin, int cin_pad, int slab,
                            const float* const* prev_bn, const float* z,
                            const float* const* bn, int cout, const float* dh,
                            const float* g, const int* argmax, int b, int n,
                            const float* r1, const float* r2, const float* wt,
                            double* dw_part, float* dh_prev, int grid,
                            cudaStream_t stream) {
-  if (cout % 4 || cin_pad % 4 || cin > cin_pad || grid < 1) {
+  if (cout % 4 || cin_pad % 4 || slab % 4 || slab < 4 || cin > cin_pad ||
+      grid < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = snt_pme_bwd_smem(cin_pad, cout);
+  const size_t smem = snt_pme_bwd_smem(slab, cout);
   cudaError_t err = set_smem(reinterpret_cast<const void*>(pme_bwd_kernel), smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const BN prev = prev_bn ? make_bn(prev_bn) : BN{nullptr, nullptr, nullptr, nullptr};
-  pme_bwd_kernel<<<grid, kBwdThreads, smem, stream>>>(
-      in, cin, cin_pad, prev, prev_bn != nullptr, z, make_bn(bn), cout, dh, g,
-      argmax, n, r1, r2, wt, dw_part, dh_prev, static_cast<long long>(b) * n);
+  const dim3 blocks(grid, (cin_pad + slab - 1) / slab);
+  pme_bwd_kernel<<<blocks, kBwdThreads, smem, stream>>>(
+      in, cin, cin_pad, slab, prev, prev_bn != nullptr, z, make_bn(bn), cout, dh,
+      g, argmax, n, r1, r2, wt, dw_part, dh_prev, static_cast<long long>(b) * n);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,17 +1,23 @@
-"""On-device point-cloud augmentation for the classification track.
+"""Point-cloud augmentation: on the device for the classification track,
+with numpy on the host for the reconstruction track's input corruption.
 
-Mirrors the jax side of samplenet_tpu/data/augment.py:68-89: a random
-rotation of each cloud about the up (Y) axis, then gaussian jitter
-(sigma 0.01) clipped to +-0.05 (classification/train_samplenet.py:
-289-293), on the clouds' device, from an explicit torch.Generator on that
-device. The draws are torch's, not jax.random's: the two agree in
-distribution, not in bits.
+The torch functions mirror the jax side of samplenet_tpu/data/augment.py:
+68-89: a random rotation of each cloud about the up (Y) axis, then
+gaussian jitter (sigma 0.01) clipped to +-0.05 (classification/
+train_samplenet.py:289-293), on the clouds' device, from an explicit
+torch.Generator on that device. The draws are torch's, not jax.random's:
+the two agree in distribution, not in bits.
+
+`jitter_point_cloud` and `noisy_point_cloud` are copies of the numpy side
+(augment.py:41-58; the port cannot import the JAX package): for the same
+RandomState they give the JAX package's arrays.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from samplenet_tpu_torch.ops.cuda.point_mlp_kernel import full_f32_matmul
@@ -40,3 +46,21 @@ def augment_for_classification(generator: torch.Generator,
                                batch: torch.Tensor) -> torch.Tensor:
     """Rotate, then jitter: the reference's train-time combination."""
     return jitter(generator, rotate_y(generator, batch))
+
+
+def jitter_point_cloud(batch: np.ndarray, rng: np.random.RandomState,
+                       sigma: float = 0.01, clip: float = 0.05) -> np.ndarray:
+    """Gaussian noise of `sigma`, clipped to +-clip, on every coordinate."""
+    noise = np.clip(sigma * rng.randn(*batch.shape), -clip, clip)
+    return (batch + noise).astype(np.float32)
+
+
+def noisy_point_cloud(batch: np.ndarray, rng: np.random.RandomState,
+                      ratio: float = 0.1) -> np.ndarray:
+    """Replace a random `ratio` of point slots with uniform [-1, 1] noise
+    (the same slots in every cloud of the batch)."""
+    b, n, c = batch.shape
+    out = batch.copy()
+    idx = rng.permutation(n)[: int(n * ratio)]
+    out[:, idx, :] = rng.rand(b, len(idx), c) * 2 - 1
+    return out.astype(np.float32)

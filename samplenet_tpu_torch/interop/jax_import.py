@@ -4,7 +4,10 @@ Mirrors samplenet_tpu/interop/torch_import.py:105-240 without importing the
 JAX package: `samplenet_state_dict_from_jax` maps the flax variable tree of
 `samplenet_tpu.models.SampleNet` (nested dicts of numpy arrays) to the
 reference torch key surface, exactly as `samplenet_to_torch(variables,
-prefix=...)` does, and the port's SampleNet loads that state_dict as is.
+prefix=...)` does, and the port's SampleNet loads that state_dict as is;
+an FC head without BN (the reconstruction track's sampler) has no bn_fc
+keys. `pointnet_state_dict_from_jax` and `autoencoder_state_dict_from_jax`
+map the classifier's and the autoencoder's trees to the port's modules.
 Conventions converted:
 
   * Dense kernel [in, out]      -> Conv1d weight [out, in, 1] / Linear [out, in]
@@ -109,6 +112,39 @@ def pointnet_state_dict_from_jax(variables: dict[str, Any]
         sd[f"fc{i}.bias"] = np.asarray(p[f"fc{i}"]["bias"])
         if i < 3:
             bn(f"bn_fc{i}", p[f"bn_fc{i}"], s[f"bn_fc{i}"])
+    return sd
+
+
+def autoencoder_state_dict_from_jax(variables: dict[str, Any]
+                                    ) -> dict[str, np.ndarray]:
+    """The port's `PointNetAE` state_dict (numpy values) of a flax
+    `PointNetAE` variable tree ({"params", "batch_stats"}). Keys:
+
+      encoder/dense_i, encoder/bn_i -> encoder.conv{i+1}.weight [out, in, 1],
+                                       encoder.conv{i+1}.bias,
+                                       encoder.bn{i+1}.weight/bias/
+                                       running_mean/running_var/
+                                       num_batches_tracked
+      dec_0, dec_1, dec_out         -> dec_0.weight [out, in], dec_0.bias, ...
+    """
+    p, s = variables["params"], variables.get("batch_stats", {})
+    enc, enc_s = p["encoder"], s.get("encoder", {})
+    sd: dict[str, np.ndarray] = {}
+    for i in range(sum(1 for k in enc if k.startswith("dense_"))):
+        k = np.asarray(enc[f"dense_{i}"]["kernel"])
+        sd[f"encoder.conv{i+1}.weight"] = np.ascontiguousarray(k.T)[:, :, None]
+        sd[f"encoder.conv{i+1}.bias"] = np.asarray(enc[f"dense_{i}"]["bias"])
+        sd[f"encoder.bn{i+1}.weight"] = np.asarray(enc[f"bn_{i}"]["scale"])
+        sd[f"encoder.bn{i+1}.bias"] = np.asarray(enc[f"bn_{i}"]["bias"])
+        sd[f"encoder.bn{i+1}.running_mean"] = np.asarray(
+            enc_s[f"bn_{i}"]["mean"])
+        sd[f"encoder.bn{i+1}.running_var"] = np.asarray(
+            enc_s[f"bn_{i}"]["var"])
+        sd[f"encoder.bn{i+1}.num_batches_tracked"] = np.asarray(0)
+    for name in sorted(k for k in p if k.startswith("dec_")):
+        sd[f"{name}.weight"] = np.ascontiguousarray(
+            np.asarray(p[name]["kernel"]).T)
+        sd[f"{name}.bias"] = np.asarray(p[name]["bias"])
     return sd
 
 

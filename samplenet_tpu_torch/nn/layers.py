@@ -144,13 +144,30 @@ def add_point_mlp(owner: nn.Module, in_features: int,
             widths[i + 1], momentum=bn_momentum, device=device))
 
 
+EVAL_KERNEL_MIN_POINTS = 128
+
+
+def _needs_grad(x: torch.Tensor, layers) -> bool:
+    """Whether autograd would record the chain: grad mode is on and the
+    input or a parameter requires a gradient."""
+    return torch.is_grad_enabled() and (x.requires_grad or any(
+        p.requires_grad for conv, bn in layers
+        for p in (*conv.parameters(), *bn.parameters())))
+
+
 def point_mlp(owner: nn.Module, n_layers: int, x: torch.Tensor, *,
               training: bool = False, pool_max: bool = False) -> torch.Tensor:
     """conv -> BN -> ReLU per layer over x [B, N, C]. With `pool_max` the
-    result is the max over points, [B, C_out], and the chain runs as one
-    kernel on a CUDA tensor: at eval each BN folds into its layer's affine
-    and the chain is `point_mlp_max` (samplenet_tpu/nn/layers.py:196-223);
-    in training it is `point_mlp_exact_train_max` (:151-186)."""
+    result is the max over points, [B, C_out]. In training the chain is
+    `point_mlp_exact_train_max` (samplenet_tpu/nn/layers.py:151-186), a
+    kernel with a backward on a CUDA tensor. At eval, for N >= 128 and
+    when no gradient has to cross the chain, each BN folds into its
+    layer's affine and the chain is `point_mlp_max` (:196-223), a
+    forward-only kernel. Otherwise the chain runs as tensor ops under
+    autograd: below 128 points as the JAX package's XLA chain does there
+    (its fused eval kernel runs only for N >= 128, :100-109), and
+    wherever a gradient must cross a frozen network, such as the
+    reconstruction track's AE on the sampler's m soft-projected points."""
     layers = [(getattr(owner, f"conv{i + 1}"), getattr(owner, f"bn{i + 1}"))
               for i in range(n_layers)]
     if pool_max and training:
@@ -162,7 +179,8 @@ def point_mlp(owner: nn.Module, n_layers: int, x: torch.Tensor, *,
         for (_, bn), mean, var in zip(layers, means, vars_):
             bn.update_stats(mean, var)
         return pooled
-    if pool_max:
+    if pool_max and x.shape[1] >= EVAL_KERNEL_MIN_POINTS \
+            and not _needs_grad(x, layers):
         wbs = []
         for conv, bn in layers:
             wbs += fold_bn_affine(conv.kernel(), conv.bias, bn.weight,
@@ -171,7 +189,7 @@ def point_mlp(owner: nn.Module, n_layers: int, x: torch.Tensor, *,
         return point_mlp_max(x, tuple(wbs))
     for conv, bn in layers:
         x = torch.relu(bn(conv(x), training))
-    return x
+    return x.amax(dim=1) if pool_max else x
 
 
 def add_mlp_head(owner: nn.Module, in_features: int,

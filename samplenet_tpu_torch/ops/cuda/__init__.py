@@ -7,6 +7,10 @@ from samplenet_tpu_torch.ops.cuda.chamfer_kernel import (  # noqa: F401
     nn_direction,
     nn_direction_plain,
 )
+from samplenet_tpu_torch.ops.cuda.emd_kernel import (  # noqa: F401
+    emd_cost,
+    emd_cost_plain,
+)
 from samplenet_tpu_torch.ops.cuda.fps_kernel import fps, fps_plain  # noqa: F401
 from samplenet_tpu_torch.ops.cuda.point_mlp_exact_kernel import (  # noqa: F401
     point_mlp_exact_bwd_plain,

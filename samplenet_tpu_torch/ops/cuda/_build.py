@@ -145,9 +145,15 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.snt_pme_pool.restype = i
     lib.snt_pme_rows.argtypes = [p, pp, i, p, p, p, i, i, p, i, p]
     lib.snt_pme_rows.restype = i
-    lib.snt_pme_bwd.argtypes = [p, i, i, pp, p, pp, i, p, p, p, i, i, p, p,
-                                p, p, p, i, p]
+    lib.snt_pme_bwd.argtypes = [p, i, i, i, pp, p, pp, i, p, p, p, i, i, p,
+                                p, p, p, p, i, p]
     lib.snt_pme_bwd.restype = i
+    lib.snt_emd_smem.argtypes = [i]
+    lib.snt_emd_smem.restype = sz
+    lib.snt_emd_rows_per_block.argtypes = []
+    lib.snt_emd_rows_per_block.restype = i
+    lib.snt_emd_cost.argtypes = [p, p, i, i, i, i, *[p] * 11, p]
+    lib.snt_emd_cost.restype = i
     return lib
 
 

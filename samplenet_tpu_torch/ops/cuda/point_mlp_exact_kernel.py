@@ -156,7 +156,20 @@ def _ptrs(*tensors) -> ctypes.Array:
     return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
 
 
-def _check_cuda(x, widths) -> None:
+def _bwd_slab(cin_pad: int, cout: int, smem_of, limit: int) -> int | None:
+    """Input channels one pme_bwd block takes: all cin_pad where its
+    shared memory fits `limit`, else cin_pad cut into the fewest equal
+    slabs (multiples of 4) that fit (csrc/point_mlp_exact.cu, pme_bwd);
+    None where not even 4 channels do."""
+    for parts in range(1, cin_pad // 4 + 1):
+        slab = -(-cin_pad // (4 * parts)) * 4
+        if smem_of(slab, cout) <= limit:
+            return slab
+    return None
+
+
+def _check_cuda(x, widths) -> list[int]:
+    """Checks what the kernels take; returns each layer's pme_bwd slab."""
     if x.device.type != "cuda":
         raise ValueError(f"the point_mlp_exact kernels take CUDA tensors, "
                          f"got {x.device}")
@@ -167,14 +180,15 @@ def _check_cuda(x, widths) -> None:
         raise ValueError(f"the point_mlp_exact kernels take output widths "
                          f"divisible by 4, got {widths}")
     lib = library()
-    cin_pad = -(-widths[0] // 4) * 4
-    need = max([lib.snt_pme_dense_smem(ci, co)
-                for ci, co in zip(widths[:-1], widths[1:])]
-               + [lib.snt_pme_bwd_smem(-(-ci // 4) * 4, co)
-                  for ci, co in zip([cin_pad, *widths[1:-1]], widths[1:])])
-    if need > max_dynamic_smem(x.device):
-        raise ValueError(f"widths {widths} need {need} bytes of shared "
-                         f"memory per block, more than the card offers")
+    limit = max_dynamic_smem(x.device)
+    need = max(lib.snt_pme_dense_smem(ci, co)
+               for ci, co in zip(widths[:-1], widths[1:]))
+    slabs = [_bwd_slab(-(-ci // 4) * 4, co, lib.snt_pme_bwd_smem, limit)
+             for ci, co in zip(widths[:-1], widths[1:])]
+    if need > limit or None in slabs:
+        raise ValueError(f"widths {widths} need more shared memory per block "
+                         f"than the card offers")
+    return slabs
 
 
 def point_mlp_exact_fwd_cuda(x, weights, gammas, betas, eps):
@@ -222,7 +236,7 @@ def point_mlp_exact_fwd_cuda(x, weights, gammas, betas, eps):
 def point_mlp_exact_bwd_cuda(x, weights, gammas, betas, saved, g):
     zs, mus, rstds, argmax = saved
     widths = [x.shape[-1], *(w.shape[1] for w in weights)]
-    _check_cuda(x, widths)
+    slabs = _check_cuda(x, widths)
     b, n, c0 = x.shape
     count = b * n
     lib = library()
@@ -260,7 +274,7 @@ def point_mlp_exact_bwd_cuda(x, weights, gammas, betas, saved, g):
                                   device=x.device)
             h_in = x.contiguous() if i == 0 else zs[i - 1]
             err = lib.snt_pme_bwd(
-                h_in.data_ptr(), cin, cin_pad,
+                h_in.data_ptr(), cin, cin_pad, slabs[i],
                 None if i == 0 else _ptrs(*bns[i - 1]), zs[i].data_ptr(),
                 _ptrs(*bns[i]), cout, None if dh is None else dh.data_ptr(),
                 g.data_ptr(), argmax.data_ptr(), b, n, r1.data_ptr(),

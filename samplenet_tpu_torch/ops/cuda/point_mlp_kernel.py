@@ -94,9 +94,16 @@ def point_mlp_max(x: torch.Tensor, weights_and_biases) -> torch.Tensor:
     Each w_i is [C_in_i, C_out_i] f32 with eval-BN already folded
     (`fold_bn_affine`); each b_i is [C_out_i] or [1, C_out_i]. CPU tensors
     take `point_mlp_max_plain`, CUDA tensors the kernel (ops/dispatch.py).
+    The kernel has no backward, so an input that requires grad under grad
+    mode raises on both devices rather than lose its gradient on the card.
     """
     pairs = _pairs(weights_and_biases)
     widths = _check_args(x, pairs)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, *(t for pair in pairs for t in pair))):
+        raise RuntimeError(
+            "point_mlp_max has no backward: call it under torch.no_grad() "
+            "or on inputs that do not require grad")
     if not use_kernel(x):
         return point_mlp_max_plain(x, weights_and_biases)
     return _point_mlp_max_cuda(x, pairs, widths)

@@ -1,11 +1,22 @@
-"""Hard matching: 1-NN indices, de-duplicated, completed by seeded FPS.
+"""Matching ops: approximate EMD, and hard matching (1-NN indices,
+de-duplicated, completed by seeded FPS).
 
-Mirrors the NN half of samplenet_tpu/ops/matching.py:194-328, itself the
-on-device form of the reference's per-cloud numpy loop
-(registration/src/sputils.py nn_matching). The TPU package compacts
-first-occurrence indices with a one-hot matmul because TPU scatter is
-serialized (matching.py:229-256); here that is an integer cumsum and
-`scatter_`. The EMD half waits for a later slice.
+The EMD half mirrors samplenet_tpu/ops/matching.py:31-191: `approx_match`
+and `match_cost` re-implement the reference ApproxMatch / MatchCost pair
+(classification/structural_losses/tf_approxmatch.cpp:23-105) as plain
+tensor code over [B, n, m], and `approx_emd_cost` / `emd_loss` take the
+fused kernel (ops/cuda/emd_kernel.py: the kernel on a CUDA tensor, its
+plain version on a CPU tensor), whose gradient is the analytic
+MatchCostGrad. `approx_match` writes d2 in broadcast-difference form, as
+the kernel does, not by the XLA path's |x|^2 + |y|^2 - 2xy identity:
+the steep levels multiply d2's error by up to 65536. The pair is the
+tests' reference against the JAX package; no training path takes it.
+
+The NN half mirrors matching.py:194-328, itself the on-device form of the
+reference's per-cloud numpy loop (registration/src/sputils.py
+nn_matching). The TPU package compacts first-occurrence indices with a
+one-hot matmul because TPU scatter is serialized (matching.py:229-256);
+here that is an integer cumsum and `scatter_`.
 """
 
 from __future__ import annotations
@@ -13,7 +24,77 @@ from __future__ import annotations
 import torch
 
 from samplenet_tpu_torch.ops.cuda.chamfer_kernel import nn_direction
+from samplenet_tpu_torch.ops.cuda.emd_kernel import (
+    LEVELS,
+    emd_cost_autograd,
+    saturations,
+    sqdist_broadcast,
+)
 from samplenet_tpu_torch.ops.fps import fps_from_given_with_points, gather_point
+
+
+def approx_match(xyz1: torch.Tensor, xyz2: torch.Tensor) -> torch.Tensor:
+    """Approximate bipartite matching weights [B, n, m] of xyz1 [B, n, 3]
+    and xyz2 [B, m, 3] (matching.py:31-117): row sums tend to
+    max(n,m)//n, column sums to max(n,m)//m. No gradient. The batch runs
+    in chunks (the largest divisor of B whose three level buffers stay
+    under 1.2 GB), as in JAX."""
+    b, n, _ = xyz1.shape
+    m = xyz2.shape[1]
+    limit = max(1, int(1.2e9) // (3 * n * m * 4))
+    batch_chunk = max(c for c in range(1, min(limit, b) + 1) if b % c == 0)
+    with torch.no_grad():
+        return torch.cat([
+            _approx_match_impl(xyz1[s:s + batch_chunk],
+                               xyz2[s:s + batch_chunk])
+            for s in range(0, b, batch_chunk)])
+
+
+def _approx_match_impl(xyz1, xyz2) -> torch.Tensor:
+    b, n, _ = xyz1.shape
+    m = xyz2.shape[1]
+    factorl, factorr = saturations(n, m)
+    f32 = torch.float32 if xyz1.dtype != torch.float64 else torch.float64
+    d2 = sqdist_broadcast(xyz1, xyz2)
+    satl = torch.full((b, n), factorl, dtype=f32, device=xyz1.device)
+    satr = torch.full((b, m), factorr, dtype=f32, device=xyz1.device)
+    match = torch.zeros((b, n, m), dtype=f32, device=xyz1.device)
+    for level in LEVELS:
+        weight = torch.exp(level * d2) * satr[:, None, :]
+        row_sum = 1e-9 + weight.sum(2, keepdim=True)
+        weight = weight / row_sum * satl[:, :, None]
+        col_sum = 1e-9 + weight.sum(1)
+        ratio = torch.clamp(satr / col_sum, max=1.0)
+        weight = weight * ratio[:, None, :]
+        satl = torch.clamp(satl - weight.sum(2), min=0.0)
+        satr = torch.clamp(satr - weight.sum(1), min=0.0)
+        match = match + weight
+    return match
+
+
+def match_cost(xyz1: torch.Tensor, xyz2: torch.Tensor,
+               match: torch.Tensor) -> torch.Tensor:
+    """[B] transport cost sum match * |x1 - x2| (matching.py:120-131);
+    autograd gives the reference MatchCostGrad, match * (x1 - x2) / d
+    with d clamped at 1e-20."""
+    d2 = sqdist_broadcast(xyz1, xyz2)
+    d = torch.sqrt(torch.clamp(d2, min=1e-40))
+    return (match.detach() * d).sum((1, 2))
+
+
+def approx_emd_cost(xyz1: torch.Tensor, xyz2: torch.Tensor) -> torch.Tensor:
+    """match_cost(x1, x2, approx_match(x1, x2)), the form every training
+    path consumes (matching.py:156-186): [B], differentiable in both
+    clouds with the match held fixed. It runs the fused EMD
+    (ops/cuda/emd_kernel.py): the kernel on a CUDA tensor, its plain
+    version on a CPU tensor."""
+    return emd_cost_autograd(xyz1, xyz2)
+
+
+def emd_loss(xyz1: torch.Tensor, xyz2: torch.Tensor) -> torch.Tensor:
+    """Mean approximate-EMD loss (the AE objective, pointnet_ae.py:
+    125-133)."""
+    return approx_emd_cost(xyz1, xyz2).mean()
 
 
 def first_occurrence_mask(idx: torch.Tensor) -> torch.Tensor:

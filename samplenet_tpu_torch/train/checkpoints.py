@@ -4,8 +4,12 @@ Mirrors the snapshot contract of samplenet_tpu/train/checkpoints.py:79-124
 (registration/main.py:201-218's snap_best / snap_last): a snapshot is a
 directory holding state.pt (the model's state_dict, the optimiser's state
 and the step) and extras.json (epoch, best accuracy, ...). The published
-checkpoint is a directory holding sampler.pth, a bare state_dict that
-`serve --weights` loads, and config.json, the run's arguments.
+checkpoint is a directory holding a bare state_dict (sampler.pth, which
+`serve --weights` loads, or the autoencoder's ae.pth) and config.json.
+The reconstruction track's AE checkpoint carries the AE's shape and loss
+in its config (num_points, bottleneck_size, loss, denoising_sigma,
+outlier_ratio; train_reconstruction.py:209-217 of the JAX package), which
+the sampler phase reads back.
 """
 
 from __future__ import annotations
@@ -47,10 +51,21 @@ def restore_train_state(path: str, state: TrainState
 
 
 def save_published(path: str, model_state: dict[str, torch.Tensor],
-                   config: dict[str, Any]) -> None:
-    """The published checkpoint: sampler.pth and config.json."""
+                   config: dict[str, Any], *,
+                   filename: str = "sampler.pth") -> None:
+    """The published checkpoint: the state_dict as `filename`, and
+    config.json."""
     os.makedirs(path, exist_ok=True)
     torch.save({k: v.detach().cpu() for k, v in model_state.items()},
-               os.path.join(path, "sampler.pth"))
+               os.path.join(path, filename))
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(config, f, indent=1, default=str)
+
+
+def load_published(path: str, filename: str = "sampler.pth"
+                   ) -> tuple[dict[str, torch.Tensor], dict[str, Any]]:
+    """(state_dict, config) of a published checkpoint."""
+    sd = torch.load(os.path.join(path, filename), map_location="cpu",
+                    weights_only=True)
+    with open(os.path.join(path, "config.json")) as f:
+        return sd, json.load(f)

@@ -11,7 +11,14 @@ suite's conftest:
 
 Tolerances: nn_direction and FPS bit for bit (same roundings, same
 tie-breaks); point_mlp_max at rtol = atol = 1e-4 (f32 sums in another
-order). The train kernels: soft_projection's idx bit for bit, its output
+order). The EMD: its cost within rtol 2e-4 of the plain version in
+float64, and each gradient no further from that than 1.5x the plain f32
+version's error (or 5e-4 of its scale), as tests/test_emd_kernel.py
+holds the TPU kernel, both by the largest entry's error and norm-wise;
+the kernel and the plain f32 version run on the same inputs, the input
+and copies moved by one ulp, and each is held by its worst: where the
+steep levels meet near-ties, either f32 path can drift from the f64
+match. The train kernels: soft_projection's idx bit for bit, its output
 within 1e-5 and its gradients at rtol 1e-4 / atol 1e-5; point_mlp_exact's
 outputs and statistics at rtol = atol = 1e-4 and its gradients at least
 as accurate as the plain f32 version's (within 2x, or 1e-5 of their
@@ -324,3 +331,146 @@ def test_train_step_kernel_path_matches_plain_path(dev):
         scale = float(gp[name].abs().max())
         torch.testing.assert_close(gk[name], gp[name], rtol=1e-3,
                                    atol=1e-5 + 1e-4 * scale)
+
+
+def _rel_err(t, ref):
+    return float((t.double() - ref).abs().max() / ref.abs().max().clamp_min(
+        1e-30))
+
+
+def _norm_err(t, ref):
+    return float((t.double() - ref).norm() / ref.norm().clamp_min(1e-30))
+
+
+def _share_off(t, ref, frac=1e-3):
+    """Share of entries further from ref than frac of ref's largest."""
+    return float(((t.double() - ref).abs() > frac * ref.abs().max())
+                 .double().mean())
+
+
+def _ulp_moves(x, gen):
+    """x with each element moved by at most one ulp, at random."""
+    step = torch.randint(-1, 2, x.shape, generator=gen, device=x.device)
+    up = torch.nextafter(x, torch.full_like(x, float("inf")))
+    down = torch.nextafter(x, torch.full_like(x, -float("inf")))
+    return torch.where(step > 0, up, torch.where(step < 0, down, x))
+
+
+@pytest.mark.parametrize("b,n,m", [
+    (3, 96, 160),      # ragged row tile, factorr 1 / factorl 1
+    (2, 128, 64),      # n = 2m: factorl 1, factorr 2
+    (2, 64, 192),      # m = 3n: factorl 3
+    (1, 1000, 1000),   # B=1, ragged
+    (3, 2048, 64),
+])
+def test_emd_matches_plain_and_f64(dev, b, n, m):
+    """The cost within rtol 2e-4 of the plain version in f64. The kernel
+    and the plain f32 version run on the same four inputs, the input and
+    three copies moved by one ulp, each against the plain version in f64
+    on that input: where the auction meets a near-tie, one ulp moves f32's
+    match, and which f32 path drifts further on one input is chance (at
+    (3, 2048, 64) the plain version's largest error is 0.072 of scale on
+    the input itself and the kernel's 0.142). Over the four, the kernel's
+    worst error, both the largest entry's (as a share of the f64 scale)
+    and norm-wise, is at most 1.5x the plain version's worst, or 5e-4.
+    The readings are printed (pytest -s). The cost is bit-equal with and
+    without gradients; without them the gradients are zero; every output
+    is bit-equal from run to run."""
+    from samplenet_tpu_torch.ops.cuda import emd_cost, emd_cost_plain
+
+    rng = np.random.default_rng(b * 10000 + n + m)
+    x1, x2 = _randn(rng, b, n, 3, dev=dev), _randn(rng, b, m, 3, dev=dev)
+    ck, g1k, g2k = emd_cost(x1, x2)
+    cr, _, _ = emd_cost_plain(x1.double(), x2.double())
+    torch.testing.assert_close(ck.double(), cr, rtol=2e-4, atol=0)
+    gen = torch.Generator(device=dev).manual_seed(n + m)
+    # worst[path][gradient] = (largest entry's error, norm-wise, share off)
+    worst = np.zeros((2, 2, 3))
+    for moved in range(4):
+        a, c = (x1, x2) if moved == 0 else (_ulp_moves(x1, gen),
+                                            _ulp_moves(x2, gen))
+        _, r1, r2 = emd_cost_plain(a.double(), c.double())
+        for i, fn in enumerate((emd_cost, emd_cost_plain)):
+            _, h1, h2 = fn(a, c)
+            for j, (h, r) in enumerate(((h1, r1), (h2, r2))):
+                worst[i, j] = np.maximum(worst[i, j], (
+                    _rel_err(h, r), _norm_err(h, r), _share_off(h, r)))
+    print(f"\nemd ({b}, {n}, {m}) over 4 inputs, g1 then g2, (largest "
+          f"entry's error, norm-wise error, share of entries off by more "
+          f"than 1e-3 of the largest): kernel {worst[0].tolist()}, plain "
+          f"f32 {worst[1].tolist()}")
+    limit = np.maximum(1.5 * worst[1, :, :2], 5e-4)
+    assert (worst[0, :, :2] <= limit).all(), worst
+    c0, z1, z2 = emd_cost(x1, x2, with_grads=False)
+    assert torch.equal(c0, ck) and not z1.any() and not z2.any()
+    again = emd_cost(x1, x2)
+    assert all(torch.equal(a, c) for a, c in zip(again, (ck, g1k, g2k)))
+
+
+def test_emd_refuses_what_it_does_not_take(dev):
+    from samplenet_tpu_torch.ops.cuda import emd_cost
+    from samplenet_tpu_torch.ops.cuda.emd_kernel import emd_cost_cuda
+
+    x = torch.zeros(1, 8, 3, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        emd_cost(x, torch.zeros(1, 6000, 3, device=dev))
+    with pytest.raises(TypeError, match="float32"):
+        emd_cost_cuda(x.double(), x.double())
+
+
+@pytest.mark.parametrize("b,n", [(3, 1000), (8, 2048)])
+def test_point_mlp_exact_at_the_reconstruction_widths(dev, b, n):
+    """3->64->128->128->256->128: pme_bwd splits 128->256 and 256->128
+    into input-channel slabs. Held as the classification widths are, with
+    a floor of 1e-4 of scale: at these point counts both f32 paths land
+    about 1e-6 to 1e-4 of scale from f64, either one ahead per tensor."""
+    widths = (3, 64, 128, 128, 256, 128)
+    rng = np.random.default_rng(b * 1000 + n)
+    x, params = _exact_args(rng, b, n, widths, dev)
+    g = _randn(rng, b, widths[-1], dev=dev)
+    pk, sk, gk = _exact_run(x, params, g)
+    pp, sp, gp = _exact_run(x, params, g, plain=True)
+    _, _, gr = _exact_run(x, params, g, plain=True, dtype=torch.float64)
+    torch.testing.assert_close(pk, pp, rtol=1e-4, atol=1e-4)
+    for a, c in zip(sk, sp):
+        torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-4)
+    nl = len(widths) - 1
+    for i, (a, c, r) in enumerate(zip(gk, gp, gr)):
+        if 1 + nl <= i < 1 + 2 * nl:
+            assert not a.any() and not c.any()
+            continue
+        assert _rel_err(a, r) <= max(2 * _rel_err(c, r), 1e-4), i
+    _, _, again = _exact_run(x, params, g)
+    assert all(torch.equal(a, c) for a, c in zip(gk, again))
+
+
+def test_recon_train_steps_launch_every_kernel(dev):
+    """One AE step on the EMD loss and one SampleNet step against the
+    frozen AE at 2048 points, then the NRE evaluation with SampleNet and
+    with FPS: every kernel of the track launches."""
+    from samplenet_tpu_torch.ops.dispatch import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from samplenet_tpu_torch.train import reconstruction as rec
+
+    x = _randn(np.random.default_rng(9), 4, 2048, 3, dev=dev)
+    acfg = rec.AEConfig(loss="emd", batch_size=4)
+    ae, astate = rec.create_ae_state(acfg, device=dev)
+    scfg = rec.SampleNetAEConfig(batch_size=4)
+    sampler, sstate = rec.create_sampler_ae_state(scfg, device=dev)
+    reset_launch_counts()
+    loss = rec.make_ae_train_step(ae, acfg)(astate, x)
+    m = rec.make_sampler_ae_train_step(sampler, ae, scfg, "emd")(sstate, x)
+    rep = rec.evaluate_nre(rec.make_sampler_ae_eval_step(sampler, ae),
+                           sstate, x.cpu().numpy(), 4, device=dev)
+    fps = rec.evaluate_nre(rec.make_fps_ae_eval_step(ae, 64), sstate,
+                           x.cpu().numpy(), 4, device=dev)
+    counts = launch_counts()
+    for name in ("emd", "point_mlp_exact_fwd", "point_mlp_exact_bwd",
+                 "point_mlp_max", "nn_direction", "fps",
+                 "soft_projection_fwd", "soft_projection_bwd"):
+        assert counts.get(name, 0) > 0, counts
+    assert bool(torch.isfinite(loss)) and all(
+        bool(torch.isfinite(v)) for v in m.values())
+    assert np.isfinite(rep["nre"]) and np.isfinite(fps["nre"])

@@ -16,6 +16,7 @@ from samplenet_tpu_torch.ops import dispatch
 from samplenet_tpu_torch.ops.cuda import (
     _build,
     chamfer_kernel,
+    emd_kernel,
     fps_kernel,
     point_mlp_exact_kernel,
     point_mlp_kernel,
@@ -51,6 +52,10 @@ def test_import_pulls_in_no_jax_and_needs_no_nvcc():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "samplenet_tpu_torch.serve" in out["modules"]
     assert "samplenet_tpu_torch.ops.cuda.fps_kernel" in out["modules"]
+    for name in ("ops.cuda.emd_kernel", "models.autoencoder",
+                 "train.reconstruction", "train.train_reconstruction",
+                 "data.shapenet", "data.plyio"):
+        assert f"samplenet_tpu_torch.{name}" in out["modules"]
     leaked = [m for m in out["loaded"] if m.split(".")[0] in FORBIDDEN]
     assert leaked == []
     assert out["lib"] is False
@@ -84,6 +89,9 @@ def test_other_devices_raise():
          x, [torch.zeros(3, 4)], *([torch.zeros(4)],) * 3)),
     (soft_projection_kernel, lambda x: soft_projection_kernel.soft_project(
         x, x[:, :2], torch.ones(()), 2)),
+    (emd_kernel, lambda x: emd_kernel.emd_cost(x, x[:, :4])),
+    (emd_kernel, lambda x: emd_kernel.emd_cost_autograd(
+        x.requires_grad_(True), x[:, :4])),
 ])
 def test_wrappers_do_not_fall_back(module, call, monkeypatch):
     """Where dispatch picks the kernel, a wrapper that cannot launch it
