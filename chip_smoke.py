@@ -5,13 +5,16 @@
 
 Run it from the root of a checkout on a machine with one NVIDIA H100 (the
 kernels are built for sm_90a). It imports torch, numpy and the port, never
-jax. It drives the port's three paths: the serving path (the SampleNet
+jax. It drives the port's four paths: the serving path (the SampleNet
 eval forward with on-device hard matching, 1024 -> 32 points, bottleneck
 128, B=1024), the classification-track train step (SampleNet, k=7,
 sigma = t^2, against a frozen vanilla PointNet with 40 classes, B=1024),
-and the reconstruction track at the reference AE configuration (2048-point
+the reconstruction track at the reference AE configuration (2048-point
 clouds, B=50; the AE 3->64->128->128->256->128 + FC 256->256->6144 on the
-EMD loss; the reconstruction sampler, m=64, k=16, against it), and:
+EMD loss; the reconstruction sampler, m=64, k=16, against it), and the
+progressive track at the reference's configurations (one ordered sampler
+for every prefix size: 1024 points, B=32, sizes 8..1024 against the
+frozen PointNet; 2048 points, B=50, sizes 16..2048 against the AE), and:
 
   1. prints the card (nvidia-smi name and power limit), nvcc and triton;
   2. builds the CUDA kernels from csrc/ and prints the build time;
@@ -51,8 +54,31 @@ EMD loss; the reconstruction sampler, m=64, k=16, against it), and:
      evaluation, and requires each of the track's kernels to have launched;
  11. (recon_cli) runs `python -m samplenet_tpu_torch.train.
      train_reconstruction` --phase ae (EMD loss), then --phase samplenet
-     on its checkpoint with --fps-baseline;
- 12. times each kernel, the eval forward and the train steps against the
+     on its checkpoint with --fps-baseline, and with --progressive;
+ 12. (compare, progressive) holds nn_snap bit for bit against its plain
+     version at B=32, 1024 -> 1024 and at a ragged shape (N1 = 1000,
+     N2 = 2500), and the ghost-BN chain point_mlp_train (forward and
+     backward) against the plain version in float64 with bf16 off, at
+     B=32, N=1024 in bf16 (block 4) and f32 (block 2) and at a ragged
+     N = 1000; its backward bit for bit from run to run; in bf16 also
+     against the plain bf16 version on the same block (the backward on
+     the kernel forward's own state), with the kernel run with bf16 off
+     as a control that must fail that check;
+ 13. (progressive) runs one progressive classification step (N=1024,
+     B=32, sizes 8..1024, k=7, against the frozen PointNet) on each chain,
+     exact BN and ghost BN (--fused-train, bf16), on the kernel path and
+     the plain path from the same state, both held against the plain path
+     in float64; then resets the launch counters, runs two steps per
+     chain, the infer step (simplified, soft, hard, matched) and
+     evaluate_prefixes, and requires every kernel of the track to have
+     launched;
+ 14. (progressive-ae) runs one progressive AE step (B=50, 2048 points,
+     sizes 16..2048, k=16) on the kernel path, the plain path and the
+     plain path in float64, requires a nonzero gradient on every sampler
+     conv layer, and evaluate_ae_prefix_nre on both paths;
+ 15. (progressive-cli) runs `python -m samplenet_tpu_torch.train.
+     train_progressive --fused-train` for one epoch of 2 steps;
+ 16. times each kernel, the eval forward and the train steps against the
      plain versions, per call with CUDA events and as device time with
      torch.profiler, and computes each kernel's bound from its inputs.
 
@@ -75,15 +101,35 @@ the largest entry's error and norm-wise; where
 the steep auction levels meet near-ties both f32 paths drift from the f64
 match. The reconstruction steps: loss terms within rtol 2e-4 of the plain
 path (EMD), every gradient's norm-wise error against the f64 path at most
-twice the plain f32 path's (or 1e-4).
+twice the plain f32 path's (or 1e-4). The ghost chain: the kernel and the
+plain version in the same mode each against the plain version in float64
+with bf16 off (the function both round), the kernel's error at most twice
+the plain version's or 1e-4 of scale, by the largest entry and norm-wise;
+in bf16 the two sum z in other orders, so a rounding can land one bf16
+ulp apart and they are never held to each other elementwise. In bf16
+that rule alone lets a kernel that rounds nothing pass (the plain bf16
+path lands 0.2-0.3 of scale from f64), so the kernel is also held to the
+plain bf16 version on the same block, norm-wise: pooled and statistics
+within 1e-3, and the backward kernel's gradients within 1e-3 of the
+plain version's VJP run on the kernel forward's own state (its stored
+xhat and argmax, so that a one-ulp bf16 flip in the forward does not
+move a mask on one side only); the kernel run with bf16 off must exceed
+both limits (PERF.md has the readings). The progressive
+steps as the classification step; on the ghost chain in bf16 each loss
+term's error against the f64 unrounded path is at most twice the plain
+bf16 path's (or 1e-2 relative), each prefix accuracy within two clouds of
+the plain path's, and every gradient within 5e-2 norm-wise of the plain
+bf16 path's, which the kernel step with bf16 off must exceed.
 
-Any failure raises and exits non-zero; so does a run without CUDA or
-outside a checkout. The last three lines are the kernels' JSON summary,
+Each phase's seconds follow it on a `[seconds]` line. Any failure raises
+and exits non-zero; so does a run without CUDA or outside a checkout. The last three lines are the kernels' JSON summary,
 the card's name and power limit, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import json
 import os
 import queue
@@ -116,10 +162,10 @@ KERNELS = {   # name -> (source, the Pallas entry point it replaces)
 }
 TRAIN_KERNELS = {  # forward and backward counted apart
     "point_mlp_exact_fwd": (
-        "samplenet_tpu_torch/csrc/point_mlp_exact.cu",
+        "samplenet_tpu_torch/csrc/point_mlp_train.cu",
         "samplenet_tpu/ops/pallas/point_mlp_exact_kernel.py:499"),
     "point_mlp_exact_bwd": (
-        "samplenet_tpu_torch/csrc/point_mlp_exact.cu",
+        "samplenet_tpu_torch/csrc/point_mlp_train.cu",
         "samplenet_tpu/ops/pallas/point_mlp_exact_kernel.py:499"),
     "soft_projection_fwd": (
         "samplenet_tpu_torch/csrc/soft_projection.cu",
@@ -145,12 +191,40 @@ RECON_STEPS = 3
 RECON_PATH = ("emd", "point_mlp_exact_fwd", "point_mlp_exact_bwd",
               "point_mlp_max", "nn_direction", "fps", "soft_projection_fwd",
               "soft_projection_bwd")
+# the progressive track (train/progressive.py:50-71 and :227-241 of the JAX
+# package): B=32 clouds of 1024 points, sizes 8..1024 (8 prefixes), k=7,
+# against the frozen PointNet; the AE variant at B=50, 2048 points, sizes
+# 16..2048, k=16, against the reconstruction AE
+PROG_B, PROG_N, PROG_MAX = 32, 1024, 1024
+PROG_STEPS = 2                 # per chain (exact, ghost) on the main path
+# the ghost chain in bf16 against the plain bf16 version on the same block,
+# worst norm-wise over six inputs (NVIDIA H100, PERF.md): the outputs read
+# up to 2.6e-4, the kernel with bf16 off 4.5e-3 or more; the backward on
+# the kernel forward's own state up to 4.1e-4, bf16 off 7.6e-3 or more, and
+# each kernel that leaves out one of its roundings 3.7e-3 or more; the
+# step's gradients 0.016, bf16 off 0.43
+GHOST_BF16_OUT, GHOST_BF16_BWD, GHOST_BF16_STEP = 1e-3, 1e-3, 5e-2
+PROG_KERNELS = {
+    "nn_snap": ("samplenet_tpu_torch/csrc/nn_direction.cu",
+                "samplenet_tpu/ops/pallas/chamfer_kernel.py:192"),
+    "point_mlp_train_fwd": (
+        "samplenet_tpu_torch/csrc/point_mlp_train.cu",
+        "samplenet_tpu/ops/pallas/point_mlp_train_kernel.py:400"),
+    "point_mlp_train_bwd": (
+        "samplenet_tpu_torch/csrc/point_mlp_train.cu",
+        "samplenet_tpu/ops/pallas/point_mlp_train_kernel.py:400"),
+}
+PROG_PATH = ("nn_snap", "point_mlp_train_fwd", "point_mlp_train_bwd",
+             "point_mlp_exact_fwd", "point_mlp_exact_bwd",
+             "soft_projection_fwd", "soft_projection_bwd", "nn_direction",
+             "fps", "point_mlp_max")
 # the card's published peaks (NVIDIA H100 SXM data sheet), and its
 # special-function rate: 16 exp2 / rsqrt / rcp results
 # per SM per clock on compute capability 9.0 (CUDA C++ Programming Guide,
 # arithmetic instruction throughput), 132 SMs at the 1.98 GHz boost clock
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12       # dense, on the tensor cores
 SFU_OP_PER_S = 16 * 132 * 1.98e9
 
 
@@ -609,8 +683,6 @@ def _no_worse_than_plain(name, k, p, ref, floor=1e-5) -> tuple[float, float]:
 
 
 def _ctx(plain: bool):
-    import contextlib
-
     from samplenet_tpu_torch.ops.dispatch import plain_on_cuda
 
     return plain_on_cuda() if plain else contextlib.nullcontext()
@@ -763,8 +835,6 @@ def make_train_setup(torch):
 def _train_step(torch, classifier, *, dtype=None, augment=False):
     """A fresh sampler state from SEED and its train step; with `dtype`
     the sampler and a copy of the classifier run in that dtype."""
-    import copy
-
     from samplenet_tpu_torch.train.classification import (
         SampleNetConfig,
         create_samplenet_state,
@@ -1051,7 +1121,7 @@ def phase_compare_recon(torch) -> dict[str, float]:
         raise AssertionError("point_mlp_exact backward (recon widths) is "
                              "not deterministic")
     log("compare", f"point_mlp_exact x{tuple(x.shape)} widths {RECON_WIDTHS}"
-                   f" (pme_bwd in input-channel slabs): pooled max |k - p| "
+                   f" (pmt_bwd in input-channel slabs): pooled max |k - p| "
                    f"{float((pk - pp).abs().max())!r}, stats within 1e-4; "
                    f"gradients against the f64 plain version: worst kernel "
                    f"error {worst[0]!r} of scale (plain f32 {worst[1]!r}); "
@@ -1123,8 +1193,6 @@ def _compare_recon_shapes(torch, rng) -> None:
 def _recon_state(torch, which, ae=None, *, dtype=None):
     """A seeded AE (which="ae") or reconstruction sampler and its train
     step; with `dtype` the model (and a copy of the AE) runs in it."""
-    import copy
-
     from samplenet_tpu_torch.train import reconstruction as rec
 
     if which == "ae":
@@ -1278,7 +1346,12 @@ def phase_recon_cli(torch) -> None:
                         ae_dir]),
                 ("samplenet", ["--phase", "samplenet", "--ae-ckpt",
                                os.path.join(ae_dir, "ckpt"), "--fps-baseline",
-                               "--log-dir", sn_dir])]
+                               "--log-dir", sn_dir]),
+                ("progressive", ["--phase", "samplenet", "--ae-ckpt",
+                                 os.path.join(ae_dir, "ckpt"),
+                                 "--progressive", "--num-out-points",
+                                 str(RECON_N), "--test-size", "50",
+                                 "--log-dir", os.path.join(tmp, "prog")])]
         outs = {}
         for name, extra in runs:
             t0 = time.monotonic()
@@ -1290,9 +1363,12 @@ def phase_recon_cli(torch) -> None:
                                    f"{(proc.stdout + proc.stderr)[-4000:]}")
             outs[name] = (proc.stdout, time.monotonic() - t0)
         for rel in ("ae/ckpt/ae.pth", "ae/ckpt/config.json",
-                    "sn/ckpt/sampler.pth"):
+                    "sn/ckpt/sampler.pth", "prog/ckpt/sampler.pth",
+                    "prog/prefix_nre.json"):
             if not os.path.exists(os.path.join(tmp, rel)):
                 raise AssertionError(f"the reconstruction CLI wrote no {rel}")
+        with open(os.path.join(tmp, "prog", "prefix_nre.json")) as f:
+            curve = {int(k): v["nre"] for k, v in json.load(f).items()}
     ae_line = [ln for ln in outs["ae"][0].splitlines() if "epoch 0:" in ln]
     sn_lines = [ln for ln in outs["samplenet"][0].splitlines()
                 if "| NRE=" in ln or "FPS baseline" in ln]
@@ -1300,11 +1376,18 @@ def phase_recon_cli(torch) -> None:
             ae_line + sn_lines):
         raise AssertionError(f"the reconstruction CLI logged: "
                              f"{outs['ae'][0]}\n{outs['samplenet'][0]}")
+    if sorted(curve) != [16 * 2 ** i for i in range(8)] or not all(
+            np.isfinite(list(curve.values()))):
+        raise AssertionError(f"--progressive wrote the curve {curve}:\n"
+                             f"{outs['progressive'][0]}")
     log("recon-cli", f"--phase ae --loss emd: exit 0 in "
                      f"{outs['ae'][1]:.1f} s, {ae_line[0].split('] ')[-1]}; "
                      f"--phase samplenet --fps-baseline: exit 0 in "
                      f"{outs['samplenet'][1]:.1f} s, "
-                     + "; ".join(ln.split("] ")[-1] for ln in sn_lines))
+                     + "; ".join(ln.split("] ")[-1] for ln in sn_lines)
+                     + f"; --phase samplenet --progressive --num-out-points "
+                       f"{RECON_N}: exit 0 in {outs['progressive'][1]:.1f} s,"
+                       f" prefix NRE {curve}")
 
 
 def phase_times_recon(torch, x, card) -> dict[str, tuple]:
@@ -1377,6 +1460,600 @@ def phase_times_recon(torch, x, card) -> dict[str, tuple]:
     return {"emd": times["emd"]}
 
 
+# ------------------------------------------------------ progressive phases
+
+def _ghost_call(torch, x, groups, g, bb, bf16, *, plain=False, dtype=None):
+    """(outputs, grads) of point_mlp_train_max: outputs are pooled, then
+    the means and vars; grads are dx, then dW, d bias, d gamma, d beta per
+    layer."""
+    from samplenet_tpu_torch.ops.cuda import point_mlp_train_max
+
+    dtype = dtype or x.dtype
+    x = x.to(dtype).clone().requires_grad_(True)
+    groups = [[t.to(dtype).clone().requires_grad_(True) for t in grp]
+              for grp in groups]
+    with _ctx(plain):
+        pooled, means, vars_ = point_mlp_train_max(x, *groups, block_b=bb,
+                                                   bf16=bf16)
+    (pooled * g.to(dtype)).sum().backward()
+    torch.cuda.synchronize()
+    return ([pooled.detach(), *means, *vars_],
+            [x.grad] + [t.grad for grp in groups for t in grp])
+
+
+def _out_gap(torch, x, groups, g, bb, bf16, ref_outs) -> float:
+    """Worst norm-wise distance of the ghost kernel's outputs (pooled and
+    statistics) from the plain bf16 version's on the same block."""
+    outs, _ = _ghost_call(torch, x, groups, g, bb, bf16)
+    return max(_norm_err(a, r) for a, r in zip(outs, ref_outs))
+
+
+def _bwd_gap(torch, x, groups, g, bb, bf16) -> float:
+    """Worst norm-wise distance of the backward kernel's gradients from the
+    plain bf16 VJP run on the kernel forward's own state (its stored xhat
+    and argmax), so that only sums taken in other orders part the two."""
+    from samplenet_tpu_torch.ops.cuda import point_mlp_train_kernel as pmt
+
+    weights, _, gammas, betas = groups
+    _, _, _, saved = pmt.point_mlp_train_fwd_cuda(x, weights, gammas, betas,
+                                                  1e-5, bb, bf16)
+    kernel = pmt.point_mlp_train_bwd_cuda(x, weights, gammas, betas, 1e-5,
+                                          bb, bf16, saved, g)
+    zs, mus, rstds, argmax = saved
+    p = x.shape[0] // bb
+    xhats = [((z.view(p, -1, z.shape[-1]) - mu[:, None]) * rstd[:, None])
+             .to(torch.bfloat16).float() for z, mu, rstd in zip(zs, mus, rstds)]
+    plain = pmt.point_mlp_train_vjp_plain(x, weights, gammas, betas, 1e-5,
+                                          bb, True, xhats, argmax.long(), g)
+    torch.cuda.synchronize()
+    flat = lambda gr: [gr[0], *gr[1], *gr[2], *gr[3]]  # noqa: E731
+    return max(_norm_err(a, r) for a, r in zip(flat(kernel), flat(plain)))
+
+
+def phase_compare_progressive(torch) -> dict[str, float]:
+    """nn_snap bit for bit, and the ghost chain forward and backward against
+    the plain version in float64 with bf16 off (the function both paths
+    round), at the progressive step's shape in bf16 and f32 and at a
+    ragged one; returns max |kernel - plain| at the main shape (bf16)."""
+    from samplenet_tpu_torch.ops.cuda import auto_block_b, nn_snap, nn_snap_plain
+
+    rng = np.random.default_rng(SEED + 30)
+    errs = {}
+    for label, (b, n1, n2) in (("main", (PROG_B, PROG_N, PROG_N)),
+                               ("ragged", (3, 1000, 2500))):
+        x, y = _randn(torch, rng, b, n1, 3), _randn(torch, rng, b, n2, 3)
+        dk, ik, sk = nn_snap(x, y)
+        dp, ip, sp = nn_snap_plain(x, y)
+        torch.cuda.synchronize()
+        if not (torch.equal(dk, dp) and torch.equal(ik, ip)
+                and torch.equal(sk, sp)):
+            raise AssertionError(
+                f"nn_snap {label}: kernel != plain ({int((ik != ip).sum())} "
+                f"idx differ, max |snapped| diff "
+                f"{float((sk - sp).abs().max())})")
+        if not torch.equal(sk, torch.gather(
+                y, 1, ik.long()[..., None].expand(-1, -1, 3))):
+            raise AssertionError(f"nn_snap {label}: snapped != y[idx]")
+        log("compare", f"nn_snap {label} x{tuple(x.shape)} y{tuple(y.shape)}: "
+                       f"dist, idx and snapped bit-equal; snapped == y[idx]")
+        if label == "main":
+            errs["nn_snap"] = float((sk - sp).abs().max())
+    nl = len(WIDTHS) - 1
+    for label, b, n, bf16 in (("main bf16", PROG_B, PROG_N, True),
+                              ("main f32", PROG_B, PROG_N, False),
+                              ("ragged bf16", 3, 1000, True)):
+        bb = auto_block_b(b, n, WIDTHS[1:], bf16) if b == PROG_B else 1
+        x, groups, g = _exact_inputs(torch, rng, b, n)
+        ok, gk = _ghost_call(torch, x, groups, g, bb, bf16)
+        op, gp = _ghost_call(torch, x, groups, g, bb, bf16, plain=True)
+        orf, gr = _ghost_call(torch, x, groups, g, bb, False, plain=True,
+                              dtype=torch.float64)
+        worst = {"largest entry": (0.0, 0.0), "norm-wise": (0.0, 0.0)}
+        bias = range(len(ok) + 1 + nl, len(ok) + 1 + 2 * nl)
+        for i, (a, c, r) in enumerate(zip(ok + gk, op + gp, orf + gr)):
+            if i in bias:
+                if a.any() or c.any():
+                    raise AssertionError("a dense bias got a nonzero "
+                                         "gradient")
+                continue
+            for kind, err in (("largest entry", _rel_err),
+                              ("norm-wise", _norm_err)):
+                ek, ep = err(a, r), err(c, r)
+                if not ek <= max(2 * ep, 1e-4):
+                    raise AssertionError(
+                        f"point_mlp_train {label} output/grad {i}: kernel "
+                        f"error {ek!r} ({kind}) against f64, plain {ep!r}")
+                worst[kind] = max(worst[kind], (ek, ep))
+        _, gk2 = _ghost_call(torch, x, groups, g, bb, bf16)
+        if not all(torch.equal(a, c) for a, c in zip(gk, gk2)):
+            raise AssertionError(f"point_mlp_train {label}: the backward is "
+                                 f"not deterministic")
+        graded = [i for i in range(len(gk)) if i + len(ok) not in bias]
+        rounding = ""
+        if bf16:
+            # the rule above lets a kernel that rounds nothing (or the
+            # wrong values) pass; this check, with its control, does not
+            gap = (_out_gap(torch, x, groups, g, bb, True, op),
+                   _bwd_gap(torch, x, groups, g, bb, True))
+            ctl = (_out_gap(torch, x, groups, g, bb, False, op),
+                   _bwd_gap(torch, x, groups, g, bb, False))
+            if not (gap[0] <= GHOST_BF16_OUT and gap[1] <= GHOST_BF16_BWD):
+                raise AssertionError(
+                    f"point_mlp_train {label}: against the plain bf16 "
+                    f"version, norm-wise {gap!r}, limits {GHOST_BF16_OUT}, "
+                    f"{GHOST_BF16_BWD}")
+            if not (ctl[0] > GHOST_BF16_OUT and ctl[1] > GHOST_BF16_BWD):
+                raise AssertionError(
+                    f"point_mlp_train {label}: the control (kernel with "
+                    f"bf16 off) passes the bf16 check: {ctl!r}")
+            rounding = (f"; against the plain bf16 version, worst norm-wise "
+                        f"outputs {gap[0]!r}, backward on the kernel's "
+                        f"forward state {gap[1]!r} (limits {GHOST_BF16_OUT}, "
+                        f"{GHOST_BF16_BWD}); the control, bf16 off: "
+                        f"{ctl[0]!r}, {ctl[1]!r}")
+        log("compare", f"point_mlp_train {label} x{tuple(x.shape)} widths "
+                       f"{WIDTHS} block_b={bb}: against the f64 plain "
+                       f"version with bf16 off, worst (kernel, plain) error "
+                       f"of scale over pooled, stats and gradients: "
+                       + "; ".join(f"{k} {v[0]!r}, {v[1]!r}"
+                                   for k, v in worst.items())
+                       + f"; max |kernel - plain|: pooled "
+                       f"{float((ok[0] - op[0]).abs().max())!r}; dense-bias "
+                       f"gradients 0; backward bit-equal across two runs"
+                       + rounding)
+        if label == "main bf16":
+            errs["point_mlp_train_fwd"] = float((ok[0] - op[0]).abs().max())
+            errs["point_mlp_train_bwd"] = max(
+                float((gk[i] - gp[i]).abs().max()) for i in graded)
+        del x, groups, ok, gk, op, gp, orf, gr, gk2
+        torch.cuda.empty_cache()
+    return errs
+
+
+def _prog_step(torch, classifier, *, ghost=False, dtype=None):
+    """A fresh progressive sampler from SEED (exact or ghost chain) and its
+    train step; with `dtype` the sampler and a copy of the classifier run
+    in that dtype."""
+    from samplenet_tpu_torch.train import progressive as prog
+
+    cfg = prog.ProgressiveConfig(batch_size=PROG_B,
+                                 fused_train=True if ghost else None)
+    net, state = prog.create_progressive_state(cfg, device=DEVICE, seed=SEED)
+    if dtype is not None:
+        net.to(dtype)
+        classifier = copy.deepcopy(classifier).to(dtype)
+    return net, state, prog.make_progressive_train_step(net, classifier, cfg)
+
+
+@contextlib.contextmanager
+def _ghost_without_rounding(torch):
+    """Within the block, the ghost chain runs with bf16 off at the block
+    size that bf16 gives: the function that the bf16 paths round."""
+    from samplenet_tpu_torch.nn import layers
+    from samplenet_tpu_torch.ops.cuda import auto_block_b
+
+    real = layers.point_mlp_train_max
+
+    def unrounded(x, weights, *rest, eps, bf16):
+        bb = auto_block_b(x.shape[0], x.shape[1],
+                          tuple(w.shape[1] for w in weights), bf16)
+        return real(x, weights, *rest, eps=eps, bf16=False, block_b=bb)
+
+    layers.point_mlp_train_max = unrounded
+    try:
+        yield
+    finally:
+        layers.point_mlp_train_max = real
+
+
+def phase_progressive_step(torch, x, y, classifier) -> None:
+    """One progressive classification step per chain (exact; ghost in
+    bf16) on the kernel path and the plain path from the same state, both
+    held against the plain path in float64 (for the ghost chain with bf16
+    off at the same block size). On the ghost chain the kernel step's
+    gradients are also held to the plain bf16 step's, norm-wise, a check
+    that the kernel step with bf16 off (the control) must fail."""
+    for chain in ("exact", "ghost"):
+        runs = {}
+        variants = [("kernel", False, None), ("plain", True, None),
+                    ("f64", True, torch.float64)]
+        if chain == "ghost":
+            variants.append(("unrounded", False, None))
+        for name, plain, dtype in variants:
+            net, state, step = _prog_step(torch, classifier,
+                                          ghost=chain == "ghost", dtype=dtype)
+            unround = _ghost_without_rounding(torch) \
+                if chain == "ghost" and name in ("f64", "unrounded") \
+                else contextlib.nullcontext()
+            with _ctx(plain), unround:
+                metrics = step(state, x if dtype is None else x.to(dtype), y)
+            torch.cuda.synchronize()
+            runs[name] = (
+                metrics,
+                {k: p.grad.detach().clone() for k, p in net.named_parameters()},
+                {k: v.detach().clone() for k, v in net.named_buffers()
+                 if "running_" in k})
+            del net, state, step
+        (mk, gk, sk), (mp, gp, sp), (mr, gr, sr) = (
+            runs["kernel"], runs["plain"], runs["f64"])
+        for k in mk:
+            if not bool(torch.isfinite(mk[k])):
+                raise AssertionError(f"progressive step ({chain}) {k} is not "
+                                     f"finite")
+            if chain == "exact":
+                torch.testing.assert_close(mk[k], mp[k], rtol=1e-4, atol=1e-6)
+            elif k.startswith("acc@"):
+                # bf16 roundings the two paths sum in other orders can flip
+                # a near-tie argmax: at most two clouds of the batch
+                if abs(float(mk[k]) - float(mp[k])) > 2.0 / PROG_B + 1e-6:
+                    raise AssertionError(f"progressive step (ghost) {k}: "
+                                         f"kernel {float(mk[k])!r}, plain "
+                                         f"{float(mp[k])!r}")
+            else:
+                ref = abs(float(mr[k]))
+                ek = abs(float(mk[k]) - float(mr[k])) / max(ref, 1e-30)
+                ep = abs(float(mp[k]) - float(mr[k])) / max(ref, 1e-30)
+                if not ek <= max(2 * ep, 1e-2):
+                    raise AssertionError(
+                        f"progressive step (ghost) {k}: kernel error {ek!r} "
+                        f"against f64 unrounded, plain bf16 {ep!r}")
+        scale = max(float(g.abs().max()) for g in gr.values())
+        worst = (0.0, 0.0, "")
+        for name in gk:
+            if name in CANCELLED:
+                for g in (gk[name], gp[name]):
+                    if float(g.abs().max()) > 1e-4 * scale:
+                        raise AssertionError(f"{chain} {name}: gradient not "
+                                             f"round-off")
+                if name.startswith("conv") and bool(gk[name].any()):
+                    raise AssertionError(f"{chain} {name}: kernel gradient "
+                                         f"is not 0")
+                continue
+            for err in (_rel_err, _norm_err):
+                ek, ep = err(gk[name], gr[name]), err(gp[name], gr[name])
+                if not ek <= max(2 * ep, 1e-4):
+                    raise AssertionError(
+                        f"progressive step ({chain}) {name}: kernel error "
+                        f"{ek!r} ({err.__name__}) against f64, plain {ep!r}")
+                worst = max(worst, (ek, ep, name))
+        rounding = ""
+        if chain == "ghost":
+            gu = runs.pop("unrounded")[1]
+            graded = [k for k in gk if k not in CANCELLED]
+            gap = max(_norm_err(gk[k], gp[k]) for k in graded)
+            ctl = max(_norm_err(gu[k], gp[k]) for k in graded)
+            if not gap <= GHOST_BF16_STEP < ctl:
+                raise AssertionError(
+                    f"progressive step (ghost): gradients vs the plain bf16 "
+                    f"step, norm-wise: kernel {gap!r}, control (bf16 off) "
+                    f"{ctl!r}, limit {GHOST_BF16_STEP}")
+            rounding = (f" gradients against the plain bf16 step: worst "
+                        f"norm-wise {gap!r} (limit {GHOST_BF16_STEP}; the "
+                        f"control, bf16 off, {ctl!r});")
+            del gu
+        for name in sk:
+            ek, ep = _norm_err(sk[name], sr[name]), _norm_err(sp[name],
+                                                              sr[name])
+            if not ek <= max(2 * ep, 1e-5):
+                raise AssertionError(f"progressive step ({chain}) {name}: "
+                                     f"kernel {ek!r}, plain {ep!r}")
+        log("progressive", f"one step, {chain} chain, B={PROG_B}, {PROG_N} "
+                           f"points, sizes 8..{PROG_MAX}: loss "
+                           f"{float(mk['loss'])!r} (plain "
+                           f"{float(mp['loss'])!r}, f64 {float(mr['loss'])!r});"
+                           + (" metrics within rtol 1e-4 of the plain path;"
+                              if chain == "exact" else
+                              " loss terms within 2x the plain bf16 path's "
+                              "error against f64 (or 1e-2), accuracies "
+                              "within two clouds;" + rounding)
+                           + f" gradients against "
+                           f"f64: worst kernel error {worst[0]!r} of scale at "
+                           f"{worst[2]} (plain f32 {worst[1]!r}); "
+                           f"BN-cancelled gradients round-off, conv biases 0; "
+                           f"running stats no worse than plain against f64")
+        torch.cuda.empty_cache()
+
+
+def phase_progressive_path(torch, x, y, data, labels, classifier
+                           ) -> dict[str, int]:
+    """The progressive track's main path with the launch counters around
+    it: PROG_STEPS steps on each chain, one infer step and
+    evaluate_prefixes; the infer step's hard and matched outputs are then
+    held against the plain path on the same simplified cloud."""
+    from samplenet_tpu_torch.ops.dispatch import (
+        launch_counts,
+        plain_on_cuda,
+        reset_launch_counts,
+    )
+    from samplenet_tpu_torch.ops.matching import nn_match_from_clouds
+    from samplenet_tpu_torch.train import progressive as prog
+
+    reset_launch_counts()
+    losses = {}
+    for chain in ("exact", "ghost"):
+        net, state, step = _prog_step(torch, classifier,
+                                      ghost=chain == "ghost")
+        losses[chain] = [step(state, x, y)["loss"] for _ in range(PROG_STEPS)]
+    infer = prog.make_progressive_infer_step(net, PROG_MAX)
+    simp, soft, hard, matched = infer(state, x)
+    sizes = prog.ProgressiveConfig().sizes
+    accs = prog.evaluate_prefixes(infer, state, classifier, data, labels,
+                                  sizes, PROG_B, device=DEVICE)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    losses = {k: [float(v) for v in vs] for k, vs in losses.items()}
+    if not all(np.isfinite(v).all() for v in losses.values()) \
+            or state.optimizer.count != PROG_STEPS:
+        raise AssertionError(f"progressive steps: losses {losses}")
+    missing = [k for k in PROG_PATH if counts.get(k, 0) < 1]
+    if missing:
+        raise AssertionError(f"the progressive path launched no {missing}: "
+                             f"{counts}")
+    shape = (PROG_B, PROG_MAX, 3)
+    if any(t.shape != shape for t in (simp, soft, hard, matched)) \
+            or sorted(accs) != list(sizes) \
+            or not all(0.0 <= a <= 1.0 for a in accs.values()):
+        raise AssertionError(f"infer step shapes or prefix accuracies: "
+                             f"{accs}")
+    with plain_on_cuda(), torch.inference_mode():
+        hard_p, _, _ = net.project.project(x, simp, hard=True)
+        matched_p, _ = nn_match_from_clouds(x, simp, PROG_MAX)
+    if not (torch.equal(hard, hard_p) and torch.equal(matched, matched_p)):
+        raise AssertionError("infer step: hard or matched differ from the "
+                             "plain path")
+    uniq = min(len(torch.unique(matched[b], dim=0)) for b in range(PROG_B))
+    if uniq != PROG_MAX:
+        raise AssertionError(f"matched points not unique: {uniq}")
+    log("progressive", f"{PROG_STEPS} steps per chain (exact, ghost bf16) at "
+                       f"B={PROG_B}: losses {losses}; infer step ordered "
+                       f"outputs [{PROG_B}, {PROG_MAX}, 3], hard and matched "
+                       f"bit-equal to the plain path, matched unique; "
+                       f"evaluate_prefixes over {len(data)} clouds: "
+                       + " ".join(f"acc@{s}={a!r}" for s, a in accs.items())
+                       + f"; kernel launches {counts}")
+    return counts
+
+
+def phase_progressive_ae(torch, data, x) -> None:
+    """One progressive AE step (B=50, 2048 points, sizes 16..2048, k=16)
+    on the kernel path, the plain path and the plain path in float64 from
+    the same state, a nonzero gradient for every sampler conv layer, and
+    evaluate_ae_prefix_nre on the kernel and the plain path."""
+    from samplenet_tpu_torch.train import progressive as prog
+    from samplenet_tpu_torch.train import reconstruction as rec
+
+    ae, _, _ = _recon_state(torch, "ae")
+    pcfg = prog.ProgressiveAEConfig(batch_size=RECON_B)
+    scfg = rec.SampleNetAEConfig(num_out_points=pcfg.max_num_out_points,
+                                 batch_size=RECON_B)
+    runs = {}
+    for name, plain, dtype in (("kernel", False, None), ("plain", True, None),
+                               ("f64", True, torch.float64)):
+        sampler, state = rec.create_sampler_ae_state(scfg, device=DEVICE,
+                                                     seed=SEED + 1)
+        net_ae = ae if dtype is None else copy.deepcopy(ae).to(dtype)
+        if dtype is not None:
+            sampler.to(dtype)
+        step = prog.make_progressive_ae_train_step(sampler, net_ae, pcfg)
+        with _ctx(plain):
+            metrics = step(state, x if dtype is None else x.to(dtype))
+        torch.cuda.synchronize()
+        runs[name] = (metrics, {k: p.grad.detach().clone()
+                                for k, p in sampler.named_parameters()})
+        if name == "kernel":
+            keep = (sampler, state)
+        del sampler, state, step, net_ae
+        torch.cuda.empty_cache()
+    (mk, gk), (mp, gp), (_, gr) = runs["kernel"], runs["plain"], runs["f64"]
+    for k in mk:
+        if not bool(torch.isfinite(mk[k])):
+            raise AssertionError(f"progressive AE step: {k} is not finite")
+        torch.testing.assert_close(mk[k], mp[k], rtol=1e-4, atol=0)
+    dead = [i for i in range(1, 6) if not bool(gk[f"conv{i}.weight"].any())]
+    if dead:
+        raise AssertionError(f"progressive AE step: no gradient reached conv "
+                             f"{dead} of the sampler")
+    worst = (0.0, 0.0, "")
+    for name, ref in gr.items():
+        if not ref.any():
+            if gk[name].any() or gp[name].any():
+                raise AssertionError(f"progressive AE {name}: gradient not 0")
+            continue
+        ek, ep = _norm_err(gk[name], ref), _norm_err(gp[name], ref)
+        if not ek <= max(2 * ep, 1e-4):
+            raise AssertionError(f"progressive AE {name}: kernel error {ek!r}"
+                                 f" of the f64 norm, plain f32 {ep!r}")
+        worst = max(worst, (ek, ep, name))
+    sampler, state = keep
+    curves = []
+    for plain in (False, True):
+        with _ctx(plain):
+            curves.append(prog.evaluate_ae_prefix_nre(
+                sampler, state, ae, data, pcfg.sizes, RECON_B, device=DEVICE))
+    torch.cuda.synchronize()
+    for s in pcfg.sizes:
+        for key in ("loss_sampled", "loss_full", "nre"):
+            a, c = curves[0][s][key], curves[1][s][key]
+            if not abs(a - c) <= 1e-4 * abs(c):
+                raise AssertionError(f"prefix NRE {s} {key}: kernel {a!r}, "
+                                     f"plain {c!r}")
+    log("progressive-ae", f"one step at B={RECON_B}, {RECON_N} points, sizes "
+                          f"{pcfg.sizes[0]}..{pcfg.sizes[-1]}: "
+                          + ", ".join(f"{k} {float(v)!r} (plain "
+                                      f"{float(mp[k])!r})"
+                                      for k, v in mk.items())
+                          + f"; gradients' norm-wise error against f64: worst"
+                          f" kernel {worst[0]!r} at {worst[2]} (plain f32 "
+                          f"{worst[1]!r}); every sampler conv gradient "
+                          f"nonzero; prefix NRE kernel vs plain within rtol "
+                          f"1e-4: " + " ".join(
+                              f"{s}:{curves[0][s]['nre']!r}"
+                              for s in pcfg.sizes))
+    del keep, sampler, state
+    torch.cuda.empty_cache()
+
+
+def phase_progressive_cli(torch, classifier) -> None:
+    """train_progressive on the card with --fused-train, 1 epoch of 2
+    steps at the reference configuration (sizes 8..1024)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cls_path = os.path.join(tmp, "classifier.pth")
+        torch.save({k: v.cpu() for k, v in classifier.state_dict().items()},
+                   cls_path)
+        log_dir = os.path.join(tmp, "log")
+        cmd = [sys.executable, "-m",
+               "samplenet_tpu_torch.train.train_progressive", "--device",
+               "cuda", "--fused-train", "--epochs", "1", "--steps-per-epoch",
+               "2", "--max-num-out-points", str(PROG_MAX), "--train-size",
+               "128", "--test-size", "64", "--classifier-weights", cls_path,
+               "--log-dir", log_dir, "--seed", str(SEED)]
+        env = dict(os.environ)
+        env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+        t0 = time.monotonic()
+        proc = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True,
+                              text=True, timeout=600)
+        seconds = time.monotonic() - t0
+        if proc.returncode:
+            raise RuntimeError(f"train_progressive exited {proc.returncode}:"
+                               f"\n{(proc.stdout + proc.stderr)[-4000:]}")
+        accs = [ln.split("final ")[-1] for ln in proc.stdout.splitlines()
+                if "final eval_acc@" in ln]
+        if len(accs) != 8 or not os.path.exists(
+                os.path.join(log_dir, "ckpt", "sampler.pth")):
+            raise AssertionError(f"train_progressive logged:\n{proc.stdout}")
+    log("progressive-cli", f"train_progressive --device cuda --fused-train, "
+                           f"1 epoch of 2 steps: exit 0 in {seconds:.1f} s, "
+                           f"{' '.join(accs)}, ckpt written")
+
+
+def _ghost_bounds(b: int, n: int, widths, bf16: bool) -> tuple[tuple, tuple]:
+    """Bounds of the ghost chain's forward and backward: `_exact_bounds`'s
+    bytes, the multiply-adds (2 FLOP forward; 4 backward, dW and dh) at the
+    BF16 tensor-core peak in bf16 and at FP32 in f32, and BN, ReLU and the
+    statistics per channel at FP32."""
+    pairs = list(zip(widths[:-1], widths[1:]))
+    macs = sum(a * c for a, c in pairs)
+    params = sum(a * c + 4 * c for a, c in pairs)
+    chans = sum(widths[1:])
+    p, f = b * n, 4
+    rate = BF16_FLOP_PER_S if bf16 else FP32_FLOP_PER_S
+    return (_bound(f * (p * widths[0] + params + b * widths[-1] + 2 * chans),
+                   (p * 2.0 * macs, rate),
+                   (p * 7.0 * chans, FP32_FLOP_PER_S)),
+            _bound(f * (2 * p * widths[0] + 2 * params + b * widths[-1]),
+                   (p * 4.0 * macs, rate),
+                   (p * 12.0 * chans, FP32_FLOP_PER_S)))
+
+
+def phase_times_progressive(torch, x, y, recon_x, classifier, card
+                            ) -> dict[str, tuple]:
+    """nn_snap and the ghost chain (bf16) at the progressive step's shape,
+    both progressive classification steps, the infer step and the
+    progressive AE step, each against the plain path: CUDA-event time per
+    call and profiler device time."""
+    from samplenet_tpu_torch.ops.cuda import auto_block_b
+    from samplenet_tpu_torch.ops.cuda import chamfer_kernel as ck
+    from samplenet_tpu_torch.ops.cuda import point_mlp_train_kernel as pmt
+    from samplenet_tpu_torch.ops.dispatch import plain_on_cuda
+    from samplenet_tpu_torch.train import progressive as prog
+    from samplenet_tpu_torch.train import reconstruction as rec
+
+    rng = np.random.default_rng(SEED + 31)
+    q, pts = (_randn(torch, rng, PROG_B, PROG_N, 3) for _ in range(2))
+    xg, (ws, _, gs, bes), g = _exact_inputs(torch, rng, PROG_B, PROG_N)
+    bb = auto_block_b(PROG_B, PROG_N, WIDTHS[1:], True)
+    saved = pmt.point_mlp_train_fwd_cuda(xg, ws, gs, bes, 1e-5, bb, True)[3]
+    cases = {
+        "nn_snap": (lambda: ck.nn_snap(q, pts),
+                    lambda: ck.nn_snap_plain(q, pts), 50),
+        "point_mlp_train_fwd": (
+            lambda: pmt.point_mlp_train_fwd_cuda(xg, ws, gs, bes, 1e-5, bb,
+                                                 True),
+            lambda: pmt.point_mlp_train_fwd_plain(xg, ws, gs, bes, 1e-5, bb,
+                                                  True), 20),
+        "point_mlp_train_bwd": (
+            lambda: pmt.point_mlp_train_bwd_cuda(xg, ws, gs, bes, 1e-5, bb,
+                                                 True, saved, g),
+            lambda: pmt.point_mlp_train_bwd_plain(xg, ws, gs, bes, 1e-5, bb,
+                                                  True, g), 20),
+    }
+    times, parts = {}, []
+    for name, (kernel_fn, plain_fn, iters) in cases.items():
+        times[name] = _pair_ms(torch, kernel_fn, plain_fn, iters)
+        k_dev = _device_ms(torch, kernel_fn, iters)
+        p_dev = _device_ms(torch, plain_fn, iters)
+        parts.append(f"{name}: kernel {times[name][0]!r} ms per call, "
+                     f"{k_dev!r} ms device; plain {times[name][1]!r} ms, "
+                     f"{p_dev!r} ms device")
+    del saved
+    for chain in ("exact", "ghost"):
+        _, kstate, kstep = _prog_step(torch, classifier,
+                                      ghost=chain == "ghost")
+        _, pstate, pstep = _prog_step(torch, classifier,
+                                      ghost=chain == "ghost")
+
+        def kernel_step(kstep=kstep, kstate=kstate):
+            kstep(kstate, x, y)
+
+        def plain_step(pstep=pstep, pstate=pstate):
+            with plain_on_cuda():
+                pstep(pstate, x, y)
+
+        k, p = _pair_ms(torch, kernel_step, plain_step, 3)
+        k_dev = _device_ms(torch, kernel_step, 3)
+        p_dev = _device_ms(torch, plain_step, 3)
+        if chain == "ghost":
+            log("profile", f"progressive step (ghost), kernel path: "
+                           f"{_profile_top(torch, kernel_step, 3)} ({card})")
+        parts.append(f"progressive step ({chain} chain), B={PROG_B}, "
+                     f"{PROG_N} points, sizes 8..{PROG_MAX}: kernel path "
+                     f"{k!r} ms = {PROG_B / k * 1e3!r} clouds/s, {k_dev!r} "
+                     f"ms device (busy {k_dev / k!r}); plain path {p!r} ms, "
+                     f"{p_dev!r} ms device (busy {p_dev / p!r})")
+    net = kstate.model
+    infer = prog.make_progressive_infer_step(net, PROG_MAX)
+
+    def plain_infer():
+        with plain_on_cuda():
+            infer(kstate, x)
+
+    k, p = _pair_ms(torch, lambda: infer(kstate, x), plain_infer, 5)
+    parts.append(f"progressive infer step: kernel path {k!r} ms, plain path "
+                 f"{p!r} ms")
+    ae, _, _ = _recon_state(torch, "ae")
+    pcfg = prog.ProgressiveAEConfig(batch_size=RECON_B)
+    scfg = rec.SampleNetAEConfig(num_out_points=pcfg.max_num_out_points,
+                                 batch_size=RECON_B)
+    ae_steps = []
+    for _ in range(2):
+        sampler, state = rec.create_sampler_ae_state(scfg, device=DEVICE,
+                                                     seed=SEED + 1)
+        ae_steps.append((state, prog.make_progressive_ae_train_step(
+            sampler, ae, pcfg)))
+    (ks, kstep), (ps, pstep) = ae_steps
+
+    def kernel_ae():
+        kstep(ks, recon_x)
+
+    def plain_ae():
+        with plain_on_cuda():
+            pstep(ps, recon_x)
+
+    k, p = _pair_ms(torch, kernel_ae, plain_ae, 3)
+    k_dev = _device_ms(torch, kernel_ae, 3)
+    p_dev = _device_ms(torch, plain_ae, 3)
+    log("profile", f"progressive AE step, kernel path: "
+                   f"{_profile_top(torch, kernel_ae, 3)} ({card})")
+    parts.append(f"progressive AE step, B={RECON_B}, {RECON_N} points, sizes "
+                 f"{pcfg.sizes[0]}..{pcfg.sizes[-1]}: kernel path {k!r} ms "
+                 f"= {RECON_B / k * 1e3!r} clouds/s, {k_dev!r} ms device "
+                 f"(busy {k_dev / k!r}); plain path {p!r} ms, {p_dev!r} ms "
+                 f"device (busy {p_dev / p!r})")
+    log("times-progressive", " | ".join(parts) + f" ({card})")
+    torch.cuda.empty_cache()
+    return times
+
+
 # -------------------------------------------------------------- the bounds
 
 def _bound(nbytes: float, *ops: tuple[float, float]) -> tuple[float, str]:
@@ -1426,9 +2103,11 @@ def kernel_bounds() -> dict[str, tuple[float, str]]:
     """Each kernel's bound at the shapes its times are taken at: each
     input read once, each output written once, and the operations the
     algorithm needs on these inputs (FP32 on the SIMT pipes; the EMD's
-    exp and rsqrt on the special-function units)."""
+    exp and rsqrt on the special-function units; the ghost chain's
+    multiply-adds, bf16 by default, on the tensor cores)."""
     f = 4                                          # bytes of f32 and i32
     exact_fwd, exact_bwd = _exact_bounds(B, N, WIDTHS)
+    ghost_fwd, ghost_bwd = _ghost_bounds(PROG_B, PROG_N, WIDTHS, True)
     pairs = list(zip(WIDTHS[:-1], WIDTHS[1:]))
     macs = sum(a * c for a, c in pairs)
     params = sum(a * c + c for a, c in pairs)
@@ -1451,7 +2130,23 @@ def kernel_bounds() -> dict[str, tuple[float, str]]:
             f * (2 * B * N * 3 + 3 * B * M * 3 + B * M * K + 2),
             (40.0 * B * M * K, FP32_FLOP_PER_S)),
         "emd": _emd_bound(RECON_B, RECON_N, RECON_N),
+        # the progressive infer step's snap: nn_direction's work and 3
+        # floats out per query
+        "nn_snap": _bound(
+            f * (PROG_B * PROG_N * 3 + PROG_B * PROG_N * 3
+                 + 2 * PROG_B * PROG_N + 3 * PROG_B * PROG_N),
+            (9.0 * PROG_B * PROG_N * PROG_N, FP32_FLOP_PER_S)),
+        "point_mlp_train_fwd": ghost_fwd,
+        "point_mlp_train_bwd": ghost_bwd,
     }
+
+
+def _timed(phase, *args):
+    """phase(*args), then its seconds on a line of their own."""
+    t0 = time.monotonic()
+    out = phase(*args)
+    log("seconds", f"{phase.__name__}: {time.monotonic() - t0:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -1469,32 +2164,45 @@ def main() -> int:
         raise RuntimeError(f"run chip_smoke.py from a checkout: "
                            f"samplenet_tpu_torch came from {pkg}")
     t0 = time.monotonic()
-    card = phase_env(torch)
-    phase_build()
-    errs = phase_compare(torch)
+    card = _timed(phase_env, torch)
+    _timed(phase_build)
+    errs = _timed(phase_compare, torch)
     model = make_model(torch, DEVICE)
     clouds = np.random.default_rng(SEED + 4).standard_normal(
         (B, N, 3)).astype(np.float32)
-    counts = phase_end_to_end(torch, model, clouds)
+    counts = _timed(phase_end_to_end, torch, model, clouds)
     with tempfile.TemporaryDirectory() as tmp:
         weights = os.path.join(tmp, "sampler.pth")
         torch.save({f"sampler.{k}": v.cpu() for k, v in
                     model.state_dict().items()}, weights)
-        phase_serve(torch, model, weights)
-    train_errs = phase_compare_train(torch)
+        _timed(phase_serve, torch, model, weights)
+    train_errs = _timed(phase_compare_train, torch)
     data, labels, classifier = make_train_setup(torch)
-    train_counts = phase_train_step(torch, data, labels, classifier)
-    phase_train_cli(torch, classifier)
-    errs.update(phase_compare_recon(torch))
+    train_counts = _timed(phase_train_step, torch, data, labels, classifier)
+    _timed(phase_train_cli, torch, classifier)
+    errs.update(_timed(phase_compare_recon, torch))
     recon_data, recon_x = make_recon_data(torch)
-    recon_counts = phase_recon_train(torch, recon_data, recon_x)
-    phase_recon_cli(torch)
-    times = phase_times(torch, model, clouds, card)
-    times.update(phase_times_train(torch, data, labels, classifier, card))
-    times.update(phase_times_recon(torch, recon_x, card))
+    recon_counts = _timed(phase_recon_train, torch, recon_data, recon_x)
+    _timed(phase_recon_cli, torch)
+    prog_errs = _timed(phase_compare_progressive, torch)
+    px = torch.from_numpy(data[:PROG_B]).to(DEVICE)
+    py = torch.from_numpy(labels[:PROG_B]).to(DEVICE)
+    _timed(phase_progressive_step, torch, px, py, classifier)
+    prog_counts = _timed(phase_progressive_path, torch, px, py,
+                         data[:2 * PROG_B], labels[:2 * PROG_B], classifier)
+    _timed(phase_progressive_ae, torch, recon_data, recon_x)
+    _timed(phase_progressive_cli, torch, classifier)
+    times = _timed(phase_times, torch, model, clouds, card)
+    times.update(_timed(phase_times_train, torch, data, labels, classifier,
+                        card))
+    times.update(_timed(phase_times_recon, torch, recon_x, card))
+    times.update(_timed(phase_times_progressive, torch, px, py, recon_x,
+                        classifier, card))
     counts = {**counts, **{k: train_counts[k] for k in TRAIN_KERNELS},
-              **{k: recon_counts[k] for k in RECON_KERNELS}}
+              **{k: recon_counts[k] for k in RECON_KERNELS},
+              **{k: prog_counts[k] for k in PROG_KERNELS}}
     errs.update(train_errs)
+    errs.update(prog_errs)
     bounds = kernel_bounds()
     # no single PyTorch call computes any of these functions (a distance
     # matrix, a top-k or a matmul is one step of each), so library_ms is null
@@ -1505,7 +2213,7 @@ def main() -> int:
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          "library_ms": None}
         for name, (src, rep) in {**KERNELS, **TRAIN_KERNELS,
-                                 **RECON_KERNELS}.items()]}
+                                 **RECON_KERNELS, **PROG_KERNELS}.items()]}
     log("done", f"all phases passed in {time.monotonic() - t0:.1f} s")
     print(json.dumps(summary))
     print(card)

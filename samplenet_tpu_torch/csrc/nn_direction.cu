@@ -1,7 +1,10 @@
-// 1-NN of every query point in a database cloud: (squared distance, index).
+// 1-NN of every query point in a database cloud: (squared distance, index),
+// and with the snap variant also the neighbour's coordinates.
 //
 // Replaces: samplenet_tpu/ops/pallas/chamfer_kernel.py::nn_direction
-//   (body `_nn_direction_kernel` :28, `pl.pallas_call` :132).
+//   (body `_nn_direction_kernel` :28, `pl.pallas_call` :132) and, as
+//   `snt_nn_snap`, ::nn_snap (:192; the same body with `emit_points`), the
+//   hard projection's 1-NN snap.
 //
 // What bounds it on the H100: at the serving path's shape (B=1024 clouds,
 // 32 queries, 1024 database points) it is 33.5M distances of 8 flops each,
@@ -20,7 +23,16 @@
 //
 // Distances are ((dx*dx + dy*dy) + dz*dz) with __fmul_rn/__fadd_rn, which
 // the compiler never contracts into FMAs, so dist and idx equal the plain
-// version (ops/cuda/chamfer_kernel.py::nn_direction_plain) bit for bit.
+// version (ops/cuda/chamfer_kernel.py::nn_direction_plain) bit for bit. A
+// NaN distance never wins a '<', so it counts as +inf, as in the plain
+// version.
+//
+// The snap variant (kSnap) writes the winner's xyz as well: after the warp
+// merge, lane 0 copies y[idx] from the database, so the snapped point is
+// the neighbour's coordinates bit for bit (the TPU kernel's one-hot select
+// gives the same bits). At the progressive infer step's shape (B=32, 1024
+// queries against 1024 points) it is 33.5M distances and 0.4 MB of
+// snapped points out: latency-bound, like the direction alone.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -35,11 +47,13 @@ constexpr int kQueriesPerWarp = 4;
 constexpr int kQueryTile = kWarps * kQueriesPerWarp;
 constexpr int kChunk = 2048;  // database points staged per pass: 24 KB
 
+template <bool kSnap>
 __global__ void __launch_bounds__(kThreads)
 nn_direction_kernel(const float* __restrict__ x,  // [B, n1, 3] queries
                     const float* __restrict__ y,  // [B, n2, 3] database
                     float* __restrict__ dist,     // [B, n1]
                     int* __restrict__ idx,        // [B, n1]
+                    float* __restrict__ snapped,  // [B, n1, 3] when kSnap
                     int n1, int n2) {
   __shared__ float sy[3][kChunk];
   const int b = blockIdx.x;
@@ -97,6 +111,12 @@ nn_direction_kernel(const float* __restrict__ x,  // [B, n1, 3] queries
     if (lane == 0 && q < n1) {
       dist[static_cast<size_t>(b) * n1 + q] = d;
       idx[static_cast<size_t>(b) * n1 + q] = i;
+      if (kSnap) {
+        float* out = snapped + (static_cast<size_t>(b) * n1 + q) * 3;
+        out[0] = yb[static_cast<size_t>(i) * 3 + 0];
+        out[1] = yb[static_cast<size_t>(i) * 3 + 1];
+        out[2] = yb[static_cast<size_t>(i) * 3 + 2];
+      }
     }
   }
 }
@@ -107,6 +127,16 @@ extern "C" int snt_nn_direction(const float* x, const float* y, float* dist,
                                 int* idx, int b, int n1, int n2,
                                 cudaStream_t stream) {
   const dim3 grid(b, (n1 + kQueryTile - 1) / kQueryTile);
-  nn_direction_kernel<<<grid, kThreads, 0, stream>>>(x, y, dist, idx, n1, n2);
+  nn_direction_kernel<false><<<grid, kThreads, 0, stream>>>(x, y, dist, idx,
+                                                            nullptr, n1, n2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int snt_nn_snap(const float* x, const float* y, float* dist,
+                           int* idx, float* snapped, int b, int n1, int n2,
+                           cudaStream_t stream) {
+  const dim3 grid(b, (n1 + kQueryTile - 1) / kQueryTile);
+  nn_direction_kernel<true><<<grid, kThreads, 0, stream>>>(x, y, dist, idx,
+                                                           snapped, n1, n2);
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,7 +3,8 @@
 Mirrors samplenet_tpu/models/autoencoder.py:28-147 ("ala ICLR-18",
 reconstruction/src/ae_templates.py:11-43): the encoder is a per-point MLP
 3->64->128->128->256->bottleneck with BN + ReLU and a max over points (the
-port's `PointMLP`: the exact-BN kernel in training, `point_mlp_max` at
+port's `PointMLP`: the exact-BN kernel in training, or the ghost-BN kernel
+with `fused_train` (nn/layers.py::resolve_fused_mode), `point_mlp_max` at
 eval for N >= 128 where no gradient must cross it); the decoder is FC
 256->256->3*N without BN. The encoder's layers are `encoder.conv{i}` / `encoder.bn{i}`, the decoder's `dec_0`,
 `dec_1`, `dec_out`, as the flax tree names them (interop/jax_import.py::
@@ -29,13 +30,17 @@ from samplenet_tpu_torch.ops.pairwise import pairwise_sqdist
 class PointNetAE(nn.Module):
     def __init__(self, num_output_points: int, bottleneck_size: int = 128,
                  encoder_widths: tuple = (64, 128, 128, 256),
-                 decoder_widths: tuple = (256, 256), *, device=None,
+                 decoder_widths: tuple = (256, 256), *,
+                 fused_train: bool | None = None, fused_mode: str = "ghost",
+                 fused_bf16: bool | None = None, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
         gen = default_generator(generator)
         self.num_output_points = num_output_points
         self.bottleneck_size = bottleneck_size
         self.encoder = PointMLP(3, (*encoder_widths, bottleneck_size),
+                                fused_train=fused_train,
+                                fused_mode=fused_mode, fused_bf16=fused_bf16,
                                 device=device, generator=gen)
         widths = (bottleneck_size, *decoder_widths)
         self._n_dec = len(decoder_widths)

@@ -15,7 +15,8 @@ state_dict has the reference's key surface. SampleNet is the
 simplification network plus the projector and the matcher. Clouds are
 [B, N, 3] ("bnc") inside; "bcn" is accepted at the edges. In training,
 the forward returns (simplified, projected): batch-statistics BN (the
-conv chain as the exact-BN kernel) and the soft projection of the
+conv chain as the exact-BN kernel, or with `fused_train` the ghost-BN
+kernel, nn/layers.py::resolve_fused_mode) and the soft projection of the
 simplified points onto the input (samplenet.py:147-200).
 """
 
@@ -52,11 +53,15 @@ class SimplificationNet(nn.Module):
     def __init__(self, num_out_points: int, bottleneck_size: int = 128,
                  conv_widths: tuple = (64, 64, 64, 128),
                  fc_widths: tuple = (256, 256, 256), fc_bn: bool = True, *,
-                 bn_momentum: float = BN_MOMENTUM, device=None,
+                 bn_momentum: float = BN_MOMENTUM,
+                 fused_train: bool | None = None, fused_mode: str = "ghost",
+                 fused_bf16: bool | None = None, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
         gen = default_generator(generator)
         self.num_out_points = num_out_points
+        self.fused = dict(fused_train=fused_train, fused_mode=fused_mode,
+                          fused_bf16=fused_bf16)
         self._n_conv = len(conv_widths) + 1
         self._n_fc = len(fc_widths)
         add_point_mlp(self, 3, (*conv_widths, bottleneck_size),
@@ -70,7 +75,7 @@ class SimplificationNet(nn.Module):
     def forward(self, x: torch.Tensor, training: bool = False) -> torch.Tensor:
         """x [B, N, 3] -> simplified [B, num_out_points, 3]."""
         g = point_mlp(self, self._n_conv, x, training=training,
-                      pool_max=True)                          # [B, bottleneck]
+                      pool_max=True, **self.fused)            # [B, bottleneck]
         y = mlp_head(self, self._n_fc, g, activate_final=True,
                      training=training)
         y = getattr(self, f"fc{self._n_fc + 1}")(y)
@@ -93,7 +98,9 @@ class SampleNet(SimplificationNet):
                  skip_projection: bool = False, sigma_mode: str = "torch",
                  conv_widths: tuple = (64, 64, 64, 128),
                  fc_widths: tuple = (256, 256, 256), fc_bn: bool = True, *,
-                 bn_momentum: float = BN_MOMENTUM, device=None,
+                 bn_momentum: float = BN_MOMENTUM,
+                 fused_train: bool | None = None, fused_mode: str = "ghost",
+                 fused_bf16: bool | None = None, device=None,
                  generator: torch.Generator | None = None):
         if input_shape not in ("bnc", "bcn"):
             raise ValueError("input_shape must be 'bnc' or 'bcn'")
@@ -101,7 +108,9 @@ class SampleNet(SimplificationNet):
             raise ValueError("output_shape must be 'bnc' or 'bcn'")
         super().__init__(num_out_points, bottleneck_size, conv_widths,
                          fc_widths, fc_bn, bn_momentum=bn_momentum,
-                         device=device, generator=generator)
+                         fused_train=fused_train, fused_mode=fused_mode,
+                         fused_bf16=fused_bf16, device=device,
+                         generator=generator)
         self.input_shape = input_shape
         self.output_shape = output_shape
         self.complete_fps = complete_fps

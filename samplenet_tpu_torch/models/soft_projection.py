@@ -9,7 +9,10 @@ kernels on a CUDA tensor, their plain version on a CPU tensor (as JAX
 picks the Pallas kernel on a TPU). `_group` and `_weights` are JAX's XLA
 formulation (k-NN by |x|^2 + |y|^2 - 2xy, gather, softmax), kept for the
 feature propagation of the reconstruction track. The hard projection
-needs the 1-NN snap kernel, which is not ported yet.
+(one-hot of the largest weight, classification/soft_projection.py:73-76)
+snaps each query to its nearest input point, which is in every
+k-neighbourhood: it always runs `ops/cuda/chamfer_kernel.py::nn_snap`,
+the 1-NN snap kernel on a CUDA tensor, its plain version on a CPU tensor.
 
   * torch (registration/src/soft_projection.py:92-99): sigma^2 = max(t^2, min_sigma)
   * tf (classification/soft_projection.py:41): sigma^2 = t^2
@@ -21,11 +24,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from samplenet_tpu_torch.ops.cuda.chamfer_kernel import nn_snap
 from samplenet_tpu_torch.ops.cuda.soft_projection_kernel import soft_project
 from samplenet_tpu_torch.ops.knn import group_point, knn_point
-
-_HARD_MSG = ("SoftProjection.project(hard=True) needs the nn_snap kernel, "
-             "which is not ported yet (ROADMAP Queue 2 item 6)")
 
 
 def sigma_from_temperature(temperature: torch.Tensor, mode: str,
@@ -81,12 +82,15 @@ class SoftProjection(nn.Module):
     def project(self, point_cloud: torch.Tensor, query_cloud: torch.Tensor,
                 hard: bool = False):
         """(projected [B, M, 3], None, None) for point_cloud [B, N, 3] and
-        query_cloud [B, M, 3]; differentiable in both clouds and in the
-        temperature. The weights and distances live only inside the
-        kernel, as on the JAX package's Pallas path (soft_projection.py:
-        116-121)."""
+        query_cloud [B, M, 3]; the soft projection is differentiable in
+        both clouds and in the temperature. The weights and distances live
+        only inside the kernel, as on the JAX package's Pallas path
+        (soft_projection.py:109-121). With `hard` each query snaps to its
+        nearest input point (no gradient: an inference step)."""
         if hard:
-            raise NotImplementedError(_HARD_MSG)
+            _, _, snapped = nn_snap(query_cloud.contiguous(),
+                                    point_cloud.contiguous())
+            return snapped, None, None
         projected, _ = soft_project(point_cloud, query_cloud, self.sigma(),
                                     self.group_size)
         return projected, None, None

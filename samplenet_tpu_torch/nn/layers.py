@@ -20,8 +20,12 @@ over every axis but the last, the fast variance mean(x^2) - mean(x)^2
 clamped at 0 (biased), and running averages m * old + (1 - m) * batch
 with flax's momentum m (0.9). With `pool_max` the conv chain runs as
 `point_mlp_exact_train_max` (exact global statistics; the kernel on a
-CUDA tensor), which reports the statistics that update the running
-averages, as samplenet_tpu/nn/layers.py:48-51 (`BNTrainStats.update`).
+CUDA tensor), or, with `fused_train=True` in ghost mode where the shapes
+allow it, as `point_mlp_train_max` (ghost BN over blocks of clouds,
+bf16 operands by default); either reports the exact global statistics
+that update the running averages, as samplenet_tpu/nn/layers.py:48-51
+(`BNTrainStats.update`). `resolve_fused_mode` is the JAX package's rule
+for picking between them (:111-149).
 """
 
 from __future__ import annotations
@@ -38,6 +42,10 @@ from samplenet_tpu_torch.ops.cuda.point_mlp_exact_kernel import (
 from samplenet_tpu_torch.ops.cuda.point_mlp_kernel import (
     fold_bn_affine,
     point_mlp_max,
+)
+from samplenet_tpu_torch.ops.cuda.point_mlp_train_kernel import (
+    auto_block_b,
+    point_mlp_train_max,
 )
 
 BN_EPS = 1e-5
@@ -155,12 +163,51 @@ def _needs_grad(x: torch.Tensor, layers) -> bool:
         for p in (*conv.parameters(), *bn.parameters())))
 
 
+FUSED_MODES = ("ghost", "exact")
+
+
+def fused_bf16_of(mode: str, fused_bf16: bool | None) -> bool:
+    """The fused chain's matmul precision: `fused_bf16`, or by default bf16
+    for ghost and f32 for exact (samplenet_tpu/nn/layers.py:111-114)."""
+    return fused_bf16 if fused_bf16 is not None else mode == "ghost"
+
+
+def resolve_fused_mode(x: torch.Tensor, widths: Sequence[int], *,
+                       training: bool, pool_max: bool,
+                       fused_train: bool | None = None,
+                       fused_mode: str = "ghost",
+                       fused_bf16: bool | None = None) -> str:
+    """The train chain for x [B, N, C] through layers of `widths`: "ghost"
+    (`point_mlp_train_max`) only when `fused_train` is True, `fused_mode`
+    is "ghost", the call trains with `pool_max`, N % 128 == 0 and
+    `auto_block_b` finds a block, as samplenet_tpu/nn/layers.py:116-149
+    picks its ghost kernel; otherwise "exact", the exact global-BN chain,
+    which computes what both the JAX package's XLA chain and its exact
+    kernel compute. The exact chain runs in f32, so fused_bf16=True with
+    the exact mode raises."""
+    if fused_mode not in FUSED_MODES:
+        raise ValueError(f"fused_mode must be one of {FUSED_MODES}, got "
+                         f"{fused_mode!r}")
+    if fused_train is True and fused_mode == "exact" and fused_bf16:
+        raise ValueError("fused_bf16=True with fused_mode='exact': the "
+                         "port's exact-BN chain runs in f32")
+    if fused_train is not True or fused_mode != "ghost" or not training \
+            or not pool_max or x.dim() != 3 or x.shape[1] % 128:
+        return "exact"
+    bb = auto_block_b(x.shape[0], x.shape[1], tuple(widths),
+                      fused_bf16_of("ghost", fused_bf16))
+    return "exact" if bb is None else "ghost"
+
+
 def point_mlp(owner: nn.Module, n_layers: int, x: torch.Tensor, *,
-              training: bool = False, pool_max: bool = False) -> torch.Tensor:
+              training: bool = False, pool_max: bool = False,
+              fused_train: bool | None = None, fused_mode: str = "ghost",
+              fused_bf16: bool | None = None) -> torch.Tensor:
     """conv -> BN -> ReLU per layer over x [B, N, C]. With `pool_max` the
     result is the max over points, [B, C_out]. In training the chain is
-    `point_mlp_exact_train_max` (samplenet_tpu/nn/layers.py:151-186), a
-    kernel with a backward on a CUDA tensor. At eval, for N >= 128 and
+    `point_mlp_exact_train_max` (samplenet_tpu/nn/layers.py:151-186), or
+    `point_mlp_train_max` where `resolve_fused_mode` picks ghost BN, each
+    a kernel with a backward on a CUDA tensor. At eval, for N >= 128 and
     when no gradient has to cross the chain, each BN folds into its
     layer's affine and the chain is `point_mlp_max` (:196-223), a
     forward-only kernel. Otherwise the chain runs as tensor ops under
@@ -171,11 +218,18 @@ def point_mlp(owner: nn.Module, n_layers: int, x: torch.Tensor, *,
     layers = [(getattr(owner, f"conv{i + 1}"), getattr(owner, f"bn{i + 1}"))
               for i in range(n_layers)]
     if pool_max and training:
-        pooled, means, vars_ = point_mlp_exact_train_max(
-            x, [conv.kernel() for conv, _ in layers],
-            [conv.bias for conv, _ in layers],
-            [bn.weight for _, bn in layers], [bn.bias for _, bn in layers],
-            eps=BN_EPS)
+        args = (x, [conv.kernel() for conv, _ in layers],
+                [conv.bias for conv, _ in layers],
+                [bn.weight for _, bn in layers], [bn.bias for _, bn in layers])
+        widths = [conv.weight.shape[0] for conv, _ in layers]
+        if resolve_fused_mode(x, widths, training=True, pool_max=True,
+                              fused_train=fused_train, fused_mode=fused_mode,
+                              fused_bf16=fused_bf16) == "ghost":
+            pooled, means, vars_ = point_mlp_train_max(
+                *args, eps=BN_EPS, bf16=fused_bf16_of("ghost", fused_bf16))
+        else:
+            pooled, means, vars_ = point_mlp_exact_train_max(*args,
+                                                             eps=BN_EPS)
         for (_, bn), mean, var in zip(layers, means, vars_):
             bn.update_stats(mean, var)
         return pooled
@@ -186,7 +240,8 @@ def point_mlp(owner: nn.Module, n_layers: int, x: torch.Tensor, *,
             wbs += fold_bn_affine(conv.kernel(), conv.bias, bn.weight,
                                   bn.bias, bn.running_mean, bn.running_var,
                                   BN_EPS)
-        return point_mlp_max(x, tuple(wbs))
+        # a prefix slice (the progressive evals) is a strided view
+        return point_mlp_max(x.contiguous(), tuple(wbs))
     for conv, bn in layers:
         x = torch.relu(bn(conv(x), training))
     return x.amax(dim=1) if pool_max else x
@@ -226,19 +281,25 @@ def mlp_head(owner: nn.Module, n_layers: int, x: torch.Tensor, *,
 
 
 class PointMLP(nn.Module):
-    """Per-point MLP over [B, N, C]: conv -> BN -> ReLU on every layer."""
+    """Per-point MLP over [B, N, C]: conv -> BN -> ReLU on every layer.
+    `fused_train`, `fused_mode` and `fused_bf16` select its train chain
+    (`resolve_fused_mode`)."""
 
     def __init__(self, in_features: int, features: Sequence[int], *,
-                 device=None, generator: torch.Generator | None = None):
+                 fused_train: bool | None = None, fused_mode: str = "ghost",
+                 fused_bf16: bool | None = None, device=None,
+                 generator: torch.Generator | None = None):
         super().__init__()
         self.features = tuple(features)
+        self.fused = dict(fused_train=fused_train, fused_mode=fused_mode,
+                          fused_bf16=fused_bf16)
         add_point_mlp(self, in_features, self.features, device=device,
                       generator=generator)
 
     def forward(self, x: torch.Tensor, training: bool = False,
                 pool_max: bool = False) -> torch.Tensor:
         return point_mlp(self, len(self.features), x, training=training,
-                         pool_max=pool_max)
+                         pool_max=pool_max, **self.fused)
 
 
 class MLPHead(nn.Module):

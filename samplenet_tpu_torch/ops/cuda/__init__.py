@@ -6,6 +6,9 @@ library is compiled and loaded at the first launch (_build.py)."""
 from samplenet_tpu_torch.ops.cuda.chamfer_kernel import (  # noqa: F401
     nn_direction,
     nn_direction_plain,
+    nn_distance_pallas,
+    nn_snap,
+    nn_snap_plain,
 )
 from samplenet_tpu_torch.ops.cuda.emd_kernel import (  # noqa: F401
     emd_cost,
@@ -16,6 +19,12 @@ from samplenet_tpu_torch.ops.cuda.point_mlp_exact_kernel import (  # noqa: F401
     point_mlp_exact_bwd_plain,
     point_mlp_exact_fwd_plain,
     point_mlp_exact_train_max,
+)
+from samplenet_tpu_torch.ops.cuda.point_mlp_train_kernel import (  # noqa: F401
+    auto_block_b,
+    point_mlp_train_bwd_plain,
+    point_mlp_train_fwd_plain,
+    point_mlp_train_max,
 )
 from samplenet_tpu_torch.ops.cuda.point_mlp_kernel import (  # noqa: F401
     fold_bn_affine,

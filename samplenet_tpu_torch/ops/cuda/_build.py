@@ -122,32 +122,34 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.snt_error_string.restype = ctypes.c_char_p
     lib.snt_nn_direction.argtypes = [p, p, p, p, i, i, i, p]
     lib.snt_nn_direction.restype = i
+    lib.snt_nn_snap.argtypes = [p, p, p, p, p, i, i, i, p]
+    lib.snt_nn_snap.restype = i
     lib.snt_fps.argtypes = [p, p, p, p, p, i, i, i, p]
     lib.snt_fps.restype = i
     lib.snt_point_mlp_max_smem.argtypes = [ctypes.POINTER(i), i]
     lib.snt_point_mlp_max_smem.restype = ctypes.c_size_t
     lib.snt_point_mlp_max.argtypes = [p, p, ctypes.POINTER(i), i, p, i, i, p]
     lib.snt_point_mlp_max.restype = i
-    ll, pp, sz = ctypes.c_longlong, ctypes.POINTER(p), ctypes.c_size_t
+    pp, sz = ctypes.POINTER(p), ctypes.c_size_t
     lib.snt_soft_project_fwd.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.snt_soft_project_fwd.restype = i
     lib.snt_soft_project_bwd_smem.argtypes = [i, i]
     lib.snt_soft_project_bwd_smem.restype = sz
     lib.snt_soft_project_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
     lib.snt_soft_project_bwd.restype = i
-    lib.snt_pme_dense_smem.argtypes = [i, i]
-    lib.snt_pme_dense_smem.restype = sz
-    lib.snt_pme_bwd_smem.argtypes = [i, i]
-    lib.snt_pme_bwd_smem.restype = sz
-    lib.snt_pme_dense.argtypes = [p, i, pp, p, i, p, p, ll, i, p]
-    lib.snt_pme_dense.restype = i
-    lib.snt_pme_pool.argtypes = [p, pp, i, i, i, p, p, p]
-    lib.snt_pme_pool.restype = i
-    lib.snt_pme_rows.argtypes = [p, pp, i, p, p, p, i, i, p, i, p]
-    lib.snt_pme_rows.restype = i
-    lib.snt_pme_bwd.argtypes = [p, i, i, i, pp, p, pp, i, p, p, p, i, i, p,
-                                p, p, p, p, i, p]
-    lib.snt_pme_bwd.restype = i
+    lib.snt_pmt_dense_smem.argtypes = [i, i]
+    lib.snt_pmt_dense_smem.restype = sz
+    lib.snt_pmt_bwd_smem.argtypes = [i, i]
+    lib.snt_pmt_bwd_smem.restype = sz
+    lib.snt_pmt_dense.argtypes = [p, i, pp, i, i, p, i, p, p, i, i, i, i, p]
+    lib.snt_pmt_dense.restype = i
+    lib.snt_pmt_pool.argtypes = [p, pp, i, i, i, i, p, p, p]
+    lib.snt_pmt_pool.restype = i
+    lib.snt_pmt_rows.argtypes = [p, pp, i, i, p, p, p, i, i, i, p, i, p]
+    lib.snt_pmt_rows.restype = i
+    lib.snt_pmt_bwd.argtypes = [p, i, i, i, pp, i, p, pp, p, i, p, p, p, i,
+                                i, i, p, p, p, p, p, i, p]
+    lib.snt_pmt_bwd.restype = i
     lib.snt_emd_smem.argtypes = [i]
     lib.snt_emd_smem.restype = sz
     lib.snt_emd_rows_per_block.argtypes = []

@@ -14,7 +14,8 @@ means' and vars' cotangents feed only the EMA and are ignored (:457).
 The max-pool gradient goes to the first point that attains the max.
 
 Both paths keep every pre-BN z_l for the backward (see
-csrc/point_mlp_exact.cu for the kernels' design). The plain version does
+csrc/point_mlp_train.cu for the kernels' design: this chain is their case
+of one block of all B clouds, with bf16 off). The plain version does
 the same passes with torch ops; sums run in other orders, so the two
 agree to f32 round-off. The kernels take f32; the plain version also
 takes f64, which the on-card checks use as the reference both are held
@@ -39,10 +40,10 @@ from samplenet_tpu_torch.ops.dispatch import count_launch, use_kernel
 
 KERNEL_FWD = "point_mlp_exact_fwd"
 KERNEL_BWD = "point_mlp_exact_bwd"
-_TILE = 64               # csrc/point_mlp_exact.cu kTileP
+_TILE = 64               # csrc/point_mlp_train.cu kTileP
 
 
-def _check_args(x, weights, biases, gammas, betas) -> list[int]:
+def check_args(x, weights, biases, gammas, betas) -> list[int]:
     if x.dim() != 3 or x.shape[0] == 0 or x.shape[1] == 0:
         raise ValueError(f"point_mlp_exact takes x [B>=1, N>=1, C], got "
                          f"{tuple(x.shape)}")
@@ -133,14 +134,19 @@ def point_mlp_exact_bwd_plain(x, weights, gammas, betas, saved, g):
 
 
 # -------------------------------------------------------------- CUDA kernels
+#
+# csrc/point_mlp_train.cu holds the kernels of this chain and of the ghost
+# chain (point_mlp_train_kernel.py): exact global BN is its case of one
+# block of all B clouds, with bf16 off. The helpers below serve both.
 
-def _grid(work: int, device, per_sm: int) -> int:
-    """Blocks for a pass over `work` tiles that keeps its partial sums in
-    shared memory: `per_sm` per SM at most (what fits at the train
-    widths), a number fixed by the shape and the card, so the partial
-    sums (and their order) repeat from run to run."""
+def launch_grid(work: int, device, per_sm: int, n_blocks: int = 1) -> int:
+    """Blocks per batch block for a pass over its `work` tiles that keeps
+    its partial sums in shared memory: about `per_sm` per SM over all
+    `n_blocks` batch blocks (what fits at the train widths), a number fixed
+    by the shape and the card, so the partial sums (and their order)
+    repeat from run to run."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(work, per_sm * sms))
+    return max(1, min(work, -(-per_sm * sms // n_blocks)))
 
 
 _MAX_ROW_BLOCKS = 65535
@@ -152,14 +158,16 @@ def _rows_grid(work: int) -> int:
     return max(1, min(work, _MAX_ROW_BLOCKS))
 
 
-def _ptrs(*tensors) -> ctypes.Array:
+def ptrs(*tensors) -> ctypes.Array:
+    """The C array of the tensors' device pointers (a BN's mu, rstd, gamma,
+    beta) that the kernels take."""
     return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
 
 
 def _bwd_slab(cin_pad: int, cout: int, smem_of, limit: int) -> int | None:
-    """Input channels one pme_bwd block takes: all cin_pad where its
+    """Input channels one pmt_bwd block takes: all cin_pad where its
     shared memory fits `limit`, else cin_pad cut into the fewest equal
-    slabs (multiples of 4) that fit (csrc/point_mlp_exact.cu, pme_bwd);
+    slabs (multiples of 4) that fit (csrc/point_mlp_train.cu, pmt_bwd);
     None where not even 4 channels do."""
     for parts in range(1, cin_pad // 4 + 1):
         slab = -(-cin_pad // (4 * parts)) * 4
@@ -168,22 +176,21 @@ def _bwd_slab(cin_pad: int, cout: int, smem_of, limit: int) -> int | None:
     return None
 
 
-def _check_cuda(x, widths) -> list[int]:
-    """Checks what the kernels take; returns each layer's pme_bwd slab."""
+def check_cuda(x, widths, name: str) -> list[int]:
+    """Checks what the kernels take; returns each layer's pmt_bwd slab."""
     if x.device.type != "cuda":
-        raise ValueError(f"the point_mlp_exact kernels take CUDA tensors, "
-                         f"got {x.device}")
+        raise ValueError(f"the {name} kernels take CUDA tensors, got "
+                         f"{x.device}")
     if x.dtype != torch.float32:
-        raise TypeError(f"the point_mlp_exact kernels take float32, got "
-                        f"{x.dtype}")
+        raise TypeError(f"the {name} kernels take float32, got {x.dtype}")
     if any(c % 4 for c in widths[1:]):
-        raise ValueError(f"the point_mlp_exact kernels take output widths "
-                         f"divisible by 4, got {widths}")
+        raise ValueError(f"the {name} kernels take output widths divisible "
+                         f"by 4, got {widths}")
     lib = library()
     limit = max_dynamic_smem(x.device)
-    need = max(lib.snt_pme_dense_smem(ci, co)
+    need = max(lib.snt_pmt_dense_smem(ci, co)
                for ci, co in zip(widths[:-1], widths[1:]))
-    slabs = [_bwd_slab(-(-ci // 4) * 4, co, lib.snt_pme_bwd_smem, limit)
+    slabs = [_bwd_slab(-(-ci // 4) * 4, co, lib.snt_pmt_bwd_smem, limit)
              for ci, co in zip(widths[:-1], widths[1:])]
     if need > limit or None in slabs:
         raise ValueError(f"widths {widths} need more shared memory per block "
@@ -193,11 +200,11 @@ def _check_cuda(x, widths) -> list[int]:
 
 def point_mlp_exact_fwd_cuda(x, weights, gammas, betas, eps):
     widths = [x.shape[-1], *(w.shape[1] for w in weights)]
-    _check_cuda(x, widths)
+    check_cuda(x, widths, "point_mlp_exact")
     b, n, _ = x.shape
     count = b * n
     lib = library()
-    grid = _grid(-(-count // _TILE), x.device, per_sm=4)
+    grid = launch_grid(-(-count // _TILE), x.device, per_sm=4)
     stream = stream_handle(x)
     h_in, prev = x.contiguous(), None
     zs, mus, rstds, vars_ = [], [], [], []
@@ -207,14 +214,14 @@ def point_mlp_exact_fwd_cuda(x, weights, gammas, betas, eps):
             z = torch.empty((count, cout), dtype=torch.float32, device=x.device)
             rows = torch.empty((grid, 2, cout), dtype=torch.float64,
                                device=x.device)
-            err = lib.snt_pme_dense(
-                h_in.data_ptr(), cin, prev, w.contiguous().data_ptr(), cout,
-                z.data_ptr(), rows.data_ptr(), count, grid, stream)
+            err = lib.snt_pmt_dense(
+                h_in.data_ptr(), cin, prev, 0, 0, w.contiguous().data_ptr(),
+                cout, z.data_ptr(), rows.data_ptr(), 1, b, n, grid, stream)
             check(err, KERNEL_FWD)
             s = rows.sum(0)
             mu, var, rstd = _stats(s[0], s[1], count, eps,
                                    torch.float32)
-            prev = _ptrs(mu, rstd, gamma.contiguous(), beta.contiguous())
+            prev = ptrs(mu, rstd, gamma.contiguous(), beta.contiguous())
             bn_keep = (mu, rstd, gamma.contiguous(), beta.contiguous())
             zs.append(z)
             mus.append(mu)
@@ -225,7 +232,7 @@ def point_mlp_exact_fwd_cuda(x, weights, gammas, betas, eps):
                              device=x.device)
         argmax = torch.empty((b, widths[-1]), dtype=torch.int32,
                              device=x.device)
-        err = lib.snt_pme_pool(zs[-1].data_ptr(), _ptrs(*bn_keep), b, n,
+        err = lib.snt_pmt_pool(zs[-1].data_ptr(), ptrs(*bn_keep), b, b, n,
                                widths[-1], pooled.data_ptr(),
                                argmax.data_ptr(), stream)
     check(err, KERNEL_FWD)
@@ -236,7 +243,7 @@ def point_mlp_exact_fwd_cuda(x, weights, gammas, betas, eps):
 def point_mlp_exact_bwd_cuda(x, weights, gammas, betas, saved, g):
     zs, mus, rstds, argmax = saved
     widths = [x.shape[-1], *(w.shape[1] for w in weights)]
-    slabs = _check_cuda(x, widths)
+    slabs = check_cuda(x, widths, "point_mlp_exact")
     b, n, c0 = x.shape
     count = b * n
     lib = library()
@@ -255,10 +262,10 @@ def point_mlp_exact_bwd_cuda(x, weights, gammas, betas, saved, g):
             grid = _rows_grid(b if dh is None else tiles)
             rows = torch.empty((grid, 2, cout), dtype=torch.float64,
                                device=x.device)
-            err = lib.snt_pme_rows(
-                zs[i].data_ptr(), _ptrs(*bns[i]), cout,
+            err = lib.snt_pmt_rows(
+                zs[i].data_ptr(), ptrs(*bns[i]), cout, 0,
                 None if dh is None else dh.data_ptr(), g.data_ptr(),
-                argmax.data_ptr(), b, n, rows.data_ptr(), grid, stream)
+                argmax.data_ptr(), 1, b, n, rows.data_ptr(), grid, stream)
             check(err, KERNEL_BWD)
             s = rows.sum(0).float()
             dbetas[i], dgammas[i] = s[0], s[1]
@@ -267,19 +274,20 @@ def point_mlp_exact_bwd_cuda(x, weights, gammas, betas, saved, g):
             cin = widths[i]
             cin_pad = -(-cin // 4) * 4
             wt = F.pad(weights[i].t(), (0, cin_pad - cin)).contiguous()
-            grid = _grid(tiles, x.device, per_sm=2)
+            grid = launch_grid(tiles, x.device, per_sm=2)
             dw_part = torch.empty((grid, cin_pad, cout), dtype=torch.float64,
                                   device=x.device)
             dh_prev = torch.empty((count, cin_pad), dtype=torch.float32,
                                   device=x.device)
             h_in = x.contiguous() if i == 0 else zs[i - 1]
-            err = lib.snt_pme_bwd(
+            err = lib.snt_pmt_bwd(
                 h_in.data_ptr(), cin, cin_pad, slabs[i],
-                None if i == 0 else _ptrs(*bns[i - 1]), zs[i].data_ptr(),
-                _ptrs(*bns[i]), cout, None if dh is None else dh.data_ptr(),
-                g.data_ptr(), argmax.data_ptr(), b, n, r1.data_ptr(),
-                r2.data_ptr(), wt.data_ptr(), dw_part.data_ptr(),
-                dh_prev.data_ptr(), grid, stream)
+                None if i == 0 else ptrs(*bns[i - 1]), 0, zs[i].data_ptr(),
+                ptrs(*bns[i]), rstds[i].data_ptr(), cout,
+                None if dh is None else dh.data_ptr(), g.data_ptr(),
+                argmax.data_ptr(), 1, b, n, r1.data_ptr(), r2.data_ptr(),
+                wt.data_ptr(), dw_part.data_ptr(), dh_prev.data_ptr(), grid,
+                stream)
             check(err, KERNEL_BWD)
             dws[i] = dw_part.sum(0)[:cin].float()
             dh = dh_prev
@@ -333,7 +341,7 @@ def point_mlp_exact_train_max(x, weights, biases, gammas, betas, *,
     dense bias. Differentiable in x, the weights, gammas and betas (the
     biases get exact zeros). CPU tensors take the plain versions, CUDA
     tensors the kernels (ops/dispatch.py)."""
-    _check_args(x, weights, biases, gammas, betas)
+    check_args(x, weights, biases, gammas, betas)
     nl = len(weights)
     outs = _PointMLPExact.apply(x, eps, nl, *weights, *biases, *gammas,
                                 *betas)

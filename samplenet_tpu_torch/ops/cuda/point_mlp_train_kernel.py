@@ -1,0 +1,382 @@
+"""Train-mode per-point MLP chain with ghost BatchNorm + global max, forward
+and backward: the CUDA kernels' wrappers, their plain PyTorch versions and
+the autograd Function that joins them.
+
+Mirrors samplenet_tpu/ops/pallas/point_mlp_train_kernel.py:57-432
+(`auto_block_b`, `point_mlp_train_max`), the chain behind `--fused-train`.
+It takes x [B, N, C_in] and per layer the Dense kernel W [C_in, C_out],
+its bias, and BN's gamma and beta, and returns (pooled [B, C_out], means,
+vars). Normalisation uses ghost statistics: the clouds fall into blocks of
+`block_b` (block p holds clouds p*block_b .. p*block_b + block_b - 1) and
+each layer normalises each block with the block's own mean and biased
+variance E[z^2] - E[z]^2, not clamped (:81-85). means and vars are the
+exact global statistics that the EMA takes, from the per-block rows
+(`_stats_from_rows`, :336-349): the mean over blocks plus the dense bias,
+and E[z^2] - E[z]^2 of the block averages, again not clamped. The dense
+bias never enters z, so its gradient is exactly zero (:391).
+
+With `bf16` each matmul rounds both operands to bf16 and sums in f32, as
+`jnp.dot(a.astype(bf16), b.astype(bf16), preferred_element_type=f32)`,
+and the backward stores xhat in bf16. The backward is the TPU kernel's
+own VJP (:120-196), not the gradient of the forward: the ReLU mask comes
+from gamma * xhat_stored + beta, h_prev is rebuilt from the layer below's
+stored xhat, rstd from z recomputed on that h_prev, and the max-pool
+cotangent goes to the f32 chain's first argmax. With bf16 off these are
+the forward's own values.
+
+`auto_block_b` is the TPU's VMEM-budget formula, copied as it is: the block
+size sets the statistics, so it is part of the result, not a tiling
+choice. The kernels are csrc/point_mlp_train.cu, which also run the exact
+chain (point_mlp_exact_kernel.py) as one block; the plain versions follow
+the TPU kernel's lines (the backward recomputes the chain from x) and also
+take float64, which the on-card checks use, with bf16 off, as the
+reference both paths are held against.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from samplenet_tpu_torch.ops.cuda._build import check, library, stream_handle
+from samplenet_tpu_torch.ops.cuda.point_mlp_exact_kernel import (
+    check_args,
+    check_cuda,
+    launch_grid,
+    ptrs,
+)
+from samplenet_tpu_torch.ops.cuda.point_mlp_kernel import full_f32_matmul
+from samplenet_tpu_torch.ops.dispatch import count_launch, use_kernel
+
+KERNEL_FWD = "point_mlp_train_fwd"
+KERNEL_BWD = "point_mlp_train_bwd"
+_TILE = 64                          # csrc/point_mlp_train.cu kTileP
+_VMEM_BUDGET = 10 * 1024 * 1024     # the TPU kernel's (:54)
+
+
+def auto_block_b(batch: int, n: int, widths: tuple[int, ...],
+                 bf16: bool = True) -> int | None:
+    """Largest power-of-two batch block that (a) divides `batch` (ghost
+    stats must not mix padding into a block) and (b) fits the TPU backward
+    kernel's VMEM plan: per-layer x_hat stores + 3 live [C_max, bb*N] f32
+    temporaries. None when no block fits (the exact chain runs instead).
+    point_mlp_train_kernel.py:57-73, unchanged."""
+    store_bytes = sum(widths) * (2 if bf16 else 4)
+    temp_bytes = 3 * max(widths) * 4
+    per_lane = n * (store_bytes + temp_bytes)
+    bb_max = _VMEM_BUDGET // max(per_lane, 1)
+    bb = 1
+    while bb * 2 <= min(bb_max, 64) and batch % (bb * 2) == 0:
+        bb *= 2
+    if bb > bb_max or batch % bb:
+        return None
+    return bb
+
+
+def _op(t: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """A matmul operand (or a stored xhat): rounded to bf16 when on."""
+    return t.to(torch.bfloat16).to(t.dtype) if bf16 else t
+
+
+def _ghost_stats(z: torch.Tensor, eps: float):
+    """(mu, msq, rstd) per block of z [P, M, C], each [P, 1, C]."""
+    mu = z.mean(1, keepdim=True)
+    msq = (z * z).mean(1, keepdim=True)
+    return mu, msq, torch.rsqrt(msq - mu * mu + eps)
+
+
+# ------------------------------------------------------------ plain version
+
+def point_mlp_train_fwd_plain(x, weights, gammas, betas, eps, block_b, bf16):
+    """(pooled [B, C_out], block means [P, C] and block E[z^2] [P, C] per
+    layer): the forward kernel's lines (:102-117)."""
+    b, n, c0 = x.shape
+    h = x.reshape(b // block_b, block_b * n, c0)
+    mus, msqs = [], []
+    with full_f32_matmul():
+        for w, gamma, beta in zip(weights, gammas, betas):
+            z = torch.matmul(_op(h, bf16), _op(w, bf16))
+            mu, msq, rstd = _ghost_stats(z, eps)
+            h = torch.relu(gamma * ((z - mu) * rstd) + beta)
+            mus.append(mu[:, 0])
+            msqs.append(msq[:, 0])
+    return h.reshape(b, n, -1).amax(dim=1), mus, msqs
+
+
+def _stored_chain(x, weights, gammas, betas, eps, block_b, bf16):
+    """(xhat per layer as the backward stores it, [P, M, C], and the f32
+    chain's first argmax [B, C_out]): the backward kernel's recompute of
+    the chain from x (:130-148)."""
+    b, n, c0 = x.shape
+    h = x.reshape(b // block_b, block_b * n, c0)
+    xhats = []
+    with full_f32_matmul():
+        for w, gamma, beta in zip(weights, gammas, betas):
+            z = torch.matmul(_op(h, bf16), _op(w, bf16))
+            mu, _, rstd = _ghost_stats(z, eps)
+            xhat = (z - mu) * rstd
+            h = torch.relu(gamma * xhat + beta)
+            xhats.append(_op(xhat, bf16))
+    return xhats, torch.argmax(h.reshape(b, n, -1), dim=1)
+
+
+def point_mlp_train_vjp_plain(x, weights, gammas, betas, eps, block_b, bf16,
+                              xhats, argmax, g):
+    """(dx, dWs, dgammas, dbetas) for the pooled cotangent g [B, C_out],
+    from the stored xhats [P, M, C] and the argmax [B, C_out] of a forward:
+    the backward kernel's lines (:150-196)."""
+    b, n, c0 = x.shape
+    p = b // block_b
+    h0 = x.reshape(p, block_b * n, c0)
+    nl = len(weights)
+    dws, dgammas, dbetas = [None] * nl, [None] * nl, [None] * nl
+    top = xhats[-1]
+    dh = torch.zeros((b, n, top.shape[-1]), dtype=top.dtype,
+                     device=top.device)
+    dh = dh.scatter_(1, argmax[:, None, :], g[:, None, :].to(top.dtype))
+    dh = dh.reshape(p, block_b * n, -1)
+    with full_f32_matmul():
+        for i in range(nl - 1, -1, -1):
+            xh = xhats[i]
+            y = gammas[i] * xh + betas[i]
+            dy = torch.where(y > 0, dh, torch.zeros_like(dh))
+            dgammas[i] = (dy * xh).sum(1).sum(0)
+            dbetas[i] = dy.sum(1).sum(0)
+            dxhat = dy * gammas[i]
+            dz = (dxhat - dxhat.mean(1, keepdim=True)
+                  - xh * (dxhat * xh).mean(1, keepdim=True))
+            h_prev = h0 if i == 0 else torch.relu(
+                gammas[i - 1] * xhats[i - 1] + betas[i - 1])
+            z = torch.matmul(_op(h_prev, bf16), _op(weights[i], bf16))
+            _, _, rstd = _ghost_stats(z, eps)
+            dz = _op(rstd * dz, bf16)
+            dws[i] = torch.matmul(_op(h_prev, bf16).transpose(1, 2),
+                                  dz).sum(0)
+            dh = torch.matmul(dz, _op(weights[i], bf16).t())
+    return dh.reshape(b, n, c0), dws, dgammas, dbetas
+
+
+def point_mlp_train_bwd_plain(x, weights, gammas, betas, eps, block_b, bf16,
+                              g):
+    """(dx, dWs, dgammas, dbetas) for the pooled cotangent g [B, C_out]:
+    the backward kernel's lines (:130-196), the chain recomputed from x."""
+    xhats, argmax = _stored_chain(x, weights, gammas, betas, eps, block_b,
+                                  bf16)
+    return point_mlp_train_vjp_plain(x, weights, gammas, betas, eps, block_b,
+                                     bf16, xhats, argmax, g)
+
+
+def stats_from_rows(mus, msqs):
+    """Per layer the exact global (mean, var) of z from the per-block rows
+    [P, C] (:336-349, before the dense bias): block rows are averages over
+    equal blocks, so the global mean is their mean, and the variance is
+    E[z^2] - E[z]^2, not clamped."""
+    means, vars_ = [], []
+    for mu_b, msq_b in zip(mus, msqs):
+        mu, msq = mu_b.mean(0), msq_b.mean(0)
+        means.append(mu)
+        vars_.append(msq - mu * mu)
+    return means, vars_
+
+
+# -------------------------------------------------------------- CUDA kernels
+
+def _block_stats(rows: torch.Tensor, m: int, eps: float):
+    """(mu, rstd) as f32 [P, C], and the f64 (mu, msq), from the f64 sums
+    rows [P, G, 2, C] over m points per block."""
+    s = rows.sum(1)
+    mu64, msq64 = s[:, 0] / m, s[:, 1] / m
+    var = (msq64 - mu64 * mu64).float()
+    return mu64.float(), torch.rsqrt(var + eps), mu64, msq64
+
+
+def point_mlp_train_fwd_cuda(x, weights, gammas, betas, eps, block_b, bf16):
+    """(pooled, block means, block E[z^2] (f64), saved): saved feeds the
+    backward kernels."""
+    widths = [x.shape[-1], *(w.shape[1] for w in weights)]
+    check_cuda(x, widths, "point_mlp_train")
+    b, n, _ = x.shape
+    p, m = b // block_b, block_b * n
+    lib = library()
+    grid = launch_grid(-(-m // _TILE), x.device, per_sm=4, n_blocks=p)
+    stream = stream_handle(x)
+    gammas = [t.contiguous() for t in gammas]
+    betas = [t.contiguous() for t in betas]
+    h_in, prev = x.contiguous(), None
+    zs, mus, rstds, mus64, msqs64 = [], [], [], [], []
+    with torch.cuda.device(x.device):
+        for w, gamma, beta in zip(weights, gammas, betas):
+            cin, cout = w.shape
+            z = torch.empty((b * n, cout), dtype=torch.float32, device=x.device)
+            rows = torch.empty((p, grid, 2, cout), dtype=torch.float64,
+                               device=x.device)
+            w_op = _op(w, bf16).contiguous()
+            err = lib.snt_pmt_dense(
+                h_in.data_ptr(), cin, prev, 0, int(bf16), w_op.data_ptr(),
+                cout, z.data_ptr(), rows.data_ptr(), p, block_b, n, grid,
+                stream)
+            check(err, KERNEL_FWD)
+            mu, rstd, mu64, msq64 = _block_stats(rows, m, eps)
+            prev = ptrs(mu, rstd, gamma, beta)
+            zs.append(z)
+            mus.append(mu)
+            rstds.append(rstd)
+            mus64.append(mu64)
+            msqs64.append(msq64)
+            h_in = z
+        pooled = torch.empty((b, widths[-1]), dtype=torch.float32,
+                             device=x.device)
+        argmax = torch.empty((b, widths[-1]), dtype=torch.int32,
+                             device=x.device)
+        err = lib.snt_pmt_pool(zs[-1].data_ptr(), prev, b, block_b, n,
+                               widths[-1], pooled.data_ptr(),
+                               argmax.data_ptr(), stream)
+    check(err, KERNEL_FWD)
+    count_launch(KERNEL_FWD)
+    return pooled, mus64, msqs64, (zs, mus, rstds, argmax)
+
+
+def point_mlp_train_bwd_cuda(x, weights, gammas, betas, eps, block_b, bf16,
+                             saved, g):
+    zs, mus, rstds, argmax = saved
+    widths = [x.shape[-1], *(w.shape[1] for w in weights)]
+    slabs = check_cuda(x, widths, "point_mlp_train")
+    b, n, c0 = x.shape
+    p, m = b // block_b, block_b * n
+    tiles = -(-m // _TILE)
+    lib = library()
+    stream = stream_handle(x)
+    g = g.contiguous()
+    gammas = [t.contiguous() for t in gammas]
+    betas = [t.contiguous() for t in betas]
+    bns = [ptrs(mus[i], rstds[i], gammas[i], betas[i]) for i in range(len(zs))]
+    dense_grid = launch_grid(tiles, x.device, per_sm=4, n_blocks=p)
+    nl = len(weights)
+    dws, dgammas, dbetas = [None] * nl, [None] * nl, [None] * nl
+    dh = None                      # the top layer reads g at argmax
+    with torch.cuda.device(x.device):
+        for i in range(nl - 1, -1, -1):
+            cin, cout = widths[i], widths[i + 1]
+            w_op = _op(weights[i], bf16).contiguous()
+            rstd2 = rstds[i]
+            if bf16 and i > 0:
+                # rstd from z recomputed on h_prev rebuilt from the stored
+                # (bf16) xhat of the layer below (:173-184); with bf16 off
+                # that z is the forward's, bit for bit
+                rows = torch.empty((p, dense_grid, 2, cout),
+                                   dtype=torch.float64, device=x.device)
+                err = lib.snt_pmt_dense(
+                    zs[i - 1].data_ptr(), cin, bns[i - 1], 1, 1,
+                    w_op.data_ptr(), cout, None, rows.data_ptr(),
+                    p, block_b, n, dense_grid, stream)
+                check(err, KERNEL_BWD)
+                rstd2 = _block_stats(rows, m, eps)[1].contiguous()
+            grid = launch_grid(block_b if dh is None else tiles, x.device,
+                               per_sm=4, n_blocks=p)
+            rows = torch.empty((p, grid, 2, cout), dtype=torch.float64,
+                               device=x.device)
+            err = lib.snt_pmt_rows(
+                zs[i].data_ptr(), bns[i], cout, int(bf16),
+                None if dh is None else dh.data_ptr(), g.data_ptr(),
+                argmax.data_ptr(), p, block_b, n, rows.data_ptr(), grid,
+                stream)
+            check(err, KERNEL_BWD)
+            s = rows.sum(1)                               # [P, 2, C] f64
+            dbetas[i], dgammas[i] = s[:, 0].sum(0).float(), \
+                s[:, 1].sum(0).float()
+            gamma64 = gammas[i].double()
+            r1 = (gamma64 * s[:, 0] / m).float().contiguous()
+            r2 = (gamma64 * s[:, 1] / m).float().contiguous()
+            cin_pad = -(-cin // 4) * 4
+            wt = F.pad(w_op.t(), (0, cin_pad - cin)).contiguous()
+            grid = launch_grid(p * tiles, x.device, per_sm=2)
+            dw_part = torch.empty((grid, cin_pad, cout), dtype=torch.float64,
+                                  device=x.device)
+            dh_prev = torch.empty((b * n, cin_pad), dtype=torch.float32,
+                                  device=x.device)
+            h_in = x.contiguous() if i == 0 else zs[i - 1]
+            err = lib.snt_pmt_bwd(
+                h_in.data_ptr(), cin, cin_pad, slabs[i],
+                None if i == 0 else bns[i - 1], int(bf16), zs[i].data_ptr(),
+                bns[i], rstd2.data_ptr(), cout,
+                None if dh is None else dh.data_ptr(), g.data_ptr(),
+                argmax.data_ptr(), p, block_b, n, r1.data_ptr(),
+                r2.data_ptr(), wt.data_ptr(), dw_part.data_ptr(),
+                dh_prev.data_ptr(), grid, stream)
+            check(err, KERNEL_BWD)
+            dws[i] = dw_part.sum(0)[:cin].float()
+            dh = dh_prev
+    count_launch(KERNEL_BWD)
+    return dh[:, :c0].reshape(b, n, c0), dws, dgammas, dbetas
+
+
+# ------------------------------------------------------------ the Function
+
+class _PointMLPGhost(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, eps, block_b, bf16, n_layers, *params):
+        weights = params[:n_layers]
+        gammas = params[2 * n_layers:3 * n_layers]
+        betas = params[3 * n_layers:]
+        # decided once, at the forward: the backward runs on autograd's
+        # own thread, outside any plain_on_cuda() block
+        ctx.kernel = use_kernel(x)
+        ctx.eps, ctx.block_b, ctx.bf16, ctx.n_layers = eps, block_b, bf16, \
+            n_layers
+        if ctx.kernel:
+            pooled, mus, msqs, saved = point_mlp_train_fwd_cuda(
+                x, weights, gammas, betas, eps, block_b, bf16)
+            zs, bmus, rstds, argmax = saved
+            ctx.save_for_backward(x, *weights, *gammas, *betas, *zs, *bmus,
+                                  *rstds, argmax)
+        else:
+            pooled, mus, msqs = point_mlp_train_fwd_plain(
+                x, weights, gammas, betas, eps, block_b, bf16)
+            ctx.save_for_backward(x, *weights, *gammas, *betas)
+        means, vars_ = stats_from_rows(mus, msqs)
+        means = [(mu + bias.to(mu.dtype)).to(x.dtype) for mu, bias in
+                 zip(means, params[n_layers:2 * n_layers])]
+        vars_ = [v.to(x.dtype) for v in vars_]
+        ctx.mark_non_differentiable(*means, *vars_)
+        return (pooled, *means, *vars_)
+
+    @staticmethod
+    def backward(ctx, g, *_stat_grads):
+        nl = ctx.n_layers
+        x, *rest = ctx.saved_tensors
+        weights, gammas, betas = rest[:nl], rest[nl:2 * nl], rest[2 * nl:3 * nl]
+        args = (x, weights, gammas, betas, ctx.eps, ctx.block_b, ctx.bf16)
+        if ctx.kernel:
+            saved = (rest[3 * nl:4 * nl], rest[4 * nl:5 * nl],
+                     rest[5 * nl:6 * nl], rest[6 * nl])
+            dx, dws, dgammas, dbetas = point_mlp_train_bwd_cuda(
+                *args, saved, g)
+        else:
+            dx, dws, dgammas, dbetas = point_mlp_train_bwd_plain(*args, g)
+        dbiases = [torch.zeros_like(w[0]) for w in weights]
+        return (dx, None, None, None, None, *dws, *dbiases, *dgammas,
+                *dbetas)
+
+
+def point_mlp_train_max(x, weights, biases, gammas, betas, *,
+                        eps: float = 1e-5, block_b: int | None = None,
+                        bf16: bool = True):
+    """(pooled [B, C_out], means, vars): the train-mode chain relu(BN(x W_l))
+    with ghost batch statistics over blocks of `block_b` clouds
+    (`auto_block_b` when None), max-pooled over points; means (with each
+    layer's dense bias) and vars are the exact global statistics for the
+    EMA. Differentiable in x, the weights, gammas and betas (the biases get
+    exact zeros). CPU tensors take the plain versions, CUDA tensors the
+    kernels (ops/dispatch.py)."""
+    widths = check_args(x, weights, biases, gammas, betas)
+    if block_b is None:
+        block_b = auto_block_b(x.shape[0], x.shape[1], tuple(widths[1:]),
+                               bf16)
+    if block_b is None or block_b < 1 or x.shape[0] % block_b:
+        raise ValueError(f"no valid batch block for B={x.shape[0]}, "
+                         f"N={x.shape[1]}, widths {widths[1:]}: the caller "
+                         f"runs the exact chain")
+    nl = len(weights)
+    outs = _PointMLPGhost.apply(x, eps, block_b, bool(bf16), nl, *weights,
+                                *biases, *gammas, *betas)
+    return outs[0], tuple(outs[1:1 + nl]), tuple(outs[1 + nl:])

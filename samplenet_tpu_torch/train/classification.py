@@ -11,9 +11,11 @@ requires_grad off, while the gradient still flows through it into the
 projected cloud (train_samplenet.py:169-171,195-199). Eval is hard
 matching (unique + FPS) then the classifier, all on the device.
 
-The JAX config's TPU knobs (bf16, remat, conv_layout, fused_*) have no
-counterpart: the port runs f32 and takes the exact-BN kernel on a CUDA
-tensor.
+The conv chain is the exact-BN kernel by default; `fused_train` with
+`fused_mode` "ghost" takes the ghost-BN kernel (bf16 operands unless
+`fused_bf16` is False), as the JAX config's fused_* knobs do
+(nn/layers.py::resolve_fused_mode). The JAX config's other TPU knobs
+(bf16, remat, conv_layout) have no counterpart: the port runs f32.
 """
 
 from __future__ import annotations
@@ -62,9 +64,14 @@ class SampleNetConfig:
     # TF-style scheduled BN decay 0.5 -> 0.99 (train_samplenet.py:124-133):
     # the BatchNorms run with momentum 0 and the EMA happens in the step
     bn_schedule: bool = False
+    # the train chain of the conv layers (nn/layers.py::resolve_fused_mode):
+    # None or False = the exact-BN chain; True = the `fused_mode` chain
+    fused_train: bool | None = None
+    fused_mode: str = "ghost"
+    fused_bf16: bool | None = None   # None = bf16 for ghost
 
 
-def create_samplenet_state(scfg: SampleNetConfig, *, device="cpu",
+def create_samplenet_state(scfg: SampleNetConfig, *, device="cuda",
                            seed: int = 0) -> tuple[SampleNet, TrainState]:
     """The classification-track sampler (sigma = t^2, no clamp) with
     flax-style initialisation from `seed`, and its guarded Adam."""
@@ -77,6 +84,9 @@ def create_samplenet_state(scfg: SampleNetConfig, *, device="cpu",
         skip_projection=scfg.skip_projection,
         sigma_mode="tf",
         bn_momentum=0.0 if scfg.bn_schedule else 0.9,
+        fused_train=scfg.fused_train,
+        fused_mode=scfg.fused_mode,
+        fused_bf16=scfg.fused_bf16,
         generator=torch.Generator().manual_seed(seed),
     ).to(device)
     opt = adam_with_schedule(

@@ -17,10 +17,13 @@ reconstruction from the hard-matched sample and from the full input, and
 NRE = their ratio of means (sampler/evaluate_samplenet.py:145-152); the
 FPS baseline samples by FPS instead.
 
-The JAX config's TPU knobs (fused_train, fused_mode, fused_bf16) and its
-EMD knobs (emd_kernel, emd_fast: the XLA scan in place of the fused EMD,
-in bf16) have no counterpart: the port's train chain is the exact-BN
-kernel, and its EMD the fused EMD kernel, on a CUDA tensor.
+The train-mode conv chains (the AE's encoder in phase 1, the sampler's in
+phase 2) are the exact-BN kernel by default and the ghost-BN kernel with
+`fused_train` in ghost mode where the shapes allow it, as the JAX configs'
+fused_train / fused_mode / fused_bf16 select (nn/layers.py::
+resolve_fused_mode). The JAX config's EMD knobs (emd_kernel, emd_fast:
+the XLA scan in place of the fused EMD, in bf16) have no counterpart: the
+port's EMD is the fused EMD kernel on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -61,6 +64,10 @@ class AEConfig:
     learning_rate: float = 5e-4
     use_fps: bool = False          # FPS front-end (pointnet_ae.py:46-56)
     n_sample_points: int = 2048
+    # the encoder's train chain (nn/layers.py::resolve_fused_mode)
+    fused_train: bool | None = None
+    fused_mode: str = "ghost"
+    fused_bf16: bool | None = None
 
 
 @dataclass
@@ -73,6 +80,11 @@ class SampleNetAEConfig:
     is_denoising: bool = False
     batch_size: int = 50
     learning_rate: float = 5e-4
+    # the simplification chain's train chain (nn/layers.py::
+    # resolve_fused_mode)
+    fused_train: bool | None = None
+    fused_mode: str = "ghost"
+    fused_bf16: bool | None = None
 
 
 def ae_loss_fn(loss_name: str) -> Callable:
@@ -91,9 +103,11 @@ def _apply(state: TrainState, loss: torch.Tensor) -> None:
     state.step += 1
 
 
-def create_ae_state(cfg: AEConfig, *, device="cpu",
+def create_ae_state(cfg: AEConfig, *, device="cuda",
                     seed: int = 0) -> tuple[PointNetAE, TrainState]:
     model = PointNetAE(cfg.num_points, cfg.bottleneck_size,
+                       fused_train=cfg.fused_train, fused_mode=cfg.fused_mode,
+                       fused_bf16=cfg.fused_bf16,
                        generator=torch.Generator().manual_seed(seed))
     model = model.to(device)
     opt = adam_with_schedule(model.parameters(),
@@ -130,7 +144,7 @@ def make_ae_eval_step(model: PointNetAE) -> Callable:
     return step
 
 
-def make_recon_sampler(cfg: SampleNetAEConfig, *, device="cpu",
+def make_recon_sampler(cfg: SampleNetAEConfig, *, device="cuda",
                        seed: int = 0) -> SampleNet:
     """The reconstruction-track sampler (src/samplers.py:22-38)."""
     return SampleNet(
@@ -142,11 +156,14 @@ def make_recon_sampler(cfg: SampleNetAEConfig, *, device="cpu",
         fc_bn=False,
         sigma_mode="recon",
         min_sigma=1e-2,
+        fused_train=cfg.fused_train,
+        fused_mode=cfg.fused_mode,
+        fused_bf16=cfg.fused_bf16,
         generator=torch.Generator().manual_seed(seed),
     ).to(device)
 
 
-def create_sampler_ae_state(cfg: SampleNetAEConfig, *, device="cpu",
+def create_sampler_ae_state(cfg: SampleNetAEConfig, *, device="cuda",
                             seed: int = 0) -> tuple[SampleNet, TrainState]:
     sampler = make_recon_sampler(cfg, device=device, seed=seed)
     opt = adam_with_schedule(sampler.parameters(),

@@ -14,18 +14,25 @@ phase 2 reads the AE's shape and its loss from there, and writes
 published checkpoint of the phase's model first; with `--epochs 0` the run
 only evaluates it.
 
-Flags of the JAX CLI left out or refused: `--progressive` (the
-progressive track) and `--fused-train` (in ghost mode its kernel,
-point_mlp_train_max; the exact-BN chain of its exact mode is the port's
-only train chain) raise NotImplementedError; `--no-emd-kernel` and
-`--emd-fast` (the XLA-scan EMD, in bf16 with the latter) raise ValueError,
-since the port's EMD is its kernel; `--no-fused-train` and `--fused-f32`
-select TPU code paths and are left out.
+`--progressive` (phase 2) trains the nested-size sampler: one sampler of
+`--num-out-points` whose prefixes of 2^k points, from
+`--min-num-out-points` up, each feed the frozen AE, the per-size losses
+averaged (train/progressive.py); after training it writes the prefix-NRE
+curve to `--log-dir`/prefix_nre.json; as in the JAX package, its step
+scores the clean input only, so it refuses `--denoising-sigma` and
+`--outlier-ratio`. `--fused-train` takes the
+`--fused-mode` train chain for the phase's conv layers (the AE's encoder,
+or the sampler's): ghost BN (the ghost-BN kernel, bf16 operands unless
+`--fused-f32`) where the shapes allow it, else the exact-BN chain, which
+runs without the flag too; so the JAX CLI's `--no-fused-train` is left
+out. `--no-emd-kernel` and `--emd-fast` (the XLA-scan EMD, in bf16 with
+the latter) raise ValueError, since the port's EMD is its kernel.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 
 import numpy as np
@@ -45,6 +52,11 @@ from samplenet_tpu_torch.train.reconstruction import (
     make_fps_ae_eval_step,
     make_sampler_ae_eval_step,
     make_sampler_ae_train_step,
+)
+from samplenet_tpu_torch.train.progressive import (
+    ProgressiveAEConfig,
+    evaluate_ae_prefix_nre,
+    make_progressive_ae_train_step,
 )
 from samplenet_tpu_torch.utils import Logger
 
@@ -90,11 +102,20 @@ def parse_args(argv=None):
                    help="samplenet phase: also report the FPS-baseline NRE "
                         "at --num-out-points through the frozen AE")
     p.add_argument("--progressive", action="store_true",
-                   help="nested-size sampler training (not ported yet)")
+                   help="samplenet phase: nested-size sampler training, one "
+                        "checkpoint for every prefix size")
+    p.add_argument("--min-num-out-points", type=int, default=16,
+                   help="the smallest prefix size of --progressive")
     p.add_argument("--fused-train", action="store_true",
-                   help="the --fused-mode fused train chain (not ported)")
+                   help="the --fused-mode train chain for the phase's conv "
+                        "layers (ghost: the ghost-BN kernel)")
     p.add_argument("--fused-mode", choices=("ghost", "exact"),
-                   default="ghost")
+                   default="ghost",
+                   help="ghost (statistics per block of clouds) or exact "
+                        "(global statistics, the default chain)")
+    p.add_argument("--fused-f32", action="store_true",
+                   help="f32 matmul operands in the ghost chain (default "
+                        "bf16); this also changes its block of clouds")
     p.add_argument("--log-dir", default=None)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--init-ckpt", default=None,
@@ -104,21 +125,15 @@ def parse_args(argv=None):
 
 
 def refuse_unported(args) -> None:
-    if args.progressive:
-        raise NotImplementedError(
-            "--progressive: the progressive track (train/progressive.py and "
-            "the nn_snap kernel) is not ported yet; see ROADMAP.md, Queue 1 "
-            "item 9 and Queue 2 item 6")
-    if args.fused_train:
-        raise NotImplementedError(
-            f"--fused-train --fused-mode {args.fused_mode}: the ghost-BN "
-            "train kernel point_mlp_train_max is not ported yet (see "
-            "ROADMAP.md, Queue 2 item 8), and the exact-BN chain is the "
-            "port's only train chain, taken without the flag")
     if args.no_emd_kernel or args.emd_fast:
         raise ValueError(
             "--no-emd-kernel / --emd-fast select the JAX package's XLA-scan "
             "EMD; the port computes the emd loss with its EMD kernel only")
+    if args.progressive and (args.denoising_sigma > 0
+                             or args.outlier_ratio > 0):
+        raise ValueError(
+            "--progressive trains against the clean input only: its step "
+            "takes no corrupted input and clean target")
 
 
 def load_data(args):
@@ -171,8 +186,13 @@ def main(argv=None):
         return corrupt
 
     corrupt = make_corrupt(np_rng)
+    fused = dict(fused_train=True if args.fused_train else None,
+                 fused_mode=args.fused_mode,
+                 fused_bf16=False if args.fused_f32 else None)
 
     def train_batches():
+        """The step's arguments after the state: (x,), or (the corrupted x,
+        the clean target) when corrupting."""
         for bi, (bx, _) in enumerate(iterate_batches(
                 train_data, dummy_labels, args.batch_size, rng=np_rng)):
             if args.steps_per_epoch and bi >= args.steps_per_epoch:
@@ -180,13 +200,13 @@ def main(argv=None):
             if corrupting:
                 yield _tensor(corrupt(bx), device), _tensor(bx, device)
             else:
-                yield _tensor(bx, device), None
+                yield (_tensor(bx, device),)
 
     if args.phase == "ae":
         cfg = AEConfig(num_points=args.num_points, loss=args.loss,
                        batch_size=args.batch_size,
                        bottleneck_size=args.bottleneck_size,
-                       n_sample_points=args.num_points)
+                       n_sample_points=args.num_points, **fused)
         model, state = create_ae_state(cfg, device=device, seed=args.seed)
         if args.init_ckpt:
             sd, _ = checkpoints.load_published(args.init_ckpt, "ae.pth")
@@ -207,7 +227,7 @@ def main(argv=None):
             logger.log(f"eval-only: test={test:.5f}")
             logger.metrics(0, test=test)
         for epoch in range(args.epochs):
-            losses = [step(state, x, gt) for x, gt in train_batches()]
+            losses = [step(state, *batch) for batch in train_batches()]
             train = float(torch.stack(losses).mean())
             test = test_loss()
             logger.log(f"epoch {epoch}: train={train:.5f} test={test:.5f}")
@@ -232,15 +252,24 @@ def main(argv=None):
     scfg = SampleNetAEConfig(
         num_out_points=args.num_out_points, group_size=args.group_size,
         alpha=args.alpha, lmbda=args.lmbda, batch_size=args.batch_size,
-        is_denoising=corrupting)
+        is_denoising=corrupting, **fused)
     sampler, state = create_sampler_ae_state(scfg, device=device,
                                              seed=args.seed)
     if args.init_ckpt:
         sd, _ = checkpoints.load_published(args.init_ckpt, "sampler.pth")
         sampler.load_state_dict(sd)
         logger.log(f"restored {args.init_ckpt}")
-    step = make_sampler_ae_train_step(sampler, ae, scfg,
-                                      ae_loss=str(ae_cfg["loss"]))
+    if args.progressive:
+        pcfg = ProgressiveAEConfig(
+            max_num_out_points=args.num_out_points,
+            min_num_out_points=args.min_num_out_points,
+            group_size=args.group_size, alpha=args.alpha, lmbda=args.lmbda,
+            is_denoising=corrupting, batch_size=args.batch_size)
+        step = make_progressive_ae_train_step(sampler, ae, pcfg)
+        logger.log(f"progressive AE sizes {pcfg.sizes}")
+    else:
+        step = make_sampler_ae_train_step(sampler, ae, scfg,
+                                          ae_loss=str(ae_cfg["loss"]))
     eval_step = make_sampler_ae_eval_step(sampler, ae)
 
     def nre(step_fn) -> dict:
@@ -265,8 +294,8 @@ def main(argv=None):
         report_fps_baseline()
     for epoch in range(args.epochs):
         agg: dict[str, list] = {}
-        for x, gt in train_batches():
-            for k, v in step(state, x, gt).items():
+        for batch in train_batches():
+            for k, v in step(state, *batch).items():
                 agg.setdefault(k, []).append(v)
         mean = {k: float(torch.stack(v).mean()) for k, v in agg.items()}
         report = nre(eval_step)
@@ -276,6 +305,18 @@ def main(argv=None):
         logger.metrics(state.step, nre=report["nre"], **mean)
     if args.epochs:
         report_fps_baseline()
+    if args.progressive:
+        # the prefix-NRE curve of the one ordered checkpoint
+        # (reconstruction/sampler/evaluate_samplenet_progressive.py:92-153)
+        curve = evaluate_ae_prefix_nre(sampler, state, ae, test_data,
+                                       pcfg.sizes, args.batch_size,
+                                       device=device)
+        for s in pcfg.sizes:
+            logger.log(f"prefix {s}: NRE={curve[s]['nre']:.4f} "
+                       f"(cd={curve[s]['loss_sampled']:.5f} vs "
+                       f"full={curve[s]['loss_full']:.5f})")
+        with open(os.path.join(log_dir, "prefix_nre.json"), "w") as f:
+            json.dump({str(s): curve[s] for s in pcfg.sizes}, f, indent=1)
     ckpt = os.path.join(log_dir, "ckpt")
     checkpoints.save_published(ckpt, sampler.state_dict(), vars(args))
     logger.log(f"saved checkpoint to {ckpt}")

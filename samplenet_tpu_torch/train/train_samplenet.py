@@ -11,10 +11,13 @@ writes `--log-dir`/snap_last (and snap_best when the eval accuracy
 improves); `--resume` continues from snap_last. At the end the best
 snapshot is published as `--log-dir`/ckpt (sampler.pth + config.json).
 
-Flags of the JAX CLI left out: --bf16, --fused-train/--no-fused-train,
---fused-mode, --fused-f32 and --conv-layout select TPU code paths (the
-port runs f32 and its exact-BN kernel); --data-parallel waits for the
-multi-device slice; --classifier-ckpt (orbax) becomes --classifier-weights.
+`--fused-train` takes the `--fused-mode` train chain for the sampler's
+conv layers: ghost BN (the ghost-BN kernel, bf16 operands unless
+`--fused-f32`) where the shapes allow it, else the exact-BN chain, which
+is also the chain without the flag; so `--no-fused-train` is left out.
+Flags of the JAX CLI left out: --bf16 and --conv-layout select TPU code
+paths (the port runs f32); --data-parallel waits for the multi-device
+slice; --classifier-ckpt (orbax) becomes --classifier-weights.
 """
 
 from __future__ import annotations
@@ -58,6 +61,16 @@ def parse_args(argv=None):
     p.add_argument("--skip-projection", action="store_true")
     p.add_argument("--bn-schedule", action="store_true",
                    help="TF-style scheduled BN decay 0.5->0.99")
+    p.add_argument("--fused-train", action="store_true",
+                   help="the --fused-mode train chain for the sampler's conv "
+                        "layers (ghost: the ghost-BN kernel)")
+    p.add_argument("--fused-mode", choices=("ghost", "exact"),
+                   default="ghost",
+                   help="ghost (statistics per block of clouds) or exact "
+                        "(global statistics, the default chain)")
+    p.add_argument("--fused-f32", action="store_true",
+                   help="f32 matmul operands in the ghost chain (default "
+                        "bf16); this also changes its block of clouds")
     p.add_argument("--classifier-weights", required=True,
                    help="a PointNetClassifier state_dict of the port")
     p.add_argument("--train-size", type=int, default=2000)
@@ -114,6 +127,9 @@ def main(argv=None):
         skip_projection=args.skip_projection,
         batch_size=args.batch_size,
         bn_schedule=args.bn_schedule,
+        fused_train=True if args.fused_train else None,
+        fused_mode=args.fused_mode,
+        fused_bf16=False if args.fused_f32 else None,
     )
     sampler, state = create_samplenet_state(scfg, device=device,
                                             seed=args.seed)

@@ -23,7 +23,16 @@ within 1e-5 and its gradients at rtol 1e-4 / atol 1e-5; point_mlp_exact's
 outputs and statistics at rtol = atol = 1e-4 and its gradients at least
 as accurate as the plain f32 version's (within 2x, or 1e-5 of their
 scale), both measured against the plain version in float64; both
-backward kernels bit for bit from run to run.
+backward kernels bit for bit from run to run. nn_snap bit for bit (dist,
+idx, snapped), and snapped equal to the database point at idx. The ghost
+chain point_mlp_train: the kernel and the plain version in the same mode
+each against the plain version in float64 with bf16 off, the kernel's
+error at most twice the plain version's (or 1e-4 of scale) by the
+largest entry and norm-wise (in bf16 they sum z in other orders, so a
+rounding can land one bf16 ulp apart); in bf16 also, norm-wise against
+the plain bf16 version, the outputs within 1e-3 and the backward kernel
+within 1e-3 of the plain VJP on the kernel forward's own state;
+dense-bias gradients exactly 0; the backward bit for bit from run to run.
 """
 
 import contextlib
@@ -420,7 +429,7 @@ def test_emd_refuses_what_it_does_not_take(dev):
 
 @pytest.mark.parametrize("b,n", [(3, 1000), (8, 2048)])
 def test_point_mlp_exact_at_the_reconstruction_widths(dev, b, n):
-    """3->64->128->128->256->128: pme_bwd splits 128->256 and 256->128
+    """3->64->128->128->256->128: pmt_bwd splits 128->256 and 256->128
     into input-channel slabs. Held as the classification widths are, with
     a floor of 1e-4 of scale: at these point counts both f32 paths land
     about 1e-6 to 1e-4 of scale from f64, either one ahead per tensor."""
@@ -474,3 +483,217 @@ def test_recon_train_steps_launch_every_kernel(dev):
     assert bool(torch.isfinite(loss)) and all(
         bool(torch.isfinite(v)) for v in m.values())
     assert np.isfinite(rep["nre"]) and np.isfinite(fps["nre"])
+
+
+# ------------------------------------------------ nn_snap and the ghost chain
+
+@pytest.mark.parametrize("b,n1,n2", [
+    (1, 1, 1),
+    (2, 1, 5000),       # N2 > kChunk: three staged chunks, one query
+    (3, 1000, 2500),    # N1 not a multiple of the query tile, N2 > kChunk
+    (32, 1024, 1024),   # the progressive infer step
+])
+def test_nn_snap_bit_equal(dev, b, n1, n2):
+    from samplenet_tpu_torch.ops.cuda import nn_snap, nn_snap_plain
+
+    rng = np.random.default_rng(n1 * 7 + n2)
+    x, y = _randn(rng, b, n1, 3, dev=dev), _randn(rng, b, n2, 3, dev=dev)
+    dk, ik, sk = nn_snap(x, y)
+    dp, ip, sp = nn_snap_plain(x, y)
+    assert torch.equal(dk, dp) and torch.equal(ik, ip) and torch.equal(sk, sp)
+    assert torch.equal(sk, torch.gather(y, 1, ik.long()[..., None]
+                                        .expand(-1, -1, 3)))
+
+
+def test_nn_snap_ties_and_nan(dev):
+    """Every database point three times (ties to the lowest index), a NaN
+    database point (never nearest) and NaN queries (all +inf: index 0)."""
+    from samplenet_tpu_torch.ops.cuda import nn_snap, nn_snap_plain
+
+    rng = np.random.default_rng(11)
+    base = _randn(rng, 2, 700, 3, dev=dev)
+    y = torch.cat([base, base, base], dim=1).contiguous()
+    y[:, 5] = float("nan")
+    x = torch.cat([base[:, ::7], torch.full((2, 3, 3), float("nan"),
+                                            device=dev)], 1).contiguous()
+    dk, ik, sk = nn_snap(x, y)
+    dp, ip, sp = nn_snap_plain(x, y)
+    assert torch.equal(dk, dp) and torch.equal(ik, ip)
+    assert torch.equal(torch.nan_to_num(sk), torch.nan_to_num(sp))
+    assert int(ik[:, :-3].max()) < 1400 and not ik[:, -3:].any()
+    assert torch.isinf(dk[:, -3:]).all()
+
+
+def _ghost_args(rng, b, n, widths, dev):
+    x, params = _exact_args(rng, b, n, widths, dev)
+    return x, params, _randn(rng, b, widths[-1], dev=dev)
+
+
+def _ghost_run(x, params, g, bb, bf16, plain=False, dtype=torch.float32):
+    from samplenet_tpu_torch.ops.cuda import point_mlp_train_max
+    from samplenet_tpu_torch.ops.dispatch import plain_on_cuda
+
+    x = x.detach().to(dtype).clone().requires_grad_(True)
+    params = [[t.detach().to(dtype).clone().requires_grad_(True)
+               for t in group] for group in params]
+    with plain_on_cuda() if plain else contextlib.nullcontext():
+        pooled, means, vars_ = point_mlp_train_max(x, *params, block_b=bb,
+                                                   bf16=bf16)
+    (pooled * g.to(dtype)).sum().backward()
+    torch.cuda.synchronize()
+    grads = [x.grad] + [t.grad for group in params for t in group]
+    return [pooled.detach(), *means, *vars_], grads
+
+
+def _bwd_gap(x, params, g, bb) -> float:
+    """Worst norm-wise distance of the bf16 backward kernel's gradients
+    from the plain VJP run on the kernel forward's own state (its stored
+    xhat and argmax)."""
+    from samplenet_tpu_torch.ops.cuda import point_mlp_train_kernel as pmt
+
+    weights, _, gammas, betas = params
+    saved = pmt.point_mlp_train_fwd_cuda(x, weights, gammas, betas, 1e-5,
+                                         bb, True)[3]
+    kernel = pmt.point_mlp_train_bwd_cuda(x, weights, gammas, betas, 1e-5,
+                                          bb, True, saved, g)
+    zs, mus, rstds, argmax = saved
+    p = x.shape[0] // bb
+    xhats = [((z.view(p, -1, z.shape[-1]) - mu[:, None]) * rstd[:, None])
+             .to(torch.bfloat16).float() for z, mu, rstd in zip(zs, mus, rstds)]
+    plain = pmt.point_mlp_train_vjp_plain(x, weights, gammas, betas, 1e-5,
+                                          bb, True, xhats, argmax.long(), g)
+    flat = lambda gr: [gr[0], *gr[1], *gr[2], *gr[3]]  # noqa: E731
+    return max(_norm_err(a, r) for a, r in zip(flat(kernel), flat(plain)))
+
+
+def _ghost_check(x, params, g, bb, bf16, floor=1e-4):
+    """Kernel and plain version in the same mode, each against the plain
+    version in float64 with bf16 off: the kernel's error at most twice the
+    plain version's (or `floor` of scale), by the largest entry and
+    norm-wise; dense-bias gradients exactly 0; the backward bit-equal run
+    to run. In bf16 also the roundings themselves, norm-wise against the
+    plain bf16 version: outputs within 1e-3, and the backward within 1e-3
+    of the plain VJP on the kernel forward's state (chip_smoke.py holds
+    the same, with a control). Returns the worst (kernel, plain) error."""
+    nl = len(params[0])
+    ok, gk = _ghost_run(x, params, g, bb, bf16)
+    op, gp = _ghost_run(x, params, g, bb, bf16, plain=True)
+    orf, gr = _ghost_run(x, params, g, bb, False, plain=True,
+                         dtype=torch.float64)
+    worst = (0.0, 0.0)
+    for i, (a, c, r) in enumerate(zip(ok + gk, op + gp, orf + gr)):
+        if 1 + nl <= i - len(ok) < 1 + 2 * nl:      # dense biases
+            assert not a.any() and not c.any(), i
+            continue
+        for err in (_rel_err, _norm_err):
+            ek, ep = err(a, r), err(c, r)
+            assert ek <= max(2 * ep, floor), (i, err.__name__, ek, ep)
+            worst = max(worst, (ek, ep))
+    _, again = _ghost_run(x, params, g, bb, bf16)
+    assert all(torch.equal(a, c) for a, c in zip(gk, again))
+    if bf16:
+        out_gap = max(_norm_err(a, c) for a, c in zip(ok, op))
+        bwd_gap = _bwd_gap(x, params, g, bb)
+        print(f"bf16 against plain bf16: outputs {out_gap!r}, backward "
+              f"{bwd_gap!r}")
+        assert out_gap <= 1e-3 and bwd_gap <= 1e-3, (out_gap, bwd_gap)
+    return worst
+
+
+@pytest.mark.parametrize("b,n,bb,bf16", [
+    (3, 256, 1, True),       # bb = 1
+    (3, 256, 1, False),
+    (64, 128, 64, False),    # bb = 64: one block of every cloud
+    (8, 1000, 4, True),      # N not a multiple of the 64-point tile
+])
+def test_point_mlp_train_matches_plain(dev, b, n, bb, bf16):
+    rng = np.random.default_rng(b * 1000 + n + bf16)
+    x, params, g = _ghost_args(rng, b, n, (3, 64, 64, 64, 128, 128), dev)
+    _ghost_check(x, params, g, bb, bf16)
+
+
+def test_point_mlp_train_at_the_reconstruction_widths(dev):
+    """The AE's 256-wide layers in bf16 at B=50, N=2048, where
+    auto_block_b gives bb = 1 (pmt_bwd in input-channel slabs)."""
+    from samplenet_tpu_torch.ops.cuda import auto_block_b
+
+    widths = (3, 64, 128, 128, 256, 128)
+    assert auto_block_b(50, 2048, widths[1:], True) == 1
+    x, params, g = _ghost_args(np.random.default_rng(50), 50, 2048, widths,
+                               dev)
+    _ghost_check(x, params, g, 1, True)
+
+
+def test_point_mlp_train_refuses_what_it_does_not_take(dev):
+    from samplenet_tpu_torch.ops.cuda import point_mlp_train_max
+
+    pts = torch.zeros(2, 128, 3, device=dev)
+    w, v = torch.zeros(3, 6, device=dev), torch.zeros(6, device=dev)
+    with pytest.raises(ValueError, match="divisible by 4"):
+        point_mlp_train_max(pts, [w], [v], [v], [v], block_b=1)
+
+
+def test_progressive_ae_step_passes_a_gradient_through_the_frozen_ae(dev):
+    """A progressive AE step on the card: every prefix of the projected
+    cloud (16 .. 256 points, so also at and above the eval kernel's 128)
+    crosses the frozen AE under autograd, and the sampler's conv layers
+    get a nonzero gradient; the ghost chain (--fused-train) launches."""
+    from samplenet_tpu_torch.ops.dispatch import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from samplenet_tpu_torch.train import progressive as prog
+    from samplenet_tpu_torch.train import reconstruction as rec
+
+    x = _randn(np.random.default_rng(12), 4, 512, 3, dev=dev)
+    ae, _ = rec.create_ae_state(rec.AEConfig(num_points=512, batch_size=4),
+                                device=dev)
+    cfg = rec.SampleNetAEConfig(num_out_points=256, batch_size=4,
+                                fused_train=True)
+    sampler, state = rec.create_sampler_ae_state(cfg, device=dev)
+    pcfg = prog.ProgressiveAEConfig(max_num_out_points=256, batch_size=4)
+    reset_launch_counts()
+    m = prog.make_progressive_ae_train_step(sampler, ae, pcfg)(state, x)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert all(bool(torch.isfinite(v)) for v in m.values())
+    for name in ("point_mlp_train_fwd", "point_mlp_train_bwd",
+                 "soft_projection_fwd", "soft_projection_bwd",
+                 "nn_direction"):
+        assert counts.get(name, 0) > 0, counts
+    assert "point_mlp_max" not in counts         # no prefix took it
+    for i in range(1, 6):
+        grad = getattr(sampler, f"conv{i}").weight.grad
+        assert grad is not None and bool(grad.abs().max() > 0), i
+
+
+def test_prefix_nre_takes_strided_prefixes(dev):
+    """evaluate_ae_prefix_nre feeds the frozen AE prefix slices of the
+    matched cloud (strided views); from 128 points on they take the eval
+    kernel, which the kernel path and the plain path agree on."""
+    from samplenet_tpu_torch.ops.dispatch import (
+        launch_counts,
+        plain_on_cuda,
+        reset_launch_counts,
+    )
+    from samplenet_tpu_torch.train import progressive as prog
+    from samplenet_tpu_torch.train import reconstruction as rec
+
+    data = np.random.default_rng(13).standard_normal(
+        (6, 512, 3)).astype(np.float32)
+    ae, _ = rec.create_ae_state(rec.AEConfig(num_points=512, batch_size=4),
+                                device=dev)
+    sampler, state = rec.create_sampler_ae_state(
+        rec.SampleNetAEConfig(num_out_points=256, batch_size=4), device=dev)
+    sizes = prog.progressive_sizes(16, 256)
+    reset_launch_counts()
+    got = prog.evaluate_ae_prefix_nre(sampler, state, ae, data, sizes, 4,
+                                      device=dev)
+    assert launch_counts().get("point_mlp_max", 0) > 0
+    with plain_on_cuda():
+        want = prog.evaluate_ae_prefix_nre(sampler, state, ae, data, sizes,
+                                           4, device=dev)
+    for s in sizes:
+        for key in ("loss_sampled", "loss_full", "nre"):
+            assert np.isfinite(got[s][key])
+            np.testing.assert_allclose(got[s][key], want[s][key], rtol=1e-4)

@@ -20,6 +20,7 @@ from samplenet_tpu_torch.ops.cuda import (
     fps_kernel,
     point_mlp_exact_kernel,
     point_mlp_kernel,
+    point_mlp_train_kernel,
     soft_projection_kernel,
 )
 
@@ -54,7 +55,9 @@ def test_import_pulls_in_no_jax_and_needs_no_nvcc():
     assert "samplenet_tpu_torch.ops.cuda.fps_kernel" in out["modules"]
     for name in ("ops.cuda.emd_kernel", "models.autoencoder",
                  "train.reconstruction", "train.train_reconstruction",
-                 "data.shapenet", "data.plyio"):
+                 "data.shapenet", "data.plyio",
+                 "ops.cuda.point_mlp_train_kernel", "train.progressive",
+                 "train.train_progressive"):
         assert f"samplenet_tpu_torch.{name}" in out["modules"]
     leaked = [m for m in out["loaded"] if m.split(".")[0] in FORBIDDEN]
     assert leaked == []
@@ -89,6 +92,10 @@ def test_other_devices_raise():
          x, [torch.zeros(3, 4)], *([torch.zeros(4)],) * 3)),
     (soft_projection_kernel, lambda x: soft_projection_kernel.soft_project(
         x, x[:, :2], torch.ones(()), 2)),
+    (chamfer_kernel, lambda x: chamfer_kernel.nn_snap(x, x)),
+    (point_mlp_train_kernel,
+     lambda x: point_mlp_train_kernel.point_mlp_train_max(
+         x, [torch.zeros(3, 4)], *([torch.zeros(4)],) * 3, block_b=1)),
     (emd_kernel, lambda x: emd_kernel.emd_cost(x, x[:, :4])),
     (emd_kernel, lambda x: emd_kernel.emd_cost_autograd(
         x.requires_grad_(True), x[:, :4])),

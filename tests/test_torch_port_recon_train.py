@@ -48,6 +48,7 @@ from samplenet_tpu_torch.interop import (
     samplenet_state_dict_from_jax,
 )
 from samplenet_tpu_torch.models.autoencoder import PointNetAE
+from samplenet_tpu_torch.nn import layers
 from samplenet_tpu_torch.train import reconstruction as pr
 from samplenet_tpu_torch.train import train_reconstruction
 
@@ -156,7 +157,7 @@ def test_ae_train_step_matches_jax(loss, interpreted_jax_emd):
 
     cfg = pr.AEConfig(num_points=N, bottleneck_size=BNECK, batch_size=B,
                       n_sample_points=N, loss=loss)
-    model, state = pr.create_ae_state(cfg)
+    model, state = pr.create_ae_state(cfg, device="cpu")
     model.load_state_dict(_sd(autoencoder_state_dict_from_jax(v0)))
     got = pr.make_ae_train_step(model, cfg)(state, torch.from_numpy(x))
     np.testing.assert_allclose(float(got), float(jloss),
@@ -175,12 +176,12 @@ def test_ae_train_step_denoising_and_fps_front_end():
                       n_sample_points=N)
     losses = []
     for args in ((x,), (noisy, x)):
-        model, state = pr.create_ae_state(cfg)
+        model, state = pr.create_ae_state(cfg, device="cpu")
         losses.append(float(pr.make_ae_train_step(model, cfg)(state, *args)))
     assert losses[0] != losses[1] and all(np.isfinite(losses))
     fcfg = pr.AEConfig(num_points=N, bottleneck_size=BNECK, batch_size=B,
                        n_sample_points=32, use_fps=True)
-    model, state = pr.create_ae_state(fcfg)
+    model, state = pr.create_ae_state(fcfg, device="cpu")
     seen = []
     model.register_forward_pre_hook(lambda mod, a, kw: seen.append(a[0]),
                                     with_kwargs=True)
@@ -213,7 +214,7 @@ def sampler_setup():
 
 
 def _port_sampler(s):
-    sampler, state = pr.create_sampler_ae_state(s["cfg"])
+    sampler, state = pr.create_sampler_ae_state(s["cfg"], device="cpu")
     sampler.load_state_dict(_sd(samplenet_state_dict_from_jax(s["sv0"])))
     return sampler, state
 
@@ -297,7 +298,7 @@ def test_sampler_step_with_128_sampled_points(sampler_setup):
                                atol=1e-4 * scale)
     cfg = pr.SampleNetAEConfig(num_out_points=128, group_size=K,
                                batch_size=2, bottleneck_size=BNECK)
-    sampler, state = pr.create_sampler_ae_state(cfg)
+    sampler, state = pr.create_sampler_ae_state(cfg, device="cpu")
     metrics = pr.make_sampler_ae_train_step(sampler, s["ae"], cfg)(
         state, torch.from_numpy(x))
     assert state.step == 1
@@ -378,15 +379,39 @@ def test_cli_both_phases(tmp_path, capsys):
     assert "eval-only: NRE=" in out and "FPS baseline @8" in out
 
 
-@pytest.mark.parametrize("flags,match", [
+@pytest.mark.parametrize("flags,chain", [
     (["--progressive"], "progressive"),
     (["--fused-train"], "ghost"),
     (["--fused-train", "--fused-mode", "exact"], "only train chain"),
 ])
-def test_cli_refuses_what_is_not_ported(flags, match, tmp_path):
-    with pytest.raises(NotImplementedError, match=match):
-        train_reconstruction.main(["--device", "cpu", "--log-dir",
-                                   str(tmp_path)] + flags)
+def test_cli_refuses_what_is_not_ported(flags, chain, tmp_path, capsys,
+                                        monkeypatch):
+    """The flags that raised while the progressive track and the ghost-BN
+    kernel were not ported now run: --progressive trains the nested-size
+    sampler and writes its prefix-NRE curve; --fused-train takes the
+    ghost-BN chain for the AE's encoder, and --fused-mode exact the exact
+    chain, the port's default."""
+    calls = []
+    real = layers.point_mlp_train_max
+    monkeypatch.setattr(layers, "point_mlp_train_max",
+                        lambda *a, **k: calls.append(k["bf16"]) or
+                        real(*a, **k))
+    common = ["--device", "cpu", "--num-points", "128", "--batch-size", "4",
+              "--train-size", "8", "--test-size", "4", "--epochs", "1",
+              "--steps-per-epoch", "2"]
+    ae_flags = [] if chain == "progressive" else flags
+    state = train_reconstruction.main(common + [
+        "--phase", "ae", "--log-dir", str(tmp_path / "ae")] + ae_flags)
+    assert state.step == 2
+    assert calls == ([True, True] if chain == "ghost" else [])
+    if chain == "progressive":
+        state = train_reconstruction.main(common + [
+            "--phase", "samplenet", "--ae-ckpt", str(tmp_path / "ae" / "ckpt"),
+            "--num-out-points", "32", "--min-num-out-points", "8",
+            "--group-size", "4", "--log-dir", str(tmp_path / "sn")] + flags)
+        assert state.step == 2
+        assert "progressive AE sizes (8, 16, 32)" in capsys.readouterr().out
+        assert (tmp_path / "sn" / "prefix_nre.json").exists()
 
 
 @pytest.mark.parametrize("flag", ["--no-emd-kernel", "--emd-fast"])
@@ -397,6 +422,17 @@ def test_cli_refuses_the_xla_scan_emd(flag, tmp_path):
         with pytest.raises(ValueError, match="EMD kernel only"):
             train_reconstruction.main(["--device", device, "--loss", "emd",
                                        "--log-dir", str(tmp_path), flag])
+
+
+@pytest.mark.parametrize("flag", ["--denoising-sigma", "--outlier-ratio"])
+def test_cli_refuses_progressive_with_corruption(flag, tmp_path):
+    """The progressive step scores the clean input only, as the JAX
+    package's does (its step takes no clean target), so --progressive
+    refuses input corruption."""
+    with pytest.raises(ValueError, match="clean input only"):
+        train_reconstruction.main(["--device", "cpu", "--phase", "samplenet",
+                                   "--progressive", flag, "0.01",
+                                   "--log-dir", str(tmp_path)])
 
 
 def test_cli_refuses_cuda_without_a_card(tmp_path, monkeypatch):

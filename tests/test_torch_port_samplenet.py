@@ -135,15 +135,27 @@ def test_bcn_layouts(nets):
 
 
 def test_train_mode_raises(nets):
-    """Train mode runs the soft projection; the hard projection of the
-    progressive track needs the nn_snap kernel, not ported yet."""
-    *_, port, x = nets
+    """Train mode runs the soft projection. The hard projection of the
+    progressive track, which raised while the nn_snap kernel was not
+    ported, now snaps each simplified point to its nearest input point,
+    as JAX's hard projection does (compared away from near-ties)."""
+    net, v, port, x = nets
     xt = torch.from_numpy(x)
     with torch.no_grad():
         simp, proj = port(xt, training=True)
-        with pytest.raises(NotImplementedError, match="Queue 2 item 6"):
-            port.project.project(xt, simp, hard=True)
-    assert proj.shape == simp.shape
+        hard, w, d = port.project.project(xt, simp, hard=True)
+    assert proj.shape == simp.shape == hard.shape and w is None and d is None
+    simp = simp.numpy()
+    hard_j = np.asarray(net.apply(
+        v, jnp.asarray(x), jnp.asarray(simp),
+        method=lambda m, pc, q: m.project.project(pc, q, hard=True)[0]))
+    d2 = ((simp[:, :, None].astype(np.float64) - x[:, None]) ** 2).sum(-1)
+    two = np.sort(d2, -1)[..., :2]
+    clear = two[..., 1] - two[..., 0] > GAP * two[..., 1]
+    assert clear.mean() > 0.9
+    np.testing.assert_array_equal(
+        hard.numpy(), np.take_along_axis(x, d2.argmin(-1)[..., None], 1))
+    np.testing.assert_array_equal(hard.numpy()[clear], hard_j[clear])
 
 
 def test_weights_file_with_or_without_sampler_prefix(nets, tmp_path):

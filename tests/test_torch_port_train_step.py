@@ -113,7 +113,7 @@ def steps(request):
                      jax.random.PRNGKey(2))
 
     cfg = SampleNetConfig(**KW, bn_schedule=bn_schedule)
-    port, pstate = create_samplenet_state(cfg)
+    port, pstate = create_samplenet_state(cfg, device="cpu")
     port.load_state_dict(_sd(samplenet_state_dict_from_jax(v0)))
     classifier = PointNetClassifier(4)
     classifier.load_state_dict(_sd(pointnet_state_dict_from_jax(
@@ -173,7 +173,7 @@ def test_new_batch_stats_and_params_match_jax(steps):
 
 
 def test_train_forward_returns_simplified_and_projected():
-    net, _ = create_samplenet_state(SampleNetConfig(**KW))
+    net, _ = create_samplenet_state(SampleNetConfig(**KW), device="cpu")
     x = torch.from_numpy(np.random.RandomState(3).randn(2, N, 3)
                          .astype(np.float32))
     simp, proj = net(x, training=True)
