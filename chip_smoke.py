@@ -80,7 +80,9 @@ frozen PointNet; 2048 points, B=50, sizes 16..2048 against the AE), and:
      train_progressive --fused-train` for one epoch of 2 steps;
  16. times each kernel, the eval forward and the train steps against the
      plain versions, per call with CUDA events and as device time with
-     torch.profiler, and computes each kernel's bound from its inputs.
+     torch.profiler, and computes each kernel's bound from its inputs; the
+     exact chain's backward at B=1024 and at the reconstruction widths
+     also as device time split by pass (BN rows, dz/dh_prev, dW, glue).
 
 Tolerances of the train kernels against their plain versions: outputs and
 batch statistics rtol = atol = 1e-4 (point_mlp_exact) and 1e-5 with idx
@@ -591,6 +593,73 @@ def _profile_top(torch, fn, iters: int, top: int = 8) -> str:
               f"({rest / total:.1%})")
 
 
+BWD_PASSES = (("rows", "pmt_rows"), ("dz/dh_prev", "pmt_bwd_dz"),
+              ("dW", "pmt_bwd_dw"), ("one-pass bwd", "pmt_bwd_kernel"),
+              ("dense (rstd recompute)", "pmt_dense"))
+
+
+def _split_line(kernels, iters: int, layers: int) -> tuple[str, bool]:
+    """The `_bwd_split` line from (kernel name, ms) in launch order over
+    `iters` calls of a chain of `layers` layers, and whether the trace is
+    whole: one BN-rows launch per layer and call, and every pass's
+    launches split evenly over the calls (else the profiler dropped some,
+    and no per-launch times are given)."""
+    total = sum(ms for _, ms in kernels) / iters
+    parts, glue = [], list(kernels)
+    even = sum(BWD_PASSES[0][1] in name for name, _ in kernels) \
+        == layers * iters
+    for label, key in BWD_PASSES:
+        mine = [ms for name, ms in kernels if key in name]
+        glue = [(name, ms) for name, ms in glue if key not in name]
+        if not mine:
+            continue
+        per_call = len(mine) // iters
+        part = (f"{label} {sum(mine) / iters!r} ms "
+                f"({sum(mine) / iters / total:.1%}")
+        if len(mine) % iters:
+            even = False
+            parts.append(part + f"; {len(mine)} launches in {iters} calls)")
+            continue
+        layers = [sum(mine[j::per_call]) / iters for j in range(per_call)]
+        parts.append(part + f"; per launch {[round(v, 4) for v in layers]})")
+    rest = sum(ms for _, ms in glue) / iters
+    parts.append(f"glue {rest!r} ms ({rest / total:.1%}, "
+                 f"{len(glue) // iters} kernels)")
+    return f"{total!r} ms device per call: " + "; ".join(parts), even
+
+
+def _bwd_split(torch, fn, iters: int, layers: int) -> str:
+    """Device time per call of a train chain's backward under
+    torch.profiler, split by pass (`BWD_PASSES`, each with its launches
+    in order, the top layer first) and the torch glue (every other
+    kernel: row sums, casts, padding, the dW partials' reduction). The
+    profiler now and then drops launches (a whole call's, at times): up
+    to three tries for a whole trace of the `layers`-layer chain."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [(e.name, e.self_device_time_total / 1e3) for e in sorted(
+            (e for e in prof.events() if e.device_type == DeviceType.CUDA
+             and e.self_device_time_total > 0),
+            key=lambda e: e.time_range.start)]
+        if not kernels:
+            continue
+        line, even = _split_line(kernels, iters, layers)
+        if even:
+            return line
+    if not kernels:
+        raise RuntimeError("torch.profiler recorded no device time")
+    return line + " (the profiler dropped launches in three tries)"
+
+
 def phase_times(torch, model, clouds, card) -> dict[str, tuple]:
     """Per kernel and for the forward: CUDA-event time per call over
     back-to-back calls (what a caller pays, host launch time included where
@@ -1002,6 +1071,10 @@ def phase_times_train(torch, data, labels, classifier, card
                      f"ms per call, {k_dev!r} ms device; plain "
                      f"{times[name][1]!r} ms per call, {p_dev!r} ms device "
                      f"({card})")
+    split = _bwd_split(torch, cases["point_mlp_exact_bwd"][0], 5,
+                       len(WIDTHS) - 1)
+    log("profile", f"point_mlp_exact_bwd at B={B}, N={N}, widths {WIDTHS}: "
+                   f"{split} ({card})")
     del saved_k, saved_p
 
     xd = torch.from_numpy(data).to(DEVICE)
@@ -1121,7 +1194,7 @@ def phase_compare_recon(torch) -> dict[str, float]:
         raise AssertionError("point_mlp_exact backward (recon widths) is "
                              "not deterministic")
     log("compare", f"point_mlp_exact x{tuple(x.shape)} widths {RECON_WIDTHS}"
-                   f" (pmt_bwd in input-channel slabs): pooled max |k - p| "
+                   f" (128->256, 256->128 whole): pooled max |k - p| "
                    f"{float((pk - pp).abs().max())!r}, stats within 1e-4; "
                    f"gradients against the f64 plain version: worst kernel "
                    f"error {worst[0]!r} of scale (plain f32 {worst[1]!r}); "
@@ -1428,6 +1501,10 @@ def phase_times_recon(torch, x, card) -> dict[str, tuple]:
         parts.append(f"{name}: kernel {k!r} ms per call, {k_dev!r} ms "
                      f"device; plain {p!r} ms, {p_dev!r} ms device; bound "
                      f"{bound[0]!r} ms ({bound[1]})")
+    split = _bwd_split(torch, cases["point_mlp_exact_bwd (recon widths)"][0],
+                       5, len(RECON_WIDTHS) - 1)
+    log("profile", f"point_mlp_exact_bwd at B={RECON_B}, N={RECON_N}, widths "
+                   f"{RECON_WIDTHS}: {split} ({card})")
     del saved_k, saved_p
     torch.cuda.empty_cache()
     steps = {}

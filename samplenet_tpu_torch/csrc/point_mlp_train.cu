@@ -47,19 +47,36 @@
 //   pmt_rows    grid (G, P): per ghost block, sum dy and sum dy*xhat_stored
 //               (dy = dh where gamma*xhat_stored + beta > 0); for the top
 //               layer dh is the pooled cotangent at each cloud's argmax.
-//   pmt_bwd     dz = rstd' * (gamma*dy - r1 - xhat_stored*r2) per point with
-//               its block's r1, r2, rstd', rounded to bf16 when on; dW
-//               accumulates op(h_prev)^T dz per tile (f32) over the block's
-//               tiles (f64) in shared memory, and dh_prev = dz op(W)^T goes
-//               to HBM. A block takes a slab of the input channels
-//               (grid.y = slab): it holds the f64 dW rows [slab, cout] and
-//               the h_prev tile of its slab only, recomputes the
-//               (elementwise) dz tile for all of cout, and writes dh_prev
-//               for its slab, so no sum crosses slabs. The slab is all of
-//               cin where that fits 227 KB (every width up to 128 in and
-//               out), and smaller where it does not: the reconstruction
-//               track's 128->256 takes slabs of 64 (218,112 bytes), its
-//               256->128 slabs of 128 (200,704).
+//   pmt_bwd_dz  dz = rstd' * (gamma*dy - r1 - xhat_stored*r2) per point
+//               with its ghost block's constants (loaded into shared memory
+//               when the block changes: once in the exact chain), rounded to
+//               bf16 when on, written to HBM, and dh_prev = dz op(W)^T. A
+//               block walks the 64-point tiles and holds op(W)^T (K chunks
+//               reloaded per tile where it would leave room for one block
+//               an SM) and the tile's dz.
+//               Where two blocks still fit an SM with it (the 64-wide
+//               layers), cp.async stages the next tile's raw z and dh rows
+//               while the tile's product runs; elsewhere the rows are read
+//               straight from HBM and the SM's other blocks overlap those
+//               reads (one staged block an SM stalls between its phases,
+//               and measured slower on the H100). Each thread owns
+//               8 (4 at 64-wide inputs) points x 4 channels: per o it reads
+//               dz as float4 and one float4 of op(W)^T, the warp's 4 x 8
+//               layout keeping both free of bank conflicts. The dh_prev sums
+//               run over o in order, so dz and dh_prev do not depend on the
+//               tiling.
+//   pmt_bwd_dw  dW = op(act(h_prev))^T dz by split-K: grid (output tiles of
+//               [cin_pad, cout]) x S runs of consecutive 64-point tiles, S
+//               fixed by the shape and the SM count. A block stages each
+//               tile of `in` and of dz with cp.async, two stages deep,
+//               applies the layer below's BN + ReLU and the roundings to the
+//               staged copy, sums the tile in f32 registers and adds it once
+//               into f64 registers. A thread owns 4 x 8 outputs of a 64 x 64
+//               tile (64 KB of shared memory, three blocks an SM) or, where
+//               cout >= 128, 8 x 8 of a 64 x 128 tile (96 KB, two blocks):
+//               4 FMAs per float read from shared memory against 2.7 (the
+//               4 x 8 tile is bound by those reads). The caller sums the f64
+//               partials [S, cin_pad, cout] in order.
 //
 // Every partial is reduced by the caller over a grid fixed by the shape
 // and the card, and nothing uses float atomics, so two runs give the same
@@ -73,12 +90,17 @@
 // What bounds it on the H100: widths 3->64->64->64->128->128 are 32,960
 // multiply-adds per point. For the exact chain at B=1024, N=1024 that is
 // 69 GFLOP forward and 138 GFLOP backward, about 3 ms at the f32 SIMT
-// pipes' 67 TFLOP/s, and about 8 GB of z and dh through HBM, 2.5 ms at
-// 3.35 TB/s. At the progressive step's shape (B=32) it is 2.2 GFLOP
-// forward and 4.3 GFLOP backward, 0.03 and 0.06 ms in f32; in bf16 the
-// tensor cores' 989 TFLOP/s would take a fifteenth of that. These kernels
-// multiply on the SIMT pipes in both modes (bf16 only rounds the operands);
-// wgmma and fusing pmt_rows into pmt_bwd are later work.
+// pipes' 67 TFLOP/s. The backward's passes also move z and dh (the rows
+// pass and pmt_bwd_dz read both), dz (written once, read by pmt_bwd_dw) and
+// dh_prev: about 13 GB, 4 ms at 3.35 TB/s. pmt_bwd_dz is bound by those
+// bytes at the 64-wide layers and nears its FP32 bound at 128 -> 128;
+// pmt_bwd_dw, whose operands pass through shared memory once per tile, by
+// its FP32 multiply-adds. At the progressive step's shape (B=32) it is 2.2
+// GFLOP forward and 4.3 GFLOP backward, 0.03 and 0.06 ms in f32; in bf16
+// the tensor cores' 989 TFLOP/s would take a fifteenth of that. These
+// kernels multiply on the SIMT pipes in both modes (bf16 only rounds the
+// operands); 3xTF32 or bf16 mma, and fusing pmt_rows into pmt_bwd_dz, are
+// later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -86,7 +108,9 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBwdThreads = 512;  // pmt_bwd: one 200 KB block per SM
+constexpr int kDzThreads = 256;  // pmt_bwd_dz
+constexpr int kDwThreads = 128;  // pmt_bwd_dw
+constexpr int kDwTile = 64;      // pmt_bwd_dw: input channels of an output tile
 constexpr int kTileP = 64;
 constexpr int kStride = kTileP + 4;  // 4 x odd: conflict-free float4 stores
 
@@ -312,103 +336,457 @@ pmt_rows_kernel(const float* __restrict__ z, GBN bn, int c_out, int store,
   }
 }
 
-__global__ void __launch_bounds__(kBwdThreads)
-pmt_bwd_kernel(const float* __restrict__ in, int cin, int cin_pad, int slab,
-               GBN prev, int has_prev, int bf16, const float* __restrict__ z,
-               GBN bn, const float* __restrict__ rstd2,  // [P, cout]
-               int cout, const float* __restrict__ dh,
-               const float* __restrict__ g, const int* __restrict__ argmax,
-               int n, const float* __restrict__ r1,   // [P, cout]
-               const float* __restrict__ r2,          // [P, cout]
-               const float* __restrict__ wt,  // [cout, cin_pad] = op(W)^T
-               double* __restrict__ dw_part,  // [grid.x, cin_pad, cout]
-               float* __restrict__ dh_prev,   // [P*m, cin_pad]
-               Ghost gh, int n_blocks) {
-  extern __shared__ float4 smem4[];
-  const int c0 = blockIdx.y * slab;             // this block's input channels
-  const int width = min(slab, cin_pad - c0);    // a multiple of 4
-  float* hs = reinterpret_cast<float*>(smem4);  // [slab][kStride]
-  float* dzs = hs + slab * kStride;             // [cout][kStride]
-  double* dws = reinterpret_cast<double*>(dzs + cout * kStride);  // [slab][cout]
-  const int iq = width / 4, oq = cout / 4;
-  for (int e = threadIdx.x; e < width * cout; e += kBwdThreads) dws[e] = 0.0;
-  const long long tiles = static_cast<long long>(n_blocks) * gh.tiles;
+// ---------------------------------------------------------------- backward
 
-  for (long long k = blockIdx.x; k < tiles; k += gridDim.x) {
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+struct DzArgs {
+  const float* z;       // [P*m, cout]: this layer's pre-BN z
+  GBN bn;               // this layer's mu, rstd [P, cout], gamma, beta [cout]
+  const float* rstd2;   // [P, cout]: rstd' (the bf16 backward's recompute)
+  const float* r1;      // [P, cout]: gamma * sum dy / m
+  const float* r2;      // [P, cout]: gamma * sum dy*xhat_stored / m
+  const float* dh;      // [P*m, cout], or null: g at each cloud's argmax
+  const float* g;       // [B, cout]
+  const int* argmax;    // [B, cout]
+  int n;                // points per cloud
+  int cout;
+  const float* wt;      // [cout, cin_pad]: op(W)^T, zero-padded
+  int cin_pad;
+  int kc;               // rows of op(W)^T in shared memory at once
+  int stage;            // stage the next tile's z and dh rows with cp.async
+  float* dz;            // [P*m, cout]
+  float* dh_prev;       // [P*m, cin_pad]
+  Ghost gh;             // ghost blocks in 64-point tiles
+  int n_blocks;
+};
+
+// rows [r0, r1) of op(W)^T into shared memory, 16 bytes a thread
+__device__ __forceinline__ void load_wt_rows(float* wts, const DzArgs& a,
+                                             int r0, int r1) {
+  const int q = a.cin_pad / 4;
+  const float4* src = reinterpret_cast<const float4*>(a.wt) +
+                      static_cast<size_t>(r0) * q;
+  float4* dst = reinterpret_cast<float4*>(wts);
+  for (int e = threadIdx.x; e < (r1 - r0) * q; e += kDzThreads) {
+    dst[e] = __ldg(src + e);
+  }
+}
+
+// cp.async of tile k's raw z rows (and dh rows) into the stage
+__device__ __forceinline__ void stage_dz_tile(float* stage, const DzArgs& a,
+                                              long long k) {
+  int blk, np;
+  long long p0;
+  tile_of(a.gh, k, &blk, &p0, &np);
+  const int chunks = np * a.cout / 4;  // the tile's rows are contiguous
+  const float* z = a.z + p0 * a.cout;
+  for (int c = threadIdx.x; c < chunks; c += kDzThreads) {
+    cp_async16(stage + 4 * c, z + 4 * c);
+  }
+  if (a.dh != nullptr) {
+    const float* dh = a.dh + p0 * a.cout;
+    float* dst = stage + kTileP * a.cout;
+    for (int c = threadIdx.x; c < chunks; c += kDzThreads) {
+      cp_async16(dst + 4 * c, dh + 4 * c);
+    }
+  }
+}
+
+// dz of one tile into dzs [cout][kStride] and HBM, four points of one channel
+// a thread (reads along the rows, one float4 store into dzs, coalesced
+// stores of dz); z and dh rows from the stage (kStaged) or from HBM
+template <bool kStaged, bool kBf16>
+__device__ __forceinline__ void form_dz(const DzArgs& a, const float* zr,
+                                        const float* dhr, const float* cs,
+                                        const int* pcl, float* dzs,
+                                        long long p0, int np) {
+  const int cout = a.cout;
+  for (int e = threadIdx.x; e < (kTileP / 4) * cout; e += kDzThreads) {
+    const int o = e % cout, q = (e / cout) * 4;
+    const float mu = cs[o], rstd = cs[cout + o], gamma = cs[2 * cout + o];
+    const float beta = cs[3 * cout + o], r1 = cs[4 * cout + o];
+    const float r2 = cs[5 * cout + o], rstd2 = cs[6 * cout + o];
+    float zv[4], dhv[4], v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {  // every load of the quad before any use
+      const int p = q + j;
+      zv[j] = dhv[j] = 0.0f;
+      if (p < np) {
+        const int k = p * cout + o;
+        if (dhr == nullptr) {  // the top layer: g at the cloud's argmax
+          const int b = pcl[p], lp = pcl[kTileP + p];
+          dhv[j] = __ldg(a.argmax + b * cout + o) == lp ? __ldg(a.g + b * cout + o)
+                                                        : 0.0f;
+          zv[j] = kStaged ? zr[k] : __ldg(zr + k);
+        } else {
+          zv[j] = kStaged ? zr[k] : __ldg(zr + k);
+          dhv[j] = kStaged ? dhr[k] : __ldg(dhr + k);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int p = q + j;
+      v[j] = 0.0f;
+      if (p < np) {
+        const float xh = rnd(__fmul_rn(__fsub_rn(zv[j], mu), rstd), kBf16);
+        const float y = __fmaf_rn(gamma, xh, beta);
+        const float dy = y > 0.0f ? dhv[j] : 0.0f;
+        v[j] = rnd(rstd2 * (gamma * dy - r1 - xh * r2), kBf16);
+        a.dz[(p0 + p) * cout + o] = v[j];
+      }
+    }
+    *reinterpret_cast<float4*>(dzs + o * kStride + q) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// kRP consecutive dz values of one channel from dzs (float4 where kRP >= 4)
+template <int kRP>
+__device__ __forceinline__ void load_dz(float* d, const float* src) {
+  if constexpr (kRP >= 4) {
+#pragma unroll
+    for (int r = 0; r < kRP; r += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(src + r);
+      d[r] = v.x;
+      d[r + 1] = v.y;
+      d[r + 2] = v.z;
+      d[r + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < kRP; ++r) d[r] = src[r];
+  }
+}
+
+// dz = rstd' * (gamma*dy - r1 - xhat_stored*r2) and dh_prev = dz op(W)^T
+// over 64-point tiles; kRP points x 4 channels of dh_prev a thread.
+// blocks per SM each kRP is built for: its registers leave room for them
+template <int kRP>
+__host__ __device__ constexpr int dz_min_blocks() {
+  return kRP == 1 ? 4 : kRP <= 4 ? 3 : 2;
+}
+
+template <int kRP, bool kBf16>
+__global__ void __launch_bounds__(kDzThreads, dz_min_blocks<kRP>())
+pmt_bwd_dz_kernel(DzArgs a) {
+  extern __shared__ float4 smem4[];
+  const int cout = a.cout, cin_pad = a.cin_pad;
+  float* wts = reinterpret_cast<float*>(smem4);  // [kc][cin_pad]
+  float* cs = wts + a.kc * cin_pad;              // [7][cout]: the constants
+  float* dzs = cs + 7 * cout;                    // [cout][kStride]: the tile's dz
+  int* pcl = reinterpret_cast<int*>(dzs + cout * kStride);  // [2][64]: b, point
+  float* stage = reinterpret_cast<float*>(pcl + 2 * kTileP);  // [2][64][cout]
+  const bool top = a.dh == nullptr;
+  const bool resident = a.kc >= cout;
+  const long long total = static_cast<long long>(a.n_blocks) * a.gh.tiles;
+  // this thread's dh_prev outputs: warps of 4 point groups x 8 channel
+  // groups where the tile allows (dz reads 4 rows, W^T 8 float4: no bank
+  // conflict), else row-major
+  const int ncg = cin_pad / 4, npg = kTileP / kRP, ntt = npg * ncg;
+
+  if (resident) load_wt_rows(wts, a, 0, cout);
+  long long k = blockIdx.x;
+  if (a.stage && k < total) stage_dz_tile(stage, a, k);
+  cp_async_commit();
+  int cur = -1;
+  for (; k < total; k += gridDim.x) {
     int blk, np;
     long long p0;
-    tile_of(gh, k, &blk, &p0, &np);
-    __syncthreads();  // the previous tile's hs and dzs are no longer read
-    load_act_tile<kBwdThreads>(hs, in, cin, c0, width, prev, has_prev, bf16,
-                               bf16, blk, p0, np);
-    for (int e = threadIdx.x; e < kTileP * cout; e += kBwdThreads) {
-      const int p = e / cout, o = e % cout;
-      float v = 0.0f;
-      if (p < np) {
-        float xh;
-        const float dy = dy_at(z, bn, blk, o, cout, bf16, dh, g, argmax, n,
-                               p0 + p, &xh);
-        const size_t k2 = static_cast<size_t>(blk) * cout + o;
-        v = rnd(rstd2[k2] * (bn.gamma[o] * dy - r1[k2] - xh * r2[k2]), bf16);
+    tile_of(a.gh, k, &blk, &p0, &np);
+    cp_async_wait<0>();
+    __syncthreads();  // rows staged; the last tile's product is done with dzs
+    if (blk != cur) {  // the ghost block's constants (once in the exact chain)
+      const size_t base = static_cast<size_t>(blk) * cout;
+      for (int c = threadIdx.x; c < cout; c += kDzThreads) {
+        cs[c] = a.bn.mu[base + c];
+        cs[cout + c] = a.bn.rstd[base + c];
+        cs[2 * cout + c] = a.bn.gamma[c];
+        cs[3 * cout + c] = a.bn.beta[c];
+        cs[4 * cout + c] = a.r1[base + c];
+        cs[5 * cout + c] = a.r2[base + c];
+        cs[6 * cout + c] = a.rstd2[base + c];
       }
-      dzs[o * kStride + p] = v;
+      cur = blk;
+    }
+    if (top) {  // each point's cloud and index in it
+      for (int p = threadIdx.x; p < np; p += kDzThreads) {
+        const long long b = (p0 + p) / a.n;
+        pcl[p] = static_cast<int>(b);
+        pcl[kTileP + p] = static_cast<int>(p0 + p - b * a.n);
+      }
     }
     __syncthreads();
-    // dW[i, o] += sum_p h_prev[p, i] dz[p, o]: each thread owns 4x4 blocks
-    for (int u = threadIdx.x; u < iq * oq; u += kBwdThreads) {
-      const int i0 = (u / oq) * 4, o0 = (u % oq) * 4;
-      float a[4][4] = {};
-      for (int p = 0; p < kTileP; p += 4) {  // padded points carry dz = 0
-        float4 hv[4], dv[4];
+    if (a.stage) {
+      form_dz<true, kBf16>(a, stage, top ? nullptr : stage + kTileP * cout, cs, pcl,
+                    dzs, p0, np);
+    } else {
+      form_dz<false, kBf16>(a, a.z + p0 * cout,
+                     top ? nullptr : a.dh + p0 * cout, cs, pcl, dzs, p0, np);
+    }
+    __syncthreads();  // dzs complete; the stage is free for the next tile
+    if (a.stage && k + gridDim.x < total) stage_dz_tile(stage, a, k + gridDim.x);
+    cp_async_commit();
+    // dh_prev[p, i] = sum_o dz[p, o] op(W)[i, o], o in order, f32
+    for (int u0 = 0; u0 < ntt; u0 += kDzThreads) {
+      const int u = u0 + threadIdx.x;
+      int pg, cg;
+      if (ncg % 8 == 0 && npg % 4 == 0) {
+        const int w = u / 32, l = u % 32, wpc = ncg / 8;
+        pg = (w / wpc) * 4 + l / 8;
+        cg = (w % wpc) * 8 + l % 8;
+      } else {
+        pg = u / ncg;
+        cg = u % ncg;
+      }
+      const int pp = pg * kRP, i0 = cg * 4;
+      float acc[kRP][4];
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          hv[r] = *reinterpret_cast<const float4*>(hs + (i0 + r) * kStride + p);
-          dv[r] = *reinterpret_cast<const float4*>(dzs + (o0 + r) * kStride + p);
+      for (int r = 0; r < kRP; ++r) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[r][j] = 0.0f;
+      }
+      for (int c0 = 0; c0 < cout; c0 += a.kc) {
+        const int c1 = min(cout, c0 + a.kc);
+        if (!resident) {  // K chunks: every thread takes part in the loads
+          if (c0 > 0) __syncthreads();
+          load_wt_rows(wts, a, c0, c1);
+          __syncthreads();
         }
+        if (u < ntt) {
+#pragma unroll 4
+          for (int o = c0; o < c1; ++o) {
+            const float4 wv = *reinterpret_cast<const float4*>(
+                wts + (o - c0) * cin_pad + i0);
+            float d[kRP];
+            load_dz<kRP>(d, dzs + o * kStride + pp);
 #pragma unroll
-        for (int ii = 0; ii < 4; ++ii) {
-#pragma unroll
-          for (int oj = 0; oj < 4; ++oj) {
-            a[ii][oj] += hv[ii].x * dv[oj].x + hv[ii].y * dv[oj].y +
-                         hv[ii].z * dv[oj].z + hv[ii].w * dv[oj].w;
+            for (int r = 0; r < kRP; ++r) {
+              acc[r][0] = fmaf(d[r], wv.x, acc[r][0]);
+              acc[r][1] = fmaf(d[r], wv.y, acc[r][1]);
+              acc[r][2] = fmaf(d[r], wv.z, acc[r][2]);
+              acc[r][3] = fmaf(d[r], wv.w, acc[r][3]);
+            }
           }
         }
       }
+      if (!resident) __syncthreads();  // the next pass reloads the chunks
+      if (u < ntt) {
 #pragma unroll
-      for (int ii = 0; ii < 4; ++ii) {
-#pragma unroll
-        for (int oj = 0; oj < 4; ++oj) dws[(i0 + ii) * cout + o0 + oj] += a[ii][oj];
-      }
-    }
-    // dh_prev[p, i] = sum_o dz[p, o] W[i, o]: 4 points x 4 channels each
-    for (int u = threadIdx.x; u < (kTileP / 4) * iq; u += kBwdThreads) {
-      const int i0 = (u % iq) * 4;
-      const int pp = (u / iq) * 4;
-      float a[4][4] = {};
-      for (int o = 0; o < cout; ++o) {
-        const float4 dv = *reinterpret_cast<const float4*>(dzs + o * kStride + pp);
-        const float4 wv = __ldg(reinterpret_cast<const float4*>(
-            wt + static_cast<size_t>(o) * cin_pad + c0 + i0));
-        const float dr[4] = {dv.x, dv.y, dv.z, dv.w};
-        const float wr[4] = {wv.x, wv.y, wv.z, wv.w};
-#pragma unroll
-        for (int pi = 0; pi < 4; ++pi) {
-#pragma unroll
-          for (int ij = 0; ij < 4; ++ij) a[pi][ij] += dr[pi] * wr[ij];
-        }
-      }
-#pragma unroll
-      for (int pi = 0; pi < 4; ++pi) {
-        if (pp + pi < np) {
-          *reinterpret_cast<float4*>(dh_prev + (p0 + pp + pi) * cin_pad + c0 + i0) =
-              make_float4(a[pi][0], a[pi][1], a[pi][2], a[pi][3]);
+        for (int r = 0; r < kRP; ++r) {
+          if (pp + r < np) {
+            *reinterpret_cast<float4*>(a.dh_prev + (p0 + pp + r) * cin_pad + i0) =
+                make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+          }
         }
       }
     }
   }
-  __syncthreads();
-  double* out = dw_part + (static_cast<size_t>(blockIdx.x) * cin_pad + c0) * cout;
-  for (int e = threadIdx.x; e < width * cout; e += kBwdThreads) out[e] = dws[e];
+  cp_async_wait<0>();
+}
+
+struct DwArgs {
+  const float* in;   // [P*m, cin]: x, or the layer below's pre-BN z
+  int cin;
+  int cin_pad;
+  GBN prev;          // the layer below's BN, applied to `in` (has_prev)
+  int has_prev;
+  const float* dz;   // [P*m, cout]
+  int cout;
+  double* dw_part;   // [splits, cin_pad, cout]
+  Ghost gh;          // ghost blocks in 64-point tiles
+  int n_blocks;
+  int splits;
+};
+
+// A pmt_bwd_dw block for kRI x 8 outputs a thread: 64 input channels x
+// dw_to<kRI>() output channels
+template <int kRI>
+__host__ __device__ constexpr int dw_to() {
+  return kDwThreads * kRI * 8 / kDwTile;
+}
+
+// cp.async of tile k's rows of in (channels i0 .. i0+ti) and of dz
+// (channels o0 .. o0+to) into A [64][kDwTile] and D [64][kTO]
+template <int kTO>
+__device__ __forceinline__ void stage_dw_tile(float* A, float* D,
+                                              const DwArgs& a, long long k,
+                                              int i0, int ti, int o0, int to) {
+  int blk, np;
+  long long p0;
+  tile_of(a.gh, k, &blk, &p0, &np);
+  constexpr int kQA = kDwTile / 4, kQD = kTO / 4;  // 16-byte chunks a row
+  if (a.cin % 4 == 0) {
+    for (int c = threadIdx.x; c < np * kQA; c += kDwThreads) {
+      const int p = c / kQA, j = (c % kQA) * 4;
+      if (j < ti) cp_async16(A + p * kDwTile + j, a.in + (p0 + p) * a.cin + i0 + j);
+    }
+  } else {  // x with 3 channels: 4 bytes at a time
+    for (int c = threadIdx.x; c < np * kDwTile; c += kDwThreads) {
+      const int p = c / kDwTile, j = c % kDwTile;
+      if (i0 + j < a.cin && j < ti) {
+        cp_async4(A + p * kDwTile + j, a.in + (p0 + p) * a.cin + i0 + j);
+      }
+    }
+  }
+  for (int c = threadIdx.x; c < np * kQD; c += kDwThreads) {
+    const int p = c / kQD, j = (c % kQD) * 4;
+    if (j < to) cp_async16(D + p * kTO + j, a.dz + (p0 + p) * a.cout + o0 + j);
+  }
+}
+
+// dW[i, o] = sum_p op(act(in))[p, i] dz[p, o] over the block's run of
+// 64-point tiles: each tile summed in f32 registers, kRI x 8 outputs a
+// thread, then added once into f64 registers.
+template <int kRI, bool kBf16>
+__global__ void __launch_bounds__(kDwThreads, kRI == 4 ? 3 : 2)
+pmt_bwd_dw_kernel(DwArgs a) {
+  constexpr int kTO = dw_to<kRI>(), kOG = kTO / 8;
+  constexpr int kStage = kTileP * (kDwTile + kTO);
+  extern __shared__ float4 smem4[];
+  float* bufs = reinterpret_cast<float*>(smem4);  // [2][A [64][64], D [64][kTO]]
+  const int n_o = (a.cout + kTO - 1) / kTO;
+  const int i0 = (blockIdx.x / n_o) * kDwTile, o0 = (blockIdx.x % n_o) * kTO;
+  const int ti = min(kDwTile, a.cin_pad - i0), to = min(kTO, a.cout - o0);
+  const long long total = static_cast<long long>(a.n_blocks) * a.gh.tiles;
+  const long long k0 = total * blockIdx.y / a.splits;
+  const long long k1 = total * (blockIdx.y + 1) / a.splits;
+  const int ig = threadIdx.x / kOG, og = threadIdx.x % kOG;
+  const bool active = kRI * ig < ti;
+  // the transform's channel: each thread keeps one, with its BN constants
+  const int tw = kDwThreads % ti == 0 ? ti : kDwTile;  // threads per row
+  const int tc = threadIdx.x % tw, tr = threadIdx.x / tw;
+  const int ch = min(i0 + tc, a.cin - 1);
+  float mu = 0.0f, rstd = 0.0f, gamma = 0.0f, beta = 0.0f;
+  double acc[kRI][8];
+#pragma unroll
+  for (int i = 0; i < kRI; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0;
+  }
+  if (k0 < k1) {
+    stage_dw_tile<kTO>(bufs, bufs + kTileP * kDwTile, a, k0, i0, ti, o0, to);
+  }
+  cp_async_commit();
+  int cur = -1;
+  for (long long k = k0; k < k1; ++k) {
+    float* A = bufs + ((k - k0) & 1) * kStage;
+    float* D = A + kTileP * kDwTile;
+    if (k + 1 < k1) {
+      float* An = bufs + ((k + 1 - k0) & 1) * kStage;
+      stage_dw_tile<kTO>(An, An + kTileP * kDwTile, a, k + 1, i0, ti, o0, to);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // tile k is in; tile k + 1 may still be loading
+    __syncthreads();
+    int blk, np;
+    long long p0;
+    tile_of(a.gh, k, &blk, &p0, &np);
+    if (a.has_prev && blk != cur) {
+      const size_t kb = static_cast<size_t>(blk) * a.cin + ch;
+      mu = a.prev.mu[kb];
+      rstd = a.prev.rstd[kb];
+      gamma = a.prev.gamma[ch];
+      beta = a.prev.beta[ch];
+      cur = blk;
+    }
+    // op(act(in)) in place: the layer below's BN + ReLU on its stored xhat,
+    // then the operand's rounding; channels past cin are 0
+    if (tc < ti) {
+      for (int p = tr; p < np; p += kDwThreads / tw) {
+        float v = 0.0f;
+        if (i0 + tc < a.cin) {
+          v = A[p * kDwTile + tc];
+          if (a.has_prev) {
+            const float xh = rnd(__fmul_rn(__fsub_rn(v, mu), rstd), kBf16);
+            v = relu_nan(__fmaf_rn(gamma, xh, beta));
+          }
+          v = rnd(v, kBf16);
+        }
+        A[p * kDwTile + tc] = v;
+      }
+    }
+    __syncthreads();
+    if (active) {
+      float s[kRI][8];
+#pragma unroll
+      for (int i = 0; i < kRI; ++i) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) s[i][j] = 0.0f;
+      }
+      // the operands of p + 1 are loaded before the products of p
+      const float* ap = A + kRI * ig;
+      const float* dp = D + 8 * og;
+      float ar[kRI], dr[8];
+      load_dz<kRI>(ar, ap);
+      load_dz<8>(dr, dp);
+#pragma unroll 2
+      for (int p = 0; p < np; ++p) {
+        const int pn = min(p + 1, np - 1);
+        float an[kRI], dn[8];
+        load_dz<kRI>(an, ap + pn * kDwTile);
+        load_dz<8>(dn, dp + pn * kTO);
+#pragma unroll
+        for (int i = 0; i < kRI; ++i) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) s[i][j] = fmaf(ar[i], dr[j], s[i][j]);
+        }
+#pragma unroll
+        for (int i = 0; i < kRI; ++i) ar[i] = an[i];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) dr[j] = dn[j];
+      }
+#pragma unroll
+      for (int i = 0; i < kRI; ++i) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] += static_cast<double>(s[i][j]);
+      }
+    }
+    __syncthreads();  // this buffer is refilled two tiles on
+  }
+  cp_async_wait<0>();
+  if (!active) return;
+  double* out = a.dw_part + static_cast<size_t>(blockIdx.y) * a.cin_pad * a.cout;
+#pragma unroll
+  for (int i = 0; i < kRI; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int ii = kRI * ig + i, oo = 8 * og + j;
+      if (ii < ti && oo < to) {
+        out[static_cast<size_t>(i0 + ii) * a.cout + o0 + oo] = acc[i][j];
+      }
+    }
+  }
+}
+
+// pmt_bwd_dz for kRP points a thread, or null for another kRP
+template <bool kBf16>
+const void* dz_kernel(int rp) {
+  switch (rp) {
+    case 1: return reinterpret_cast<const void*>(pmt_bwd_dz_kernel<1, kBf16>);
+    case 2: return reinterpret_cast<const void*>(pmt_bwd_dz_kernel<2, kBf16>);
+    case 4: return reinterpret_cast<const void*>(pmt_bwd_dz_kernel<4, kBf16>);
+    case 8: return reinterpret_cast<const void*>(pmt_bwd_dz_kernel<8, kBf16>);
+    case 16: return reinterpret_cast<const void*>(pmt_bwd_dz_kernel<16, kBf16>);
+    default: return nullptr;
+  }
 }
 
 cudaError_t set_smem(const void* kernel, size_t smem) {
@@ -433,10 +811,20 @@ extern "C" size_t snt_pmt_dense_smem(int cin, int cout) {
          2 * static_cast<size_t>(cout) * sizeof(double);
 }
 
-// A pmt_bwd block that takes `slab` input channels.
-extern "C" size_t snt_pmt_bwd_smem(int slab, int cout) {
-  return static_cast<size_t>(slab + cout) * kStride * sizeof(float) +
-         static_cast<size_t>(slab) * cout * sizeof(double);
+// A pmt_bwd_dz block: op(W)^T rows [kc, cin_pad], 7 per-channel constants,
+// dz [cout, 68], each point's cloud and index [2, 64], and with `stage` the
+// raw z and dh rows [2, 64, cout] (the launch planner,
+// ops/cuda/point_mlp_plan.py, counts the same).
+extern "C" size_t snt_pmt_bwd_dz_smem(int cin_pad, int cout, int kc, int stage) {
+  return sizeof(float) * (static_cast<size_t>(kc) * cin_pad + 7 * cout +
+                          static_cast<size_t>(cout) * kStride + 2 * kTileP +
+                          (stage ? 2 * static_cast<size_t>(kTileP) * cout : 0));
+}
+
+// A pmt_bwd_dw block for ri x 8 outputs a thread: two stages of a tile of
+// act(in), 64 channels, and of dz, 16 * ri channels.
+extern "C" size_t snt_pmt_bwd_dw_smem(int ri) {
+  return sizeof(float) * 2 * kTileP * (kDwTile + kDwThreads * ri * 8 / kDwTile);
 }
 
 // prev_bn holds (mu, rstd, gamma, beta) of the layer below, or is null for
@@ -479,25 +867,60 @@ extern "C" int snt_pmt_rows(const float* z, const float* const* bn, int c_out,
   return static_cast<int>(cudaGetLastError());
 }
 
-// grid blocks over all tiles for each of ceil(cin_pad / slab) slabs.
-extern "C" int snt_pmt_bwd(const float* in, int cin, int cin_pad, int slab,
-                           const float* const* prev_bn, int bf16, const float* z,
-                           const float* const* bn, const float* rstd2, int cout,
-                           const float* dh, const float* g, const int* argmax,
-                           int n_blocks, int bb, int n, const float* r1,
-                           const float* r2, const float* wt, double* dw_part,
-                           float* dh_prev, int grid, cudaStream_t stream) {
-  if (cout % 4 || cin_pad % 4 || slab % 4 || slab < 4 || cin > cin_pad ||
-      grid < 1 || n_blocks < 1) {
+// dz and dh_prev of one layer (dh null: the top layer, dh from the pooled
+// cotangent g at argmax) over 64-point tiles, `grid` blocks.
+extern "C" int snt_pmt_bwd_dz(const float* z, const float* const* bn,
+                              const float* rstd2, const float* r1,
+                              const float* r2, int cout, int bf16,
+                              const float* dh, const float* g,
+                              const int* argmax, const float* wt, int cin_pad,
+                              float* dz, float* dh_prev, int n_blocks, int bb,
+                              int n, int rp, int kc, int stage, int grid,
+                              cudaStream_t stream) {
+  if (cout % 4 || cin_pad % 4 || cin_pad < 4 || kc % 4 || kc < 4 || grid < 1 ||
+      n_blocks < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = snt_pmt_bwd_smem(slab, cout);
-  cudaError_t err = set_smem(reinterpret_cast<const void*>(pmt_bwd_kernel), smem);
+  const DzArgs a{z, make_gbn(bn), rstd2, r1, r2, dh, g, argmax, n, cout, wt,
+                 cin_pad, kc, stage, dz, dh_prev, make_ghost(bb, n), n_blocks};
+  const size_t smem = snt_pmt_bwd_dz_smem(cin_pad, cout, kc, stage);
+  const void* kernel = bf16 ? dz_kernel<true>(rp) : dz_kernel<false>(rp);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 blocks(grid, (cin_pad + slab - 1) / slab);
-  pmt_bwd_kernel<<<blocks, kBwdThreads, smem, stream>>>(
-      in, cin, cin_pad, slab, make_gbn(prev_bn), prev_bn != nullptr, bf16, z,
-      make_gbn(bn), rstd2, cout, dh, g, argmax, n, r1, r2, wt, dw_part, dh_prev,
-      make_ghost(bb, n), n_blocks);
+  void* args[] = {const_cast<DzArgs*>(&a)};
+  err = cudaLaunchKernel(kernel, dim3(grid), dim3(kDzThreads), args, smem, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// f64 partials dw_part [splits, cin_pad, cout] of dW = op(act(in))^T dz:
+// grid (output tiles of 64 x 16*ri) x splits runs of consecutive 64-point
+// tiles, ri x 8 outputs a thread.
+extern "C" int snt_pmt_bwd_dw(const float* in, int cin, int cin_pad,
+                              const float* const* prev_bn, int bf16,
+                              const float* dz, int cout, double* dw_part,
+                              int n_blocks, int bb, int n, int splits, int ri,
+                              cudaStream_t stream) {
+  if (cout % 4 || cin_pad % 4 || cin < 1 || cin > cin_pad || splits < 1 ||
+      n_blocks < 1 || (ri != 4 && ri != 8)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = snt_pmt_bwd_dw_smem(ri);
+  const void* kernel =
+      ri == 4 ? (bf16 ? reinterpret_cast<const void*>(pmt_bwd_dw_kernel<4, true>)
+                      : reinterpret_cast<const void*>(pmt_bwd_dw_kernel<4, false>))
+              : (bf16 ? reinterpret_cast<const void*>(pmt_bwd_dw_kernel<8, true>)
+                      : reinterpret_cast<const void*>(pmt_bwd_dw_kernel<8, false>));
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const DwArgs a{in, cin, cin_pad, make_gbn(prev_bn), prev_bn != nullptr, dz,
+                 cout, dw_part, make_ghost(bb, n), n_blocks, splits};
+  const int to = kDwThreads * ri * 8 / kDwTile;
+  const int out_tiles = ((cin_pad + kDwTile - 1) / kDwTile) * ((cout + to - 1) / to);
+  void* args[] = {const_cast<DwArgs*>(&a)};
+  err = cudaLaunchKernel(kernel, dim3(out_tiles, splits), dim3(kDwThreads), args,
+                         smem, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

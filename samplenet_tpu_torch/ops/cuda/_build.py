@@ -139,17 +139,21 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.snt_soft_project_bwd.restype = i
     lib.snt_pmt_dense_smem.argtypes = [i, i]
     lib.snt_pmt_dense_smem.restype = sz
-    lib.snt_pmt_bwd_smem.argtypes = [i, i]
-    lib.snt_pmt_bwd_smem.restype = sz
+    lib.snt_pmt_bwd_dz_smem.argtypes = [i, i, i, i]
+    lib.snt_pmt_bwd_dz_smem.restype = sz
+    lib.snt_pmt_bwd_dw_smem.argtypes = [i]
+    lib.snt_pmt_bwd_dw_smem.restype = sz
     lib.snt_pmt_dense.argtypes = [p, i, pp, i, i, p, i, p, p, i, i, i, i, p]
     lib.snt_pmt_dense.restype = i
     lib.snt_pmt_pool.argtypes = [p, pp, i, i, i, i, p, p, p]
     lib.snt_pmt_pool.restype = i
     lib.snt_pmt_rows.argtypes = [p, pp, i, i, p, p, p, i, i, i, p, i, p]
     lib.snt_pmt_rows.restype = i
-    lib.snt_pmt_bwd.argtypes = [p, i, i, i, pp, i, p, pp, p, i, p, p, p, i,
-                                i, i, p, p, p, p, p, i, p]
-    lib.snt_pmt_bwd.restype = i
+    lib.snt_pmt_bwd_dz.argtypes = [p, pp, p, p, p, i, i, p, p, p, p, i, p, p,
+                                   i, i, i, i, i, i, i, p]
+    lib.snt_pmt_bwd_dz.restype = i
+    lib.snt_pmt_bwd_dw.argtypes = [p, i, i, pp, i, p, i, p, i, i, i, i, i, p]
+    lib.snt_pmt_bwd_dw.restype = i
     lib.snt_emd_smem.argtypes = [i]
     lib.snt_emd_smem.restype = sz
     lib.snt_emd_rows_per_block.argtypes = []

@@ -24,48 +24,22 @@ against.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
-import torch.nn.functional as F
 
-from samplenet_tpu_torch.ops.cuda._build import (
-    check,
-    library,
-    max_dynamic_smem,
-    stream_handle,
-)
+from samplenet_tpu_torch.ops.cuda._build import check, library, stream_handle
 from samplenet_tpu_torch.ops.cuda.point_mlp_kernel import full_f32_matmul
+from samplenet_tpu_torch.ops.cuda.point_mlp_train_kernel import (
+    bwd_cuda,
+    check_args,
+    check_cuda,
+    launch_grid,
+    ptrs,
+)
 from samplenet_tpu_torch.ops.dispatch import count_launch, use_kernel
 
 KERNEL_FWD = "point_mlp_exact_fwd"
 KERNEL_BWD = "point_mlp_exact_bwd"
 _TILE = 64               # csrc/point_mlp_train.cu kTileP
-
-
-def check_args(x, weights, biases, gammas, betas) -> list[int]:
-    if x.dim() != 3 or x.shape[0] == 0 or x.shape[1] == 0:
-        raise ValueError(f"point_mlp_exact takes x [B>=1, N>=1, C], got "
-                         f"{tuple(x.shape)}")
-    n = len(weights)
-    if n < 1 or not len(biases) == len(gammas) == len(betas) == n:
-        raise ValueError("point_mlp_exact takes one weight, bias, gamma and "
-                         "beta per layer")
-    widths = [x.shape[-1]]
-    for w, *vs in zip(weights, biases, gammas, betas):
-        if w.dim() != 2 or w.shape[0] != widths[-1] \
-                or any(tuple(v.shape) != (w.shape[1],) for v in vs):
-            raise ValueError(f"layer {len(widths) - 1}: shapes do not follow "
-                             f"width {widths[-1]}")
-        widths.append(w.shape[1])
-    for t in (x, *weights, *biases, *gammas, *betas):
-        if t.dtype != x.dtype or t.dtype not in (torch.float32,
-                                                 torch.float64):
-            raise TypeError(f"point_mlp_exact takes float32 (or float64 on "
-                            f"the plain path), got {t.dtype}")
-        if t.device != x.device:
-            raise ValueError("x and the parameters must share a device")
-    return widths
 
 
 def _stats(s1: torch.Tensor, s2: torch.Tensor, count: int, eps: float,
@@ -136,67 +110,9 @@ def point_mlp_exact_bwd_plain(x, weights, gammas, betas, saved, g):
 # -------------------------------------------------------------- CUDA kernels
 #
 # csrc/point_mlp_train.cu holds the kernels of this chain and of the ghost
-# chain (point_mlp_train_kernel.py): exact global BN is its case of one
-# block of all B clouds, with bf16 off. The helpers below serve both.
-
-def launch_grid(work: int, device, per_sm: int, n_blocks: int = 1) -> int:
-    """Blocks per batch block for a pass over its `work` tiles that keeps
-    its partial sums in shared memory: about `per_sm` per SM over all
-    `n_blocks` batch blocks (what fits at the train widths), a number fixed
-    by the shape and the card, so the partial sums (and their order)
-    repeat from run to run."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(work, -(-per_sm * sms // n_blocks)))
-
-
-_MAX_ROW_BLOCKS = 65535
-
-
-def _rows_grid(work: int) -> int:
-    """Blocks for the BN-rows pass: one per tile or cloud (each block
-    strides over the rest beyond the cap); the partials are f64 rows."""
-    return max(1, min(work, _MAX_ROW_BLOCKS))
-
-
-def ptrs(*tensors) -> ctypes.Array:
-    """The C array of the tensors' device pointers (a BN's mu, rstd, gamma,
-    beta) that the kernels take."""
-    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
-
-
-def _bwd_slab(cin_pad: int, cout: int, smem_of, limit: int) -> int | None:
-    """Input channels one pmt_bwd block takes: all cin_pad where its
-    shared memory fits `limit`, else cin_pad cut into the fewest equal
-    slabs (multiples of 4) that fit (csrc/point_mlp_train.cu, pmt_bwd);
-    None where not even 4 channels do."""
-    for parts in range(1, cin_pad // 4 + 1):
-        slab = -(-cin_pad // (4 * parts)) * 4
-        if smem_of(slab, cout) <= limit:
-            return slab
-    return None
-
-
-def check_cuda(x, widths, name: str) -> list[int]:
-    """Checks what the kernels take; returns each layer's pmt_bwd slab."""
-    if x.device.type != "cuda":
-        raise ValueError(f"the {name} kernels take CUDA tensors, got "
-                         f"{x.device}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"the {name} kernels take float32, got {x.dtype}")
-    if any(c % 4 for c in widths[1:]):
-        raise ValueError(f"the {name} kernels take output widths divisible "
-                         f"by 4, got {widths}")
-    lib = library()
-    limit = max_dynamic_smem(x.device)
-    need = max(lib.snt_pmt_dense_smem(ci, co)
-               for ci, co in zip(widths[:-1], widths[1:]))
-    slabs = [_bwd_slab(-(-ci // 4) * 4, co, lib.snt_pmt_bwd_smem, limit)
-             for ci, co in zip(widths[:-1], widths[1:])]
-    if need > limit or None in slabs:
-        raise ValueError(f"widths {widths} need more shared memory per block "
-                         f"than the card offers")
-    return slabs
-
+# chain (point_mlp_train_kernel.py, which also holds the helpers both
+# wrappers share): exact global BN is its case of one block of all B
+# clouds, with bf16 off.
 
 def point_mlp_exact_fwd_cuda(x, weights, gammas, betas, eps):
     widths = [x.shape[-1], *(w.shape[1] for w in weights)]
@@ -241,58 +157,12 @@ def point_mlp_exact_fwd_cuda(x, weights, gammas, betas, eps):
 
 
 def point_mlp_exact_bwd_cuda(x, weights, gammas, betas, saved, g):
-    zs, mus, rstds, argmax = saved
-    widths = [x.shape[-1], *(w.shape[1] for w in weights)]
-    slabs = check_cuda(x, widths, "point_mlp_exact")
-    b, n, c0 = x.shape
-    count = b * n
-    lib = library()
-    tiles = -(-count // _TILE)
-    stream = stream_handle(x)
-    g = g.contiguous()
-    gammas = [t.contiguous() for t in gammas]
-    betas = [t.contiguous() for t in betas]
-    bns = [(mus[i], rstds[i], gammas[i], betas[i]) for i in range(len(zs))]
-    nl = len(weights)
-    dws, dgammas, dbetas = [None] * nl, [None] * nl, [None] * nl
-    dh = None                      # the top layer reads g at argmax
-    with torch.cuda.device(x.device):
-        for i in range(nl - 1, -1, -1):
-            cout = widths[i + 1]
-            grid = _rows_grid(b if dh is None else tiles)
-            rows = torch.empty((grid, 2, cout), dtype=torch.float64,
-                               device=x.device)
-            err = lib.snt_pmt_rows(
-                zs[i].data_ptr(), ptrs(*bns[i]), cout, 0,
-                None if dh is None else dh.data_ptr(), g.data_ptr(),
-                argmax.data_ptr(), 1, b, n, rows.data_ptr(), grid, stream)
-            check(err, KERNEL_BWD)
-            s = rows.sum(0).float()
-            dbetas[i], dgammas[i] = s[0], s[1]
-            r1 = (gammas[i] * dbetas[i] / count).contiguous()
-            r2 = (gammas[i] * dgammas[i] / count).contiguous()
-            cin = widths[i]
-            cin_pad = -(-cin // 4) * 4
-            wt = F.pad(weights[i].t(), (0, cin_pad - cin)).contiguous()
-            grid = launch_grid(tiles, x.device, per_sm=2)
-            dw_part = torch.empty((grid, cin_pad, cout), dtype=torch.float64,
-                                  device=x.device)
-            dh_prev = torch.empty((count, cin_pad), dtype=torch.float32,
-                                  device=x.device)
-            h_in = x.contiguous() if i == 0 else zs[i - 1]
-            err = lib.snt_pmt_bwd(
-                h_in.data_ptr(), cin, cin_pad, slabs[i],
-                None if i == 0 else ptrs(*bns[i - 1]), 0, zs[i].data_ptr(),
-                ptrs(*bns[i]), rstds[i].data_ptr(), cout,
-                None if dh is None else dh.data_ptr(), g.data_ptr(),
-                argmax.data_ptr(), 1, b, n, r1.data_ptr(), r2.data_ptr(),
-                wt.data_ptr(), dw_part.data_ptr(), dh_prev.data_ptr(), grid,
-                stream)
-            check(err, KERNEL_BWD)
-            dws[i] = dw_part.sum(0)[:cin].float()
-            dh = dh_prev
+    """The ghost chain's backward kernels as one block of all B clouds,
+    with bf16 off (`point_mlp_train_kernel.bwd_cuda`)."""
+    out = bwd_cuda(x, weights, gammas, betas, 0.0, x.shape[0], False, saved,
+                   g, KERNEL_BWD)
     count_launch(KERNEL_BWD)
-    return dh[:, :c0].reshape(b, n, c0), dws, dgammas, dbetas
+    return out
 
 
 # ------------------------------------------------------------ the Function

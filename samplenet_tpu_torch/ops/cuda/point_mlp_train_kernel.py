@@ -27,25 +27,29 @@ the forward's own values.
 `auto_block_b` is the TPU's VMEM-budget formula, copied as it is: the block
 size sets the statistics, so it is part of the result, not a tiling
 choice. The kernels are csrc/point_mlp_train.cu, which also run the exact
-chain (point_mlp_exact_kernel.py) as one block; the plain versions follow
-the TPU kernel's lines (the backward recomputes the chain from x) and also
-take float64, which the on-card checks use, with bf16 off, as the
-reference both paths are held against.
+chain (point_mlp_exact_kernel.py) as one block: this module holds the
+helpers both wrappers share and the backward driver both call
+(`bwd_cuda`, launched by the plan of point_mlp_plan.py). The plain
+versions follow the TPU kernel's lines (the backward recomputes the chain
+from x) and also take float64, which the on-card checks use, with bf16
+off, as the reference both paths are held against.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
-from samplenet_tpu_torch.ops.cuda._build import check, library, stream_handle
-from samplenet_tpu_torch.ops.cuda.point_mlp_exact_kernel import (
-    check_args,
-    check_cuda,
-    launch_grid,
-    ptrs,
+from samplenet_tpu_torch.ops.cuda._build import (
+    check,
+    library,
+    max_dynamic_smem,
+    stream_handle,
 )
 from samplenet_tpu_torch.ops.cuda.point_mlp_kernel import full_f32_matmul
+from samplenet_tpu_torch.ops.cuda.point_mlp_plan import LayerPlan, plan_bwd
 from samplenet_tpu_torch.ops.dispatch import count_launch, use_kernel
 
 KERNEL_FWD = "point_mlp_train_fwd"
@@ -71,6 +75,31 @@ def auto_block_b(batch: int, n: int, widths: tuple[int, ...],
     if bb > bb_max or batch % bb:
         return None
     return bb
+
+
+def check_args(x, weights, biases, gammas, betas) -> list[int]:
+    if x.dim() != 3 or x.shape[0] == 0 or x.shape[1] == 0:
+        raise ValueError(f"point_mlp_exact takes x [B>=1, N>=1, C], got "
+                         f"{tuple(x.shape)}")
+    n = len(weights)
+    if n < 1 or not len(biases) == len(gammas) == len(betas) == n:
+        raise ValueError("point_mlp_exact takes one weight, bias, gamma and "
+                         "beta per layer")
+    widths = [x.shape[-1]]
+    for w, *vs in zip(weights, biases, gammas, betas):
+        if w.dim() != 2 or w.shape[0] != widths[-1] \
+                or any(tuple(v.shape) != (w.shape[1],) for v in vs):
+            raise ValueError(f"layer {len(widths) - 1}: shapes do not follow "
+                             f"width {widths[-1]}")
+        widths.append(w.shape[1])
+    for t in (x, *weights, *biases, *gammas, *betas):
+        if t.dtype != x.dtype or t.dtype not in (torch.float32,
+                                                 torch.float64):
+            raise TypeError(f"point_mlp_exact takes float32 (or float64 on "
+                            f"the plain path), got {t.dtype}")
+        if t.device != x.device:
+            raise ValueError("x and the parameters must share a device")
+    return widths
 
 
 def _op(t: torch.Tensor, bf16: bool) -> torch.Tensor:
@@ -181,6 +210,63 @@ def stats_from_rows(mus, msqs):
 
 # -------------------------------------------------------------- CUDA kernels
 
+def launch_grid(work: int, device, per_sm: int, n_blocks: int = 1) -> int:
+    """Blocks per batch block for a pass over its `work` tiles that keeps
+    its partial sums in shared memory: about `per_sm` per SM over all
+    `n_blocks` batch blocks (what fits at the train widths), a number fixed
+    by the shape and the card, so the partial sums (and their order)
+    repeat from run to run."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(work, -(-per_sm * sms // n_blocks)))
+
+
+_MAX_ROW_BLOCKS = 65535
+
+
+def _rows_grid(work: int) -> int:
+    """Blocks for the BN-rows pass: one per tile or cloud (each block
+    strides over the rest beyond the cap); the partials are f64 rows."""
+    return max(1, min(work, _MAX_ROW_BLOCKS))
+
+
+def ptrs(*tensors) -> ctypes.Array:
+    """The C array of the tensors' device pointers (a BN's mu, rstd, gamma,
+    beta) that the kernels take."""
+    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+
+
+def check_cuda(x, widths, name: str,
+               block_b: int | None = None) -> list[LayerPlan]:
+    """Checks what the kernels take, for ghost blocks of `block_b` clouds
+    (all B: the exact chain); returns each layer's backward plan."""
+    if x.device.type != "cuda":
+        raise ValueError(f"the {name} kernels take CUDA tensors, got "
+                         f"{x.device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"the {name} kernels take float32, got {x.dtype}")
+    if any(c % 4 for c in widths[1:]):
+        raise ValueError(f"the {name} kernels take output widths divisible "
+                         f"by 4, got {widths}")
+    b, n, _ = x.shape
+    bb = b if block_b is None else block_b
+    lib = library()
+    limit = max_dynamic_smem(x.device)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    need = max(lib.snt_pmt_dense_smem(ci, co)
+               for ci, co in zip(widths[:-1], widths[1:]))
+    plans = plan_bwd(widths, b // bb, bb * n, sms, limit)
+    if need > limit or plans is None:
+        raise ValueError(f"widths {widths} need more shared memory per block "
+                         f"than the card offers")
+    for pl in plans:            # the planner counts what the kernels count
+        if (lib.snt_pmt_bwd_dz_smem(pl.cin_pad, pl.cout, pl.dz_kc,
+                                    int(pl.dz_stage)) != pl.dz_smem
+                or lib.snt_pmt_bwd_dw_smem(pl.dw_ri) != pl.dw_smem):
+            raise RuntimeError("point_mlp_plan.py and csrc/point_mlp_train.cu "
+                               "count shared memory apart")
+    return plans
+
+
 def _block_stats(rows: torch.Tensor, m: int, eps: float):
     """(mu, rstd) as f32 [P, C], and the f64 (mu, msq), from the f64 sums
     rows [P, G, 2, C] over m points per block."""
@@ -194,7 +280,7 @@ def point_mlp_train_fwd_cuda(x, weights, gammas, betas, eps, block_b, bf16):
     """(pooled, block means, block E[z^2] (f64), saved): saved feeds the
     backward kernels."""
     widths = [x.shape[-1], *(w.shape[1] for w in weights)]
-    check_cuda(x, widths, "point_mlp_train")
+    check_cuda(x, widths, "point_mlp_train", block_b)
     b, n, _ = x.shape
     p, m = b // block_b, block_b * n
     lib = library()
@@ -236,11 +322,16 @@ def point_mlp_train_fwd_cuda(x, weights, gammas, betas, eps, block_b, bf16):
     return pooled, mus64, msqs64, (zs, mus, rstds, argmax)
 
 
-def point_mlp_train_bwd_cuda(x, weights, gammas, betas, eps, block_b, bf16,
-                             saved, g):
+def bwd_cuda(x, weights, gammas, betas, eps, block_b, bf16, saved, g,
+             kernel: str):
+    """(dx, dWs, dgammas, dbetas): the backward kernels of both chains
+    (the exact chain is one block of all B clouds with bf16 off), from a
+    forward's saved (zs, mus, rstds, argmax); `kernel` names the caller in
+    errors. Per layer, from the top: pmt_rows (the BN rows), pmt_bwd_dz
+    (dz and dh_prev) and pmt_bwd_dw (dW's f64 partials, summed here)."""
     zs, mus, rstds, argmax = saved
     widths = [x.shape[-1], *(w.shape[1] for w in weights)]
-    slabs = check_cuda(x, widths, "point_mlp_train")
+    plans = check_cuda(x, widths, kernel, block_b)
     b, n, c0 = x.shape
     p, m = b // block_b, block_b * n
     tiles = -(-m // _TILE)
@@ -250,29 +341,28 @@ def point_mlp_train_bwd_cuda(x, weights, gammas, betas, eps, block_b, bf16,
     gammas = [t.contiguous() for t in gammas]
     betas = [t.contiguous() for t in betas]
     bns = [ptrs(mus[i], rstds[i], gammas[i], betas[i]) for i in range(len(zs))]
-    dense_grid = launch_grid(tiles, x.device, per_sm=4, n_blocks=p)
     nl = len(weights)
     dws, dgammas, dbetas = [None] * nl, [None] * nl, [None] * nl
     dh = None                      # the top layer reads g at argmax
     with torch.cuda.device(x.device):
         for i in range(nl - 1, -1, -1):
-            cin, cout = widths[i], widths[i + 1]
+            cin, cout, plan = widths[i], widths[i + 1], plans[i]
             w_op = _op(weights[i], bf16).contiguous()
             rstd2 = rstds[i]
             if bf16 and i > 0:
                 # rstd from z recomputed on h_prev rebuilt from the stored
                 # (bf16) xhat of the layer below (:173-184); with bf16 off
                 # that z is the forward's, bit for bit
-                rows = torch.empty((p, dense_grid, 2, cout),
-                                   dtype=torch.float64, device=x.device)
+                grid = launch_grid(tiles, x.device, per_sm=4, n_blocks=p)
+                rows = torch.empty((p, grid, 2, cout), dtype=torch.float64,
+                                   device=x.device)
                 err = lib.snt_pmt_dense(
                     zs[i - 1].data_ptr(), cin, bns[i - 1], 1, 1,
-                    w_op.data_ptr(), cout, None, rows.data_ptr(),
-                    p, block_b, n, dense_grid, stream)
-                check(err, KERNEL_BWD)
+                    w_op.data_ptr(), cout, None, rows.data_ptr(), p, block_b,
+                    n, grid, stream)
+                check(err, kernel)
                 rstd2 = _block_stats(rows, m, eps)[1].contiguous()
-            grid = launch_grid(block_b if dh is None else tiles, x.device,
-                               per_sm=4, n_blocks=p)
+            grid = _rows_grid(block_b if dh is None else tiles)
             rows = torch.empty((p, grid, 2, cout), dtype=torch.float64,
                                device=x.device)
             err = lib.snt_pmt_rows(
@@ -280,34 +370,46 @@ def point_mlp_train_bwd_cuda(x, weights, gammas, betas, eps, block_b, bf16,
                 None if dh is None else dh.data_ptr(), g.data_ptr(),
                 argmax.data_ptr(), p, block_b, n, rows.data_ptr(), grid,
                 stream)
-            check(err, KERNEL_BWD)
+            check(err, kernel)
             s = rows.sum(1)                               # [P, 2, C] f64
             dbetas[i], dgammas[i] = s[:, 0].sum(0).float(), \
                 s[:, 1].sum(0).float()
             gamma64 = gammas[i].double()
             r1 = (gamma64 * s[:, 0] / m).float().contiguous()
             r2 = (gamma64 * s[:, 1] / m).float().contiguous()
-            cin_pad = -(-cin // 4) * 4
-            wt = F.pad(w_op.t(), (0, cin_pad - cin)).contiguous()
-            grid = launch_grid(p * tiles, x.device, per_sm=2)
-            dw_part = torch.empty((grid, cin_pad, cout), dtype=torch.float64,
+            wt = F.pad(w_op.t(), (0, plan.cin_pad - cin)).contiguous()
+            dz = torch.empty((b * n, cout), dtype=torch.float32,
+                             device=x.device)
+            dh_prev = torch.empty((b * n, plan.cin_pad), dtype=torch.float32,
                                   device=x.device)
-            dh_prev = torch.empty((b * n, cin_pad), dtype=torch.float32,
-                                  device=x.device)
-            h_in = x.contiguous() if i == 0 else zs[i - 1]
-            err = lib.snt_pmt_bwd(
-                h_in.data_ptr(), cin, cin_pad, slabs[i],
-                None if i == 0 else bns[i - 1], int(bf16), zs[i].data_ptr(),
-                bns[i], rstd2.data_ptr(), cout,
+            err = lib.snt_pmt_bwd_dz(
+                zs[i].data_ptr(), bns[i], rstd2.data_ptr(), r1.data_ptr(),
+                r2.data_ptr(), cout, int(bf16),
                 None if dh is None else dh.data_ptr(), g.data_ptr(),
-                argmax.data_ptr(), p, block_b, n, r1.data_ptr(),
-                r2.data_ptr(), wt.data_ptr(), dw_part.data_ptr(),
-                dh_prev.data_ptr(), grid, stream)
-            check(err, KERNEL_BWD)
+                argmax.data_ptr(), wt.data_ptr(), plan.cin_pad,
+                dz.data_ptr(), dh_prev.data_ptr(), p, block_b, n, plan.dz_rp,
+                plan.dz_kc, int(plan.dz_stage), plan.dz_grid, stream)
+            check(err, kernel)
+            dw_part = torch.empty((plan.dw_splits, plan.cin_pad, cout),
+                                  dtype=torch.float64, device=x.device)
+            h_in = x.contiguous() if i == 0 else zs[i - 1]
+            err = lib.snt_pmt_bwd_dw(
+                h_in.data_ptr(), cin, plan.cin_pad,
+                None if i == 0 else bns[i - 1], int(bf16), dz.data_ptr(),
+                cout, dw_part.data_ptr(), p, block_b, n, plan.dw_splits,
+                plan.dw_ri, stream)
+            check(err, kernel)
             dws[i] = dw_part.sum(0)[:cin].float()
             dh = dh_prev
-    count_launch(KERNEL_BWD)
     return dh[:, :c0].reshape(b, n, c0), dws, dgammas, dbetas
+
+
+def point_mlp_train_bwd_cuda(x, weights, gammas, betas, eps, block_b, bf16,
+                             saved, g):
+    out = bwd_cuda(x, weights, gammas, betas, eps, block_b, bf16, saved, g,
+                   KERNEL_BWD)
+    count_launch(KERNEL_BWD)
+    return out
 
 
 # ------------------------------------------------------------ the Function

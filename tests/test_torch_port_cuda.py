@@ -208,9 +208,18 @@ def _exact_run(x, params, g, plain=False, dtype=torch.float32):
     return pooled.detach(), list(means) + list(vars_), grads
 
 
-@pytest.mark.parametrize("b,n", [(1, 1024), (3, 1000), (2, 65), (4, 1)])
-def test_point_mlp_exact_matches_plain(dev, b, n):
-    widths = (3, 64, 64, 64, 128, 128)
+@pytest.mark.parametrize("b,n,widths", [
+    (1, 1024, (3, 64, 64, 64, 128, 128)),
+    (3, 1000, (3, 64, 64, 64, 128, 128)),
+    (2, 65, (3, 64, 64, 64, 128, 128)),
+    (4, 1, (3, 64, 64, 64, 128, 128)),
+    # 625 tiles: pmt_bwd_dw's split-K runs are of unequal length
+    (40, 1000, (3, 64, 64, 64, 128, 128)),
+    # 64 -> 512: pmt_bwd_dz in 32-point tiles, 2 points a thread, op(W)^T
+    # in K chunks
+    (2, 300, (3, 64, 512)),
+])
+def test_point_mlp_exact_matches_plain(dev, b, n, widths):
     rng = np.random.default_rng(b * 1000 + n)
     x, params = _exact_args(rng, b, n, widths, dev)
     g = _randn(rng, b, widths[-1], dev=dev)
@@ -233,10 +242,14 @@ def test_point_mlp_exact_matches_plain(dev, b, n):
         assert ek <= max(2 * ep, 1e-5), (i, ek, ep)
 
 
-def test_point_mlp_exact_backward_is_deterministic(dev):
+@pytest.mark.parametrize("b,widths", [
+    (64, (3, 64, 128, 128)),
+    (1024, (3, 64, 64, 64, 128, 128)),     # the train step's shape
+])
+def test_point_mlp_exact_backward_is_deterministic(dev, b, widths):
     rng = np.random.default_rng(7)
-    x, params = _exact_args(rng, 64, 1024, (3, 64, 128, 128), dev)
-    g = _randn(rng, 64, 128, dev=dev)
+    x, params = _exact_args(rng, b, 1024, widths, dev)
+    g = _randn(rng, b, widths[-1], dev=dev)
     _, _, first = _exact_run(x, params, g)
     _, _, second = _exact_run(x, params, g)
     assert all(torch.equal(a, c) for a, c in zip(first, second))
@@ -429,8 +442,9 @@ def test_emd_refuses_what_it_does_not_take(dev):
 
 @pytest.mark.parametrize("b,n", [(3, 1000), (8, 2048)])
 def test_point_mlp_exact_at_the_reconstruction_widths(dev, b, n):
-    """3->64->128->128->256->128: pmt_bwd splits 128->256 and 256->128
-    into input-channel slabs. Held as the classification widths are, with
+    """3->64->128->128->256->128: pmt_bwd_dz holds op(W)^T of 128->256
+    and 256->128 in K chunks, and pmt_bwd_dw takes them whole (no
+    input-channel slabs). Held as the classification widths are, with
     a floor of 1e-4 of scale: at these point counts both f32 paths land
     about 1e-6 to 1e-4 of scale from f64, either one ahead per tensor."""
     widths = (3, 64, 128, 128, 256, 128)
@@ -605,6 +619,9 @@ def _ghost_check(x, params, g, bb, bf16, floor=1e-4):
     (3, 256, 1, False),
     (64, 128, 64, False),    # bb = 64: one block of every cloud
     (8, 1000, 4, True),      # N not a multiple of the 64-point tile
+    (8, 1000, 4, False),
+    (6, 512, 2, True),       # bb = 2
+    (6, 512, 2, False),
 ])
 def test_point_mlp_train_matches_plain(dev, b, n, bb, bf16):
     rng = np.random.default_rng(b * 1000 + n + bf16)
@@ -614,7 +631,7 @@ def test_point_mlp_train_matches_plain(dev, b, n, bb, bf16):
 
 def test_point_mlp_train_at_the_reconstruction_widths(dev):
     """The AE's 256-wide layers in bf16 at B=50, N=2048, where
-    auto_block_b gives bb = 1 (pmt_bwd in input-channel slabs)."""
+    auto_block_b gives bb = 1 (pmt_bwd_dz with op(W)^T in K chunks)."""
     from samplenet_tpu_torch.ops.cuda import auto_block_b
 
     widths = (3, 64, 128, 128, 256, 128)

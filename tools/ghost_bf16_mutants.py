@@ -26,22 +26,27 @@ import tempfile
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CU = "samplenet_tpu_torch/csrc/point_mlp_train.cu"
 PY = "samplenet_tpu_torch/ops/cuda/point_mlp_train_kernel.py"
-MUTANTS = {  # name -> (file, text, its replacement)
-    "rounds nothing": (
+MUTANTS = {  # name -> edits (file, text, its replacement), each text once
+    "rounds nothing": [(
         CU, "return bf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;",
-        "return v;"),
-    "activations unrounded": (CU, "      v = rnd(v, bf16);", "      v = v;"),
-    "dz unrounded": (
-        CU, "v = rnd(rstd2[k2] * (bn.gamma[o] * dy - r1[k2] - xh * r2[k2]), "
-            "bf16);",
-        "v = rstd2[k2] * (bn.gamma[o] * dy - r1[k2] - xh * r2[k2]);"),
-    "mask from unrounded xhat": (
-        CU, "*xh = rnd(ghost_xhat(bn, blk, c, c_out, z[gp * c_out + c]), "
-            "store);",
-        "*xh = ghost_xhat(bn, blk, c, c_out, z[gp * c_out + c]);"),
-    "h_prev from unrounded xhat": (
-        CU, "prev, has_prev, bf16,", "prev, has_prev, 0,"),
-    "rstd not recomputed": (PY, "if bf16 and i > 0:", "if False:"),
+        "return v;")],
+    "activations unrounded": [  # the forward's, and pmt_bwd_dw's h_prev
+        (CU, "      v = rnd(v, bf16);", "      v = v;"),
+        (CU, "          v = rnd(v, kBf16);", "          v = v;")],
+    "dz unrounded": [(
+        CU, "v[j] = rnd(rstd2 * (gamma * dy - r1 - xh * r2), kBf16);",
+        "v[j] = rstd2 * (gamma * dy - r1 - xh * r2);")],
+    "mask from unrounded xhat": [  # the rows pass's, and pmt_bwd_dz's
+        (CU, "*xh = rnd(ghost_xhat(bn, blk, c, c_out, z[gp * c_out + c]), "
+             "store);",
+         "*xh = ghost_xhat(bn, blk, c, c_out, z[gp * c_out + c]);"),
+        (CU, "const float xh = rnd(__fmul_rn(__fsub_rn(zv[j], mu), rstd), "
+             "kBf16);",
+         "const float xh = __fmul_rn(__fsub_rn(zv[j], mu), rstd);")],
+    "h_prev from unrounded xhat": [(
+        CU, "const float xh = rnd(__fmul_rn(__fsub_rn(v, mu), rstd), kBf16);",
+        "const float xh = __fmul_rn(__fsub_rn(v, mu), rstd);")],
+    "rstd not recomputed": [(PY, "if bf16 and i > 0:", "if False:")],
 }
 
 
@@ -98,17 +103,18 @@ def main() -> int:
         return 0
     run(HERE, "none")
     skip = shutil.ignore_patterns(".git", "build", "__pycache__")
-    for name, (path, text, new) in MUTANTS.items():
+    for name, edits in MUTANTS.items():
         with tempfile.TemporaryDirectory() as tmp:
             root = os.path.join(tmp, "checkout")
             shutil.copytree(HERE, root, ignore=skip)
-            with open(os.path.join(root, path)) as f:
-                src = f.read()
-            if src.count(text) != 1:
-                raise RuntimeError(f"{name}: the text to mutate is not in "
-                                   f"{path} exactly once")
-            with open(os.path.join(root, path), "w") as f:
-                f.write(src.replace(text, new))
+            for path, text, new in edits:
+                with open(os.path.join(root, path)) as f:
+                    src = f.read()
+                if src.count(text) != 1:
+                    raise RuntimeError(f"{name}: the text to mutate is not "
+                                       f"in {path} exactly once")
+                with open(os.path.join(root, path), "w") as f:
+                    f.write(src.replace(text, new))
             run(root, name)
     return 0
 
