@@ -17,11 +17,15 @@ for every prefix size: 1024 points, B=32, sizes 8..1024 against the
 frozen PointNet; 2048 points, B=50, sizes 16..2048 against the AE), and:
 
   1. prints the card (nvidia-smi name and power limit), nvcc and triton;
-  2. builds the CUDA kernels from csrc/ and prints the build time;
+  2. builds the CUDA kernels from csrc/, prints the build time and what
+     ptxas reports (registers, spills), and requires the SASS (cuobjdump)
+     of the forward MLP kernels, point_mlp_max and pmt_dense, to multiply
+     on the tensor cores (HMMA instructions);
   3. holds each kernel against its plain PyTorch version on the card, at
      the serving path's shapes and at a ragged shape: nn_direction and FPS
-     bit for bit, point_mlp_max within rtol = atol = 1e-4 (f32 sums taken
-     in another order);
+     bit for bit, point_mlp_max within rtol = atol = 1e-4 (split TF32 on the
+     tensor cores, sums in another order), with both against the plain
+     version in float64 printed beside;
   4. checks the eval forward of the kernel path against the plain path,
      then resets the launch counters, serves B=1024 clouds through
      BatchedSampler, and requires every kernel to have launched;
@@ -82,7 +86,8 @@ frozen PointNet; 2048 points, B=50, sizes 16..2048 against the AE), and:
      plain versions, per call with CUDA events and as device time with
      torch.profiler, and computes each kernel's bound from its inputs; the
      exact chain's backward at B=1024 and at the reconstruction widths
-     also as device time split by pass (BN rows, dz/dh_prev, dW, glue).
+     also as device time split by pass (forward: dense per layer, pool,
+     glue; backward: BN rows, dz/dh_prev, dW, glue).
 
 Tolerances of the train kernels against their plain versions: outputs and
 batch statistics rtol = atol = 1e-4 (point_mlp_exact) and 1e-5 with idx
@@ -224,10 +229,15 @@ PROG_PATH = ("nn_snap", "point_mlp_train_fwd", "point_mlp_train_bwd",
 # special-function rate: 16 exp2 / rsqrt / rcp results
 # per SM per clock on compute capability 9.0 (CUDA C++ Programming Guide,
 # arithmetic instruction throughput), 132 SMs at the 1.98 GHz boost clock
+# the kernels whose dense layers run on the tensor cores (mma_tile.cuh)
+TENSOR_CORE_KERNELS = ("point_mlp_max_kernel", "pmt_dense_kernel")
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12       # dense, on the tensor cores
 BF16_FLOP_PER_S = 989e12       # dense, on the tensor cores
 SFU_OP_PER_S = 16 * 132 * 1.98e9
+RATE_NAMES = {FP32_FLOP_PER_S: "FP32", TF32_FLOP_PER_S: "TF32",
+              BF16_FLOP_PER_S: "BF16", SFU_OP_PER_S: "SFU"}
 
 
 def log(phase: str, msg: str) -> None:
@@ -279,9 +289,37 @@ def phase_build() -> None:
                  f"(one nvcc {' '.join(_build.NVCC_FLAGS)} -c per source, "
                  f"all at once, then nvcc {' '.join(_build.LINK_FLAGS)})")
     for line in (path.parent / "build.log").read_text().splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if any(k in line for k in ("registers", "Compiling entry", "spill")):
             log("build", line.strip())
+    hmma = _hmma_counts(_build.find_nvcc(), path)
+    for key in TENSOR_CORE_KERNELS:
+        mine = {name: c for name, c in hmma.items() if key in name}
+        log("build", f"{key}: HMMA instructions in the SASS per "
+                     f"instantiation {mine}")
+        # every instantiation but the SIMT path of pmt_dense (kNT = 0, a
+        # layer of fewer than 8 input channels) multiplies on the tensor
+        # cores
+        if not mine or any(c == 0 for name, c in mine.items()
+                           if "Li0E" not in name):
+            raise AssertionError(f"{key}: an instantiation without HMMA "
+                                 f"instructions: {mine}")
     _build.library()
+
+
+def _hmma_counts(nvcc: str, lib_path) -> dict[str, int]:
+    """HMMA (tensor-core) instructions per kernel in the built library's
+    SASS, by cuobjdump from the toolkit of nvcc."""
+    tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                         text=True, check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            counts[name] = 0
+        elif name is not None and "HMMA" in line:
+            counts[name] += 1
+    return counts
 
 
 def _mlp_weights(torch, rng, device, widths=WIDTHS):
@@ -347,12 +385,23 @@ def phase_compare(torch) -> dict[str, float]:
         err = float((pk - pp).abs().max())
         log("compare", f"point_mlp_max {label} x{tuple(y.shape)} widths "
                        f"{WIDTHS}: max |kernel - plain| {err!r} "
-                       f"(rtol = atol = 1e-4)")
+                       f"(rtol = atol = 1e-4); {_f64_reading(torch, y, wbs, pk, pp)}")
         if label == "main":
             errs = {"nn_direction": float((dk - dp).abs().max()),
                     "fps": float((xk - xp).abs().max()),
                     "point_mlp_max": err}
     return errs
+
+
+def _f64_reading(torch, x, wbs, k, p) -> str:
+    """point_mlp_max's kernel and plain f32 outputs against the plain
+    version in float64, each as its largest entry's error relative to the
+    largest output."""
+    from samplenet_tpu_torch.ops.cuda import point_mlp_max_plain
+
+    r = point_mlp_max_plain(x.double(), tuple(t.double() for t in wbs))
+    return (f"against f64: kernel {_rel_err(k, r)!r}, plain f32 "
+            f"{_rel_err(p, r)!r} of scale")
 
 
 def make_model(torch, device):
@@ -593,22 +642,25 @@ def _profile_top(torch, fn, iters: int, top: int = 8) -> str:
               f"({rest / total:.1%})")
 
 
+# (label, kernel name key) of each pass; the first runs once per layer
 BWD_PASSES = (("rows", "pmt_rows"), ("dz/dh_prev", "pmt_bwd_dz"),
               ("dW", "pmt_bwd_dw"), ("one-pass bwd", "pmt_bwd_kernel"),
               ("dense (rstd recompute)", "pmt_dense"))
+FWD_PASSES = (("dense", "pmt_dense"), ("pool", "pmt_pool"))
 
 
-def _split_line(kernels, iters: int, layers: int) -> tuple[str, bool]:
-    """The `_bwd_split` line from (kernel name, ms) in launch order over
+def _split_line(kernels, iters: int, layers: int,
+                passes=BWD_PASSES) -> tuple[str, bool]:
+    """The `_pass_split` line from (kernel name, ms) in launch order over
     `iters` calls of a chain of `layers` layers, and whether the trace is
-    whole: one BN-rows launch per layer and call, and every pass's
-    launches split evenly over the calls (else the profiler dropped some,
-    and no per-launch times are given)."""
+    whole: one launch of the first pass per layer and call, and every
+    pass's launches split evenly over the calls (else the profiler dropped
+    some, and no per-launch times are given)."""
     total = sum(ms for _, ms in kernels) / iters
     parts, glue = [], list(kernels)
-    even = sum(BWD_PASSES[0][1] in name for name, _ in kernels) \
+    even = sum(passes[0][1] in name for name, _ in kernels) \
         == layers * iters
-    for label, key in BWD_PASSES:
+    for label, key in passes:
         mine = [ms for name, ms in kernels if key in name]
         glue = [(name, ms) for name, ms in glue if key not in name]
         if not mine:
@@ -628,13 +680,15 @@ def _split_line(kernels, iters: int, layers: int) -> tuple[str, bool]:
     return f"{total!r} ms device per call: " + "; ".join(parts), even
 
 
-def _bwd_split(torch, fn, iters: int, layers: int) -> str:
-    """Device time per call of a train chain's backward under
-    torch.profiler, split by pass (`BWD_PASSES`, each with its launches
-    in order, the top layer first) and the torch glue (every other
-    kernel: row sums, casts, padding, the dW partials' reduction). The
-    profiler now and then drops launches (a whole call's, at times): up
-    to three tries for a whole trace of the `layers`-layer chain."""
+def _pass_split(torch, fn, iters: int, layers: int,
+                passes=BWD_PASSES) -> str:
+    """Device time per call of a train chain's pass under torch.profiler,
+    split by kernel (`passes`, each with its launches in order: the top
+    layer first in the backward, `BWD_PASSES`, layer 0 first in the
+    forward, `FWD_PASSES`) and the torch glue (every other kernel: row
+    sums, the statistics, casts, padding, the dW partials' reduction).
+    The profiler now and then drops launches (a whole call's, at times):
+    up to three tries for a whole trace of the `layers`-layer chain."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -652,7 +706,7 @@ def _bwd_split(torch, fn, iters: int, layers: int) -> str:
             key=lambda e: e.time_range.start)]
         if not kernels:
             continue
-        line, even = _split_line(kernels, iters, layers)
+        line, even = _split_line(kernels, iters, layers, passes)
         if even:
             return line
     if not kernels:
@@ -838,8 +892,10 @@ def phase_compare_train(torch) -> dict[str, float]:
                            f"dense-bias gradients 0; backward bit-equal "
                            f"across two runs")
             continue
-        _, _, gr = _exact_call(torch, x, groups, g, plain=True,
-                               dtype=torch.float64)
+        pr, sr, gr = _exact_call(torch, x, groups, g, plain=True,
+                                 dtype=torch.float64)
+        fwd_k = max(_rel_err(a, r) for a, r in zip([pk, *sk], [pr, *sr]))
+        fwd_p = max(_rel_err(a, r) for a, r in zip([pp, *sp], [pr, *sr]))
         worst = (0.0, 0.0)
         for i in graded:
             ek, ep = _no_worse_than_plain(f"point_mlp_exact grad {i}",
@@ -848,7 +904,9 @@ def phase_compare_train(torch) -> dict[str, float]:
         log("compare", f"point_mlp_exact main x{tuple(x.shape)} widths "
                        f"{WIDTHS}: pooled max |k - p| "
                        f"{float((pk - pp).abs().max())!r}, stats within "
-                       f"1e-4; gradients against the f64 plain version: "
+                       f"1e-4; pooled and stats against f64: kernel "
+                       f"{fwd_k!r}, plain f32 {fwd_p!r} of scale; "
+                       f"gradients against the f64 plain version: "
                        f"worst kernel error {worst[0]!r} of scale (plain "
                        f"f32 {worst[1]!r}); elements outside rtol 1e-3 / "
                        f"atol 1e-5: kernel vs plain "
@@ -1071,8 +1129,12 @@ def phase_times_train(torch, data, labels, classifier, card
                      f"ms per call, {k_dev!r} ms device; plain "
                      f"{times[name][1]!r} ms per call, {p_dev!r} ms device "
                      f"({card})")
-    split = _bwd_split(torch, cases["point_mlp_exact_bwd"][0], 5,
-                       len(WIDTHS) - 1)
+    split = _pass_split(torch, cases["point_mlp_exact_fwd"][0], 5,
+                        len(WIDTHS) - 1, FWD_PASSES)
+    log("profile", f"point_mlp_exact_fwd at B={B}, N={N}, widths {WIDTHS}: "
+                   f"{split} ({card})")
+    split = _pass_split(torch, cases["point_mlp_exact_bwd"][0], 5,
+                        len(WIDTHS) - 1)
     log("profile", f"point_mlp_exact_bwd at B={B}, N={N}, widths {WIDTHS}: "
                    f"{split} ({card})")
     del saved_k, saved_p
@@ -1173,8 +1235,10 @@ def phase_compare_recon(torch) -> dict[str, float]:
     nl = len(RECON_WIDTHS) - 1
     pk, sk, gk = _exact_call(torch, x, groups, g)
     pp, sp, gp = _exact_call(torch, x, groups, g, plain=True)
-    _, _, gr = _exact_call(torch, x, groups, g, plain=True,
-                           dtype=torch.float64)
+    pr, sr, gr = _exact_call(torch, x, groups, g, plain=True,
+                             dtype=torch.float64)
+    fwd_k = max(_rel_err(a, r) for a, r in zip([pk, *sk], [pr, *sr]))
+    fwd_p = max(_rel_err(a, r) for a, r in zip([pp, *sp], [pr, *sr]))
     torch.testing.assert_close(pk, pp, rtol=1e-4, atol=1e-4)
     for a, c in zip(sk, sp):
         torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-4)
@@ -1196,10 +1260,12 @@ def phase_compare_recon(torch) -> dict[str, float]:
     log("compare", f"point_mlp_exact x{tuple(x.shape)} widths {RECON_WIDTHS}"
                    f" (128->256, 256->128 whole): pooled max |k - p| "
                    f"{float((pk - pp).abs().max())!r}, stats within 1e-4; "
+                   f"pooled and stats against f64: kernel {fwd_k!r}, plain "
+                   f"f32 {fwd_p!r} of scale; "
                    f"gradients against the f64 plain version: worst kernel "
                    f"error {worst[0]!r} of scale (plain f32 {worst[1]!r}); "
                    f"dense-bias gradients 0; backward bit-equal")
-    del x, groups, g, pk, pp, gk, gp, gr, gk2
+    del x, groups, g, pk, pp, pr, gk, gp, gr, gk2
     torch.cuda.empty_cache()
     _compare_recon_shapes(torch, rng)
     return errs
@@ -1228,7 +1294,7 @@ def _compare_recon_shapes(torch, rng) -> None:
     log("compare", f"point_mlp_max x{tuple(pts.shape)} widths {RECON_WIDTHS}"
                    f" (the AE encoder and the sampler at eval): max |kernel "
                    f"- plain| {float((pk - pp).abs().max())!r} (rtol = atol "
-                   f"= 1e-4)")
+                   f"= 1e-4); {_f64_reading(torch, pts, wbs, pk, pp)}")
     ik, xk = fps(pts, given, count, m)
     ip, xp = fps_plain(pts, given, count, m)
     torch.cuda.synchronize()
@@ -1501,8 +1567,12 @@ def phase_times_recon(torch, x, card) -> dict[str, tuple]:
         parts.append(f"{name}: kernel {k!r} ms per call, {k_dev!r} ms "
                      f"device; plain {p!r} ms, {p_dev!r} ms device; bound "
                      f"{bound[0]!r} ms ({bound[1]})")
-    split = _bwd_split(torch, cases["point_mlp_exact_bwd (recon widths)"][0],
-                       5, len(RECON_WIDTHS) - 1)
+    split = _pass_split(torch, cases["point_mlp_exact_fwd (recon widths)"][0],
+                        5, len(RECON_WIDTHS) - 1, FWD_PASSES)
+    log("profile", f"point_mlp_exact_fwd at B={RECON_B}, N={RECON_N}, widths "
+                   f"{RECON_WIDTHS}: {split} ({card})")
+    split = _pass_split(torch, cases["point_mlp_exact_bwd (recon widths)"][0],
+                        5, len(RECON_WIDTHS) - 1)
     log("profile", f"point_mlp_exact_bwd at B={RECON_B}, N={RECON_N}, widths "
                    f"{RECON_WIDTHS}: {split} ({card})")
     del saved_k, saved_p
@@ -2006,7 +2076,8 @@ def phase_progressive_cli(torch, classifier) -> None:
 def _ghost_bounds(b: int, n: int, widths, bf16: bool) -> tuple[tuple, tuple]:
     """Bounds of the ghost chain's forward and backward: `_exact_bounds`'s
     bytes, the multiply-adds (2 FLOP forward; 4 backward, dW and dh) at the
-    BF16 tensor-core peak in bf16 and at FP32 in f32, and BN, ReLU and the
+    BF16 tensor-core peak in bf16, and in f32 forward as three TF32
+    products each on the tensor cores, backward on FP32; BN, ReLU and the
     statistics per channel at FP32."""
     pairs = list(zip(widths[:-1], widths[1:]))
     macs = sum(a * c for a, c in pairs)
@@ -2014,9 +2085,10 @@ def _ghost_bounds(b: int, n: int, widths, bf16: bool) -> tuple[tuple, tuple]:
     chans = sum(widths[1:])
     p, f = b * n, 4
     rate = BF16_FLOP_PER_S if bf16 else FP32_FLOP_PER_S
+    fwd = (p * 2.0 * macs, BF16_FLOP_PER_S) if bf16 \
+        else (p * 3 * 2.0 * macs, TF32_FLOP_PER_S)
     return (_bound(f * (p * widths[0] + params + b * widths[-1] + 2 * chans),
-                   (p * 2.0 * macs, rate),
-                   (p * 7.0 * chans, FP32_FLOP_PER_S)),
+                   fwd, (p * 7.0 * chans, FP32_FLOP_PER_S)),
             _bound(f * (2 * p * widths[0] + 2 * params + b * widths[-1]),
                    (p * 4.0 * macs, rate),
                    (p * 12.0 * chans, FP32_FLOP_PER_S)))
@@ -2135,26 +2207,30 @@ def phase_times_progressive(torch, x, y, recon_x, classifier, card
 
 def _bound(nbytes: float, *ops: tuple[float, float]) -> tuple[float, str]:
     """(least ms, what bounds it): the larger of the bytes over the memory
-    rate and each type's operations over that type's peak rate."""
+    rate and each type's operations over that type's peak rate; an
+    operations bound names its type, as "operations (TF32)"."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = max(count / rate for count, rate in ops)
+    t_ops, rate = max((count / rate, rate) for count, rate in ops)
     return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+            "bytes" if t_bytes >= t_ops
+            else f"operations ({RATE_NAMES[rate]})")
 
 
 def _exact_bounds(b: int, n: int, widths) -> tuple[tuple, tuple]:
     """Bounds of the exact-BN chain's forward and backward over B*N points:
-    2 (forward) or 4 (backward: dW and dh) FLOP per multiply-add, and BN,
-    ReLU and statistics per channel; x and the parameters in, the pooled
-    features and statistics (forward) or dx and the parameters' gradients
-    (backward) out."""
+    the forward's multiply-adds as three TF32 products each (3xTF32, 2 FLOP
+    a product) on the tensor cores, the backward's (dW and dh) at 4 FLOP on
+    FP32, and BN, ReLU and statistics per channel on FP32; x and the
+    parameters in, the pooled features and statistics (forward) or dx and
+    the parameters' gradients (backward) out."""
     pairs = list(zip(widths[:-1], widths[1:]))
     macs = sum(a * c for a, c in pairs)
     params = sum(a * c + 4 * c for a, c in pairs)
     chans = sum(widths[1:])
     p, f = b * n, 4
     return (_bound(f * (p * widths[0] + params + b * widths[-1] + 2 * chans),
-                   (p * (2.0 * macs + 7 * chans), FP32_FLOP_PER_S)),
+                   (p * 3 * 2.0 * macs, TF32_FLOP_PER_S),
+                   (p * 7.0 * chans, FP32_FLOP_PER_S)),
             _bound(f * (2 * p * widths[0] + 2 * params + b * widths[-1]),
                    (p * (4.0 * macs + 12 * chans), FP32_FLOP_PER_S)))
 
@@ -2180,8 +2256,9 @@ def kernel_bounds() -> dict[str, tuple[float, str]]:
     """Each kernel's bound at the shapes its times are taken at: each
     input read once, each output written once, and the operations the
     algorithm needs on these inputs (FP32 on the SIMT pipes; the EMD's
-    exp and rsqrt on the special-function units; the ghost chain's
-    multiply-adds, bf16 by default, on the tensor cores)."""
+    exp and rsqrt on the special-function units; on the tensor cores the
+    forward MLPs' multiply-adds, as three TF32 products each where they
+    are held to f32, and the ghost chain's, bf16 by default)."""
     f = 4                                          # bytes of f32 and i32
     exact_fwd, exact_bwd = _exact_bounds(B, N, WIDTHS)
     ghost_fwd, ghost_bwd = _ghost_bounds(PROG_B, PROG_N, WIDTHS, True)
@@ -2197,7 +2274,8 @@ def kernel_bounds() -> dict[str, tuple[float, str]]:
                       (10.0 * B * M * N, FP32_FLOP_PER_S)),
         "point_mlp_max": _bound(
             f * (B * N * 3 + params + B * WIDTHS[-1]),
-            (B * N * (2.0 * macs + 3 * sum(WIDTHS[1:])), FP32_FLOP_PER_S)),
+            (B * N * 3 * 2.0 * macs, TF32_FLOP_PER_S),
+            (B * N * 3.0 * sum(WIDTHS[1:]), FP32_FLOP_PER_S)),
         "point_mlp_exact_fwd": exact_fwd,
         "point_mlp_exact_bwd": exact_bwd,
         "soft_projection_fwd": _bound(
@@ -2287,7 +2365,8 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[name], "max_abs_err": errs[name],
          "ms": times[name][0], "plain_ms": times[name][1],
-         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+         "bound_ms": bounds[name][0],
+         "bound_by": bounds[name][1].split(" ")[0],
          "library_ms": None}
         for name, (src, rep) in {**KERNELS, **TRAIN_KERNELS,
                                  **RECON_KERNELS, **PROG_KERNELS}.items()]}

@@ -9,33 +9,42 @@
 //
 // What bounds it on the H100: at the serving path's shape (B=1024 clouds of
 // N=1024 points, widths 3->64->64->64->128->128) each point costs 32,960
-// multiply-adds, 69 GFLOP a batch, against 12.6 MB of input. With f32
-// operands that is the FP32 SIMT pipes (67 TFLOP/s published): about 1 ms
-// at peak. The plain version instead writes and reads every [B*N, C]
-// activation through HBM (about 3.6 GB a batch).
+// multiply-adds, 69 GFLOP a batch, against 12.6 MB of input: the multiply-
+// adds bound it. On the FP32 SIMT pipes (67 TFLOP/s) that is 1 ms; held to
+// f32 on the tensor cores as 3xTF32 (three TF32 products per multiply-add,
+// 495 TFLOP/s), 0.42 ms. mma.sync reaches 316 of those TFLOP/s on the card
+// (tools/mma_peak.py), and the tile takes four products, so its own
+// ceiling is 0.87 ms. The plain version instead writes and reads every
+// [B*N, C] activation through HBM (about 3.6 GB a batch).
 //
-// Design: one block per cloud walks the cloud in tiles of kTileP points.
-// The tile's activations stay in shared memory, channel-major with a row
-// stride of kStride floats, ping-ponging between two buffers, so no
-// activation ever reaches HBM. Each thread computes a 4-point x 4-channel
-// register tile: one float4 of activations (a shared-memory broadcast) and
-// one float4 of weights (read through the read-only cache, where the
-// 133 KB of folded weights stay resident) feed 16 FMAs. kStride = kTileP+4
-// is 4 times an odd number, so the float4 stores of a warp hit distinct
-// banks. The last layer does not store: each thread reduces its 4 points,
-// masking the ragged tail, into a per-block max by atomicMax on the int bit
-// pattern, which orders non-negative floats as floats (post-ReLU values are
-// >= 0) and is exact and deterministic. Dynamic shared memory is
-// 2 * C_max * kStride floats (70 KB here), above the 48 KB static limit.
-// bf16 operands and wgmma are later work.
+// Design: one block per cloud walks the cloud in 64-point tiles. A tile's
+// activations stay in shared memory (mma_tile.cuh's swizzled layout),
+// ping-ponging between two buffers sized for the layers each holds, so no
+// activation reaches HBM and the classification widths take 48 KB a block
+// (the reconstruction widths 96 KB: two blocks an SM). Each layer with 8 or
+// more input channels runs on the tensor cores, its f32 operands split in
+// two TF32 parts each (mma_tile.cuh): the 8 warps take output chunks of 64
+// points x 32, 64 or 128 channels, the accumulators start at the bias, and
+// W's B fragments come through the read-only cache, each serving the
+// warp's two 16-point row tiles; a first
+// layer of fewer than 8 channels (x, 3 channels: 0.6% of the multiply-adds)
+// runs on FP32 FMAs, 4 points x 4 channels a thread. The epilogue applies
+// ReLU and writes the next layer's rows (zeros in the channels padded to
+// the K step), or, in the last layer, takes the max: over the thread's
+// points (the ragged tail masked), across the warp's rows by shuffles, and
+// into a per-block max by atomicMax on the int bit pattern, which orders
+// non-negative floats as floats (post-ReLU values are >= 0) and is exact
+// and deterministic. bf16 operands and wgmma are later work.
 
 #include <cuda_runtime.h>
 
+#include "mma_tile.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTileP = 64;
-constexpr int kStride = kTileP + 4;
+using mma::aidx;
+constexpr int kThreads = mma::kThreads;
+constexpr int kTileP = mma::kTileP;
 constexpr int kMaxLayers = 8;
 
 struct MLPArgs {
@@ -43,89 +52,174 @@ struct MLPArgs {
   const float* b[kMaxLayers];  // [c_{l+1}]
   int c[kMaxLayers + 1];
   int layers;
-  int c_max;
+  int rows0;  // rows of buffer 0 (the inputs of layers 0, 2, ...)
 };
 
-__global__ void __launch_bounds__(kThreads)
+// A layer of fewer than 8 input channels on the FP32 pipes.
+__device__ void simt_layer(const uint32_t* hin, uint32_t* hout, int ci, int co,
+                           const float* __restrict__ w,
+                           const float* __restrict__ bias, bool last, int np,
+                           int* smax) {
+  const float* hf = reinterpret_cast<const float*>(hin);
+  float* of = reinterpret_cast<float*>(hout);
+  const int oq = co / 4;
+  for (int t = threadIdx.x; t < (kTileP / 4) * oq; t += kThreads) {
+    const int o0 = (t % oq) * 4;
+    const int pp = (t / oq) * 4;
+    const float4 bv = __ldg(reinterpret_cast<const float4*>(bias + o0));
+    float acc[4][4];
+#pragma unroll
+    for (int pi = 0; pi < 4; ++pi) {
+      acc[pi][0] = bv.x;
+      acc[pi][1] = bv.y;
+      acc[pi][2] = bv.z;
+      acc[pi][3] = bv.w;
+    }
+    for (int i = 0; i < ci; ++i) {
+      const float4 a = *reinterpret_cast<const float4*>(hf + aidx(i, pp));
+      const float4 wv = __ldg(
+          reinterpret_cast<const float4*>(w + static_cast<size_t>(i) * co + o0));
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float wr[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+      for (int pi = 0; pi < 4; ++pi) {
+#pragma unroll
+        for (int oj = 0; oj < 4; ++oj) acc[pi][oj] += av[pi] * wr[oj];
+      }
+    }
+#pragma unroll
+    for (int oj = 0; oj < 4; ++oj) {
+      if (!last) {
+        *reinterpret_cast<float4*>(of + aidx(o0 + oj, pp)) =
+            make_float4(fmaxf(acc[0][oj], 0.0f), fmaxf(acc[1][oj], 0.0f),
+                        fmaxf(acc[2][oj], 0.0f), fmaxf(acc[3][oj], 0.0f));
+      } else {
+        float m = 0.0f;
+#pragma unroll
+        for (int pi = 0; pi < 4; ++pi) {
+          if (pp + pi < np) m = fmaxf(m, acc[pi][oj]);
+        }
+        atomicMax(&smax[o0 + oj], __float_as_int(m));
+      }
+    }
+  }
+  if (!last) {  // zero the rows padded to the next layer's K step
+    const int pad = mma::tile_rows(co, false, true) - co;
+    for (int e = threadIdx.x; e < pad * kTileP; e += kThreads) {
+      hout[aidx(co + e / kTileP, e % kTileP)] = 0u;
+    }
+  }
+}
+
+// A layer of 8 or more input channels on the tensor cores, in output
+// chunks of 32 * kNT channels.
+template <int kNT>
+__device__ void mma_layer(const uint32_t* hin, uint32_t* hout, int ci, int co,
+                          const float* __restrict__ w,
+                          const float* __restrict__ bias, bool last, int np,
+                          int* smax) {
+  const int co_pad = mma::tile_rows(co, false, true);
+  for (int n0 = 0; n0 < co; n0 += 32 * kNT) {
+    const mma::Frag f(n0, kNT);
+    float acc[2][kNT][4];
+#pragma unroll
+    for (int ni = 0; ni < kNT; ++ni) {
+      const int c = f.n + 8 * ni;  // even, and co is a multiple of 4
+      const float b0 = c < co ? __ldg(bias + c) : 0.0f;
+      const float b1 = c < co ? __ldg(bias + c + 1) : 0.0f;
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        acc[mi][ni][0] = acc[mi][ni][2] = b0;
+        acc[mi][ni][1] = acc[mi][ni][3] = b1;
+      }
+    }
+    mma::tile_product<kNT, false>(acc, hin, w, ci, co, n0);
+#pragma unroll
+    for (int ni = 0; ni < kNT; ++ni) {
+      const int c = f.n + 8 * ni;
+      if (!last) {
+        if (c < co_pad) {
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int p = f.m0 + 16 * mi + f.g + 8 * (e >> 1);
+              hout[aidx(c + (e & 1), p)] = __float_as_uint(fmaxf(acc[mi][ni][e], 0.0f));
+            }
+          }
+        }
+        continue;
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {  // channel c + j: max over the warp's rows
+        float m = 0.0f;
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int p = f.m0 + 16 * mi + f.g + 8 * h;
+            if (p < np) m = fmaxf(m, acc[mi][ni][2 * h + j]);
+          }
+        }
+#pragma unroll
+        for (int off = 4; off < 32; off *= 2) {
+          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+        }
+        if (f.g == 0 && c + j < co) atomicMax(&smax[c + j], __float_as_int(m));
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
 point_mlp_max_kernel(const float* __restrict__ x,  // [B, n, c_0]
                      float* __restrict__ out,      // [B, c_L]
                      int n, MLPArgs args) {
   extern __shared__ float4 smem4[];
-  float* buf0 = reinterpret_cast<float*>(smem4);
-  float* buf1 = buf0 + args.c_max * kStride;
-  int* smax = reinterpret_cast<int*>(buf1 + args.c_max * kStride);
-
-  const int b = blockIdx.x;
+  uint32_t* buf0 = reinterpret_cast<uint32_t*>(smem4);
+  uint32_t* buf1 = buf0 + args.rows0 * kTileP;
   const int cin = args.c[0];
   const int cout_last = args.c[args.layers];
+  int rows1 = 0;
+  for (int l = 1; l < args.layers; l += 2) {
+    rows1 = max(rows1, mma::tile_rows(args.c[l], false, true));
+  }
+  int* smax = reinterpret_cast<int*>(buf1 + rows1 * kTileP);
+  const int b = blockIdx.x;
   for (int o = threadIdx.x; o < cout_last; o += kThreads) smax[o] = 0;
   const float* xb = x + static_cast<size_t>(b) * n * cin;
+  const int cin_rows = mma::tile_rows(cin, false, cin >= 8);
 
   for (int p0 = 0; p0 < n; p0 += kTileP) {
     const int np = min(kTileP, n - p0);
     __syncthreads();  // the previous tile no longer reads buf0
-    for (int e = threadIdx.x; e < kTileP * cin; e += kThreads) {
-      const int p = e / cin, c = e % cin;
-      buf0[c * kStride + p] =
-          p < np ? xb[static_cast<size_t>(p0 + p) * cin + c] : 0.0f;
+    for (int e = threadIdx.x; e < kTileP * cin_rows; e += kThreads) {
+      const int p = e % kTileP, c = e / kTileP;  // a warp: 32 points, one channel
+      buf0[aidx(c, p)] = __float_as_uint(
+          p < np && c < cin ? xb[static_cast<size_t>(p0 + p) * cin + c] : 0.0f);
     }
     __syncthreads();
-    float* hin = buf0;
-    float* hout = buf1;
+    uint32_t* hin = buf0;
+    uint32_t* hout = buf1;
     for (int l = 0; l < args.layers; ++l) {
       const int ci = args.c[l], co = args.c[l + 1];
-      const float* __restrict__ w = args.w[l];
       const bool last = l == args.layers - 1;
-      const int oq = co / 4;
-      for (int t = threadIdx.x; t < (kTileP / 4) * oq; t += kThreads) {
-        const int o0 = (t % oq) * 4;
-        const int pp = (t / oq) * 4;
-        const float4 bias = __ldg(reinterpret_cast<const float4*>(args.b[l] + o0));
-        float acc[4][4];
-#pragma unroll
-        for (int pi = 0; pi < 4; ++pi) {
-          acc[pi][0] = bias.x;
-          acc[pi][1] = bias.y;
-          acc[pi][2] = bias.z;
-          acc[pi][3] = bias.w;
-        }
-        for (int i = 0; i < ci; ++i) {
-          const float4 a = *reinterpret_cast<const float4*>(hin + i * kStride + pp);
-          const float4 wv = __ldg(
-              reinterpret_cast<const float4*>(w + static_cast<size_t>(i) * co + o0));
-          const float av[4] = {a.x, a.y, a.z, a.w};
-          const float wr[4] = {wv.x, wv.y, wv.z, wv.w};
-#pragma unroll
-          for (int pi = 0; pi < 4; ++pi) {
-#pragma unroll
-            for (int oj = 0; oj < 4; ++oj) acc[pi][oj] += av[pi] * wr[oj];
-          }
-        }
-#pragma unroll
-        for (int pi = 0; pi < 4; ++pi) {
-#pragma unroll
-          for (int oj = 0; oj < 4; ++oj) acc[pi][oj] = fmaxf(acc[pi][oj], 0.0f);
-        }
-        if (!last) {
-#pragma unroll
-          for (int oj = 0; oj < 4; ++oj) {
-            *reinterpret_cast<float4*>(hout + (o0 + oj) * kStride + pp) =
-                make_float4(acc[0][oj], acc[1][oj], acc[2][oj], acc[3][oj]);
-          }
-        } else {
-#pragma unroll
-          for (int oj = 0; oj < 4; ++oj) {
-            float m = 0.0f;
-#pragma unroll
-            for (int pi = 0; pi < 4; ++pi) {
-              if (pp + pi < np) m = fmaxf(m, acc[pi][oj]);
-            }
-            atomicMax(&smax[o0 + oj], __float_as_int(m));
-          }
+      if (ci < 8) {
+        simt_layer(hin, hout, ci, co, args.w[l], args.b[l], last, np, smax);
+      } else {
+        switch (mma::chunk_nt(co)) {
+          case 4:
+            mma_layer<4>(hin, hout, ci, co, args.w[l], args.b[l], last, np, smax);
+            break;
+          case 2:
+            mma_layer<2>(hin, hout, ci, co, args.w[l], args.b[l], last, np, smax);
+            break;
+          default:
+            mma_layer<1>(hin, hout, ci, co, args.w[l], args.b[l], last, np, smax);
         }
       }
       __syncthreads();
-      float* const done = hin;
+      uint32_t* const done = hin;
       hin = hout;
       hout = done;
     }
@@ -136,12 +230,27 @@ point_mlp_max_kernel(const float* __restrict__ x,  // [B, n, c_0]
   }
 }
 
+// Rows of each activation buffer: buffer 0 holds x and the outputs of
+// layers 1, 3, ..., buffer 1 those of layers 0, 2, ... (the last layer's
+// output is not stored), each rounded up to the K step.
+void buffer_rows(const int* widths, int layers, int* rows0, int* rows1) {
+  *rows0 = mma::tile_rows(widths[0], false, widths[0] >= 8);
+  *rows1 = 0;
+  for (int l = 1; l < layers; ++l) {
+    int* r = l % 2 ? rows1 : rows0;
+    const int need = mma::tile_rows(widths[l], false, true);
+    *r = need > *r ? need : *r;
+  }
+}
+
 }  // namespace
 
+// Shared memory of a block (ops/cuda/point_mlp_plan.py counts the same):
+// the two activation buffers of 64 words a row, and the per-channel max.
 extern "C" size_t snt_point_mlp_max_smem(const int* widths, int layers) {
-  int c_max = 0;
-  for (int l = 0; l <= layers; ++l) c_max = widths[l] > c_max ? widths[l] : c_max;
-  return (2 * static_cast<size_t>(c_max) * kStride) * sizeof(float) +
+  int rows0, rows1;
+  buffer_rows(widths, layers, &rows0, &rows1);
+  return static_cast<size_t>(rows0 + rows1) * kTileP * sizeof(float) +
          static_cast<size_t>(widths[layers]) * sizeof(int);
 }
 
@@ -155,11 +264,7 @@ extern "C" int snt_point_mlp_max(const float* x, const float* params,
   }
   MLPArgs args;
   size_t off = 0;
-  args.c_max = 0;
-  for (int l = 0; l <= layers; ++l) {
-    args.c[l] = widths[l];
-    args.c_max = widths[l] > args.c_max ? widths[l] : args.c_max;
-  }
+  for (int l = 0; l <= layers; ++l) args.c[l] = widths[l];
   for (int l = 0; l < layers; ++l) {
     args.w[l] = params + off;
     off += static_cast<size_t>(widths[l]) * widths[l + 1];
@@ -167,6 +272,8 @@ extern "C" int snt_point_mlp_max(const float* x, const float* params,
     off += widths[l + 1];
   }
   args.layers = layers;
+  int rows1;
+  buffer_rows(widths, layers, &args.rows0, &rows1);
   const size_t smem = snt_point_mlp_max_smem(widths, layers);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(

@@ -36,12 +36,24 @@
 //
 //   pmt_dense   grid (G, P): block (g, p) takes tiles g, g+G, ... of ghost
 //               block p (64 points each, none crossing a ghost block),
-//               z = act(in) W over the tile in shared memory, act being
-//               the previous layer's ghost BN + ReLU applied on load (with
-//               the stored xhat in the backward's recompute), rounded to
-//               bf16 when on; it writes z (unless null: the backward's
-//               recompute of rstd needs only the sums) and per block one
-//               f64 row of sum z and sum z^2 over its tiles, in tile order.
+//               z = act(in) op(W) over the tile in shared memory, act being
+//               the previous layer's ghost BN + ReLU applied on load from
+//               the block's constants in shared memory (with the stored
+//               xhat in the backward's recompute). Layers of 8 or more
+//               input channels multiply on the tensor cores (mma_tile.cuh):
+//               f32 split in two TF32 parts, bf16 on bf16 mma in channel
+//               order, the loader's conversion to bf16 being the operand's
+//               rounding; W's B fragments come
+//               through the read-only cache, so shared memory holds only
+//               the tile and every width runs two or more blocks an SM.
+//               A first layer of fewer than 8 channels runs on FP32 FMAs
+//               (rnd() rounds its operands in bf16). z goes to HBM from the
+//               accumulators (unless null: the backward's recompute of rstd
+//               needs only the sums), and the epilogue sums each channel's
+//               z and z^2 over a warp's 32 points (shuffles in a fixed
+//               order), the tile's groups in f32 in order, and the tiles in
+//               f64 in tile order: one f64 row of sum z and sum z^2 per
+//               block.
 //   pmt_pool    per cloud and channel, max over points of h_L and the first
 //               point that attains it (a NaN wins, as in torch.argmax).
 //   pmt_rows    grid (G, P): per ghost block, sum dy and sum dy*xhat_stored
@@ -89,23 +101,29 @@
 //
 // What bounds it on the H100: widths 3->64->64->64->128->128 are 32,960
 // multiply-adds per point. For the exact chain at B=1024, N=1024 that is
-// 69 GFLOP forward and 138 GFLOP backward, about 3 ms at the f32 SIMT
-// pipes' 67 TFLOP/s. The backward's passes also move z and dh (the rows
-// pass and pmt_bwd_dz read both), dz (written once, read by pmt_bwd_dw) and
-// dh_prev: about 13 GB, 4 ms at 3.35 TB/s. pmt_bwd_dz is bound by those
-// bytes at the 64-wide layers and nears its FP32 bound at 128 -> 128;
-// pmt_bwd_dw, whose operands pass through shared memory once per tile, by
-// its FP32 multiply-adds. At the progressive step's shape (B=32) it is 2.2
-// GFLOP forward and 4.3 GFLOP backward, 0.03 and 0.06 ms in f32; in bf16
-// the tensor cores' 989 TFLOP/s would take a fifteenth of that. These
-// kernels multiply on the SIMT pipes in both modes (bf16 only rounds the
-// operands); 3xTF32 or bf16 mma, and fusing pmt_rows into pmt_bwd_dz, are
-// later work.
+// 69 GFLOP forward and 138 GFLOP backward. The forward multiplies on the
+// tensor cores: held to f32, three TF32 products a multiply-add are 0.42
+// ms at 495 TFLOP/s (the tile takes four, at the 316 TFLOP/s mma.sync
+// reaches: 0.87 ms); its z (1.9 GB written, read back by the next layer's
+// loader) adds about 1 ms at 3.35 TB/s. The backward's passes also move z and
+// dh (the rows pass and pmt_bwd_dz read both), dz (written once, read by
+// pmt_bwd_dw) and dh_prev: about 13 GB, 4 ms at 3.35 TB/s. pmt_bwd_dz is
+// bound by those bytes at the 64-wide layers and nears its FP32 bound at
+// 128 -> 128; pmt_bwd_dw, whose operands pass through shared memory once
+// per tile, by its FP32 multiply-adds. At the progressive step's shape
+// (B=32) it is 2.2 GFLOP forward and 4.3 GFLOP backward; the forward's
+// bf16 products run on the tensor cores, the backward's on the SIMT pipes
+// (bf16 only rounds their operands). 3xTF32 or bf16 mma in the backward,
+// and fusing pmt_rows into pmt_bwd_dz, are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "mma_tile.cuh"
+
 namespace {
+
+using mma::aidx;
 
 constexpr int kThreads = 256;
 constexpr int kDzThreads = 256;  // pmt_bwd_dz
@@ -141,12 +159,20 @@ __device__ __forceinline__ float ghost_xhat(const GBN& bn, int blk, int c,
   return __fmul_rn(__fsub_rn(z, bn.mu[k]), bn.rstd[k]);
 }
 
-// relu(gamma * xhat + beta); with `store` the xhat as the backward stores
-// it (bf16 when store is set)
+// relu(gamma * xhat + beta) of z, xhat = (z - mu) * rstd rounded to bf16
+// first when `store` is set (the xhat the backward stores): the one BN +
+// ReLU of the forward's loader and pmt_pool, so that the forward's ReLU
+// mask and the backward's agree bit for bit
+__device__ __forceinline__ float bn_act(float z, float mu, float rstd,
+                                        float gamma, float beta, int store) {
+  const float xh = rnd(__fmul_rn(__fsub_rn(z, mu), rstd), store);
+  return relu_nan(__fmaf_rn(gamma, xh, beta));
+}
+
 __device__ __forceinline__ float ghost_act(const GBN& bn, int blk, int c,
                                            int n_ch, float z, int store) {
-  const float xh = rnd(ghost_xhat(bn, blk, c, n_ch, z), store);
-  return relu_nan(__fmaf_rn(bn.gamma[c], xh, bn.beta[c]));
+  const size_t k = static_cast<size_t>(blk) * n_ch + c;
+  return bn_act(z, bn.mu[k], bn.rstd[k], bn.gamma[c], bn.beta[c], store);
 }
 
 __device__ __forceinline__ void tile_of(const Ghost& gh, long long k, int* blk,
@@ -157,92 +183,293 @@ __device__ __forceinline__ void tile_of(const Ghost& gh, long long k, int* blk,
   *np = static_cast<int>(min(static_cast<long long>(kTileP), gh.m - t * kTileP));
 }
 
-// Loads tile rows [p0, p0 + np) of in [P, cin], channels [c0, c0 + width),
-// channel-major into hs[(c - c0) * kStride + p], as op(act(in)); padded
-// points and channels are 0.
-template <int kT>
-__device__ __forceinline__ void load_act_tile(
-    float* hs, const float* __restrict__ in, int cin, int c0, int width,
-    const GBN& prev, int has_prev, int store, int bf16, int blk, long long p0,
-    int np) {
-  for (int e = threadIdx.x; e < kTileP * width; e += kT) {
-    const int p = e / width, c = c0 + e % width;
-    float v = 0.0f;
-    if (p < np && c < cin) {
-      v = in[(p0 + p) * cin + c];
-      if (has_prev) v = ghost_act(prev, blk, c, cin, v, store);
-      v = rnd(v, bf16);
-    }
-    hs[(c - c0) * kStride + p] = v;
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Row stride, in floats, of the staged raw rows of a tile: cin + 4, so
+// that a warp's 16-byte reads of 32 points' rows hit distinct banks
+__host__ __device__ constexpr int stage_stride(int cin) { return cin + 4; }
+
+// cp.async of tile rows [p0, p0 + np) of in [., cin] (contiguous, cin a
+// multiple of 4) into stage [64][stage_stride(cin)]
+__device__ __forceinline__ void stage_rows(float* stage,
+                                           const float* __restrict__ in,
+                                           int cin, long long p0, int np) {
+  const int q = cin / 4;
+  const float* src = in + p0 * cin;
+  for (int e = threadIdx.x; e < np * q; e += kThreads) {
+    const int p = e / q, c = (e % q) * 4;
+    cp_async16(stage + p * stage_stride(cin) + c, src + static_cast<size_t>(p) * cin + c);
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-pmt_dense_kernel(const float* __restrict__ in, int cin, GBN prev, int has_prev,
-                 int store, int bf16,
-                 const float* __restrict__ w,  // [cin, cout], op() applied
-                 int cout, float* __restrict__ z,  // [P*m, cout] or null
-                 double* __restrict__ rows,        // [P, G, 2, cout]
-                 Ghost gh) {
-  extern __shared__ float4 smem4[];
-  float* hs = reinterpret_cast<float*>(smem4);  // [cin][kStride]
-  float* zs = hs + cin * kStride;               // [cout][kStride]
-  double* acc = reinterpret_cast<double*>(zs + cout * kStride);  // [2][cout]
-  for (int c = threadIdx.x; c < 2 * cout; c += kThreads) acc[c] = 0.0;
-  const int blk = blockIdx.y;
-  const int oq = cout / 4;
-
-  for (int t = blockIdx.x; t < gh.tiles; t += gridDim.x) {
-    int tb, np;
-    long long p0;
-    tile_of(gh, static_cast<long long>(blk) * gh.tiles + t, &tb, &p0, &np);
-    __syncthreads();  // the previous tile's hs and zs are no longer read
-    load_act_tile<kThreads>(hs, in, cin, 0, cin, prev, has_prev, store, bf16,
-                            blk, p0, np);
-    __syncthreads();
-    for (int u = threadIdx.x; u < (kTileP / 4) * oq; u += kThreads) {
-      const int o0 = (u % oq) * 4;
-      const int pp = (u / oq) * 4;
-      float a[4][4] = {};
-      for (int i = 0; i < cin; ++i) {
-        const float4 hv = *reinterpret_cast<const float4*>(hs + i * kStride + pp);
-        const float4 wv = __ldg(reinterpret_cast<const float4*>(
-            w + static_cast<size_t>(i) * cout + o0));
-        const float hr[4] = {hv.x, hv.y, hv.z, hv.w};
-        const float wr[4] = {wv.x, wv.y, wv.z, wv.w};
+// Loads tile rows [p0, p0 + np) of in [., cin] into the activation tile
+// `as` (mma_tile.cuh's layout, `rows` rows) as act(in), from the rows
+// staged in `stage` when it is not null: the layer below's BN + ReLU from
+// its constants cs [4][cin] (this ghost block's mu and rstd, gamma, beta;
+// null for the first layer), with the stored-xhat rounding `store`. A
+// warp takes 32 points of 4 channels: 16-byte loads where cin allows, and
+// each store fills 32 consecutive points of one row (no bank conflict).
+// On the bf16 tensor-core path the conversion to bf16 pairs is the
+// operand's rounding; on the SIMT path rnd() rounds it. Padded points and
+// channels are 0.
+template <bool kBf16, bool kMma>
+__device__ __forceinline__ void load_act_tile(uint32_t* as, int rows,
+                                              const float* __restrict__ in,
+                                              const float* stage, int cin,
+                                              const float* cs, int store,
+                                              long long p0, int np) {
+  const int cq = (cin + 3) / 4;
+  for (int e = threadIdx.x; e < kTileP * cq; e += kThreads) {
+    const int p = e % kTileP, c = (e / kTileP) * 4;
+    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (p < np) {
+      const float* src = in + (p0 + p) * cin + c;
+      if (stage != nullptr) {
+        const float4 q = *reinterpret_cast<const float4*>(
+            stage + p * stage_stride(cin) + c);
+        v[0] = q.x;
+        v[1] = q.y;
+        v[2] = q.z;
+        v[3] = q.w;
+      } else if (cin % 4 == 0) {
+        const float4 q = __ldg(reinterpret_cast<const float4*>(src));
+        v[0] = q.x;
+        v[1] = q.y;
+        v[2] = q.z;
+        v[3] = q.w;
+      } else {
 #pragma unroll
-        for (int pi = 0; pi < 4; ++pi) {
-#pragma unroll
-          for (int oj = 0; oj < 4; ++oj) a[pi][oj] += hr[pi] * wr[oj];
-        }
+        for (int j = 0; j < 4; ++j) v[j] = c + j < cin ? __ldg(src + j) : 0.0f;
       }
+      if (cs != nullptr) {
 #pragma unroll
-      for (int oj = 0; oj < 4; ++oj) {
-        *reinterpret_cast<float4*>(zs + (o0 + oj) * kStride + pp) =
-            make_float4(a[0][oj], a[1][oj], a[2][oj], a[3][oj]);
-      }
-      if (z != nullptr) {
-#pragma unroll
-        for (int pi = 0; pi < 4; ++pi) {
-          if (pp + pi < np) {
-            *reinterpret_cast<float4*>(z + (p0 + pp + pi) * cout + o0) =
-                make_float4(a[pi][0], a[pi][1], a[pi][2], a[pi][3]);
+        for (int j = 0; j < 4; ++j) {
+          const int k = c + j;
+          if (k < cin) {
+            v[j] = bn_act(v[j], cs[k], cs[cin + k], cs[2 * cin + k],
+                          cs[3 * cin + k], store);
           }
         }
       }
     }
-    __syncthreads();
-    for (int c = threadIdx.x; c < cout; c += kThreads) {  // owner of column c
+    if constexpr (kBf16 && kMma) {
+      as[aidx(c / 2, p)] = mma::pack_bf16(v[0], v[1]);
+      as[aidx(c / 2 + 1, p)] = mma::pack_bf16(v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) as[aidx(c + j, p)] = __float_as_uint(rnd(v[j], kBf16));
+    }
+  }
+  const int done = kBf16 && kMma ? 2 * cq : 4 * cq;  // rows written above
+  for (int e = threadIdx.x; e < (rows - done) * kTileP; e += kThreads) {
+    as[aidx(done + e / kTileP, e % kTileP)] = 0u;
+  }
+}
+
+// z = act(in) op(W) of one tile on the tensor cores, in output chunks of
+// 32 kNT channels: z rows straight from the accumulators (each warp store
+// fills eight 32-byte sectors), and per channel the sums of z and z^2 over
+// the warp's 32 points (its rows, then shuffles in a fixed order) into
+// part [2 warps][2][cout].
+template <int kNT, bool kBf16>
+__device__ __forceinline__ void dense_mma(const uint32_t* as,
+                                          const float* __restrict__ w, int cin,
+                                          int cout, float* __restrict__ z,
+                                          float* part, long long p0, int np) {
+  const int wm = (threadIdx.x >> 5) & 1;
+  for (int n0 = 0; n0 < cout; n0 += 32 * kNT) {
+    const mma::Frag f(n0, kNT);
+    float acc[2][kNT][4] = {};
+    mma::tile_product<kNT, kBf16>(acc, as, w, cin, cout, n0);
+#pragma unroll
+    for (int ni = 0; ni < kNT; ++ni) {
+      const int c = f.n + 8 * ni;  // even, and cout is a multiple of 4
+      float s[2] = {0.0f, 0.0f}, s2[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int p = f.m0 + 16 * mi + f.g + 8 * h;
+          const float v0 = acc[mi][ni][2 * h], v1 = acc[mi][ni][2 * h + 1];
+          if (p < np) {
+            if (z != nullptr && c < cout) {
+              *reinterpret_cast<float2*>(z + (p0 + p) * cout + c) = make_float2(v0, v1);
+            }
+            s[0] += v0;
+            s2[0] += v0 * v0;
+            s[1] += v1;
+            s2[1] += v1 * v1;
+          }
+        }
+      }
+#pragma unroll
+      for (int off = 4; off < 32; off *= 2) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          s[j] += __shfl_xor_sync(0xffffffffu, s[j], off);
+          s2[j] += __shfl_xor_sync(0xffffffffu, s2[j], off);
+        }
+      }
+      if (f.g == 0 && c < cout) {
+        float* ps = part + 2 * wm * cout;
+        ps[c] = s[0];
+        ps[c + 1] = s[1];
+        ps[cout + c] = s2[0];
+        ps[cout + c + 1] = s2[1];
+      }
+    }
+  }
+}
+
+// The same on the FP32 pipes for a layer of fewer than 8 input channels:
+// 4 points x 4 channels a thread, each point's 4 channels of z stored as
+// 16 bytes, and per channel the sums over the thread's 4 points into part
+// [16 point groups][2][cout].
+__device__ __forceinline__ void dense_simt(const uint32_t* as,
+                                           const float* __restrict__ w,
+                                           int cin, int cout,
+                                           float* __restrict__ z, float* part,
+                                           long long p0, int np) {
+  const float* hs = reinterpret_cast<const float*>(as);
+  const int oq = cout / 4;
+  for (int u = threadIdx.x; u < (kTileP / 4) * oq; u += kThreads) {
+    const int o0 = (u % oq) * 4;
+    const int pp = (u / oq) * 4;
+    float a[4][4] = {};
+    for (int i = 0; i < cin; ++i) {
+      const float4 hv = *reinterpret_cast<const float4*>(hs + aidx(i, pp));
+      const float4 wv = __ldg(reinterpret_cast<const float4*>(
+          w + static_cast<size_t>(i) * cout + o0));
+      const float hr[4] = {hv.x, hv.y, hv.z, hv.w};
+      const float wr[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+      for (int pi = 0; pi < 4; ++pi) {
+#pragma unroll
+        for (int oj = 0; oj < 4; ++oj) a[pi][oj] += hr[pi] * wr[oj];
+      }
+    }
+#pragma unroll
+    for (int pi = 0; pi < 4; ++pi) {
+      if (z != nullptr && pp + pi < np) {
+        *reinterpret_cast<float4*>(z + (p0 + pp + pi) * cout + o0) =
+            make_float4(a[pi][0], a[pi][1], a[pi][2], a[pi][3]);
+      }
+    }
+    float* ps = part + 2 * (pp / 4) * cout;
+#pragma unroll
+    for (int oj = 0; oj < 4; ++oj) {
       float s = 0.0f, s2 = 0.0f;
-      for (int p = 0; p < np; ++p) {
-        const float v = zs[c * kStride + p];
-        s += v;
-        s2 += v * v;
+#pragma unroll
+      for (int pi = 0; pi < 4; ++pi) {
+        if (pp + pi < np) {
+          s += a[pi][oj];
+          s2 += a[pi][oj] * a[pi][oj];
+        }
+      }
+      ps[o0 + oj] = s;
+      ps[cout + o0 + oj] = s2;
+    }
+  }
+}
+
+// Groups of partial column sums a tile leaves: the two warps of a column
+// on the tensor cores, the 16 point groups on the SIMT path
+__host__ __device__ constexpr int dense_groups(bool mma_path) {
+  return mma_path ? 2 : kTileP / 4;
+}
+
+// kNT > 0: output chunks of 32 kNT channels on the tensor cores (split TF32,
+// or bf16 with kBf16); kNT = 0: the SIMT path of a layer with fewer than 8
+// input channels (operands rounded by rnd() with kBf16).
+// With `stage`, cp.async brings the next tile's raw rows in while the
+// tile's products run.
+template <bool kBf16, int kNT>
+__global__ void __launch_bounds__(kThreads, 2)
+pmt_dense_kernel(const float* __restrict__ in, int cin, GBN prev, int has_prev,
+                 int store,
+                 const float* __restrict__ w,  // [cin, cout], op() applied
+                 int cout, float* __restrict__ z,  // [P*m, cout] or null
+                 double* __restrict__ rows,        // [P, G, 2, cout]
+                 Ghost gh, int stage) {
+  constexpr bool kMma = kNT > 0;
+  constexpr int kGroups = dense_groups(kMma);
+  extern __shared__ float4 smem4[];
+  double* acc = reinterpret_cast<double*>(smem4);          // [2][cout]
+  float* part = reinterpret_cast<float*>(acc + 2 * cout);  // [kGroups][2][cout]
+  float* cs = part + kGroups * 2 * cout;                   // [4][cin]
+  uint32_t* as = reinterpret_cast<uint32_t*>(cs + 4 * cin);  // the tile
+  const int arows = mma::tile_rows(cin, kBf16, kMma);
+  float* staged = stage ? reinterpret_cast<float*>(as + arows * kTileP) : nullptr;
+  const int blk = blockIdx.y;
+  for (int c = threadIdx.x; c < 2 * cout; c += kThreads) acc[c] = 0.0;
+  if (has_prev) {  // the layer below's BN for this ghost block
+    const size_t base = static_cast<size_t>(blk) * cin;
+    for (int c = threadIdx.x; c < cin; c += kThreads) {
+      cs[c] = prev.mu[base + c];
+      cs[cin + c] = prev.rstd[base + c];
+      cs[2 * cin + c] = prev.gamma[c];
+      cs[3 * cin + c] = prev.beta[c];
+    }
+  }
+
+  const long long first = static_cast<long long>(blk) * gh.tiles;
+  int tb, np;
+  long long p0;
+  if (staged != nullptr && blockIdx.x < gh.tiles) {
+    tile_of(gh, first + blockIdx.x, &tb, &p0, &np);
+    stage_rows(staged, in, cin, p0, np);
+  }
+  cp_async_commit();
+  for (int t = blockIdx.x; t < gh.tiles; t += gridDim.x) {
+    tile_of(gh, first + t, &tb, &p0, &np);
+    cp_async_wait<0>();
+    __syncthreads();  // rows and constants in; the last tile's reads done
+    load_act_tile<kBf16, kMma>(as, arows, in, staged, cin,
+                               has_prev ? cs : nullptr, store, p0, np);
+    __syncthreads();  // the tile is in; the stage is free
+    if (staged != nullptr && t + gridDim.x < gh.tiles) {
+      int nb, nn;
+      long long np0;
+      tile_of(gh, first + t + gridDim.x, &nb, &np0, &nn);
+      stage_rows(staged, in, cin, np0, nn);
+    }
+    cp_async_commit();
+    if constexpr (kMma) {
+      dense_mma<kNT, kBf16>(as, w, cin, cout, z, part, p0, np);
+    } else {
+      dense_simt(as, w, cin, cout, z, part, p0, np);
+    }
+    __syncthreads();
+    // the tile's sums in f32, in group order, then into f64 in tile order
+    for (int c = threadIdx.x; c < cout; c += kThreads) {
+      float s = 0.0f, s2 = 0.0f;
+#pragma unroll
+      for (int g = 0; g < kGroups; ++g) {
+        s += part[2 * g * cout + c];
+        s2 += part[(2 * g + 1) * cout + c];
       }
       acc[c] += s;
       acc[cout + c] += s2;
     }
   }
+  cp_async_wait<0>();
   __syncthreads();
   double* out = rows + (static_cast<size_t>(blk) * gridDim.x + blockIdx.x) * 2 * cout;
   for (int c = threadIdx.x; c < 2 * cout; c += kThreads) out[c] = acc[c];
@@ -337,25 +564,6 @@ pmt_rows_kernel(const float* __restrict__ z, GBN bn, int c_out, int store,
 }
 
 // ---------------------------------------------------------------- backward
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
 
 struct DzArgs {
   const float* z;       // [P*m, cout]: this layer's pre-BN z
@@ -806,9 +1014,17 @@ Ghost make_ghost(int bb, int n) {
 
 }  // namespace
 
-extern "C" size_t snt_pmt_dense_smem(int cin, int cout) {
-  return static_cast<size_t>(cin + cout) * kStride * sizeof(float) +
-         2 * static_cast<size_t>(cout) * sizeof(double);
+// A pmt_dense block (ops/cuda/point_mlp_plan.py counts the same): the f64
+// sums [2, cout], the tile's partial sums [groups, 2, cout], the layer
+// below's BN constants [4, cin], the activation tile of 64 words a row
+// and, with `stage`, the next tile's raw rows [64, cin + 4].
+extern "C" size_t snt_pmt_dense_smem(int cin, int cout, int bf16, int stage) {
+  const bool mma_path = cin >= 8;
+  return 2 * static_cast<size_t>(cout) * sizeof(double) +
+         (2 * static_cast<size_t>(dense_groups(mma_path)) * cout + 4 * cin +
+          static_cast<size_t>(mma::tile_rows(cin, bf16, mma_path)) * kTileP +
+          (stage ? static_cast<size_t>(kTileP) * stage_stride(cin) : 0)) *
+             sizeof(float);
 }
 
 // A pmt_bwd_dz block: op(W)^T rows [kc, cin_pad], 7 per-channel constants,
@@ -827,22 +1043,45 @@ extern "C" size_t snt_pmt_bwd_dw_smem(int ri) {
   return sizeof(float) * 2 * kTileP * (kDwTile + kDwThreads * ri * 8 / kDwTile);
 }
 
+// pmt_dense for nt output tiles of 8 a warp (0: the SIMT path), or null
+template <bool kBf16>
+const void* dense_kernel(int nt) {
+  switch (nt) {
+    case 0: return reinterpret_cast<const void*>(pmt_dense_kernel<kBf16, 0>);
+    case 1: return reinterpret_cast<const void*>(pmt_dense_kernel<kBf16, 1>);
+    case 2: return reinterpret_cast<const void*>(pmt_dense_kernel<kBf16, 2>);
+    case 4: return reinterpret_cast<const void*>(pmt_dense_kernel<kBf16, 4>);
+    default: return nullptr;
+  }
+}
+
 // prev_bn holds (mu, rstd, gamma, beta) of the layer below, or is null for
 // the first layer (then `in` is x itself); `store` applies the backward's
-// stored-xhat rounding to it. z may be null (sums only).
+// stored-xhat rounding to it. z may be null (sums only). Layers of 8 or
+// more input channels run on the tensor cores, bf16 operands with bf16 on,
+// else f32 split in TF32 parts; `stage` (the launch plan's, taken where cin is a multiple
+// of 4) stages the next tile's rows with cp.async.
 extern "C" int snt_pmt_dense(const float* in, int cin, const float* const* prev_bn,
                              int store, int bf16, const float* w, int cout,
                              float* z, double* rows, int n_blocks, int bb, int n,
-                             int grid, cudaStream_t stream) {
-  if (cout % 4 || cin < 1 || grid < 1 || n_blocks < 1) {
+                             int stage, int grid, cudaStream_t stream) {
+  if (cout % 4 || cin < 1 || grid < 1 || n_blocks < 1 || (stage && cin % 4)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = snt_pmt_dense_smem(cin, cout);
-  cudaError_t err = set_smem(reinterpret_cast<const void*>(pmt_dense_kernel), smem);
+  const int kb = bf16;  // the operands' type: bf16, or f32 in TF32 parts
+  const int nt = cin < 8 ? 0 : mma::chunk_nt(cout);
+  const void* kernel = kb ? dense_kernel<true>(nt) : dense_kernel<false>(nt);
+  const size_t smem = snt_pmt_dense_smem(cin, cout, kb, stage);
+  cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  pmt_dense_kernel<<<dim3(grid, n_blocks), kThreads, smem, stream>>>(
-      in, cin, make_gbn(prev_bn), prev_bn != nullptr, store, bf16, w, cout, z,
-      rows, make_ghost(bb, n));
+  GBN prev = make_gbn(prev_bn);
+  int has_prev = prev_bn != nullptr;
+  Ghost gh = make_ghost(bb, n);
+  void* args[] = {&in, &cin, &prev, &has_prev, &store, &w, &cout, &z, &rows,
+                  &gh, &stage};
+  err = cudaLaunchKernel(kernel, dim3(grid, n_blocks), dim3(kThreads), args,
+                         smem, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

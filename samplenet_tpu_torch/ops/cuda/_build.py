@@ -137,13 +137,14 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.snt_soft_project_bwd_smem.restype = sz
     lib.snt_soft_project_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
     lib.snt_soft_project_bwd.restype = i
-    lib.snt_pmt_dense_smem.argtypes = [i, i]
+    lib.snt_pmt_dense_smem.argtypes = [i, i, i, i]
     lib.snt_pmt_dense_smem.restype = sz
     lib.snt_pmt_bwd_dz_smem.argtypes = [i, i, i, i]
     lib.snt_pmt_bwd_dz_smem.restype = sz
     lib.snt_pmt_bwd_dw_smem.argtypes = [i]
     lib.snt_pmt_bwd_dw_smem.restype = sz
-    lib.snt_pmt_dense.argtypes = [p, i, pp, i, i, p, i, p, p, i, i, i, i, p]
+    lib.snt_pmt_dense.argtypes = [p, i, pp, i, i, p, i, p, p, i, i, i, i, i,
+                                  p]
     lib.snt_pmt_dense.restype = i
     lib.snt_pmt_pool.argtypes = [p, pp, i, i, i, i, p, p, p]
     lib.snt_pmt_pool.restype = i

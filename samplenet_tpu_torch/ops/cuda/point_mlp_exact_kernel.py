@@ -116,7 +116,7 @@ def point_mlp_exact_bwd_plain(x, weights, gammas, betas, saved, g):
 
 def point_mlp_exact_fwd_cuda(x, weights, gammas, betas, eps):
     widths = [x.shape[-1], *(w.shape[1] for w in weights)]
-    check_cuda(x, widths, "point_mlp_exact")
+    dense = check_cuda(x, widths, "point_mlp_exact")[1]
     b, n, _ = x.shape
     count = b * n
     lib = library()
@@ -125,14 +125,15 @@ def point_mlp_exact_fwd_cuda(x, weights, gammas, betas, eps):
     h_in, prev = x.contiguous(), None
     zs, mus, rstds, vars_ = [], [], [], []
     with torch.cuda.device(x.device):
-        for w, gamma, beta in zip(weights, gammas, betas):
+        for w, gamma, beta, dp in zip(weights, gammas, betas, dense):
             cin, cout = w.shape
             z = torch.empty((count, cout), dtype=torch.float32, device=x.device)
             rows = torch.empty((grid, 2, cout), dtype=torch.float64,
                                device=x.device)
             err = lib.snt_pmt_dense(
                 h_in.data_ptr(), cin, prev, 0, 0, w.contiguous().data_ptr(),
-                cout, z.data_ptr(), rows.data_ptr(), 1, b, n, grid, stream)
+                cout, z.data_ptr(), rows.data_ptr(), 1, b, n, int(dp.stage),
+                grid, stream)
             check(err, KERNEL_FWD)
             s = rows.sum(0)
             mu, var, rstd = _stats(s[0], s[1], count, eps,

@@ -4,9 +4,10 @@ plain PyTorch version, and the BN fold that feeds both.
 Mirrors samplenet_tpu/ops/pallas/point_mlp_kernel.py:35-42
 (`fold_bn_affine`), :45-66 (the Pallas body) and :127-164
 (`point_mlp_max`). The kernel is csrc/point_mlp_max.cu; its note says what
-bounds it and how it is laid out. Operands are f32 (the TPU default of
-bf16 operands is later work); sums run in another order than the plain
-version's matmuls, so the two agree to f32 round-off, not bit for bit.
+bounds it and how it is laid out. Operands are f32, multiplied on the
+tensor cores in two TF32 parts each (the TPU default of bf16 operands is
+later work); sums run in another order than the plain version's matmuls,
+so the two agree to f32 round-off, not bit for bit.
 """
 
 from __future__ import annotations
@@ -22,10 +23,14 @@ from samplenet_tpu_torch.ops.cuda._build import (
     max_dynamic_smem,
     stream_handle,
 )
+from samplenet_tpu_torch.ops.cuda.point_mlp_plan import (
+    MAX_LAYERS as _MAX_LAYERS,
+    max_smem,
+    plan_max,
+)
 from samplenet_tpu_torch.ops.dispatch import count_launch, use_kernel
 
 KERNEL = "point_mlp_max"
-_MAX_LAYERS = 8        # csrc/point_mlp_max.cu kMaxLayers
 
 
 def fold_bn_affine(kernel, bias, scale, bn_bias, mean, var, eps=1e-5):
@@ -123,9 +128,12 @@ def _point_mlp_max_cuda(x, pairs, widths) -> torch.Tensor:
     lib = library()
     c_widths = (ctypes.c_int * (layers + 1))(*widths)
     smem = lib.snt_point_mlp_max_smem(c_widths, layers)
-    if smem > max_dynamic_smem(x.device):
+    if plan_max(widths, max_dynamic_smem(x.device)) is None:
         raise ValueError(f"widths {widths} need {smem} bytes of shared "
                          f"memory per block, more than the card offers")
+    if smem != max_smem(widths):
+        raise RuntimeError("point_mlp_plan.py and csrc/point_mlp_max.cu "
+                           "count shared memory apart")
     # one packed buffer, W_l then b_l per layer; every offset is a multiple
     # of 4 floats because every output width is
     params = torch.cat([t.reshape(-1) for pair in pairs for t in pair])

@@ -49,7 +49,12 @@ from samplenet_tpu_torch.ops.cuda._build import (
     stream_handle,
 )
 from samplenet_tpu_torch.ops.cuda.point_mlp_kernel import full_f32_matmul
-from samplenet_tpu_torch.ops.cuda.point_mlp_plan import LayerPlan, plan_bwd
+from samplenet_tpu_torch.ops.cuda.point_mlp_plan import (
+    DensePlan,
+    LayerPlan,
+    plan_bwd,
+    plan_dense,
+)
 from samplenet_tpu_torch.ops.dispatch import count_launch, use_kernel
 
 KERNEL_FWD = "point_mlp_train_fwd"
@@ -235,10 +240,11 @@ def ptrs(*tensors) -> ctypes.Array:
     return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
 
 
-def check_cuda(x, widths, name: str,
-               block_b: int | None = None) -> list[LayerPlan]:
+def check_cuda(x, widths, name: str, block_b: int | None = None,
+               bf16: bool = False) -> tuple[list[LayerPlan], list[DensePlan]]:
     """Checks what the kernels take, for ghost blocks of `block_b` clouds
-    (all B: the exact chain); returns each layer's backward plan."""
+    (all B: the exact chain) with operands in bf16 or f32; returns each
+    layer's backward plan and pmt_dense plan."""
     if x.device.type != "cuda":
         raise ValueError(f"the {name} kernels take CUDA tensors, got "
                          f"{x.device}")
@@ -252,19 +258,21 @@ def check_cuda(x, widths, name: str,
     lib = library()
     limit = max_dynamic_smem(x.device)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    need = max(lib.snt_pmt_dense_smem(ci, co)
-               for ci, co in zip(widths[:-1], widths[1:]))
+    pairs = list(zip(widths[:-1], widths[1:]))
+    dense = [plan_dense(ci, co, bf16, limit) for ci, co in pairs]
     plans = plan_bwd(widths, b // bb, bb * n, sms, limit)
-    if need > limit or plans is None:
+    if None in dense or plans is None:
         raise ValueError(f"widths {widths} need more shared memory per block "
                          f"than the card offers")
-    for pl in plans:            # the planner counts what the kernels count
+    for pl, dp in zip(plans, dense):  # the planner counts what they count
         if (lib.snt_pmt_bwd_dz_smem(pl.cin_pad, pl.cout, pl.dz_kc,
                                     int(pl.dz_stage)) != pl.dz_smem
-                or lib.snt_pmt_bwd_dw_smem(pl.dw_ri) != pl.dw_smem):
+                or lib.snt_pmt_bwd_dw_smem(pl.dw_ri) != pl.dw_smem
+                or lib.snt_pmt_dense_smem(dp.cin, dp.cout, int(bf16),
+                                          int(dp.stage)) != dp.smem):
             raise RuntimeError("point_mlp_plan.py and csrc/point_mlp_train.cu "
                                "count shared memory apart")
-    return plans
+    return plans, dense
 
 
 def _block_stats(rows: torch.Tensor, m: int, eps: float):
@@ -280,7 +288,7 @@ def point_mlp_train_fwd_cuda(x, weights, gammas, betas, eps, block_b, bf16):
     """(pooled, block means, block E[z^2] (f64), saved): saved feeds the
     backward kernels."""
     widths = [x.shape[-1], *(w.shape[1] for w in weights)]
-    check_cuda(x, widths, "point_mlp_train", block_b)
+    dense = check_cuda(x, widths, "point_mlp_train", block_b, bf16)[1]
     b, n, _ = x.shape
     p, m = b // block_b, block_b * n
     lib = library()
@@ -291,7 +299,7 @@ def point_mlp_train_fwd_cuda(x, weights, gammas, betas, eps, block_b, bf16):
     h_in, prev = x.contiguous(), None
     zs, mus, rstds, mus64, msqs64 = [], [], [], [], []
     with torch.cuda.device(x.device):
-        for w, gamma, beta in zip(weights, gammas, betas):
+        for w, gamma, beta, dp in zip(weights, gammas, betas, dense):
             cin, cout = w.shape
             z = torch.empty((b * n, cout), dtype=torch.float32, device=x.device)
             rows = torch.empty((p, grid, 2, cout), dtype=torch.float64,
@@ -299,8 +307,8 @@ def point_mlp_train_fwd_cuda(x, weights, gammas, betas, eps, block_b, bf16):
             w_op = _op(w, bf16).contiguous()
             err = lib.snt_pmt_dense(
                 h_in.data_ptr(), cin, prev, 0, int(bf16), w_op.data_ptr(),
-                cout, z.data_ptr(), rows.data_ptr(), p, block_b, n, grid,
-                stream)
+                cout, z.data_ptr(), rows.data_ptr(), p, block_b, n,
+                int(dp.stage), grid, stream)
             check(err, KERNEL_FWD)
             mu, rstd, mu64, msq64 = _block_stats(rows, m, eps)
             prev = ptrs(mu, rstd, gamma, beta)
@@ -331,7 +339,7 @@ def bwd_cuda(x, weights, gammas, betas, eps, block_b, bf16, saved, g,
     (dz and dh_prev) and pmt_bwd_dw (dW's f64 partials, summed here)."""
     zs, mus, rstds, argmax = saved
     widths = [x.shape[-1], *(w.shape[1] for w in weights)]
-    plans = check_cuda(x, widths, kernel, block_b)
+    plans, dense = check_cuda(x, widths, kernel, block_b, bf16)
     b, n, c0 = x.shape
     p, m = b // block_b, block_b * n
     tiles = -(-m // _TILE)
@@ -359,7 +367,7 @@ def bwd_cuda(x, weights, gammas, betas, eps, block_b, bf16, saved, g,
                 err = lib.snt_pmt_dense(
                     zs[i - 1].data_ptr(), cin, bns[i - 1], 1, 1,
                     w_op.data_ptr(), cout, None, rows.data_ptr(), p, block_b,
-                    n, grid, stream)
+                    n, int(dense[i].stage), grid, stream)
                 check(err, kernel)
                 rstd2 = _block_stats(rows, m, eps)[1].contiguous()
             grid = _rows_grid(block_b if dh is None else tiles)

@@ -142,6 +142,72 @@ def test_point_mlp_max_close(dev, widths, n):
                                rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("widths,b,n", [
+    ((3, 12, 20), 5, 1),
+    ((3, 12, 20), 3, 1000),
+    ((3, 64, 64, 64, 128, 128), 2, 77),
+    ((3, 64, 128, 128, 256, 128), 3, 2048),  # 256-wide layers
+])
+def test_point_mlp_max_against_f64(dev, widths, b, n):
+    """The kernel (split TF32 on the tensor cores, FP32 FMAs where cin < 8)
+    and the plain f32 version, each against the plain version in float64:
+    the kernel within 1e-4 of the plain f32 path and at least as close to
+    f64 (within 2x, or 1e-5 of scale); one TF32 product would land about
+    3e-4 of scale away."""
+    from samplenet_tpu_torch.ops.cuda import point_mlp_max, point_mlp_max_plain
+
+    rng = np.random.default_rng(b * 100 + n)
+    x = _randn(rng, b, n, widths[0], dev=dev)
+    wbs = []
+    for cin, cout in zip(widths[:-1], widths[1:]):
+        wbs += [_randn(rng, cin, cout, dev=dev) / cin ** 0.5,
+                0.1 * _randn(rng, cout, dev=dev)]
+    k = point_mlp_max(x, tuple(wbs))
+    p = point_mlp_max_plain(x, tuple(wbs))
+    r = point_mlp_max_plain(x.double(), tuple(t.double() for t in wbs))
+    torch.testing.assert_close(k, p, rtol=1e-4, atol=1e-4)
+    ek, ep = _rel_err(k, r), _rel_err(p, r)
+    print(f"point_mlp_max {widths} B={b} N={n} against f64: kernel {ek!r}, "
+          f"plain f32 {ep!r}")
+    assert ek <= max(2 * ep, 1e-5), (ek, ep)
+
+
+@pytest.mark.parametrize("widths,b,n", [
+    ((3, 12, 20), 5, 1),
+    ((3, 12, 20), 3, 1000),
+    ((3, 64, 64, 64, 128, 128), 64, 1024),
+    ((3, 64, 128, 128, 256, 128), 8, 2048),
+])
+def test_train_forward_is_deterministic_and_f32_accurate(dev, widths, b, n):
+    """The exact chain's forward kernels: z and the f64 statistics rows
+    bit-equal from run to run; pooled, means and variances no further from
+    the plain version in float64 than twice the plain f32 version (or
+    1e-5 of scale)."""
+    from samplenet_tpu_torch.ops.cuda import point_mlp_exact_kernel as pme
+
+    rng = np.random.default_rng(b + n)
+    x, (ws, _, gs, bes) = _exact_args(rng, b, n, widths, dev)
+    first = pme.point_mlp_exact_fwd_cuda(x, ws, gs, bes, 1e-5)
+    again = pme.point_mlp_exact_fwd_cuda(x, ws, gs, bes, 1e-5)
+    zs, zs2 = first[3][0], again[3][0]
+    assert all(torch.equal(a, c) for a, c in zip(zs, zs2))
+    assert all(torch.equal(a, c) for a, c in zip(first[1] + first[2],
+                                                 again[1] + again[2]))
+    plain = pme.point_mlp_exact_fwd_plain(x, ws, gs, bes, 1e-5)
+    ref = pme.point_mlp_exact_fwd_plain(
+        x.double(), [t.double() for t in ws], [t.double() for t in gs],
+        [t.double() for t in bes], 1e-5)
+    worst = (0.0, 0.0)
+    for k, p, r in zip([first[0], *first[1], *first[2]],
+                       [plain[0], *plain[1], *plain[2]],
+                       [ref[0], *ref[1], *ref[2]]):
+        ek, ep = _rel_err(k, r), _rel_err(p, r)
+        assert ek <= max(2 * ep, 1e-5), (ek, ep)
+        worst = max(worst, (ek, ep))
+    print(f"exact forward {widths} B={b} N={n} against f64: kernel "
+          f"{worst[0]!r}, plain f32 {worst[1]!r}")
+
+
 def test_kernels_refuse_what_they_do_not_take(dev):
     from samplenet_tpu_torch.ops.cuda import fps, nn_direction, point_mlp_max
 
@@ -218,6 +284,11 @@ def _exact_run(x, params, g, plain=False, dtype=torch.float32):
     # 64 -> 512: pmt_bwd_dz in 32-point tiles, 2 points a thread, op(W)^T
     # in K chunks
     (2, 300, (3, 64, 512)),
+    # widths off the tensor cores' K step (12 -> 20: one 8-channel step
+    # and a half, a 32-channel output chunk with 12 padded), N = 1 and
+    # a ragged N
+    (5, 1, (3, 12, 20)),
+    (3, 1000, (3, 12, 20)),
 ])
 def test_point_mlp_exact_matches_plain(dev, b, n, widths):
     rng = np.random.default_rng(b * 1000 + n)
@@ -626,6 +697,21 @@ def _ghost_check(x, params, g, bb, bf16, floor=1e-4):
 def test_point_mlp_train_matches_plain(dev, b, n, bb, bf16):
     rng = np.random.default_rng(b * 1000 + n + bf16)
     x, params, g = _ghost_args(rng, b, n, (3, 64, 64, 64, 128, 128), dev)
+    _ghost_check(x, params, g, bb, bf16)
+
+
+@pytest.mark.parametrize("b,n,bb,bf16", [
+    (4, 1000, 2, True),
+    (4, 1000, 2, False),
+    (8, 1, 4, True),
+    (8, 1, 4, False),
+])
+def test_point_mlp_train_at_widths_off_the_k_step(dev, b, n, bb, bf16):
+    """3 -> 12 -> 20: the bf16 tile pads 12 channels to its 16-channel K
+    step and the f32 tile to 16 in two 8-channel steps, and both pad the
+    20 output channels to a 32-channel chunk."""
+    rng = np.random.default_rng(b * 1000 + n + bf16)
+    x, params, g = _ghost_args(rng, b, n, (3, 12, 20), dev)
     _ghost_check(x, params, g, bb, bf16)
 
 

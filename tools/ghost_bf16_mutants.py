@@ -30,8 +30,11 @@ MUTANTS = {  # name -> edits (file, text, its replacement), each text once
     "rounds nothing": [(
         CU, "return bf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;",
         "return v;")],
-    "activations unrounded": [  # the forward's, and pmt_bwd_dw's h_prev
-        (CU, "      v = rnd(v, bf16);", "      v = v;"),
+    # the forward's (on the bf16 tensor cores the conversion is the
+    # rounding, so the mutant runs the f32 (split-TF32) tile on unrounded
+    # activations), and pmt_bwd_dw's h_prev
+    "activations unrounded": [
+        (CU, "const int kb = bf16;", "const int kb = 0;"),
         (CU, "          v = rnd(v, kBf16);", "          v = v;")],
     "dz unrounded": [(
         CU, "v[j] = rnd(rstd2 * (gamma * dy - r1 - xh * r2), kBf16);",

@@ -1,20 +1,28 @@
 #!/usr/bin/env python3
-"""Time the train MLP chains of a checkout on the card.
+"""Time the per-point MLP kernels of a checkout on the card.
 
     python3 tools/time_exact_chain.py CHECKOUT TAG
 
-Imports samplenet_tpu_torch from CHECKOUT (building its kernels there) and
-prints, under TAG, for point_mlp_exact_train_max at the classification
-train shape (B=1024, N=1024, widths 3-64-64-64-128-128) and the
-reconstruction track's (B=50, N=2048, widths 3-64-128-128-256-128): the
-time per call of the forward, of forward + backward, and of the backward
-kernels alone (`point_mlp_exact_bwd_cuda` on a saved forward), CUDA
-events around each call, host time included, median of 20 calls after 3
-warm-ups; then the backward's device time under torch.profiler, split by
-pass (chip_smoke.py's `_bwd_split`, read from this script's own checkout).
-Last, the ghost chain's backward (`point_mlp_train_bwd_cuda`, bf16, block
-4) at the progressive step's shape (B=32, N=1024), per call. To compare
-two checkouts on one card, run it four times in a row: A, B, B, A.
+Imports samplenet_tpu_torch from CHECKOUT (building its kernels there),
+prints the build's ptxas lines for the forward kernels (registers, spills)
+and then, under TAG, each a median of 20 calls after 3 warm-ups, CUDA
+events around each call, host time included:
+
+- `point_mlp_max` at the serving path's shape (B=1024 clouds of 1024
+  points, widths 3-64-64-64-128-128) and the eval forward with hard
+  matching (SampleNet 1024 -> 32, chip_smoke.py's seeded model);
+- point_mlp_exact_train_max at the classification train shape (B=1024,
+  N=1024, widths 3-64-64-64-128-128) and the reconstruction track's (B=50,
+  N=2048, widths 3-64-128-128-256-128): the forward, forward + backward,
+  and the backward kernels alone (`point_mlp_exact_bwd_cuda` on a saved
+  forward); then the forward's and the backward's device time under
+  torch.profiler, split by pass (chip_smoke.py's `_pass_split`, read from
+  this script's own checkout);
+- the ghost chain (bf16, block 4) at the progressive step's shape (B=32,
+  N=1024): its forward and its backward per call, and their splits.
+
+To compare two checkouts on one card, run it four times in a row: A, B,
+B, A.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ import sys
 SHAPES = ((1024, 1024, (3, 64, 64, 64, 128, 128)),
           (50, 2048, (3, 64, 128, 128, 256, 128)))
 GHOST = (32, 1024, (3, 64, 64, 64, 128, 128), 4)
+FWD_KERNELS = ("point_mlp_max", "pmt_dense")
 TOOL_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -41,10 +50,17 @@ def main() -> int:
     import torch
 
     from samplenet_tpu_torch.ops.cuda import point_mlp_exact_kernel as pme
+    from samplenet_tpu_torch.ops.cuda import point_mlp_max
     from samplenet_tpu_torch.ops.cuda import point_mlp_train_kernel as pmt
-    from samplenet_tpu_torch.ops.cuda._build import library
+    from samplenet_tpu_torch.ops.cuda._build import library, library_path
 
     library()
+    log = (library_path().parent / "build.log").read_text().splitlines()
+    for i, line in enumerate(log):        # each entry's properties follow it
+        if "Compiling entry" in line and any(k in line for k in FWD_KERNELS):
+            print(f"[{tag}] ptxas: " + " | ".join(
+                ln.strip() for ln in log[i:i + 4]
+                if "spill" in ln or "registers" in ln or "entry" in ln))
     rng = np.random.default_rng(0)
 
     def randn(*shape):
@@ -77,6 +93,21 @@ def main() -> int:
                 t.requires_grad_()
         return x, params, randn(b, widths[-1])
 
+    y = randn(cs.B, cs.N, 3)
+    wbs = cs._mlp_weights(torch, rng, "cuda")
+    model = cs.make_model(torch, "cuda")
+    clouds = randn(cs.B, cs.N, 3)
+
+    def forward_eval():
+        with torch.inference_mode():
+            model(clouds)
+
+    print(f"[{tag}] point_mlp_max B={cs.B}, N={cs.N}, widths {cs.WIDTHS}: "
+          f"{median_ms(lambda: point_mlp_max(y, wbs))!r} ms per call; eval "
+          f"forward + matching {median_ms(forward_eval)!r} ms per call",
+          flush=True)
+    del model, clouds, y
+
     for b, n, widths in SHAPES:
         x, params, g = inputs(b, n, widths)
         ws, _, gs, bes = [[t.detach() for t in grp] for grp in params]
@@ -95,10 +126,15 @@ def main() -> int:
         def backward():
             pme.point_mlp_exact_bwd_cuda(xd, ws, gs, bes, saved, g)
 
+        def fwd_kernels():
+            pme.point_mlp_exact_fwd_cuda(xd, ws, gs, bes, 1e-5)
+
+        layers = len(widths) - 1
         print(f"[{tag}] B={b}, N={n}, widths {widths}: forward "
               f"{median_ms(forward)!r} ms, forward + backward "
               f"{median_ms(both)!r} ms, backward {median_ms(backward)!r} ms; "
-              f"backward {cs._bwd_split(torch, backward, 5, len(widths) - 1)}",
+              f"forward {cs._pass_split(torch, fwd_kernels, 5, layers, cs.FWD_PASSES)}"
+              f"; backward {cs._pass_split(torch, backward, 5, layers)}",
               flush=True)
         del saved
         torch.cuda.empty_cache()
@@ -106,16 +142,22 @@ def main() -> int:
     b, n, widths, bb = GHOST
     x, params, g = inputs(b, n, widths)
     ws, _, gs, bes = [[t.detach() for t in grp] for grp in params]
-    saved = pmt.point_mlp_train_fwd_cuda(x.detach(), ws, gs, bes, 1e-5, bb,
-                                         True)[3]
+    xd = x.detach()
+    saved = pmt.point_mlp_train_fwd_cuda(xd, ws, gs, bes, 1e-5, bb, True)[3]
+
+    def ghost_forward():
+        pmt.point_mlp_train_fwd_cuda(xd, ws, gs, bes, 1e-5, bb, True)
 
     def ghost_backward():
-        pmt.point_mlp_train_bwd_cuda(x.detach(), ws, gs, bes, 1e-5, bb, True,
-                                     saved, g)
+        pmt.point_mlp_train_bwd_cuda(xd, ws, gs, bes, 1e-5, bb, True, saved,
+                                     g)
 
-    print(f"[{tag}] ghost B={b}, N={n}, bf16, block {bb}: backward "
-          f"{median_ms(ghost_backward)!r} ms per call; "
-          f"{cs._bwd_split(torch, ghost_backward, 5, len(widths) - 1)}",
+    layers = len(widths) - 1
+    print(f"[{tag}] ghost B={b}, N={n}, bf16, block {bb}: forward "
+          f"{median_ms(ghost_forward)!r} ms per call; "
+          f"{cs._pass_split(torch, ghost_forward, 5, layers, cs.FWD_PASSES)}"
+          f"; backward {median_ms(ghost_backward)!r} ms per call; "
+          f"{cs._pass_split(torch, ghost_backward, 5, layers)}",
           flush=True)
     return 0
 
