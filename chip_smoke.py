@@ -19,8 +19,7 @@ frozen PointNet; 2048 points, B=50, sizes 16..2048 against the AE), and:
   1. prints the card (nvidia-smi name and power limit), nvcc and triton;
   2. builds the CUDA kernels from csrc/, prints the build time and what
      ptxas reports (registers, spills), and requires the SASS (cuobjdump)
-     of the forward MLP kernels, point_mlp_max and pmt_dense, to multiply
-     on the tensor cores (HMMA instructions);
+     of point_mlp_max to multiply on the tensor cores (HMMA instructions);
   3. holds each kernel against its plain PyTorch version on the card, at
      the serving path's shapes and at a ragged shape: nn_direction and FPS
      bit for bit, point_mlp_max within rtol = atol = 1e-4 (split TF32 on the
@@ -229,8 +228,8 @@ PROG_PATH = ("nn_snap", "point_mlp_train_fwd", "point_mlp_train_bwd",
 # special-function rate: 16 exp2 / rsqrt / rcp results
 # per SM per clock on compute capability 9.0 (CUDA C++ Programming Guide,
 # arithmetic instruction throughput), 132 SMs at the 1.98 GHz boost clock
-# the kernels whose dense layers run on the tensor cores (mma_tile.cuh)
-TENSOR_CORE_KERNELS = ("point_mlp_max_kernel", "pmt_dense_kernel")
+# the kernel whose dense layers run on the tensor cores (mma_tile.cuh)
+TENSOR_CORE_KERNELS = ("point_mlp_max_kernel",)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12       # dense, on the tensor cores
@@ -296,11 +295,7 @@ def phase_build() -> None:
         mine = {name: c for name, c in hmma.items() if key in name}
         log("build", f"{key}: HMMA instructions in the SASS per "
                      f"instantiation {mine}")
-        # every instantiation but the SIMT path of pmt_dense (kNT = 0, a
-        # layer of fewer than 8 input channels) multiplies on the tensor
-        # cores
-        if not mine or any(c == 0 for name, c in mine.items()
-                           if "Li0E" not in name):
+        if not mine or any(c == 0 for c in mine.values()):
             raise AssertionError(f"{key}: an instantiation without HMMA "
                                  f"instructions: {mine}")
     _build.library()
@@ -2076,8 +2071,7 @@ def phase_progressive_cli(torch, classifier) -> None:
 def _ghost_bounds(b: int, n: int, widths, bf16: bool) -> tuple[tuple, tuple]:
     """Bounds of the ghost chain's forward and backward: `_exact_bounds`'s
     bytes, the multiply-adds (2 FLOP forward; 4 backward, dW and dh) at the
-    BF16 tensor-core peak in bf16, and in f32 forward as three TF32
-    products each on the tensor cores, backward on FP32; BN, ReLU and the
+    BF16 tensor-core peak in bf16 and at FP32 in f32, and BN, ReLU and the
     statistics per channel at FP32."""
     pairs = list(zip(widths[:-1], widths[1:]))
     macs = sum(a * c for a, c in pairs)
@@ -2085,10 +2079,9 @@ def _ghost_bounds(b: int, n: int, widths, bf16: bool) -> tuple[tuple, tuple]:
     chans = sum(widths[1:])
     p, f = b * n, 4
     rate = BF16_FLOP_PER_S if bf16 else FP32_FLOP_PER_S
-    fwd = (p * 2.0 * macs, BF16_FLOP_PER_S) if bf16 \
-        else (p * 3 * 2.0 * macs, TF32_FLOP_PER_S)
     return (_bound(f * (p * widths[0] + params + b * widths[-1] + 2 * chans),
-                   fwd, (p * 7.0 * chans, FP32_FLOP_PER_S)),
+                   (p * 2.0 * macs, rate),
+                   (p * 7.0 * chans, FP32_FLOP_PER_S)),
             _bound(f * (2 * p * widths[0] + 2 * params + b * widths[-1]),
                    (p * 4.0 * macs, rate),
                    (p * 12.0 * chans, FP32_FLOP_PER_S)))
@@ -2218,19 +2211,17 @@ def _bound(nbytes: float, *ops: tuple[float, float]) -> tuple[float, str]:
 
 def _exact_bounds(b: int, n: int, widths) -> tuple[tuple, tuple]:
     """Bounds of the exact-BN chain's forward and backward over B*N points:
-    the forward's multiply-adds as three TF32 products each (3xTF32, 2 FLOP
-    a product) on the tensor cores, the backward's (dW and dh) at 4 FLOP on
-    FP32, and BN, ReLU and statistics per channel on FP32; x and the
-    parameters in, the pooled features and statistics (forward) or dx and
-    the parameters' gradients (backward) out."""
+    2 (forward) or 4 (backward: dW and dh) FLOP per multiply-add, and BN,
+    ReLU and statistics per channel, on FP32; x and the parameters in, the
+    pooled features and statistics (forward) or dx and the parameters'
+    gradients (backward) out."""
     pairs = list(zip(widths[:-1], widths[1:]))
     macs = sum(a * c for a, c in pairs)
     params = sum(a * c + 4 * c for a, c in pairs)
     chans = sum(widths[1:])
     p, f = b * n, 4
     return (_bound(f * (p * widths[0] + params + b * widths[-1] + 2 * chans),
-                   (p * 3 * 2.0 * macs, TF32_FLOP_PER_S),
-                   (p * 7.0 * chans, FP32_FLOP_PER_S)),
+                   (p * (2.0 * macs + 7 * chans), FP32_FLOP_PER_S)),
             _bound(f * (2 * p * widths[0] + 2 * params + b * widths[-1]),
                    (p * (4.0 * macs + 12 * chans), FP32_FLOP_PER_S)))
 
@@ -2256,9 +2247,9 @@ def kernel_bounds() -> dict[str, tuple[float, str]]:
     """Each kernel's bound at the shapes its times are taken at: each
     input read once, each output written once, and the operations the
     algorithm needs on these inputs (FP32 on the SIMT pipes; the EMD's
-    exp and rsqrt on the special-function units; on the tensor cores the
-    forward MLPs' multiply-adds, as three TF32 products each where they
-    are held to f32, and the ghost chain's, bf16 by default)."""
+    exp and rsqrt on the special-function units; on the tensor cores
+    point_mlp_max's multiply-adds, as three TF32 products each (held to
+    f32), and the ghost chain's, bf16 by default)."""
     f = 4                                          # bytes of f32 and i32
     exact_fwd, exact_bwd = _exact_bounds(B, N, WIDTHS)
     ghost_fwd, ghost_bwd = _ghost_bounds(PROG_B, PROG_N, WIDTHS, True)

@@ -1,54 +1,48 @@
-// The per-point MLP's dense layer on the H100's tensor cores: one 64-point
-// tile of activations in shared memory times a weight matrix W [cin, cout]
-// read through the read-only cache, into f32 accumulator fragments.
-// Shared by the eval chain (point_mlp_max.cu) and the train chains'
-// forward (point_mlp_train.cu, pmt_dense).
+// The per-point MLP's dense layer over one 64-point tile of activations in
+// shared memory, times a weight matrix W [cin, cout] read through the
+// read-only cache: on the H100's tensor cores (tile_product: the eval
+// chain's layers of 8 or more input channels, point_mlp_max.cu) or on the
+// FP32 pipes (simt_product: every layer of the train chains' forward,
+// pmt_dense in point_mlp_train.cu, and the eval chain's first layer of
+// fewer than 8 channels).
 //
-// The block's 8 warps split an output chunk of 64 points x 32*kNT channels
-// 2 x 4: warp w owns points 32*(w & 1) .. +31 (two 16-row MMA tiles) and
-// 8*kNT channels from 8*kNT*(w >> 1), so each B fragment it loads serves
-// both of its row tiles and each A fragment its kNT column tiles.
-//
-// f32 operands (kBf16 false) run on mma.sync m16n8k8 tf32, split: each
+// tile_product: the block's 8 warps split an output chunk of 64 points x
+// 32*kNT channels 2 x 4: warp w owns points 32*(w & 1) .. +31 (two 16-row
+// MMA tiles) and 8*kNT channels from 8*kNT*(w >> 1), so each B fragment it
+// loads serves both of its row tiles and each A fragment its kNT column
+// tiles. The f32 operands run on mma.sync m16n8k8 tf32 as 3xTF32: each
 // operand v is rounded as cvt.rna does into hi = tf32(v) and lo =
-// tf32(v - hi), and each K step of 8 sums a_lo*b_lo, a_lo*b_hi, a_hi*b_lo,
-// then a_hi*b_hi (the small terms first) from zero on the tensor cores and
-// adds that into the f32 accumulator with one round-to-nearest add. That is
-// 3xTF32 with its fourth, smallest product kept: each product is then good
-// to 2^-23 of itself, as f32's, where one TF32 product loses 11 bits of the
-// operands (the reference holds these chains to f32). Two things the card
-// showed shape it. The tensor cores' own sums truncate, so a running sum
-// kept in them drifts toward zero by an ulp of the sum per product step:
-// z came out further from float64 than the plain f32 matmul's, and its
-// batch mean furthest, which BN's backward amplifies; summing each step
-// from zero bounds each truncation by an ulp of the step's own products. And the train chains' gradients are held to the plain f32
-// path's error against float64, which BN's ReLU masks decide: where a
-// pre-activation lies within f32 noise of zero, any rounding other than
-// the plain path's may put it on the other side than float64 does. With
-// three products the train step's check and 3 of 65 card tests failed on
-// such points; with the fourth, 1 of 65.
-// bf16 operands (kBf16 true) run mma.sync m16n8k16 bf16: the conversion
-// __floats2bfloat162_rn is the operand's rounding, each product is exact
-// and the sums are f32, as jnp.dot(bf16, bf16, preferred_element_type=f32).
-// The ghost chain's train step is held to the plain bf16 step, whose
-// matmul sums its exact products in channel order; summed in 16-channel
-// steps instead, the step's gradients moved 12% (norm-wise) from the plain
-// step's against a 5% limit. So the bf16 tile sums in channel order: each
-// mma takes one channel's exact products and the accumulator adds them in
-// f32, as the plain path's sums do. The ghost chain runs at the
-// progressive step's small shapes, where its time is the host's.
+// tf32(v - hi), and each K step of 8 sums a_lo*b_hi, a_hi*b_lo, then
+// a_hi*b_hi (the small terms first) from zero on the tensor cores and adds
+// that into the f32 accumulator with one round-to-nearest add. A product
+// is then good to about 2^-22 of itself, where one TF32 product loses 11
+// bits of each operand (the eval chain is held within 1e-4 of the plain
+// f32 path). The tensor cores' own sums truncate: a running sum kept in
+// them drifts toward zero by an ulp of the sum per step, which the card
+// showed as outputs further from float64 than the plain f32 matmul's;
+// summed from zero, each step's truncation is bounded by an ulp of that
+// step's own products.
 //
-// The activation tile is a [rows][64] array of 32-bit words, one row per
-// input channel (f32) or per pair of channels (bf16x2, the lower channel in
-// the low half), each row's 64 points XOR-swizzled by 8 * (row & 3): the
+// simt_product: 4 points x 4 channels a thread, one FMA a product, in
+// channel order: the sums the plain path's f32 matmul takes. The train
+// chains need that order. Their gradients are held to twice the plain f32
+// path's error against float64, and BN's ReLU masks decide that check:
+// a pre-activation within f32 noise of zero falls on the side of zero its
+// summation order puts it, and with the tensor cores' order some fell on
+// the other side than the plain path's and float64's (one card test
+// failed on 3 of 4.2M points). The ghost chain in bf16 is held to the
+// plain bf16 step's gradients, whose sums of exact bf16 products are f32
+// FMAs in channel order too.
+//
+// The activation tile is a [rows][64] array of f32 words, one row per
+// input channel, each row's 64 points XOR-swizzled by 8 * (row & 3): the
 // A fragments' loads (rows k + t, points g for lane 4g + t) then hit 32
 // distinct banks, and groups of 4 consecutive points stay contiguous and
-// 16-byte aligned for the SIMT paths' float4 accesses. Rows past cin up to
-// the MMA's K step hold zeros.
+// 16-byte aligned for simt_product's float4 reads. Rows past cin up to the
+// K step hold zeros.
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cstdint>
 
 namespace mma {
@@ -75,22 +69,9 @@ __device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
   lo = tf32(v - __uint_as_float(hi));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {
   asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
@@ -115,137 +96,94 @@ struct Frag {
 // or cout read as 0. Each K step's operands are loaded one step ahead,
 // before the current step's products, so the loads' latency runs under
 // them.
-template <int kNT, bool kBf16>
+template <int kNT>
 __device__ __forceinline__ void tile_product(float (&acc)[2][kNT][4],
                                              const uint32_t* __restrict__ as,
                                              const float* __restrict__ w,
                                              int cin, int cout, int n0) {
   const Frag f(n0, kNT);
   const int col0 = f.n - 2 * f.t + f.g;  // this lane's B column, ni = 0
-  if constexpr (!kBf16) {
-    // raw operands of one K step: A rows k0 + t and k0 + t + 4, B the same
-    float an[2][4], bn[kNT][2];
-    auto load = [&](int k0) {
-      const int ka = k0 + f.t, kb = ka + 4;
+  // raw operands of one K step: A rows k0 + t and k0 + t + 4, B the same
+  float an[2][4], bn[kNT][2];
+  auto load = [&](int k0) {
+    const int ka = k0 + f.t, kb = ka + 4;
 #pragma unroll
-      for (int ni = 0; ni < kNT; ++ni) {
-        const int c = col0 + 8 * ni;
-        const bool in = c < cout;
-        bn[ni][0] = in && ka < cin ? __ldg(w + static_cast<size_t>(ka) * cout + c) : 0.0f;
-        bn[ni][1] = in && kb < cin ? __ldg(w + static_cast<size_t>(kb) * cout + c) : 0.0f;
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int p = f.m0 + 16 * mi + f.g;
-        an[mi][0] = __uint_as_float(as[aidx(ka, p)]);
-        an[mi][1] = __uint_as_float(as[aidx(ka, p + 8)]);
-        an[mi][2] = __uint_as_float(as[aidx(kb, p)]);
-        an[mi][3] = __uint_as_float(as[aidx(kb, p + 8)]);
-      }
-    };
-    load(0);
-    for (int k0 = 0; k0 < cin; k0 += 8) {
-      uint32_t ah[2][4], al[2][4], bh[kNT][2], bl[kNT][2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) split(an[mi][j], ah[mi][j], al[mi][j]);
-      }
-#pragma unroll
-      for (int ni = 0; ni < kNT; ++ni) {
-        split(bn[ni][0], bh[ni][0], bl[ni][0]);
-        split(bn[ni][1], bh[ni][1], bl[ni][1]);
-      }
-      if (k0 + 8 < cin) load(k0 + 8);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {  // the step's sum, then one f32 add
-        float step[kNT][4] = {};
-#pragma unroll
-        for (int ni = 0; ni < kNT; ++ni) mma_tf32(step[ni], al[mi], bl[ni]);
-#pragma unroll
-        for (int ni = 0; ni < kNT; ++ni) mma_tf32(step[ni], al[mi], bh[ni]);
-#pragma unroll
-        for (int ni = 0; ni < kNT; ++ni) mma_tf32(step[ni], ah[mi], bl[ni]);
-#pragma unroll
-        for (int ni = 0; ni < kNT; ++ni) mma_tf32(step[ni], ah[mi], bh[ni]);
-#pragma unroll
-        for (int ni = 0; ni < kNT; ++ni) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mi][ni][e] += step[ni][e];
-        }
-      }
+    for (int ni = 0; ni < kNT; ++ni) {
+      const int c = col0 + 8 * ni;
+      const bool in = c < cout;
+      bn[ni][0] = in && ka < cin ? __ldg(w + static_cast<size_t>(ka) * cout + c) : 0.0f;
+      bn[ni][1] = in && kb < cin ? __ldg(w + static_cast<size_t>(kb) * cout + c) : 0.0f;
     }
-  } else {
-    // one K step of 16: A pair rows k0/2 + t and + 4; B channels ka,
-    // ka + 1, ka + 8, ka + 9 of the lane's column
-    uint32_t an[2][4];
-    float bn[kNT][4];
-    auto load = [&](int k0) {
-      const int ka = k0 + 2 * f.t, kk = k0 / 2 + f.t;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const int p = f.m0 + 16 * mi + f.g;
+      an[mi][0] = __uint_as_float(as[aidx(ka, p)]);
+      an[mi][1] = __uint_as_float(as[aidx(ka, p + 8)]);
+      an[mi][2] = __uint_as_float(as[aidx(kb, p)]);
+      an[mi][3] = __uint_as_float(as[aidx(kb, p + 8)]);
+    }
+  };
+  load(0);
+  for (int k0 = 0; k0 < cin; k0 += 8) {
+    uint32_t ah[2][4], al[2][4], bh[kNT][2], bl[kNT][2];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) split(an[mi][j], ah[mi][j], al[mi][j]);
+    }
+#pragma unroll
+    for (int ni = 0; ni < kNT; ++ni) {
+      split(bn[ni][0], bh[ni][0], bl[ni][0]);
+      split(bn[ni][1], bh[ni][1], bl[ni][1]);
+    }
+    if (k0 + 8 < cin) load(k0 + 8);
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {  // the step's sum, then one f32 add
+      float step[kNT][4] = {};
+#pragma unroll
+      for (int ni = 0; ni < kNT; ++ni) mma_tf32(step[ni], al[mi], bh[ni]);
+#pragma unroll
+      for (int ni = 0; ni < kNT; ++ni) mma_tf32(step[ni], ah[mi], bl[ni]);
+#pragma unroll
+      for (int ni = 0; ni < kNT; ++ni) mma_tf32(step[ni], ah[mi], bh[ni]);
 #pragma unroll
       for (int ni = 0; ni < kNT; ++ni) {
-        const int c = col0 + 8 * ni;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int k = ka + (j & 1) + 8 * (j >> 1);
-          bn[ni][j] = c < cout && k < cin ? __ldg(w + static_cast<size_t>(k) * cout + c) : 0.0f;
-        }
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int p = f.m0 + 16 * mi + f.g;
-        an[mi][0] = as[aidx(kk, p)];
-        an[mi][1] = as[aidx(kk, p + 8)];
-        an[mi][2] = as[aidx(kk + 4, p)];
-        an[mi][3] = as[aidx(kk + 4, p + 8)];
-      }
-    };
-    load(0);
-    for (int k0 = 0; k0 < cin; k0 += 16) {
-      uint32_t a[2][4], b[kNT][2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) a[mi][j] = an[mi][j];
-      }
-#pragma unroll
-      for (int ni = 0; ni < kNT; ++ni) {
-        b[ni][0] = pack_bf16(bn[ni][0], bn[ni][1]);
-        b[ni][1] = pack_bf16(bn[ni][2], bn[ni][3]);
-      }
-      if (k0 + 16 < cin) load(k0 + 16);
-      // one channel k0 + j at a time: the A fragment keeps only its half
-      // word (lane t = (j mod 8) / 2 holds it), so the mma's sum is that one
-      // exact product, added to the accumulator in f32 in channel order
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const uint32_t keep =
-            f.t == (j & 7) >> 1 ? ((j & 1) ? 0xffff0000u : 0x0000ffffu) : 0u;
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          const uint32_t aj[4] = {j < 8 ? a[mi][0] & keep : 0u,
-                                  j < 8 ? a[mi][1] & keep : 0u,
-                                  j < 8 ? 0u : a[mi][2] & keep,
-                                  j < 8 ? 0u : a[mi][3] & keep};
-#pragma unroll
-          for (int ni = 0; ni < kNT; ++ni) {
-            float prod[4] = {};
-            mma_bf16(prod, aj, b[ni]);
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[mi][ni][e] += prod[e];
-          }
-        }
+        for (int e = 0; e < 4; ++e) acc[mi][ni][e] += step[ni][e];
       }
     }
   }
 }
 
+// a[pi][oj] += A[i][pp + pi] * W[i][o0 + oj] for i = 0, 1, .., cin - 1 in
+// that order, one FMA each on the FP32 pipes (pp a multiple of 4, o0 + 3 <
+// cout, cout a multiple of 4): one float4 of the tile and one of W feed 16
+// FMAs.
+__device__ __forceinline__ void simt_product(float (&a)[4][4],
+                                             const uint32_t* as,
+                                             const float* __restrict__ w,
+                                             int cin, int cout, int pp,
+                                             int o0) {
+  const float* hs = reinterpret_cast<const float*>(as);
+#pragma unroll 4
+  for (int i = 0; i < cin; ++i) {
+    const float4 hv = *reinterpret_cast<const float4*>(hs + aidx(i, pp));
+    const float4 wv = __ldg(reinterpret_cast<const float4*>(
+        w + static_cast<size_t>(i) * cout + o0));
+    const float hr[4] = {hv.x, hv.y, hv.z, hv.w};
+    const float wr[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+    for (int pi = 0; pi < 4; ++pi) {
+#pragma unroll
+      for (int oj = 0; oj < 4; ++oj) a[pi][oj] = __fmaf_rn(hr[pi], wr[oj], a[pi][oj]);
+    }
+  }
+}
+
 // Rows of the activation tile for cin input channels: cin rounded up to
-// the K step (8 channels in f32, 16 = 8 pair rows in bf16), or to 4 on the
-// SIMT path that takes a first layer of fewer than 8 channels.
-__host__ __device__ __forceinline__ int tile_rows(int cin, bool bf16, bool mma_path) {
-  if (!mma_path) return (cin + 3) / 4 * 4;
-  return bf16 ? (cin + 15) / 16 * 8 : (cin + 7) / 8 * 8;
+// the tensor cores' K step of 8, or to 4 for simt_product.
+__host__ __device__ __forceinline__ int tile_rows(int cin, bool mma_path) {
+  return mma_path ? (cin + 7) / 8 * 8 : (cin + 3) / 4 * 4;
 }
 
 // Channels of one output chunk: 32 * kNT, kNT chosen from cout

@@ -13,9 +13,9 @@
 // adds bound it. On the FP32 SIMT pipes (67 TFLOP/s) that is 1 ms; held to
 // f32 on the tensor cores as 3xTF32 (three TF32 products per multiply-add,
 // 495 TFLOP/s), 0.42 ms. mma.sync reaches 316 of those TFLOP/s on the card
-// (tools/mma_peak.py), and the tile takes four products, so its own
-// ceiling is 0.87 ms. The plain version instead writes and reads every
-// [B*N, C] activation through HBM (about 3.6 GB a batch).
+// (tools/diagnostics/mma_peak.py), so the tile's own ceiling is 0.65 ms.
+// The plain version instead writes and reads every [B*N, C] activation
+// through HBM (about 3.6 GB a batch).
 //
 // Design: one block per cloud walks the cloud in 64-point tiles. A tile's
 // activations stay in shared memory (mma_tile.cuh's swizzled layout),
@@ -23,18 +23,18 @@
 // activation reaches HBM and the classification widths take 48 KB a block
 // (the reconstruction widths 96 KB: two blocks an SM). Each layer with 8 or
 // more input channels runs on the tensor cores, its f32 operands split in
-// two TF32 parts each (mma_tile.cuh): the 8 warps take output chunks of 64
-// points x 32, 64 or 128 channels, the accumulators start at the bias, and
-// W's B fragments come through the read-only cache, each serving the
-// warp's two 16-point row tiles; a first
-// layer of fewer than 8 channels (x, 3 channels: 0.6% of the multiply-adds)
-// runs on FP32 FMAs, 4 points x 4 channels a thread. The epilogue applies
-// ReLU and writes the next layer's rows (zeros in the channels padded to
-// the K step), or, in the last layer, takes the max: over the thread's
-// points (the ragged tail masked), across the warp's rows by shuffles, and
-// into a per-block max by atomicMax on the int bit pattern, which orders
-// non-negative floats as floats (post-ReLU values are >= 0) and is exact
-// and deterministic. bf16 operands and wgmma are later work.
+// two TF32 parts each (mma_tile.cuh's tile_product): the 8 warps take
+// output chunks of 64 points x 32, 64 or 128 channels, the accumulators
+// start at the bias, and W's B fragments come through the read-only cache,
+// each serving the warp's two 16-point row tiles; a first layer of fewer
+// than 8 channels (x, 3 channels: 0.6% of the multiply-adds) runs on FP32
+// FMAs (simt_product). The epilogue applies ReLU and writes the next
+// layer's rows (zeros in the channels padded to the K step), or, in the
+// last layer, takes the max: over the thread's points (the ragged tail
+// masked), across the warp's rows by shuffles, and into a per-block max by
+// atomicMax on the int bit pattern, which orders non-negative floats as
+// floats (post-ReLU values are >= 0) and is exact and deterministic. bf16
+// operands and wgmma are later work.
 
 #include <cuda_runtime.h>
 
@@ -60,7 +60,6 @@ __device__ void simt_layer(const uint32_t* hin, uint32_t* hout, int ci, int co,
                            const float* __restrict__ w,
                            const float* __restrict__ bias, bool last, int np,
                            int* smax) {
-  const float* hf = reinterpret_cast<const float*>(hin);
   float* of = reinterpret_cast<float*>(hout);
   const int oq = co / 4;
   for (int t = threadIdx.x; t < (kTileP / 4) * oq; t += kThreads) {
@@ -75,18 +74,7 @@ __device__ void simt_layer(const uint32_t* hin, uint32_t* hout, int ci, int co,
       acc[pi][2] = bv.z;
       acc[pi][3] = bv.w;
     }
-    for (int i = 0; i < ci; ++i) {
-      const float4 a = *reinterpret_cast<const float4*>(hf + aidx(i, pp));
-      const float4 wv = __ldg(
-          reinterpret_cast<const float4*>(w + static_cast<size_t>(i) * co + o0));
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float wr[4] = {wv.x, wv.y, wv.z, wv.w};
-#pragma unroll
-      for (int pi = 0; pi < 4; ++pi) {
-#pragma unroll
-        for (int oj = 0; oj < 4; ++oj) acc[pi][oj] += av[pi] * wr[oj];
-      }
-    }
+    mma::simt_product(acc, hin, w, ci, co, pp, o0);
 #pragma unroll
     for (int oj = 0; oj < 4; ++oj) {
       if (!last) {
@@ -104,7 +92,7 @@ __device__ void simt_layer(const uint32_t* hin, uint32_t* hout, int ci, int co,
     }
   }
   if (!last) {  // zero the rows padded to the next layer's K step
-    const int pad = mma::tile_rows(co, false, true) - co;
+    const int pad = mma::tile_rows(co, true) - co;
     for (int e = threadIdx.x; e < pad * kTileP; e += kThreads) {
       hout[aidx(co + e / kTileP, e % kTileP)] = 0u;
     }
@@ -118,7 +106,7 @@ __device__ void mma_layer(const uint32_t* hin, uint32_t* hout, int ci, int co,
                           const float* __restrict__ w,
                           const float* __restrict__ bias, bool last, int np,
                           int* smax) {
-  const int co_pad = mma::tile_rows(co, false, true);
+  const int co_pad = mma::tile_rows(co, true);
   for (int n0 = 0; n0 < co; n0 += 32 * kNT) {
     const mma::Frag f(n0, kNT);
     float acc[2][kNT][4];
@@ -133,7 +121,7 @@ __device__ void mma_layer(const uint32_t* hin, uint32_t* hout, int ci, int co,
         acc[mi][ni][1] = acc[mi][ni][3] = b1;
       }
     }
-    mma::tile_product<kNT, false>(acc, hin, w, ci, co, n0);
+    mma::tile_product<kNT>(acc, hin, w, ci, co, n0);
 #pragma unroll
     for (int ni = 0; ni < kNT; ++ni) {
       const int c = f.n + 8 * ni;
@@ -182,13 +170,13 @@ point_mlp_max_kernel(const float* __restrict__ x,  // [B, n, c_0]
   const int cout_last = args.c[args.layers];
   int rows1 = 0;
   for (int l = 1; l < args.layers; l += 2) {
-    rows1 = max(rows1, mma::tile_rows(args.c[l], false, true));
+    rows1 = max(rows1, mma::tile_rows(args.c[l], true));
   }
   int* smax = reinterpret_cast<int*>(buf1 + rows1 * kTileP);
   const int b = blockIdx.x;
   for (int o = threadIdx.x; o < cout_last; o += kThreads) smax[o] = 0;
   const float* xb = x + static_cast<size_t>(b) * n * cin;
-  const int cin_rows = mma::tile_rows(cin, false, cin >= 8);
+  const int cin_rows = mma::tile_rows(cin, cin >= 8);
 
   for (int p0 = 0; p0 < n; p0 += kTileP) {
     const int np = min(kTileP, n - p0);
@@ -234,11 +222,11 @@ point_mlp_max_kernel(const float* __restrict__ x,  // [B, n, c_0]
 // layers 1, 3, ..., buffer 1 those of layers 0, 2, ... (the last layer's
 // output is not stored), each rounded up to the K step.
 void buffer_rows(const int* widths, int layers, int* rows0, int* rows1) {
-  *rows0 = mma::tile_rows(widths[0], false, widths[0] >= 8);
+  *rows0 = mma::tile_rows(widths[0], widths[0] >= 8);
   *rows1 = 0;
   for (int l = 1; l < layers; ++l) {
     int* r = l % 2 ? rows1 : rows0;
-    const int need = mma::tile_rows(widths[l], false, true);
+    const int need = mma::tile_rows(widths[l], true);
     *r = need > *r ? need : *r;
   }
 }

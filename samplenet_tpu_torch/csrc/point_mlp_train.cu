@@ -39,21 +39,24 @@
 //               z = act(in) op(W) over the tile in shared memory, act being
 //               the previous layer's ghost BN + ReLU applied on load from
 //               the block's constants in shared memory (with the stored
-//               xhat in the backward's recompute). Layers of 8 or more
-//               input channels multiply on the tensor cores (mma_tile.cuh):
-//               f32 split in two TF32 parts, bf16 on bf16 mma in channel
-//               order, the loader's conversion to bf16 being the operand's
-//               rounding; W's B fragments come
+//               xhat in the backward's recompute), rnd() rounding the
+//               operand in bf16. The products run on FP32 FMAs in channel
+//               order, 4 points x 4 channels a thread (mma_tile.cuh's
+//               simt_product): the plain path's sums, which the train
+//               chains' checks hold them to at BN's ReLU kinks
+//               (mma_tile.cuh says why the tensor cores' are not). W comes
 //               through the read-only cache, so shared memory holds only
-//               the tile and every width runs two or more blocks an SM.
-//               A first layer of fewer than 8 channels runs on FP32 FMAs
-//               (rnd() rounds its operands in bf16). z goes to HBM from the
-//               accumulators (unless null: the backward's recompute of rstd
-//               needs only the sums), and the epilogue sums each channel's
-//               z and z^2 over a warp's 32 points (shuffles in a fixed
-//               order), the tile's groups in f32 in order, and the tiles in
-//               f64 in tile order: one f64 row of sum z and sum z^2 per
-//               block.
+//               the tile, and cp.async stages the next tile's raw rows
+//               while the tile's products run where two blocks still fit
+//               an SM with them (ops/cuda/point_mlp_plan.py). z goes to HBM
+//               from the registers (unless null: the backward's recompute
+//               of rstd needs only the sums) and, 64 channels at a time,
+//               to shared memory, where one thread a channel sums the
+//               tile's z (another its z^2) in f32 in point order; the
+//               tiles are summed in f64 in tile order: one f64 row of sum z
+//               and sum z^2 per block. Both orders are fixed because BN's
+//               ReLU masks follow the last bits of z and of the
+//               statistics (mma_tile.cuh).
 //   pmt_pool    per cloud and channel, max over points of h_L and the first
 //               point that attains it (a NaN wins, as in torch.argmax).
 //   pmt_rows    grid (G, P): per ghost block, sum dy and sum dy*xhat_stored
@@ -101,20 +104,18 @@
 //
 // What bounds it on the H100: widths 3->64->64->64->128->128 are 32,960
 // multiply-adds per point. For the exact chain at B=1024, N=1024 that is
-// 69 GFLOP forward and 138 GFLOP backward. The forward multiplies on the
-// tensor cores: held to f32, three TF32 products a multiply-add are 0.42
-// ms at 495 TFLOP/s (the tile takes four, at the 316 TFLOP/s mma.sync
-// reaches: 0.87 ms); its z (1.9 GB written, read back by the next layer's
-// loader) adds about 1 ms at 3.35 TB/s. The backward's passes also move z and
-// dh (the rows pass and pmt_bwd_dz read both), dz (written once, read by
-// pmt_bwd_dw) and dh_prev: about 13 GB, 4 ms at 3.35 TB/s. pmt_bwd_dz is
-// bound by those bytes at the 64-wide layers and nears its FP32 bound at
-// 128 -> 128; pmt_bwd_dw, whose operands pass through shared memory once
-// per tile, by its FP32 multiply-adds. At the progressive step's shape
-// (B=32) it is 2.2 GFLOP forward and 4.3 GFLOP backward; the forward's
-// bf16 products run on the tensor cores, the backward's on the SIMT pipes
-// (bf16 only rounds their operands). 3xTF32 or bf16 mma in the backward,
-// and fusing pmt_rows into pmt_bwd_dz, are later work.
+// 69 GFLOP forward and 138 GFLOP backward, 1 ms and 2 ms on the FP32 pipes
+// at 67 TFLOP/s. The forward's z (1.9 GB written, read back by the next
+// layer's loader) adds about 1 ms at 3.35 TB/s. The backward's passes also
+// move z and dh (the rows pass and pmt_bwd_dz read both), dz (written
+// once, read by pmt_bwd_dw) and dh_prev: about 13 GB, 4 ms at 3.35 TB/s.
+// pmt_bwd_dz is bound by those bytes at the 64-wide layers and nears its
+// FP32 bound at 128 -> 128; pmt_bwd_dw, whose operands pass through shared
+// memory once per tile, by its FP32 multiply-adds. At the progressive
+// step's shape (B=32) it is 2.2 GFLOP forward and 4.3 GFLOP backward, on
+// the SIMT pipes (bf16 only rounds the operands). The tensor cores wait on
+// a check that sees accuracy rather than the plain path's summation order
+// (ROADMAP.md); fusing pmt_rows into pmt_bwd_dz is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -220,17 +221,15 @@ __device__ __forceinline__ void stage_rows(float* stage,
 }
 
 // Loads tile rows [p0, p0 + np) of in [., cin] into the activation tile
-// `as` (mma_tile.cuh's layout, `rows` rows) as act(in), from the rows
-// staged in `stage` when it is not null: the layer below's BN + ReLU from
-// its constants cs [4][cin] (this ghost block's mu and rstd, gamma, beta;
-// null for the first layer), with the stored-xhat rounding `store`. A
-// warp takes 32 points of 4 channels: 16-byte loads where cin allows, and
-// each store fills 32 consecutive points of one row (no bank conflict).
-// On the bf16 tensor-core path the conversion to bf16 pairs is the
-// operand's rounding; on the SIMT path rnd() rounds it. Padded points and
-// channels are 0.
-template <bool kBf16, bool kMma>
-__device__ __forceinline__ void load_act_tile(uint32_t* as, int rows,
+// `as` (mma_tile.cuh's layout, cin rounded up to 4 rows) as act(in),
+// rounded by rnd() in bf16, from the rows staged in `stage` when it is not
+// null: the layer below's BN + ReLU from its constants cs [4][cin] (this
+// ghost block's mu and rstd, gamma, beta; null for the first layer), with
+// the stored-xhat rounding `store`. A warp takes 32 points of 4 channels:
+// 16-byte loads where cin allows, and each store fills 32 consecutive
+// points of one row (no bank conflict). Padded points and channels are 0.
+template <bool kBf16>
+__device__ __forceinline__ void load_act_tile(uint32_t* as,
                                               const float* __restrict__ in,
                                               const float* stage, int cin,
                                               const float* cs, int store,
@@ -269,102 +268,29 @@ __device__ __forceinline__ void load_act_tile(uint32_t* as, int rows,
         }
       }
     }
-    if constexpr (kBf16 && kMma) {
-      as[aidx(c / 2, p)] = mma::pack_bf16(v[0], v[1]);
-      as[aidx(c / 2 + 1, p)] = mma::pack_bf16(v[2], v[3]);
-    } else {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) as[aidx(c + j, p)] = __float_as_uint(rnd(v[j], kBf16));
-    }
-  }
-  const int done = kBf16 && kMma ? 2 * cq : 4 * cq;  // rows written above
-  for (int e = threadIdx.x; e < (rows - done) * kTileP; e += kThreads) {
-    as[aidx(done + e / kTileP, e % kTileP)] = 0u;
+    for (int j = 0; j < 4; ++j) as[aidx(c + j, p)] = __float_as_uint(rnd(v[j], kBf16));
   }
 }
 
-// z = act(in) op(W) of one tile on the tensor cores, in output chunks of
-// 32 kNT channels: z rows straight from the accumulators (each warp store
-// fills eight 32-byte sectors), and per channel the sums of z and z^2 over
-// the warp's 32 points (its rows, then shuffles in a fixed order) into
-// part [2 warps][2][cout].
-template <int kNT, bool kBf16>
-__device__ __forceinline__ void dense_mma(const uint32_t* as,
-                                          const float* __restrict__ w, int cin,
-                                          int cout, float* __restrict__ z,
-                                          float* part, long long p0, int np) {
-  const int wm = (threadIdx.x >> 5) & 1;
-  for (int n0 = 0; n0 < cout; n0 += 32 * kNT) {
-    const mma::Frag f(n0, kNT);
-    float acc[2][kNT][4] = {};
-    mma::tile_product<kNT, kBf16>(acc, as, w, cin, cout, n0);
-#pragma unroll
-    for (int ni = 0; ni < kNT; ++ni) {
-      const int c = f.n + 8 * ni;  // even, and cout is a multiple of 4
-      float s[2] = {0.0f, 0.0f}, s2[2] = {0.0f, 0.0f};
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int p = f.m0 + 16 * mi + f.g + 8 * h;
-          const float v0 = acc[mi][ni][2 * h], v1 = acc[mi][ni][2 * h + 1];
-          if (p < np) {
-            if (z != nullptr && c < cout) {
-              *reinterpret_cast<float2*>(z + (p0 + p) * cout + c) = make_float2(v0, v1);
-            }
-            s[0] += v0;
-            s2[0] += v0 * v0;
-            s[1] += v1;
-            s2[1] += v1 * v1;
-          }
-        }
-      }
-#pragma unroll
-      for (int off = 4; off < 32; off *= 2) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          s[j] += __shfl_xor_sync(0xffffffffu, s[j], off);
-          s2[j] += __shfl_xor_sync(0xffffffffu, s2[j], off);
-        }
-      }
-      if (f.g == 0 && c < cout) {
-        float* ps = part + 2 * wm * cout;
-        ps[c] = s[0];
-        ps[c + 1] = s[1];
-        ps[cout + c] = s2[0];
-        ps[cout + c + 1] = s2[1];
-      }
-    }
-  }
-}
+// Output channels a pmt_dense block takes at a time: z and z^2 of each
+// are summed from a [kChunk][kStride] copy of the chunk's z
+constexpr int kChunk = 64;
 
-// The same on the FP32 pipes for a layer of fewer than 8 input channels:
-// 4 points x 4 channels a thread, each point's 4 channels of z stored as
-// 16 bytes, and per channel the sums over the thread's 4 points into part
-// [16 point groups][2][cout].
-__device__ __forceinline__ void dense_simt(const uint32_t* as,
-                                           const float* __restrict__ w,
-                                           int cin, int cout,
-                                           float* __restrict__ z, float* part,
-                                           long long p0, int np) {
-  const float* hs = reinterpret_cast<const float*>(as);
-  const int oq = cout / 4;
+// z[., n0 .. n0 + nc) = act(in) op(W) of one tile on the FP32 pipes, 4
+// points x 4 channels a thread: each point's 4 channels of z stored to HBM
+// as 16 bytes, and the chunk's z into zt [nc][kStride], channel-major.
+__device__ __forceinline__ void dense_chunk(const uint32_t* as,
+                                            const float* __restrict__ w,
+                                            int cin, int cout, int n0, int nc,
+                                            float* __restrict__ z, float* zt,
+                                            long long p0, int np) {
+  const int oq = nc / 4;
   for (int u = threadIdx.x; u < (kTileP / 4) * oq; u += kThreads) {
-    const int o0 = (u % oq) * 4;
+    const int oc = (u % oq) * 4, o0 = n0 + oc;
     const int pp = (u / oq) * 4;
     float a[4][4] = {};
-    for (int i = 0; i < cin; ++i) {
-      const float4 hv = *reinterpret_cast<const float4*>(hs + aidx(i, pp));
-      const float4 wv = __ldg(reinterpret_cast<const float4*>(
-          w + static_cast<size_t>(i) * cout + o0));
-      const float hr[4] = {hv.x, hv.y, hv.z, hv.w};
-      const float wr[4] = {wv.x, wv.y, wv.z, wv.w};
-#pragma unroll
-      for (int pi = 0; pi < 4; ++pi) {
-#pragma unroll
-        for (int oj = 0; oj < 4; ++oj) a[pi][oj] += hr[pi] * wr[oj];
-      }
-    }
+    mma::simt_product(a, as, w, cin, cout, pp, o0);
 #pragma unroll
     for (int pi = 0; pi < 4; ++pi) {
       if (z != nullptr && pp + pi < np) {
@@ -372,35 +298,17 @@ __device__ __forceinline__ void dense_simt(const uint32_t* as,
             make_float4(a[pi][0], a[pi][1], a[pi][2], a[pi][3]);
       }
     }
-    float* ps = part + 2 * (pp / 4) * cout;
 #pragma unroll
     for (int oj = 0; oj < 4; ++oj) {
-      float s = 0.0f, s2 = 0.0f;
-#pragma unroll
-      for (int pi = 0; pi < 4; ++pi) {
-        if (pp + pi < np) {
-          s += a[pi][oj];
-          s2 += a[pi][oj] * a[pi][oj];
-        }
-      }
-      ps[o0 + oj] = s;
-      ps[cout + o0 + oj] = s2;
+      *reinterpret_cast<float4*>(zt + (oc + oj) * kStride + pp) =
+          make_float4(a[0][oj], a[1][oj], a[2][oj], a[3][oj]);
     }
   }
 }
 
-// Groups of partial column sums a tile leaves: the two warps of a column
-// on the tensor cores, the 16 point groups on the SIMT path
-__host__ __device__ constexpr int dense_groups(bool mma_path) {
-  return mma_path ? 2 : kTileP / 4;
-}
-
-// kNT > 0: output chunks of 32 kNT channels on the tensor cores (split TF32,
-// or bf16 with kBf16); kNT = 0: the SIMT path of a layer with fewer than 8
-// input channels (operands rounded by rnd() with kBf16).
-// With `stage`, cp.async brings the next tile's raw rows in while the
-// tile's products run.
-template <bool kBf16, int kNT>
+// Operands rounded by rnd() with kBf16. With `stage`, cp.async brings the
+// next tile's raw rows in while the tile's products run.
+template <bool kBf16>
 __global__ void __launch_bounds__(kThreads, 2)
 pmt_dense_kernel(const float* __restrict__ in, int cin, GBN prev, int has_prev,
                  int store,
@@ -408,14 +316,12 @@ pmt_dense_kernel(const float* __restrict__ in, int cin, GBN prev, int has_prev,
                  int cout, float* __restrict__ z,  // [P*m, cout] or null
                  double* __restrict__ rows,        // [P, G, 2, cout]
                  Ghost gh, int stage) {
-  constexpr bool kMma = kNT > 0;
-  constexpr int kGroups = dense_groups(kMma);
   extern __shared__ float4 smem4[];
-  double* acc = reinterpret_cast<double*>(smem4);          // [2][cout]
-  float* part = reinterpret_cast<float*>(acc + 2 * cout);  // [kGroups][2][cout]
-  float* cs = part + kGroups * 2 * cout;                   // [4][cin]
+  double* acc = reinterpret_cast<double*>(smem4);        // [2][cout]
+  float* zt = reinterpret_cast<float*>(acc + 2 * cout);  // [kChunk][kStride]
+  float* cs = zt + min(cout, kChunk) * kStride;          // [4][cin]
   uint32_t* as = reinterpret_cast<uint32_t*>(cs + 4 * cin);  // the tile
-  const int arows = mma::tile_rows(cin, kBf16, kMma);
+  const int arows = mma::tile_rows(cin, false);
   float* staged = stage ? reinterpret_cast<float*>(as + arows * kTileP) : nullptr;
   const int blk = blockIdx.y;
   for (int c = threadIdx.x; c < 2 * cout; c += kThreads) acc[c] = 0.0;
@@ -441,8 +347,8 @@ pmt_dense_kernel(const float* __restrict__ in, int cin, GBN prev, int has_prev,
     tile_of(gh, first + t, &tb, &p0, &np);
     cp_async_wait<0>();
     __syncthreads();  // rows and constants in; the last tile's reads done
-    load_act_tile<kBf16, kMma>(as, arows, in, staged, cin,
-                               has_prev ? cs : nullptr, store, p0, np);
+    load_act_tile<kBf16>(as, in, staged, cin, has_prev ? cs : nullptr, store,
+                         p0, np);
     __syncthreads();  // the tile is in; the stage is free
     if (staged != nullptr && t + gridDim.x < gh.tiles) {
       int nb, nn;
@@ -451,22 +357,25 @@ pmt_dense_kernel(const float* __restrict__ in, int cin, GBN prev, int has_prev,
       stage_rows(staged, in, cin, np0, nn);
     }
     cp_async_commit();
-    if constexpr (kMma) {
-      dense_mma<kNT, kBf16>(as, w, cin, cout, z, part, p0, np);
-    } else {
-      dense_simt(as, w, cin, cout, z, part, p0, np);
-    }
-    __syncthreads();
-    // the tile's sums in f32, in group order, then into f64 in tile order
-    for (int c = threadIdx.x; c < cout; c += kThreads) {
-      float s = 0.0f, s2 = 0.0f;
-#pragma unroll
-      for (int g = 0; g < kGroups; ++g) {
-        s += part[2 * g * cout + c];
-        s2 += part[(2 * g + 1) * cout + c];
+    for (int n0 = 0; n0 < cout; n0 += kChunk) {
+      const int nc = min(kChunk, cout - n0);
+      dense_chunk(as, w, cin, cout, n0, nc, z, zt, p0, np);
+      __syncthreads();
+      // per channel, the tile's sum of z (threads 0 .. nc-1) or of z^2
+      // (nc .. 2nc-1) in f32 in point order, then into f64 in tile order
+      const int j = threadIdx.x % nc;
+      if (threadIdx.x < 2 * nc) {
+        const float* v = zt + j * kStride;
+        float s = 0.0f;
+        if (threadIdx.x < nc) {
+          for (int p = 0; p < np; ++p) s += v[p];
+          acc[n0 + j] += s;
+        } else {
+          for (int p = 0; p < np; ++p) s += v[p] * v[p];
+          acc[cout + n0 + j] += s;
+        }
       }
-      acc[c] += s;
-      acc[cout + c] += s2;
+      __syncthreads();  // zt is free for the next chunk
     }
   }
   cp_async_wait<0>();
@@ -1015,14 +924,13 @@ Ghost make_ghost(int bb, int n) {
 }  // namespace
 
 // A pmt_dense block (ops/cuda/point_mlp_plan.py counts the same): the f64
-// sums [2, cout], the tile's partial sums [groups, 2, cout], the layer
+// sums [2, cout], a chunk of the tile's z [min(cout, 64)][68], the layer
 // below's BN constants [4, cin], the activation tile of 64 words a row
 // and, with `stage`, the next tile's raw rows [64, cin + 4].
-extern "C" size_t snt_pmt_dense_smem(int cin, int cout, int bf16, int stage) {
-  const bool mma_path = cin >= 8;
+extern "C" size_t snt_pmt_dense_smem(int cin, int cout, int stage) {
   return 2 * static_cast<size_t>(cout) * sizeof(double) +
-         (2 * static_cast<size_t>(dense_groups(mma_path)) * cout + 4 * cin +
-          static_cast<size_t>(mma::tile_rows(cin, bf16, mma_path)) * kTileP +
+         (static_cast<size_t>(cout < kChunk ? cout : kChunk) * kStride + 4 * cin +
+          static_cast<size_t>(mma::tile_rows(cin, false)) * kTileP +
           (stage ? static_cast<size_t>(kTileP) * stage_stride(cin) : 0)) *
              sizeof(float);
 }
@@ -1043,24 +951,11 @@ extern "C" size_t snt_pmt_bwd_dw_smem(int ri) {
   return sizeof(float) * 2 * kTileP * (kDwTile + kDwThreads * ri * 8 / kDwTile);
 }
 
-// pmt_dense for nt output tiles of 8 a warp (0: the SIMT path), or null
-template <bool kBf16>
-const void* dense_kernel(int nt) {
-  switch (nt) {
-    case 0: return reinterpret_cast<const void*>(pmt_dense_kernel<kBf16, 0>);
-    case 1: return reinterpret_cast<const void*>(pmt_dense_kernel<kBf16, 1>);
-    case 2: return reinterpret_cast<const void*>(pmt_dense_kernel<kBf16, 2>);
-    case 4: return reinterpret_cast<const void*>(pmt_dense_kernel<kBf16, 4>);
-    default: return nullptr;
-  }
-}
-
 // prev_bn holds (mu, rstd, gamma, beta) of the layer below, or is null for
 // the first layer (then `in` is x itself); `store` applies the backward's
-// stored-xhat rounding to it. z may be null (sums only). Layers of 8 or
-// more input channels run on the tensor cores, bf16 operands with bf16 on,
-// else f32 split in TF32 parts; `stage` (the launch plan's, taken where cin is a multiple
-// of 4) stages the next tile's rows with cp.async.
+// stored-xhat rounding to it. z may be null (sums only). bf16 rounds the
+// operands; `stage` (the launch plan's, taken where cin is a multiple of
+// 4) stages the next tile's rows with cp.async.
 extern "C" int snt_pmt_dense(const float* in, int cin, const float* const* prev_bn,
                              int store, int bf16, const float* w, int cout,
                              float* z, double* rows, int n_blocks, int bb, int n,
@@ -1068,10 +963,9 @@ extern "C" int snt_pmt_dense(const float* in, int cin, const float* const* prev_
   if (cout % 4 || cin < 1 || grid < 1 || n_blocks < 1 || (stage && cin % 4)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int kb = bf16;  // the operands' type: bf16, or f32 in TF32 parts
-  const int nt = cin < 8 ? 0 : mma::chunk_nt(cout);
-  const void* kernel = kb ? dense_kernel<true>(nt) : dense_kernel<false>(nt);
-  const size_t smem = snt_pmt_dense_smem(cin, cout, kb, stage);
+  const void* kernel = bf16 ? reinterpret_cast<const void*>(pmt_dense_kernel<true>)
+                            : reinterpret_cast<const void*>(pmt_dense_kernel<false>);
+  const size_t smem = snt_pmt_dense_smem(cin, cout, stage);
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   GBN prev = make_gbn(prev_bn);

@@ -137,7 +137,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.snt_soft_project_bwd_smem.restype = sz
     lib.snt_soft_project_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
     lib.snt_soft_project_bwd.restype = i
-    lib.snt_pmt_dense_smem.argtypes = [i, i, i, i]
+    lib.snt_pmt_dense_smem.argtypes = [i, i, i]
     lib.snt_pmt_dense_smem.restype = sz
     lib.snt_pmt_bwd_dz_smem.argtypes = [i, i, i, i]
     lib.snt_pmt_bwd_dz_smem.restype = sz

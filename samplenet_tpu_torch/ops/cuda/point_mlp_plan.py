@@ -4,21 +4,20 @@ csrc/mma_tile.cuh; the constants below are the kernels' own).
 
 The forward kernels, pmt_dense (each layer of the train chains' forward)
 and point_mlp_max (the eval chain), hold a 64-point tile of activations in
-shared memory, one row of 64 words per input channel (f32) or pair of
-channels (bf16), the rows rounded up to the tensor cores' K step (8
-channels in f32, split in TF32 parts, 16 in bf16; a layer of fewer than 8
-input channels runs on the SIMT pipes, its rows rounded up to 4). W needs no
-shared memory and no K chunks: each warp reads its B fragments through
-the read-only cache and uses each for both of its 16-point row tiles, so
-shared memory holds only what the tile needs and two or more blocks share
-an SM at every width the tracks run:
+shared memory, one row of 64 f32 words per input channel, the rows
+rounded up to the tensor cores' K step of 8 (point_mlp_max's layers of 8
+or more input channels) or to 4 (the FP32 FMAs of pmt_dense and of a
+first layer of fewer than 8 channels). W needs no shared memory and no K
+chunks: it is read through the read-only cache, so shared memory holds
+only what the tile needs and two or more blocks share an SM at every
+width the tracks run:
 
 - pmt_dense: the tile of `cin` channels, the layer below's BN constants
-  [4, cin], the tile's partial column sums of z and z^2 [groups, 2, cout]
-  (2 groups on the tensor cores, 16 on the SIMT path), the block's f64
-  sums [2, cout] and, where two blocks still share an SM with it, the
-  next tile's raw rows [64, cin + 4], staged by cp.async while the tile's
-  products run (`stage`; cin a multiple of 4, on the tensor cores).
+  [4, cin], a chunk of up to 64 output channels of the tile's z [.., 68]
+  (each channel's z and z^2 are summed from it in point order), the
+  block's f64 sums [2, cout] and, where two blocks still share an SM with
+  it, the next tile's raw rows [64, cin + 4], staged by cp.async while the
+  tile's products run (`stage`; cin a multiple of 4).
 - point_mlp_max: two tile buffers, each as tall as the widest layer it
   holds (buffer 0: x and the outputs of layers 1, 3, ...; buffer 1: those
   of layers 0, 2, ...; the last layer's output is not stored), and the
@@ -183,29 +182,22 @@ def plan_bwd(widths, n_blocks: int, m: int, sms: int,
 
 # ---------------------------------------------------------------- forward
 
-FWD_THREADS = 256     # mma::kThreads: 8 warps, 2 (points) x 4 (channels)
+FWD_THREADS = 256     # mma::kThreads: 8 warps
 FWD_MIN_BLOCKS = 2    # both forward kernels' launch bounds (registers)
 MAX_LAYERS = 8        # point_mlp_max.cu kMaxLayers
+DENSE_CHUNK = 64      # pmt_dense's output channels at a time (kChunk)
 
 
-def tile_rows(cin: int, bf16: bool, mma_path: bool) -> int:
+def tile_rows(cin: int, mma_path: bool) -> int:
     """Rows of 64 words of a `cin`-channel activation tile
-    (mma::tile_rows)."""
-    if not mma_path:
-        return _ceil(cin, 4) * 4
-    return _ceil(cin, 16) * 8 if bf16 else _ceil(cin, 8) * 8
+    (mma::tile_rows): to the K step of 8 on the tensor cores, else 4."""
+    return _ceil(cin, 8) * 8 if mma_path else _ceil(cin, 4) * 4
 
 
-def dense_groups(mma_path: bool) -> int:
-    """Groups of partial column sums a pmt_dense tile leaves."""
-    return 2 if mma_path else TILE // 4
-
-
-def dense_smem(cin: int, cout: int, bf16: bool, stage: bool) -> int:
+def dense_smem(cin: int, cout: int, stage: bool) -> int:
     """Bytes of a pmt_dense block (csrc: snt_pmt_dense_smem)."""
-    mma_path = cin >= 8
-    return 8 * 2 * cout + 4 * (2 * dense_groups(mma_path) * cout + 4 * cin
-                               + tile_rows(cin, bf16, mma_path) * TILE
+    return 8 * 2 * cout + 4 * (min(cout, DENSE_CHUNK) * (TILE + 4) + 4 * cin
+                               + tile_rows(cin, False) * TILE
                                + (TILE * (cin + 4) if stage else 0))
 
 
@@ -213,33 +205,30 @@ def dense_smem(cin: int, cout: int, bf16: bool, stage: bool) -> int:
 class DensePlan:
     cin: int
     cout: int
-    mma: bool          # on the tensor cores (else the SIMT path, cin < 8)
     stage: bool        # cp.async stages the next tile's rows
     smem: int          # bytes per block
     blocks_per_sm: int  # by shared memory and threads
 
 
-def plan_dense(cin: int, cout: int, bf16: bool,
-               limit: int) -> DensePlan | None:
+def plan_dense(cin: int, cout: int, limit: int) -> DensePlan | None:
     """pmt_dense's plan for one layer, or None where the kernel does not
     take it (cout not a multiple of 4, or more shared memory than
     `limit`)."""
-    if cin < 1 or cout % 4 or dense_smem(cin, cout, bf16, False) > limit:
+    if cin < 1 or cout % 4 or dense_smem(cin, cout, False) > limit:
         return None
-    stage = cin >= 8 and cin % 4 == 0 and blocks_per_sm(
-        dense_smem(cin, cout, bf16, True), FWD_THREADS,
-        limit) >= FWD_MIN_BLOCKS
-    smem = dense_smem(cin, cout, bf16, stage)
-    return DensePlan(cin, cout, cin >= 8, stage, smem,
+    stage = cin % 4 == 0 and blocks_per_sm(
+        dense_smem(cin, cout, True), FWD_THREADS, limit) >= FWD_MIN_BLOCKS
+    smem = dense_smem(cin, cout, stage)
+    return DensePlan(cin, cout, stage, smem,
                      blocks_per_sm(smem, FWD_THREADS, limit))
 
 
 def max_rows(widths) -> tuple[int, int]:
     """Rows of point_mlp_max's two tile buffers (csrc: buffer_rows)."""
-    rows = [tile_rows(widths[0], False, widths[0] >= 8), 0]
+    rows = [tile_rows(widths[0], widths[0] >= 8), 0]
     for layer in range(1, len(widths) - 1):
         rows[layer % 2] = max(rows[layer % 2],
-                              tile_rows(widths[layer], False, True))
+                              tile_rows(widths[layer], True))
     return rows[0], rows[1]
 
 

@@ -240,11 +240,11 @@ def ptrs(*tensors) -> ctypes.Array:
     return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
 
 
-def check_cuda(x, widths, name: str, block_b: int | None = None,
-               bf16: bool = False) -> tuple[list[LayerPlan], list[DensePlan]]:
+def check_cuda(x, widths, name: str, block_b: int | None = None
+               ) -> tuple[list[LayerPlan], list[DensePlan]]:
     """Checks what the kernels take, for ghost blocks of `block_b` clouds
-    (all B: the exact chain) with operands in bf16 or f32; returns each
-    layer's backward plan and pmt_dense plan."""
+    (all B: the exact chain); returns each layer's backward plan and
+    pmt_dense plan."""
     if x.device.type != "cuda":
         raise ValueError(f"the {name} kernels take CUDA tensors, got "
                          f"{x.device}")
@@ -259,7 +259,7 @@ def check_cuda(x, widths, name: str, block_b: int | None = None,
     limit = max_dynamic_smem(x.device)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     pairs = list(zip(widths[:-1], widths[1:]))
-    dense = [plan_dense(ci, co, bf16, limit) for ci, co in pairs]
+    dense = [plan_dense(ci, co, limit) for ci, co in pairs]
     plans = plan_bwd(widths, b // bb, bb * n, sms, limit)
     if None in dense or plans is None:
         raise ValueError(f"widths {widths} need more shared memory per block "
@@ -268,7 +268,7 @@ def check_cuda(x, widths, name: str, block_b: int | None = None,
         if (lib.snt_pmt_bwd_dz_smem(pl.cin_pad, pl.cout, pl.dz_kc,
                                     int(pl.dz_stage)) != pl.dz_smem
                 or lib.snt_pmt_bwd_dw_smem(pl.dw_ri) != pl.dw_smem
-                or lib.snt_pmt_dense_smem(dp.cin, dp.cout, int(bf16),
+                or lib.snt_pmt_dense_smem(dp.cin, dp.cout,
                                           int(dp.stage)) != dp.smem):
             raise RuntimeError("point_mlp_plan.py and csrc/point_mlp_train.cu "
                                "count shared memory apart")
@@ -288,7 +288,7 @@ def point_mlp_train_fwd_cuda(x, weights, gammas, betas, eps, block_b, bf16):
     """(pooled, block means, block E[z^2] (f64), saved): saved feeds the
     backward kernels."""
     widths = [x.shape[-1], *(w.shape[1] for w in weights)]
-    dense = check_cuda(x, widths, "point_mlp_train", block_b, bf16)[1]
+    dense = check_cuda(x, widths, "point_mlp_train", block_b)[1]
     b, n, _ = x.shape
     p, m = b // block_b, block_b * n
     lib = library()
@@ -339,7 +339,7 @@ def bwd_cuda(x, weights, gammas, betas, eps, block_b, bf16, saved, g,
     (dz and dh_prev) and pmt_bwd_dw (dW's f64 partials, summed here)."""
     zs, mus, rstds, argmax = saved
     widths = [x.shape[-1], *(w.shape[1] for w in weights)]
-    plans, dense = check_cuda(x, widths, kernel, block_b, bf16)
+    plans, dense = check_cuda(x, widths, kernel, block_b)
     b, n, c0 = x.shape
     p, m = b // block_b, block_b * n
     tiles = -(-m // _TILE)

@@ -182,7 +182,10 @@ def test_train_forward_is_deterministic_and_f32_accurate(dev, widths, b, n):
     """The exact chain's forward kernels: z and the f64 statistics rows
     bit-equal from run to run; pooled, means and variances no further from
     the plain version in float64 than twice the plain f32 version (or
-    1e-5 of scale)."""
+    1e-5 of scale). The share of each layer's z bit-equal to the plain
+    version's is printed: the kernel sums in the plain matmul's order, so
+    layer 0's should be all of it (above it, the statistics the two take
+    in other orders may move an input by an ulp)."""
     from samplenet_tpu_torch.ops.cuda import point_mlp_exact_kernel as pme
 
     rng = np.random.default_rng(b + n)
@@ -204,8 +207,10 @@ def test_train_forward_is_deterministic_and_f32_accurate(dev, widths, b, n):
         ek, ep = _rel_err(k, r), _rel_err(p, r)
         assert ek <= max(2 * ep, 1e-5), (ek, ep)
         worst = max(worst, (ek, ep))
+    same = [float((a == c).double().mean()) for a, c in zip(zs, plain[3][0])]
     print(f"exact forward {widths} B={b} N={n} against f64: kernel "
-          f"{worst[0]!r}, plain f32 {worst[1]!r}")
+          f"{worst[0]!r}, plain f32 {worst[1]!r}; share of z bit-equal to "
+          f"the plain version's, by layer: {same}")
 
 
 def test_kernels_refuse_what_they_do_not_take(dev):
@@ -284,9 +289,7 @@ def _exact_run(x, params, g, plain=False, dtype=torch.float32):
     # 64 -> 512: pmt_bwd_dz in 32-point tiles, 2 points a thread, op(W)^T
     # in K chunks
     (2, 300, (3, 64, 512)),
-    # widths off the tensor cores' K step (12 -> 20: one 8-channel step
-    # and a half, a 32-channel output chunk with 12 padded), N = 1 and
-    # a ragged N
+    # widths that are no multiple of 8 (12 -> 20), N = 1 and a ragged N
     (5, 1, (3, 12, 20)),
     (3, 1000, (3, 12, 20)),
 ])
@@ -707,9 +710,8 @@ def test_point_mlp_train_matches_plain(dev, b, n, bb, bf16):
     (8, 1, 4, False),
 ])
 def test_point_mlp_train_at_widths_off_the_k_step(dev, b, n, bb, bf16):
-    """3 -> 12 -> 20: the bf16 tile pads 12 channels to its 16-channel K
-    step and the f32 tile to 16 in two 8-channel steps, and both pad the
-    20 output channels to a 32-channel chunk."""
+    """3 -> 12 -> 20: widths that are no multiple of 8, at N = 1 and a
+    ragged N, in bf16 and in f32."""
     rng = np.random.default_rng(b * 1000 + n + bf16)
     x, params, g = _ghost_args(rng, b, n, (3, 12, 20), dev)
     _ghost_check(x, params, g, bb, bf16)

@@ -1,6 +1,6 @@
 """The forward kernels' launch plans (`samplenet_tpu_torch/ops/cuda/
-point_mlp_plan.py`) and the 3xTF32 arithmetic of their tensor-core tile
-(`csrc/mma_tile.cuh`), on the CPU.
+point_mlp_plan.py`) and the 3xTF32 arithmetic of point_mlp_max's
+tensor-core tile (`csrc/mma_tile.cuh`), on the CPU.
 
 The plans are pure Python, and the CUDA wrappers check on the card that
 pmt_dense and point_mlp_max count shared memory as they do. Over every
@@ -8,20 +8,19 @@ width set the port runs (the classification sampler, bottleneck 64, the
 reconstruction AE encoder and sampler, and a 3-12-20 chain whose widths
 are not multiples of the K step), on an H100 (232,448 bytes of shared
 memory per block): both kernels fit and leave room for at least two blocks
-per SM. Every width the SIMT kernels took (their shared memory: two
+per SM. Every width the earlier kernels took (their shared memory: two
 [c_max, 68] float buffers for point_mlp_max, [cin + cout, 68] floats and
 2 cout doubles for pmt_dense) is still taken, and what they refused is
 still refused.
 
 The tile splits each f32 operand v into hi = tf32(v) and lo = tf32(v - hi)
 as cvt.rna rounds (to nearest, ties away from zero, to 10 mantissa bits)
-and sums a_lo*b_lo + a_lo*b_hi + a_hi*b_lo + a_hi*b_hi per K step of 8,
-then adds the step into the f32 accumulator. The emulation below rounds by
-bit arithmetic on an int32 view (TF32 products are exact in f32) at the
-classification and reconstruction layer shapes: the tile's four products,
-and 3xTF32 without the smallest, land within 2x of the plain f32 matmul's
-error against float64, by the largest entry and norm-wise, and one TF32
-product (the control) does not.
+and sums a_lo*b_hi + a_hi*b_lo + a_hi*b_hi per K step of 8, then adds the
+step into the f32 accumulator. The emulation below rounds by bit
+arithmetic on an int32 view (TF32 products are exact in f32) at the
+classification and reconstruction layer shapes: the tile's three products
+land within 2x of the plain f32 matmul's error against float64, by the
+largest entry and norm-wise, and one TF32 product (the control) does not.
 """
 
 import numpy as np
@@ -60,24 +59,22 @@ def test_max_plan_fits(name):
     assert p.blocks_per_sm >= 2
     # each buffer holds every layer input it takes, to the K step
     for layer, c in enumerate(widths[:-1]):
-        assert p.rows[layer % 2] >= plan.tile_rows(c, False, c >= 8) >= c
+        assert p.rows[layer % 2] >= plan.tile_rows(c, c >= 8) >= c
     assert p.rows[0] % 4 == 0 and p.rows[1] % 8 == 0
 
 
-@pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("cin,cout", PAIRS)
-def test_dense_plan_fits(cin, cout, bf16):
-    p = plan.plan_dense(cin, cout, bf16, H100_SMEM)
+def test_dense_plan_fits(cin, cout):
+    p = plan.plan_dense(cin, cout, H100_SMEM)
     assert p is not None
-    assert p.smem == plan.dense_smem(cin, cout, bf16, p.stage)
+    assert p.smem == plan.dense_smem(cin, cout, p.stage)
     assert p.smem <= H100_SMEM and p.blocks_per_sm >= 2
-    assert p.mma == (cin >= 8)
-    rows = plan.tile_rows(cin, bf16, p.mma)
-    # a row holds one channel (f32) or a pair (bf16 on the tensor cores),
-    # and the rows cover the K step: 8 channels, 16 in bf16, 4 on SIMT
-    channels = 2 * rows if bf16 and p.mma else rows
-    step = (16 if bf16 else 8) if p.mma else 4
-    assert channels >= cin and channels % step == 0 and channels - cin < step
+    # cp.async stages 16-byte pieces of rows of cin floats
+    assert p.stage == (cin % 4 == 0 and plan.blocks_per_sm(
+        plan.dense_smem(cin, cout, True), plan.FWD_THREADS, H100_SMEM) >= 2)
+    # a row a channel, the rows covering 4 channels a float4
+    rows = plan.tile_rows(cin, False)
+    assert rows >= cin and rows % 4 == 0 and rows - cin < 4
 
 
 @pytest.mark.parametrize("c_max", [8, 64, 128, 256, 404, 424])
@@ -104,13 +101,12 @@ def test_point_mlp_max_refuses_what_it_refused():
 
 
 @pytest.mark.parametrize("cin", [1, 3, 4, 7, 8, 12, 64, 128, 256, 415, 800])
-@pytest.mark.parametrize("bf16", [False, True])
-def test_pmt_dense_takes_every_width_it_took(cin, bf16):
+def test_pmt_dense_takes_every_width_it_took(cin):
     for cout in range(4, 1025, 4):
         if _old_dense_smem(cin, cout) <= H100_SMEM:
-            assert plan.plan_dense(cin, cout, bf16, H100_SMEM) is not None, \
+            assert plan.plan_dense(cin, cout, H100_SMEM) is not None, \
                 (cin, cout)
-    assert plan.plan_dense(cin, 6, bf16, H100_SMEM) is None       # 6 % 4
+    assert plan.plan_dense(cin, 6, H100_SMEM) is None       # 6 % 4
 
 
 def _tf32(t: torch.Tensor) -> torch.Tensor:
@@ -122,12 +118,11 @@ def _tf32(t: torch.Tensor) -> torch.Tensor:
 def _mma_f32(a: torch.Tensor, w: torch.Tensor, terms: int) -> torch.Tensor:
     """a @ w as the tile sums it: per K step of 8, the split products in
     f32 from zero, smallest first, then the step added into an f32
-    accumulator. terms=4: a_lo*b_lo, a_lo*b_hi, a_hi*b_lo, a_hi*b_hi (the
-    tile's); 3: 3xTF32 (no a_lo*b_lo); 1: a_hi*b_hi, one TF32 product."""
+    accumulator. terms=3: a_lo*b_hi, a_hi*b_lo, a_hi*b_hi (3xTF32, the
+    tile's); 1: a_hi*b_hi, one TF32 product."""
     ah, wh = _tf32(a), _tf32(w)
     al, wl = _tf32(a - ah), _tf32(w - wh)
-    pairs = {4: [(al, wl), (al, wh), (ah, wl), (ah, wh)],
-             3: [(al, wh), (ah, wl), (ah, wh)],
+    pairs = {3: [(al, wh), (ah, wl), (ah, wh)],
              1: [(ah, wh)]}[terms]
     acc = torch.zeros(a.shape[0], w.shape[1])
     for k0 in range(0, a.shape[1], 8):
@@ -159,8 +154,7 @@ def test_tf32_rounds_to_nearest_ties_away():
     assert ((hi - x).abs() <= x.abs() * 2.0 ** -11).all()
 
 
-@pytest.mark.parametrize("terms", [4, 3, 1],
-                         ids=["tile, 4 products", "3xTF32", "1xTF32"])
+@pytest.mark.parametrize("terms", [3, 1], ids=["3xTF32", "1xTF32"])
 @pytest.mark.parametrize("cin,cout", [(64, 64), (64, 128), (128, 128),
                                       (128, 256), (256, 128)])
 def test_tf32_products_keep_f32_accuracy(cin, cout, terms):

@@ -2,7 +2,7 @@
 """How often an f32 forward that rounds otherwise than the plain path fails
 the exact-BN chain's gradient rule, emulated on the CPU.
 
-    python3 tools/kink_emulation.py [SEEDS]
+    python3 tools/diagnostics/kink_emulation.py [SEEDS]
 
 The exact chain's gradients are held to "at most twice the plain f32
 path's error against float64" (chip_smoke.py, tests/test_torch_port_cuda
@@ -13,17 +13,20 @@ default) at the reconstruction widths (B=4, N=2048, 3-64-128-128-256-128),
 the exact forward with each layer's matmul computed as
 
 - `f32`: the plain path (torch's f32 matmul);
-- `3x`: the tensor-core tile with three TF32 products (csrc/mma_tile.cuh:
-  operands split as cvt.rna rounds, a_lo*b_hi + a_hi*b_lo + a_hi*b_hi per
-  8-channel step, the step truncated toward zero as the tensor cores sum,
-  then added in f32);
-- `4x`: the same with a_lo*b_lo, the tile the port ships;
+- `3x`: the tensor-core tile with three TF32 products (csrc/mma_tile.cuh,
+  which point_mlp_max runs: operands split as cvt.rna rounds, a_lo*b_hi +
+  a_hi*b_lo + a_hi*b_hi per 8-channel step, the step truncated toward zero
+  as the tensor cores sum, then added in f32);
+- `4x`: the same with a_lo*b_lo as well;
 - `exact`: the f64 product rounded once to f32 (the most accurate f32 z);
 
 then the plain f64 backward on that forward's state, and prints per seed
 each mode's worst gradient error against the f64 chain, marking with X
 where it exceeds twice the `f32` mode's (or 1e-5), and the counts. The
 first layer (3 input channels, FP32 FMAs on the card) is `f32` in all.
+It is why the train chains' pmt_dense sums in the plain path's order: a
+tensor-core forward as accurate as the plain path's fails the rule on
+some inputs.
 """
 
 from __future__ import annotations
@@ -90,8 +93,8 @@ def forward(x, ws, gs, bes, mode):
 
 
 def main() -> int:
-    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
-        __file__))))
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))))
     from samplenet_tpu_torch.ops.cuda import point_mlp_exact_kernel as pme
 
     seeds = int(sys.argv[1]) if len(sys.argv) > 1 else 30

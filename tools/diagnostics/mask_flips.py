@@ -2,7 +2,7 @@
 """Where the exact-BN chain's kernel and plain f32 forwards part from the
 float64 one, and what that does to the gradients, on the card.
 
-    python3 tools/mask_flips.py
+    python3 tools/diagnostics/mask_flips.py
 
 Run it from the root of a checkout on a machine with an NVIDIA H100. For
 the exact chain (point_mlp_exact_train_max) at the card tests' shapes,

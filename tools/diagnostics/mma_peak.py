@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Peak rates of the card's multiply pipes as the port's kernels reach them.
 
-    python3 tools/mma_peak.py
+    python3 tools/diagnostics/mma_peak.py
 
 Builds a small CUDA library in the checkout's build/ directory (nvcc,
 sm_90a) and times, with CUDA events on the default stream, loops of
@@ -9,12 +9,12 @@ independent operations spread over every SM (4 blocks of 256 threads an
 SM, 8 independent accumulators a thread):
 
 - mma.sync.aligned.m16n8k8 tf32 (the f32 tile's instruction),
-- mma.sync.aligned.m16n8k16 bf16 (the ghost chain's),
+- mma.sync.aligned.m16n8k16 bf16,
 - FFMA on the FP32 SIMT pipes,
 
 and prints each as TFLOP/s (a multiply-add counts 2) beside the card's
-name and power limit. The tile in csrc/mma_tile.cuh takes four tf32
-products per f32 multiply-add, so its f32-equivalent ceiling is a quarter
+name and power limit. The tile in csrc/mma_tile.cuh takes three tf32
+products per f32 multiply-add, so its f32-equivalent ceiling is a third
 of the tf32 rate printed here.
 """
 
@@ -25,7 +25,8 @@ import os
 import subprocess
 import sys
 
-HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+HERE = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 SRC = r"""
 #include <cuda_runtime.h>
 #include <cstdint>

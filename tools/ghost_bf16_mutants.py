@@ -30,11 +30,9 @@ MUTANTS = {  # name -> edits (file, text, its replacement), each text once
     "rounds nothing": [(
         CU, "return bf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;",
         "return v;")],
-    # the forward's (on the bf16 tensor cores the conversion is the
-    # rounding, so the mutant runs the f32 (split-TF32) tile on unrounded
-    # activations), and pmt_bwd_dw's h_prev
+    # the forward's (pmt_dense's loader), and pmt_bwd_dw's h_prev
     "activations unrounded": [
-        (CU, "const int kb = bf16;", "const int kb = 0;"),
+        (CU, "__float_as_uint(rnd(v[j], kBf16));", "__float_as_uint(v[j]);"),
         (CU, "          v = rnd(v, kBf16);", "          v = v;")],
     "dz unrounded": [(
         CU, "v[j] = rnd(rstd2 * (gamma * dy - r1 - xh * r2), kBf16);",

@@ -19,7 +19,10 @@ events around each call, host time included:
   torch.profiler, split by pass (chip_smoke.py's `_pass_split`, read from
   this script's own checkout);
 - the ghost chain (bf16, block 4) at the progressive step's shape (B=32,
-  N=1024): its forward and its backward per call, and their splits.
+  N=1024): its forward and its backward per call, and their splits;
+- for each train-chain shape, a digest (SHA-1) of the forward kernels'
+  outputs (pooled, statistics, z, argmax) and of the backward kernels'
+  gradients: equal digests from two checkouts mean bit-equal results.
 
 To compare two checkouts on one card, run it four times in a row: A, B,
 B, A.
@@ -27,6 +30,7 @@ B, A.
 
 from __future__ import annotations
 
+import hashlib
 import importlib.util
 import os
 import sys
@@ -36,6 +40,22 @@ SHAPES = ((1024, 1024, (3, 64, 64, 64, 128, 128)),
 GHOST = (32, 1024, (3, 64, 64, 64, 128, 128), 4)
 FWD_KERNELS = ("point_mlp_max", "pmt_dense")
 TOOL_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def digest(*outs) -> str:
+    """SHA-1 (first 12 hex digits) of the bytes of every tensor in outs,
+    nested tuples and lists in order."""
+    h = hashlib.sha1()
+
+    def add(o):
+        if isinstance(o, (tuple, list)):
+            for t in o:
+                add(t)
+        else:
+            h.update(o.detach().contiguous().cpu().numpy().tobytes())
+
+    add(outs)
+    return h.hexdigest()[:12]
 
 
 def main() -> int:
@@ -136,7 +156,11 @@ def main() -> int:
               f"forward {cs._pass_split(torch, fwd_kernels, 5, layers, cs.FWD_PASSES)}"
               f"; backward {cs._pass_split(torch, backward, 5, layers)}",
               flush=True)
-        del saved
+        fwd = pme.point_mlp_exact_fwd_cuda(xd, ws, gs, bes, 1e-5)
+        bwd = pme.point_mlp_exact_bwd_cuda(xd, ws, gs, bes, fwd[3], g)
+        print(f"[{tag}] bits of B={b}, N={n}: forward {digest(fwd)}, "
+              f"backward {digest(bwd)}", flush=True)
+        del saved, fwd, bwd
         torch.cuda.empty_cache()
 
     b, n, widths, bb = GHOST
@@ -159,6 +183,11 @@ def main() -> int:
           f"; backward {median_ms(ghost_backward)!r} ms per call; "
           f"{cs._pass_split(torch, ghost_backward, 5, layers)}",
           flush=True)
+    fwd = pmt.point_mlp_train_fwd_cuda(xd, ws, gs, bes, 1e-5, bb, True)
+    bwd = pmt.point_mlp_train_bwd_cuda(xd, ws, gs, bes, 1e-5, bb, True,
+                                       fwd[3], g)
+    print(f"[{tag}] bits of the ghost chain: forward {digest(fwd)}, "
+          f"backward {digest(bwd)}", flush=True)
     return 0
 
 
