@@ -44,7 +44,9 @@ frozen PointNet; 2048 points, B=50, sizes 16..2048 against the AE), and:
      epoch of 3 steps and again with --resume;
   9. (compare_recon) holds the EMD kernel against its plain version at
      B=50, 2048 x 2048 and at (n, m) = (96, 160), (128, 64), (2048, 64),
-     with and without gradients, point_mlp_exact at the track's widths
+     with and without gradients, and at B=2, 320 x 320 with each xyz2_i
+     where level * d2 straddles the kernel's skip threshold at a steep
+     level, point_mlp_exact at the track's widths
      at B=50, N=2048, and through their own wrappers at the track's
      shapes point_mlp_max (B=50, 2048 points, its widths), fps (2048 ->
      64), nn_direction (64 -> 2048 and back) and soft_projection (k=16);
@@ -83,7 +85,9 @@ frozen PointNet; 2048 points, B=50, sizes 16..2048 against the AE), and:
      train_progressive --fused-train` for one epoch of 2 steps;
  16. times each kernel, the eval forward and the train steps against the
      plain versions, per call with CUDA events and as device time with
-     torch.profiler, and computes each kernel's bound from its inputs; the
+     torch.profiler (the EMD also on the AE step's own pair: the seeded
+     AE's reconstruction of the procedural clouds against them), and
+     computes each kernel's bound from its inputs; the
      exact chain's backward at B=1024 and at the reconstruction widths
      also as device time split by pass (forward: dense per layer, pool,
      glue; backward: BN rows, dz/dh_prev, dW, glue).
@@ -1165,6 +1169,27 @@ def _randn(torch, rng, *shape):
         .to(DEVICE)
 
 
+# the EMD kernel skips a warp's pairs where every level * d2 lies below
+# this; expf is +0 there (tests/test_torch_port_cuda.py checks it)
+EMD_UNDERFLOW = -104.0
+EMD_STEEP_LEVELS = (-65536.0, -16384.0, -4096.0, -1024.0, -256.0)
+
+
+def _straddle_clouds(torch, rng, b, n):
+    """xyz2_i at distance sqrt(104 / |L|) * (1 -+ 1e-3) from xyz1_i, L
+    cycling over the steep levels: level * d2 just above and just below the
+    EMD kernel's underflow threshold, at each of them."""
+    x1 = 4.0 * rng.standard_normal((b, n, 3))
+    way = rng.standard_normal((b, n, 3))
+    way /= np.linalg.norm(way, axis=2, keepdims=True)
+    i = np.arange(n)
+    level = np.asarray(EMD_STEEP_LEVELS)[i % len(EMD_STEEP_LEVELS)]
+    side = np.where((i // len(EMD_STEEP_LEVELS)) % 2 == 0, 1 - 1e-3, 1 + 1e-3)
+    x2 = x1 + (np.sqrt(EMD_UNDERFLOW / level) * side)[None, :, None] * way
+    return (torch.from_numpy(x1.astype(np.float32)).to(DEVICE),
+            torch.from_numpy(x2.astype(np.float32)).to(DEVICE))
+
+
 def _emd_check(torch, label, x1, x2) -> float:
     """The EMD kernel against its plain version in f32 and f64; returns
     max |kernel - plain| over the cost and both gradients."""
@@ -1226,6 +1251,11 @@ def phase_compare_recon(torch) -> dict[str, float]:
         if label == "main":
             errs["emd"] = err
         torch.cuda.empty_cache()
+    # the card test's straddling input (test_emd_matches_plain_and_f64):
+    # on some draws of this construction the plain f32 version itself lands
+    # 5.6e-4 from f64 in the cost (PERF.md, PR 8)
+    straddle = _straddle_clouds(torch, np.random.default_rng(20640), 2, 320)
+    _emd_check(torch, "straddling the skip threshold", *straddle)
     x, groups, g = _exact_inputs(torch, rng, RECON_B, RECON_N, RECON_WIDTHS)
     nl = len(RECON_WIDTHS) - 1
     pk, sk, gk = _exact_call(torch, x, groups, g)
@@ -1525,8 +1555,9 @@ def phase_recon_cli(torch) -> None:
 
 
 def phase_times_recon(torch, x, card) -> dict[str, tuple]:
-    """On one line: the EMD kernel and the exact-BN chain at the track's
-    shapes, and both train steps, each against the plain path."""
+    """On one line: the EMD kernel (on randn clouds and on the AE step's own
+    pair) and the exact-BN chain at the track's shapes, and both train
+    steps, each against the plain path."""
     from samplenet_tpu_torch.ops.cuda import point_mlp_exact_kernel as pme
     from samplenet_tpu_torch.ops.cuda.emd_kernel import (
         emd_cost_cuda,
@@ -1537,9 +1568,16 @@ def phase_times_recon(torch, x, card) -> dict[str, tuple]:
     rng = np.random.default_rng(SEED + 21)
     x1 = _randn(torch, rng, RECON_B, RECON_N, 3)
     x2 = _randn(torch, rng, RECON_B, RECON_N, 3)
+    ae = _recon_state(torch, "ae")[0]
+    with torch.no_grad():      # the AE step's own pair at its seeded start
+        recon = ae(x, training=True).contiguous()
+    del ae
     parts, times = [], {}
     cases = {"emd": (lambda: emd_cost_cuda(x1, x2, True),
-                     lambda: emd_cost_plain(x1, x2, True), 3)}
+                     lambda: emd_cost_plain(x1, x2, True), 3),
+             "emd (the AE step's pair)": (
+                 lambda: emd_cost_cuda(recon, x, True),
+                 lambda: emd_cost_plain(recon, x, True), 3)}
     xe, (ws, _, gs, bes), g = _exact_inputs(torch, rng, RECON_B, RECON_N,
                                             RECON_WIDTHS)
     saved_k = pme.point_mlp_exact_fwd_cuda(xe, ws, gs, bes, 1e-5)[3]
@@ -1552,7 +1590,8 @@ def phase_times_recon(torch, x, card) -> dict[str, tuple]:
         lambda: pme.point_mlp_exact_bwd_plain(xe, ws, gs, bes, saved_p, g),
         10)
     exact_fwd, exact_bwd = _exact_bounds(RECON_B, RECON_N, RECON_WIDTHS)
-    bounds = [_emd_bound(RECON_B, RECON_N, RECON_N), exact_fwd, exact_bwd]
+    bounds = [_emd_bound(RECON_B, RECON_N, RECON_N)] * 2 + [exact_fwd,
+                                                            exact_bwd]
     for (name, (kernel_fn, plain_fn, iters)), bound in zip(cases.items(),
                                                            bounds):
         k, p = _pair_ms(torch, kernel_fn, plain_fn, iters)

@@ -26,30 +26,46 @@
 // program. Here a block takes kRows rows of one cloud (grid: row tiles x
 // clouds, 1600 blocks at B=50, n=2048) and walks all m columns of it, the
 // cloud's xyz2 and the column state (satr, ratio, next satr) held in shared
-// memory; the distance tile is recomputed in every pass, never stored.
-// The column sums of a level need every row of the cloud, so each level
-// is one launch: blocks write per-tile partial column sums, and a small
-// kernel adds them over the tiles in a fixed order and forms ratio and the
-// next satr. As on the TPU, pass B of level l also computes the column sums
-// of level l+1 (its row sums are stored per row and read by the next
-// launch instead of being recomputed). Thread t owns columns t, t+256, ...
-// and keeps their per-level sums in shared memory that only it touches;
-// the row sums of 4 rows at a time are reduced across the block by warp
-// shuffles and one pass over the warps' partials. No float atomics: every
-// sum has a fixed order, so two runs give the same bits.
+// memory with the block's rows; d2 is recomputed, never stored. The column
+// sums of a level need every row of the cloud, so each level is one
+// launch: blocks write per-tile partial column sums, and a small kernel
+// adds them over the tiles in a fixed order and forms ratio and the next
+// satr. As on the TPU, pass B of level l also computes the column sums of
+// level l+1 (its row sums are stored per row and read by the next launch).
+// Thread t owns columns t, t+256, ... and keeps their per-level sums in
+// shared memory that only it touches; the row sums of 8 rows at a time are
+// reduced across the block by warp shuffles and one pass over the warps'
+// partials, and a column adds its sums 4 rows at a time. No float atomics:
+// every sum has a fixed order, so two runs give the same bits.
 //
 // What bounds it on the H100: at B=50, n=m=2048 there are 210M pairs. The
 // function needs, per pair, one rsqrt for d and 1/d and one exp for each of
 // the 10 levels L != 0 (2.3G SFU operations: 0.55 ms at 16 per SM per
 // clock, 132 SMs, 1.98 GHz), and each level's arithmetic once, 271 FLOP
 // (57 GFLOP: 0.85 ms at 67 TFLOP/s); it moves 5 MB. So its bound is the
-// FP32 rate (chip_smoke.py::_emd_bound). This kernel recomputes d2 and the
-// weights in 12 passes: 33 exp and 11 rsqrt per pair, and about 80 FP32
-// instructions per pair and pass. Keeping a row group's exp values in
-// registers between passes and skipping pairs whose exp underflows to 0
-// are later work.
+// FP32 rate (chip_smoke.py::_emd_bound). What the design does about it:
+// at the steep levels (L = -65536 .. -64) most weights are exp of less
+// than -104, which expf rounds to +0, and such a pair adds +0 to every sum.
+// A warp's unit, 8 rows x 32 columns, is skipped whole where every pair
+// underflows: first by the boxes of the row group and of the 32-column
+// chunk (warp-uniform, before any d2: a lower bound on every pair's d2,
+// rounded as sqdist rounds, so the test is exact), then by a vote on the
+// pairs' own level * d2. The skip is bit-exact: the outputs equal those of
+// the unit summed. The wrapper orders both clouds by Morton code, so that
+// a row group and a chunk are each small in space and the boxes decide
+// (emd_kernel.py::in_morton_order). The second sweep of a row group (the
+// next level's column sums, after its row sums) recomputes d2 and the exp
+// only for the units the first found live. Where the boxes show every
+// pair live, no pair is tested. On the chip_smoke.py inputs the units
+// skipped save 52% of the 20 exp per pair, on the AE step's pair 58%
+// (tools/time_emd.py); the levels where no weight underflows run as
+// before, at about 44% of the FP32 issue rate: 16 warps an SM (two blocks
+// of 95 KB of shared memory, 128 registers a thread) do not hide the exp
+// and shuffle latencies (PERF.md).
 
 #include <cuda_runtime.h>
+
+#include <math.h>
 
 #include "sqdist.cuh"
 
@@ -58,10 +74,21 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 64;   // rows of xyz1 per block
-constexpr int kGroup = 4;   // rows that share one block reduction
-constexpr int kRed = 7 * kGroup;
+constexpr int kGroup = 8;   // rows that share one block reduction
+// rows whose sum a column adds at once: the column sums round as they did
+// with 4-row groups
+constexpr int kColGroup = 4;
+// The level kernel's row sums, each kGroup wide: the mass, the sum of u and
+// of u x2 (3), the next level's rowsum; then one of the group's cost.
+enum RowSum { kSumWr, kSumU, kSumUx, kSumNext = kSumUx + 3, kSumCost };
+constexpr int kRed = kSumCost * kGroup + 1;
 constexpr int kLevels = 11;
 constexpr int kColThreads = 256;
+// expf(x) is +0 for every f32 x at or below this (snt_emd_underflow_check
+// runs expf over all of them on the card): a warp's unit whose every
+// level * d2 lies below it adds exact zeros, and is skipped.
+constexpr float kUnderflow = -104.0f;
+constexpr unsigned kFull = 0xffffffffu;
 
 // v[k] summed over the block, into tot[k] for every thread to read. Sums in
 // a fixed order: a shuffle butterfly inside each warp, then warps 0..7.
@@ -73,7 +100,7 @@ __device__ __forceinline__ void block_sum(float (&v)[V], float* red,
   for (int k = 0; k < V; ++k) {
     float x = v[k];
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+    for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
     v[k] = x;
   }
   if (lane == 0) {
@@ -81,15 +108,19 @@ __device__ __forceinline__ void block_sum(float (&v)[V], float* red,
     for (int k = 0; k < V; ++k) red[warp * V + k] = v[k];
   }
   __syncthreads();
-  if (threadIdx.x < V) {
+  for (int k = threadIdx.x; k < V; k += kThreads) {
     float s = 0.0f;
-    for (int w = 0; w < kWarps; ++w) s += red[w * V + threadIdx.x];
-    tot[threadIdx.x] = s;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += red[w * V + k];
+    tot[k] = s;
   }
   __syncthreads();
 }
 
+// The accurate expf of the weights; exp(0 * d2) is 1 where d2 is finite
+// and NaN where it is not, which is what expf gives there.
 __device__ __forceinline__ float level_exp(float level, float d2) {
+  if (level == 0.0f) return __fadd_rn(__fmul_rn(0.0f, d2), 1.0f);
   return expf(__fmul_rn(level, d2));
 }
 
@@ -103,7 +134,14 @@ struct Shared {  // carved from dynamic shared memory, m columns
   float* acc_col;// [m]    next level's column sums over this block's rows
   float* red;    // [kWarps][kRed]
   float* tot;    // [kRed]
+  float* rows;   // [kRowVals][kRows] the block's rows: xyz, satl, rowsum, g1
+  float* cbox;   // [chunks][6] each 32-column chunk's box: lo xyz, hi xyz
+  int* ctame;    // [chunks] 1 where the chunk's coordinates are tame
 };
+
+enum RowVal { kX, kY, kZ, kSatl, kRowsum, kG1x, kG1y, kG1z, kRowVals };
+
+__host__ __device__ constexpr int num_chunks(int m) { return (m + 31) / 32; }
 
 __device__ Shared carve(float* smem, int m) {
   Shared s;
@@ -116,32 +154,114 @@ __device__ Shared carve(float* smem, int m) {
   s.acc_col = s.acc_ux + 3 * m;
   s.red = s.acc_col + m;
   s.tot = s.red + kWarps * kRed;
+  s.rows = s.tot + kRed;
+  s.cbox = s.rows + kRowVals * kRows;
+  s.ctame = reinterpret_cast<int*>(s.cbox + 6 * num_chunks(m));
   return s;
 }
 
-// Loads row group [r0, r0 + kGroup) of cloud b (rows past `end` read as 0
-// with zero saturation, so they carry no mass).
-__device__ __forceinline__ void load_rows(const float* __restrict__ xyz1,
-                                          const float* __restrict__ satl,
-                                          int b, int n, int r0, int end,
-                                          float (&px)[kGroup],
-                                          float (&py)[kGroup],
-                                          float (&pz)[kGroup],
-                                          float (&sl)[kGroup]) {
-#pragma unroll
-  for (int g = 0; g < kGroup; ++g) {
-    const int i = r0 + g;
+// A coordinate far enough from overflow that no d2 it enters is inf (3 *
+// (2e18)^2 < FLT_MAX); false for inf and NaN.
+__device__ __forceinline__ bool tame(float x) { return fabsf(x) <= 1e18f; }
+
+// Stages the block's rows [begin, end) of cloud b (rows past `end` are 0
+// with zero saturation and rowsum 1, so they carry no mass), with their
+// rowsum and g1 where the kernel reads them, and each column chunk's box.
+// Runs after x2 is in shared memory.
+__device__ void stage(const Shared& s, const float* __restrict__ xyz1,
+                      const float* __restrict__ satl,
+                      const float* __restrict__ rowsum,
+                      const float* __restrict__ g1, int b, int n, int m,
+                      int begin, int end) {
+  for (int r = threadIdx.x; r < kRows; r += kThreads) {
+    const int i = begin + r;
     const bool ok = i < end;
     const size_t row = static_cast<size_t>(b) * n + i;
-    px[g] = ok ? xyz1[row * 3 + 0] : 0.0f;
-    py[g] = ok ? xyz1[row * 3 + 1] : 0.0f;
-    pz[g] = ok ? xyz1[row * 3 + 2] : 0.0f;
-    sl[g] = ok ? satl[row] : 0.0f;
+    for (int c = 0; c < 3; ++c) {
+      s.rows[(kX + c) * kRows + r] = ok ? xyz1[row * 3 + c] : 0.0f;
+      s.rows[(kG1x + c) * kRows + r] = ok && g1 ? g1[row * 3 + c] : 0.0f;
+    }
+    s.rows[kSatl * kRows + r] = ok ? satl[row] : 0.0f;
+    s.rows[kRowsum * kRows + r] = ok && rowsum ? rowsum[row] : 1.0f;
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int c = warp; c < num_chunks(m); c += kWarps) {
+    const int j = 32 * c + lane;
+    float lo[3], hi[3];
+    bool ok = true;
+    for (int a = 0; a < 3; ++a) {
+      const float x = j < m ? s.x2[a * m + j] : 0.0f;
+      ok = ok && tame(x);
+      lo[a] = j < m ? x : INFINITY;
+      hi[a] = j < m ? x : -INFINITY;
+      for (int o = 16; o > 0; o >>= 1) {
+        lo[a] = fminf(lo[a], __shfl_xor_sync(kFull, lo[a], o));
+        hi[a] = fmaxf(hi[a], __shfl_xor_sync(kFull, hi[a], o));
+      }
+    }
+    ok = __all_sync(kFull, ok);
+    if (lane < 6) s.cbox[6 * c + lane] = lane < 3 ? lo[lane % 3] : hi[lane % 3];
+    if (lane == 0) s.ctame[c] = ok;
   }
 }
 
+// Row group [r, r + kGroup) of the staged rows: its coordinates and box;
+// false where a coordinate is not tame.
+__device__ __forceinline__ bool load_group(const Shared& s, int r,
+                                           float (&px)[kGroup],
+                                           float (&py)[kGroup],
+                                           float (&pz)[kGroup],
+                                           float (&lo)[3], float (&hi)[3]) {
+  bool ok = true;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    lo[a] = INFINITY;
+    hi[a] = -INFINITY;
+  }
+#pragma unroll
+  for (int g = 0; g < kGroup; ++g) {
+    px[g] = s.rows[kX * kRows + r + g];
+    py[g] = s.rows[kY * kRows + r + g];
+    pz[g] = s.rows[kZ * kRows + r + g];
+    const float p[3] = {px[g], py[g], pz[g]};
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      ok = ok && tame(p[a]);
+      lo[a] = fminf(lo[a], p[a]);
+      hi[a] = fmaxf(hi[a], p[a]);
+    }
+  }
+  return ok;
+}
+
+// Bounds on the d2 of every pair of the row box and chunk c's box, rounded
+// as sqdist rounds: each step of sqdist is monotone, so a pair's own d2 is
+// at least `near` (from the gap between the boxes) and at most `far` (from
+// their farthest corners).
+__device__ __forceinline__ void box_range(const Shared& s, int c,
+                                          const float (&lo)[3],
+                                          const float (&hi)[3], float& near,
+                                          float& far) {
+  float gap[3], span[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float clo = s.cbox[6 * c + a], chi = s.cbox[6 * c + 3 + a];
+    const float below = __fsub_rn(lo[a], chi), above = __fsub_rn(clo, hi[a]);
+    gap[a] = fmaxf(fmaxf(below, above), 0.0f);
+    span[a] = fmaxf(__fsub_rn(hi[a], clo), __fsub_rn(chi, lo[a]));
+  }
+  near = __fadd_rn(__fadd_rn(__fmul_rn(gap[0], gap[0]), __fmul_rn(gap[1], gap[1])),
+                   __fmul_rn(gap[2], gap[2]));
+  far = __fadd_rn(__fadd_rn(__fmul_rn(span[0], span[0]), __fmul_rn(span[1], span[1])),
+                  __fmul_rn(span[2], span[2]));
+}
+
 // Pass A of the first level: each row's rowsum, and this tile's column sums
-// of the normalised weights.
+// of the normalised weights. Warp w's k-th unit is the row group x chunk c
+// = w + kWarps * k, columns [32 c, 32 c + 32): lane l owns column 32 c + l.
+// A unit whose weights underflow everywhere, by the boxes or pair by pair,
+// adds +0 to every sum and is skipped; the second sweep recomputes only
+// the units the first found live.
 __global__ void __launch_bounds__(kThreads, 2)
 emd_first_kernel(const float* __restrict__ xyz1, const float* __restrict__ xyz2,
                  int n, int m, float level, const float* __restrict__ satr,
@@ -150,44 +270,82 @@ emd_first_kernel(const float* __restrict__ xyz1, const float* __restrict__ xyz2,
   extern __shared__ float smem[];
   const Shared s = carve(smem, m);
   const int b = blockIdx.y, tile = blockIdx.x, tiles = gridDim.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int chunks = num_chunks(m);
   for (int j = threadIdx.x; j < m; j += kThreads) {
     const size_t col = static_cast<size_t>(b) * m + j;
     for (int c = 0; c < 3; ++c) s.x2[c * m + j] = xyz2[col * 3 + c];
     s.satr[j] = satr[col];
     s.acc_col[j] = 0.0f;
   }
-  __syncthreads();
   const int begin = tile * kRows, end = min(n, begin + kRows);
+  __syncthreads();
+  stage(s, xyz1, satl, nullptr, nullptr, b, n, m, begin, end);
+  __syncthreads();
   for (int r0 = begin; r0 < end; r0 += kGroup) {
-    float px[kGroup], py[kGroup], pz[kGroup], sl[kGroup];
-    load_rows(xyz1, satl, b, n, r0, end, px, py, pz, sl);
+    const int r = r0 - begin;
+    float px[kGroup], py[kGroup], pz[kGroup], lo[3], hi[3];
+    const bool rtame = load_group(s, r, px, py, pz, lo, hi);
     float rs[kGroup] = {};
-    for (int j = threadIdx.x; j < m; j += kThreads) {
-      const float ax = s.x2[j], ay = s.x2[m + j], az = s.x2[2 * m + j];
-      const float sr = s.satr[j];
+    unsigned live = 0;  // bit k: unit k has a weight that is not +0
+    for (int k = 0, c = warp; c < chunks; ++k, c += kWarps) {
+      // by the boxes (warp-uniform): the unit underflows everywhere (no
+      // d2), or nowhere (no test pair by pair)
+      bool live_all = false;
+      if (rtame && s.ctame[c]) {
+        float near, far;
+        box_range(s, c, lo, hi, near, far);
+        if (__fmul_rn(level, near) < kUnderflow) continue;
+        live_all = !(__fmul_rn(level, far) < kUnderflow);
+      }
+      const int j = 32 * c + lane;
+      const bool ok = j < m;
+      const float ax = ok ? s.x2[j] : 0.0f, ay = ok ? s.x2[m + j] : 0.0f;
+      const float az = ok ? s.x2[2 * m + j] : 0.0f;
+      float d2[kGroup];
 #pragma unroll
-      for (int g = 0; g < kGroup; ++g) {
-        const float d2 = sqdist(px[g], py[g], pz[g], ax, ay, az);
-        rs[g] += __fmul_rn(level_exp(level, d2), sr);
+      for (int g = 0; g < kGroup; ++g) d2[g] = sqdist(px[g], py[g], pz[g], ax, ay, az);
+      if (!live_all) {  // pair by pair
+        bool dead = true;
+#pragma unroll
+        for (int g = 0; g < kGroup; ++g) dead &= __fmul_rn(level, d2[g]) < kUnderflow;
+        if (__all_sync(kFull, dead || !ok)) continue;
+      }
+      live |= 1u << k;
+      if (ok) {
+        const float sr = s.satr[j];
+#pragma unroll
+        for (int g = 0; g < kGroup; ++g) {
+          rs[g] += __fmul_rn(level_exp(level, d2[g]), sr);
+        }
       }
     }
     block_sum(rs, s.red, s.tot);
     float scale[kGroup], rsum[kGroup];
+    bool finite = true;
 #pragma unroll
     for (int g = 0; g < kGroup; ++g) {
       rsum[g] = __fadd_rn(1e-9f, s.tot[g]);
-      scale[g] = __fdiv_rn(sl[g], rsum[g]);
+      scale[g] = __fdiv_rn(s.rows[kSatl * kRows + r + g], rsum[g]);
+      finite &= isfinite(scale[g]);
     }
-    for (int j = threadIdx.x; j < m; j += kThreads) {
-      const float ax = s.x2[j], ay = s.x2[m + j], az = s.x2[2 * m + j];
-      const float sr = s.satr[j];
-      float col = 0.0f;
+    // a unit of zeros adds +0 to the column sums where the scales are finite
+    for (int k = 0, c = warp; c < chunks; ++k, c += kWarps) {
+      const int j = 32 * c + lane;
+      if (j < m && ((live >> k & 1u) || !finite)) {
+        const float ax = s.x2[j], ay = s.x2[m + j], az = s.x2[2 * m + j];
+        const float sr = s.satr[j];
 #pragma unroll
-      for (int g = 0; g < kGroup; ++g) {
-        const float d2 = sqdist(px[g], py[g], pz[g], ax, ay, az);
-        col += __fmul_rn(__fmul_rn(level_exp(level, d2), sr), scale[g]);
+        for (int h = 0; h < kGroup; h += kColGroup) {
+          float col = 0.0f;
+#pragma unroll
+          for (int g = h; g < h + kColGroup; ++g) {
+            const float d2 = sqdist(px[g], py[g], pz[g], ax, ay, az);
+            col += __fmul_rn(__fmul_rn(level_exp(level, d2), sr), scale[g]);
+          }
+          s.acc_col[j] += col;
+        }
       }
-      s.acc_col[j] += col;
     }
     if (threadIdx.x < kGroup && r0 + threadIdx.x < end) {
       rowsum[static_cast<size_t>(b) * n + r0 + threadIdx.x] = rsum[threadIdx.x];
@@ -200,7 +358,7 @@ emd_first_kernel(const float* __restrict__ xyz1, const float* __restrict__ xyz2,
 
 // Pass B of one level: apply the ratio, add the level's cost (and
 // gradients), update satl, and (kNext) the next level's rowsum and this
-// tile's next column sums.
+// tile's next column sums. Units are skipped as in the first pass.
 template <bool kGrads, bool kNext>
 __global__ void __launch_bounds__(kThreads, 2)
 emd_level_kernel(const float* __restrict__ xyz1, const float* __restrict__ xyz2,
@@ -214,6 +372,8 @@ emd_level_kernel(const float* __restrict__ xyz1, const float* __restrict__ xyz2,
   extern __shared__ float smem[];
   const Shared s = carve(smem, m);
   const int b = blockIdx.y, tile = blockIdx.x, tiles = gridDim.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int chunks = num_chunks(m);
   for (int j = threadIdx.x; j < m; j += kThreads) {
     const size_t col = static_cast<size_t>(b) * m + j;
     for (int c = 0; c < 3; ++c) s.x2[c * m + j] = xyz2[col * 3 + c];
@@ -224,93 +384,168 @@ emd_level_kernel(const float* __restrict__ xyz1, const float* __restrict__ xyz2,
     for (int c = 0; c < 3; ++c) s.acc_ux[c * m + j] = 0.0f;
     s.acc_col[j] = 0.0f;
   }
-  __syncthreads();
-  float blk_cost = 0.0f;  // thread 0's sum over its rows, in row order
   const int begin = tile * kRows, end = min(n, begin + kRows);
+  __syncthreads();
+  stage(s, xyz1, satl, rowsum, kGrads ? g1 : nullptr, b, n, m, begin, end);
+  __syncthreads();
+  float blk_cost = 0.0f;  // thread 0's sum over its row groups, in order
   for (int r0 = begin; r0 < end; r0 += kGroup) {
-    float px[kGroup], py[kGroup], pz[kGroup], sl[kGroup], scale[kGroup];
-    load_rows(xyz1, satl, b, n, r0, end, px, py, pz, sl);
+    const int r = r0 - begin;
+    float px[kGroup], py[kGroup], pz[kGroup], lo[3], hi[3];
+    const bool rtame = load_group(s, r, px, py, pz, lo, hi);
+    // A pair whose weight underflows adds exact zeros only where the row's
+    // scale is finite (0 * inf or 0 * NaN is NaN).
+    float sl[kGroup], scale[kGroup];
+    bool rows_finite = true;
 #pragma unroll
     for (int g = 0; g < kGroup; ++g) {
-      const float rsum = r0 + g < end ? rowsum[static_cast<size_t>(b) * n + r0 + g]
-                                      : 1.0f;
-      scale[g] = __fdiv_rn(sl[g], rsum);
+      sl[g] = s.rows[kSatl * kRows + r + g];
+      scale[g] = __fdiv_rn(sl[g], s.rows[kRowsum * kRows + r + g]);
+      rows_finite &= isfinite(scale[g]);
     }
-    // v: [0] sum wr, [1] cost, [2] sum u, [3..5] sum u x2, [6] next rowsum
-    float v[kRed] = {};
-    for (int j = threadIdx.x; j < m; j += kThreads) {
-      const float ax = s.x2[j], ay = s.x2[m + j], az = s.x2[2 * m + j];
-      const float sr = s.satr[j], ra = s.ratio[j], sn = s.next[j];
-      float cu = 0.0f, cux = 0.0f, cuy = 0.0f, cuz = 0.0f;
+    float v[kRed] = {};  // the row sums (RowSum)
+    unsigned live_next = 0;  // bit k: unit k has a next weight not +0
+    for (int k = 0, c = warp; c < chunks; ++k, c += kWarps) {
+      // dead: this level's weight is +0 for every pair and d is finite, so
+      // the pair adds +0 to every sum; dead_next: the next level's weight.
+      // First by the boxes (warp-uniform, no d2), then pair by pair.
+      // Where the boxes show every pair live, no test pair by pair.
+      bool box_dead = false, box_dead_next = !kNext;
+      bool live_all = false, live_all_next = false;
+      if (rtame && s.ctame[c]) {
+        float near, far;
+        box_range(s, c, lo, hi, near, far);
+        box_dead = rows_finite && __fmul_rn(level, near) < kUnderflow;
+        box_dead_next = box_dead_next || __fmul_rn(next_level, near) < kUnderflow;
+        live_all = !(__fmul_rn(level, far) < kUnderflow);
+        live_all_next = !(__fmul_rn(next_level, far) < kUnderflow);
+      }
+      if (box_dead && box_dead_next) continue;
+      const int j = 32 * c + lane;
+      const bool ok = j < m;
+      const float ax = ok ? s.x2[j] : 0.0f, ay = ok ? s.x2[m + j] : 0.0f;
+      const float az = ok ? s.x2[2 * m + j] : 0.0f;
+      float d2[kGroup];
 #pragma unroll
-      for (int g = 0; g < kGroup; ++g) {
-        const float d2 = sqdist(px[g], py[g], pz[g], ax, ay, az);
-        const float w = __fmul_rn(__fmul_rn(level_exp(level, d2), sr), scale[g]);
-        const float wr = __fmul_rn(w, ra);
-        const float d2c = fmaxf(d2, 1e-40f);     // d >= 1e-20
-        const float rd = rsqrtf(d2c);
-        const float d = __fmul_rn(d2c, rd);
-        v[g] += wr;
-        v[kGroup + g] = fmaf(wr, d, v[kGroup + g]);
-        if (kGrads) {
-          const float u = __fmul_rn(wr, rd);  // wr / d
-          v[2 * kGroup + g] += u;
-          v[3 * kGroup + g] = fmaf(u, ax, v[3 * kGroup + g]);
-          v[4 * kGroup + g] = fmaf(u, ay, v[4 * kGroup + g]);
-          v[5 * kGroup + g] = fmaf(u, az, v[5 * kGroup + g]);
-          cu += u;
-          cux = fmaf(u, px[g], cux);
-          cuy = fmaf(u, py[g], cuy);
-          cuz = fmaf(u, pz[g], cuz);
+      for (int g = 0; g < kGroup; ++g) d2[g] = sqdist(px[g], py[g], pz[g], ax, ay, az);
+      bool live = !box_dead && live_all;
+      if (!box_dead && !live_all) {  // pair by pair
+        bool dead = rows_finite;
+#pragma unroll
+        for (int g = 0; g < kGroup; ++g) {
+          dead &= __fmul_rn(level, d2[g]) < kUnderflow && d2[g] < INFINITY;
         }
-        if (kNext) {
-          v[6 * kGroup + g] += __fmul_rn(level_exp(next_level, d2), sn);
+        live = !__all_sync(kFull, dead || !ok);
+      }
+      bool live_next_unit = kNext && !box_dead_next && live_all_next;
+      if (kNext && !box_dead_next && !live_all_next) {
+        bool dead_next = true;
+#pragma unroll
+        for (int g = 0; g < kGroup; ++g) {
+          dead_next &= __fmul_rn(next_level, d2[g]) < kUnderflow;
+        }
+        live_next_unit = !__all_sync(kFull, dead_next || !ok);
+      }
+      if (live && ok) {
+        const float sr = s.satr[j], ra = s.ratio[j];
+#pragma unroll
+        for (int h = 0; h < kGroup; h += kColGroup) {
+          float cu = 0.0f, cux = 0.0f, cuy = 0.0f, cuz = 0.0f;
+#pragma unroll
+          for (int g = h; g < h + kColGroup; ++g) {
+            const float w = __fmul_rn(__fmul_rn(level_exp(level, d2[g]), sr),
+                                      scale[g]);
+            const float wr = __fmul_rn(w, ra);
+            const float d2c = fmaxf(d2[g], 1e-40f);     // d >= 1e-20
+            const float rd = rsqrtf(d2c);
+            const float d = __fmul_rn(d2c, rd);
+            v[kSumWr * kGroup + g] += wr;
+            v[kSumCost * kGroup] = fmaf(wr, d, v[kSumCost * kGroup]);
+            if (kGrads) {
+              const float u = __fmul_rn(wr, rd);  // wr / d
+              constexpr int x = kSumUx * kGroup, y = x + kGroup, z = y + kGroup;
+              v[kSumU * kGroup + g] += u;
+              v[x + g] = fmaf(u, ax, v[x + g]);
+              v[y + g] = fmaf(u, ay, v[y + g]);
+              v[z + g] = fmaf(u, az, v[z + g]);
+              cu += u;
+              cux = fmaf(u, px[g], cux);
+              cuy = fmaf(u, py[g], cuy);
+              cuz = fmaf(u, pz[g], cuz);
+            }
+          }
+          if (kGrads) {
+            s.acc_u[j] += cu;
+            s.acc_ux[j] += cux;
+            s.acc_ux[m + j] += cuy;
+            s.acc_ux[2 * m + j] += cuz;
+          }
         }
       }
-      if (kGrads) {
-        s.acc_u[j] += cu;
-        s.acc_ux[j] += cux;
-        s.acc_ux[m + j] += cuy;
-        s.acc_ux[2 * m + j] += cuz;
+      if (live_next_unit) {
+        live_next |= 1u << k;
+        if (ok) {
+          const float sn = s.next[j];
+#pragma unroll
+          for (int g = 0; g < kGroup; ++g) {
+            v[kSumNext * kGroup + g] += __fmul_rn(level_exp(next_level, d2[g]), sn);
+          }
+        }
       }
     }
     block_sum(v, s.red, s.tot);
     float new_sl[kGroup], scale2[kGroup], rsum2[kGroup];
+    bool finite2 = true;
 #pragma unroll
     for (int g = 0; g < kGroup; ++g) {
-      new_sl[g] = fmaxf(__fsub_rn(sl[g], s.tot[g]), 0.0f);
-      rsum2[g] = __fadd_rn(1e-9f, s.tot[6 * kGroup + g]);
+      new_sl[g] = fmaxf(__fsub_rn(sl[g], s.tot[kSumWr * kGroup + g]), 0.0f);
+      rsum2[g] = __fadd_rn(1e-9f, s.tot[kSumNext * kGroup + g]);
       scale2[g] = __fdiv_rn(new_sl[g], rsum2[g]);
+      finite2 &= isfinite(scale2[g]);
     }
     if (kNext) {
-      for (int j = threadIdx.x; j < m; j += kThreads) {
-        const float ax = s.x2[j], ay = s.x2[m + j], az = s.x2[2 * m + j];
-        const float sn = s.next[j];
-        float col = 0.0f;
+      // a unit of zeros adds +0 to the column sums where the scales are
+      // finite; the live ones recompute the next level's weights
+      for (int k = 0, c = warp; c < chunks; ++k, c += kWarps) {
+        const int j = 32 * c + lane;
+        if (j < m && ((live_next >> k & 1u) || !finite2)) {
+          const float ax = s.x2[j], ay = s.x2[m + j], az = s.x2[2 * m + j];
+          const float sn = s.next[j];
 #pragma unroll
-        for (int g = 0; g < kGroup; ++g) {
-          const float d2 = sqdist(px[g], py[g], pz[g], ax, ay, az);
-          col += __fmul_rn(__fmul_rn(level_exp(next_level, d2), sn), scale2[g]);
+          for (int h = 0; h < kGroup; h += kColGroup) {
+            float col = 0.0f;
+#pragma unroll
+            for (int g = h; g < h + kColGroup; ++g) {
+              const float d2 = sqdist(px[g], py[g], pz[g], ax, ay, az);
+              col += __fmul_rn(__fmul_rn(level_exp(next_level, d2), sn),
+                               scale2[g]);
+            }
+            s.acc_col[j] += col;
+          }
         }
-        s.acc_col[j] += col;
       }
     }
-    if (threadIdx.x == 0) {
-#pragma unroll
-      for (int g = 0; g < kGroup; ++g) blk_cost += s.tot[kGroup + g];
-    }
+    if (threadIdx.x == 0) blk_cost += s.tot[kSumCost * kGroup];
     if (threadIdx.x < kGroup && r0 + threadIdx.x < end) {
       const int g = threadIdx.x;
       const size_t row = static_cast<size_t>(b) * n + r0 + g;
       satl[row] = new_sl[g];
       if (kNext) rowsum[row] = rsum2[g];
       if (kGrads) {
-        const float su = s.tot[2 * kGroup + g];
-        const float p[3] = {px[g], py[g], pz[g]};
+        const float su = s.tot[kSumU * kGroup + g];
         for (int c = 0; c < 3; ++c) {
-          g1[row * 3 + c] += p[c] * su - s.tot[(3 + c) * kGroup + g];
+          float& acc = s.rows[(kG1x + c) * kRows + r + g];
+          acc += s.rows[(kX + c) * kRows + r + g] * su -
+                 s.tot[(kSumUx + c) * kGroup + g];
         }
       }
+    }
+  }
+  __syncthreads();
+  if (kGrads) {
+    for (int r = threadIdx.x; r < end - begin; r += kThreads) {
+      const size_t row = static_cast<size_t>(b) * n + begin + r;
+      for (int c = 0; c < 3; ++c) g1[row * 3 + c] = s.rows[(kG1x + c) * kRows + r];
     }
   }
   const size_t part = static_cast<size_t>(b) * tiles + tile;
@@ -371,7 +606,9 @@ __global__ void emd_finish_kernel(const float* __restrict__ g2_part,
 }
 
 size_t smem_bytes(int m) {
-  return (11 * static_cast<size_t>(m) + kWarps * kRed + kRed) * sizeof(float);
+  return (11 * static_cast<size_t>(m) + kWarps * kRed + kRed + kRowVals * kRows +
+          7 * num_chunks(m)) *
+         sizeof(float);
 }
 
 cudaError_t allow_smem(const void* kernel, size_t smem) {
@@ -396,11 +633,35 @@ cudaError_t launch_level(dim3 grid, size_t smem, cudaStream_t stream,
   return cudaGetLastError();
 }
 
+// Every f32 from kUnderflow down to -inf through the kernels' expf; counts
+// the results that are not +0.
+__global__ void emd_underflow_kernel(unsigned* bad) {
+  const unsigned first = __float_as_uint(kUnderflow), last = 0xff800000u;
+  for (unsigned u = first + blockIdx.x * blockDim.x + threadIdx.x; u <= last;
+       u += gridDim.x * blockDim.x) {
+    if (__float_as_uint(level_exp(-1.0f, -__uint_as_float(u))) != 0u) {
+      atomicAdd(bad, 1u);
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" size_t snt_emd_smem(int m) { return smem_bytes(m); }
 
 extern "C" int snt_emd_rows_per_block() { return kRows; }
+
+extern "C" float snt_emd_underflow() { return kUnderflow; }
+
+// Rows of the warp's unit that is skipped as a whole (with 32 columns).
+extern "C" int snt_emd_unit_rows() { return kGroup; }
+
+// bad [1] (zeroed by the caller): how many f32 x <= kUnderflow give an
+// expf(x), as the kernels call it, other than +0.
+extern "C" int snt_emd_underflow_check(unsigned* bad, cudaStream_t stream) {
+  emd_underflow_kernel<<<132 * 8, 256, 0, stream>>>(bad);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // xyz1 [b, n, 3], xyz2 [b, m, 3]. The caller fills satl [b, n] with
 // max(n,m)//n, satr_a [b, m] with max(n,m)//m, and g1 [b, n, 3], g2_part
@@ -436,23 +697,12 @@ extern "C" int snt_emd_cost(const float* xyz1, const float* xyz2, int b, int n,
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
     const bool next = l + 1 < kLevels;
     const float nl = next ? levels[l + 1] : 0.0f;
-    if (with_grads && next) {
-      err = launch_level<true, true>(grid, smem, stream, xyz1, xyz2, n, m, levels[l],
-                                     nl, cur, ratio, nxt, satl, rowsum, colsum_part,
-                                     g2_part, cost_part, g1);
-    } else if (with_grads) {
-      err = launch_level<true, false>(grid, smem, stream, xyz1, xyz2, n, m, levels[l],
-                                      nl, cur, ratio, nxt, satl, rowsum, colsum_part,
-                                      g2_part, cost_part, g1);
-    } else if (next) {
-      err = launch_level<false, true>(grid, smem, stream, xyz1, xyz2, n, m, levels[l],
-                                      nl, cur, ratio, nxt, satl, rowsum, colsum_part,
-                                      g2_part, cost_part, g1);
-    } else {
-      err = launch_level<false, false>(grid, smem, stream, xyz1, xyz2, n, m,
-                                       levels[l], nl, cur, ratio, nxt, satl, rowsum,
-                                       colsum_part, g2_part, cost_part, g1);
-    }
+    auto* launch = with_grads ? (next ? launch_level<true, true>
+                                      : launch_level<true, false>)
+                              : (next ? launch_level<false, true>
+                                      : launch_level<false, false>);
+    err = launch(grid, smem, stream, xyz1, xyz2, n, m, levels[l], nl, cur, ratio,
+                 nxt, satl, rowsum, colsum_part, g2_part, cost_part, g1);
     if (err != cudaSuccess) return static_cast<int>(err);
     float* t = cur;
     cur = nxt;

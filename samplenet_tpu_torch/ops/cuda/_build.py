@@ -161,6 +161,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.snt_emd_rows_per_block.restype = i
     lib.snt_emd_cost.argtypes = [p, p, i, i, i, i, *[p] * 11, p]
     lib.snt_emd_cost.restype = i
+    lib.snt_emd_underflow.argtypes = []
+    lib.snt_emd_underflow.restype = ctypes.c_float
+    lib.snt_emd_underflow_check.argtypes = [p, p]
+    lib.snt_emd_underflow_check.restype = i
+    lib.snt_emd_unit_rows.argtypes = []
+    lib.snt_emd_unit_rows.restype = i
     return lib
 
 

@@ -8,7 +8,10 @@ samplenet_tpu/ops/matching.py:134-153 (`_emd_cost_fused`): the 11-level
 auction match of the reference ApproxMatch, reduced at once into the cost
 sum match * d and into the closed-form MatchCostGrad (the match held
 fixed), so the [B, n, m] match is never kept. The kernel is csrc/emd.cu;
-its note says how the column sums of a level cross blocks.
+its note says how the column sums of a level cross blocks and how it
+skips the pairs whose weights underflow. Every CUDA call runs it on both
+clouds sorted by Morton code (`in_morton_order`), the gradients put back
+in the callers' order.
 
 Both versions compute d2 as ((dx*dx + dy*dy) + dz*dz) in broadcast-
 difference form, as the TPU kernel does (emd_kernel.py:106-109), not by
@@ -18,8 +21,8 @@ the TPU kernel (:129-133). The sums run in other orders in the two
 versions, and the kernel takes d and 1/d from one rsqrt (2 ulp) where the
 plain version takes an IEEE sqrt and divide; d enters only the cost and
 the gradients, not the match. So the two agree to f32 round-off amplified
-by the steep levels. The kernel takes f32; the plain version also takes f64, the reference
-the on-card checks hold both against.
+by the steep levels. The kernel takes f32; the plain version also takes
+f64, the reference the on-card checks hold both against.
 """
 
 from __future__ import annotations
@@ -112,11 +115,93 @@ def emd_cost_plain(xyz1: torch.Tensor, xyz2: torch.Tensor,
     return cost, g1, g2
 
 
+# ------------------------------------------------------ the clouds' order
+
+MORTON_BITS = 10   # per axis: 1024 cells along the cloud's longest side
+
+
+def _spread_bits(v: torch.Tensor) -> torch.Tensor:
+    """The low 10 bits of each int64 of v moved to every third bit."""
+    v = (v | (v << 16)) & 0xFF0000FF
+    v = (v | (v << 8)) & 0x0300F00F
+    v = (v | (v << 4)) & 0x030C30C3
+    return (v | (v << 2)) & 0x09249249
+
+
+_spread_tables: dict[torch.device, torch.Tensor] = {}
+
+
+def _spread_table(device: torch.device) -> torch.Tensor:
+    """_spread_bits of 0 .. 2^MORTON_BITS - 1 on `device`, as int32, made at
+    first use (one gather then spreads all three axes)."""
+    table = _spread_tables.get(device)
+    if table is None:
+        table = _spread_bits(torch.arange(1 << MORTON_BITS, device=device))
+        table = _spread_tables[device] = table.to(torch.int32)
+    return table
+
+
+def morton_codes(xyz: torch.Tensor) -> torch.Tensor:
+    """[B, n, 3] -> [B, n] int32: the Z-order code of each point's cell on
+    a grid of 2^MORTON_BITS cells a side over the cloud's bounding cube
+    (non-finite coordinates count as 0; they only move a point in the
+    order)."""
+    x = torch.nan_to_num(xyz.detach(), nan=0.0, posinf=0.0, neginf=0.0)
+    lo, hi = torch.aminmax(x, dim=1, keepdim=True)
+    side = (hi - lo).amax(dim=2, keepdim=True).clamp_min_(1e-30)
+    cells = (1 << MORTON_BITS) - 1
+    q = (x - lo).mul_(cells / side).clamp_(0, cells).to(torch.int64)
+    spread = _spread_table(x.device)[q]
+    return spread[..., 0] * 4 + spread[..., 1] * 2 + spread[..., 2]
+
+
+def morton_order(xyz: torch.Tensor) -> torch.Tensor:
+    """[B, n] int64: each cloud's points sorted by Morton code, ties in
+    index order (a stable sort)."""
+    return torch.sort(morton_codes(xyz), dim=1, stable=True).indices
+
+
+def take_rows(x: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    """x[b, order[b, i]] for [B, n, 3] x."""
+    return torch.gather(x, 1, order[..., None].expand(-1, -1, x.shape[2]))
+
+
+def put_rows(x: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    """The inverse of take_rows: y with y[b, order[b, i]] = x[b, i]."""
+    return torch.empty_like(x).scatter_(
+        1, order[..., None].expand(-1, -1, x.shape[2]), x)
+
+
+def in_morton_order(fn, xyz1: torch.Tensor, xyz2: torch.Tensor,
+                    with_grads: bool = True
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """fn(xyz1, xyz2, with_grads) run on both clouds in Morton order, its
+    gradients put back in the callers' order. The order makes a warp's 8
+    rows and 32 columns neighbours in space, so at the steep levels whole
+    warp units underflow and the kernel skips them; the transport cost and
+    the gradients are the same function of the clouds in any order, up to
+    f32 summation order. Clouds of one shape are ordered as one batch."""
+    if xyz1.shape == xyz2.shape:    # both clouds in one batch: half the ops
+        b = xyz1.shape[0]
+        both = torch.cat([xyz1, xyz2])
+        order = morton_order(both)
+        taken = take_rows(both, order)
+        o1, o2 = order[:b], order[b:]
+        cost, g1, g2 = fn(taken[:b], taken[b:], with_grads)
+    else:
+        o1, o2 = morton_order(xyz1), morton_order(xyz2)
+        cost, g1, g2 = fn(take_rows(xyz1, o1), take_rows(xyz2, o2), with_grads)
+    if not with_grads:          # zeros in any order
+        return cost, g1, g2
+    return cost, put_rows(g1, o1), put_rows(g2, o2)
+
+
 # --------------------------------------------------------------- CUDA kernel
 
 def emd_cost_cuda(xyz1: torch.Tensor, xyz2: torch.Tensor,
                   with_grads: bool = True
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The kernel on both clouds in Morton order (`in_morton_order`)."""
     if xyz1.device.type != "cuda":
         raise ValueError(f"the emd kernel takes CUDA tensors, got "
                          f"{xyz1.device}")
@@ -124,15 +209,23 @@ def emd_cost_cuda(xyz1: torch.Tensor, xyz2: torch.Tensor,
         raise TypeError(f"the emd kernel takes float32, got {xyz1.dtype}")
     if not (xyz1.is_contiguous() and xyz2.is_contiguous()):
         raise ValueError("the emd kernel takes contiguous xyz1 and xyz2")
-    b, n, _ = xyz1.shape
+    b = xyz1.shape[0]
     m = xyz2.shape[1]
     if b > _MAX_GRID_Y:
         raise ValueError(f"B={b} exceeds the emd kernel's grid")
-    lib = library()
-    smem = lib.snt_emd_smem(m)
+    smem = library().snt_emd_smem(m)
     if smem > max_dynamic_smem(xyz1.device):
         raise ValueError(f"m={m} needs {smem} bytes of shared memory per "
                          f"block, more than the card offers")
+    return in_morton_order(_launch, xyz1, xyz2, with_grads)
+
+
+def _launch(xyz1: torch.Tensor, xyz2: torch.Tensor, with_grads: bool
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The kernel on the clouds in the order they are given."""
+    b, n, _ = xyz1.shape
+    m = xyz2.shape[1]
+    lib = library()
     tiles = -(-n // lib.snt_emd_rows_per_block())
     factorl, factorr = saturations(n, m)
     f32 = dict(dtype=torch.float32, device=xyz1.device)
@@ -156,6 +249,19 @@ def emd_cost_cuda(xyz1: torch.Tensor, xyz2: torch.Tensor,
     check(err, KERNEL)
     count_launch(KERNEL)
     return cost, g1, g2
+
+
+def expf_underflow_violations(device: torch.device) -> tuple[float, int]:
+    """(kUnderflow, count): the constant below which the kernel skips a
+    warp's pairs as adding exact zeros, and how many f32 x from it down to
+    -inf get an expf(x), called as the kernel calls it, other than +0 on
+    `device` (one launch over about 1e9 values)."""
+    lib = library()
+    bad = torch.zeros((1,), dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        check(lib.snt_emd_underflow_check(bad.data_ptr(),
+                                          stream_handle(bad)), KERNEL)
+    return float(lib.snt_emd_underflow()), int(bad.item())
 
 
 def emd_cost(xyz1: torch.Tensor, xyz2: torch.Tensor, *,

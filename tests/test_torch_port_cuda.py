@@ -452,14 +452,62 @@ def _ulp_moves(x, gen):
     return torch.where(step > 0, up, torch.where(step < 0, down, x))
 
 
-@pytest.mark.parametrize("b,n,m", [
-    (3, 96, 160),      # ragged row tile, factorr 1 / factorl 1
-    (2, 128, 64),      # n = 2m: factorl 1, factorr 2
-    (2, 64, 192),      # m = 3n: factorl 3
-    (1, 1000, 1000),   # B=1, ragged
-    (3, 2048, 64),
+# the steep levels, where most weights underflow to +0
+STEEP_LEVELS = (-65536.0, -16384.0, -4096.0, -1024.0, -256.0)
+
+
+def _emd_inputs(kind, b, n, m, dev):
+    """(xyz1, xyz2) of one kind: "randn", standard-normal clouds;
+    "straddle", xyz2_i at distance sqrt(104 / |L|) * (1 -+ 1e-3) from
+    xyz1_i, L cycling over the steep levels, so level * d2 lies just above
+    and just below the kernel's underflow constant; "coincident", randn
+    with every 7th row and every 5th column at the origin (d2 = 0, at the
+    one place where x1 * sum u - sum u x2 has no round-off to amplify);
+    "clustered", 8 tight clusters 6 apart, each a run of consecutive
+    points, so whole warps' units underflow at most levels."""
+    rng = np.random.default_rng(b * 10000 + n + m)
+    if kind == "randn":
+        return _randn(rng, b, n, 3, dev=dev), _randn(rng, b, m, 3, dev=dev)
+    if kind == "straddle":
+        x1 = 4.0 * rng.standard_normal((b, n, 3))
+        way = rng.standard_normal((b, n, 3))
+        way /= np.linalg.norm(way, axis=2, keepdims=True)
+        i = np.arange(n)
+        level = np.asarray(STEEP_LEVELS)[i % len(STEEP_LEVELS)]
+        side = np.where((i // len(STEEP_LEVELS)) % 2 == 0, 1 - 1e-3, 1 + 1e-3)
+        r = np.sqrt(104.0 / -level) * side
+        x2 = (x1 + r[None, :, None] * way)[:, :m]
+        return (torch.from_numpy(x1.astype(np.float32)).to(dev),
+                torch.from_numpy(x2.astype(np.float32)).to(dev))
+    if kind == "coincident":
+        x1, x2 = _randn(rng, b, n, 3, dev=dev), _randn(rng, b, m, 3, dev=dev)
+        x1[:, ::7] = 0.0
+        x2[:, ::5] = 0.0
+        return x1, x2
+    assert kind == "clustered"
+    centres = 6.0 * rng.standard_normal((b, 8, 3))
+    clouds = []
+    for size in (n, m):
+        which = np.arange(size) * 8 // size
+        pts = centres[:, which] + 0.05 * rng.standard_normal((b, size, 3))
+        clouds.append(torch.from_numpy(pts.astype(np.float32)).to(dev))
+    return tuple(clouds)
+
+
+@pytest.mark.parametrize("kind,b,n,m", [
+    ("randn", 3, 96, 160),     # ragged row tile, factorr 1 / factorl 1
+    ("randn", 2, 128, 64),     # n = 2m: factorl 1, factorr 2
+    ("randn", 2, 64, 192),     # m = 3n: factorl 3
+    ("randn", 1, 1000, 1000),  # B=1, ragged
+    ("randn", 3, 2048, 64),
+    ("randn", 2, 100, 70),     # n, m not multiples of 32
+    ("randn", 1, 300, 2500),   # m past the register cache: the shared slab
+    ("straddle", 2, 320, 320),
+    ("coincident", 2, 203, 301),
+    ("clustered", 2, 512, 512),
+    ("clustered", 1, 1000, 2100),
 ])
-def test_emd_matches_plain_and_f64(dev, b, n, m):
+def test_emd_matches_plain_and_f64(dev, kind, b, n, m):
     """The cost within rtol 2e-4 of the plain version in f64. The kernel
     and the plain f32 version run on the same four inputs, the input and
     three copies moved by one ulp, each against the plain version in f64
@@ -471,11 +519,13 @@ def test_emd_matches_plain_and_f64(dev, b, n, m):
     and norm-wise, is at most 1.5x the plain version's worst, or 5e-4.
     The readings are printed (pytest -s). The cost is bit-equal with and
     without gradients; without them the gradients are zero; every output
-    is bit-equal from run to run."""
+    is bit-equal from run to run. The inputs (`_emd_inputs`) reach the
+    kernel's skip of warp units whose weights underflow: pairs on either
+    side of its threshold at each steep level, d2 = 0, clusters whose
+    units underflow whole, and ragged and wide clouds."""
     from samplenet_tpu_torch.ops.cuda import emd_cost, emd_cost_plain
 
-    rng = np.random.default_rng(b * 10000 + n + m)
-    x1, x2 = _randn(rng, b, n, 3, dev=dev), _randn(rng, b, m, 3, dev=dev)
+    x1, x2 = _emd_inputs(kind, b, n, m, dev)
     ck, g1k, g2k = emd_cost(x1, x2)
     cr, _, _ = emd_cost_plain(x1.double(), x2.double())
     torch.testing.assert_close(ck.double(), cr, rtol=2e-4, atol=0)
@@ -491,7 +541,7 @@ def test_emd_matches_plain_and_f64(dev, b, n, m):
             for j, (h, r) in enumerate(((h1, r1), (h2, r2))):
                 worst[i, j] = np.maximum(worst[i, j], (
                     _rel_err(h, r), _norm_err(h, r), _share_off(h, r)))
-    print(f"\nemd ({b}, {n}, {m}) over 4 inputs, g1 then g2, (largest "
+    print(f"\nemd {kind} ({b}, {n}, {m}) over 4 inputs, g1 then g2, (largest "
           f"entry's error, norm-wise error, share of entries off by more "
           f"than 1e-3 of the largest): kernel {worst[0].tolist()}, plain "
           f"f32 {worst[1].tolist()}")
@@ -512,6 +562,20 @@ def test_emd_refuses_what_it_does_not_take(dev):
         emd_cost(x, torch.zeros(1, 6000, 3, device=dev))
     with pytest.raises(TypeError, match="float32"):
         emd_cost_cuda(x.double(), x.double())
+
+
+def test_emd_expf_underflows_below_the_skip_threshold(dev):
+    """The kernel skips a warp's unit when every level * d2 in it lies
+    below its constant, as adding exact zeros: the card's expf, called as
+    the kernel calls it, must give +0 for every f32 from that constant
+    down to -inf (about 1e9 values, one launch)."""
+    from samplenet_tpu_torch.ops.cuda.emd_kernel import (
+        expf_underflow_violations,
+    )
+
+    under, bad = expf_underflow_violations(dev)
+    assert under <= -103.972, under   # ln of half the least subnormal
+    assert bad == 0, (under, bad)
 
 
 @pytest.mark.parametrize("b,n", [(3, 1000), (8, 2048)])
