@@ -34,8 +34,9 @@ frozen PointNet; 2048 points, B=50, sizes 16..2048 against the AE), and:
   6. holds the train kernels against their plain versions: point_mlp_exact
      (exact-BN conv chain + max, forward and backward) and soft_projection
      (k-NN softmax mixture, forward and backward), at the train step's
-     shapes and at ragged ones; both backward kernels bit for bit from run
-     to run;
+     shapes and at ragged ones, soft_projection also at the progressive
+     steps' (32 clouds of 1024 points, 1024 queries, k=7; 50 of 2048, 2048
+     queries, k=16); both backward kernels bit for bit from run to run;
   7. runs one train step on the kernel path and on the plain path from
      the same state, holds both against the plain path in float64, then
      resets the launch counters, runs five augmented train steps and
@@ -87,7 +88,8 @@ frozen PointNet; 2048 points, B=50, sizes 16..2048 against the AE), and:
      plain versions, per call with CUDA events and as device time with
      torch.profiler (the EMD also on the AE step's own pair: the seeded
      AE's reconstruction of the procedural clouds against them), and
-     computes each kernel's bound from its inputs; the
+     computes each kernel's bound from its inputs (the soft projection's
+     forward at each of its four paths' shapes, with its bound there); the
      exact chain's backward at B=1024 and at the reconstruction widths
      also as device time split by pass (forward: dense per layer, pool,
      glue; backward: BN rows, dz/dh_prev, dW, glue).
@@ -223,6 +225,13 @@ PROG_KERNELS = {
     "point_mlp_train_bwd": (
         "samplenet_tpu_torch/csrc/point_mlp_train.cu",
         "samplenet_tpu/ops/pallas/point_mlp_train_kernel.py:400"),
+}
+# the soft projection's (B, N, M, k) on each path that runs it
+SOFT_SHAPES = {
+    "classification step": (B, N, M, K),
+    "reconstruction sampler step": (RECON_B, RECON_N, RECON_M, RECON_K),
+    "progressive step": (PROG_B, PROG_N, PROG_MAX, K),
+    "progressive AE step": (RECON_B, RECON_N, RECON_N, RECON_K),
 }
 PROG_PATH = ("nn_snap", "point_mlp_train_fwd", "point_mlp_train_bwd",
              "point_mlp_exact_fwd", "point_mlp_exact_bwd",
@@ -917,9 +926,11 @@ def phase_compare_train(torch) -> dict[str, float]:
         errs["point_mlp_exact_bwd"] = max(
             float((gk[i] - gp[i]).abs().max()) for i in graded)
 
-    for label, (b, n, m, k) in (("main", (B, N, M, K)),
-                                ("ragged", (RAGGED_B, RAGGED_N, RAGGED_M,
-                                            16))):
+    for label, (b, n, m, k) in (
+            ("main", SOFT_SHAPES["classification step"]),
+            ("ragged", (RAGGED_B, RAGGED_N, RAGGED_M, 16)),
+            ("progressive", SOFT_SHAPES["progressive step"]),
+            ("progressive AE", SOFT_SHAPES["progressive AE step"])):
         pts, qs, sigma, cot = _soft_inputs(torch, rng, b, n, m)
         ok, ik, gk = _soft_call(torch, pts, qs, sigma, k, cot)
         op, ip, gp = _soft_call(torch, pts, qs, sigma, k, cot, plain=True)
@@ -1128,6 +1139,21 @@ def phase_times_train(torch, data, labels, classifier, card
                      f"ms per call, {k_dev!r} ms device; plain "
                      f"{times[name][1]!r} ms per call, {p_dev!r} ms device "
                      f"({card})")
+    for path, (b, n, m, k) in SOFT_SHAPES.items():
+        sp, sq, ss, _ = _soft_inputs(torch, rng, b, n, m)
+        ss = ss.reshape(1)
+        k_ms, p_ms = _pair_ms(
+            torch, lambda: spk.soft_project_fwd_cuda(sp, sq, ss, k),
+            lambda: spk.soft_project_fwd_plain(sp, sq, ss, k), 20)
+        k_dev = _device_ms(torch, lambda: spk.soft_project_fwd_cuda(
+            sp, sq, ss, k), 20)
+        bound = _soft_fwd_bound(b, n, m, k)
+        log("times", f"soft_projection_fwd at the {path}'s shape (B={b}, "
+                     f"N={n}, M={m}, k={k}): kernel {k_ms!r} ms per call, "
+                     f"{k_dev!r} ms device; plain {p_ms!r} ms per call; "
+                     f"bound {bound[0]!r} ms ({bound[1]}) ({card})")
+        del sp, sq, ss
+    torch.cuda.empty_cache()
     split = _pass_split(torch, cases["point_mlp_exact_fwd"][0], 5,
                         len(WIDTHS) - 1, FWD_PASSES)
     log("profile", f"point_mlp_exact_fwd at B={B}, N={N}, widths {WIDTHS}: "
@@ -2265,6 +2291,15 @@ def _exact_bounds(b: int, n: int, widths) -> tuple[tuple, tuple]:
                    (p * (4.0 * macs + 12 * chans), FP32_FLOP_PER_S)))
 
 
+def _soft_fwd_bound(b: int, n: int, m: int, k: int) -> tuple[float, str]:
+    """The soft projection's forward: M queries against N points, 3 sub, 3
+    mul, 2 add and 1 compare a pair, and about 20 FLOP a neighbour for its
+    weight and the weighted sum; the points, queries and sigma in, out and
+    idx out."""
+    return _bound(4 * (b * n * 3 + 2 * b * m * 3 + b * m * k + 1),
+                  (9.0 * b * m * n + 20.0 * b * m * k, FP32_FLOP_PER_S))
+
+
 def _emd_bound(b: int, n: int, m: int) -> tuple[float, str]:
     """What the function needs, each level's arithmetic once per pair (an
     FMA counts 2 FLOP): d2 (8 FLOP) and one rsqrt giving d and 1/d (1 SFU
@@ -2308,9 +2343,7 @@ def kernel_bounds() -> dict[str, tuple[float, str]]:
             (B * N * 3.0 * sum(WIDTHS[1:]), FP32_FLOP_PER_S)),
         "point_mlp_exact_fwd": exact_fwd,
         "point_mlp_exact_bwd": exact_bwd,
-        "soft_projection_fwd": _bound(
-            f * (B * N * 3 + 2 * B * M * 3 + B * M * K + 1),
-            (9.0 * B * M * N + 20.0 * B * M * K, FP32_FLOP_PER_S)),
+        "soft_projection_fwd": _soft_fwd_bound(B, N, M, K),
         "soft_projection_bwd": _bound(
             f * (2 * B * N * 3 + 3 * B * M * 3 + B * M * K + 2),
             (40.0 * B * M * K, FP32_FLOP_PER_S)),

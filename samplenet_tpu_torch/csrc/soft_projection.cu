@@ -14,19 +14,41 @@
 //
 // What bounds it on the H100: at the train step's shape (B=1024 clouds of
 // N=1024 points, M=32 queries, k=7) the forward computes 33.5M distances
-// (0.27 GFLOP) and reads 12.6 MB of points once per query tile; the
-// backward touches only M*k neighbours per cloud (0.9 MB of gathers). Both
-// are bound by latency and the selection's compares, not by FLOPs or HBM.
+// (0.27 GFLOP, 9 FP32 ops each, none an FMA) and reads 12.6 MB of points;
+// at the progressive AE step's (B=50, N=M=2048, k=16) 210M. The backward
+// touches only M*k neighbours per cloud (0.9 MB of gathers). Both are
+// bound by instruction issue and latency, not by FLOPs or HBM.
 //
-// Forward design: one block per (cloud, tile of kQueryTile queries), one
-// warp per query. The block stages the cloud in shared memory as
-// structure-of-arrays, kChunk points at a time. Lane l scans points l,
-// l+32, ... in ascending order and keeps its own sorted top-k in registers
-// (insertion with a strict order on (d, index)); k rounds of a warp
-// butterfly then pop the lexicographic minimum of the 32 list heads. The
-// weights stream in that ascending order, so no [M, k] buffer is kept.
-// Distances use sqdist.cuh (no FMA contraction) and a NaN distance counts
-// as +inf, so idx is bit-equal to the plain version's stable sort.
+// Forward design: no list is kept while the cloud is scanned. Each query
+// is served by `slices` adjacent lanes (1 to 8, a power of two), so that a
+// small batch still fills the card; a block of 32 * warps lanes serves one
+// cloud and 32 * warps / slices of its queries (`warps`, `slices` and the
+// staged chunk come from the launch plan, ops/cuda/soft_projection_plan.py).
+// The block stages the cloud in shared memory as float4 (x, y, z, 0); a
+// query's lanes read consecutive points, and the queries of a warp share
+// those loads as broadcasts while they scan the same points. A cloud longer
+// than the chunk is staged chunk by chunk, once for each pass. The points
+// fall in G groups of len = ceil(n / G) consecutive points, G = 16 for k <=
+// 8 and 32 above. Two passes:
+//   1. The lanes keep the least distance of each group (one fminf a point;
+//      a NaN never wins) and combine them by shuffles. The G group minima
+//      are distances of G distinct points, so their k-th smallest, tau (a
+//      sorting network in registers), bounds the k-th neighbour's distance
+//      from above, and only a group whose minimum is at or below tau (k of
+//      the G, more on ties) can hold a point that is.
+//   2. The lanes rescan those groups. Every point with (d, index) before
+//      (tau, INT_MAX), NaN as +inf, goes into a buffer of the lane's own
+//      (about k + k^2/2G points a query on randn clouds), and the buffer
+//      into a sorted list of k in registers (insertion, strict order on
+//      (d, index)) when it is full and at the end; a full list's k-th entry
+//      then replaces tau. The query's lanes merge their lists by a
+//      butterfly of shuffles.
+// A lane loads and measures 8 points before it tests any, and branches only
+// where a candidate may come in. The first lane of a query forms w_r from
+// its list, reads the neighbours from shared memory (from global memory
+// when the cloud spans several chunks) and sums them in rank order.
+// Distances use sqdist.cuh (no FMA contraction) and the order is (d, index)
+// throughout, so idx is bit-equal to the plain version's stable sort.
 //
 // Backward design: one block per cloud, one thread per query (in chunks of
 // kBwdQueries). Each thread recomputes its k distances and weights from
@@ -38,6 +60,7 @@
 // by the caller; d queries is per thread.
 
 #include <climits>
+#include <cstdint>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -45,10 +68,11 @@
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kQueryTile = kWarps;  // one query per warp
-constexpr int kChunk = 2048;        // points staged per pass: 24 KB
+constexpr int kMaxWarps = 8;   // a block: 32 * warps lanes, from the plan
+constexpr int kMaxSlices = 8;  // lanes a query, from the plan
+constexpr int kBuffer = 32;    // candidates a lane holds before it sorts
+constexpr int kStep = 8;       // points a lane loads before it tests them
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxK = 16;
 constexpr int kBwdThreads = 256;
 constexpr int kBwdQueries = kBwdThreads;  // one query per thread
@@ -59,22 +83,22 @@ __device__ __forceinline__ bool before(float d, int i, float bd, int bi) {
 }
 
 template <int K>
-__device__ __forceinline__ void insert(float (&bd)[K], int (&bi)[K], float d,
+__device__ __forceinline__ void insert(float (&ld)[K], int (&li)[K], float d,
                                        int i) {
-  if (!before(d, i, bd[K - 1], bi[K - 1])) return;
+  if (!before(d, i, ld[K - 1], li[K - 1])) return;
 #pragma unroll
   for (int j = K - 1; j > 0; --j) {
-    if (before(d, i, bd[j - 1], bi[j - 1])) {
-      bd[j] = bd[j - 1];
-      bi[j] = bi[j - 1];
-    } else if (before(d, i, bd[j], bi[j])) {
-      bd[j] = d;
-      bi[j] = i;
+    if (before(d, i, ld[j - 1], li[j - 1])) {
+      ld[j] = ld[j - 1];
+      li[j] = li[j - 1];
+    } else if (before(d, i, ld[j], li[j])) {
+      ld[j] = d;
+      li[j] = i;
     }
   }
-  if (before(d, i, bd[0], bi[0])) {
-    bd[0] = d;
-    bi[0] = i;
+  if (before(d, i, ld[0], li[0])) {
+    ld[0] = d;
+    li[0] = i;
   }
 }
 
@@ -82,82 +106,240 @@ __device__ __forceinline__ float softmax_term(float d, float d0, float s) {
   return expf(__fdiv_rn(-__fsub_rn(d, d0), s));
 }
 
+// Groups of the first pass's bound: about 2k, a power of two.
+__host__ __device__ constexpr int bound_groups(int k) {
+  return k <= 8 ? 16 : 32;
+}
+
+// Points [c0, c0 + cn) of one cloud into sp as (x, y, z, 0): a thread
+// takes 4 points, three 16-byte loads where the rows are so aligned.
+__device__ void stage_points(float4* sp, const float* __restrict__ pb, int c0,
+                             int cn) {
+  const float* src = pb + static_cast<size_t>(c0) * 3;
+  const int groups = cn / 4;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const float4* s4 = reinterpret_cast<const float4*>(src);
+    for (int g = threadIdx.x; g < groups; g += blockDim.x) {
+      const float4 a = __ldg(s4 + 3 * g);
+      const float4 b = __ldg(s4 + 3 * g + 1);
+      const float4 c = __ldg(s4 + 3 * g + 2);
+      sp[4 * g + 0] = make_float4(a.x, a.y, a.z, 0.0f);
+      sp[4 * g + 1] = make_float4(a.w, b.x, b.y, 0.0f);
+      sp[4 * g + 2] = make_float4(b.z, b.w, c.x, 0.0f);
+      sp[4 * g + 3] = make_float4(c.y, c.z, c.w, 0.0f);
+    }
+  } else {
+    for (int g = threadIdx.x; g < groups; g += blockDim.x) {
+      const float* r = src + 12 * g;
+      sp[4 * g + 0] = make_float4(r[0], r[1], r[2], 0.0f);
+      sp[4 * g + 1] = make_float4(r[3], r[4], r[5], 0.0f);
+      sp[4 * g + 2] = make_float4(r[6], r[7], r[8], 0.0f);
+      sp[4 * g + 3] = make_float4(r[9], r[10], r[11], 0.0f);
+    }
+  }
+  for (int p = 4 * groups + threadIdx.x; p < cn; p += blockDim.x) {
+    const float* r = src + 3 * p;
+    sp[p] = make_float4(r[0], r[1], r[2], 0.0f);
+  }
+}
+
+// Sorts v ascending in registers (a bitonic network; no NaN in v).
+template <int G>
+__device__ __forceinline__ void sort_ascending(float (&v)[G]) {
+#pragma unroll
+  for (int size = 2; size <= G; size <<= 1) {
+#pragma unroll
+    for (int stride = size / 2; stride > 0; stride >>= 1) {
+#pragma unroll
+      for (int i = 0; i < G; ++i) {
+        const int j = i ^ stride;
+        if (j > i) {
+          const float lo = fminf(v[i], v[j]), hi = fmaxf(v[i], v[j]);
+          const bool up = (i & size) == 0;
+          v[i] = up ? lo : hi;
+          v[j] = up ? hi : lo;
+        }
+      }
+    }
+  }
+}
+
+// A lane's selection in pass 2: offer() puts a candidate (d, i) that comes
+// before the bound (td, ti) into the buffer (bd, bi, cnt), flush() the
+// buffer into the sorted list (ld, li); a full list's last entry then
+// becomes the bound.
 template <int K>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void flush(float (&ld)[K], int (&li)[K],
+                                      const float* bd, const int* bi,
+                                      int& cnt, float& td, int& ti) {
+  for (int e = 0; e < cnt; ++e) insert<K>(ld, li, bd[e], bi[e]);
+  cnt = 0;
+  if (li[K - 1] != INT_MAX) {
+    td = ld[K - 1];
+    ti = li[K - 1];
+  }
+}
+
+template <int K>
+__device__ __forceinline__ void offer(float d, int i, float (&ld)[K],
+                                      int (&li)[K], float* bd, int* bi,
+                                      int& cnt, float& td, int& ti) {
+  if (!before(d, i, td, ti)) return;
+  if (cnt == kBuffer) flush<K>(ld, li, bd, bi, cnt, td, ti);
+  bd[cnt] = d;
+  bi[cnt] = i;
+  ++cnt;
+}
+
+template <int K>
+__global__ void __launch_bounds__(kMaxWarps * 32)
 soft_project_fwd_kernel(const float* __restrict__ points,   // [B, n, 3]
                         const float* __restrict__ queries,  // [B, m, 3]
                         const float* __restrict__ sigma,    // [1]: sigma^2
                         float* __restrict__ out,            // [B, m, 3]
                         int* __restrict__ idx,              // [B, m, K]
-                        int n, int m) {
-  __shared__ float sp[3][kChunk];
+                        int n, int m, int chunk, int slices) {
+  constexpr int G = bound_groups(K);
+  extern __shared__ float4 sp[];  // [chunk]
   const int b = blockIdx.x;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int q = blockIdx.y * kQueryTile + warp;
+  const int s = threadIdx.x % slices;  // the query's lanes: s = 0..slices-1
+  const int q = blockIdx.y * (blockDim.x / slices) + threadIdx.x / slices;
   const float* pb = points + static_cast<size_t>(b) * n * 3;
   const float* qp = queries + (static_cast<size_t>(b) * m + min(q, m - 1)) * 3;
   const float qx = qp[0], qy = qp[1], qz = qp[2];
+  const bool whole = n <= chunk;  // staged once for both passes
+  const int len = (n + G - 1) / G;  // group g: points [g * len, g * len + len)
 
-  float bd[K];
-  int bi[K];
+  // pass 1: the least distance of each group, then tau
+  float gmin[G];
 #pragma unroll
-  for (int j = 0; j < K; ++j) {
-    bd[j] = CUDART_INF_F;
-    bi[j] = INT_MAX;  // after every real point, so n >= K fills the lists
-  }
-  for (int c0 = 0; c0 < n; c0 += kChunk) {
-    const int cn = min(kChunk, n - c0);
+  for (int g = 0; g < G; ++g) gmin[g] = CUDART_INF_F;
+  for (int c0 = 0; c0 < n; c0 += chunk) {
+    const int cn = min(chunk, n - c0);
     __syncthreads();  // the previous chunk is no longer read
-    for (int e = threadIdx.x; e < cn * 3; e += kThreads) {
-      sp[e % 3][e / 3] = pb[static_cast<size_t>(c0) * 3 + e];
-    }
+    stage_points(sp, pb, c0, cn);
     __syncthreads();
-    for (int p = lane; p < cn; p += 32) {
-      float d = sqdist(qx, qy, qz, sp[0][p], sp[1][p], sp[2][p]);
-      if (d != d) d = CUDART_INF_F;
-      insert<K>(bd, bi, d, c0 + p);
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const int lo = max(g * len, c0) - c0;
+      const int hi = min(g * len + len, c0 + cn) - c0;
+      float a = CUDART_INF_F, c = CUDART_INF_F;  // two chains
+      int p = lo + s;
+      for (; p + slices < hi; p += 2 * slices) {
+        const float4 v = sp[p], w = sp[p + slices];
+        a = fminf(a, sqdist(qx, qy, qz, v.x, v.y, v.z));
+        c = fminf(c, sqdist(qx, qy, qz, w.x, w.y, w.z));
+      }
+      if (p < hi) {
+        const float4 v = sp[p];
+        a = fminf(a, sqdist(qx, qy, qz, v.x, v.y, v.z));
+      }
+      gmin[g] = fminf(gmin[g], fminf(a, c));
     }
+  }
+  for (int off = 1; off < slices; off <<= 1) {  // the query's lanes
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      gmin[g] = fminf(gmin[g], __shfl_xor_sync(kFull, gmin[g], off));
+    }
+  }
+  float tau;
+  unsigned near = 0u;  // the groups whose minimum is at or below tau
+  {
+    float t[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) t[g] = gmin[g];
+    sort_ascending(t);
+    tau = t[K - 1];
+#pragma unroll
+    for (int g = 0; g < G; ++g) near |= (gmin[g] <= tau ? 1u : 0u) << g;
   }
 
-  const float s = *sigma;
-  float d0 = 0.0f, nx = 0.0f, ny = 0.0f, nz = 0.0f, den = 0.0f;
+  // pass 2: the near groups' candidates, through the buffer into the list
+  float ld[K];
+  int li[K];
 #pragma unroll
   for (int r = 0; r < K; ++r) {
-    float d = bd[0];
-    int i = bi[0];
-    for (int off = 16; off > 0; off >>= 1) {
-      const float od = __shfl_xor_sync(0xffffffffu, d, off);
-      const int oi = __shfl_xor_sync(0xffffffffu, i, off);
-      if (before(od, oi, d, i)) {
-        d = od;
-        i = oi;
-      }
+    ld[r] = CUDART_INF_F;
+    li[r] = INT_MAX;
+  }
+  float bd[kBuffer];
+  int bi[kBuffer];
+  int cnt = 0;
+  float td = tau;  // (tau, INT_MAX): every d <= tau comes in
+  int ti = INT_MAX;
+  for (int c0 = 0; c0 < n; c0 += chunk) {
+    const int cn = min(chunk, n - c0);
+    if (!whole) {
+      __syncthreads();
+      stage_points(sp, pb, c0, cn);
+      __syncthreads();
     }
-    if (bi[0] == i) {  // this lane held the winner (real indices are unique)
+    for (unsigned rest = near; rest != 0u; rest &= rest - 1u) {
+      const int g = __ffs(rest) - 1;
+      const int lo = max(g * len, c0) - c0;
+      const int hi = min(g * len + len, c0 + cn) - c0;
+      int p = lo + s;
+      for (; p + (kStep - 1) * slices < hi; p += kStep * slices) {
+        // kStep loads and distances with no branch between them, then one
+        // test of all of them (d <= tau holds for every candidate)
+        float d[kStep];
+        bool any = false;
 #pragma unroll
-      for (int j = 0; j < K - 1; ++j) {
-        bd[j] = bd[j + 1];
-        bi[j] = bi[j + 1];
+        for (int u = 0; u < kStep; ++u) {
+          const float4 v = sp[p + u * slices];
+          // fminf: a NaN distance counts as +inf
+          d[u] = fminf(sqdist(qx, qy, qz, v.x, v.y, v.z), CUDART_INF_F);
+          any |= d[u] <= td;
+        }
+        if (any) {
+#pragma unroll
+          for (int u = 0; u < kStep; ++u) {
+            offer<K>(d[u], c0 + p + u * slices, ld, li, bd, bi, cnt, td, ti);
+          }
+        }
       }
-      bd[K - 1] = CUDART_INF_F;
-      bi[K - 1] = INT_MAX;
+      for (; p < hi; p += slices) {  // the group's ragged end
+        const float4 v = sp[p];
+        offer<K>(fminf(sqdist(qx, qy, qz, v.x, v.y, v.z), CUDART_INF_F),
+                 c0 + p, ld, li, bd, bi, cnt, td, ti);
+      }
     }
-    if (r == 0) d0 = d;
-    const float w = softmax_term(d, d0, s);
-    const float* p = pb + static_cast<size_t>(i) * 3;
-    nx += w * p[0];
-    ny += w * p[1];
-    nz += w * p[2];
+  }
+  flush<K>(ld, li, bd, bi, cnt, td, ti);
+  for (int off = 1; off < slices; off <<= 1) {  // merge the query's lanes
+#pragma unroll
+    for (int r = 0; r < K; ++r) {
+      bd[r] = __shfl_xor_sync(kFull, ld[r], off);
+      bi[r] = __shfl_xor_sync(kFull, li[r], off);
+    }
+    for (int r = 0; r < K; ++r) insert<K>(ld, li, bd[r], bi[r]);
+  }
+  if (q >= m || s != 0) return;  // no block barrier follows
+
+  const float sg = *sigma;
+  float nx = 0.0f, ny = 0.0f, nz = 0.0f, den = 0.0f;
+  int* iq = idx + (static_cast<size_t>(b) * m + q) * K;
+#pragma unroll
+  for (int r = 0; r < K; ++r) {
+    const float w = softmax_term(ld[r], ld[0], sg);
+    float4 v;
+    if (whole) {
+      v = sp[li[r]];
+    } else {
+      const float* pp = pb + static_cast<size_t>(li[r]) * 3;
+      v = make_float4(pp[0], pp[1], pp[2], 0.0f);
+    }
+    nx += w * v.x;
+    ny += w * v.y;
+    nz += w * v.z;
     den += w;
-    if (lane == 0 && q < m) idx[(static_cast<size_t>(b) * m + q) * K + r] = i;
+    iq[r] = li[r];
   }
-  if (lane == 0 && q < m) {
-    float* o = out + (static_cast<size_t>(b) * m + q) * 3;
-    o[0] = nx / den;
-    o[1] = ny / den;
-    o[2] = nz / den;
-  }
+  float* o = out + (static_cast<size_t>(b) * m + q) * 3;
+  o[0] = nx / den;
+  o[1] = ny / den;
+  o[2] = nz / den;
 }
 
 template <int K>
@@ -263,13 +445,26 @@ soft_project_bwd_kernel(const float* __restrict__ points,    // [B, n, 3]
   if (t == 0) dsigma[b] = red[0] / (s * s);
 }
 
+size_t fwd_smem(int chunk) {
+  return static_cast<size_t>(chunk) * sizeof(float4);
+}
+
 template <int K>
 cudaError_t launch_fwd(const float* points, const float* queries,
                        const float* sigma, float* out, int* idx, int b, int n,
-                       int m, cudaStream_t stream) {
-  const dim3 grid(b, (m + kQueryTile - 1) / kQueryTile);
-  soft_project_fwd_kernel<K><<<grid, kThreads, 0, stream>>>(
-      points, queries, sigma, out, idx, n, m);
+                       int m, int chunk, int warps, int slices,
+                       cudaStream_t stream) {
+  const size_t smem = fwd_smem(chunk);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        soft_project_fwd_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const int per_block = 32 * warps / slices;  // queries
+  const dim3 grid(b, (m + per_block - 1) / per_block);
+  soft_project_fwd_kernel<K><<<grid, 32 * warps, smem, stream>>>(
+      points, queries, sigma, out, idx, n, m, chunk, slices);
   return cudaGetLastError();
 }
 
@@ -324,13 +519,30 @@ extern "C" size_t snt_soft_project_bwd_smem(int n, int k) {
   return bwd_smem(n, k);
 }
 
+extern "C" size_t snt_soft_project_fwd_smem(int chunk) {
+  return fwd_smem(chunk);
+}
+
+extern "C" int snt_soft_project_fwd_max_warps() { return kMaxWarps; }
+
+extern "C" int snt_soft_project_fwd_max_slices() { return kMaxSlices; }
+
+// chunk (points staged at a time, a multiple of 32), warps (a block has
+// 32 * warps lanes) and slices (lanes a query, a power of two) come from
+// the launch plan.
 extern "C" int snt_soft_project_fwd(const float* points, const float* queries,
                                     const float* sigma, float* out, int* idx,
-                                    int b, int n, int m, int k,
+                                    int b, int n, int m, int k, int chunk,
+                                    int warps, int slices,
                                     cudaStream_t stream) {
-  if (k < 1 || k > kMaxK || k > n) return static_cast<int>(cudaErrorInvalidValue);
-#define SNT_FWD(K) \
-  static_cast<int>(launch_fwd<K>(points, queries, sigma, out, idx, b, n, m, stream))
+  if (k < 1 || k > kMaxK || k > n || chunk < 32 || chunk % 32 != 0 ||
+      warps < 1 || warps > kMaxWarps || slices < 1 || slices > kMaxSlices ||
+      (slices & (slices - 1)) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+#define SNT_FWD(K)                                                          \
+  static_cast<int>(launch_fwd<K>(points, queries, sigma, out, idx, b, n, m, \
+                                 chunk, warps, slices, stream))
   SNT_SWITCH_K(k, SNT_FWD)
 #undef SNT_FWD
 }

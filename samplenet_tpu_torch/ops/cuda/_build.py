@@ -118,6 +118,7 @@ def library() -> ctypes.CDLL:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
+    pp, sz = ctypes.POINTER(p), ctypes.c_size_t
     lib.snt_error_string.argtypes = [i]
     lib.snt_error_string.restype = ctypes.c_char_p
     lib.snt_nn_direction.argtypes = [p, p, p, p, i, i, i, p]
@@ -130,9 +131,15 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.snt_point_mlp_max_smem.restype = ctypes.c_size_t
     lib.snt_point_mlp_max.argtypes = [p, p, ctypes.POINTER(i), i, p, i, i, p]
     lib.snt_point_mlp_max.restype = i
-    pp, sz = ctypes.POINTER(p), ctypes.c_size_t
-    lib.snt_soft_project_fwd.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    lib.snt_soft_project_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
+                                         p]
     lib.snt_soft_project_fwd.restype = i
+    lib.snt_soft_project_fwd_smem.argtypes = [i]
+    lib.snt_soft_project_fwd_smem.restype = sz
+    lib.snt_soft_project_fwd_max_warps.argtypes = []
+    lib.snt_soft_project_fwd_max_warps.restype = i
+    lib.snt_soft_project_fwd_max_slices.argtypes = []
+    lib.snt_soft_project_fwd_max_slices.restype = i
     lib.snt_soft_project_bwd_smem.argtypes = [i, i]
     lib.snt_soft_project_bwd_smem.restype = sz
     lib.snt_soft_project_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]

@@ -15,16 +15,21 @@ Distances are ((dx*dx + dy*dy) + dz*dz) as separate ops in the plain
 version and with __fmul_rn/__fadd_rn in csrc/soft_projection.cu, and a NaN
 distance counts as +inf in both, so on the card `idx` is bit-equal; the
 weighted sums run in another order, so `out` and the gradients agree to
-f32 round-off. The backward's scatter into the points is a one-hot bmm
+f32 round-off. The forward kernel's launch (lanes a query, block width,
+points staged at a time) comes from soft_projection_plan.py; its outputs
+do not depend on it. The backward's scatter into the points is a one-hot bmm
 here and a fixed-order sum in shared memory in the kernel: no atomics.
 The kernels take f32; the plain versions also take f64 (a reference).
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from samplenet_tpu_torch.ops.chamfer import scatter_rows
+from samplenet_tpu_torch.ops.cuda import soft_projection_plan as spp
 from samplenet_tpu_torch.ops.cuda._build import (
     check,
     library,
@@ -37,8 +42,6 @@ from samplenet_tpu_torch.ops.knn import group_point
 KERNEL_FWD = "soft_projection_fwd"
 KERNEL_BWD = "soft_projection_bwd"
 MAX_GROUP = 16           # csrc/soft_projection.cu kMaxK
-_QUERY_TILE = 8          # csrc/soft_projection.cu kQueryTile
-_MAX_GRID_Y = 65535
 
 
 def _check_args(points, queries, sigma, k: int) -> None:
@@ -121,22 +124,46 @@ def _cuda_checks(*tensors) -> None:
                         f"{tensors[0].dtype}")
 
 
+@functools.lru_cache(maxsize=256)
+def fwd_plan(device: int, b: int, n: int, m: int) -> spp.FwdPlan:
+    """The forward kernel's launch plan on CUDA device `device`; checks that
+    the kernel counts shared memory, block widths and slices as the plan
+    does."""
+    lib = library()
+    chunk = spp.fwd_chunk(n)
+    if (lib.snt_soft_project_fwd_max_warps() != spp.MAX_WARPS
+            or lib.snt_soft_project_fwd_max_slices() != spp.MAX_SLICES
+            or lib.snt_soft_project_fwd_smem(chunk) != spp.fwd_smem(chunk)):
+        raise RuntimeError("csrc/soft_projection.cu and soft_projection_plan"
+                           ".py disagree on block widths, slices or shared "
+                           "memory")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return spp.plan_fwd(b, n, m, sms=sms)
+
+
 def soft_project_fwd_cuda(points, queries, sigma, k: int):
     _cuda_checks(points, queries, sigma)
     b, n, _ = points.shape
-    m = queries.shape[1]
     if k > MAX_GROUP:
         raise ValueError(f"the soft_projection kernel takes k <= {MAX_GROUP}, "
                          f"got {k}")
-    if -(-m // _QUERY_TILE) > _MAX_GRID_Y:
-        raise ValueError(f"M={m} exceeds the kernel's grid")
+    plan = fwd_plan(points.device.index, b, n, queries.shape[1])
+    return launch_fwd(points, queries, sigma, k, plan)
+
+
+def launch_fwd(points, queries, sigma, k: int, plan: spp.FwdPlan):
+    """The forward kernel on checked arguments under `plan`; the outputs do
+    not depend on the plan (the card tests run others)."""
+    b, n, _ = points.shape
+    m = queries.shape[1]
     out = torch.empty((b, m, 3), dtype=torch.float32, device=points.device)
     idx = torch.empty((b, m, k), dtype=torch.int32, device=points.device)
     lib = library()
     with torch.cuda.device(points.device):
         err = lib.snt_soft_project_fwd(
             points.data_ptr(), queries.data_ptr(), sigma.data_ptr(),
-            out.data_ptr(), idx.data_ptr(), b, n, m, k, stream_handle(points))
+            out.data_ptr(), idx.data_ptr(), b, n, m, k, plan.chunk,
+            plan.warps, plan.slices, stream_handle(points))
     check(err, KERNEL_FWD)
     count_launch(KERNEL_FWD)
     return out, idx

@@ -19,7 +19,9 @@ the kernel and the plain f32 version run on the same inputs, the input
 and copies moved by one ulp, and each is held by its worst: where the
 steep levels meet near-ties, either f32 path can drift from the f64
 match. The train kernels: soft_projection's idx bit for bit, its output
-within 1e-5 and its gradients at rtol 1e-4 / atol 1e-5; point_mlp_exact's
+within 1e-5 (NaN where the plain version's is: a NaN query) and its
+gradients at rtol 1e-4 / atol 1e-5, its forward's outputs bit for bit
+under every launch plan; point_mlp_exact's
 outputs and statistics at rtol = atol = 1e-4 and its gradients at least
 as accurate as the plain f32 version's (within 2x, or 1e-5 of their
 scale), both measured against the plain version in float64; both
@@ -367,6 +369,89 @@ def test_soft_projection_backward_is_deterministic(dev):
     first = _soft_run(pts, qs, sigma, 7, cot)[2]
     second = _soft_run(pts, qs, sigma, 7, cot)[2]
     assert all(torch.equal(a, c) for a, c in zip(first, second))
+
+
+def _soft_fwd_inputs(kind, b, n, m, seed, dev):
+    """randn clouds and queries; "nan": some points and some queries with a
+    NaN coordinate; "triples": every point of an integer grid three times,
+    queries on grid points and cell centres (exact ties); "cluster": the
+    first 512 points next to the first query, which puts more candidates
+    through the kernel's second pass than a lane's buffer holds."""
+    rng = np.random.default_rng(seed)
+    pts = rng.standard_normal((b, n, 3)).astype(np.float32)
+    qs = rng.standard_normal((b, m, 3)).astype(np.float32)
+    if kind == "nan":
+        pts[:, rng.choice(n, size=max(1, n // 8), replace=False), 1] = np.nan
+        qs[:, rng.choice(m, size=max(1, m // 5), replace=False), 2] = np.nan
+    elif kind == "triples":
+        grid = rng.integers(-3, 4, size=(b, -(-n // 3), 3))
+        pts = np.repeat(grid, 3, axis=1)[:, :n].astype(np.float32)
+        qs = (rng.integers(-3, 4, size=(b, m, 3))
+              + 0.5 * rng.integers(0, 2, size=(b, m, 1))).astype(np.float32)
+    elif kind == "cluster":
+        pts[:, :512] = qs[:, :1] + 1e-3 * pts[:, :512]
+    return (torch.from_numpy(np.ascontiguousarray(pts)).to(dev),
+            torch.from_numpy(qs).to(dev), torch.tensor([0.4], device=dev))
+
+
+def _soft_fwd_check(pts, qs, sigma, k, ok, ik):
+    """idx bit-equal to the plain version's stable sort, out within atol
+    1e-5 (NaN where the plain version's is); a NaN query takes 0..k-1."""
+    from samplenet_tpu_torch.ops.cuda import soft_projection_kernel as spk
+
+    op, ip = spk.soft_project_fwd_plain(pts, qs, sigma, k)
+    assert torch.equal(ik, ip), f"idx differ in {int((ik != ip).sum())} places"
+    torch.testing.assert_close(ok, op, rtol=0, atol=1e-5, equal_nan=True)
+    nan_q = torch.isnan(qs).any(-1)
+    if nan_q.any():
+        assert bool((ik[nan_q] == torch.arange(k, device=ik.device)).all())
+
+
+@pytest.mark.parametrize("kind,b,n,m,k", [
+    ("nan", 3, 200, 40, 7),          # NaN points and NaN queries
+    ("nan", 2, 1000, 33, 16),
+    ("nan", 2, 40, 9, 1),
+    ("triples", 3, 300, 50, 16),     # ties to the lowest index
+    ("triples", 2, 96, 17, 7),
+    ("triples", 2, 31, 8, 1),
+    ("randn", 4, 20, 11, 16),        # n < 32
+    ("randn", 3, 1000, 33, 7),       # n not a multiple of 32
+    ("randn", 2, 5000, 40, 16),      # n longer than one staged chunk
+    ("randn", 5, 512, 77, 7),        # M not a multiple of a block's queries
+    ("cluster", 2, 2048, 40, 16),    # the candidate buffer fills
+    ("cluster", 3, 1000, 70, 7),
+    ("randn", 50, 2048, 2048, 16),   # the progressive AE step's shape
+])
+def test_soft_projection_forward_edge_cases(dev, kind, b, n, m, k):
+    from samplenet_tpu_torch.ops.cuda import soft_projection_kernel as spk
+
+    pts, qs, sigma = _soft_fwd_inputs(kind, b, n, m, b * n + m + k, dev)
+    ok, ik = spk.soft_project_fwd_cuda(pts, qs, sigma, k)
+    torch.cuda.synchronize()
+    _soft_fwd_check(pts, qs, sigma, k, ok, ik)
+
+
+@pytest.mark.parametrize("kind,b,n,m,k", [("randn", 3, 300, 70, 7),
+                                          ("nan", 2, 1000, 50, 16),
+                                          ("cluster", 2, 1000, 50, 16)])
+def test_soft_projection_forward_under_other_plans(dev, kind, b, n, m, k):
+    """The outputs do not depend on the launch plan: several chunks, other
+    block widths and lanes a query, and a ragged last block give the
+    planned launch's bits."""
+    from samplenet_tpu_torch.ops.cuda import soft_projection_kernel as spk
+    from samplenet_tpu_torch.ops.cuda.soft_projection_plan import FwdPlan
+
+    pts, qs, sigma = _soft_fwd_inputs(kind, b, n, m, 7 + k, dev)
+    ok, ik = spk.soft_project_fwd_cuda(pts, qs, sigma, k)
+    _soft_fwd_check(pts, qs, sigma, k, ok, ik)
+    for chunk in (32, 64, 1024):
+        for warps, slices in ((1, 1), (3, 2), (2, 8), (8, 4)):
+            o, i = spk.launch_fwd(pts, qs, sigma, k,
+                                  FwdPlan(chunk, warps, slices, (b, 0)))
+            torch.cuda.synchronize()
+            assert torch.equal(i, ik), (chunk, warps, slices)
+            assert torch.equal(o.nan_to_num(7.0), ok.nan_to_num(7.0)), (
+                chunk, warps, slices)
 
 
 def test_train_kernels_refuse_what_they_do_not_take(dev):

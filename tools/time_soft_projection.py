@@ -1,0 +1,144 @@
+#!/usr/bin/env python3
+"""Time the soft-projection kernels of a checkout on the card.
+
+    python3 tools/time_soft_projection.py CHECKOUT TAG
+
+Imports samplenet_tpu_torch from CHECKOUT (building its kernels there),
+prints the build's ptxas lines for the forward kernel at k = 7 and 16
+(registers, spills) and then, under TAG, at the soft projection's shape on
+each path that runs it (chip_smoke.py's SOFT_SHAPES: the classification
+step, the reconstruction sampler step, the progressive step and the
+progressive AE step), on standard-normal clouds and queries from numpy's
+default_rng(SEED + 41 + i) and sigma^2 = 0.7, as chip_smoke.py's
+`_soft_inputs` makes them:
+
+- the forward's median of 20 calls after 3 warm-ups, CUDA events around
+  each call (the wrapper's glue included), and its device time per call
+  under torch.profiler; the same for the backward on the forward's idx and
+  a standard-normal cotangent;
+- SHA-1 digests of idx, of out and of the backward's three outputs
+  (equal digests from two checkouts mean bit-equal results);
+- the forward's bound (chip_smoke.py::_soft_fwd_bound);
+- where the checkout's forward takes a launch plan of slices (lanes a
+  query) and warps (ops/cuda/soft_projection_plan.py), its device time
+  under torch.profiler for every slices x warps, and the plan's choice.
+
+To compare two checkouts on one card, run it four times in a row: A, B,
+B, A.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import importlib.util
+import os
+import sys
+
+TOOL_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ITERS, WARMUP = 20, 3
+
+
+def digest(*outs) -> str:
+    """SHA-1 (first 12 hex digits) of the bytes of every tensor in outs."""
+    h = hashlib.sha1()
+    for t in outs:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:12]
+
+
+def plan_sweep(torch, cs, spk, pts, qs, sigma, k, idx) -> str:
+    """Device ms of the forward under every slices x warps, each checked
+    against the planned launch's idx."""
+    from samplenet_tpu_torch.ops.cuda import soft_projection_plan as spp
+
+    b, n, _ = pts.shape
+    m = qs.shape[1]
+    plan = spk.fwd_plan(pts.device.index, b, n, m)
+    parts = [f"plan slices {plan.slices}, warps {plan.warps}"]
+    slices = 1
+    while slices <= spp.MAX_SLICES:
+        for warps in (2, 4, 8):
+            other = spp.FwdPlan(plan.chunk, warps, slices, (b, 0))
+
+            def call(other=other):
+                return spk.launch_fwd(pts, qs, sigma, k, other)
+
+            if not torch.equal(call()[1], idx):
+                raise AssertionError(f"idx differ under {other}")
+            parts.append(f"s{slices} w{warps} "
+                         f"{cs._device_ms(torch, call, 10)!r}")
+        slices *= 2
+    return ", ".join(parts)
+
+
+def main() -> int:
+    root, tag = os.path.abspath(sys.argv[1]), sys.argv[2]
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(TOOL_ROOT, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    os.chdir(root)
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+
+    from samplenet_tpu_torch.ops.cuda import soft_projection_kernel as spk
+    from samplenet_tpu_torch.ops.cuda._build import library, library_path
+
+    library()
+    log = (library_path().parent / "build.log").read_text().splitlines()
+    for i, line in enumerate(log):        # each entry's properties follow it
+        if ("Compiling entry" in line and "soft_project_fwd_kernel" in line
+                and ("ILi7E" in line or "ILi16E" in line)):
+            print(f"[{tag}] ptxas: " + " | ".join(
+                ln.strip() for ln in log[i:i + 4]
+                if "spill" in ln or "registers" in ln or "entry" in ln))
+    card = cs.card_line()
+
+    def median_ms(fn) -> float:
+        for _ in range(WARMUP):
+            fn()
+        times = []
+        for _ in range(ITERS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return float(np.median(times))
+
+    for i, (path, (b, n, m, k)) in enumerate(cs.SOFT_SHAPES.items()):
+        rng = np.random.default_rng(cs.SEED + 41 + i)
+        pts, qs, sigma, cot = cs._soft_inputs(torch, rng, b, n, m)
+        sigma = sigma.reshape(1)
+
+        def fwd():
+            return spk.soft_project_fwd_cuda(pts, qs, sigma, k)
+
+        out, idx = fwd()
+
+        def bwd():
+            return spk.soft_project_bwd_cuda(pts, qs, sigma, idx, cot)
+
+        f_ms, f_dev = median_ms(fwd), cs._device_ms(torch, fwd, 10)
+        b_ms, b_dev = median_ms(bwd), cs._device_ms(torch, bwd, 10)
+        bound = cs._soft_fwd_bound(b, n, m, k)
+        print(f"[{tag}] soft_projection {path} (B={b}, N={n}, M={m}, k={k}):"
+              f" forward {f_ms!r} ms per call, {f_dev!r} ms device (bound "
+              f"{bound[0]!r} ms, {bound[1]}); backward {b_ms!r} ms per "
+              f"call, {b_dev!r} ms device; bits: idx {digest(idx)}, out "
+              f"{digest(out)}, backward {digest(*bwd())} ({card})",
+              flush=True)
+        if hasattr(spk, "launch_fwd"):
+            print(f"[{tag}] plans at the {path}'s shape: "
+                  + plan_sweep(torch, cs, spk, pts, qs, sigma, k, idx)
+                  + f" ({card})", flush=True)
+        del pts, qs, cot, out, idx
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
