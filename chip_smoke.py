@@ -24,7 +24,11 @@ frozen PointNet; 2048 points, B=50, sizes 16..2048 against the AE), and:
      the serving path's shapes and at a ragged shape: nn_direction and FPS
      bit for bit, point_mlp_max within rtol = atol = 1e-4 (split TF32 on the
      tensor cores, sums in another order), with both against the plain
-     version in float64 printed beside;
+     version in float64 printed beside; then FPS, nn_direction and nn_snap
+     on clouds with NaN and +-inf coordinates at the serving path's shape
+     (FPS with random counts, count 1 and count k): idx equal, FPS's xyz
+     and the snapped points bit for bit, distances equal with NaN at the
+     same places;
   4. checks the eval forward of the kernel path against the plain path,
      then resets the launch counters, serves B=1024 clouds through
      BatchedSampler, and requires every kernel to have launched;
@@ -88,7 +92,10 @@ frozen PointNet; 2048 points, B=50, sizes 16..2048 against the AE), and:
      plain versions, per call with CUDA events and as device time with
      torch.profiler (the EMD also on the AE step's own pair: the seeded
      AE's reconstruction of the procedural clouds against them), and
-     computes each kernel's bound from its inputs (the soft projection's
+     computes each kernel's bound from its inputs (FPS also per call and
+     as device time at the eval shape with count = k and at the
+     reconstruction FPS baseline's shape, B=50, 2048 -> 64, count 1; the
+     soft projection's
      forward at each of its four paths' shapes, with its bound there); the
      exact chain's backward at B=1024 and at the reconstruction widths
      also as device time split by pass (forward: dense per layer, pool,
@@ -227,6 +234,10 @@ PROG_KERNELS = {
         "samplenet_tpu/ops/pallas/point_mlp_train_kernel.py:400"),
 }
 # the soft projection's (B, N, M, k) on each path that runs it
+FPS_TIMES = {   # (B, N, k, count = k): FPS timed beside the main shape's
+    "eval shape": (B, N, M, True),
+    "reconstruction FPS baseline's shape": (RECON_B, RECON_N, RECON_M, False),
+}
 SOFT_SHAPES = {
     "classification step": (B, N, M, K),
     "reconstruction sampler step": (RECON_B, RECON_N, RECON_M, RECON_K),
@@ -410,6 +421,74 @@ def _f64_reading(torch, x, wbs, k, p) -> str:
     r = point_mlp_max_plain(x.double(), tuple(t.double() for t in wbs))
     return (f"against f64: kernel {_rel_err(k, r)!r}, plain f32 "
             f"{_rel_err(p, r)!r} of scale")
+
+
+def _same_bits(torch, a, c) -> bool:
+    return torch.equal(a.view(torch.int32), c.view(torch.int32))
+
+
+def _same_or_nan(torch, a, c) -> bool:
+    return (torch.equal(a.isnan(), c.isnan())
+            and torch.equal(a.masked_fill(a.isnan(), 0),
+                            c.masked_fill(c.isnan(), 0)))
+
+
+def phase_compare_nan(torch) -> None:
+    """FPS and the 1-NN kernels against their plain versions on clouds with
+    NaN and +-inf coordinates, at the serving path's shape: FPS idx equal
+    and xyz bit for bit (NaN ranks above every number and propagates
+    through the running minimum); nn_direction and nn_snap idx equal, dist
+    equal with NaN at the same places (a NaN distance comes first, as in
+    the JAX package's chunked_min_argmin), snapped points bit for bit."""
+    from samplenet_tpu_torch.ops.cuda import (
+        fps,
+        fps_plain,
+        nn_direction,
+        nn_direction_plain,
+        nn_snap,
+        nn_snap_plain,
+    )
+
+    rng = np.random.default_rng(SEED + 5)
+    x, y, given, count = _inputs(torch, rng, DEVICE, B, N, M)
+    nan, inf = float("nan"), float("inf")
+    y[0:256, 5, 1] = nan                  # a NaN point, picked by argmax
+    y[256:512, 7, 0] = nan                # a NaN point given first
+    given[256:512, 0] = 7
+    y[512:520] = nan                      # clouds all NaN
+    y[600:700, 11, 2] = inf               # +-inf coordinates
+    y[700:800, 12] = -inf
+    x[900:910, 3] = nan                   # NaN queries
+    for label, cnt in (("random counts", count),
+                       ("count 1", torch.ones_like(count)),
+                       (f"count {M}", torch.full_like(count, M))):
+        ik, xk = fps(y, given, cnt, M)
+        ip, xp = fps_plain(y, given, cnt, M)
+        torch.cuda.synchronize()
+        if not (torch.equal(ik, ip) and _same_bits(torch, xk, xp)):
+            raise AssertionError(f"fps on NaN/inf clouds ({label}): kernel "
+                                 f"!= plain ({int((ik != ip).sum())} idx "
+                                 f"differ)")
+        log("compare", f"fps NaN/inf clouds points{tuple(y.shape)} k={M}, "
+                       f"{label}: idx and xyz bits equal; clouds picking "
+                       f"the NaN point {int((ik[:256] == 5).any(1).sum())}"
+                       f"/{ik[:256].shape[0]}")
+    dk, ik = nn_direction(x, y)
+    dp, ip = nn_direction_plain(x, y)
+    sk = nn_snap(x, y)
+    sp = nn_snap_plain(x, y)
+    torch.cuda.synchronize()
+    if not (torch.equal(ik, ip) and _same_or_nan(torch, dk, dp)
+            and torch.equal(sk[1], sp[1]) and _same_or_nan(torch, sk[0], sp[0])
+            and _same_bits(torch, sk[2], sp[2])):
+        raise AssertionError(f"nn_direction/nn_snap on NaN/inf clouds: "
+                             f"kernel != plain ({int((ik != ip).sum())} idx "
+                             f"differ)")
+    if not ((ik[0:256] == 5).all() and (ik[900:910, 3] == 0).all()):
+        raise AssertionError("nn_direction: a NaN distance did not come first")
+    log("compare", f"nn_direction and nn_snap NaN/inf clouds x{tuple(x.shape)}"
+                   f" y{tuple(y.shape)}: idx equal, dist equal with NaN in "
+                   f"{int(dk.isnan().sum())} places, snapped bits equal")
 
 
 def make_model(torch, device):
@@ -756,6 +835,15 @@ def phase_times(torch, model, clouds, card) -> dict[str, tuple]:
                      f"ms per call, {k_dev!r} ms device; plain "
                      f"{times[name][1]!r} ms per call, {p_dev!r} ms device "
                      f"({card})")
+    for label, (b, n, m, full) in FPS_TIMES.items():
+        rng = np.random.default_rng(SEED + 6)
+        _, pts, gv, cnt = _inputs(torch, rng, DEVICE, b, n, m)
+        cnt = torch.full_like(cnt, m if full else 1)
+        ms = _time_ms(torch, lambda: fps(pts, gv, cnt, m), 20)
+        dev = _device_ms(torch, lambda: fps(pts, gv, cnt, m), 20)
+        log("times", f"fps at the {label} (B={b}, N={n}, k={m}, count "
+                     f"{m if full else 1}): kernel {ms!r} ms per call, "
+                     f"{dev!r} ms device ({card})")
     xc = torch.from_numpy(clouds).to(DEVICE)
 
     def plain_forward():
@@ -2300,6 +2388,14 @@ def _soft_fwd_bound(b: int, n: int, m: int, k: int) -> tuple[float, str]:
                   (9.0 * b * m * n + 20.0 * b * m * k, FP32_FLOP_PER_S))
 
 
+def _fps_bound(b: int, n: int, m: int) -> tuple[float, str]:
+    """FPS: M picks, each updating N min-distances (3 sub, 3 mul, 2 add,
+    1 min) and an argmax (1 compare); the points, given indices and counts
+    in, idx and xyz out."""
+    return _bound(4 * (b * n * 3 + b * m * 2 + b + b * m * 3),
+                  (10.0 * b * m * n, FP32_FLOP_PER_S))
+
+
 def _emd_bound(b: int, n: int, m: int) -> tuple[float, str]:
     """What the function needs, each level's arithmetic once per pair (an
     FMA counts 2 FLOP): d2 (8 FLOP) and one rsqrt giving d and 1/d (1 SFU
@@ -2334,9 +2430,7 @@ def kernel_bounds() -> dict[str, tuple[float, str]]:
         # M queries against N points: 3 sub, 3 mul, 2 add, 1 compare
         "nn_direction": _bound(f * (B * M * 3 + B * N * 3 + 2 * B * M),
                                (9.0 * B * M * N, FP32_FLOP_PER_S)),
-        # M picks, each updating N min-distances and an argmax
-        "fps": _bound(f * (B * N * 3 + B * M * 2 + B + B * M * 3),
-                      (10.0 * B * M * N, FP32_FLOP_PER_S)),
+        "fps": _fps_bound(B, N, M),
         "point_mlp_max": _bound(
             f * (B * N * 3 + params + B * WIDTHS[-1]),
             (B * N * 3 * 2.0 * macs, TF32_FLOP_PER_S),
@@ -2385,6 +2479,7 @@ def main() -> int:
     card = _timed(phase_env, torch)
     _timed(phase_build)
     errs = _timed(phase_compare, torch)
+    _timed(phase_compare_nan, torch)
     model = make_model(torch, DEVICE)
     clouds = np.random.default_rng(SEED + 4).standard_normal(
         (B, N, 3)).astype(np.float32)

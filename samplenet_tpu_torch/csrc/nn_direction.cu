@@ -23,9 +23,14 @@
 //
 // Distances are ((dx*dx + dy*dy) + dz*dz) with __fmul_rn/__fadd_rn, which
 // the compiler never contracts into FMAs, so dist and idx equal the plain
-// version (ops/cuda/chamfer_kernel.py::nn_direction_plain) bit for bit. A
-// NaN distance never wins a '<', so it counts as +inf, as in the plain
-// version.
+// version (ops/cuda/chamfer_kernel.py::nn_direction_plain) bit for bit.
+// NaN follows the JAX package's path off the TPU
+// (samplenet_tpu/ops/pairwise.py::chunked_min_argmin: jnp.min, jnp.argmin)
+// and torch's amin/argmin: a NaN distance ranks below every number, so a
+// query whose distance to some point is NaN gets dist NaN and the first
+// such index; a query with a NaN coordinate gets index 0. A lane keeps its
+// running minimum with min.NaN and its index where the minimum's bits
+// change, and the merge prefers NaN, then the lower index among equals.
 //
 // The snap variant (kSnap) writes the winner's xyz as well: after the warp
 // merge, lane 0 copies y[idx] from the database, so the snapped point is
@@ -46,6 +51,14 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kQueriesPerWarp = 4;
 constexpr int kQueryTile = kWarps * kQueriesPerWarp;
 constexpr int kChunk = 2048;  // database points staged per pass: 24 KB
+
+// Whether (od, oi) from another lane comes before (d, i): NaN first, then
+// the smaller distance, then the lower index.
+__device__ __forceinline__ bool nn_merge_before(float od, int oi, float d,
+                                                int i) {
+  if (od != od) return d == d || oi < i;
+  return od < d || (od == d && oi < i);
+}
 
 template <bool kSnap>
 __global__ void __launch_bounds__(kThreads)
@@ -86,11 +99,12 @@ nn_direction_kernel(const float* __restrict__ x,  // [B, n1, 3] queries
       const float px = sy[0][p], py = sy[1][p], pz = sy[2][p];
 #pragma unroll
       for (int j = 0; j < kQueriesPerWarp; ++j) {
-        const float d = sqdist(qx[j], qy[j], qz[j], px, py, pz);
-        if (d < best[j]) {
-          best[j] = d;
-          best_i[j] = c0 + p;
-        }
+        // min.NaN changes best's bits only where d < best, or where d is
+        // NaN and best is not: the lane's first NaN stays
+        const float m = min_nan(best[j],
+                                sqdist(qx[j], qy[j], qz[j], px, py, pz));
+        if (__float_as_uint(m) != __float_as_uint(best[j])) best_i[j] = c0 + p;
+        best[j] = m;
       }
     }
   }
@@ -102,7 +116,7 @@ nn_direction_kernel(const float* __restrict__ x,  // [B, n1, 3] queries
     for (int off = 16; off > 0; off >>= 1) {
       const float od = __shfl_down_sync(0xffffffffu, d, off);
       const int oi = __shfl_down_sync(0xffffffffu, i, off);
-      if (od < d || (od == d && oi < i)) {
+      if (nn_merge_before(od, oi, d, i)) {
         d = od;
         i = oi;
       }

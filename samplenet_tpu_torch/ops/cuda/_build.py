@@ -125,8 +125,14 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.snt_nn_direction.restype = i
     lib.snt_nn_snap.argtypes = [p, p, p, p, p, i, i, i, p]
     lib.snt_nn_snap.restype = i
-    lib.snt_fps.argtypes = [p, p, p, p, p, i, i, i, p]
+    lib.snt_fps.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
     lib.snt_fps.restype = i
+    lib.snt_fps_smem.argtypes = [i, i]
+    lib.snt_fps_smem.restype = sz
+    lib.snt_fps_max_threads.argtypes = [i, i]
+    lib.snt_fps_max_threads.restype = i
+    lib.snt_fps_shared_points.argtypes = []
+    lib.snt_fps_shared_points.restype = i
     lib.snt_point_mlp_max_smem.argtypes = [ctypes.POINTER(i), i]
     lib.snt_point_mlp_max_smem.restype = ctypes.c_size_t
     lib.snt_point_mlp_max.argtypes = [p, p, ctypes.POINTER(i), i, p, i, i, p]

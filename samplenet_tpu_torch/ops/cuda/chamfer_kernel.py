@@ -5,9 +5,13 @@ Mirrors samplenet_tpu/ops/pallas/chamfer_kernel.py:28-83 (the Pallas body)
 and :176-218 (`nn_direction`, `nn_snap`, `nn_distance_pallas`). The
 kernels are csrc/nn_direction.cu; its note says what bounds them and how
 they are laid out. Both versions compute d = (dx*dx + dy*dy) + dz*dz
-without FMA contraction, count a NaN distance as +inf and take the first
-index of the minimum, so on the card they agree bit for bit; the snapped
-points are copies of the database's.
+without FMA contraction and take the first index of the minimum, so on the
+card they agree bit for bit; the snapped points are copies of the
+database's. A NaN distance ranks below every number, as in the JAX
+package's path off the TPU (samplenet_tpu/ops/pairwise.py::
+chunked_min_argmin, which nn_distance and nn_match_from_clouds run there):
+a query with a NaN distance to some point gets dist NaN and the first such
+index, and a query with a NaN coordinate index 0.
 """
 
 from __future__ import annotations
@@ -41,14 +45,14 @@ def _check_args(x: torch.Tensor, y: torch.Tensor) -> None:
 def nn_direction_plain(x: torch.Tensor, y: torch.Tensor
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """(dist [B, N1] f32, idx [B, N1] int32): squared distance to, and
-    index of, each x point's nearest y point; ties to the lowest index."""
+    index of, each x point's nearest y point; ties to the lowest index, and
+    NaN before every number (amin and argmin propagate it)."""
     dx = x[:, :, None, 0] - y[:, None, :, 0]      # [B, N1, N2]
     dy = x[:, :, None, 1] - y[:, None, :, 1]
     dz = x[:, :, None, 2] - y[:, None, :, 2]
     d = dx * dx
     d = d + dy * dy
     d = d + dz * dz
-    d = torch.where(torch.isnan(d), torch.full_like(d, float("inf")), d)
     return d.amin(dim=2), torch.argmin(d, dim=2).to(torch.int32)
 
 

@@ -4,17 +4,25 @@ kernel's wrapper and its plain PyTorch version.
 Mirrors samplenet_tpu/ops/pallas/fps_kernel.py:27-88 (the Pallas body) and
 :173-248, whose four entry points are all this one kernel: the plain FPS is
 count = 1 with given[:, 0] = start (ops/fps.py builds those arguments). The
-kernel is csrc/fps.cu; its note says what bounds it and how it is laid out.
-Both versions compute (dx*dx + dy*dy) + dz*dz without FMA contraction and
-take the first index of the maximum, so on the card they agree bit for bit.
+kernel is csrc/fps.cu; its note says what bounds it and how it is laid out,
+and its launch (warps a cloud, points a thread) comes from fps_plan.py.
+Both versions compute (dx*dx + dy*dy) + dz*dz without FMA contraction,
+keep the running minimum with NaN propagated (torch.minimum) and take the
+first index of the maximum, NaN ranked above every number (torch.argmax),
+so on the card they agree bit for bit; a picked point with a NaN
+coordinate makes every distance NaN, and the next pick is index 0, as in
+the JAX package.
 
 Precondition, as in the JAX package: given[b, :count[b]] lie in [0, N).
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from samplenet_tpu_torch.ops.cuda import fps_plan as fp
 from samplenet_tpu_torch.ops.cuda._build import (
     check,
     library,
@@ -49,7 +57,8 @@ def _check_args(points, given, count, npoint) -> None:
 def fps_plain(points: torch.Tensor, given: torch.Tensor, count: torch.Tensor,
               npoint: int) -> tuple[torch.Tensor, torch.Tensor]:
     """(idx [B, npoint] int32, xyz [B, npoint, 3]): the loop of
-    samplenet_tpu/ops/fps.py:130-141, one step per output point."""
+    samplenet_tpu/ops/fps.py:130-141, one step per output point; NaN
+    propagates through torch.minimum and ranks first in torch.argmax."""
     b, n, _ = points.shape
     px, py, pz = points.unbind(-1)                      # [B, N] each
     rows = torch.arange(b, device=points.device)
@@ -85,6 +94,24 @@ def fps(points: torch.Tensor, given: torch.Tensor, count: torch.Tensor,
     return _fps_cuda(points, given, count, npoint)
 
 
+@functools.lru_cache(maxsize=256)
+def kernel_plan(device: int, b: int, n: int, k: int) -> fp.FpsPlan:
+    """The kernel's launch plan on CUDA device `device`; checks that the
+    kernel counts shared memory and block widths as the plan does."""
+    lib = library()
+    widths = [(r, False) for r in fp.REG_POINTS] + [(fp.SHARED_POINTS, True)]
+    if (lib.snt_fps_smem(n, k) != fp.fps_smem(n, k)
+            or lib.snt_fps_shared_points() != fp.SHARED_POINTS
+            or any(lib.snt_fps_max_threads(r, s) != fp.max_threads(r, s)
+                   for r, s in widths)):
+        raise RuntimeError("csrc/fps.cu and fps_plan.py disagree on shared "
+                           "memory or block widths")
+    props = torch.cuda.get_device_properties(device)
+    return fp.plan_fps(b, n, k, sms=props.multi_processor_count,
+                       smem_limit=max_dynamic_smem(torch.device("cuda",
+                                                                device)))
+
+
 def _fps_cuda(points, given, count, npoint):
     if points.device.type != "cuda":
         raise ValueError(f"the fps kernel takes CUDA tensors, got "
@@ -93,11 +120,14 @@ def _fps_cuda(points, given, count, npoint):
             and count.is_contiguous()):
         raise ValueError("the fps kernel takes contiguous tensors")
     b, n, _ = points.shape
-    smem = 16 * n
-    if smem > max_dynamic_smem(points.device):
-        raise ValueError(
-            f"N={n} points need {smem} bytes of shared memory, more than a "
-            f"block of {torch.cuda.get_device_name(points.device)} can hold")
+    plan = kernel_plan(points.device.index, b, n, npoint)
+    return launch(points, given, count, npoint, plan)
+
+
+def launch(points, given, count, npoint: int, plan: fp.FpsPlan):
+    """The kernel on checked arguments under `plan`; the outputs do not
+    depend on the plan (the card tests run others)."""
+    b, n, _ = points.shape
     idx = torch.empty((b, npoint), dtype=torch.int32, device=points.device)
     xyz = torch.empty((b, npoint, 3), dtype=torch.float32,
                       device=points.device)
@@ -105,7 +135,8 @@ def _fps_cuda(points, given, count, npoint):
     with torch.cuda.device(points.device):
         err = lib.snt_fps(points.data_ptr(), given.data_ptr(),
                           count.data_ptr(), idx.data_ptr(), xyz.data_ptr(),
-                          b, n, npoint, stream_handle(points))
+                          b, n, npoint, plan.warps, plan.points,
+                          int(plan.shared), stream_handle(points))
     check(err, KERNEL)
     count_launch(KERNEL)
     return idx, xyz

@@ -10,7 +10,9 @@ suite's conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py -q
 
 Tolerances: nn_direction and FPS bit for bit (same roundings, same
-tie-breaks); point_mlp_max at rtol = atol = 1e-4 (f32 sums in another
+tie-breaks, NaN first in the 1-NN ops and ranked above every number in
+FPS's argmax; NaN distances compared by place, FPS's and nn_snap's points
+by their bits); FPS also under every launch plan; point_mlp_max at rtol = atol = 1e-4 (f32 sums in another
 order). The EMD: its cost within rtol 2e-4 of the plain version in
 float64, and each gradient no further from that than 1.5x the plain f32
 version's error (or 5e-4 of its scale), as tests/test_emd_kernel.py
@@ -123,6 +125,155 @@ def test_fps_ties_on_a_grid(dev):
     ip, xp = fps_plain(pts, given,
                        torch.ones(2, dtype=torch.int32, device=dev), 40)
     assert torch.equal(ik, ip) and torch.equal(xk, xp)
+
+
+def _same_bits(a, c):
+    """Bit-equal tensors (NaN == NaN where the bits agree)."""
+    return torch.equal(a.view(torch.int32), c.view(torch.int32))
+
+
+def _same_or_nan(a, c):
+    """Equal where finite or infinite, NaN at the same places."""
+    return (torch.equal(a.isnan(), c.isnan())
+            and torch.equal(a.masked_fill(a.isnan(), 0),
+                            c.masked_fill(c.isnan(), 0)))
+
+
+def _fps_given(rng, b, n, k, counts, dev):
+    given = rng.integers(0, n, (b, k)).astype(np.int32)
+    count = {"one": np.ones(b), "all": np.full(b, k),
+             "random": rng.integers(1, k + 1, b)}[counts].astype(np.int32)
+    return (torch.from_numpy(given).to(dev), torch.from_numpy(count).to(dev))
+
+
+def _fps_check(pts, given, count, k, plan=None):
+    from samplenet_tpu_torch.ops.cuda import fps, fps_plain
+    from samplenet_tpu_torch.ops.cuda import fps_kernel
+
+    if plan is None:
+        ik, xk = fps(pts, given, count, k)
+    else:
+        ik, xk = fps_kernel.launch(pts, given, count, k, plan)
+    ip, xp = fps_plain(pts, given, count, k)
+    assert torch.equal(ik, ip), (ik != ip).sum()
+    assert _same_bits(xk, xp)
+    return ik
+
+
+FPS_COUNTS = ("one", "random", "all")
+
+
+@pytest.mark.parametrize("counts", FPS_COUNTS)
+@pytest.mark.parametrize("kind", ["nan_x_given", "nan_y_picked", "nan_z",
+                                  "inf", "minus_inf", "all_nan", "grid_nan"])
+def test_fps_nan_and_inf_clouds_bit_equal(dev, kind, counts):
+    """NaN ranks above every number and propagates through the running
+    minimum; +-inf coordinates give inf or NaN distances; xyz compared by
+    their bits."""
+    rng = np.random.default_rng(len(kind) * 7 + len(counts))
+    b, n, k = 4, 1000, 33
+    pts = _randn(rng, b, n, 3, dev=dev)
+    given, count = _fps_given(rng, b, n, k, counts, dev)
+    nan = float("nan")
+    if kind == "nan_x_given":
+        pts[:, 17, 0] = nan
+        given[:, 0] = 17
+    elif kind == "nan_y_picked":
+        pts[:, 600, 1] = nan
+        given[:, 0] = 0
+    elif kind == "nan_z":
+        pts[0, 999, 2] = nan
+        pts[2, 3, 2] = nan
+    elif kind == "inf":
+        pts[:, 40, 0] = float("inf")
+        pts[1, 41, 0] = float("inf")
+    elif kind == "minus_inf":
+        pts[:, 500, 2] = float("-inf")
+        pts[3, 7] = float("-inf")
+    elif kind == "all_nan":
+        pts[1] = nan
+    else:                              # grid ties with a NaN point
+        g = torch.arange(10, dtype=torch.float32, device=dev)
+        grid = torch.stack(torch.meshgrid(g, g, g, indexing="ij"), -1)
+        pts = grid.reshape(1, -1, 3).repeat(b, 1, 1).contiguous()
+        pts[2, 123, 1] = nan
+    ik = _fps_check(pts.contiguous(), given, count, k)
+    if kind == "all_nan" and counts == "one":
+        assert not ik[1, 1:].any()        # every distance NaN: index 0
+
+
+@pytest.mark.parametrize("counts", FPS_COUNTS)
+@pytest.mark.parametrize("n", [7, 31, 1000, 2048, 5000])
+@pytest.mark.parametrize("b", [1, 50, 1024])
+def test_fps_at_the_plans_boundary_shapes(dev, b, n, counts):
+    rng = np.random.default_rng(b * 7 + n)
+    k = min(n, 33)
+    pts = _randn(rng, b, n, 3, dev=dev)
+    given, count = _fps_given(rng, b, n, k, counts, dev)
+    _fps_check(pts, given, count, k)
+
+
+@pytest.mark.parametrize("b,n,k", [(3, 7, 7), (2, 1000, 33), (2, 2048, 64),
+                                   (1, 5000, 16)])
+def test_fps_under_every_plan(dev, b, n, k):
+    """The outputs do not depend on the launch plan: every plan the kernel
+    takes for the cloud, the shared-memory variant included."""
+    from samplenet_tpu_torch.ops.cuda import fps_plan
+
+    rng = np.random.default_rng(n + k)
+    pts = _randn(rng, b, n, 3, dev=dev)
+    pts[0, n // 2, 1] = float("nan")
+    given, count = _fps_given(rng, b, n, k, "random", dev)
+    plans = fps_plan.candidates(n)
+    assert plans[-1].shared
+    for plan in plans:
+        _fps_check(pts, given, count, k, plan)
+
+
+@pytest.mark.parametrize("kind", ["nan_point", "nan_point_second_chunk",
+                                  "nan_query", "inf_point", "mixed"])
+def test_nn_direction_and_snap_on_nan_clouds(dev, kind):
+    """NaN first, as the plain versions (amin, argmin) and the JAX
+    package's chunked_min_argmin give it: a NaN distance wins, the first
+    NaN index; a NaN query gets dist NaN and index 0."""
+    from samplenet_tpu_torch.ops.cuda import (
+        nn_direction,
+        nn_direction_plain,
+        nn_snap,
+        nn_snap_plain,
+    )
+
+    rng = np.random.default_rng(len(kind))
+    b, n1, n2 = 3, 70, 5000
+    x, y = _randn(rng, b, n1, 3, dev=dev), _randn(rng, b, n2, 3, dev=dev)
+    nan = float("nan")
+    if kind == "nan_point":
+        y[0, 5, 1] = nan
+        y[0, 900, 0] = nan
+    elif kind == "nan_point_second_chunk":
+        y[1, 3000, 2] = nan
+    elif kind == "nan_query":
+        x[2, 11] = nan
+        x[0, 69, 0] = nan
+    elif kind == "inf_point":
+        y[:, 7, 0] = float("inf")
+        x[1, 3, 0] = float("inf")
+    else:
+        y[2, 4000, 0] = nan
+        x[2, 1, 1] = nan
+        y[0, 0] = float("-inf")
+    dk, ik = nn_direction(x, y)
+    dp, ip = nn_direction_plain(x, y)
+    assert torch.equal(ik, ip) and _same_or_nan(dk, dp)
+    dk, ik, sk = nn_snap(x, y)
+    dp, ip, sp = nn_snap_plain(x, y)
+    assert torch.equal(ik, ip) and _same_or_nan(dk, dp)
+    assert _same_bits(sk, sp)
+    if kind.startswith("nan_point"):
+        hit = ik == (5 if kind == "nan_point" else 3000)
+        assert hit[0 if kind == "nan_point" else 1].all()
+    if kind == "nan_query":
+        assert ik[2, 11] == 0 and torch.isnan(dk[2, 11])
 
 
 @pytest.mark.parametrize("widths,n", [
@@ -744,21 +895,23 @@ def test_nn_snap_bit_equal(dev, b, n1, n2):
 
 def test_nn_snap_ties_and_nan(dev):
     """Every database point three times (ties to the lowest index), a NaN
-    database point (never nearest) and NaN queries (all +inf: index 0)."""
+    database point in cloud 1 (a NaN distance to every query: dist NaN,
+    index 5) and NaN queries (dist NaN, index 0)."""
     from samplenet_tpu_torch.ops.cuda import nn_snap, nn_snap_plain
 
     rng = np.random.default_rng(11)
     base = _randn(rng, 2, 700, 3, dev=dev)
     y = torch.cat([base, base, base], dim=1).contiguous()
-    y[:, 5] = float("nan")
+    y[1, 5] = float("nan")
     x = torch.cat([base[:, ::7], torch.full((2, 3, 3), float("nan"),
                                             device=dev)], 1).contiguous()
     dk, ik, sk = nn_snap(x, y)
     dp, ip, sp = nn_snap_plain(x, y)
-    assert torch.equal(dk, dp) and torch.equal(ik, ip)
-    assert torch.equal(torch.nan_to_num(sk), torch.nan_to_num(sp))
-    assert int(ik[:, :-3].max()) < 1400 and not ik[:, -3:].any()
-    assert torch.isinf(dk[:, -3:]).all()
+    assert _same_or_nan(dk, dp) and torch.equal(ik, ip)
+    assert _same_bits(sk, sp)
+    assert int(ik[0, :-3].max()) < 700 and float(dk[0, :-3].max()) == 0.0
+    assert (ik[1, :-3] == 5).all() and torch.isnan(dk[1]).all()
+    assert not ik[:, -3:].any() and torch.isnan(dk[:, -3:]).all()
 
 
 def _ghost_args(rng, b, n, widths, dev):

@@ -24,6 +24,7 @@ import torch
 from samplenet_tpu.models.soft_projection import (
     SoftProjection as JaxSoftProjection,
 )
+from samplenet_tpu.ops.pairwise import chunked_min_argmin
 from samplenet_tpu.ops.pallas import nn_snap as jax_nn_snap
 from samplenet_tpu.ops.pallas.chamfer_kernel import (
     nn_distance_pallas as jax_nn_distance_pallas,
@@ -92,19 +93,29 @@ def test_cpu_tensor_takes_the_plain_version():
 
 
 def test_ties_go_to_the_lowest_index_and_nan_counts_as_inf():
+    """Ties go to the lowest index. NaN no longer counts as +inf: it
+    follows the JAX package's path off the TPU (chunked_min_argmin), so a
+    NaN database point is every query's nearest (dist NaN, its index) and a
+    NaN query gets dist NaN and index 0. The name is the one the test had
+    when the port counted NaN as +inf."""
     rng = np.random.RandomState(2)
     base = rng.randn(1, 20, 3).astype(np.float32)
     y = np.concatenate([base, base], axis=1)          # every point twice
-    y[0, 0] = np.nan                                  # a NaN database point
     x = base[:, 1:].copy()
     d, i, s = nn_snap_plain(torch.from_numpy(x), torch.from_numpy(y))
     np.testing.assert_array_equal(i.numpy()[0], np.arange(1, 20))
     assert float(d.max()) == 0.0
     np.testing.assert_array_equal(s.numpy(), x)
-    q = np.full((1, 2, 3), np.nan, np.float32)        # NaN queries: all +inf
-    d, i, s = nn_snap_plain(torch.from_numpy(q), torch.from_numpy(y))
-    assert np.isinf(d.numpy()).all() and not i.numpy().any()
-    assert np.isnan(s.numpy()).all()                  # y[0] is the NaN point
+    y[0, 3] = np.nan                                  # a NaN database point
+    q = np.full((1, 2, 3), np.nan, np.float32)        # NaN queries
+    for xs, want_i in ((x, 3), (q, 0)):
+        d, i, s = nn_snap_plain(torch.from_numpy(xs), torch.from_numpy(y))
+        jd, ji = chunked_min_argmin(jnp.asarray(xs), jnp.asarray(y))
+        assert np.isnan(d.numpy()).all() and np.isnan(np.asarray(jd)).all()
+        assert (i.numpy() == want_i).all()
+        np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+        np.testing.assert_array_equal(s.numpy().view(np.int32),
+                                      _gather(y, i.numpy()).view(np.int32))
 
 
 def test_wrapper_does_not_fall_back(monkeypatch):
