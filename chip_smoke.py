@@ -40,7 +40,8 @@ frozen PointNet; 2048 points, B=50, sizes 16..2048 against the AE), and:
      (k-NN softmax mixture, forward and backward), at the train step's
      shapes and at ragged ones, soft_projection also at the progressive
      steps' (32 clouds of 1024 points, 1024 queries, k=7; 50 of 2048, 2048
-     queries, k=16); both backward kernels bit for bit from run to run;
+     queries, k=16) and at 2 clouds of 16384 points (64 queries, k=16);
+     both backward kernels bit for bit from run to run;
   7. runs one train step on the kernel path and on the plain path from
      the same state, holds both against the plain path in float64, then
      resets the launch counters, runs five augmented train steps and
@@ -95,8 +96,9 @@ frozen PointNet; 2048 points, B=50, sizes 16..2048 against the AE), and:
      computes each kernel's bound from its inputs (FPS also per call and
      as device time at the eval shape with count = k and at the
      reconstruction FPS baseline's shape, B=50, 2048 -> 64, count 1; the
-     soft projection's
-     forward at each of its four paths' shapes, with its bound there); the
+     soft projection's forward and backward at each of its four paths'
+     shapes, with their bounds there; nn_direction at the train step's two
+     Chamfer directions, 32 queries over 1024 points and back); the
      exact chain's backward at B=1024 and at the reconstruction widths
      also as device time split by pass (forward: dense per layer, pool,
      glue; backward: BN rows, dz/dh_prev, dW, glue).
@@ -238,6 +240,8 @@ FPS_TIMES = {   # (B, N, k, count = k): FPS timed beside the main shape's
     "eval shape": (B, N, M, True),
     "reconstruction FPS baseline's shape": (RECON_B, RECON_N, RECON_M, False),
 }
+# a long cloud at a small B: the backward holds no cloud in shared memory
+SOFT_LONG = (2, 16384, 64, 16)
 SOFT_SHAPES = {
     "classification step": (B, N, M, K),
     "reconstruction sampler step": (RECON_B, RECON_N, RECON_M, RECON_K),
@@ -1018,7 +1022,8 @@ def phase_compare_train(torch) -> dict[str, float]:
             ("main", SOFT_SHAPES["classification step"]),
             ("ragged", (RAGGED_B, RAGGED_N, RAGGED_M, 16)),
             ("progressive", SOFT_SHAPES["progressive step"]),
-            ("progressive AE", SOFT_SHAPES["progressive AE step"])):
+            ("progressive AE", SOFT_SHAPES["progressive AE step"]),
+            ("N=16384", SOFT_LONG)):
         pts, qs, sigma, cot = _soft_inputs(torch, rng, b, n, m)
         ok, ik, gk = _soft_call(torch, pts, qs, sigma, k, cot)
         op, ip, gp = _soft_call(torch, pts, qs, sigma, k, cot, plain=True)
@@ -1188,9 +1193,14 @@ def phase_train_cli(torch, classifier) -> None:
 
 
 def phase_times_train(torch, data, labels, classifier, card
-                      ) -> dict[str, tuple]:
+                      ) -> tuple[dict[str, tuple], int]:
     """The train kernels fwd and bwd and the train step, each against the
-    plain versions: CUDA-event time per call and profiler device time."""
+    plain versions: CUDA-event time per call and profiler device time; and
+    the points the timed backward gathers (its bound's bytes)."""
+    from samplenet_tpu_torch.ops.cuda import (
+        nn_direction,
+        nn_direction_plain,
+    )
     from samplenet_tpu_torch.ops.cuda import point_mlp_exact_kernel as pme
     from samplenet_tpu_torch.ops.cuda import soft_projection_kernel as spk
     from samplenet_tpu_torch.ops.dispatch import plain_on_cuda
@@ -1202,6 +1212,7 @@ def phase_times_train(torch, data, labels, classifier, card
     pts, qs, sigma, cot = _soft_inputs(torch, rng, B, N, M)
     sigma = sigma.reshape(1)
     idx_k = spk.soft_project_fwd_cuda(pts, qs, sigma, K)[1]
+    gathered = _gathered(torch, idx_k, N)
     cases = {
         "point_mlp_exact_fwd": (
             lambda: pme.point_mlp_exact_fwd_cuda(x, ws, gs, bes, 1e-5),
@@ -1228,7 +1239,7 @@ def phase_times_train(torch, data, labels, classifier, card
                      f"{times[name][1]!r} ms per call, {p_dev!r} ms device "
                      f"({card})")
     for path, (b, n, m, k) in SOFT_SHAPES.items():
-        sp, sq, ss, _ = _soft_inputs(torch, rng, b, n, m)
+        sp, sq, ss, sc = _soft_inputs(torch, rng, b, n, m)
         ss = ss.reshape(1)
         k_ms, p_ms = _pair_ms(
             torch, lambda: spk.soft_project_fwd_cuda(sp, sq, ss, k),
@@ -1240,7 +1251,39 @@ def phase_times_train(torch, data, labels, classifier, card
                      f"N={n}, M={m}, k={k}): kernel {k_ms!r} ms per call, "
                      f"{k_dev!r} ms device; plain {p_ms!r} ms per call; "
                      f"bound {bound[0]!r} ms ({bound[1]}) ({card})")
-        del sp, sq, ss
+        si = spk.soft_project_fwd_cuda(sp, sq, ss, k)[1]
+
+        def bwd(sp=sp, sq=sq, ss=ss, si=si, sc=sc):
+            return spk.soft_project_bwd_cuda(sp, sq, ss, si, sc)
+
+        def bwd_plain(sp=sp, sq=sq, ss=ss, si=si, sc=sc):
+            return spk.soft_project_bwd_plain(sp, sq, ss, si, sc)
+
+        k_ms, p_ms = _pair_ms(torch, bwd, bwd_plain, 10)
+        k_dev, p_dev = _device_ms(torch, bwd, 10), _device_ms(torch,
+                                                              bwd_plain, 3)
+        bound = _soft_bwd_bound(b, n, m, k, _gathered(torch, si, n))
+        log("times", f"soft_projection_bwd at the {path}'s shape (B={b}, "
+                     f"N={n}, M={m}, k={k}): kernel {k_ms!r} ms per call, "
+                     f"{k_dev!r} ms device; plain {p_ms!r} ms per call, "
+                     f"{p_dev!r} ms device; bound {bound[0]!r} ms "
+                     f"({bound[1]}) ({card})")
+        del sp, sq, ss, sc, si
+        torch.cuda.empty_cache()
+    # the Chamfer loss's two directions at the train step: the M sampled
+    # points over the N input points, and back
+    for nq, nd in ((M, N), (N, M)):
+        xq, yd = (torch.from_numpy(rng.standard_normal((B, c, 3)).astype(
+            np.float32)).to(DEVICE) for c in (nq, nd))
+        k_ms, p_ms = _pair_ms(torch, lambda: nn_direction(xq, yd),
+                              lambda: nn_direction_plain(xq, yd), 50)
+        k_dev = _device_ms(torch, lambda: nn_direction(xq, yd), 50)
+        bound = _nn_bound(B, nq, nd)
+        log("times", f"nn_direction at the train step's Chamfer shape "
+                     f"(B={B}, {nq} queries over {nd} points): kernel "
+                     f"{k_ms!r} ms per call, {k_dev!r} ms device; plain "
+                     f"{p_ms!r} ms per call; bound {bound[0]!r} ms "
+                     f"({bound[1]}) ({card})")
     torch.cuda.empty_cache()
     split = _pass_split(torch, cases["point_mlp_exact_fwd"][0], 5,
                         len(WIDTHS) - 1, FWD_PASSES)
@@ -1273,7 +1316,7 @@ def phase_times_train(torch, data, labels, classifier, card
                  f"device (busy {k_dev / k!r}); plain path {p!r} ms = "
                  f"{B / p * 1e3!r} clouds/s, {p_dev!r} ms device (busy "
                  f"{p_dev / p!r}) ({card})")
-    return times
+    return times, gathered
 
 
 # ------------------------------------------------- reconstruction track phases
@@ -2113,7 +2156,12 @@ def phase_progressive_ae(torch, data, x) -> None:
     """One progressive AE step (B=50, 2048 points, sizes 16..2048, k=16)
     on the kernel path, the plain path and the plain path in float64 from
     the same state, a nonzero gradient for every sampler conv layer, and
-    evaluate_ae_prefix_nre on the kernel and the plain path."""
+    evaluate_ae_prefix_nre on the kernel and the plain path; the kernel
+    path's step must launch both soft-projection kernels."""
+    from samplenet_tpu_torch.ops.dispatch import (
+        launch_counts,
+        reset_launch_counts,
+    )
     from samplenet_tpu_torch.train import progressive as prog
     from samplenet_tpu_torch.train import reconstruction as rec
 
@@ -2130,6 +2178,7 @@ def phase_progressive_ae(torch, data, x) -> None:
         if dtype is not None:
             sampler.to(dtype)
         step = prog.make_progressive_ae_train_step(sampler, net_ae, pcfg)
+        reset_launch_counts()
         with _ctx(plain):
             metrics = step(state, x if dtype is None else x.to(dtype))
         torch.cuda.synchronize()
@@ -2137,9 +2186,15 @@ def phase_progressive_ae(torch, data, x) -> None:
                                 for k, p in sampler.named_parameters()})
         if name == "kernel":
             keep = (sampler, state)
+            counts = launch_counts()
         del sampler, state, step, net_ae
         torch.cuda.empty_cache()
     (mk, gk), (mp, gp), (_, gr) = runs["kernel"], runs["plain"], runs["f64"]
+    soft = {k: counts.get(k, 0) for k in ("soft_projection_fwd",
+                                          "soft_projection_bwd")}
+    if not all(soft.values()):
+        raise AssertionError(f"progressive AE step: a soft-projection kernel "
+                             f"did not launch: {soft}")
     for k in mk:
         if not bool(torch.isfinite(mk[k])):
             raise AssertionError(f"progressive AE step: {k} is not finite")
@@ -2177,6 +2232,7 @@ def phase_progressive_ae(torch, data, x) -> None:
                           + ", ".join(f"{k} {float(v)!r} (plain "
                                       f"{float(mp[k])!r})"
                                       for k, v in mk.items())
+                          + f"; launches {soft}"
                           + f"; gradients' norm-wise error against f64: worst"
                           f" kernel {worst[0]!r} at {worst[2]} (plain f32 "
                           f"{worst[1]!r}); every sampler conv gradient "
@@ -2379,6 +2435,14 @@ def _exact_bounds(b: int, n: int, widths) -> tuple[tuple, tuple]:
                    (p * (4.0 * macs + 12 * chans), FP32_FLOP_PER_S)))
 
 
+def _nn_bound(b: int, nq: int, nd: int) -> tuple[float, str]:
+    """1-NN of nq queries among nd points: 3 sub, 3 mul, 2 add and 1
+    compare a pair; the queries and points in, a distance and an index a
+    query out."""
+    return _bound(4 * (b * nq * 3 + b * nd * 3 + 2 * b * nq),
+                  (9.0 * b * nq * nd, FP32_FLOP_PER_S))
+
+
 def _soft_fwd_bound(b: int, n: int, m: int, k: int) -> tuple[float, str]:
     """The soft projection's forward: M queries against N points, 3 sub, 3
     mul, 2 add and 1 compare a pair, and about 20 FLOP a neighbour for its
@@ -2386,6 +2450,29 @@ def _soft_fwd_bound(b: int, n: int, m: int, k: int) -> tuple[float, str]:
     idx out."""
     return _bound(4 * (b * n * 3 + 2 * b * m * 3 + b * m * k + 1),
                   (9.0 * b * m * n + 20.0 * b * m * k, FP32_FLOP_PER_S))
+
+
+def _soft_bwd_bound(b: int, n: int, m: int, k: int,
+                    gathered: int | None = None) -> tuple[float, str]:
+    """The soft projection's backward: the `gathered` points that idx
+    names read (all clouds together; by default the most it can name,
+    min(N, M*k) a cloud) and d points written whole, the queries, the
+    cotangent and d queries, idx, sigma^2 and d sigma^2; about 40 FLOP a
+    neighbour (its distance, weight, d queries, d sigma^2 term and
+    contribution to d points)."""
+    if gathered is None:
+        gathered = b * min(n, m * k)
+    return _bound(4 * (3 * gathered + b * n * 3 + 3 * b * m * 3 + b * m * k
+                       + 2),
+                  (40.0 * b * m * k, FP32_FLOP_PER_S))
+
+
+def _gathered(torch, idx, n: int) -> int:
+    """The distinct (cloud, point) pairs that idx [B, M, k] names: the
+    points the backward must read."""
+    b = idx.shape[0]
+    offset = torch.arange(b, device=idx.device, dtype=torch.int64) * n
+    return int((idx.to(torch.int64) + offset[:, None, None]).unique().numel())
 
 
 def _fps_bound(b: int, n: int, m: int) -> tuple[float, str]:
@@ -2413,8 +2500,11 @@ def _emd_bound(b: int, n: int, m: int) -> tuple[float, str]:
                   (11.0 * pairs, SFU_OP_PER_S))
 
 
-def kernel_bounds() -> dict[str, tuple[float, str]]:
-    """Each kernel's bound at the shapes its times are taken at: each
+def kernel_bounds(soft_gathered: int | None = None
+                  ) -> dict[str, tuple[float, str]]:
+    """Each kernel's bound at the shapes its times are taken at (the soft
+    projection's backward reading the `soft_gathered` points that its
+    timed run's idx names): each
     input read once, each output written once, and the operations the
     algorithm needs on these inputs (FP32 on the SIMT pipes; the EMD's
     exp and rsqrt on the special-function units; on the tensor cores
@@ -2427,9 +2517,7 @@ def kernel_bounds() -> dict[str, tuple[float, str]]:
     macs = sum(a * c for a, c in pairs)
     params = sum(a * c + c for a, c in pairs)
     return {
-        # M queries against N points: 3 sub, 3 mul, 2 add, 1 compare
-        "nn_direction": _bound(f * (B * M * 3 + B * N * 3 + 2 * B * M),
-                               (9.0 * B * M * N, FP32_FLOP_PER_S)),
+        "nn_direction": _nn_bound(B, M, N),
         "fps": _fps_bound(B, N, M),
         "point_mlp_max": _bound(
             f * (B * N * 3 + params + B * WIDTHS[-1]),
@@ -2438,9 +2526,7 @@ def kernel_bounds() -> dict[str, tuple[float, str]]:
         "point_mlp_exact_fwd": exact_fwd,
         "point_mlp_exact_bwd": exact_bwd,
         "soft_projection_fwd": _soft_fwd_bound(B, N, M, K),
-        "soft_projection_bwd": _bound(
-            f * (2 * B * N * 3 + 3 * B * M * 3 + B * M * K + 2),
-            (40.0 * B * M * K, FP32_FLOP_PER_S)),
+        "soft_projection_bwd": _soft_bwd_bound(B, N, M, K, soft_gathered),
         "emd": _emd_bound(RECON_B, RECON_N, RECON_N),
         # the progressive infer step's snap: nn_direction's work and 3
         # floats out per query
@@ -2506,8 +2592,9 @@ def main() -> int:
     _timed(phase_progressive_ae, torch, recon_data, recon_x)
     _timed(phase_progressive_cli, torch, classifier)
     times = _timed(phase_times, torch, model, clouds, card)
-    times.update(_timed(phase_times_train, torch, data, labels, classifier,
-                        card))
+    train_times, soft_gathered = _timed(phase_times_train, torch, data,
+                                        labels, classifier, card)
+    times.update(train_times)
     times.update(_timed(phase_times_recon, torch, recon_x, card))
     times.update(_timed(phase_times_progressive, torch, px, py, recon_x,
                         classifier, card))
@@ -2516,7 +2603,7 @@ def main() -> int:
               **{k: prog_counts[k] for k in PROG_KERNELS}}
     errs.update(train_errs)
     errs.update(prog_errs)
-    bounds = kernel_bounds()
+    bounds = kernel_bounds(soft_gathered)
     # no single PyTorch call computes any of these functions (a distance
     # matrix, a top-k or a matmul is one step of each), so library_ms is null
     summary = {"kernels": [

@@ -15,9 +15,10 @@
 // What bounds it on the H100: at the train step's shape (B=1024 clouds of
 // N=1024 points, M=32 queries, k=7) the forward computes 33.5M distances
 // (0.27 GFLOP, 9 FP32 ops each, none an FMA) and reads 12.6 MB of points;
-// at the progressive AE step's (B=50, N=M=2048, k=16) 210M. The backward
-// touches only M*k neighbours per cloud (0.9 MB of gathers). Both are
-// bound by instruction issue and latency, not by FLOPs or HBM.
+// at the progressive AE step's (B=50, N=M=2048, k=16) 210M. It is bound
+// by instruction issue and latency, not by FLOPs or HBM. The backward
+// gathers M*k neighbours per cloud and must write d points whole (B*N*3
+// floats, 12.6 MB at the train step's shape), which bounds it by bytes.
 //
 // Forward design: no list is kept while the cloud is scanned. Each query
 // is served by `slices` adjacent lanes (1 to 8, a power of two), so that a
@@ -50,14 +51,40 @@
 // Distances use sqdist.cuh (no FMA contraction) and the order is (d, index)
 // throughout, so idx is bit-equal to the plain version's stable sort.
 //
-// Backward design: one block per cloud, one thread per query (in chunks of
-// kBwdQueries). Each thread recomputes its k distances and weights from
-// idx and writes the k contributions to the points' gradient into shared
-// memory; then thread t adds, in entry order, those that fall on points
-// p with p % kBwdThreads == t into a shared [N, 3] accumulator it alone
-// writes. The sum order is fixed, so the gradient is the same on every
-// run, with no atomics. d sigma^2 leaves as one partial per cloud, summed
-// by the caller; d queries is per thread.
+// Backward design: two kernels and a workspace in device memory, with no
+// float atomics. The first runs one thread per query over a flat grid of
+// all B*M queries (`tile` a block, so where M is small a block serves
+// several clouds): it recomputes the query's k distances and weights from
+// idx, writes its d queries row and, for each rank j, the contribution
+// w_j g + 2 dL/dd_j (p_j - q) to its point's gradient (contrib [B, k, M] of
+// float4) and the query's term of d sigma^2 as (e_j, d_j - d_0) (esd
+// [B, k, M] of float2): 24 bytes an entry, 39 MB at the progressive AE
+// step's shape. The second runs a flat grid of B * (point ranges + 1)
+// blocks, cloud by cloud, so B has no cap either. A block owns `span`
+// consecutive points of one cloud, one to kMaxPer a thread,
+// and streams the cloud's M*k entries (query, rank) in rounds of
+// 32 * kUnroll a warp, each lane holding kUnroll idx loads while the round
+// before runs. A warp keeps the entries that fall on its block's points
+// and fetches their contributions; a ballot and popc give each its place
+// in the round's list in shared memory, in entry order. The list is then
+// taken `threads` entries a slice: each warp groups its 32 by point
+// (__match_any_sync), and the lowest lane of a group writes the group's
+// lanes to a [warps, span] table of masks and sets the warp's bit in the
+// point's flag word (an atomicOr whose result is not read). The thread
+// that owns a point reads its flags, then those masks warp by warp, lane
+// by lane, so every point sums its entries in entry order from +0.0f; it
+// then stores its row, zeros included, through shared memory with
+// coalesced stores. No place comes from an atomic. The last block of each
+// cloud sums d sigma^2 in a fixed order: 256 stripes of queries
+// (q = s mod 256), each adding its queries' terms e_j (d_j - d_0) in
+// order, then a 256-way tree; the caller sums the clouds' partials. No
+// sum's order depends on the launch plan (ops/cuda/soft_projection_plan.py),
+// so the outputs are bit-equal across plans and runs, and shared memory
+// holds one block's range of points and one round's list, never the cloud:
+// N has no cap. Each block of the second kernel reads all of its cloud's
+// entries, and each of its rounds and slices waits on memory and on
+// barriers: at the progressive AE step's shape it is latency-bound, far
+// from the bytes that bound the function (PERF.md).
 
 #include <climits>
 #include <cstdint>
@@ -74,8 +101,14 @@ constexpr int kBuffer = 32;    // candidates a lane holds before it sorts
 constexpr int kStep = 8;       // points a lane loads before it tests them
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxK = 16;
-constexpr int kBwdThreads = 256;
-constexpr int kBwdQueries = kBwdThreads;  // one query per thread
+constexpr int kMaxTile = 256;       // backward: queries a block, one a thread
+constexpr int kMaxPointThreads = 256;  // backward: a point block's threads
+constexpr int kMaxPer = 4;          // backward: points a thread
+constexpr int kStripes = 256;       // d sigma^2: query stripes, then a tree
+constexpr int kUnroll = 4;          // backward: idx loads a lane a round
+// a point block's static shared memory: wcnt and red
+constexpr size_t kPointStatic =
+    (kMaxPointThreads / 32) * sizeof(int) + kStripes * sizeof(float);
 
 // (d, i) comes strictly before (bd, bi)
 __device__ __forceinline__ bool before(float d, int i, float bd, int bi) {
@@ -342,107 +375,241 @@ soft_project_fwd_kernel(const float* __restrict__ points,   // [B, n, 3]
   o[2] = nz / den;
 }
 
+// One thread a query of the flat grid over all B*M queries: d queries, and
+// each rank's contribution to d points with e_j and d_j - d_0 for
+// d sigma^2, into the workspace.
 template <int K>
-__global__ void __launch_bounds__(kBwdThreads)
-soft_project_bwd_kernel(const float* __restrict__ points,    // [B, n, 3]
-                        const float* __restrict__ queries,   // [B, m, 3]
-                        const float* __restrict__ sigma,     // [1]
-                        const int* __restrict__ idx,         // [B, m, K]
-                        const float* __restrict__ grad_out,  // [B, m, 3]
-                        float* __restrict__ dpoints,         // [B, n, 3]
-                        float* __restrict__ dqueries,        // [B, m, 3]
-                        float* __restrict__ dsigma,          // [B] partials
-                        int n, int m) {
-  extern __shared__ float smem[];
-  float* dp = smem;                                  // [n * 3]
-  float* contrib = dp + static_cast<size_t>(n) * 3;  // [kBwdQueries * K * 3]
-  int* cidx = reinterpret_cast<int*>(contrib + kBwdQueries * K * 3);
-  __shared__ float red[kBwdThreads];
-
-  const int b = blockIdx.x;
-  const int t = threadIdx.x;
+__global__ void __launch_bounds__(kMaxTile)
+soft_project_bwd_entries(const float* __restrict__ points,    // [B, n, 3]
+                         const float* __restrict__ queries,   // [B, m, 3]
+                         const float* __restrict__ sigma,     // [1]
+                         const int* __restrict__ idx,         // [B, m, K]
+                         const float* __restrict__ grad_out,  // [B, m, 3]
+                         float* __restrict__ dqueries,        // [B, m, 3]
+                         float4* __restrict__ contrib,        // [B, K, m]
+                         float2* __restrict__ esd,            // [B, K, m]
+                         int n, int m, long long total) {
+  const long long g = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (g >= total) return;
+  const int b = static_cast<int>(g / m);
+  const int q = static_cast<int>(g - static_cast<long long>(b) * m);
+  const size_t qrow = static_cast<size_t>(g);
   const float* pb = points + static_cast<size_t>(b) * n * 3;
-  for (int e = t; e < n * 3; e += kBwdThreads) dp[e] = 0.0f;
   const float s = *sigma;
-  float ds = 0.0f;
+  const float qx = queries[qrow * 3 + 0], qy = queries[qrow * 3 + 1],
+              qz = queries[qrow * 3 + 2];
+  const float gx = grad_out[qrow * 3 + 0], gy = grad_out[qrow * 3 + 1],
+              gz = grad_out[qrow * 3 + 2];
+  float px[K], py[K], pz[K], d[K], w[K];
+  float den = 0.0f;
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const float* p = pb + static_cast<size_t>(idx[qrow * K + j]) * 3;
+    px[j] = p[0];
+    py[j] = p[1];
+    pz[j] = p[2];
+    d[j] = sqdist(qx, qy, qz, px[j], py[j], pz[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    w[j] = softmax_term(d[j], d[0], s);
+    den += w[j];
+  }
+  float ox = 0.0f, oy = 0.0f, oz = 0.0f;
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    w[j] = w[j] / den;
+    ox += w[j] * px[j];
+    oy += w[j] * py[j];
+    oz += w[j] * pz[j];
+  }
+  const float ubar = gx * ox + gy * oy + gz * oz;
+  float dqx = 0.0f, dqy = 0.0f, dqz = 0.0f;
+  float4* cq = contrib + static_cast<size_t>(b) * K * m + q;
+  float2* eq = esd + static_cast<size_t>(b) * K * m + q;
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const float u = gx * px[j] + gy * py[j] + gz * pz[j];
+    const float e = w[j] * (u - ubar);        // dL/d(-d_j / s)
+    const float two_dd = -2.0f * e / s;       // 2 dL/dd_j
+    const float ex = px[j] - qx, ey = py[j] - qy, ez = pz[j] - qz;
+    const float cx = w[j] * gx + two_dd * ex;
+    const float cy = w[j] * gy + two_dd * ey;
+    const float cz = w[j] * gz + two_dd * ez;
+    cq[static_cast<size_t>(j) * m] = make_float4(cx, cy, cz, 0.0f);
+    eq[static_cast<size_t>(j) * m] = make_float2(e, d[j] - d[0]);
+    dqx -= two_dd * ex;
+    dqy -= two_dd * ey;
+    dqz -= two_dd * ez;
+  }
+  dqueries[qrow * 3 + 0] = dqx;
+  dqueries[qrow * 3 + 1] = dqy;
+  dqueries[qrow * 3 + 2] = dqz;
+}
 
-  for (int m0 = 0; m0 < m; m0 += kBwdQueries) {
-    const int nq = min(kBwdQueries, m - m0);
-    __syncthreads();  // the previous chunk's contributions are consumed
-    if (t < nq) {
-      const size_t qrow = static_cast<size_t>(b) * m + m0 + t;
-      const float qx = queries[qrow * 3 + 0], qy = queries[qrow * 3 + 1],
-                  qz = queries[qrow * 3 + 2];
-      const float gx = grad_out[qrow * 3 + 0], gy = grad_out[qrow * 3 + 1],
-                  gz = grad_out[qrow * 3 + 2];
-      float px[K], py[K], pz[K], d[K], w[K];
-      int pi[K];
-      float den = 0.0f;
+// d points of `span` points of one cloud a block, in entry order: block
+// (ranges + 1) * b + r takes range r of cloud b, and r = ranges sums the
+// cloud's d sigma^2.
+template <int K>
+__global__ void __launch_bounds__(kMaxPointThreads, 4)
+soft_project_bwd_points(const int* __restrict__ idx,         // [B, m, K]
+                        const float4* __restrict__ contrib,  // [B, K, m]
+                        const float2* __restrict__ esd,      // [B, K, m]
+                        const float* __restrict__ sigma,     // [1]
+                        float* __restrict__ dpoints,         // [B, n, 3]
+                        float* __restrict__ dsigma,          // [B] partials
+                        int n, int m, int span) {
+  extern __shared__ float4 bsm[];
+  __shared__ int wcnt[kMaxPointThreads / 32];  // a round's list, by warp
+  __shared__ float red[kStripes];
+  const int ranges = (n + span - 1) / span;
+  const int b = static_cast<int>(blockIdx.x / (ranges + 1));
+  const int range = static_cast<int>(blockIdx.x - b * (ranges + 1u));
+  const int t = threadIdx.x, lane = t & 31, wid = t >> 5;
+  const int threads = blockDim.x, warps = threads >> 5;
+
+  if (range == ranges) {  // d sigma^2 of cloud b
+    const float2* eb = esd + static_cast<size_t>(b) * K * m;
+    for (int st = t; st < kStripes; st += threads) {
+      float ds = 0.0f;
+#pragma unroll 1
+      for (int q = st; q < m; q += kStripes) {
+        float2 x[K];  // the query's k terms in flight together
 #pragma unroll
-      for (int j = 0; j < K; ++j) {
-        pi[j] = idx[qrow * K + j];
-        const float* p = pb + static_cast<size_t>(pi[j]) * 3;
-        px[j] = p[0];
-        py[j] = p[1];
-        pz[j] = p[2];
-        d[j] = sqdist(qx, qy, qz, px[j], py[j], pz[j]);
-      }
+        for (int j = 0; j < K; ++j) x[j] = eb[static_cast<size_t>(j) * m + q];
 #pragma unroll
-      for (int j = 0; j < K; ++j) {
-        w[j] = softmax_term(d[j], d[0], s);
-        den += w[j];
+        for (int j = 0; j < K; ++j) ds += x[j].x * x[j].y;
       }
-      float ox = 0.0f, oy = 0.0f, oz = 0.0f;
-#pragma unroll
-      for (int j = 0; j < K; ++j) {
-        w[j] = w[j] / den;
-        ox += w[j] * px[j];
-        oy += w[j] * py[j];
-        oz += w[j] * pz[j];
-      }
-      const float ubar = gx * ox + gy * oy + gz * oz;
-      float dqx = 0.0f, dqy = 0.0f, dqz = 0.0f;
-#pragma unroll
-      for (int j = 0; j < K; ++j) {
-        const float u = gx * px[j] + gy * py[j] + gz * pz[j];
-        const float e = w[j] * (u - ubar);        // dL/d(-d_j / s)
-        ds += e * (d[j] - d[0]);
-        const float two_dd = -2.0f * e / s;       // 2 dL/dd_j
-        const float ex = px[j] - qx, ey = py[j] - qy, ez = pz[j] - qz;
-        float* c = contrib + (t * K + j) * 3;
-        c[0] = w[j] * gx + two_dd * ex;
-        c[1] = w[j] * gy + two_dd * ey;
-        c[2] = w[j] * gz + two_dd * ez;
-        cidx[t * K + j] = pi[j];
-        dqx -= two_dd * ex;
-        dqy -= two_dd * ey;
-        dqz -= two_dd * ez;
-      }
-      dqueries[qrow * 3 + 0] = dqx;
-      dqueries[qrow * 3 + 1] = dqy;
-      dqueries[qrow * 3 + 2] = dqz;
+      red[st] = ds;
     }
     __syncthreads();
-    for (int e = 0; e < nq * K; ++e) {  // entry order: (query, rank)
-      const int p = cidx[e];
-      if (p % kBwdThreads == t) {
-        dp[p * 3 + 0] += contrib[e * 3 + 0];
-        dp[p * 3 + 1] += contrib[e * 3 + 1];
-        dp[p * 3 + 2] += contrib[e * 3 + 2];
+    for (int half = kStripes / 2; half > 0; half >>= 1) {
+      for (int st = t; st < half; st += threads) red[st] += red[st + half];
+      __syncthreads();
+    }
+    if (t == 0) {
+      const float s = *sigma;
+      dsigma[b] = red[0] / (s * s);
+    }
+    return;
+  }
+
+  const int entries = m * K;
+  const int round = 32 * kUnroll * warps;  // entries a round
+  const int cap = min(round, entries);     // the list's room
+  unsigned* hit = reinterpret_cast<unsigned*>(bsm);  // [span]: warps with
+  unsigned* mask = hit + span;                       // [warps, span] lanes
+  float4* lc = reinterpret_cast<float4*>(mask + warps * span);  // [cap]
+  int* lp = reinterpret_cast<int*>(lc + cap);                   // [cap]
+  float* stage = reinterpret_cast<float*>(lc);  // [span * 3], at the end
+  const int p0 = range * span;
+  const int np = min(span, n - p0);
+  const int per = span / threads;
+  const float4* cb = contrib + static_cast<size_t>(b) * K * m;
+  const int* ib = idx + static_cast<size_t>(b) * entries;
+  const unsigned below = (1u << lane) - 1u;
+  for (int i = t; i < span; i += threads) hit[i] = 0u;
+  float ax[kMaxPer], ay[kMaxPer], az[kMaxPer];
+#pragma unroll
+  for (int r = 0; r < kMaxPer; ++r) ax[r] = ay[r] = az[r] = 0.0f;
+
+  // lane `lane` of warp wid takes entries r0 + 32 * (kUnroll * wid + u) +
+  // lane, u < kUnroll: the warp's share of a round, in entry order
+  const int mine = 32 * kUnroll * wid + lane;
+  int p[kUnroll];  // this round's points, relative to p0
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const int e = mine + 32 * u;
+    p[u] = e < entries ? __ldg(ib + e) - p0 : -1;
+  }
+  for (int r0 = 0; r0 < entries; r0 += round) {
+    int pn[kUnroll];  // the next round's, in flight meanwhile
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int e = r0 + round + mine + 32 * u;
+      pn[u] = e < entries ? __ldg(ib + e) - p0 : -1;
+    }
+    // the warp's entries on the block's points, and their contributions
+    unsigned vote[kUnroll];
+    float4 c[kUnroll];
+    int cnt = 0;
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const bool in = static_cast<unsigned>(p[u]) < static_cast<unsigned>(np);
+      vote[u] = __ballot_sync(kFull, in);
+      c[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (in) {
+        const int e = r0 + mine + 32 * u;
+        const int q = e / K, j = e - q * K;
+        c[u] = cb[static_cast<size_t>(j) * m + q];
       }
+      cnt += __popc(vote[u]);
+    }
+    if (lane == 0) wcnt[wid] = cnt;
+    __syncthreads();
+    int at = 0, total = 0;
+    for (int w = 0; w < warps; ++w) {
+      at += w < wid ? wcnt[w] : 0;
+      total += wcnt[w];
+    }
+    // the round's list in entry order: ballot and popc
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (static_cast<unsigned>(p[u]) < static_cast<unsigned>(np)) {
+        lc[at + __popc(vote[u] & below)] = c[u];
+        lp[at + __popc(vote[u] & below)] = p[u];
+      }
+      at += __popc(vote[u]);
+      p[u] = pn[u];
+    }
+    __syncthreads();
+    // `threads` entries a slice: each warp groups its lanes by point; the
+    // group's lowest lane writes the group's lanes for the point's owner
+    for (int c0 = 0; c0 < total; c0 += threads) {
+      const int key = c0 + t < total ? lp[c0 + t] : -1;
+      const unsigned peers = __match_any_sync(kFull, key);
+      if (key >= 0 && (peers & below) == 0u) {
+        mask[wid * span + key] = peers;
+        atomicOr(hit + key, 1u << wid);  // a flag: the result is not read
+      }
+      __syncthreads();
+#pragma unroll
+      for (int r = 0; r < kMaxPer; ++r) {
+        const int pp = t + r * threads;
+        if (r >= per || pp >= np) continue;
+        unsigned hw = hit[pp];
+        if (hw == 0u) continue;
+        hit[pp] = 0u;
+        do {  // warp by warp, lane by lane: entry order
+          const int w = __ffs(hw) - 1;
+          hw &= hw - 1u;
+          unsigned mk = mask[w * span + pp];
+          do {
+            const float4 v = lc[c0 + 32 * w + __ffs(mk) - 1];
+            mk &= mk - 1u;
+            ax[r] += v.x;
+            ay[r] += v.y;
+            az[r] += v.z;
+          } while (mk != 0u);
+        } while (hw != 0u);
+      }
+      __syncthreads();  // hit is clear, lc and lp are read
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < kMaxPer; ++r) {
+    const int pp = t + r * threads;
+    if (r < per && pp < np) {
+      stage[pp * 3 + 0] = ax[r];
+      stage[pp * 3 + 1] = ay[r];
+      stage[pp * 3 + 2] = az[r];
     }
   }
   __syncthreads();
-  float* dpb = dpoints + static_cast<size_t>(b) * n * 3;
-  for (int e = t; e < n * 3; e += kBwdThreads) dpb[e] = dp[e];
-
-  red[t] = ds;
-  __syncthreads();
-  for (int half = kBwdThreads / 2; half > 0; half >>= 1) {
-    if (t < half) red[t] += red[t + half];
-    __syncthreads();
-  }
-  if (t == 0) dsigma[b] = red[0] / (s * s);
+  float* out = dpoints + (static_cast<size_t>(b) * n + p0) * 3;
+  for (int i = t; i < np * 3; i += threads) out[i] = stage[i];
 }
 
 size_t fwd_smem(int chunk) {
@@ -468,27 +635,43 @@ cudaError_t launch_fwd(const float* points, const float* queries,
   return cudaGetLastError();
 }
 
-size_t bwd_smem(int n, int k) {
-  return (static_cast<size_t>(n) * 3 + static_cast<size_t>(kBwdQueries) * k * 3) *
-             sizeof(float) +
-         static_cast<size_t>(kBwdQueries) * k * sizeof(int);
+// Dynamic shared memory of a point block, as the kernel lays it out: the
+// [span] hit flags and [warps, span] lane masks, then a round's list
+// (contribution and point, at most min(round, M*k) entries), which the
+// staged rows of d points later reuse.
+size_t bwd_smem(int threads, int span, int entries) {
+  const size_t warps = threads / 32;
+  const size_t round = 32 * kUnroll * warps;
+  const size_t cap = round < static_cast<size_t>(entries) ? round : entries;
+  const size_t list = cap * (sizeof(float4) + sizeof(int));
+  const size_t stage = static_cast<size_t>(span) * 3 * sizeof(float);
+  return (warps + 1) * span * sizeof(unsigned) + (list > stage ? list : stage);
 }
 
 template <int K>
 cudaError_t launch_bwd(const float* points, const float* queries,
                        const float* sigma, const int* idx,
                        const float* grad_out, float* dpoints, float* dqueries,
-                       float* dsigma, int b, int n, int m,
+                       float* dsigma, float4* contrib, float2* esd, int b,
+                       int n, int m, int tile, int threads, int span,
                        cudaStream_t stream) {
-  const size_t smem = bwd_smem(n, K);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        soft_project_bwd_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+  const long long total = static_cast<long long>(b) * m;
+  const unsigned blocks = static_cast<unsigned>((total + tile - 1) / tile);
+  soft_project_bwd_entries<K><<<blocks, tile, 0, stream>>>(
+      points, queries, sigma, idx, grad_out, dqueries, contrib, esd, n, m,
+      total);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t smem = bwd_smem(threads, span, m * K);
+  if (smem + kPointStatic > 48 * 1024) {
+    err = cudaFuncSetAttribute(soft_project_bwd_points<K>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  soft_project_bwd_kernel<K><<<b, kBwdThreads, smem, stream>>>(
-      points, queries, sigma, idx, grad_out, dpoints, dqueries, dsigma, n, m);
+  const unsigned grid = static_cast<unsigned>(b) * ((n + span - 1) / span + 1);
+  soft_project_bwd_points<K><<<grid, threads, smem, stream>>>(
+      idx, contrib, esd, sigma, dpoints, dsigma, n, m, span);
   return cudaGetLastError();
 }
 
@@ -515,8 +698,18 @@ cudaError_t launch_bwd(const float* points, const float* queries,
 
 }  // namespace
 
-extern "C" size_t snt_soft_project_bwd_smem(int n, int k) {
-  return bwd_smem(n, k);
+extern "C" size_t snt_soft_project_bwd_smem(int threads, int span,
+                                            int entries) {
+  return bwd_smem(threads, span, entries);
+}
+
+// The backward's limits: 0 queries a block (tile), 1 threads a point
+// block, 2 points a thread, 3 idx loads a lane holds a round, 4 the
+// stripes of d sigma^2.
+extern "C" int snt_soft_project_bwd_limit(int which) {
+  const int limits[] = {kMaxTile, kMaxPointThreads, kMaxPer, kUnroll,
+                        kStripes};
+  return which >= 0 && which < 5 ? limits[which] : -1;
 }
 
 extern "C" size_t snt_soft_project_fwd_smem(int chunk) {
@@ -547,15 +740,33 @@ extern "C" int snt_soft_project_fwd(const float* points, const float* queries,
 #undef SNT_FWD
 }
 
+// contrib [B, k, M] float4 and esd [B, k, M] float2 are the caller's
+// workspace; tile (queries a block of the first kernel), threads and span
+// (points a block of the second, a multiple of threads, at most kMaxPer a
+// thread) come from the launch plan; the outputs do not depend on it.
 extern "C" int snt_soft_project_bwd(const float* points, const float* queries,
                                     const float* sigma, const int* idx,
                                     const float* grad_out, float* dpoints,
-                                    float* dqueries, float* dsigma, int b,
-                                    int n, int m, int k, cudaStream_t stream) {
-  if (k < 1 || k > kMaxK || k > n) return static_cast<int>(cudaErrorInvalidValue);
-#define SNT_BWD(K)                                                              \
-  static_cast<int>(launch_bwd<K>(points, queries, sigma, idx, grad_out,         \
-                                 dpoints, dqueries, dsigma, b, n, m, stream))
+                                    float* dqueries, float* dsigma,
+                                    float* contrib, float* esd, int b, int n,
+                                    int m, int k, int tile, int threads,
+                                    int span, cudaStream_t stream) {
+  if (k < 1 || k > kMaxK || k > n || b < 1 || m < 1 ||
+      tile < 32 || tile > kMaxTile || tile % 32 != 0 || threads < 32 ||
+      threads > kMaxPointThreads || threads % 32 != 0 || span < threads ||
+      span % threads != 0 || span / threads > kMaxPer ||
+      static_cast<long long>(m) * k >
+          INT_MAX - 32 * kUnroll * kMaxPointThreads ||
+      (static_cast<long long>(b) * m + tile - 1) / tile > INT_MAX ||
+      static_cast<long long>(b) * ((n + span - 1) / span + 1) > INT_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  float4* c4 = reinterpret_cast<float4*>(contrib);
+  float2* e2 = reinterpret_cast<float2*>(esd);
+#define SNT_BWD(K)                                                          \
+  static_cast<int>(launch_bwd<K>(points, queries, sigma, idx, grad_out,     \
+                                 dpoints, dqueries, dsigma, c4, e2, b, n,    \
+                                 m, tile, threads, span, stream))
   SNT_SWITCH_K(k, SNT_BWD)
 #undef SNT_BWD
 }

@@ -146,9 +146,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.snt_soft_project_fwd_max_warps.restype = i
     lib.snt_soft_project_fwd_max_slices.argtypes = []
     lib.snt_soft_project_fwd_max_slices.restype = i
-    lib.snt_soft_project_bwd_smem.argtypes = [i, i]
+    lib.snt_soft_project_bwd_smem.argtypes = [i, i, i]
     lib.snt_soft_project_bwd_smem.restype = sz
-    lib.snt_soft_project_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
+    lib.snt_soft_project_bwd_limit.argtypes = [i]
+    lib.snt_soft_project_bwd_limit.restype = i
+    lib.snt_soft_project_bwd.argtypes = [*[p] * 10, *[i] * 7, p]
     lib.snt_soft_project_bwd.restype = i
     lib.snt_pmt_dense_smem.argtypes = [i, i, i]
     lib.snt_pmt_dense_smem.restype = sz

@@ -16,9 +16,11 @@ version and with __fmul_rn/__fadd_rn in csrc/soft_projection.cu, and a NaN
 distance counts as +inf in both, so on the card `idx` is bit-equal; the
 weighted sums run in another order, so `out` and the gradients agree to
 f32 round-off. The forward kernel's launch (lanes a query, block width,
-points staged at a time) comes from soft_projection_plan.py; its outputs
-do not depend on it. The backward's scatter into the points is a one-hot bmm
-here and a fixed-order sum in shared memory in the kernel: no atomics.
+points staged at a time) and the backward's (queries a block, threads
+and points a block) come from soft_projection_plan.py; their
+outputs do not depend on them. The backward's scatter into the points is a
+one-hot bmm here, and in the kernels each point's entries summed in entry
+order (query, rank): no float atomics, and no cap on N.
 The kernels take f32; the plain versions also take f64 (a reference).
 """
 
@@ -30,12 +32,7 @@ import torch
 
 from samplenet_tpu_torch.ops.chamfer import scatter_rows
 from samplenet_tpu_torch.ops.cuda import soft_projection_plan as spp
-from samplenet_tpu_torch.ops.cuda._build import (
-    check,
-    library,
-    max_dynamic_smem,
-    stream_handle,
-)
+from samplenet_tpu_torch.ops.cuda._build import check, library, stream_handle
 from samplenet_tpu_torch.ops.dispatch import count_launch, use_kernel
 from samplenet_tpu_torch.ops.knn import group_point
 
@@ -169,28 +166,64 @@ def launch_fwd(points, queries, sigma, k: int, plan: spp.FwdPlan):
     return out, idx
 
 
+@functools.lru_cache(maxsize=256)
+def bwd_plan(device: int, b: int, n: int, m: int, k: int) -> spp.BwdPlan:
+    """The backward kernels' launch plan on CUDA device `device`; checks
+    that the kernels count their limits and shared memory as the plan
+    does."""
+    lib = library()
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    plan = spp.plan_bwd(b, n, m, k, sms=sms)
+    limits = [lib.snt_soft_project_bwd_limit(i) for i in range(5)]
+    if (limits != [spp.MAX_TILE, spp.MAX_POINT_THREADS, spp.MAX_PER,
+                   spp.UNROLL, spp.STRIPES]
+            or lib.snt_soft_project_bwd_smem(plan.threads, plan.span, m * k)
+            != spp.bwd_smem(plan.threads, plan.span, m * k)):
+        raise RuntimeError("csrc/soft_projection.cu and soft_projection_plan"
+                           ".py disagree on the backward's limits or shared "
+                           "memory")
+    return plan
+
+
 def soft_project_bwd_cuda(points, queries, sigma, idx, grad_out):
     _cuda_checks(points, queries, sigma, idx, grad_out)
     b, n, _ = points.shape
     m, k = idx.shape[1], idx.shape[2]
-    lib = library()
-    smem = lib.snt_soft_project_bwd_smem(n, k)
-    if smem > max_dynamic_smem(points.device):
-        raise ValueError(f"N={n}, k={k} need {smem} bytes of shared memory "
-                         f"per block, more than the card offers")
+    if idx.dtype != torch.int32 or idx.shape[0] != b \
+            or queries.shape != (b, m, 3) or grad_out.shape != (b, m, 3):
+        raise ValueError(f"the soft_projection backward takes idx [B, M, k] "
+                         f"int32 and queries, grad_out [B, M, 3], got "
+                         f"{tuple(idx.shape)} {idx.dtype}, "
+                         f"{tuple(queries.shape)}, {tuple(grad_out.shape)}")
+    plan = bwd_plan(points.device.index, b, n, m, k)
+    return launch_bwd(points, queries, sigma, idx, grad_out, plan)
+
+
+def launch_bwd(points, queries, sigma, idx, grad_out, plan: spp.BwdPlan):
+    """The backward kernels on checked arguments under `plan`; the outputs
+    do not depend on the plan (the card tests run others)."""
+    b, n, _ = points.shape
+    m, k = idx.shape[1], idx.shape[2]
     dpoints = torch.empty_like(points)
     dqueries = torch.empty_like(queries)
-    dsig = torch.empty((b,), dtype=torch.float32, device=points.device)
+    # one allocation: the kernels' workspace, contrib [B, k, M] of float4
+    # then esd [B, k, M] of float2, and the per-cloud partials of d sigma
+    entries = b * k * m
+    ws = torch.empty((6 * entries + b,), dtype=torch.float32,
+                     device=points.device)
+    base = ws.data_ptr()
+    lib = library()
     with torch.cuda.device(points.device):
         err = lib.snt_soft_project_bwd(
             points.data_ptr(), queries.data_ptr(), sigma.data_ptr(),
             idx.data_ptr(), grad_out.data_ptr(), dpoints.data_ptr(),
-            dqueries.data_ptr(), dsig.data_ptr(), b, n, m, k,
-            stream_handle(points))
+            dqueries.data_ptr(), base + 24 * entries, base,
+            base + 16 * entries, b, n, m, k, plan.tile, plan.threads,
+            plan.span, stream_handle(points))
     check(err, KERNEL_BWD)
     count_launch(KERNEL_BWD)
-    # per-cloud partials of d sigma, summed in a fixed order
-    return dpoints, dqueries, dsig.sum().reshape(1)
+    # the partials summed in a fixed order
+    return dpoints, dqueries, ws[6 * entries:].sum().reshape(1)
 
 
 class _SoftProject(torch.autograd.Function):

@@ -23,7 +23,9 @@ steep levels meet near-ties, either f32 path can drift from the f64
 match. The train kernels: soft_projection's idx bit for bit, its output
 within 1e-5 (NaN where the plain version's is: a NaN query) and its
 gradients at rtol 1e-4 / atol 1e-5, its forward's outputs bit for bit
-under every launch plan; point_mlp_exact's
+under every launch plan, its backward's bit for bit under other launch
+plans and from run to run, also where one point takes every entry and
+at N = 16384; point_mlp_exact's
 outputs and statistics at rtol = atol = 1e-4 and its gradients at least
 as accurate as the plain f32 version's (within 2x, or 1e-5 of their
 scale), both measured against the plain version in float64; both
@@ -603,6 +605,121 @@ def test_soft_projection_forward_under_other_plans(dev, kind, b, n, m, k):
             assert torch.equal(i, ik), (chunk, warps, slices)
             assert torch.equal(o.nan_to_num(7.0), ok.nan_to_num(7.0)), (
                 chunk, warps, slices)
+
+
+def _soft_bwd_inputs(kind, b, n, m, k, seed, dev):
+    """randn clouds, queries and cotangent, sigma^2 = 0.6, and idx: "knn",
+    the forward's neighbours; "one", every entry on point 3; "same", every
+    query on the same k points; "zero", the forward's with a zero
+    cotangent."""
+    from samplenet_tpu_torch.ops.cuda import soft_projection_kernel as spk
+
+    rng = np.random.default_rng(seed)
+    pts, qs, cot = (_randn(rng, b, c, 3, dev=dev) for c in (n, m, m))
+    sigma = torch.tensor([0.6], device=dev)
+    if kind == "one":
+        idx = torch.full((b, m, k), 3, dtype=torch.int32, device=dev)
+    elif kind == "same":
+        pick = torch.from_numpy(rng.choice(n, size=k, replace=False))
+        idx = pick.to(torch.int32).to(dev).expand(b, m, k).contiguous()
+    else:
+        idx = spk.soft_project_fwd_cuda(pts, qs, sigma, k)[1]
+    if kind == "zero":
+        cot.zero_()
+    return pts, qs, sigma, idx, cot
+
+
+SOFT_BWD_CASES = [
+    ("one", 2, 50, 4096, 1),       # one point takes all M*k entries
+    ("same", 2, 50, 2048, 16),     # 16 points take 2048 entries each
+    ("knn", 2, 16384, 64, 16),     # N = 16384: no cap on N
+    ("knn", 3, 1000, 33, 1),       # ragged B, N and M
+    ("knn", 3, 1000, 33, 16),
+    ("knn", 5, 77, 300, 16),
+    ("knn", 7, 300, 333, 1),
+    ("zero", 3, 1000, 70, 7),      # a zero cotangent
+    ("knn", 1, 1, 5, 1),           # N = 1
+    ("knn", 2, 16, 5, 16),         # k = N
+    ("knn", 50, 2048, 2048, 16),   # the progressive AE step's shape
+    ("knn", 65536, 8, 2, 2),       # B above a 16-bit grid dimension
+]
+
+
+@pytest.mark.parametrize("kind,b,n,m,k", SOFT_BWD_CASES)
+def test_soft_projection_backward_edge_cases(dev, kind, b, n, m, k):
+    from samplenet_tpu_torch.ops.cuda import soft_projection_kernel as spk
+
+    args = _soft_bwd_inputs(kind, b, n, m, k, b + n + m + k, dev)
+    got = spk.soft_project_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    want = spk.soft_project_bwd_plain(*args)
+    for a, c in zip(got, want):
+        torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-5)
+    if kind == "zero":
+        assert not any(t.any() for t in got)
+
+
+@pytest.mark.parametrize("kind,b,n,m,k", [SOFT_BWD_CASES[i]
+                                          for i in (0, 1, 2, 4, 6, 10, 11)])
+def test_soft_projection_backward_under_other_plans(dev, kind, b, n, m, k):
+    """The bits do not depend on the launch plan (query tile, threads and
+    points a block), nor on the run."""
+    from samplenet_tpu_torch.ops.cuda import soft_projection_kernel as spk
+    from samplenet_tpu_torch.ops.cuda.soft_projection_plan import BwdPlan
+
+    args = _soft_bwd_inputs(kind, b, n, m, k, 3 * n + k, dev)
+    want = spk.soft_project_bwd_cuda(*args)
+    plan = spk.bwd_plan(args[0].device.index, b, n, m, k)
+    others = [BwdPlan(32, 32, 32), BwdPlan(64, 32, 128),
+              BwdPlan(128, 128, 512), BwdPlan(256, 256, 1024),
+              BwdPlan(256, 256, 256)]
+    assert sum(o != plan for o in others) >= 3
+    for other in others:
+        got = spk.launch_bwd(*args, other)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, c) for a, c in zip(got, want)), other
+    again = spk.soft_project_bwd_cuda(*args)
+    assert all(torch.equal(a, c) for a, c in zip(again, want))
+
+
+def test_soft_projection_backward_at_n_16384_through_autograd(dev):
+    """soft_project and .backward() on 16384-point clouds, k = 16, against
+    the plain path."""
+    rng = np.random.default_rng(16384)
+    pts, qs, cot = (_randn(rng, 2, c, 3, dev=dev) for c in (16384, 64, 64))
+    sigma = torch.tensor(0.5, device=dev)
+    ok, ik, gk = _soft_run(pts, qs, sigma, 16, cot)
+    op, ip, gp = _soft_run(pts, qs, sigma, 16, cot, plain=True)
+    assert torch.equal(ik, ip)
+    torch.testing.assert_close(ok, op, rtol=1e-5, atol=1e-5)
+    for a, c in zip(gk, gp):
+        torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-5)
+
+
+def test_soft_projection_backward_refuses_a_plan_the_kernel_disagrees_with(
+        dev, monkeypatch):
+    from samplenet_tpu_torch.ops.cuda import soft_projection_kernel as spk
+    from samplenet_tpu_torch.ops.cuda import soft_projection_plan as spp
+
+    args = _soft_bwd_inputs("knn", 2, 300, 40, 7, 5, dev)
+    # the plan's limits or shared memory off the kernel's: the wrapper
+    # raises before it launches
+    for name, value in (("UNROLL", 2 * spp.UNROLL), ("MAX_PER", 8),
+                        ("STRIPES", 128)):
+        with monkeypatch.context() as mp:
+            mp.setattr(spp, name, value)
+            spk.bwd_plan.cache_clear()
+            with pytest.raises(RuntimeError, match="disagree"):
+                spk.soft_project_bwd_cuda(*args)
+    spk.bwd_plan.cache_clear()
+    # a plan the kernel's C entry refuses: tile or threads not a multiple
+    # of 32, fewer points than threads, more than four points a thread
+    for bad in (spp.BwdPlan(48, 32, 32), spp.BwdPlan(32, 48, 96),
+                spp.BwdPlan(32, 64, 32), spp.BwdPlan(32, 32, 256),
+                spp.BwdPlan(32, 512, 512)):
+        with pytest.raises(RuntimeError, match="soft_projection_bwd"):
+            spk.launch_bwd(*args, bad)
+    spk.soft_project_bwd_cuda(*args)
 
 
 def test_train_kernels_refuse_what_they_do_not_take(dev):

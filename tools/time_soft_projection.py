@@ -4,8 +4,9 @@
     python3 tools/time_soft_projection.py CHECKOUT TAG
 
 Imports samplenet_tpu_torch from CHECKOUT (building its kernels there),
-prints the build's ptxas lines for the forward kernel at k = 7 and 16
-(registers, spills) and then, under TAG, at the soft projection's shape on
+prints the build's ptxas lines for the forward and backward kernels at
+k = 7 and 16 (registers, spills) and then, under TAG, at the soft
+projection's shape on
 each path that runs it (chip_smoke.py's SOFT_SHAPES: the classification
 step, the reconstruction sampler step, the progressive step and the
 progressive AE step), on standard-normal clouds and queries from numpy's
@@ -16,12 +17,22 @@ default_rng(SEED + 41 + i) and sigma^2 = 0.7, as chip_smoke.py's
   each call (the wrapper's glue included), and its device time per call
   under torch.profiler; the same for the backward on the forward's idx and
   a standard-normal cotangent;
-- SHA-1 digests of idx, of out and of the backward's three outputs
-  (equal digests from two checkouts mean bit-equal results);
-- the forward's bound (chip_smoke.py::_soft_fwd_bound);
+- SHA-1 digests of idx, of out and of each of the backward's three
+  outputs, d points, d queries and d sigma^2 (equal digests from two
+  checkouts mean bit-equal results);
+- the backward's host time a call: the least of three means over
+  HOST_CALLS calls issued back to back with no sync among them (the
+  wrapper's glue and its launches, as a host-bound train step pays them);
+- the forward's and the backward's bounds (chip_smoke.py::_soft_fwd_bound,
+  _soft_bwd_bound, the latter on the points this idx names), and the
+  backward's device time by kernel;
 - where the checkout's forward takes a launch plan of slices (lanes a
   query) and warps (ops/cuda/soft_projection_plan.py), its device time
-  under torch.profiler for every slices x warps, and the plan's choice.
+  under torch.profiler for every slices x warps, and the plan's choice;
+- where the checkout's backward takes a launch plan (queries a block,
+  threads and points a block), its device time under each plan that
+  differs from the chosen one in one of them, each checked bit for bit
+  against the planned launch.
 
 To compare two checkouts on one card, run it four times in a row: A, B,
 B, A.
@@ -33,9 +44,11 @@ import hashlib
 import importlib.util
 import os
 import sys
+import time
 
 TOOL_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ITERS, WARMUP = 20, 3
+HOST_CALLS = 100
 
 
 def digest(*outs) -> str:
@@ -71,6 +84,34 @@ def plan_sweep(torch, cs, spk, pts, qs, sigma, k, idx) -> str:
     return ", ".join(parts)
 
 
+def bwd_sweep(torch, cs, spk, pts, qs, sigma, idx, cot) -> str:
+    """Device ms of the backward under the chosen plan and under plans
+    that differ from it in one choice, each bit-equal to the chosen one."""
+    from dataclasses import replace
+
+    b, n, _ = pts.shape
+    m, k = idx.shape[1], idx.shape[2]
+    plan = spk.bwd_plan(pts.device.index, b, n, m, k)
+    want = spk.launch_bwd(pts, qs, sigma, idx, cot, plan)
+    others = ([replace(plan, tile=t) for t in (32, 64, 128, 256)]
+              + [replace(plan, span=s, threads=min(s, 256))
+                 for s in (32, 64, 128, 256, 512, 1024)]
+              + [replace(plan, threads=t) for t in (32, 64, 128, 256)
+                 if plan.span // 4 <= t <= plan.span])
+    parts = [f"plan tile {plan.tile}, threads {plan.threads}, span "
+             f"{plan.span}"]
+    for other in dict.fromkeys(others):
+        def call(other=other):
+            return spk.launch_bwd(pts, qs, sigma, idx, cot, other)
+
+        if not all(torch.equal(a, c) for a, c in zip(call(), want)):
+            raise AssertionError(f"the backward differs under {other}")
+        parts.append(f"tile {other.tile} threads {other.threads} span "
+                     f"{other.span} "
+                     f"{cs._device_ms(torch, call, 10)!r}")
+    return ", ".join(parts)
+
+
 def main() -> int:
     root, tag = os.path.abspath(sys.argv[1]), sys.argv[2]
     spec = importlib.util.spec_from_file_location(
@@ -88,7 +129,7 @@ def main() -> int:
     library()
     log = (library_path().parent / "build.log").read_text().splitlines()
     for i, line in enumerate(log):        # each entry's properties follow it
-        if ("Compiling entry" in line and "soft_project_fwd_kernel" in line
+        if ("Compiling entry" in line and "soft_project_" in line
                 and ("ILi7E" in line or "ILi16E" in line)):
             print(f"[{tag}] ptxas: " + " | ".join(
                 ln.strip() for ln in log[i:i + 4]
@@ -109,6 +150,18 @@ def main() -> int:
             times.append(start.elapsed_time(end))
         return float(np.median(times))
 
+    def host_ms(fn) -> float:
+        """The host's ms a call: HOST_CALLS calls issued back to back, no
+        sync among them (the wrapper's glue and its launches)."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HOST_CALLS):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (t1 - t0) / HOST_CALLS * 1e3
+
     for i, (path, (b, n, m, k)) in enumerate(cs.SOFT_SHAPES.items()):
         rng = np.random.default_rng(cs.SEED + 41 + i)
         pts, qs, sigma, cot = cs._soft_inputs(torch, rng, b, n, m)
@@ -125,17 +178,28 @@ def main() -> int:
         f_ms, f_dev = median_ms(fwd), cs._device_ms(torch, fwd, 10)
         b_ms, b_dev = median_ms(bwd), cs._device_ms(torch, bwd, 10)
         bound = cs._soft_fwd_bound(b, n, m, k)
+        b_bound = cs._soft_bwd_bound(b, n, m, k, cs._gathered(torch, idx, n))
+        b_host = min(host_ms(bwd) for _ in range(3))
+        dp, dq, ds = bwd()
         print(f"[{tag}] soft_projection {path} (B={b}, N={n}, M={m}, k={k}):"
               f" forward {f_ms!r} ms per call, {f_dev!r} ms device (bound "
               f"{bound[0]!r} ms, {bound[1]}); backward {b_ms!r} ms per "
-              f"call, {b_dev!r} ms device; bits: idx {digest(idx)}, out "
-              f"{digest(out)}, backward {digest(*bwd())} ({card})",
+              f"call, {b_dev!r} ms device, {b_host!r} ms of the host a call "
+              f"(bound {b_bound[0]!r} ms, {b_bound[1]}); bits: idx {digest(idx)}, out {digest(out)}, "
+              f"d points {digest(dp)}, d queries {digest(dq)}, d sigma^2 "
+              f"{digest(ds)} ({card})", flush=True)
+        print(f"[{tag}] backward by kernel at the {path}'s shape: "
+              f"{cs._profile_top(torch, bwd, 10, top=4)} ({card})",
               flush=True)
         if hasattr(spk, "launch_fwd"):
             print(f"[{tag}] plans at the {path}'s shape: "
                   + plan_sweep(torch, cs, spk, pts, qs, sigma, k, idx)
                   + f" ({card})", flush=True)
-        del pts, qs, cot, out, idx
+        if hasattr(spk, "launch_bwd"):
+            print(f"[{tag}] backward plans at the {path}'s shape: "
+                  + bwd_sweep(torch, cs, spk, pts, qs, sigma, idx, cot)
+                  + f" ({card})", flush=True)
+        del pts, qs, cot, out, idx, dp, dq, ds
         torch.cuda.empty_cache()
     return 0
 
