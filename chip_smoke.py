@@ -20,6 +20,8 @@ frozen PointNet; 2048 points, B=50, sizes 16..2048 against the AE), and:
   2. builds the CUDA kernels from csrc/, prints the build time and what
      ptxas reports (registers, spills), and requires the SASS (cuobjdump)
      of point_mlp_max to multiply on the tensor cores (HMMA instructions);
+     counts the 1-NN kernel's lane-instructions a (query, point) pair in
+     the SASS of each of its 48 instantiations (its issue floor);
   3. holds each kernel against its plain PyTorch version on the card, at
      the serving path's shapes and at a ragged shape: nn_direction and FPS
      bit for bit, point_mlp_max within rtol = atol = 1e-4 (split TF32 on the
@@ -28,7 +30,9 @@ frozen PointNet; 2048 points, B=50, sizes 16..2048 against the AE), and:
      on clouds with NaN and +-inf coordinates at the serving path's shape
      (FPS with random counts, count 1 and count k): idx equal, FPS's xyz
      and the snapped points bit for bit, distances equal with NaN at the
-     same places;
+     same places; then nn_direction and nn_snap at every shape the four
+     paths give them (NN_SHAPES), each under its launch plan and one other
+     plan, bit for bit against the plain version;
   4. checks the eval forward of the kernel path against the plain path,
      then resets the launch counters, serves B=1024 clouds through
      BatchedSampler, and requires every kernel to have launched;
@@ -97,8 +101,11 @@ frozen PointNet; 2048 points, B=50, sizes 16..2048 against the AE), and:
      as device time at the eval shape with count = k and at the
      reconstruction FPS baseline's shape, B=50, 2048 -> 64, count 1; the
      soft projection's forward and backward at each of its four paths'
-     shapes, with their bounds there; nn_direction at the train step's two
-     Chamfer directions, 32 queries over 1024 points and back); the
+     shapes, with their bounds there; the 1-NN kernel at every shape of
+     NN_SHAPES with its plan, bound and issue floor, its device time a
+     step of each train path, and at the classification step's two
+     Chamfer directions the plain version and the two-call library route,
+     torch.cdist then amin, as a yardstick); the
      exact chain's backward at B=1024 and at the reconstruction widths
      also as device time split by pass (forward: dense per layer, pool,
      glue; backward: BN rows, dz/dh_prev, dW, glue).
@@ -154,6 +161,7 @@ import copy
 import json
 import os
 import queue
+import re
 import subprocess
 import sys
 import tempfile
@@ -248,6 +256,34 @@ SOFT_SHAPES = {
     "progressive step": (PROG_B, PROG_N, PROG_MAX, K),
     "progressive AE step": (RECON_B, RECON_N, RECON_N, RECON_K),
 }
+# the 1-NN kernel's (B, N1 queries, N2 points, snap) on every path: the
+# eval forward's matching and the Chamfer loss's two directions (B=1024),
+# the reconstruction sampler's losses (64 over 2048 and back), the
+# progressive Chamfer losses at each prefix size s, both ways (classification
+# 8..1024 over 1024; AE 16..2048 over 2048, the AE's Chamfer 2048 over 2048)
+# and the progressive infer step's snap
+NN_SHAPES = {
+    "eval and Chamfer direction 1": (B, M, N, False),
+    "Chamfer direction 2": (B, N, M, False),
+    f"recon sampler, {RECON_M} over {RECON_N}": (RECON_B, RECON_M, RECON_N,
+                                                  False),
+    f"recon sampler, {RECON_N} over {RECON_M}": (RECON_B, RECON_N, RECON_M,
+                                                  False),
+    **{name: shape for s in (8, 16, 32, 64, 128, 256, 512) for name, shape in (
+        (f"progressive cls, {s} over {PROG_N}", (PROG_B, s, PROG_N, False)),
+        (f"progressive cls, {PROG_N} over {s}", (PROG_B, PROG_N, s, False)))},
+    f"progressive cls, {PROG_N} over {PROG_N}": (PROG_B, PROG_N, PROG_N,
+                                                 False),
+    **{name: shape for s in (16, 32, 64, 128, 256, 512, 1024)
+       for name, shape in (
+           (f"progressive AE, {s} over {RECON_N}", (RECON_B, s, RECON_N,
+                                                    False)),
+           (f"progressive AE, {RECON_N} over {s}", (RECON_B, RECON_N, s,
+                                                    False)))},
+    f"progressive AE, {RECON_N} over {RECON_N}": (RECON_B, RECON_N, RECON_N,
+                                                  False),
+    "nn_snap, progressive infer": (PROG_B, PROG_N, PROG_N, True),
+}
 PROG_PATH = ("nn_snap", "point_mlp_train_fwd", "point_mlp_train_bwd",
              "point_mlp_exact_fwd", "point_mlp_exact_bwd",
              "soft_projection_fwd", "soft_projection_bwd", "nn_direction",
@@ -263,6 +299,9 @@ FP32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12       # dense, on the tensor cores
 BF16_FLOP_PER_S = 989e12       # dense, on the tensor cores
 SFU_OP_PER_S = 16 * 132 * 1.98e9
+# issue slots: 4 warp schedulers an SM, each one instruction for 32 lanes a
+# clock, 132 SMs at 1.98 GHz
+LANE_ISSUE_PER_S = 4 * 32 * 132 * 1.98e9
 RATE_NAMES = {FP32_FLOP_PER_S: "FP32", TF32_FLOP_PER_S: "TF32",
               BF16_FLOP_PER_S: "BF16", SFU_OP_PER_S: "SFU"}
 
@@ -307,7 +346,7 @@ def phase_env(torch) -> str:
     return card
 
 
-def phase_build() -> None:
+def phase_build() -> dict[tuple[int, int, bool], float]:
     from samplenet_tpu_torch.ops.cuda import _build
 
     path, seconds = _build.build()
@@ -315,34 +354,99 @@ def phase_build() -> None:
                  f"{[s.name for s in _build._sources()]} in {seconds:.1f} s "
                  f"(one nvcc {' '.join(_build.NVCC_FLAGS)} -c per source, "
                  f"all at once, then nvcc {' '.join(_build.LINK_FLAGS)})")
+    nn, key = {}, None         # the 1-NN kernel's 48 entries, summarised
     for line in (path.parent / "build.log").read_text().splitlines():
-        if any(k in line for k in ("registers", "Compiling entry", "spill")):
+        if "Compiling entry" in line:
+            m = re.search(r"nn_direction_kernelILi(\d+)ELi(\d+)ELb([01])E",
+                          line)
+            key = None if m is None else tuple(map(int, m.groups()))
+        if key is not None:
+            m = re.search(r"Used (\d+) registers|(\d+) bytes spill stores",
+                          line)
+            if m:
+                nn.setdefault(key, []).append(m.group(1) or m.group(2))
+        elif any(k in line for k in ("registers", "Compiling entry",
+                                     "spill")):
             log("build", line.strip())
-    hmma = _hmma_counts(_build.find_nvcc(), path)
+    log("build", "nn_direction_kernel (lanes, queries, snap): [spill bytes, "
+                 "registers] " + ", ".join(f"{k} {v}"
+                                           for k, v in sorted(nn.items())))
+    funcs = _sass(_build.find_nvcc(), path)
     for key in TENSOR_CORE_KERNELS:
-        mine = {name: c for name, c in hmma.items() if key in name}
+        mine = {name: sum("HMMA" in ins for _, ins in code)
+                for name, code in funcs.items() if key in name}
         log("build", f"{key}: HMMA instructions in the SASS per "
                      f"instantiation {mine}")
         if not mine or any(c == 0 for c in mine.values()):
             raise AssertionError(f"{key}: an instantiation without HMMA "
                                  f"instructions: {mine}")
+    costs = nn_pair_costs(funcs)
+    log("build", f"nn_direction_kernel: SASS lane-instructions a pair in "
+                 f"the innermost loop, by (lanes, queries, snap): "
+                 + ", ".join(f"{k} {v:.3f}" for k, v in sorted(costs.items())))
+    if len(costs) != 2 * 6 * 4:
+        raise AssertionError(f"nn_direction_kernel: {len(costs)} of 48 "
+                             f"instantiations have a pair loop in the SASS")
+    _build.library()
+    return costs
     _build.library()
 
 
-def _hmma_counts(nvcc: str, lib_path) -> dict[str, int]:
-    """HMMA (tensor-core) instructions per kernel in the built library's
-    SASS, by cuobjdump from the toolkit of nvcc."""
+def _sass(nvcc: str, lib_path) -> dict[str, list[tuple[int, str]]]:
+    """Each kernel's SASS in the built library (cuobjdump from the toolkit
+    of nvcc): mangled name -> [(address, instruction)]."""
     tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                          text=True, check=True, timeout=300).stdout
-    counts, name = {}, None
+    funcs, name = {}, None
     for line in out.splitlines():
         if "Function :" in line:
             name = line.split("Function :", 1)[1].strip()
-            counts[name] = 0
-        elif name is not None and "HMMA" in line:
-            counts[name] += 1
-    return counts
+            funcs[name] = []
+        elif name is not None:
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
+            if m:
+                funcs[name].append((int(m.group(1), 16), m.group(2).strip()))
+    return funcs
+
+
+def nn_pair_cost(code: list[tuple[int, str]]) -> float | None:
+    """Lane-instructions a (query, point) pair in a 1-NN kernel's SASS: the
+    instructions of its innermost loop holding min.NaN (FMNMX), over the
+    FMNMX in it (one a pair); the loop with the most pairs where several
+    are innermost (an unrolled body and its remainder)."""
+    loops = []
+    for addr, ins in code:
+        m = re.search(r"\bBRA\b.*0x([0-9a-f]+)$", ins)
+        if m and int(m.group(1), 16) <= addr:
+            loops.append((int(m.group(1), 16), addr))
+    best = None
+    for lo, hi in loops:
+        if any(lo <= a <= b <= hi and (a, b) != (lo, hi) for a, b in loops):
+            continue                      # not innermost
+        body = [ins for a, ins in code if lo <= a <= hi]
+        pairs = sum("FMNMX" in ins for ins in body)
+        if pairs and (best is None or pairs > best[0]):
+            best = (pairs, len(body))
+    return None if best is None else best[1] / best[0]
+
+
+def nn_pair_costs(funcs) -> dict[tuple[int, int, bool], float]:
+    """`nn_pair_cost` of each instantiation of the 1-NN kernel in `funcs`
+    (`_sass`), by (lanes, queries, snap)."""
+    out = {}
+    for name, code in funcs.items():
+        m = re.search(r"nn_direction_kernelILi(\d+)ELi(\d+)ELb([01])E", name)
+        cost = nn_pair_cost(code) if m else None
+        if cost is not None:
+            out[(int(m.group(1)), int(m.group(2)), m.group(3) == "1")] = cost
+    return out
+
+
+def nn_issue_floor(b: int, n1: int, n2: int, per_pair: float) -> float:
+    """ms the card's issue slots need for b * n1 * n2 pairs at `per_pair`
+    lane-instructions each."""
+    return per_pair * b * n1 * n2 / LANE_ISSUE_PER_S * 1e3
 
 
 def _mlp_weights(torch, rng, device, widths=WIDTHS):
@@ -493,6 +597,44 @@ def phase_compare_nan(torch) -> None:
     log("compare", f"nn_direction and nn_snap NaN/inf clouds x{tuple(x.shape)}"
                    f" y{tuple(y.shape)}: idx equal, dist equal with NaN in "
                    f"{int(dk.isnan().sum())} places, snapped bits equal")
+
+
+def other_nn_plan(plan, n1: int, n2: int):
+    """A plan unlike `plan`: one lane a query where it takes several, else
+    32; eight queries a thread where it takes fewer, else one."""
+    from samplenet_tpu_torch.ops.cuda import nn_plan as npl
+
+    return npl.make(n1, n2, 32 if plan.lanes == 1 else 1,
+                    8 if plan.queries < 8 else 1)
+
+
+def phase_compare_nn(torch) -> None:
+    """nn_direction and nn_snap at every shape the paths give them
+    (NN_SHAPES), under the planned launch and one other plan, each bit for
+    bit against the plain version: dist, idx and the snapped points."""
+    from samplenet_tpu_torch.ops.cuda import chamfer_kernel as ck
+
+    rng = np.random.default_rng(SEED + 7)
+    shapes = sorted({v[:3] for v in NN_SHAPES.values()})
+    for b, n1, n2 in shapes:
+        x, y = _randn(torch, rng, b, n1, 3), _randn(torch, rng, b, n2, 3)
+        ref = ck.nn_snap_plain(x, y)
+        plan = ck.kernel_plan(x.device.index, b, n1, n2)
+        other = other_nn_plan(plan, n1, n2)
+        for p in (plan, other):
+            for snap in (False, True):
+                out = ck.launch(x, y, p, snap)
+                if not all(torch.equal(a, c) for a, c in zip(out, ref)):
+                    raise AssertionError(
+                        f"{'nn_snap' if snap else 'nn_direction'} B={b}, "
+                        f"{n1} over {n2}, {p}: kernel != plain "
+                        f"({int((out[1] != ref[1]).sum())} idx differ)")
+        del x, y, ref
+    torch.cuda.empty_cache()
+    log("compare", f"nn_direction and nn_snap at the paths' {len(shapes)} "
+                   f"shapes (B, N1, N2) {shapes}, each under its plan and "
+                   f"one other: dist, idx and snapped bit-equal to the "
+                   f"plain version")
 
 
 def make_model(torch, device):
@@ -812,19 +954,15 @@ def phase_times(torch, model, clouds, card) -> dict[str, tuple]:
     from samplenet_tpu_torch.ops.cuda import (
         fps,
         fps_plain,
-        nn_direction,
-        nn_direction_plain,
         point_mlp_max,
         point_mlp_max_plain,
     )
     from samplenet_tpu_torch.ops.dispatch import plain_on_cuda
 
     rng = np.random.default_rng(SEED + 3)
-    x, y, given, count = _inputs(torch, rng, DEVICE, B, N, M)
+    _, y, given, count = _inputs(torch, rng, DEVICE, B, N, M)
     wbs = _mlp_weights(torch, rng, DEVICE)
     cases = {
-        "nn_direction": (lambda: nn_direction(x, y),
-                         lambda: nn_direction_plain(x, y), 50),
         "fps": (lambda: fps(y, given, count, M),
                 lambda: fps_plain(y, given, count, M), 20),
         "point_mlp_max": (lambda: point_mlp_max(y, wbs),
@@ -1197,10 +1335,6 @@ def phase_times_train(torch, data, labels, classifier, card
     """The train kernels fwd and bwd and the train step, each against the
     plain versions: CUDA-event time per call and profiler device time; and
     the points the timed backward gathers (its bound's bytes)."""
-    from samplenet_tpu_torch.ops.cuda import (
-        nn_direction,
-        nn_direction_plain,
-    )
     from samplenet_tpu_torch.ops.cuda import point_mlp_exact_kernel as pme
     from samplenet_tpu_torch.ops.cuda import soft_projection_kernel as spk
     from samplenet_tpu_torch.ops.dispatch import plain_on_cuda
@@ -1270,20 +1404,6 @@ def phase_times_train(torch, data, labels, classifier, card
                      f"({bound[1]}) ({card})")
         del sp, sq, ss, sc, si
         torch.cuda.empty_cache()
-    # the Chamfer loss's two directions at the train step: the M sampled
-    # points over the N input points, and back
-    for nq, nd in ((M, N), (N, M)):
-        xq, yd = (torch.from_numpy(rng.standard_normal((B, c, 3)).astype(
-            np.float32)).to(DEVICE) for c in (nq, nd))
-        k_ms, p_ms = _pair_ms(torch, lambda: nn_direction(xq, yd),
-                              lambda: nn_direction_plain(xq, yd), 50)
-        k_dev = _device_ms(torch, lambda: nn_direction(xq, yd), 50)
-        bound = _nn_bound(B, nq, nd)
-        log("times", f"nn_direction at the train step's Chamfer shape "
-                     f"(B={B}, {nq} queries over {nd} points): kernel "
-                     f"{k_ms!r} ms per call, {k_dev!r} ms device; plain "
-                     f"{p_ms!r} ms per call; bound {bound[0]!r} ms "
-                     f"({bound[1]}) ({card})")
     torch.cuda.empty_cache()
     split = _pass_split(torch, cases["point_mlp_exact_fwd"][0], 5,
                         len(WIDTHS) - 1, FWD_PASSES)
@@ -1317,6 +1437,91 @@ def phase_times_train(torch, data, labels, classifier, card
                  f"{B / p * 1e3!r} clouds/s, {p_dev!r} ms device (busy "
                  f"{p_dev / p!r}) ({card})")
     return times, gathered
+
+
+NN_LIBRARY_SHAPES = ("eval and Chamfer direction 1", "Chamfer direction 2")
+
+
+def _nn_per_step(dev: dict[str, float]) -> str:
+    """The 1-NN kernel's device ms a step of each train path, from the
+    device ms a call at each of NN_SHAPES: the classification step's two
+    Chamfer directions, the reconstruction sampler's two, the progressive
+    classification step's 16 (s over 1024 and back for 8 sizes) and the
+    progressive AE step's 32 (the AE's Chamfer, 2048 over 2048 both ways,
+    and s over 2048 and back, for 8 sizes)."""
+    paths = {"classification": [], "recon sampler": [],
+             "progressive cls": [], "progressive AE": []}
+    for name, ms in dev.items():
+        if name in NN_LIBRARY_SHAPES:
+            paths["classification"].append(ms)
+        elif name.startswith("recon sampler"):
+            paths["recon sampler"].append(ms)
+        elif name.startswith("progressive cls"):
+            # s = 1024: 1024 over 1024 both ways
+            paths["progressive cls"] += [ms] * (2 if name.endswith(
+                f"{PROG_N} over {PROG_N}") else 1)
+        elif name.startswith("progressive AE"):
+            # the AE's Chamfer 16 times, and s = 2048 both ways
+            paths["progressive AE"] += [ms] * (18 if name.endswith(
+                f"{RECON_N} over {RECON_N}") else 1)
+    return "; ".join(f"{k} {sum(v)!r} ms device in {len(v)} launches"
+                     for k, v in paths.items())
+
+
+def phase_times_nn(torch, card, costs) -> dict[str, tuple]:
+    """The 1-NN kernel at every shape of NN_SHAPES: per call (CUDA events)
+    and device time, its plan, its bound and its issue floor (the plan's
+    SASS lane-instructions a pair, `costs`, over the card's issue slots);
+    at the classification step's two Chamfer directions also the plain
+    version and the two-call library route, torch.cdist without the
+    matmul form, then amin: a yardstick with other rounding, a square root
+    and no index, which the port does not call. Returns the kernel's and
+    the plain version's ms per call at the eval shape."""
+    from samplenet_tpu_torch.ops.cuda import chamfer_kernel as ck
+
+    rng = np.random.default_rng(SEED + 8)
+    dev, times = {}, {}
+    for name, (b, n1, n2, snap) in NN_SHAPES.items():
+        x, y = _randn(torch, rng, b, n1, 3), _randn(torch, rng, b, n2, 3)
+        fn = ck.nn_snap if snap else ck.nn_direction
+
+        def kernel(fn=fn, x=x, y=y):
+            return fn(x, y)
+
+        plan = ck.kernel_plan(x.device.index, b, n1, n2)
+        ms, dev[name] = _time_ms(torch, kernel, 20), _device_ms(torch,
+                                                                kernel, 20)
+        bound = _nn_bound(b, n1, n2, snap)
+        per_pair = costs[(plan.lanes, plan.queries, snap)]
+        floor = nn_issue_floor(b, n1, n2, per_pair)
+        line = (f"{'nn_snap' if snap else 'nn_direction'} at {name} (B={b}, "
+                f"{n1} over {n2}), plan L={plan.lanes} Q={plan.queries} "
+                f"warps={plan.warps} chunk={plan.chunk}: kernel {ms!r} ms per "
+                f"call, {dev[name]!r} ms device; bound {bound[0]!r} ms "
+                f"({bound[1]}); issue floor {floor!r} ms ({per_pair!r} "
+                f"lane-instructions a pair)")
+        if name in NN_LIBRARY_SHAPES:
+            def plain(x=x, y=y):
+                return ck.nn_direction_plain(x, y)
+
+            def library(x=x, y=y):
+                return torch.cdist(x, y, compute_mode=(
+                    "donot_use_mm_for_euclid_dist")).amin(2)
+
+            k_ms, p_ms = _pair_ms(torch, kernel, plain, 20)
+            if name == "eval and Chamfer direction 1":
+                times["nn_direction"] = (k_ms, p_ms)
+            line += (f"; alternating with the plain version: kernel "
+                     f"{k_ms!r} ms per call, plain {p_ms!r} ms per call, "
+                     f"{_device_ms(torch, plain, 20)!r} ms device; library "
+                     f"route (two calls: cdist, amin; other rounding, no "
+                     f"index) {_time_ms(torch, library, 20)!r} ms per call, "
+                     f"{_device_ms(torch, library, 20)!r} ms device")
+        log("times-nn", f"{line} ({card})")
+        del x, y
+    torch.cuda.empty_cache()
+    log("times-nn", f"per train step: {_nn_per_step(dev)} ({card})")
+    return times
 
 
 # ------------------------------------------------- reconstruction track phases
@@ -2435,11 +2640,12 @@ def _exact_bounds(b: int, n: int, widths) -> tuple[tuple, tuple]:
                    (p * (4.0 * macs + 12 * chans), FP32_FLOP_PER_S)))
 
 
-def _nn_bound(b: int, nq: int, nd: int) -> tuple[float, str]:
+def _nn_bound(b: int, nq: int, nd: int,
+              snap: bool = False) -> tuple[float, str]:
     """1-NN of nq queries among nd points: 3 sub, 3 mul, 2 add and 1
     compare a pair; the queries and points in, a distance and an index a
-    query out."""
-    return _bound(4 * (b * nq * 3 + b * nd * 3 + 2 * b * nq),
+    query out (and with `snap` the neighbour's 3 floats)."""
+    return _bound(4 * (b * nq * 3 + b * nd * 3 + (5 if snap else 2) * b * nq),
                   (9.0 * b * nq * nd, FP32_FLOP_PER_S))
 
 
@@ -2528,12 +2734,7 @@ def kernel_bounds(soft_gathered: int | None = None
         "soft_projection_fwd": _soft_fwd_bound(B, N, M, K),
         "soft_projection_bwd": _soft_bwd_bound(B, N, M, K, soft_gathered),
         "emd": _emd_bound(RECON_B, RECON_N, RECON_N),
-        # the progressive infer step's snap: nn_direction's work and 3
-        # floats out per query
-        "nn_snap": _bound(
-            f * (PROG_B * PROG_N * 3 + PROG_B * PROG_N * 3
-                 + 2 * PROG_B * PROG_N + 3 * PROG_B * PROG_N),
-            (9.0 * PROG_B * PROG_N * PROG_N, FP32_FLOP_PER_S)),
+        "nn_snap": _nn_bound(PROG_B, PROG_N, PROG_N, snap=True),
         "point_mlp_train_fwd": ghost_fwd,
         "point_mlp_train_bwd": ghost_bwd,
     }
@@ -2563,9 +2764,10 @@ def main() -> int:
                            f"samplenet_tpu_torch came from {pkg}")
     t0 = time.monotonic()
     card = _timed(phase_env, torch)
-    _timed(phase_build)
+    costs = _timed(phase_build)
     errs = _timed(phase_compare, torch)
     _timed(phase_compare_nan, torch)
+    _timed(phase_compare_nn, torch)
     model = make_model(torch, DEVICE)
     clouds = np.random.default_rng(SEED + 4).standard_normal(
         (B, N, 3)).astype(np.float32)
@@ -2595,6 +2797,7 @@ def main() -> int:
     train_times, soft_gathered = _timed(phase_times_train, torch, data,
                                         labels, classifier, card)
     times.update(train_times)
+    times.update(_timed(phase_times_nn, torch, card, costs))
     times.update(_timed(phase_times_recon, torch, recon_x, card))
     times.update(_timed(phase_times_progressive, torch, px, py, recon_x,
                         classifier, card))

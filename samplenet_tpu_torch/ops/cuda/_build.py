@@ -121,10 +121,14 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     pp, sz = ctypes.POINTER(p), ctypes.c_size_t
     lib.snt_error_string.argtypes = [i]
     lib.snt_error_string.restype = ctypes.c_char_p
-    lib.snt_nn_direction.argtypes = [p, p, p, p, i, i, i, p]
+    lib.snt_nn_direction.argtypes = [p, p, p, p, *[i] * 7, p]
     lib.snt_nn_direction.restype = i
-    lib.snt_nn_snap.argtypes = [p, p, p, p, p, i, i, i, p]
+    lib.snt_nn_snap.argtypes = [p, p, p, p, p, *[i] * 7, p]
     lib.snt_nn_snap.restype = i
+    lib.snt_nn_smem.argtypes = [i, i]
+    lib.snt_nn_smem.restype = sz
+    lib.snt_nn_limit.argtypes = [i]
+    lib.snt_nn_limit.restype = i
     lib.snt_fps.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
     lib.snt_fps.restype = i
     lib.snt_fps_smem.argtypes = [i, i]

@@ -4,27 +4,30 @@ kernels' wrappers and their plain PyTorch versions.
 Mirrors samplenet_tpu/ops/pallas/chamfer_kernel.py:28-83 (the Pallas body)
 and :176-218 (`nn_direction`, `nn_snap`, `nn_distance_pallas`). The
 kernels are csrc/nn_direction.cu; its note says what bounds them and how
-they are laid out. Both versions compute d = (dx*dx + dy*dy) + dz*dz
-without FMA contraction and take the first index of the minimum, so on the
-card they agree bit for bit; the snapped points are copies of the
-database's. A NaN distance ranks below every number, as in the JAX
-package's path off the TPU (samplenet_tpu/ops/pairwise.py::
-chunked_min_argmin, which nn_distance and nn_match_from_clouds run there):
-a query with a NaN distance to some point gets dist NaN and the first such
-index, and a query with a NaN coordinate index 0.
+they are laid out, and their launch (lanes a query, queries a thread,
+block width, points staged at a time) comes from nn_plan.py. Both
+versions compute d = (dx*dx + dy*dy) + dz*dz without FMA contraction and
+take the first index of the minimum, so on the card they agree bit for
+bit under every plan; the snapped points are copies of the database's. A
+NaN distance ranks below every number, as in the JAX package's path off
+the TPU (samplenet_tpu/ops/pairwise.py::chunked_min_argmin, which
+nn_distance and nn_match_from_clouds run there): a query with a NaN
+distance to some point gets dist NaN and the first such index, and a
+query with a NaN coordinate index 0.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from samplenet_tpu_torch.ops.cuda import nn_plan as npl
 from samplenet_tpu_torch.ops.cuda._build import check, library, stream_handle
 from samplenet_tpu_torch.ops.dispatch import count_launch, use_kernel
 
 KERNEL = "nn_direction"
 KERNEL_SNAP = "nn_snap"
-_QUERY_TILE = 32       # csrc/nn_direction.cu kQueryTile
-_MAX_GRID_Y = 65535
 
 
 def _check_args(x: torch.Tensor, y: torch.Tensor) -> None:
@@ -63,7 +66,9 @@ def nn_direction(x: torch.Tensor, y: torch.Tensor
     _check_args(x, y)
     if not use_kernel(x):
         return nn_direction_plain(x, y)
-    return _nn_direction_cuda(x, y)
+    _check_cuda(x, y, KERNEL)
+    b, n1, _ = x.shape
+    return launch(x, y, kernel_plan(x.device.index, b, n1, y.shape[1]))
 
 
 def _check_cuda(x: torch.Tensor, y: torch.Tensor, name: str) -> None:
@@ -74,27 +79,52 @@ def _check_cuda(x: torch.Tensor, y: torch.Tensor, name: str) -> None:
         raise ValueError(f"the {name} kernel takes contiguous x and y")
     if x.dtype != torch.float32:
         raise TypeError(f"the {name} kernel takes float32, got {x.dtype}")
-    n1 = x.shape[1]
-    if -(-n1 // _QUERY_TILE) > _MAX_GRID_Y:
-        raise ValueError(f"N1={n1} exceeds the kernel's grid "
-                         f"({_QUERY_TILE * _MAX_GRID_Y} queries)")
 
 
-def _nn_direction_cuda(x: torch.Tensor, y: torch.Tensor
-                       ) -> tuple[torch.Tensor, torch.Tensor]:
-    _check_cuda(x, y, KERNEL)
+@functools.lru_cache(maxsize=256)
+def kernel_plan(device: int, b: int, n1: int, n2: int) -> npl.NnPlan:
+    """The kernel's launch plan on CUDA device `device`; checks that the
+    kernel counts shared memory and its limits as the plan does."""
+    lib = library()
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    plan = npl.plan(b, n1, n2, sms)
+    limits = (npl.MAX_WARPS, npl.MAX_CHUNK, npl.LANES[-1], npl.QUERIES[-1])
+    if (tuple(lib.snt_nn_limit(i) for i in range(4)) != limits
+            or lib.snt_nn_smem(plan.chunk, n2) != plan.smem(n2)
+            or lib.snt_nn_smem(32, 33) != npl.nn_smem(32, 33)):
+        raise RuntimeError("csrc/nn_direction.cu and nn_plan.py disagree on "
+                           "the kernel's limits or shared memory")
+    return plan
+
+
+def launch(x: torch.Tensor, y: torch.Tensor, plan: npl.NnPlan,
+           snap: bool = False) -> tuple[torch.Tensor, ...]:
+    """The kernel (the snap entry with `snap`) on checked arguments under
+    `plan`: (dist, idx), or (dist, idx, snapped). The outputs do not depend
+    on the plan (the card tests run every one)."""
     b, n1, _ = x.shape
     n2 = y.shape[1]
+    if not npl.valid(plan, b, n1, n2):
+        raise ValueError(f"the nn kernel does not take {plan} for B={b}, "
+                         f"N1={n1}, N2={n2}")
     dist = torch.empty((b, n1), dtype=torch.float32, device=x.device)
     idx = torch.empty((b, n1), dtype=torch.int32, device=x.device)
+    snapped = (torch.empty((b, n1, 3), dtype=torch.float32, device=x.device)
+               if snap else None)
     lib = library()
+    args = (b, n1, n2, plan.lanes, plan.queries, plan.warps, plan.chunk,
+            stream_handle(x))
     with torch.cuda.device(x.device):
-        err = lib.snt_nn_direction(
-            x.data_ptr(), y.data_ptr(), dist.data_ptr(), idx.data_ptr(),
-            b, n1, n2, stream_handle(x))
-    check(err, KERNEL)
-    count_launch(KERNEL)
-    return dist, idx
+        if snap:
+            err = lib.snt_nn_snap(x.data_ptr(), y.data_ptr(), dist.data_ptr(),
+                                  idx.data_ptr(), snapped.data_ptr(), *args)
+        else:
+            err = lib.snt_nn_direction(x.data_ptr(), y.data_ptr(),
+                                       dist.data_ptr(), idx.data_ptr(), *args)
+    name = KERNEL_SNAP if snap else KERNEL
+    check(err, name)
+    count_launch(name)
+    return (dist, idx, snapped) if snap else (dist, idx)
 
 
 def nn_snap_plain(x: torch.Tensor, y: torch.Tensor
@@ -119,17 +149,8 @@ def nn_snap(x: torch.Tensor, y: torch.Tensor
         return nn_snap_plain(x, y)
     _check_cuda(x, y, KERNEL_SNAP)
     b, n1, _ = x.shape
-    dist = torch.empty((b, n1), dtype=torch.float32, device=x.device)
-    idx = torch.empty((b, n1), dtype=torch.int32, device=x.device)
-    snapped = torch.empty((b, n1, 3), dtype=torch.float32, device=x.device)
-    lib = library()
-    with torch.cuda.device(x.device):
-        err = lib.snt_nn_snap(
-            x.data_ptr(), y.data_ptr(), dist.data_ptr(), idx.data_ptr(),
-            snapped.data_ptr(), b, n1, y.shape[1], stream_handle(x))
-    check(err, KERNEL_SNAP)
-    count_launch(KERNEL_SNAP)
-    return dist, idx, snapped
+    return launch(x, y, kernel_plan(x.device.index, b, n1, y.shape[1]),
+                  snap=True)
 
 
 def nn_distance_pallas(xyz1: torch.Tensor, xyz2: torch.Tensor

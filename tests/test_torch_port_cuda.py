@@ -12,7 +12,10 @@ suite's conftest:
 Tolerances: nn_direction and FPS bit for bit (same roundings, same
 tie-breaks, NaN first in the 1-NN ops and ranked above every number in
 FPS's argmax; NaN distances compared by place, FPS's and nn_snap's points
-by their bits); FPS also under every launch plan; point_mlp_max at rtol = atol = 1e-4 (f32 sums in another
+by their bits); FPS also under every launch plan, nn_direction and
+nn_snap under every (lanes, queries) at every shape the paths give them,
+across many staged chunks and over more query tiles than a grid axis of
+65535 holds; point_mlp_max at rtol = atol = 1e-4 (f32 sums in another
 order). The EMD: its cost within rtol 2e-4 of the plain version in
 float64, and each gradient no further from that than 1.5x the plain f32
 version's error (or 5e-4 of its scale), as tests/test_emd_kernel.py
@@ -90,6 +93,90 @@ def test_nn_direction_ties_take_the_lowest_index(dev):
     dp, ip = nn_direction_plain(x, y)
     assert torch.equal(dk, dp) and torch.equal(ik, ip)
     assert int(ik.max()) < 700
+
+
+# (B, N1, N2) of every shape the paths give the 1-NN kernel (chip_smoke.py's
+# NN_SHAPES): the eval forward and the Chamfer loss (B=1024), the
+# reconstruction sampler (B=50), the progressive steps at each prefix size
+# s, both ways (B=32 over 1024 points; B=50 over 2048), the infer step's snap
+NN_PATH_SHAPES = sorted({
+    (1024, 32, 1024), (1024, 1024, 32), (50, 64, 2048), (50, 2048, 64),
+    *((32, s, 1024) for s in (8, 16, 32, 64, 128, 256, 512, 1024)),
+    *((32, 1024, s) for s in (8, 16, 32, 64, 128, 256, 512)),
+    *((50, s, 2048) for s in (16, 32, 64, 128, 256, 512, 1024, 2048)),
+    *((50, 2048, s) for s in (16, 32, 64, 128, 256, 512, 1024))})
+
+
+def _nn_check_plans(x, y, plans):
+    """nn_direction and nn_snap under each plan bit-equal to the plain
+    version: idx, dist (NaN by place) and the snapped points' bits."""
+    from samplenet_tpu_torch.ops.cuda import chamfer_kernel as ck
+
+    dp, ip, sp = ck.nn_snap_plain(x, y)
+    for plan in plans:
+        for snap in (False, True):
+            out = ck.launch(x, y, plan, snap)
+            assert torch.equal(out[1], ip) and _same_or_nan(out[0], dp), \
+                (plan, snap, int((out[1] != ip).sum()))
+            assert not snap or _same_bits(out[2], sp), plan
+
+
+@pytest.mark.parametrize("b,n1,n2", NN_PATH_SHAPES)
+def test_nn_every_plan_at_the_paths_shapes(dev, b, n1, n2):
+    """Every (lanes, queries) the kernel takes, forced, at each shape the
+    paths give it: the outputs do not depend on the plan."""
+    from samplenet_tpu_torch.ops.cuda import chamfer_kernel as ck
+    from samplenet_tpu_torch.ops.cuda import nn_plan
+
+    rng = np.random.default_rng(b * 7 + n1 + n2)
+    x, y = _randn(rng, b, n1, 3, dev=dev), _randn(rng, b, n2, 3, dev=dev)
+    plans = nn_plan.candidates(b, n1, n2)
+    assert ck.kernel_plan(x.device.index, b, n1, n2) in plans
+    assert len(plans) == len(nn_plan.LANES) * len(nn_plan.QUERIES)
+    _nn_check_plans(x, y, plans)
+
+
+def test_nn_n2_16384_across_chunks(dev):
+    """Many staged chunks (two buffers in turn), NaN and a tie in late
+    ones; every lanes count."""
+    from samplenet_tpu_torch.ops.cuda import nn_plan
+
+    rng = np.random.default_rng(16384)
+    x, y = _randn(rng, 2, 100, 3, dev=dev), _randn(rng, 2, 16384, 3, dev=dev)
+    y[0, 16000] = y[0, 3]
+    y[1, 15000, 2] = float("nan")
+    x[0, 7] = y[0, 3]
+    plans = [p for p in nn_plan.candidates(2, 100, 16384) if p.queries == 2]
+    assert {p.chunk for p in plans} == {nn_plan.nn_chunk(16384)}
+    assert 16384 // nn_plan.nn_chunk(16384) >= 8
+    _nn_check_plans(x, y, plans)
+
+
+def test_nn_more_query_tiles_than_a_grid_axis_of_65535(dev):
+    """N1 = 32 * 65535 + 1 queries over 8 points at B=1: the flat grid runs
+    it (a (B, tiles) grid of 32-query tiles could not)."""
+    from samplenet_tpu_torch.ops.cuda import chamfer_kernel as ck
+    from samplenet_tpu_torch.ops.cuda import nn_plan
+
+    n1 = 32 * 65535 + 1
+    rng = np.random.default_rng(n1)
+    x, y = _randn(rng, 1, n1, 3, dev=dev), _randn(rng, 1, 8, 3, dev=dev)
+    d, i = ck.nn_direction(x, y)
+    dp, ip = ck.nn_direction_plain(x, y)
+    assert torch.equal(d, dp) and torch.equal(i, ip)
+    _nn_check_plans(x, y, [nn_plan.make(n1, 8, 32, 1),
+                           nn_plan.make(n1, 8, 1, 8)])
+
+
+def test_nn_launch_refuses_a_plan_the_kernel_does_not_take(dev):
+    from samplenet_tpu_torch.ops.cuda import chamfer_kernel as ck
+    from samplenet_tpu_torch.ops.cuda import nn_plan
+
+    x = torch.zeros(1, 10, 3, device=dev)
+    for bad in (nn_plan.NnPlan(3, 4, 8, 1024), nn_plan.NnPlan(4, 4, 8, 100),
+                nn_plan.NnPlan(4, 4, 9, 1024)):
+        with pytest.raises(ValueError):
+            ck.launch(x, x, bad)
 
 
 @pytest.mark.parametrize("b,n,k", [
@@ -994,8 +1081,8 @@ def test_recon_train_steps_launch_every_kernel(dev):
 
 @pytest.mark.parametrize("b,n1,n2", [
     (1, 1, 1),
-    (2, 1, 5000),       # N2 > kChunk: three staged chunks, one query
-    (3, 1000, 2500),    # N1 not a multiple of the query tile, N2 > kChunk
+    (2, 1, 5000),       # N2 > kMaxChunk: three staged chunks, one query
+    (3, 1000, 2500),    # N1 not a multiple of the query tile, N2 > kMaxChunk
     (32, 1024, 1024),   # the progressive infer step
 ])
 def test_nn_snap_bit_equal(dev, b, n1, n2):

@@ -1,19 +1,21 @@
 #!/usr/bin/env python3
-"""Time the train steps that run the soft projection, for a checkout, on
-the card.
+"""Time the train steps for a checkout, on the card.
 
     python3 tools/time_train_steps.py CHECKOUT TAG [READINGS]
 
 Imports samplenet_tpu_torch from CHECKOUT (building its kernels there) and
 builds, as chip_smoke.py does and from its helpers, the classification
 train step (B=1024, 1024 -> 32 points, k=7, augmented, against a seeded
-frozen PointNet), the progressive classification step on the exact chain
-(B=32, 1024 points, sizes 8..1024, k=7) and the progressive AE step
-(B=50, 2048 points, sizes 16..2048, k=16, against a seeded AE). For each
-it prints, under TAG, the step's device time per step under
-torch.profiler, its time per step with CUDA events (mean of 5 after
-warm-up), and the device time per step of the soft projection's backward
-kernels, by name (soft_project_bwd*).
+frozen PointNet), the reconstruction sampler step (B=50, 2048 -> 64
+points, k=16, EMD, against a seeded AE), the progressive classification
+step on the exact chain (B=32, 1024 points, sizes 8..1024, k=7) and the
+progressive AE step (B=50, 2048 points, sizes 16..2048, k=16, against a
+seeded AE). For each it prints, under TAG, the step's device time per
+step under torch.profiler, its time per step with CUDA events (mean of 5
+after warm-up), and the device time per step, with its share of the
+step's, of two kernels by name: the 1-NN kernel (nn_direction_kernel,
+its nn_direction and nn_snap entries) and the soft projection's backward
+(soft_project_bwd*).
 
 With READINGS, it times the classification step alone: READINGS wall
 readings, each the mean of 5 steps with CUDA events after warm-up, all
@@ -92,9 +94,13 @@ def main() -> int:
     sampler, astate = rec.create_sampler_ae_state(scfg, device=cs.DEVICE,
                                                   seed=cs.SEED + 1)
     astep = prog.make_progressive_ae_train_step(sampler, ae, pcfg)
+    _, rstate, rstep = cs._recon_state(torch, "sampler", ae)
     steps = {
         f"classification step (B={cs.B}, {cs.N} -> {cs.M}, k={cs.K})":
             lambda: cstep(cstate, xd, yd, gen),
+        f"reconstruction sampler step (B={cs.RECON_B}, {cs.RECON_N} -> "
+        f"{cs.RECON_M}, k={cs.RECON_K})":
+            lambda: rstep(rstate, recon_x),
         f"progressive step, exact chain (B={cs.PROG_B}, {cs.PROG_N} "
         f"points, sizes 8..{cs.PROG_MAX}, k={cs.K})":
             lambda: pstep(pstate, px, py),
@@ -105,10 +111,12 @@ def main() -> int:
     for name, fn in steps.items():
         dev = cs._device_ms(torch, fn, STEPS)
         wall = cs._time_ms(torch, fn, 5)
+        nn = kernels_ms(torch, fn, "nn_direction_kernel")
         bwd = kernels_ms(torch, fn, "soft_project_bwd")
         print(f"[{tag}] {name}: {dev!r} ms device per step, {wall!r} ms "
-              f"per step; soft projection backward {bwd!r} ms device per "
-              f"step ({card})", flush=True)
+              f"per step; 1-NN kernel {nn!r} ms device per step "
+              f"({nn / dev:.2%}); soft projection backward {bwd!r} ms "
+              f"device per step ({card})", flush=True)
     return 0
 
 
