@@ -93,7 +93,37 @@ frozen PointNet; 2048 points, B=50, sizes 16..2048 against the AE), and:
      conv layer, and evaluate_ae_prefix_nre on both paths;
  15. (progressive-cli) runs `python -m samplenet_tpu_torch.train.
      train_progressive --fused-train` for one epoch of 2 steps;
- 16. times each kernel, the eval forward and the train steps against the
+ 16. (classifier) builds the T-net PointNetClassifier at its published
+     widths (40 classes) from a seed on the CPU and moves it to the card:
+     its forward at B=32, N=1024 within rtol 1e-4 (atol 1e-5 of scale) of
+     the CPU's; one train step (dropout 0, augmentation off) on the card,
+     on the CPU in f32 and in float64 from the same state: the loss within
+     rtol 1e-4 of f64, each gradient norm-wise within 1e-2 of f64 and at
+     most twice the CPU f32 step's error (or 1e-5), gradients that f64
+     reads as zero round-off; a timed train step with dropout and
+     augmentation; then `python -m samplenet_tpu_torch.train.
+     train_classifier --device cuda --use-tnets --bn-schedule` for one
+     epoch of 3 steps (ckpt and ckpt_last with use_tnets true) and
+     train_samplenet --classifier-ckpt on it for one epoch of 2 steps;
+ 17. (evaluate) at the serving shape (B=1024 clouds of 1024 points, m=32)
+     against that T-net classifier, with the launch counters around the
+     main path: evaluate_samplenet_matched with nn and emd matching, both
+     baselines, 12-vote evaluate_classifier_voting on 256 clouds, and the
+     in-memory cores of infer_and_dump and evaluate_from_files on a
+     progressive sampler (64 clouds, 1024 points); requires
+     point_mlp_max, nn_direction, fps, nn_snap and the soft projection's
+     forward to have launched; then holds each against the plain path on
+     the card (nn matching's points bit for bit; emd matching's points
+     those of each path's own transport argmax, bit for bit, and at most
+     0.5% of the argmaxes different between the paths, where the f32
+     auction's chaos moves the weights, with the near-ties and the
+     weights' drift printed; the per-cloud
+     NLL within rtol 1e-4 and correctness equal on the clouds whose
+     points are equal; the baselines' points bit for bit), and runs
+     evaluate_cli in the process on the classifier phase's checkpoints
+     (classifier, samplenet nn and emd, baseline fps and random; infer
+     and from-files where h5py imports, said on a line of its own);
+ 18. times each kernel, the eval forward and the train steps against the
      plain versions, per call with CUDA events and as device time with
      torch.profiler (the EMD also on the AE step's own pair: the seeded
      AE's reconstruction of the procedural clouds against them), and
@@ -158,6 +188,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import io
 import json
 import os
 import queue
@@ -288,6 +319,28 @@ PROG_PATH = ("nn_snap", "point_mlp_train_fwd", "point_mlp_train_bwd",
              "point_mlp_exact_fwd", "point_mlp_exact_bwd",
              "soft_projection_fwd", "soft_projection_bwd", "nn_direction",
              "fps", "point_mlp_max")
+# the classification track's own classifier: the T-net PointNet at its
+# published widths (40 classes) at B=32 clouds of 1024 points; its f32
+# step's gradients held to 2x the CPU f32 step's norm-wise error against
+# float64 (or the floor where both are below it), and under the cap. In
+# f32 the BN backward over 32768 rows cancels: the lower layers' gradients
+# land 2.5e-3 to 5.1e-3 norm-wise from f64 on the card and on the CPU
+# alike, and as far from each other, while the f64 step moves 1e-6 when
+# each input coordinate moves 1e-7 (NVIDIA H100, PERF.md)
+CLS_B = 32
+CLS_GRAD_FLOOR = 1e-5
+CLS_GRAD_CAP = 1e-2
+CLS_TIMED = 10                 # train steps timed after warm-up
+# EMD matching on the kernel and the plain path, whose simplified clouds
+# differ by 3e-7: the auction is chaotic in f32 (its steep levels multiply
+# d2's difference by up to 65536), and the two paths' transport weights at
+# the same pick differ by up to 22%; 22 of the 32768 argmaxes differ, one
+# where the best led the second by 2.9% (NVIDIA H100, PERF.md). Each path
+# is held to its own argmax exactly, and the share that differs to this
+EMD_FLIP_SHARE = 5e-3
+# the kernels the evaluation protocols launch (train/evaluate.py)
+EVAL_PATH = ("point_mlp_max", "nn_direction", "fps", "nn_snap",
+             "soft_projection_fwd")
 # the card's published peaks (NVIDIA H100 SXM data sheet), and its
 # special-function rate: 16 exp2 / rsqrt / rcp results
 # per SM per clock on compute capability 9.0 (CUDA C++ Programming Guide,
@@ -2482,6 +2535,381 @@ def phase_progressive_cli(torch, classifier) -> None:
                            f"{' '.join(accs)}, ckpt written")
 
 
+# ------------------------------------------- classifier and evaluation phases
+
+def _cls_state(torch, cfg, device):
+    """The T-net classifier from SEED + 6, made on the CPU with its T-nets'
+    transform kernels moved off zero (so every T-net layer gets a
+    gradient), then moved to `device`; and its train state."""
+    from samplenet_tpu_torch.train.classification import (
+        create_classifier_state,
+    )
+
+    model, state = create_classifier_state(cfg, device="cpu", seed=SEED + 6)
+    gen = torch.Generator().manual_seed(SEED + 8)
+    with torch.no_grad():
+        for tnet in (model.tnet_input, model.tnet_feature):
+            w = tnet.transform.weight
+            w.copy_(0.002 * torch.randn(w.shape, generator=gen))
+    model.to(device)              # in place: the optimiser keeps its params
+    return model, state
+
+
+def _cli(args: list[str], what: str) -> tuple[str, float]:
+    """A port CLI in its own process from the checkout: (stdout, s)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.monotonic()
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=HERE, env=env,
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode:
+        raise RuntimeError(f"{what} exited {proc.returncode}:\n"
+                           f"{(proc.stdout + proc.stderr)[-4000:]}")
+    return proc.stdout, time.monotonic() - t0
+
+
+def phase_classifier(torch, data, labels, tmp: str) -> None:
+    """The T-net PointNetClassifier at its published widths (40 classes,
+    B=32, N=1024): forward on the card against the CPU, one train step on
+    the card against the CPU in f32 and in float64, then the classifier
+    CLI with --use-tnets --bn-schedule and train_samplenet on its
+    checkpoint; the checkpoints stay in `tmp` for the evaluate phase."""
+    from samplenet_tpu_torch.train.classification import (
+        ClassifierConfig,
+        make_classifier_train_step,
+    )
+
+    x = torch.from_numpy(data[:CLS_B])
+    y = torch.from_numpy(labels[:CLS_B])
+    cfg = ClassifierConfig(num_classes=NUM_CLASSES, batch_size=CLS_B,
+                           use_tnets=True, augment=False)
+    card, _ = _cls_state(torch, cfg, DEVICE)
+    cpu, _ = _cls_state(torch, cfg, "cpu")
+    with torch.inference_mode():
+        lk, ek = card(x.to(DEVICE))
+        lc, ec = cpu(x)
+    scale = float(lc.abs().max())
+    torch.testing.assert_close(lk.cpu(), lc, rtol=1e-4, atol=1e-5 * scale)
+    torch.testing.assert_close(ek["transform"].cpu(), ec["transform"],
+                               rtol=1e-4, atol=1e-5)
+    log("classifier", f"T-net PointNetClassifier({NUM_CLASSES}) forward at "
+                      f"B={CLS_B}, N={N}: card vs CPU logits max |d| "
+                      f"{float((lk.cpu() - lc).abs().max())!r} of scale "
+                      f"{scale!r} (rtol 1e-4, atol 1e-5 of scale); "
+                      f"feature transform within 1e-4")
+
+    runs = {}
+    for name, dev, dtype in (("card", DEVICE, None), ("cpu", "cpu", None),
+                             ("f64", "cpu", torch.float64)):
+        model, state = _cls_state(torch, cfg, dev)
+        model.dropout_rate = 0.0
+        if dtype is not None:
+            model.to(dtype)
+        step = make_classifier_train_step(model, cfg)
+        xd = x.to(dev) if dtype is None else x.to(dev, dtype)
+        loss, _ = step(state, xd, y.to(dev))
+        runs[name] = (float(loss), {k: p.grad.detach().cpu().double()
+                                    for k, p in model.named_parameters()})
+    (loss_k, gk), (loss_c, gc), (loss_r, gr) = (runs["card"], runs["cpu"],
+                                                runs["f64"])
+    if not np.isfinite(loss_k) or abs(loss_k - loss_r) > 1e-4 * abs(loss_r):
+        raise AssertionError(f"train step loss {loss_k!r} on the card, "
+                             f"{loss_r!r} in f64")
+    scale = max(float(g.abs().max()) for g in gr.values())
+    # zero in exact arithmetic (dense biases before a BN, and a pooled
+    # chain's last BN beta where every cloud's max is positive): f64 reads
+    # round-off there, and f32 must too
+    cancelled = {k for k, g in gr.items()
+                 if float(g.abs().max()) <= 1e-10 * scale}
+    worst, bad = (0.0, 0.0, ""), []
+    for name in gr:
+        if name in cancelled:
+            if float(gk[name].abs().max()) > 1e-4 * scale:
+                bad.append(f"{name}: gradient not round-off")
+            continue
+        ek, ec_ = _norm_err(gk[name], gr[name]), _norm_err(gc[name],
+                                                           gr[name])
+        worst = max(worst, (ek, ec_, name))
+        if not (ek <= CLS_GRAD_CAP and ek <= max(2 * ec_, CLS_GRAD_FLOOR)):
+            bad.append(f"{name}: card {ek!r}, CPU f32 {ec_!r}")
+    log("classifier", f"one train step (dropout 0, augmentation off): loss "
+                      f"card {loss_k!r}, CPU f32 {loss_c!r}, f64 {loss_r!r}; "
+                      f"gradients norm-wise against f64: worst card "
+                      f"{worst[0]!r} at {worst[2]} (CPU f32 {worst[1]!r}); "
+                      f"{len(cancelled)} gradients zero in f64 round-off "
+                      f"(below 1e-4 of scale)")
+    if bad:
+        raise AssertionError("classifier step gradients: " + "; ".join(bad))
+    tcfg = ClassifierConfig(num_classes=NUM_CLASSES, batch_size=CLS_B,
+                            use_tnets=True)
+    model, state = _cls_state(torch, tcfg, DEVICE)
+    step = make_classifier_train_step(model, tcfg)
+    gens = [torch.Generator(device=DEVICE).manual_seed(SEED + i)
+            for i in (0, 1)]
+    xd, yd = x.to(DEVICE), y.to(DEVICE)
+    for _ in range(3):
+        step(state, xd, yd, *gens)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    losses = [step(state, xd, yd, *gens)[0] for _ in range(CLS_TIMED)]
+    torch.cuda.synchronize()
+    ms = (time.monotonic() - t0) / CLS_TIMED * 1e3
+    if not all(np.isfinite([float(v) for v in losses])):
+        raise AssertionError(f"classifier steps: losses {losses}")
+    log("classifier", f"train step with dropout 0.3 and augmentation, "
+                      f"B={CLS_B}: {ms:.3f} ms a step on the host clock "
+                      f"(mean of {CLS_TIMED} after 3 warm-up steps)")
+
+    cls_dir, sn_dir = os.path.join(tmp, "cls"), os.path.join(tmp, "sn")
+    small = ["--train-size", "128", "--test-size", "64", "--seed", str(SEED)]
+    out, s_cls = _cli(["samplenet_tpu_torch.train.train_classifier",
+                       "--device", "cuda", "--use-tnets", "--bn-schedule",
+                       "--epochs", "1", "--steps-per-epoch", "3",
+                       "--log-dir", cls_dir, *small], "train_classifier")
+    for d in ("ckpt", "ckpt_last"):
+        with open(os.path.join(cls_dir, d, "config.json")) as f:
+            config = json.load(f)
+        if config.get("use_tnets") is not True or not os.path.exists(
+                os.path.join(cls_dir, d, "classifier.pth")):
+            raise AssertionError(f"train_classifier wrote {d}: {config}")
+    acc = [ln.split("test_acc=")[1] for ln in out.splitlines()
+           if "test_acc=" in ln]
+    out, s_sn = _cli(["samplenet_tpu_torch.train.train_samplenet",
+                      "--device", "cuda", "--epochs", "1",
+                      "--steps-per-epoch", "2", "--classifier-ckpt",
+                      os.path.join(cls_dir, "ckpt"), "--log-dir", sn_dir,
+                      *small], "train_samplenet --classifier-ckpt")
+    sn_acc = [ln.split("eval_acc@32=")[1].split()[0]
+              for ln in out.splitlines() if "eval_acc@32=" in ln]
+    if len(acc) != 1 or len(sn_acc) != 1 or not os.path.exists(
+            os.path.join(sn_dir, "ckpt", "sampler.pth")):
+        raise AssertionError(f"CLIs logged {acc}, {sn_acc}")
+    log("classifier", f"train_classifier --device cuda --use-tnets "
+                      f"--bn-schedule, 1 epoch of 3 steps: exit 0 in "
+                      f"{s_cls:.1f} s, test_acc={acc[0]}, ckpt and ckpt_last "
+                      f"with use_tnets true; train_samplenet "
+                      f"--classifier-ckpt on it, 1 epoch of 2 steps: exit 0 "
+                      f"in {s_sn:.1f} s, eval_acc@32={sn_acc[0]}")
+
+
+def _top2_gap(match):
+    """[B, m]: (best - second) / best transport weight over the full-cloud
+    axis of match [B, N, m]."""
+    top2 = match.topk(2, dim=1).values
+    return (top2[:, 0] - top2[:, 1]) / top2[:, 0].clamp_min(1e-30)
+
+
+def phase_evaluate(torch, model, data, labels, tmp: str) -> dict[str, int]:
+    """The evaluation protocols at the serving shape (B=1024 clouds of 1024
+    points, m=32, bottleneck 128) against the T-net classifier of the
+    classifier phase's seed: the counted main path on the kernel path,
+    then each held against the plain path on the card; then evaluate_cli
+    on the classifier phase's checkpoints."""
+    from samplenet_tpu_torch.models import SampleNet
+    from samplenet_tpu_torch.ops.dispatch import (
+        launch_counts,
+        plain_on_cuda,
+        reset_launch_counts,
+    )
+    from samplenet_tpu_torch.ops.fps import gather_point
+    from samplenet_tpu_torch.ops.matching import (
+        approx_match,
+        nn_match_from_clouds,
+    )
+    from samplenet_tpu_torch.ops.cuda.chamfer_kernel import nn_snap
+    from samplenet_tpu_torch.train import checkpoints, evaluate_cli
+    from samplenet_tpu_torch.train import evaluate as ev
+    from samplenet_tpu_torch.train.classification import ClassifierConfig
+
+    classifier, _ = _cls_state(torch, ClassifierConfig(
+        num_classes=NUM_CLASSES, use_tnets=True), DEVICE)
+    prog = SampleNet(num_out_points=PROG_MAX, bottleneck_size=128,
+                     group_size=K, sigma_mode="tf",
+                     generator=torch.Generator().manual_seed(SEED + 7)
+                     ).to(DEVICE)
+    sizes = [2 ** i for i in range(3, PROG_MAX.bit_length())]   # 8..1024
+    pd, pl = data[:2 * PROG_B], labels[:2 * PROG_B]
+
+    secs: dict[str, float] = {}
+
+    def timed(name, fn, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        secs[name] = time.monotonic() - t0
+        return out
+
+    def matched_and_baselines():
+        out = {m: timed(m, ev.evaluate_samplenet_matched, model, classifier,
+                        data, labels, B, matching=m, device=DEVICE)
+               for m in ("nn", "emd")}
+        out.update({s: timed(s, ev.evaluate_baseline_sampler, classifier,
+                             data, labels, B, M, sampler=s, seed=SEED,
+                             device=DEVICE) for s in ("fps", "random")})
+        return out
+
+    # warm-up: the first call of each path loads the kernels and cuBLAS
+    ev.evaluate_samplenet_matched(model, classifier, data[:64], labels[:64],
+                                  64, device=DEVICE)
+    reset_launch_counts()
+    rk = matched_and_baselines()
+    rk["voting"] = timed("voting", ev.evaluate_classifier_voting, classifier,
+                         data[:256], labels[:256], 256, 12, device=DEVICE)
+    rk["infer"] = timed("infer", ev.infer_ordered, prog, pd, pl,
+                        num_out_points=PROG_MAX, batch_size=PROG_B,
+                        device=DEVICE)
+    rk["prefix"] = timed("prefix", ev.evaluate_prefix_accuracy, classifier,
+                         rk["infer"][0]["sampled"], rk["infer"][1], sizes,
+                         PROG_B, device=DEVICE)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    log("evaluate", "seconds a call on the kernel path (host clock, after "
+                    "a warm-up call): " + ", ".join(
+                        f"{k} {v:.4f}" for k, v in secs.items()))
+    missing = [k for k in EVAL_PATH if counts.get(k, 0) < 1]
+    if missing:
+        raise AssertionError(f"the evaluation path launched no {missing}: "
+                             f"{counts}")
+    with plain_on_cuda():
+        rp = matched_and_baselines()
+    x = torch.from_numpy(data).to(DEVICE)
+    with torch.inference_mode():
+        simp_k = model.simplify(x)
+        with plain_on_cuda():
+            simp_p = model.simplify(x)
+            matched_k, _ = nn_match_from_clouds(x, simp_k, M)
+
+    for m in ("nn", "emd"):
+        a, b = rk[m], rp[m]
+        same = (a["sampled"] == b["sampled"]).all(axis=(1, 2))
+        if m == "nn":
+            # the matcher on the kernel path's simplified cloud, plain
+            if not np.array_equal(a["sampled"], matched_k.cpu().numpy()):
+                raise AssertionError("nn matching: kernel path != plain "
+                                     "matcher on the same simplified cloud")
+            if not same.all():
+                raise AssertionError(f"nn matching: {int((~same).sum())} "
+                                     f"clouds' matched points differ")
+        else:
+            with torch.inference_mode():
+                mk, mp = approx_match(x, simp_k), approx_match(x, simp_p)
+            ik, ip = mk.argmax(1), mp.argmax(1)
+            gap = torch.minimum(_top2_gap(mk), _top2_gap(mp))
+            close = int((gap <= 1e-6).sum())
+            flips = ik != ip
+            # the two paths' weights at the kernel path's pick
+            wk, wp = mk.gather(1, ik[:, None])[:, 0], mp.gather(
+                1, ik[:, None])[:, 0]
+            drift = float(((wk - wp).abs() / wk.clamp_min(1e-30)).max())
+            worst = float(gap[flips].max()) if bool(flips.any()) else 0.0
+            log("evaluate", f"emd matching: {close} of {B * M} transport "
+                            f"argmaxes within 1e-6 of their second best, "
+                            f"{int((gap <= 1e-3).sum())} within 1e-3; "
+                            f"{int(flips.sum())} indices differ between the "
+                            f"paths, the largest gap among them {worst!r}; "
+                            f"the paths' weights at the kernel path's pick "
+                            f"differ by up to {drift!r} relative")
+            for r, i in ((a, ik), (b, ip)):
+                if not np.array_equal(r["sampled"],
+                                      gather_point(x, i).cpu().numpy()):
+                    raise AssertionError("emd matching: sampled points are "
+                                         "not the transport argmax's")
+            if int(flips.sum()) > EMD_FLIP_SHARE * B * M:
+                raise AssertionError(f"emd matching: {int(flips.sum())} "
+                                     f"indices differ between the paths")
+        if not (a["correct"][same] == b["correct"][same]).all() \
+                or not (a["unique_nn"] == b["unique_nn"]).all():
+            raise AssertionError(f"{m}: correct or unique NN differ")
+        np.testing.assert_allclose(a["nll"][same], b["nll"][same], rtol=1e-4)
+        if same.all() and (a["accuracy"], a["mean_unique_nn"]) != (
+                b["accuracy"], b["mean_unique_nn"]):
+            raise AssertionError(f"{m}: accuracy or mean unique NN differ")
+        log("evaluate", f"evaluate_samplenet_matched, {m} matching, B={B}: "
+                        f"accuracy {a['accuracy']!r} (plain "
+                        f"{b['accuracy']!r}), loss {a['loss']!r}, mean "
+                        f"unique NN {a['mean_unique_nn']!r} (plain "
+                        f"{b['mean_unique_nn']!r}); matched points equal in "
+                        f"{int(same.sum())} of {B} clouds, per-cloud NLL "
+                        f"within rtol 1e-4 there")
+    for s in ("fps", "random"):
+        a, b = rk[s], rp[s]
+        if not (np.array_equal(a["sampled"], b["sampled"])
+                and a["accuracy"] == b["accuracy"]):
+            raise AssertionError(f"{s} baseline: kernel path != plain path")
+    log("evaluate", f"baselines at m={M}: fps accuracy "
+                    f"{rk['fps']['accuracy']!r}, random "
+                    f"{rk['random']['accuracy']!r}; points and accuracies "
+                    f"equal on the plain path")
+    vote = rk["voting"]
+    if not (0.0 <= vote["accuracy"] <= 1.0
+            and vote["per_class_accuracy"].shape == (NUM_CLASSES,)):
+        raise AssertionError(f"voting report: {vote}")
+    outs, kept = rk["infer"]
+    xs = torch.from_numpy(pd[:PROG_B]).to(DEVICE)
+    simp = torch.from_numpy(outs["simplified"][:PROG_B]).to(DEVICE)
+    with plain_on_cuda(), torch.inference_mode():
+        _, _, hard_p = nn_snap(simp, xs)
+        matched_p, _ = nn_match_from_clouds(xs, simp, PROG_MAX)
+    if not (np.array_equal(outs["hard_projected"][:PROG_B],
+                           hard_p.cpu().numpy())
+            and np.array_equal(outs["sampled"][:PROG_B],
+                               matched_p.cpu().numpy())) \
+            or any(v.shape != (len(pd), PROG_MAX, 3) for v in outs.values()) \
+            or not all(np.isfinite(v).all() for v in outs.values()) \
+            or sorted(rk["prefix"]) != sizes:
+        raise AssertionError("infer_ordered / evaluate_prefix_accuracy")
+    log("evaluate", f"evaluate_classifier_voting, 12 votes on 256 clouds: "
+                    f"accuracy {vote['accuracy']!r}; infer_ordered of the "
+                    f"progressive sampler ({len(pd)} clouds, {PROG_MAX} "
+                    f"points): hard and sampled equal the plain snap and "
+                    f"matcher on its simplified cloud; prefix accuracies "
+                    + " ".join(f"@{s}={a!r}" for s, a in
+                               rk["prefix"].items())
+                    + f"; kernel launches {counts}")
+
+    cls_ckpt = os.path.join(tmp, "cls", "ckpt")
+    prog_ckpt = os.path.join(tmp, "prog", "ckpt")
+    checkpoints.save_published(prog_ckpt, prog.state_dict(),
+                               {"max_num_out_points": PROG_MAX,
+                                "group_size": K})
+    common = ["--device", "cuda", "--test-size", "64", "--seed", str(SEED),
+              "--log-dir", os.path.join(tmp, "eval")]
+
+    def cli(*argv):               # its log lines stay in --log-dir
+        with contextlib.redirect_stdout(io.StringIO()):
+            return evaluate_cli.main([*argv, *common])
+
+    t0 = time.monotonic()
+    ran = {"classifier": cli("classifier", "--ckpt", cls_ckpt)["accuracy"]}
+    for matching in ("nn", "emd"):
+        ran[f"samplenet {matching}"] = cli(
+            "samplenet", "--ckpt", os.path.join(tmp, "sn", "ckpt"),
+            "--classifier-ckpt", cls_ckpt, "--matching", matching)["accuracy"]
+    for s in ("fps", "random"):
+        ran[f"baseline {s}"] = cli("baseline", "--sampler", s,
+                                   "--classifier-ckpt", cls_ckpt)["accuracy"]
+    try:
+        import h5py  # noqa: F401
+        have_h5py = True
+    except ImportError:
+        have_h5py = False
+    if have_h5py:
+        paths = cli("infer", "--ckpt", prog_ckpt, "--out-dir",
+                    os.path.join(tmp, "dumps"))
+        ran["from-files"] = cli("from-files", "--dump", paths["sampled"],
+                                "--classifier-ckpt", cls_ckpt, "--sizes",
+                                "8", "32", "1024")
+    if not all(0.0 <= a <= 1.0 for k, a in ran.items() if k != "from-files"):
+        raise AssertionError(f"evaluate_cli: {ran}")
+    log("evaluate", f"evaluate_cli --device cuda on the classifier phase's "
+                    f"checkpoints ({time.monotonic() - t0:.1f} s): "
+                    + ", ".join(f"{k} {v!r}" for k, v in ran.items()))
+    log("evaluate", "h5py imports: infer and from-files ran" if have_h5py
+        else "h5py does not import: infer and from-files did not run")
+    return counts
+
+
 def _ghost_bounds(b: int, n: int, widths, bf16: bool) -> tuple[tuple, tuple]:
     """Bounds of the ghost chain's forward and backward: `_exact_bounds`'s
     bytes, the multiply-adds (2 FLOP forward; 4 backward, dW and dh) at the
@@ -2793,6 +3221,9 @@ def main() -> int:
                          data[:2 * PROG_B], labels[:2 * PROG_B], classifier)
     _timed(phase_progressive_ae, torch, recon_data, recon_x)
     _timed(phase_progressive_cli, torch, classifier)
+    with tempfile.TemporaryDirectory() as tmp:
+        _timed(phase_classifier, torch, data, labels, tmp)
+        _timed(phase_evaluate, torch, model, data, labels, tmp)
     times = _timed(phase_times, torch, model, clouds, card)
     train_times, soft_gathered = _timed(phase_times_train, torch, data,
                                         labels, classifier, card)

@@ -1,7 +1,8 @@
 """samplenet-tpu, PyTorch/CUDA port: the SampleNet serving path, the
-classification-track sampler training and the reconstruction track (the
-autoencoder and the sampler against it, with approximate EMD) on PyTorch
-with hand-written Hopper kernels.
+classification track (the PointNet classifier, the sampler trained
+against it, the evaluation protocols), the reconstruction track (the
+autoencoder and the sampler against it, with approximate EMD) and the
+progressive track on PyTorch with hand-written Hopper kernels.
 
 The counterpart of samplenet_tpu/__init__.py. The JAX package stays the
 reference; this package imports torch and never jax or samplenet_tpu, and

@@ -8,9 +8,10 @@ train_samplenet.py:289-293), on the clouds' device, from an explicit
 torch.Generator on that device. The draws are torch's, not jax.random's:
 the two agree in distribution, not in bits.
 
+`rotate_point_cloud_by_angle` (the evaluation's voting rotations),
 `jitter_point_cloud` and `noisy_point_cloud` are copies of the numpy side
-(augment.py:41-58; the port cannot import the JAX package): for the same
-RandomState they give the JAX package's arrays.
+(augment.py:19-58; the port cannot import the JAX package): for the same
+angle or RandomState they give the JAX package's arrays.
 """
 
 from __future__ import annotations
@@ -46,6 +47,23 @@ def augment_for_classification(generator: torch.Generator,
                                batch: torch.Tensor) -> torch.Tensor:
     """Rotate, then jitter: the reference's train-time combination."""
     return jitter(generator, rotate_y(generator, batch))
+
+
+def rotation_matrix_y(angle: np.ndarray) -> np.ndarray:
+    """Rotation(s) about the up (Y) axis: [..., 3, 3]."""
+    c, s = np.cos(angle), np.sin(angle)
+    zeros, ones = np.zeros_like(c), np.ones_like(c)
+    return np.stack(
+        [np.stack([c, zeros, s], -1),
+         np.stack([zeros, ones, zeros], -1),
+         np.stack([-s, zeros, c], -1)], axis=-2)
+
+
+def rotate_point_cloud_by_angle(batch: np.ndarray,
+                                angle: float) -> np.ndarray:
+    """Every cloud of batch [B, N, 3] rotated about Y by `angle`."""
+    rot = rotation_matrix_y(np.asarray(angle))
+    return np.einsum("bnc,cd->bnd", batch, rot).astype(np.float32)
 
 
 def jitter_point_cloud(batch: np.ndarray, rng: np.random.RandomState,

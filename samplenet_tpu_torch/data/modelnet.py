@@ -4,8 +4,9 @@ A copy of the loaders of samplenet_tpu/data/modelnet.py:40-137 (the port
 cannot import the JAX package): the official `modelnet40_ply_hdf5_2048`
 layout, {train,test}_files.txt listing h5 shards with "data" [n, 2048, 3]
 and "label" [n, 1]. `iterate_batches` and `iterate_batches_padded` give
-the JAX package's batches for the same RandomState. h5py is imported only
-when a shard is read.
+the JAX package's batches for the same RandomState; `save_h5` writes the
+evaluation's dumps in that layout. h5py is imported only when a file is
+read or written.
 """
 
 from __future__ import annotations
@@ -32,6 +33,19 @@ def load_h5(path: str) -> tuple[np.ndarray, np.ndarray]:
         data = f["data"][:]
         label = f["label"][:]
     return data.astype(np.float32), label.squeeze().astype(np.int32)
+
+
+def save_h5(path: str, data: np.ndarray, label: np.ndarray | None = None,
+            data_dtype: str = "float32", label_dtype: str = "uint8") -> None:
+    """An h5 dump, gzip-compressed (data_prep_util.save_h5 semantics)."""
+    import h5py
+
+    with h5py.File(path, "w") as f:
+        f.create_dataset("data", data=data, compression="gzip",
+                         compression_opts=4, dtype=data_dtype)
+        if label is not None:
+            f.create_dataset("label", data=label, compression="gzip",
+                             compression_opts=1, dtype=label_dtype)
 
 
 def load_split(data_dir: str, split: str) -> tuple[np.ndarray, np.ndarray]:

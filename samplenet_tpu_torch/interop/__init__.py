@@ -3,6 +3,7 @@ samplenet_tpu/interop)."""
 
 from samplenet_tpu_torch.interop.jax_import import (  # noqa: F401
     autoencoder_state_dict_from_jax,
+    infer_pointnet_config,
     infer_samplenet_config,
     load_sampler_weights,
     pointnet_state_dict_from_jax,

@@ -6,8 +6,10 @@ JAX package: `samplenet_state_dict_from_jax` maps the flax variable tree of
 reference torch key surface, exactly as `samplenet_to_torch(variables,
 prefix=...)` does, and the port's SampleNet loads that state_dict as is;
 an FC head without BN (the reconstruction track's sampler) has no bn_fc
-keys. `pointnet_state_dict_from_jax` and `autoencoder_state_dict_from_jax`
-map the classifier's and the autoencoder's trees to the port's modules.
+keys. `pointnet_state_dict_from_jax` (vanilla or T-net) and
+`autoencoder_state_dict_from_jax` map the classifier's and the
+autoencoder's trees to the port's modules, and `infer_pointnet_config`
+reads the classifier's variant off its keys.
 Conventions converted:
 
   * Dense kernel [in, out]      -> Conv1d weight [out, in, 1] / Linear [out, in]
@@ -76,21 +78,23 @@ def samplenet_state_dict_from_jax(
 def pointnet_state_dict_from_jax(variables: dict[str, Any]
                                  ) -> dict[str, np.ndarray]:
     """The port's `PointNetClassifier` state_dict (numpy values) of a flax
-    vanilla `PointNetClassifier` variable tree ({"params",
-    "batch_stats"}; use_tnets=False). Keys:
+    `PointNetClassifier` variable tree ({"params", "batch_stats"}), vanilla
+    or T-net. Keys:
 
       convs/dense_i, convs/bn_i  -> conv{i+1}.weight [out, in, 1],
                                     conv{i+1}.bias, bn{i+1}.weight/bias/
                                     running_mean/running_var/
-                                    num_batches_tracked  (i = 0..4)
+                                    num_batches_tracked  (vanilla)
+      tnet_input, tnet_feature   -> tnet_*.convs.conv{i+1}/bn{i+1}.*,
+        (convs, fc_i, bn_i,         tnet_*.fc_i.weight [out, in] / .bias,
+         transform)                 tnet_*.bn_i.*, tnet_*.transform.*
+      convs_a, convs_b           -> convs_a.conv{i+1}.*, convs_a.bn{i+1}.*,
+                                    convs_b.* (T-net)
       fc1, bn_fc1, fc2, bn_fc2   -> fc1.weight [out, in], fc1.bias,
                                     bn_fc1.*, fc2.*, bn_fc2.*
       fc3                        -> fc3.weight [num_classes, 256], fc3.bias
     """
     p, s = variables["params"], variables.get("batch_stats", {})
-    if "convs" not in p:
-        raise KeyError("not a vanilla PointNetClassifier tree (no 'convs'; "
-                       "the T-net variant is not ported yet)")
     sd: dict[str, np.ndarray] = {}
 
     def bn(name: str, params: dict, stats: dict) -> None:
@@ -100,19 +104,48 @@ def pointnet_state_dict_from_jax(variables: dict[str, Any]
         sd[f"{name}.running_var"] = np.asarray(stats["var"])
         sd[f"{name}.num_batches_tracked"] = np.asarray(0)
 
-    convs = p["convs"]
-    for i in range(sum(1 for k in convs if k.startswith("dense_"))):
-        k = np.asarray(convs[f"dense_{i}"]["kernel"])
-        sd[f"conv{i+1}.weight"] = np.ascontiguousarray(k.T)[:, :, None]
-        sd[f"conv{i+1}.bias"] = np.asarray(convs[f"dense_{i}"]["bias"])
-        bn(f"bn{i+1}", convs[f"bn_{i}"], s["convs"][f"bn_{i}"])
+    def dense(name: str, params: dict) -> None:
+        sd[f"{name}.weight"] = np.ascontiguousarray(
+            np.asarray(params["kernel"]).T)
+        sd[f"{name}.bias"] = np.asarray(params["bias"])
+
+    def point_mlp(prefix: str, params: dict, stats: dict) -> None:
+        for i in range(sum(1 for k in params if k.startswith("dense_"))):
+            dense(f"{prefix}conv{i+1}", params[f"dense_{i}"])
+            sd[f"{prefix}conv{i+1}.weight"] = \
+                sd[f"{prefix}conv{i+1}.weight"][:, :, None]
+            bn(f"{prefix}bn{i+1}", params[f"bn_{i}"], stats[f"bn_{i}"])
+
+    if "tnet_input" in p:
+        for tnet in ("tnet_input", "tnet_feature"):
+            tp, ts = p[tnet], s[tnet]
+            point_mlp(f"{tnet}.convs.", tp["convs"], ts["convs"])
+            for i in (0, 1):
+                dense(f"{tnet}.fc_{i}", tp[f"fc_{i}"])
+                bn(f"{tnet}.bn_{i}", tp[f"bn_{i}"], ts[f"bn_{i}"])
+            dense(f"{tnet}.transform", tp["transform"])
+        point_mlp("convs_a.", p["convs_a"], s["convs_a"])
+        point_mlp("convs_b.", p["convs_b"], s["convs_b"])
+    elif "convs" in p:
+        point_mlp("", p["convs"], s["convs"])
+    else:
+        raise KeyError("not a PointNetClassifier tree (neither 'convs' nor "
+                       "'tnet_input')")
     for i in (1, 2, 3):
-        sd[f"fc{i}.weight"] = np.ascontiguousarray(
-            np.asarray(p[f"fc{i}"]["kernel"]).T)
-        sd[f"fc{i}.bias"] = np.asarray(p[f"fc{i}"]["bias"])
+        dense(f"fc{i}", p[f"fc{i}"])
         if i < 3:
             bn(f"bn_fc{i}", p[f"bn_fc{i}"], s[f"bn_fc{i}"])
     return sd
+
+
+def infer_pointnet_config(sd: dict[str, Any]) -> dict[str, Any]:
+    """Constructor kwargs of the port's `PointNetClassifier` read off a
+    state_dict's keys and shapes: {"num_classes", "use_tnets"}."""
+    if "fc3.weight" not in sd:
+        raise KeyError("no fc3.weight in the state_dict: not a "
+                       "PointNetClassifier")
+    return {"num_classes": int(sd["fc3.weight"].shape[0]),
+            "use_tnets": any(k.startswith("tnet_input.") for k in sd)}
 
 
 def autoencoder_state_dict_from_jax(variables: dict[str, Any]

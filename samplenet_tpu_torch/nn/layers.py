@@ -286,6 +286,7 @@ class PointMLP(nn.Module):
     (`resolve_fused_mode`)."""
 
     def __init__(self, in_features: int, features: Sequence[int], *,
+                 bn_momentum: float = BN_MOMENTUM,
                  fused_train: bool | None = None, fused_mode: str = "ghost",
                  fused_bf16: bool | None = None, device=None,
                  generator: torch.Generator | None = None):
@@ -293,7 +294,8 @@ class PointMLP(nn.Module):
         self.features = tuple(features)
         self.fused = dict(fused_train=fused_train, fused_mode=fused_mode,
                           fused_bf16=fused_bf16)
-        add_point_mlp(self, in_features, self.features, device=device,
+        add_point_mlp(self, in_features, self.features,
+                      bn_momentum=bn_momentum, device=device,
                       generator=generator)
 
     def forward(self, x: torch.Tensor, training: bool = False,

@@ -14,6 +14,7 @@ from samplenet_tpu_torch.ops.fps import (  # noqa: F401
     gather_point,
 )
 from samplenet_tpu_torch.ops.matching import (  # noqa: F401
+    emd_matching,
     first_occurrence_mask,
     nn_match_from_clouds,
     nn_match_indices,

@@ -9,7 +9,10 @@ checkpoint is a directory holding a bare state_dict (sampler.pth, which
 The reconstruction track's AE checkpoint carries the AE's shape and loss
 in its config (num_points, bottleneck_size, loss, denoising_sigma,
 outlier_ratio; train_reconstruction.py:209-217 of the JAX package), which
-the sampler phase reads back.
+the sampler phase reads back. The classifier's checkpoint is
+classifier.pth and a config with num_classes and use_tnets (and, for the
+best snapshot, best_epoch and best_test_acc), as the JAX CLI writes it
+(train_classifier.py:106-117); `load_classifier` builds that variant.
 """
 
 from __future__ import annotations
@@ -20,7 +23,11 @@ from typing import Any
 
 import torch
 
+from samplenet_tpu_torch.interop.jax_import import infer_pointnet_config
+from samplenet_tpu_torch.models.pointnet_cls import PointNetClassifier
 from samplenet_tpu_torch.train.state import TrainState
+
+CLASSIFIER_FILE = "classifier.pth"
 
 
 def save_train_state(path: str, state: TrainState, *,
@@ -69,3 +76,17 @@ def load_published(path: str, filename: str = "sampler.pth"
                     weights_only=True)
     with open(os.path.join(path, "config.json")) as f:
         return sd, json.load(f)
+
+
+def load_classifier(path: str, device) -> PointNetClassifier:
+    """The classifier of a published checkpoint (classifier.pth +
+    config.json), the variant its config names, on `device`."""
+    sd, config = load_published(path, CLASSIFIER_FILE)
+    variant = {"num_classes": int(config["num_classes"]),
+               "use_tnets": bool(config["use_tnets"])}
+    if infer_pointnet_config(sd) != variant:
+        raise ValueError(f"{path}: config.json says {variant}, the weights "
+                         f"{infer_pointnet_config(sd)}")
+    classifier = PointNetClassifier(**variant)
+    classifier.load_state_dict(sd)
+    return classifier.to(device)

@@ -1,6 +1,16 @@
-"""Classification track: SampleNet trained against a frozen PointNet.
+"""Classification track: the PointNet classifier's own training, and
+SampleNet trained against the frozen PointNet.
 
-Mirrors the sampler half of samplenet_tpu/train/classification.py:57-374
+The classifier half mirrors samplenet_tpu/train/classification.py:40-150
+and :273-315 (classification/train_classifier.py): a train step is the
+optional on-device augmentation, the classifier's train forward (flax
+BN, dropout from its own generator), `pointnet_loss` (with the T-nets'
+orthogonality term), backward, the scheduled BN update where asked, and
+one guarded Adam step. Under `bn_schedule` the classifier's BNs run with
+momentum 0 and the update averages every running statistic, the T-nets'
+(momentum 0.9, models/pointnet_cls.py) included, as the JAX package does.
+
+The sampler half mirrors classification.py:57-374
 (classification/train_samplenet.py and evaluate_samplenet.py). A train
 step is: on-device augmentation, the sampler's train forward (exact-BN
 conv chain and soft projection, each a kernel on a CUDA tensor), the
@@ -32,7 +42,11 @@ from samplenet_tpu_torch.data import (
     iterate_batches,
     iterate_batches_padded,
 )
-from samplenet_tpu_torch.models.pointnet_cls import classification_loss
+from samplenet_tpu_torch.models.pointnet_cls import (
+    PointNetClassifier,
+    classification_loss,
+    pointnet_loss,
+)
 from samplenet_tpu_torch.models.samplenet import SampleNet
 from samplenet_tpu_torch.train.state import (
     TrainState,
@@ -42,6 +56,22 @@ from samplenet_tpu_torch.train.state import (
     scheduled_bn_update,
     staircase_lr,
 )
+
+
+@dataclass
+class ClassifierConfig:
+    num_classes: int = 10
+    batch_size: int = 32
+    learning_rate: float = 0.001
+    decay_step: float = 200000.0
+    decay_rate: float = 0.7
+    use_tnets: bool = False
+    augment: bool = True
+    # TF-style scheduled BN decay 0.5 -> 0.99 (train_samplenet.py:124-133):
+    # the BatchNorms run with momentum 0 and the EMA happens in the step
+    bn_schedule: bool = False
+    # bf16 compute waits for ROADMAP Queue 1 item 11; True raises
+    bf16: bool = False
 
 
 @dataclass
@@ -69,6 +99,128 @@ class SampleNetConfig:
     fused_train: bool | None = None
     fused_mode: str = "ghost"
     fused_bf16: bool | None = None   # None = bf16 for ghost
+
+
+def create_classifier_state(cfg: ClassifierConfig, *, device="cuda",
+                            seed: int = 0
+                            ) -> tuple[PointNetClassifier, TrainState]:
+    """The classifier (T-nets with `use_tnets`; BN momentum 0 under
+    `bn_schedule`) with flax-style initialisation from `seed`, and its
+    guarded Adam."""
+    if cfg.bf16:
+        raise ValueError("bf16 compute is not ported yet (ROADMAP Queue 1 "
+                         "item 11); the classifier trains in f32")
+    model = PointNetClassifier(
+        cfg.num_classes, use_tnets=cfg.use_tnets,
+        bn_momentum=0.0 if cfg.bn_schedule else 0.9,
+        generator=torch.Generator().manual_seed(seed)).to(device)
+    opt = adam_with_schedule(
+        model.parameters(),
+        staircase_lr(cfg.learning_rate, cfg.batch_size, cfg.decay_step,
+                     cfg.decay_rate))
+    return model, TrainState(model=model, optimizer=opt)
+
+
+def _scheduled_bn_step(model: nn.Module, old_stats: dict, state: TrainState,
+                       batch_size: int, decay_step: float) -> None:
+    """Overwrites model's running statistics with the scheduled average of
+    `old_stats` and the ones its forward just wrote."""
+    decay = bn_decay_schedule(state.step, batch_size,
+                              decay_step_samples=decay_step)
+    new = scheduled_bn_update(old_stats, bn_running_stats(model), decay)
+    with torch.no_grad():
+        for name, value in new.items():
+            model.get_buffer(name).copy_(value)
+
+
+def make_classifier_train_step(model: PointNetClassifier,
+                               cfg: ClassifierConfig) -> Callable:
+    """step(state, points [B, N, 3], labels [B], generator,
+    dropout_generator) -> (loss, acc), 0-d tensors on the points' device;
+    updates state in place. `generator` draws the augmentation,
+    `dropout_generator` the dropout masks."""
+
+    def step(state: TrainState, points: torch.Tensor, labels: torch.Tensor,
+             generator: torch.Generator | None = None,
+             dropout_generator: torch.Generator | None = None):
+        if cfg.augment:
+            points = augment.augment_for_classification(generator, points)
+        old_stats = bn_running_stats(model) if cfg.bn_schedule else None
+        logits, end_points = model(points, training=True,
+                                   generator=dropout_generator)
+        loss = pointnet_loss(logits, labels, end_points)
+        state.optimizer.zero_grad()
+        loss.backward()
+        if cfg.bn_schedule:
+            _scheduled_bn_step(model, old_stats, state, cfg.batch_size,
+                               cfg.decay_step)
+        state.optimizer.step()
+        state.step += 1
+        acc = (logits.argmax(-1) == labels).float().mean()
+        return loss.detach(), acc
+
+    return step
+
+
+def make_classifier_eval_step(model: PointNetClassifier) -> Callable:
+    """step(state, points, labels) -> (mean loss, [B] bool correct)."""
+
+    def step(state: TrainState, points: torch.Tensor,
+             labels: torch.Tensor):
+        with torch.inference_mode():
+            logits, _ = model(points)
+            return (classification_loss(logits, labels),
+                    logits.argmax(-1) == labels)
+
+    return step
+
+
+def evaluate_classifier(eval_step, state, test_data, batch_size: int, *,
+                        device) -> float:
+    """Accuracy over every test cloud: the tail batch is padded, then
+    sliced, so the result does not depend on batch_size."""
+    data, labels = test_data
+    correct = []
+    for bx, by, real in iterate_batches_padded(data, labels, batch_size):
+        _, ok = eval_step(state, *_to_device(bx, by, device))
+        correct.append(ok[:real].cpu().numpy())
+    return float(np.mean(np.concatenate(correct)))
+
+
+def train_classifier_loop(model, state, cfg: ClassifierConfig, train_data,
+                          test_data, *, epochs: int, logger, device,
+                          seed: int = 0, steps_per_epoch: int | None = None,
+                          epoch_callback=None):
+    """Epochs of shuffled train batches (RandomState(0), as in JAX), each
+    followed by the test accuracy. Augmentation draws from a generator
+    seeded `seed`, dropout from one seeded `seed + 1`."""
+    train_step = make_classifier_train_step(model, cfg)
+    eval_step = make_classifier_eval_step(model)
+    data, labels = train_data
+    np_rng = np.random.RandomState(0)
+    generator = torch.Generator(device=device).manual_seed(seed)
+    dropout_generator = torch.Generator(device=device).manual_seed(seed + 1)
+    for epoch in range(epochs):
+        losses, accs = [], []
+        for bi, (bx, by) in enumerate(iterate_batches(
+                data, labels, cfg.batch_size, rng=np_rng)):
+            if steps_per_epoch is not None and bi >= steps_per_epoch:
+                break
+            loss, acc = train_step(state, *_to_device(bx, by, device),
+                                   generator, dropout_generator)
+            losses.append(loss)
+            accs.append(acc)
+        loss = float(torch.stack(losses).mean())
+        train_acc = float(torch.stack(accs).mean())
+        test_acc = evaluate_classifier(eval_step, state, test_data,
+                                       cfg.batch_size, device=device)
+        logger.log(f"epoch {epoch}: loss={loss:.4f} "
+                   f"train_acc={train_acc:.4f} test_acc={test_acc:.4f}")
+        logger.metrics(state.step, loss=loss, train_acc=train_acc,
+                       test_acc=test_acc)
+        if epoch_callback is not None:
+            epoch_callback(epoch, state, test_acc)
+    return state
 
 
 def create_samplenet_state(scfg: SampleNetConfig, *, device="cuda",
@@ -126,13 +278,8 @@ def make_samplenet_train_step(sampler: SampleNet, classifier: nn.Module,
         state.optimizer.zero_grad()
         loss.backward()
         if scfg.bn_schedule:
-            decay = bn_decay_schedule(state.step, scfg.batch_size,
-                                      decay_step_samples=scfg.decay_step)
-            new = scheduled_bn_update(old_stats, bn_running_stats(sampler),
-                                      decay)
-            with torch.no_grad():
-                for name, value in new.items():
-                    sampler.get_buffer(name).copy_(value)
+            _scheduled_bn_step(sampler, old_stats, state, scfg.batch_size,
+                               scfg.decay_step)
         state.optimizer.step()
         state.step += 1
         acc = (logits.argmax(-1) == labels).float().mean()

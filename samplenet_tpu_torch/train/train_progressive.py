@@ -2,12 +2,12 @@
 (classification), on the port.
 
     python -m samplenet_tpu_torch.train.train_progressive --device cuda \\
-        --classifier-weights classifier.pth --max-num-out-points 256
+        --classifier-ckpt log/classifier/ckpt --max-num-out-points 256
 
-`--classifier-weights` is a `PointNetClassifier` state_dict of the port
-(torch.save), as for train_samplenet; the JAX CLI's `--classifier-ckpt`
-(orbax, possibly the T-net classifier) becomes it, and the T-net variant
-is not ported yet. The evaluation logs `eval_acc@s` for every prefix size
+The frozen classifier comes from exactly one of `--classifier-ckpt` (the
+port's classifier checkpoint, vanilla or T-net, as the JAX CLI's flag)
+and `--classifier-weights` (a bare state_dict), as for
+train_samplenet. The evaluation logs `eval_acc@s` for every prefix size
 s and writes the published checkpoint `--log-dir`/ckpt (sampler.pth +
 config.json), at the end and every `--eval-every` epochs.
 
@@ -37,6 +37,7 @@ from samplenet_tpu_torch.train.progressive import (
     make_progressive_train_step,
 )
 from samplenet_tpu_torch.train.train_samplenet import (
+    add_classifier_args,
     load_classifier,
     load_data,
 )
@@ -61,8 +62,7 @@ def parse_args(argv=None):
     p.add_argument("--lmbda", type=float, default=1.0)
     p.add_argument("--gamma", type=float, default=0.5)
     p.add_argument("--delta", type=float, default=1.0 / 30.0)
-    p.add_argument("--classifier-weights", required=True,
-                   help="a PointNetClassifier state_dict of the port")
+    add_classifier_args(p)
     p.add_argument("--train-size", type=int, default=2000)
     p.add_argument("--test-size", type=int, default=400)
     p.add_argument("--eval-every", type=int, default=0,
@@ -93,7 +93,7 @@ def main(argv=None):
         torch.backends.cudnn.allow_tf32 = False
     logger = Logger(args.log_dir, "progressive")
     train, test, _ = load_data(args)
-    classifier = load_classifier(args.classifier_weights, device)
+    classifier = load_classifier(args, device)
 
     cfg = ProgressiveConfig(
         max_num_out_points=args.max_num_out_points,

@@ -2,10 +2,15 @@
 (classification/train_samplenet.py pipeline), on the port.
 
     python -m samplenet_tpu_torch.train.train_samplenet --device cuda \\
-        --classifier-weights classifier.pth --num-out-points 32
+        --classifier-ckpt log/classifier/ckpt --num-out-points 32
 
-`--classifier-weights` is a `PointNetClassifier` state_dict of the port
-(torch.save); a JAX classifier checkpoint converts to one with
+The frozen classifier comes from exactly one of two flags.
+`--classifier-ckpt` is the port's published classifier checkpoint
+(`train_classifier`'s ckpt: classifier.pth + config.json), vanilla or
+T-net, as the JAX CLI's flag of that name takes its orbax checkpoint.
+`--classifier-weights` is a bare `PointNetClassifier` state_dict of the
+port (torch.save), its variant read off its keys; a JAX classifier's
+variables convert to one with
 `samplenet_tpu_torch.interop.pointnet_state_dict_from_jax`. Each epoch
 writes `--log-dir`/snap_last (and snap_best when the eval accuracy
 improves); `--resume` continues from snap_last. At the end the best
@@ -17,7 +22,7 @@ conv layers: ghost BN (the ghost-BN kernel, bf16 operands unless
 is also the chain without the flag; so `--no-fused-train` is left out.
 Flags of the JAX CLI left out: --bf16 and --conv-layout select TPU code
 paths (the port runs f32); --data-parallel waits for the multi-device
-slice; --classifier-ckpt (orbax) becomes --classifier-weights.
+slice.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import os
 import torch
 
 from samplenet_tpu_torch.data import CLASS_NAMES, load_split, make_dataset
+from samplenet_tpu_torch.interop.jax_import import infer_pointnet_config
 from samplenet_tpu_torch.models.pointnet_cls import PointNetClassifier
 from samplenet_tpu_torch.train import checkpoints
 from samplenet_tpu_torch.train.classification import (
@@ -71,8 +77,7 @@ def parse_args(argv=None):
     p.add_argument("--fused-f32", action="store_true",
                    help="f32 matmul operands in the ghost chain (default "
                         "bf16); this also changes its block of clouds")
-    p.add_argument("--classifier-weights", required=True,
-                   help="a PointNetClassifier state_dict of the port")
+    add_classifier_args(p)
     p.add_argument("--train-size", type=int, default=2000)
     p.add_argument("--test-size", type=int, default=400)
     p.add_argument("--log-dir", default="log/samplenet")
@@ -98,9 +103,23 @@ def load_data(args):
     return train, test, num_classes
 
 
-def load_classifier(path: str, device) -> PointNetClassifier:
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    classifier = PointNetClassifier(num_classes=sd["fc3.weight"].shape[0])
+def add_classifier_args(p: argparse.ArgumentParser) -> None:
+    """--classifier-ckpt and --classifier-weights; exactly one is given."""
+    g = p.add_mutually_exclusive_group(required=True)
+    g.add_argument("--classifier-ckpt",
+                   help="a classifier checkpoint of the port "
+                        "(train_classifier's ckpt), vanilla or T-net")
+    g.add_argument("--classifier-weights",
+                   help="a PointNetClassifier state_dict of the port")
+
+
+def load_classifier(args, device) -> PointNetClassifier:
+    """The frozen classifier of --classifier-ckpt or --classifier-weights."""
+    if args.classifier_ckpt is not None:
+        return checkpoints.load_classifier(args.classifier_ckpt, device)
+    sd = torch.load(args.classifier_weights, map_location="cpu",
+                    weights_only=True)
+    classifier = PointNetClassifier(**infer_pointnet_config(sd))
     classifier.load_state_dict(sd)
     return classifier.to(device)
 
@@ -115,7 +134,7 @@ def main(argv=None):
         torch.backends.cudnn.allow_tf32 = False
     logger = Logger(args.log_dir, "samplenet")
     train, test, num_classes = load_data(args)
-    classifier = load_classifier(args.classifier_weights, device)
+    classifier = load_classifier(args, device)
 
     scfg = SampleNetConfig(
         num_out_points=args.num_out_points,

@@ -42,6 +42,13 @@ rounding can land one bf16 ulp apart); in bf16 also, norm-wise against
 the plain bf16 version, the outputs within 1e-3 and the backward kernel
 within 1e-3 of the plain VJP on the kernel forward's own state;
 dense-bias gradients exactly 0; the backward bit for bit from run to run.
+The T-net classifier's forward on the card within rtol 1e-4 (atol 1e-5
+of scale) of the CPU's; the matched evaluation on the kernel path against
+the plain path: unique NN counts equal, nn matching's points bit for bit,
+emd matching's points each path's own argmax's, at most 0.5% of the
+argmaxes different between the paths (the f32 auction's chaos), and on
+the clouds with equal points the correctness equal and the NLL at rtol
+1e-4.
 """
 
 import contextlib
@@ -1308,3 +1315,89 @@ def test_prefix_nre_takes_strided_prefixes(dev):
         for key in ("loss_sampled", "loss_full", "nre"):
             assert np.isfinite(got[s][key])
             np.testing.assert_allclose(got[s][key], want[s][key], rtol=1e-4)
+
+
+def test_tnet_classifier_forward_matches_the_cpu(dev):
+    """The T-net PointNetClassifier at its published widths, seeded on the
+    CPU (T-net transforms moved off zero) and moved to the card: logits
+    within rtol 1e-4 (atol 1e-5 of scale) of the CPU forward."""
+    from samplenet_tpu_torch.models import PointNetClassifier
+
+    cpu = PointNetClassifier(40, use_tnets=True,
+                             generator=torch.Generator().manual_seed(3))
+    gen = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for tnet in (cpu.tnet_input, cpu.tnet_feature):
+            tnet.transform.weight.copy_(
+                0.002 * torch.randn(tnet.transform.weight.shape,
+                                    generator=gen))
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (16, 1024, 3)).astype(np.float32))
+    with torch.inference_mode():
+        want, we = cpu(x)
+        got, ge = cpu.to(dev)(x.to(dev))
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5 * scale)
+    torch.testing.assert_close(ge["transform"].cpu(), we["transform"],
+                               rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("matching", ["nn", "emd"])
+def test_matched_eval_kernel_path_matches_plain_path(dev, matching):
+    """evaluate_samplenet_matched on the kernel path (point_mlp_max,
+    nn_direction, fps) against the plain path on the card: unique NN
+    counts equal, and on every cloud whose matched points are equal the
+    correctness and the NLL (rtol 1e-4); nn matching equal on every
+    cloud; emd matching's points those of each path's own transport
+    argmax, and at most 0.5% of the argmaxes different between the paths
+    (the f32 auction is chaotic: its steep levels multiply the simplified
+    clouds' 3e-7 difference by up to 65536; chip_smoke.py's
+    EMD_FLIP_SHARE)."""
+    from samplenet_tpu_torch.models import PointNetClassifier, SampleNet
+    from samplenet_tpu_torch.ops.dispatch import (
+        launch_counts,
+        plain_on_cuda,
+        reset_launch_counts,
+    )
+    from samplenet_tpu_torch.ops.fps import gather_point
+    from samplenet_tpu_torch.ops.matching import approx_match
+    from samplenet_tpu_torch.train.evaluate import evaluate_samplenet_matched
+
+    rng = np.random.default_rng(8)
+    data = rng.standard_normal((96, 1024, 3)).astype(np.float32)
+    labels = rng.integers(0, 10, 96)
+    sampler = SampleNet(32, 128, generator=torch.Generator().manual_seed(9)
+                        ).to(dev)
+    cls = PointNetClassifier(10, generator=torch.Generator().manual_seed(10)
+                             ).to(dev)
+    # one batch: approx_match's reductions on the card sum in an order
+    # that depends on the batch, so the argmax is recomputed on the same
+    reset_launch_counts()
+    got = evaluate_samplenet_matched(sampler, cls, data, labels, 96,
+                                     matching=matching, device=dev)
+    counts = launch_counts()
+    for name in ("point_mlp_max", "nn_direction", "fps"):
+        assert counts.get(name, 0) >= 1, counts
+    with plain_on_cuda():
+        want = evaluate_samplenet_matched(sampler, cls, data, labels, 96,
+                                          matching=matching, device=dev)
+    assert np.array_equal(got["unique_nn"], want["unique_nn"])
+    same = (got["sampled"] == want["sampled"]).all(axis=(1, 2))
+    if matching == "nn":
+        assert same.all()
+    else:
+        x = torch.from_numpy(data).to(dev)
+        with torch.inference_mode():
+            simp_k = sampler.simplify(x)
+            with plain_on_cuda():
+                simp_p = sampler.simplify(x)
+            mk, mp = approx_match(x, simp_k), approx_match(x, simp_p)
+
+        ik, ip = mk.argmax(1), mp.argmax(1)
+        assert int((ik != ip).sum()) <= 5e-3 * ik.numel()
+        for r, i in ((got, ik), (want, ip)):
+            assert np.array_equal(r["sampled"],
+                                  gather_point(x, i).cpu().numpy())
+    assert np.array_equal(got["correct"][same], want["correct"][same])
+    np.testing.assert_allclose(got["nll"][same], want["nll"][same],
+                               rtol=1e-4)

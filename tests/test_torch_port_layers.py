@@ -116,13 +116,18 @@ def test_mlp_head_matches_jax(activate_final):
 
 
 def test_train_mode_is_not_ported_yet(point_mlp):
-    """The sampler's train mode is ported (test_torch_port_train_*.py);
-    the classifier's, with its dropout, comes with its trainer."""
+    """The classifier's train mode is ported with its trainer
+    (test_torch_port_classifier.py); its dropout draws the mask from the
+    generator the trainer passes, and without one it raises."""
     from samplenet_tpu_torch.models import PointNetClassifier
 
     _, _, _, x = point_mlp
-    with pytest.raises(NotImplementedError, match="trainer"):
+    with pytest.raises(ValueError, match="trainer"):
         PointNetClassifier(10)(torch.from_numpy(x), training=True)
+    logits, _ = PointNetClassifier(10)(
+        torch.from_numpy(x), training=True,
+        generator=torch.Generator().manual_seed(0))
+    assert logits.shape == (x.shape[0], 10)
 
 
 def test_init_follows_flax_and_generator():
