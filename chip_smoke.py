@@ -5,7 +5,7 @@
 
 Run it from the root of a checkout on a machine with one NVIDIA H100 (the
 kernels are built for sm_90a). It imports torch, numpy and the port, never
-jax. It drives the port's four paths: the serving path (the SampleNet
+jax. It drives the port's five paths: the serving path (the SampleNet
 eval forward with on-device hard matching, 1024 -> 32 points, bottleneck
 128, B=1024), the classification-track train step (SampleNet, k=7,
 sigma = t^2, against a frozen vanilla PointNet with 40 classes, B=1024),
@@ -14,7 +14,10 @@ clouds, B=50; the AE 3->64->128->128->256->128 + FC 256->256->6144 on the
 EMD loss; the reconstruction sampler, m=64, k=16, against it), and the
 progressive track at the reference's configurations (one ordered sampler
 for every prefix size: 1024 points, B=32, sizes 8..1024 against the
-frozen PointNet; 2048 points, B=50, sizes 16..2048 against the AE), and:
+frozen PointNet; 2048 points, B=50, sizes 16..2048 against the AE), and
+the registration track at the reference's configuration (B=32 pairs of
+1024-point clouds; PCRNet, no BN, bottleneck 1024; the sampler m=64,
+bottleneck 128, k=8, both clouds sampled, against it frozen), and:
 
   1. prints the card (nvidia-smi name and power limit), nvcc and triton;
   2. builds the CUDA kernels from csrc/, prints the build time and what
@@ -30,7 +33,7 @@ frozen PointNet; 2048 points, B=50, sizes 16..2048 against the AE), and:
      on clouds with NaN and +-inf coordinates at the serving path's shape
      (FPS with random counts, count 1 and count k): idx equal, FPS's xyz
      and the snapped points bit for bit, distances equal with NaN at the
-     same places; then nn_direction and nn_snap at every shape the four
+     same places; then nn_direction and nn_snap at every shape the five
      paths give them (NN_SHAPES), each under its launch plan and one other
      plan, bit for bit against the plain version;
   4. checks the eval forward of the kernel path against the plain path,
@@ -123,7 +126,30 @@ frozen PointNet; 2048 points, B=50, sizes 16..2048 against the AE), and:
      evaluate_cli in the process on the classifier phase's checkpoints
      (classifier, samplenet nn and emd, baseline fps and random; infer
      and from-files where h5py imports, said on a line of its own);
- 18. times each kernel, the eval forward and the train steps against the
+ 18. (compare-registration) holds the soft projection at the registration
+     sampler's shape (B=32, N=1024, M=64, k=8: the first path at k=8)
+     under its launch plans and one other pair of plans against its plain
+     version (idx bit-equal, out within 1e-5, gradients within rtol 1e-4
+     / atol 1e-5, the backward bit for bit across plans and runs), and FPS
+     at 1024 -> 64 with count 1 (FPSSampler) and with random counts (the
+     matching's completion) under its plan and another, bit for bit;
+ 19. (registration) runs one PCRNet step and one sampler step against a
+     seeded frozen PCRNet at full width on the kernel path, the plain path
+     and the plain path in float64 from the same state (loss terms within
+     rtol 1e-4 of both, each gradient's norm-wise error against f64 at
+     most twice the plain f32 path's or 1e-4, the BN-cancelled ones
+     round-off), the eval step with the sampler and with FPSSampler on
+     both paths (samples bit-equal, errors within rtol 1e-4); then the
+     main path, each part with the launch counters reset before it and
+     read after: three PCRNet steps, three sampler steps, one eval step
+     with the sampler and one with FPSSampler, printing the launches a
+     step and requiring point_mlp_exact (fwd, bwd), soft_projection (fwd,
+     bwd), nn_direction, point_mlp_max and fps;
+ 20. (registration-cli) runs `python -m samplenet_tpu_torch.train.
+     train_registration --phase pcrnet` for one epoch of 3 steps with
+     --fps-eval-sizes 32, then --phase samplenet on its checkpoint; both
+     reports finite;
+ 21. times each kernel, the eval forward and the train steps against the
      plain versions, per call with CUDA events and as device time with
      torch.profiler (the EMD also on the AE step's own pair: the seeded
      AE's reconstruction of the procedural clouds against them), and
@@ -138,7 +164,12 @@ frozen PointNet; 2048 points, B=50, sizes 16..2048 against the AE), and:
      torch.cdist then amin, as a yardstick); the
      exact chain's backward at B=1024 and at the reconstruction widths
      also as device time split by pass (forward: dense per layer, pool,
-     glue; backward: BN rows, dz/dh_prev, dW, glue).
+     glue; backward: BN rows, dz/dh_prev, dW, glue); at the registration
+     shapes the soft projection (k=8), the exact-BN chain, point_mlp_max
+     and FPS (count 1 and the matching's counts) with their bounds and
+     launches per step, and the PCRNet step, the sampler step and the two
+     eval steps, kernel path against plain path in A B B A order, per
+     step, device time and busy share.
 
 Tolerances of the train kernels against their plain versions: outputs and
 batch statistics rtol = atol = 1e-4 (point_mlp_exact) and 1e-5 with idx
@@ -274,6 +305,17 @@ PROG_KERNELS = {
         "samplenet_tpu_torch/csrc/point_mlp_train.cu",
         "samplenet_tpu/ops/pallas/point_mlp_train_kernel.py:400"),
 }
+# the registration track (train/registration.py:28-53 and
+# train_registration.py:33-86 of the JAX package): B=32 pairs of 1024-point
+# clouds rotated up to 45 degrees about each axis; the sampler m=64,
+# bottleneck 128, k=8, sigma = max(t^2, 1e-2), both clouds sampled, alpha =
+# lmbda = 0.01, against PCRNet (no BN, bottleneck 1024, FC 2048->1024->
+# 1024->512->512->256->7)
+REG_B, REG_N, REG_M, REG_K = 32, 1024, 64, 8
+REG_STEPS = 3                  # per phase on the main path
+REG_PATH = ("point_mlp_exact_fwd", "point_mlp_exact_bwd",
+            "soft_projection_fwd", "soft_projection_bwd", "nn_direction",
+            "point_mlp_max", "fps")
 # the soft projection's (B, N, M, k) on each path that runs it
 FPS_TIMES = {   # (B, N, k, count = k): FPS timed beside the main shape's
     "eval shape": (B, N, M, True),
@@ -291,8 +333,11 @@ SOFT_SHAPES = {
 # eval forward's matching and the Chamfer loss's two directions (B=1024),
 # the reconstruction sampler's losses (64 over 2048 and back), the
 # progressive Chamfer losses at each prefix size s, both ways (classification
-# 8..1024 over 1024; AE 16..2048 over 2048, the AE's Chamfer 2048 over 2048)
-# and the progressive infer step's snap
+# 8..1024 over 1024; AE 16..2048 over 2048, the AE's Chamfer 2048 over 2048),
+# the progressive infer step's snap, and the registration steps (B=32):
+# PCRNet's Chamfer on full clouds, the sampler's simplification loss (64
+# over 1024 and back, each cloud) and PCRNet's Chamfer on the samples and
+# the sampling consistency (64 over 64)
 NN_SHAPES = {
     "eval and Chamfer direction 1": (B, M, N, False),
     "Chamfer direction 2": (B, N, M, False),
@@ -314,6 +359,10 @@ NN_SHAPES = {
     f"progressive AE, {RECON_N} over {RECON_N}": (RECON_B, RECON_N, RECON_N,
                                                   False),
     "nn_snap, progressive infer": (PROG_B, PROG_N, PROG_N, True),
+    f"registration PCRNet step, {REG_N} over {REG_N}": (REG_B, REG_N, REG_N,
+                                                        False),
+    **{f"registration sampler step, {a} over {c}": (REG_B, a, c, False)
+       for a, c in ((REG_M, REG_N), (REG_N, REG_M), (REG_M, REG_M))},
 }
 PROG_PATH = ("nn_snap", "point_mlp_train_fwd", "point_mlp_train_bwd",
              "point_mlp_exact_fwd", "point_mlp_exact_bwd",
@@ -1034,11 +1083,13 @@ def phase_times(torch, model, clouds, card) -> dict[str, tuple]:
         rng = np.random.default_rng(SEED + 6)
         _, pts, gv, cnt = _inputs(torch, rng, DEVICE, b, n, m)
         cnt = torch.full_like(cnt, m if full else 1)
-        ms = _time_ms(torch, lambda: fps(pts, gv, cnt, m), 20)
+        ms, p_ms = _pair_ms(torch, lambda: fps(pts, gv, cnt, m),
+                            lambda: fps_plain(pts, gv, cnt, m), 20)
         dev = _device_ms(torch, lambda: fps(pts, gv, cnt, m), 20)
         log("times", f"fps at the {label} (B={b}, N={n}, k={m}, count "
                      f"{m if full else 1}): kernel {ms!r} ms per call, "
-                     f"{dev!r} ms device ({card})")
+                     f"{dev!r} ms device; plain {p_ms!r} ms per call "
+                     f"({card})")
     xc = torch.from_numpy(clouds).to(DEVICE)
 
     def plain_forward():
@@ -1499,13 +1550,18 @@ def _nn_per_step(dev: dict[str, float]) -> str:
     """The 1-NN kernel's device ms a step of each train path, from the
     device ms a call at each of NN_SHAPES: the classification step's two
     Chamfer directions, the reconstruction sampler's two, the progressive
-    classification step's 16 (s over 1024 and back for 8 sizes) and the
+    classification step's 16 (s over 1024 and back for 8 sizes), the
     progressive AE step's 32 (the AE's Chamfer, 2048 over 2048 both ways,
-    and s over 2048 and back, for 8 sizes)."""
+    and s over 2048 and back, for 8 sizes), the registration PCRNet
+    step's 2 (1024 over 1024 both ways) and the registration sampler
+    step's 6 (each shape twice: two clouds, or both ways)."""
     paths = {"classification": [], "recon sampler": [],
-             "progressive cls": [], "progressive AE": []}
+             "progressive cls": [], "progressive AE": [],
+             "registration PCRNet": [], "registration sampler": []}
     for name, ms in dev.items():
-        if name in NN_LIBRARY_SHAPES:
+        if name.startswith(("registration PCRNet", "registration sampler")):
+            paths[name.split(" step")[0]] += [ms] * 2
+        elif name in NN_LIBRARY_SHAPES:
             paths["classification"].append(ms)
         elif name.startswith("recon sampler"):
             paths["recon sampler"].append(ms)
@@ -1524,9 +1580,10 @@ def _nn_per_step(dev: dict[str, float]) -> str:
 def phase_times_nn(torch, card, costs) -> dict[str, tuple]:
     """The 1-NN kernel at every shape of NN_SHAPES: per call (CUDA events)
     and device time, its plan, its bound and its issue floor (the plan's
-    SASS lane-instructions a pair, `costs`, over the card's issue slots);
-    at the classification step's two Chamfer directions also the plain
-    version and the two-call library route, torch.cdist without the
+    SASS lane-instructions a pair, `costs`, over the card's issue slots),
+    the plain version per call alternating with it; at the classification
+    step's two Chamfer directions also the plain version's device time
+    and the two-call library route, torch.cdist without the
     matmul form, then amin: a yardstick with other rounding, a square root
     and no index, which the port does not call. Returns the kernel's and
     the plain version's ms per call at the eval shape."""
@@ -1553,20 +1610,21 @@ def phase_times_nn(torch, card, costs) -> dict[str, tuple]:
                 f"call, {dev[name]!r} ms device; bound {bound[0]!r} ms "
                 f"({bound[1]}); issue floor {floor!r} ms ({per_pair!r} "
                 f"lane-instructions a pair)")
-        if name in NN_LIBRARY_SHAPES:
-            def plain(x=x, y=y):
-                return ck.nn_direction_plain(x, y)
 
+        def plain(x=x, y=y, snap=snap):
+            return (ck.nn_snap_plain if snap else ck.nn_direction_plain)(x, y)
+
+        k_ms, p_ms = _pair_ms(torch, kernel, plain, 20)
+        line += (f"; alternating with the plain version: kernel {k_ms!r} "
+                 f"ms per call, plain {p_ms!r} ms per call")
+        if name in NN_LIBRARY_SHAPES:
             def library(x=x, y=y):
                 return torch.cdist(x, y, compute_mode=(
                     "donot_use_mm_for_euclid_dist")).amin(2)
 
-            k_ms, p_ms = _pair_ms(torch, kernel, plain, 20)
             if name == "eval and Chamfer direction 1":
                 times["nn_direction"] = (k_ms, p_ms)
-            line += (f"; alternating with the plain version: kernel "
-                     f"{k_ms!r} ms per call, plain {p_ms!r} ms per call, "
-                     f"{_device_ms(torch, plain, 20)!r} ms device; library "
+            line += (f", {_device_ms(torch, plain, 20)!r} ms device; library "
                      f"route (two calls: cdist, amin; other rounding, no "
                      f"index) {_time_ms(torch, library, 20)!r} ms per call, "
                      f"{_device_ms(torch, library, 20)!r} ms device")
@@ -3038,6 +3096,536 @@ def phase_times_progressive(torch, x, y, recon_x, classifier, card
     return times
 
 
+# ------------------------------------------------------ registration phases
+
+def _reg_soft_check(torch, pts, qs, sigma, cot, plans) -> str:
+    """The soft projection at the registration shape under each (fwd, bwd)
+    plan against its plain version: idx bit-equal, out within atol 1e-5,
+    the gradients within rtol 1e-4 / atol 1e-5, and the backward's bits the
+    same under every plan and from run to run."""
+    from samplenet_tpu_torch.ops.cuda import soft_projection_kernel as spk
+
+    k = REG_K
+    op, ip = spk.soft_project_fwd_plain(pts, qs, sigma, k)
+    gp = spk.soft_project_bwd_plain(pts, qs, sigma, ip, cot)
+    first = None
+    for fplan, bplan in plans:
+        ok, ik = spk.launch_fwd(pts, qs, sigma, k, fplan)
+        if not torch.equal(ik, ip):
+            raise AssertionError(f"soft_projection (registration) {fplan}: "
+                                 f"idx differ in {int((ik != ip).sum())} "
+                                 f"places")
+        torch.testing.assert_close(ok, op, rtol=0, atol=1e-5)
+        for _ in range(2):
+            gk = spk.launch_bwd(pts, qs, sigma, ik, cot, bplan)
+            torch.cuda.synchronize()
+            for a, c in zip(gk, gp):
+                torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-5)
+            if first is None:
+                first = gk
+            elif not all(torch.equal(a, c) for a, c in zip(gk, first)):
+                raise AssertionError(f"soft_projection backward "
+                                     f"(registration) {bplan}: bits differ "
+                                     f"from the first plan's or run's")
+    return (f"soft_projection points{tuple(pts.shape)} queries"
+            f"{tuple(qs.shape)} k={k} under {len(plans)} plans (planned "
+            f"first: {plans[0]}): idx bit-equal, out max |k - p| "
+            f"{float((ok - op).abs().max())!r} (atol 1e-5), d points / d "
+            f"queries / d sigma^2 within rtol 1e-4 / atol 1e-5, the backward "
+            f"bit-equal across plans and runs")
+
+
+def phase_compare_registration(torch) -> None:
+    """The kernels at the shapes the registration path gives them, each
+    under its launch plan and one other, against its plain version: the
+    soft projection at (32, 1024, 64, k=8), FPS at 1024 -> 64 with count 1
+    (FPSSampler) and with the matching's counts, bit for bit. nn_direction
+    at the registration shapes is phase_compare_nn's (NN_SHAPES)."""
+    from samplenet_tpu_torch.ops.cuda import fps_kernel as fk
+    from samplenet_tpu_torch.ops.cuda import fps_plan
+    from samplenet_tpu_torch.ops.cuda import soft_projection_kernel as spk
+    from samplenet_tpu_torch.ops.cuda.soft_projection_plan import (
+        BwdPlan,
+        FwdPlan,
+    )
+
+    rng = np.random.default_rng(SEED + 30)
+    b, n, m = REG_B, REG_N, REG_M
+    pts, qs, sigma, cot = _soft_inputs(torch, rng, b, n, m)
+    sigma = sigma.reshape(1)
+    fplan = spk.fwd_plan(pts.device.index, b, n, m)
+    bplan = spk.bwd_plan(pts.device.index, b, n, m, REG_K)
+    fother, bother = FwdPlan(64, 3, 2, (b, 0)), BwdPlan(64, 32, 128)
+    if fother == fplan or bother == bplan:
+        raise AssertionError(f"the other plans are the planned ones: "
+                             f"{fplan}, {bplan}")
+    log("compare-registration", _reg_soft_check(
+        torch, pts, qs, sigma, cot, [(fplan, bplan), (fother, bother)]))
+    _, y, given, count = _inputs(torch, rng, DEVICE, b, n, m)
+    plan = fk.kernel_plan(y.device.index, b, n, m)
+    other = next(p for p in fps_plan.candidates(n) if p != plan)
+    for label, cnt in (("count 1 (FPSSampler)", torch.ones_like(count)),
+                       (f"counts {int(count.min())}..{int(count.max())} "
+                        f"(the matching's completion)", count)):
+        ip, xp = fk.fps_plain(y, given, cnt, m)
+        for p in (plan, other):
+            ik, xk = fk.launch(y, given, cnt, m, p)
+            torch.cuda.synchronize()
+            if not (torch.equal(ik, ip) and torch.equal(xk, xp)):
+                raise AssertionError(f"fps (registration) {label} {p}: "
+                                     f"kernel != plain ({int((ik != ip).sum())}"
+                                     f" idx differ)")
+        log("compare-registration", f"fps points{tuple(y.shape)} k={m} "
+                                    f"{label} under {plan} and {other}: idx "
+                                    f"and xyz bit-equal")
+
+
+def _reg_data(torch):
+    """B pairs of procedural 1024-point clouds under the dataset's fixed
+    random rotations (seed 0), on the card: (p0, p1, twist)."""
+    from samplenet_tpu_torch.data import QuaternionFixedDataset, make_dataset
+
+    data, _ = make_dataset(REG_B, REG_N, seed=SEED)
+    ds = QuaternionFixedDataset(data, seed=SEED)
+    batch = next(ds.batches(REG_B, shuffle=False))
+    return tuple(torch.from_numpy(a).to(DEVICE) for a in batch)
+
+
+def _reg_state(torch, which, *, dtype=None, pcrnet=None):
+    """A seeded PCRNet (which="pcrnet") or registration sampler and its
+    train step; the sampler trains against `pcrnet` (a copy in `dtype`
+    where one is given)."""
+    from samplenet_tpu_torch.train import registration as reg
+
+    cfg = reg.RegistrationConfig()
+    if which == "pcrnet":
+        model, state = reg.create_pcrnet_state(cfg, device=DEVICE,
+                                               seed=SEED + 31)
+        if dtype is not None:
+            model.to(dtype)       # in place: the optimiser keeps its params
+        return model, state, reg.make_pcrnet_train_step(model, cfg)
+    model, state = reg.create_sampler_state(cfg, device=DEVICE,
+                                            seed=SEED + 32)
+    if dtype is not None:
+        model.to(dtype)
+        pcrnet = copy.deepcopy(pcrnet).to(dtype)
+    return model, state, reg.make_sampler_train_step(model, pcrnet, cfg)
+
+
+def _reg_pcrnet(torch):
+    """The frozen task network of phase 2: PCRNet from SEED + 33, its
+    weights moved off flax's initialisation by one seeded phase-1 step's
+    worth of noise (so its outputs are not those of a fresh net)."""
+    from samplenet_tpu_torch.models import PCRNet
+
+    pcrnet = PCRNet(generator=torch.Generator().manual_seed(SEED + 33))
+    gen = torch.Generator().manual_seed(SEED + 34)
+    with torch.no_grad():
+        for p in pcrnet.parameters():
+            p.add_(1e-3 * torch.randn(p.shape, generator=gen))
+    return pcrnet.to(DEVICE)
+
+
+@contextlib.contextmanager
+def choices(torch, *, record: list | None = None,
+            replay: list | None = None):
+    """Within the block, a train step's discrete choices are appended to
+    `record` as the step makes them: the Chamfer losses' 1-NN indices
+    (ops/chamfer.py), the soft projection's neighbour sets (models/
+    soft_projection.py), and the frozen PCRNet's ReLU masks and max-pool
+    argmaxes (models/pcrnet.py); or, with `replay`, taken from it in
+    order instead of made, the projection recomputed on the replayed
+    neighbours and PCRNet's features on the replayed masks and argmaxes,
+    with torch ops in the inputs' dtype. A float64 step that replays an
+    f32 step's choices computes the function the f32 step computed: where
+    an f32 input to a choice lands a near-tie apart from f64's, the choice
+    moves and the gradient with it (at the registration shapes by 1e-3 to
+    2e-2 norm-wise on either f32 path; PERF.md). The sampler's own ReLU
+    masks and max-pool choices, inside the exact-BN kernel, are not
+    replayed."""
+    import samplenet_tpu_torch.models.pcrnet as pcr_mod
+    import samplenet_tpu_torch.models.soft_projection as sp_mod
+    import samplenet_tpu_torch.ops.chamfer as chamfer_mod
+    from samplenet_tpu_torch.ops.cuda.soft_projection_kernel import _weights
+    from samplenet_tpu_torch.ops.knn import group_point
+
+    nn0, sp0 = chamfer_mod.nn_direction, sp_mod.soft_project
+    mlp0 = pcr_mod.point_mlp
+    taken = iter(replay if replay is not None else ())
+
+    def nn_direction(a, b):
+        if replay is not None:
+            return None, next(taken)
+        out = nn0(a, b)
+        record.append(out[1])
+        return out
+
+    def soft_project(points, queries, sigma, k):
+        if replay is None:
+            out = sp0(points, queries, sigma, k)
+            record.append(out[1])
+            return out
+        idx = next(taken)
+        g = group_point(points, idx)
+        delta = g - queries[:, :, None, :]
+        d = (delta[..., 0] * delta[..., 0] + delta[..., 1] * delta[..., 1]) \
+            + delta[..., 2] * delta[..., 2]
+        w = _weights(d, sigma.reshape(()))
+        return (w[..., None] * g).sum(2), idx
+
+    def point_mlp(owner, n_layers, x, *, pool_max, use_bn):
+        if use_bn or not pool_max:
+            raise AssertionError("PCRNet's features: no BN, max-pooled")
+        for i in range(n_layers):
+            x = getattr(owner, f"conv{i + 1}")(x)
+            if replay is None:
+                record.append(x > 0)
+                x = torch.relu(x)
+            else:
+                x = x * next(taken).to(x.dtype)
+        if replay is None:
+            record.append(x.argmax(1))
+            return x.amax(1)
+        return x.gather(1, next(taken)[:, None, :]).squeeze(1)
+
+    chamfer_mod.nn_direction, sp_mod.soft_project = nn_direction, soft_project
+    pcr_mod.point_mlp = point_mlp
+    try:
+        yield
+    finally:
+        chamfer_mod.nn_direction, sp_mod.soft_project = nn0, sp0
+        pcr_mod.point_mlp = mlp0
+    if replay is not None and next(taken, None) is not None:
+        raise AssertionError("the replayed step made fewer choices than the "
+                             "recorded one")
+
+
+def _reg_step_check(torch, which, batch, pcrnet=None) -> str:
+    """One step of phase `which` on the kernel path and on the plain path
+    from the same seeded state, each with its discrete choices recorded
+    and replayed by a float64 plain step (`choices`): every loss term
+    within rtol 1e-4 of the plain path's and of its own f64 replay's, each
+    gradient's norm-wise error against its f64 replay at most twice the
+    plain f32 path's (or 1e-4); gradients zero in exact arithmetic
+    (CANCELLED) round-off on both paths, the conv biases' exactly 0 on the
+    kernel path. The error against an f64 step that makes its own choices
+    is printed beside, with the choices the two f32 paths make apart."""
+    f64 = torch.float64
+    runs = {}
+    for name, plain in (("kernel", False), ("plain", True), ("f64", True)):
+        made, out = [], {}
+        for dtype in ((None, f64) if name != "f64" else (f64,)):
+            model, state, step = _reg_state(torch, which, dtype=dtype,
+                                            pcrnet=pcrnet)
+            args = batch if dtype is None else [t.to(dtype) for t in batch]
+            how = (contextlib.nullcontext() if name == "f64" else
+                   choices(torch, record=made) if dtype is None else
+                   choices(torch, replay=made))
+            with _ctx(plain or dtype is not None), how:
+                metrics = step(state, *args)
+            torch.cuda.synchronize()
+            out[dtype] = (metrics, {k: p.grad.detach().clone()
+                                    for k, p in model.named_parameters()})
+            del model, state, step
+        runs[name] = (out, made)
+    (mk, gk), (mkr, gkr) = runs["kernel"][0][None], runs["kernel"][0][f64]
+    (mp, gp), (mpr, gpr) = runs["plain"][0][None], runs["plain"][0][f64]
+    _, gr = runs["f64"][0][f64]
+    apart = sum(int((a != c).sum()) for a, c in zip(runs["kernel"][1],
+                                                     runs["plain"][1]))
+    for k in mk:
+        if not bool(torch.isfinite(mk[k])):
+            raise AssertionError(f"registration {which} step: {k} is not "
+                                 f"finite")
+        torch.testing.assert_close(mk[k], mp[k], rtol=1e-4, atol=0)
+        torch.testing.assert_close(mk[k].double(), mkr[k], rtol=1e-4, atol=0)
+        torch.testing.assert_close(mp[k].double(), mpr[k], rtol=1e-4, atol=0)
+    scale = max(float(g.abs().max()) for g in gkr.values())
+    worst, own = (0.0, 0.0, ""), (0.0, 0.0)
+    for name in gk:
+        if which == "sampler" and name in CANCELLED:
+            for g in (gk[name], gp[name]):
+                if float(g.abs().max()) > 1e-4 * scale:
+                    raise AssertionError(f"registration {name}: gradient "
+                                         f"not round-off")
+            if name.startswith("conv") and bool(gk[name].any()):
+                raise AssertionError(f"registration {name}: kernel "
+                                     f"gradient is not 0")
+            continue
+        ek, ep = _norm_err(gk[name], gkr[name]), _norm_err(gp[name],
+                                                           gpr[name])
+        if not ek <= max(2 * ep, 1e-4):
+            raise AssertionError(f"registration {which} {name}: kernel "
+                                 f"error {ek!r} of its f64 replay's norm, "
+                                 f"plain f32 {ep!r}")
+        worst = max(worst, (ek, ep, name))
+        own = max(own, (_norm_err(gk[name], gr[name]),
+                        _norm_err(gp[name], gr[name])))
+    torch.cuda.empty_cache()
+    return (f"{which} step at B={REG_B}, {REG_N} points: " + ", ".join(
+        f"{k} {float(v)!r} (plain {float(mp[k])!r}, f64 replay "
+        f"{float(mkr[k])!r})" for k, v in mk.items())
+        + f"; gradients' norm-wise error against the f64 replay of the "
+          f"path's own choices: worst kernel {worst[0]!r} at {worst[2]} "
+          f"(plain f32 {worst[1]!r}); against an f64 step making its own "
+          f"choices: worst kernel {own[0]!r}, plain {own[1]!r}; choices "
+          f"apart between the kernel and the plain path: {apart} of "
+          f"{sum(t.numel() for t in runs['kernel'][1])}")
+
+
+def _reg_eval_check(torch, batch, pcrnet) -> str:
+    """The eval step with the seeded sampler (hard matching) and with
+    FPSSampler, on the kernel path and the plain path: the sampled clouds
+    bit-equal, the rotation errors and consistencies within rtol 1e-4."""
+    from samplenet_tpu_torch.models import FPSSampler
+    from samplenet_tpu_torch.train import registration as reg
+
+    cfg = reg.RegistrationConfig()
+    sampler, _, _ = _reg_state(torch, "sampler", pcrnet=pcrnet)
+    parts = []
+    for name, smp in (("samplenet", sampler),
+                      ("fps", FPSSampler(REG_M, permute=False))):
+        step = reg.make_eval_step(smp, pcrnet, cfg)
+        runs = []
+        for plain in (False, True):
+            with _ctx(plain), torch.inference_mode():
+                samples = [smp(p, training=False)[1] for p in batch[:2]]
+                runs.append((samples, step(*batch)))
+            torch.cuda.synchronize()
+        (sk, (rk, tk, ck)), (sp, (rp, tp, cp)) = runs
+        if not all(torch.equal(a, c) for a, c in zip(sk, sp)):
+            raise AssertionError(f"registration eval ({name}): the sampled "
+                                 f"clouds differ from the plain path's")
+        for a, c in ((rk, rp), (tk, tp), (ck, cp)):
+            if not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"registration eval ({name}): not "
+                                     f"finite")
+            torch.testing.assert_close(a, c, rtol=1e-4, atol=0)
+        parts.append(f"{name}: rotation errors {float(rk.mean())!r} deg "
+                     f"mean (plain {float(rp.mean())!r}), consistency "
+                     f"{float(ck.mean())!r}")
+    return ("eval steps, kernel path vs plain path (samples bit-equal, "
+            "errors within rtol 1e-4): " + "; ".join(parts))
+
+
+def phase_registration_step(torch) -> dict[str, dict[str, float]]:
+    """At full width, one phase-1 PCRNet step and one phase-2 sampler step
+    on the kernel path, the plain path and the plain path in f64, and the
+    eval steps; then the track's main path, each part with the launch
+    counters reset just before it and read just after: REG_STEPS PCRNet
+    steps, REG_STEPS sampler steps, one eval step with the sampler and one
+    with FPSSampler. Returns each part's launches a step."""
+    from samplenet_tpu_torch.models import FPSSampler
+    from samplenet_tpu_torch.ops.dispatch import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from samplenet_tpu_torch.train import registration as reg
+
+    batch = _reg_data(torch)
+    pcrnet = _reg_pcrnet(torch)
+    log("registration", _reg_step_check(torch, "pcrnet", batch))
+    log("registration", _reg_step_check(torch, "sampler", batch, pcrnet))
+    log("registration", _reg_eval_check(torch, batch, pcrnet))
+
+    cfg = reg.RegistrationConfig()
+    sampler, s_state, s_step = _reg_state(torch, "sampler", pcrnet=pcrnet)
+    _, p_state, p_step = _reg_state(torch, "pcrnet")
+    runs = {   # part -> (what it runs, how many steps)
+        "pcrnet": (lambda: [p_step(p_state, *batch)["loss"]
+                            for _ in range(REG_STEPS)], REG_STEPS),
+        "sampler": (lambda: [s_step(s_state, *batch)["loss"]
+                             for _ in range(REG_STEPS)], REG_STEPS),
+        "eval": (lambda: reg.make_eval_step(sampler, pcrnet, cfg)(*batch),
+                 1),
+        "eval (FPSSampler)": (lambda: reg.make_eval_step(
+            FPSSampler(REG_M, permute=False), pcrnet, cfg)(*batch), 1),
+    }
+    outs, per_step, total = {}, {}, {}
+    for part, (run, steps) in runs.items():
+        reset_launch_counts()
+        outs[part] = run()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        per_step[part] = {k: v / steps for k, v in counts.items()}
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    if p_state.optimizer.count != REG_STEPS \
+            or s_state.optimizer.count != REG_STEPS \
+            or not all(bool(torch.isfinite(t).all())
+                       for out in outs.values() for t in out):
+        raise AssertionError(f"registration path: {outs}")
+    missing = [k for k in REG_PATH if total.get(k, 0) < 1]
+    if missing:
+        raise AssertionError(f"the registration path launched no {missing}: "
+                             f"{per_step}")
+    losses = {k: [float(v) for v in outs[k]] for k in ("pcrnet", "sampler")}
+    log("registration", f"{REG_STEPS} PCRNet steps, {REG_STEPS} sampler "
+                        f"steps (m={REG_M}, k={REG_K}, both clouds) at "
+                        f"B={REG_B}, {REG_N} points: losses {losses}; eval "
+                        f"steps (sampler, FPSSampler) rotation errors "
+                        f"{float(outs['eval'][0].mean())!r}, "
+                        f"{float(outs['eval (FPSSampler)'][0].mean())!r} deg "
+                        f"mean; kernel launches a step: " + "; ".join(
+                            f"{part} {c}" for part, c in per_step.items()))
+    return per_step
+
+
+def phase_registration_cli(torch) -> None:
+    """train_registration on the card: --phase pcrnet for one epoch of 3
+    steps with the FPS baselines at 32 (and 64), then --phase samplenet on
+    its checkpoint; each report.json finite."""
+    base = ["samplenet_tpu_torch.train.train_registration", "--device",
+            "cuda", "--epochs", "1", "--steps-per-epoch", "3",
+            "--train-size", "96", "--test-size", "64"]
+    with tempfile.TemporaryDirectory() as tmp:
+        pcr, sn = os.path.join(tmp, "pcrnet"), os.path.join(tmp, "sn")
+        out1, s1 = _cli(base + ["--phase", "pcrnet", "--fps-eval-sizes",
+                                "32", "--log-dir", pcr],
+                        "train_registration --phase pcrnet")
+        out2, s2 = _cli(base + ["--phase", "samplenet", "--pcrnet-ckpt",
+                                os.path.join(pcr, "ckpt"), "--log-dir", sn],
+                        "train_registration --phase samplenet")
+        reports = {}
+        for name, d, keys in (("pcrnet", pcr, ("full_iter1", "fps32_iter1",
+                                               "fps64_iter1")),
+                              ("samplenet", sn, ("best",))):
+            with open(os.path.join(d, "report.json")) as f:
+                rep = json.load(f)
+            for key in keys:
+                vals = [rep[key][v] for v in ("auc", "rot_err_mean",
+                                              "rot_err_std",
+                                              "consistency_mean")]
+                if not all(np.isfinite(vals)):
+                    raise AssertionError(f"train_registration --phase {name}"
+                                         f" wrote {key}: {rep[key]}")
+                reports[f"{name} {key}"] = rep[key]
+        for rel in ("pcrnet/ckpt/pcrnet.pth", "sn/ckpt/sampler.pth"):
+            if not os.path.exists(os.path.join(tmp, rel)):
+                raise AssertionError(f"train_registration wrote no {rel}")
+    if "device=NVIDIA" not in out1 or "frozen PCRNet" not in out2:
+        raise AssertionError(f"train_registration logged:\n{out1}\n{out2}")
+    log("registration-cli", f"--phase pcrnet --fps-eval-sizes 32: exit 0 in "
+                            f"{s1:.1f} s; --phase samplenet --pcrnet-ckpt: "
+                            f"exit 0 in {s2:.1f} s; reports " + "; ".join(
+                                f"{k}: AUC {v['auc']!r}, rotation error "
+                                f"{v['rot_err_mean']!r} deg"
+                                for k, v in reports.items()))
+
+
+def phase_times_registration(torch, per_step, card) -> None:
+    """The registration kernels at their shapes (the soft projection at
+    k=8, the exact-BN chain, point_mlp_max, FPS with count 1 and with the
+    matching's counts) per call and as device time against the plain
+    version, with their bounds and launches a step; then the phase-1 step,
+    the phase-2 step and the eval step, kernel path against plain path in
+    A B B A order, per step and device time and busy share."""
+    from samplenet_tpu_torch.models import FPSSampler
+    from samplenet_tpu_torch.ops.cuda import fps, fps_plain
+    from samplenet_tpu_torch.ops.cuda import point_mlp_exact_kernel as pme
+    from samplenet_tpu_torch.ops.cuda import point_mlp_max, point_mlp_max_plain
+    from samplenet_tpu_torch.ops.cuda import soft_projection_kernel as spk
+    from samplenet_tpu_torch.ops.dispatch import plain_on_cuda
+    from samplenet_tpu_torch.train import registration as reg
+
+    rng = np.random.default_rng(SEED + 35)
+    b, n, m, k = REG_B, REG_N, REG_M, REG_K
+    pts, qs, sigma, cot = _soft_inputs(torch, rng, b, n, m)
+    sigma = sigma.reshape(1)
+    idx = spk.soft_project_fwd_cuda(pts, qs, sigma, k)[1]
+    x, (ws, _, gs, bes), g = _exact_inputs(torch, rng, b, n)
+    saved_k = pme.point_mlp_exact_fwd_cuda(x, ws, gs, bes, 1e-5)[3]
+    saved_p = pme.point_mlp_exact_fwd_plain(x, ws, gs, bes, 1e-5)[3]
+    _, y, given, count = _inputs(torch, rng, DEVICE, b, n, m)
+    ones = torch.ones_like(count)
+    wbs = _mlp_weights(torch, rng, DEVICE)
+    exact_fwd, exact_bwd = _exact_bounds(b, n, WIDTHS)
+    pairs = list(zip(WIDTHS[:-1], WIDTHS[1:]))
+    macs, params = (sum(a * c for a, c in pairs),
+                    sum(a * c + c for a, c in pairs))
+    cases = {
+        "soft_projection_fwd": (
+            lambda: spk.soft_project_fwd_cuda(pts, qs, sigma, k),
+            lambda: spk.soft_project_fwd_plain(pts, qs, sigma, k),
+            _soft_fwd_bound(b, n, m, k), "sampler"),
+        "soft_projection_bwd": (
+            lambda: spk.soft_project_bwd_cuda(pts, qs, sigma, idx, cot),
+            lambda: spk.soft_project_bwd_plain(pts, qs, sigma, idx, cot),
+            _soft_bwd_bound(b, n, m, k, _gathered(torch, idx, n)),
+            "sampler"),
+        "point_mlp_exact_fwd": (
+            lambda: pme.point_mlp_exact_fwd_cuda(x, ws, gs, bes, 1e-5),
+            lambda: pme.point_mlp_exact_fwd_plain(x, ws, gs, bes, 1e-5),
+            exact_fwd, "sampler"),
+        "point_mlp_exact_bwd": (
+            lambda: pme.point_mlp_exact_bwd_cuda(x, ws, gs, bes, saved_k, g),
+            lambda: pme.point_mlp_exact_bwd_plain(x, ws, gs, bes, saved_p,
+                                                  g),
+            exact_bwd, "sampler"),
+        "point_mlp_max": (
+            lambda: point_mlp_max(y, wbs), lambda: point_mlp_max_plain(y, wbs),
+            _bound(4 * (b * n * 3 + params + b * WIDTHS[-1]),
+                   (b * n * 3 * 2.0 * macs, TF32_FLOP_PER_S),
+                   (b * n * 3.0 * sum(WIDTHS[1:]), FP32_FLOP_PER_S)), "eval"),
+        "fps (count 1, FPSSampler)": (
+            lambda: fps(y, given, ones, m),
+            lambda: fps_plain(y, given, ones, m), _fps_bound(b, n, m),
+            "eval (FPSSampler)"),
+        "fps (the matching's counts)": (
+            lambda: fps(y, given, count, m),
+            lambda: fps_plain(y, given, count, m), _fps_bound(b, n, m),
+            "eval"),
+    }
+    for name, (kernel_fn, plain_fn, bound, part) in cases.items():
+        k_ms, p_ms = _pair_ms(torch, kernel_fn, plain_fn, 10)
+        k_dev = _device_ms(torch, kernel_fn, 10)
+        p_dev = _device_ms(torch, plain_fn, 3)
+        launches = per_step[part].get(name.split(" ")[0], 0)
+        log("times-registration",
+            f"{name} at the registration shape (B={b}, N={n}, M={m}"
+            f"{f', k={k}' if name.startswith('soft') else ''}): kernel "
+            f"{k_ms!r} ms per call, {k_dev!r} ms device; plain {p_ms!r} ms "
+            f"per call, {p_dev!r} ms device; bound {bound[0]!r} ms "
+            f"({bound[1]}); {launches!r} launches per {part} step ({card})")
+    del saved_k, saved_p
+    torch.cuda.empty_cache()
+
+    batch = _reg_data(torch)
+    pcrnet = _reg_pcrnet(torch)
+    cfg = reg.RegistrationConfig()
+    steps = {}
+    for part in ("pcrnet", "sampler"):
+        _, kstate, kstep = _reg_state(torch, part, pcrnet=pcrnet)
+        _, pstate, pstep = _reg_state(torch, part, pcrnet=pcrnet)
+        steps[part] = (lambda kstep=kstep, kstate=kstate:
+                       kstep(kstate, *batch),
+                       lambda pstep=pstep, pstate=pstate:
+                       pstep(pstate, *batch))
+    sampler, _, _ = _reg_state(torch, "sampler", pcrnet=pcrnet)
+    eval_step = reg.make_eval_step(sampler, pcrnet, cfg)
+    steps["eval"] = (lambda: eval_step(*batch), lambda: eval_step(*batch))
+    fps_step = reg.make_eval_step(FPSSampler(REG_M, permute=False), pcrnet,
+                                  cfg)
+    steps["eval (FPSSampler)"] = (lambda: fps_step(*batch),
+                                  lambda: fps_step(*batch))
+    for part, (kernel_step, plain_fn) in steps.items():
+        def plain_step(plain_fn=plain_fn):
+            with plain_on_cuda():
+                plain_fn()
+
+        k_ms, p_ms = _pair_ms(torch, kernel_step, plain_step, 5)
+        k_dev = _device_ms(torch, kernel_step, 3)
+        p_dev = _device_ms(torch, plain_step, 3)
+        log("profile", f"registration {part} step, kernel path: "
+                       f"{_profile_top(torch, kernel_step, 3)} ({card})")
+        log("times-registration",
+            f"registration {part} step, B={REG_B}, {REG_N} points: kernel "
+            f"path {k_ms!r} ms = {REG_B / k_ms * 1e3!r} pairs/s, {k_dev!r} "
+            f"ms device (busy {k_dev / k_ms!r}); plain path {p_ms!r} ms, "
+            f"{p_dev!r} ms device (busy {p_dev / p_ms!r}) ({card})")
+        torch.cuda.empty_cache()
+
+
 # -------------------------------------------------------------- the bounds
 
 def _bound(nbytes: float, *ops: tuple[float, float]) -> tuple[float, str]:
@@ -3224,6 +3812,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         _timed(phase_classifier, torch, data, labels, tmp)
         _timed(phase_evaluate, torch, model, data, labels, tmp)
+    _timed(phase_compare_registration, torch)
+    reg_per_step = _timed(phase_registration_step, torch)
+    _timed(phase_registration_cli, torch)
     times = _timed(phase_times, torch, model, clouds, card)
     train_times, soft_gathered = _timed(phase_times_train, torch, data,
                                         labels, classifier, card)
@@ -3232,6 +3823,7 @@ def main() -> int:
     times.update(_timed(phase_times_recon, torch, recon_x, card))
     times.update(_timed(phase_times_progressive, torch, px, py, recon_x,
                         classifier, card))
+    _timed(phase_times_registration, torch, reg_per_step, card)
     counts = {**counts, **{k: train_counts[k] for k in TRAIN_KERNELS},
               **{k: recon_counts[k] for k in RECON_KERNELS},
               **{k: prog_counts[k] for k in PROG_KERNELS}}

@@ -1,14 +1,15 @@
 """samplenet-tpu, PyTorch/CUDA port: the SampleNet serving path, the
 classification track (the PointNet classifier, the sampler trained
 against it, the evaluation protocols), the reconstruction track (the
-autoencoder and the sampler against it, with approximate EMD) and the
+autoencoder and the sampler against it, with approximate EMD), the
+registration track (PCRNet and the sampler against it) and the
 progressive track on PyTorch with hand-written Hopper kernels.
 
 The counterpart of samplenet_tpu/__init__.py. The JAX package stays the
 reference; this package imports torch and never jax or samplenet_tpu, and
 mirrors its layout: ops/ (ops/cuda for ops/pallas, CUDA sources in csrc/),
-nn/, models/, data/, train/, interop/, serving.py and serve.py. Importing
-builds and loads no kernel. A CPU tensor runs each kernel's plain PyTorch
+nn/, models/, geometry/, data/, train/, interop/, serving.py and serve.py.
+Importing builds and loads no kernel. A CPU tensor runs each kernel's plain PyTorch
 version, a CUDA tensor the kernel (ops/dispatch.py).
 """
 

@@ -9,7 +9,9 @@ an FC head without BN (the reconstruction track's sampler) has no bn_fc
 keys. `pointnet_state_dict_from_jax` (vanilla or T-net) and
 `autoencoder_state_dict_from_jax` map the classifier's and the
 autoencoder's trees to the port's modules, and `infer_pointnet_config`
-reads the classifier's variant off its keys.
+reads the classifier's variant off its keys. `pcrnet_state_dict_from_jax`
+maps PCRNet's tree to the keys `pcrnet_to_torch` writes, and
+`infer_pcrnet_config` reads its bottleneck off them.
 Conventions converted:
 
   * Dense kernel [in, out]      -> Conv1d weight [out, in, 1] / Linear [out, in]
@@ -179,6 +181,46 @@ def autoencoder_state_dict_from_jax(variables: dict[str, Any]
             np.asarray(p[name]["kernel"]).T)
         sd[f"{name}.bias"] = np.asarray(p[name]["bias"])
     return sd
+
+
+def pcrnet_state_dict_from_jax(variables: dict[str, Any]
+                               ) -> dict[str, np.ndarray]:
+    """The port's `PCRNet` state_dict (numpy values) of a flax `PCRNet`
+    variable tree ({"params"}), with the keys and layouts of
+    samplenet_tpu/interop/torch_import.py:285-306 (`pcrnet_to_torch`):
+
+      feat/convs/dense_i -> feat.conv{i+1}.weight [out, in, 1], .bias
+      fc_j               -> fc{j+1}.weight [out, in], .bias
+      twist              -> fc{n_fc+1}.weight [7, 256], .bias
+    """
+    p = variables["params"]
+    sd: dict[str, np.ndarray] = {}
+    convs = p["feat"]["convs"]
+    for i in range(sum(1 for k in convs if k.startswith("dense_"))):
+        k = np.asarray(convs[f"dense_{i}"]["kernel"])
+        sd[f"feat.conv{i+1}.weight"] = np.ascontiguousarray(k.T)[:, :, None]
+        sd[f"feat.conv{i+1}.bias"] = np.asarray(convs[f"dense_{i}"]["bias"])
+    n_fc = sum(1 for k in p if k.startswith("fc_"))
+    for j in range(n_fc):
+        sd[f"fc{j+1}.weight"] = np.ascontiguousarray(
+            np.asarray(p[f"fc_{j}"]["kernel"]).T)
+        sd[f"fc{j+1}.bias"] = np.asarray(p[f"fc_{j}"]["bias"])
+    sd[f"fc{n_fc+1}.weight"] = np.ascontiguousarray(
+        np.asarray(p["twist"]["kernel"]).T)
+    sd[f"fc{n_fc+1}.bias"] = np.asarray(p["twist"]["bias"])
+    return sd
+
+
+def infer_pcrnet_config(sd: dict[str, Any]) -> dict[str, Any]:
+    """Constructor kwargs of the port's `PCRNet` read off a state_dict:
+    {"bottleneck_size"}, the last feature conv's width."""
+    convs = sorted(int(m.group(1)) for k in sd
+                   if (m := re.fullmatch(r"feat\.conv(\d+)\.weight", k)))
+    if not convs or "fc1.weight" not in sd:
+        raise KeyError("no feat.conv*.weight or fc1.weight in the "
+                       "state_dict: not a PCRNet")
+    return {"bottleneck_size": int(sd[f"feat.conv{convs[-1]}.weight"]
+                                   .shape[0])}
 
 
 def infer_samplenet_config(sd: dict[str, Any], prefix: str = ""

@@ -1,5 +1,6 @@
 """SampleNet: simplification network + soft projection (training) or
-on-device hard matching (eval).
+on-device hard matching (eval); and FPSSampler, the FPS baseline with
+SampleNet's call contract.
 
 Mirrors samplenet_tpu/models/samplenet.py:36-200. The simplification
 network is a per-point MLP (3->64->64->64->128->bottleneck, BN+ReLU), a
@@ -36,6 +37,7 @@ from samplenet_tpu_torch.nn.layers import (
     mlp_head,
     point_mlp,
 )
+from samplenet_tpu_torch.ops.fps import farthest_point_sample_with_points
 from samplenet_tpu_torch.ops.matching import nn_match_from_clouds
 
 
@@ -161,3 +163,39 @@ class SampleNet(SimplificationNet):
         if self.skip_projection or not training:
             return torch.zeros((), device=self.project._temperature.device)
         return losses_lib.projection_loss(self.project.sigma())
+
+
+class FPSSampler(nn.Module):
+    """Farthest point sampling, the non-learned baseline, with SampleNet's
+    call contract (samplenet_tpu/models/samplenet.py:203-231, registration/
+    src/fps.py:8-43): with `permute` each cloud starts from a random point
+    drawn from `generator`, else from point 0; then greedy FPS (the fps
+    kernel on a CUDA tensor). Returns (sampled, sampled); both losses are
+    zero."""
+
+    def __init__(self, num_out_points: int, permute: bool = True,
+                 input_shape: str = "bnc", output_shape: str = "bnc"):
+        super().__init__()
+        self.num_out_points = num_out_points
+        self.permute = permute
+        self.input_shape = input_shape
+        self.output_shape = output_shape
+
+    def forward(self, x: torch.Tensor, training: bool = False,
+                generator: torch.Generator | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        x = _to_bnc(x, self.input_shape)
+        b, n, _ = x.shape
+        start = torch.randint(0, n, (b,), generator=generator,
+                              device=x.device) if self.permute else 0
+        _, y = farthest_point_sample_with_points(self.num_out_points, x,
+                                                 start_idx=start)
+        y = _from_bnc(y, self.output_shape)
+        return y, y
+
+    def get_simplification_loss(self, ref_pc: torch.Tensor, *args,
+                                **kwargs) -> torch.Tensor:
+        return torch.zeros((), device=ref_pc.device)
+
+    def get_projection_loss(self, *args, **kwargs) -> torch.Tensor:
+        return torch.zeros(())

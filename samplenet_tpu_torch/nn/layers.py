@@ -139,17 +139,18 @@ class BatchNorm(nn.Module):
 
 
 def add_point_mlp(owner: nn.Module, in_features: int,
-                  features: Sequence[int], *,
+                  features: Sequence[int], *, use_bn: bool = True,
                   bn_momentum: float = BN_MOMENTUM, device=None,
                   generator: torch.Generator | None = None) -> None:
-    """Adds conv1..L and bn1..L to `owner`."""
+    """Adds conv1..L and, with `use_bn`, bn1..L to `owner`."""
     gen = default_generator(generator)
     widths = (in_features, *features)
     for i in range(len(features)):
         owner.add_module(f"conv{i + 1}", PointConv(
             widths[i], widths[i + 1], device=device, generator=gen))
-        owner.add_module(f"bn{i + 1}", BatchNorm(
-            widths[i + 1], momentum=bn_momentum, device=device))
+        if use_bn:
+            owner.add_module(f"bn{i + 1}", BatchNorm(
+                widths[i + 1], momentum=bn_momentum, device=device))
 
 
 EVAL_KERNEL_MIN_POINTS = 128
@@ -201,9 +202,11 @@ def resolve_fused_mode(x: torch.Tensor, widths: Sequence[int], *,
 
 def point_mlp(owner: nn.Module, n_layers: int, x: torch.Tensor, *,
               training: bool = False, pool_max: bool = False,
+              use_bn: bool = True,
               fused_train: bool | None = None, fused_mode: str = "ghost",
               fused_bf16: bool | None = None) -> torch.Tensor:
-    """conv -> BN -> ReLU per layer over x [B, N, C]. With `pool_max` the
+    """conv -> BN -> ReLU per layer over x [B, N, C], or conv -> ReLU
+    without `use_bn` (PCRNet's features). With `pool_max` the
     result is the max over points, [B, C_out]. In training the chain is
     `point_mlp_exact_train_max` (samplenet_tpu/nn/layers.py:151-186), or
     `point_mlp_train_max` where `resolve_fused_mode` picks ghost BN, each
@@ -214,7 +217,14 @@ def point_mlp(owner: nn.Module, n_layers: int, x: torch.Tensor, *,
     autograd: below 128 points as the JAX package's XLA chain does there
     (its fused eval kernel runs only for N >= 128, :100-109), and
     wherever a gradient must cross a frozen network, such as the
-    reconstruction track's AE on the sampler's m soft-projected points."""
+    reconstruction track's AE on the sampler's m soft-projected points.
+    Without BN the chain is always tensor ops (cuBLAS matmuls on the
+    card), train or eval, as the JAX package's PointMLP takes no Pallas
+    kernel without BN (samplenet_tpu/nn/layers.py:100-102)."""
+    if not use_bn:
+        for i in range(n_layers):
+            x = torch.relu(getattr(owner, f"conv{i + 1}")(x))
+        return x.amax(dim=1) if pool_max else x
     layers = [(getattr(owner, f"conv{i + 1}"), getattr(owner, f"bn{i + 1}"))
               for i in range(n_layers)]
     if pool_max and training:

@@ -13,6 +13,10 @@ the sampler phase reads back. The classifier's checkpoint is
 classifier.pth and a config with num_classes and use_tnets (and, for the
 best snapshot, best_epoch and best_test_acc), as the JAX CLI writes it
 (train_classifier.py:106-117); `load_classifier` builds that variant.
+The registration track's PCRNet checkpoint is pcrnet.pth and a config
+with its bottleneck_size (and the run's best epoch and validation
+rotation error); `load_pcrnet` builds it, and phase 2 of
+train_registration freezes it.
 """
 
 from __future__ import annotations
@@ -23,11 +27,16 @@ from typing import Any
 
 import torch
 
-from samplenet_tpu_torch.interop.jax_import import infer_pointnet_config
+from samplenet_tpu_torch.interop.jax_import import (
+    infer_pcrnet_config,
+    infer_pointnet_config,
+)
+from samplenet_tpu_torch.models.pcrnet import PCRNet
 from samplenet_tpu_torch.models.pointnet_cls import PointNetClassifier
 from samplenet_tpu_torch.train.state import TrainState
 
 CLASSIFIER_FILE = "classifier.pth"
+PCRNET_FILE = "pcrnet.pth"
 
 
 def save_train_state(path: str, state: TrainState, *,
@@ -90,3 +99,16 @@ def load_classifier(path: str, device) -> PointNetClassifier:
     classifier = PointNetClassifier(**variant)
     classifier.load_state_dict(sd)
     return classifier.to(device)
+
+
+def load_pcrnet(path: str, device) -> PCRNet:
+    """The PCRNet of a published checkpoint (pcrnet.pth + config.json) on
+    `device`."""
+    sd, config = load_published(path, PCRNET_FILE)
+    variant = {"bottleneck_size": int(config["bottleneck_size"])}
+    if infer_pcrnet_config(sd) != variant:
+        raise ValueError(f"{path}: config.json says {variant}, the weights "
+                         f"{infer_pcrnet_config(sd)}")
+    pcrnet = PCRNet(**variant)
+    pcrnet.load_state_dict(sd)
+    return pcrnet.to(device)

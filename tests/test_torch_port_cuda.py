@@ -48,7 +48,11 @@ the plain path: unique NN counts equal, nn matching's points bit for bit,
 emd matching's points each path's own argmax's, at most 0.5% of the
 argmaxes different between the paths (the f32 auction's chaos), and on
 the clouds with equal points the correctness equal and the NLL at rtol
-1e-4.
+1e-4. The registration sampler step at full width on the kernel path
+against the plain path: launches, loss terms at rtol 1e-4, and each
+path's gradients against a float64 step replaying its own 1-NN and
+neighbour choices, the kernel's error at most twice the plain path's (or
+1e-4 norm-wise).
 """
 
 import contextlib
@@ -105,9 +109,12 @@ def test_nn_direction_ties_take_the_lowest_index(dev):
 # (B, N1, N2) of every shape the paths give the 1-NN kernel (chip_smoke.py's
 # NN_SHAPES): the eval forward and the Chamfer loss (B=1024), the
 # reconstruction sampler (B=50), the progressive steps at each prefix size
-# s, both ways (B=32 over 1024 points; B=50 over 2048), the infer step's snap
+# s, both ways (B=32 over 1024 points; B=50 over 2048), the infer step's
+# snap, and the registration steps (B=32: PCRNet's Chamfer 1024 over 1024,
+# the sampler's 64 over 1024 and back, and 64 over 64 on the samples)
 NN_PATH_SHAPES = sorted({
     (1024, 32, 1024), (1024, 1024, 32), (50, 64, 2048), (50, 2048, 64),
+    (32, 64, 64),
     *((32, s, 1024) for s in (8, 16, 32, 64, 128, 256, 512, 1024)),
     *((32, 1024, s) for s in (8, 16, 32, 64, 128, 256, 512)),
     *((50, s, 2048) for s in (16, 32, 64, 128, 256, 512, 1024, 2048)),
@@ -668,6 +675,7 @@ def _soft_fwd_check(pts, qs, sigma, k, ok, ik):
     ("cluster", 2, 2048, 40, 16),    # the candidate buffer fills
     ("cluster", 3, 1000, 70, 7),
     ("randn", 50, 2048, 2048, 16),   # the progressive AE step's shape
+    ("randn", 32, 1024, 64, 8),      # the registration sampler's, k = 8
 ])
 def test_soft_projection_forward_edge_cases(dev, kind, b, n, m, k):
     from samplenet_tpu_torch.ops.cuda import soft_projection_kernel as spk
@@ -736,6 +744,7 @@ SOFT_BWD_CASES = [
     ("knn", 2, 16, 5, 16),         # k = N
     ("knn", 50, 2048, 2048, 16),   # the progressive AE step's shape
     ("knn", 65536, 8, 2, 2),       # B above a 16-bit grid dimension
+    ("knn", 32, 1024, 64, 8),      # the registration sampler's, k = 8
 ]
 
 
@@ -754,7 +763,8 @@ def test_soft_projection_backward_edge_cases(dev, kind, b, n, m, k):
 
 
 @pytest.mark.parametrize("kind,b,n,m,k", [SOFT_BWD_CASES[i]
-                                          for i in (0, 1, 2, 4, 6, 10, 11)])
+                                          for i in (0, 1, 2, 4, 6, 10, 11,
+                                                    12)])
 def test_soft_projection_backward_under_other_plans(dev, kind, b, n, m, k):
     """The bits do not depend on the launch plan (query tile, threads and
     points a block), nor on the run."""
@@ -1082,6 +1092,82 @@ def test_recon_train_steps_launch_every_kernel(dev):
     assert bool(torch.isfinite(loss)) and all(
         bool(torch.isfinite(v)) for v in m.values())
     assert np.isfinite(rep["nre"]) and np.isfinite(fps["nre"])
+
+
+def test_registration_sampler_step_kernel_path_matches_plain_path(dev):
+    """One registration sampler step at full width (B=32 pairs of 1024
+    points, m=64, k=8, both clouds sampled) against a seeded frozen PCRNet,
+    on the kernel path and on the plain path from the same state: each
+    kernel launched as often as the step runs it, the loss terms within
+    rtol 1e-4 of the plain path; each path's discrete choices (the 1-NN
+    indices, the soft projection's neighbours, PCRNet's ReLU masks and
+    max-pool argmaxes) replayed by a float64 plain step (chip_smoke.py's
+    `choices`), and every gradient's norm-wise
+    error against its own replay at most twice the plain path's (or 1e-4
+    of its norm); the gradients zero in exact arithmetic (the dense biases
+    before BN, the last conv BN's beta) round-off. Without the replay a
+    choice that moves on a near-tie, apart on the two f32 paths, sets
+    each path's error against f64 (tools/diagnostics/
+    registration_choices.py prints which choices move, and the errors
+    with and without the replay)."""
+    import copy
+
+    from chip_smoke import choices
+    from samplenet_tpu_torch.geometry import QuaternionTransform
+    from samplenet_tpu_torch.models import PCRNet
+    from samplenet_tpu_torch.ops.dispatch import (
+        launch_counts,
+        plain_on_cuda,
+        reset_launch_counts,
+    )
+    from samplenet_tpu_torch.train import registration as reg
+
+    cfg = reg.RegistrationConfig()
+    rng = np.random.default_rng(15)
+    p0 = 0.5 * _randn(rng, 32, 1024, 3, dev=dev)
+    q = _randn(rng, 32, 4, dev=dev)
+    tw = torch.cat([q / q.norm(dim=-1, keepdim=True),
+                    torch.zeros(32, 3, device=dev)], -1)
+    p1 = QuaternionTransform(tw).rotate(p0)
+    pcrnet = PCRNet(generator=torch.Generator().manual_seed(2)).to(dev)
+
+    def run(dtype, plain, how):
+        sampler, state = reg.create_sampler_state(cfg, device=dev, seed=1)
+        sampler.to(dtype)
+        step = reg.make_sampler_train_step(
+            sampler, copy.deepcopy(pcrnet).to(dtype), cfg)
+        reset_launch_counts()
+        with plain_on_cuda() if plain else contextlib.nullcontext(), how:
+            m = step(state, *(t.to(dtype) for t in (p0, p1, tw)))
+            torch.cuda.synchronize()
+        return m, launch_counts(), {k: p.grad.clone() for k, p in
+                                    sampler.named_parameters()}
+
+    runs = []
+    for plain in (False, True):
+        made = []
+        runs.append((*run(torch.float32, plain, choices(torch, record=made)),
+                     run(torch.float64, True, choices(torch, replay=made))[2]))
+    (mk, ck, gk, gkr), (mp, cp, gp, gpr) = runs
+    assert cp == {}
+    for name in ("point_mlp_exact_fwd", "point_mlp_exact_bwd",
+                 "soft_projection_fwd", "soft_projection_bwd"):
+        assert ck.get(name) == 2, ck
+    assert ck.get("nn_direction") == 6, ck
+    for k in mk:
+        assert bool(torch.isfinite(mk[k])), k
+        torch.testing.assert_close(mk[k], mp[k], rtol=1e-4, atol=0)
+    scale = max(float(g.abs().max()) for g in gkr.values())
+    cancelled = {f"conv{i}.bias" for i in range(1, 6)} | {
+        "bn5.bias", "fc1.bias", "fc2.bias", "fc3.bias"}
+    for name in gk:
+        if name in cancelled:
+            assert float(gk[name].abs().max()) <= 1e-4 * scale, name
+            assert float(gp[name].abs().max()) <= 1e-4 * scale, name
+            continue
+        ek = _norm_err(gk[name], gkr[name])
+        ep = _norm_err(gp[name], gpr[name])
+        assert ek <= max(2 * ep, 1e-4), (name, ek, ep)
 
 
 # ------------------------------------------------ nn_snap and the ghost chain
