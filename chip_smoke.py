@@ -149,7 +149,27 @@ bottleneck 128, k=8, both clouds sampled, against it frozen), and:
      train_registration --phase pcrnet` for one epoch of 3 steps with
      --fps-eval-sizes 32, then --phase samplenet on its checkpoint; both
      reports finite;
- 21. times each kernel, the eval forward and the train steps against the
+ 21. (compare-bf16) holds the two kernels' bf16 modes (bf16 operands,
+     f32 sums) against their plain bf16 versions, norm-wise within 1e-3:
+     the exact-BN chain (forward, and backward on the kernel forward's own
+     state) at B=1024, at a ragged shape and at the reconstruction widths,
+     its backward bit for bit from run to run; point_mlp_max at B=1024,
+     B=32, ragged N and other widths (a first layer of 16 channels); each
+     with the kernel run with bf16 off as a control that must exceed the
+     limit;
+ 22. (bf16) the bf16 modes' main paths, each with the launch counters
+     around it: the eval forward with hard matching at B=1024 with
+     eval_bf16 (matching bit for bit against the plain matcher on the
+     kernel's own simplified cloud); the classification sampler step at
+     B=1024 with the exact chain in bf16 (fused_train, fused_mode "exact",
+     fused_bf16), held to the plain bf16 step (loss terms within rtol
+     1e-3, gradients within 5e-2 norm-wise, which the kernel step with
+     bf16 off must exceed), then two steps; the same with the compute
+     dtype (SampleNetConfig(bf16=True): tensor ops, no conv kernel) against
+     the plain path, then two steps;
+ 23. (bf16-cli) `train_classifier --bf16` for one epoch of 3 steps and
+     `train_samplenet --bf16` on its checkpoint for one of 2;
+ 24. times each kernel, the eval forward and the train steps against the
      plain versions, per call with CUDA events and as device time with
      torch.profiler (the EMD also on the AE step's own pair: the seeded
      AE's reconstruction of the procedural clouds against them), and
@@ -169,7 +189,9 @@ bottleneck 128, k=8, both clouds sampled, against it frozen), and:
      and FPS (count 1 and the matching's counts) with their bounds and
      launches per step, and the PCRNet step, the sampler step and the two
      eval steps, kernel path against plain path in A B B A order, per
-     step, device time and busy share.
+     step, device time and busy share; the bf16 modes against their plain
+     bf16 versions (point_mlp_max at B=1024 and B=32 beside the f32
+     kernel, the exact chain's forward and backward at B=1024).
 
 Tolerances of the train kernels against their plain versions: outputs and
 batch statistics rtol = atol = 1e-4 (point_mlp_exact) and 1e-5 with idx
@@ -390,6 +412,24 @@ EMD_FLIP_SHARE = 5e-3
 # the kernels the evaluation protocols launch (train/evaluate.py)
 EVAL_PATH = ("point_mlp_max", "nn_direction", "fps", "nn_snap",
              "soft_projection_fwd")
+# the two kernels' bf16 modes, counted under their own names: the exact-BN
+# chain with bf16 operands (fused_bf16 with the exact mode) and the eval
+# chain with bf16 operands (the TPU kernel's default; eval_bf16)
+BF16_KERNELS = {
+    "point_mlp_max_bf16": ("samplenet_tpu_torch/csrc/point_mlp_max.cu",
+                           "samplenet_tpu/ops/pallas/point_mlp_kernel.py:128"),
+    "point_mlp_exact_bf16_fwd": (
+        "samplenet_tpu_torch/csrc/point_mlp_train.cu",
+        "samplenet_tpu/ops/pallas/point_mlp_exact_kernel.py:499"),
+    "point_mlp_exact_bf16_bwd": (
+        "samplenet_tpu_torch/csrc/point_mlp_train.cu",
+        "samplenet_tpu/ops/pallas/point_mlp_exact_kernel.py:499"),
+}
+# each bf16 kernel against its plain bf16 version, norm-wise, as the ghost
+# chain (the exact chain's backward on the kernel forward's own state); the
+# kernel with bf16 off must exceed it
+BF16_TOL = 1e-3
+BF16_STEPS = 2                 # per train configuration on the main path
 # the card's published peaks (NVIDIA H100 SXM data sheet), and its
 # special-function rate: 16 exp2 / rsqrt / rcp results
 # per SM per clock on compute capability 9.0 (CUDA C++ Programming Guide,
@@ -2969,9 +3009,10 @@ def phase_evaluate(torch, model, data, labels, tmp: str) -> dict[str, int]:
 
 
 def _ghost_bounds(b: int, n: int, widths, bf16: bool) -> tuple[tuple, tuple]:
-    """Bounds of the ghost chain's forward and backward: `_exact_bounds`'s
-    bytes, the multiply-adds (2 FLOP forward; 4 backward, dW and dh) at the
-    BF16 tensor-core peak in bf16 and at FP32 in f32, and BN, ReLU and the
+    """Bounds of the ghost chain's forward and backward (and of the exact
+    chain's in bf16, the same work a point): `_exact_bounds`'s bytes, the
+    multiply-adds (2 FLOP forward; 4 backward, dW and dh) at the BF16
+    tensor-core peak in bf16 and at FP32 in f32, and BN, ReLU and the
     statistics per channel at FP32."""
     pairs = list(zip(widths[:-1], widths[1:]))
     macs = sum(a * c for a, c in pairs)
@@ -3626,6 +3667,364 @@ def phase_times_registration(torch, per_step, card) -> None:
         torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ the bf16 modes
+
+def _exact_bf16_gaps(torch, x, groups, g, bf16: bool):
+    """(outputs gap, backward gap, max |d pooled|, max |d grads|): the exact
+    chain's kernels with bf16 on or off against the plain bf16 version,
+    norm-wise: the forward's pooled features and statistics, and the
+    backward's gradients against the plain backward run on the kernel
+    forward's own state (its z, statistics and argmax), so that only sums
+    taken in other orders part the two."""
+    from samplenet_tpu_torch.ops.cuda import point_mlp_exact_kernel as pme
+
+    weights, _, gammas, betas = groups
+    fk = pme.point_mlp_exact_fwd_cuda(x, weights, gammas, betas, 1e-5, bf16)
+    fp = pme.point_mlp_exact_fwd_plain(x, weights, gammas, betas, 1e-5, True)
+    bk = pme.point_mlp_exact_bwd_cuda(x, weights, gammas, betas, fk[3], g,
+                                      bf16)
+    zs, mus, rstds, argmax = fk[3]
+    bp = pme.point_mlp_exact_bwd_plain(x, weights, gammas, betas,
+                                       (zs, mus, rstds, argmax.long()), g,
+                                       True)
+    torch.cuda.synchronize()
+    outs = list(zip([fk[0], *fk[1], *fk[2]], [fp[0], *fp[1], *fp[2]]))
+    flat = lambda gr: [gr[0], *gr[1], *gr[2], *gr[3]]  # noqa: E731
+    grads = list(zip(flat(bk), flat(bp)))
+    return (max(_norm_err(a, r) for a, r in outs),
+            max(_norm_err(a, r) for a, r in grads),
+            float((fk[0] - fp[0]).abs().max()),
+            max(float((a - r).abs().max()) for a, r in grads))
+
+
+def _max_bf16_gaps(torch, rng, b, n, widths):
+    """(kernel gap, bf16-off control gap, max |d|): point_mlp_max in bf16,
+    and the f32 kernel, against the plain bf16 version, norm-wise."""
+    from samplenet_tpu_torch.ops.cuda import point_mlp_max, point_mlp_max_plain
+
+    x = _randn(torch, rng, b, n, widths[0])
+    wbs = []
+    for cin, cout in zip(widths[:-1], widths[1:]):
+        wbs += [_randn(torch, rng, cin, cout) / cin ** 0.5,
+                0.1 * _randn(torch, rng, cout)]
+    with torch.no_grad():
+        k = point_mlp_max(x, wbs, bf16=True)
+        c = point_mlp_max(x, wbs)
+        p = point_mlp_max_plain(x, wbs, True)
+    torch.cuda.synchronize()
+    return _norm_err(k, p), _norm_err(c, p), float((k - p).abs().max())
+
+
+def phase_compare_bf16(torch) -> dict[str, float]:
+    """The two kernels' bf16 modes against their plain bf16 versions,
+    norm-wise within BF16_TOL, each with the kernel run with bf16 off as a
+    control that must exceed it (for point_mlp_max, on chains of three or
+    more layers): the exact-BN chain (forward, and backward
+    on its own forward state) at the classification step's shape (B=1024)
+    and at a ragged one, bit for bit from run to run; point_mlp_max at the
+    eval shape (B=1024), the registration eval shape (B=32) and ragged
+    ones."""
+    from samplenet_tpu_torch.ops.cuda import point_mlp_exact_kernel as pme
+
+    rng = np.random.default_rng(SEED + 40)
+    errs = {}
+    for b, n, widths in ((B, N, WIDTHS), (RAGGED_B, RAGGED_N, WIDTHS),
+                         (RECON_B, RECON_N, RECON_WIDTHS)):
+        x, groups, g = _exact_inputs(torch, rng, b, n, widths)
+        k = _exact_bf16_gaps(torch, x, groups, g, True)
+        c = _exact_bf16_gaps(torch, x, groups, g, False)
+        weights, _, gammas, betas = groups
+        fk = pme.point_mlp_exact_fwd_cuda(x, weights, gammas, betas, 1e-5,
+                                          True)
+        runs = [pme.point_mlp_exact_bwd_cuda(x, weights, gammas, betas,
+                                             fk[3], g, True)
+                for _ in range(2)]
+        flat = lambda gr: [gr[0], *gr[1], *gr[2], *gr[3]]  # noqa: E731
+        same = all(torch.equal(a, r)
+                   for a, r in zip(flat(runs[0]), flat(runs[1])))
+        log("compare-bf16", f"point_mlp_exact bf16 at B={b}, N={n}, "
+                            f"{widths}: outputs {k[0]!r}, backward on its "
+                            f"own state {k[1]!r} (limit {BF16_TOL}); bf16 "
+                            f"off {c[0]!r}, {c[1]!r}; backward bits repeat "
+                            f"{same}")
+        if not (k[0] <= BF16_TOL and k[1] <= BF16_TOL and same):
+            raise AssertionError(f"point_mlp_exact bf16 at B={b}: {k}")
+        if not (c[0] > BF16_TOL and c[1] > BF16_TOL):
+            raise AssertionError(f"the bf16-off control passes: {c}")
+        if b == B:
+            errs["point_mlp_exact_bf16_fwd"] = k[2]
+            errs["point_mlp_exact_bf16_bwd"] = k[3]
+    for b, n, widths in ((B, N, WIDTHS), (REG_B, REG_N, WIDTHS),
+                         (5, 1000, WIDTHS), (3, 77, (3, 12, 20)),
+                         (4, 300, (16, 24, 8)),
+                         (RECON_B, RECON_N, RECON_WIDTHS)):
+        k, c, d = _max_bf16_gaps(torch, rng, b, n, widths)
+        log("compare-bf16", f"point_mlp_max bf16 at B={b}, N={n}, {widths}: "
+                            f"{k!r} (limit {BF16_TOL}); bf16 off {c!r}")
+        # two layers round too few times for the control to show (1.3e-3
+        # at 16 -> 24 -> 8 in the first card run): it is held at 3 or more
+        if not (k <= BF16_TOL and (c > BF16_TOL or len(widths) <= 3)):
+            raise AssertionError(f"point_mlp_max bf16 at B={b}: {k}, {c}")
+        if b == B:
+            errs["point_mlp_max_bf16"] = d
+        torch.cuda.empty_cache()
+    return errs
+
+
+def _eval_bf16_model(torch, model):
+    """The serving model's weights in a SampleNet with eval_bf16."""
+    from samplenet_tpu_torch.models import SampleNet
+
+    net = SampleNet(num_out_points=M, bottleneck_size=128, eval_bf16=True)
+    net.load_state_dict(model.state_dict())
+    return net.to(DEVICE).eval()
+
+
+def _bf16_step(torch, classifier, **cfg):
+    """A fresh classification sampler state from SEED with
+    SampleNetConfig(**cfg) and its train step (augmentation off)."""
+    from samplenet_tpu_torch.train.classification import (
+        SampleNetConfig,
+        create_samplenet_state,
+        make_samplenet_train_step,
+    )
+
+    scfg = SampleNetConfig(batch_size=B, **cfg)
+    net, state = create_samplenet_state(scfg, device=DEVICE, seed=SEED)
+    return net, state, make_samplenet_train_step(net, classifier, scfg,
+                                                 augment_data=False)
+
+
+def phase_bf16(torch, model, clouds, data, labels, classifier
+               ) -> dict[str, int]:
+    """The main paths of the bf16 modes, each with the launch counters set
+    to 0 before it and read after: the eval forward with hard matching at
+    B=1024 with eval_bf16 (point_mlp_max in bf16), its matching bit for
+    bit against the plain matcher on the kernel path's own simplified
+    cloud; the classification sampler step at B=1024, k=7, with the exact
+    chain in bf16 (fused_train, fused_mode "exact", fused_bf16), its step
+    against the plain bf16 path (loss terms within rtol 1e-3, gradients
+    within 5e-2 norm-wise, which the kernel step with bf16 off must
+    exceed); and with the compute dtype (SampleNetConfig(bf16=True): no
+    conv kernel, cuBLAS bf16), against the plain path (loss terms within
+    rtol 1e-4)."""
+    from samplenet_tpu_torch.ops.dispatch import (
+        launch_counts,
+        plain_on_cuda,
+        reset_launch_counts,
+    )
+    from samplenet_tpu_torch.ops.matching import nn_match_from_clouds
+
+    x = torch.from_numpy(clouds).to(DEVICE)
+    net = _eval_bf16_model(torch, model)
+    reset_launch_counts()
+    with torch.inference_mode():
+        simp, matched = net(x)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    with torch.inference_mode():
+        pts_k, idx_k = nn_match_from_clouds(x, simp, M)
+        with plain_on_cuda():
+            pts_p, idx_p = nn_match_from_clouds(x, simp, M)
+            simp_p = net.simplify(x)
+        simp_f32 = model.simplify(x)
+    torch.cuda.synchronize()
+    if counts.get("point_mlp_max_bf16", 0) < 1 or counts.get(
+            "point_mlp_max", 0) or any(counts.get(k, 0) < 1
+                                       for k in ("nn_direction", "fps")):
+        raise AssertionError(f"bf16 eval path launched {counts}")
+    if not (torch.equal(idx_k, idx_p) and torch.equal(pts_k, pts_p)
+            and torch.equal(matched, pts_k)):
+        raise AssertionError("bf16 eval: matching differs from the plain "
+                             "matcher on the kernel's simplified cloud")
+    log("bf16", f"eval forward + matching, B={B}, eval_bf16: launches "
+                f"{counts}; matched idx and points bit-equal to the plain "
+                f"matcher's on the kernel path's simplified cloud; simplified "
+                f"vs the plain bf16 path max |d| "
+                f"{float((simp - simp_p).abs().max())!r}, vs the f32 kernel "
+                f"path {float((simp - simp_f32).abs().max())!r}")
+    main = {"eval": counts}
+
+    xt = torch.from_numpy(data).to(DEVICE)
+    y = torch.from_numpy(labels).to(DEVICE)
+    fused = dict(fused_train=True, fused_mode="exact", fused_bf16=True)
+    soft = ("soft_projection_fwd", "soft_projection_bwd", "nn_direction")
+    exact = ("point_mlp_exact_fwd", "point_mlp_exact_bwd")
+    exact16 = ("point_mlp_exact_bf16_fwd", "point_mlp_exact_bf16_bwd")
+    # (tag, config, kernels it must launch, kernels it must not, the
+    # bf16-off control's config or None)
+    for tag, cfg, need, absent, control in (
+            ("exact chain in bf16", fused, exact16 + soft, exact,
+             {**fused, "fused_bf16": False}),
+            ("compute dtype bf16", dict(bf16=True), soft, exact + exact16,
+             None)):
+        runs = {}
+        for path, plain, c in (("kernel", False, cfg), ("plain", True, cfg),
+                               ("bf16 off", False, control)):
+            if c is None:
+                continue
+            net_s, state, step = _bf16_step(torch, classifier, **c)
+            with _ctx(plain):
+                metrics = step(state, xt, y)
+            torch.cuda.synchronize()
+            runs[path] = (metrics, {k: p.grad.detach().clone()
+                                    for k, p in net_s.named_parameters()})
+            del net_s, state, step
+        mk, gk = runs["kernel"]
+        mp, gp = runs["plain"]
+        rtol = 1e-3 if control else 1e-4
+        for k in ("loss", "task", "simplification", "projection"):
+            if not bool(torch.isfinite(mk[k])):
+                raise AssertionError(f"{tag}: {k} is not finite")
+            torch.testing.assert_close(mk[k], mp[k], rtol=rtol, atol=0)
+        names = [n for n in gk if n not in CANCELLED]
+        gap = max(_norm_err(gk[n], gp[n]) for n in names)
+        line = (f"one step at B={B}, {tag}: loss {float(mk['loss'])!r} "
+                f"(plain {float(mp['loss'])!r}), terms within rtol {rtol}; "
+                f"gradients against the plain path, worst norm-wise {gap!r}")
+        if "bf16 off" in runs:
+            off = max(_norm_err(runs["bf16 off"][1][n], gp[n]) for n in names)
+            line += f" (limit {GHOST_BF16_STEP}; bf16 off {off!r})"
+            if not gap <= GHOST_BF16_STEP < off:
+                raise AssertionError(f"{tag}: step gradients {gap}, {off}")
+        log("bf16", line)
+        net_s, state, step = _bf16_step(torch, classifier, **cfg)
+        reset_launch_counts()
+        losses = [step(state, xt, y)["loss"] for _ in range(BF16_STEPS)]
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        losses = [float(v) for v in losses]
+        if not all(np.isfinite(losses)) \
+                or any(counts.get(k, 0) < 1 for k in need) \
+                or any(counts.get(k, 0) for k in absent):
+            raise AssertionError(f"{tag}: losses {losses}, launches {counts}")
+        log("bf16", f"{BF16_STEPS} steps, {tag}: losses {losses}; kernel "
+                    f"launches {counts}")
+        main[tag] = counts
+        del net_s, state, step
+        torch.cuda.empty_cache()
+    return {"point_mlp_max_bf16": main["eval"]["point_mlp_max_bf16"],
+            **{k: main["exact chain in bf16"][k]
+               for k in ("point_mlp_exact_bf16_fwd",
+                         "point_mlp_exact_bf16_bwd")}}
+
+
+def phase_bf16_cli(torch) -> None:
+    """train_classifier --bf16 on procedural data for one epoch of 3 steps,
+    then train_samplenet --bf16 against its checkpoint for one epoch of 2:
+    both exit 0, log an accuracy and publish f32 weights."""
+    base = ["--device", "cuda", "--dataset", "procedural", "--epochs", "1",
+            "--train-size", "128", "--test-size", "64", "--seed", str(SEED),
+            "--bf16"]
+    with tempfile.TemporaryDirectory() as tmp:
+        cls_dir, sn_dir = os.path.join(tmp, "cls"), os.path.join(tmp, "sn")
+        out1, s1 = _cli(["samplenet_tpu_torch.train.train_classifier", *base,
+                         "--steps-per-epoch", "3", "--log-dir", cls_dir],
+                        "train_classifier --bf16")
+        out2, s2 = _cli(["samplenet_tpu_torch.train.train_samplenet", *base,
+                         "--steps-per-epoch", "2", "--classifier-ckpt",
+                         os.path.join(cls_dir, "ckpt"), "--log-dir", sn_dir],
+                        "train_samplenet --bf16")
+        for d, f in ((cls_dir, "classifier.pth"), (sn_dir, "sampler.pth")):
+            sd = torch.load(os.path.join(d, "ckpt", f), weights_only=True)
+            if {t.dtype for k, t in sd.items()
+                    if not k.endswith("num_batches_tracked")} \
+                    != {torch.float32}:
+                raise AssertionError(f"{d}: weights not f32")
+    if "test_acc=" not in out1 or "eval_acc@32=" not in out2:
+        raise AssertionError(f"the bf16 CLIs logged:\n{out1}\n{out2}")
+    log("bf16-cli", f"train_classifier --bf16: exit 0 in {s1:.1f} s; "
+                    f"train_samplenet --bf16 --classifier-ckpt: exit 0 in "
+                    f"{s2:.1f} s; both published f32 weights")
+
+
+def phase_times_bf16(torch, model, clouds, data, labels, classifier,
+                     card) -> dict[str, tuple]:
+    """The bf16 modes against their plain bf16 versions: CUDA-event time per
+    call (plain, kernel, kernel, plain) and profiler device time, at the
+    classification step's shape (the exact chain's forward, and its
+    backward on a saved forward state) and at the eval shapes B=1024 and
+    B=32 (point_mlp_max); beside the f32 kernels in the same call; the
+    eval forward with hard matching at B=1024 with eval_bf16 against the
+    f32 kernel path (f32, bf16, bf16, f32); and the classification
+    sampler step with the exact chain in bf16 and with the compute dtype,
+    per step and device time."""
+    from samplenet_tpu_torch.ops.cuda import point_mlp_exact_kernel as pme
+    from samplenet_tpu_torch.ops.cuda import point_mlp_max, point_mlp_max_plain
+
+    x = torch.from_numpy(clouds).to(DEVICE)
+    net = _eval_bf16_model(torch, model)
+    with torch.inference_mode():
+        ms16, ms32 = _pair_ms(torch, lambda: net(x), lambda: model(x), 10)
+        dev16 = _device_ms(torch, lambda: net(x), 5)
+        dev32 = _device_ms(torch, lambda: model(x), 5)
+    log("times-bf16", f"eval forward + matching at B={B} with eval_bf16: "
+                      f"{ms16!r} ms per call, device {dev16!r} (busy "
+                      f"{dev16 / ms16!r}); the f32 kernel path {ms32!r}, "
+                      f"device {dev32!r} ({card})")
+    del net
+    xt = torch.from_numpy(data).to(DEVICE)
+    y = torch.from_numpy(labels).to(DEVICE)
+    for tag, cfg in (("exact chain in bf16", dict(
+            fused_train=True, fused_mode="exact", fused_bf16=True)),
+                     ("compute dtype bf16", dict(bf16=True)),
+                     ("f32 (the default)", {})):
+        _, state, step = _bf16_step(torch, classifier, **cfg)
+        ms = _time_ms(torch, lambda: step(state, xt, y), 3, warmup=1)
+        dev = _device_ms(torch, lambda: step(state, xt, y), 2)
+        log("times-bf16", f"cls sampler step at B={B}, {tag}: {ms!r} ms, "
+                          f"device {dev!r} (busy {dev / ms!r}) ({card})")
+        del state, step
+        torch.cuda.empty_cache()
+    times = {}
+    rng = np.random.default_rng(SEED + 41)
+    for b in (B, REG_B):
+        x = _randn(torch, rng, b, N, 3)
+        wbs = []
+        for cin, cout in zip(WIDTHS[:-1], WIDTHS[1:]):
+            wbs += [_randn(torch, rng, cin, cout) / cin ** 0.5,
+                    0.1 * _randn(torch, rng, cout)]
+        with torch.no_grad():
+            fns = {"kernel": lambda: point_mlp_max(x, wbs, bf16=True),
+                   "plain": lambda: point_mlp_max_plain(x, wbs, True),
+                   "f32 kernel": lambda: point_mlp_max(x, wbs)}
+            ms, plain_ms = _pair_ms(torch, fns["kernel"], fns["plain"], 20)
+            dev = {k: _device_ms(torch, f, 10) for k, f in fns.items()}
+            f32_ms = _time_ms(torch, fns["f32 kernel"], 20)
+        log("times-bf16", f"point_mlp_max bf16 at B={b}: {ms!r} ms per call, "
+                          f"device {dev['kernel']!r} (plain bf16 "
+                          f"{plain_ms!r}, device {dev['plain']!r}; the f32 "
+                          f"kernel {f32_ms!r}, device {dev['f32 kernel']!r}) "
+                          f"({card})")
+        if b == B:
+            times["point_mlp_max_bf16"] = (ms, plain_ms)
+    x, groups, g = _exact_inputs(torch, rng, B, N)
+    weights, _, gammas, betas = groups
+    saved = pme.point_mlp_exact_fwd_cuda(x, weights, gammas, betas, 1e-5,
+                                         True)[3]
+    zs, mus, rstds, argmax = saved
+    saved_p = (zs, mus, rstds, argmax.long())
+    for name, kfn, pfn in (
+            ("point_mlp_exact_bf16_fwd",
+             lambda: pme.point_mlp_exact_fwd_cuda(x, weights, gammas, betas,
+                                                  1e-5, True),
+             lambda: pme.point_mlp_exact_fwd_plain(x, weights, gammas, betas,
+                                                   1e-5, True)),
+            ("point_mlp_exact_bf16_bwd",
+             lambda: pme.point_mlp_exact_bwd_cuda(x, weights, gammas, betas,
+                                                  saved, g, True),
+             lambda: pme.point_mlp_exact_bwd_plain(x, weights, gammas, betas,
+                                                   saved_p, g, True))):
+        ms, plain_ms = _pair_ms(torch, kfn, pfn, 5)
+        dk, dp = _device_ms(torch, kfn, 3), _device_ms(torch, pfn, 3)
+        log("times-bf16", f"{name} at B={B}: {ms!r} ms per call, device "
+                          f"{dk!r} (plain bf16 {plain_ms!r}, device {dp!r}) "
+                          f"({card})")
+        times[name] = (ms, plain_ms)
+    torch.cuda.empty_cache()
+    return times
+
+
 # -------------------------------------------------------------- the bounds
 
 def _bound(nbytes: float, *ops: tuple[float, float]) -> tuple[float, str]:
@@ -3731,10 +4130,12 @@ def kernel_bounds(soft_gathered: int | None = None
     algorithm needs on these inputs (FP32 on the SIMT pipes; the EMD's
     exp and rsqrt on the special-function units; on the tensor cores
     point_mlp_max's multiply-adds, as three TF32 products each (held to
-    f32), and the ghost chain's, bf16 by default)."""
+    f32), and the ghost chain's, bf16 by default; the bf16 modes' products
+    at the BF16 peak)."""
     f = 4                                          # bytes of f32 and i32
     exact_fwd, exact_bwd = _exact_bounds(B, N, WIDTHS)
     ghost_fwd, ghost_bwd = _ghost_bounds(PROG_B, PROG_N, WIDTHS, True)
+    exact_bf16_fwd, exact_bf16_bwd = _ghost_bounds(B, N, WIDTHS, True)
     pairs = list(zip(WIDTHS[:-1], WIDTHS[1:]))
     macs = sum(a * c for a, c in pairs)
     params = sum(a * c + c for a, c in pairs)
@@ -3753,6 +4154,12 @@ def kernel_bounds(soft_gathered: int | None = None
         "nn_snap": _nn_bound(PROG_B, PROG_N, PROG_N, snap=True),
         "point_mlp_train_fwd": ghost_fwd,
         "point_mlp_train_bwd": ghost_bwd,
+        "point_mlp_max_bf16": _bound(
+            f * (B * N * 3 + params + B * WIDTHS[-1]),
+            (B * N * 2.0 * macs, BF16_FLOP_PER_S),
+            (B * N * 3.0 * sum(WIDTHS[1:]), FP32_FLOP_PER_S)),
+        "point_mlp_exact_bf16_fwd": exact_bf16_fwd,
+        "point_mlp_exact_bf16_bwd": exact_bf16_bwd,
     }
 
 
@@ -3815,6 +4222,10 @@ def main() -> int:
     _timed(phase_compare_registration, torch)
     reg_per_step = _timed(phase_registration_step, torch)
     _timed(phase_registration_cli, torch)
+    errs.update(_timed(phase_compare_bf16, torch))
+    bf16_counts = _timed(phase_bf16, torch, model, clouds, data, labels,
+                         classifier)
+    _timed(phase_bf16_cli, torch)
     times = _timed(phase_times, torch, model, clouds, card)
     train_times, soft_gathered = _timed(phase_times_train, torch, data,
                                         labels, classifier, card)
@@ -3824,9 +4235,11 @@ def main() -> int:
     times.update(_timed(phase_times_progressive, torch, px, py, recon_x,
                         classifier, card))
     _timed(phase_times_registration, torch, reg_per_step, card)
+    times.update(_timed(phase_times_bf16, torch, model, clouds, data,
+                        labels, classifier, card))
     counts = {**counts, **{k: train_counts[k] for k in TRAIN_KERNELS},
               **{k: recon_counts[k] for k in RECON_KERNELS},
-              **{k: prog_counts[k] for k in PROG_KERNELS}}
+              **{k: prog_counts[k] for k in PROG_KERNELS}, **bf16_counts}
     errs.update(train_errs)
     errs.update(prog_errs)
     bounds = kernel_bounds(soft_gathered)
@@ -3840,7 +4253,8 @@ def main() -> int:
          "bound_by": bounds[name][1].split(" ")[0],
          "library_ms": None}
         for name, (src, rep) in {**KERNELS, **TRAIN_KERNELS,
-                                 **RECON_KERNELS, **PROG_KERNELS}.items()]}
+                                 **RECON_KERNELS, **PROG_KERNELS,
+                                 **BF16_KERNELS}.items()]}
     log("done", f"all phases passed in {time.monotonic() - t0:.1f} s")
     print(json.dumps(summary))
     print(card)

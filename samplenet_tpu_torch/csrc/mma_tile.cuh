@@ -1,10 +1,11 @@
 // The per-point MLP's dense layer over one 64-point tile of activations in
 // shared memory, times a weight matrix W [cin, cout] read through the
 // read-only cache: on the H100's tensor cores (tile_product: the eval
-// chain's layers of 8 or more input channels, point_mlp_max.cu) or on the
-// FP32 pipes (simt_product: every layer of the train chains' forward,
-// pmt_dense in point_mlp_train.cu, and the eval chain's first layer of
-// fewer than 8 channels).
+// chain's layers of 8 or more input channels, point_mlp_max.cu, with f32
+// operands; tile_product_bf16 with bf16 operands) or on the FP32 pipes
+// (simt_product: every layer of the train chains' forward, pmt_dense in
+// point_mlp_train.cu, and the eval chain's first layer of fewer than 8
+// channels, or 16 in bf16).
 //
 // tile_product: the block's 8 warps split an output chunk of 64 points x
 // 32*kNT channels 2 x 4: warp w owns points 32*(w & 1) .. +31 (two 16-row
@@ -34,14 +35,24 @@
 // plain bf16 step's gradients, whose sums of exact bf16 products are f32
 // FMAs in channel order too.
 //
-// The activation tile is a [rows][64] array of f32 words, one row per
-// input channel, each row's 64 points XOR-swizzled by 8 * (row & 3): the
-// A fragments' loads (rows k + t, points g for lane 4g + t) then hit 32
-// distinct banks, and groups of 4 consecutive points stay contiguous and
-// 16-byte aligned for simt_product's float4 reads. Rows past cin up to the
-// K step hold zeros.
+// tile_product_bf16: the same warp layout on mma.sync m16n8k16 bf16. A row
+// of the tile holds two channels: word (pair row k, point p) carries
+// bf16(h[2k][p]) in its low half and bf16(h[2k+1][p]) in its high half, and
+// W comes packed the same way, [ceil(cin/2)][cout] words (row 2k of
+// bf16(W) low). The products of bf16 operands are exact; each K step of 16
+// channels is summed from zero on the tensor cores and added into the f32
+// accumulator with one round-to-nearest add, as in tile_product.
+//
+// The activation tile is a [rows][64] array of 32-bit words, one row per
+// input channel (per pair of channels in bf16), each row's 64 points
+// XOR-swizzled by 8 * (row & 3): the A fragments' loads (rows k + t,
+// points g for lane 4g + t) then hit 32 distinct banks, and groups of 4
+// consecutive points stay contiguous and 16-byte aligned for
+// simt_product's float4 reads. Rows past cin up to the K step hold zeros.
 
 #pragma once
+
+#include <cuda_bf16.h>
 
 #include <cstdint>
 
@@ -178,6 +189,89 @@ __device__ __forceinline__ void simt_product(float (&a)[4][4],
       for (int oj = 0; oj < 4; ++oj) a[pi][oj] = __fmaf_rn(hr[pi], wr[oj], a[pi][oj]);
     }
   }
+}
+
+// bf16 operands: channels a K step, and the f32 value of bf16 rounding
+constexpr int kBf16K = 16;
+
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// bf16(lo) in the low half, bf16(hi) in the high half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(hi))) << 16);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// acc[mi][ni] += A W over the kp pair rows of a bf16 tile, for this thread's
+// fragments of the chunk at n0; wp [kp][cout] packed pairs in device memory,
+// entries past kp or cout read as 0. As tile_product: each K step's
+// operands are loaded one step ahead, and each step is summed from zero.
+template <int kNT>
+__device__ __forceinline__ void tile_product_bf16(float (&acc)[2][kNT][4],
+                                                  const uint32_t* __restrict__ as,
+                                                  const uint32_t* __restrict__ wp,
+                                                  int kp, int cout, int n0) {
+  const Frag f(n0, kNT);
+  const int col0 = f.n - 2 * f.t + f.g;  // this lane's B column, ni = 0
+  uint32_t an[2][4], bn[kNT][2];
+  auto load = [&](int k0) {  // pair rows k0 + t and k0 + t + 4
+    const int ka = k0 + f.t, kb = ka + 4;
+#pragma unroll
+    for (int ni = 0; ni < kNT; ++ni) {
+      const int c = col0 + 8 * ni;
+      const bool in = c < cout;
+      bn[ni][0] = in && ka < kp ? __ldg(wp + static_cast<size_t>(ka) * cout + c) : 0u;
+      bn[ni][1] = in && kb < kp ? __ldg(wp + static_cast<size_t>(kb) * cout + c) : 0u;
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const int p = f.m0 + 16 * mi + f.g;
+      an[mi][0] = as[aidx(ka, p)];
+      an[mi][1] = as[aidx(ka, p + 8)];
+      an[mi][2] = as[aidx(kb, p)];
+      an[mi][3] = as[aidx(kb, p + 8)];
+    }
+  };
+  load(0);
+  for (int k0 = 0; k0 < kp; k0 += kBf16K / 2) {
+    uint32_t a[2][4], b[kNT][2];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) a[mi][j] = an[mi][j];
+    }
+#pragma unroll
+    for (int ni = 0; ni < kNT; ++ni) {
+      b[ni][0] = bn[ni][0];
+      b[ni][1] = bn[ni][1];
+    }
+    if (k0 + kBf16K / 2 < kp) load(k0 + kBf16K / 2);
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {  // the step's sum, then one f32 add
+#pragma unroll
+      for (int ni = 0; ni < kNT; ++ni) {
+        float step[4] = {};
+        mma_bf16(step, a[mi], b[ni]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][ni][e] += step[e];
+      }
+    }
+  }
+}
+
+// Rows of a bf16 tile of c channels: pairs of channels, to the K step of 16
+__host__ __device__ __forceinline__ int pair_rows(int c) {
+  return (c + kBf16K - 1) / kBf16K * (kBf16K / 2);
 }
 
 // Rows of the activation tile for cin input channels: cin rounded up to

@@ -1,6 +1,7 @@
 // Train-mode per-point MLP chain with BatchNorm over blocks of clouds +
 // global max, forward and backward: the ghost-BN chain and, as its case of
-// one block with bf16 off, the exact batch-global BN chain.
+// one block, the exact batch-global BN chain, each in f32 or with bf16
+// matmul operands.
 //
 // Replaces: samplenet_tpu/ops/pallas/point_mlp_train_kernel.py::
 //   point_mlp_train_max (entry :400; `pl.pallas_call` :219 forward, :261
@@ -19,6 +20,14 @@
 // pooled = max over each cloud of h_L. op() rounds a matmul operand to bf16
 // (__float2bfloat16_rn, products exact, sums in f32) when bf16 is on, as
 // jnp.dot(a.astype(bf16), b.astype(bf16), preferred_element_type=f32).
+//
+// The backward's roundings are a mode (`Rounds`): 0 none; 1 the ghost chain
+// in bf16 (below); 2 the exact chain in bf16 (point_mlp_exact_kernel.py
+// :157-204, :283): the matmul operands rounded, xhat kept in f32, and dh
+// read back rounded to bf16 as the TPU kernel spills it, while the rows
+// pass sums the unrounded dh (the TPU kernel takes each layer's rows from
+// dh_prev before its spill). Here dh_prev stays f32 in HBM and pmt_bwd_dz
+// rounds it where it reads it, which gives the same numbers.
 //
 // The ghost backward is the TPU kernel's own VJP (:120-196), not the
 // gradient of the forward: it stores xhat in the working type (bf16 when
@@ -64,8 +73,10 @@
 //               layer dh is the pooled cotangent at each cloud's argmax.
 //   pmt_bwd_dz  dz = rstd' * (gamma*dy - r1 - xhat_stored*r2) per point
 //               with its ghost block's constants (loaded into shared memory
-//               when the block changes: once in the exact chain), rounded to
-//               bf16 when on, written to HBM, and dh_prev = dz op(W)^T. A
+//               when the block changes: once in the exact chain; dy from
+//               dh read back in bf16 in mode 2), rounded to bf16 when the
+//               mode rounds operands, written to HBM, and dh_prev = dz
+//               op(W)^T. A
 //               block walks the 64-point tiles and holds op(W)^T (K chunks
 //               reloaded per tile where it would leave room for one block
 //               an SM) and the tile's dz.
@@ -148,6 +159,16 @@ struct Ghost {  // the block layout: m points per block in `tiles` tiles
 __device__ __forceinline__ float rnd(float v, int bf16) {
   return bf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
 }
+
+// What a backward mode rounds to bf16: the matmul operands (dz, op(W),
+// act(h_prev)), the xhat the ghost chain stores, and the dh the exact chain
+// spills (read by pmt_bwd_dz; the rows pass reads it unrounded)
+template <int kMode>
+struct Rounds {
+  static constexpr bool op = kMode != 0;
+  static constexpr bool xhat = kMode == 1;
+  static constexpr bool dh = kMode == 2;
+};
 
 // ReLU that keeps a NaN, as torch.relu does
 __device__ __forceinline__ float relu_nan(float v) {
@@ -530,11 +551,12 @@ __device__ __forceinline__ void stage_dz_tile(float* stage, const DzArgs& a,
 // dz of one tile into dzs [cout][kStride] and HBM, four points of one channel
 // a thread (reads along the rows, one float4 store into dzs, coalesced
 // stores of dz); z and dh rows from the stage (kStaged) or from HBM
-template <bool kStaged, bool kBf16>
+template <bool kStaged, int kMode>
 __device__ __forceinline__ void form_dz(const DzArgs& a, const float* zr,
                                         const float* dhr, const float* cs,
                                         const int* pcl, float* dzs,
                                         long long p0, int np) {
+  using R = Rounds<kMode>;
   const int cout = a.cout;
   for (int e = threadIdx.x; e < (kTileP / 4) * cout; e += kDzThreads) {
     const int o = e % cout, q = (e / cout) * 4;
@@ -555,7 +577,7 @@ __device__ __forceinline__ void form_dz(const DzArgs& a, const float* zr,
           zv[j] = kStaged ? zr[k] : __ldg(zr + k);
         } else {
           zv[j] = kStaged ? zr[k] : __ldg(zr + k);
-          dhv[j] = kStaged ? dhr[k] : __ldg(dhr + k);
+          dhv[j] = rnd(kStaged ? dhr[k] : __ldg(dhr + k), R::dh);
         }
       }
     }
@@ -564,10 +586,10 @@ __device__ __forceinline__ void form_dz(const DzArgs& a, const float* zr,
       const int p = q + j;
       v[j] = 0.0f;
       if (p < np) {
-        const float xh = rnd(__fmul_rn(__fsub_rn(zv[j], mu), rstd), kBf16);
+        const float xh = rnd(__fmul_rn(__fsub_rn(zv[j], mu), rstd), R::xhat);
         const float y = __fmaf_rn(gamma, xh, beta);
         const float dy = y > 0.0f ? dhv[j] : 0.0f;
-        v[j] = rnd(rstd2 * (gamma * dy - r1 - xh * r2), kBf16);
+        v[j] = rnd(rstd2 * (gamma * dy - r1 - xh * r2), R::op);
         a.dz[(p0 + p) * cout + o] = v[j];
       }
     }
@@ -601,7 +623,7 @@ __host__ __device__ constexpr int dz_min_blocks() {
   return kRP == 1 ? 4 : kRP <= 4 ? 3 : 2;
 }
 
-template <int kRP, bool kBf16>
+template <int kRP, int kMode>
 __global__ void __launch_bounds__(kDzThreads, dz_min_blocks<kRP>())
 pmt_bwd_dz_kernel(DzArgs a) {
   extern __shared__ float4 smem4[];
@@ -652,11 +674,11 @@ pmt_bwd_dz_kernel(DzArgs a) {
     }
     __syncthreads();
     if (a.stage) {
-      form_dz<true, kBf16>(a, stage, top ? nullptr : stage + kTileP * cout, cs, pcl,
-                    dzs, p0, np);
+      form_dz<true, kMode>(a, stage, top ? nullptr : stage + kTileP * cout, cs, pcl,
+                           dzs, p0, np);
     } else {
-      form_dz<false, kBf16>(a, a.z + p0 * cout,
-                     top ? nullptr : a.dh + p0 * cout, cs, pcl, dzs, p0, np);
+      form_dz<false, kMode>(a, a.z + p0 * cout,
+                            top ? nullptr : a.dh + p0 * cout, cs, pcl, dzs, p0, np);
     }
     __syncthreads();  // dzs complete; the stage is free for the next tile
     if (a.stage && k + gridDim.x < total) stage_dz_tile(stage, a, k + gridDim.x);
@@ -772,9 +794,10 @@ __device__ __forceinline__ void stage_dw_tile(float* A, float* D,
 // dW[i, o] = sum_p op(act(in))[p, i] dz[p, o] over the block's run of
 // 64-point tiles: each tile summed in f32 registers, kRI x 8 outputs a
 // thread, then added once into f64 registers.
-template <int kRI, bool kBf16>
+template <int kRI, int kMode>
 __global__ void __launch_bounds__(kDwThreads, kRI == 4 ? 3 : 2)
 pmt_bwd_dw_kernel(DwArgs a) {
+  using R = Rounds<kMode>;
   constexpr int kTO = dw_to<kRI>(), kOG = kTO / 8;
   constexpr int kStage = kTileP * (kDwTile + kTO);
   extern __shared__ float4 smem4[];
@@ -832,10 +855,10 @@ pmt_bwd_dw_kernel(DwArgs a) {
         if (i0 + tc < a.cin) {
           v = A[p * kDwTile + tc];
           if (a.has_prev) {
-            const float xh = rnd(__fmul_rn(__fsub_rn(v, mu), rstd), kBf16);
+            const float xh = rnd(__fmul_rn(__fsub_rn(v, mu), rstd), R::xhat);
             v = relu_nan(__fmaf_rn(gamma, xh, beta));
           }
-          v = rnd(v, kBf16);
+          v = rnd(v, R::op);
         }
         A[p * kDwTile + tc] = v;
       }
@@ -894,16 +917,32 @@ pmt_bwd_dw_kernel(DwArgs a) {
 }
 
 // pmt_bwd_dz for kRP points a thread, or null for another kRP
-template <bool kBf16>
+template <int kMode>
 const void* dz_kernel(int rp) {
   switch (rp) {
-    case 1: return reinterpret_cast<const void*>(pmt_bwd_dz_kernel<1, kBf16>);
-    case 2: return reinterpret_cast<const void*>(pmt_bwd_dz_kernel<2, kBf16>);
-    case 4: return reinterpret_cast<const void*>(pmt_bwd_dz_kernel<4, kBf16>);
-    case 8: return reinterpret_cast<const void*>(pmt_bwd_dz_kernel<8, kBf16>);
-    case 16: return reinterpret_cast<const void*>(pmt_bwd_dz_kernel<16, kBf16>);
+    case 1: return reinterpret_cast<const void*>(pmt_bwd_dz_kernel<1, kMode>);
+    case 2: return reinterpret_cast<const void*>(pmt_bwd_dz_kernel<2, kMode>);
+    case 4: return reinterpret_cast<const void*>(pmt_bwd_dz_kernel<4, kMode>);
+    case 8: return reinterpret_cast<const void*>(pmt_bwd_dz_kernel<8, kMode>);
+    case 16: return reinterpret_cast<const void*>(pmt_bwd_dz_kernel<16, kMode>);
     default: return nullptr;
   }
+}
+
+// pmt_bwd_dw for kRI input channels a thread, or null for another kRI
+template <int kMode>
+const void* dw_kernel(int ri) {
+  switch (ri) {
+    case 4: return reinterpret_cast<const void*>(pmt_bwd_dw_kernel<4, kMode>);
+    case 8: return reinterpret_cast<const void*>(pmt_bwd_dw_kernel<8, kMode>);
+    default: return nullptr;
+  }
+}
+
+// k0(arg), k1(arg) or k2(arg) for backward mode 0, 1 or 2 (Rounds), or null
+const void* of_mode(int mode, int arg, const void* (*k0)(int),
+                    const void* (*k1)(int), const void* (*k2)(int)) {
+  return mode == 0 ? k0(arg) : mode == 1 ? k1(arg) : mode == 2 ? k2(arg) : nullptr;
 }
 
 cudaError_t set_smem(const void* kernel, size_t smem) {
@@ -1001,10 +1040,12 @@ extern "C" int snt_pmt_rows(const float* z, const float* const* bn, int c_out,
 }
 
 // dz and dh_prev of one layer (dh null: the top layer, dh from the pooled
-// cotangent g at argmax) over 64-point tiles, `grid` blocks.
+// cotangent g at argmax) over 64-point tiles, `grid` blocks, with the
+// roundings of backward mode `mode` (Rounds: 0 f32, 1 ghost bf16, 2 exact
+// bf16).
 extern "C" int snt_pmt_bwd_dz(const float* z, const float* const* bn,
                               const float* rstd2, const float* r1,
-                              const float* r2, int cout, int bf16,
+                              const float* r2, int cout, int mode,
                               const float* dh, const float* g,
                               const int* argmax, const float* wt, int cin_pad,
                               float* dz, float* dh_prev, int n_blocks, int bb,
@@ -1017,7 +1058,7 @@ extern "C" int snt_pmt_bwd_dz(const float* z, const float* const* bn,
   const DzArgs a{z, make_gbn(bn), rstd2, r1, r2, dh, g, argmax, n, cout, wt,
                  cin_pad, kc, stage, dz, dh_prev, make_ghost(bb, n), n_blocks};
   const size_t smem = snt_pmt_bwd_dz_smem(cin_pad, cout, kc, stage);
-  const void* kernel = bf16 ? dz_kernel<true>(rp) : dz_kernel<false>(rp);
+  const void* kernel = of_mode(mode, rp, dz_kernel<0>, dz_kernel<1>, dz_kernel<2>);
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1029,22 +1070,20 @@ extern "C" int snt_pmt_bwd_dz(const float* z, const float* const* bn,
 
 // f64 partials dw_part [splits, cin_pad, cout] of dW = op(act(in))^T dz:
 // grid (output tiles of 64 x 16*ri) x splits runs of consecutive 64-point
-// tiles, ri x 8 outputs a thread.
+// tiles, ri x 8 outputs a thread, with the roundings of backward mode
+// `mode` (Rounds).
 extern "C" int snt_pmt_bwd_dw(const float* in, int cin, int cin_pad,
-                              const float* const* prev_bn, int bf16,
+                              const float* const* prev_bn, int mode,
                               const float* dz, int cout, double* dw_part,
                               int n_blocks, int bb, int n, int splits, int ri,
                               cudaStream_t stream) {
   if (cout % 4 || cin_pad % 4 || cin < 1 || cin > cin_pad || splits < 1 ||
-      n_blocks < 1 || (ri != 4 && ri != 8)) {
+      n_blocks < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t smem = snt_pmt_bwd_dw_smem(ri);
-  const void* kernel =
-      ri == 4 ? (bf16 ? reinterpret_cast<const void*>(pmt_bwd_dw_kernel<4, true>)
-                      : reinterpret_cast<const void*>(pmt_bwd_dw_kernel<4, false>))
-              : (bf16 ? reinterpret_cast<const void*>(pmt_bwd_dw_kernel<8, true>)
-                      : reinterpret_cast<const void*>(pmt_bwd_dw_kernel<8, false>));
+  const void* kernel = of_mode(mode, ri, dw_kernel<0>, dw_kernel<1>, dw_kernel<2>);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const DwArgs a{in, cin, cin_pad, make_gbn(prev_bn), prev_bn != nullptr, dz,

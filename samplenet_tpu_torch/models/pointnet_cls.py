@@ -23,7 +23,13 @@ The port copies that.
 
 Plain torch, on cuBLAS f32: the JAX package runs these chains without
 pool_max, so they never reach a Pallas kernel (samplenet_tpu/nn/
-layers.py:100-109, 189-196).
+layers.py:100-109, 189-196). `dtype` is its compute dtype (bf16 with
+`--bf16`, samplenet_tpu/models/pointnet_cls.py:31-43, 67-108): every
+conv chain, the T-nets' FC layers and the head's fc1, fc2 and their BNs
+run in it with flax's casts (nn/layers.py); the T-nets' transform layers
+and fc3 promote their input to f32, and so do the transforms' products
+with the bf16 features (jnp.einsum promotes), so the transforms and the
+logits are f32.
 
 State_dict keys (`pointnet_state_dict_from_jax` writes them): the vanilla
 network's conv1..5 and bn1..5; the T-net variant's tnet_input and
@@ -47,6 +53,7 @@ from samplenet_tpu_torch.nn.layers import (
     add_mlp_head,
     add_point_mlp,
     default_generator,
+    dense,
     point_mlp,
 )
 from samplenet_tpu_torch.ops.cuda.point_mlp_kernel import full_f32_matmul
@@ -79,9 +86,10 @@ def dropout(x: torch.Tensor, rate: float,
 
 
 def _apply_transform(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    """einsum("bnc,bcd->bnd", x, t) in plain f32."""
+    """einsum("bnc,bcd->bnd", x, t) in plain f32 (x promoted to t's type,
+    as jnp.einsum promotes bf16 features)."""
     with full_f32_matmul():
-        return torch.bmm(x, t)
+        return torch.bmm(x.to(t.dtype), t)
 
 
 class TransformNet(nn.Module):
@@ -89,13 +97,15 @@ class TransformNet(nn.Module):
     initialisation (transform_nets.py:12-80: zero kernel, identity bias).
     Its BNs run at flax's default momentum 0.9."""
 
-    def __init__(self, k: int, in_features: int, *, device=None,
+    def __init__(self, k: int, in_features: int, *,
+                 dtype: torch.dtype | None = None, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
         gen = default_generator(generator)
         self.k = k
-        self.convs = PointMLP(in_features, TNET_CONV_WIDTHS, device=device,
-                              generator=gen)
+        self.dtype = dtype
+        self.convs = PointMLP(in_features, TNET_CONV_WIDTHS, dtype=dtype,
+                              device=device, generator=gen)
         widths = (TNET_CONV_WIDTHS[-1], *TNET_FC_WIDTHS)
         for i in range(len(TNET_FC_WIDTHS)):
             self.add_module(f"fc_{i}", Linear(widths[i], widths[i + 1],
@@ -113,9 +123,10 @@ class TransformNet(nn.Module):
                 ) -> torch.Tensor:
         g = self.convs(x, training).amax(dim=1)
         for i in range(len(TNET_FC_WIDTHS)):
-            g = getattr(self, f"fc_{i}")(g)
-            g = torch.relu(getattr(self, f"bn_{i}")(g, training))
-        return self.transform(g).reshape(-1, self.k, self.k)
+            g = dense(getattr(self, f"fc_{i}"), g, self.dtype)
+            g = torch.relu(getattr(self, f"bn_{i}")(g, training, self.dtype))
+        t = self.transform(g.to(self.transform.weight.dtype))
+        return t.reshape(-1, self.k, self.k)
 
 
 class PointNetClassifier(nn.Module):
@@ -128,23 +139,26 @@ class PointNetClassifier(nn.Module):
 
     def __init__(self, num_classes: int = 40, *, use_tnets: bool = False,
                  dropout_rate: float = 0.3, bn_momentum: float = BN_MOMENTUM,
-                 device=None, generator: torch.Generator | None = None):
+                 dtype: torch.dtype | None = None, device=None,
+                 generator: torch.Generator | None = None):
         super().__init__()
         gen = default_generator(generator)
         self.num_classes = num_classes
         self.use_tnets = use_tnets
         self.dropout_rate = dropout_rate
+        self.dtype = dtype
         if use_tnets:
-            self.tnet_input = TransformNet(3, 3, device=device, generator=gen)
+            self.tnet_input = TransformNet(3, 3, dtype=dtype, device=device,
+                                           generator=gen)
             self.convs_a = PointMLP(3, CONVS_A_WIDTHS,
-                                    bn_momentum=bn_momentum, device=device,
-                                    generator=gen)
+                                    bn_momentum=bn_momentum, dtype=dtype,
+                                    device=device, generator=gen)
             self.tnet_feature = TransformNet(CONVS_A_WIDTHS[-1],
-                                             CONVS_A_WIDTHS[-1],
+                                             CONVS_A_WIDTHS[-1], dtype=dtype,
                                              device=device, generator=gen)
             self.convs_b = PointMLP(CONVS_A_WIDTHS[-1], CONVS_B_WIDTHS,
-                                    bn_momentum=bn_momentum, device=device,
-                                    generator=gen)
+                                    bn_momentum=bn_momentum, dtype=dtype,
+                                    device=device, generator=gen)
         else:
             add_point_mlp(self, 3, CONV_WIDTHS, bn_momentum=bn_momentum,
                           device=device, generator=gen)
@@ -162,17 +176,20 @@ class PointNetClassifier(nn.Module):
             end_points["transform"] = t_feat
             x = self.convs_b(_apply_transform(x, t_feat), training)
         else:
-            x = point_mlp(self, len(CONV_WIDTHS), x, training=training)
+            x = point_mlp(self, len(CONV_WIDTHS), x, training=training,
+                          dtype=self.dtype)
         end_points["critical_set_idx"] = torch.argmax(x, dim=1)
         g = x.amax(dim=1)                                  # [B, 1024]
         end_points["GFV"] = g
         rate = self.dropout_rate if training else 0.0
-        g = torch.relu(self.bn_fc1(self.fc1(g), training))
+        dt = self.dtype
+        g = torch.relu(self.bn_fc1(dense(self.fc1, g, dt), training, dt))
         if self.use_tnets:
             g = dropout(g, rate, generator)
-        g = torch.relu(self.bn_fc2(self.fc2(g), training))
+        g = torch.relu(self.bn_fc2(dense(self.fc2, g, dt), training, dt))
         end_points["retrieval_vectors"] = g
-        logits = self.fc3(dropout(g, rate, generator))
+        g = dropout(g, rate, generator)
+        logits = self.fc3(g.to(self.fc3.weight.dtype))     # f32 logits
         return logits, end_points
 
 

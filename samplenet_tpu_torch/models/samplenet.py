@@ -19,6 +19,14 @@ the forward returns (simplified, projected): batch-statistics BN (the
 conv chain as the exact-BN kernel, or with `fused_train` the ghost-BN
 kernel, nn/layers.py::resolve_fused_mode) and the soft projection of the
 simplified points onto the input (samplenet.py:147-200).
+
+`dtype` is the JAX package's compute dtype (bf16 with `--bf16`): the conv
+chain and the FC head run in it as tensor ops with flax's casts and no
+kernel (nn/layers.py), and the output layer promotes its input back to
+f32, so the simplified cloud, the soft projection, the Chamfer losses and
+the matching stay f32 (samplenet_tpu/models/samplenet.py:83-86).
+`eval_bf16` runs the eval kernel with bf16 operands, the TPU kernel's
+default, which the JAX package does not expose as a flag.
 """
 
 from __future__ import annotations
@@ -57,13 +65,16 @@ class SimplificationNet(nn.Module):
                  fc_widths: tuple = (256, 256, 256), fc_bn: bool = True, *,
                  bn_momentum: float = BN_MOMENTUM,
                  fused_train: bool | None = None, fused_mode: str = "ghost",
-                 fused_bf16: bool | None = None, device=None,
-                 generator: torch.Generator | None = None):
+                 fused_bf16: bool | None = None,
+                 dtype: torch.dtype | None = None, eval_bf16: bool = False,
+                 device=None, generator: torch.Generator | None = None):
         super().__init__()
         gen = default_generator(generator)
         self.num_out_points = num_out_points
+        self.dtype = dtype
         self.fused = dict(fused_train=fused_train, fused_mode=fused_mode,
-                          fused_bf16=fused_bf16)
+                          fused_bf16=fused_bf16, dtype=dtype,
+                          eval_bf16=eval_bf16)
         self._n_conv = len(conv_widths) + 1
         self._n_fc = len(fc_widths)
         add_point_mlp(self, 3, (*conv_widths, bottleneck_size),
@@ -79,8 +90,9 @@ class SimplificationNet(nn.Module):
         g = point_mlp(self, self._n_conv, x, training=training,
                       pool_max=True, **self.fused)            # [B, bottleneck]
         y = mlp_head(self, self._n_fc, g, activate_final=True,
-                     training=training)
-        y = getattr(self, f"fc{self._n_fc + 1}")(y)
+                     training=training, dtype=self.dtype)
+        out = getattr(self, f"fc{self._n_fc + 1}")
+        y = out(y.to(out.weight.dtype))        # flax promotes bf16 to f32
         return y.reshape(-1, self.num_out_points, 3)
 
 
@@ -102,8 +114,9 @@ class SampleNet(SimplificationNet):
                  fc_widths: tuple = (256, 256, 256), fc_bn: bool = True, *,
                  bn_momentum: float = BN_MOMENTUM,
                  fused_train: bool | None = None, fused_mode: str = "ghost",
-                 fused_bf16: bool | None = None, device=None,
-                 generator: torch.Generator | None = None):
+                 fused_bf16: bool | None = None,
+                 dtype: torch.dtype | None = None, eval_bf16: bool = False,
+                 device=None, generator: torch.Generator | None = None):
         if input_shape not in ("bnc", "bcn"):
             raise ValueError("input_shape must be 'bnc' or 'bcn'")
         if output_shape not in ("bnc", "bcn"):
@@ -111,7 +124,8 @@ class SampleNet(SimplificationNet):
         super().__init__(num_out_points, bottleneck_size, conv_widths,
                          fc_widths, fc_bn, bn_momentum=bn_momentum,
                          fused_train=fused_train, fused_mode=fused_mode,
-                         fused_bf16=fused_bf16, device=device,
+                         fused_bf16=fused_bf16, dtype=dtype,
+                         eval_bf16=eval_bf16, device=device,
                          generator=generator)
         self.input_shape = input_shape
         self.output_shape = output_shape

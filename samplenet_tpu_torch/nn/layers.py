@@ -20,12 +20,22 @@ over every axis but the last, the fast variance mean(x^2) - mean(x)^2
 clamped at 0 (biased), and running averages m * old + (1 - m) * batch
 with flax's momentum m (0.9). With `pool_max` the conv chain runs as
 `point_mlp_exact_train_max` (exact global statistics; the kernel on a
-CUDA tensor), or, with `fused_train=True` in ghost mode where the shapes
-allow it, as `point_mlp_train_max` (ghost BN over blocks of clouds,
-bf16 operands by default); either reports the exact global statistics
-that update the running averages, as samplenet_tpu/nn/layers.py:48-51
-(`BNTrainStats.update`). `resolve_fused_mode` is the JAX package's rule
-for picking between them (:111-149).
+CUDA tensor; bf16 operands where the JAX package's TPU would run its
+exact kernel with fused_bf16), or, with `fused_train=True` in ghost mode
+where the shapes allow it, as `point_mlp_train_max` (ghost BN over
+blocks of clouds, bf16 operands by default); either reports the exact
+global statistics that update the running averages, as
+samplenet_tpu/nn/layers.py:48-51 (`BNTrainStats.update`).
+`resolve_fused_mode` is the JAX package's rule for picking between them
+(:111-149), `use_eval_kernel` its rule for the eval kernel (:84-93).
+
+A compute `dtype` (bf16; the JAX package's `dtype` field, :66-68, reached
+by `--bf16`) runs the chain as tensor ops with flax's casts and no kernel,
+train or eval, as the JAX package does (:88, :120; its XLA matmuls, so on
+the card cuBLAS bf16 GEMMs): Dense casts its input, kernel and bias to
+the dtype and returns it (`dense`); BatchNorm takes its statistics in f32,
+normalises in f32 and returns the dtype, its running statistics f32.
+Parameters stay f32.
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ import torch
 from torch import nn
 
 from samplenet_tpu_torch.ops.cuda.point_mlp_exact_kernel import (
+    auto_block_b_exact,
     point_mlp_exact_train_max,
 )
 from samplenet_tpu_torch.ops.cuda.point_mlp_kernel import (
@@ -86,6 +97,18 @@ class PointConv(nn.Module):
         return torch.matmul(x, self.kernel()) + self.bias
 
 
+def dense(layer: nn.Module, x: torch.Tensor,
+          dtype: torch.dtype | None) -> torch.Tensor:
+    """A PointConv or Linear `layer` on x, as flax's Dense with `dtype`:
+    without one, the layer itself; with one, x, the kernel and the bias
+    cast to it, the product rounded to it, then the bias added in it."""
+    if dtype is None:
+        return layer(x)
+    kernel = layer.kernel() if isinstance(layer, PointConv) \
+        else layer.weight.t()
+    return torch.matmul(x.to(dtype), kernel.to(dtype)) + layer.bias.to(dtype)
+
+
 class Linear(nn.Linear):
     """nn.Linear with flax's initialisation."""
 
@@ -126,16 +149,21 @@ class BatchNorm(nn.Module):
             self.running_var.copy_(m * self.running_var + (1 - m) * var)
             self.num_batches_tracked += 1
 
-    def forward(self, x: torch.Tensor, training: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, training: bool = False,
+                dtype: torch.dtype | None = None) -> torch.Tensor:
+        """With a compute `dtype`, as flax's BatchNorm(dtype=...): the
+        statistics of x taken in f32 (the running statistics' type), the
+        normalisation in f32 (x promoted), the result cast to `dtype`."""
         if not training:
             mean, var = self.running_mean, self.running_var
         else:
-            flat = x.reshape(-1, x.shape[-1])
+            flat = x.reshape(-1, x.shape[-1]).to(self.running_mean.dtype)
             mean = flat.mean(0)
             var = torch.clamp((flat * flat).mean(0) - mean * mean, min=0.0)
             self.update_stats(mean.detach(), var.detach())
         mul = torch.rsqrt(var + BN_EPS) * self.weight
-        return (x - mean) * mul + self.bias
+        y = (x - mean) * mul + self.bias
+        return y if dtype is None else y.to(dtype)
 
 
 def add_point_mlp(owner: nn.Module, in_features: int,
@@ -154,6 +182,16 @@ def add_point_mlp(owner: nn.Module, in_features: int,
 
 
 EVAL_KERNEL_MIN_POINTS = 128
+
+
+def use_eval_kernel(x: torch.Tensor, *, training: bool, pool_max: bool,
+                    dtype: torch.dtype | None = None) -> bool:
+    """Whether an eval chain of x [B, N, C] is `point_mlp_max`: pool_max,
+    eval, no compute dtype and N >= 128, as samplenet_tpu/nn/layers.py:
+    84-93 (`_fused_ok`) decides on its TPU. `point_mlp` also requires that
+    no gradient has to cross the chain."""
+    return pool_max and not training and dtype is None and x.dim() == 3 \
+        and x.shape[1] >= EVAL_KERNEL_MIN_POINTS
 
 
 def _needs_grad(x: torch.Tensor, layers) -> bool:
@@ -177,34 +215,50 @@ def resolve_fused_mode(x: torch.Tensor, widths: Sequence[int], *,
                        training: bool, pool_max: bool,
                        fused_train: bool | None = None,
                        fused_mode: str = "ghost",
-                       fused_bf16: bool | None = None) -> str:
-    """The train chain for x [B, N, C] through layers of `widths`: "ghost"
-    (`point_mlp_train_max`) only when `fused_train` is True, `fused_mode`
-    is "ghost", the call trains with `pool_max`, N % 128 == 0 and
-    `auto_block_b` finds a block, as samplenet_tpu/nn/layers.py:116-149
-    picks its ghost kernel; otherwise "exact", the exact global-BN chain,
-    which computes what both the JAX package's XLA chain and its exact
-    kernel compute. The exact chain runs in f32, so fused_bf16=True with
-    the exact mode raises."""
+                       fused_bf16: bool | None = None,
+                       dtype: torch.dtype | None = None) -> str:
+    """The train chain for x [B, N, C] through layers of `widths`, as
+    samplenet_tpu/nn/layers.py:116-149 picks its fused kernel on its TPU:
+
+    - "plain" with a compute `dtype`: tensor ops in that dtype (JAX's XLA
+      chain, :120);
+    - "ghost" (`point_mlp_train_max`) when `fused_train` is True,
+      `fused_mode` is "ghost", the call trains with `pool_max`, N % 128 ==
+      0 and `auto_block_b` finds a block;
+    - "exact_bf16" (`point_mlp_exact_train_max` with bf16 operands) where
+      JAX runs its exact kernel (`fused_train` None, or True with the
+      exact mode; training, `pool_max`, N % 128 == 0, two or more layers,
+      `auto_block_b_exact` finds a block) and `fused_bf16_of("exact")` is
+      True;
+    - otherwise "exact", the exact global-BN chain in f32, which computes
+      what both the JAX package's XLA chain and its f32 exact kernel
+      compute."""
     if fused_mode not in FUSED_MODES:
         raise ValueError(f"fused_mode must be one of {FUSED_MODES}, got "
                          f"{fused_mode!r}")
-    if fused_train is True and fused_mode == "exact" and fused_bf16:
-        raise ValueError("fused_bf16=True with fused_mode='exact': the "
-                         "port's exact-BN chain runs in f32")
-    if fused_train is not True or fused_mode != "ghost" or not training \
-            or not pool_max or x.dim() != 3 or x.shape[1] % 128:
+    if dtype is not None:
+        return "plain"
+    if fused_train is False or not training or not pool_max \
+            or x.dim() != 3 or x.shape[1] % 128:
         return "exact"
-    bb = auto_block_b(x.shape[0], x.shape[1], tuple(widths),
-                      fused_bf16_of("ghost", fused_bf16))
-    return "exact" if bb is None else "ghost"
+    mode = "exact" if fused_train is None else fused_mode
+    bf16 = fused_bf16_of(mode, fused_bf16)
+    if mode == "ghost":
+        bb = auto_block_b(x.shape[0], x.shape[1], tuple(widths), bf16)
+        return "exact" if bb is None else "ghost"
+    if bf16 and len(widths) >= 2 and auto_block_b_exact(
+            x.shape[0], x.shape[1], tuple(widths), bf16) is not None:
+        return "exact_bf16"
+    return "exact"
 
 
 def point_mlp(owner: nn.Module, n_layers: int, x: torch.Tensor, *,
               training: bool = False, pool_max: bool = False,
               use_bn: bool = True,
               fused_train: bool | None = None, fused_mode: str = "ghost",
-              fused_bf16: bool | None = None) -> torch.Tensor:
+              fused_bf16: bool | None = None,
+              dtype: torch.dtype | None = None,
+              eval_bf16: bool = False) -> torch.Tensor:
     """conv -> BN -> ReLU per layer over x [B, N, C], or conv -> ReLU
     without `use_bn` (PCRNet's features). With `pool_max` the
     result is the max over points, [B, C_out]. In training the chain is
@@ -220,30 +274,34 @@ def point_mlp(owner: nn.Module, n_layers: int, x: torch.Tensor, *,
     reconstruction track's AE on the sampler's m soft-projected points.
     Without BN the chain is always tensor ops (cuBLAS matmuls on the
     card), train or eval, as the JAX package's PointMLP takes no Pallas
-    kernel without BN (samplenet_tpu/nn/layers.py:100-102)."""
+    kernel without BN (samplenet_tpu/nn/layers.py:100-102). A compute
+    `dtype` runs tensor ops in it (`dense`, `BatchNorm`) and no kernel.
+    `eval_bf16` runs the eval kernel with bf16 operands, the TPU kernel's
+    default, which the JAX package does not expose as a flag."""
     if not use_bn:
         for i in range(n_layers):
             x = torch.relu(getattr(owner, f"conv{i + 1}")(x))
         return x.amax(dim=1) if pool_max else x
     layers = [(getattr(owner, f"conv{i + 1}"), getattr(owner, f"bn{i + 1}"))
               for i in range(n_layers)]
-    if pool_max and training:
+    mode = resolve_fused_mode(
+        x, [conv.weight.shape[0] for conv, _ in layers], training=training,
+        pool_max=pool_max, fused_train=fused_train, fused_mode=fused_mode,
+        fused_bf16=fused_bf16, dtype=dtype)
+    if pool_max and training and mode != "plain":
         args = (x, [conv.kernel() for conv, _ in layers],
                 [conv.bias for conv, _ in layers],
                 [bn.weight for _, bn in layers], [bn.bias for _, bn in layers])
-        widths = [conv.weight.shape[0] for conv, _ in layers]
-        if resolve_fused_mode(x, widths, training=True, pool_max=True,
-                              fused_train=fused_train, fused_mode=fused_mode,
-                              fused_bf16=fused_bf16) == "ghost":
+        if mode == "ghost":
             pooled, means, vars_ = point_mlp_train_max(
                 *args, eps=BN_EPS, bf16=fused_bf16_of("ghost", fused_bf16))
         else:
-            pooled, means, vars_ = point_mlp_exact_train_max(*args,
-                                                             eps=BN_EPS)
+            pooled, means, vars_ = point_mlp_exact_train_max(
+                *args, eps=BN_EPS, bf16=mode == "exact_bf16")
         for (_, bn), mean, var in zip(layers, means, vars_):
             bn.update_stats(mean, var)
         return pooled
-    if pool_max and x.shape[1] >= EVAL_KERNEL_MIN_POINTS \
+    if use_eval_kernel(x, training=training, pool_max=pool_max, dtype=dtype) \
             and not _needs_grad(x, layers):
         wbs = []
         for conv, bn in layers:
@@ -251,9 +309,9 @@ def point_mlp(owner: nn.Module, n_layers: int, x: torch.Tensor, *,
                                   bn.bias, bn.running_mean, bn.running_var,
                                   BN_EPS)
         # a prefix slice (the progressive evals) is a strided view
-        return point_mlp_max(x.contiguous(), tuple(wbs))
+        return point_mlp_max(x.contiguous(), tuple(wbs), bf16=eval_bf16)
     for conv, bn in layers:
-        x = torch.relu(bn(conv(x), training))
+        x = torch.relu(bn(dense(conv, x, dtype), training, dtype))
     return x.amax(dim=1) if pool_max else x
 
 
@@ -276,16 +334,17 @@ def add_mlp_head(owner: nn.Module, in_features: int,
 
 
 def mlp_head(owner: nn.Module, n_layers: int, x: torch.Tensor, *,
-             activate_final: bool = False,
-             training: bool = False) -> torch.Tensor:
+             activate_final: bool = False, training: bool = False,
+             dtype: torch.dtype | None = None) -> torch.Tensor:
     """fc -> (BN) -> ReLU over x [B, C], leaving the last layer linear
-    unless `activate_final`. Plain torch in both modes."""
+    unless `activate_final`, in the compute `dtype` where given. Plain
+    torch in both modes."""
     for i in range(n_layers):
-        x = getattr(owner, f"fc{i + 1}")(x)
+        x = dense(getattr(owner, f"fc{i + 1}"), x, dtype)
         if i < n_layers - 1 or activate_final:
             bn = getattr(owner, f"bn_fc{i + 1}", None)
             if bn is not None:
-                x = bn(x, training)
+                x = bn(x, training, dtype)
             x = torch.relu(x)
     return x
 
@@ -293,17 +352,20 @@ def mlp_head(owner: nn.Module, n_layers: int, x: torch.Tensor, *,
 class PointMLP(nn.Module):
     """Per-point MLP over [B, N, C]: conv -> BN -> ReLU on every layer.
     `fused_train`, `fused_mode` and `fused_bf16` select its train chain
-    (`resolve_fused_mode`)."""
+    (`resolve_fused_mode`), `dtype` its compute dtype and `eval_bf16` the
+    eval kernel's operands (`point_mlp`)."""
 
     def __init__(self, in_features: int, features: Sequence[int], *,
                  bn_momentum: float = BN_MOMENTUM,
                  fused_train: bool | None = None, fused_mode: str = "ghost",
-                 fused_bf16: bool | None = None, device=None,
-                 generator: torch.Generator | None = None):
+                 fused_bf16: bool | None = None,
+                 dtype: torch.dtype | None = None, eval_bf16: bool = False,
+                 device=None, generator: torch.Generator | None = None):
         super().__init__()
         self.features = tuple(features)
         self.fused = dict(fused_train=fused_train, fused_mode=fused_mode,
-                          fused_bf16=fused_bf16)
+                          fused_bf16=fused_bf16, dtype=dtype,
+                          eval_bf16=eval_bf16)
         add_point_mlp(self, in_features, self.features,
                       bn_momentum=bn_momentum, device=device,
                       generator=generator)
@@ -316,18 +378,22 @@ class PointMLP(nn.Module):
 
 class MLPHead(nn.Module):
     """Fully-connected head over [B, C]: BN + ReLU on every layer except,
-    unless `activate_final`, the last."""
+    unless `activate_final`, the last; in the compute `dtype` where
+    given."""
 
     def __init__(self, in_features: int, features: Sequence[int], *,
                  use_bn: bool = True, activate_final: bool = False,
-                 device=None, generator: torch.Generator | None = None):
+                 dtype: torch.dtype | None = None, device=None,
+                 generator: torch.Generator | None = None):
         super().__init__()
         self.features = tuple(features)
         self.activate_final = activate_final
+        self.dtype = dtype
         add_mlp_head(self, in_features, self.features, use_bn=use_bn,
                      activate_final=activate_final, device=device,
                      generator=generator)
 
     def forward(self, x: torch.Tensor, training: bool = False) -> torch.Tensor:
         return mlp_head(self, len(self.features), x,
-                        activate_final=self.activate_final, training=training)
+                        activate_final=self.activate_final, training=training,
+                        dtype=self.dtype)

@@ -137,9 +137,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.snt_fps_max_threads.restype = i
     lib.snt_fps_shared_points.argtypes = []
     lib.snt_fps_shared_points.restype = i
-    lib.snt_point_mlp_max_smem.argtypes = [ctypes.POINTER(i), i]
+    lib.snt_point_mlp_max_smem.argtypes = [ctypes.POINTER(i), i, i]
     lib.snt_point_mlp_max_smem.restype = ctypes.c_size_t
-    lib.snt_point_mlp_max.argtypes = [p, p, ctypes.POINTER(i), i, p, i, i, p]
+    lib.snt_point_mlp_max.argtypes = [p, p, ctypes.POINTER(i), i, i, p, i, i,
+                                      p]
     lib.snt_point_mlp_max.restype = i
     lib.snt_soft_project_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
                                          p]

@@ -13,12 +13,26 @@ cancels it, so its gradient is exactly zero on both paths (:490); the
 means' and vars' cotangents feed only the EMA and are ignored (:457).
 The max-pool gradient goes to the first point that attains the max.
 
+With `bf16` (off by default, as in JAX :508) each matmul rounds both
+operands to bf16 and sums the exact products in f32, at the TPU kernel's
+rounding points (:97-110, :157-204, :283): in the forward z_l =
+bf16(h_{l-1}) bf16(W_l), x itself rounded at layer 0, the statistics
+from that z and xhat in f32; in the backward the max-pool cotangent goes
+to the first argmax of the f32 h_L, dz is f32 and enters dW =
+bf16(h_prev)^T bf16(dz) and dh_prev = bf16(dz) bf16(W)^T, and each
+layer's rows (sum dy, sum dy*xhat) come from the unrounded dh_prev,
+which the TPU kernel then spills in bf16, so that the layer below reads
+the rounded dh; dx is not rounded. The TPU kernel's public entry forces
+bf16 off under its CPU interpreter (:522-523); its private `_pme` runs
+this arithmetic there, which the CPU tests hold the plain version to.
+
 Both paths keep every pre-BN z_l for the backward (see
 csrc/point_mlp_train.cu for the kernels' design: this chain is their case
-of one block of all B clouds, with bf16 off). The plain version does
-the same passes with torch ops; sums run in other orders, so the two
-agree to f32 round-off. The kernels take f32; the plain version also
-takes f64, which the on-card checks use as the reference both are held
+of one block of all B clouds, backward mode 0 or, in bf16, 2). The plain
+version does the same passes with torch ops; sums run in other orders, so
+the two agree to f32 round-off (and, in bf16, to the roundings such
+round-off can move). The kernels take f32; the plain version also takes
+f64, which the on-card checks use as the reference both are held
 against.
 """
 
@@ -27,8 +41,13 @@ from __future__ import annotations
 import torch
 
 from samplenet_tpu_torch.ops.cuda._build import check, library, stream_handle
-from samplenet_tpu_torch.ops.cuda.point_mlp_kernel import full_f32_matmul
+from samplenet_tpu_torch.ops.cuda.point_mlp_kernel import (
+    full_f32_matmul,
+    round_op,
+)
 from samplenet_tpu_torch.ops.cuda.point_mlp_train_kernel import (
+    MODE_EXACT_BF16,
+    MODE_F32,
     bwd_cuda,
     check_args,
     check_cuda,
@@ -39,7 +58,29 @@ from samplenet_tpu_torch.ops.dispatch import count_launch, use_kernel
 
 KERNEL_FWD = "point_mlp_exact_fwd"
 KERNEL_BWD = "point_mlp_exact_bwd"
+KERNEL_FWD_BF16 = "point_mlp_exact_bf16_fwd"
+KERNEL_BWD_BF16 = "point_mlp_exact_bf16_bwd"
 _TILE = 64               # csrc/point_mlp_train.cu kTileP
+_VMEM_BUDGET = 10 * 1024 * 1024     # the TPU kernel's (:54)
+
+
+def auto_block_b_exact(batch: int, n: int, widths: tuple[int, ...],
+                       bf16: bool = False) -> int | None:
+    """The TPU kernel's batch block (:57-73, copied as it is): the largest
+    power of two that divides `batch` and fits its VMEM plan, or None where
+    none fits. The block has no meaning for the result; the port reads
+    only whether there is one, because where there is none the JAX package
+    runs its XLA chain in f32 instead of the exact kernel
+    (nn/layers.py::resolve_fused_mode)."""
+    del bf16
+    per_lane = 9 * max(widths) * 4 + 3 * 4
+    bb_max = _VMEM_BUDGET // max(n * per_lane, 1)
+    if bb_max < 1:
+        return None
+    bb = 1
+    while bb * 2 <= bb_max and batch % (bb * 2) == 0:
+        bb *= 2
+    return None if batch % bb else bb
 
 
 def _stats(s1: torch.Tensor, s2: torch.Tensor, count: int, eps: float,
@@ -58,7 +99,7 @@ def _act(z, mu, rstd, gamma, beta):
 
 # ------------------------------------------------------------ plain version
 
-def point_mlp_exact_fwd_plain(x, weights, gammas, betas, eps):
+def point_mlp_exact_fwd_plain(x, weights, gammas, betas, eps, bf16=False):
     """(pooled [B, C_out], mus, vars, saved): saved feeds the backward."""
     b, n, c0 = x.shape
     count = b * n
@@ -66,7 +107,7 @@ def point_mlp_exact_fwd_plain(x, weights, gammas, betas, eps):
     zs, mus, rstds, vars_ = [], [], [], []
     with full_f32_matmul():
         for w, gamma, beta in zip(weights, gammas, betas):
-            z = torch.matmul(h, w)
+            z = torch.matmul(round_op(h, bf16), round_op(w, bf16))
             mu, var, rstd = _stats(z.sum(0), (z * z).sum(0), count, eps,
                                    z.dtype)
             h = _act(z, mu, rstd, gamma, beta)
@@ -80,8 +121,11 @@ def point_mlp_exact_fwd_plain(x, weights, gammas, betas, eps):
     return pooled, mus, vars_, (zs, mus, rstds, argmax)
 
 
-def point_mlp_exact_bwd_plain(x, weights, gammas, betas, saved, g):
-    """(dx, dWs, dgammas, dbetas) for the pooled cotangent g [B, C_out]."""
+def point_mlp_exact_bwd_plain(x, weights, gammas, betas, saved, g,
+                              bf16=False):
+    """(dx, dWs, dgammas, dbetas) for the pooled cotangent g [B, C_out].
+    With bf16, each layer's rows come from dh before its bf16 spill and dz
+    from dh after it (below the top layer, whose dh is g at the argmax)."""
     zs, mus, rstds, argmax = saved
     b, n, c0 = x.shape
     count = b * n
@@ -93,17 +137,21 @@ def point_mlp_exact_bwd_plain(x, weights, gammas, betas, saved, g):
     with full_f32_matmul():
         for i in range(nl - 1, -1, -1):
             xhat = (zs[i] - mus[i]) * rstds[i]
-            h = torch.relu(gammas[i] * xhat + betas[i])
-            dy = torch.where(h > 0, dh, torch.zeros_like(dh))
+            on = torch.relu(gammas[i] * xhat + betas[i]) > 0
+            dy = torch.where(on, dh, torch.zeros_like(dh))
             dbetas[i], dgammas[i] = dy.sum(0), (dy * xhat).sum(0)
             r1 = gammas[i] * dbetas[i] / count
             r2 = gammas[i] * dgammas[i] / count
-            dz = rstds[i] * (gammas[i] * dy - r1 - xhat * r2)
+            if bf16 and i < nl - 1:        # the spilled dh, read back
+                dy = torch.where(on, round_op(dh, True),
+                                 torch.zeros_like(dh))
+            dz = round_op(rstds[i] * (gammas[i] * dy - r1 - xhat * r2),
+                          bf16)
             h_prev = x.reshape(count, c0) if i == 0 else _act(
                 zs[i - 1], mus[i - 1], rstds[i - 1], gammas[i - 1],
                 betas[i - 1])
-            dws[i] = torch.matmul(h_prev.t(), dz)
-            dh = torch.matmul(dz, weights[i].t())
+            dws[i] = torch.matmul(round_op(h_prev, bf16).t(), dz)
+            dh = torch.matmul(dz, round_op(weights[i], bf16).t())
     return dh.reshape(b, n, c0), dws, dgammas, dbetas
 
 
@@ -112,9 +160,10 @@ def point_mlp_exact_bwd_plain(x, weights, gammas, betas, saved, g):
 # csrc/point_mlp_train.cu holds the kernels of this chain and of the ghost
 # chain (point_mlp_train_kernel.py, which also holds the helpers both
 # wrappers share): exact global BN is its case of one block of all B
-# clouds, with bf16 off.
+# clouds, in backward mode MODE_F32 or MODE_EXACT_BF16.
 
-def point_mlp_exact_fwd_cuda(x, weights, gammas, betas, eps):
+def point_mlp_exact_fwd_cuda(x, weights, gammas, betas, eps, bf16=False):
+    name = KERNEL_FWD_BF16 if bf16 else KERNEL_FWD
     widths = [x.shape[-1], *(w.shape[1] for w in weights)]
     dense = check_cuda(x, widths, "point_mlp_exact")[1]
     b, n, _ = x.shape
@@ -130,11 +179,12 @@ def point_mlp_exact_fwd_cuda(x, weights, gammas, betas, eps):
             z = torch.empty((count, cout), dtype=torch.float32, device=x.device)
             rows = torch.empty((grid, 2, cout), dtype=torch.float64,
                                device=x.device)
+            w_op = round_op(w, bf16).contiguous()
             err = lib.snt_pmt_dense(
-                h_in.data_ptr(), cin, prev, 0, 0, w.contiguous().data_ptr(),
+                h_in.data_ptr(), cin, prev, 0, int(bf16), w_op.data_ptr(),
                 cout, z.data_ptr(), rows.data_ptr(), 1, b, n, int(dp.stage),
                 grid, stream)
-            check(err, KERNEL_FWD)
+            check(err, name)
             s = rows.sum(0)
             mu, var, rstd = _stats(s[0], s[1], count, eps,
                                    torch.float32)
@@ -152,17 +202,20 @@ def point_mlp_exact_fwd_cuda(x, weights, gammas, betas, eps):
         err = lib.snt_pmt_pool(zs[-1].data_ptr(), ptrs(*bn_keep), b, b, n,
                                widths[-1], pooled.data_ptr(),
                                argmax.data_ptr(), stream)
-    check(err, KERNEL_FWD)
-    count_launch(KERNEL_FWD)
+    check(err, name)
+    count_launch(name)
     return pooled, mus, vars_, (zs, mus, rstds, argmax)
 
 
-def point_mlp_exact_bwd_cuda(x, weights, gammas, betas, saved, g):
-    """The ghost chain's backward kernels as one block of all B clouds,
-    with bf16 off (`point_mlp_train_kernel.bwd_cuda`)."""
-    out = bwd_cuda(x, weights, gammas, betas, 0.0, x.shape[0], False, saved,
-                   g, KERNEL_BWD)
-    count_launch(KERNEL_BWD)
+def point_mlp_exact_bwd_cuda(x, weights, gammas, betas, saved, g,
+                             bf16=False):
+    """The ghost chain's backward kernels as one block of all B clouds, in
+    mode MODE_F32 or, with bf16, MODE_EXACT_BF16
+    (`point_mlp_train_kernel.bwd_cuda`)."""
+    name = KERNEL_BWD_BF16 if bf16 else KERNEL_BWD
+    out = bwd_cuda(x, weights, gammas, betas, 0.0, x.shape[0],
+                   MODE_EXACT_BF16 if bf16 else MODE_F32, saved, g, name)
+    count_launch(name)
     return out
 
 
@@ -170,7 +223,7 @@ def point_mlp_exact_bwd_cuda(x, weights, gammas, betas, saved, g):
 
 class _PointMLPExact(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, eps, n_layers, *params):
+    def forward(ctx, x, eps, bf16, n_layers, *params):
         weights = params[:n_layers]
         gammas = params[2 * n_layers:3 * n_layers]
         betas = params[3 * n_layers:]
@@ -179,9 +232,9 @@ class _PointMLPExact(torch.autograd.Function):
         ctx.kernel = use_kernel(x)
         fwd = point_mlp_exact_fwd_cuda if ctx.kernel \
             else point_mlp_exact_fwd_plain
-        pooled, mus, vars_, saved = fwd(x, weights, gammas, betas, eps)
+        pooled, mus, vars_, saved = fwd(x, weights, gammas, betas, eps, bf16)
         zs, _, rstds, argmax = saved
-        ctx.n_layers = n_layers
+        ctx.n_layers, ctx.bf16 = n_layers, bf16
         ctx.save_for_backward(x, *weights, *gammas, *betas, *zs, *mus,
                               *rstds, argmax)
         means = [mu + bias for mu, bias in
@@ -199,21 +252,23 @@ class _PointMLPExact(torch.autograd.Function):
         bwd = point_mlp_exact_bwd_cuda if ctx.kernel \
             else point_mlp_exact_bwd_plain
         dx, dws, dgammas, dbetas = bwd(x, weights, gammas, betas,
-                                       (zs, mus, rstds, argmax), g)
+                                       (zs, mus, rstds, argmax), g, ctx.bf16)
         dbiases = [torch.zeros_like(w[0]) for w in weights]
-        return (dx, None, None, *dws, *dbiases, *dgammas, *dbetas)
+        return (dx, None, None, None, *dws, *dbiases, *dgammas, *dbetas)
 
 
 def point_mlp_exact_train_max(x, weights, biases, gammas, betas, *,
-                              eps: float = 1e-5):
+                              eps: float = 1e-5, bf16: bool = False):
     """(pooled [B, C_out], means, vars): the train-mode chain
-    relu(BN(x W_l)) with exact batch statistics, max-pooled over points.
-    weights are Dense kernels [C_in, C_out]; means include each layer's
-    dense bias. Differentiable in x, the weights, gammas and betas (the
-    biases get exact zeros). CPU tensors take the plain versions, CUDA
-    tensors the kernels (ops/dispatch.py)."""
+    relu(BN(x W_l)) with exact batch statistics, max-pooled over points,
+    with bf16 matmul operands where `bf16`. weights are Dense kernels
+    [C_in, C_out]; means include each layer's dense bias. Differentiable
+    in x, the weights, gammas and betas (the biases get exact zeros). CPU
+    tensors take the plain versions, CUDA tensors the kernels
+    (ops/dispatch.py), counted as point_mlp_exact_{fwd,bwd} or, in bf16,
+    point_mlp_exact_bf16_{fwd,bwd}."""
     check_args(x, weights, biases, gammas, betas)
     nl = len(weights)
-    outs = _PointMLPExact.apply(x, eps, nl, *weights, *biases, *gammas,
-                                *betas)
+    outs = _PointMLPExact.apply(x, eps, bool(bf16), nl, *weights, *biases,
+                                *gammas, *betas)
     return outs[0], tuple(outs[1:1 + nl]), tuple(outs[1 + nl:])

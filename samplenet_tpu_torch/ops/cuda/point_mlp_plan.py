@@ -21,7 +21,10 @@ width the tracks run:
 - point_mlp_max: two tile buffers, each as tall as the widest layer it
   holds (buffer 0: x and the outputs of layers 1, 3, ...; buffer 1: those
   of layers 0, 2, ...; the last layer's output is not stored), and the
-  per-channel max [cout_last].
+  per-channel max [cout_last]. With bf16 operands a row holds two
+  channels (a pair of bf16 in each word) and the K step is 16 channels,
+  so a layer's rows are half as many; a first layer of fewer than 16
+  channels runs on the FP32 pipes and keeps x in f32 rows.
 
 The backward:
 
@@ -186,6 +189,8 @@ FWD_THREADS = 256     # mma::kThreads: 8 warps
 FWD_MIN_BLOCKS = 2    # both forward kernels' launch bounds (registers)
 MAX_LAYERS = 8        # point_mlp_max.cu kMaxLayers
 DENSE_CHUNK = 64      # pmt_dense's output channels at a time (kChunk)
+BF16_MMA_MIN_CIN = 16  # point_mlp_max in bf16: a first layer with fewer
+                       # input channels runs on the FP32 pipes (kBf16K)
 
 
 def tile_rows(cin: int, mma_path: bool) -> int:
@@ -223,18 +228,30 @@ def plan_dense(cin: int, cout: int, limit: int) -> DensePlan | None:
                      blocks_per_sm(smem, FWD_THREADS, limit))
 
 
-def max_rows(widths) -> tuple[int, int]:
+def pair_rows(c: int) -> int:
+    """Rows of 64 words of a `c`-channel tile of bf16 pairs, to the bf16
+    K step of 16 channels (mma::pair_rows)."""
+    return _ceil(c, BF16_MMA_MIN_CIN) * BF16_MMA_MIN_CIN // 2
+
+
+def max_rows(widths, bf16: bool = False) -> tuple[int, int]:
     """Rows of point_mlp_max's two tile buffers (csrc: buffer_rows)."""
-    rows = [tile_rows(widths[0], widths[0] >= 8), 0]
+    if not bf16:
+        rows = [tile_rows(widths[0], widths[0] >= 8), 0]
+    elif widths[0] < BF16_MMA_MIN_CIN:
+        rows = [tile_rows(widths[0], False), 0]
+    else:
+        rows = [pair_rows(widths[0]), 0]
     for layer in range(1, len(widths) - 1):
-        rows[layer % 2] = max(rows[layer % 2],
-                              tile_rows(widths[layer], True))
+        need = pair_rows(widths[layer]) if bf16 \
+            else tile_rows(widths[layer], True)
+        rows[layer % 2] = max(rows[layer % 2], need)
     return rows[0], rows[1]
 
 
-def max_smem(widths) -> int:
+def max_smem(widths, bf16: bool = False) -> int:
     """Bytes of a point_mlp_max block (csrc: snt_point_mlp_max_smem)."""
-    return 4 * (sum(max_rows(widths)) * TILE + widths[-1])
+    return 4 * (sum(max_rows(widths, bf16)) * TILE + widths[-1])
 
 
 @dataclass(frozen=True)
@@ -245,15 +262,15 @@ class MaxPlan:
     blocks_per_sm: int
 
 
-def plan_max(widths, limit: int) -> MaxPlan | None:
+def plan_max(widths, limit: int, bf16: bool = False) -> MaxPlan | None:
     """point_mlp_max's plan for the chain `widths` (widths[0] is the
-    input's), or None where the kernel does not take it (more than 8
-    layers, an output width not a multiple of 4, or more shared memory
-    than `limit`)."""
+    input's), with f32 or bf16 operands, or None where the kernel does not
+    take it (more than 8 layers, an output width not a multiple of 4, or
+    more shared memory than `limit`)."""
     widths = tuple(widths)
-    smem = max_smem(widths)
+    smem = max_smem(widths, bf16)
     if not 1 <= len(widths) - 1 <= MAX_LAYERS or widths[0] < 1 \
             or any(c % 4 for c in widths[1:]) or smem > limit:
         return None
-    return MaxPlan(widths, max_rows(widths), smem,
+    return MaxPlan(widths, max_rows(widths, bf16), smem,
                    blocks_per_sm(smem, FWD_THREADS, limit))

@@ -48,7 +48,10 @@ from samplenet_tpu_torch.ops.cuda._build import (
     max_dynamic_smem,
     stream_handle,
 )
-from samplenet_tpu_torch.ops.cuda.point_mlp_kernel import full_f32_matmul
+from samplenet_tpu_torch.ops.cuda.point_mlp_kernel import (
+    full_f32_matmul,
+    round_op,
+)
 from samplenet_tpu_torch.ops.cuda.point_mlp_plan import (
     DensePlan,
     LayerPlan,
@@ -107,11 +110,6 @@ def check_args(x, weights, biases, gammas, betas) -> list[int]:
     return widths
 
 
-def _op(t: torch.Tensor, bf16: bool) -> torch.Tensor:
-    """A matmul operand (or a stored xhat): rounded to bf16 when on."""
-    return t.to(torch.bfloat16).to(t.dtype) if bf16 else t
-
-
 def _ghost_stats(z: torch.Tensor, eps: float):
     """(mu, msq, rstd) per block of z [P, M, C], each [P, 1, C]."""
     mu = z.mean(1, keepdim=True)
@@ -129,7 +127,7 @@ def point_mlp_train_fwd_plain(x, weights, gammas, betas, eps, block_b, bf16):
     mus, msqs = [], []
     with full_f32_matmul():
         for w, gamma, beta in zip(weights, gammas, betas):
-            z = torch.matmul(_op(h, bf16), _op(w, bf16))
+            z = torch.matmul(round_op(h, bf16), round_op(w, bf16))
             mu, msq, rstd = _ghost_stats(z, eps)
             h = torch.relu(gamma * ((z - mu) * rstd) + beta)
             mus.append(mu[:, 0])
@@ -146,11 +144,11 @@ def _stored_chain(x, weights, gammas, betas, eps, block_b, bf16):
     xhats = []
     with full_f32_matmul():
         for w, gamma, beta in zip(weights, gammas, betas):
-            z = torch.matmul(_op(h, bf16), _op(w, bf16))
+            z = torch.matmul(round_op(h, bf16), round_op(w, bf16))
             mu, _, rstd = _ghost_stats(z, eps)
             xhat = (z - mu) * rstd
             h = torch.relu(gamma * xhat + beta)
-            xhats.append(_op(xhat, bf16))
+            xhats.append(round_op(xhat, bf16))
     return xhats, torch.argmax(h.reshape(b, n, -1), dim=1)
 
 
@@ -181,12 +179,13 @@ def point_mlp_train_vjp_plain(x, weights, gammas, betas, eps, block_b, bf16,
                   - xh * (dxhat * xh).mean(1, keepdim=True))
             h_prev = h0 if i == 0 else torch.relu(
                 gammas[i - 1] * xhats[i - 1] + betas[i - 1])
-            z = torch.matmul(_op(h_prev, bf16), _op(weights[i], bf16))
+            z = torch.matmul(round_op(h_prev, bf16),
+                             round_op(weights[i], bf16))
             _, _, rstd = _ghost_stats(z, eps)
-            dz = _op(rstd * dz, bf16)
-            dws[i] = torch.matmul(_op(h_prev, bf16).transpose(1, 2),
+            dz = round_op(rstd * dz, bf16)
+            dws[i] = torch.matmul(round_op(h_prev, bf16).transpose(1, 2),
                                   dz).sum(0)
-            dh = torch.matmul(dz, _op(weights[i], bf16).t())
+            dh = torch.matmul(dz, round_op(weights[i], bf16).t())
     return dh.reshape(b, n, c0), dws, dgammas, dbetas
 
 
@@ -304,7 +303,7 @@ def point_mlp_train_fwd_cuda(x, weights, gammas, betas, eps, block_b, bf16):
             z = torch.empty((b * n, cout), dtype=torch.float32, device=x.device)
             rows = torch.empty((p, grid, 2, cout), dtype=torch.float64,
                                device=x.device)
-            w_op = _op(w, bf16).contiguous()
+            w_op = round_op(w, bf16).contiguous()
             err = lib.snt_pmt_dense(
                 h_in.data_ptr(), cin, prev, 0, int(bf16), w_op.data_ptr(),
                 cout, z.data_ptr(), rows.data_ptr(), p, block_b, n,
@@ -330,13 +329,20 @@ def point_mlp_train_fwd_cuda(x, weights, gammas, betas, eps, block_b, bf16):
     return pooled, mus64, msqs64, (zs, mus, rstds, argmax)
 
 
-def bwd_cuda(x, weights, gammas, betas, eps, block_b, bf16, saved, g,
+# the backward's rounding modes (csrc/point_mlp_train.cu `Rounds`)
+MODE_F32, MODE_GHOST_BF16, MODE_EXACT_BF16 = 0, 1, 2
+
+
+def bwd_cuda(x, weights, gammas, betas, eps, block_b, mode, saved, g,
              kernel: str):
     """(dx, dWs, dgammas, dbetas): the backward kernels of both chains
-    (the exact chain is one block of all B clouds with bf16 off), from a
-    forward's saved (zs, mus, rstds, argmax); `kernel` names the caller in
-    errors. Per layer, from the top: pmt_rows (the BN rows), pmt_bwd_dz
-    (dz and dh_prev) and pmt_bwd_dw (dW's f64 partials, summed here)."""
+    (the exact chain is one block of all B clouds), from a forward's saved
+    (zs, mus, rstds, argmax), with the roundings of `mode`: MODE_F32,
+    MODE_GHOST_BF16 (operands and the stored xhat in bf16, rstd recomputed
+    from the rounded h_prev) or MODE_EXACT_BF16 (operands in bf16, dh read
+    back in bf16 by pmt_bwd_dz); `kernel` names the caller in errors. Per
+    layer, from the top: pmt_rows (the BN rows), pmt_bwd_dz (dz and
+    dh_prev) and pmt_bwd_dw (dW's f64 partials, summed here)."""
     zs, mus, rstds, argmax = saved
     widths = [x.shape[-1], *(w.shape[1] for w in weights)]
     plans, dense = check_cuda(x, widths, kernel, block_b)
@@ -352,12 +358,13 @@ def bwd_cuda(x, weights, gammas, betas, eps, block_b, bf16, saved, g,
     nl = len(weights)
     dws, dgammas, dbetas = [None] * nl, [None] * nl, [None] * nl
     dh = None                      # the top layer reads g at argmax
+    store = int(mode == MODE_GHOST_BF16)   # the stored xhat is rounded
     with torch.cuda.device(x.device):
         for i in range(nl - 1, -1, -1):
             cin, cout, plan = widths[i], widths[i + 1], plans[i]
-            w_op = _op(weights[i], bf16).contiguous()
+            w_op = round_op(weights[i], mode != MODE_F32).contiguous()
             rstd2 = rstds[i]
-            if bf16 and i > 0:
+            if store and i > 0:
                 # rstd from z recomputed on h_prev rebuilt from the stored
                 # (bf16) xhat of the layer below (:173-184); with bf16 off
                 # that z is the forward's, bit for bit
@@ -374,7 +381,7 @@ def bwd_cuda(x, weights, gammas, betas, eps, block_b, bf16, saved, g,
             rows = torch.empty((p, grid, 2, cout), dtype=torch.float64,
                                device=x.device)
             err = lib.snt_pmt_rows(
-                zs[i].data_ptr(), bns[i], cout, int(bf16),
+                zs[i].data_ptr(), bns[i], cout, store,
                 None if dh is None else dh.data_ptr(), g.data_ptr(),
                 argmax.data_ptr(), p, block_b, n, rows.data_ptr(), grid,
                 stream)
@@ -392,7 +399,7 @@ def bwd_cuda(x, weights, gammas, betas, eps, block_b, bf16, saved, g,
                                   device=x.device)
             err = lib.snt_pmt_bwd_dz(
                 zs[i].data_ptr(), bns[i], rstd2.data_ptr(), r1.data_ptr(),
-                r2.data_ptr(), cout, int(bf16),
+                r2.data_ptr(), cout, mode,
                 None if dh is None else dh.data_ptr(), g.data_ptr(),
                 argmax.data_ptr(), wt.data_ptr(), plan.cin_pad,
                 dz.data_ptr(), dh_prev.data_ptr(), p, block_b, n, plan.dz_rp,
@@ -403,7 +410,7 @@ def bwd_cuda(x, weights, gammas, betas, eps, block_b, bf16, saved, g,
             h_in = x.contiguous() if i == 0 else zs[i - 1]
             err = lib.snt_pmt_bwd_dw(
                 h_in.data_ptr(), cin, plan.cin_pad,
-                None if i == 0 else bns[i - 1], int(bf16), dz.data_ptr(),
+                None if i == 0 else bns[i - 1], mode, dz.data_ptr(),
                 cout, dw_part.data_ptr(), p, block_b, n, plan.dw_splits,
                 plan.dw_ri, stream)
             check(err, kernel)
@@ -414,8 +421,8 @@ def bwd_cuda(x, weights, gammas, betas, eps, block_b, bf16, saved, g,
 
 def point_mlp_train_bwd_cuda(x, weights, gammas, betas, eps, block_b, bf16,
                              saved, g):
-    out = bwd_cuda(x, weights, gammas, betas, eps, block_b, bf16, saved, g,
-                   KERNEL_BWD)
+    out = bwd_cuda(x, weights, gammas, betas, eps, block_b,
+                   MODE_GHOST_BF16 if bf16 else MODE_F32, saved, g, KERNEL_BWD)
     count_launch(KERNEL_BWD)
     return out
 

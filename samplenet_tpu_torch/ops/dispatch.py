@@ -12,6 +12,14 @@ falls back:
 `plain_on_cuda()` lets a caller run the plain versions on CUDA tensors, to
 compare a kernel path with its reference on the card; the serving path
 never enters it.
+
+A model run in a compute dtype (bf16, `--bf16`) reaches no per-point MLP
+kernel: as in the JAX package, whose `dtype` turns off both its eval
+kernel and its fused train chain (samplenet_tpu/nn/layers.py:88, :120),
+those chains run as tensor ops (nn/layers.py::use_eval_kernel,
+resolve_fused_mode), which are cuBLAS bf16 GEMMs on the card where the
+JAX package ran XLA matmuls outside any Pallas kernel. The distance
+kernels still run, in f32.
 """
 
 from __future__ import annotations

@@ -21,11 +21,15 @@ requires_grad off, while the gradient still flows through it into the
 projected cloud (train_samplenet.py:169-171,195-199). Eval is hard
 matching (unique + FPS) then the classifier, all on the device.
 
-The conv chain is the exact-BN kernel by default; `fused_train` with
-`fused_mode` "ghost" takes the ghost-BN kernel (bf16 operands unless
-`fused_bf16` is False), as the JAX config's fused_* knobs do
-(nn/layers.py::resolve_fused_mode). The JAX config's other TPU knobs
-(bf16, remat, conv_layout) have no counterpart: the port runs f32.
+The conv chain is the exact-BN kernel by default (bf16 operands with
+`fused_bf16`); `fused_train` with `fused_mode` "ghost" takes the ghost-BN
+kernel (bf16 operands unless `fused_bf16` is False), as the JAX config's
+fused_* knobs do (nn/layers.py::resolve_fused_mode). `bf16` in either
+config is the JAX package's compute dtype (classification.py:52-54, 75,
+99, 165): the model's chains and heads run in bf16 as tensor ops, no
+kernel in the conv chain, parameters f32; the frozen classifier stays
+f32 (train_samplenet.py:86). The JAX config's other TPU knobs (remat,
+conv_layout) have no counterpart.
 """
 
 from __future__ import annotations
@@ -70,7 +74,7 @@ class ClassifierConfig:
     # TF-style scheduled BN decay 0.5 -> 0.99 (train_samplenet.py:124-133):
     # the BatchNorms run with momentum 0 and the EMA happens in the step
     bn_schedule: bool = False
-    # bf16 compute waits for ROADMAP Queue 1 item 11; True raises
+    # bf16 compute dtype (parameters stay f32): models/pointnet_cls.py
     bf16: bool = False
 
 
@@ -94,25 +98,26 @@ class SampleNetConfig:
     # TF-style scheduled BN decay 0.5 -> 0.99 (train_samplenet.py:124-133):
     # the BatchNorms run with momentum 0 and the EMA happens in the step
     bn_schedule: bool = False
+    # bf16 compute dtype (parameters stay f32; no kernel in the conv chain,
+    # whose fused_* knobs it overrides): models/samplenet.py
+    bf16: bool = False
     # the train chain of the conv layers (nn/layers.py::resolve_fused_mode):
     # None or False = the exact-BN chain; True = the `fused_mode` chain
     fused_train: bool | None = None
     fused_mode: str = "ghost"
-    fused_bf16: bool | None = None   # None = bf16 for ghost
+    fused_bf16: bool | None = None   # None = bf16 for ghost, f32 for exact
 
 
 def create_classifier_state(cfg: ClassifierConfig, *, device="cuda",
                             seed: int = 0
                             ) -> tuple[PointNetClassifier, TrainState]:
     """The classifier (T-nets with `use_tnets`; BN momentum 0 under
-    `bn_schedule`) with flax-style initialisation from `seed`, and its
-    guarded Adam."""
-    if cfg.bf16:
-        raise ValueError("bf16 compute is not ported yet (ROADMAP Queue 1 "
-                         "item 11); the classifier trains in f32")
+    `bn_schedule`; bf16 compute with `bf16`) with flax-style
+    initialisation from `seed`, and its guarded Adam."""
     model = PointNetClassifier(
         cfg.num_classes, use_tnets=cfg.use_tnets,
         bn_momentum=0.0 if cfg.bn_schedule else 0.9,
+        dtype=torch.bfloat16 if cfg.bf16 else None,
         generator=torch.Generator().manual_seed(seed)).to(device)
     opt = adam_with_schedule(
         model.parameters(),
@@ -225,8 +230,9 @@ def train_classifier_loop(model, state, cfg: ClassifierConfig, train_data,
 
 def create_samplenet_state(scfg: SampleNetConfig, *, device="cuda",
                            seed: int = 0) -> tuple[SampleNet, TrainState]:
-    """The classification-track sampler (sigma = t^2, no clamp) with
-    flax-style initialisation from `seed`, and its guarded Adam."""
+    """The classification-track sampler (sigma = t^2, no clamp; bf16
+    compute with `bf16`) with flax-style initialisation from `seed`, and
+    its guarded Adam."""
     sampler = SampleNet(
         num_out_points=scfg.num_out_points,
         bottleneck_size=scfg.bottleneck_size,
@@ -239,6 +245,7 @@ def create_samplenet_state(scfg: SampleNetConfig, *, device="cuda",
         fused_train=scfg.fused_train,
         fused_mode=scfg.fused_mode,
         fused_bf16=scfg.fused_bf16,
+        dtype=torch.bfloat16 if scfg.bf16 else None,
         generator=torch.Generator().manual_seed(seed),
     ).to(device)
     opt = adam_with_schedule(

@@ -47,7 +47,7 @@ def parse_args(argv=None):
     p.add_argument("--bn-schedule", action="store_true",
                    help="TF-style scheduled BN decay 0.5->0.99")
     p.add_argument("--bf16", action="store_true",
-                   help="not ported yet (ROADMAP Queue 1 item 11)")
+                   help="bf16 compute dtype (parameters stay f32)")
     p.add_argument("--train-size", type=int, default=2000,
                    help="procedural dataset size")
     p.add_argument("--test-size", type=int, default=400)
@@ -60,8 +60,6 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.bf16:
-        raise ValueError("--bf16 is not ported yet (ROADMAP Queue 1 item 11)")
     if args.data_parallel:
         raise ValueError("--data-parallel is not ported yet (ROADMAP Queue 1 "
                          "item 9)")
@@ -79,6 +77,7 @@ def main(argv=None):
         learning_rate=args.learning_rate,
         use_tnets=args.use_tnets,
         bn_schedule=args.bn_schedule,
+        bf16=args.bf16,
     )
     model, state = create_classifier_state(cfg, device=device,
                                            seed=args.seed)

@@ -20,9 +20,11 @@ snapshot is published as `--log-dir`/ckpt (sampler.pth + config.json).
 conv layers: ghost BN (the ghost-BN kernel, bf16 operands unless
 `--fused-f32`) where the shapes allow it, else the exact-BN chain, which
 is also the chain without the flag; so `--no-fused-train` is left out.
-Flags of the JAX CLI left out: --bf16 and --conv-layout select TPU code
-paths (the port runs f32); --data-parallel waits for the multi-device
-slice.
+`--bf16` is the sampler's compute dtype (parameters f32; its conv chain
+then runs as bf16 tensor ops, no kernel, as in the JAX package); the
+frozen classifier stays f32. Flags of the JAX CLI left out:
+--conv-layout selects a TPU code path; --data-parallel waits for the
+multi-device slice.
 """
 
 from __future__ import annotations
@@ -77,6 +79,9 @@ def parse_args(argv=None):
     p.add_argument("--fused-f32", action="store_true",
                    help="f32 matmul operands in the ghost chain (default "
                         "bf16); this also changes its block of clouds")
+    p.add_argument("--bf16", action="store_true",
+                   help="bf16 compute dtype for the sampler (parameters "
+                        "stay f32)")
     add_classifier_args(p)
     p.add_argument("--train-size", type=int, default=2000)
     p.add_argument("--test-size", type=int, default=400)
@@ -149,6 +154,7 @@ def main(argv=None):
         fused_train=True if args.fused_train else None,
         fused_mode=args.fused_mode,
         fused_bf16=False if args.fused_f32 else None,
+        bf16=args.bf16,
     )
     sampler, state = create_samplenet_state(scfg, device=device,
                                             seed=args.seed)

@@ -402,10 +402,28 @@ def test_evaluate_classifier_matches_jax():
     assert got == [want] * 3
 
 
-def test_bf16_is_refused():
-    with pytest.raises(ValueError, match="Queue 1 item 11"):
-        pc.create_classifier_state(pc.ClassifierConfig(bf16=True),
-                                   device="cpu")
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_bf16_state_matches_jax(variant):
+    """ClassifierConfig(bf16=True) gives, as the JAX package's does, a
+    model that computes in bf16 while its parameters and statistics stay
+    f32, with the JAX tree's entries and shapes (the bf16 forward and
+    step against flax: tests/test_torch_port_bf16_compute.py)."""
+    kw = dict(num_classes=CLASSES, use_tnets=VARIANTS[variant], bf16=True)
+    jmodel, jstate = jc.create_classifier_state(
+        jc.ClassifierConfig(**kw, num_points=N), jax.random.PRNGKey(0))
+    port, pstate = pc.create_classifier_state(pc.ClassifierConfig(**kw),
+                                              device="cpu")
+    assert jmodel.dtype == jnp.bfloat16 and port.dtype == torch.bfloat16
+    want = pointnet_state_dict_from_jax(
+        {"params": _np(jstate.params), "batch_stats": _np(jstate.batch_stats)})
+    got = port.state_dict()
+    assert sorted(got) == sorted(want)
+    for k, t in got.items():
+        assert tuple(t.shape) == tuple(np.shape(want[k])), k
+        if not k.endswith("num_batches_tracked"):
+            assert t.dtype == torch.float32, k
+            assert np.asarray(want[k]).dtype == np.float32, k
+    assert pstate.step == 0
 
 
 # ------------------------------------------------------------ data helpers
@@ -457,8 +475,7 @@ def test_cli_writes_best_and_last(flags, tmp_path, capsys):
     assert model.use_tnets is use_tnets
 
 
-@pytest.mark.parametrize("flag,match", [("--bf16", "item 11"),
-                                        ("--data-parallel", "item 9")])
+@pytest.mark.parametrize("flag,match", [("--data-parallel", "item 9")])
 def test_cli_refuses_what_is_not_ported(flag, match, tmp_path):
     with pytest.raises(ValueError, match=match):
         train_classifier.main(CLI + [flag, "--log-dir", str(tmp_path)])

@@ -52,7 +52,10 @@ the clouds with equal points the correctness equal and the NLL at rtol
 against the plain path: launches, loss terms at rtol 1e-4, and each
 path's gradients against a float64 step replaying its own 1-NN and
 neighbour choices, the kernel's error at most twice the plain path's (or
-1e-4 norm-wise).
+1e-4 norm-wise). The bf16 modes: point_mlp_max and the exact chain with
+bf16 operands against their plain bf16 versions, norm-wise within 1e-3
+(the chain's backward on its own forward state, bit for bit from run to
+run), the f32 kernels as a control that must exceed it.
 """
 
 import contextlib
@@ -1487,3 +1490,138 @@ def test_matched_eval_kernel_path_matches_plain_path(dev, matching):
     assert np.array_equal(got["correct"][same], want["correct"][same])
     np.testing.assert_allclose(got["nll"][same], want["nll"][same],
                                rtol=1e-4)
+
+
+# ------------------------------------------------------------ bf16 modes
+
+BF16_TOL = 1e-3       # norm-wise, against the plain bf16 version
+
+
+def _max_bf16_case(rng, b, n, widths, dev):
+    x = _randn(rng, b, n, widths[0], dev=dev)
+    wbs = []
+    for cin, cout in zip(widths[:-1], widths[1:]):
+        wbs += [_randn(rng, cin, cout, dev=dev) / cin ** 0.5,
+                0.1 * _randn(rng, cout, dev=dev)]
+    return x, wbs
+
+
+@pytest.mark.parametrize("b,n,widths", [
+    (4, 1000, (3, 64, 64, 64, 128, 128)),     # N off the 64-point tile
+    (2, 1, (3, 64, 64, 64, 128, 128)),
+    (3, 77, (3, 12, 20)),                     # widths off the K step of 16
+    (4, 300, (16, 24, 8)),                    # a first layer on mma.sync
+    (3, 2048, (3, 64, 128, 128, 256, 128)),   # 256-wide layers
+])
+def test_point_mlp_max_bf16_matches_plain_bf16(dev, b, n, widths):
+    """bf16 operands on mma.sync m16n8k16 (FP32 FMAs for a first layer of
+    fewer than 16 channels) against the plain bf16 version, norm-wise
+    within BF16_TOL, counted as point_mlp_max_bf16; the kernel with bf16
+    off (3xTF32) exceeds it where the chain rounds often enough to show it
+    (three or more layers, 256 points or more)."""
+    from samplenet_tpu_torch.ops.cuda import point_mlp_max, point_mlp_max_plain
+    from samplenet_tpu_torch.ops.dispatch import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    x, wbs = _max_bf16_case(np.random.default_rng(b * 10 + n), b, n, widths,
+                            dev)
+    reset_launch_counts()
+    with torch.no_grad():
+        k = point_mlp_max(x, wbs, bf16=True)
+        off = point_mlp_max(x, wbs)
+        p = point_mlp_max_plain(x, wbs, True)
+    assert launch_counts() == {"point_mlp_max_bf16": 1, "point_mlp_max": 1}
+    gap, control = _norm_err(k, p), _norm_err(off, p)
+    print(f"point_mlp_max bf16 {widths} B={b} N={n}: {gap!r}, bf16 off "
+          f"{control!r}")
+    assert gap <= BF16_TOL
+    if b * n >= 256 and len(widths) > 3:
+        assert control > BF16_TOL
+
+
+def _exact_bf16_gaps(x, params, g, bf16):
+    """(outputs gap, backward gap, backward bits repeat): the exact chain's
+    kernels (bf16 on or off) against the plain bf16 version, norm-wise,
+    the backward on the kernel forward's own state."""
+    from samplenet_tpu_torch.ops.cuda import point_mlp_exact_kernel as pme
+
+    weights, _, gammas, betas = params
+    fk = pme.point_mlp_exact_fwd_cuda(x, weights, gammas, betas, 1e-5, bf16)
+    fp = pme.point_mlp_exact_fwd_plain(x, weights, gammas, betas, 1e-5, True)
+    bk = [pme.point_mlp_exact_bwd_cuda(x, weights, gammas, betas, fk[3], g,
+                                       bf16) for _ in range(2)]
+    zs, mus, rstds, argmax = fk[3]
+    bp = pme.point_mlp_exact_bwd_plain(x, weights, gammas, betas,
+                                       (zs, mus, rstds, argmax.long()), g,
+                                       True)
+    torch.cuda.synchronize()
+    flat = lambda gr: [gr[0], *gr[1], *gr[2], *gr[3]]  # noqa: E731
+    out = max(_norm_err(a, r) for a, r in zip(
+        [fk[0], *fk[1], *fk[2]], [fp[0], *fp[1], *fp[2]]))
+    bwd = max(_norm_err(a, r) for a, r in zip(flat(bk[0]), flat(bp)))
+    same = all(torch.equal(a, c) for a, c in zip(flat(bk[0]), flat(bk[1])))
+    return out, bwd, same
+
+
+@pytest.mark.parametrize("b,n,widths", [
+    (8, 1000, (3, 64, 64, 64, 128, 128)),   # N off the 64-point tile
+    (3, 256, (3, 12, 20)),                  # widths off the K step
+    (2, 300, (3, 64, 512)),                 # pmt_bwd_dz with K chunks
+])
+def test_point_mlp_exact_bf16_matches_plain_bf16(dev, b, n, widths):
+    """The exact chain with bf16 operands (backward mode 2: xhat in f32,
+    dh read back in bf16, rows from the unrounded dh) against the plain
+    bf16 version, norm-wise within BF16_TOL: the forward, and the backward
+    on the kernel forward's own state, bit for bit from run to run; the
+    kernels with bf16 off exceed it; through autograd the dense biases get
+    exact zeros and the launches count as point_mlp_exact_bf16_*."""
+    from samplenet_tpu_torch.ops.cuda import point_mlp_exact_train_max
+    from samplenet_tpu_torch.ops.dispatch import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    rng = np.random.default_rng(b * 1000 + n + 16)
+    x, params, g = _ghost_args(rng, b, n, widths, dev)
+    out, bwd, same = _exact_bf16_gaps(x, params, g, True)
+    out_off, bwd_off, _ = _exact_bf16_gaps(x, params, g, False)
+    print(f"exact bf16 {widths} B={b} N={n}: {out!r}, {bwd!r}; bf16 off "
+          f"{out_off!r}, {bwd_off!r}")
+    assert out <= BF16_TOL and bwd <= BF16_TOL and same
+    assert out_off > BF16_TOL and bwd_off > BF16_TOL
+    xg = x.clone().requires_grad_(True)
+    pg = [[t.clone().requires_grad_(True) for t in grp] for grp in params]
+    reset_launch_counts()
+    pooled, _, _ = point_mlp_exact_train_max(xg, *pg, bf16=True)
+    (pooled * g).sum().backward()
+    torch.cuda.synchronize()
+    assert launch_counts() == {"point_mlp_exact_bf16_fwd": 1,
+                               "point_mlp_exact_bf16_bwd": 1}
+    assert not any(t.grad.any() for t in pg[1])
+
+
+def test_eval_forward_bf16_matches_the_plain_matcher(dev):
+    """SampleNet with eval_bf16: the forward launches point_mlp_max_bf16,
+    and its hard matching equals the plain matcher's on its own
+    simplified cloud, bit for bit."""
+    from samplenet_tpu_torch.models import SampleNet
+    from samplenet_tpu_torch.ops.dispatch import (
+        launch_counts,
+        plain_on_cuda,
+        reset_launch_counts,
+    )
+    from samplenet_tpu_torch.ops.matching import nn_match_from_clouds
+
+    net = SampleNet(16, 64, eval_bf16=True,
+                    generator=torch.Generator().manual_seed(3)).to(dev).eval()
+    x = _randn(np.random.default_rng(3), 6, 500, 3, dev=dev)
+    reset_launch_counts()
+    with torch.no_grad():
+        simp, matched = net(x)
+        counts = launch_counts()
+        with plain_on_cuda():
+            pts, _ = nn_match_from_clouds(x, simp, 16)
+    assert counts == {"point_mlp_max_bf16": 1, "nn_direction": 1, "fps": 1}
+    assert torch.equal(matched, pts)

@@ -186,11 +186,15 @@ def test_fused_mode_rule_matches_jax(fused_train, fused_mode, fused_bf16,
 
 
 def test_fused_mode_rule_refuses_bf16_exact_and_unknown_modes():
+    """The exact mode in bf16 resolves (it was refused before the exact
+    chain had a bf16 mode): to the bf16 chain where the JAX package's TPU
+    runs its exact kernel, to the f32 chain where it falls back to its XLA
+    chain (one layer); an unknown mode is still refused."""
     x = torch.zeros(4, 128, 3)
-    with pytest.raises(ValueError, match="f32"):
-        layers.resolve_fused_mode(x, (8,), training=True, pool_max=True,
-                                  fused_train=True, fused_mode="exact",
-                                  fused_bf16=True)
+    for widths, want in (((8,), "exact"), ((8, 16), "exact_bf16")):
+        assert layers.resolve_fused_mode(
+            x, widths, training=True, pool_max=True, fused_train=True,
+            fused_mode="exact", fused_bf16=True) == want
     with pytest.raises(ValueError, match="fused_mode"):
         layers.resolve_fused_mode(x, (8,), training=True, pool_max=True,
                                   fused_mode="fast")

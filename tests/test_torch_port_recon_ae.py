@@ -141,7 +141,7 @@ def test_eval_point_mlp_takes_the_kernel_from_128_points(n, kernel,
     calls = []
     real = point_mlp_kernel.point_mlp_max
     monkeypatch.setattr(layers, "point_mlp_max",
-                        lambda *a: calls.append(1) or real(*a))
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
     mlp = layers.PointMLP(3, (16, 32))
     for p in mlp.parameters():
         p.requires_grad_(False)

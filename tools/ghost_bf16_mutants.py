@@ -33,21 +33,22 @@ MUTANTS = {  # name -> edits (file, text, its replacement), each text once
     # the forward's (pmt_dense's loader), and pmt_bwd_dw's h_prev
     "activations unrounded": [
         (CU, "__float_as_uint(rnd(v[j], kBf16));", "__float_as_uint(v[j]);"),
-        (CU, "          v = rnd(v, kBf16);", "          v = v;")],
+        (CU, "          v = rnd(v, R::op);", "          v = v;")],
     "dz unrounded": [(
-        CU, "v[j] = rnd(rstd2 * (gamma * dy - r1 - xh * r2), kBf16);",
+        CU, "v[j] = rnd(rstd2 * (gamma * dy - r1 - xh * r2), R::op);",
         "v[j] = rstd2 * (gamma * dy - r1 - xh * r2);")],
     "mask from unrounded xhat": [  # the rows pass's, and pmt_bwd_dz's
         (CU, "*xh = rnd(ghost_xhat(bn, blk, c, c_out, z[gp * c_out + c]), "
              "store);",
          "*xh = ghost_xhat(bn, blk, c, c_out, z[gp * c_out + c]);"),
         (CU, "const float xh = rnd(__fmul_rn(__fsub_rn(zv[j], mu), rstd), "
-             "kBf16);",
+             "R::xhat);",
          "const float xh = __fmul_rn(__fsub_rn(zv[j], mu), rstd);")],
     "h_prev from unrounded xhat": [(
-        CU, "const float xh = rnd(__fmul_rn(__fsub_rn(v, mu), rstd), kBf16);",
+        CU, "const float xh = rnd(__fmul_rn(__fsub_rn(v, mu), rstd), "
+            "R::xhat);",
         "const float xh = __fmul_rn(__fsub_rn(v, mu), rstd);")],
-    "rstd not recomputed": [(PY, "if bf16 and i > 0:", "if False:")],
+    "rstd not recomputed": [(PY, "if store and i > 0:", "if False:")],
 }
 
 

@@ -22,7 +22,11 @@ events around each call, host time included:
   N=1024): its forward and its backward per call, and their splits;
 - for each train-chain shape, a digest (SHA-1) of the forward kernels'
   outputs (pooled, statistics, z, argmax) and of the backward kernels'
-  gradients: equal digests from two checkouts mean bit-equal results.
+  gradients, and one of `point_mlp_max`'s output: equal digests from two
+  checkouts mean bit-equal results;
+- where the checkout has them, the bf16 modes: `point_mlp_max(...,
+  bf16=True)` at the serving shape, and the exact chain's forward and
+  backward kernels with bf16 at each train-chain shape.
 
 To compare two checkouts on one card, run it four times in a row: A, B,
 B, A.
@@ -32,6 +36,7 @@ from __future__ import annotations
 
 import hashlib
 import importlib.util
+import inspect
 import os
 import sys
 
@@ -124,8 +129,13 @@ def main() -> int:
 
     print(f"[{tag}] point_mlp_max B={cs.B}, N={cs.N}, widths {cs.WIDTHS}: "
           f"{median_ms(lambda: point_mlp_max(y, wbs))!r} ms per call; eval "
-          f"forward + matching {median_ms(forward_eval)!r} ms per call",
-          flush=True)
+          f"forward + matching {median_ms(forward_eval)!r} ms per call; "
+          f"bits {digest(point_mlp_max(y, wbs))}", flush=True)
+    has_bf16 = "bf16" in inspect.signature(point_mlp_max).parameters
+    if has_bf16:
+        print(f"[{tag}] point_mlp_max bf16: "
+              f"{median_ms(lambda: point_mlp_max(y, wbs, bf16=True))!r} ms "
+              f"per call", flush=True)
     del model, clouds, y
 
     for b, n, widths in SHAPES:
@@ -160,6 +170,16 @@ def main() -> int:
         bwd = pme.point_mlp_exact_bwd_cuda(xd, ws, gs, bes, fwd[3], g)
         print(f"[{tag}] bits of B={b}, N={n}: forward {digest(fwd)}, "
               f"backward {digest(bwd)}", flush=True)
+        if has_bf16:
+            saved16 = pme.point_mlp_exact_fwd_cuda(xd, ws, gs, bes, 1e-5,
+                                                   True)[3]
+            f16 = median_ms(lambda: pme.point_mlp_exact_fwd_cuda(
+                xd, ws, gs, bes, 1e-5, True))
+            b16 = median_ms(lambda: pme.point_mlp_exact_bwd_cuda(
+                xd, ws, gs, bes, saved16, g, True))
+            print(f"[{tag}] B={b}, N={n} in bf16: forward kernels {f16!r} "
+                  f"ms, backward kernels {b16!r} ms per call", flush=True)
+            del saved16
         del saved, fwd, bwd
         torch.cuda.empty_cache()
 
