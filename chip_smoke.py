@@ -41,7 +41,16 @@ bottleneck 128, k=8, both clouds sampled, against it frozen), and:
      BatchedSampler, and requires every kernel to have launched;
   5. starts `python -m samplenet_tpu_torch.serve` on port 0, posts 4
      concurrent requests (64 clouds) and requires answers bit-equal to a
-     direct BatchedSampler call and kernel launches in the server;
+     direct BatchedSampler call and kernel launches in the server; then
+     (artifact) requires the f32 point_mlp_max, now through its
+     torch.library op, to keep PR 16's SHA-1 digest, writes the serving
+     artifact with `serve --export-artifact` on the card (B=256), requires
+     its torch.export graph to hold samplenet::point_mlp_max, nn_direction
+     and fps, loads it in the process (ArtifactSampler), requires its
+     answer bit-equal to BatchedSampler with all three kernels launched,
+     and serves it with `serve --artifact`: 4 concurrent POSTs bit-equal to
+     BatchedSampler, all three kernels launched in the server; prints the
+     export, load and first-call seconds;
   6. holds the train kernels against their plain versions: point_mlp_exact
      (exact-BN conv chain + max, forward and backward) and soft_projection
      (k-NN softmax mixture, forward and backward), at the train step's
@@ -72,7 +81,13 @@ bottleneck 128, k=8, both clouds sampled, against it frozen), and:
      evaluation, and requires each of the track's kernels to have launched;
  11. (recon_cli) runs `python -m samplenet_tpu_torch.train.
      train_reconstruction` --phase ae (EMD loss), then --phase samplenet
-     on its checkpoint with --fps-baseline, and with --progressive;
+     on its checkpoint with --fps-baseline, and with --progressive; then
+     (ae_analysis) runs models/ae_analysis.py's nn_distances_per_cloud
+     (B=50 clouds of 2048 points, 64 FPS points a cloud, the seeded AE)
+     on the kernel path and under plain_on_cuda(): the 1-NN indices both
+     ways equal, the per-cloud distances bit for bit, nn_direction
+     launched; and reconstructions_from_sampled of the full clouds
+     (point_mlp_max launched) within 1e-4;
  12. (compare, progressive) holds nn_snap bit for bit against its plain
      version at B=32, 1024 -> 1024 and at a ragged shape (N1 = 1000,
      N2 = 2500), and the ghost-BN chain point_mlp_train (forward and
@@ -430,6 +445,13 @@ BF16_KERNELS = {
 # kernel with bf16 off must exceed it
 BF16_TOL = 1e-3
 BF16_STEPS = 2                 # per train configuration on the main path
+# the serving artifact: a frozen torch.export program of the eval forward
+# at the daemon's default batch; the f32 point_mlp_max's digest on
+# tools/time_exact_chain.py's inputs (PR 16, PERF.md), which the op must keep
+ARTIFACT_B = 256
+MAX_DIGEST = "ea0490ae91c9"
+ARTIFACT_OPS = ("samplenet.point_mlp_max.default",
+                "samplenet.nn_direction.default", "samplenet.fps.default")
 # the card's published peaks (NVIDIA H100 SXM data sheet), and its
 # special-function rate: 16 exp2 / rsqrt / rcp results
 # per SM per clock on compute capability 9.0 (CUDA C++ Programming Guide,
@@ -866,12 +888,14 @@ def phase_end_to_end(torch, model, clouds) -> dict[str, int]:
     return counts
 
 
-def _start_server(weights: str):
+def _start_server(source: list[str]):
+    """`python -m samplenet_tpu_torch.serve` on `source` (--weights or
+    --artifact) at port 0; (process, port)."""
     env = dict(os.environ)
     env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
     proc = subprocess.Popen(
-        [sys.executable, "-m", "samplenet_tpu_torch.serve", "--weights",
-         weights, "--device", DEVICE, "--num-points", str(N), "--max-batch", "256",
+        [sys.executable, "-m", "samplenet_tpu_torch.serve", *source,
+         "--device", DEVICE, "--num-points", str(N), "--max-batch", "256",
          "--port", "0"],
         cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True)
@@ -901,7 +925,7 @@ def _start_server(weights: str):
 def phase_serve(torch, model, weights: str) -> None:
     from samplenet_tpu_torch.serving import BatchedSampler
 
-    proc, port = _start_server(weights)
+    proc, port = _start_server(["--weights", weights])
     try:
         base = f"http://127.0.0.1:{port}"
         with urllib.request.urlopen(f"{base}/healthz", timeout=60) as r:
@@ -935,12 +959,184 @@ def phase_serve(torch, model, weights: str) -> None:
                      f"direct BatchedSampler call; server kernel launches "
                      f"{counts}")
     finally:
-        proc.terminate()
-        try:
-            proc.wait(timeout=30)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait(timeout=30)
+        _stop(proc)
+
+
+def _stop(proc) -> None:
+    proc.terminate()
+    try:
+        proc.wait(timeout=30)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=30)
+
+
+def _max_digest(torch) -> str:
+    """SHA-1 of the f32 point_mlp_max at tools/time_exact_chain.py's
+    inputs, through the wrapper and its op."""
+    import hashlib
+
+    from samplenet_tpu_torch.ops.cuda import point_mlp_max
+
+    rng = np.random.default_rng(0)
+    y = torch.from_numpy(rng.standard_normal((B, N, 3)).astype(
+        np.float32)).to(DEVICE)
+    wbs = _mlp_weights(torch, rng, DEVICE)
+    out = point_mlp_max(y, wbs).cpu().numpy()
+    return hashlib.sha1(out.tobytes()).hexdigest()[:12]
+
+
+def phase_artifact(torch, model, weights: str, tmp: str) -> None:
+    """The serving artifact: `serve --export-artifact` on the card, the
+    program exported and loaded in the process (their seconds), its graph,
+    its output against a direct BatchedSampler bit for bit with the launch
+    counters around it, and `serve --artifact` answering 4 concurrent
+    POSTs bit-equal to BatchedSampler, launching all three eval kernels."""
+    import io
+
+    from samplenet_tpu_torch.ops.dispatch import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from samplenet_tpu_torch.serving import (
+        ArtifactSampler,
+        BatchedSampler,
+        read_artifact,
+        save_exported,
+    )
+
+    bits = _max_digest(torch)
+    if bits != MAX_DIGEST:
+        raise AssertionError(f"point_mlp_max through its op: digest {bits}, "
+                             f"PR 16 recorded {MAX_DIGEST}")
+    log("artifact", f"f32 point_mlp_max through samplenet::point_mlp_max: "
+                    f"digest {bits}, PR 16's")
+    art = os.path.join(tmp, "sampler_cli.sntpt")
+    _, cli_s = _cli(["samplenet_tpu_torch.serve", "--weights", weights,
+                     "--device", DEVICE, "--num-points", str(N),
+                     "--max-batch", str(ARTIFACT_B), "--export-artifact",
+                     art], "serve --export-artifact")
+    t0 = time.monotonic()
+    save_exported(os.path.join(tmp, "sampler.sntpt"), model,
+                  batch=ARTIFACT_B, num_points=N, freeze_params=True,
+                  device=DEVICE, metadata={"num_out_points": M})
+    export_s = time.monotonic() - t0
+    header, blob = read_artifact(art)
+    program = torch.export.load(io.BytesIO(blob))
+    ops = sorted({str(n.target) for n in program.graph.nodes
+                  if str(n.target).startswith("samplenet.")})
+    if ops != sorted(ARTIFACT_OPS) \
+            or torch.device(header["device"]).type != DEVICE:
+        raise AssertionError(f"artifact: ops {ops}, header {header}")
+    t0 = time.monotonic()
+    sampler = ArtifactSampler(art, DEVICE)
+    torch.cuda.synchronize()
+    load_s = time.monotonic() - t0
+    clouds = np.random.default_rng(SEED + 6).standard_normal(
+        (ARTIFACT_B, N, 3)).astype(np.float32)
+    reset_launch_counts()
+    t0 = time.monotonic()
+    first = sampler(clouds)
+    first_s = time.monotonic() - t0
+    counts = launch_counts()
+    direct = BatchedSampler(model, max_batch=ARTIFACT_B, num_points=N,
+                            device=DEVICE)
+    if not np.array_equal(first, direct(clouds)):
+        raise AssertionError("artifact in the process != BatchedSampler")
+    missing = [k for k in KERNELS if counts.get(k, 0) < 1]
+    if missing:
+        raise AssertionError(f"the artifact launched no {missing}: {counts}")
+    log("artifact", f"B={ARTIFACT_B}, N={N}, m={M} on {header['device']} "
+                    f"({len(blob)} bytes): serve --export-artifact "
+                    f"{cli_s:.2f} s (process included), save_exported in "
+                    f"the process {export_s:.2f} s, ArtifactSampler load "
+                    f"{load_s:.2f} s, first call {first_s:.3f} s; graph "
+                    f"ops {ops}; bit-equal to BatchedSampler; launches "
+                    f"{counts}")
+    proc, port = _start_server(["--artifact", art])
+    try:
+        base = f"http://127.0.0.1:{port}"
+        rng = np.random.default_rng(SEED + 7)
+        reqs = [rng.standard_normal((16, N, 3)).astype("<f4")
+                for _ in range(4)]
+
+        def post(c):
+            req = urllib.request.Request(f"{base}/sample", data=c.tobytes(),
+                                         method="POST")
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return np.frombuffer(r.read(), "<f4").reshape(len(c), M, 3)
+
+        with ThreadPoolExecutor(len(reqs)) as pool:
+            answers = list(pool.map(post, reqs))
+        for i, (c, got) in enumerate(zip(reqs, answers)):
+            if not np.array_equal(got, direct(c)):
+                raise AssertionError(f"artifact request {i}: served != "
+                                     f"direct")
+        with urllib.request.urlopen(f"{base}/healthz", timeout=60) as r:
+            meta = json.loads(r.read())
+        served = meta["kernel_launches"]
+        missing = [k for k in KERNELS if served.get(k, 0) < 1]
+        if missing or meta["requests_served"] != 64 \
+                or meta["artifact"]["frozen_params"] is not True:
+            raise AssertionError(f"artifact server: missing {missing}, "
+                                 f"meta {meta}")
+        log("artifact", f"serve --artifact: {len(reqs)} concurrent POST "
+                        f"/sample, 64 clouds, bit-equal to a direct "
+                        f"BatchedSampler; server kernel launches {served}")
+    finally:
+        _stop(proc)
+
+
+def phase_ae_analysis(torch, data) -> None:
+    """ae_analysis at the reconstruction shape (B=50 clouds of 2048 points,
+    the seeded AE at its published widths): nn_distances_per_cloud on 64
+    FPS-sampled points a cloud, kernel path against plain_on_cuda() (the
+    1-NN indices of both directions equal, the per-cloud distances bit for
+    bit, nn_direction launched), and reconstructions_from_sampled of the
+    full clouds, where the encoder is point_mlp_max (within 1e-4 of the
+    plain path, point_mlp_max's tolerance)."""
+    from samplenet_tpu_torch.models import ae_analysis
+    from samplenet_tpu_torch.ops.chamfer import nn_distance
+    from samplenet_tpu_torch.ops.dispatch import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from samplenet_tpu_torch.ops.fps import farthest_point_sample_with_points
+
+    ae, _, _ = _recon_state(torch, "ae")
+    ae.eval()
+    x = torch.from_numpy(data).to(DEVICE)
+    _, s = farthest_point_sample_with_points(RECON_M, x)
+    samples = s.cpu().numpy()
+    runs = {}
+    for plain in (False, True):
+        reset_launch_counts()
+        with _ctx(plain):
+            dist = ae_analysis.nn_distances_per_cloud(ae, data, samples,
+                                                      batch_size=RECON_B)
+            with torch.no_grad():
+                _, i1, _, i2 = nn_distance(ae(s), x)
+            recon = ae_analysis.reconstructions_from_sampled(ae, data)
+        torch.cuda.synchronize()
+        runs[plain] = (dist, i1, i2, recon, launch_counts())
+    (dk, i1k, i2k, rk, counts), (dp, i1p, i2p, rp, plain_counts) = \
+        runs[False], runs[True]
+    if not (torch.equal(i1k, i1p) and torch.equal(i2k, i2p)):
+        raise AssertionError("ae_analysis: 1-NN indices differ from plain")
+    if not np.array_equal(dk, dp) or not np.isfinite(dk).all():
+        raise AssertionError(f"nn_distances_per_cloud: {dk[:4]} kernel, "
+                             f"{dp[:4]} plain")
+    np.testing.assert_allclose(rk, rp, rtol=1e-4, atol=1e-4)
+    for k in ("nn_direction", "point_mlp_max"):
+        if counts.get(k, 0) < 1 or plain_counts.get(k, 0):
+            raise AssertionError(f"ae_analysis launches: {counts}, plain "
+                                 f"{plain_counts}")
+    log("ae_analysis", f"B={RECON_B}, {RECON_N} points, {RECON_M} sampled: "
+                       f"nn_distances_per_cloud bit-equal to plain_on_cuda "
+                       f"(mean {float(dk.mean())!r}), 1-NN indices equal "
+                       f"both ways; reconstructions_from_sampled of the "
+                       f"full clouds max |d| {float(np.abs(rk - rp).max())!r}"
+                       f" (tol 1e-4); launches {counts}")
 
 
 def _time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
@@ -4200,6 +4396,7 @@ def main() -> int:
         torch.save({f"sampler.{k}": v.cpu() for k, v in
                     model.state_dict().items()}, weights)
         _timed(phase_serve, torch, model, weights)
+        _timed(phase_artifact, torch, model, weights, tmp)
     train_errs = _timed(phase_compare_train, torch)
     data, labels, classifier = make_train_setup(torch)
     train_counts = _timed(phase_train_step, torch, data, labels, classifier)
@@ -4208,6 +4405,7 @@ def main() -> int:
     recon_data, recon_x = make_recon_data(torch)
     recon_counts = _timed(phase_recon_train, torch, recon_data, recon_x)
     _timed(phase_recon_cli, torch)
+    _timed(phase_ae_analysis, torch, recon_data)
     prog_errs = _timed(phase_compare_progressive, torch)
     px = torch.from_numpy(data[:PROG_B]).to(DEVICE)
     py = torch.from_numpy(labels[:PROG_B]).to(DEVICE)

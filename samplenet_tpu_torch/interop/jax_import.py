@@ -8,7 +8,8 @@ prefix=...)` does, and the port's SampleNet loads that state_dict as is;
 an FC head without BN (the reconstruction track's sampler) has no bn_fc
 keys. `pointnet_state_dict_from_jax` (vanilla or T-net) and
 `autoencoder_state_dict_from_jax` map the classifier's and the
-autoencoder's trees to the port's modules, and `infer_pointnet_config`
+autoencoder's trees to the port's modules, `conv_decoder_state_dict_from_jax`
+the ConvDecoder variant's, and `infer_pointnet_config`
 reads the classifier's variant off its keys. `pcrnet_state_dict_from_jax`
 maps PCRNet's tree to the keys `pcrnet_to_torch` writes, and
 `infer_pcrnet_config` reads its bottleneck off them.
@@ -180,6 +181,38 @@ def autoencoder_state_dict_from_jax(variables: dict[str, Any]
         sd[f"{name}.weight"] = np.ascontiguousarray(
             np.asarray(p[name]["kernel"]).T)
         sd[f"{name}.bias"] = np.asarray(p[name]["bias"])
+    return sd
+
+
+def conv_decoder_state_dict_from_jax(variables: dict[str, Any]
+                                    ) -> dict[str, np.ndarray]:
+    """The port's `ConvDecoder` state_dict (numpy values) of a flax
+    `ConvDecoder` variable tree ({"params", "batch_stats"} without BN
+    only "params"). Keys:
+
+      expand, out                  -> expand.weight [out, in], .bias, out.*
+      convs/dense_i, convs/bn_i    -> convs.conv{i+1}.weight [out, in, 1],
+                                      convs.conv{i+1}.bias, convs.bn{i+1}.*
+    """
+    p, s = variables["params"], variables.get("batch_stats", {})
+    convs, convs_s = p["convs"], s.get("convs", {})
+    sd: dict[str, np.ndarray] = {}
+    for name in ("expand", "out"):
+        sd[f"{name}.weight"] = np.ascontiguousarray(
+            np.asarray(p[name]["kernel"]).T)
+        sd[f"{name}.bias"] = np.asarray(p[name]["bias"])
+    for i in range(sum(1 for k in convs if k.startswith("dense_"))):
+        k = np.asarray(convs[f"dense_{i}"]["kernel"])
+        sd[f"convs.conv{i+1}.weight"] = np.ascontiguousarray(k.T)[:, :, None]
+        sd[f"convs.conv{i+1}.bias"] = np.asarray(convs[f"dense_{i}"]["bias"])
+        if f"bn_{i}" in convs:
+            sd[f"convs.bn{i+1}.weight"] = np.asarray(convs[f"bn_{i}"]["scale"])
+            sd[f"convs.bn{i+1}.bias"] = np.asarray(convs[f"bn_{i}"]["bias"])
+            sd[f"convs.bn{i+1}.running_mean"] = np.asarray(
+                convs_s[f"bn_{i}"]["mean"])
+            sd[f"convs.bn{i+1}.running_var"] = np.asarray(
+                convs_s[f"bn_{i}"]["var"])
+            sd[f"convs.bn{i+1}.num_batches_tracked"] = np.asarray(0)
     return sd
 
 

@@ -11,8 +11,8 @@ eval for N >= 128 where no gradient must cross it); the decoder is FC
 autoencoder_state_dict_from_jax). The losses: Chamfer (both directions
 through the nn_direction kernel), approximate EMD (the fused EMD kernel),
 and the soft-assignment loss, plain tensor code as it is plain XLA in JAX.
-
-The JAX package's `ConvDecoder` variant is not ported yet (ROADMAP).
+`ConvDecoder` is the JAX package's per-point conv decoder variant
+(:150-169), tensor ops as in JAX, where no Pallas kernel runs.
 """
 
 from __future__ import annotations
@@ -70,6 +70,36 @@ class PointNetAE(nn.Module):
         _, y = farthest_point_sample_with_points(x_reconstr.shape[1],
                                                  x_reconstr.contiguous())
         return y
+
+
+class ConvDecoder(nn.Module):
+    """Per-point conv decoder (reconstruction/src/encoders_decoders.py
+    decoder_with_convs_only; samplenet_tpu/models/autoencoder.py:150-169):
+    the latent [B, d] is expanded by `expand` to `num_output_points` slots
+    of d // 4 channels, refined by a per-point MLP of `widths` (BN + ReLU
+    with `use_bn`, no pool) and mapped to 3 coordinates a point by `out`.
+    Flax infers d at the first call; here it is `latent_size`."""
+
+    def __init__(self, num_output_points: int, latent_size: int,
+                 widths: tuple = (256, 128), use_bn: bool = True, *,
+                 device=None, generator: torch.Generator | None = None):
+        super().__init__()
+        gen = default_generator(generator)
+        self.num_output_points = num_output_points
+        self.latent_size = latent_size
+        self.expand = Linear(latent_size,
+                             num_output_points * (latent_size // 4),
+                             device=device, generator=gen)
+        self.convs = PointMLP(latent_size // 4, widths, use_bn=use_bn,
+                              device=device, generator=gen)
+        self.out = Linear(widths[-1], 3, device=device, generator=gen)
+
+    def forward(self, z: torch.Tensor, training: bool = False
+                ) -> torch.Tensor:
+        """[B, latent_size] -> [B, num_output_points, 3]."""
+        x = self.expand(z).reshape(z.shape[0], self.num_output_points,
+                                   self.latent_size // 4)
+        return self.out(self.convs(x, training=training))
 
 
 def ae_chamfer_loss(x_reconstr: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:

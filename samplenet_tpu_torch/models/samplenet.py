@@ -1,8 +1,8 @@
 """SampleNet: simplification network + soft projection (training) or
-on-device hard matching (eval); and FPSSampler, the FPS baseline with
-SampleNet's call contract.
+on-device hard matching (eval); and FPSSampler and RandomSampler, the
+FPS and uniform random baselines with SampleNet's call contract.
 
-Mirrors samplenet_tpu/models/samplenet.py:36-200. The simplification
+Mirrors samplenet_tpu/models/samplenet.py:36-264. The simplification
 network is a per-point MLP (3->64->64->64->128->bottleneck, BN+ReLU), a
 global max over points and an FC head (256->256->256->3m, BN+ReLU except
 the linear output), registration/src/samplenet.py:40-59,90-104. At eval,
@@ -45,7 +45,10 @@ from samplenet_tpu_torch.nn.layers import (
     mlp_head,
     point_mlp,
 )
-from samplenet_tpu_torch.ops.fps import farthest_point_sample_with_points
+from samplenet_tpu_torch.ops.fps import (
+    farthest_point_sample_with_points,
+    gather_point,
+)
 from samplenet_tpu_torch.ops.matching import nn_match_from_clouds
 
 
@@ -204,6 +207,47 @@ class FPSSampler(nn.Module):
                               device=x.device) if self.permute else 0
         _, y = farthest_point_sample_with_points(self.num_out_points, x,
                                                  start_idx=start)
+        y = _from_bnc(y, self.output_shape)
+        return y, y
+
+    def get_simplification_loss(self, ref_pc: torch.Tensor, *args,
+                                **kwargs) -> torch.Tensor:
+        return torch.zeros((), device=ref_pc.device)
+
+    def get_projection_loss(self, *args, **kwargs) -> torch.Tensor:
+        return torch.zeros(())
+
+
+def random_subset_indices(keys: torch.Tensor, m: int) -> torch.Tensor:
+    """[B, m] int32: the positions of each row's m largest keys, descending;
+    on i.i.d. uniform keys [B, N] a uniform m-subset drawn without
+    replacement (samplenet_tpu/models/samplenet.py:253-256)."""
+    return torch.topk(keys, m, dim=1).indices.to(torch.int32)
+
+
+class RandomSampler(nn.Module):
+    """Uniform random sampling without replacement, the random baseline
+    (registration/src/random_sampling.py; samplenet_tpu/models/
+    samplenet.py:234-264): each cloud keeps the points of its m largest
+    i.i.d. uniform keys, drawn from `generator`. Returns (sampled,
+    sampled); both losses are zero."""
+
+    def __init__(self, num_out_points: int, input_shape: str = "bnc",
+                 output_shape: str = "bnc"):
+        super().__init__()
+        self.num_out_points = num_out_points
+        self.input_shape = input_shape
+        self.output_shape = output_shape
+
+    def forward(self, x: torch.Tensor, training: bool = False,
+                generator: torch.Generator | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        if generator is None:
+            raise ValueError("RandomSampler draws from an explicit "
+                             "torch.Generator; pass generator=")
+        x = _to_bnc(x, self.input_shape)
+        keys = torch.rand(x.shape[:2], generator=generator, device=x.device)
+        y = gather_point(x, random_subset_indices(keys, self.num_out_points))
         y = _from_bnc(y, self.output_shape)
         return y, y
 

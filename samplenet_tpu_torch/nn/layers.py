@@ -350,30 +350,32 @@ def mlp_head(owner: nn.Module, n_layers: int, x: torch.Tensor, *,
 
 
 class PointMLP(nn.Module):
-    """Per-point MLP over [B, N, C]: conv -> BN -> ReLU on every layer.
-    `fused_train`, `fused_mode` and `fused_bf16` select its train chain
-    (`resolve_fused_mode`), `dtype` its compute dtype and `eval_bf16` the
-    eval kernel's operands (`point_mlp`)."""
+    """Per-point MLP over [B, N, C]: conv -> BN -> ReLU on every layer, or
+    conv -> ReLU without `use_bn`. `fused_train`, `fused_mode` and
+    `fused_bf16` select its train chain (`resolve_fused_mode`), `dtype` its
+    compute dtype and `eval_bf16` the eval kernel's operands
+    (`point_mlp`)."""
 
     def __init__(self, in_features: int, features: Sequence[int], *,
-                 bn_momentum: float = BN_MOMENTUM,
+                 use_bn: bool = True, bn_momentum: float = BN_MOMENTUM,
                  fused_train: bool | None = None, fused_mode: str = "ghost",
                  fused_bf16: bool | None = None,
                  dtype: torch.dtype | None = None, eval_bf16: bool = False,
                  device=None, generator: torch.Generator | None = None):
         super().__init__()
         self.features = tuple(features)
+        self.use_bn = use_bn
         self.fused = dict(fused_train=fused_train, fused_mode=fused_mode,
                           fused_bf16=fused_bf16, dtype=dtype,
                           eval_bf16=eval_bf16)
-        add_point_mlp(self, in_features, self.features,
+        add_point_mlp(self, in_features, self.features, use_bn=use_bn,
                       bn_momentum=bn_momentum, device=device,
                       generator=generator)
 
     def forward(self, x: torch.Tensor, training: bool = False,
                 pool_max: bool = False) -> torch.Tensor:
         return point_mlp(self, len(self.features), x, training=training,
-                         pool_max=pool_max, **self.fused)
+                         pool_max=pool_max, use_bn=self.use_bn, **self.fused)
 
 
 class MLPHead(nn.Module):

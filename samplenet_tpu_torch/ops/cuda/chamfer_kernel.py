@@ -61,14 +61,58 @@ def nn_direction_plain(x: torch.Tensor, y: torch.Tensor
 
 def nn_direction(x: torch.Tensor, y: torch.Tensor
                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(dist [B, N1], idx [B, N1]): NN of every x point in y. CPU tensors
-    take `nn_direction_plain`, CUDA tensors the kernel (ops/dispatch.py)."""
+    """(dist [B, N1], idx [B, N1]): NN of every x point in y, through the
+    op samplenet::nn_direction: `nn_direction_plain` on CPU tensors, the
+    kernel on CUDA tensors (ops/dispatch.py); under `plain_on_cuda()` the
+    plain version on the card. dist is differentiable in x and y."""
     _check_args(x, y)
-    if not use_kernel(x):
+    if use_kernel(x):  # checked here too: tracing runs no CUDA impl
+        _check_cuda(x, y, KERNEL)
+    elif x.device.type == "cuda":                  # under plain_on_cuda()
         return nn_direction_plain(x, y)
+    return nn_direction_op(x, y)
+
+
+@torch.library.custom_op("samplenet::nn_direction", mutates_args=(),
+                         device_types="cpu")
+def nn_direction_op(x: torch.Tensor, y: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The op a torch.export program carries; on the CPU the plain
+    version."""
+    return nn_direction_plain(x, y)
+
+
+@nn_direction_op.register_kernel("cuda")
+def _nn_direction_cuda(x, y):
     _check_cuda(x, y, KERNEL)
     b, n1, _ = x.shape
     return launch(x, y, kernel_plan(x.device.index, b, n1, y.shape[1]))
+
+
+@nn_direction_op.register_fake
+def _nn_direction_fake(x, y):
+    shape = x.shape[:2]
+    return x.new_empty(shape), x.new_empty(shape, dtype=torch.int32)
+
+
+def _nn_direction_setup(ctx, inputs, output):
+    x, y = inputs
+    ctx.save_for_backward(x, y, output[1])
+
+
+def _nn_direction_bwd(ctx, g_dist, _g_idx):
+    """The plain version's gradient away from ties (amin splits a tie, this
+    gives it to the first index): 2g(x - y[idx]) to x, its negation summed
+    into y by a one-hot bmm (no float atomics)."""
+    from samplenet_tpu_torch.ops.chamfer import scatter_rows, take_rows
+
+    x, y, idx = ctx.saved_tensors
+    v = 2.0 * g_dist[..., None] * (x - take_rows(y, idx))
+    return v, -scatter_rows(idx, v, y.shape[1])
+
+
+nn_direction_op.register_autograd(_nn_direction_bwd,
+                                  setup_context=_nn_direction_setup)
 
 
 def _check_cuda(x: torch.Tensor, y: torch.Tensor, name: str) -> None:

@@ -86,12 +86,49 @@ def fps_plain(points: torch.Tensor, given: torch.Tensor, count: torch.Tensor,
 def fps(points: torch.Tensor, given: torch.Tensor, count: torch.Tensor,
         npoint: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Seeded FPS: (idx [B, npoint] int32, xyz [B, npoint, 3]) with
-    xyz[b, t] == points[b, idx[b, t]] bit for bit. CPU tensors take
-    `fps_plain`, CUDA tensors the kernel (ops/dispatch.py)."""
+    xyz[b, t] == points[b, idx[b, t]] bit for bit, through the op
+    samplenet::fps: `fps_plain` on CPU tensors, the kernel on CUDA tensors
+    (ops/dispatch.py); under `plain_on_cuda()` the plain version on the
+    card. xyz is differentiable in points."""
     _check_args(points, given, count, npoint)
-    if not use_kernel(points):
+    if use_kernel(points):  # checked here too: tracing runs no CUDA impl
+        _check_cuda(points, given, count)
+    elif points.device.type == "cuda":             # under plain_on_cuda()
         return fps_plain(points, given, count, npoint)
-    return _fps_cuda(points, given, count, npoint)
+    return fps_op(points, given, count, npoint)
+
+
+@torch.library.custom_op("samplenet::fps", mutates_args=(),
+                         device_types="cpu")
+def fps_op(points: torch.Tensor, given: torch.Tensor, count: torch.Tensor,
+           npoint: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The op a torch.export program carries; on the CPU the plain
+    version."""
+    return fps_plain(points, given, count, npoint)
+
+
+@fps_op.register_fake
+def _fps_fake(points, given, count, npoint):
+    b = points.shape[0]
+    return (points.new_empty((b, npoint), dtype=torch.int32),
+            points.new_empty((b, npoint, 3)))
+
+
+def _fps_setup(ctx, inputs, output):
+    ctx.save_for_backward(output[0])
+    ctx.n = inputs[0].shape[1]
+
+
+def _fps_bwd(ctx, _g_idx, g_xyz):
+    """xyz's gradient summed into points by a one-hot bmm (no float
+    atomics), as the plain version's gather gives it."""
+    from samplenet_tpu_torch.ops.chamfer import scatter_rows
+
+    (idx,) = ctx.saved_tensors
+    return scatter_rows(idx, g_xyz, ctx.n), None, None, None
+
+
+fps_op.register_autograd(_fps_bwd, setup_context=_fps_setup)
 
 
 @functools.lru_cache(maxsize=256)
@@ -112,13 +149,18 @@ def kernel_plan(device: int, b: int, n: int, k: int) -> fp.FpsPlan:
                                                                 device)))
 
 
-def _fps_cuda(points, given, count, npoint):
+def _check_cuda(points, given, count) -> None:
     if points.device.type != "cuda":
         raise ValueError(f"the fps kernel takes CUDA tensors, got "
                          f"{points.device}")
     if not (points.is_contiguous() and given.is_contiguous()
             and count.is_contiguous()):
         raise ValueError("the fps kernel takes contiguous tensors")
+
+
+@fps_op.register_kernel("cuda")
+def _fps_cuda(points, given, count, npoint):
+    _check_cuda(points, given, count)
     b, n, _ = points.shape
     plan = kernel_plan(points.device.index, b, n, npoint)
     return launch(points, given, count, npoint, plan)

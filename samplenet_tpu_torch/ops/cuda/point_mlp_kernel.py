@@ -122,9 +122,12 @@ def point_mlp_max(x: torch.Tensor, weights_and_biases, *,
     rounds each matmul's operands to bf16 (the TPU kernel's default; the
     port's default stays f32, as the JAX package computes on the CPU).
     CPU tensors take `point_mlp_max_plain`, CUDA tensors the kernel
-    (ops/dispatch.py), counted as point_mlp_max or point_mlp_max_bf16.
-    The kernel has no backward, so an input that requires grad under grad
-    mode raises on both devices rather than lose its gradient on the card.
+    (ops/dispatch.py), counted as point_mlp_max or point_mlp_max_bf16;
+    both through the op samplenet::point_mlp_max, which takes the layers
+    packed in one buffer (`_flat_params`); under `plain_on_cuda()` the
+    plain version on the card. The kernel has no backward, so an input
+    that requires grad under grad mode raises on both devices rather than
+    lose its gradient on the card.
     """
     pairs = _pairs(weights_and_biases)
     widths = _check_args(x, pairs)
@@ -133,9 +136,46 @@ def point_mlp_max(x: torch.Tensor, weights_and_biases, *,
         raise RuntimeError(
             "point_mlp_max has no backward: call it under torch.no_grad() "
             "or on inputs that do not require grad")
-    if not use_kernel(x):
+    if use_kernel(x):  # checked here too: tracing runs no CUDA impl
+        _check_cuda(x, widths)
+    elif x.device.type == "cuda":                  # under plain_on_cuda()
         return point_mlp_max_plain(x, weights_and_biases, bf16)
-    return _point_mlp_max_cuda(x, pairs, widths, bool(bf16))
+    return point_mlp_max_op(x, _flat_params(pairs), widths, bool(bf16))
+
+
+def _flat_params(pairs) -> torch.Tensor:
+    """W_0 [C_0, C_1] row-major, b_0, W_1, b_1, ... in one f32 buffer: the
+    f32 kernel's own layout (`_params`)."""
+    return torch.cat([t.reshape(-1) for pair in pairs for t in pair])
+
+
+def _unflatten(params: torch.Tensor, widths) -> list[tuple[torch.Tensor,
+                                                           torch.Tensor]]:
+    pairs, off = [], 0
+    for cin, cout in zip(widths[:-1], widths[1:]):
+        w = params[off:off + cin * cout].view(cin, cout)
+        off += cin * cout
+        pairs.append((w, params[off:off + cout]))
+        off += cout
+    if off != params.numel():
+        raise ValueError(f"point_mlp_max: {params.numel()} parameters do "
+                         f"not fit widths {list(widths)}")
+    return pairs
+
+
+@torch.library.custom_op("samplenet::point_mlp_max", mutates_args=(),
+                         device_types="cpu")
+def point_mlp_max_op(x: torch.Tensor, params: torch.Tensor,
+                     widths: list[int], bf16: bool) -> torch.Tensor:
+    """The op a torch.export program carries, over the layers packed by
+    `_flat_params`; on the CPU the plain version."""
+    pairs = _unflatten(params, widths)
+    return point_mlp_max_plain(x, [t for pair in pairs for t in pair], bf16)
+
+
+@point_mlp_max_op.register_fake
+def _point_mlp_max_fake(x, params, widths, bf16):
+    return x.new_empty((x.shape[0], widths[-1]))
 
 
 def _bf16_pairs(w: torch.Tensor) -> torch.Tensor:
@@ -168,17 +208,23 @@ def _params(pairs, bf16: bool) -> torch.Tensor:
     return torch.cat(parts)
 
 
-def _point_mlp_max_cuda(x, pairs, widths, bf16: bool) -> torch.Tensor:
+def _check_cuda(x, widths) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"the point_mlp_max kernel takes CUDA tensors, got "
                          f"{x.device}")
     if not x.is_contiguous():
         raise ValueError("the point_mlp_max kernel takes a contiguous x")
-    layers = len(pairs)
-    if layers > _MAX_LAYERS or any(c % 4 for c in widths[1:]):
+    if len(widths) - 1 > _MAX_LAYERS or any(c % 4 for c in widths[1:]):
         raise ValueError(
             f"the point_mlp_max kernel takes at most {_MAX_LAYERS} layers "
             f"with output widths divisible by 4, got {widths}")
+
+
+@point_mlp_max_op.register_kernel("cuda")
+def _point_mlp_max_cuda(x, params, widths, bf16):
+    _check_cuda(x, widths)
+    pairs = _unflatten(params, widths)
+    layers = len(pairs)
     lib = library()
     c_widths = (ctypes.c_int * (layers + 1))(*widths)
     smem = lib.snt_point_mlp_max_smem(c_widths, layers, int(bf16))
@@ -188,7 +234,7 @@ def _point_mlp_max_cuda(x, pairs, widths, bf16: bool) -> torch.Tensor:
     if smem != max_smem(widths, bf16):
         raise RuntimeError("point_mlp_plan.py and csrc/point_mlp_max.cu "
                            "count shared memory apart")
-    params = _params(pairs, bf16)
+    params = _params(pairs, True) if bf16 else params.contiguous()
     out = torch.empty((x.shape[0], widths[-1]), dtype=torch.float32,
                       device=x.device)
     name = KERNEL_BF16 if bf16 else KERNEL

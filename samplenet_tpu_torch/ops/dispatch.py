@@ -11,7 +11,10 @@ falls back:
 
 `plain_on_cuda()` lets a caller run the plain versions on CUDA tensors, to
 compare a kernel path with its reference on the card; the serving path
-never enters it.
+never enters it. The eval path's three kernels (nn_direction, fps,
+point_mlp_max) are torch.library ops, samplenet::*, each with a CPU
+implementation (the plain version), a CUDA one (the kernel) and a fake one
+(shapes and dtypes), so that torch.export carries them (serving.py).
 
 A model run in a compute dtype (bf16, `--bf16`) reaches no per-point MLP
 kernel: as in the JAX package, whose `dtype` turns off both its eval

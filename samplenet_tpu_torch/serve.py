@@ -9,14 +9,22 @@ Mirrors samplenet_tpu/serve.py:1-163 with the same wire format:
                  (n inferred from the byte length)
                  -> 200, body = float32 bytes of shape [n, m, 3]
   GET  /healthz  -> 200, JSON {model config, max_batch, requests_served,
-                 device, kernel launch counts}
+                 device, kernel launch counts, the artifact header or
+                 null}
+
+    python -m samplenet_tpu_torch.serve --weights sampler.pth \
+        --device cuda --export-artifact sampler.sntpt   # writes, exits
+    python -m samplenet_tpu_torch.serve --artifact sampler.sntpt
 
 `--weights` is a reference-keyed SampleNet state_dict (.pth), with or
 without the "sampler." prefix (interop/jax_import.py); the model's widths
-and m are read off it. `--device cuda` needs a card and raises without
-one: nothing carries on on the CPU. Each POSTed cloud is submitted to the
-MicroBatcher alone, so clouds of concurrent clients share one dispatch.
-`--artifact` and `--export-artifact` wait for a later slice.
+and m are read off it. `--artifact` serves a frozen torch.export artifact
+(serving.py) with no weights or model code: N, m and the max batch come
+from its header, and it runs on the device it was exported on. Exactly
+one of the two is required. `--device cuda` needs a card and raises
+without one: nothing carries on on the CPU. Each POSTed cloud is
+submitted to the MicroBatcher alone, so clouds of concurrent clients
+share one dispatch. /healthz adds the artifact's header when serving one.
 """
 
 from __future__ import annotations
@@ -35,7 +43,12 @@ from samplenet_tpu_torch.interop.jax_import import (
 )
 from samplenet_tpu_torch.models.samplenet import SampleNet
 from samplenet_tpu_torch.ops.dispatch import launch_counts
-from samplenet_tpu_torch.serving import BatchedSampler, MicroBatcher
+from samplenet_tpu_torch.serving import (
+    ArtifactSampler,
+    BatchedSampler,
+    MicroBatcher,
+    save_exported,
+)
 
 
 def resolve_device(name: str) -> torch.device:
@@ -64,6 +77,22 @@ def load_model(path: str, device: torch.device
     return net.eval(), config
 
 
+def build_sampler(args) -> tuple[BatchedSampler, dict]:
+    """(serving engine, model config) from --weights, or from --artifact,
+    whose header then sets --num-points and --max-batch."""
+    if args.artifact:
+        sampler = ArtifactSampler(args.artifact, args.device)
+        args.num_points = sampler.num_points
+        args.max_batch = sampler.max_batch
+        config = {k: sampler.header.get(k) for k in
+                  ("num_out_points", "bottleneck_size")}
+        return sampler, {**config, "artifact": sampler.header}
+    net, config = load_model(args.weights, args.device)
+    return BatchedSampler(net, max_batch=args.max_batch,
+                          num_points=args.num_points,
+                          device=args.device), config
+
+
 def make_server(batcher, args, stats, config):
     num_points = args.num_points
     lock = threading.Lock()
@@ -86,6 +115,7 @@ def make_server(batcher, args, stats, config):
                 "requests_served": served,
                 "device": str(args.device),
                 "kernel_launches": launch_counts(),
+                "artifact": config.get("artifact"),
             }).encode()
             self.send_response(200)
             self.send_header("Content-Type", "application/json")
@@ -121,8 +151,14 @@ def make_server(batcher, args, stats, config):
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser("samplenet_tpu_torch.serve")
-    p.add_argument("--weights", required=True,
+    p.add_argument("--weights", default=None,
                    help="SampleNet state_dict (.pth) with reference keys")
+    p.add_argument("--artifact", default=None,
+                   help="frozen torch.export artifact to serve from (no "
+                        "weights or model code needed)")
+    p.add_argument("--export-artifact", default=None, metavar="PATH",
+                   help="with --weights: write a frozen serving artifact "
+                        "for --device to PATH and exit")
     p.add_argument("--device", default="cuda", help="cuda, cuda:N or cpu")
     p.add_argument("--num-points", type=int, default=1024)
     p.add_argument("--max-batch", type=int, default=256)
@@ -134,15 +170,26 @@ def parse_args(argv=None):
 
 def main(argv=None, *, serve_forever=True):
     args = parse_args(argv)
+    if (args.weights is None) == (args.artifact is None):
+        raise SystemExit("serve: exactly one of --weights / --artifact is "
+                         "required")
+    if args.export_artifact and not args.weights:
+        raise SystemExit("serve: --export-artifact requires --weights")
     args.device = resolve_device(args.device)
-    net, config = load_model(args.weights, args.device)
-    sampler = BatchedSampler(net, max_batch=args.max_batch,
-                             num_points=args.num_points, device=args.device)
+    if args.export_artifact:
+        net, config = load_model(args.weights, args.device)
+        save_exported(args.export_artifact, net, batch=args.max_batch,
+                      num_points=args.num_points, freeze_params=True,
+                      device=args.device, metadata=config)
+        print(f"wrote serving artifact to {args.export_artifact}",
+              flush=True)
+        return None, None
+    sampler, config = build_sampler(args)
     batcher = MicroBatcher(sampler, max_wait_ms=args.max_wait_ms)
     stats = {"served": 0}
     server = make_server(batcher, args, stats, config)
-    print(f"serving sampler ({args.num_points}->{net.num_out_points}) on "
-          f"{args.device} at {args.host}:{server.server_address[1]}",
+    print(f"serving sampler ({args.num_points}->{config['num_out_points']}) "
+          f"on {args.device} at {args.host}:{server.server_address[1]}",
           flush=True)
     if serve_forever:
         try:
