@@ -184,7 +184,35 @@ bottleneck 128, k=8, both clouds sampled, against it frozen), and:
      the plain path, then two steps;
  23. (bf16-cli) `train_classifier --bf16` for one epoch of 3 steps and
      `train_samplenet --bf16` on its checkpoint for one of 2;
- 24. times each kernel, the eval forward and the train steps against the
+ 24. (data-parallel) spawns 2 gloo ranks sharing the card
+     (samplenet_tpu_torch/parallel/launch.py; gloo stages its collectives
+     on CUDA tensors through the host), each on its rows of a global
+     batch: the classification sampler step at B=1024 (augmented), the
+     registration sampler step at B=32, the reconstruction sampler step
+     at B=50 (EMD) and the progressive ghost step (bf16, block 4) at B=32
+     and at B=28, where a block straddles the ranks, with the launch
+     counters reset before them and read after in each rank
+     (point_mlp_exact and point_mlp_train fwd and bwd, soft_projection fwd
+     and bwd, nn_direction and emd each launched); each held against the
+     one-process step on the card from the same seeds: loss terms within
+     rtol 1e-5 of the kernel path's (the registration step's within 1e-4
+     of the f64 replay of the ranks' own choices), running statistics
+     within rtol 1e-4 / atol 1e-6, each gradient's error against the
+     one-process f64 step at most twice the one-process plain f32 step's
+     (or the track's floor), the ghost steps' norm-wise within
+     DP_GHOST_LIMIT of the one-process kernel step's (the same bf16
+     roundings), those zero in exact arithmetic round-off; two controls
+     must fail those checks: the classification step with the
+     statistics' all-reduce taken out of the ranks (each normalising by
+     its own rows), and the ghost step at B=28 with the blocks'
+     all-reduce skipped (the straddling block from one rank's rows); a
+     classification step must issue 17 all-reduces a rank (its wall time
+     on the ranks printed, host-staged: no measure of scaling);
+     save_sharded from the ranks, restore_sharded here bit for bit and
+     one more step; `dryrun_multichip(2)` on the card; then
+     `torchrun --nproc-per-node=K -m samplenet_tpu_torch.train.
+     train_samplenet --data-parallel` over NCCL, K = min(cards, 2);
+ 25. times each kernel, the eval forward and the train steps against the
      plain versions, per call with CUDA events and as device time with
      torch.profiler (the EMD also on the AE step's own pair: the seeded
      AE's reconstruction of the procedural clouds against them), and
@@ -2524,10 +2552,12 @@ def _ghost_without_rounding(torch):
 
     real = layers.point_mlp_train_max
 
-    def unrounded(x, weights, *rest, eps, bf16):
-        bb = auto_block_b(x.shape[0], x.shape[1],
+    def unrounded(x, weights, *rest, eps, bf16, **dp):
+        batch = x.shape[0] * (dp["mesh"].size if dp else 1)
+        bb = auto_block_b(batch, x.shape[1],
                           tuple(w.shape[1] for w in weights), bf16)
-        return real(x, weights, *rest, eps=eps, bf16=False, block_b=bb)
+        return real(x, weights, *rest, eps=eps, bf16=False, block_b=bb,
+                    **dp)
 
     layers.point_mlp_train_max = unrounded
     try:
@@ -4359,6 +4389,417 @@ def kernel_bounds(soft_gathered: int | None = None
     }
 
 
+# data parallelism (parallel/): DP_RANKS gloo ranks sharing the card, each
+# on its rows of a global batch, against the one-process step on the same
+# card and weights: the classification step at B=1024 (augmented), the
+# registration sampler step at B=32, the reconstruction sampler step at
+# B=50 (EMD), the progressive ghost step at B=32 (bf16, block 4, every
+# block within a rank) and at B=28 (block 4 again: 14 clouds a rank, so the
+# block of clouds 12-15 straddles the ranks and every block is summed
+# from sub-blocks of 2 clouds across them)
+DP_RANKS = 2
+DP_GHOST = ("progressive ghost", "progressive ghost straddling")
+DP_CASES = ("classification", "registration", "reconstruction", *DP_GHOST)
+DP_STRADDLE_B = 28
+# the ghost cases' gradients against the one-process kernel step (the same
+# bf16 roundings), norm-wise: the card read 9.4e-4 (B=32) and 8.5e-4
+# (B=28), both at conv1.weight, and 1.38 for the ghost control (NVIDIA H100
+# 80GB HBM3, 700 W; PERF.md)
+DP_GHOST_LIMIT = 5e-3
+DP_PATH = ("point_mlp_exact_fwd", "point_mlp_exact_bwd", "point_mlp_train_fwd",
+           "point_mlp_train_bwd", "soft_projection_fwd", "soft_projection_bwd",
+           "nn_direction", "emd")
+DP_COLLECTIVES = 5 * 2 + 3 * 2 + 1   # a classification step's all-reduces
+DP_TIMED = 3                         # classification steps timed a side
+_DP_INPUTS: dict = {}
+
+
+def _dp_inputs(torch) -> dict:
+    """The seeded global batches and frozen networks of the data-parallel
+    cases, made once a process."""
+    if not _DP_INPUTS:
+        data, labels, classifier = make_train_setup(torch)
+        _DP_INPUTS.update(
+            x=torch.from_numpy(data).to(DEVICE),
+            y=torch.from_numpy(labels).to(DEVICE), classifier=classifier,
+            reg=_reg_data(torch), pcrnet=_reg_pcrnet(torch),
+            ae=_recon_state(torch, "ae")[0],
+            recon_x=make_recon_data(torch)[1])
+    return _DP_INPUTS
+
+
+def _dp_setup(torch, case, *, dtype=None):
+    """(model, state, step, args, extra) of `case`: a seeded state, its
+    step and the global batch (in `dtype` where given); extra() gives the
+    step's generator."""
+    inp = _dp_inputs(torch)
+    cast = (lambda t: t) if dtype is None else \
+        (lambda t: t.to(dtype) if t.is_floating_point() else t)
+    extra = lambda: ()                                       # noqa: E731
+    if case == "classification":
+        model, state, step = _train_step(torch, inp["classifier"],
+                                         dtype=dtype, augment=True)
+        args = [inp["x"], inp["y"]]
+        extra = lambda: (torch.Generator(                  # noqa: E731
+            device=DEVICE).manual_seed(SEED),)
+    elif case == "registration":
+        model, state, step = _reg_state(torch, "sampler", dtype=dtype,
+                                        pcrnet=inp["pcrnet"])
+        args = list(inp["reg"])
+    elif case == "reconstruction":
+        model, state, step = _recon_state(torch, "sampler", inp["ae"],
+                                          dtype=dtype)
+        args = [inp["recon_x"]]
+    else:
+        model, state, step = _prog_step(torch, inp["classifier"], ghost=True,
+                                        dtype=dtype)
+        b = PROG_B if case == "progressive ghost" else DP_STRADDLE_B
+        args = [inp["x"][:b], inp["y"][:b]]
+    return model, state, step, [cast(t) for t in args], extra
+
+
+def _dp_result(torch, model, metrics) -> dict:
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": {k: p.grad.detach().cpu() for k, p in
+                      model.named_parameters() if p.grad is not None},
+            "ema": {k: v.detach().cpu() for k, v in model.named_buffers()
+                    if "running_" in k}}
+
+
+@contextlib.contextmanager
+def _blocks_unsummed(torch):
+    """The ghost chain's blocks with their all-reduce skipped: a block that
+    straddles the ranks takes its statistics (forward and backward) from
+    one rank's rows only."""
+    from samplenet_tpu_torch.ops.cuda import point_mlp_train_kernel as pmt
+
+    real = pmt.all_reduce_
+    pmt.all_reduce_ = lambda t, mesh, *args, **kwargs: t
+    try:
+        yield
+    finally:
+        pmt.all_reduce_ = real
+
+
+def _dp_rank(mesh, ckpt: str) -> dict:
+    """One of DP_RANKS ranks: each case's step on its rows (the launch
+    counters around them), the per-rank-BN control and the ghost control,
+    the classification step's time, its collectives, and save_sharded of
+    its state."""
+    import torch
+
+    from samplenet_tpu_torch.ops.dispatch import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from samplenet_tpu_torch.parallel.mesh import (
+        collective_counts,
+        data_parallel,
+        global_mean,
+        reset_collective_counts,
+        shard_batch,
+    )
+    from samplenet_tpu_torch.train import checkpoints
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out: dict = {}
+    reset_launch_counts()
+    for case in DP_CASES:
+        model, state, step, args, extra = _dp_setup(torch, case)
+        data_parallel(state, mesh)
+        made: list = []
+        rec = choices(torch, record=made) if case == "registration" \
+            else contextlib.nullcontext()
+        with rec:
+            metrics = global_mean(step(state, *shard_batch(mesh, args),
+                                       *extra()), mesh)
+        torch.cuda.synchronize()
+        out[case] = _dp_result(torch, model, metrics)
+        out[case]["choices"] = [t.cpu() for t in made]
+        if case == "classification":
+            checkpoints.save_sharded(ckpt, {
+                "model": model.state_dict(),
+                "step": torch.tensor(state.step)})
+            out["saved"] = {k: v.cpu() for k, v in
+                            model.state_dict().items()}
+        del model, state, step
+    out["launches"] = launch_counts()
+
+    model, state, step, args, extra = _dp_setup(torch, "classification")
+    data_parallel(state, mesh)
+    data_parallel(model, None)      # the control: statistics per rank
+    step(state, *shard_batch(mesh, args), *extra())
+    out["control"] = _dp_result(torch, model, {})
+
+    model, state, step, args, extra = _dp_setup(torch, DP_GHOST[1])
+    data_parallel(state, mesh)
+    with _blocks_unsummed(torch):
+        step(state, *shard_batch(mesh, args), *extra())
+    out["ghost control"] = _dp_result(torch, model, {})
+
+    model, state, step, args, extra = _dp_setup(torch, "classification")
+    data_parallel(state, mesh)
+    rows, gen = shard_batch(mesh, args), extra()
+    step(state, *rows, *gen)
+    torch.cuda.synchronize()
+    reset_collective_counts()
+    t0 = time.perf_counter()
+    for _ in range(DP_TIMED):
+        step(state, *rows, *gen)
+    torch.cuda.synchronize()
+    out["step_ms"] = (time.perf_counter() - t0) / DP_TIMED * 1e3
+    out["collectives"] = {k: v // DP_TIMED for k, v in
+                          collective_counts().items()}
+    return out
+
+
+def _dp_reference(torch, case, ranks) -> dict:
+    """The one-process steps of `case` on the card: the kernel path, the
+    float64 plain path (for the ghost cases with bf16 off at the same
+    block: it only tells which gradients are zero in exact arithmetic)
+    and but for the ghost cases the plain f32 path (for the registration
+    step also the replays of the ranks' choices and of the plain
+    path's)."""
+    f64 = torch.float64
+    runs = {}
+    variants = [("kernel", False, None), ("f64", True, f64)]
+    if case not in DP_GHOST:
+        variants.append(("plain", True, None))
+    for name, plain, dtype in variants:
+        model, state, step, args, extra = _dp_setup(torch, case, dtype=dtype)
+        made: list = []
+        how = contextlib.nullcontext()
+        if case == "registration" and dtype is None:
+            how = choices(torch, record=made)
+        if case in DP_GHOST and name == "f64":
+            how = _ghost_without_rounding(torch)
+        with _ctx(plain), how:
+            metrics = step(state, *args, *extra())
+        torch.cuda.synchronize()
+        runs[name] = _dp_result(torch, model, metrics)
+        runs[name]["choices"] = made
+        del model, state, step
+    if case == "registration":
+        ranks_made = [torch.cat([r[case]["choices"][i].to(DEVICE)
+                                 for r in ranks])
+                      for i in range(len(ranks[0][case]["choices"]))]
+        runs["apart"] = sum(int((a != c).sum()) for a, c in zip(
+            ranks_made, runs["kernel"]["choices"]))
+        for name, made in (("plain f64 replay", runs["plain"]["choices"]),
+                           ("ranks f64 replay", ranks_made)):
+            model, state, step, args, _ = _dp_setup(torch, case, dtype=f64)
+            with _ctx(True), choices(torch, replay=made):
+                metrics = step(state, *args)
+            torch.cuda.synchronize()
+            runs[name] = _dp_result(torch, model, metrics)
+            del model, state, step
+    return runs
+
+
+def _dp_grads_check(case, got, runs) -> tuple[float, float, str]:
+    """The ranks' gradients against the float64 one-process step: each at
+    most twice the plain f32 one-process step's error (by the largest
+    entry over the f64 scale, or norm-wise where the card checks of the
+    track hold it so, with their floors). The ghost cases, whose bf16
+    roundings no f64 step has, against the one-process kernel step, which
+    rounds alike: norm-wise within DP_GHOST_LIMIT. Gradients zero in exact
+    arithmetic round-off. Returns the worst (ranks, plain or limit,
+    name)."""
+    ghost = case in DP_GHOST
+    exact = runs["ranks f64 replay" if case == "registration" else "f64"]
+    ref = runs["kernel"] if ghost else exact
+    plain_ref = None if ghost else runs[
+        "plain f64 replay" if case == "registration" else "f64"]
+    err = _rel_err if case == "classification" else _norm_err
+    floor = 1e-5 if case == "classification" else 1e-4
+    scale = max(float(g.abs().max()) for g in exact["grads"].values())
+    worst = (0.0, 0.0, "")
+    for name, g in got.items():
+        r = ref["grads"][name]
+        # zero in exact arithmetic: a dense bias before a BN, and the last
+        # conv BN's beta where no pooled feature of the batch is clipped
+        # (with augmentation some are, and its f64 gradient is 1e-3 of
+        # scale: NVIDIA H100, PERF.md)
+        if float(exact["grads"][name].abs().max()) <= 1e-8 * scale:
+            if float(g.abs().max()) > 1e-4 * scale:
+                raise AssertionError(
+                    f"data-parallel {case} {name}: gradient "
+                    f"{float(g.abs().max())!r} not round-off (scale "
+                    f"{scale!r})")
+            continue
+        ek = err(g, r)
+        if ghost:
+            ep = DP_GHOST_LIMIT
+            if not ek <= ep:
+                raise AssertionError(
+                    f"data-parallel {case} {name}: ranks' error {ek!r} "
+                    f"against the one-process kernel step, limit {ep!r}")
+            worst = max(worst, (ek, ep, name))
+            continue
+        ep = err(runs["plain"]["grads"][name], plain_ref["grads"][name])
+        if not ek <= max(2 * ep, floor):
+            raise AssertionError(f"data-parallel {case} {name}: ranks' error "
+                                 f"{ek!r} against f64, the one-process plain "
+                                 f"f32 step's {ep!r}")
+        worst = max(worst, (ek, ep, name))
+    return worst
+
+
+def phase_data_parallel(torch, classifier) -> None:
+    """DP_RANKS gloo ranks on the card against the one-process step, the
+    per-rank-BN control, the sharded checkpoint restored here and trained
+    one more step, and train_samplenet --data-parallel under torchrun over
+    NCCL (one rank a card)."""
+    from samplenet_tpu_torch.parallel.dryrun import dryrun_multichip
+    from samplenet_tpu_torch.parallel.launch import spawn
+    from samplenet_tpu_torch.train import checkpoints
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "sharded")
+        t0 = time.monotonic()
+        ranks = spawn(_dp_rank, DP_RANKS, ckpt, device=DEVICE, timeout=300.0)
+        spawn_s = time.monotonic() - t0
+        for r, out in enumerate(ranks):
+            missing = [k for k in DP_PATH if out["launches"].get(k, 0) < 1]
+            if missing:
+                raise AssertionError(f"rank {r} launched no {missing}")
+            if out["collectives"]["all_reduce"] != DP_COLLECTIVES:
+                raise AssertionError(f"rank {r}: a classification step "
+                                     f"issued {out['collectives']} "
+                                     f"all-reduces, not {DP_COLLECTIVES}")
+        notes = []
+        for case in DP_CASES:
+            runs = _dp_reference(torch, case, ranks)
+            kernel = runs["kernel"]
+            # the registration step's discrete choices (k=8 neighbours, the
+            # 1-NN, PCRNet's masks) move on near-ties between any two f32
+            # runs (PERF.md): its loss terms are held, as its card
+            # check holds them, to the f64 replay of the ranks' own choices
+            ref, rtol = (runs["ranks f64 replay"], 1e-4) \
+                if case == "registration" else (kernel, 1e-5)
+            for r, out in enumerate(ranks):
+                got = out[case]
+                for k, v in ref["metrics"].items():
+                    if not (np.isfinite(got["metrics"][k]) and np.isclose(
+                            got["metrics"][k], v, rtol=rtol, atol=0)):
+                        raise AssertionError(
+                            f"data-parallel {case} rank {r} {k}: "
+                            f"{got['metrics'][k]!r}, reference {v!r}")
+                for k, v in kernel["ema"].items():
+                    torch.testing.assert_close(got["ema"][k], v, rtol=1e-4,
+                                               atol=1e-6)
+                worst = _dp_grads_check(case, got["grads"], runs)
+            apart = "" if case != "registration" else (
+                f", f64 replay of the ranks' choices "
+                f"{ref['metrics']['loss']!r}; choices apart from the "
+                f"one-process step's: {runs['apart']}")
+            against = ("the one-process kernel step", "limit") \
+                if case in DP_GHOST else ("f64", "one-process plain f32")
+            notes.append(f"{case}: loss {ranks[0][case]['metrics']['loss']!r}"
+                         f" (one process {kernel['metrics']['loss']!r}"
+                         f"{apart}), worst gradient error against "
+                         f"{against[0]} {worst[0]!r} at {worst[2]} "
+                         f"({against[1]} {worst[1]!r})")
+            if case == "classification":
+                cls_runs = runs
+            if case == DP_GHOST[1]:
+                ghost_runs = runs
+            torch.cuda.empty_cache()
+        try:
+            _dp_grads_check("classification", ranks[0]["control"]["grads"],
+                            cls_runs)
+        except AssertionError as e:
+            control = str(e)
+        else:
+            raise AssertionError("the per-rank-BN control passed the "
+                                 "gradient check")
+        try:
+            _dp_grads_check(DP_GHOST[1], ranks[0]["ghost control"]["grads"],
+                            ghost_runs)
+        except AssertionError as e:
+            ghost_control = str(e)
+        else:
+            raise AssertionError("the ghost control (the straddling block's "
+                                 "all-reduce skipped) passed the gradient "
+                                 "check")
+        t0 = time.monotonic()
+        dryrun_multichip(DP_RANKS)
+        dryrun_s = time.monotonic() - t0
+
+        model, state, step, args, extra = _dp_setup(torch, "classification")
+        target = {"model": model.state_dict(), "step": torch.tensor(0)}
+        checkpoints.restore_sharded(ckpt, target)
+        for k, v in ranks[0]["saved"].items():
+            if not torch.equal(model.state_dict()[k].cpu(), v):
+                raise AssertionError(f"restore_sharded: {k} differs")
+        state.step = int(target["step"])
+        loss = float(step(state, *args, *extra())["loss"])
+        if not np.isfinite(loss) or state.step != 2:
+            raise AssertionError(f"step after restore_sharded: loss {loss}, "
+                                 f"step {state.step}")
+
+        t0 = time.monotonic()
+        model, state, step, args, extra = _dp_setup(torch, "classification")
+        step(state, *args, *extra())
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(DP_TIMED):
+            step(state, *args, *extra())
+        torch.cuda.synchronize()
+        one_ms = (time.perf_counter() - t1) / DP_TIMED * 1e3
+
+        cls_path = os.path.join(tmp, "classifier.pth")
+        torch.save({k: v.cpu() for k, v in classifier.state_dict().items()},
+                   cls_path)
+        k = min(torch.cuda.device_count(), 2)
+        log_dir = os.path.join(tmp, "log")
+        stdout, cli_s = _cli([
+            "torch.distributed.run", "--standalone",
+            f"--nproc-per-node={k}", "-m",
+            "samplenet_tpu_torch.train.train_samplenet", "--data-parallel",
+            "--device", "cuda", "--epochs", "1", "--steps-per-epoch", "2",
+            "--train-size", "64", "--test-size", "32",
+            "--classifier-weights", cls_path, "--log-dir", log_dir],
+            "torchrun train_samplenet --data-parallel")
+        if f"data-parallel over {k} ranks" not in stdout or not \
+                os.path.exists(os.path.join(log_dir, "ckpt", "sampler.pth")):
+            raise AssertionError(f"torchrun train_samplenet: {stdout}")
+    log("data-parallel", f"{DP_RANKS} gloo ranks on one card (gloo stages "
+                         f"its all-reduces through the host), each on its "
+                         f"rows of the global batch, against the "
+                         f"one-process step: "
+                         + "; ".join(notes) + "; loss terms within rtol "
+                         "1e-5 of the one-process step's (registration: "
+                         "1e-4 of the f64 replay of the ranks' choices), "
+                         "running statistics rtol 1e-4 / atol 1e-6")
+    log("data-parallel", f"each rank launched {sorted(DP_PATH)}: "
+                         f"{[{k: r['launches'].get(k, 0) for k in DP_PATH} for r in ranks]}")
+    log("data-parallel", f"the per-rank-BN control fails the gradient "
+                         f"check: {control}")
+    log("data-parallel", f"the ghost control (at B={DP_STRADDLE_B}, the "
+                         f"all-reduce of the blocks skipped, so the block "
+                         f"straddling the ranks takes one rank's rows) "
+                         f"fails the gradient check: {ghost_control}")
+    log("data-parallel", f"dryrun_multichip({DP_RANKS}) on the card (gloo "
+                         f"ranks sharing it): every track finite and equal "
+                         f"on every rank in {dryrun_s:.1f} s")
+    log("data-parallel", f"a classification step at B={B} issues "
+                         f"{ranks[0]['collectives']['all_reduce']} "
+                         f"all-reduces ({ranks[0]['collectives']['bytes']} "
+                         f"bytes) a rank; its wall time a step "
+                         f"{[round(r['step_ms'], 3) for r in ranks]} ms on "
+                         f"the {DP_RANKS} ranks sharing the card, host-staged "
+                         f"gloo, no measure of scaling (one process: "
+                         f"{one_ms:.3f} ms); the ranks took {spawn_s:.1f} s "
+                         f"from spawn to results")
+    log("data-parallel", f"save_sharded from {DP_RANKS} ranks, "
+                         f"restore_sharded here bit for bit, one more step: "
+                         f"loss {loss!r}; torchrun --nproc-per-node={k} "
+                         f"train_samplenet --data-parallel over NCCL: exit 0 "
+                         f"in {cli_s:.1f} s")
+
+
 def _timed(phase, *args):
     """phase(*args), then its seconds on a line of their own."""
     t0 = time.monotonic()
@@ -4424,6 +4865,7 @@ def main() -> int:
     bf16_counts = _timed(phase_bf16, torch, model, clouds, data, labels,
                          classifier)
     _timed(phase_bf16_cli, torch)
+    _timed(phase_data_parallel, torch, classifier)
     times = _timed(phase_times, torch, model, clouds, card)
     train_times, soft_gathered = _timed(phase_times_train, torch, data,
                                         labels, classifier, card)

@@ -6,7 +6,12 @@ The torch functions mirror the jax side of samplenet_tpu/data/augment.py:
 gaussian jitter (sigma 0.01) clipped to +-0.05 (classification/
 train_samplenet.py:289-293), on the clouds' device, from an explicit
 torch.Generator on that device. The draws are torch's, not jax.random's:
-the two agree in distribution, not in bits.
+the two agree in distribution, not in bits. Under a data-parallel `mesh`
+each rank holds its rows of the global batch and draws for the whole
+global batch from a generator seeded alike on every rank, keeping its
+own rows, so that W ranks augment as one process does (jax.random on a
+sharded array). The draws are float32 whatever the clouds' dtype, so a
+float64 batch takes the float32 run's augmentation.
 
 `rotate_point_cloud_by_angle` (the evaluation's voting rotations),
 `jitter_point_cloud` and `noisy_point_cloud` are copies of the numpy side
@@ -22,12 +27,16 @@ import numpy as np
 import torch
 
 from samplenet_tpu_torch.ops.cuda.point_mlp_kernel import full_f32_matmul
+from samplenet_tpu_torch.parallel.mesh import Mesh, global_rows
 
 
-def rotate_y(generator: torch.Generator, batch: torch.Tensor) -> torch.Tensor:
+def rotate_y(generator: torch.Generator, batch: torch.Tensor,
+             mesh: Mesh | None = None) -> torch.Tensor:
     """Each cloud of batch [B, N, 3] rotated about Y by a uniform angle."""
-    angles = torch.rand(batch.shape[0], generator=generator,
-                        device=batch.device) * (2 * math.pi)
+    total, rows = global_rows(mesh, batch.shape[0])
+    angles = torch.rand(total, generator=generator,
+                        device=batch.device)[rows].to(batch.dtype) \
+        * (2 * math.pi)
     c, s = torch.cos(angles), torch.sin(angles)
     z, o = torch.zeros_like(c), torch.ones_like(c)
     rot = torch.stack([torch.stack([c, z, s], -1),
@@ -38,15 +47,19 @@ def rotate_y(generator: torch.Generator, batch: torch.Tensor) -> torch.Tensor:
 
 
 def jitter(generator: torch.Generator, batch: torch.Tensor,
-           sigma: float = 0.01, clip: float = 0.05) -> torch.Tensor:
-    noise = torch.randn(batch.shape, generator=generator, device=batch.device)
+           sigma: float = 0.01, clip: float = 0.05,
+           mesh: Mesh | None = None) -> torch.Tensor:
+    total, rows = global_rows(mesh, batch.shape[0])
+    noise = torch.randn((total, *batch.shape[1:]), generator=generator,
+                        device=batch.device)[rows].to(batch.dtype)
     return batch + torch.clamp(sigma * noise, -clip, clip)
 
 
 def augment_for_classification(generator: torch.Generator,
-                               batch: torch.Tensor) -> torch.Tensor:
+                               batch: torch.Tensor,
+                               mesh: Mesh | None = None) -> torch.Tensor:
     """Rotate, then jitter: the reference's train-time combination."""
-    return jitter(generator, rotate_y(generator, batch))
+    return jitter(generator, rotate_y(generator, batch, mesh), mesh=mesh)
 
 
 def rotation_matrix_y(angle: np.ndarray) -> np.ndarray:

@@ -15,7 +15,10 @@ averages at momentum `bn_momentum` (nn/layers.py::BatchNorm), and
 Dropout(dropout_rate) after bn_fc2, and with T-nets also after bn_fc1
 (:103-111). The dropout mask comes from an explicit torch.Generator:
 each entry is kept where a uniform draw falls below 1 - rate, and kept
-entries are scaled by 1 / (1 - rate), as flax does. The T-nets' BNs run
+entries are scaled by 1 / (1 - rate), as flax does. Under a data-parallel
+`mesh` (parallel/mesh.py::data_parallel) the mask is drawn for the global
+batch and each rank keeps its rows, and the orthogonality loss, a sum
+over the batch, is summed over the ranks. The T-nets' BNs run
 at momentum 0.9 whatever `bn_momentum` is, because the JAX package builds
 its TransformNets without passing it (:76-77, :82-83); under the
 scheduled BN decay their statistics therefore take two averages a step.
@@ -57,6 +60,7 @@ from samplenet_tpu_torch.nn.layers import (
     point_mlp,
 )
 from samplenet_tpu_torch.ops.cuda.point_mlp_kernel import full_f32_matmul
+from samplenet_tpu_torch.parallel.mesh import Mesh, all_reduce_sum, global_rows
 
 CONV_WIDTHS = (64, 64, 64, 128, 1024)
 FC_WIDTHS = (512, 256)
@@ -67,10 +71,12 @@ CONVS_B_WIDTHS = (64, 128, 1024)
 
 
 def dropout(x: torch.Tensor, rate: float,
-            generator: torch.Generator | None) -> torch.Tensor:
+            generator: torch.Generator | None,
+            mesh: Mesh | None = None) -> torch.Tensor:
     """flax.linen.Dropout(rate) in train mode: each entry kept where a
     uniform draw from `generator` is below 1 - rate and scaled by
-    1 / (1 - rate), the others 0; rate 0 returns x, rate 1 zeros."""
+    1 / (1 - rate), the others 0; rate 0 returns x, rate 1 zeros. Under
+    `mesh`, x is this rank's rows and the draws cover the global batch."""
     if rate == 0.0:
         return x
     if rate == 1.0:
@@ -80,8 +86,9 @@ def dropout(x: torch.Tensor, rate: float,
                          "explicit torch.Generator, as the classifier "
                          "trainer passes one: give generator=")
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device) \
-        < keep_prob
+    total, rows = global_rows(mesh, x.shape[0])
+    keep = torch.rand((total, *x.shape[1:]), generator=generator,
+                      device=x.device)[rows] < keep_prob
     return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
@@ -147,6 +154,7 @@ class PointNetClassifier(nn.Module):
         self.use_tnets = use_tnets
         self.dropout_rate = dropout_rate
         self.dtype = dtype
+        self.mesh = None
         if use_tnets:
             self.tnet_input = TransformNet(3, 3, dtype=dtype, device=device,
                                            generator=gen)
@@ -185,10 +193,10 @@ class PointNetClassifier(nn.Module):
         dt = self.dtype
         g = torch.relu(self.bn_fc1(dense(self.fc1, g, dt), training, dt))
         if self.use_tnets:
-            g = dropout(g, rate, generator)
+            g = dropout(g, rate, generator, self.mesh)
         g = torch.relu(self.bn_fc2(dense(self.fc2, g, dt), training, dt))
         end_points["retrieval_vectors"] = g
-        g = dropout(g, rate, generator)
+        g = dropout(g, rate, generator, self.mesh)
         logits = self.fc3(g.to(self.fc3.weight.dtype))     # f32 logits
         return logits, end_points
 
@@ -199,24 +207,28 @@ def classification_loss(logits: torch.Tensor,
     return F.cross_entropy(logits, labels.long())
 
 
-def matrix_regularization_loss(transform: torch.Tensor) -> torch.Tensor:
+def matrix_regularization_loss(transform: torch.Tensor,
+                               mesh: Mesh | None = None) -> torch.Tensor:
     """||T T^t - I||_F^2 / 2, summed over the batch too (tf.nn.l2_loss,
-    pointnet_cls.py:117-132)."""
+    pointnet_cls.py:117-132): under `mesh`, over the global batch."""
     k = transform.shape[-1]
     with full_f32_matmul():
         tt = torch.bmm(transform, transform.transpose(1, 2))
     diff = tt - torch.eye(k, dtype=transform.dtype, device=transform.device)
-    return 0.5 * (diff * diff).sum()
+    loss = 0.5 * (diff * diff).sum()
+    return loss if mesh is None else all_reduce_sum(loss, mesh)
 
 
 def pointnet_loss(logits: torch.Tensor, labels: torch.Tensor,
-                  end_points: dict, reg_weight: float = 0.001
-                  ) -> torch.Tensor:
+                  end_points: dict, reg_weight: float = 0.001,
+                  mesh: Mesh | None = None) -> torch.Tensor:
     """The classification loss, plus reg_weight times the orthogonality
     loss of end_points["transform"] where the T-net variant gives one
-    (pointnet_cls.py:133-144)."""
+    (pointnet_cls.py:133-144). Under `mesh` the first is this rank's mean
+    (the ranks' means average to the global one) and the second the
+    global batch's sum."""
     loss = classification_loss(logits, labels)
     if "transform" in end_points:
         loss = loss + reg_weight * matrix_regularization_loss(
-            end_points["transform"])
+            end_points["transform"], mesh)
     return loss

@@ -29,6 +29,13 @@ samplenet_tpu/nn/layers.py:48-51 (`BNTrainStats.update`).
 `resolve_fused_mode` is the JAX package's rule for picking between them
 (:111-149), `use_eval_kernel` its rule for the eval kernel (:84-93).
 
+Under a data-parallel mesh (parallel/mesh.py::data_parallel sets it on
+every BatchNorm) the statistics in training are the global batch's, as
+GSPMD makes them in the JAX package: BatchNorm all-reduces its [2, C]
+sums (differentiably), the train chains all-reduce theirs between their
+kernels' launches, and the chain's mode and ghost block are chosen from
+the global batch. Without a mesh nothing changes.
+
 A compute `dtype` (bf16; the JAX package's `dtype` field, :66-68, reached
 by `--bf16`) runs the chain as tensor ops with flax's casts and no kernel,
 train or eval, as the JAX package does (:88, :120; its XLA matmuls, so on
@@ -58,6 +65,7 @@ from samplenet_tpu_torch.ops.cuda.point_mlp_train_kernel import (
     auto_block_b,
     point_mlp_train_max,
 )
+from samplenet_tpu_torch.parallel.mesh import all_reduce_sum
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9
@@ -126,7 +134,9 @@ class BatchNorm(nn.Module):
     (x - mean) * (rsqrt(var + eps) * scale) + bias, with the running
     statistics at eval and the batch statistics in training. Its
     parameters and buffers carry BatchNorm1d's names, num_batches_tracked
-    included. `momentum` is flax's (the weight of the old average)."""
+    included. `momentum` is flax's (the weight of the old average). Under
+    `mesh` (set by parallel/mesh.py::data_parallel) the batch statistics
+    are the global batch's."""
 
     def __init__(self, features: int, *, momentum: float = BN_MOMENTUM,
                  device=None):
@@ -140,6 +150,7 @@ class BatchNorm(nn.Module):
                              torch.ones(features, device=device))
         self.register_buffer("num_batches_tracked",
                              torch.tensor(0, dtype=torch.long, device=device))
+        self.mesh = None
 
     def update_stats(self, mean: torch.Tensor, var: torch.Tensor) -> None:
         """Running averages from one batch's mean and biased variance."""
@@ -158,8 +169,14 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         else:
             flat = x.reshape(-1, x.shape[-1]).to(self.running_mean.dtype)
-            mean = flat.mean(0)
-            var = torch.clamp((flat * flat).mean(0) - mean * mean, min=0.0)
+            if self.mesh is None:
+                mean = flat.mean(0)
+                msq = (flat * flat).mean(0)
+            else:       # sums over every rank's rows, one all-reduce
+                s = all_reduce_sum(torch.stack(
+                    [flat.sum(0), (flat * flat).sum(0)]), self.mesh)
+                mean, msq = s / (flat.shape[0] * self.mesh.size)
+            var = torch.clamp(msq - mean * mean, min=0.0)
             self.update_stats(mean.detach(), var.detach())
         mul = torch.rsqrt(var + BN_EPS) * self.weight
         y = (x - mean) * mul + self.bias
@@ -216,9 +233,12 @@ def resolve_fused_mode(x: torch.Tensor, widths: Sequence[int], *,
                        fused_train: bool | None = None,
                        fused_mode: str = "ghost",
                        fused_bf16: bool | None = None,
-                       dtype: torch.dtype | None = None) -> str:
+                       dtype: torch.dtype | None = None,
+                       batch: int | None = None) -> str:
     """The train chain for x [B, N, C] through layers of `widths`, as
-    samplenet_tpu/nn/layers.py:116-149 picks its fused kernel on its TPU:
+    samplenet_tpu/nn/layers.py:116-149 picks its fused kernel on its TPU
+    (from the global `batch` where x is one rank's rows, as the JAX
+    package picks it at trace time from the global shape; B by default):
 
     - "plain" with a compute `dtype`: tensor ops in that dtype (JAX's XLA
       chain, :120);
@@ -243,11 +263,12 @@ def resolve_fused_mode(x: torch.Tensor, widths: Sequence[int], *,
         return "exact"
     mode = "exact" if fused_train is None else fused_mode
     bf16 = fused_bf16_of(mode, fused_bf16)
+    batch = x.shape[0] if batch is None else batch
     if mode == "ghost":
-        bb = auto_block_b(x.shape[0], x.shape[1], tuple(widths), bf16)
+        bb = auto_block_b(batch, x.shape[1], tuple(widths), bf16)
         return "exact" if bb is None else "ghost"
     if bf16 and len(widths) >= 2 and auto_block_b_exact(
-            x.shape[0], x.shape[1], tuple(widths), bf16) is not None:
+            batch, x.shape[1], tuple(widths), bf16) is not None:
         return "exact_bf16"
     return "exact"
 
@@ -284,20 +305,24 @@ def point_mlp(owner: nn.Module, n_layers: int, x: torch.Tensor, *,
         return x.amax(dim=1) if pool_max else x
     layers = [(getattr(owner, f"conv{i + 1}"), getattr(owner, f"bn{i + 1}"))
               for i in range(n_layers)]
+    mesh = layers[0][1].mesh
     mode = resolve_fused_mode(
         x, [conv.weight.shape[0] for conv, _ in layers], training=training,
         pool_max=pool_max, fused_train=fused_train, fused_mode=fused_mode,
-        fused_bf16=fused_bf16, dtype=dtype)
+        fused_bf16=fused_bf16, dtype=dtype,
+        batch=None if mesh is None else x.shape[0] * mesh.size)
     if pool_max and training and mode != "plain":
         args = (x, [conv.kernel() for conv, _ in layers],
                 [conv.bias for conv, _ in layers],
                 [bn.weight for _, bn in layers], [bn.bias for _, bn in layers])
+        dp = {} if mesh is None else {"mesh": mesh}
         if mode == "ghost":
             pooled, means, vars_ = point_mlp_train_max(
-                *args, eps=BN_EPS, bf16=fused_bf16_of("ghost", fused_bf16))
+                *args, eps=BN_EPS, bf16=fused_bf16_of("ghost", fused_bf16),
+                **dp)
         else:
             pooled, means, vars_ = point_mlp_exact_train_max(
-                *args, eps=BN_EPS, bf16=mode == "exact_bf16")
+                *args, eps=BN_EPS, bf16=mode == "exact_bf16", **dp)
         for (_, bn), mean, var in zip(layers, means, vars_):
             bn.update_stats(mean, var)
         return pooled

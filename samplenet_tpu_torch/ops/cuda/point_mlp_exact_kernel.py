@@ -48,6 +48,7 @@ from samplenet_tpu_torch.ops.cuda.point_mlp_kernel import (
 from samplenet_tpu_torch.ops.cuda.point_mlp_train_kernel import (
     MODE_EXACT_BF16,
     MODE_F32,
+    Blocks,
     bwd_cuda,
     check_args,
     check_cuda,
@@ -55,6 +56,7 @@ from samplenet_tpu_torch.ops.cuda.point_mlp_train_kernel import (
     ptrs,
 )
 from samplenet_tpu_torch.ops.dispatch import count_launch, use_kernel
+from samplenet_tpu_torch.parallel.mesh import Mesh
 
 KERNEL_FWD = "point_mlp_exact_fwd"
 KERNEL_BWD = "point_mlp_exact_bwd"
@@ -99,8 +101,18 @@ def _act(z, mu, rstd, gamma, beta):
 
 # ------------------------------------------------------------ plain version
 
-def point_mlp_exact_fwd_plain(x, weights, gammas, betas, eps, bf16=False):
-    """(pooled [B, C_out], mus, vars, saved): saved feeds the backward."""
+def _global(s: torch.Tensor, count: int, blocks: Blocks | None):
+    """The [2, C] sums s over `count` points, summed over the ranks under
+    `blocks` (one all-reduce), and the count they cover."""
+    if blocks is None:
+        return s, count
+    return blocks.sums(s[None])[0], count * blocks.group
+
+
+def point_mlp_exact_fwd_plain(x, weights, gammas, betas, eps, bf16=False,
+                              blocks=None):
+    """(pooled [B, C_out], mus, vars, saved): saved feeds the backward.
+    Under `blocks` the statistics are the global batch's."""
     b, n, c0 = x.shape
     count = b * n
     h = x.reshape(count, c0)
@@ -108,8 +120,9 @@ def point_mlp_exact_fwd_plain(x, weights, gammas, betas, eps, bf16=False):
     with full_f32_matmul():
         for w, gamma, beta in zip(weights, gammas, betas):
             z = torch.matmul(round_op(h, bf16), round_op(w, bf16))
-            mu, var, rstd = _stats(z.sum(0), (z * z).sum(0), count, eps,
-                                   z.dtype)
+            s, total = _global(torch.stack([z.sum(0), (z * z).sum(0)]),
+                               count, blocks)
+            mu, var, rstd = _stats(s[0], s[1], total, eps, z.dtype)
             h = _act(z, mu, rstd, gamma, beta)
             zs.append(z)
             mus.append(mu)
@@ -122,10 +135,12 @@ def point_mlp_exact_fwd_plain(x, weights, gammas, betas, eps, bf16=False):
 
 
 def point_mlp_exact_bwd_plain(x, weights, gammas, betas, saved, g,
-                              bf16=False):
+                              bf16=False, blocks=None):
     """(dx, dWs, dgammas, dbetas) for the pooled cotangent g [B, C_out].
     With bf16, each layer's rows come from dh before its bf16 spill and dz
-    from dh after it (below the top layer, whose dh is g at the argmax)."""
+    from dh after it (below the top layer, whose dh is g at the argmax).
+    Under `blocks` the rows that feed dz are summed over the ranks; the
+    dgammas and dbetas returned stay this rank's sums."""
     zs, mus, rstds, argmax = saved
     b, n, c0 = x.shape
     count = b * n
@@ -140,8 +155,9 @@ def point_mlp_exact_bwd_plain(x, weights, gammas, betas, saved, g,
             on = torch.relu(gammas[i] * xhat + betas[i]) > 0
             dy = torch.where(on, dh, torch.zeros_like(dh))
             dbetas[i], dgammas[i] = dy.sum(0), (dy * xhat).sum(0)
-            r1 = gammas[i] * dbetas[i] / count
-            r2 = gammas[i] * dgammas[i] / count
+            s, total = _global(torch.stack([dbetas[i], dgammas[i]]), count,
+                               blocks)
+            r1, r2 = gammas[i] * s[0] / total, gammas[i] * s[1] / total
             if bf16 and i < nl - 1:        # the spilled dh, read back
                 dy = torch.where(on, round_op(dh, True),
                                  torch.zeros_like(dh))
@@ -162,7 +178,8 @@ def point_mlp_exact_bwd_plain(x, weights, gammas, betas, saved, g,
 # wrappers share): exact global BN is its case of one block of all B
 # clouds, in backward mode MODE_F32 or MODE_EXACT_BF16.
 
-def point_mlp_exact_fwd_cuda(x, weights, gammas, betas, eps, bf16=False):
+def point_mlp_exact_fwd_cuda(x, weights, gammas, betas, eps, bf16=False,
+                             blocks=None):
     name = KERNEL_FWD_BF16 if bf16 else KERNEL_FWD
     widths = [x.shape[-1], *(w.shape[1] for w in weights)]
     dense = check_cuda(x, widths, "point_mlp_exact")[1]
@@ -185,8 +202,8 @@ def point_mlp_exact_fwd_cuda(x, weights, gammas, betas, eps, bf16=False):
                 cout, z.data_ptr(), rows.data_ptr(), 1, b, n, int(dp.stage),
                 grid, stream)
             check(err, name)
-            s = rows.sum(0)
-            mu, var, rstd = _stats(s[0], s[1], count, eps,
+            s, total = _global(rows.sum(0), count, blocks)
+            mu, var, rstd = _stats(s[0], s[1], total, eps,
                                    torch.float32)
             prev = ptrs(mu, rstd, gamma.contiguous(), beta.contiguous())
             bn_keep = (mu, rstd, gamma.contiguous(), beta.contiguous())
@@ -208,13 +225,14 @@ def point_mlp_exact_fwd_cuda(x, weights, gammas, betas, eps, bf16=False):
 
 
 def point_mlp_exact_bwd_cuda(x, weights, gammas, betas, saved, g,
-                             bf16=False):
-    """The ghost chain's backward kernels as one block of all B clouds, in
-    mode MODE_F32 or, with bf16, MODE_EXACT_BF16
-    (`point_mlp_train_kernel.bwd_cuda`)."""
+                             bf16=False, blocks=None):
+    """The ghost chain's backward kernels as one block of all B clouds (of
+    every rank under `blocks`), in mode MODE_F32 or, with bf16,
+    MODE_EXACT_BF16 (`point_mlp_train_kernel.bwd_cuda`)."""
     name = KERNEL_BWD_BF16 if bf16 else KERNEL_BWD
     out = bwd_cuda(x, weights, gammas, betas, 0.0, x.shape[0],
-                   MODE_EXACT_BF16 if bf16 else MODE_F32, saved, g, name)
+                   MODE_EXACT_BF16 if bf16 else MODE_F32, saved, g, name,
+                   blocks)
     count_launch(name)
     return out
 
@@ -223,7 +241,7 @@ def point_mlp_exact_bwd_cuda(x, weights, gammas, betas, saved, g,
 
 class _PointMLPExact(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, eps, bf16, n_layers, *params):
+    def forward(ctx, x, eps, bf16, blocks, n_layers, *params):
         weights = params[:n_layers]
         gammas = params[2 * n_layers:3 * n_layers]
         betas = params[3 * n_layers:]
@@ -232,9 +250,10 @@ class _PointMLPExact(torch.autograd.Function):
         ctx.kernel = use_kernel(x)
         fwd = point_mlp_exact_fwd_cuda if ctx.kernel \
             else point_mlp_exact_fwd_plain
-        pooled, mus, vars_, saved = fwd(x, weights, gammas, betas, eps, bf16)
+        pooled, mus, vars_, saved = fwd(x, weights, gammas, betas, eps, bf16,
+                                        blocks)
         zs, _, rstds, argmax = saved
-        ctx.n_layers, ctx.bf16 = n_layers, bf16
+        ctx.n_layers, ctx.bf16, ctx.blocks = n_layers, bf16, blocks
         ctx.save_for_backward(x, *weights, *gammas, *betas, *zs, *mus,
                               *rstds, argmax)
         means = [mu + bias for mu, bias in
@@ -252,13 +271,16 @@ class _PointMLPExact(torch.autograd.Function):
         bwd = point_mlp_exact_bwd_cuda if ctx.kernel \
             else point_mlp_exact_bwd_plain
         dx, dws, dgammas, dbetas = bwd(x, weights, gammas, betas,
-                                       (zs, mus, rstds, argmax), g, ctx.bf16)
+                                       (zs, mus, rstds, argmax), g, ctx.bf16,
+                                       ctx.blocks)
         dbiases = [torch.zeros_like(w[0]) for w in weights]
-        return (dx, None, None, None, *dws, *dbiases, *dgammas, *dbetas)
+        return (dx, None, None, None, None, *dws, *dbiases, *dgammas,
+                *dbetas)
 
 
 def point_mlp_exact_train_max(x, weights, biases, gammas, betas, *,
-                              eps: float = 1e-5, bf16: bool = False):
+                              eps: float = 1e-5, bf16: bool = False,
+                              mesh: Mesh | None = None):
     """(pooled [B, C_out], means, vars): the train-mode chain
     relu(BN(x W_l)) with exact batch statistics, max-pooled over points,
     with bf16 matmul operands where `bf16`. weights are Dense kernels
@@ -266,9 +288,15 @@ def point_mlp_exact_train_max(x, weights, biases, gammas, betas, *,
     in x, the weights, gammas and betas (the biases get exact zeros). CPU
     tensors take the plain versions, CUDA tensors the kernels
     (ops/dispatch.py), counted as point_mlp_exact_{fwd,bwd} or, in bf16,
-    point_mlp_exact_bf16_{fwd,bwd}."""
+    point_mlp_exact_bf16_{fwd,bwd}. Under a `mesh`, x holds this rank's
+    rows and the statistics are the global batch's: each layer's [2, C]
+    sums are all-reduced between the forward's launches, and the rows
+    that feed dz between the backward's (the JAX kernel's psum under a
+    sharded caller, :19-26, :418)."""
     check_args(x, weights, biases, gammas, betas)
     nl = len(weights)
-    outs = _PointMLPExact.apply(x, eps, bool(bf16), nl, *weights, *biases,
-                                *gammas, *betas)
+    blocks = None if mesh is None else Blocks(
+        mesh, x.shape[0], x.shape[0] * mesh.size)
+    outs = _PointMLPExact.apply(x, eps, bool(bf16), blocks, nl, *weights,
+                                *biases, *gammas, *betas)
     return outs[0], tuple(outs[1:1 + nl]), tuple(outs[1 + nl:])

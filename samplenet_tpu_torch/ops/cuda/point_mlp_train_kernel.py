@@ -38,6 +38,7 @@ off, as the reference both paths are held against.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 import torch.nn.functional as F
@@ -59,6 +60,7 @@ from samplenet_tpu_torch.ops.cuda.point_mlp_plan import (
     plan_dense,
 )
 from samplenet_tpu_torch.ops.dispatch import count_launch, use_kernel
+from samplenet_tpu_torch.parallel.mesh import Mesh, all_reduce_
 
 KERNEL_FWD = "point_mlp_train_fwd"
 KERNEL_BWD = "point_mlp_train_bwd"
@@ -110,32 +112,82 @@ def check_args(x, weights, biases, gammas, betas) -> list[int]:
     return widths
 
 
-def _ghost_stats(z: torch.Tensor, eps: float):
-    """(mu, msq, rstd) per block of z [P, M, C], each [P, 1, C]."""
+class Blocks:
+    """The blocks of a global batch split over the ranks of a mesh, for
+    statistics per block: blocks of `block_b` clouds of the global batch
+    (the ghost chain's; the exact chain is one block of all of them). The
+    rank runs its kernels on sub-blocks of `sub` clouds, the largest count
+    that divides both its batch and block_b, and `group` = block_b / sub
+    consecutive sub-blocks in global (rank-major) order make one block;
+    with group 1 every block lies within a rank and its statistics need
+    no collective. The JAX package chooses block_b from the global batch
+    and GSPMD gathers a block that straddles devices, so its result is
+    the single device's; `sums` gives the same here with one all-reduce."""
+
+    def __init__(self, mesh: Mesh, local_b: int, block_b: int):
+        self.mesh = mesh
+        self.sub = math.gcd(local_b, block_b)
+        self.group = block_b // self.sub
+
+    def sums(self, t: torch.Tensor) -> torch.Tensor:
+        """t [P, ...], this rank's sums per sub-block -> each sub-block's
+        row summed over its block."""
+        if self.group == 1:
+            return t
+        p, w, r = t.shape[0], self.mesh.size, self.mesh.rank
+        if p == 1 and self.group == w:        # one block of every rank
+            return all_reduce_(t.clone(), self.mesh)
+        full = t.new_zeros((w * p, *t.shape[1:]))
+        full[r * p:(r + 1) * p] = t
+        all_reduce_(full, self.mesh)
+        full = full.reshape(w * p // self.group, self.group, *t.shape[1:])
+        return full.sum(1).repeat_interleave(self.group, 0)[r * p:(r + 1) * p]
+
+    def means(self, t: torch.Tensor) -> torch.Tensor:
+        """t [P, ...], this rank's means per sub-block -> the means over
+        each sub-block's block (sub-blocks hold equal counts)."""
+        return self.sums(t) / self.group
+
+    def global_means(self, rows: list[torch.Tensor]) -> list[torch.Tensor]:
+        """Each [P, C] of rows averaged over the sub-blocks of every rank,
+        one all-reduce for them all."""
+        flat = all_reduce_(torch.cat([r.sum(0) for r in rows]), self.mesh)
+        flat = flat / (self.mesh.size * rows[0].shape[0])
+        return list(flat.split([r.shape[1] for r in rows]))
+
+
+def _ghost_stats(z: torch.Tensor, eps: float, blocks: Blocks | None = None):
+    """(mu, msq, rstd) per block of z [P, M, C], each [P, 1, C]; under
+    `blocks`, per block of the global batch."""
     mu = z.mean(1, keepdim=True)
     msq = (z * z).mean(1, keepdim=True)
+    if blocks is not None:
+        mu, msq = blocks.means(torch.cat([mu, msq], 1)).split(1, 1)
     return mu, msq, torch.rsqrt(msq - mu * mu + eps)
 
 
 # ------------------------------------------------------------ plain version
 
-def point_mlp_train_fwd_plain(x, weights, gammas, betas, eps, block_b, bf16):
+def point_mlp_train_fwd_plain(x, weights, gammas, betas, eps, block_b, bf16,
+                              blocks=None):
     """(pooled [B, C_out], block means [P, C] and block E[z^2] [P, C] per
-    layer): the forward kernel's lines (:102-117)."""
+    layer): the forward kernel's lines (:102-117). Under `blocks`, block_b
+    is its sub-block and the statistics are its blocks'."""
     b, n, c0 = x.shape
     h = x.reshape(b // block_b, block_b * n, c0)
     mus, msqs = [], []
     with full_f32_matmul():
         for w, gamma, beta in zip(weights, gammas, betas):
             z = torch.matmul(round_op(h, bf16), round_op(w, bf16))
-            mu, msq, rstd = _ghost_stats(z, eps)
+            mu, msq, rstd = _ghost_stats(z, eps, blocks)
             h = torch.relu(gamma * ((z - mu) * rstd) + beta)
             mus.append(mu[:, 0])
             msqs.append(msq[:, 0])
     return h.reshape(b, n, -1).amax(dim=1), mus, msqs
 
 
-def _stored_chain(x, weights, gammas, betas, eps, block_b, bf16):
+def _stored_chain(x, weights, gammas, betas, eps, block_b, bf16,
+                  blocks=None):
     """(xhat per layer as the backward stores it, [P, M, C], and the f32
     chain's first argmax [B, C_out]): the backward kernel's recompute of
     the chain from x (:130-148)."""
@@ -145,7 +197,7 @@ def _stored_chain(x, weights, gammas, betas, eps, block_b, bf16):
     with full_f32_matmul():
         for w, gamma, beta in zip(weights, gammas, betas):
             z = torch.matmul(round_op(h, bf16), round_op(w, bf16))
-            mu, _, rstd = _ghost_stats(z, eps)
+            mu, _, rstd = _ghost_stats(z, eps, blocks)
             xhat = (z - mu) * rstd
             h = torch.relu(gamma * xhat + beta)
             xhats.append(round_op(xhat, bf16))
@@ -153,10 +205,12 @@ def _stored_chain(x, weights, gammas, betas, eps, block_b, bf16):
 
 
 def point_mlp_train_vjp_plain(x, weights, gammas, betas, eps, block_b, bf16,
-                              xhats, argmax, g):
+                              xhats, argmax, g, blocks=None):
     """(dx, dWs, dgammas, dbetas) for the pooled cotangent g [B, C_out],
     from the stored xhats [P, M, C] and the argmax [B, C_out] of a forward:
-    the backward kernel's lines (:150-196)."""
+    the backward kernel's lines (:150-196). Under `blocks` the means over
+    a block are its block's in the global batch; dgammas and dbetas stay
+    this rank's sums."""
     b, n, c0 = x.shape
     p = b // block_b
     h0 = x.reshape(p, block_b * n, c0)
@@ -175,13 +229,16 @@ def point_mlp_train_vjp_plain(x, weights, gammas, betas, eps, block_b, bf16,
             dgammas[i] = (dy * xh).sum(1).sum(0)
             dbetas[i] = dy.sum(1).sum(0)
             dxhat = dy * gammas[i]
-            dz = (dxhat - dxhat.mean(1, keepdim=True)
-                  - xh * (dxhat * xh).mean(1, keepdim=True))
+            m1 = dxhat.mean(1, keepdim=True)
+            m2 = (dxhat * xh).mean(1, keepdim=True)
+            if blocks is not None:
+                m1, m2 = blocks.means(torch.cat([m1, m2], 1)).split(1, 1)
+            dz = dxhat - m1 - xh * m2
             h_prev = h0 if i == 0 else torch.relu(
                 gammas[i - 1] * xhats[i - 1] + betas[i - 1])
             z = torch.matmul(round_op(h_prev, bf16),
                              round_op(weights[i], bf16))
-            _, _, rstd = _ghost_stats(z, eps)
+            _, _, rstd = _ghost_stats(z, eps, blocks)
             dz = round_op(rstd * dz, bf16)
             dws[i] = torch.matmul(round_op(h_prev, bf16).transpose(1, 2),
                                   dz).sum(0)
@@ -190,20 +247,26 @@ def point_mlp_train_vjp_plain(x, weights, gammas, betas, eps, block_b, bf16,
 
 
 def point_mlp_train_bwd_plain(x, weights, gammas, betas, eps, block_b, bf16,
-                              g):
+                              g, blocks=None):
     """(dx, dWs, dgammas, dbetas) for the pooled cotangent g [B, C_out]:
     the backward kernel's lines (:130-196), the chain recomputed from x."""
     xhats, argmax = _stored_chain(x, weights, gammas, betas, eps, block_b,
-                                  bf16)
+                                  bf16, blocks)
     return point_mlp_train_vjp_plain(x, weights, gammas, betas, eps, block_b,
-                                     bf16, xhats, argmax, g)
+                                     bf16, xhats, argmax, g, blocks)
 
 
-def stats_from_rows(mus, msqs):
+def stats_from_rows(mus, msqs, blocks: Blocks | None = None):
     """Per layer the exact global (mean, var) of z from the per-block rows
     [P, C] (:336-349, before the dense bias): block rows are averages over
     equal blocks, so the global mean is their mean, and the variance is
-    E[z^2] - E[z]^2, not clamped."""
+    E[z^2] - E[z]^2, not clamped. Under `blocks` the mean is over the rows
+    of every rank."""
+    if blocks is not None:
+        rows = blocks.global_means([*mus, *msqs])
+        means = rows[:len(mus)]
+        return means, [msq - mu * mu for mu, msq in zip(means,
+                                                         rows[len(mus):])]
     means, vars_ = [], []
     for mu_b, msq_b in zip(mus, msqs):
         mu, msq = mu_b.mean(0), msq_b.mean(0)
@@ -274,22 +337,29 @@ def check_cuda(x, widths, name: str, block_b: int | None = None
     return plans, dense
 
 
-def _block_stats(rows: torch.Tensor, m: int, eps: float):
+def _block_stats(rows: torch.Tensor, m: int, eps: float,
+                 blocks: Blocks | None = None):
     """(mu, rstd) as f32 [P, C], and the f64 (mu, msq), from the f64 sums
-    rows [P, G, 2, C] over m points per block."""
+    rows [P, G, 2, C] over m points per block (under `blocks`, per
+    sub-block, m the block's count)."""
     s = rows.sum(1)
+    if blocks is not None:
+        s = blocks.sums(s)
     mu64, msq64 = s[:, 0] / m, s[:, 1] / m
     var = (msq64 - mu64 * mu64).float()
     return mu64.float(), torch.rsqrt(var + eps), mu64, msq64
 
 
-def point_mlp_train_fwd_cuda(x, weights, gammas, betas, eps, block_b, bf16):
+def point_mlp_train_fwd_cuda(x, weights, gammas, betas, eps, block_b, bf16,
+                             blocks=None):
     """(pooled, block means, block E[z^2] (f64), saved): saved feeds the
-    backward kernels."""
+    backward kernels. Under `blocks`, block_b is its sub-block and the
+    statistics are its blocks'."""
     widths = [x.shape[-1], *(w.shape[1] for w in weights)]
     dense = check_cuda(x, widths, "point_mlp_train", block_b)[1]
     b, n, _ = x.shape
     p, m = b // block_b, block_b * n
+    m_stat = m * (1 if blocks is None else blocks.group)
     lib = library()
     grid = launch_grid(-(-m // _TILE), x.device, per_sm=4, n_blocks=p)
     stream = stream_handle(x)
@@ -309,7 +379,7 @@ def point_mlp_train_fwd_cuda(x, weights, gammas, betas, eps, block_b, bf16):
                 cout, z.data_ptr(), rows.data_ptr(), p, block_b, n,
                 int(dp.stage), grid, stream)
             check(err, KERNEL_FWD)
-            mu, rstd, mu64, msq64 = _block_stats(rows, m, eps)
+            mu, rstd, mu64, msq64 = _block_stats(rows, m_stat, eps, blocks)
             prev = ptrs(mu, rstd, gamma, beta)
             zs.append(z)
             mus.append(mu)
@@ -334,7 +404,7 @@ MODE_F32, MODE_GHOST_BF16, MODE_EXACT_BF16 = 0, 1, 2
 
 
 def bwd_cuda(x, weights, gammas, betas, eps, block_b, mode, saved, g,
-             kernel: str):
+             kernel: str, blocks: Blocks | None = None):
     """(dx, dWs, dgammas, dbetas): the backward kernels of both chains
     (the exact chain is one block of all B clouds), from a forward's saved
     (zs, mus, rstds, argmax), with the roundings of `mode`: MODE_F32,
@@ -342,12 +412,16 @@ def bwd_cuda(x, weights, gammas, betas, eps, block_b, mode, saved, g,
     from the rounded h_prev) or MODE_EXACT_BF16 (operands in bf16, dh read
     back in bf16 by pmt_bwd_dz); `kernel` names the caller in errors. Per
     layer, from the top: pmt_rows (the BN rows), pmt_bwd_dz (dz and
-    dh_prev) and pmt_bwd_dw (dW's f64 partials, summed here)."""
+    dh_prev) and pmt_bwd_dw (dW's f64 partials, summed here). Under
+    `blocks` (block_b its sub-block) the rows that feed dz are summed over
+    each block of the global batch between pmt_rows and pmt_bwd_dz; the
+    dgammas and dbetas returned stay this rank's sums."""
     zs, mus, rstds, argmax = saved
     widths = [x.shape[-1], *(w.shape[1] for w in weights)]
     plans, dense = check_cuda(x, widths, kernel, block_b)
     b, n, c0 = x.shape
     p, m = b // block_b, block_b * n
+    m_stat = m * (1 if blocks is None else blocks.group)
     tiles = -(-m // _TILE)
     lib = library()
     stream = stream_handle(x)
@@ -376,7 +450,8 @@ def bwd_cuda(x, weights, gammas, betas, eps, block_b, mode, saved, g,
                     w_op.data_ptr(), cout, None, rows.data_ptr(), p, block_b,
                     n, int(dense[i].stage), grid, stream)
                 check(err, kernel)
-                rstd2 = _block_stats(rows, m, eps)[1].contiguous()
+                rstd2 = _block_stats(rows, m_stat, eps, blocks)[1] \
+                    .contiguous()
             grid = _rows_grid(block_b if dh is None else tiles)
             rows = torch.empty((p, grid, 2, cout), dtype=torch.float64,
                                device=x.device)
@@ -389,9 +464,11 @@ def bwd_cuda(x, weights, gammas, betas, eps, block_b, mode, saved, g,
             s = rows.sum(1)                               # [P, 2, C] f64
             dbetas[i], dgammas[i] = s[:, 0].sum(0).float(), \
                 s[:, 1].sum(0).float()
+            if blocks is not None:
+                s = blocks.sums(s)
             gamma64 = gammas[i].double()
-            r1 = (gamma64 * s[:, 0] / m).float().contiguous()
-            r2 = (gamma64 * s[:, 1] / m).float().contiguous()
+            r1 = (gamma64 * s[:, 0] / m_stat).float().contiguous()
+            r2 = (gamma64 * s[:, 1] / m_stat).float().contiguous()
             wt = F.pad(w_op.t(), (0, plan.cin_pad - cin)).contiguous()
             dz = torch.empty((b * n, cout), dtype=torch.float32,
                              device=x.device)
@@ -420,9 +497,10 @@ def bwd_cuda(x, weights, gammas, betas, eps, block_b, mode, saved, g,
 
 
 def point_mlp_train_bwd_cuda(x, weights, gammas, betas, eps, block_b, bf16,
-                             saved, g):
+                             saved, g, blocks=None):
     out = bwd_cuda(x, weights, gammas, betas, eps, block_b,
-                   MODE_GHOST_BF16 if bf16 else MODE_F32, saved, g, KERNEL_BWD)
+                   MODE_GHOST_BF16 if bf16 else MODE_F32, saved, g, KERNEL_BWD,
+                   blocks)
     count_launch(KERNEL_BWD)
     return out
 
@@ -431,7 +509,7 @@ def point_mlp_train_bwd_cuda(x, weights, gammas, betas, eps, block_b, bf16,
 
 class _PointMLPGhost(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, eps, block_b, bf16, n_layers, *params):
+    def forward(ctx, x, eps, block_b, bf16, blocks, n_layers, *params):
         weights = params[:n_layers]
         gammas = params[2 * n_layers:3 * n_layers]
         betas = params[3 * n_layers:]
@@ -440,17 +518,18 @@ class _PointMLPGhost(torch.autograd.Function):
         ctx.kernel = use_kernel(x)
         ctx.eps, ctx.block_b, ctx.bf16, ctx.n_layers = eps, block_b, bf16, \
             n_layers
+        ctx.blocks = blocks
         if ctx.kernel:
             pooled, mus, msqs, saved = point_mlp_train_fwd_cuda(
-                x, weights, gammas, betas, eps, block_b, bf16)
+                x, weights, gammas, betas, eps, block_b, bf16, blocks)
             zs, bmus, rstds, argmax = saved
             ctx.save_for_backward(x, *weights, *gammas, *betas, *zs, *bmus,
                                   *rstds, argmax)
         else:
             pooled, mus, msqs = point_mlp_train_fwd_plain(
-                x, weights, gammas, betas, eps, block_b, bf16)
+                x, weights, gammas, betas, eps, block_b, bf16, blocks)
             ctx.save_for_backward(x, *weights, *gammas, *betas)
-        means, vars_ = stats_from_rows(mus, msqs)
+        means, vars_ = stats_from_rows(mus, msqs, blocks)
         means = [(mu + bias.to(mu.dtype)).to(x.dtype) for mu, bias in
                  zip(means, params[n_layers:2 * n_layers])]
         vars_ = [v.to(x.dtype) for v in vars_]
@@ -467,33 +546,39 @@ class _PointMLPGhost(torch.autograd.Function):
             saved = (rest[3 * nl:4 * nl], rest[4 * nl:5 * nl],
                      rest[5 * nl:6 * nl], rest[6 * nl])
             dx, dws, dgammas, dbetas = point_mlp_train_bwd_cuda(
-                *args, saved, g)
+                *args, saved, g, ctx.blocks)
         else:
-            dx, dws, dgammas, dbetas = point_mlp_train_bwd_plain(*args, g)
+            dx, dws, dgammas, dbetas = point_mlp_train_bwd_plain(
+                *args, g, ctx.blocks)
         dbiases = [torch.zeros_like(w[0]) for w in weights]
-        return (dx, None, None, None, None, *dws, *dbiases, *dgammas,
+        return (dx, None, None, None, None, None, *dws, *dbiases, *dgammas,
                 *dbetas)
 
 
 def point_mlp_train_max(x, weights, biases, gammas, betas, *,
                         eps: float = 1e-5, block_b: int | None = None,
-                        bf16: bool = True):
+                        bf16: bool = True, mesh: Mesh | None = None):
     """(pooled [B, C_out], means, vars): the train-mode chain relu(BN(x W_l))
     with ghost batch statistics over blocks of `block_b` clouds
     (`auto_block_b` when None), max-pooled over points; means (with each
     layer's dense bias) and vars are the exact global statistics for the
     EMA. Differentiable in x, the weights, gammas and betas (the biases get
     exact zeros). CPU tensors take the plain versions, CUDA tensors the
-    kernels (ops/dispatch.py)."""
+    kernels (ops/dispatch.py). Under a `mesh`, x holds this rank's rows of
+    the global batch, block_b counts clouds of the global batch (chosen
+    from it, as the JAX package chooses it at trace time), and the
+    statistics are those of the global batch's blocks (`Blocks`)."""
     widths = check_args(x, weights, biases, gammas, betas)
+    batch = x.shape[0] * (1 if mesh is None else mesh.size)
     if block_b is None:
-        block_b = auto_block_b(x.shape[0], x.shape[1], tuple(widths[1:]),
-                               bf16)
-    if block_b is None or block_b < 1 or x.shape[0] % block_b:
-        raise ValueError(f"no valid batch block for B={x.shape[0]}, "
+        block_b = auto_block_b(batch, x.shape[1], tuple(widths[1:]), bf16)
+    if block_b is None or block_b < 1 or batch % block_b:
+        raise ValueError(f"no valid batch block for B={batch}, "
                          f"N={x.shape[1]}, widths {widths[1:]}: the caller "
                          f"runs the exact chain")
+    blocks = None if mesh is None else Blocks(mesh, x.shape[0], block_b)
     nl = len(weights)
-    outs = _PointMLPGhost.apply(x, eps, block_b, bool(bf16), nl, *weights,
-                                *biases, *gammas, *betas)
+    outs = _PointMLPGhost.apply(
+        x, eps, block_b if blocks is None else blocks.sub, bool(bf16),
+        blocks, nl, *weights, *biases, *gammas, *betas)
     return outs[0], tuple(outs[1:1 + nl]), tuple(outs[1 + nl:])

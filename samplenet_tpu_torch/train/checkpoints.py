@@ -16,7 +16,9 @@ best snapshot, best_epoch and best_test_acc), as the JAX CLI writes it
 The registration track's PCRNet checkpoint is pcrnet.pth and a config
 with its bottleneck_size (and the run's best epoch and validation
 rotation error); `load_pcrnet` builds it, and phase 2 of
-train_registration freezes it.
+train_registration freezes it. `save_sharded` and `restore_sharded` are
+the multi-process checkpoint on torch.distributed.checkpoint, written by
+every rank and read in any world size.
 """
 
 from __future__ import annotations
@@ -64,6 +66,28 @@ def restore_train_state(path: str, state: TrainState
         with open(extras_path) as f:
             extras = json.load(f)
     return state, extras
+
+
+def save_sharded(path: str, tree: dict[str, Any]) -> None:
+    """Every rank calls this: torch.distributed.checkpoint writes the tree
+    (nested dicts of tensors) from all ranks at once, each replicated
+    tensor once, with no gather to one rank (the counterpart of
+    samplenet_tpu/train/checkpoints.py:53-59 on orbax)."""
+    import torch.distributed.checkpoint as dcp
+
+    dcp.save(tree, checkpoint_id=os.path.abspath(path))
+
+
+def restore_sharded(path: str, target: dict[str, Any]) -> dict[str, Any]:
+    """Loads a save_sharded checkpoint into `target` (the same structure,
+    tensors of the same shapes), in place, and returns it. Every rank of
+    the reading world calls this; the world size may differ from the
+    writer's, one process without a process group included, as orbax
+    reshards on read (:62-75)."""
+    import torch.distributed.checkpoint as dcp
+
+    dcp.load(target, checkpoint_id=os.path.abspath(path))
+    return target
 
 
 def save_published(path: str, model_state: dict[str, torch.Tensor],

@@ -30,6 +30,16 @@ config is the JAX package's compute dtype (classification.py:52-54, 75,
 kernel in the conv chain, parameters f32; the frozen classifier stays
 f32 (train_samplenet.py:86). The JAX config's other TPU knobs (remat,
 conv_layout) have no counterpart.
+
+Data parallelism (classification.py:253-345, `mesh=`): a step run on a
+state under `parallel.mesh.data_parallel` takes this rank's rows of the
+global batch, draws its augmentation (and the classifier its dropout)
+for the global batch, and leaves every rank with the parameters one
+process computes on the global batch (global BatchNorm statistics,
+gradients averaged by the guarded optimiser). The loops with a `mesh`
+feed each rank its rows of the same global batches, report metrics
+averaged over the ranks and evaluate on shards of the test set whose
+integer correct counts are summed, so the accuracy is one process's.
 """
 
 from __future__ import annotations
@@ -52,6 +62,15 @@ from samplenet_tpu_torch.models.pointnet_cls import (
     pointnet_loss,
 )
 from samplenet_tpu_torch.models.samplenet import SampleNet
+from samplenet_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_reduce_,
+    batch_rows,
+    data_parallel,
+    global_mean,
+    replicated,
+    shard_batch,
+)
 from samplenet_tpu_torch.train.state import (
     TrainState,
     adam_with_schedule,
@@ -143,17 +162,19 @@ def make_classifier_train_step(model: PointNetClassifier,
     """step(state, points [B, N, 3], labels [B], generator,
     dropout_generator) -> (loss, acc), 0-d tensors on the points' device;
     updates state in place. `generator` draws the augmentation,
-    `dropout_generator` the dropout masks."""
+    `dropout_generator` the dropout masks. Under `state.mesh`, points and
+    labels are this rank's rows and loss and acc its share's."""
 
     def step(state: TrainState, points: torch.Tensor, labels: torch.Tensor,
              generator: torch.Generator | None = None,
              dropout_generator: torch.Generator | None = None):
         if cfg.augment:
-            points = augment.augment_for_classification(generator, points)
+            points = augment.augment_for_classification(generator, points,
+                                                        state.mesh)
         old_stats = bn_running_stats(model) if cfg.bn_schedule else None
         logits, end_points = model(points, training=True,
                                    generator=dropout_generator)
-        loss = pointnet_loss(logits, labels, end_points)
+        loss = pointnet_loss(logits, labels, end_points, mesh=state.mesh)
         state.optimizer.zero_grad()
         loss.backward()
         if cfg.bn_schedule:
@@ -180,25 +201,64 @@ def make_classifier_eval_step(model: PointNetClassifier) -> Callable:
     return step
 
 
-def evaluate_classifier(eval_step, state, test_data, batch_size: int, *,
-                        device) -> float:
-    """Accuracy over every test cloud: the tail batch is padded, then
-    sliced, so the result does not depend on batch_size."""
+def correct_counts(ok_fn, test_data, batch_size: int, *, device,
+                   mesh: Mesh | None = None, num_classes: int = 0
+                   ) -> np.ndarray:
+    """[correct, seen] per class (one class where num_classes is 0) over
+    every test cloud: padded batches of `batch_size` (the tail's padding
+    left out), each rank scoring its rows with ok_fn(points, labels) -> [b]
+    bool; the integer counts are summed over the ranks."""
     data, labels = test_data
-    correct = []
+    n = max(num_classes, 1)
+    counts = torch.zeros((2, n), dtype=torch.int64, device=device)
     for bx, by, real in iterate_batches_padded(data, labels, batch_size):
-        _, ok = eval_step(state, *_to_device(bx, by, device))
-        correct.append(ok[:real].cpu().numpy())
-    return float(np.mean(np.concatenate(correct)))
+        rows = batch_rows(mesh, len(by))
+        x, y = _to_device(bx[rows], by[rows], device)
+        ok = ok_fn(x, y)
+        kept = torch.arange(rows.start, rows.stop, device=device) < real
+        cls = (y if num_classes else torch.zeros_like(y))[kept]
+        counts[0] += torch.bincount(cls[ok[kept]], minlength=n)
+        counts[1] += torch.bincount(cls, minlength=n)
+    if mesh is not None:
+        all_reduce_(counts, mesh)
+    return counts.cpu().numpy()
+
+
+def evaluate_classifier(eval_step, state, test_data, batch_size: int, *,
+                        device, mesh: Mesh | None = None) -> float:
+    """Accuracy over every test cloud: the tail batch is padded, then
+    sliced, so the result does not depend on batch_size (nor on the
+    ranks of `mesh`, each scoring its rows of every batch)."""
+    correct, seen = correct_counts(
+        lambda x, y: eval_step(state, x, y)[1], test_data, batch_size,
+        device=device, mesh=mesh)[:, 0]
+    return float(correct) / float(seen)
+
+
+def _data_parallel(model, state: TrainState, mesh: Mesh | None) -> None:
+    """The loops' set-up under a mesh: the state under it, and every rank
+    holding rank 0's parameters and buffers."""
+    if mesh is not None:
+        data_parallel(state, mesh)
+        replicated(mesh, model)
+
+
+def _epoch_means(agg: dict[str, list], mesh: Mesh | None) -> dict:
+    """Each metric's mean over the epoch's steps and over the ranks."""
+    means = {k: torch.stack(v).mean() for k, v in agg.items()}
+    return {k: float(v) for k, v in global_mean(means, mesh).items()}
 
 
 def train_classifier_loop(model, state, cfg: ClassifierConfig, train_data,
                           test_data, *, epochs: int, logger, device,
                           seed: int = 0, steps_per_epoch: int | None = None,
-                          epoch_callback=None):
+                          epoch_callback=None, mesh: Mesh | None = None):
     """Epochs of shuffled train batches (RandomState(0), as in JAX), each
     followed by the test accuracy. Augmentation draws from a generator
-    seeded `seed`, dropout from one seeded `seed + 1`."""
+    seeded `seed`, dropout from one seeded `seed + 1`. With a `mesh`
+    (cfg.batch_size the global batch) each rank trains on its rows of
+    every batch; the metrics and accuracy are the global ones."""
+    _data_parallel(model, state, mesh)
     train_step = make_classifier_train_step(model, cfg)
     eval_step = make_classifier_eval_step(model)
     data, labels = train_data
@@ -206,19 +266,21 @@ def train_classifier_loop(model, state, cfg: ClassifierConfig, train_data,
     generator = torch.Generator(device=device).manual_seed(seed)
     dropout_generator = torch.Generator(device=device).manual_seed(seed + 1)
     for epoch in range(epochs):
-        losses, accs = [], []
+        agg: dict[str, list] = {"loss": [], "train_acc": []}
         for bi, (bx, by) in enumerate(iterate_batches(
                 data, labels, cfg.batch_size, rng=np_rng)):
             if steps_per_epoch is not None and bi >= steps_per_epoch:
                 break
-            loss, acc = train_step(state, *_to_device(bx, by, device),
-                                   generator, dropout_generator)
-            losses.append(loss)
-            accs.append(acc)
-        loss = float(torch.stack(losses).mean())
-        train_acc = float(torch.stack(accs).mean())
+            loss, acc = train_step(
+                state, *_to_device(*shard_batch(mesh, (bx, by)), device),
+                generator, dropout_generator)
+            agg["loss"].append(loss)
+            agg["train_acc"].append(acc)
+        means = _epoch_means(agg, mesh)
+        loss, train_acc = means["loss"], means["train_acc"]
         test_acc = evaluate_classifier(eval_step, state, test_data,
-                                       cfg.batch_size, device=device)
+                                       cfg.batch_size, device=device,
+                                       mesh=mesh)
         logger.log(f"epoch {epoch}: loss={loss:.4f} "
                    f"train_acc={train_acc:.4f} test_acc={test_acc:.4f}")
         logger.metrics(state.step, loss=loss, train_acc=train_acc,
@@ -267,13 +329,16 @@ def make_samplenet_train_step(sampler: SampleNet, classifier: nn.Module,
                               scfg: SampleNetConfig,
                               augment_data: bool = True) -> Callable:
     """step(state, points [B, N, 3], labels [B], generator) -> metrics,
-    each a 0-d tensor on the points' device; updates state in place."""
+    each a 0-d tensor on the points' device; updates state in place. Under
+    `state.mesh`, points and labels are this rank's rows and the metrics
+    its share's."""
     freeze(classifier)
 
     def step(state: TrainState, points: torch.Tensor, labels: torch.Tensor,
              generator: torch.Generator | None = None) -> dict:
         if augment_data:
-            points = augment.augment_for_classification(generator, points)
+            points = augment.augment_for_classification(generator, points,
+                                                        state.mesh)
         old_stats = bn_running_stats(sampler) if scfg.bn_schedule else None
         simp, proj = sampler(points, training=True)
         logits, _ = classifier(proj)
@@ -319,26 +384,22 @@ def _to_device(bx: np.ndarray, by: np.ndarray, device):
 
 
 def evaluate_samplenet(eval_step, state, test_data, batch_size: int, *,
-                       device) -> float:
-    """Accuracy over every test cloud (pad-and-slice)."""
-    data, labels = test_data
-    correct = []
-    for bx, by, real in iterate_batches_padded(data, labels, batch_size):
-        ok = eval_step(state, *_to_device(bx, by, device))
-        correct.append(ok[:real].cpu().numpy())
-    return float(np.mean(np.concatenate(correct)))
+                       device, mesh: Mesh | None = None) -> float:
+    """Accuracy over every test cloud (pad-and-slice; under `mesh` each
+    rank scores its rows of every batch)."""
+    correct, seen = correct_counts(
+        lambda x, y: eval_step(state, x, y), test_data, batch_size,
+        device=device, mesh=mesh)[:, 0]
+    return float(correct) / float(seen)
 
 
 def per_class_accuracy(eval_step, state, test_data, batch_size: int,
-                       num_classes: int, *, device) -> np.ndarray:
+                       num_classes: int, *, device,
+                       mesh: Mesh | None = None) -> np.ndarray:
     """Per-class accuracy table (evaluate_samplenet.py:273-277)."""
-    data, labels = test_data
-    correct = np.zeros(num_classes)
-    seen = np.zeros(num_classes)
-    for bx, by, real in iterate_batches_padded(data, labels, batch_size):
-        ok = eval_step(state, *_to_device(bx, by, device)).cpu().numpy()
-        np.add.at(seen, by[:real], 1)
-        np.add.at(correct, by[:real], ok[:real])
+    correct, seen = correct_counts(
+        lambda x, y: eval_step(state, x, y), test_data, batch_size,
+        device=device, mesh=mesh, num_classes=num_classes)
     return correct / np.maximum(seen, 1)
 
 
@@ -346,7 +407,12 @@ def train_samplenet_loop(sampler, state, scfg: SampleNetConfig, classifier,
                          train_data, test_data, *, epochs: int, logger,
                          device, seed: int = 0,
                          steps_per_epoch: int | None = None,
-                         start_epoch: int = 0, epoch_callback=None):
+                         start_epoch: int = 0, epoch_callback=None,
+                         mesh: Mesh | None = None):
+    """Epochs of shuffled train batches (RandomState(start_epoch)), each
+    followed by the eval accuracy; with a `mesh` (scfg.batch_size the
+    global batch) as train_classifier_loop runs it."""
+    _data_parallel(sampler, state, mesh)
     train_step = make_samplenet_train_step(sampler, classifier, scfg)
     eval_step = make_samplenet_eval_step(sampler, classifier)
     data, labels = train_data
@@ -358,13 +424,15 @@ def train_samplenet_loop(sampler, state, scfg: SampleNetConfig, classifier,
                 data, labels, scfg.batch_size, rng=np_rng)):
             if steps_per_epoch is not None and bi >= steps_per_epoch:
                 break
-            metrics = train_step(state, *_to_device(bx, by, device),
-                                 generator)
+            metrics = train_step(
+                state, *_to_device(*shard_batch(mesh, (bx, by)), device),
+                generator)
             for k, v in metrics.items():
                 agg.setdefault(k, []).append(v)
-        means = {k: float(torch.stack(v).mean()) for k, v in agg.items()}
+        means = _epoch_means(agg, mesh)
         test_acc = evaluate_samplenet(eval_step, state, test_data,
-                                      scfg.batch_size, device=device)
+                                      scfg.batch_size, device=device,
+                                      mesh=mesh)
         logger.log(f"epoch {epoch}: " +
                    " ".join(f"{k}={v:.4f}" for k, v in means.items()) +
                    f" eval_acc@{scfg.num_out_points}={test_acc:.4f}")

@@ -8,11 +8,15 @@ Mirrors samplenet_tpu/train/state.py:
     at the optimiser's own count of applied steps, which is what optax's
     count is under apply_if_finite;
   * `with_nonfinite_guard`: a step whose gradients hold a NaN or inf is
-    skipped (no update, the count does not move); the 5th in a row raises;
+    skipped (no update, the count does not move); the 5th in a row raises.
+    Under a data-parallel mesh (parallel/mesh.py::data_parallel) it first
+    averages the gradients over the ranks, so every rank reads the same
+    gradients and makes the same decision;
   * `bn_decay_schedule` / `scheduled_bn_update`: the TF-style BN decay,
     applied to running statistics that the model computed with momentum 0;
   * `TrainState`: the step, the model and its optimiser. The step counts
-    every train step, skipped or not, as the JAX TrainState's does.
+    every train step, skipped or not, as the JAX TrainState's does; its
+    `mesh` is the optimiser's.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ from dataclasses import dataclass
 
 import torch
 from torch import nn
+
+from samplenet_tpu_torch.parallel.mesh import average_gradients
 
 Schedule = Callable[[int], float]
 
@@ -74,6 +80,7 @@ class NonFiniteGuard:
         self.max_consecutive_errors = max_consecutive_errors
         self.notfinite_count = 0
         self.total_notfinite = 0
+        self.mesh = None
 
     @property
     def params(self) -> list[torch.Tensor]:
@@ -88,7 +95,10 @@ class NonFiniteGuard:
 
     def step(self) -> bool:
         """True where the update was applied. Reads one flag from the
-        device."""
+        device. Under a mesh the gradients are first averaged over the
+        ranks."""
+        if self.mesh is not None:
+            average_gradients(self.params, self.mesh)
         grads = [p.grad for p in self.params if p.grad is not None]
         finite = bool(torch.stack(
             [torch.isfinite(g).all() for g in grads]).all()) if grads else True
@@ -159,3 +169,8 @@ class TrainState:
     model: nn.Module
     optimizer: NonFiniteGuard
     step: int = 0
+
+    @property
+    def mesh(self):
+        """The data-parallel mesh the state trains under, or None."""
+        return self.optimizer.mesh

@@ -9,9 +9,10 @@ test accuracy is published as `--log-dir`/ckpt and the last epoch's as
 `--log-dir`/ckpt_last, each classifier.pth + config.json (num_classes,
 use_tnets; ckpt also best_epoch and best_test_acc). `train_samplenet`
 and `train_progressive` take ckpt with `--classifier-ckpt`, and
-`evaluate_cli` with `--classifier-ckpt` or `--ckpt`. `--bf16` (ROADMAP
-Queue 1 item 11) and `--data-parallel` (item 9) are not ported yet and
-raise.
+`evaluate_cli` with `--classifier-ckpt` or `--ckpt`. `--bf16` is the
+compute dtype (parameters f32). `--data-parallel` trains on every rank
+of a torchrun launch, `--batch-size` the global batch, as
+train_samplenet does (rank 0 writes the logs and checkpoints).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import copy
 import os
 
 import torch
+import torch.distributed as dist
 
 from samplenet_tpu_torch.train import checkpoints
 from samplenet_tpu_torch.train.classification import (
@@ -28,7 +30,12 @@ from samplenet_tpu_torch.train.classification import (
     create_classifier_state,
     train_classifier_loop,
 )
-from samplenet_tpu_torch.train.train_samplenet import load_data
+from samplenet_tpu_torch.train.train_samplenet import (
+    add_data_parallel_arg,
+    is_main,
+    load_data,
+    setup_device,
+)
 from samplenet_tpu_torch.utils import Logger
 
 
@@ -53,23 +60,19 @@ def parse_args(argv=None):
     p.add_argument("--test-size", type=int, default=400)
     p.add_argument("--log-dir", default="log/classifier")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--data-parallel", action="store_true",
-                   help="not ported yet (ROADMAP Queue 1 item 9)")
+    add_data_parallel_arg(p)
     return p.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.data_parallel:
-        raise ValueError("--data-parallel is not ported yet (ROADMAP Queue 1 "
-                         "item 9)")
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda, but CUDA is not available")
-    device = torch.device(args.device)
+    device, mesh, owned = setup_device(args)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    logger = Logger(args.log_dir, "classifier")
+    main_rank = is_main(mesh)
+    logger = Logger(args.log_dir if main_rank else None, "classifier",
+                    echo=main_rank)
     train, test, num_classes = load_data(args)
     cfg = ClassifierConfig(
         num_classes=num_classes,
@@ -98,19 +101,23 @@ def main(argv=None):
     state = train_classifier_loop(
         model, state, cfg, train, test, epochs=args.epochs, logger=logger,
         device=device, seed=args.seed, steps_per_epoch=args.steps_per_epoch,
-        epoch_callback=on_epoch)
+        epoch_callback=on_epoch, mesh=mesh)
     config = {"num_classes": num_classes, "use_tnets": args.use_tnets}
     ckpt_path = os.path.join(args.log_dir, "ckpt")
-    checkpoints.save_published(
-        ckpt_path, best["state"],
-        {**config, "best_epoch": best["epoch"], "best_test_acc": best["acc"]},
-        filename=checkpoints.CLASSIFIER_FILE)
-    checkpoints.save_published(
-        os.path.join(args.log_dir, "ckpt_last"), model.state_dict(), config,
-        filename=checkpoints.CLASSIFIER_FILE)
+    if main_rank:
+        checkpoints.save_published(
+            ckpt_path, best["state"],
+            {**config, "best_epoch": best["epoch"],
+             "best_test_acc": best["acc"]},
+            filename=checkpoints.CLASSIFIER_FILE)
+        checkpoints.save_published(
+            os.path.join(args.log_dir, "ckpt_last"), model.state_dict(),
+            config, filename=checkpoints.CLASSIFIER_FILE)
     logger.log(f"saved best (epoch {best['epoch']}, acc {best['acc']:.4f}) "
                f"to {ckpt_path}; last to ckpt_last")
     logger.close()
+    if owned:
+        dist.destroy_process_group()
     return state
 
 

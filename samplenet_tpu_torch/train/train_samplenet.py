@@ -22,9 +22,15 @@ conv layers: ghost BN (the ghost-BN kernel, bf16 operands unless
 is also the chain without the flag; so `--no-fused-train` is left out.
 `--bf16` is the sampler's compute dtype (parameters f32; its conv chain
 then runs as bf16 tensor ops, no kernel, as in the JAX package); the
-frozen classifier stays f32. Flags of the JAX CLI left out:
---conv-layout selects a TPU code path; --data-parallel waits for the
-multi-device slice.
+frozen classifier stays f32. `--data-parallel` trains on every rank of
+a torchrun launch (`torchrun --nproc-per-node=K -m
+samplenet_tpu_torch.train.train_samplenet --data-parallel ...`; NCCL
+with `--device cuda`, each rank on cuda:LOCAL_RANK, gloo with `--device
+cpu`; without torchrun's environment a world of one): `--batch-size` is
+the global batch, each rank trains on its rows of it with the global
+BatchNorm statistics and averaged gradients (parallel/mesh.py), and only
+rank 0 writes logs and checkpoints. The JAX CLI's --conv-layout selects
+a TPU code path and is left out.
 """
 
 from __future__ import annotations
@@ -33,10 +39,18 @@ import argparse
 import os
 
 import torch
+import torch.distributed as dist
 
 from samplenet_tpu_torch.data import CLASS_NAMES, load_split, make_dataset
 from samplenet_tpu_torch.interop.jax_import import infer_pointnet_config
 from samplenet_tpu_torch.models.pointnet_cls import PointNetClassifier
+from samplenet_tpu_torch.parallel.mesh import (
+    Mesh,
+    barrier,
+    initialize_distributed,
+    local_device,
+    make_mesh,
+)
 from samplenet_tpu_torch.train import checkpoints
 from samplenet_tpu_torch.train.classification import (
     SampleNetConfig,
@@ -89,7 +103,32 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--resume", action="store_true",
                    help="resume from the snap_last snapshot in --log-dir")
+    add_data_parallel_arg(p)
     return p.parse_args(argv)
+
+
+def add_data_parallel_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--data-parallel", action="store_true",
+                   help="shard the global batch over the ranks of a "
+                        "torchrun launch (a world of one without it)")
+
+
+def setup_device(args) -> tuple[torch.device, Mesh | None, bool]:
+    """(device, mesh, owned): the run's device, its data-parallel mesh
+    under --data-parallel (else None), and whether this call created the
+    process group (and so destroys it at the end)."""
+    if not args.data_parallel:
+        if args.device == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("--device cuda, but CUDA is not available")
+        return torch.device(args.device), None, False
+    owned = not dist.is_initialized() and initialize_distributed(args.device)
+    device = local_device(args.device)
+    return device, make_mesh(device=device), owned
+
+
+def is_main(mesh: Mesh | None) -> bool:
+    """Whether this process writes the logs and checkpoints: rank 0."""
+    return mesh is None or mesh.rank == 0
 
 
 def load_data(args):
@@ -131,13 +170,13 @@ def load_classifier(args, device) -> PointNetClassifier:
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda, but CUDA is not available")
-    device = torch.device(args.device)
+    device, mesh, owned = setup_device(args)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    logger = Logger(args.log_dir, "samplenet")
+    main_rank = is_main(mesh)
+    logger = Logger(args.log_dir if main_rank else None, "samplenet",
+                    echo=main_rank)
     train, test, num_classes = load_data(args)
     classifier = load_classifier(args, device)
 
@@ -172,20 +211,24 @@ def main(argv=None):
 
     def on_epoch_end(epoch, st, test_acc):
         extras = {"epoch": epoch, "best_acc": max(best["acc"], test_acc)}
-        checkpoints.save_train_state(snap_last, st, extras=extras)
+        if main_rank:
+            checkpoints.save_train_state(snap_last, st, extras=extras)
         if test_acc > best["acc"]:
             best["acc"] = test_acc
-            checkpoints.save_train_state(snap_best, st, extras=extras)
+            if main_rank:
+                checkpoints.save_train_state(snap_best, st, extras=extras)
 
     name = torch.cuda.get_device_name(device) if device.type == "cuda" \
         else "cpu"
+    ranks = "" if mesh is None else f", data-parallel over {mesh.size} ranks"
     logger.log(f"training SampleNet {args.num_points}->{args.num_out_points} "
-               f"against frozen classifier, device={name}")
+               f"against frozen classifier, device={name}{ranks}")
     state = train_samplenet_loop(
         sampler, state, scfg, classifier, train, test,
         epochs=args.epochs, logger=logger, device=device, seed=args.seed,
         steps_per_epoch=args.steps_per_epoch, start_epoch=start_epoch,
-        epoch_callback=on_epoch_end)
+        epoch_callback=on_epoch_end, mesh=mesh)
+    barrier(mesh)           # rank 0's snapshots are on disk for every rank
     # the published checkpoint is the best-eval snapshot, not the last epoch
     if os.path.isdir(snap_best):
         state, extras = checkpoints.restore_train_state(snap_best, state)
@@ -193,13 +236,18 @@ def main(argv=None):
                    f"(eval_acc={best['acc']:.4f}, epoch {extras.get('epoch')})")
     eval_step = make_samplenet_eval_step(sampler, classifier)
     table = per_class_accuracy(eval_step, state, test, scfg.batch_size,
-                               num_classes, device=device)
+                               num_classes, device=device, mesh=mesh)
     for ci, acc in enumerate(table):
         logger.log(f"  class {ci}: acc={acc:.4f}")
     ckpt_path = os.path.join(args.log_dir, "ckpt")
-    checkpoints.save_published(ckpt_path, sampler.state_dict(), vars(args))
+    if main_rank:
+        checkpoints.save_published(ckpt_path, sampler.state_dict(),
+                                   vars(args))
     logger.log(f"saved checkpoint to {ckpt_path}")
     logger.close()
+    barrier(mesh)
+    if owned:
+        dist.destroy_process_group()
     return state
 
 

@@ -1,6 +1,8 @@
 """Run logging: a copy of samplenet_tpu/utils/logging.py::Logger (the port
 cannot import the JAX package). Lines go to stdout and log_{name}.txt,
-metrics as JSON lines to metrics_{name}.jsonl in the log directory."""
+metrics as JSON lines to metrics_{name}.jsonl in the log directory. A
+data-parallel trainer gives its ranks other than 0 a `Logger(echo=False)`,
+which writes nothing."""
 
 from __future__ import annotations
 
@@ -12,8 +14,10 @@ from typing import Any
 
 
 class Logger:
-    def __init__(self, log_dir: str | None = None, name: str = "train"):
+    def __init__(self, log_dir: str | None = None, name: str = "train", *,
+                 echo: bool = True):
         self.log_dir = log_dir
+        self.echo = echo
         self._fh = None
         self._metrics_fh = None
         if log_dir:
@@ -24,7 +28,8 @@ class Logger:
 
     def log(self, msg: str) -> None:
         line = f"[{time.strftime('%H:%M:%S')}] {msg}"
-        print(line, file=sys.stdout, flush=True)
+        if self.echo:
+            print(line, file=sys.stdout, flush=True)
         if self._fh:
             self._fh.write(line + "\n")
             self._fh.flush()

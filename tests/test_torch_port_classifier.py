@@ -475,12 +475,6 @@ def test_cli_writes_best_and_last(flags, tmp_path, capsys):
     assert model.use_tnets is use_tnets
 
 
-@pytest.mark.parametrize("flag,match", [("--data-parallel", "item 9")])
-def test_cli_refuses_what_is_not_ported(flag, match, tmp_path):
-    with pytest.raises(ValueError, match=match):
-        train_classifier.main(CLI + [flag, "--log-dir", str(tmp_path)])
-
-
 def test_cli_refuses_cuda_without_a_card(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

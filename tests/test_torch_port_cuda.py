@@ -55,7 +55,16 @@ neighbour choices, the kernel's error at most twice the plain path's (or
 1e-4 norm-wise). The bf16 modes: point_mlp_max and the exact chain with
 bf16 operands against their plain bf16 versions, norm-wise within 1e-3
 (the chain's backward on its own forward state, bit for bit from run to
-run), the f32 kernels as a control that must exceed it.
+run), the f32 kernels as a control that must exceed it. The exact chain
+and the ghost chain under a 2-rank data-parallel mesh (gloo ranks
+sharing the card, parallel/launch.py), the ghost blocks straddling the
+ranks: outputs and statistics within rtol = atol = 1e-4 of the
+one-process kernel run, gradients within 2x the larger of the
+one-process kernel's and plain f32 run's errors against float64 (or
+1e-5 of scale; the ranks run the same kernels, and where a ReLU kink
+puts the one-process kernel itself far from float64, as the exact chain
+at B = 64, N = 256 here, 4e-3 of scale in dx, they land with it), both
+kernels launched on each rank.
 """
 
 import contextlib
@@ -1625,3 +1634,86 @@ def test_eval_forward_bf16_matches_the_plain_matcher(dev):
             pts, _ = nn_match_from_clouds(x, simp, 16)
     assert counts == {"point_mlp_max_bf16": 1, "nn_direction": 1, "fps": 1}
     assert torch.equal(matched, pts)
+
+
+# --------------------------------------------- the chains under a data mesh
+
+def _chain_rank(mesh, chain, x, params, g, block_b):
+    """One gloo rank on the card: the chain's kernels on its rows under the
+    mesh; the outputs on its rows, the statistics, dx on its rows and the
+    parameter gradients summed over the ranks."""
+    from samplenet_tpu_torch.ops.cuda import (
+        point_mlp_exact_train_max,
+        point_mlp_train_max,
+    )
+    from samplenet_tpu_torch.ops.dispatch import launch_counts
+    from samplenet_tpu_torch.parallel.mesh import all_reduce_, shard_batch
+
+    dev = mesh.device
+    x = shard_batch(mesh, x).to(dev).requires_grad_(True)
+    params = [[t.to(dev).requires_grad_(True) for t in group]
+              for group in params]
+    if chain == "exact":
+        pooled, means, vars_ = point_mlp_exact_train_max(x, *params,
+                                                         mesh=mesh)
+    else:
+        pooled, means, vars_ = point_mlp_train_max(
+            x, *params, block_b=block_b, bf16=False, mesh=mesh)
+    (pooled * shard_batch(mesh, g).to(dev)).sum().backward()
+    grads = [all_reduce_(t.grad.clone(), mesh) for group in params
+             for t in group]
+    return {"out": [pooled.detach().cpu(), *(t.cpu() for t in means),
+                    *(t.cpu() for t in vars_)],
+            "dx": x.grad.cpu(), "grads": [t.cpu() for t in grads],
+            "launches": launch_counts()}
+
+
+@pytest.mark.parametrize("chain,b,block_b", [
+    ("exact", 64, None),
+    ("ghost", 16, 16),      # one block straddling both ranks
+    ("ghost", 48, 16),      # 24 clouds a rank: blocks 8 + 16, 16, 16 + 8
+])
+def test_chains_under_a_two_rank_mesh(dev, chain, b, block_b):
+    """2 gloo ranks sharing the card, each on its rows: the outputs and
+    statistics within rtol = atol = 1e-4 of the one-process kernel run,
+    the gradients each at most twice the larger of the one-process kernel
+    run's and plain f32 run's errors against the plain float64 run (or
+    1e-5 of scale), both kernels launched on every rank."""
+    from samplenet_tpu_torch.parallel.launch import spawn
+
+    rng = np.random.default_rng(b)
+    widths = (3, 64, 64, 64, 128, 128)
+    x, params = _exact_args(rng, b, 256, widths, dev)
+    g = _randn(rng, b, widths[-1], dev=dev)
+    if chain == "exact":
+        run = _exact_run
+    else:
+        def run(x, params, g, plain=False, dtype=torch.float32):
+            out, grads = _ghost_run(x, params, g, block_b, False, plain,
+                                    dtype)
+            return out[0], out[1:], grads
+    pk, sk, gk = run(x, params, g)
+    _, _, gp = run(x, params, g, plain=True)
+    _, _, gr = run(x, params, g, plain=True, dtype=torch.float64)
+    ranks = spawn(_chain_rank, 2, chain, x.cpu(), [[t.cpu() for t in grp]
+                                                  for grp in params],
+                  g.cpu(), block_b, device="cuda", timeout=300.0)
+    nl = len(widths) - 1
+    name = "point_mlp_exact" if chain == "exact" else "point_mlp_train"
+    for r, out in enumerate(ranks):
+        assert out["launches"].get(f"{name}_fwd", 0) == 1
+        assert out["launches"].get(f"{name}_bwd", 0) == 1
+        rows = slice(r * b // 2, (r + 1) * b // 2)
+        torch.testing.assert_close(out["out"][0], pk[rows].cpu(), rtol=1e-4,
+                                   atol=1e-4)
+        for a, c in zip(out["out"][1:], sk):
+            torch.testing.assert_close(a, c.cpu(), rtol=1e-4, atol=1e-4)
+        for i, (a, k, c, ref) in enumerate(zip(
+                [out["dx"], *out["grads"]], [gk[0][rows], *gk[1:]],
+                [gp[0][rows], *gp[1:]], [gr[0][rows], *gr[1:]])):
+            if 1 + nl <= i < 1 + 2 * nl:            # dense biases
+                assert not a.any(), i
+                continue
+            ref = ref.cpu()
+            ea, ek, ep = (_rel_err(t.cpu(), ref) for t in (a, k, c))
+            assert ea <= max(2 * ek, 2 * ep, 1e-5), (i, ea, ek, ep)
