@@ -212,7 +212,28 @@ bottleneck 128, k=8, both clouds sampled, against it frozen), and:
      one more step; `dryrun_multichip(2)` on the card; then
      `torchrun --nproc-per-node=K -m samplenet_tpu_torch.train.
      train_samplenet --data-parallel` over NCCL, K = min(cards, 2);
- 25. times each kernel, the eval forward and the train steps against the
+ 25. (tensor-parallel) spawns a 1 x 2 and a 2 x 2 mesh of gloo ranks
+     sharing the card, every layer of 512 or more outputs sharded over
+     'model' (parallel/mesh.py::shard_params): on 1 x 2 the vanilla
+     classifier step (B=32, 1024 points, 3-64-64-64-128-1024, FC
+     512-256-40), the PCRNet step (B=32 pairs), the AE step (B=50, 2048
+     points, decoder 256-6144, EMD) and a sampler step at m=256,
+     bottleneck 512 (its exact chain on conv5 and bn5 gathered whole),
+     with that sampler's eval forward (point_mlp_max on gathered weights,
+     fps, nn_direction; its matching bit-equal to the plain path's on
+     the rank's simplified points, these within 1e-4 of one process's);
+     on 2 x 2 the classifier step; each rank holding its launches (the
+     kernels of TP_PATH; the classifier's chains launch none) and its
+     (all-reduces, all-gathers) a step to TP_COLLECTIVES, and each step
+     to the one-process step as the data-parallel phase holds it (PCRNet
+     as the registration step: the f64 replay of the ranks' choices);
+     the copy-to-region control (its backward without the all-reduce)
+     and the BatchNorm control (statistics over the world, not the data
+     group) must fail the gradient check; `dryrun_multichip(4)` (2 x 2)
+     on the card; with two or more cards the classifier step under
+     `torchrun --nproc-per-node=2 chip_smoke.py --tp-nccl` (1 x 2 over
+     NCCL, one rank a card), else a line saying it was not run;
+ 26. times each kernel, the eval forward and the train steps against the
      plain versions, per call with CUDA events and as device time with
      torch.profiler (the EMD also on the AE step's own pair: the seeded
      AE's reconstruction of the procedural clouds against them), and
@@ -2552,12 +2573,12 @@ def _ghost_without_rounding(torch):
 
     real = layers.point_mlp_train_max
 
-    def unrounded(x, weights, *rest, eps, bf16, **dp):
-        batch = x.shape[0] * (dp["mesh"].size if dp else 1)
-        bb = auto_block_b(batch, x.shape[1],
-                          tuple(w.shape[1] for w in weights), bf16)
+    def unrounded(x, weights, *rest, eps, bf16, blocks=None):
+        bb = auto_block_b(x.shape[0], x.shape[1], tuple(
+            w.shape[1] for w in weights), bf16) if blocks is None \
+            else blocks.block_b
         return real(x, weights, *rest, eps=eps, bf16=False, block_b=bb,
-                    **dp)
+                    blocks=blocks)
 
     layers.point_mlp_train_max = unrounded
     try:
@@ -3503,7 +3524,10 @@ def choices(torch, *, record: list | None = None,
     argmaxes (models/pcrnet.py); or, with `replay`, taken from it in
     order instead of made, the projection recomputed on the replayed
     neighbours and PCRNet's features on the replayed masks and argmaxes,
-    with torch ops in the inputs' dtype. A float64 step that replays an
+    with torch ops in the inputs' dtype. Under tensor parallelism the
+    masks and argmaxes of a sharded PCRNet layer are recorded whole
+    (all-gathered over the model group), so that one process replays
+    them. A float64 step that replays an
     f32 step's choices computes the function the f32 step computed: where
     an f32 input to a choice lands a near-tie apart from f64's, the choice
     moves and the gradient with it (at the registration shapes by 1e-3 to
@@ -3513,6 +3537,7 @@ def choices(torch, *, record: list | None = None,
     import samplenet_tpu_torch.models.pcrnet as pcr_mod
     import samplenet_tpu_torch.models.soft_projection as sp_mod
     import samplenet_tpu_torch.ops.chamfer as chamfer_mod
+    from samplenet_tpu_torch.nn.layers import local, whole_channels
     from samplenet_tpu_torch.ops.cuda.soft_projection_kernel import _weights
     from samplenet_tpu_torch.ops.knn import group_point
 
@@ -3540,20 +3565,40 @@ def choices(torch, *, record: list | None = None,
         w = _weights(d, sigma.reshape(()))
         return (w[..., None] * g).sum(2), idx
 
+    def whole(conv, t):
+        """t of a (sharded) conv's channels, whole: all-gathered over the
+        model group outside the port's counted collectives (the record is
+        not the step's)."""
+        mesh = getattr(conv, "shard", None)
+        if mesh is None:
+            return t
+        u = t.to(torch.uint8) if t.dtype == torch.bool else t.contiguous()
+        parts = [torch.empty_like(u) for _ in range(mesh.model)]
+        torch.distributed.all_gather(parts, u, group=mesh.model_group)
+        return torch.cat(parts, -1).to(t.dtype)
+
+    def mine(conv, t):
+        """This rank's channels of a whole replayed t."""
+        return local(conv, t.movedim(-1, 0)).movedim(0, -1)
+
     def point_mlp(owner, n_layers, x, *, pool_max, use_bn):
         if use_bn or not pool_max:
             raise AssertionError("PCRNet's features: no BN, max-pooled")
         for i in range(n_layers):
-            x = getattr(owner, f"conv{i + 1}")(x)
+            conv = getattr(owner, f"conv{i + 1}")
+            x = conv(x)
             if replay is None:
-                record.append(x > 0)
+                record.append(whole(conv, x > 0))
                 x = torch.relu(x)
             else:
-                x = x * next(taken).to(x.dtype)
+                x = x * mine(conv, next(taken)).to(x.dtype)
+            if i < n_layers - 1:
+                x = whole_channels(conv, x)
         if replay is None:
-            record.append(x.argmax(1))
-            return x.amax(1)
-        return x.gather(1, next(taken)[:, None, :]).squeeze(1)
+            record.append(whole(conv, x.argmax(1)))
+            return whole_channels(conv, x.amax(1))
+        idx = mine(conv, next(taken))
+        return whole_channels(conv, x.gather(1, idx[:, None, :]).squeeze(1))
 
     chamfer_mod.nn_direction, sp_mod.soft_project = nn_direction, soft_project
     pcr_mod.point_mlp = point_mlp
@@ -4471,14 +4516,16 @@ def _blocks_unsummed(torch):
     """The ghost chain's blocks with their all-reduce skipped: a block that
     straddles the ranks takes its statistics (forward and backward) from
     one rank's rows only."""
-    from samplenet_tpu_torch.ops.cuda import point_mlp_train_kernel as pmt
+    from samplenet_tpu_torch.parallel.mesh import Blocks
 
-    real = pmt.all_reduce_
-    pmt.all_reduce_ = lambda t, mesh, *args, **kwargs: t
+    real = Blocks.sums, Blocks.global_means
+    Blocks.sums = lambda self, t: t
+    Blocks.global_means = lambda self, rows: [
+        r.sum(0) / (self.ranks * r.shape[0]) for r in rows]
     try:
         yield
     finally:
-        pmt.all_reduce_ = real
+        Blocks.sums, Blocks.global_means = real
 
 
 def _dp_rank(mesh, ckpt: str) -> dict:
@@ -4597,22 +4644,26 @@ def _dp_reference(torch, case, ranks) -> dict:
     return runs
 
 
-def _dp_grads_check(case, got, runs) -> tuple[float, float, str]:
+def _dp_grads_check(case, got, runs, kind=None,
+                    kernel_too=False) -> tuple[float, float, str]:
     """The ranks' gradients against the float64 one-process step: each at
     most twice the plain f32 one-process step's error (by the largest
     entry over the f64 scale, or norm-wise where the card checks of the
     track hold it so, with their floors). The ghost cases, whose bf16
     roundings no f64 step has, against the one-process kernel step, which
     rounds alike: norm-wise within DP_GHOST_LIMIT. Gradients zero in exact
-    arithmetic round-off. Returns the worst (ranks, plain or limit,
-    name)."""
-    ghost = case in DP_GHOST
-    exact = runs["ranks f64 replay" if case == "registration" else "f64"]
+    arithmetic round-off. `kind` names the DP case whose rule another
+    step follows (the tensor-parallel phase's); with `kernel_too` the
+    ranks may also reach twice the one-process kernel step's error.
+    Returns the worst (ranks, plain (or kernel) or limit, name)."""
+    kind = case if kind is None else kind
+    ghost = kind in DP_GHOST
+    exact = runs["ranks f64 replay" if kind == "registration" else "f64"]
     ref = runs["kernel"] if ghost else exact
     plain_ref = None if ghost else runs[
-        "plain f64 replay" if case == "registration" else "f64"]
-    err = _rel_err if case == "classification" else _norm_err
-    floor = 1e-5 if case == "classification" else 1e-4
+        "plain f64 replay" if kind == "registration" else "f64"]
+    err = _rel_err if kind == "classification" else _norm_err
+    floor = 1e-5 if kind == "classification" else 1e-4
     scale = max(float(g.abs().max()) for g in exact["grads"].values())
     worst = (0.0, 0.0, "")
     for name, g in got.items():
@@ -4624,7 +4675,7 @@ def _dp_grads_check(case, got, runs) -> tuple[float, float, str]:
         if float(exact["grads"][name].abs().max()) <= 1e-8 * scale:
             if float(g.abs().max()) > 1e-4 * scale:
                 raise AssertionError(
-                    f"data-parallel {case} {name}: gradient "
+                    f"ranks' {case} {name}: gradient "
                     f"{float(g.abs().max())!r} not round-off (scale "
                     f"{scale!r})")
             continue
@@ -4633,15 +4684,18 @@ def _dp_grads_check(case, got, runs) -> tuple[float, float, str]:
             ep = DP_GHOST_LIMIT
             if not ek <= ep:
                 raise AssertionError(
-                    f"data-parallel {case} {name}: ranks' error {ek!r} "
+                    f"ranks' {case} {name}: error {ek!r} "
                     f"against the one-process kernel step, limit {ep!r}")
             worst = max(worst, (ek, ep, name))
             continue
         ep = err(runs["plain"]["grads"][name], plain_ref["grads"][name])
+        if kernel_too:
+            ep = max(ep, err(runs["kernel"]["grads"][name], exact["grads"][
+                name]))
         if not ek <= max(2 * ep, floor):
-            raise AssertionError(f"data-parallel {case} {name}: ranks' error "
-                                 f"{ek!r} against f64, the one-process plain "
-                                 f"f32 step's {ep!r}")
+            raise AssertionError(f"ranks' {case} {name}: error {ek!r} "
+                                 f"against f64, the one-process plain f32 "
+                                 f"step's {ep!r}")
         worst = max(worst, (ek, ep, name))
     return worst
 
@@ -4800,6 +4854,452 @@ def phase_data_parallel(torch, classifier) -> None:
                          f"in {cli_s:.1f} s")
 
 
+# tensor parallelism (parallel/mesh.py): steps whose task network has
+# layers of 512 or more outputs, those layers sharded over 'model'
+TP_CASES = {(1, 2): ("classifier", "pcrnet", "ae", "wide sampler"),
+            (2, 2): ("classifier",)}
+# the data-parallel case whose gradient rule each step follows (PCRNet's
+# against the f64 replay of the ranks' choices, `choices`); the
+# classifier step's gradients are held in float64 instead (TP_F64): in f32
+# its conv layers' gradients carry the round-off of the BatchNorms'
+# per-channel reductions over all 32768 points (one outer product:
+# tools/diagnostics/classifier_step_meshes.py), whose size follows the
+# order those reductions add in: conv1's 1.4e-3 of scale on one process,
+# 1.7e-6 on 1 x 2, 2.7e-3 on 2 x 2 (NVIDIA H100, PERF.md), so no f32
+# rule decides; the wide sampler's
+# ranks are held to twice the larger of the one-process plain f32 and
+# kernel steps' errors against f64: at B=32 the plain step sits 3e-6 from
+# f64 (NVIDIA H100, PERF.md), and the exact-BN kernel's own choices (ReLU
+# masks and max-pool argmaxes inside it, which no replay reaches) move
+# the kernel path's gradient apart from f64's in one process as well
+TP_RULE = {"classifier": None, "wide sampler": "classification",
+           "pcrnet": "registration", "ae": "reconstruction"}
+TP_KERNEL_TOO = ("wide sampler",)
+TP_F64 = ("classifier",)        # also run in float64, held to 1e-10
+TP_SHARDED = {"classifier": ["conv5", "bn5", "fc1", "bn_fc1"],
+              "pcrnet": ["feat.conv5", "fc1", "fc2", "fc3", "fc4"],
+              "ae": ["dec_out"], "wide sampler": ["conv5", "bn5", "fc4"]}
+# the kernels each step launches on every rank: the classifier's chains run
+# without pool_max, as tensor ops (the JAX package's XLA chain), so its step
+# launches none
+TP_PATH = {"classifier": (), "pcrnet": ("nn_direction",),
+           "ae": ("point_mlp_exact_fwd", "point_mlp_exact_bwd", "emd"),
+           "wide sampler": ("point_mlp_exact_fwd", "point_mlp_exact_bwd",
+                            "soft_projection_fwd", "soft_projection_bwd",
+                            "nn_direction")}
+TP_EVAL_PATH = ("point_mlp_max", "nn_direction", "fps")
+# (all-reduces, all-gathers) of one step, predicted from the code. Over the
+# model axis: every sharded layer's output block is gathered once (conv5's
+# argmax and max of the classifier twice; conv5 of PCRNet once per cloud;
+# the wide sampler's exact chain gathers conv5's kernel and bias and bn5's
+# gamma and beta, and fc4's output once), every column-parallel layer's
+# copy sums its input's cotangent once (the chain's gathered weights need
+# none), and the optimiser agrees on its flag over the world once. Over
+# the data axis (2 x 2): each of the classifier's 7 BatchNorms sums its
+# statistics forward and their cotangent backward, and the optimiser
+# averages the gradients once.
+TP_COLLECTIVES = {("classifier", 1, 2): (2 + 1, 3),
+                  ("classifier", 2, 2): (7 * 2 + 1 + 2 + 1, 3),
+                  ("pcrnet", 1, 2): (2 + 4 + 1, 2 + 4),
+                  ("ae", 1, 2): (1 + 1, 1),
+                  ("wide sampler", 1, 2): (1 + 1, 4 + 1)}
+TP_WIDE_M, TP_WIDE_BOTTLENECK = 256, 512
+
+
+def _tp_setup(torch, case, *, dtype=None):
+    """(model, state, step, args, extra) of a tensor-parallel case at full
+    width: a seeded state, its step and the global batch (in `dtype` where
+    given; extra() gives the step's generators)."""
+    from samplenet_tpu_torch.train import classification as cls
+
+    inp = _dp_inputs(torch)
+    cast = (lambda t: t) if dtype is None else \
+        (lambda t: t.to(dtype) if t.is_floating_point() else t)
+    extra = lambda: ()                                       # noqa: E731
+    x, y = inp["x"][:CLS_B], inp["y"][:CLS_B]
+    if case == "classifier":
+        cfg = cls.ClassifierConfig(num_classes=NUM_CLASSES, batch_size=CLS_B)
+        model, state = cls.create_classifier_state(cfg, device=DEVICE,
+                                                   seed=SEED + 41)
+        step = cls.make_classifier_train_step(model, cfg)
+        args = [x, y]
+        extra = lambda: tuple(torch.Generator(  # noqa: E731
+            device=DEVICE).manual_seed(SEED + i) for i in (42, 43))
+    elif case == "pcrnet":
+        model, state, step = _reg_state(torch, "pcrnet")
+        args = list(inp["reg"])
+    elif case == "ae":
+        model, state, step = _recon_state(torch, "ae")
+        args = [inp["recon_x"]]
+    else:
+        cfg = cls.SampleNetConfig(num_out_points=TP_WIDE_M,
+                                  bottleneck_size=TP_WIDE_BOTTLENECK,
+                                  group_size=K, batch_size=CLS_B)
+        model, state = cls.create_samplenet_state(cfg, device=DEVICE,
+                                                  seed=SEED + 44)
+        frozen = inp["classifier"] if dtype is None \
+            else copy.deepcopy(inp["classifier"]).to(dtype)
+        step = cls.make_samplenet_train_step(model, frozen, cfg)
+        args = [x, y]
+        extra = lambda: (torch.Generator(  # noqa: E731
+            device=DEVICE).manual_seed(SEED + 45),)
+    if dtype is not None:
+        model.to(dtype)           # in place: the optimiser keeps its params
+    return model, state, step, [cast(t) for t in args], extra
+
+
+def _tp_metrics(metrics) -> dict:
+    """A step's metrics as a dict: a classifier step's (loss, acc), an AE
+    step's loss, or the dict the other steps return."""
+    if isinstance(metrics, dict):
+        return dict(metrics)
+    if isinstance(metrics, tuple):
+        return {"loss": metrics[0], "acc": metrics[1]}
+    return {"loss": metrics}
+
+
+def _tp_result(torch, model, metrics) -> dict:
+    """A step's metrics, whole gradients and running statistics (gathered
+    over the model group where sharded), on the CPU."""
+    from samplenet_tpu_torch.parallel.mesh import (
+        full_gradients,
+        full_state_dict,
+    )
+
+    return {"metrics": {k: float(v) for k, v in
+                        _tp_metrics(metrics).items()},
+            "grads": {k: g.detach().cpu() for k, g in
+                      full_gradients(model).items()},
+            "ema": {k: v.detach().cpu() for k, v in
+                    full_state_dict(model).items() if "running_" in k}}
+
+
+def _tp_case(torch, mesh, case, *, dtype=None, bn_mesh=None,
+             copy_reduces=True) -> dict:
+    """One rank's step of `case` on its rows (in `dtype` where given), its
+    wide layers sharded: the result, the launches and collectives of the
+    step, and (under the registration rule) its discrete choices.
+    `bn_mesh` puts the BatchNorms under another mesh and
+    `copy_reduces=False` skips copy-to-region's all-reduce: the
+    controls."""
+    from samplenet_tpu_torch.ops.dispatch import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from samplenet_tpu_torch.parallel import mesh as mesh_lib
+
+    model, state, step, args, extra = _tp_setup(torch, case, dtype=dtype)
+    mesh_lib.shard_params(mesh, mesh_lib.data_parallel(state, mesh))
+    if bn_mesh is not None:
+        mesh_lib.data_parallel(model, bn_mesh)
+    out = {}
+    if case == "wide sampler" and dtype is None:  # the eval, before the step
+        from samplenet_tpu_torch.ops.matching import nn_match_from_clouds
+
+        x = mesh_lib.shard_batch(mesh, args[0])
+        reset_launch_counts()
+        with torch.no_grad():
+            simp, matched = model(x)
+            torch.cuda.synchronize()
+            out["eval launches"] = launch_counts()
+            with _ctx(True):
+                plain_matched, _ = nn_match_from_clouds(x, simp, TP_WIDE_M)
+        out["eval"] = (simp.cpu(), bool(torch.equal(matched,
+                                                    plain_matched)))
+    made: list = []
+    rec = choices(torch, record=made) if TP_RULE[case] == "registration" \
+        else contextlib.nullcontext()
+    real = mesh_lib._CopyToModel.backward
+    if not copy_reduces:
+        mesh_lib._CopyToModel.backward = staticmethod(lambda ctx, g: (g, None))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    mesh_lib.reset_collective_counts()
+    try:
+        with rec:
+            metrics = step(state, *mesh_lib.shard_batch(mesh, args), *extra())
+        torch.cuda.synchronize()
+    finally:
+        mesh_lib._CopyToModel.backward = real
+    counts = mesh_lib.collective_counts()
+    launches = launch_counts()
+    out.update(_tp_result(torch, model, mesh_lib.global_mean(
+        _tp_metrics(metrics), mesh)))
+    out.update(launches=launches, choices=[t.cpu() for t in made],
+               collectives=(counts.get("all_reduce", 0),
+                            counts.get("all_gather", 0)),
+               sharded=[n for n, _ in mesh_lib.sharded_modules(model)])
+    return out
+
+
+def _tp_rank(mesh) -> dict:
+    """One rank of a D x M mesh: every case of TP_CASES (those of TP_F64
+    also in float64), and on 2 x 2 the two controls on the classifier
+    step in float64."""
+    import dataclasses
+
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    f64 = torch.float64
+    for case in TP_CASES[(mesh.data_size, mesh.model)]:
+        out[case] = _tp_case(torch, mesh, case)
+        if case in TP_F64:
+            out[f"{case} f64"] = _tp_case(torch, mesh, case, dtype=f64)
+        torch.cuda.empty_cache()
+    if mesh.data_size > 1:
+        out["copy control"] = _tp_case(torch, mesh, "classifier", dtype=f64,
+                                       copy_reduces=False)
+        out["bn control"] = _tp_case(
+            torch, mesh, "classifier", dtype=f64,
+            bn_mesh=dataclasses.replace(mesh, data_group=mesh.group))
+    return out
+
+
+def _tp_reference(torch, case, ranks, model) -> dict:
+    """The one-process steps of `case` on the card: the kernel path, the
+    plain f32 path and the float64 plain path; under the registration
+    rule also the f64 replays of the plain path's and of the ranks'
+    choices (those of the ranks of model index 0, in data order)."""
+    replay = TP_RULE[case] == "registration"
+    f64 = torch.float64
+    runs = {}
+    for name, plain, dtype in (("kernel", False, None), ("f64", True, f64),
+                               ("plain", True, None)):
+        net, state, step, args, extra = _tp_setup(torch, case, dtype=dtype)
+        if case == "wide sampler" and name == "kernel":
+            with torch.no_grad():          # the eval forward, before the step
+                runs["eval"] = net(args[0])[0].cpu()
+        made: list = []
+        how = choices(torch, record=made) if replay and dtype is None \
+            else contextlib.nullcontext()
+        with _ctx(plain), how:
+            metrics = step(state, *args, *extra())
+        torch.cuda.synchronize()
+        runs[name] = _tp_result(torch, net, metrics)
+        runs[name]["choices"] = made
+        del net, state, step
+    if replay:
+        lead = ranks[::model]
+        ranks_made = [torch.cat([r[case]["choices"][i].to(DEVICE)
+                                 for r in lead])
+                      for i in range(len(lead[0][case]["choices"]))]
+        runs["apart"] = sum(int((a != c).sum()) for a, c in zip(
+            ranks_made, runs["kernel"]["choices"]))
+        for name, made in (("plain f64 replay", runs["plain"]["choices"]),
+                           ("ranks f64 replay", ranks_made)):
+            net, state, step, args, extra = _tp_setup(torch, case, dtype=f64)
+            with _ctx(True), choices(torch, replay=made):
+                metrics = step(state, *args, *extra())
+            torch.cuda.synchronize()
+            runs[name] = _tp_result(torch, net, metrics)
+            del net, state, step
+    return runs
+
+
+def _tp_nccl_rank() -> int:
+    """Under torchrun over NCCL, one rank a card (`chip_smoke.py
+    --tp-nccl`): the classifier step on a 1 x 2 mesh; prints its loss."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    from samplenet_tpu_torch.parallel.mesh import (
+        initialize_distributed,
+        make_mesh,
+    )
+
+    initialize_distributed("cuda")
+    mesh = make_mesh(model=2)
+    out = _tp_case(torch, mesh, "classifier")
+    print(f"tp-nccl rank {mesh.rank} {mesh.shape} loss "
+          f"{out['metrics']['loss']!r} collectives {out['collectives']}",
+          flush=True)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _f64_grads_check(case, got, ref) -> float:
+    """Each float64 gradient of the ranks within rtol 1e-10 (atol 1e-10 of
+    the tensor's largest entry) of the one-process float64 step's, as the
+    CPU tests hold float64; one zero in exact arithmetic (below 1e-12 of
+    the largest gradient: a dense bias before a BatchNorm) round-off below
+    1e-10 of it. Returns the worst |difference| over the tensor's largest
+    entry."""
+    scale = max(float(r.abs().max()) for r in ref.values())
+    worst = 0.0
+    for name, r in ref.items():
+        top = float(r.abs().max())
+        diff = float((got[name] - r).abs().max())
+        if top <= 1e-12 * scale:
+            ok = float(got[name].abs().max()) <= 1e-10 * scale
+        else:
+            ok = bool(((got[name] - r).abs() <= 1e-10 * (r.abs() + top)).all())
+            worst = max(worst, diff / top)
+        if not ok:
+            raise AssertionError(f"{case} {name} in float64: |difference| "
+                                 f"{diff!r} over {top!r} (scale {scale!r})")
+    return worst
+
+
+def phase_tensor_parallel(torch) -> None:
+    """1 x 2 and 2 x 2 gloo ranks sharing the card against the one-process
+    step (TP_CASES), the two controls, the collectives against
+    TP_COLLECTIVES, dryrun_multichip(4) (a 2 x 2 mesh), and with two or
+    more cards the classifier step under torchrun over NCCL."""
+    from samplenet_tpu_torch.parallel.dryrun import dryrun_multichip
+    from samplenet_tpu_torch.parallel.launch import spawn
+
+    t0 = time.monotonic()
+    meshes = {dm: spawn(_tp_rank, dm[0] * dm[1], device=DEVICE,
+                        model=dm[1], timeout=300.0) for dm in TP_CASES}
+    spawn_s = time.monotonic() - t0
+    notes, refs = [], {}
+    for (d, m), ranks in meshes.items():
+        for case in TP_CASES[(d, m)]:
+            if case not in refs:
+                refs[case] = _tp_reference(torch, case, ranks, m)
+                torch.cuda.empty_cache()
+            runs = refs[case]
+            rule = TP_RULE[case]
+            ref, rtol = (runs["ranks f64 replay"], 1e-4) \
+                if rule == "registration" else (runs["kernel"], 1e-5)
+            want = TP_COLLECTIVES[(case, d, m)]
+            for r, ranks_out in enumerate(ranks):
+                got = ranks_out[case]
+                if got["sharded"] != TP_SHARDED[case]:
+                    raise AssertionError(f"{d}x{m} {case} rank {r}: sharded "
+                                         f"{got['sharded']}")
+                missing = [k for k in TP_PATH[case]
+                           if got["launches"].get(k, 0) < 1]
+                if missing:
+                    raise AssertionError(f"{d}x{m} {case} rank {r} launched "
+                                         f"no {missing}")
+                if got["collectives"] != want:
+                    raise AssertionError(
+                        f"{d}x{m} {case} rank {r}: (all-reduces, "
+                        f"all-gathers) {got['collectives']}, predicted "
+                        f"{want}")
+                for k, v in ref["metrics"].items():
+                    if not (np.isfinite(got["metrics"][k]) and np.isclose(
+                            got["metrics"][k], v, rtol=rtol, atol=0)):
+                        raise AssertionError(
+                            f"{d}x{m} {case} rank {r} {k}: "
+                            f"{got['metrics'][k]!r}, reference {v!r}")
+                for k, v in runs["kernel"]["ema"].items():
+                    torch.testing.assert_close(got["ema"][k], v, rtol=1e-4,
+                                               atol=1e-6)
+                if case in TP_F64:
+                    worst = (_f64_grads_check(
+                        f"{d}x{m} {case}", ranks_out[f"{case} f64"]["grads"],
+                        runs["f64"]["grads"]), 0.0, "f64")
+                else:
+                    worst = _dp_grads_check(f"{d}x{m} {case}", got["grads"],
+                                            runs, rule, case in TP_KERNEL_TOO)
+                if case == "wide sampler":
+                    simp, matched_ok = got["eval"]
+                    missing = [k for k in TP_EVAL_PATH
+                               if got["eval launches"].get(k, 0) < 1]
+                    if missing or not matched_ok:
+                        raise AssertionError(
+                            f"{d}x{m} wide sampler eval rank {r}: launched "
+                            f"no {missing}, or its matching differs from "
+                            f"the plain path's ({matched_ok})")
+                    rows = slice((r // m) * CLS_B // d,
+                                 (r // m + 1) * CLS_B // d)
+                    torch.testing.assert_close(simp, runs["eval"][rows],
+                                               rtol=1e-4, atol=1e-4)
+            apart = "" if rule != "registration" else (
+                f", f64 replay of the ranks' choices "
+                f"{runs['ranks f64 replay']['metrics']['loss']!r}; choices "
+                f"apart from the one-process step's: {runs['apart']}")
+            against = "plain f32 or kernel" if case in TP_KERNEL_TOO \
+                else "plain f32"
+            exact = "the f64 replay of its choices" \
+                if rule == "registration" else "f64"
+            if case in TP_F64:
+                f32 = {k: _norm_err(ranks[0][case]["grads"][k],
+                                    runs["f64"]["grads"][k])
+                       for k in ("conv1.weight", "conv5.weight")}
+                grads = (f"gradients in float64 within {worst[0]!r} of one "
+                         f"process's (largest difference over the tensor's "
+                         f"largest entry; limit 1e-10); in f32, norm-wise "
+                         f"against f64, conv1.weight {f32['conv1.weight']!r} "
+                         f"and conv5.weight {f32['conv5.weight']!r} (one "
+                         f"process: " + ", ".join(
+                             f"{k} {_norm_err(runs['plain']['grads'][k], runs['f64']['grads'][k])!r}"
+                             for k in f32) + ")")
+            else:
+                grads = (f"worst gradient error against {exact} "
+                         f"{worst[0]!r} at {worst[2]} (one-process {against} "
+                         f"{worst[1]!r})")
+            notes.append(
+                f"{d}x{m} {case}: loss {ranks[0][case]['metrics']['loss']!r}"
+                f" (one process {runs['kernel']['metrics']['loss']!r}"
+                f"{apart}), {grads}; "
+                f"launched {ranks[0][case]['launches']}; (all-reduces, "
+                f"all-gathers) a step {ranks[0][case]['collectives']}, "
+                f"predicted {want}")
+    controls = {}
+    for name in ("copy control", "bn control"):
+        try:
+            _f64_grads_check(f"2x2 classifier, {name},",
+                             meshes[(2, 2)][0][name]["grads"],
+                             refs["classifier"]["f64"]["grads"])
+        except AssertionError as e:
+            controls[name] = str(e)
+        else:
+            raise AssertionError(f"the tensor-parallel {name} passed the "
+                                 f"gradient check")
+    t0 = time.monotonic()
+    dryrun_multichip(4)
+    dryrun_s = time.monotonic() - t0
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        stdout, nccl_s = _cli([
+            "torch.distributed.run", "--standalone", "--nproc-per-node=2",
+            os.path.join(HERE, "chip_smoke.py"), "--tp-nccl"],
+            "torchrun chip_smoke.py --tp-nccl")
+        # the two ranks print at once: their lines may run together
+        losses = [float(v) for v in re.findall(
+            r"tp-nccl rank \d+ .*? loss (\S+) collectives", stdout)]
+        want = meshes[(1, 2)][0]["classifier"]["metrics"]["loss"]
+        if len(losses) != 2 or not np.allclose(losses, want, rtol=1e-5,
+                                               atol=0):
+            raise AssertionError(f"torchrun --tp-nccl: {stdout}")
+        nccl = (f"torchrun --nproc-per-node=2 over NCCL, 1 x 2, one rank a "
+                f"card: the classifier step's loss {losses} (gloo "
+                f"{want!r}) in {nccl_s:.1f} s")
+    else:
+        nccl = (f"torchrun over NCCL at 1 x 2 not run: {cards} card (NCCL "
+                f"takes one rank a card)")
+    log("tensor-parallel", f"gloo ranks sharing the card on 1 x 2 and 2 x 2 "
+                           f"meshes, the wide layers sharded over 'model', "
+                           f"against the one-process step: "
+                           + "; ".join(notes) + "; loss terms within rtol "
+                           "1e-5 of the one-process kernel step's (PCRNet: "
+                           "1e-4 of the f64 replay of the ranks' choices), "
+                           "running statistics rtol 1e-4 / atol 1e-6")
+    log("tensor-parallel", f"the wide sampler's eval forward on 1 x 2 "
+                           f"launched {sorted(TP_EVAL_PATH)} on every rank, "
+                           f"its hard matching bit-equal to the plain "
+                           f"path's on the rank's simplified points, these "
+                           f"within 1e-4 of one process's")
+    for name, msg in controls.items():
+        log("tensor-parallel", f"the {name} ("
+            + ("copy-to-region's backward without its all-reduce"
+               if name == "copy control" else
+               "BatchNorm statistics summed over the world, not the data "
+               "group") + f"; in float64) fails the float64 gradient "
+            f"check: {msg}")
+    log("tensor-parallel", f"dryrun_multichip(4) on the card (a 2 x 2 mesh "
+                           f"of gloo ranks sharing it): every track finite "
+                           f"and equal on every rank in {dryrun_s:.1f} s; "
+                           f"the meshes' ranks took {spawn_s:.1f} s from "
+                           f"spawn to results; {nccl}")
+
+
 def _timed(phase, *args):
     """phase(*args), then its seconds on a line of their own."""
     t0 = time.monotonic()
@@ -4866,6 +5366,7 @@ def main() -> int:
                          classifier)
     _timed(phase_bf16_cli, torch)
     _timed(phase_data_parallel, torch, classifier)
+    _timed(phase_tensor_parallel, torch)
     times = _timed(phase_times, torch, model, clouds, card)
     train_times, soft_gathered = _timed(phase_times_train, torch, data,
                                         labels, classifier, card)
@@ -4905,4 +5406,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(_tp_nccl_rank() if sys.argv[1:] == ["--tp-nccl"] else main())

@@ -26,6 +26,12 @@ def ensure_dataset(data_dir: str) -> str:
         f"there, or use the procedural dataset")
 
 
+def get_data_files(list_path: str) -> list[str]:
+    """The non-empty lines of a split list ({train,test}_files.txt)."""
+    with open(list_path) as f:
+        return [line.strip() for line in f if line.strip()]
+
+
 def load_h5(path: str) -> tuple[np.ndarray, np.ndarray]:
     import h5py
 
@@ -51,10 +57,8 @@ def save_h5(path: str, data: np.ndarray, label: np.ndarray | None = None,
 def load_split(data_dir: str, split: str) -> tuple[np.ndarray, np.ndarray]:
     """All h5 shards of the official split, concatenated."""
     root = ensure_dataset(data_dir)
-    with open(os.path.join(root, f"{split}_files.txt")) as f:
-        files = [line.strip() for line in f if line.strip()]
     datas, labels = [], []
-    for fn in files:
+    for fn in get_data_files(os.path.join(root, f"{split}_files.txt")):
         # entries look like "data/modelnet40_ply_hdf5_2048/ply_data_*.h5"
         path = fn if os.path.isabs(fn) else os.path.join(
             root, os.path.basename(fn))

@@ -17,6 +17,23 @@ _PLY_TO_NP = {
 }
 
 
+def ply_vertex_count(path: str) -> int:
+    """The vertex count from the header alone, no data read (data/
+    ingest.py counts every file of a tree with it)."""
+    with open(path, "rb") as f:
+        if f.readline().strip() != b"ply":
+            raise ValueError(f"{path}: not a PLY file")
+        while True:
+            line = f.readline()
+            if not line:
+                raise ValueError(f"{path}: unexpected EOF in header")
+            tokens = line.decode("ascii", "replace").strip().split()
+            if len(tokens) == 3 and tokens[:2] == ["element", "vertex"]:
+                return int(tokens[2])
+            if tokens and tokens[0] == "end_header":
+                raise ValueError(f"{path}: no vertex element")
+
+
 def load_ply(path: str) -> np.ndarray:
     """The vertex element of a PLY file as [N, num_props] float32 (x, y, z
     first for every file the pipelines read)."""

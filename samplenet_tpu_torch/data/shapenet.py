@@ -2,7 +2,7 @@
 
 A copy of samplenet_tpu/data/shapenet.py:19-166 (the port cannot import
 the JAX package): the synset-id <-> category map, PLY loading in a thread
-pool with the pure-python reader (data/plyio.py), and the seeded 85/5/10
+pool with the native C++ parser (runtime/), and the seeded 85/5/10
 train/val/test split of reconstruction/src/in_out.py:188-217. The layout is
 `<data_dir>/shape_net_core_uniform_samples_2048/<synset>/*.ply`.
 """
@@ -13,8 +13,6 @@ import os
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
-
-from samplenet_tpu_torch.data.plyio import load_ply
 
 # ShapeNetCore synsetId -> category (in_out.py:38-102)
 SYNSET_TO_CATEGORY = {
@@ -62,9 +60,16 @@ def files_in_subdirs(top_dir: str, suffix: str = ".ply") -> list[str]:
 
 def load_point_clouds(file_names: list[str], num_points: int | None = None,
                       threads: int = 8) -> np.ndarray:
-    """PLY files loaded in a thread pool -> [M, N, 3] float32."""
+    """PLY files loaded in a thread pool -> [M, N, 3] float32, parsed by
+    the native C++ parser (runtime/native/loader.cpp), as samplenet_tpu/
+    data/shapenet.py:63-84 prefers it: ctypes releases the GIL during the
+    call, so the threads parse in parallel. Raises where the parser cannot
+    be built (runtime/loader.py); `plyio.load_ply` is the Python
+    reader."""
+    from samplenet_tpu_torch.runtime import load_ply_native
+
     def one(fn):
-        pts = load_ply(fn)[:, :3]
+        pts = load_ply_native(fn)
         return pts[:num_points] if num_points else pts
 
     with ThreadPoolExecutor(max_workers=threads) as pool:

@@ -12,7 +12,10 @@ autoencoder_state_dict_from_jax). The losses: Chamfer (both directions
 through the nn_direction kernel), approximate EMD (the fused EMD kernel),
 and the soft-assignment loss, plain tensor code as it is plain XLA in JAX.
 `ConvDecoder` is the JAX package's per-point conv decoder variant
-(:150-169), tensor ops as in JAX, where no Pallas kernel runs.
+(:150-169), tensor ops as in JAX, where no Pallas kernel runs. Under
+tensor parallelism (parallel/mesh.py::shard_params) a wide decoder layer
+(the 3*N output) runs column-parallel and its output is gathered
+(nn/layers.py).
 """
 
 from __future__ import annotations
@@ -20,7 +23,12 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from samplenet_tpu_torch.nn.layers import Linear, PointMLP, default_generator
+from samplenet_tpu_torch.nn.layers import (
+    Linear,
+    PointMLP,
+    default_generator,
+    whole_channels,
+)
 from samplenet_tpu_torch.ops.chamfer import nn_distance
 from samplenet_tpu_torch.ops.fps import farthest_point_sample_with_points
 from samplenet_tpu_torch.ops.matching import approx_emd_cost
@@ -57,8 +65,10 @@ class PointNetAE(nn.Module):
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """[B, bottleneck] -> [B, num_output_points, 3]."""
         for i in range(self._n_dec):
-            z = torch.relu(getattr(self, f"dec_{i}")(z))
-        return self.dec_out(z).reshape(-1, self.num_output_points, 3)
+            dec = getattr(self, f"dec_{i}")
+            z = whole_channels(dec, torch.relu(dec(z)))
+        z = whole_channels(self.dec_out, self.dec_out(z))
+        return z.reshape(-1, self.num_output_points, 3)
 
     def forward(self, x: torch.Tensor, training: bool = False) -> torch.Tensor:
         return self.decode(self.encode(x, training=training))
@@ -97,9 +107,11 @@ class ConvDecoder(nn.Module):
     def forward(self, z: torch.Tensor, training: bool = False
                 ) -> torch.Tensor:
         """[B, latent_size] -> [B, num_output_points, 3]."""
-        x = self.expand(z).reshape(z.shape[0], self.num_output_points,
-                                   self.latent_size // 4)
-        return self.out(self.convs(x, training=training))
+        x = whole_channels(self.expand, self.expand(z)).reshape(
+            z.shape[0], self.num_output_points, self.latent_size // 4)
+        last = getattr(self.convs, f"conv{len(self.convs.features)}")
+        y = whole_channels(last, self.convs(x, training=training))
+        return whole_channels(self.out, self.out(y))
 
 
 def ae_chamfer_loss(x_reconstr: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:

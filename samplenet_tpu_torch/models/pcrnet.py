@@ -12,7 +12,10 @@ samplenet_tpu/interop/torch_import.py::pcrnet_to_torch writes.
 Without BN the feature chain never takes a kernel: it runs as matmuls
 (cuBLAS on the card), train or eval, as the JAX package runs it
 (nn/layers.py::point_mlp). Initialisation follows flax, from an explicit
-torch.Generator: lecun-normal kernels, zero biases.
+torch.Generator: lecun-normal kernels, zero biases. Under tensor
+parallelism (parallel/mesh.py::shard_params) conv5 and the FC layers of
+512 or more outputs run column-parallel (nn/layers.py), each output
+gathered after its ReLU (conv5's after the max over points).
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from samplenet_tpu_torch.nn.layers import (
     add_point_mlp,
     default_generator,
     point_mlp,
+    whole_channels,
 )
 
 FEATURE_WIDTHS = (64, 64, 64, 128)
@@ -65,8 +69,10 @@ class PCRNet(nn.Module):
         with a unit quaternion, the pre-normalised quaternion [B, 4])."""
         y = torch.cat([self.feat(x0), self.feat(x1)], dim=-1)
         for i in range(1, self._n_fc):
-            y = torch.relu(getattr(self, f"fc{i}")(y))
-        y = getattr(self, f"fc{self._n_fc}")(y)
+            fc = getattr(self, f"fc{i}")
+            y = whole_channels(fc, torch.relu(fc(y)))
+        fc = getattr(self, f"fc{self._n_fc}")
+        y = whole_channels(fc, fc(y))
         pre_quat = y[:, 0:4]
         quat = pre_quat / torch.clamp(
             torch.linalg.vector_norm(pre_quat, dim=-1, keepdim=True),

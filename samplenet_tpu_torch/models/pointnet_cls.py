@@ -18,7 +18,12 @@ each entry is kept where a uniform draw falls below 1 - rate, and kept
 entries are scaled by 1 / (1 - rate), as flax does. Under a data-parallel
 `mesh` (parallel/mesh.py::data_parallel) the mask is drawn for the global
 batch and each rank keeps its rows, and the orthogonality loss, a sum
-over the batch, is summed over the ranks. The T-nets' BNs run
+over the batch, is summed over the data ranks. Under tensor parallelism
+(parallel/mesh.py::shard_params) the wide layers run column-parallel
+(nn/layers.py): the last conv's per-point features stay the rank's
+channel block, whose max and argmax over points are taken on the block
+and then gathered, and each sharded FC layer's output is gathered after
+its BN and ReLU, before dropout. The T-nets' BNs run
 at momentum 0.9 whatever `bn_momentum` is, because the JAX package builds
 its TransformNets without passing it (:76-77, :82-83); under the
 scheduled BN decay their statistics therefore take two averages a step.
@@ -58,6 +63,7 @@ from samplenet_tpu_torch.nn.layers import (
     default_generator,
     dense,
     point_mlp,
+    whole_channels,
 )
 from samplenet_tpu_torch.ops.cuda.point_mlp_kernel import full_f32_matmul
 from samplenet_tpu_torch.parallel.mesh import Mesh, all_reduce_sum, global_rows
@@ -119,21 +125,22 @@ class TransformNet(nn.Module):
                                               device=device, generator=gen))
             self.add_module(f"bn_{i}", BatchNorm(widths[i + 1],
                                                  device=device))
-        transform = nn.Linear(widths[-1], k * k, device="meta")
-        transform.weight = nn.Parameter(
-            torch.zeros(k * k, widths[-1], device=device))
-        transform.bias = nn.Parameter(
-            torch.eye(k, device=device).reshape(-1))
-        self.transform = transform
+        self.transform = Linear(
+            widths[-1], k * k, device=device,
+            weight=torch.zeros(k * k, widths[-1]),
+            bias=torch.eye(k).reshape(-1))
 
     def forward(self, x: torch.Tensor, training: bool = False
                 ) -> torch.Tensor:
-        g = self.convs(x, training).amax(dim=1)
+        last = getattr(self.convs, f"conv{len(TNET_CONV_WIDTHS)}")
+        g = whole_channels(last, self.convs(x, training).amax(dim=1))
         for i in range(len(TNET_FC_WIDTHS)):
-            g = dense(getattr(self, f"fc_{i}"), g, self.dtype)
+            fc = getattr(self, f"fc_{i}")
+            g = dense(fc, g, self.dtype)
             g = torch.relu(getattr(self, f"bn_{i}")(g, training, self.dtype))
+            g = whole_channels(fc, g)
         t = self.transform(g.to(self.transform.weight.dtype))
-        return t.reshape(-1, self.k, self.k)
+        return whole_channels(self.transform, t).reshape(-1, self.k, self.k)
 
 
 class PointNetClassifier(nn.Module):
@@ -183,21 +190,27 @@ class PointNetClassifier(nn.Module):
             t_feat = self.tnet_feature(x, training)
             end_points["transform"] = t_feat
             x = self.convs_b(_apply_transform(x, t_feat), training)
+            last = getattr(self.convs_b, f"conv{len(CONVS_B_WIDTHS)}")
         else:
             x = point_mlp(self, len(CONV_WIDTHS), x, training=training,
                           dtype=self.dtype)
-        end_points["critical_set_idx"] = torch.argmax(x, dim=1)
-        g = x.amax(dim=1)                                  # [B, 1024]
+            last = getattr(self, f"conv{len(CONV_WIDTHS)}")
+        end_points["critical_set_idx"] = whole_channels(
+            last, torch.argmax(x, dim=1))
+        g = whole_channels(last, x.amax(dim=1))            # [B, 1024]
         end_points["GFV"] = g
         rate = self.dropout_rate if training else 0.0
         dt = self.dtype
         g = torch.relu(self.bn_fc1(dense(self.fc1, g, dt), training, dt))
+        g = whole_channels(self.fc1, g)
         if self.use_tnets:
             g = dropout(g, rate, generator, self.mesh)
         g = torch.relu(self.bn_fc2(dense(self.fc2, g, dt), training, dt))
+        g = whole_channels(self.fc2, g)
         end_points["retrieval_vectors"] = g
         g = dropout(g, rate, generator, self.mesh)
-        logits = self.fc3(g.to(self.fc3.weight.dtype))     # f32 logits
+        logits = whole_channels(
+            self.fc3, self.fc3(g.to(self.fc3.weight.dtype)))  # f32 logits
         return logits, end_points
 
 

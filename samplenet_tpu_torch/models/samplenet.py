@@ -26,7 +26,11 @@ kernel (nn/layers.py), and the output layer promotes its input back to
 f32, so the simplified cloud, the soft projection, the Chamfer losses and
 the matching stay f32 (samplenet_tpu/models/samplenet.py:83-86).
 `eval_bf16` runs the eval kernel with bf16 operands, the TPU kernel's
-default, which the JAX package does not expose as a flag.
+default, which the JAX package does not expose as a flag. Under tensor
+parallelism (parallel/mesh.py::shard_params) the output layer of 3m >=
+512 channels and, where bottleneck_size >= 512, the last conv and its BN
+are sharded (nn/layers.py: the head column-parallel, the fused chains and
+the eval kernel on gathered whole weights).
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ from samplenet_tpu_torch.nn.layers import (
     default_generator,
     mlp_head,
     point_mlp,
+    whole_channels,
 )
 from samplenet_tpu_torch.ops.fps import (
     farthest_point_sample_with_points,
@@ -95,7 +100,7 @@ class SimplificationNet(nn.Module):
         y = mlp_head(self, self._n_fc, g, activate_final=True,
                      training=training, dtype=self.dtype)
         out = getattr(self, f"fc{self._n_fc + 1}")
-        y = out(y.to(out.weight.dtype))        # flax promotes bf16 to f32
+        y = whole_channels(out, out(y.to(out.weight.dtype)))  # f32, as flax
         return y.reshape(-1, self.num_out_points, 3)
 
 

@@ -36,6 +36,19 @@ sums (differentiably), the train chains all-reduce theirs between their
 kernels' launches, and the chain's mode and ghost block are chosen from
 the global batch. Without a mesh nothing changes.
 
+Under tensor parallelism (parallel/mesh.py::shard_params sets `shard` on
+each layer whose output channels the rule shards, with its BatchNorm) a
+sharded PointConv or Linear runs column-parallel: its input enters
+through `copy_to_model`, its output is the rank's channel block, its
+BatchNorm normalises the block (statistics over the data group), and
+`whole_channels` all-gathers the block where the next layer needs the
+whole feature; a max over points is taken on the block first. The fused
+chains and the eval kernel take whole weights, all-gathered from the
+shards (`whole_kernel`, `whole`), and a sharded BatchNorm keeps its block
+of the statistics they report. A chain without `pool_max` whose last
+layer is sharded returns that layer's channel block: its caller pools it
+and gathers (models/pointnet_cls.py).
+
 A compute `dtype` (bf16; the JAX package's `dtype` field, :66-68, reached
 by `--bf16`) runs the chain as tensor ops with flax's casts and no kernel,
 train or eval, as the JAX package does (:88, :120; its XLA matmuls, so on
@@ -65,7 +78,13 @@ from samplenet_tpu_torch.ops.cuda.point_mlp_train_kernel import (
     auto_block_b,
     point_mlp_train_max,
 )
-from samplenet_tpu_torch.parallel.mesh import all_reduce_sum
+from samplenet_tpu_torch.parallel.mesh import (
+    all_reduce_sum,
+    batch_blocks,
+    copy_to_model,
+    gather_from_model,
+    model_block,
+)
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9
@@ -96,37 +115,91 @@ class PointConv(nn.Module):
         lecun_normal_(w, in_features, default_generator(generator))
         self.weight = nn.Parameter(w.to(device))
         self.bias = nn.Parameter(torch.zeros(out_features, device=device))
+        self.shard = None
 
     def kernel(self) -> torch.Tensor:
-        """The weight as a Dense kernel [in, out]."""
+        """The weight as a Dense kernel [in, out] (the rank's columns of a
+        sharded layer)."""
         return self.weight[:, :, 0].t()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # [..., in]
+        if self.shard is not None:
+            x = copy_to_model(x, self.shard)
         return torch.matmul(x, self.kernel()) + self.bias
+
+
+def whole(layer: nn.Module, t: torch.Tensor) -> torch.Tensor:
+    """A leaf t of `layer` whole: all-gathered along dim 0 (differentiably,
+    the backward keeping the rank's slice) where the layer is sharded."""
+    mesh = getattr(layer, "shard", None)
+    return t if mesh is None else gather_from_model(t, mesh, 0)
+
+
+def whole_kernel(conv: PointConv) -> torch.Tensor:
+    """The whole Dense kernel [in, out] of a PointConv, sharded or not."""
+    return whole(conv, conv.weight[:, :, 0]).t()
+
+
+def whole_channels(layer: nn.Module, y: torch.Tensor) -> torch.Tensor:
+    """The output y of `layer` (or a function of it that keeps its last
+    axis: BN, ReLU, a max over points) whole: the model group's channel
+    blocks all-gathered along the last axis where the layer is sharded."""
+    mesh = getattr(layer, "shard", None)
+    return y if mesh is None else gather_from_model(y, mesh, -1)
+
+
+def out_features(layer: nn.Module) -> int:
+    """The layer's whole output width, sharded or not."""
+    mesh = getattr(layer, "shard", None)
+    return layer.weight.shape[0] * (1 if mesh is None else mesh.model)
+
+
+def local(layer: nn.Module, t: torch.Tensor) -> torch.Tensor:
+    """The rank's block (dim 0) of a whole per-channel t where `layer` is
+    sharded."""
+    mesh = getattr(layer, "shard", None)
+    return t if mesh is None else model_block(t, mesh)
 
 
 def dense(layer: nn.Module, x: torch.Tensor,
           dtype: torch.dtype | None) -> torch.Tensor:
     """A PointConv or Linear `layer` on x, as flax's Dense with `dtype`:
     without one, the layer itself; with one, x, the kernel and the bias
-    cast to it, the product rounded to it, then the bias added in it."""
+    cast to it, the product rounded to it, then the bias added in it. A
+    sharded layer gives the rank's channel block."""
     if dtype is None:
         return layer(x)
+    if getattr(layer, "shard", None) is not None:
+        x = copy_to_model(x, layer.shard)
     kernel = layer.kernel() if isinstance(layer, PointConv) \
         else layer.weight.t()
     return torch.matmul(x.to(dtype), kernel.to(dtype)) + layer.bias.to(dtype)
 
 
 class Linear(nn.Linear):
-    """nn.Linear with flax's initialisation."""
+    """nn.Linear with flax's initialisation; column-parallel where sharded
+    (its output is then the rank's channel block)."""
 
     def __init__(self, in_features: int, out_features: int, *,
-                 device=None, generator: torch.Generator | None = None):
+                 device=None, generator: torch.Generator | None = None,
+                 weight: torch.Tensor | None = None,
+                 bias: torch.Tensor | None = None):
+        """`weight` and `bias` replace the initialisation where given (no
+        draw is then made)."""
         super().__init__(in_features, out_features, device="meta")
-        w = torch.empty(out_features, in_features)
-        lecun_normal_(w, in_features, default_generator(generator))
-        self.weight = nn.Parameter(w.to(device))
-        self.bias = nn.Parameter(torch.zeros(out_features, device=device))
+        if weight is None:
+            weight = torch.empty(out_features, in_features)
+            lecun_normal_(weight, in_features, default_generator(generator))
+        if bias is None:
+            bias = torch.zeros(out_features)
+        self.weight = nn.Parameter(weight.to(device))
+        self.bias = nn.Parameter(bias.to(device))
+        self.shard = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.shard is not None:
+            x = copy_to_model(x, self.shard)
+        return super().forward(x)
 
 
 class BatchNorm(nn.Module):
@@ -136,7 +209,8 @@ class BatchNorm(nn.Module):
     parameters and buffers carry BatchNorm1d's names, num_batches_tracked
     included. `momentum` is flax's (the weight of the old average). Under
     `mesh` (set by parallel/mesh.py::data_parallel) the batch statistics
-    are the global batch's."""
+    are the global batch's, summed over the data group; a sharded
+    BatchNorm (`shard`) holds and normalises its channel block."""
 
     def __init__(self, features: int, *, momentum: float = BN_MOMENTUM,
                  device=None):
@@ -151,6 +225,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("num_batches_tracked",
                              torch.tensor(0, dtype=torch.long, device=device))
         self.mesh = None
+        self.shard = None
 
     def update_stats(self, mean: torch.Tensor, var: torch.Tensor) -> None:
         """Running averages from one batch's mean and biased variance."""
@@ -172,10 +247,10 @@ class BatchNorm(nn.Module):
             if self.mesh is None:
                 mean = flat.mean(0)
                 msq = (flat * flat).mean(0)
-            else:       # sums over every rank's rows, one all-reduce
+            else:       # sums over every data rank's rows, one all-reduce
                 s = all_reduce_sum(torch.stack(
                     [flat.sum(0), (flat * flat).sum(0)]), self.mesh)
-                mean, msq = s / (flat.shape[0] * self.mesh.size)
+                mean, msq = s / (flat.shape[0] * self.mesh.data_size)
             var = torch.clamp(msq - mean * mean, min=0.0)
             self.update_stats(mean.detach(), var.detach())
         mul = torch.rsqrt(var + BN_EPS) * self.weight
@@ -300,44 +375,59 @@ def point_mlp(owner: nn.Module, n_layers: int, x: torch.Tensor, *,
     `eval_bf16` runs the eval kernel with bf16 operands, the TPU kernel's
     default, which the JAX package does not expose as a flag."""
     if not use_bn:
-        for i in range(n_layers):
-            x = torch.relu(getattr(owner, f"conv{i + 1}")(x))
-        return x.amax(dim=1) if pool_max else x
+        convs = [getattr(owner, f"conv{i + 1}") for i in range(n_layers)]
+        for i, conv in enumerate(convs):
+            x = torch.relu(conv(x))
+            if i < n_layers - 1:
+                x = whole_channels(conv, x)
+        return whole_channels(convs[-1], x.amax(dim=1)) if pool_max else x
     layers = [(getattr(owner, f"conv{i + 1}"), getattr(owner, f"bn{i + 1}"))
               for i in range(n_layers)]
     mesh = layers[0][1].mesh
+    widths = [out_features(conv) for conv, _ in layers]
+    batch = None if mesh is None else x.shape[0] * mesh.data_size
     mode = resolve_fused_mode(
-        x, [conv.weight.shape[0] for conv, _ in layers], training=training,
-        pool_max=pool_max, fused_train=fused_train, fused_mode=fused_mode,
-        fused_bf16=fused_bf16, dtype=dtype,
-        batch=None if mesh is None else x.shape[0] * mesh.size)
+        x, widths, training=training, pool_max=pool_max,
+        fused_train=fused_train, fused_mode=fused_mode,
+        fused_bf16=fused_bf16, dtype=dtype, batch=batch)
     if pool_max and training and mode != "plain":
-        args = (x, [conv.kernel() for conv, _ in layers],
-                [conv.bias for conv, _ in layers],
-                [bn.weight for _, bn in layers], [bn.bias for _, bn in layers])
-        dp = {} if mesh is None else {"mesh": mesh}
+        args = (x, [whole_kernel(conv) for conv, _ in layers],
+                [whole(conv, conv.bias) for conv, _ in layers],
+                [whole(bn, bn.weight) for _, bn in layers],
+                [whole(bn, bn.bias) for _, bn in layers])
         if mode == "ghost":
+            bf16 = fused_bf16_of("ghost", fused_bf16)
+            dp = {} if mesh is None else {"blocks": batch_blocks(
+                mesh, x.shape[0], auto_block_b(batch, x.shape[1],
+                                               tuple(widths), bf16))}
             pooled, means, vars_ = point_mlp_train_max(
-                *args, eps=BN_EPS, bf16=fused_bf16_of("ghost", fused_bf16),
-                **dp)
+                *args, eps=BN_EPS, bf16=bf16, **dp)
         else:
+            dp = {} if mesh is None else {
+                "blocks": batch_blocks(mesh, x.shape[0])}
             pooled, means, vars_ = point_mlp_exact_train_max(
                 *args, eps=BN_EPS, bf16=mode == "exact_bf16", **dp)
         for (_, bn), mean, var in zip(layers, means, vars_):
-            bn.update_stats(mean, var)
+            bn.update_stats(local(bn, mean), local(bn, var))
         return pooled
     if use_eval_kernel(x, training=training, pool_max=pool_max, dtype=dtype) \
             and not _needs_grad(x, layers):
         wbs = []
         for conv, bn in layers:
-            wbs += fold_bn_affine(conv.kernel(), conv.bias, bn.weight,
-                                  bn.bias, bn.running_mean, bn.running_var,
-                                  BN_EPS)
+            wbs += fold_bn_affine(
+                whole_kernel(conv), whole(conv, conv.bias),
+                whole(bn, bn.weight), whole(bn, bn.bias),
+                whole(bn, bn.running_mean), whole(bn, bn.running_var),
+                BN_EPS)
         # a prefix slice (the progressive evals) is a strided view
         return point_mlp_max(x.contiguous(), tuple(wbs), bf16=eval_bf16)
-    for conv, bn in layers:
+    for i, (conv, bn) in enumerate(layers):
         x = torch.relu(bn(dense(conv, x, dtype), training, dtype))
-    return x.amax(dim=1) if pool_max else x
+        if i < n_layers - 1:
+            x = whole_channels(conv, x)
+    if not pool_max:
+        return x
+    return whole_channels(layers[-1][0], x.amax(dim=1))
 
 
 def add_mlp_head(owner: nn.Module, in_features: int,
@@ -365,12 +455,14 @@ def mlp_head(owner: nn.Module, n_layers: int, x: torch.Tensor, *,
     unless `activate_final`, in the compute `dtype` where given. Plain
     torch in both modes."""
     for i in range(n_layers):
-        x = dense(getattr(owner, f"fc{i + 1}"), x, dtype)
+        fc = getattr(owner, f"fc{i + 1}")
+        x = dense(fc, x, dtype)
         if i < n_layers - 1 or activate_final:
             bn = getattr(owner, f"bn_fc{i + 1}", None)
             if bn is not None:
                 x = bn(x, training, dtype)
             x = torch.relu(x)
+        x = whole_channels(fc, x)
     return x
 
 

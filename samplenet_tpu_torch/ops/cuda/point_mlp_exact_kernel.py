@@ -38,6 +38,8 @@ against.
 
 from __future__ import annotations
 
+from typing import Any
+
 import torch
 
 from samplenet_tpu_torch.ops.cuda._build import check, library, stream_handle
@@ -48,7 +50,6 @@ from samplenet_tpu_torch.ops.cuda.point_mlp_kernel import (
 from samplenet_tpu_torch.ops.cuda.point_mlp_train_kernel import (
     MODE_EXACT_BF16,
     MODE_F32,
-    Blocks,
     bwd_cuda,
     check_args,
     check_cuda,
@@ -56,7 +57,6 @@ from samplenet_tpu_torch.ops.cuda.point_mlp_train_kernel import (
     ptrs,
 )
 from samplenet_tpu_torch.ops.dispatch import count_launch, use_kernel
-from samplenet_tpu_torch.parallel.mesh import Mesh
 
 KERNEL_FWD = "point_mlp_exact_fwd"
 KERNEL_BWD = "point_mlp_exact_bwd"
@@ -101,7 +101,7 @@ def _act(z, mu, rstd, gamma, beta):
 
 # ------------------------------------------------------------ plain version
 
-def _global(s: torch.Tensor, count: int, blocks: Blocks | None):
+def _global(s: torch.Tensor, count: int, blocks):
     """The [2, C] sums s over `count` points, summed over the ranks under
     `blocks` (one all-reduce), and the count they cover."""
     if blocks is None:
@@ -280,7 +280,7 @@ class _PointMLPExact(torch.autograd.Function):
 
 def point_mlp_exact_train_max(x, weights, biases, gammas, betas, *,
                               eps: float = 1e-5, bf16: bool = False,
-                              mesh: Mesh | None = None):
+                              blocks: Any = None):
     """(pooled [B, C_out], means, vars): the train-mode chain
     relu(BN(x W_l)) with exact batch statistics, max-pooled over points,
     with bf16 matmul operands where `bf16`. weights are Dense kernels
@@ -288,15 +288,20 @@ def point_mlp_exact_train_max(x, weights, biases, gammas, betas, *,
     in x, the weights, gammas and betas (the biases get exact zeros). CPU
     tensors take the plain versions, CUDA tensors the kernels
     (ops/dispatch.py), counted as point_mlp_exact_{fwd,bwd} or, in bf16,
-    point_mlp_exact_bf16_{fwd,bwd}. Under a `mesh`, x holds this rank's
-    rows and the statistics are the global batch's: each layer's [2, C]
-    sums are all-reduced between the forward's launches, and the rows
-    that feed dz between the backward's (the JAX kernel's psum under a
-    sharded caller, :19-26, :418)."""
+    point_mlp_exact_bf16_{fwd,bwd}. Under `blocks`, a reducer over the
+    ranks that split the global batch with one block of all of it
+    (parallel/mesh.py::batch_blocks), x holds this rank's rows and the
+    statistics are the global batch's: each layer's [2, C] sums are
+    reduced between the forward's launches, and the rows that feed dz
+    between the backward's (the JAX kernel's psum under a sharded caller,
+    :19-26, :418)."""
     check_args(x, weights, biases, gammas, betas)
+    if blocks is not None and blocks.block_b != x.shape[0] * blocks.ranks:
+        raise ValueError(f"the exact chain's statistics are one block of "
+                         f"the global batch, {x.shape[0] * blocks.ranks} "
+                         f"clouds; the reducer's blocks hold "
+                         f"{blocks.block_b}")
     nl = len(weights)
-    blocks = None if mesh is None else Blocks(
-        mesh, x.shape[0], x.shape[0] * mesh.size)
     outs = _PointMLPExact.apply(x, eps, bool(bf16), blocks, nl, *weights,
                                 *biases, *gammas, *betas)
     return outs[0], tuple(outs[1:1 + nl]), tuple(outs[1 + nl:])

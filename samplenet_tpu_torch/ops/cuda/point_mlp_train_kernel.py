@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Any
 
 import torch
 import torch.nn.functional as F
@@ -60,7 +61,6 @@ from samplenet_tpu_torch.ops.cuda.point_mlp_plan import (
     plan_dense,
 )
 from samplenet_tpu_torch.ops.dispatch import count_launch, use_kernel
-from samplenet_tpu_torch.parallel.mesh import Mesh, all_reduce_
 
 KERNEL_FWD = "point_mlp_train_fwd"
 KERNEL_BWD = "point_mlp_train_bwd"
@@ -112,51 +112,7 @@ def check_args(x, weights, biases, gammas, betas) -> list[int]:
     return widths
 
 
-class Blocks:
-    """The blocks of a global batch split over the ranks of a mesh, for
-    statistics per block: blocks of `block_b` clouds of the global batch
-    (the ghost chain's; the exact chain is one block of all of them). The
-    rank runs its kernels on sub-blocks of `sub` clouds, the largest count
-    that divides both its batch and block_b, and `group` = block_b / sub
-    consecutive sub-blocks in global (rank-major) order make one block;
-    with group 1 every block lies within a rank and its statistics need
-    no collective. The JAX package chooses block_b from the global batch
-    and GSPMD gathers a block that straddles devices, so its result is
-    the single device's; `sums` gives the same here with one all-reduce."""
-
-    def __init__(self, mesh: Mesh, local_b: int, block_b: int):
-        self.mesh = mesh
-        self.sub = math.gcd(local_b, block_b)
-        self.group = block_b // self.sub
-
-    def sums(self, t: torch.Tensor) -> torch.Tensor:
-        """t [P, ...], this rank's sums per sub-block -> each sub-block's
-        row summed over its block."""
-        if self.group == 1:
-            return t
-        p, w, r = t.shape[0], self.mesh.size, self.mesh.rank
-        if p == 1 and self.group == w:        # one block of every rank
-            return all_reduce_(t.clone(), self.mesh)
-        full = t.new_zeros((w * p, *t.shape[1:]))
-        full[r * p:(r + 1) * p] = t
-        all_reduce_(full, self.mesh)
-        full = full.reshape(w * p // self.group, self.group, *t.shape[1:])
-        return full.sum(1).repeat_interleave(self.group, 0)[r * p:(r + 1) * p]
-
-    def means(self, t: torch.Tensor) -> torch.Tensor:
-        """t [P, ...], this rank's means per sub-block -> the means over
-        each sub-block's block (sub-blocks hold equal counts)."""
-        return self.sums(t) / self.group
-
-    def global_means(self, rows: list[torch.Tensor]) -> list[torch.Tensor]:
-        """Each [P, C] of rows averaged over the sub-blocks of every rank,
-        one all-reduce for them all."""
-        flat = all_reduce_(torch.cat([r.sum(0) for r in rows]), self.mesh)
-        flat = flat / (self.mesh.size * rows[0].shape[0])
-        return list(flat.split([r.shape[1] for r in rows]))
-
-
-def _ghost_stats(z: torch.Tensor, eps: float, blocks: Blocks | None = None):
+def _ghost_stats(z: torch.Tensor, eps: float, blocks=None):
     """(mu, msq, rstd) per block of z [P, M, C], each [P, 1, C]; under
     `blocks`, per block of the global batch."""
     mu = z.mean(1, keepdim=True)
@@ -256,7 +212,7 @@ def point_mlp_train_bwd_plain(x, weights, gammas, betas, eps, block_b, bf16,
                                      bf16, xhats, argmax, g, blocks)
 
 
-def stats_from_rows(mus, msqs, blocks: Blocks | None = None):
+def stats_from_rows(mus, msqs, blocks=None):
     """Per layer the exact global (mean, var) of z from the per-block rows
     [P, C] (:336-349, before the dense bias): block rows are averages over
     equal blocks, so the global mean is their mean, and the variance is
@@ -338,7 +294,7 @@ def check_cuda(x, widths, name: str, block_b: int | None = None
 
 
 def _block_stats(rows: torch.Tensor, m: int, eps: float,
-                 blocks: Blocks | None = None):
+                 blocks=None):
     """(mu, rstd) as f32 [P, C], and the f64 (mu, msq), from the f64 sums
     rows [P, G, 2, C] over m points per block (under `blocks`, per
     sub-block, m the block's count)."""
@@ -404,7 +360,7 @@ MODE_F32, MODE_GHOST_BF16, MODE_EXACT_BF16 = 0, 1, 2
 
 
 def bwd_cuda(x, weights, gammas, betas, eps, block_b, mode, saved, g,
-             kernel: str, blocks: Blocks | None = None):
+             kernel: str, blocks=None):
     """(dx, dWs, dgammas, dbetas): the backward kernels of both chains
     (the exact chain is one block of all B clouds), from a forward's saved
     (zs, mus, rstds, argmax), with the roundings of `mode`: MODE_F32,
@@ -557,26 +513,32 @@ class _PointMLPGhost(torch.autograd.Function):
 
 def point_mlp_train_max(x, weights, biases, gammas, betas, *,
                         eps: float = 1e-5, block_b: int | None = None,
-                        bf16: bool = True, mesh: Mesh | None = None):
+                        bf16: bool = True, blocks: Any = None):
     """(pooled [B, C_out], means, vars): the train-mode chain relu(BN(x W_l))
     with ghost batch statistics over blocks of `block_b` clouds
     (`auto_block_b` when None), max-pooled over points; means (with each
     layer's dense bias) and vars are the exact global statistics for the
     EMA. Differentiable in x, the weights, gammas and betas (the biases get
     exact zeros). CPU tensors take the plain versions, CUDA tensors the
-    kernels (ops/dispatch.py). Under a `mesh`, x holds this rank's rows of
-    the global batch, block_b counts clouds of the global batch (chosen
-    from it, as the JAX package chooses it at trace time), and the
-    statistics are those of the global batch's blocks (`Blocks`)."""
+    kernels (ops/dispatch.py). Under `blocks`, a reducer over the ranks
+    that split the global batch (parallel/mesh.py::Blocks: `ranks`,
+    `block_b`, `sub`, `group`, `sums`, `means`, `global_means`), x holds
+    this rank's rows, block_b is the reducer's (chosen from the global
+    batch, as the JAX package chooses it at trace time) and the
+    statistics are those of the global batch's blocks."""
     widths = check_args(x, weights, biases, gammas, betas)
-    batch = x.shape[0] * (1 if mesh is None else mesh.size)
+    batch = x.shape[0] * (1 if blocks is None else blocks.ranks)
+    if blocks is not None:
+        if block_b not in (None, blocks.block_b):
+            raise ValueError(f"block_b={block_b}, but the reducer's blocks "
+                             f"hold {blocks.block_b} clouds")
+        block_b = blocks.block_b
     if block_b is None:
         block_b = auto_block_b(batch, x.shape[1], tuple(widths[1:]), bf16)
     if block_b is None or block_b < 1 or batch % block_b:
         raise ValueError(f"no valid batch block for B={batch}, "
                          f"N={x.shape[1]}, widths {widths[1:]}: the caller "
                          f"runs the exact chain")
-    blocks = None if mesh is None else Blocks(mesh, x.shape[0], block_b)
     nl = len(weights)
     outs = _PointMLPGhost.apply(
         x, eps, block_b if blocks is None else blocks.sub, bool(bf16),

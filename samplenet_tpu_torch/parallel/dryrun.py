@@ -1,5 +1,5 @@
 """The multi-device dry run: one real optimiser step of every track, and
-the eval forward and hard matching, on n data-parallel ranks.
+the eval forward and hard matching, on an n-rank ('data', 'model') mesh.
 
 The counterpart of __graft_entry__.py::dryrun_multichip (:34-211), at its
 sizes: a global batch of 2n clouds of 128 points, the classification
@@ -9,9 +9,12 @@ the registration sampler step against a frozen PCRNet, the
 reconstruction sampler step against a frozen AE and the progressive
 (8/16/32) step. The n ranks are gloo processes on one host
 (parallel/launch.py), sharing one card (the default) or on the CPU
-(`--device cpu`). The mesh is data-parallel only ('model' = 1; the JAX
-dry run takes 'model' = 2 for n >= 4, which the port does not have:
-ROADMAP Queue 1 item 9b).
+(`--device cpu`). As in the JAX dry run (:72-107) the mesh takes 'model'
+= 2 where n is even and n >= 4 (n // 2 x 2), else n x 1; the
+classification sampler's parameters and batch statistics are placed by
+`shard_params` (at its width nothing is wide enough to shard, as in
+JAX), the frozen networks and the other tracks' samplers replicated, and
+the global batch of 2n clouds is split over the data axis.
 
 Every result must be finite, and every rank must report the same global
 values (each a mean over the global batch, averaged over the ranks).
@@ -36,6 +39,7 @@ from samplenet_tpu_torch.parallel.mesh import (
     global_mean,
     replicated,
     shard_batch,
+    shard_params,
 )
 
 NUM_POINTS = 128
@@ -99,7 +103,7 @@ def _tracks(mesh: Mesh) -> dict[str, float]:
     step = make_samplenet_train_step(sampler, classifier, scfg,
                                      augment_data=True)
     results["classification"] = loss(step(
-        under_mesh(sampler, state), x, y,
+        shard_params(mesh, data_parallel(state, mesh)), x, y,
         torch.Generator(device=dev).manual_seed(2)))
 
     correct = make_samplenet_eval_step(sampler, classifier)(state, x, y)
@@ -136,8 +140,13 @@ def _tracks(mesh: Mesh) -> dict[str, float]:
     pstep = make_progressive_train_step(psampler, pclassifier, pcfg)
     results["progressive"] = loss(pstep(under_mesh(psampler, pstate), x, y))
     tracks = " ".join(f"{k}={v:.6f}" for k, v in results.items())
-    print(f"rank {mesh.rank}/{mesh.size}: {tracks}", flush=True)
+    print(f"rank {mesh.rank}/{mesh.size} {mesh.shape}: {tracks}", flush=True)
     return results
+
+
+def model_axis(n: int) -> int:
+    """The dry run's 'model' axis for n ranks (__graft_entry__.py:72)."""
+    return 2 if n % 2 == 0 and n >= 4 else 1
 
 
 def dryrun_multichip(n: int, device: str = "cuda",
@@ -149,7 +158,8 @@ def dryrun_multichip(n: int, device: str = "cuda",
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"dryrun_multichip(device={device!r}) needs a "
                            f"CUDA device; pass device='cpu' for the CPU")
-    per_rank = spawn(_tracks, n, device=device, timeout=timeout)
+    model = model_axis(n)
+    per_rank = spawn(_tracks, n, device=device, timeout=timeout, model=model)
     results = per_rank[0]
     bad = {k: v for k, v in results.items() if not math.isfinite(v)}
     if bad:
@@ -159,9 +169,9 @@ def dryrun_multichip(n: int, device: str = "cuda",
             raise AssertionError(f"rank {r} reports {other}, rank 0 "
                                  f"{results}")
     tracks = " ".join(f"{k}={v:.4f}" for k, v in results.items())
-    print(f"dryrun_multichip({n}): mesh={{'data': {n}, 'model': 1}} "
-          f"(the JAX dry run: model=2 at n >= 4, not ported) device={device}"
-          f" {tracks} ok", flush=True)
+    mesh = {"data": n // model, "model": model}
+    print(f"dryrun_multichip({n}): mesh={mesh} device={device} {tracks} ok",
+          flush=True)
     return results
 
 

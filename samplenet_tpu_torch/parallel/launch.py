@@ -1,9 +1,9 @@
-"""Spawning a data-parallel group of ranks in new processes.
+"""Spawning a group of ranks in new processes.
 
-`spawn(fn, world, *args)` starts `world` processes joined by a gloo
-process group (rendezvous through a file in a fresh temporary directory,
-never a fixed port), runs fn(mesh, *args) in each and returns their
-results in rank order. It is how the dry run, the card checks and the
+`spawn(fn, world, *args, model=M)` starts `world` processes joined by a
+gloo process group (rendezvous through a file in a fresh temporary
+directory, never a fixed port), runs fn(mesh, *args) in each, on the
+(world // M) x M mesh, and returns their results in rank order. It is how the dry run, the card checks and the
 tests run W ranks on one host; gloo also takes CUDA tensors (staged
 through the host), so several ranks can share one card, which NCCL
 refuses. torchrun over NCCL, one rank a card, is the production launch
@@ -31,7 +31,7 @@ from samplenet_tpu_torch.parallel.mesh import make_mesh
 
 
 def _rank_main(rank: int, fn: Callable, world: int, tmp: str, device: str,
-               args: tuple, timeout: float) -> None:
+               args: tuple, timeout: float, model: int) -> None:
     torch.set_num_threads(1)        # the ranks share the host's cores
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is not None:
@@ -41,20 +41,22 @@ def _rank_main(rank: int, fn: Callable, world: int, tmp: str, device: str,
         rank=rank, world_size=world,
         timeout=datetime.timedelta(seconds=timeout))
     try:
-        result = fn(make_mesh(device=dev), *args)
+        result = fn(make_mesh(model=model, device=dev), *args)
         torch.save(result, os.path.join(tmp, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
 
 
 def spawn(fn: Callable, world: int, *args, device: str = "cpu",
-          timeout: float = 120.0) -> list[Any]:
-    """[fn(mesh, *args) of rank r for r in range(world)]: fn must be a
-    module-level function and its result picklable by torch.save (CPU
-    tensors, numbers, containers)."""
+          timeout: float = 120.0, model: int = 1) -> list[Any]:
+    """[fn(mesh, *args) of rank r for r in range(world)] on a mesh with
+    `model` ranks on its model axis: fn must be a module-level function
+    and its result picklable by torch.save (CPU tensors, numbers,
+    containers)."""
     with tempfile.TemporaryDirectory() as tmp:
         ctx = mp.start_processes(
-            _rank_main, args=(fn, world, tmp, str(device), args, timeout),
+            _rank_main,
+            args=(fn, world, tmp, str(device), args, timeout, model),
             nprocs=world, join=False, start_method="spawn")
         deadline = time.monotonic() + timeout
         try:

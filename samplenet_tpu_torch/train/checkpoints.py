@@ -18,7 +18,12 @@ with its bottleneck_size (and the run's best epoch and validation
 rotation error); `load_pcrnet` builds it, and phase 2 of
 train_registration freezes it. `save_sharded` and `restore_sharded` are
 the multi-process checkpoint on torch.distributed.checkpoint, written by
-every rank and read in any world size.
+every rank and read in any world size and on any mesh: a tree holding
+parallel/mesh.py::sharded_state_dict(model) in place of model.state_dict()
+writes each block of a layer sharded over 'model' once (a DTensor,
+Shard(0)), and reads into such a tree on another mesh, or into a plain
+state_dict in one process, by resharding on read (orbax's contract,
+samplenet_tpu/train/checkpoints.py:53-75).
 """
 
 from __future__ import annotations
@@ -70,9 +75,10 @@ def restore_train_state(path: str, state: TrainState
 
 def save_sharded(path: str, tree: dict[str, Any]) -> None:
     """Every rank calls this: torch.distributed.checkpoint writes the tree
-    (nested dicts of tensors) from all ranks at once, each replicated
-    tensor once, with no gather to one rank (the counterpart of
-    samplenet_tpu/train/checkpoints.py:53-59 on orbax)."""
+    (nested dicts of tensors and DTensors) from all ranks at once, each
+    replicated tensor and each block of a sharded one once, with no gather
+    to one rank (the counterpart of samplenet_tpu/train/checkpoints.py:
+    53-59 on orbax)."""
     import torch.distributed.checkpoint as dcp
 
     dcp.save(tree, checkpoint_id=os.path.abspath(path))
@@ -80,10 +86,10 @@ def save_sharded(path: str, tree: dict[str, Any]) -> None:
 
 def restore_sharded(path: str, target: dict[str, Any]) -> dict[str, Any]:
     """Loads a save_sharded checkpoint into `target` (the same structure,
-    tensors of the same shapes), in place, and returns it. Every rank of
-    the reading world calls this; the world size may differ from the
-    writer's, one process without a process group included, as orbax
-    reshards on read (:62-75)."""
+    tensors or DTensors of the same global shapes), in place, and returns
+    it. Every rank of the reading world calls this; the world size and the
+    mesh may differ from the writer's, one process without a process group
+    included, as orbax reshards on read (:62-75)."""
     import torch.distributed.checkpoint as dcp
 
     dcp.load(target, checkpoint_id=os.path.abspath(path))

@@ -36,7 +36,10 @@ state under `parallel.mesh.data_parallel` takes this rank's rows of the
 global batch, draws its augmentation (and the classifier its dropout)
 for the global batch, and leaves every rank with the parameters one
 process computes on the global batch (global BatchNorm statistics,
-gradients averaged by the guarded optimiser). The loops with a `mesh`
+gradients averaged by the guarded optimiser). Under a mesh with a model
+axis the loops also shard the wide layers (parallel/mesh.py::
+shard_params); the CLIs build model = 1, as the JAX CLIs do. The loops
+with a `mesh`
 feed each rank its rows of the same global batches, report metrics
 averaged over the ranks and evaluate on shards of the test set whose
 integer correct counts are summed, so the accuracy is one process's.
@@ -68,8 +71,8 @@ from samplenet_tpu_torch.parallel.mesh import (
     batch_rows,
     data_parallel,
     global_mean,
-    replicated,
     shard_batch,
+    shard_params,
 )
 from samplenet_tpu_torch.train.state import (
     TrainState,
@@ -236,11 +239,13 @@ def evaluate_classifier(eval_step, state, test_data, batch_size: int, *,
 
 
 def _data_parallel(model, state: TrainState, mesh: Mesh | None) -> None:
-    """The loops' set-up under a mesh: the state under it, and every rank
-    holding rank 0's parameters and buffers."""
+    """The loops' set-up under a mesh: the state under it, every rank
+    holding rank 0's parameters and buffers, and under a model axis each
+    rank its blocks of the sharded ones (parallel/mesh.py::shard_params,
+    the Adam moments beside them)."""
     if mesh is not None:
         data_parallel(state, mesh)
-        replicated(mesh, model)
+        shard_params(mesh, state)
 
 
 def _epoch_means(agg: dict[str, list], mesh: Mesh | None) -> dict:

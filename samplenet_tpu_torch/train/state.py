@@ -9,9 +9,11 @@ Mirrors samplenet_tpu/train/state.py:
     count is under apply_if_finite;
   * `with_nonfinite_guard`: a step whose gradients hold a NaN or inf is
     skipped (no update, the count does not move); the 5th in a row raises.
-    Under a data-parallel mesh (parallel/mesh.py::data_parallel) it first
-    averages the gradients over the ranks, so every rank reads the same
-    gradients and makes the same decision;
+    Under a mesh (parallel/mesh.py::data_parallel) it first averages the
+    gradients over the data group, so every rank of it reads the same
+    gradients; under a model axis, where a sharded parameter's gradient
+    differs across a model group, the decision is then agreed over the
+    world (one all-reduce), so every rank makes the same one;
   * `bn_decay_schedule` / `scheduled_bn_update`: the TF-style BN decay,
     applied to running statistics that the model computed with momentum 0;
   * `TrainState`: the step, the model and its optimiser. The step counts
@@ -28,7 +30,10 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
-from samplenet_tpu_torch.parallel.mesh import average_gradients
+from samplenet_tpu_torch.parallel.mesh import (
+    average_gradients,
+    min_over_ranks,
+)
 
 Schedule = Callable[[int], float]
 
@@ -96,12 +101,14 @@ class NonFiniteGuard:
     def step(self) -> bool:
         """True where the update was applied. Reads one flag from the
         device. Under a mesh the gradients are first averaged over the
-        ranks."""
+        data group, and under a model axis the flag is the world's."""
         if self.mesh is not None:
             average_gradients(self.params, self.mesh)
         grads = [p.grad for p in self.params if p.grad is not None]
         finite = bool(torch.stack(
             [torch.isfinite(g).all() for g in grads]).all()) if grads else True
+        if self.mesh is not None and self.mesh.model > 1:
+            finite = bool(min_over_ranks(int(finite), self.mesh))
         if finite:
             self.notfinite_count = 0
             self.inner.step()

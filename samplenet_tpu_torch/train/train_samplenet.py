@@ -220,7 +220,8 @@ def main(argv=None):
 
     name = torch.cuda.get_device_name(device) if device.type == "cuda" \
         else "cpu"
-    ranks = "" if mesh is None else f", data-parallel over {mesh.size} ranks"
+    ranks = "" if mesh is None else \
+        f", data-parallel over {mesh.data_size} ranks"
     logger.log(f"training SampleNet {args.num_points}->{args.num_out_points} "
                f"against frozen classifier, device={name}{ranks}")
     state = train_samplenet_loop(

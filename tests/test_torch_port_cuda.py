@@ -1647,18 +1647,23 @@ def _chain_rank(mesh, chain, x, params, g, block_b):
         point_mlp_train_max,
     )
     from samplenet_tpu_torch.ops.dispatch import launch_counts
-    from samplenet_tpu_torch.parallel.mesh import all_reduce_, shard_batch
+    from samplenet_tpu_torch.parallel.mesh import (
+        all_reduce_,
+        batch_blocks,
+        shard_batch,
+    )
 
     dev = mesh.device
     x = shard_batch(mesh, x).to(dev).requires_grad_(True)
     params = [[t.to(dev).requires_grad_(True) for t in group]
               for group in params]
+    blocks = batch_blocks(mesh, len(x), block_b)
     if chain == "exact":
         pooled, means, vars_ = point_mlp_exact_train_max(x, *params,
-                                                         mesh=mesh)
+                                                         blocks=blocks)
     else:
         pooled, means, vars_ = point_mlp_train_max(
-            x, *params, block_b=block_b, bf16=False, mesh=mesh)
+            x, *params, block_b=block_b, bf16=False, blocks=blocks)
     (pooled * shard_batch(mesh, g).to(dev)).sum().backward()
     grads = [all_reduce_(t.grad.clone(), mesh) for group in params
              for t in group]
@@ -1717,3 +1722,66 @@ def test_chains_under_a_two_rank_mesh(dev, chain, b, block_b):
             ref = ref.cpu()
             ea, ek, ep = (_rel_err(t.cpu(), ref) for t in (a, k, c))
             assert ea <= max(2 * ek, 2 * ep, 1e-5), (i, ea, ek, ep)
+
+
+# ------------------------------------- the kernels on weights of a 1 x 2 mesh
+
+def _mlp_run(mesh=None):
+    """A seeded PointMLP 3-64-128-512 with BN on the card (its last layer
+    sharded over a model axis of 2 under `mesh`): the exact chain's train
+    forward and backward, then point_mlp_max at eval, on 8 clouds of 256
+    points; the whole outputs, gradients and state, and the launches."""
+    from samplenet_tpu_torch.nn.layers import PointMLP
+    from samplenet_tpu_torch.ops.dispatch import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from samplenet_tpu_torch.parallel.mesh import (
+        data_parallel,
+        full_gradients,
+        full_state_dict,
+        shard_params,
+        sharded_modules,
+    )
+
+    rng = np.random.default_rng(19)
+    x = _randn(rng, 8, 256, 3, dev="cuda")
+    g = _randn(rng, 8, 512, dev="cuda")
+    mlp = PointMLP(3, (64, 128, 512),
+                   generator=torch.Generator().manual_seed(4)).cuda()
+    if mesh is not None:
+        shard_params(mesh, data_parallel(mlp, mesh))
+    reset_launch_counts()
+    pooled = mlp(x, training=True, pool_max=True)
+    (pooled * g).sum().backward()
+    with torch.no_grad():
+        evaled = mlp(x, pool_max=True)
+    torch.cuda.synchronize()
+    return {"pooled": pooled.detach().cpu(), "eval": evaled.cpu(),
+            "grads": {k: v.cpu() for k, v in full_gradients(mlp).items()},
+            "state": {k: v.cpu() for k, v in full_state_dict(mlp).items()},
+            "sharded": [n for n, _ in sharded_modules(mlp)],
+            "launches": launch_counts()}
+
+
+def test_kernels_on_weights_gathered_from_a_1x2_mesh(dev):
+    """2 gloo ranks of one model group sharing the card, conv3 and bn3
+    (512 outputs) sharded: the exact chain and point_mlp_max take the
+    whole weights all-gathered from the shards and give the one-process
+    kernel run's bits: outputs, running statistics and gradients (the
+    shards' slices of the whole-weight gradient, gathered back)."""
+    from samplenet_tpu_torch.parallel.launch import spawn
+
+    ref = _mlp_run()
+    ranks = spawn(_mlp_run, 2, device="cuda", model=2, timeout=300.0)
+    for out in ranks:
+        assert out["sharded"] == ["conv3", "bn3"]
+        for k in ("point_mlp_exact_fwd", "point_mlp_exact_bwd",
+                  "point_mlp_max"):
+            assert out["launches"].get(k, 0) == 1, (k, out["launches"])
+        assert torch.equal(out["pooled"], ref["pooled"])
+        assert torch.equal(out["eval"], ref["eval"])
+        for part in ("grads", "state"):
+            assert out[part].keys() == ref[part].keys()
+            for k, v in ref[part].items():
+                assert torch.equal(out[part][k], v), (part, k)

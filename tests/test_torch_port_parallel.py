@@ -223,9 +223,11 @@ def _ghost_case(b, block_b, fn, mesh=None):
     bts = [torch.tensor(0.2 * rng.randn(f), requires_grad=True)
            for f in widths]
     g = torch.tensor(rng.randn(b, widths[-1]))
+    from samplenet_tpu_torch.parallel.mesh import batch_blocks
     xs = torch.tensor(shard_batch(mesh, x), requires_grad=True)
     pooled, means, vars_ = fn(xs, ws, bs, gms, bts, block_b=block_b,
-                              bf16=False, mesh=mesh)
+                              bf16=False,
+                              blocks=batch_blocks(mesh, len(xs), block_b))
     (pooled * shard_batch(mesh, g)).sum().backward()
     out = {"pooled": pooled.detach(), "dx": xs.grad,
            "means": torch.cat(means), "vars": torch.cat(vars_)}
@@ -247,9 +249,8 @@ def _exact_bf16(mesh=None):
     from samplenet_tpu_torch.ops.cuda.point_mlp_exact_kernel import (
         point_mlp_exact_train_max,
     )
-    return _ghost_case(16, None, lambda *a, block_b, bf16, mesh: (
-        point_mlp_exact_train_max(*a, bf16=True, **(
-            {} if mesh is None else {"mesh": mesh}))), mesh)
+    return _ghost_case(16, None, lambda *a, block_b, bf16, blocks: (
+        point_mlp_exact_train_max(*a, bf16=True, blocks=blocks)), mesh)
 
 
 def _guard(mesh):

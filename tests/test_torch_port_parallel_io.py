@@ -169,7 +169,9 @@ def test_dryrun_multichip(n, capsys):
                             "reconstruction", "progressive"}
     assert all(math.isfinite(v) for v in results.values())
     out = capsys.readouterr().out
-    assert f"dryrun_multichip({n}): mesh={{'data': {n}, 'model': 1}}" in out
+    model = 2 if n >= 4 else 1             # the JAX dry run's model axis
+    assert (f"dryrun_multichip({n}): mesh={{'data': {n // model}, "
+            f"'model': {model}}}") in out
 
 
 def test_dryrun_runs_on_the_card_unless_asked(monkeypatch):
@@ -288,7 +290,9 @@ def test_data_parallel_without_torchrun_is_a_world_of_one(tmp_path,
 # ------------------------------------------------------- the mesh, the launch
 
 def test_make_mesh_is_data_parallel_only():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9b"):
+    """In a world of one, the only mesh is 1 x 1: a model axis of 2 is an
+    invalid split (the JAX package's test_invalid_split_raises)."""
+    with pytest.raises(ValueError, match="mesh 0x2 != 1 ranks"):
         make_mesh(model=2)
     mesh = make_mesh()
     assert (mesh.size, mesh.rank, mesh.shape) == (1, 0, {"data": 1,

@@ -70,10 +70,12 @@ def _ranks(mesh, sampler_sd, classifier_sd, x, y):
     """One rank: the 2-rank sampler step and the straddling ghost chain."""
     from samplenet_tpu_torch.models import PointNetClassifier
     from samplenet_tpu_torch.ops.cuda.point_mlp_train_kernel import (
+        auto_block_b,
         point_mlp_train_max,
     )
     from samplenet_tpu_torch.parallel.mesh import (
         all_reduce_,
+        batch_blocks,
         data_parallel,
         global_mean,
         shard_batch,
@@ -103,8 +105,10 @@ def _ranks(mesh, sampler_sd, classifier_sd, x, y):
                             [torch.tensor(t, requires_grad=True) for t in a]
                             for a in _ghost_inputs())
     xs = shard_batch(mesh, x).clone().requires_grad_(True)
+    block_b = auto_block_b(len(x), x.shape[1], GHOST_WIDTHS, False)
     pooled, means, vars_ = point_mlp_train_max(
-        xs, ws, [b.detach() for b in bs], gm, bt, bf16=False, mesh=mesh)
+        xs, ws, [b.detach() for b in bs], gm, bt, bf16=False,
+        blocks=batch_blocks(mesh, len(xs), block_b))
     (pooled * shard_batch(mesh, g)).sum().backward()
     out["ghost"] = {
         "pooled": pooled.detach(), "means": [m.clone() for m in means],
