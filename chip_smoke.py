@@ -57,7 +57,23 @@ bottleneck 128, k=8, both clouds sampled, against it frozen), and:
      shapes and at ragged ones, soft_projection also at the progressive
      steps' (32 clouds of 1024 points, 1024 queries, k=7; 50 of 2048, 2048
      queries, k=16) and at 2 clouds of 16384 points (64 queries, k=16);
-     both backward kernels bit for bit from run to run;
+     both backward kernels bit for bit from run to run; then (wide) the
+     exact chain at a bottleneck of 1024 (WIDE at B=32 and B=1024,
+     WIDE_AE at B=50, N=2048) and of 130 by the same rule, its backward
+     bit for bit under the planner's chunks and under chunks of
+     WIDE_OC_CAP channels (where the max-pool's near-ties put the kernel
+     forward's choices apart from f64's, the gradients against the f64
+     backward replaying them, as the registration step's), point_mlp_max
+     (f32 within 1e-4, bf16 norm-wise within 1e-3 of the plain bf16
+     version) at 130 and 1024 and the ghost chain in bf16 at 130 against
+     the f64 plain version, each launched; train_samplenet and
+     train_reconstruction --phase ae at --bottleneck-size 1024, each in a
+     process of its own under torch.profiler (exit 0, finite losses; the
+     exact chain's kernels, pmt_bwd_dz_chunked among them, and
+     point_mlp_max launched);
+     and the digests of the exact chain at B=1024 and of the ghost chain
+     at the progressive shape (`_chain_digests`), which
+     tools/time_exact_chain.py prints for any checkout;
   7. runs one train step on the kernel path and on the plain path from
      the same state, holds both against the plain path in float64, then
      resets the launch counters, runs five augmented train steps and
@@ -255,7 +271,9 @@ bottleneck 128, k=8, both clouds sampled, against it frozen), and:
      eval steps, kernel path against plain path in A B B A order, per
      step, device time and busy share; the bf16 modes against their plain
      bf16 versions (point_mlp_max at B=1024 and B=32 beside the f32
-     kernel, the exact chain's forward and backward at B=1024).
+     kernel, the exact chain's forward and backward at B=1024); the exact
+     chain at a bottleneck of 1024 at B=32 and B=1024 with its bounds and
+     its backward split by pass (`_times_wide`).
 
 Tolerances of the train kernels against their plain versions: outputs and
 batch statistics rtol = atol = 1e-4 (point_mlp_exact) and 1e-5 with idx
@@ -398,6 +416,16 @@ PROG_KERNELS = {
 # lmbda = 0.01, against PCRNet (no BN, bottleneck 1024, FC 2048->1024->
 # 1024->512->512->256->7)
 REG_B, REG_N, REG_M, REG_K = 32, 1024, 64, 8
+# widths the JAX package trains that the first kernels refused: SampleNet
+# and the AE encoder at a bottleneck of 1024 (--bottleneck-size 1024;
+# pmt_bwd_dz in chunks of output channels), and a bottleneck of 130, not a
+# multiple of 4 (every chain padded to 132)
+WIDE = (3, 64, 64, 64, 128, 1024)
+WIDE_AE = (3, 64, 128, 128, 256, 1024)
+ODD = (3, 64, 64, 64, 128, 130)
+WIDE_OC_CAP = 48               # a narrower chunk, forced through the planner
+WIDE_CLI_KERNELS = ("pmt_dense", "pmt_bwd_dz_chunked", "pmt_bwd_dw",
+                    "point_mlp_max")
 REG_STEPS = 3                  # per phase on the main path
 REG_PATH = ("point_mlp_exact_fwd", "point_mlp_exact_bwd",
             "soft_projection_fwd", "soft_projection_bwd", "nn_direction",
@@ -1213,7 +1241,8 @@ def _pair_ms(torch, kernel_fn, plain_fn, iters):
 
 def _device_ms(torch, fn, iters: int) -> float:
     """Device time per call: the CUDA kernels' own time under
-    torch.profiler, free of the host's launch overhead."""
+    torch.profiler, free of the host's launch overhead (where the profiler
+    records none in three tries, CUDA-event time, said on a line)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1230,7 +1259,11 @@ def _device_ms(torch, fn, iters: int) -> float:
                  and not e.is_user_annotation)
         if us > 0:
             return us / iters / 1e3
-    raise RuntimeError("torch.profiler recorded no device time, 3 times")
+    # no device time from the profiler, so CUDA events around the calls
+    # (host gaps included)
+    log("profile", f"torch.profiler recorded no device time in 3 tries; "
+                   f"the next device time is CUDA-event time per call")
+    return _time_ms(torch, fn, iters)
 
 
 def _profile_top(torch, fn, iters: int, top: int = 8) -> str:
@@ -1577,6 +1610,318 @@ def phase_compare_train(torch) -> dict[str, float]:
     return errs
 
 
+def _digest(*outs) -> str:
+    """SHA-1 (first 12 hex digits) of the bytes of every tensor in outs,
+    nested tuples and lists in order."""
+    import hashlib
+
+    h = hashlib.sha1()
+
+    def add(o):
+        if isinstance(o, (tuple, list)):
+            for t in o:
+                add(t)
+        else:
+            h.update(o.detach().contiguous().cpu().numpy().tobytes())
+
+    add(outs)
+    return h.hexdigest()[:12]
+
+
+def _chain_digests(torch) -> str:
+    """`_digest` of the f32 exact chain's forward and backward kernels at
+    the classification shape (B=1024, N=1024, WIDTHS) and of the bf16
+    ghost chain's at the progressive shape (B=32, block 4), on inputs from
+    SEED + 40: outputs, statistics, the saved z and argmax, and every
+    gradient. tools/time_exact_chain.py prints the same for any checkout,
+    so that two trees can be held bit-equal on one card."""
+    from samplenet_tpu_torch.ops.cuda import point_mlp_exact_kernel as pme
+    from samplenet_tpu_torch.ops.cuda import point_mlp_train_kernel as pmt
+
+    rng = np.random.default_rng(SEED + 40)
+    x, (ws, _, gs, bes), g = _exact_inputs(torch, rng, B, N)
+    fwd = pme.point_mlp_exact_fwd_cuda(x, ws, gs, bes, 1e-5)
+    bwd = pme.point_mlp_exact_bwd_cuda(x, ws, gs, bes, fwd[3], g)
+    exact = (_digest(fwd), _digest(bwd))
+    del x, fwd, bwd
+    x, (ws, _, gs, bes), g = _exact_inputs(torch, rng, PROG_B, PROG_N)
+    fwd = pmt.point_mlp_train_fwd_cuda(x, ws, gs, bes, 1e-5, 4, True)
+    bwd = pmt.point_mlp_train_bwd_cuda(x, ws, gs, bes, 1e-5, 4, True, fwd[3],
+                                       g)
+    torch.cuda.empty_cache()
+    return (f"exact chain B={B}, N={N}, widths {WIDTHS}: forward {exact[0]}, "
+            f"backward {exact[1]}; ghost chain B={PROG_B}, N={PROG_N}, bf16, "
+            f"block 4: forward {_digest(fwd)}, backward {_digest(bwd)}")
+
+
+def _wide_exact(torch, label, b, n, widths, floor) -> str:
+    """The exact chain at `widths` held to its plain version as
+    phase_compare_train holds it: pooled and statistics within 1e-4,
+    dense-bias gradients 0, the backward bit for bit from run to run and
+    under chunks of WIDE_OC_CAP channels (where a layer is chunked), each
+    gradient's error against the plain version in float64 at most twice
+    the plain f32 version's (or `floor` of scale). Where the kernel
+    forward makes another discrete choice than the f64 forward (a ReLU
+    mask at BN's kink, or the point its max-pool picks: near-ties, since
+    its z sums in another order), the gradients are held instead as the
+    registration step's are, against the f64 backward replaying those
+    choices: the kernel's and the plain f32 backward's, each on the kernel
+    forward's own state. Returns a summary."""
+    from samplenet_tpu_torch.ops.cuda import point_mlp_exact_kernel as pme
+    from samplenet_tpu_torch.ops.cuda import point_mlp_plan as plan
+    from samplenet_tpu_torch.ops.cuda._build import max_dynamic_smem
+    from samplenet_tpu_torch.ops.cuda.point_mlp_train_kernel import pad_params
+
+    rng = np.random.default_rng(SEED + 50 + b)
+    x, groups, g = _exact_inputs(torch, rng, b, n, widths)
+    nl = len(widths) - 1
+    pk, sk, gk = _exact_call(torch, x, groups, g)
+    pp, sp, gp = _exact_call(torch, x, groups, g, plain=True)
+    torch.testing.assert_close(pk, pp, rtol=1e-4, atol=1e-4)
+    for a, c in zip(sk, sp):
+        torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-4)
+    if any(t.any() for grads in (gk, gp) for t in grads[1 + nl:1 + 2 * nl]):
+        raise AssertionError(f"{label}: a dense bias got a nonzero gradient")
+    _, _, gk2 = _exact_call(torch, x, groups, g)
+    if not all(torch.equal(a, c) for a, c in zip(gk, gk2)):
+        raise AssertionError(f"{label}: the backward is not deterministic")
+    del gk2
+    # the kernels' own state, at the widths they run (padded to 4)
+    kw = plan.kernel_widths(widths)
+    ws, _, gs, bes = pad_params(widths, *groups)
+    gw = torch.nn.functional.pad(g, (0, kw[-1] - widths[-1]))
+    flat = lambda gr: [gr[0], *gr[1], *gr[2], *gr[3]]  # noqa: E731
+    saved = pme.point_mlp_exact_fwd_cuda(x, ws, gs, bes, 1e-5)[3]
+    chunks = ""
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plans = plan.plan_bwd(kw, 1, b * n, sms, max_dynamic_smem(x.device))
+    if plans[-1].dz_oc < kw[-1]:
+        capped = plan.plan_bwd(kw, 1, b * n, sms, max_dynamic_smem(x.device),
+                               WIDE_OC_CAP)
+        ref = pme.point_mlp_exact_bwd_cuda(x, ws, gs, bes, saved, gw)
+        got = pme.point_mlp_exact_bwd_cuda(x, ws, gs, bes, saved, gw,
+                                           oc_cap=WIDE_OC_CAP)
+        if not all(torch.equal(a, c) for a, c in zip(flat(ref), flat(got))):
+            raise AssertionError(f"{label}: the chunked backward's bits "
+                                 f"move with the chunk")
+        if capped[-1].dz_oc != WIDE_OC_CAP:
+            raise AssertionError(f"{label}: the cap took no effect: "
+                                 f"{capped[-1]}")
+        chunks = (f"; pmt_bwd_dz in chunks of {plans[-1].dz_oc} channels "
+                  f"({plans[-1].dz_smem} bytes, grid {plans[-1].dz_grid}) "
+                  f"and of {WIDE_OC_CAP}: bit-equal")
+        del ref, got
+    torch.cuda.empty_cache()
+    d = lambda ts: [t.double() for t in ts]  # noqa: E731
+    ref = pme.point_mlp_exact_fwd_plain(x.double(), d(ws), d(gs), d(bes),
+                                        1e-5)[3]
+    pools = int((saved[3].long() != ref[3])[:, :widths[-1]].sum())
+    masks = sum(int(((gm * ((z - mu) * rstd) + be > 0)
+                     != (gm.double() * ((z64 - mu64) * rstd64) + be.double()
+                         > 0))[:, :c].sum())
+                for z, mu, rstd, z64, mu64, rstd64, gm, be, c in zip(
+                    *saved[:3], *ref[:3], gs, bes, widths[1:]))
+    del ref
+    graded = [i for i in range(len(gk)) if not 1 + nl <= i < 1 + 2 * nl]
+    if pools == masks == 0:
+        rule = "against the f64 plain version"
+        _, _, gr = _exact_call(torch, x, groups, g, plain=True,
+                               dtype=torch.float64)
+    else:
+        rule = (f"{pools} of {b * widths[-1]} max-pool choices and {masks} "
+                f"ReLU masks apart from f64's, so against the f64 backward "
+                f"on the kernel forward's state (the plain f32 backward on "
+                f"it too)")
+        state = (saved[0], saved[1], saved[2], saved[3].long())
+        gk = flat(pme.point_mlp_exact_bwd_cuda(x, ws, gs, bes, saved, gw))
+        gp = flat(pme.point_mlp_exact_bwd_plain(x, ws, gs, bes, state, gw))
+        gr = flat(pme.point_mlp_exact_bwd_plain(
+            x.double(), d(ws), d(gs), d(bes),
+            (d(state[0]), d(state[1]), d(state[2]), state[3]), gw.double()))
+        cut = [slice(None)] + [
+            (slice(0, widths[i]), slice(0, widths[i + 1])) for i in range(nl)
+        ] + [slice(0, widths[i + 1]) for i in range(nl)] * 2
+        graded = list(range(len(cut)))
+        gk, gp, gr = ([t[c] for t, c in zip(grads, cut)]
+                      for grads in (gk, gp, gr))
+    worst = max(_no_worse_than_plain(f"{label} grad {i}", gk[i], gp[i],
+                                     gr[i], floor) for i in graded)
+    del gr, saved
+    torch.cuda.empty_cache()
+    return (f"{label} x{tuple(x.shape)} widths {widths}: pooled max |k - p| "
+            f"{float((pk - pp).abs().max())!r}, stats within 1e-4; gradients "
+            f"{rule}: worst kernel {worst[0]!r}, plain f32 {worst[1]!r} of "
+            f"scale (floor {floor}); dense-bias gradients 0; backward "
+            f"bit-equal across two runs" + chunks)
+
+
+# a CLI's main() under torch.profiler in a process of its own (the
+# profiler's state stays out of this one): its log, then on the last line
+# the launch counts and the CUDA kernels the profiler saw, as JSON
+_PROFILED_CLI = """
+import json, sys
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from samplenet_tpu_torch.ops.dispatch import launch_counts
+from samplenet_tpu_torch.train import {module}
+with profile(activities=[ProfilerActivity.CPU,
+                         ProfilerActivity.CUDA]) as prof:
+    {module}.main(sys.argv[1:])
+    torch.cuda.synchronize()
+print(json.dumps({{"launches": launch_counts(), "kernels": sorted(
+    {{e.key for e in prof.key_averages()
+      if e.device_type == DeviceType.CUDA}})}}))
+"""
+
+
+def _wide_cli(torch, classifier, tmp: str) -> str:
+    """train_samplenet and train_reconstruction --phase ae at
+    --bottleneck-size 1024 on the card, each in its own process under
+    torch.profiler: exit 0, finite losses, the launch counts of the exact
+    chain and point_mlp_max, and the profiler's kernels."""
+    cls_path = os.path.join(tmp, "classifier.pth")
+    torch.save({k: v.cpu() for k, v in classifier.state_dict().items()},
+               cls_path)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    runs = {
+        "train_samplenet": [
+            "--device", "cuda", "--dataset", "procedural", "--epochs", "1",
+            "--steps-per-epoch", "2", "--train-size", "64", "--test-size",
+            "32", "--batch-size", "32", "--bottleneck-size", "1024",
+            "--classifier-weights", cls_path, "--log-dir",
+            os.path.join(tmp, "sn1024"), "--seed", str(SEED)],
+        "train_reconstruction": [
+            "--phase", "ae", "--device", "cuda", "--loss", "chamfer",
+            "--epochs", "1", "--steps-per-epoch", "2", "--train-size", "100",
+            "--test-size", "50", "--bottleneck-size", "1024", "--log-dir",
+            os.path.join(tmp, "ae1024"), "--seed", str(SEED)],
+    }
+    keys = {"train_samplenet": "loss=", "train_reconstruction": "train="}
+    lines = []
+    for name, argv in runs.items():
+        t0 = time.monotonic()
+        proc = subprocess.run(
+            [sys.executable, "-c", _PROFILED_CLI.format(module=name), *argv],
+            cwd=HERE, env=env, capture_output=True, text=True, timeout=600)
+        secs = time.monotonic() - t0
+        text = proc.stdout + proc.stderr
+        if proc.returncode:
+            raise RuntimeError(f"{name} --bottleneck-size 1024 exited "
+                               f"{proc.returncode}:\n{text[-4000:]}")
+        report = json.loads(proc.stdout.strip().splitlines()[-1])
+        counts, names = report["launches"], report["kernels"]
+        losses = [float(v.split()[0]) for ln in proc.stdout.splitlines()
+                  for v in ln.split(keys[name])[1:]]
+        if not losses or not all(np.isfinite(losses)):
+            raise AssertionError(f"{name} --bottleneck-size 1024 logged no "
+                                 f"finite loss:\n{text[-3000:]}")
+        missing = [k for k in ("point_mlp_exact_fwd", "point_mlp_exact_bwd",
+                               "point_mlp_max") if not counts.get(k)]
+        unseen = [k for k in WIDE_CLI_KERNELS
+                  if not any(k in n for n in names)]
+        if missing or unseen:
+            raise AssertionError(f"{name} --bottleneck-size 1024: launches "
+                                 f"{counts}; the profiler saw none of "
+                                 f"{unseen}")
+        lines.append(f"{name} --device cuda --bottleneck-size 1024: exit 0 "
+                     f"in {secs:.1f} s, {keys[name]}{losses}, launches "
+                     f"{counts}, the profiler saw {list(WIDE_CLI_KERNELS)}")
+    return "; ".join(lines)
+
+
+def phase_wide(torch, classifier) -> None:
+    """Widths the first kernels refused, held to the plain versions: the
+    exact chain at bottleneck 1024 (SampleNet's at B=32 and B=1024, the AE
+    encoder's at B=50, N=2048); every MLP kernel at a bottleneck of 130
+    (padded to 132), each launched; both CLIs at --bottleneck-size 1024;
+    and the digests of the chains at today's widths."""
+    from samplenet_tpu_torch.ops.cuda import point_mlp_max, point_mlp_max_plain
+    from samplenet_tpu_torch.ops.dispatch import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    for label, b, n, widths, floor in (
+            ("exact chain, bottleneck 1024", PROG_B, PROG_N, WIDE, 1e-5),
+            ("exact chain, bottleneck 1024", B, N, WIDE, 1e-5),
+            ("exact chain, AE encoder at 1024", RECON_B, RECON_N, WIDE_AE,
+             1e-4)):
+        log("wide", _wide_exact(torch, label, b, n, widths, floor))
+    log("wide", _wide_exact(torch, "exact chain, bottleneck 130", PROG_B,
+                            PROG_N, ODD, 1e-5))
+
+    rng = np.random.default_rng(SEED + 60)
+    reset_launch_counts()
+    x = _randn(torch, rng, PROG_B, PROG_N, 3)
+    for widths in (ODD, WIDE):
+        wbs = []
+        for cin, cout in zip(widths[:-1], widths[1:]):
+            wbs += [_randn(torch, rng, cin, cout) / cin ** 0.5,
+                    0.1 * _randn(torch, rng, cout)]
+        with torch.no_grad():
+            k, p = point_mlp_max(x, wbs), point_mlp_max_plain(x, wbs)
+            k16 = point_mlp_max(x, wbs, bf16=True)
+            p16 = point_mlp_max_plain(x, wbs, True)
+        torch.testing.assert_close(k, p, rtol=1e-4, atol=1e-4)
+        gap = _norm_err(k16, p16)
+        if not gap <= BF16_TOL:
+            raise AssertionError(f"point_mlp_max bf16 at {widths}: {gap!r} "
+                                 f"from the plain bf16 version")
+        log("wide", f"point_mlp_max x{tuple(x.shape)} widths {widths}: f32 "
+                    f"max |k - p| {float((k - p).abs().max())!r} (1e-4); "
+                    f"bf16 norm-wise {gap!r} of the plain bf16 version "
+                    f"({BF16_TOL})")
+    xg, groups, g = _exact_inputs(torch, rng, PROG_B, PROG_N, ODD)
+    orf, gr = _ghost_call(torch, xg, groups, g, 4, False, plain=True,
+                          dtype=torch.float64)
+    nl = len(ODD) - 1
+    ghost = []
+    for bf16 in (False, True):
+        ok, gk = _ghost_call(torch, xg, groups, g, 4, bf16)
+        op, gp = _ghost_call(torch, xg, groups, g, 4, bf16, plain=True)
+        bias = range(len(ok) + 1 + nl, len(ok) + 1 + 2 * nl)
+        worst = (0.0, 0.0)
+        for i, (a, c, r) in enumerate(zip(ok + gk, op + gp, orf + gr)):
+            if i in bias:
+                if a.any() or c.any():
+                    raise AssertionError("a dense bias got a nonzero "
+                                         "gradient")
+                continue
+            for err in (_rel_err, _norm_err):
+                ek, ep = err(a, r), err(c, r)
+                if not ek <= max(2 * ep, 1e-4):
+                    raise AssertionError(
+                        f"point_mlp_train (bf16 {bf16}) at {ODD}, "
+                        f"output/grad {i}: kernel {ek!r} against f64, plain "
+                        f"{ep!r}")
+                worst = max(worst, (ek, ep))
+        ghost.append(f"bf16 {bf16}: worst (kernel, plain) {worst[0]!r}, "
+                     f"{worst[1]!r}")
+    gap = (_out_gap(torch, xg, groups, g, 4, True, op),
+           _bwd_gap(torch, xg, groups, g, 4, True))
+    if not (gap[0] <= GHOST_BF16_OUT and gap[1] <= GHOST_BF16_BWD):
+        raise AssertionError(f"point_mlp_train bf16 at {ODD}: against the "
+                             f"plain bf16 version, norm-wise {gap!r}")
+    counts = launch_counts()
+    for name in ("point_mlp_max", "point_mlp_max_bf16",
+                 "point_mlp_train_fwd", "point_mlp_train_bwd"):
+        if not counts.get(name):
+            raise AssertionError(f"{name} did not launch at the odd widths: "
+                                 f"{counts}")
+    log("wide", f"point_mlp_train x{tuple(xg.shape)} widths {ODD} block 4, "
+                f"against the f64 plain version with bf16 off, of scale: "
+                + "; ".join(ghost) + f"; in bf16 against the plain bf16 "
+                f"version, norm-wise: outputs {gap[0]!r}, backward on the "
+                f"kernel forward's state {gap[1]!r} (limits "
+                f"{GHOST_BF16_OUT}, {GHOST_BF16_BWD}); launches {counts}")
+    del xg, groups, ok, gk, op, gp, orf, gr
+    with tempfile.TemporaryDirectory() as tmp:
+        log("wide", _wide_cli(torch, classifier, tmp))
+    log("wide", f"digests at today's widths: {_chain_digests(torch)}")
+
+
 def make_train_setup(torch):
     """The procedural data (B clouds of N points from SEED) and a seeded
     frozen vanilla PointNet(40)."""
@@ -1803,6 +2148,7 @@ def phase_times_train(torch, data, labels, classifier, card
     log("profile", f"point_mlp_exact_bwd at B={B}, N={N}, widths {WIDTHS}: "
                    f"{split} ({card})")
     del saved_k, saved_p
+    _times_wide(torch, card)
 
     xd = torch.from_numpy(data).to(DEVICE)
     yd = torch.from_numpy(labels).to(DEVICE)
@@ -1826,6 +2172,46 @@ def phase_times_train(torch, data, labels, classifier, card
                  f"{B / p * 1e3!r} clouds/s, {p_dev!r} ms device (busy "
                  f"{p_dev / p!r}) ({card})")
     return times, gathered
+
+
+def _times_wide(torch, card) -> None:
+    """The exact chain at bottleneck 1024 (WIDE) at B=32 and B=1024: the
+    forward and backward kernels against the plain versions, per call and
+    device time, with their FP32 bounds (`_exact_bounds`, as
+    `kernel_bounds` takes them), and the backward's device time by pass
+    (pmt_bwd_dz's share of it at this width)."""
+    from samplenet_tpu_torch.ops.cuda import point_mlp_exact_kernel as pme
+
+    for b in (PROG_B, B):
+        rng = np.random.default_rng(SEED + 70 + b)
+        x, (ws, _, gs, bes), g = _exact_inputs(torch, rng, b, N, WIDE)
+        saved_k = pme.point_mlp_exact_fwd_cuda(x, ws, gs, bes, 1e-5)[3]
+        saved_p = pme.point_mlp_exact_fwd_plain(x, ws, gs, bes, 1e-5)[3]
+        bounds = dict(zip(("fwd", "bwd"), _exact_bounds(b, N, WIDE)))
+        cases = {
+            "fwd": (lambda: pme.point_mlp_exact_fwd_cuda(x, ws, gs, bes, 1e-5),
+                    lambda: pme.point_mlp_exact_fwd_plain(x, ws, gs, bes,
+                                                          1e-5)),
+            "bwd": (lambda: pme.point_mlp_exact_bwd_cuda(x, ws, gs, bes,
+                                                         saved_k, g),
+                    lambda: pme.point_mlp_exact_bwd_plain(x, ws, gs, bes,
+                                                          saved_p, g)),
+        }
+        for name, (kernel_fn, plain_fn) in cases.items():
+            k_ms, p_ms = _pair_ms(torch, kernel_fn, plain_fn, 5)
+            k_dev, p_dev = _device_ms(torch, kernel_fn, 5), _device_ms(
+                torch, plain_fn, 3)
+            log("times", f"point_mlp_exact_{name} at bottleneck 1024, B={b}, "
+                         f"N={N}, widths {WIDE}: kernel {k_ms!r} ms per "
+                         f"call, {k_dev!r} ms device; plain {p_ms!r} ms per "
+                         f"call, {p_dev!r} ms device; bound "
+                         f"{bounds[name][0]!r} ms ({bounds[name][1]}) "
+                         f"({card})")
+        split = _pass_split(torch, cases["bwd"][0], 3, len(WIDE) - 1)
+        log("profile", f"point_mlp_exact_bwd at bottleneck 1024, B={b}, "
+                       f"N={N}: {split} ({card})")
+        del x, saved_k, saved_p, cases
+        torch.cuda.empty_cache()
 
 
 NN_LIBRARY_SHAPES = ("eval and Chamfer direction 1", "Chamfer direction 2")
@@ -2430,9 +2816,14 @@ def _out_gap(torch, x, groups, g, bb, bf16, ref_outs) -> float:
 def _bwd_gap(torch, x, groups, g, bb, bf16) -> float:
     """Worst norm-wise distance of the backward kernel's gradients from the
     plain bf16 VJP run on the kernel forward's own state (its stored xhat
-    and argmax), so that only sums taken in other orders part the two."""
+    and argmax), so that only sums taken in other orders part the two; at
+    the padded widths the kernels run where a width is not a multiple of
+    4."""
     from samplenet_tpu_torch.ops.cuda import point_mlp_train_kernel as pmt
 
+    widths = [x.shape[-1], *(w.shape[1] for w in groups[0])]
+    groups = pmt.pad_params(widths, *groups)
+    g = torch.nn.functional.pad(g, (0, groups[0][-1].shape[1] - g.shape[1]))
     weights, _, gammas, betas = groups
     _, _, _, saved = pmt.point_mlp_train_fwd_cuda(x, weights, gammas, betas,
                                                   1e-5, bb, bf16)
@@ -5340,6 +5731,7 @@ def main() -> int:
         _timed(phase_artifact, torch, model, weights, tmp)
     train_errs = _timed(phase_compare_train, torch)
     data, labels, classifier = make_train_setup(torch)
+    _timed(phase_wide, torch, classifier)
     train_counts = _timed(phase_train_step, torch, data, labels, classifier)
     _timed(phase_train_cli, torch, classifier)
     errs.update(_timed(phase_compare_recon, torch))

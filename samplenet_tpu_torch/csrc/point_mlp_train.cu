@@ -91,6 +91,18 @@
 //               layout keeping both free of bank conflicts. The dh_prev sums
 //               run over o in order, so dz and dh_prev do not depend on the
 //               tiling.
+//               Where the tile's dz [cout][68] and the constants [7][cout]
+//               do not fit (cout >= 768 at 128 inputs), a second kernel,
+//               pmt_bwd_dz_chunked, takes the output channels in chunks of
+//               kc, in increasing order: per tile and chunk it loads the
+//               chunk's constants and op(W)^T rows, forms the chunk's dz
+//               (to HBM and [kc][68] in shared memory) and goes on with each
+//               thread's dh_prev sums over the chunk's o. A sum outlives
+//               the chunks in registers where the tile's dh_prev takes one
+//               pass of the block's threads (every layer of the tracks), else
+//               in dh_prev itself, which the same thread stores and reads
+//               back: each sum runs over o = 0 .. cout-1 in order, as in one
+//               chunk, so dz and dh_prev do not depend on kc either.
 //   pmt_bwd_dw  dW = op(act(h_prev))^T dz by split-K: grid (output tiles of
 //               [cin_pad, cout]) x S runs of consecutive 64-point tiles, S
 //               fixed by the shape and the SM count. A block stages each
@@ -548,32 +560,33 @@ __device__ __forceinline__ void stage_dz_tile(float* stage, const DzArgs& a,
   }
 }
 
-// dz of one tile into dzs [cout][kStride] and HBM, four points of one channel
-// a thread (reads along the rows, one float4 store into dzs, coalesced
-// stores of dz); z and dh rows from the stage (kStaged) or from HBM
+// dz of channels o0 .. o0+nc-1 of one tile into dzs [nc][kStride] and HBM,
+// from their constants cs [7][nc], four points of one channel a thread
+// (reads along the rows, one float4 store into dzs, coalesced stores of dz);
+// z and dh rows from the stage (kStaged) or from HBM
 template <bool kStaged, int kMode>
 __device__ __forceinline__ void form_dz(const DzArgs& a, const float* zr,
                                         const float* dhr, const float* cs,
                                         const int* pcl, float* dzs,
-                                        long long p0, int np) {
+                                        long long p0, int np, int o0, int nc) {
   using R = Rounds<kMode>;
   const int cout = a.cout;
-  for (int e = threadIdx.x; e < (kTileP / 4) * cout; e += kDzThreads) {
-    const int o = e % cout, q = (e / cout) * 4;
-    const float mu = cs[o], rstd = cs[cout + o], gamma = cs[2 * cout + o];
-    const float beta = cs[3 * cout + o], r1 = cs[4 * cout + o];
-    const float r2 = cs[5 * cout + o], rstd2 = cs[6 * cout + o];
+  for (int e = threadIdx.x; e < (kTileP / 4) * nc; e += kDzThreads) {
+    const int o = e % nc, q = (e / nc) * 4, og = o0 + o;
+    const float mu = cs[o], rstd = cs[nc + o], gamma = cs[2 * nc + o];
+    const float beta = cs[3 * nc + o], r1 = cs[4 * nc + o];
+    const float r2 = cs[5 * nc + o], rstd2 = cs[6 * nc + o];
     float zv[4], dhv[4], v[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {  // every load of the quad before any use
       const int p = q + j;
       zv[j] = dhv[j] = 0.0f;
       if (p < np) {
-        const int k = p * cout + o;
+        const int k = p * cout + og;
         if (dhr == nullptr) {  // the top layer: g at the cloud's argmax
           const int b = pcl[p], lp = pcl[kTileP + p];
-          dhv[j] = __ldg(a.argmax + b * cout + o) == lp ? __ldg(a.g + b * cout + o)
-                                                        : 0.0f;
+          dhv[j] = __ldg(a.argmax + b * cout + og) == lp ? __ldg(a.g + b * cout + og)
+                                                         : 0.0f;
           zv[j] = kStaged ? zr[k] : __ldg(zr + k);
         } else {
           zv[j] = kStaged ? zr[k] : __ldg(zr + k);
@@ -590,10 +603,35 @@ __device__ __forceinline__ void form_dz(const DzArgs& a, const float* zr,
         const float y = __fmaf_rn(gamma, xh, beta);
         const float dy = y > 0.0f ? dhv[j] : 0.0f;
         v[j] = rnd(rstd2 * (gamma * dy - r1 - xh * r2), R::op);
-        a.dz[(p0 + p) * cout + o] = v[j];
+        a.dz[(p0 + p) * cout + og] = v[j];
       }
     }
     *reinterpret_cast<float4*>(dzs + o * kStride + q) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// The constants of channels c0 .. c0+nc-1 of ghost block blk into cs [7][nc]
+__device__ __forceinline__ void load_dz_consts(float* cs, const DzArgs& a,
+                                               int blk, int c0, int nc) {
+  const size_t base = static_cast<size_t>(blk) * a.cout + c0;
+  for (int c = threadIdx.x; c < nc; c += kDzThreads) {
+    cs[c] = a.bn.mu[base + c];
+    cs[nc + c] = a.bn.rstd[base + c];
+    cs[2 * nc + c] = a.bn.gamma[c0 + c];
+    cs[3 * nc + c] = a.bn.beta[c0 + c];
+    cs[4 * nc + c] = a.r1[base + c];
+    cs[5 * nc + c] = a.r2[base + c];
+    cs[6 * nc + c] = a.rstd2[base + c];
+  }
+}
+
+// Each point's cloud and index in it, for the top layer's dh at argmax
+__device__ __forceinline__ void load_clouds(int* pcl, const DzArgs& a,
+                                            long long p0, int np) {
+  for (int p = threadIdx.x; p < np; p += kDzThreads) {
+    const long long b = (p0 + p) / a.n;
+    pcl[p] = static_cast<int>(b);
+    pcl[kTileP + p] = static_cast<int>(p0 + p - b * a.n);
   }
 }
 
@@ -623,6 +661,43 @@ __host__ __device__ constexpr int dz_min_blocks() {
   return kRP == 1 ? 4 : kRP <= 4 ? 3 : 2;
 }
 
+// The points (pg * kRP ..) and channels (cg * 4 ..) of dh_prev that slot u
+// of a tile's ncg x npg slots owns: warps of 4 point groups x 8 channel
+// groups where the tile allows (dz reads 4 rows, W^T 8 float4: no bank
+// conflict), else row-major
+__device__ __forceinline__ void dz_slot(int u, int ncg, int npg, int* pg,
+                                        int* cg) {
+  if (ncg % 8 == 0 && npg % 4 == 0) {
+    const int w = u / 32, l = u % 32, wpc = ncg / 8;
+    *pg = (w / wpc) * 4 + l / 8;
+    *cg = (w % wpc) * 8 + l % 8;
+  } else {
+    *pg = u / ncg;
+    *cg = u % ncg;
+  }
+}
+
+// acc[r][j] += dz[pp + r, o] op(W)[i0 + j, o] over o = 0 .. n-1 in order,
+// from op(W)^T rows wts [n][cin_pad] and dz rows dzs [n][kStride], f32
+template <int kRP>
+__device__ __forceinline__ void dz_product(float (&acc)[kRP][4],
+                                           const float* wts, const float* dzs,
+                                           int n, int cin_pad, int i0, int pp) {
+#pragma unroll 4
+  for (int o = 0; o < n; ++o) {
+    const float4 wv = *reinterpret_cast<const float4*>(wts + o * cin_pad + i0);
+    float d[kRP];
+    load_dz<kRP>(d, dzs + o * kStride + pp);
+#pragma unroll
+    for (int r = 0; r < kRP; ++r) {
+      acc[r][0] = fmaf(d[r], wv.x, acc[r][0]);
+      acc[r][1] = fmaf(d[r], wv.y, acc[r][1]);
+      acc[r][2] = fmaf(d[r], wv.z, acc[r][2]);
+      acc[r][3] = fmaf(d[r], wv.w, acc[r][3]);
+    }
+  }
+}
+
 template <int kRP, int kMode>
 __global__ void __launch_bounds__(kDzThreads, dz_min_blocks<kRP>())
 pmt_bwd_dz_kernel(DzArgs a) {
@@ -636,9 +711,6 @@ pmt_bwd_dz_kernel(DzArgs a) {
   const bool top = a.dh == nullptr;
   const bool resident = a.kc >= cout;
   const long long total = static_cast<long long>(a.n_blocks) * a.gh.tiles;
-  // this thread's dh_prev outputs: warps of 4 point groups x 8 channel
-  // groups where the tile allows (dz reads 4 rows, W^T 8 float4: no bank
-  // conflict), else row-major
   const int ncg = cin_pad / 4, npg = kTileP / kRP, ntt = npg * ncg;
 
   if (resident) load_wt_rows(wts, a, 0, cout);
@@ -653,32 +725,18 @@ pmt_bwd_dz_kernel(DzArgs a) {
     cp_async_wait<0>();
     __syncthreads();  // rows staged; the last tile's product is done with dzs
     if (blk != cur) {  // the ghost block's constants (once in the exact chain)
-      const size_t base = static_cast<size_t>(blk) * cout;
-      for (int c = threadIdx.x; c < cout; c += kDzThreads) {
-        cs[c] = a.bn.mu[base + c];
-        cs[cout + c] = a.bn.rstd[base + c];
-        cs[2 * cout + c] = a.bn.gamma[c];
-        cs[3 * cout + c] = a.bn.beta[c];
-        cs[4 * cout + c] = a.r1[base + c];
-        cs[5 * cout + c] = a.r2[base + c];
-        cs[6 * cout + c] = a.rstd2[base + c];
-      }
+      load_dz_consts(cs, a, blk, 0, cout);
       cur = blk;
     }
-    if (top) {  // each point's cloud and index in it
-      for (int p = threadIdx.x; p < np; p += kDzThreads) {
-        const long long b = (p0 + p) / a.n;
-        pcl[p] = static_cast<int>(b);
-        pcl[kTileP + p] = static_cast<int>(p0 + p - b * a.n);
-      }
-    }
+    if (top) load_clouds(pcl, a, p0, np);
     __syncthreads();
     if (a.stage) {
       form_dz<true, kMode>(a, stage, top ? nullptr : stage + kTileP * cout, cs, pcl,
-                           dzs, p0, np);
+                           dzs, p0, np, 0, cout);
     } else {
       form_dz<false, kMode>(a, a.z + p0 * cout,
-                            top ? nullptr : a.dh + p0 * cout, cs, pcl, dzs, p0, np);
+                            top ? nullptr : a.dh + p0 * cout, cs, pcl, dzs, p0, np,
+                            0, cout);
     }
     __syncthreads();  // dzs complete; the stage is free for the next tile
     if (a.stage && k + gridDim.x < total) stage_dz_tile(stage, a, k + gridDim.x);
@@ -687,14 +745,7 @@ pmt_bwd_dz_kernel(DzArgs a) {
     for (int u0 = 0; u0 < ntt; u0 += kDzThreads) {
       const int u = u0 + threadIdx.x;
       int pg, cg;
-      if (ncg % 8 == 0 && npg % 4 == 0) {
-        const int w = u / 32, l = u % 32, wpc = ncg / 8;
-        pg = (w / wpc) * 4 + l / 8;
-        cg = (w % wpc) * 8 + l % 8;
-      } else {
-        pg = u / ncg;
-        cg = u % ncg;
-      }
+      dz_slot(u, ncg, npg, &pg, &cg);
       const int pp = pg * kRP, i0 = cg * 4;
       float acc[kRP][4];
 #pragma unroll
@@ -709,22 +760,7 @@ pmt_bwd_dz_kernel(DzArgs a) {
           load_wt_rows(wts, a, c0, c1);
           __syncthreads();
         }
-        if (u < ntt) {
-#pragma unroll 4
-          for (int o = c0; o < c1; ++o) {
-            const float4 wv = *reinterpret_cast<const float4*>(
-                wts + (o - c0) * cin_pad + i0);
-            float d[kRP];
-            load_dz<kRP>(d, dzs + o * kStride + pp);
-#pragma unroll
-            for (int r = 0; r < kRP; ++r) {
-              acc[r][0] = fmaf(d[r], wv.x, acc[r][0]);
-              acc[r][1] = fmaf(d[r], wv.y, acc[r][1]);
-              acc[r][2] = fmaf(d[r], wv.z, acc[r][2]);
-              acc[r][3] = fmaf(d[r], wv.w, acc[r][3]);
-            }
-          }
-        }
+        if (u < ntt) dz_product<kRP>(acc, wts, dzs + c0 * kStride, c1 - c0, cin_pad, i0, pp);
       }
       if (!resident) __syncthreads();  // the next pass reloads the chunks
       if (u < ntt) {
@@ -739,6 +775,74 @@ pmt_bwd_dz_kernel(DzArgs a) {
     }
   }
   cp_async_wait<0>();
+}
+
+// pmt_bwd_dz in chunks of kc output channels (the header says how); no
+// staging. The partial of dh_prev of a slot: acc in registers where each
+// thread owns at most one slot, else dh_prev in HBM between chunks.
+template <int kRP, int kMode>
+__global__ void __launch_bounds__(kDzThreads, dz_min_blocks<kRP>())
+pmt_bwd_dz_chunked_kernel(DzArgs a) {
+  extern __shared__ float4 smem4[];
+  const int cout = a.cout, cin_pad = a.cin_pad, oc = a.kc;
+  float* wts = reinterpret_cast<float*>(smem4);  // [oc][cin_pad]: op(W)^T rows
+  float* cs = wts + oc * cin_pad;                // [7][nc]: the chunk's constants
+  float* dzs = cs + 7 * oc;                      // [oc][kStride]: the chunk's dz
+  int* pcl = reinterpret_cast<int*>(dzs + oc * kStride);  // [2][64]: b, point
+  const bool top = a.dh == nullptr;
+  const long long total = static_cast<long long>(a.n_blocks) * a.gh.tiles;
+  const int ncg = cin_pad / 4, npg = kTileP / kRP, ntt = npg * ncg;
+  const bool in_regs = ntt <= kDzThreads;
+  for (long long k = blockIdx.x; k < total; k += gridDim.x) {
+    int blk, np;
+    long long p0;
+    tile_of(a.gh, k, &blk, &p0, &np);
+    __syncthreads();  // the last tile's product is done with pcl
+    if (top) load_clouds(pcl, a, p0, np);
+    float acc[kRP][4];
+#pragma unroll
+    for (int r = 0; r < kRP; ++r) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[r][j] = 0.0f;
+    }
+    for (int c0 = 0; c0 < cout; c0 += oc) {
+      const int nc = min(oc, cout - c0);
+      if (c0 > 0) __syncthreads();  // the last chunk's product is done
+      load_dz_consts(cs, a, blk, c0, nc);
+      load_wt_rows(wts, a, c0, c0 + nc);
+      __syncthreads();
+      form_dz<false, kMode>(a, a.z + p0 * cout, top ? nullptr : a.dh + p0 * cout,
+                            cs, pcl, dzs, p0, np, c0, nc);
+      __syncthreads();  // the chunk's dz is complete
+      const bool last = c0 + nc == cout;
+      for (int u = threadIdx.x; u < ntt; u += kDzThreads) {
+        int pg, cg;
+        dz_slot(u, ncg, npg, &pg, &cg);
+        const int pp = pg * kRP, i0 = cg * 4;
+        float* out = a.dh_prev + (p0 + pp) * cin_pad + i0;
+        if (!in_regs) {  // this slot's sums so far (this thread stored them)
+#pragma unroll
+          for (int r = 0; r < kRP; ++r) {
+            float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            if (c0 > 0 && pp + r < np) v = *reinterpret_cast<const float4*>(out + r * cin_pad);
+            acc[r][0] = v.x;
+            acc[r][1] = v.y;
+            acc[r][2] = v.z;
+            acc[r][3] = v.w;
+          }
+        }
+        dz_product<kRP>(acc, wts, dzs, nc, cin_pad, i0, pp);
+        if (in_regs && !last) continue;
+#pragma unroll
+        for (int r = 0; r < kRP; ++r) {
+          if (pp + r < np) {
+            *reinterpret_cast<float4*>(out + r * cin_pad) =
+                make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+          }
+        }
+      }
+    }
+  }
 }
 
 struct DwArgs {
@@ -929,6 +1033,19 @@ const void* dz_kernel(int rp) {
   }
 }
 
+// pmt_bwd_dz_chunked for kRP points a thread, or null for another kRP
+template <int kMode>
+const void* dz_chunked_kernel(int rp) {
+  switch (rp) {
+    case 1: return reinterpret_cast<const void*>(pmt_bwd_dz_chunked_kernel<1, kMode>);
+    case 2: return reinterpret_cast<const void*>(pmt_bwd_dz_chunked_kernel<2, kMode>);
+    case 4: return reinterpret_cast<const void*>(pmt_bwd_dz_chunked_kernel<4, kMode>);
+    case 8: return reinterpret_cast<const void*>(pmt_bwd_dz_chunked_kernel<8, kMode>);
+    case 16: return reinterpret_cast<const void*>(pmt_bwd_dz_chunked_kernel<16, kMode>);
+    default: return nullptr;
+  }
+}
+
 // pmt_bwd_dw for kRI input channels a thread, or null for another kRI
 template <int kMode>
 const void* dw_kernel(int ri) {
@@ -974,13 +1091,15 @@ extern "C" size_t snt_pmt_dense_smem(int cin, int cout, int stage) {
              sizeof(float);
 }
 
-// A pmt_bwd_dz block: op(W)^T rows [kc, cin_pad], 7 per-channel constants,
-// dz [cout, 68], each point's cloud and index [2, 64], and with `stage` the
-// raw z and dh rows [2, 64, cout] (the launch planner,
+// A pmt_bwd_dz block: op(W)^T rows [kc, cin_pad], 7 per-channel constants
+// and dz [oc, 68] for a chunk of oc output channels (oc = cout but in
+// pmt_bwd_dz_chunked), each point's cloud and index [2, 64], and with `stage`
+// the raw z and dh rows [2, 64, cout] (the launch planner,
 // ops/cuda/point_mlp_plan.py, counts the same).
-extern "C" size_t snt_pmt_bwd_dz_smem(int cin_pad, int cout, int kc, int stage) {
-  return sizeof(float) * (static_cast<size_t>(kc) * cin_pad + 7 * cout +
-                          static_cast<size_t>(cout) * kStride + 2 * kTileP +
+extern "C" size_t snt_pmt_bwd_dz_smem(int cin_pad, int cout, int kc, int stage,
+                                      int oc) {
+  return sizeof(float) * (static_cast<size_t>(kc) * cin_pad + 7 * oc +
+                          static_cast<size_t>(oc) * kStride + 2 * kTileP +
                           (stage ? 2 * static_cast<size_t>(kTileP) * cout : 0));
 }
 
@@ -1042,23 +1161,29 @@ extern "C" int snt_pmt_rows(const float* z, const float* const* bn, int c_out,
 // dz and dh_prev of one layer (dh null: the top layer, dh from the pooled
 // cotangent g at argmax) over 64-point tiles, `grid` blocks, with the
 // roundings of backward mode `mode` (Rounds: 0 f32, 1 ghost bf16, 2 exact
-// bf16).
+// bf16); oc < cout takes pmt_bwd_dz_chunked, in chunks of oc = kc output
+// channels, unstaged.
 extern "C" int snt_pmt_bwd_dz(const float* z, const float* const* bn,
                               const float* rstd2, const float* r1,
                               const float* r2, int cout, int mode,
                               const float* dh, const float* g,
                               const int* argmax, const float* wt, int cin_pad,
                               float* dz, float* dh_prev, int n_blocks, int bb,
-                              int n, int rp, int kc, int stage, int grid,
+                              int n, int rp, int kc, int stage, int oc, int grid,
                               cudaStream_t stream) {
+  const bool chunked = oc < cout;
   if (cout % 4 || cin_pad % 4 || cin_pad < 4 || kc % 4 || kc < 4 || grid < 1 ||
-      n_blocks < 1) {
+      n_blocks < 1 || oc % 4 || oc < 4 || oc > cout ||
+      (chunked && (kc != oc || stage))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const DzArgs a{z, make_gbn(bn), rstd2, r1, r2, dh, g, argmax, n, cout, wt,
                  cin_pad, kc, stage, dz, dh_prev, make_ghost(bb, n), n_blocks};
-  const size_t smem = snt_pmt_bwd_dz_smem(cin_pad, cout, kc, stage);
-  const void* kernel = of_mode(mode, rp, dz_kernel<0>, dz_kernel<1>, dz_kernel<2>);
+  const size_t smem = snt_pmt_bwd_dz_smem(cin_pad, cout, kc, stage, oc);
+  const void* kernel =
+      chunked ? of_mode(mode, rp, dz_chunked_kernel<0>, dz_chunked_kernel<1>,
+                        dz_chunked_kernel<2>)
+              : of_mode(mode, rp, dz_kernel<0>, dz_kernel<1>, dz_kernel<2>);
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);

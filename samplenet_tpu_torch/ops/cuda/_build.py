@@ -159,7 +159,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.snt_soft_project_bwd.restype = i
     lib.snt_pmt_dense_smem.argtypes = [i, i, i]
     lib.snt_pmt_dense_smem.restype = sz
-    lib.snt_pmt_bwd_dz_smem.argtypes = [i, i, i, i]
+    lib.snt_pmt_bwd_dz_smem.argtypes = [i, i, i, i, i]
     lib.snt_pmt_bwd_dz_smem.restype = sz
     lib.snt_pmt_bwd_dw_smem.argtypes = [i]
     lib.snt_pmt_bwd_dw_smem.restype = sz
@@ -171,7 +171,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.snt_pmt_rows.argtypes = [p, pp, i, i, p, p, p, i, i, i, p, i, p]
     lib.snt_pmt_rows.restype = i
     lib.snt_pmt_bwd_dz.argtypes = [p, pp, p, p, p, i, i, p, p, p, p, i, p, p,
-                                   i, i, i, i, i, i, i, p]
+                                   i, i, i, i, i, i, i, i, p]
     lib.snt_pmt_bwd_dz.restype = i
     lib.snt_pmt_bwd_dw.argtypes = [p, i, i, pp, i, p, i, p, i, i, i, i, i, p]
     lib.snt_pmt_bwd_dw.restype = i

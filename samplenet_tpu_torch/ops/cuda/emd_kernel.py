@@ -42,6 +42,28 @@ KERNEL = "emd"
 # -4^j for j = 8..-1, then 0 (emd_kernel.py:49; tf_approxmatch.cpp:29-33)
 LEVELS = tuple(-(4.0 ** j) for j in range(8, -2, -1)) + (0.0,)
 _MAX_GRID_Y = 65535
+# csrc/emd.cu's block: kWarps warps, kRows rows of xyz1 of kRowVals values
+# each, the reduction rows kRed = 6 row sums x kGroup rows + 1
+_WARPS, _ROWS, _ROW_VALS, _RED = 8, 64, 8, 6 * 8 + 1
+
+
+def emd_smem(m: int) -> int:
+    """Shared memory of an EMD block for m columns, as csrc/emd.cu counts
+    it (snt_emd_smem): 11 floats a column, the warps' and the block's
+    reduction rows, the block's rows, and 7 floats a 32-column chunk. The
+    whole of xyz2's state stays in one block, which caps m."""
+    return 4 * (11 * m + _WARPS * _RED + _RED + _ROW_VALS * _ROWS
+                + 7 * -(-m // 32))
+
+
+def max_columns(limit: int) -> int:
+    """The most columns m (points of xyz2) a block of `limit` bytes takes."""
+    m = (limit // 4 - _WARPS * _RED - _RED - _ROW_VALS * _ROWS) * 32 // 359
+    while emd_smem(m + 1) <= limit:
+        m += 1
+    while m > 0 and emd_smem(m) > limit:
+        m -= 1
+    return m
 
 
 def saturations(n: int, m: int) -> tuple[float, float]:
@@ -213,10 +235,14 @@ def emd_cost_cuda(xyz1: torch.Tensor, xyz2: torch.Tensor,
     m = xyz2.shape[1]
     if b > _MAX_GRID_Y:
         raise ValueError(f"B={b} exceeds the emd kernel's grid")
-    smem = library().snt_emd_smem(m)
-    if smem > max_dynamic_smem(xyz1.device):
+    smem, limit = emd_smem(m), max_dynamic_smem(xyz1.device)
+    if library().snt_emd_smem(m) != smem:
+        raise RuntimeError("emd_kernel.py and csrc/emd.cu count shared "
+                           "memory apart")
+    if smem > limit:
         raise ValueError(f"m={m} needs {smem} bytes of shared memory per "
-                         f"block, more than the card offers")
+                         f"block, more than the card offers ({limit}: at "
+                         f"most m={max_columns(limit)})")
     return in_morton_order(_launch, xyz1, xyz2, with_grads)
 
 

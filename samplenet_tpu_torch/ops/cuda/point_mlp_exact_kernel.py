@@ -47,6 +47,7 @@ from samplenet_tpu_torch.ops.cuda.point_mlp_kernel import (
     full_f32_matmul,
     round_op,
 )
+from samplenet_tpu_torch.ops.cuda.point_mlp_plan import kernel_widths
 from samplenet_tpu_torch.ops.cuda.point_mlp_train_kernel import (
     MODE_EXACT_BF16,
     MODE_F32,
@@ -54,6 +55,7 @@ from samplenet_tpu_torch.ops.cuda.point_mlp_train_kernel import (
     check_args,
     check_cuda,
     launch_grid,
+    padded_call,
     ptrs,
 )
 from samplenet_tpu_torch.ops.dispatch import count_launch, use_kernel
@@ -225,14 +227,15 @@ def point_mlp_exact_fwd_cuda(x, weights, gammas, betas, eps, bf16=False,
 
 
 def point_mlp_exact_bwd_cuda(x, weights, gammas, betas, saved, g,
-                             bf16=False, blocks=None):
+                             bf16=False, blocks=None, oc_cap=None):
     """The ghost chain's backward kernels as one block of all B clouds (of
     every rank under `blocks`), in mode MODE_F32 or, with bf16,
-    MODE_EXACT_BF16 (`point_mlp_train_kernel.bwd_cuda`)."""
+    MODE_EXACT_BF16 (`point_mlp_train_kernel.bwd_cuda`, which takes
+    `oc_cap`)."""
     name = KERNEL_BWD_BF16 if bf16 else KERNEL_BWD
     out = bwd_cuda(x, weights, gammas, betas, 0.0, x.shape[0],
                    MODE_EXACT_BF16 if bf16 else MODE_F32, saved, g, name,
-                   blocks)
+                   blocks, oc_cap)
     count_launch(name)
     return out
 
@@ -281,26 +284,31 @@ class _PointMLPExact(torch.autograd.Function):
 def point_mlp_exact_train_max(x, weights, biases, gammas, betas, *,
                               eps: float = 1e-5, bf16: bool = False,
                               blocks: Any = None):
-    """(pooled [B, C_out], means, vars): the train-mode chain
-    relu(BN(x W_l)) with exact batch statistics, max-pooled over points,
-    with bf16 matmul operands where `bf16`. weights are Dense kernels
-    [C_in, C_out]; means include each layer's dense bias. Differentiable
-    in x, the weights, gammas and betas (the biases get exact zeros). CPU
-    tensors take the plain versions, CUDA tensors the kernels
-    (ops/dispatch.py), counted as point_mlp_exact_{fwd,bwd} or, in bf16,
-    point_mlp_exact_bf16_{fwd,bwd}. Under `blocks`, a reducer over the
-    ranks that split the global batch with one block of all of it
+    """(pooled [B, C_out], means, vars): the train-mode chain relu(BN(x
+    W_l)) with exact batch statistics, max-pooled over points, with bf16
+    matmul operands where `bf16`. weights are Dense kernels [C_in, C_out];
+    means include each layer's dense bias. Differentiable in x, the
+    weights, gammas and betas (the biases get exact zeros). CPU tensors
+    take the plain versions, CUDA tensors the kernels (ops/dispatch.py) at
+    any width (`padded_call`), counted as point_mlp_exact_{fwd,bwd} or, in
+    bf16, point_mlp_exact_bf16_{fwd,bwd}. Under `blocks`, a reducer over
+    the ranks that split the global batch with one block of all of it
     (parallel/mesh.py::batch_blocks), x holds this rank's rows and the
-    statistics are the global batch's: each layer's [2, C] sums are
-    reduced between the forward's launches, and the rows that feed dz
-    between the backward's (the JAX kernel's psum under a sharded caller,
-    :19-26, :418)."""
-    check_args(x, weights, biases, gammas, betas)
+    statistics are the global batch's: each layer's [2, C] sums are reduced
+    between the forward's launches, and the rows that feed dz between the
+    backward's (the JAX kernel's psum under a sharded caller, :19-26,
+    :418)."""
+    widths = check_args(x, weights, biases, gammas, betas)
     if blocks is not None and blocks.block_b != x.shape[0] * blocks.ranks:
         raise ValueError(f"the exact chain's statistics are one block of "
                          f"the global batch, {x.shape[0] * blocks.ranks} "
                          f"clouds; the reducer's blocks hold "
                          f"{blocks.block_b}")
+    if use_kernel(x) and kernel_widths(widths) != tuple(widths):
+        return padded_call(
+            lambda *p: point_mlp_exact_train_max(x, *p, eps=eps, bf16=bf16,
+                                                 blocks=blocks),
+            widths, weights, biases, gammas, betas)
     nl = len(weights)
     outs = _PointMLPExact.apply(x, eps, bool(bf16), blocks, nl, *weights,
                                 *biases, *gammas, *betas)

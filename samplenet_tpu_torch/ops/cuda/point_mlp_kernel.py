@@ -25,6 +25,7 @@ import contextlib
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from samplenet_tpu_torch.ops.cuda._build import (
     check,
@@ -35,6 +36,7 @@ from samplenet_tpu_torch.ops.cuda._build import (
 from samplenet_tpu_torch.ops.cuda.point_mlp_plan import (
     BF16_MMA_MIN_CIN,
     MAX_LAYERS as _MAX_LAYERS,
+    kernel_widths,
     max_smem,
     plan_max,
 )
@@ -195,7 +197,8 @@ def _params(pairs, bf16: bool) -> torch.Tensor:
     """One packed buffer, W_l then b_l per layer. In bf16 W_l is rounded:
     as f32 values where the kernel takes layer l on the FP32 pipes (a first
     layer of fewer than 16 channels), else packed in pairs (`_bf16_pairs`).
-    Every offset is a multiple of 4 words because every output width is."""
+    Every offset is a multiple of 4 words because every output width is
+    (`padded_pairs`)."""
     parts = []
     for layer, (w, b) in enumerate(pairs):
         if not bf16:
@@ -214,16 +217,32 @@ def _check_cuda(x, widths) -> None:
                          f"{x.device}")
     if not x.is_contiguous():
         raise ValueError("the point_mlp_max kernel takes a contiguous x")
-    if len(widths) - 1 > _MAX_LAYERS or any(c % 4 for c in widths[1:]):
+    if len(widths) - 1 > _MAX_LAYERS:
         raise ValueError(
-            f"the point_mlp_max kernel takes at most {_MAX_LAYERS} layers "
-            f"with output widths divisible by 4, got {widths}")
+            f"the point_mlp_max kernel takes at most {_MAX_LAYERS} layers, "
+            f"got {widths}")
+
+
+def padded_pairs(pairs, widths) -> tuple[list, tuple[int, ...]]:
+    """The layers at `kernel_widths(widths)`, which the kernel runs: each
+    output width padded to a multiple of 4 with zero weight columns (and
+    the next layer's zero rows) and zero bias, so that a padded channel's
+    h is relu(0) = 0 and the real channels' values are unchanged; the
+    caller keeps the first widths[-1] channels of the max."""
+    kw = kernel_widths(widths)
+    return [(F.pad(w, (0, co - w.shape[1], 0, ci - w.shape[0])),
+             F.pad(b, (0, co - b.shape[0])))
+            for (w, b), ci, co in zip(pairs, kw[:-1], kw[1:])], kw
 
 
 @point_mlp_max_op.register_kernel("cuda")
 def _point_mlp_max_cuda(x, params, widths, bf16):
     _check_cuda(x, widths)
+    width = widths[-1]
     pairs = _unflatten(params, widths)
+    if kernel_widths(widths) != tuple(widths):
+        pairs, widths = padded_pairs(pairs, widths)
+        params = _flat_params(pairs)
     layers = len(pairs)
     lib = library()
     c_widths = (ctypes.c_int * (layers + 1))(*widths)
@@ -244,4 +263,4 @@ def _point_mlp_max_cuda(x, params, widths, bf16):
             out.data_ptr(), x.shape[0], x.shape[1], stream_handle(x))
     check(err, name)
     count_launch(name)
-    return out
+    return out if widths[-1] == width else out[:, :width].contiguous()

@@ -41,6 +41,16 @@ Per layer (cin -> cout) the backward runs two passes:
   unstaged blocks overlap each other's. Each thread owns `dz_rp` points x
   4 channels of dh_prev. The grid only spreads work: dz and dh_prev do
   not depend on it.
+  Where none of those layouts fits (the tile's dz [cout, 68] and the
+  constants [7, cout] alone pass the card's limit from cout = 768 on at
+  cin 128), the layer is chunked: `dz_oc` < cout output channels at a
+  time, each chunk's constants, dz [dz_oc, 68] and op(W)^T rows
+  [dz_oc, cin_pad] (`dz_kc` = `dz_oc`) in shared memory, formed and
+  multiplied in increasing order, each thread's dh_prev partial carried
+  from chunk to chunk (in registers where the tile's dh_prev takes one
+  pass of the block's threads, else in dh_prev itself in HBM, which the
+  same thread wrote and reads back). Every partial goes on with the next
+  o, as in one chunk, so dz and dh_prev do not depend on `dz_oc`.
 - `pmt_bwd_dw` computes dW = op(act(h_prev))^T dz by split-K over the 64-
   point tiles: a grid of (output tiles of [cin_pad, cout]: 64 input x 64
   output channels at `dw_ri` = 4, 64 x 128 at 8) x `dw_splits` runs of
@@ -48,6 +58,11 @@ Per layer (cin -> cout) the backward runs two passes:
   registers, and the runs' f64 partials by the caller in a fixed order;
   `dw_splits` depends only on the shape and the SM count, so the bits
   repeat from run to run.
+
+Output widths that are not multiples of 4 are planned at the next
+multiple of 4 (`kernel_widths`): the wrappers pad the layer with zero
+weight columns and bias, and BN's gamma = beta = 0, so that a padded
+channel's z and h are 0 and its gradients are dropped.
 
 Shared memory is counted as the kernels count it; a plan is refused
 (None) where a pass does not fit the card's per-block limit.
@@ -62,6 +77,17 @@ DZ_THREADS = 256      # kDzThreads
 DZ_RPS = (1, 2, 4, 8, 16)
 DW_THREADS = 128      # kDwThreads
 DW_TILE = 64          # kDwTile: input channels of a dW output tile
+
+
+def pad4(c: int) -> int:
+    """A width rounded up to the kernels' multiple of 4."""
+    return -(-c // 4) * 4
+
+
+def kernel_widths(widths) -> tuple[int, ...]:
+    """The widths a chain's kernels run: each output width rounded up to
+    a multiple of 4, the input's as it is."""
+    return (widths[0], *(pad4(c) for c in widths[1:]))
 
 
 def dw_to(ri: int) -> int:
@@ -97,6 +123,7 @@ class LayerPlan:
     dz_rp: int        # points per thread in its dh_prev product
     dz_kc: int        # rows of op(W)^T in shared memory at once
     dz_stage: bool    # cp.async stages the next tile's z and dh rows
+    dz_oc: int        # output channels of dz a chunk (cout: one chunk)
     dz_smem: int      # bytes per block
     dz_grid: int
     dw_ri: int
@@ -109,12 +136,15 @@ def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def dz_smem(cin_pad: int, cout: int, kc: int, stage: bool) -> int:
+def dz_smem(cin_pad: int, cout: int, kc: int, stage: bool,
+            oc: int | None = None) -> int:
     """Bytes of a pmt_bwd_dz block (csrc: snt_pmt_bwd_dz_smem): op(W)^T
-    rows [kc, cin_pad], 7 per-channel constants, dz channel-major
-    [cout, 68], each point's cloud and index [2, 64], and with `stage` the
-    raw z and dh rows [2, 64, cout]."""
-    return 4 * (kc * cin_pad + 7 * cout + cout * (TILE + 4) + 2 * TILE
+    rows [kc, cin_pad], 7 per-channel constants and dz channel-major
+    [oc, 68] for a chunk of `oc` output channels (all cout by default),
+    each point's cloud and index [2, 64], and with `stage` the raw z and
+    dh rows [2, 64, cout]."""
+    oc = cout if oc is None else oc
+    return 4 * (kc * cin_pad + 7 * oc + oc * (TILE + 4) + 2 * TILE
                 + (2 * TILE * cout if stage else 0))
 
 
@@ -126,21 +156,40 @@ def blocks_per_sm(smem: int, threads: int,
     return max(0, min(by_smem, MAX_THREADS_PER_SM // threads))
 
 
-def _dz_layout(cin_pad: int, cout: int, limit: int):
-    """(kc, stage) for pmt_bwd_dz, the first that fits of: two blocks to an
-    SM with op(W)^T whole and the rows staged; the same unstaged; two
-    blocks with K chunks of at least 32 rows, unstaged; one block with
-    chunks of at least 4 rows, staged, then unstaged. Chunks are the
-    fewest equal multiples of 4 that fit."""
+def _fit(room: int, n: int, least: int, cap: int | None = None):
+    """The fewest equal chunks, multiples of 4, of n channels at most
+    `room` (and `cap`) wide: their width, or None under `least`."""
+    most = min(n, room, n if cap is None else cap) // 4 * 4
+    if most < max(4, least):
+        return None
+    return min(most, _ceil(_ceil(n, _ceil(n, most)), 4) * 4)
+
+
+def _dz_layout(cin_pad: int, cout: int, limit: int,
+               oc_cap: int | None = None):
+    """(kc, stage, oc) for pmt_bwd_dz, the first that fits of: two blocks
+    to an SM with op(W)^T whole and the rows staged; the same unstaged;
+    two blocks with K chunks of at least 32 rows, unstaged; one block with
+    chunks of at least 4 rows, staged, then unstaged (oc = cout: dz
+    whole); then the chunked layout, two blocks to an SM with chunks of at
+    least 32 output channels, then one with at least 4 (kc = oc, at most
+    `oc_cap` where given). Chunks are the fewest equal multiples of 4
+    that fit."""
     half = (limit + SMEM_RESERVED) // 2 - SMEM_RESERVED
     for budget, stage, kc_min in ((half, True, cout), (half, False, cout),
                                   (half, False, min(cout, 32)),
                                   (limit, True, 4), (limit, False, 4)):
         room = (budget - dz_smem(cin_pad, cout, 0, stage)) // (4 * cin_pad)
-        kc_max = min(cout, room // 4 * 4)
-        if kc_max >= max(4, kc_min):
-            chunks = _ceil(cout, kc_max)
-            return min(kc_max, _ceil(_ceil(cout, chunks), 4) * 4), stage
+        kc = _fit(room, cout, kc_min)
+        if kc is not None:
+            return kc, stage, cout
+    per_channel = dz_smem(cin_pad, 1, 1, False, 1) - dz_smem(cin_pad, 0, 0,
+                                                             False, 0)
+    for budget, oc_min in ((half, 32), (limit, 4)):
+        room = (budget - dz_smem(cin_pad, 0, 0, False, 0)) // per_channel
+        oc = _fit(room, cout, min(cout, oc_min), oc_cap)
+        if oc is not None and oc < cout:
+            return oc, False, oc
     return None
 
 
@@ -155,30 +204,34 @@ def _dz_rp(cin_pad: int) -> int:
 
 
 def plan_layer(cin: int, cout: int, n_blocks: int, m: int, sms: int,
-               limit: int) -> LayerPlan | None:
+               limit: int, oc_cap: int | None = None) -> LayerPlan | None:
     """The plan of one layer for `n_blocks` ghost blocks of `m` points
     each, on a card with `sms` SMs and `limit` bytes of shared memory per
-    block; None where a pass does not fit."""
-    cin_pad = _ceil(cin, 4) * 4
-    layout = _dz_layout(cin_pad, cout, limit)
+    block; None where a pass does not fit. cout is planned at `pad4`; a
+    chunked layer takes chunks of at most `oc_cap` output channels where
+    given (the others ignore it)."""
+    cin_pad, cout = pad4(cin), pad4(cout)
+    layout = _dz_layout(cin_pad, cout, limit, oc_cap)
     ri = dw_ri(cout)
-    if layout is None or cout % 4 or dw_smem(ri) > limit:
+    if layout is None or dw_smem(ri) > limit:
         return None
-    kc, stage = layout
-    smem = dz_smem(cin_pad, cout, kc, stage)
+    kc, stage, oc = layout
+    smem = dz_smem(cin_pad, cout, kc, stage, oc)
     tiles = n_blocks * _ceil(m, TILE)
     dz_grid = max(1, min(tiles, blocks_per_sm(smem, DZ_THREADS, limit) * sms))
     out_tiles = _ceil(cin_pad, DW_TILE) * _ceil(cout, dw_to(ri))
     splits = max(1, min(tiles, _ceil(DW_BLOCKS_PER_SM[ri] * sms, out_tiles)))
-    return LayerPlan(cin, cout, cin_pad, _dz_rp(cin_pad), kc, stage, smem,
-                     dz_grid, ri, out_tiles, splits, dw_smem(ri))
+    return LayerPlan(cin, cout, cin_pad, _dz_rp(cin_pad), kc, stage, oc,
+                     smem, dz_grid, ri, out_tiles, splits, dw_smem(ri))
 
 
-def plan_bwd(widths, n_blocks: int, m: int, sms: int,
-             limit: int) -> list[LayerPlan] | None:
-    """One plan per layer of the chain `widths` (widths[0] is the input's),
-    or None where any layer does not fit."""
-    plans = [plan_layer(ci, co, n_blocks, m, sms, limit)
+def plan_bwd(widths, n_blocks: int, m: int, sms: int, limit: int,
+             oc_cap: int | None = None) -> list[LayerPlan] | None:
+    """One plan per layer of the chain `widths` (widths[0] is the input's;
+    the kernels run `kernel_widths(widths)`), or None where any layer does
+    not fit; `oc_cap` as in `plan_layer`."""
+    widths = kernel_widths(widths)
+    plans = [plan_layer(ci, co, n_blocks, m, sms, limit, oc_cap)
              for ci, co in zip(widths[:-1], widths[1:])]
     return None if None in plans else plans
 
@@ -216,10 +269,11 @@ class DensePlan:
 
 
 def plan_dense(cin: int, cout: int, limit: int) -> DensePlan | None:
-    """pmt_dense's plan for one layer, or None where the kernel does not
-    take it (cout not a multiple of 4, or more shared memory than
-    `limit`)."""
-    if cin < 1 or cout % 4 or dense_smem(cin, cout, False) > limit:
+    """pmt_dense's plan for one layer of `cin` input channels as the
+    kernel reads them and cout planned at `pad4`, or None where it needs
+    more shared memory than `limit`."""
+    cout = pad4(cout)
+    if cin < 1 or dense_smem(cin, cout, False) > limit:
         return None
     stage = cin % 4 == 0 and blocks_per_sm(
         dense_smem(cin, cout, True), FWD_THREADS, limit) >= FWD_MIN_BLOCKS
@@ -264,13 +318,13 @@ class MaxPlan:
 
 def plan_max(widths, limit: int, bf16: bool = False) -> MaxPlan | None:
     """point_mlp_max's plan for the chain `widths` (widths[0] is the
-    input's), with f32 or bf16 operands, or None where the kernel does not
-    take it (more than 8 layers, an output width not a multiple of 4, or
-    more shared memory than `limit`)."""
-    widths = tuple(widths)
+    input's), with f32 or bf16 operands, at `kernel_widths(widths)`, or
+    None where the kernel does not take it (more than 8 layers, or more
+    shared memory than `limit`)."""
+    widths = kernel_widths(widths)
     smem = max_smem(widths, bf16)
     if not 1 <= len(widths) - 1 <= MAX_LAYERS or widths[0] < 1 \
-            or any(c % 4 for c in widths[1:]) or smem > limit:
+            or smem > limit:
         return None
     return MaxPlan(widths, max_rows(widths, bf16), smem,
                    blocks_per_sm(smem, FWD_THREADS, limit))

@@ -57,6 +57,7 @@ from samplenet_tpu_torch.ops.cuda.point_mlp_kernel import (
 from samplenet_tpu_torch.ops.cuda.point_mlp_plan import (
     DensePlan,
     LayerPlan,
+    kernel_widths,
     plan_bwd,
     plan_dense,
 )
@@ -110,6 +111,33 @@ def check_args(x, weights, biases, gammas, betas) -> list[int]:
         if t.device != x.device:
             raise ValueError("x and the parameters must share a device")
     return widths
+
+
+def pad_params(widths, weights, biases, gammas, betas):
+    """The chain's parameters at `kernel_widths(widths)`: each output width
+    padded to a multiple of 4 with zero weight columns (and the next
+    layer's zero rows), zero bias and gamma = beta = 0, so that a padded
+    channel's z, statistics, h and dz are 0. Differentiable: the real
+    parameters' gradients are the padded ones' slices."""
+    kw = kernel_widths(widths)
+
+    def vec(vs):
+        return [F.pad(v, (0, c - v.shape[0])) for v, c in zip(vs, kw[1:])]
+
+    ws = [F.pad(w, (0, co - w.shape[1], 0, ci - w.shape[0]))
+          for w, ci, co in zip(weights, kw[:-1], kw[1:])]
+    return ws, vec(biases), vec(gammas), vec(betas)
+
+
+def padded_call(fn, widths, weights, biases, gammas, betas):
+    """fn(weights, biases, gammas, betas) -> (pooled, means, vars) run on
+    `pad_params` and cut back to `widths`: the real channels' values and
+    gradients are those of the unpadded chain."""
+    pooled, means, vars_ = fn(*pad_params(widths, weights, biases, gammas,
+                                          betas))
+    return (pooled[:, :widths[-1]],
+            tuple(m[:c] for m, c in zip(means, widths[1:])),
+            tuple(v[:c] for v, c in zip(vars_, widths[1:])))
 
 
 def _ghost_stats(z: torch.Tensor, eps: float, blocks=None):
@@ -258,19 +286,22 @@ def ptrs(*tensors) -> ctypes.Array:
     return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
 
 
-def check_cuda(x, widths, name: str, block_b: int | None = None
+def check_cuda(x, widths, name: str, block_b: int | None = None,
+               oc_cap: int | None = None
                ) -> tuple[list[LayerPlan], list[DensePlan]]:
     """Checks what the kernels take, for ghost blocks of `block_b` clouds
-    (all B: the exact chain); returns each layer's backward plan and
-    pmt_dense plan."""
+    (all B: the exact chain) at `widths` (each output width a multiple of
+    4: `padded_call`); returns each layer's backward plan (chunked layers
+    in chunks of at most `oc_cap` channels where given) and pmt_dense
+    plan."""
     if x.device.type != "cuda":
         raise ValueError(f"the {name} kernels take CUDA tensors, got "
                          f"{x.device}")
     if x.dtype != torch.float32:
         raise TypeError(f"the {name} kernels take float32, got {x.dtype}")
-    if any(c % 4 for c in widths[1:]):
-        raise ValueError(f"the {name} kernels take output widths divisible "
-                         f"by 4, got {widths}")
+    if kernel_widths(widths) != tuple(widths):
+        raise ValueError(f"the {name} kernels run output widths padded to "
+                         f"multiples of 4, got {widths}")
     b, n, _ = x.shape
     bb = b if block_b is None else block_b
     lib = library()
@@ -278,13 +309,13 @@ def check_cuda(x, widths, name: str, block_b: int | None = None
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     pairs = list(zip(widths[:-1], widths[1:]))
     dense = [plan_dense(ci, co, limit) for ci, co in pairs]
-    plans = plan_bwd(widths, b // bb, bb * n, sms, limit)
+    plans = plan_bwd(widths, b // bb, bb * n, sms, limit, oc_cap)
     if None in dense or plans is None:
         raise ValueError(f"widths {widths} need more shared memory per block "
                          f"than the card offers")
     for pl, dp in zip(plans, dense):  # the planner counts what they count
         if (lib.snt_pmt_bwd_dz_smem(pl.cin_pad, pl.cout, pl.dz_kc,
-                                    int(pl.dz_stage)) != pl.dz_smem
+                                    int(pl.dz_stage), pl.dz_oc) != pl.dz_smem
                 or lib.snt_pmt_bwd_dw_smem(pl.dw_ri) != pl.dw_smem
                 or lib.snt_pmt_dense_smem(dp.cin, dp.cout,
                                           int(dp.stage)) != dp.smem):
@@ -360,7 +391,7 @@ MODE_F32, MODE_GHOST_BF16, MODE_EXACT_BF16 = 0, 1, 2
 
 
 def bwd_cuda(x, weights, gammas, betas, eps, block_b, mode, saved, g,
-             kernel: str, blocks=None):
+             kernel: str, blocks=None, oc_cap: int | None = None):
     """(dx, dWs, dgammas, dbetas): the backward kernels of both chains
     (the exact chain is one block of all B clouds), from a forward's saved
     (zs, mus, rstds, argmax), with the roundings of `mode`: MODE_F32,
@@ -371,10 +402,12 @@ def bwd_cuda(x, weights, gammas, betas, eps, block_b, mode, saved, g,
     dh_prev) and pmt_bwd_dw (dW's f64 partials, summed here). Under
     `blocks` (block_b its sub-block) the rows that feed dz are summed over
     each block of the global batch between pmt_rows and pmt_bwd_dz; the
-    dgammas and dbetas returned stay this rank's sums."""
+    dgammas and dbetas returned stay this rank's sums. `oc_cap` caps the
+    chunks of a chunked pmt_bwd_dz (`point_mlp_plan.plan_layer`): the
+    outputs do not depend on it."""
     zs, mus, rstds, argmax = saved
     widths = [x.shape[-1], *(w.shape[1] for w in weights)]
-    plans, dense = check_cuda(x, widths, kernel, block_b)
+    plans, dense = check_cuda(x, widths, kernel, block_b, oc_cap)
     b, n, c0 = x.shape
     p, m = b // block_b, block_b * n
     m_stat = m * (1 if blocks is None else blocks.group)
@@ -436,7 +469,8 @@ def bwd_cuda(x, weights, gammas, betas, eps, block_b, mode, saved, g,
                 None if dh is None else dh.data_ptr(), g.data_ptr(),
                 argmax.data_ptr(), wt.data_ptr(), plan.cin_pad,
                 dz.data_ptr(), dh_prev.data_ptr(), p, block_b, n, plan.dz_rp,
-                plan.dz_kc, int(plan.dz_stage), plan.dz_grid, stream)
+                plan.dz_kc, int(plan.dz_stage), plan.dz_oc, plan.dz_grid,
+                stream)
             check(err, kernel)
             dw_part = torch.empty((plan.dw_splits, plan.cin_pad, cout),
                                   dtype=torch.float64, device=x.device)
@@ -514,18 +548,19 @@ class _PointMLPGhost(torch.autograd.Function):
 def point_mlp_train_max(x, weights, biases, gammas, betas, *,
                         eps: float = 1e-5, block_b: int | None = None,
                         bf16: bool = True, blocks: Any = None):
-    """(pooled [B, C_out], means, vars): the train-mode chain relu(BN(x W_l))
-    with ghost batch statistics over blocks of `block_b` clouds
+    """(pooled [B, C_out], means, vars): the train-mode chain relu(BN(x
+    W_l)) with ghost batch statistics over blocks of `block_b` clouds
     (`auto_block_b` when None), max-pooled over points; means (with each
     layer's dense bias) and vars are the exact global statistics for the
     EMA. Differentiable in x, the weights, gammas and betas (the biases get
     exact zeros). CPU tensors take the plain versions, CUDA tensors the
-    kernels (ops/dispatch.py). Under `blocks`, a reducer over the ranks
-    that split the global batch (parallel/mesh.py::Blocks: `ranks`,
-    `block_b`, `sub`, `group`, `sums`, `means`, `global_means`), x holds
-    this rank's rows, block_b is the reducer's (chosen from the global
-    batch, as the JAX package chooses it at trace time) and the
-    statistics are those of the global batch's blocks."""
+    kernels (ops/dispatch.py), at any width (`padded_call`). Under
+    `blocks`, a reducer over the ranks that split the global batch
+    (parallel/mesh.py::Blocks: `ranks`, `block_b`, `sub`, `group`, `sums`,
+    `means`, `global_means`), x holds this rank's rows, block_b is the
+    reducer's (chosen from the global batch, as the JAX package chooses it
+    at trace time) and the statistics are those of the global batch's
+    blocks."""
     widths = check_args(x, weights, biases, gammas, betas)
     batch = x.shape[0] * (1 if blocks is None else blocks.ranks)
     if blocks is not None:
@@ -539,6 +574,11 @@ def point_mlp_train_max(x, weights, biases, gammas, betas, *,
         raise ValueError(f"no valid batch block for B={batch}, "
                          f"N={x.shape[1]}, widths {widths[1:]}: the caller "
                          f"runs the exact chain")
+    if use_kernel(x) and kernel_widths(widths) != tuple(widths):
+        return padded_call(
+            lambda *p: point_mlp_train_max(x, *p, eps=eps, block_b=block_b,
+                                           bf16=bf16, blocks=blocks),
+            widths, weights, biases, gammas, betas)
     nl = len(weights)
     outs = _PointMLPGhost.apply(
         x, eps, block_b if blocks is None else blocks.sub, bool(bf16),

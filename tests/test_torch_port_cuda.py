@@ -64,7 +64,13 @@ one-process kernel's and plain f32 run's errors against float64 (or
 1e-5 of scale; the ranks run the same kernels, and where a ReLU kink
 puts the one-process kernel itself far from float64, as the exact chain
 at B = 64, N = 256 here, 4e-3 of scale in dx, they land with it), both
-kernels launched on each rank.
+kernels launched on each rank. Wide and odd widths: the exact chain at a
+bottleneck of 1024 (pmt_bwd_dz in chunks of output channels, the
+partial sums in registers, or carried through dh_prev from 512 inputs
+on) and at 130 (padded to 132) by the exact chain's rule, its backward
+bit for bit under other chunk widths and from run to run; the ghost
+chain and point_mlp_max (f32 and bf16) at 130 and 1024 against their
+plain versions by their rules, each launched.
 """
 
 import contextlib
@@ -395,6 +401,9 @@ def test_nn_direction_and_snap_on_nan_clouds(dev, kind):
     ((3, 64, 64, 64, 128, 64), 130),     # bottleneck 64
     ((3, 64, 128, 128, 256, 128), 1000),  # reconstruction-track widths
     ((3, 64, 64, 64, 128, 128), 1),
+    ((3, 64, 64, 64, 128, 130), 300),     # padded to 132
+    ((3, 18, 130), 77),
+    ((3, 64, 64, 64, 128, 1024), 1024),   # bottleneck 1024
 ])
 def test_point_mlp_max_close(dev, widths, n):
     from samplenet_tpu_torch.ops.cuda import point_mlp_max, point_mlp_max_plain
@@ -489,9 +498,11 @@ def test_kernels_refuse_what_they_do_not_take(dev):
         fps(pts, torch.zeros(1, 4, dtype=torch.int32, device=dev),
             torch.ones(1, dtype=torch.int32, device=dev), 4)
     x = torch.zeros(1, 8, 3, device=dev)
-    with pytest.raises(ValueError, match="divisible by 4"):
-        point_mlp_max(x, (torch.zeros(3, 6, device=dev),
-                          torch.zeros(6, device=dev)))
+    with pytest.raises(ValueError, match="at most 8 layers"):
+        point_mlp_max(x, (torch.zeros(3, 4, device=dev),
+                          torch.zeros(4, device=dev))
+                      + (torch.zeros(4, 4, device=dev),
+                         torch.zeros(4, device=dev)) * 8)
     with pytest.raises(ValueError, match="contiguous"):
         nn_direction(torch.zeros(1, 3, 8, device=dev).transpose(1, 2), x)
 
@@ -560,6 +571,13 @@ def _exact_run(x, params, g, plain=False, dtype=torch.float32):
     # widths that are no multiple of 8 (12 -> 20), N = 1 and a ragged N
     (5, 1, (3, 12, 20)),
     (3, 1000, (3, 12, 20)),
+    # 128 -> 1024: pmt_bwd_dz in chunks of 128 output channels; 512 ->
+    # 1024: chunks of 48, each slot's sums carried through dh_prev
+    (32, 1024, (3, 64, 64, 64, 128, 1024)),
+    (2, 300, (3, 64, 512, 1024)),
+    # widths that are not multiples of 4, padded to them
+    (3, 1000, (3, 64, 64, 64, 128, 130)),
+    (5, 1, (3, 18, 130)),
 ])
 def test_point_mlp_exact_matches_plain(dev, b, n, widths):
     rng = np.random.default_rng(b * 1000 + n)
@@ -587,6 +605,7 @@ def test_point_mlp_exact_matches_plain(dev, b, n, widths):
 @pytest.mark.parametrize("b,widths", [
     (64, (3, 64, 128, 128)),
     (1024, (3, 64, 64, 64, 128, 128)),     # the train step's shape
+    (32, (3, 64, 64, 64, 128, 1024)),      # chunked pmt_bwd_dz
 ])
 def test_point_mlp_exact_backward_is_deterministic(dev, b, widths):
     rng = np.random.default_rng(7)
@@ -595,6 +614,68 @@ def test_point_mlp_exact_backward_is_deterministic(dev, b, widths):
     _, _, first = _exact_run(x, params, g)
     _, _, second = _exact_run(x, params, g)
     assert all(torch.equal(a, c) for a, c in zip(first, second))
+
+
+@pytest.mark.parametrize("b,n,widths,caps", [
+    (32, 1024, (3, 64, 64, 64, 128, 1024), (64, 36)),   # sums in registers
+    (2, 300, (3, 64, 512, 1024), (16, 8)),              # through dh_prev
+    (50, 2048, (3, 64, 128, 128, 256, 1024), (40,)),    # the AE encoder
+])
+def test_chunked_dz_does_not_depend_on_the_chunk(dev, b, n, widths, caps):
+    """pmt_bwd_dz_chunked under its plan's chunks and under narrower ones
+    (`oc_cap`, through the planner): dx, every dW, dgamma and dbeta bit
+    for bit, in f32 and in the exact chain's bf16 mode."""
+    from samplenet_tpu_torch.ops.cuda import point_mlp_exact_kernel as pme
+    from samplenet_tpu_torch.ops.cuda import point_mlp_plan as plan
+    from samplenet_tpu_torch.ops.cuda._build import max_dynamic_smem
+
+    rng = np.random.default_rng(b + n)
+    x, (ws, _, gs, bes), g = _ghost_args(rng, b, n, widths, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    limit = max_dynamic_smem(dev)
+    base = plan.plan_bwd(widths, 1, b * n, sms, limit)[-1].dz_oc
+    assert base < widths[-1]
+    for bf16 in (False, True):
+        saved = pme.point_mlp_exact_fwd_cuda(x, ws, gs, bes, 1e-5, bf16)[3]
+        flat = lambda gr: [gr[0], *gr[1], *gr[2], *gr[3]]  # noqa: E731
+        ref = flat(pme.point_mlp_exact_bwd_cuda(x, ws, gs, bes, saved, g,
+                                                bf16))
+        for cap in caps:
+            assert plan.plan_bwd(widths, 1, b * n, sms, limit,
+                                 cap)[-1].dz_oc == cap < base
+            got = flat(pme.point_mlp_exact_bwd_cuda(x, ws, gs, bes, saved,
+                                                    g, bf16, oc_cap=cap))
+            assert all(torch.equal(a, c) for a, c in zip(got, ref)), cap
+
+
+@pytest.mark.parametrize("b,n,widths,oc", [
+    (50, 2048, (3, 64, 128, 128, 256, 256), 64),   # K chunks of W^T
+    (8, 1024, (3, 64, 256), 48),                   # op(W)^T resident
+    (4, 512, (3, 64, 512, 512), 64),               # sums through dh_prev
+])
+def test_chunked_dz_equals_the_layouts_that_hold_dz_whole(dev, b, n, widths,
+                                                          oc, monkeypatch):
+    """Where a layer fits whole, the chunked layout forced on it (chunks
+    of `oc` output channels) gives the whole layouts' bits: every
+    gradient, in f32 and in the exact chain's bf16 mode."""
+    from samplenet_tpu_torch.ops.cuda import point_mlp_exact_kernel as pme
+    from samplenet_tpu_torch.ops.cuda import point_mlp_plan as plan
+
+    rng = np.random.default_rng(b + n + oc)
+    x, (ws, _, gs, bes), g = _ghost_args(rng, b, n, widths, dev)
+    flat = lambda gr: [gr[0], *gr[1], *gr[2], *gr[3]]  # noqa: E731
+    whole = plan._dz_layout
+    for bf16 in (False, True):
+        saved = pme.point_mlp_exact_fwd_cuda(x, ws, gs, bes, 1e-5, bf16)[3]
+        ref = flat(pme.point_mlp_exact_bwd_cuda(x, ws, gs, bes, saved, g,
+                                                bf16))
+        monkeypatch.setattr(plan, "_dz_layout", lambda cin_pad, cout, limit,
+                            cap=None: (oc, False, oc) if cout > oc
+                            else whole(cin_pad, cout, limit, cap))
+        got = flat(pme.point_mlp_exact_bwd_cuda(x, ws, gs, bes, saved, g,
+                                                bf16))
+        monkeypatch.setattr(plan, "_dz_layout", whole)
+        assert all(torch.equal(a, c) for a, c in zip(ref, got)), bf16
 
 
 def _soft_run(pts, qs, sigma, k, g, plain=False):
@@ -848,10 +929,10 @@ def test_train_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="k <= 16"):
         soft_project(pts, pts[:, :4].contiguous(),
                      torch.tensor(1.0, device=dev), 17)
-    w = torch.zeros(3, 6, device=dev)
-    v = torch.zeros(6, device=dev)
-    with pytest.raises(ValueError, match="divisible by 4"):
-        point_mlp_exact_train_max(pts, [w], [v], [v], [v])
+    w = torch.zeros(3, 6, device=dev, dtype=torch.float64)
+    v = torch.zeros(6, device=dev, dtype=torch.float64)
+    with pytest.raises(TypeError, match="float32"):
+        point_mlp_exact_train_max(pts.double(), [w], [v], [v], [v])
 
 
 def test_train_step_kernel_path_matches_plain_path(dev):
@@ -1250,6 +1331,11 @@ def _bwd_gap(x, params, g, bb) -> float:
     xhat and argmax)."""
     from samplenet_tpu_torch.ops.cuda import point_mlp_train_kernel as pmt
 
+    widths = [x.shape[-1], *(w.shape[1] for w in params[0])]
+    if any(c % 4 for c in widths[1:]):     # the kernels run padded widths
+        params = pmt.pad_params(widths, *params)
+        g = torch.nn.functional.pad(g, (0, params[0][-1].shape[1]
+                                        - g.shape[1]))
     weights, _, gammas, betas = params
     saved = pmt.point_mlp_train_fwd_cuda(x, weights, gammas, betas, 1e-5,
                                          bb, True)[3]
@@ -1328,6 +1414,19 @@ def test_point_mlp_train_at_widths_off_the_k_step(dev, b, n, bb, bf16):
     _ghost_check(x, params, g, bb, bf16)
 
 
+@pytest.mark.parametrize("widths,b,n,bb,bf16", [
+    ((3, 64, 64, 64, 128, 130), 8, 256, 4, True),     # padded to 132
+    ((3, 64, 64, 64, 128, 130), 8, 256, 4, False),
+    ((3, 18, 130), 4, 1000, 2, True),
+    ((3, 64, 64, 64, 128, 1024), 8, 256, 2, False),   # chunked pmt_bwd_dz
+])
+def test_point_mlp_train_at_odd_and_wide_widths(dev, widths, b, n, bb,
+                                                bf16):
+    rng = np.random.default_rng(b * 1000 + n + widths[-1] + bf16)
+    x, params, g = _ghost_args(rng, b, n, widths, dev)
+    _ghost_check(x, params, g, bb, bf16)
+
+
 def test_point_mlp_train_at_the_reconstruction_widths(dev):
     """The AE's 256-wide layers in bf16 at B=50, N=2048, where
     auto_block_b gives bb = 1 (pmt_bwd_dz with op(W)^T in K chunks)."""
@@ -1345,8 +1444,8 @@ def test_point_mlp_train_refuses_what_it_does_not_take(dev):
 
     pts = torch.zeros(2, 128, 3, device=dev)
     w, v = torch.zeros(3, 6, device=dev), torch.zeros(6, device=dev)
-    with pytest.raises(ValueError, match="divisible by 4"):
-        point_mlp_train_max(pts, [w], [v], [v], [v], block_b=1)
+    with pytest.raises(ValueError, match="no valid batch block"):
+        point_mlp_train_max(pts, [w], [v], [v], [v], block_b=3)
 
 
 def test_progressive_ae_step_passes_a_gradient_through_the_frozen_ae(dev):
@@ -1521,6 +1620,8 @@ def _max_bf16_case(rng, b, n, widths, dev):
     (3, 77, (3, 12, 20)),                     # widths off the K step of 16
     (4, 300, (16, 24, 8)),                    # a first layer on mma.sync
     (3, 2048, (3, 64, 128, 128, 256, 128)),   # 256-wide layers
+    (3, 300, (3, 64, 64, 64, 128, 130)),      # padded to 132
+    (3, 300, (3, 64, 64, 64, 128, 1024)),     # bottleneck 1024
 ])
 def test_point_mlp_max_bf16_matches_plain_bf16(dev, b, n, widths):
     """bf16 operands on mma.sync m16n8k16 (FP32 FMAs for a first layer of

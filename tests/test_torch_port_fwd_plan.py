@@ -10,8 +10,10 @@ are not multiples of the K step), on an H100 (232,448 bytes of shared
 memory per block): both kernels fit and leave room for at least two blocks
 per SM. Every width the earlier kernels took (their shared memory: two
 [c_max, 68] float buffers for point_mlp_max, [cin + cout, 68] floats and
-2 cout doubles for pmt_dense) is still taken, and what they refused is
-still refused.
+2 cout doubles for pmt_dense) is still taken, and what they refused for
+its size is still refused. An output width that is not a multiple of 4
+(a bottleneck of 130) plans at the next multiple of 4, which the wrappers
+pad it to; a bottleneck of 1024 plans too.
 
 The tile splits each f32 operand v into hi = tf32(v) and lo = tf32(v - hi)
 as cvt.rna rounds (to nearest, ties away from zero, to 10 mantissa bits)
@@ -35,6 +37,8 @@ WIDTH_SETS = {
     "bottleneck 64": (3, 64, 64, 64, 128, 64),
     "reconstruction AE encoder and sampler": (3, 64, 128, 128, 256, 128),
     "3-12-20": (3, 12, 20),
+    "bottleneck 130": (3, 64, 64, 64, 128, 130),
+    "bottleneck 1024": (3, 64, 64, 64, 128, 1024),
 }
 PAIRS = sorted({p for w in WIDTH_SETS.values() for p in zip(w[:-1], w[1:])})
 
@@ -55,7 +59,9 @@ def _old_dense_smem(cin: int, cout: int) -> int:
 def test_max_plan_fits(name):
     widths = WIDTH_SETS[name]
     p = plan.plan_max(widths, H100_SMEM)
-    assert p is not None and p.smem == plan.max_smem(widths) <= H100_SMEM
+    kernel = plan.kernel_widths(widths)
+    assert p is not None and p.widths == kernel
+    assert p.smem == plan.max_smem(kernel) <= H100_SMEM
     assert p.blocks_per_sm >= 2
     # each buffer holds every layer input it takes, to the K step
     for layer, c in enumerate(widths[:-1]):
@@ -66,8 +72,8 @@ def test_max_plan_fits(name):
 @pytest.mark.parametrize("cin,cout", PAIRS)
 def test_dense_plan_fits(cin, cout):
     p = plan.plan_dense(cin, cout, H100_SMEM)
-    assert p is not None
-    assert p.smem == plan.dense_smem(cin, cout, p.stage)
+    assert p is not None and p.cout == plan.pad4(cout) and p.cin == cin
+    assert p.smem == plan.dense_smem(cin, p.cout, p.stage)
     assert p.smem <= H100_SMEM and p.blocks_per_sm >= 2
     # cp.async stages 16-byte pieces of rows of cin floats
     assert p.stage == (cin % 4 == 0 and plan.blocks_per_sm(
@@ -93,7 +99,9 @@ def test_point_mlp_max_takes_every_width_it_took(c_max):
 
 
 def test_point_mlp_max_refuses_what_it_refused():
-    assert plan.plan_max((3, 64, 6), H100_SMEM) is None          # 6 % 4
+    # 6 % 4: planned at 8, the width the wrapper pads it to
+    assert plan.plan_max((3, 64, 6), H100_SMEM) == plan.plan_max(
+        (3, 64, 8), H100_SMEM)
     assert plan.plan_max((3,) + (64,) * 9, H100_SMEM) is None     # 9 layers
     assert plan.plan_max((3, 64, 2048), H100_SMEM) is not None
     assert plan.plan_max((3, 1024, 1024, 8), H100_SMEM) is None   # smem
@@ -106,7 +114,9 @@ def test_pmt_dense_takes_every_width_it_took(cin):
         if _old_dense_smem(cin, cout) <= H100_SMEM:
             assert plan.plan_dense(cin, cout, H100_SMEM) is not None, \
                 (cin, cout)
-    assert plan.plan_dense(cin, 6, H100_SMEM) is None       # 6 % 4
+    # 6 % 4: planned at 8, the width the wrapper pads it to
+    assert plan.plan_dense(cin, 6, H100_SMEM) == plan.plan_dense(
+        cin, 8, H100_SMEM)
 
 
 def _tf32(t: torch.Tensor) -> torch.Tensor:

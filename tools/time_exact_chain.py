@@ -23,7 +23,9 @@ events around each call, host time included:
 - for each train-chain shape, a digest (SHA-1) of the forward kernels'
   outputs (pooled, statistics, z, argmax) and of the backward kernels'
   gradients, and one of `point_mlp_max`'s output: equal digests from two
-  checkouts mean bit-equal results;
+  checkouts mean bit-equal results; last, the digests chip_smoke.py's
+  `wide` phase prints (`_chain_digests`, from this script's own
+  chip_smoke.py), for the checkout's kernels;
 - where the checkout has them, the bf16 modes: `point_mlp_max(...,
   bf16=True)` at the serving shape, and the exact chain's forward and
   backward kernels with bf16 at each train-chain shape.
@@ -34,7 +36,6 @@ B, A.
 
 from __future__ import annotations
 
-import hashlib
 import importlib.util
 import inspect
 import os
@@ -47,28 +48,13 @@ FWD_KERNELS = ("point_mlp_max", "pmt_dense")
 TOOL_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def digest(*outs) -> str:
-    """SHA-1 (first 12 hex digits) of the bytes of every tensor in outs,
-    nested tuples and lists in order."""
-    h = hashlib.sha1()
-
-    def add(o):
-        if isinstance(o, (tuple, list)):
-            for t in o:
-                add(t)
-        else:
-            h.update(o.detach().contiguous().cpu().numpy().tobytes())
-
-    add(outs)
-    return h.hexdigest()[:12]
-
-
 def main() -> int:
     root, tag = os.path.abspath(sys.argv[1]), sys.argv[2]
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(TOOL_ROOT, "chip_smoke.py"))
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
+    digest = cs._digest
     os.chdir(root)
     sys.path.insert(0, root)
     import numpy as np
@@ -208,6 +194,10 @@ def main() -> int:
                                        fwd[3], g)
     print(f"[{tag}] bits of the ghost chain: forward {digest(fwd)}, "
           f"backward {digest(bwd)}", flush=True)
+    del saved, fwd, bwd
+    torch.cuda.empty_cache()
+    print(f"[{tag}] chip_smoke.py's digests: {cs._chain_digests(torch)}",
+          flush=True)
     return 0
 
 
