@@ -273,7 +273,21 @@ bottleneck 128, k=8, both clouds sampled, against it frozen), and:
      bf16 versions (point_mlp_max at B=1024 and B=32 beside the f32
      kernel, the exact chain's forward and backward at B=1024); the exact
      chain at a bottleneck of 1024 at B=32 and B=1024 with its bounds and
-     its backward split by pass (`_times_wide`).
+     its backward split by pass (`_times_wide`);
+ 27. (caps, run after the wide phase) the inputs the first kernels
+     refused, which the JAX package takes: the soft projection at k > 16
+     on its wide kernels (forward and backward through autograd at the
+     classification step's shape at k=32 and at B=4, k=256: idx bit-equal
+     to the plain path, out within 1e-5, gradients within rtol 1e-4 /
+     atol 1e-5) and FPS beyond one block on its cluster variant (50 clouds
+     of 32768 points, 2 of 100,003 with a NaN point at k=1024, one of
+     2^20 streamed, k = N = 8192: idx and xyz bit-equal), each launched
+     under its own name; then `train_samplenet --group-size 32` (2 steps)
+     and `train_reconstruction --phase samplenet --num-points 32768
+     --fps-baseline --group-size 32` (2 steps against a seeded AE), each
+     in its own process, both at once: exit 0, finite losses and NRE, the
+     wide kernels and fps_cluster launched; and the three new kernels
+     timed against their plain versions with their bounds.
 
 Tolerances of the train kernels against their plain versions: outputs and
 batch statistics rtol = atol = 1e-4 (point_mlp_exact) and 1e-5 with idx
@@ -430,6 +444,35 @@ REG_STEPS = 3                  # per phase on the main path
 REG_PATH = ("point_mlp_exact_fwd", "point_mlp_exact_bwd",
             "soft_projection_fwd", "soft_projection_bwd", "nn_direction",
             "point_mlp_max", "fps")
+# inputs the JAX package takes that the first kernels refused: the
+# soft projection at k > 16 on its wide kernels (B, N, M, k), FPS beyond
+# one block on its cluster variant (B, N, k, counts); the first shape of
+# each is the one timed and bounded
+CAPS_CLI_POINTS = 32768        # train_reconstruction's clouds in `caps`
+CAPS_CLI_B = 4                 # and its batch
+CAPS_SOFT = {
+    "the classification step's shape at k=32": (B, N, M, 32),
+    "B=4, k=256": (4, N, 64, 256),
+    "the reconstruction CLI's sampler at 32768 points": (
+        CAPS_CLI_B, CAPS_CLI_POINTS, RECON_M, 32),
+}
+CAPS_FPS = {
+    "the reconstruction FPS baseline at 32768 points": (RECON_B, 32768,
+                                                        RECON_M, "one"),
+    "100,003 points, k=1024, a NaN point": (2, 100003, 1024, "random"),
+    "2^20 points, streamed": (1, 2**20, 256, "one"),
+    "k = N = 8192": (2, 8192, 8192, "random"),
+}
+CAPS_KERNELS = {
+    "soft_projection_fwd_wide": (
+        "samplenet_tpu_torch/csrc/soft_projection.cu",
+        "samplenet_tpu/ops/pallas/soft_projection_kernel.py:161"),
+    "soft_projection_bwd_wide": (
+        "samplenet_tpu_torch/csrc/soft_projection.cu",
+        "samplenet_tpu/ops/pallas/soft_projection_kernel.py:161"),
+    "fps_cluster": ("samplenet_tpu_torch/csrc/fps.cu",
+                    "samplenet_tpu/ops/pallas/fps_kernel.py:230"),
+}
 # the soft projection's (B, N, M, k) on each path that runs it
 FPS_TIMES = {   # (B, N, k, count = k): FPS timed beside the main shape's
     "eval shape": (B, N, M, True),
@@ -1239,60 +1282,92 @@ def _pair_ms(torch, kernel_fn, plain_fn, iters):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def _device_ms(torch, fn, iters: int) -> float:
-    """Device time per call: the CUDA kernels' own time under
-    torch.profiler, free of the host's launch overhead (where the profiler
-    records none in three tries, CUDA-event time, said on a line)."""
+def _profiled(torch, fn, iters: int) -> tuple[list, str | None]:
+    """`iters` calls of fn (after one untimed) under torch.profiler, in up
+    to three tries: the device rows (us, count, name) of the first whole
+    record, and None; else the last try's rows and why it was not whole.
+    After other processes on the card have profiled, the profiler drops
+    the first few kernel events of a record (up to 5 of 10 calls in
+    tools/diagnostics/profiler_drops.py), so each record runs the calls
+    twice and counts only the second round, inside a user range. A record
+    is whole where every row's count is a multiple of iters and the device
+    events are no fewer than the kernel launches the wrappers counted in
+    the round."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from samplenet_tpu_torch.ops.dispatch import launch_counts
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):      # the profiler now and then records no kernels
+    for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
+            for _ in range(iters):      # takes the events dropped first
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA
-                 and not e.is_user_annotation)
-        if us > 0:
-            return us / iters / 1e3
-    # no device time from the profiler, so CUDA events around the calls
-    # (host gaps included)
-    log("profile", f"torch.profiler recorded no device time in 3 tries; "
-                   f"the next device time is CUDA-event time per call")
+            before = sum(launch_counts().values())
+            with record_function("_profiled"):
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+            launched = sum(launch_counts().values()) - before
+        events = prof.events()
+        mark = min(e.time_range.start for e in events
+                   if e.name == "_profiled" and e.device_type == DeviceType.CPU)
+        by_name: dict[str, list] = {}
+        for e in events:
+            if (e.device_type == DeviceType.CUDA and not e.is_user_annotation
+                    and e.time_range.start >= mark):
+                row = by_name.setdefault(e.name, [0.0, 0])
+                row[0] += e.time_range.elapsed_us()
+                row[1] += 1
+        rows = [(us, c, name) for name, (us, c) in by_name.items()]
+        count = sum(c for _, c, _ in rows)
+        short = [f"{name[:40]} x{c}" for _, c, name in rows if c % iters]
+        if sum(us for us, _, _ in rows) <= 0:
+            why = "no device time"
+        elif count < launched or short:
+            why = (f"{count} device events for {launched} counted launches "
+                   f"over {iters} calls; counts not a multiple of {iters}: "
+                   f"{short}")
+        else:
+            return rows, None
+        log("profile", f"torch.profiler's record is not whole ({why})")
+    return rows, why
+
+
+def _device_ms(torch, fn, iters: int) -> float:
+    """Device time per call: the CUDA kernels' own time under
+    torch.profiler, free of the host's launch overhead, from a whole record
+    (`_profiled`); where three tries give none, CUDA-event time per call,
+    said on a line."""
+    rows, why = _profiled(torch, fn, iters)
+    if why is None:
+        return sum(us for us, _, _ in rows) / iters / 1e3
+    # no whole record, so CUDA events around the calls (host gaps included)
+    log("profile", f"no whole torch.profiler record in 3 tries ({why}); the "
+                   f"next device time is CUDA-event time per call")
     return _time_ms(torch, fn, iters)
 
 
 def _profile_top(torch, fn, iters: int, top: int = 8) -> str:
     """The `top` CUDA kernels by device time per call under torch.profiler,
-    and the rest, as "name ms (share)"."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    rows = sorted(((e.self_device_time_total / iters / 1e3, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and not e.is_user_annotation
-                   and e.self_device_time_total > 0), reverse=True)
+    and the rest, as "name ms (share)"; a record that is not whole after
+    three tries (`_profiled`) is said so."""
+    got, why = _profiled(torch, fn, iters)
+    rows = sorted(((us / iters / 1e3, name) for us, _, name in got
+                   if us > 0), reverse=True)
     total = sum(ms for ms, _ in rows)
     if total <= 0:
         raise RuntimeError("torch.profiler recorded no device time")
+    note = "" if why is None else f" (the record is not whole: {why})"
     parts = [f"{name[:60]} {ms!r} ms ({ms / total:.1%})"
              for ms, name in rows[:top]]
     rest = sum(ms for ms, _ in rows[top:])
-    return (f"{total!r} ms device per call: " + "; ".join(parts)
-            + f"; {len(rows) - top} other kernels {rest!r} ms "
-              f"({rest / total:.1%})")
+    return (f"{total!r} ms device per call{note}: "
+            + "; ".join(parts) + f"; {len(rows) - top} other kernels "
+            f"{rest!r} ms ({rest / total:.1%})")
 
 
 # (label, kernel name key) of each pass; the first runs once per layer
@@ -1920,6 +1995,218 @@ def phase_wide(torch, classifier) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         log("wide", _wide_cli(torch, classifier, tmp))
     log("wide", f"digests at today's widths: {_chain_digests(torch)}")
+
+
+def _caps_cli(torch, classifier, tmp: str) -> tuple[dict[str, int], str]:
+    """train_samplenet --group-size 32 (2 steps) and train_reconstruction
+    --phase samplenet --num-points 32768 --fps-baseline --group-size 32
+    (2 steps against a seeded AE of 32768 outputs), each in its own
+    process under torch.profiler (`_PROFILED_CLI`), the two at once: exit
+    0, finite losses and NRE, and the wide soft projection's and the FPS
+    cluster variant's launches. Returns the launches of both runs, summed,
+    and a line."""
+    from samplenet_tpu_torch.models import PointNetAE
+    from samplenet_tpu_torch.train import checkpoints
+
+    cls_path = os.path.join(tmp, "classifier.pth")
+    torch.save({k: v.cpu() for k, v in classifier.state_dict().items()},
+               cls_path)
+    ae_path = os.path.join(tmp, "ae32768")
+    ae = PointNetAE(CAPS_CLI_POINTS, 128,
+                    generator=torch.Generator().manual_seed(SEED + 80))
+    checkpoints.save_published(
+        ae_path, ae.state_dict(), {"num_points": CAPS_CLI_POINTS,
+                                   "bottleneck_size": 128, "loss": "chamfer"},
+        filename="ae.pth")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    runs = {
+        "train_samplenet": (["--device", "cuda", "--dataset", "procedural",
+                             "--epochs", "1", "--steps-per-epoch", "2",
+                             "--train-size", "64", "--test-size", "32",
+                             "--batch-size", "32", "--group-size", "32",
+                             "--classifier-weights", cls_path, "--log-dir",
+                             os.path.join(tmp, "sn_k32"), "--seed",
+                             str(SEED)],
+                            ("soft_projection_fwd_wide",
+                             "soft_projection_bwd_wide"), "loss="),
+        "train_reconstruction": (["--phase", "samplenet", "--device", "cuda",
+                                  "--ae-ckpt", ae_path, "--num-points",
+                                  str(CAPS_CLI_POINTS), "--fps-baseline",
+                                  "--group-size", "32", "--epochs", "1",
+                                  "--steps-per-epoch", "2", "--train-size",
+                                  "8", "--test-size", "4", "--batch-size",
+                                  str(CAPS_CLI_B), "--log-dir",
+                                  os.path.join(tmp, "rs"),
+                                  "--seed", str(SEED)],
+                                 ("fps_cluster", "soft_projection_fwd_wide",
+                                  "soft_projection_bwd_wide"), "NRE="),
+    }
+    t0 = time.monotonic()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-c", _PROFILED_CLI.format(module=name), *argv],
+        cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for name, (argv, _, _) in runs.items()}
+    outs = {}
+    try:
+        for name, proc in procs.items():
+            outs[name] = proc.communicate(timeout=600)
+    finally:
+        for proc in procs.values():
+            _stop(proc)
+    secs = time.monotonic() - t0
+    total: dict[str, int] = {}
+    lines = []
+    for name, (argv, kernels, key) in runs.items():
+        proc, (stdout, stderr) = procs[name], outs[name]
+        if proc.returncode:
+            raise RuntimeError(f"{name} {' '.join(argv)} exited "
+                               f"{proc.returncode}:\n"
+                               f"{(stdout + stderr)[-4000:]}")
+        counts = json.loads(stdout.strip().splitlines()[-1])["launches"]
+        values = [float(v.split()[0]) for ln in stdout.splitlines()
+                  for v in ln.split(key)[1:]]
+        if not values or not all(np.isfinite(values)):
+            raise AssertionError(f"{name} logged no finite {key}:\n"
+                                 f"{stdout[-3000:]}")
+        missing = [k for k in kernels if not counts.get(k)]
+        if missing:
+            raise AssertionError(f"{name} launched no {missing}: {counts}")
+        for k in kernels:
+            total[k] = total.get(k, 0) + counts[k]
+        flags = " ".join(f"{a} {argv[i + 1]}" if a in (
+            "--group-size", "--num-points", "--phase") else a
+            for i, a in enumerate(argv) if a in (
+                "--group-size", "--num-points", "--phase", "--fps-baseline"))
+        lines.append(f"{name} {flags}: exit 0, {key}{values}, launches "
+                     f"{counts}")
+    return total, (f"{'; '.join(lines)} (both processes at once, "
+                   f"{secs:.1f} s)")
+
+
+def phase_caps(torch, classifier, card) -> tuple[dict, dict, dict, int]:
+    """The inputs the first kernels refused: the soft projection at k > 16
+    (the wide forward and backward through autograd against the plain
+    path: idx bit-equal, out within 1e-5, gradients within rtol 1e-4 /
+    atol 1e-5), FPS beyond one block (the cluster variant against the plain
+    version bit for bit: idx and xyz), each launched; then the main path,
+    the two CLIs of `_caps_cli`, with the counters reset before and read
+    after in each process; then each new kernel timed against its plain
+    version at its first shape. Returns (launches, max_abs_err, times, the
+    points the timed wide backward gathers)."""
+    from samplenet_tpu_torch.ops.cuda import fps_kernel as fk
+    from samplenet_tpu_torch.ops.cuda import fps_plain
+    from samplenet_tpu_torch.ops.cuda import soft_projection_kernel as spk
+    from samplenet_tpu_torch.ops.dispatch import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    errs = {name: 0.0 for name in CAPS_KERNELS}
+    for i, (label, (b, n, m, k)) in enumerate(CAPS_SOFT.items()):
+        rng = np.random.default_rng(SEED + 81 + i)
+        pts, qs, sigma, cot = _soft_inputs(torch, rng, b, n, m)
+        reset_launch_counts()
+        ok, ik, gk = _soft_call(torch, pts, qs, sigma, k, cot)
+        counts = launch_counts()
+        op, ip, gp = _soft_call(torch, pts, qs, sigma, k, cot, plain=True)
+        if counts != {"soft_projection_fwd_wide": 1,
+                      "soft_projection_bwd_wide": 1}:
+            raise AssertionError(f"soft projection at {label}: {counts}")
+        if not torch.equal(ik, ip):
+            raise AssertionError(f"soft projection at {label}: idx differ "
+                                 f"in {int((ik != ip).sum())} places")
+        torch.testing.assert_close(ok, op, rtol=1e-5, atol=1e-5)
+        for a, c in zip(gk, gp):
+            torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-5)
+        e_fwd = float((ok - op).abs().max())
+        e_bwd = max(float((a - c).abs().max()) for a, c in zip(gk, gp))
+        errs["soft_projection_fwd_wide"] = max(
+            errs["soft_projection_fwd_wide"], e_fwd)
+        errs["soft_projection_bwd_wide"] = max(
+            errs["soft_projection_bwd_wide"], e_bwd)
+        s1 = sigma.reshape(1)
+        dev = (_device_ms(torch, lambda: spk.soft_project_fwd_cuda(
+                   pts, qs, s1, k), 5),
+               _device_ms(torch, lambda: spk.soft_project_bwd_cuda(
+                   pts, qs, s1, ik, cot), 5))
+        bounds = (_soft_fwd_bound(b, n, m, k),
+                  _soft_bwd_bound(b, n, m, k, _gathered(torch, ik, n)))
+        log("caps", f"soft projection (B, N, M, k) = {(b, n, m, k)}, "
+                    f"{label}: idx bit-equal, max |out - plain| {e_fwd!r} "
+                    f"(1e-5), gradients {e_bwd!r} (rtol 1e-4, atol 1e-5); "
+                    f"launches {counts}; device ms forward {dev[0]!r} "
+                    f"(bound {bounds[0][0]!r}, {bounds[0][1]}), backward "
+                    f"{dev[1]!r} (bound {bounds[1][0]!r}, {bounds[1][1]}) "
+                    f"({card})")
+        del pts, qs, ok, ik, gk, op, ip, gp
+    for i, (label, (b, n, k, counts)) in enumerate(CAPS_FPS.items()):
+        rng = np.random.default_rng(SEED + 85 + i)
+        pts = _randn(torch, rng, b, n, 3)
+        if "NaN" in label:
+            pts[0, n // 3, 1] = float("nan")
+        given = torch.from_numpy(rng.integers(0, n, (b, k)).astype(
+            np.int32)).to(DEVICE)
+        cnt = np.ones(b) if counts == "one" else rng.integers(1, k + 1, b)
+        count = torch.from_numpy(cnt.astype(np.int32)).to(DEVICE)
+        plan = fk.kernel_plan(torch.cuda.current_device(), b, n, k)
+        reset_launch_counts()
+        ik, xk = fk.fps(pts, given, count, k)
+        torch.cuda.synchronize()
+        launched = launch_counts()
+        ip, xp = fps_plain(pts, given, count, k)
+        if not (plan.cluster and launched == {"fps_cluster": 1}
+                and torch.equal(ik, ip) and _same_bits(torch, xk, xp)):
+            raise AssertionError(f"fps at (B, N, k) = {(b, n, k)}, {label}: "
+                                 f"plan {plan}, launches {launched}, idx "
+                                 f"differ in {int((ik != ip).sum())} places "
+                                 f"or xyz's bits differ")
+        dev = _device_ms(torch, lambda: fk.fps(pts, given, count, k), 3)
+        bound = _fps_bound(b, n, k)
+        log("caps", f"fps (B, N, k) = {(b, n, k)}, {label}, counts "
+                    f"{counts}: idx and xyz bit-equal to the plain version "
+                    f"under {plan}; launches {launched}; device {dev!r} ms "
+                    f"(bound {bound[0]!r}, {bound[1]}) ({card})")
+        del pts, ik, xk, ip, xp
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        counts, line = _caps_cli(torch, classifier, tmp)
+    log("caps", line)
+
+    times = {}
+    b, n, m, k = next(iter(CAPS_SOFT.values()))
+    rng = np.random.default_rng(SEED + 89)
+    pts, qs, sigma, cot = _soft_inputs(torch, rng, b, n, m)
+    sigma = sigma.reshape(1)
+    idx = spk.soft_project_fwd_cuda(pts, qs, sigma, k)[1]
+    gathered = _gathered(torch, idx, n)
+    b2, n2, k2, _ = next(iter(CAPS_FPS.values()))
+    fps_pts = _randn(torch, rng, b2, n2, 3)
+    given = torch.zeros((b2, k2), dtype=torch.int32, device=DEVICE)
+    one = torch.ones(b2, dtype=torch.int32, device=DEVICE)
+    cases = {
+        "soft_projection_fwd_wide": (
+            lambda: spk.soft_project_fwd_cuda(pts, qs, sigma, k),
+            lambda: spk.soft_project_fwd_plain(pts, qs, sigma, k), 10,
+            (b, n, m, k)),
+        "soft_projection_bwd_wide": (
+            lambda: spk.soft_project_bwd_cuda(pts, qs, sigma, idx, cot),
+            lambda: spk.soft_project_bwd_plain(pts, qs, sigma, idx, cot), 10,
+            (b, n, m, k)),
+        "fps_cluster": (lambda: fk.fps(fps_pts, given, one, k2),
+                        lambda: fps_plain(fps_pts, given, one, k2), 5,
+                        (b2, n2, k2)),
+    }
+    bounds = kernel_bounds(wide_gathered=gathered)
+    for name, (kernel_fn, plain_fn, iters, shape) in cases.items():
+        times[name] = _pair_ms(torch, kernel_fn, plain_fn, iters)
+        dev = _device_ms(torch, kernel_fn, iters)
+        log("times", f"{name} at {shape}: kernel {times[name][0]!r} ms per "
+                     f"call, {dev!r} ms device; plain {times[name][1]!r} ms; "
+                     f"bound {bounds[name][0]!r} ms ({bounds[name][1]}); "
+                     f"launches on the caps path {counts[name]} ({card})")
+    return counts, errs, times, gathered
+
 
 
 def make_train_setup(torch):
@@ -4783,11 +5070,12 @@ def _emd_bound(b: int, n: int, m: int) -> tuple[float, str]:
                   (11.0 * pairs, SFU_OP_PER_S))
 
 
-def kernel_bounds(soft_gathered: int | None = None
+def kernel_bounds(soft_gathered: int | None = None,
+                  wide_gathered: int | None = None
                   ) -> dict[str, tuple[float, str]]:
     """Each kernel's bound at the shapes its times are taken at (the soft
     projection's backward reading the `soft_gathered` points that its
-    timed run's idx names): each
+    timed run's idx names, the wide backward `wide_gathered`): each
     input read once, each output written once, and the operations the
     algorithm needs on these inputs (FP32 on the SIMT pipes; the EMD's
     exp and rsqrt on the special-function units; on the tensor cores
@@ -4801,6 +5089,7 @@ def kernel_bounds(soft_gathered: int | None = None
     pairs = list(zip(WIDTHS[:-1], WIDTHS[1:]))
     macs = sum(a * c for a, c in pairs)
     params = sum(a * c + c for a, c in pairs)
+    wide, cluster = (next(iter(d.values())) for d in (CAPS_SOFT, CAPS_FPS))
     return {
         "nn_direction": _nn_bound(B, M, N),
         "fps": _fps_bound(B, N, M),
@@ -4822,6 +5111,9 @@ def kernel_bounds(soft_gathered: int | None = None
             (B * N * 3.0 * sum(WIDTHS[1:]), FP32_FLOP_PER_S)),
         "point_mlp_exact_bf16_fwd": exact_bf16_fwd,
         "point_mlp_exact_bf16_bwd": exact_bf16_bwd,
+        "soft_projection_fwd_wide": _soft_fwd_bound(*wide),
+        "soft_projection_bwd_wide": _soft_bwd_bound(*wide, wide_gathered),
+        "fps_cluster": _fps_bound(*cluster[:3]),
     }
 
 
@@ -5732,6 +6024,8 @@ def main() -> int:
     train_errs = _timed(phase_compare_train, torch)
     data, labels, classifier = make_train_setup(torch)
     _timed(phase_wide, torch, classifier)
+    caps_counts, caps_errs, caps_times, caps_gathered = _timed(
+        phase_caps, torch, classifier, card)
     train_counts = _timed(phase_train_step, torch, data, labels, classifier)
     _timed(phase_train_cli, torch, classifier)
     errs.update(_timed(phase_compare_recon, torch))
@@ -5772,10 +6066,13 @@ def main() -> int:
                         labels, classifier, card))
     counts = {**counts, **{k: train_counts[k] for k in TRAIN_KERNELS},
               **{k: recon_counts[k] for k in RECON_KERNELS},
-              **{k: prog_counts[k] for k in PROG_KERNELS}, **bf16_counts}
+              **{k: prog_counts[k] for k in PROG_KERNELS}, **bf16_counts,
+              **caps_counts}
     errs.update(train_errs)
     errs.update(prog_errs)
-    bounds = kernel_bounds(soft_gathered)
+    errs.update(caps_errs)
+    times.update(caps_times)
+    bounds = kernel_bounds(soft_gathered, caps_gathered)
     # no single PyTorch call computes any of these functions (a distance
     # matrix, a top-k or a matmul is one step of each), so library_ms is null
     summary = {"kernels": [
@@ -5787,7 +6084,7 @@ def main() -> int:
          "library_ms": None}
         for name, (src, rep) in {**KERNELS, **TRAIN_KERNELS,
                                  **RECON_KERNELS, **PROG_KERNELS,
-                                 **BF16_KERNELS}.items()]}
+                                 **BF16_KERNELS, **CAPS_KERNELS}.items()]}
     log("done", f"all phases passed in {time.monotonic() - t0:.1f} s")
     print(json.dumps(summary))
     print(card)

@@ -48,10 +48,42 @@
 // contraction), in the order of fps_kernel.py:58 and of the plain version,
 // and the emitted xyz are copies, so idx and xyz equal the plain version
 // bit for bit.
+//
+// The cluster variant takes the clouds that one block cannot hold: more
+// than 16,384 points, or a cloud and picks beyond a block's shared memory
+// (the plan sends it only the shapes the kernel above refuses). A cloud is
+// one thread-block cluster of C = 8 blocks (the portable size) of 1024
+// threads, so that its running distances spread over C SMs.
+//   * Registers (R = 1..16 points a thread, C * 1024 * R >= N): block c
+//     stages its slice, points [c S, c S + S) with S = 1024 R, in its
+//     shared memory (12 bytes a point) and thread t holds the running
+//     distances of slice points t, t + 1024, ... in registers. Streamed
+//     (any N): thread t of block c takes points c * 1024 + t + i * 1024 C,
+//     their running distances in a [B, N] workspace in device memory that
+//     the wrapper allocates, their xyz read from device memory (L2) every
+//     step.
+//   * The given prefix: its points staged 256 at a time (a fixed buffer,
+//     so k costs no shared memory); each point takes the min over them.
+//   * Each completion step updates the thread's points with the last pick
+//     and keeps their first maximum by bits, as above; the warps meet in
+//     double-buffered slots behind one barrier, then warp 0 posts the
+//     block's (bits, index) and that point's xyz in its slot, and the blocks
+//     meet at one cluster barrier: every warp of every block reads the C
+//     slots through distributed shared memory (cluster.map_shared_rank)
+//     and takes the same maximum, lowest index first, and the pick's xyz
+//     from the winning slot. The slots are double-buffered too, so one
+//     cluster barrier a step is enough. Block 0 writes the picks as they
+//     come; a last cluster barrier keeps every block's slots alive until
+//     all have read them.
+// The order of each running minimum and the tie rule are the block
+// variant's, so the outputs equal the plain version's bit for bit under
+// every R.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include <climits>
 #include <cstdint>
 
 #include "sqdist.cuh"
@@ -230,6 +262,235 @@ cudaError_t launch(const float* points, const int* given, const int* count,
   return cudaGetLastError();
 }
 
+namespace cg = cooperative_groups;
+
+constexpr int kClusterThreads = 1024;  // a block of the cluster variant
+constexpr int kClusterBlocks = 8;      // blocks a cloud: the portable size
+constexpr int kGivenChunk = 256;       // given points staged at a time
+constexpr int kMaxClusterPoints = 16;  // R with the slice in shared memory
+
+// Dynamic shared memory of the cluster variant: the block's slice of the
+// cloud, 12 bytes a point (none when streamed).
+__host__ __device__ constexpr size_t cluster_smem(int r) {
+  return static_cast<size_t>(kClusterThreads) * r * 12;
+}
+
+// R > 0: the slice in shared memory and R running distances a thread in
+// registers; R = 0: streamed, the distances in dist [B, n].
+template <int R>
+__global__ void __launch_bounds__(kClusterThreads)
+fps_cluster_kernel(const float* __restrict__ points,  // [B, n, 3]
+                   const int* __restrict__ given,     // [B, k]
+                   const int* __restrict__ count,     // [B]
+                   int* __restrict__ idx_out,         // [B, k]
+                   float* __restrict__ xyz_out,       // [B, k, 3]
+                   float* __restrict__ dist,          // [B, n] if R == 0
+                   int n, int k) {
+  constexpr int T = kClusterThreads;
+  constexpr int kWarps = T / 32;
+  extern __shared__ float slice[];             // [3 S] if R > 0
+  __shared__ uint2 wslots[2][kWarps];
+  __shared__ uint2 ckey[2];                     // the block's (bits, index)
+  __shared__ float4 cxyz[2];                    // and that point's xyz
+  __shared__ float4 gbuf[kGivenChunk];
+  cg::cluster_group cluster = cg::this_cluster();
+  constexpr int csize = kClusterBlocks;        // the launch's cluster
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b = static_cast<int>(blockIdx.x / csize);
+  const float* pb = points + static_cast<size_t>(b) * n * 3;
+  const int cnt = min(max(count[b], 0), k);
+  const size_t o = static_cast<size_t>(b) * k;
+  // registers: this block's slice [s0, s0 + nl); streamed: this thread's
+  // points first, first + stride, ...
+  constexpr long long S = static_cast<long long>(T) * (R > 0 ? R : 1);
+  const long long s0 = rank * S;
+  const int nl = R > 0 ? static_cast<int>(max(0LL, min(S, n - s0))) : 0;
+  const long long first = static_cast<long long>(rank) * T + tid;
+  const long long stride = static_cast<long long>(T) * csize;
+  float* db = dist + (R > 0 ? 0 : static_cast<size_t>(b) * n);
+
+  float pd[R > 0 ? R : 1];
+  if constexpr (R > 0) {
+    for (int e = tid; e < 3 * nl; e += T) slice[e] = __ldg(pb + 3 * s0 + e);
+#pragma unroll
+    for (int j = 0; j < R; ++j) pd[j] = tid + j * T < nl ? CUDART_INF_F : 0.0f;
+  } else {
+    for (long long p = first; p < n; p += stride) db[p] = CUDART_INF_F;
+  }
+  // the given prefix: the picks written by block 0, an index out of range
+  // reading as the origin, as the block variant does
+  if (rank == 0) {
+    for (int t = tid; t < cnt; t += T) {
+      const int g = given[o + t];
+      const bool in = g >= 0 && g < n;
+      idx_out[o + t] = g;
+      for (int c = 0; c < 3; ++c) {
+        xyz_out[(o + t) * 3 + c] = in ? __ldg(pb + 3 * static_cast<size_t>(g) + c)
+                                      : 0.0f;
+      }
+    }
+  }
+  for (int t0 = 0; t0 < cnt; t0 += kGivenChunk) {
+    const int tn = min(kGivenChunk, cnt - t0);
+    __syncthreads();  // the previous chunk is read (and the slice staged)
+    for (int t = tid; t < tn; t += T) {
+      const int g = given[o + t0 + t];
+      const float* gp = pb + 3 * static_cast<size_t>(g);
+      gbuf[t] = g >= 0 && g < n
+                    ? make_float4(__ldg(gp), __ldg(gp + 1), __ldg(gp + 2), 0.0f)
+                    : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+    __syncthreads();
+    if constexpr (R > 0) {
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const int l = tid + j * T;
+        if (l < nl) {
+          const float x = slice[3 * l], y = slice[3 * l + 1],
+                      z = slice[3 * l + 2];
+          float d = pd[j];
+          for (int t = 0; t < tn; ++t) {
+            const float4 g = gbuf[t];
+            d = min_nan(d, sqdist(x, y, z, g.x, g.y, g.z));
+          }
+          pd[j] = d;
+        }
+      }
+    } else {
+      for (long long p = first; p < n; p += stride) {
+        const float x = __ldg(pb + 3 * p), y = __ldg(pb + 3 * p + 1),
+                    z = __ldg(pb + 3 * p + 2);
+        float d = db[p];
+        for (int t = 0; t < tn; ++t) {
+          const float4 g = gbuf[t];
+          d = min_nan(d, sqdist(x, y, z, g.x, g.y, g.z));
+        }
+        db[p] = d;
+      }
+    }
+  }
+  __syncthreads();  // the slice is staged, even where no prefix ran
+
+  float sx = 0.0f, sy = 0.0f, sz = 0.0f;  // the last pick, once there is one
+  for (int t = cnt; t < k; ++t) {
+    const bool update = t > cnt;
+    unsigned best = 0u, bi = kNoIndex;
+    if constexpr (R > 0) {
+      bi = static_cast<unsigned>(s0 + tid);  // point j = 0: a valid start
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const int l = tid + j * T;
+        if (update && l < nl) {
+          pd[j] = min_nan(pd[j], sqdist(slice[3 * l], slice[3 * l + 1],
+                                        slice[3 * l + 2], sx, sy, sz));
+        }
+        const unsigned key = __float_as_uint(pd[j]);
+        if (key > best) {
+          best = key;
+          bi = static_cast<unsigned>(s0 + l);
+        }
+      }
+    } else {
+      for (long long p = first; p < n; p += stride) {
+        float d = db[p];
+        if (update) {
+          d = min_nan(d, sqdist(__ldg(pb + 3 * p), __ldg(pb + 3 * p + 1),
+                                __ldg(pb + 3 * p + 2), sx, sy, sz));
+          db[p] = d;
+        }
+        const unsigned key = __float_as_uint(d);
+        if (key > best || bi == kNoIndex) {
+          best = key;
+          bi = static_cast<unsigned>(p);
+        }
+      }
+    }
+    // the warp's, then the block's (bits, lowest index)
+    unsigned hi = __reduce_max_sync(kFull, best);
+    unsigned lo = __reduce_min_sync(kFull, best == hi ? bi : kNoIndex);
+    if (lane == 0) wslots[t & 1][warp] = make_uint2(hi, lo);
+    __syncthreads();
+    if (warp == 0) {
+      const uint2 w = wslots[t & 1][lane];  // kWarps == 32 slots
+      hi = __reduce_max_sync(kFull, w.x);
+      lo = __reduce_min_sync(kFull, w.x == hi ? w.y : kNoIndex);
+      if (lane == 0) {
+        float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (lo < static_cast<unsigned>(n)) {
+          if constexpr (R > 0) {
+            const long long l = lo - s0;
+            v = make_float4(slice[3 * l], slice[3 * l + 1], slice[3 * l + 2],
+                            0.0f);
+          } else {
+            const float* pp = pb + 3 * static_cast<size_t>(lo);
+            v = make_float4(__ldg(pp), __ldg(pp + 1), __ldg(pp + 2), 0.0f);
+          }
+        }
+        ckey[t & 1] = make_uint2(hi, lo);
+        cxyz[t & 1] = v;
+      }
+    }
+    cluster.sync();
+    // the cluster's: every warp reads the C blocks' slots
+    uint2 c = make_uint2(0u, kNoIndex);
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (lane < csize) {
+      c = *cluster.map_shared_rank(&ckey[t & 1], lane);
+      v = *cluster.map_shared_rank(&cxyz[t & 1], lane);
+    }
+    hi = __reduce_max_sync(kFull, c.x);
+    lo = __reduce_min_sync(kFull, c.x == hi ? c.y : kNoIndex);
+    const int src = __ffs(__ballot_sync(kFull, c.x == hi && c.y == lo)) - 1;
+    sx = __shfl_sync(kFull, v.x, src);
+    sy = __shfl_sync(kFull, v.y, src);
+    sz = __shfl_sync(kFull, v.z, src);
+    if (rank == 0 && tid == 0) {
+      idx_out[o + t] = static_cast<int>(lo);
+      xyz_out[(o + t) * 3 + 0] = sx;
+      xyz_out[(o + t) * 3 + 1] = sy;
+      xyz_out[(o + t) * 3 + 2] = sz;
+    }
+  }
+  cluster.sync();  // no block leaves while another may read its slots
+}
+
+template <int R>
+cudaError_t launch_cluster(const float* points, const int* given,
+                           const int* count, int* idx, float* xyz,
+                           float* dist, int b, int n, int k,
+                           cudaStream_t stream) {
+  if (R == 0 ? dist == nullptr
+             : static_cast<long long>(kClusterBlocks) * kClusterThreads * R <
+                   n) {
+    return cudaErrorInvalidValue;
+  }
+  const size_t smem = cluster_smem(R);
+  if (smem > 0) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fps_cluster_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(b) * kClusterBlocks);
+  cfg.blockDim = dim3(kClusterThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kClusterBlocks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, fps_cluster_kernel<R>, points, given, count, idx, xyz, dist, n,
+      k);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" size_t snt_fps_smem(int n, int k) { return fps_smem(n, k); }
@@ -273,6 +534,47 @@ extern "C" int snt_fps(const float* points, const int* given,
       default:
         break;
     }
+  }
+  return static_cast<int>(err);
+}
+
+extern "C" size_t snt_fps_cluster_smem(int r) { return cluster_smem(r); }
+
+// The cluster variant's limits: 0 its blocks a cloud, 1 its block's
+// threads, 2 the given points staged at a time, 3 its largest R.
+extern "C" int snt_fps_cluster_limit(int which) {
+  const int limits[] = {kClusterBlocks, kClusterThreads, kGivenChunk,
+                        kMaxClusterPoints};
+  return which >= 0 && which < 4 ? limits[which] : -1;
+}
+
+// The cluster variant: 8 blocks a cloud (a cluster), r points a thread in
+// registers (1, 2, 4, 8 or 16; 8 * 1024 * r >= n), or r = 0, the
+// running distances streamed through dist [B, n], the caller's workspace.
+extern "C" int snt_fps_cluster(const float* points, const int* given,
+                               const int* count, int* idx, float* xyz,
+                               float* dist, int b, int n, int k, int r,
+                               cudaStream_t stream) {
+  if (b < 1 || n < 1 || k < 1 ||
+      static_cast<long long>(b) * kClusterBlocks > INT_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (r) {
+#define SNT_FPS_CLUSTER(R)                                                  \
+  case R:                                                                   \
+    err = launch_cluster<R>(points, given, count, idx, xyz, dist, b, n, k,  \
+                            stream);                                        \
+    break;
+    SNT_FPS_CLUSTER(0)
+    SNT_FPS_CLUSTER(1)
+    SNT_FPS_CLUSTER(2)
+    SNT_FPS_CLUSTER(4)
+    SNT_FPS_CLUSTER(8)
+    SNT_FPS_CLUSTER(16)
+#undef SNT_FPS_CLUSTER
+    default:
+      break;
   }
   return static_cast<int>(err);
 }

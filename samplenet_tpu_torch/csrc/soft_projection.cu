@@ -7,7 +7,7 @@
 //   recomputes the backward in XLA from the saved indices (:185-190); here
 //   it is the second kernel below.
 //
-// For each query q of cloud b: the k <= 16 nearest points p_0..p_{k-1},
+// For each query q of cloud b: the k nearest points p_0..p_{k-1},
 // ascending by d_i = |q - p_i|^2, ties to the lowest index; w_i =
 // exp(-(d_i - d_0) / s) with s = sigma^2 read from device memory;
 // out = sum w_i p_i / sum w_i, and idx [B, M, k].
@@ -85,6 +85,28 @@
 // entries, and each of its rounds and slices waits on memory and on
 // barriers: at the progressive AE step's shape it is latency-bound, far
 // from the bytes that bound the function (PERF.md).
+//
+// Group sizes above 16 (kMaxK, the register list's length) take the wide
+// kernels. Wide forward: one warp a query, over a flat grid of all B*M
+// queries, and nothing held per k. The key of a point is its distance's
+// bits, NaN counted as +inf (non-negative floats order as their bits). A
+// radix select of 4 passes of 8 bits (a [256] histogram a warp in shared
+// memory, the lanes of a warp that share a bin adding once) finds the
+// k-th smallest key T and the number of keys below it; a fifth pass writes
+// the points below T, and the lowest-index points equal to T, found in
+// index order by ballots, into the query's idx row; the warp then sorts
+// that row in place by (key, index), recomputing each key from the
+// index (a bitonic network in the form whose every compare puts the
+// smaller entry at the lower index, so rows of any length k sort with no
+// padding). The keys are unique, so the row is the plain version's stable
+// sort bit for bit. Each pass recomputes the distances from the points in
+// device memory (L1 and L2): shared memory does not grow with N or k.
+// The weighted sum runs a lane's ranks in order, then a butterfly.
+// Wide backward: the entries kernel loops over the query's k neighbours
+// three times (d_0 and the sum of weights, the output, the entries),
+// rereading each from device memory instead of holding k in registers,
+// and carries the query's sums in float64; the point kernel takes k at
+// run time (K = 0), its sums in the same orders as at K <= 16.
 
 #include <climits>
 #include <cstdint>
@@ -100,7 +122,9 @@ constexpr int kMaxSlices = 8;  // lanes a query, from the plan
 constexpr int kBuffer = 32;    // candidates a lane holds before it sorts
 constexpr int kStep = 8;       // points a lane loads before it tests them
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxK = 16;
+constexpr int kMaxK = 16;           // the register kernels; above, wide
+constexpr int kWideWarps = 8;       // wide forward: queries a block
+constexpr int kRadixBins = 256;     // wide forward: 8 bits a pass
 constexpr int kMaxTile = 256;       // backward: queries a block, one a thread
 constexpr int kMaxPointThreads = 256;  // backward: a point block's threads
 constexpr int kMaxPer = 4;          // backward: points a thread
@@ -375,6 +399,167 @@ soft_project_fwd_kernel(const float* __restrict__ points,   // [B, n, 3]
   o[2] = nz / den;
 }
 
+// A wide query's distance to point i, NaN counted as +inf.
+__device__ __forceinline__ float wide_dist(const float* __restrict__ pb,
+                                           int i, float qx, float qy,
+                                           float qz) {
+  const float* p = pb + static_cast<size_t>(i) * 3;
+  return fminf(sqdist(qx, qy, qz, __ldg(p), __ldg(p + 1), __ldg(p + 2)),
+               CUDART_INF_F);
+}
+
+// (key, index) of point i: the order the plain version's stable sort gives.
+__device__ __forceinline__ unsigned long long wide_key(
+    const float* __restrict__ pb, int i, float qx, float qy, float qz) {
+  return static_cast<unsigned long long>(
+             __float_as_uint(wide_dist(pb, i, qx, qy, qz))) << 32 |
+         static_cast<unsigned>(i);
+}
+
+// One warp a query of the flat grid over all B*M queries, any 1 <= k <= n.
+__global__ void __launch_bounds__(kWideWarps * 32)
+soft_project_fwd_wide_kernel(const float* __restrict__ points,   // [B, n, 3]
+                             const float* __restrict__ queries,  // [B, m, 3]
+                             const float* __restrict__ sigma,    // [1]
+                             float* __restrict__ out,            // [B, m, 3]
+                             int* idx,                           // [B, m, k]
+                             int n, int m, int k, long long total) {
+  __shared__ unsigned hists[kWideWarps][kRadixBins];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long g = static_cast<long long>(blockIdx.x) * kWideWarps + warp;
+  if (g >= total) return;  // the whole warp: no block barrier follows
+  unsigned* hist = hists[warp];
+  const unsigned below = (1u << lane) - 1u;
+  const float* pb = points + static_cast<size_t>(g / m) * n * 3;
+  const float qx = queries[g * 3], qy = queries[g * 3 + 1],
+              qz = queries[g * 3 + 2];
+
+  // 1. the k-th smallest key T, 8 bits a pass, and `lt` keys below it
+  unsigned prefix = 0u, mask = 0u;
+  int rank = k, lt = 0;  // T is the rank-th key among those on the prefix
+  for (int shift = 24; shift >= 0; shift -= 8) {
+    for (int i = lane; i < kRadixBins; i += 32) hist[i] = 0u;
+    __syncwarp();
+    for (int p0 = 0; p0 < n; p0 += 32) {
+      int bin = -1;
+      if (p0 + lane < n) {
+        const unsigned key =
+            __float_as_uint(wide_dist(pb, p0 + lane, qx, qy, qz));
+        if ((key & mask) == prefix) bin = static_cast<int>(key >> shift) & 255;
+      }
+      const unsigned peers = __match_any_sync(kFull, bin);
+      if (bin >= 0 && (peers & below) == 0u) {
+        atomicAdd(hist + bin, static_cast<unsigned>(__popc(peers)));
+      }
+    }
+    __syncwarp();
+    // lane l holds bins 8l..8l+7; a scan finds the bin of the rank-th key
+    unsigned c[8], sum = 0u;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      c[j] = hist[8 * lane + j];
+      sum += c[j];
+    }
+    unsigned incl = sum;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const unsigned v = __shfl_up_sync(kFull, incl, off);
+      if (lane >= off) incl += v;
+    }
+    const unsigned r = static_cast<unsigned>(rank);
+    const int src = __ffs(__ballot_sync(kFull, incl - sum < r && r <= incl)) - 1;
+    int digit = 0;
+    unsigned run = incl - sum;
+    if (lane == src) {
+      for (int j = 0; j < 8; ++j) {
+        if (run + c[j] >= r) {
+          digit = 8 * lane + j;
+          break;
+        }
+        run += c[j];
+      }
+    }
+    digit = __shfl_sync(kFull, digit, src);
+    run = __shfl_sync(kFull, run, src);  // keys on the prefix below the bin
+    lt += static_cast<int>(run);
+    rank -= static_cast<int>(run);
+    prefix |= static_cast<unsigned>(digit) << shift;
+    mask |= 255u << shift;
+    __syncwarp();  // the histogram is read before the next pass clears it
+  }
+
+  // 2. the row: the lt points below T, then the first `rank` equal to it
+  int* row = idx + static_cast<size_t>(g) * k;
+  int nlt = 0, neq = 0;
+  for (int p0 = 0; p0 < n; p0 += 32) {
+    const int p = p0 + lane;
+    const unsigned key =
+        p < n ? __float_as_uint(wide_dist(pb, p, qx, qy, qz)) : 0xffffffffu;
+    const unsigned lb = __ballot_sync(kFull, key < prefix);
+    const unsigned eb = __ballot_sync(kFull, key == prefix);
+    if (key < prefix) {
+      row[nlt + __popc(lb & below)] = p;
+    } else if (key == prefix) {
+      const int e = neq + __popc(eb & below);
+      if (e < rank) row[lt + e] = p;
+    }
+    nlt += __popc(lb);
+    neq += __popc(eb);
+  }
+  __syncwarp();
+
+  // 3. sorted by (key, index): each step puts the smaller of a pair at the
+  // lower index; a pair whose upper index is past the row is in order
+  int pad = 1;
+  while (pad < k) pad <<= 1;
+  for (int size = 2; size <= pad; size <<= 1) {
+    for (int stride = size / 2; stride > 0; stride >>= 1) {
+      for (int t = lane; t < pad / 2; t += 32) {
+        const int base = t / stride * 2 * stride, off = t % stride;
+        const int i = base + off;
+        const int j = stride == size / 2 ? base + 2 * stride - 1 - off
+                                         : i + stride;
+        if (j < k) {
+          const int a = row[i], c2 = row[j];
+          if (wide_key(pb, a, qx, qy, qz) > wide_key(pb, c2, qx, qy, qz)) {
+            row[i] = c2;
+            row[j] = a;
+          }
+        }
+      }
+      __syncwarp();
+    }
+  }
+
+  // 4. weights and the weighted sum, ranks in order a lane, then lanes
+  const float sg = *sigma;
+  const float d0 = wide_dist(pb, row[0], qx, qy, qz);
+  float nx = 0.0f, ny = 0.0f, nz = 0.0f, den = 0.0f;
+  for (int r = lane; r < k; r += 32) {
+    const float* pp = pb + static_cast<size_t>(row[r]) * 3;
+    const float x = __ldg(pp), y = __ldg(pp + 1), z = __ldg(pp + 2);
+    const float w = softmax_term(fminf(sqdist(qx, qy, qz, x, y, z),
+                                       CUDART_INF_F), d0, sg);
+    nx += w * x;
+    ny += w * y;
+    nz += w * z;
+    den += w;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    nx += __shfl_xor_sync(kFull, nx, off);
+    ny += __shfl_xor_sync(kFull, ny, off);
+    nz += __shfl_xor_sync(kFull, nz, off);
+    den += __shfl_xor_sync(kFull, den, off);
+  }
+  if (lane == 0) {
+    float* o = out + g * 3;
+    o[0] = nx / den;
+    o[1] = ny / den;
+    o[2] = nz / den;
+  }
+}
+
 // One thread a query of the flat grid over all B*M queries: d queries, and
 // each rank's contribution to d points with e_j and d_j - d_0 for
 // d sigma^2, into the workspace.
@@ -448,18 +633,98 @@ soft_project_bwd_entries(const float* __restrict__ points,    // [B, n, 3]
   dqueries[qrow * 3 + 2] = dqz;
 }
 
+// The entries kernel for k > kMaxK: each neighbour reread from device
+// memory in each of three loops instead of held in registers, and the
+// query's sums (the weights' total, the output, u - ubar and d queries)
+// carried in float64, since with more neighbours their f32 round-off
+// grows past the tolerances the k <= 16 kernels meet (1/17 is inexact,
+// and u - ubar cancels). Each distance and weight term is the f32 one
+// of the k <= 16 kernel; the outputs are rounded to f32 once.
+__global__ void __launch_bounds__(kMaxTile)
+soft_project_bwd_entries_wide(const float* __restrict__ points,    // [B, n, 3]
+                              const float* __restrict__ queries,   // [B, m, 3]
+                              const float* __restrict__ sigma,     // [1]
+                              const int* __restrict__ idx,         // [B, m, k]
+                              const float* __restrict__ grad_out,  // [B, m, 3]
+                              float* __restrict__ dqueries,        // [B, m, 3]
+                              float4* __restrict__ contrib,        // [B, k, m]
+                              float2* __restrict__ esd,            // [B, k, m]
+                              int n, int m, int k, long long total) {
+  const long long g = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (g >= total) return;
+  const int b = static_cast<int>(g / m);
+  const int q = static_cast<int>(g - static_cast<long long>(b) * m);
+  const size_t qrow = static_cast<size_t>(g);
+  const float* pb = points + static_cast<size_t>(b) * n * 3;
+  const int* iq = idx + qrow * k;
+  const float s = *sigma;
+  const float qx = queries[qrow * 3 + 0], qy = queries[qrow * 3 + 1],
+              qz = queries[qrow * 3 + 2];
+  const double gx = grad_out[qrow * 3 + 0], gy = grad_out[qrow * 3 + 1],
+               gz = grad_out[qrow * 3 + 2];
+  auto point = [&](int j) {
+    const float* p = pb + static_cast<size_t>(iq[j]) * 3;
+    return make_float3(p[0], p[1], p[2]);
+  };
+  const float3 p0 = point(0);
+  const float d0 = sqdist(qx, qy, qz, p0.x, p0.y, p0.z);
+  double den = 0.0;
+  for (int j = 0; j < k; ++j) {
+    const float3 p = point(j);
+    den += softmax_term(sqdist(qx, qy, qz, p.x, p.y, p.z), d0, s);
+  }
+  double ox = 0.0, oy = 0.0, oz = 0.0;
+  for (int j = 0; j < k; ++j) {
+    const float3 p = point(j);
+    const double w =
+        softmax_term(sqdist(qx, qy, qz, p.x, p.y, p.z), d0, s) / den;
+    ox += w * p.x;
+    oy += w * p.y;
+    oz += w * p.z;
+  }
+  const double ubar = gx * ox + gy * oy + gz * oz;
+  double dqx = 0.0, dqy = 0.0, dqz = 0.0;
+  float4* cq = contrib + static_cast<size_t>(b) * k * m + q;
+  float2* eq = esd + static_cast<size_t>(b) * k * m + q;
+  for (int j = 0; j < k; ++j) {
+    const float3 p = point(j);
+    const float dj = sqdist(qx, qy, qz, p.x, p.y, p.z);
+    const double w = softmax_term(dj, d0, s) / den;
+    const double u = gx * p.x + gy * p.y + gz * p.z;
+    const double e = w * (u - ubar);              // dL/d(-d_j / s)
+    const double two_dd = -2.0 * e / s;           // 2 dL/dd_j
+    const double ex = static_cast<double>(p.x) - qx,
+                 ey = static_cast<double>(p.y) - qy,
+                 ez = static_cast<double>(p.z) - qz;
+    cq[static_cast<size_t>(j) * m] = make_float4(
+        static_cast<float>(w * gx + two_dd * ex),
+        static_cast<float>(w * gy + two_dd * ey),
+        static_cast<float>(w * gz + two_dd * ez), 0.0f);
+    eq[static_cast<size_t>(j) * m] =
+        make_float2(static_cast<float>(e), dj - d0);
+    dqx -= two_dd * ex;
+    dqy -= two_dd * ey;
+    dqz -= two_dd * ez;
+  }
+  dqueries[qrow * 3 + 0] = static_cast<float>(dqx);
+  dqueries[qrow * 3 + 1] = static_cast<float>(dqy);
+  dqueries[qrow * 3 + 2] = static_cast<float>(dqz);
+}
+
 // d points of `span` points of one cloud a block, in entry order: block
 // (ranges + 1) * b + r takes range r of cloud b, and r = ranges sums the
-// cloud's d sigma^2.
+// cloud's d sigma^2. K = 0 takes k at run time (k_run, the wide path).
 template <int K>
 __global__ void __launch_bounds__(kMaxPointThreads, 4)
-soft_project_bwd_points(const int* __restrict__ idx,         // [B, m, K]
-                        const float4* __restrict__ contrib,  // [B, K, m]
-                        const float2* __restrict__ esd,      // [B, K, m]
+soft_project_bwd_points(const int* __restrict__ idx,         // [B, m, k]
+                        const float4* __restrict__ contrib,  // [B, k, m]
+                        const float2* __restrict__ esd,      // [B, k, m]
                         const float* __restrict__ sigma,     // [1]
                         float* __restrict__ dpoints,         // [B, n, 3]
                         float* __restrict__ dsigma,          // [B] partials
-                        int n, int m, int span) {
+                        int n, int m, int span, int k_run) {
+  const int k = K > 0 ? K : k_run;
   extern __shared__ float4 bsm[];
   __shared__ int wcnt[kMaxPointThreads / 32];  // a round's list, by warp
   __shared__ float red[kStripes];
@@ -470,16 +735,23 @@ soft_project_bwd_points(const int* __restrict__ idx,         // [B, m, K]
   const int threads = blockDim.x, warps = threads >> 5;
 
   if (range == ranges) {  // d sigma^2 of cloud b
-    const float2* eb = esd + static_cast<size_t>(b) * K * m;
+    const float2* eb = esd + static_cast<size_t>(b) * k * m;
     for (int st = t; st < kStripes; st += threads) {
       float ds = 0.0f;
 #pragma unroll 1
       for (int q = st; q < m; q += kStripes) {
-        float2 x[K];  // the query's k terms in flight together
+        if constexpr (K > 0) {
+          float2 x[K];  // the query's k terms in flight together
 #pragma unroll
-        for (int j = 0; j < K; ++j) x[j] = eb[static_cast<size_t>(j) * m + q];
+          for (int j = 0; j < K; ++j) x[j] = eb[static_cast<size_t>(j) * m + q];
 #pragma unroll
-        for (int j = 0; j < K; ++j) ds += x[j].x * x[j].y;
+          for (int j = 0; j < K; ++j) ds += x[j].x * x[j].y;
+        } else {
+          for (int j = 0; j < k; ++j) {
+            const float2 x = eb[static_cast<size_t>(j) * m + q];
+            ds += x.x * x.y;
+          }
+        }
       }
       red[st] = ds;
     }
@@ -495,7 +767,7 @@ soft_project_bwd_points(const int* __restrict__ idx,         // [B, m, K]
     return;
   }
 
-  const int entries = m * K;
+  const int entries = m * k;
   const int round = 32 * kUnroll * warps;  // entries a round
   const int cap = min(round, entries);     // the list's room
   unsigned* hit = reinterpret_cast<unsigned*>(bsm);  // [span]: warps with
@@ -506,7 +778,7 @@ soft_project_bwd_points(const int* __restrict__ idx,         // [B, m, K]
   const int p0 = range * span;
   const int np = min(span, n - p0);
   const int per = span / threads;
-  const float4* cb = contrib + static_cast<size_t>(b) * K * m;
+  const float4* cb = contrib + static_cast<size_t>(b) * k * m;
   const int* ib = idx + static_cast<size_t>(b) * entries;
   const unsigned below = (1u << lane) - 1u;
   for (int i = t; i < span; i += threads) hit[i] = 0u;
@@ -541,7 +813,7 @@ soft_project_bwd_points(const int* __restrict__ idx,         // [B, m, K]
       c[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       if (in) {
         const int e = r0 + mine + 32 * u;
-        const int q = e / K, j = e - q * K;
+        const int q = e / k, j = e - q * k;
         c[u] = cb[static_cast<size_t>(j) * m + q];
       }
       cnt += __popc(vote[u]);
@@ -648,21 +920,28 @@ size_t bwd_smem(int threads, int span, int entries) {
   return (warps + 1) * span * sizeof(unsigned) + (list > stage ? list : stage);
 }
 
+// K = 0: the wide kernels, k at run time.
 template <int K>
 cudaError_t launch_bwd(const float* points, const float* queries,
                        const float* sigma, const int* idx,
                        const float* grad_out, float* dpoints, float* dqueries,
                        float* dsigma, float4* contrib, float2* esd, int b,
-                       int n, int m, int tile, int threads, int span,
+                       int n, int m, int k, int tile, int threads, int span,
                        cudaStream_t stream) {
   const long long total = static_cast<long long>(b) * m;
   const unsigned blocks = static_cast<unsigned>((total + tile - 1) / tile);
-  soft_project_bwd_entries<K><<<blocks, tile, 0, stream>>>(
-      points, queries, sigma, idx, grad_out, dqueries, contrib, esd, n, m,
-      total);
+  if constexpr (K > 0) {
+    soft_project_bwd_entries<K><<<blocks, tile, 0, stream>>>(
+        points, queries, sigma, idx, grad_out, dqueries, contrib, esd, n, m,
+        total);
+  } else {
+    soft_project_bwd_entries_wide<<<blocks, tile, 0, stream>>>(
+        points, queries, sigma, idx, grad_out, dqueries, contrib, esd, n, m,
+        k, total);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t smem = bwd_smem(threads, span, m * K);
+  const size_t smem = bwd_smem(threads, span, m * k);
   if (smem + kPointStatic > 48 * 1024) {
     err = cudaFuncSetAttribute(soft_project_bwd_points<K>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -671,11 +950,12 @@ cudaError_t launch_bwd(const float* points, const float* queries,
   }
   const unsigned grid = static_cast<unsigned>(b) * ((n + span - 1) / span + 1);
   soft_project_bwd_points<K><<<grid, threads, smem, stream>>>(
-      idx, contrib, esd, sigma, dpoints, dsigma, n, m, span);
+      idx, contrib, esd, sigma, dpoints, dsigma, n, m, span, k);
   return cudaGetLastError();
 }
 
-#define SNT_SWITCH_K(k, CALL)  \
+// K = 1..kMaxK on the register kernels, any other k on `WIDE`.
+#define SNT_SWITCH_K(k, CALL, WIDE)  \
   switch (k) {                 \
     case 1: return CALL(1);    \
     case 2: return CALL(2);    \
@@ -693,7 +973,7 @@ cudaError_t launch_bwd(const float* points, const float* queries,
     case 14: return CALL(14);  \
     case 15: return CALL(15);  \
     case 16: return CALL(16);  \
-    default: return static_cast<int>(cudaErrorInvalidValue); \
+    default: return WIDE;      \
   }
 
 }  // namespace
@@ -736,11 +1016,33 @@ extern "C" int snt_soft_project_fwd(const float* points, const float* queries,
 #define SNT_FWD(K)                                                          \
   static_cast<int>(launch_fwd<K>(points, queries, sigma, out, idx, b, n, m, \
                                  chunk, warps, slices, stream))
-  SNT_SWITCH_K(k, SNT_FWD)
+  SNT_SWITCH_K(k, SNT_FWD, static_cast<int>(cudaErrorInvalidValue))
 #undef SNT_FWD
 }
 
-// contrib [B, k, M] float4 and esd [B, k, M] float2 are the caller's
+extern "C" int snt_soft_project_fwd_wide_warps() { return kWideWarps; }
+
+extern "C" int snt_soft_project_max_register_k() { return kMaxK; }
+
+// The wide forward, any 1 <= k <= n: one warp a query, kWideWarps a block.
+extern "C" int snt_soft_project_fwd_wide(const float* points,
+                                         const float* queries,
+                                         const float* sigma, float* out,
+                                         int* idx, int b, int n, int m, int k,
+                                         cudaStream_t stream) {
+  const long long total = static_cast<long long>(b) * m;
+  const long long blocks = (total + kWideWarps - 1) / kWideWarps;
+  if (b < 1 || m < 1 || k < 1 || k > n || blocks > INT_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  soft_project_fwd_wide_kernel<<<static_cast<unsigned>(blocks),
+                                 kWideWarps * 32, 0, stream>>>(
+      points, queries, sigma, out, idx, n, m, k, total);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Any 1 <= k <= n: k <= kMaxK on the register kernels, above on the wide
+// ones. contrib [B, k, M] float4 and esd [B, k, M] float2 are the caller's
 // workspace; tile (queries a block of the first kernel), threads and span
 // (points a block of the second, a multiple of threads, at most kMaxPer a
 // thread) come from the launch plan; the outputs do not depend on it.
@@ -751,7 +1053,7 @@ extern "C" int snt_soft_project_bwd(const float* points, const float* queries,
                                     float* contrib, float* esd, int b, int n,
                                     int m, int k, int tile, int threads,
                                     int span, cudaStream_t stream) {
-  if (k < 1 || k > kMaxK || k > n || b < 1 || m < 1 ||
+  if (k < 1 || k > n || b < 1 || m < 1 ||
       tile < 32 || tile > kMaxTile || tile % 32 != 0 || threads < 32 ||
       threads > kMaxPointThreads || threads % 32 != 0 || span < threads ||
       span % threads != 0 || span / threads > kMaxPer ||
@@ -766,7 +1068,7 @@ extern "C" int snt_soft_project_bwd(const float* points, const float* queries,
 #define SNT_BWD(K)                                                          \
   static_cast<int>(launch_bwd<K>(points, queries, sigma, idx, grad_out,     \
                                  dpoints, dqueries, dsigma, c4, e2, b, n,    \
-                                 m, tile, threads, span, stream))
-  SNT_SWITCH_K(k, SNT_BWD)
+                                 m, k, tile, threads, span, stream))
+  SNT_SWITCH_K(k, SNT_BWD, SNT_BWD(0))
 #undef SNT_BWD
 }

@@ -137,6 +137,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.snt_fps_max_threads.restype = i
     lib.snt_fps_shared_points.argtypes = []
     lib.snt_fps_shared_points.restype = i
+    lib.snt_fps_cluster.argtypes = [*[p] * 6, *[i] * 4, p]
+    lib.snt_fps_cluster.restype = i
+    lib.snt_fps_cluster_smem.argtypes = [i]
+    lib.snt_fps_cluster_smem.restype = sz
+    lib.snt_fps_cluster_limit.argtypes = [i]
+    lib.snt_fps_cluster_limit.restype = i
     lib.snt_point_mlp_max_smem.argtypes = [ctypes.POINTER(i), i, i]
     lib.snt_point_mlp_max_smem.restype = ctypes.c_size_t
     lib.snt_point_mlp_max.argtypes = [p, p, ctypes.POINTER(i), i, i, p, i, i,
@@ -151,6 +157,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.snt_soft_project_fwd_max_warps.restype = i
     lib.snt_soft_project_fwd_max_slices.argtypes = []
     lib.snt_soft_project_fwd_max_slices.restype = i
+    lib.snt_soft_project_fwd_wide.argtypes = [*[p] * 5, *[i] * 4, p]
+    lib.snt_soft_project_fwd_wide.restype = i
+    lib.snt_soft_project_fwd_wide_warps.argtypes = []
+    lib.snt_soft_project_fwd_wide_warps.restype = i
+    lib.snt_soft_project_max_register_k.argtypes = []
+    lib.snt_soft_project_max_register_k.restype = i
     lib.snt_soft_project_bwd_smem.argtypes = [i, i, i]
     lib.snt_soft_project_bwd_smem.restype = sz
     lib.snt_soft_project_bwd_limit.argtypes = [i]

@@ -13,6 +13,12 @@ so on the card they agree bit for bit; a picked point with a NaN
 coordinate makes every distance NaN, and the next pick is index 0, as in
 the JAX package.
 
+Clouds the block kernel cannot take (N above 16,384, or the cloud and the
+picks beyond a block's shared memory) run its cluster variant, counted
+as KERNEL_CLUSTER: any N up to int32 indexing and any k, with the same
+bits. Off the TPU the JAX package runs these through its XLA scan
+(samplenet_tpu/ops/fps.py:36-43).
+
 Precondition, as in the JAX package: given[b, :count[b]] lie in [0, N).
 """
 
@@ -32,6 +38,7 @@ from samplenet_tpu_torch.ops.cuda._build import (
 from samplenet_tpu_torch.ops.dispatch import count_launch, use_kernel
 
 KERNEL = "fps"
+KERNEL_CLUSTER = "fps_cluster"
 
 
 def _check_args(points, given, count, npoint) -> None:
@@ -89,8 +96,11 @@ def fps(points: torch.Tensor, given: torch.Tensor, count: torch.Tensor,
     xyz[b, t] == points[b, idx[b, t]] bit for bit, through the op
     samplenet::fps: `fps_plain` on CPU tensors, the kernel on CUDA tensors
     (ops/dispatch.py); under `plain_on_cuda()` the plain version on the
-    card. xyz is differentiable in points."""
+    card. xyz is differentiable in points; a strided cloud is copied
+    whole first, as the JAX package takes any array."""
     _check_args(points, given, count, npoint)
+    if not points.is_contiguous():
+        points = points.contiguous()
     if use_kernel(points):  # checked here too: tracing runs no CUDA impl
         _check_cuda(points, given, count)
     elif points.device.type == "cuda":             # under plain_on_cuda()
@@ -140,7 +150,12 @@ def kernel_plan(device: int, b: int, n: int, k: int) -> fp.FpsPlan:
     if (lib.snt_fps_smem(n, k) != fp.fps_smem(n, k)
             or lib.snt_fps_shared_points() != fp.SHARED_POINTS
             or any(lib.snt_fps_max_threads(r, s) != fp.max_threads(r, s)
-                   for r, s in widths)):
+                   for r, s in widths)
+            or [lib.snt_fps_cluster_limit(i) for i in range(4)]
+            != [fp.CLUSTER_BLOCKS, fp.CLUSTER_THREADS, fp.GIVEN_CHUNK,
+                fp.CLUSTER_POINTS[-1]]
+            or any(lib.snt_fps_cluster_smem(r) != fp.cluster_smem(r)
+                   for r in (0, *fp.CLUSTER_POINTS))):
         raise RuntimeError("csrc/fps.cu and fps_plan.py disagree on shared "
                            "memory or block widths")
     props = torch.cuda.get_device_properties(device)
@@ -174,6 +189,19 @@ def launch(points, given, count, npoint: int, plan: fp.FpsPlan):
     xyz = torch.empty((b, npoint, 3), dtype=torch.float32,
                       device=points.device)
     lib = library()
+    if plan.cluster:
+        # the streamed running distances: the kernel's workspace
+        dist = (torch.empty((b, n), dtype=torch.float32, device=points.device)
+                if plan.stream else None)
+        with torch.cuda.device(points.device):
+            err = lib.snt_fps_cluster(
+                points.data_ptr(), given.data_ptr(), count.data_ptr(),
+                idx.data_ptr(), xyz.data_ptr(),
+                None if dist is None else dist.data_ptr(), b, n, npoint,
+                plan.points, stream_handle(points))
+        check(err, KERNEL_CLUSTER)
+        count_launch(KERNEL_CLUSTER)
+        return idx, xyz
     with torch.cuda.device(points.device):
         err = lib.snt_fps(points.data_ptr(), given.data_ptr(),
                           count.data_ptr(), idx.data_ptr(), xyz.data_ptr(),

@@ -16,6 +16,17 @@ points, while the batch leaves the card short of WARPS_PER_SM warps an SM
 fewest points a thread that hold the cloud. PERF.md has the sweep of
 warps and points on an H100 these rules were fitted to
 (tools/time_fps.py). The kernel's outputs do not depend on the plan.
+
+Where no such plan fits (N above 16,384, or the cloud and the picks beyond
+a block's shared memory), the cluster variant takes the cloud:
+CLUSTER_BLOCKS blocks of CLUSTER_THREADS a cloud (one thread-block cluster
+of the portable size), each staging its slice of the cloud
+(CLUSTER_THREADS * R points, 12 bytes each) in shared memory and holding R
+running distances a thread in registers, R the fewest of CLUSTER_POINTS
+that hold the cloud; past that (more than 131,072 points), `stream`: the
+running distances in a [B, N] workspace in device memory and the xyz read
+from it every step. k costs it no shared memory; every cloud it gets has
+7,000 points or more. Only int32 indexing caps N.
 """
 
 from __future__ import annotations
@@ -28,22 +39,38 @@ SHARED_POINTS = 16                  # kSharedPoints
 PLAN_WARPS = 8                      # the widest block the plan picks
 WARPS_PER_SM = 12
 SLOT_BYTES = 2 * MAX_WARPS * 8      # two rows of (bits, index) a warp
+# the cluster variant (fps_cluster_kernel)
+CLUSTER_BLOCKS = 8                  # kClusterBlocks: blocks a cloud
+CLUSTER_THREADS = 1024              # kClusterThreads
+GIVEN_CHUNK = 256                   # kGivenChunk: given points staged at once
+CLUSTER_POINTS = (1, 2, 4, 8, 16)   # its R with the slice in shared memory
+MAX_POINTS = 2**31 - 1              # int32 indexing
 
 
 @dataclass(frozen=True)
 class FpsPlan:
-    warps: int       # a block has 32 * warps threads, one block a cloud
-    points: int      # R, points a thread
+    warps: int       # a block has 32 * warps threads
+    points: int      # R, points a thread (cluster variant: 0 streamed)
     shared: bool     # xyz reread from shared memory every step
+    cluster: bool = False   # the cluster variant; else one block a cloud
 
     @property
     def threads(self) -> int:
         return 32 * self.warps
 
     @property
+    def stream(self) -> bool:
+        """The cluster variant with the distances in device memory."""
+        return self.cluster > 0 and self.points == 0
+
+    @property
     def capacity(self) -> int:
-        """Points a block holds."""
-        return self.threads * self.points
+        """Points a block holds (a cluster in the cluster variant; the
+        streamed variant holds any cloud)."""
+        if self.stream:
+            return MAX_POINTS
+        return self.threads * self.points * (
+            CLUSTER_BLOCKS if self.cluster else 1)
 
 
 def max_threads(points: int, shared: bool) -> int:
@@ -61,8 +88,18 @@ def fps_smem(n: int, k: int) -> int:
     return SLOT_BYTES + -(-12 * n // 16) * 16 + 20 * k
 
 
+def cluster_smem(points: int) -> int:
+    """Dynamic shared memory of a block of the cluster variant, as the
+    kernel counts it: its slice of the cloud, 12 bytes a point."""
+    return CLUSTER_THREADS * points * 12
+
+
 def valid(plan: FpsPlan, n: int) -> bool:
     """Whether the kernel takes `plan` for a cloud of n points."""
+    if plan.cluster:
+        return (not plan.shared and plan.threads == CLUSTER_THREADS
+                and (plan.stream or plan.points in CLUSTER_POINTS)
+                and plan.capacity >= n)
     allowed = (SHARED_POINTS,) if plan.shared else REG_POINTS
     return (1 <= plan.warps <= MAX_WARPS and plan.points in allowed
             and plan.threads <= max_threads(plan.points, plan.shared)
@@ -89,17 +126,24 @@ def plan_fps(b: int, n: int, k: int, *, sms: int,
     if min(b, n, k, sms) < 1:
         raise ValueError(f"plan_fps needs positive sizes, got b={b}, n={n}, "
                          f"k={k}, sms={sms}")
-    smem = fps_smem(n, k)
-    if smem > smem_limit:
-        raise ValueError(f"N={n} points and k={k} picks need {smem} bytes of "
-                         f"shared memory, more than a block can hold "
-                         f"({smem_limit})")
-    floor = 1          # no wider than the cloud: a warp of 32 points
-    while (floor < PLAN_WARPS and b * floor < sms * WARPS_PER_SM
-           and 32 * floor < n):
-        floor *= 2
-    for plan in candidates(n):
-        if plan.warps >= floor:
+    if max(n, k, b * CLUSTER_BLOCKS) > MAX_POINTS:
+        raise ValueError(f"B={b}, N={n}, k={k} exceed int32 indexing")
+    if fps_smem(n, k) <= smem_limit:
+        floor = 1          # no wider than the cloud: a warp of 32 points
+        while (floor < PLAN_WARPS and b * floor < sms * WARPS_PER_SM
+               and 32 * floor < n):
+            floor *= 2
+        for plan in candidates(n):
+            if plan.warps >= floor:
+                return plan
+    return plan_cluster(n, smem_limit=smem_limit)
+
+
+def plan_cluster(n: int, *, smem_limit: int) -> FpsPlan:
+    """The cluster variant's plan for a cloud of n points: the fewest
+    points a thread that hold the cloud in registers, else streamed."""
+    for r in CLUSTER_POINTS:
+        plan = FpsPlan(CLUSTER_THREADS // 32, r, False, True)
+        if valid(plan, n) and cluster_smem(r) <= smem_limit:
             return plan
-    raise ValueError(f"N={n} points exceed the fps kernel's "
-                     f"{MAX_WARPS * 32 * SHARED_POINTS} points a cloud")
+    return FpsPlan(CLUSTER_THREADS // 32, 0, False, True)

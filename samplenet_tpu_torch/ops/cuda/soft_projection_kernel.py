@@ -5,7 +5,7 @@ that joins them.
 Mirrors samplenet_tpu/ops/pallas/soft_projection_kernel.py: the forward
 body `_soft_projection_kernel` (:35-80) and the VJP of `soft_project`
 (:150-193), which the JAX package recomputes in XLA from the saved
-indices; here the backward is a kernel too. For each query, the k <= 16
+indices; here the backward is a kernel too. For each query, the k
 nearest points of its cloud, ascending, ties to the lowest index, weigh
 w_i = exp(-(d_i - d_0) / sigma2) and the output is sum w_i p_i / sum w_i.
 The argument `sigma` is already sigma^2 (:45, :74), and is read from
@@ -22,6 +22,15 @@ outputs do not depend on them. The backward's scatter into the points is a
 one-hot bmm here, and in the kernels each point's entries summed in entry
 order (query, rank): no float atomics, and no cap on N.
 The kernels take f32; the plain versions also take f64 (a reference).
+
+Any 1 <= k <= N runs a kernel: k <= 16 the register kernels, as the JAX
+package runs its Pallas kernel there, and above that the wide ones
+(csrc/soft_projection.cu, launch names KERNEL_FWD_WIDE and
+KERNEL_BWD_WIDE), where the JAX package runs its XLA path
+(samplenet_tpu/models/soft_projection.py:108); a cloud of more queries
+than the register forward's grid holds (16,776,960) takes the wide
+forward at any k. The wide forward's idx is bit-equal to the plain
+version's too.
 """
 
 from __future__ import annotations
@@ -38,7 +47,8 @@ from samplenet_tpu_torch.ops.knn import group_point
 
 KERNEL_FWD = "soft_projection_fwd"
 KERNEL_BWD = "soft_projection_bwd"
-MAX_GROUP = 16           # csrc/soft_projection.cu kMaxK
+KERNEL_FWD_WIDE = "soft_projection_fwd_wide"   # k > spp.MAX_REGISTER_K
+KERNEL_BWD_WIDE = "soft_projection_bwd_wide"
 
 
 def _check_args(points, queries, sigma, k: int) -> None:
@@ -138,13 +148,33 @@ def fwd_plan(device: int, b: int, n: int, m: int) -> spp.FwdPlan:
     return spp.plan_fwd(b, n, m, sms=sms)
 
 
+@functools.lru_cache(maxsize=256)
+def fwd_wide_plan(b: int, n: int, m: int, k: int) -> spp.WideFwdPlan:
+    """The wide forward's plan; checks that the kernels count their
+    register k and the wide block as the plan does."""
+    lib = library()
+    if (lib.snt_soft_project_max_register_k() != spp.MAX_REGISTER_K
+            or lib.snt_soft_project_fwd_wide_warps() != spp.WIDE_WARPS):
+        raise RuntimeError("csrc/soft_projection.cu and soft_projection_plan"
+                           ".py disagree on the register k or the wide "
+                           "block")
+    return spp.plan_fwd_wide(b, n, m, k)
+
+
+@functools.lru_cache(maxsize=256)
+def _takes_register_fwd(device: int, b: int, m: int, k: int) -> bool:
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return spp.takes_register_fwd(b, m, k, sms=sms)
+
+
 def soft_project_fwd_cuda(points, queries, sigma, k: int):
     _cuda_checks(points, queries, sigma)
     b, n, _ = points.shape
-    if k > MAX_GROUP:
-        raise ValueError(f"the soft_projection kernel takes k <= {MAX_GROUP}, "
-                         f"got {k}")
-    plan = fwd_plan(points.device.index, b, n, queries.shape[1])
+    m = queries.shape[1]
+    if not _takes_register_fwd(points.device.index, b, m, k):
+        return launch_fwd_wide(points, queries, sigma, k,
+                               fwd_wide_plan(b, n, m, k))
+    plan = fwd_plan(points.device.index, b, n, m)
     return launch_fwd(points, queries, sigma, k, plan)
 
 
@@ -166,6 +196,23 @@ def launch_fwd(points, queries, sigma, k: int, plan: spp.FwdPlan):
     return out, idx
 
 
+def launch_fwd_wide(points, queries, sigma, k: int, plan: spp.WideFwdPlan):
+    """The wide forward kernel on checked arguments, any 1 <= k <= N (the
+    card tests also run it at k <= 16)."""
+    b, n, _ = points.shape
+    m = queries.shape[1]
+    out = torch.empty((b, m, 3), dtype=torch.float32, device=points.device)
+    idx = torch.empty((b, m, k), dtype=torch.int32, device=points.device)
+    lib = library()
+    with torch.cuda.device(points.device):
+        err = lib.snt_soft_project_fwd_wide(
+            points.data_ptr(), queries.data_ptr(), sigma.data_ptr(),
+            out.data_ptr(), idx.data_ptr(), b, n, m, k, stream_handle(points))
+    check(err, KERNEL_FWD_WIDE)
+    count_launch(KERNEL_FWD_WIDE)
+    return out, idx
+
+
 @functools.lru_cache(maxsize=256)
 def bwd_plan(device: int, b: int, n: int, m: int, k: int) -> spp.BwdPlan:
     """The backward kernels' launch plan on CUDA device `device`; checks
@@ -177,6 +224,7 @@ def bwd_plan(device: int, b: int, n: int, m: int, k: int) -> spp.BwdPlan:
     limits = [lib.snt_soft_project_bwd_limit(i) for i in range(5)]
     if (limits != [spp.MAX_TILE, spp.MAX_POINT_THREADS, spp.MAX_PER,
                    spp.UNROLL, spp.STRIPES]
+            or lib.snt_soft_project_max_register_k() != spp.MAX_REGISTER_K
             or lib.snt_soft_project_bwd_smem(plan.threads, plan.span, m * k)
             != spp.bwd_smem(plan.threads, plan.span, m * k)):
         raise RuntimeError("csrc/soft_projection.cu and soft_projection_plan"
@@ -220,8 +268,9 @@ def launch_bwd(points, queries, sigma, idx, grad_out, plan: spp.BwdPlan):
             dqueries.data_ptr(), base + 24 * entries, base,
             base + 16 * entries, b, n, m, k, plan.tile, plan.threads,
             plan.span, stream_handle(points))
-    check(err, KERNEL_BWD)
-    count_launch(KERNEL_BWD)
+    name = KERNEL_BWD if k <= spp.MAX_REGISTER_K else KERNEL_BWD_WIDE
+    check(err, name)
+    count_launch(name)
     # the partials summed in a fixed order
     return dpoints, dqueries, ws[6 * entries:].sum().reshape(1)
 

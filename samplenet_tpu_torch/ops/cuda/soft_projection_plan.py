@@ -36,12 +36,22 @@ where the clouds are fewer than the SMs, and four points a thread where
 they are not (a block of 64 threads). PERF.md has the sweep of span and
 threads on an H100 these rules were fitted to
 (tools/time_soft_projection.py). The outputs do not depend on the plan.
+
+Group sizes above MAX_REGISTER_K, and clouds of more queries than the
+register forward's grid axis holds, take the wide forward kernel
+(`takes_register_fwd`): one warp a query over a flat grid of all B*M
+queries, WIDE_WARPS a block, a radix
+histogram of RADIX_BINS counters a warp in static shared memory and
+nothing that grows with N or k; its plan is that grid. The backward takes
+any k under the plan above (its first kernel loops over k above
+MAX_REGISTER_K).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+MAX_REGISTER_K = 16  # kMaxK: the register kernels' k; above, the wide ones
 MAX_WARPS = 8        # kMaxWarps: __launch_bounds__(256)
 MAX_SLICES = 8       # kMaxSlices
 LANES_PER_SM = 30 * 32
@@ -79,21 +89,65 @@ def fwd_smem(chunk: int) -> int:
     return chunk * POINT_BYTES
 
 
+def _fwd_launch(b: int, m: int, sms: int) -> tuple[int, int, int]:
+    """(slices, warps, query tiles) of the register forward."""
+    slices = 1
+    while slices < MAX_SLICES and b * m * slices < sms * LANES_PER_SM:
+        slices *= 2
+    warps = min(MAX_WARPS, -(-m * slices // 32))
+    return slices, warps, -(-m * slices // (32 * warps))
+
+
+def takes_register_fwd(b: int, m: int, k: int, *, sms: int) -> bool:
+    """Whether the register forward takes the shape: k up to
+    MAX_REGISTER_K and its query tiles within a grid axis (M up to
+    16,776,960 a cloud). The wide forward takes the rest."""
+    return k <= MAX_REGISTER_K and _fwd_launch(b, m, sms)[2] <= MAX_GRID_Y
+
+
 def plan_fwd(b: int, n: int, m: int, *, sms: int) -> FwdPlan:
     """The plan for B clouds of n points and m queries each on a card of
     `sms` SMs."""
     if min(b, n, m, sms) < 1:
         raise ValueError(f"plan_fwd needs positive sizes, got b={b}, n={n}, "
                          f"m={m}, sms={sms}")
-    slices = 1
-    while slices < MAX_SLICES and b * m * slices < sms * LANES_PER_SM:
-        slices *= 2
-    warps = min(MAX_WARPS, -(-m * slices // 32))
-    grid_y = -(-m * slices // (32 * warps))
+    slices, warps, grid_y = _fwd_launch(b, m, sms)
     if grid_y > MAX_GRID_Y:
         raise ValueError(f"M={m} exceeds the kernel's grid")
     return FwdPlan(chunk=fwd_chunk(n), warps=warps, slices=slices,
                    grid=(b, grid_y))
+
+
+WIDE_WARPS = 8       # kWideWarps: queries a block of the wide forward
+RADIX_BINS = 256     # kRadixBins: 8 bits a pass
+
+
+@dataclass(frozen=True)
+class WideFwdPlan:
+    warps: int       # queries a block, one a warp
+    grid: int        # blocks: ceil(B * M / warps)
+
+    @property
+    def smem(self) -> int:
+        """Static shared memory of a block: a histogram a warp."""
+        return wide_smem(self.warps)
+
+
+def wide_smem(warps: int) -> int:
+    return warps * RADIX_BINS * 4
+
+
+def plan_fwd_wide(b: int, n: int, m: int, k: int) -> WideFwdPlan:
+    """The wide forward's plan for B clouds of n points and m queries, any
+    1 <= k <= n."""
+    if min(b, n, m, k) < 1 or k > n:
+        raise ValueError(f"plan_fwd_wide needs positive sizes and k <= n, "
+                         f"got b={b}, n={n}, m={m}, k={k}")
+    grid = -(-b * m // WIDE_WARPS)
+    if grid > MAX_GRID_X:
+        raise ValueError(f"B={b} x M={m} queries exceed the wide kernel's "
+                         f"grid")
+    return WideFwdPlan(warps=WIDE_WARPS, grid=grid)
 
 
 # the backward: soft_project_bwd_entries and soft_project_bwd_points

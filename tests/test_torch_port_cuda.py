@@ -70,7 +70,13 @@ partial sums in registers, or carried through dh_prev from 512 inputs
 on) and at 130 (padded to 132) by the exact chain's rule, its backward
 bit for bit under other chunk widths and from run to run; the ghost
 chain and point_mlp_max (f32 and bf16) at 130 and 1024 against their
-plain versions by their rules, each launched.
+plain versions by their rules, each launched. Group sizes above 16 on
+the wide soft-projection kernels, and clouds beyond one FPS block on its
+cluster variant (N above 16,384 up to 2^20, streamed past 131,072 points,
+k = N = 8192, every R), by the same rules as the kernels
+they extend: idx bit-equal, out within 1e-5, gradients at rtol 1e-4 /
+atol 1e-5, the backward bit for bit across plans and runs; FPS's idx
+and xyz bit for bit; today's shapes still on today's kernels.
 """
 
 import contextlib
@@ -491,12 +497,27 @@ def test_train_forward_is_deterministic_and_f32_accurate(dev, widths, b, n):
 
 
 def test_kernels_refuse_what_they_do_not_take(dev):
-    from samplenet_tpu_torch.ops.cuda import fps, nn_direction, point_mlp_max
+    from samplenet_tpu_torch.ops.cuda import (
+        fps,
+        fps_plain,
+        nn_direction,
+        point_mlp_max,
+    )
+    from samplenet_tpu_torch.ops.dispatch import (
+        launch_counts,
+        reset_launch_counts,
+    )
 
-    pts = torch.zeros(1, 20000, 3, device=dev)   # 320 KB of shared memory
-    with pytest.raises(ValueError, match="shared memory"):
-        fps(pts, torch.zeros(1, 4, dtype=torch.int32, device=dev),
+    # 20000 points, 240 KB of cloud: more than a block's shared memory,
+    # taken by the cluster variant
+    pts = torch.zeros(1, 20000, 3, device=dev)
+    args = (pts, torch.zeros(1, 4, dtype=torch.int32, device=dev),
             torch.ones(1, dtype=torch.int32, device=dev), 4)
+    reset_launch_counts()
+    ik, xk = fps(*args)
+    assert launch_counts() == {"fps_cluster": 1}
+    ip, xp = fps_plain(*args)
+    assert torch.equal(ik, ip) and torch.equal(xk, xp)
     x = torch.zeros(1, 8, 3, device=dev)
     with pytest.raises(ValueError, match="at most 8 layers"):
         point_mlp_max(x, (torch.zeros(3, 4, device=dev),
@@ -919,16 +940,275 @@ def test_soft_projection_backward_refuses_a_plan_the_kernel_disagrees_with(
     spk.soft_project_bwd_cuda(*args)
 
 
+# ------------------------------------------------ group sizes above 16
+
+# (B, N, M, k): k = 17..1024 at B=4, N=1024, M=64, the classification
+# step's shape at k = 32 and the reconstruction sampler's at 32,768 points
+WIDE_SHAPES = [(4, 1024, 64, k) for k in (17, 24, 32, 64, 256, 1024)] + [
+    (1024, 1024, 32, 32), (4, 32768, 64, 32)]
+
+
+@pytest.mark.parametrize("b,n,m,k", WIDE_SHAPES)
+def test_soft_projection_wide_k_matches_plain(dev, b, n, m, k):
+    """soft_project and .backward() on the wide kernels against the plain
+    path: idx bit-equal, out and the gradients by the k <= 16 rules."""
+    from samplenet_tpu_torch.ops.dispatch import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    rng = np.random.default_rng(b + k)
+    pts, qs, cot = (_randn(rng, b, c, 3, dev=dev) for c in (n, m, m))
+    sigma = torch.tensor(0.5, device=dev)
+    reset_launch_counts()
+    ok, ik, gk = _soft_run(pts, qs, sigma, k, cot)
+    torch.cuda.synchronize()
+    assert launch_counts() == {"soft_projection_fwd_wide": 1,
+                               "soft_projection_bwd_wide": 1}
+    op, ip, gp = _soft_run(pts, qs, sigma, k, cot, plain=True)
+    assert torch.equal(ik, ip)
+    torch.testing.assert_close(ok, op, rtol=1e-5, atol=1e-5)
+    for a, c in zip(gk, gp):
+        torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind,b,n,m,k", [
+    ("nan", 3, 200, 40, 17),         # NaN points and NaN queries
+    ("nan", 2, 40, 9, 40),           # k = N
+    ("triples", 3, 300, 50, 33),     # ties to the lowest index
+    ("triples", 2, 96, 17, 96),
+    ("randn", 4, 20, 11, 20),        # n < 32
+    ("randn", 2, 5000, 40, 100),     # n longer than the k <= 16 chunk
+    ("cluster", 2, 2048, 40, 600),   # 512 points next to the first query
+    ("randn", 5, 1000, 77, 17),      # a ragged last block of queries
+])
+def test_soft_projection_wide_forward_edge_cases(dev, kind, b, n, m, k):
+    from samplenet_tpu_torch.ops.cuda import soft_projection_kernel as spk
+
+    pts, qs, sigma = _soft_fwd_inputs(kind, b, n, m, b * n + m + k, dev)
+    ok, ik = spk.soft_project_fwd_cuda(pts, qs, sigma, k)
+    torch.cuda.synchronize()
+    _soft_fwd_check(pts, qs, sigma, k, ok, ik)
+
+
+@pytest.mark.parametrize("kind,k", [("randn", 1), ("nan", 7), ("triples", 16),
+                                    ("cluster", 16)])
+def test_soft_projection_wide_forward_at_small_k(dev, kind, k):
+    """The wide kernel takes every k (the wrapper sends it k > 16 only):
+    at k <= 16 its idx equal the register kernel's and the plain
+    version's."""
+    from samplenet_tpu_torch.ops.cuda import soft_projection_kernel as spk
+    from samplenet_tpu_torch.ops.cuda import soft_projection_plan as spp
+
+    b, n, m = 3, 1000, 70
+    pts, qs, sigma = _soft_fwd_inputs(kind, b, n, m, k, dev)
+    ow, iw = spk.launch_fwd_wide(pts, qs, sigma, k,
+                                 spp.plan_fwd_wide(b, n, m, k))
+    torch.cuda.synchronize()
+    _soft_fwd_check(pts, qs, sigma, k, ow, iw)
+    assert torch.equal(iw, spk.soft_project_fwd_cuda(pts, qs, sigma, k)[1])
+
+
+WIDE_BWD_CASES = [
+    ("one", 2, 50, 300, 17),       # one point takes all M*k entries
+    ("same", 2, 50, 200, 32),      # 32 points take 200 entries each
+    ("knn", 3, 1000, 33, 17),      # ragged B, N and M
+    ("knn", 2, 16384, 64, 64),     # a long cloud
+    ("knn", 5, 77, 300, 77),       # k = N
+    ("zero", 3, 1000, 70, 24),     # a zero cotangent
+    ("knn", 4, 1024, 64, 256),
+]
+
+
+@pytest.mark.parametrize("kind,b,n,m,k", WIDE_BWD_CASES)
+def test_soft_projection_wide_backward_edge_cases(dev, kind, b, n, m, k):
+    """Against the plain version, and bit for bit under other launch plans
+    and from run to run."""
+    from samplenet_tpu_torch.ops.cuda import soft_projection_kernel as spk
+    from samplenet_tpu_torch.ops.cuda.soft_projection_plan import BwdPlan
+
+    args = _soft_bwd_inputs(kind, b, n, m, k, b + n + m + k, dev)
+    got = spk.soft_project_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    want = spk.soft_project_bwd_plain(*args)
+    for a, c in zip(got, want):
+        torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-5)
+    if kind == "zero":
+        assert not any(t.any() for t in got)
+    for other in (BwdPlan(32, 32, 32), BwdPlan(128, 128, 512),
+                  BwdPlan(256, 64, 256)):
+        again = spk.launch_bwd(*args, other)
+        assert all(torch.equal(a, c) for a, c in zip(again, got)), other
+    again = spk.soft_project_bwd_cuda(*args)
+    assert all(torch.equal(a, c) for a, c in zip(again, got))
+
+
+def test_soft_projection_more_queries_than_the_register_grid(dev):
+    """16,777,000 queries of one cloud, k = 4: past the register forward's
+    grid axis, the wide forward takes them."""
+    from samplenet_tpu_torch.ops.cuda import soft_projection_kernel as spk
+    from samplenet_tpu_torch.ops.dispatch import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    rng = np.random.default_rng(5)
+    pts, qs = _randn(rng, 1, 16, 3, dev=dev), _randn(rng, 1, 16777000, 3,
+                                                     dev=dev)
+    sigma = torch.tensor([0.5], device=dev)
+    reset_launch_counts()
+    ok, ik = spk.soft_project_fwd_cuda(pts, qs, sigma, 4)
+    torch.cuda.synchronize()
+    assert launch_counts() == {"soft_projection_fwd_wide": 1}
+    _soft_fwd_check(pts, qs, sigma, 4, ok, ik)
+
+
+def test_soft_projection_small_k_keeps_the_register_kernels(dev):
+    from samplenet_tpu_torch.ops.cuda import soft_projection_kernel as spk
+    from samplenet_tpu_torch.ops.dispatch import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    rng = np.random.default_rng(0)
+    pts, qs, cot = (_randn(rng, 2, c, 3, dev=dev) for c in (300, 40, 40))
+    for k in (1, 7, 8, 16):
+        reset_launch_counts()
+        _soft_run(pts, qs, torch.tensor(0.5, device=dev), k, cot)
+        assert launch_counts() == {spk.KERNEL_FWD: 1, spk.KERNEL_BWD: 1}
+    assert spk.fwd_plan(0, 1024, 1024, 32) == spk.spp.plan_fwd(
+        1024, 1024, 32, sms=torch.cuda.get_device_properties(0)
+        .multi_processor_count)
+
+
+# ------------------------------------------------ FPS beyond one block
+
+@pytest.mark.parametrize("b,n,k,counts", [
+    (2, 16385, 64, "random"), (4, 16385, 1024, "random"),
+    (2, 32768, 64, "random"), (3, 32768, 1024, "random"),
+    (2, 100003, 64, "random"), (2, 100003, 1024, "random"),
+    (2, 8192, 8192, "random"),       # k = N: the picks beyond shared memory
+    (1, 2**20, 256, "one"),          # streamed running distances
+    (2, 17600, 1024, "all"),
+])
+def test_fps_cluster_bit_equal(dev, b, n, k, counts):
+    from samplenet_tpu_torch.ops.cuda import fps_kernel
+    from samplenet_tpu_torch.ops.dispatch import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    rng = np.random.default_rng(n + k)
+    pts = _randn(rng, b, n, 3, dev=dev)
+    given, count = _fps_given(rng, b, n, k, counts, dev)
+    plan = fps_kernel.kernel_plan(0, b, n, k)
+    assert plan.cluster and plan.stream == (n > 131072)
+    reset_launch_counts()
+    _fps_check(pts, given, count, k)
+    assert launch_counts() == {"fps_cluster": 1}
+
+
+@pytest.mark.parametrize("kind", ["nan_picked", "nan_given", "all_nan",
+                                  "grid"])
+def test_fps_cluster_on_nan_clouds_and_ties(dev, kind):
+    b, n, k = 3, 20000, 64
+    rng = np.random.default_rng(len(kind))
+    pts = _randn(rng, b, n, 3, dev=dev)
+    given, count = _fps_given(rng, b, n, k, "random", dev)
+    if kind == "nan_picked":
+        pts[:, 17000, 1] = float("nan")
+    elif kind == "nan_given":
+        pts[:, 5, 2] = float("nan")
+        given[:, 0] = 5
+    elif kind == "all_nan":
+        pts[1] = float("nan")
+    else:
+        g = torch.arange(28, dtype=torch.float32, device=dev)
+        grid = torch.stack(torch.meshgrid(g, g, g, indexing="ij"), -1)
+        pts = grid.reshape(1, -1, 3)[:, :n].repeat(b, 1, 1).contiguous()
+    ik = _fps_check(pts.contiguous(), given, count, k)
+    if kind == "all_nan":
+        assert not ik[1, int(count[1]):].any()
+
+
+@pytest.mark.parametrize("n", [20000, 5000])
+def test_fps_cluster_under_every_plan(dev, n):
+    """The outputs do not depend on R or streaming, nor on the run."""
+    from samplenet_tpu_torch.ops.cuda import fps_plan
+
+    b, k = 2, 300
+    rng = np.random.default_rng(n)
+    pts = _randn(rng, b, n, 3, dev=dev)
+    pts[0, n // 2, 1] = float("nan")
+    given, count = _fps_given(rng, b, n, k, "random", dev)
+    plans = [p for p in (fps_plan.FpsPlan(32, r, False, True)  # streamed: 0
+                         for r in (0, *fps_plan.CLUSTER_POINTS))
+             if fps_plan.valid(p, n)]
+    assert len(plans) >= 4
+    for plan in plans:
+        _fps_check(pts, given, count, k, plan)
+
+
+def test_fps_todays_shapes_keep_the_block_kernel(dev):
+    from samplenet_tpu_torch.ops.cuda import fps_kernel
+    from samplenet_tpu_torch.ops.dispatch import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    rng = np.random.default_rng(1)
+    for b, n, k in ((1024, 1024, 32), (50, 2048, 64), (3, 5000, 64),
+                    (1, 16384, 8), (1, 7000, 7000)):
+        pts = _randn(rng, b, n, 3, dev=dev)
+        given, count = _fps_given(rng, b, n, k, "random", dev)
+        assert not fps_kernel.kernel_plan(0, b, n, k).cluster
+        reset_launch_counts()
+        _fps_check(pts, given, count, k)
+        assert launch_counts() == {"fps": 1}
+
+
+@pytest.mark.parametrize("n", [1000, 20000])
+def test_fps_takes_a_strided_cloud(dev, n):
+    from samplenet_tpu_torch.ops.fps import farthest_point_sample_with_points
+
+    rng = np.random.default_rng(n)
+    cm = _randn(rng, 2, 3, n, dev=dev)             # channel-major storage
+    got = farthest_point_sample_with_points(64, cm.transpose(1, 2))
+    want = farthest_point_sample_with_points(
+        64, cm.transpose(1, 2).contiguous())
+    assert all(torch.equal(a, c) for a, c in zip(got, want))
+
+
+def test_fps_cluster_refuses_a_plan_it_does_not_take(dev):
+    from samplenet_tpu_torch.ops.cuda import fps_kernel, fps_plan
+
+    pts = torch.zeros(1, 9000, 3, device=dev)
+    given, count = _fps_given(np.random.default_rng(0), 1, 9000, 8, "one",
+                              dev)
+    for bad in (fps_plan.FpsPlan(32, 1, False, True),   # holds 8192 points
+                fps_plan.FpsPlan(32, 3, False, True),   # R = 3
+                fps_plan.FpsPlan(32, 32, False, True)):  # R above 16
+        with pytest.raises(RuntimeError, match="fps_cluster"):
+            fps_kernel.launch(pts, given, count, 8, bad)
+
+
 def test_train_kernels_refuse_what_they_do_not_take(dev):
     from samplenet_tpu_torch.ops.cuda import (
         point_mlp_exact_train_max,
         soft_project,
     )
+    from samplenet_tpu_torch.ops.dispatch import (
+        launch_counts,
+        reset_launch_counts,
+    )
 
+    # k = 17 is taken: the wide kernel, not a refusal
     pts = torch.zeros(1, 40, 3, device=dev)
-    with pytest.raises(ValueError, match="k <= 16"):
-        soft_project(pts, pts[:, :4].contiguous(),
-                     torch.tensor(1.0, device=dev), 17)
+    reset_launch_counts()
+    _, idx = soft_project(pts, pts[:, :4].contiguous(),
+                          torch.tensor(1.0, device=dev), 17)
+    assert idx.shape == (1, 4, 17)
+    assert launch_counts() == {"soft_projection_fwd_wide": 1}
     w = torch.zeros(3, 6, device=dev, dtype=torch.float64)
     v = torch.zeros(6, device=dev, dtype=torch.float64)
     with pytest.raises(TypeError, match="float32"):

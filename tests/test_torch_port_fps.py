@@ -389,12 +389,17 @@ def test_every_plan_holds_the_cloud(b, n):
 
 
 def test_plan_refuses_what_the_kernel_cannot_take():
-    with pytest.raises(ValueError, match="shared memory"):
-        fp.plan_fps(1, 20000, 4, **H100)
-    with pytest.raises(ValueError, match="points a cloud"):
-        fp.plan_fps(1, 16385, 4, sms=132, smem_limit=10**6)
+    """The shapes the block kernel cannot hold (its shared memory, its
+    16,384 points a cloud) are planned on the cluster variant; only
+    non-positive sizes and int32 indexing are refused."""
+    for b, n, k, limit in ((1, 20000, 4, H100["smem_limit"]),
+                           (1, 16385, 4, 10**6)):
+        plan = fp.plan_fps(b, n, k, sms=132, smem_limit=limit)
+        assert plan.cluster and fp.valid(plan, n)
     with pytest.raises(ValueError, match="positive"):
         fp.plan_fps(0, 10, 4, **H100)
+    with pytest.raises(ValueError, match="int32"):
+        fp.plan_fps(1, 2**31, 4, **H100)
 
 
 def test_shared_memory_counts_the_kernels_layout():

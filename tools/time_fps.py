@@ -16,8 +16,12 @@ default_rng(SEED + 51 + i), as chip_smoke.py's `_inputs` makes them:
   bit-equal results);
 - the bound at that shape (chip_smoke.py's `_fps_bound`);
 - where the checkout's kernel takes a launch plan (ops/cuda/fps_plan.py),
-  the device time of every plan it takes for the shape, each checked
+  the device time of every block plan it takes for the shape, each checked
   against the planned launch's idx, and the plan's choice.
+
+Where the checkout has the cluster variant (fps_plan.plan_cluster), the
+same at each shape of chip_smoke.py's CAPS_FPS, beyond one block (no plan
+sweep there: the cluster variant has one plan a shape).
 
 Then the 1-NN kernels, whose NaN handling shares this tool's change:
 nn_direction at the eval shape (32 queries against 1024 points, B=1024)
@@ -113,7 +117,13 @@ def main() -> int:
             times.append(start.elapsed_time(end))
         return float(np.median(times))
 
-    for i, (name, (b, n, k, counts)) in enumerate(SHAPES.items()):
+    from samplenet_tpu_torch.ops.cuda import fps_plan
+
+    shapes = dict(SHAPES)
+    if hasattr(fps_plan, "plan_cluster"):
+        shapes.update((f"caps: {name}", shape)
+                      for name, shape in cs.CAPS_FPS.items())
+    for i, (name, (b, n, k, counts)) in enumerate(shapes.items()):
         rng = np.random.default_rng(cs.SEED + 51 + i)
         _, pts, given, count = cs._inputs(torch, rng, cs.DEVICE, b, n, k)
         if counts != "random":
@@ -129,7 +139,8 @@ def main() -> int:
               f"{ms!r} ms per call, {dev!r} ms device (bound {bd[0]!r} ms, "
               f"{bd[1]}); bits: idx {digest(idx)}, xyz {digest(xyz)} "
               f"({card})", flush=True)
-        if hasattr(fk, "kernel_plan"):
+        if (hasattr(fk, "kernel_plan")
+                and not getattr(fk.kernel_plan(0, b, n, k), "cluster", 0)):
             print(f"[{tag}] plans at the {name} shape: "
                   + plan_sweep(torch, cs, fk, pts, given, count, k, idx)
                   + f" ({card})", flush=True)

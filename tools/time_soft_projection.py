@@ -34,6 +34,10 @@ default_rng(SEED + 41 + i) and sigma^2 = 0.7, as chip_smoke.py's
   differs from the chosen one in one of them, each checked bit for bit
   against the planned launch.
 
+Where the checkout has the wide kernels (k above 16), the same lines at
+each shape of chip_smoke.py's CAPS_SOFT, but for the plan sweeps, which
+are the register kernels'.
+
 To compare two checkouts on one card, run it four times in a row: A, B,
 B, A.
 """
@@ -162,7 +166,11 @@ def main() -> int:
         torch.cuda.synchronize()
         return (t1 - t0) / HOST_CALLS * 1e3
 
-    for i, (path, (b, n, m, k)) in enumerate(cs.SOFT_SHAPES.items()):
+    shapes = dict(cs.SOFT_SHAPES)
+    if hasattr(spk, "launch_fwd_wide"):
+        shapes.update((f"caps: {path}", shape)
+                      for path, shape in cs.CAPS_SOFT.items())
+    for i, (path, (b, n, m, k)) in enumerate(shapes.items()):
         rng = np.random.default_rng(cs.SEED + 41 + i)
         pts, qs, sigma, cot = cs._soft_inputs(torch, rng, b, n, m)
         sigma = sigma.reshape(1)
@@ -191,11 +199,11 @@ def main() -> int:
         print(f"[{tag}] backward by kernel at the {path}'s shape: "
               f"{cs._profile_top(torch, bwd, 10, top=4)} ({card})",
               flush=True)
-        if hasattr(spk, "launch_fwd"):
+        if hasattr(spk, "launch_fwd") and k <= 16:
             print(f"[{tag}] plans at the {path}'s shape: "
                   + plan_sweep(torch, cs, spk, pts, qs, sigma, k, idx)
                   + f" ({card})", flush=True)
-        if hasattr(spk, "launch_bwd"):
+        if hasattr(spk, "launch_bwd") and k <= 16:
             print(f"[{tag}] backward plans at the {path}'s shape: "
                   + bwd_sweep(torch, cs, spk, pts, qs, sigma, idx, cot)
                   + f" ({card})", flush=True)
