@@ -287,7 +287,17 @@ bottleneck 128, k=8, both clouds sampled, against it frozen), and:
      --fps-baseline --group-size 32` (2 steps against a seeded AE), each
      in its own process, both at once: exit 0, finite losses and NRE, the
      wide kernels and fps_cluster launched; and the three new kernels
-     timed against their plain versions with their bounds.
+     timed against their plain versions with their bounds. Between them
+     (`_caps_repairs`) the inputs the kernels once refused:
+     point_mlp_max at 9 layers (f32 and bf16), the EMD at 65,537 clouds
+     (two launches), strided inputs to point_mlp_max and nn_direction,
+     and the soft projection's backward with its entries counted in 64
+     bits, each against its plain version.
+
+The phases that only run CLIs (the train, reconstruction, progressive,
+registration and bf16 CLIs) run CLI_WORKERS at a time beside the
+in-process phases after `caps`, and are joined before the data-parallel
+phase, so that no CLI shares the card with a timing.
 
 Tolerances of the train kernels against their plain versions: outputs and
 batch statistics rtol = atol = 1e-4 (point_mlp_exact) and 1e-5 with idx
@@ -568,6 +578,7 @@ BF16_STEPS = 2                 # per train configuration on the main path
 # the serving artifact: a frozen torch.export program of the eval forward
 # at the daemon's default batch; the f32 point_mlp_max's digest on
 # tools/time_exact_chain.py's inputs (PR 16, PERF.md), which the op must keep
+CLI_WORKERS = 3                # CLI-only phases run at once
 ARTIFACT_B = 256
 MAX_DIGEST = "ea0490ae91c9"
 ARTIFACT_OPS = ("samplenet.point_mlp_max.default",
@@ -2084,6 +2095,136 @@ def _caps_cli(torch, classifier, tmp: str) -> tuple[dict[str, int], str]:
                    f"{secs:.1f} s)")
 
 
+CAPS_DEEP = (3, 64, 128, 96, 64, 64, 128, 96, 64, 128)   # 9 layers
+CAPS_DEEP_B = 256
+CAPS_EMD_B = 65537             # clouds past one launch's 65,535
+
+
+def _caps_repairs(torch, card) -> None:
+    """The inputs the kernels once refused and the JAX package takes, each
+    against its plain version: point_mlp_max at 9 layers (its layer table
+    in device memory), f32 within rtol = atol = 1e-4 and bf16 norm-wise within 1e-3
+    (`phase_compare`'s and `phase_compare_bf16`'s rules); the EMD at
+    65,537 clouds (two launches), each chunk bit-equal to a call on its
+    clouds alone and the cost's worst relative error against the plain
+    version in f64 at most 1.5x the plain f32 version's, or 2e-4; strided
+    nn_direction and point_mlp_max inputs bit-equal to the contiguous
+    call; the soft projection's backward with its entries counted in 64
+    bits, as a cloud past 2^31 - 32,769 entries takes it, at the
+    classification step's shape at k = 7 and at k = 32: bit-equal to the
+    int count and within rtol 1e-4 / atol 1e-5 of the plain version (the
+    card test test_soft_projection_backward_past_int_entries runs 2^31
+    entries in one cloud, about 15 s of the card)."""
+    from samplenet_tpu_torch.ops.cuda import (
+        emd_cost,
+        emd_cost_plain,
+        nn_direction,
+        point_mlp_max,
+        point_mlp_max_plain,
+    )
+    from samplenet_tpu_torch.ops.cuda import emd_kernel as ek
+    from samplenet_tpu_torch.ops.cuda import soft_projection_kernel as spk
+    from samplenet_tpu_torch.ops.cuda import soft_projection_plan as spp
+    from samplenet_tpu_torch.ops.dispatch import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    rng = np.random.default_rng(SEED + 90)
+    wbs = _mlp_weights(torch, rng, DEVICE, CAPS_DEEP)
+    x = _randn(torch, rng, CAPS_DEEP_B, N, 3)
+    for bf16 in (False, True):
+        reset_launch_counts()
+        got = point_mlp_max(x, wbs, bf16=bf16)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        want = point_mlp_max_plain(x, wbs, bf16)
+        err = float(((got - want).norm() / want.norm()) if bf16
+                    else (got - want).abs().max())
+        if bf16:
+            ok = err <= 1e-3
+        else:
+            ok = bool(torch.allclose(got, want, rtol=1e-4, atol=1e-4))
+        if not ok or sum(counts.values()) != 1:
+            raise AssertionError(f"point_mlp_max at 9 layers, bf16={bf16}: "
+                                 f"{err!r}, launches {counts}")
+        dev = _device_ms(torch, lambda: point_mlp_max(x, wbs, bf16=bf16), 5)
+        log("caps", f"point_mlp_max at 9 layers {CAPS_DEEP}, "
+                    f"B={CAPS_DEEP_B}, N={N}, "
+                    f"bf16={bf16}: {'norm-wise' if bf16 else 'max |d|'} "
+                    f"{err!r} from plain; launches {counts}; device {dev!r} "
+                    f"ms ({card})")
+    strided = x.transpose(1, 2).contiguous().transpose(1, 2)
+    same = [torch.equal(point_mlp_max(strided, wbs, bf16=bf16),
+                        point_mlp_max(x, wbs, bf16=bf16))
+            for bf16 in (False, True)]
+    y = _randn(torch, rng, CAPS_DEEP_B, 2 * N, 3)[:, ::2]
+    same += [torch.equal(a, c) for a, c in zip(nn_direction(strided, y),
+                                               nn_direction(x, y.contiguous()))]
+    if not all(same):
+        raise AssertionError(f"strided inputs gave other bits: {same}")
+    log("caps", "strided x to point_mlp_max (f32, bf16) and strided x, y to "
+                "nn_direction: bit-equal to the contiguous calls")
+    del x, strided, y
+
+    x1, x2 = (_randn(torch, rng, CAPS_EMD_B, 32, 3) for _ in range(2))
+    reset_launch_counts()
+    full = emd_cost(x1, x2)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    chunks = ek.cloud_chunks(CAPS_EMD_B)
+    for c0, c1 in chunks:
+        part = emd_cost(x1[c0:c1], x2[c0:c1])
+        if not all(torch.equal(f[c0:c1], p) for f, p in zip(full, part)):
+            raise AssertionError(f"emd at B={CAPS_EMD_B}: clouds {c0}..{c1} "
+                                 f"differ from a call on them alone")
+    ref = emd_cost_plain(x1.double(), x2.double(), with_grads=False)[0]
+    plain = emd_cost_plain(x1, x2, with_grads=False)[0]
+    errs = [float(((c.double() - ref).abs() / ref.abs()).max())
+            for c in (full[0], plain)]
+    if counts != {"emd": len(chunks)} or errs[0] > max(1.5 * errs[1], 2e-4):
+        raise AssertionError(f"emd at B={CAPS_EMD_B}: launches {counts}, "
+                             f"cost errors {errs}")
+    log("caps", f"emd at B={CAPS_EMD_B}, 32 x 32 points: launches {counts} "
+                f"({chunks}), each chunk bit-equal to its own call; worst "
+                f"relative cost error against f64 {errs[0]!r} (plain f32 "
+                f"{errs[1]!r}) ({card})")
+    del x1, x2, full, ref, plain
+
+    from dataclasses import replace
+
+    for b, n, m, k in ((B, N, M, K), next(iter(CAPS_SOFT.values()))):
+        rng = np.random.default_rng(SEED + 91 + k)
+        pts, qs, sigma, cot = _soft_inputs(torch, rng, b, n, m)
+        sigma = sigma.reshape(1)
+        idx = spk.soft_project_fwd_cuda(pts, qs, sigma, k)[1]
+        plan = spk.bwd_plan(torch.cuda.current_device(), b, n, m, k)
+        reset_launch_counts()
+        wide = spk.launch_bwd(pts, qs, sigma, idx, cot,
+                              replace(plan, count64=True))
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        same = all(torch.equal(a, c) for a, c in zip(
+            wide, spk.launch_bwd(pts, qs, sigma, idx, cot, plan)))
+        want = spk.soft_project_bwd_plain(pts, qs, sigma, idx, cot)
+        err = max(float((a - c).abs().max()) for a, c in zip(wide, want))
+        if plan.count64 or not same or not all(
+                torch.allclose(a, c, rtol=1e-4, atol=1e-5)
+                for a, c in zip(wide, want)):
+            raise AssertionError(f"the 64-bit entry count at {(b, n, m, k)}:"
+                                 f" bit-equal {same}, {err!r} from plain")
+        log("caps", f"soft projection backward at (B, N, M, k) = "
+                    f"{(b, n, m, k)} with its entries counted in 64 bits "
+                    f"(soft_project_bwd_points64, which a cloud past "
+                    f"{spp.INT_ENTRIES} entries takes): bit-equal to the "
+                    f"int count, max |d| {err!r} from plain (rtol 1e-4, "
+                    f"atol 1e-5); launches {counts}; 2^31 entries in one "
+                    f"cloud: the card test "
+                    f"test_soft_projection_backward_past_int_entries")
+    del pts, qs, cot, idx, wide, want
+    torch.cuda.empty_cache()
+
+
 def phase_caps(torch, classifier, card) -> tuple[dict, dict, dict, int]:
     """The inputs the first kernels refused: the soft projection at k > 16
     (the wide forward and backward through autograd against the plain
@@ -2092,8 +2233,9 @@ def phase_caps(torch, classifier, card) -> tuple[dict, dict, dict, int]:
     version bit for bit: idx and xyz), each launched; then the main path,
     the two CLIs of `_caps_cli`, with the counters reset before and read
     after in each process; then each new kernel timed against its plain
-    version at its first shape. Returns (launches, max_abs_err, times, the
-    points the timed wide backward gathers)."""
+    version at its first shape. Between them, `_caps_repairs`: the inputs
+    the kernels once refused. Returns (launches, max_abs_err,
+    times, the points the timed wide backward gathers)."""
     from samplenet_tpu_torch.ops.cuda import fps_kernel as fk
     from samplenet_tpu_torch.ops.cuda import fps_plain
     from samplenet_tpu_torch.ops.cuda import soft_projection_kernel as spk
@@ -2132,8 +2274,10 @@ def phase_caps(torch, classifier, card) -> tuple[dict, dict, dict, int]:
                    pts, qs, s1, ik, cot), 5))
         bounds = (_soft_fwd_bound(b, n, m, k),
                   _soft_bwd_bound(b, n, m, k, _gathered(torch, ik, n)))
+        plan = spk.fwd_wide_plan(torch.cuda.current_device(), b, n, m, k)
         log("caps", f"soft projection (B, N, M, k) = {(b, n, m, k)}, "
-                    f"{label}: idx bit-equal, max |out - plain| {e_fwd!r} "
+                    f"{label}, wide forward {plan}: idx bit-equal, max "
+                    f"|out - plain| {e_fwd!r} "
                     f"(1e-5), gradients {e_bwd!r} (rtol 1e-4, atol 1e-5); "
                     f"launches {counts}; device ms forward {dev[0]!r} "
                     f"(bound {bounds[0][0]!r}, {bounds[0][1]}), backward "
@@ -2169,6 +2313,7 @@ def phase_caps(torch, classifier, card) -> tuple[dict, dict, dict, int]:
                     f"(bound {bound[0]!r}, {bound[1]}) ({card})")
         del pts, ik, xk, ip, xp
     torch.cuda.empty_cache()
+    _caps_repairs(torch, card)
     with tempfile.TemporaryDirectory() as tmp:
         counts, line = _caps_cli(torch, classifier, tmp)
     log("caps", line)
@@ -6026,12 +6171,20 @@ def main() -> int:
     _timed(phase_wide, torch, classifier)
     caps_counts, caps_errs, caps_times, caps_gathered = _timed(
         phase_caps, torch, classifier, card)
+    # the phases that only run CLIs, each in processes and a temporary
+    # directory of its own, run beside the in-process phases that follow
+    # (which count launches in this process only); joined before the
+    # parallel phases and the timings, whose numbers they would move
+    cli_pool = ThreadPoolExecutor(CLI_WORKERS)
+    frozen = copy.deepcopy(classifier)
+    cli_phases = [cli_pool.submit(_timed, *call) for call in (
+        (phase_recon_cli, torch), (phase_train_cli, torch, frozen),
+        (phase_registration_cli, torch), (phase_bf16_cli, torch),
+        (phase_progressive_cli, torch, frozen))]
     train_counts = _timed(phase_train_step, torch, data, labels, classifier)
-    _timed(phase_train_cli, torch, classifier)
     errs.update(_timed(phase_compare_recon, torch))
     recon_data, recon_x = make_recon_data(torch)
     recon_counts = _timed(phase_recon_train, torch, recon_data, recon_x)
-    _timed(phase_recon_cli, torch)
     _timed(phase_ae_analysis, torch, recon_data)
     prog_errs = _timed(phase_compare_progressive, torch)
     px = torch.from_numpy(data[:PROG_B]).to(DEVICE)
@@ -6040,17 +6193,17 @@ def main() -> int:
     prog_counts = _timed(phase_progressive_path, torch, px, py,
                          data[:2 * PROG_B], labels[:2 * PROG_B], classifier)
     _timed(phase_progressive_ae, torch, recon_data, recon_x)
-    _timed(phase_progressive_cli, torch, classifier)
     with tempfile.TemporaryDirectory() as tmp:
         _timed(phase_classifier, torch, data, labels, tmp)
         _timed(phase_evaluate, torch, model, data, labels, tmp)
     _timed(phase_compare_registration, torch)
     reg_per_step = _timed(phase_registration_step, torch)
-    _timed(phase_registration_cli, torch)
     errs.update(_timed(phase_compare_bf16, torch))
     bf16_counts = _timed(phase_bf16, torch, model, clouds, data, labels,
                          classifier)
-    _timed(phase_bf16_cli, torch)
+    for done in cli_phases:     # a failed CLI phase raises here
+        done.result()
+    cli_pool.shutdown()
     _timed(phase_data_parallel, torch, classifier)
     _timed(phase_tensor_parallel, torch)
     times = _timed(phase_times, torch, model, clouds, card)

@@ -84,6 +84,7 @@ enum RowSum { kSumWr, kSumU, kSumUx, kSumNext = kSumUx + 3, kSumCost };
 constexpr int kRed = kSumCost * kGroup + 1;
 constexpr int kLevels = 11;
 constexpr int kColThreads = 256;
+constexpr int kMaxClouds = 65535;  // a launch's clouds: the grid's y axis
 // expf(x) is +0 for every f32 x at or below this (snt_emd_underflow_check
 // runs expf over all of them on the card): a warp's unit whose every
 // level * d2 lies below it adds exact zeros, and is skipped.
@@ -651,6 +652,9 @@ extern "C" size_t snt_emd_smem(int m) { return smem_bytes(m); }
 
 extern "C" int snt_emd_rows_per_block() { return kRows; }
 
+// Clouds a launch: the grid's y axis (the wrapper launches more in chunks).
+extern "C" int snt_emd_max_clouds() { return kMaxClouds; }
+
 extern "C" float snt_emd_underflow() { return kUnderflow; }
 
 // Rows of the warp's unit that is skipped as a whole (with 32 columns).
@@ -674,7 +678,9 @@ extern "C" int snt_emd_cost(const float* xyz1, const float* xyz2, int b, int n,
                             float* colsum_part, float* g2_part, float* cost_part,
                             float* g1, float* cost, float* g2,
                             cudaStream_t stream) {
-  if (b < 1 || n < 1 || m < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (b < 1 || b > kMaxClouds || n < 1 || m < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   float levels[kLevels];
   for (int j = 8, l = 0; j >= -1; --j, ++l) {
     levels[l] = j >= 0 ? -static_cast<float>(1 << (2 * j)) : -0.25f;

@@ -44,6 +44,12 @@
 // 16 channels runs on mma.sync m16n8k16, and that first layer on FP32
 // FMAs with x and W rounded to bf16 (exact products, f32 sums), its
 // epilogue writing bf16 pairs. wgmma is later work.
+//
+// Any number of layers: a chain of up to kMaxLayers passes its layer table
+// (pointers and widths) among the kernel's parameters; a deeper one takes
+// point_mlp_max_deep_kernel, the same body reading its table from device
+// memory (the caller's buffer, filled by snt_point_mlp_max), so only
+// shared memory bounds a chain, as VMEM bounds the TPU kernel's.
 
 #include <cuda_runtime.h>
 
@@ -54,7 +60,7 @@ namespace {
 using mma::aidx;
 constexpr int kThreads = mma::kThreads;
 constexpr int kTileP = mma::kTileP;
-constexpr int kMaxLayers = 8;
+constexpr int kMaxLayers = 8;  // layers the parameter table holds
 
 struct MLPArgs {
   const float* w[kMaxLayers];  // [c_l, c_{l+1}] row-major (bf16 pairs: words)
@@ -63,6 +69,29 @@ struct MLPArgs {
   int layers;
   int rows0;  // rows of buffer 0 (the inputs of layers 0, 2, ...)
   int rows1;  // rows of buffer 1
+};
+
+// A deeper chain's table in device memory: params + at[l] for layer l's W
+// (or b), and widths as 64-bit ints.
+struct DeviceLayers {
+  const float* base;
+  const long long* at;
+  __device__ __forceinline__ const float* operator[](int l) const {
+    return base + at[l];
+  }
+};
+
+struct DeviceWidths {
+  const long long* at;
+  __device__ __forceinline__ int operator[](int l) const {
+    return static_cast<int>(at[l]);
+  }
+};
+
+struct DeepArgs {
+  DeviceLayers w, b;
+  DeviceWidths c;
+  int layers, rows0, rows1;
 };
 
 // Whether layer l runs on the FP32 pipes: fewer than 8 input channels, or
@@ -212,11 +241,10 @@ __device__ void mma_layer(const uint32_t* hin, uint32_t* hout, int ci, int co,
   }
 }
 
-template <bool kBf16>
-__global__ void __launch_bounds__(kThreads, 2)
-point_mlp_max_kernel(const float* __restrict__ x,  // [B, n, c_0]
-                     float* __restrict__ out,      // [B, c_L]
-                     int n, MLPArgs args) {
+template <bool kBf16, class Args>
+__device__ __forceinline__ void mlp_max(const float* __restrict__ x,
+                                        float* __restrict__ out, int n,
+                                        const Args& args) {
   extern __shared__ float4 smem4[];
   uint32_t* buf0 = reinterpret_cast<uint32_t*>(smem4);
   uint32_t* buf1 = buf0 + args.rows0 * kTileP;
@@ -278,6 +306,21 @@ point_mlp_max_kernel(const float* __restrict__ x,  // [B, n, c_0]
   }
 }
 
+template <bool kBf16>
+__global__ void __launch_bounds__(kThreads, 2)
+point_mlp_max_kernel(const float* __restrict__ x,  // [B, n, c_0]
+                     float* __restrict__ out,      // [B, c_L]
+                     int n, MLPArgs args) {
+  mlp_max<kBf16>(x, out, n, args);
+}
+
+template <bool kBf16>
+__global__ void __launch_bounds__(kThreads, 2)
+point_mlp_max_deep_kernel(const float* __restrict__ x, float* __restrict__ out,
+                          int n, DeepArgs args) {
+  mlp_max<kBf16>(x, out, n, args);
+}
+
 // Rows of each activation buffer: buffer 0 holds x and the outputs of
 // layers 1, 3, ..., buffer 1 those of layers 0, 2, ... (the last layer's
 // output is not stored), each rounded up to the K step; in bf16, rows of
@@ -311,36 +354,80 @@ extern "C" size_t snt_point_mlp_max_smem(const int* widths, int layers, int bf16
 // params holds, for each layer, W_l then b_l [c_{l+1}] packed back to back:
 // W_l [c_l, c_{l+1}] f32, or in bf16 its rounded values where the layer runs
 // on the FP32 pipes and else [ceil(c_l / 2), c_{l+1}] words of bf16 pairs
-// (row 2k low); widths is a host array of layers + 1 ints.
+// (row 2k low); widths is a host array of layers + 1 ints. table: device
+// memory of 3 * layers + 1 64-bit ints, which a chain of more than
+// kMaxLayers layers reads (widths, then W's and b's offsets in params,
+// copied here from the host), else unused.
 extern "C" int snt_point_mlp_max(const float* x, const float* params,
                                  const int* widths, int layers, int bf16,
-                                 float* out, int b, int n, cudaStream_t stream) {
-  if (layers < 1 || layers > kMaxLayers) {
+                                 long long* table, float* out, int b, int n,
+                                 cudaStream_t stream) {
+  if (layers < 1 || (layers > kMaxLayers && table == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   MLPArgs args;
+  DeepArgs deep;
+  const bool in_params = layers <= kMaxLayers;
+  long long* host = in_params ? nullptr : new long long[3 * layers + 1];
   size_t off = 0;
-  for (int l = 0; l <= layers; ++l) args.c[l] = widths[l];
+  for (int l = 0; l <= layers; ++l) {
+    if (in_params) {
+      args.c[l] = widths[l];
+    } else {
+      host[l] = widths[l];
+    }
+  }
   for (int l = 0; l < layers; ++l) {
     const bool pairs = bf16 && !simt_at(true, l, widths[l]);
-    args.w[l] = params + off;
+    if (in_params) {
+      args.w[l] = params + off;
+    } else {
+      host[layers + 1 + l] = static_cast<long long>(off);
+    }
     off += static_cast<size_t>(pairs ? (widths[l] + 1) / 2 : widths[l]) * widths[l + 1];
-    args.b[l] = params + off;
+    if (in_params) {
+      args.b[l] = params + off;
+    } else {
+      host[2 * layers + 1 + l] = static_cast<long long>(off);
+    }
     off += widths[l + 1];
   }
-  args.layers = layers;
-  buffer_rows(widths, layers, bf16 != 0, &args.rows0, &args.rows1);
+  int rows0, rows1;
+  buffer_rows(widths, layers, bf16 != 0, &rows0, &rows1);
+  args.layers = deep.layers = layers;
+  args.rows0 = deep.rows0 = rows0;
+  args.rows1 = deep.rows1 = rows1;
+  if (!in_params) {
+    // pageable host memory: the copy is staged before the call returns
+    const cudaError_t err = cudaMemcpyAsync(
+        table, host, sizeof(long long) * (3 * layers + 1),
+        cudaMemcpyHostToDevice, stream);
+    delete[] host;
+    if (err != cudaSuccess) return static_cast<int>(err);
+    deep.c.at = table;
+    deep.w.base = deep.b.base = params;
+    deep.w.at = table + layers + 1;
+    deep.b.at = table + 2 * layers + 1;
+  }
   const size_t smem = snt_point_mlp_max_smem(widths, layers, bf16);
-  const void* kernel = bf16 ? reinterpret_cast<const void*>(point_mlp_max_kernel<true>)
-                            : reinterpret_cast<const void*>(point_mlp_max_kernel<false>);
+  const void* kernel =
+      in_params ? (bf16 ? reinterpret_cast<const void*>(point_mlp_max_kernel<true>)
+                        : reinterpret_cast<const void*>(point_mlp_max_kernel<false>))
+                : (bf16 ? reinterpret_cast<const void*>(point_mlp_max_deep_kernel<true>)
+                        : reinterpret_cast<const void*>(point_mlp_max_deep_kernel<false>));
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  void* kargs[] = {&x, &out, &n, &args};
+  void* kargs[] = {&x, &out, &n, in_params ? static_cast<void*>(&args)
+                                           : static_cast<void*>(&deep)};
   const cudaError_t err =
       cudaLaunchKernel(kernel, dim3(b), dim3(kThreads), kargs, smem, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
+
+// Layers whose table the kernel's parameters hold; a deeper chain needs
+// the device table of snt_point_mlp_max.
+extern "C" int snt_point_mlp_max_param_layers() { return kMaxLayers; }

@@ -87,9 +87,52 @@
 // from the bytes that bound the function (PERF.md).
 //
 // Group sizes above 16 (kMaxK, the register list's length) take the wide
-// kernels. Wide forward: one warp a query, over a flat grid of all B*M
-// queries, and nothing held per k. The key of a point is its distance's
-// bits, NaN counted as +inf (non-negative floats order as their bits). A
+// kernels. The key of a point is its distance's bits, NaN counted as +inf
+// (non-negative floats order as their bits), and (key, index) is the order
+// of the plain version's stable sort. The wide forward has two kernels, and
+// the launch plan (ops/cuda/soft_projection_plan.py, plan_fwd_wide) picks
+// one by (B, N, M, k) and the SM count.
+//
+// The pruned kernel (k up to 64, k at most a quarter of N) generalises the
+// register forward's bound to any k. Each query is served by S = ws * cs
+// warp-slices: ws warps of a block and cs blocks of a thread-block
+// cluster, block r of a cluster taking the points [r * span, r * span +
+// span), so that few queries on a long cloud still fill the card. A block
+// serves 8 / ws queries of one cloud and stages its range in shared memory
+// as float4, chunk by chunk with cp.async into two buffers in turn, so the
+// next chunk loads while the current one is scanned; every query of the
+// block reads each staged point. Then, none of it over device memory:
+//   1. A lane computes its visits' distances once, keeps their keys in a
+//      cache of its warp's own in shared memory, and keeps 8 group minima:
+//      the i-th visit of each batch of 8 goes to slot i, so the lanes'
+//      slots are disjoint groups of points. They are merged (slots, then
+//      lanes by shuffles) to G / S a slice, G = 64 or 128 a query, at
+//      least 2k. The G minima are distances of G distinct points, so their k-th
+//      smallest, tau, bounds the k-th neighbour's distance from above.
+//   2. The query's owner, the first warp of its slices in block (query mod
+//      cs), sorts the G minima in registers (a bitonic network of shuffles,
+//      G / 32 a lane): tau is the k-th. A lone slice (S = 1, the train
+//      step's shape) has them in its own lanes; otherwise the slices leave
+//      them in shared memory and the owner gathers them, from the other
+//      blocks through distributed shared memory.
+//   3. Every slice reads its cached keys again: a lane counts and marks
+//      those at or below tau, a shuffle scan gives each lane its places,
+//      one atomicAdd a warp on the owner's count the warp's (the order of
+//      the list does not matter), and the lane writes each such key with
+//      its index into the owner's buffer of `cap` words.
+// On random clouds about k + k^2 / 2G points a query pass; the owner sorts
+// them in registers too (64-bit (key, index) words, 2, 4 or 8 a lane), and
+// the first k are the answer, each lane then summing its ranks. A list
+// longer than `cap` (ties: many equal distances, or NaN or empty groups,
+// where tau is +inf) is exact all the same: the owner then runs the radix
+// selection below over the whole cloud from device memory. No group is
+// skipped in pass 3: a group is a lane's slot, and a warp rereads a visit
+// wherever one of its 32 lanes' groups is near, which is nearly everywhere;
+// reading the cached key costs less than the test that would skip it. A
+// lone slice meets no other warp after pass 1, so it takes no barrier.
+// The radix kernel (k above 64, or k more than a quarter of N, where tau
+// prunes little; or a cloud whose keys the caches cannot hold): one warp a
+// query, over a flat grid of all B*M queries, and nothing held per k. A
 // radix select of 4 passes of 8 bits (a [256] histogram a warp in shared
 // memory, the lanes of a warp that share a bin adding once) finds the
 // k-th smallest key T and the number of keys below it; a fifth pass writes
@@ -98,24 +141,34 @@
 // that row in place by (key, index), recomputing each key from the
 // index (a bitonic network in the form whose every compare puts the
 // smaller entry at the lower index, so rows of any length k sort with no
-// padding). The keys are unique, so the row is the plain version's stable
-// sort bit for bit. Each pass recomputes the distances from the points in
-// device memory (L1 and L2): shared memory does not grow with N or k.
-// The weighted sum runs a lane's ranks in order, then a butterfly.
+// padding). Each pass recomputes the distances from the points in device
+// memory (L1 and L2): shared memory does not grow with N or k.
+// In both, the keys are unique, so idx is the plain version's stable sort
+// bit for bit; distances are true f32 products and sums with no FMA
+// (sqdist.cuh), never the tensor cores, so each key is the plain
+// version's. The weighted sum runs a lane's ranks in order, then a
+// butterfly.
 // Wide backward: the entries kernel loops over the query's k neighbours
 // three times (d_0 and the sum of weights, the output, the entries),
 // rereading each from device memory instead of holding k in registers,
 // and carries the query's sums in float64; the point kernel takes k at
-// run time (K = 0), its sums in the same orders as at K <= 16.
+// run time (K = 0), its sums in the same orders as at K <= 16. A cloud of
+// more entries (M * k) than an int numbers with a round to spare takes
+// soft_project_bwd_points64 at any k: the same body counting entries in
+// 64 bits, the same entry order, so the same sums.
 
 #include <climits>
 #include <cstdint>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 #include "sqdist.cuh"
+#include "stage.cuh"
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int kMaxWarps = 8;   // a block: 32 * warps lanes, from the plan
 constexpr int kMaxSlices = 8;  // lanes a query, from the plan
@@ -123,8 +176,15 @@ constexpr int kBuffer = 32;    // candidates a lane holds before it sorts
 constexpr int kStep = 8;       // points a lane loads before it tests them
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxK = 16;           // the register kernels; above, wide
-constexpr int kWideWarps = 8;       // wide forward: queries a block
-constexpr int kRadixBins = 256;     // wide forward: 8 bits a pass
+constexpr int kWideWarps = 8;       // wide radix forward: queries a block
+constexpr int kRadixBins = 256;     // wide radix forward: 8 bits a pass
+constexpr int kPruneWarps = 8;      // pruned wide forward: warps a block
+constexpr int kSlots = 8;           // pruned: group minima a lane keeps
+constexpr int kMaxGroups = 128;     // pruned: group minima a query (G)
+constexpr int kMaxCap = 256;        // pruned: candidates a query
+constexpr int kMaxCluster = 8;      // pruned: blocks a cluster
+constexpr int kMaxVisits = 64;      // pruned: keys a lane caches
+constexpr int kMaxPruneChunk = 2048;  // pruned: points staged at a time
 constexpr int kMaxTile = 256;       // backward: queries a block, one a thread
 constexpr int kMaxPointThreads = 256;  // backward: a point block's threads
 constexpr int kMaxPer = 4;          // backward: points a thread
@@ -416,23 +476,15 @@ __device__ __forceinline__ unsigned long long wide_key(
          static_cast<unsigned>(i);
 }
 
-// One warp a query of the flat grid over all B*M queries, any 1 <= k <= n.
-__global__ void __launch_bounds__(kWideWarps * 32)
-soft_project_fwd_wide_kernel(const float* __restrict__ points,   // [B, n, 3]
-                             const float* __restrict__ queries,  // [B, m, 3]
-                             const float* __restrict__ sigma,    // [1]
-                             float* __restrict__ out,            // [B, m, 3]
-                             int* idx,                           // [B, m, k]
-                             int n, int m, int k, long long total) {
-  __shared__ unsigned hists[kWideWarps][kRadixBins];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long g = static_cast<long long>(blockIdx.x) * kWideWarps + warp;
-  if (g >= total) return;  // the whole warp: no block barrier follows
-  unsigned* hist = hists[warp];
+// The radix selection of one query by one warp, any 1 <= k <= n: its k
+// nearest points by (key, index) into row[0, k) (device memory), sorted.
+// hist: the warp's kRadixBins counters in shared memory.
+__device__ __forceinline__ void wide_radix_row(const float* __restrict__ pb,
+                                               int n, int k, float qx,
+                                               float qy, float qz,
+                                               unsigned* hist, int* row,
+                                               int lane) {
   const unsigned below = (1u << lane) - 1u;
-  const float* pb = points + static_cast<size_t>(g / m) * n * 3;
-  const float qx = queries[g * 3], qy = queries[g * 3 + 1],
-              qz = queries[g * 3 + 2];
 
   // 1. the k-th smallest key T, 8 bits a pass, and `lt` keys below it
   unsigned prefix = 0u, mask = 0u;
@@ -489,7 +541,6 @@ soft_project_fwd_wide_kernel(const float* __restrict__ points,   // [B, n, 3]
   }
 
   // 2. the row: the lt points below T, then the first `rank` equal to it
-  int* row = idx + static_cast<size_t>(g) * k;
   int nlt = 0, neq = 0;
   for (int p0 = 0; p0 < n; p0 += 32) {
     const int p = p0 + lane;
@@ -530,9 +581,14 @@ soft_project_fwd_wide_kernel(const float* __restrict__ points,   // [B, n, 3]
       __syncwarp();
     }
   }
+}
 
-  // 4. weights and the weighted sum, ranks in order a lane, then lanes
-  const float sg = *sigma;
+// The weighted sum of a query's k neighbours, row[r] the one of rank r:
+// ranks in order a lane, then a butterfly; lane 0 writes o[0..2].
+__device__ __forceinline__ void wide_sum(const int* row, int k,
+                                         const float* __restrict__ pb,
+                                         float qx, float qy, float qz,
+                                         float sg, float* o, int lane) {
   const float d0 = wide_dist(pb, row[0], qx, qy, qz);
   float nx = 0.0f, ny = 0.0f, nz = 0.0f, den = 0.0f;
   for (int r = lane; r < k; r += 32) {
@@ -553,10 +609,413 @@ soft_project_fwd_wide_kernel(const float* __restrict__ points,   // [B, n, 3]
     den += __shfl_xor_sync(kFull, den, off);
   }
   if (lane == 0) {
-    float* o = out + g * 3;
     o[0] = nx / den;
     o[1] = ny / den;
     o[2] = nz / den;
+  }
+}
+
+// The radix kernel: one warp a query of the flat grid over all B*M
+// queries, any 1 <= k <= n.
+__global__ void __launch_bounds__(kWideWarps * 32)
+soft_project_fwd_wide_kernel(const float* __restrict__ points,   // [B, n, 3]
+                             const float* __restrict__ queries,  // [B, m, 3]
+                             const float* __restrict__ sigma,    // [1]
+                             float* __restrict__ out,            // [B, m, 3]
+                             int* idx,                           // [B, m, k]
+                             int n, int m, int k, long long total) {
+  __shared__ unsigned hists[kWideWarps][kRadixBins];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long g = static_cast<long long>(blockIdx.x) * kWideWarps + warp;
+  if (g >= total) return;  // the whole warp: no block barrier follows
+  const float* pb = points + static_cast<size_t>(g / m) * n * 3;
+  const float qx = queries[g * 3], qy = queries[g * 3 + 1],
+              qz = queries[g * 3 + 2];
+  int* row = idx + static_cast<size_t>(g) * k;
+  wide_radix_row(pb, n, k, qx, qy, qz, hists[warp], row, lane);
+  wide_sum(row, k, pb, qx, qy, qz, *sigma, out + g * 3, lane);
+}
+
+// The pruned kernel's launch, from the plan (ops/cuda/soft_projection_plan.py).
+struct PrunePlan {
+  int ws;      // warps a query in a block: 1, 2, 4 or 8
+  int cs;      // blocks a cluster, each a range of `span` points: 1-8
+  int groups;  // group minima a query (G), a power of two
+  int cap;     // candidates a query, a power of two >= groups
+  int chunk;   // points staged at a time, a multiple of 256 * ws
+  int span;    // points a block, a multiple of 32 * ws
+  int visits;  // keys a lane caches: ceil(span / chunk) chunks of visits
+  int tiles;   // query tiles a cloud, kPruneWarps / ws queries each
+};
+
+// Keys a lane of a pruned block caches: every visit of its chunks.
+__host__ __device__ inline int prune_visits(int ws, int chunk, int span) {
+  return (span + chunk - 1) / chunk * (chunk / (32 * ws));
+}
+
+// Dynamic shared memory of a pruned block: the staged chunks (one buffer
+// where the block's span is one chunk, else two), which the queries'
+// states (a candidate buffer of cap keys, its count and tau) reuse once
+// pass 1 is done, then each warp's key cache of 32 * visits keys.
+__host__ __device__ inline size_t prune_smem(int ws, int cap, int chunk,
+                                             int span) {
+  const size_t staged = static_cast<size_t>(span > chunk ? 2 : 1) * chunk * 16;
+  const size_t states = static_cast<size_t>(kPruneWarps / ws) * (cap * 8 + 16);
+  const size_t cache = static_cast<size_t>(kPruneWarps) * 32 *
+                       prune_visits(ws, chunk, span) * 4;
+  return (staged > states ? staged : states) + cache;
+}
+
+template <bool kCluster>
+__device__ __forceinline__ void prune_sync() {
+  if constexpr (kCluster) {
+    cg::this_cluster().sync();
+  } else {
+    __syncthreads();
+  }
+}
+
+// p in the shared memory of the cluster's block `rank` (kCluster), or p.
+template <bool kCluster, class T>
+__device__ __forceinline__ T* in_block(T* p, int rank) {
+  if constexpr (kCluster) {
+    return cg::this_cluster().map_shared_rank(p, rank);
+  } else {
+    return p;
+  }
+}
+
+// Ascending sort of the 32 * E words v across a warp, word i in lane
+// i % 32, slot i / 32: a bitonic network whose compares across lanes are
+// shuffles and within a lane swaps. Each compare keeps the other lane's
+// word where it is the one its place wants (equal words are alike).
+template <class T, int E>
+__device__ __forceinline__ void warp_sort_regs(T (&v)[E], int lane) {
+#pragma unroll
+  for (int size = 2; size <= 32 * E; size <<= 1) {
+#pragma unroll
+    for (int st = size >> 1; st > 0; st >>= 1) {
+      if (st >= 32) {
+        const int se = st / 32;
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          if ((e & se) == 0) {
+            const bool up = ((e * 32) & size) == 0;
+            const T a = v[e], c = v[e | se];
+            if ((c < a) == up) {
+              v[e] = c;
+              v[e | se] = a;
+            }
+          }
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const T o = __shfl_xor_sync(kFull, v[e], st);
+          // the lower lane of an ascending pair keeps the smaller word
+          const bool want_less = (((e * 32 + lane) & size) == 0) ==
+                                 ((lane & st) == 0);
+          if ((o < v[e]) == want_less) v[e] = o;
+        }
+      }
+    }
+  }
+}
+
+// Word i of the 32 * E sorted in v, to every lane.
+template <class T, int E>
+__device__ __forceinline__ T warp_word(const T (&v)[E], int i) {
+  T w = 0;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    if (e == i / 32) w = v[e];
+  }
+  return __shfl_sync(kFull, w, i % 32);
+}
+
+// The G = 32 * E minima (a lone slice's own in its lanes' slots, else
+// buf[0, G) of every block of the cluster, G / cs a block), sorted in
+// registers: tau, the k-th.
+template <bool kCluster, int E>
+__device__ __forceinline__ unsigned tau_of(const unsigned (&gmin)[kSlots],
+                                           const unsigned long long* buf,
+                                           int k, int per, int rank,
+                                           bool solo, int lane) {
+  unsigned v[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    if (solo) {
+      v[e] = gmin[e];
+    } else {
+      const int i = e * 32 + lane;
+      v[e] = static_cast<unsigned>(
+          (i / per == rank ? buf[i]
+                           : *in_block<kCluster>(buf + i, i / per)) >> 32);
+    }
+  }
+  warp_sort_regs<unsigned, E>(v, lane);
+  return warp_word<unsigned, E>(v, k - 1);
+}
+
+// The owner's last step on `found` <= 32 * E candidates in buf: sorted in
+// registers (past `found`, ~0), the first k into row, the weighted sum into
+// o (as wide_sum sums: a lane's ranks in order, then a butterfly).
+template <int E>
+__device__ __forceinline__ void select_regs(const unsigned long long* buf,
+                                            int found, int k,
+                                            const float* __restrict__ pb,
+                                            float qx, float qy, float qz,
+                                            float sg, int* row, float* o,
+                                            int lane) {
+  unsigned long long v[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int i = e * 32 + lane;
+    v[e] = i < found ? buf[i] : ~0ull;
+  }
+  warp_sort_regs<unsigned long long, E>(v, lane);
+  const float d0 = __uint_as_float(static_cast<unsigned>(
+      __shfl_sync(kFull, v[0], 0) >> 32));
+  float nx = 0.0f, ny = 0.0f, nz = 0.0f, den = 0.0f;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int r = e * 32 + lane;
+    if (r < k) {
+      const int i = static_cast<int>(v[e]);
+      row[r] = i;
+      const float* pp = pb + static_cast<size_t>(i) * 3;
+      const float x = __ldg(pp), y = __ldg(pp + 1), z = __ldg(pp + 2);
+      const float w = softmax_term(fminf(sqdist(qx, qy, qz, x, y, z),
+                                         CUDART_INF_F), d0, sg);
+      nx += w * x;
+      ny += w * y;
+      nz += w * z;
+      den += w;
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    nx += __shfl_xor_sync(kFull, nx, off);
+    ny += __shfl_xor_sync(kFull, ny, off);
+    nz += __shfl_xor_sync(kFull, nz, off);
+    den += __shfl_xor_sync(kFull, den, off);
+  }
+  if (lane == 0) {
+    o[0] = nx / den;
+    o[1] = ny / den;
+    o[2] = nz / den;
+  }
+}
+
+// The pruned kernel: a cluster of cs blocks serves kPruneWarps / ws queries
+// of one cloud, block r of the cluster the points [r * span, r * span +
+// span), warp-slice w (of ws) of a query the visits v = 0, 1, ... with
+// point (v * ws + w) * 32 + lane of the block's range. See the note at the
+// top of the file.
+template <bool kCluster>
+__global__ void __launch_bounds__(kPruneWarps * 32)
+soft_project_fwd_pruned_kernel(const float* __restrict__ points,   // [B, n, 3]
+                               const float* __restrict__ queries,  // [B, m, 3]
+                               const float* __restrict__ sigma,    // [1]
+                               float* __restrict__ out,            // [B, m, 3]
+                               int* __restrict__ idx,              // [B, m, k]
+                               int n, int m, int k, PrunePlan pl) {
+  extern __shared__ float4 psm[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int ws = pl.ws, cs = pl.cs, qb = kPruneWarps / ws;
+  const int rank = kCluster ? static_cast<int>(cg::this_cluster().block_rank())
+                            : 0;
+  const int cl = blockIdx.x / cs;  // (cloud, tile), cloud-major
+  const int b = cl / pl.tiles;
+  const int j = warp / ws, w = warp - j * ws;  // the query, the slice
+  const int q = (cl - b * pl.tiles) * qb + j;
+  const int qq = min(q, m - 1);  // past the cloud's queries: a copy
+  const float* pb = points + static_cast<size_t>(b) * n * 3;
+  const float* qp = queries + (static_cast<size_t>(b) * m + qq) * 3;
+  const float qx = qp[0], qy = qp[1], qz = qp[2];
+  const int base = rank * pl.span;
+  const int len = max(0, min(pl.span, n - base));  // the block's points
+  const int chunks = (len + pl.chunk - 1) / pl.chunk;
+  const int vpc = pl.chunk / (32 * ws);  // visits a chunk, a multiple of 8
+  const int nbuf = pl.span > pl.chunk ? 2 : 1;
+  const size_t staged = static_cast<size_t>(nbuf) * pl.chunk * 16;
+  const size_t state_bytes = static_cast<size_t>(pl.cap) * 8 + 16;
+  const size_t states = qb * state_bytes;
+  const size_t region = staged > states ? staged : states;
+  char* const smem = reinterpret_cast<char*>(psm);
+  unsigned* cache = reinterpret_cast<unsigned*>(smem + region) +
+                    static_cast<size_t>(warp) * 32 * pl.visits;
+  unsigned long long* buf =
+      reinterpret_cast<unsigned long long*>(smem + j * state_bytes);
+  int* count = reinterpret_cast<int*>(buf + pl.cap);
+  unsigned* taup = reinterpret_cast<unsigned*>(count + 1);
+
+  // 1. the keys into the cache, and each lane's kSlots group minima
+  unsigned gmin[kSlots];
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) gmin[s] = 0xffffffffu;
+  if (chunks > 0) stage(psm, pb, base, min(pl.chunk, len));
+  for (int c = 0; c < chunks; ++c) {
+    const int c0 = c * pl.chunk;
+    const int cn = min(pl.chunk, len - c0);
+    const float4* cur = psm + (c & 1) * pl.chunk;
+    if (c + 1 < chunks) {  // the next chunk, into the other buffer
+      stage(psm + ((c + 1) & 1) * pl.chunk, pb, base + c0 + pl.chunk,
+            min(pl.chunk, len - c0 - pl.chunk));
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // chunk c has landed, for every thread
+    unsigned* cv = cache + c * vpc * 32 + lane;
+    const float4* cw = cur + w * 32 + lane;
+    if (cn == pl.chunk) {  // a whole chunk: no visit past the points
+      for (int v = 0; v < vpc; v += kSlots) {
+#pragma unroll
+        for (int s = 0; s < kSlots; ++s) {
+          const float4 pt = cw[(v + s) * ws * 32];
+          const unsigned key = __float_as_uint(
+              fminf(sqdist(qx, qy, qz, pt.x, pt.y, pt.z), CUDART_INF_F));
+          cv[(v + s) * 32] = key;
+          gmin[s] = min(gmin[s], key);
+        }
+      }
+    } else {
+      for (int v = 0; v < vpc; v += kSlots) {
+#pragma unroll
+        for (int s = 0; s < kSlots; ++s) {
+          const int off = ((v + s) * ws + w) * 32 + lane;
+          unsigned key = 0xffffffffu;  // past the block's points
+          if (off < cn) {
+            const float4 pt = cur[off];
+            key = __float_as_uint(
+                fminf(sqdist(qx, qy, qz, pt.x, pt.y, pt.z), CUDART_INF_F));
+          }
+          cv[(v + s) * 32] = key;
+          gmin[s] = min(gmin[s], key);
+        }
+      }
+    }
+    __syncthreads();  // the buffer is free: for chunk c + 2, or the states
+  }
+  if (chunks == 0) __syncthreads();
+
+  // 2. the minima merged to gs = G / (ws * cs) a slice: slots s = j mod
+  // keep_s, then lanes l = j mod keep_l; a lone slice keeps them in
+  // registers, the others put them in this block's state of query j
+  const bool solo = ws * cs == 1;  // no other warp meets this one
+  const int gs = pl.groups / (ws * cs);
+  const int keep_s = gs >= 32 ? gs / 32 : 1;
+  const int keep_l = gs / keep_s;
+  if (keep_s < 8) {
+#pragma unroll
+    for (int s = 0; s < 4; ++s) gmin[s] = min(gmin[s], gmin[s + 4]);
+  }
+  if (keep_s < 4) {
+#pragma unroll
+    for (int s = 0; s < 2; ++s) gmin[s] = min(gmin[s], gmin[s + 2]);
+  }
+  if (keep_s < 2) gmin[0] = min(gmin[0], gmin[1]);
+  for (int off = 16; off >= keep_l; off >>= 1) {
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      if (s < keep_s) gmin[s] = min(gmin[s], __shfl_xor_sync(kFull, gmin[s], off));
+    }
+  }
+  if (!solo) {
+    if (lane < keep_l) {
+      unsigned long long* mine = buf + (rank * ws + w) * gs + lane;
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s) {
+        if (s < keep_s) {
+          mine[s * keep_l] = static_cast<unsigned long long>(gmin[s]) << 32;
+        }
+      }
+    }
+    prune_sync<kCluster>();
+  }
+
+  // 3. the owner (block j mod cs, the query's first warp) sorts the G
+  // minima in registers (a lone slice its own, else gathered from the
+  // blocks of the cluster); tau is the k-th
+  const int owner = j % cs;
+  const bool owns = rank == owner && w == 0;
+  if (owns) {
+    const int per = ws * gs;  // minima a block
+    const unsigned tau =
+        pl.groups == 64
+            ? tau_of<kCluster, 2>(gmin, buf, k, per, rank, solo, lane)
+            : tau_of<kCluster, 4>(gmin, buf, k, per, rank, solo, lane);
+    if (lane == 0) {
+      *taup = tau;
+      *count = 0;
+    }
+  }
+  if (solo) {
+    __syncwarp();
+  } else {
+    prune_sync<kCluster>();
+  }
+
+  // 4. every key at or below tau, with its index, into the owner's buffer:
+  // a lane counts its keys and marks their visits, a scan gives each lane
+  // its place (past the places other slices took: one atomicAdd a warp)
+  {
+    unsigned long long* obuf = in_block<kCluster>(buf, owner);
+    int* ocount = in_block<kCluster>(count, owner);
+    // a real key is at most +inf's bits, a padded one above
+    const unsigned tau = min(*in_block<kCluster>(taup, owner), 0x7f800000u);
+    const int visits = chunks * vpc;  // at most kMaxVisits = 64
+    unsigned long long marks = 0ull;
+    int mine = 0;
+    for (int v = 0; v < visits; ++v) {
+      const bool hit = cache[v * 32 + lane] <= tau;
+      marks |= static_cast<unsigned long long>(hit) << v;
+      mine += hit;
+    }
+    int incl = mine;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int t = __shfl_up_sync(kFull, incl, off);
+      if (lane >= off) incl += t;
+    }
+    const int total = __shfl_sync(kFull, incl, 31);
+    int at = 0;
+    if (lane == 31 && total > 0) at = atomicAdd(ocount, total);
+    at = __shfl_sync(kFull, at, 31) + incl - mine;
+    for (; marks != 0ull; marks &= marks - 1ull, ++at) {
+      const int v = __ffsll(static_cast<long long>(marks)) - 1;
+      if (at < pl.cap) {
+        obuf[at] = static_cast<unsigned long long>(cache[v * 32 + lane])
+                       << 32 |
+                   static_cast<unsigned>(base + (v * ws + w) * 32 + lane);
+      }
+    }
+  }
+  if (solo) {
+    __syncwarp();
+  } else {
+    prune_sync<kCluster>();  // no block leaves while another may write to it
+  }
+
+  // 5. the owner: the k smallest candidates, sorted, or past the buffer the
+  // radix selection over the whole cloud
+  if (!owns || q >= m) return;
+  int* row = idx + (static_cast<size_t>(b) * m + q) * k;
+  float* o = out + (static_cast<size_t>(b) * m + q) * 3;
+  const float sg = *sigma;
+  const int found = *count;
+  const int size = max(found, k);
+  if (size <= 64) {  // found >= k: tau bounds the k-th neighbour
+    select_regs<2>(buf, found, k, pb, qx, qy, qz, sg, row, o, lane);
+  } else if (size <= 128) {
+    select_regs<4>(buf, found, k, pb, qx, qy, qz, sg, row, o, lane);
+  } else if (found <= pl.cap) {  // cap <= 256
+    select_regs<8>(buf, found, k, pb, qx, qy, qz, sg, row, o, lane);
+  } else {
+    // the warp's cache (32 * visits >= 256 keys) holds the histogram
+    wide_radix_row(pb, n, k, qx, qy, qz, cache, row, lane);
+    wide_sum(row, k, pb, qx, qy, qz, sg, o, lane);
   }
 }
 
@@ -715,15 +1174,16 @@ soft_project_bwd_entries_wide(const float* __restrict__ points,    // [B, n, 3]
 // d points of `span` points of one cloud a block, in entry order: block
 // (ranges + 1) * b + r takes range r of cloud b, and r = ranges sums the
 // cloud's d sigma^2. K = 0 takes k at run time (k_run, the wide path).
-template <int K>
-__global__ void __launch_bounds__(kMaxPointThreads, 4)
-soft_project_bwd_points(const int* __restrict__ idx,         // [B, m, k]
-                        const float4* __restrict__ contrib,  // [B, k, m]
-                        const float2* __restrict__ esd,      // [B, k, m]
-                        const float* __restrict__ sigma,     // [1]
-                        float* __restrict__ dpoints,         // [B, n, 3]
-                        float* __restrict__ dsigma,          // [B] partials
-                        int n, int m, int span, int k_run) {
+// Count numbers a cloud's entries: int, or long long where M * k passes
+// what an int holds with a round to spare (soft_project_bwd_points64).
+template <int K, class Count>
+__device__ __forceinline__ void bwd_points(const int* __restrict__ idx,
+                                           const float4* __restrict__ contrib,
+                                           const float2* __restrict__ esd,
+                                           const float* __restrict__ sigma,
+                                           float* __restrict__ dpoints,
+                                           float* __restrict__ dsigma, int n,
+                                           int m, int span, int k_run) {
   const int k = K > 0 ? K : k_run;
   extern __shared__ float4 bsm[];
   __shared__ int wcnt[kMaxPointThreads / 32];  // a round's list, by warp
@@ -767,9 +1227,10 @@ soft_project_bwd_points(const int* __restrict__ idx,         // [B, m, k]
     return;
   }
 
-  const int entries = m * k;
+  const Count entries = static_cast<Count>(m) * k;
   const int round = 32 * kUnroll * warps;  // entries a round
-  const int cap = min(round, entries);     // the list's room
+  const int cap = static_cast<int>(
+      min(static_cast<Count>(round), entries));  // the list's room
   unsigned* hit = reinterpret_cast<unsigned*>(bsm);  // [span]: warps with
   unsigned* mask = hit + span;                       // [warps, span] lanes
   float4* lc = reinterpret_cast<float4*>(mask + warps * span);  // [cap]
@@ -792,14 +1253,14 @@ soft_project_bwd_points(const int* __restrict__ idx,         // [B, m, k]
   int p[kUnroll];  // this round's points, relative to p0
 #pragma unroll
   for (int u = 0; u < kUnroll; ++u) {
-    const int e = mine + 32 * u;
+    const Count e = mine + 32 * u;
     p[u] = e < entries ? __ldg(ib + e) - p0 : -1;
   }
-  for (int r0 = 0; r0 < entries; r0 += round) {
+  for (Count r0 = 0; r0 < entries; r0 += round) {
     int pn[kUnroll];  // the next round's, in flight meanwhile
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      const int e = r0 + round + mine + 32 * u;
+      const Count e = r0 + round + mine + 32 * u;
       pn[u] = e < entries ? __ldg(ib + e) - p0 : -1;
     }
     // the warp's entries on the block's points, and their contributions
@@ -812,9 +1273,10 @@ soft_project_bwd_points(const int* __restrict__ idx,         // [B, m, k]
       vote[u] = __ballot_sync(kFull, in);
       c[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       if (in) {
-        const int e = r0 + mine + 32 * u;
-        const int q = e / k, j = e - q * k;
-        c[u] = cb[static_cast<size_t>(j) * m + q];
+        const Count e = r0 + mine + 32 * u;
+        const Count q = e / k;
+        const int j = static_cast<int>(e - q * k);
+        c[u] = cb[static_cast<size_t>(j) * m + static_cast<size_t>(q)];
       }
       cnt += __popc(vote[u]);
     }
@@ -884,6 +1346,34 @@ soft_project_bwd_points(const int* __restrict__ idx,         // [B, m, k]
   for (int i = t; i < np * 3; i += threads) out[i] = stage[i];
 }
 
+template <int K>
+__global__ void __launch_bounds__(kMaxPointThreads, 4)
+soft_project_bwd_points(const int* __restrict__ idx,         // [B, m, k]
+                        const float4* __restrict__ contrib,  // [B, k, m]
+                        const float2* __restrict__ esd,      // [B, k, m]
+                        const float* __restrict__ sigma,     // [1]
+                        float* __restrict__ dpoints,         // [B, n, 3]
+                        float* __restrict__ dsigma,          // [B] partials
+                        int n, int m, int span, int k_run) {
+  bwd_points<K, int>(idx, contrib, esd, sigma, dpoints, dsigma, n, m, span,
+                     k_run);
+}
+
+// Clouds of more entries than an int numbers, any k: the same sums in the
+// same orders (the d sigma^2 loop of K = 0 adds a query's terms in rank
+// order, as the unrolled one of K > 0 does).
+__global__ void __launch_bounds__(kMaxPointThreads, 4)
+soft_project_bwd_points64(const int* __restrict__ idx,
+                          const float4* __restrict__ contrib,
+                          const float2* __restrict__ esd,
+                          const float* __restrict__ sigma,
+                          float* __restrict__ dpoints,
+                          float* __restrict__ dsigma, int n, int m, int span,
+                          int k_run) {
+  bwd_points<0, long long>(idx, contrib, esd, sigma, dpoints, dsigma, n, m,
+                           span, k_run);
+}
+
 size_t fwd_smem(int chunk) {
   return static_cast<size_t>(chunk) * sizeof(float4);
 }
@@ -911,23 +1401,30 @@ cudaError_t launch_fwd(const float* points, const float* queries,
 // [span] hit flags and [warps, span] lane masks, then a round's list
 // (contribution and point, at most min(round, M*k) entries), which the
 // staged rows of d points later reuse.
-size_t bwd_smem(int threads, int span, int entries) {
+size_t bwd_smem(int threads, int span, long long entries) {
   const size_t warps = threads / 32;
   const size_t round = 32 * kUnroll * warps;
-  const size_t cap = round < static_cast<size_t>(entries) ? round : entries;
+  const size_t cap = round < static_cast<size_t>(entries)
+                         ? round
+                         : static_cast<size_t>(entries);
   const size_t list = cap * (sizeof(float4) + sizeof(int));
   const size_t stage = static_cast<size_t>(span) * 3 * sizeof(float);
   return (warps + 1) * span * sizeof(unsigned) + (list > stage ? list : stage);
 }
 
-// K = 0: the wide kernels, k at run time.
+// Entries a cloud the int-counted point kernels take: with a round to
+// spare, so that no entry number they form passes INT_MAX.
+constexpr long long kIntEntries = INT_MAX - 32 * kUnroll * kMaxPointThreads;
+
+// K = 0: the wide kernels, k at run time. A cloud of more than kIntEntries
+// entries, or a plan's count64, takes soft_project_bwd_points64 at any k.
 template <int K>
 cudaError_t launch_bwd(const float* points, const float* queries,
                        const float* sigma, const int* idx,
                        const float* grad_out, float* dpoints, float* dqueries,
                        float* dsigma, float4* contrib, float2* esd, int b,
                        int n, int m, int k, int tile, int threads, int span,
-                       cudaStream_t stream) {
+                       bool count64, cudaStream_t stream) {
   const long long total = static_cast<long long>(b) * m;
   const unsigned blocks = static_cast<unsigned>((total + tile - 1) / tile);
   if constexpr (K > 0) {
@@ -941,16 +1438,26 @@ cudaError_t launch_bwd(const float* points, const float* queries,
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t smem = bwd_smem(threads, span, m * k);
+  const long long entries = static_cast<long long>(m) * k;
+  const size_t smem = bwd_smem(threads, span, entries);
+  const bool wide_count = count64 || entries > kIntEntries;
+  const void* points_kernel =
+      wide_count ? reinterpret_cast<const void*>(soft_project_bwd_points64)
+                 : reinterpret_cast<const void*>(soft_project_bwd_points<K>);
   if (smem + kPointStatic > 48 * 1024) {
-    err = cudaFuncSetAttribute(soft_project_bwd_points<K>,
+    err = cudaFuncSetAttribute(points_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   const unsigned grid = static_cast<unsigned>(b) * ((n + span - 1) / span + 1);
-  soft_project_bwd_points<K><<<grid, threads, smem, stream>>>(
-      idx, contrib, esd, sigma, dpoints, dsigma, n, m, span, k);
+  if (wide_count) {
+    soft_project_bwd_points64<<<grid, threads, smem, stream>>>(
+        idx, contrib, esd, sigma, dpoints, dsigma, n, m, span, k);
+  } else {
+    soft_project_bwd_points<K><<<grid, threads, smem, stream>>>(
+        idx, contrib, esd, sigma, dpoints, dsigma, n, m, span, k);
+  }
   return cudaGetLastError();
 }
 
@@ -979,7 +1486,7 @@ cudaError_t launch_bwd(const float* points, const float* queries,
 }  // namespace
 
 extern "C" size_t snt_soft_project_bwd_smem(int threads, int span,
-                                            int entries) {
+                                            long long entries) {
   return bwd_smem(threads, span, entries);
 }
 
@@ -1020,24 +1527,101 @@ extern "C" int snt_soft_project_fwd(const float* points, const float* queries,
 #undef SNT_FWD
 }
 
-extern "C" int snt_soft_project_fwd_wide_warps() { return kWideWarps; }
-
 extern "C" int snt_soft_project_max_register_k() { return kMaxK; }
 
-// The wide forward, any 1 <= k <= n: one warp a query, kWideWarps a block.
+// The wide forward's limits: 0 the radix kernel's queries a block, 1 the
+// pruned kernel's warps a block, 2 its group minima a lane, 3 its most
+// group minima a query, 4 its most candidates a query, 5 its most blocks a
+// cluster, 6 its most keys a lane caches, 7 its most points staged at a
+// time.
+extern "C" int snt_soft_project_fwd_wide_limit(int which) {
+  const int limits[] = {kWideWarps, kPruneWarps, kSlots, kMaxGroups,
+                        kMaxCap, kMaxCluster, kMaxVisits, kMaxPruneChunk};
+  return which >= 0 && which < 8 ? limits[which] : -1;
+}
+
+extern "C" size_t snt_soft_project_fwd_pruned_smem(int ws, int cap,
+                                                   int chunk, int span) {
+  return prune_smem(ws, cap, chunk, span);
+}
+
+// The wide forward, any 1 <= k <= n. ws = 0: the radix kernel, one warp a
+// query, kWideWarps a block. Otherwise the pruned kernel under the plan
+// (ws, cs, groups, cap, chunk): ws warps a query in a block, cs blocks a
+// cluster, G group minima and `cap` candidates a query, `chunk` points
+// staged at a time; each block takes span = ceil(n / (cs * 32 * ws)) *
+// 32 * ws points.
 extern "C" int snt_soft_project_fwd_wide(const float* points,
                                          const float* queries,
                                          const float* sigma, float* out,
                                          int* idx, int b, int n, int m, int k,
-                                         cudaStream_t stream) {
-  const long long total = static_cast<long long>(b) * m;
-  const long long blocks = (total + kWideWarps - 1) / kWideWarps;
-  if (b < 1 || m < 1 || k < 1 || k > n || blocks > INT_MAX) {
+                                         int ws, int cs, int groups, int cap,
+                                         int chunk, cudaStream_t stream) {
+  if (b < 1 || m < 1 || k < 1 || k > n) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  soft_project_fwd_wide_kernel<<<static_cast<unsigned>(blocks),
-                                 kWideWarps * 32, 0, stream>>>(
-      points, queries, sigma, out, idx, n, m, k, total);
+  const long long total = static_cast<long long>(b) * m;
+  if (ws == 0) {
+    const long long blocks = (total + kWideWarps - 1) / kWideWarps;
+    if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+    soft_project_fwd_wide_kernel<<<static_cast<unsigned>(blocks),
+                                   kWideWarps * 32, 0, stream>>>(
+        points, queries, sigma, out, idx, n, m, k, total);
+    return static_cast<int>(cudaGetLastError());
+  }
+  auto pow2 = [](int v) { return v > 0 && (v & (v - 1)) == 0; };
+  if (!pow2(ws) || ws > kPruneWarps || !pow2(cs) || cs > kMaxCluster ||
+      !pow2(groups) || groups < 64 || groups > kMaxGroups ||
+      groups < ws * cs || k > groups || !pow2(cap) ||
+      cap < groups || cap > kMaxCap || chunk < 256 * ws ||
+      chunk % (256 * ws) != 0 || chunk > kMaxPruneChunk) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  PrunePlan pl;
+  pl.ws = ws;
+  pl.cs = cs;
+  pl.groups = groups;
+  pl.cap = cap;
+  pl.chunk = chunk;
+  const long long step = 32LL * ws * cs;
+  pl.span = static_cast<int>((n + step - 1) / step * 32 * ws);
+  pl.visits = prune_visits(ws, chunk, pl.span);
+  pl.tiles = (m + kPruneWarps / ws - 1) / (kPruneWarps / ws);
+  const long long blocks = static_cast<long long>(b) * pl.tiles * cs;
+  if (pl.visits > kMaxVisits || blocks > INT_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = prune_smem(ws, cap, chunk, pl.span);
+  const void* kernel =
+      cs > 1 ? reinterpret_cast<const void*>(soft_project_fwd_pruned_kernel<true>)
+             : reinterpret_cast<const void*>(soft_project_fwd_pruned_kernel<false>);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks));
+  cfg.blockDim = dim3(kPruneWarps * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaError_t err;
+  if (cs > 1) {
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, soft_project_fwd_pruned_kernel<true>,
+                             points, queries, sigma, out, idx, n, m, k, pl);
+  } else {
+    err = cudaLaunchKernelEx(&cfg, soft_project_fwd_pruned_kernel<false>,
+                             points, queries, sigma, out, idx, n, m, k, pl);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1045,20 +1629,21 @@ extern "C" int snt_soft_project_fwd_wide(const float* points,
 // ones. contrib [B, k, M] float4 and esd [B, k, M] float2 are the caller's
 // workspace; tile (queries a block of the first kernel), threads and span
 // (points a block of the second, a multiple of threads, at most kMaxPer a
-// thread) come from the launch plan; the outputs do not depend on it.
+// thread) and count64 (entries counted in 64 bits, which more than
+// kIntEntries a cloud need) come from the launch plan; the outputs do not
+// depend on it.
 extern "C" int snt_soft_project_bwd(const float* points, const float* queries,
                                     const float* sigma, const int* idx,
                                     const float* grad_out, float* dpoints,
                                     float* dqueries, float* dsigma,
                                     float* contrib, float* esd, int b, int n,
                                     int m, int k, int tile, int threads,
-                                    int span, cudaStream_t stream) {
+                                    int span, int count64,
+                                    cudaStream_t stream) {
   if (k < 1 || k > n || b < 1 || m < 1 ||
       tile < 32 || tile > kMaxTile || tile % 32 != 0 || threads < 32 ||
       threads > kMaxPointThreads || threads % 32 != 0 || span < threads ||
       span % threads != 0 || span / threads > kMaxPer ||
-      static_cast<long long>(m) * k >
-          INT_MAX - 32 * kUnroll * kMaxPointThreads ||
       (static_cast<long long>(b) * m + tile - 1) / tile > INT_MAX ||
       static_cast<long long>(b) * ((n + span - 1) / span + 1) > INT_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1068,7 +1653,8 @@ extern "C" int snt_soft_project_bwd(const float* points, const float* queries,
 #define SNT_BWD(K)                                                          \
   static_cast<int>(launch_bwd<K>(points, queries, sigma, idx, grad_out,     \
                                  dpoints, dqueries, dsigma, c4, e2, b, n,    \
-                                 m, k, tile, threads, span, stream))
+                                 m, k, tile, threads, span, count64 != 0,   \
+                                 stream))
   SNT_SWITCH_K(k, SNT_BWD, SNT_BWD(0))
 #undef SNT_BWD
 }

@@ -145,9 +145,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.snt_fps_cluster_limit.restype = i
     lib.snt_point_mlp_max_smem.argtypes = [ctypes.POINTER(i), i, i]
     lib.snt_point_mlp_max_smem.restype = ctypes.c_size_t
-    lib.snt_point_mlp_max.argtypes = [p, p, ctypes.POINTER(i), i, i, p, i, i,
-                                      p]
+    lib.snt_point_mlp_max.argtypes = [p, p, ctypes.POINTER(i), i, i, p, p, i,
+                                      i, p]
     lib.snt_point_mlp_max.restype = i
+    lib.snt_point_mlp_max_param_layers.argtypes = []
+    lib.snt_point_mlp_max_param_layers.restype = i
     lib.snt_soft_project_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
                                          p]
     lib.snt_soft_project_fwd.restype = i
@@ -157,17 +159,19 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.snt_soft_project_fwd_max_warps.restype = i
     lib.snt_soft_project_fwd_max_slices.argtypes = []
     lib.snt_soft_project_fwd_max_slices.restype = i
-    lib.snt_soft_project_fwd_wide.argtypes = [*[p] * 5, *[i] * 4, p]
+    lib.snt_soft_project_fwd_wide.argtypes = [*[p] * 5, *[i] * 9, p]
     lib.snt_soft_project_fwd_wide.restype = i
-    lib.snt_soft_project_fwd_wide_warps.argtypes = []
-    lib.snt_soft_project_fwd_wide_warps.restype = i
+    lib.snt_soft_project_fwd_wide_limit.argtypes = [i]
+    lib.snt_soft_project_fwd_wide_limit.restype = i
+    lib.snt_soft_project_fwd_pruned_smem.argtypes = [i, i, i, i]
+    lib.snt_soft_project_fwd_pruned_smem.restype = sz
     lib.snt_soft_project_max_register_k.argtypes = []
     lib.snt_soft_project_max_register_k.restype = i
-    lib.snt_soft_project_bwd_smem.argtypes = [i, i, i]
+    lib.snt_soft_project_bwd_smem.argtypes = [i, i, ctypes.c_longlong]
     lib.snt_soft_project_bwd_smem.restype = sz
     lib.snt_soft_project_bwd_limit.argtypes = [i]
     lib.snt_soft_project_bwd_limit.restype = i
-    lib.snt_soft_project_bwd.argtypes = [*[p] * 10, *[i] * 7, p]
+    lib.snt_soft_project_bwd.argtypes = [*[p] * 10, *[i] * 8, p]
     lib.snt_soft_project_bwd.restype = i
     lib.snt_pmt_dense_smem.argtypes = [i, i, i]
     lib.snt_pmt_dense_smem.restype = sz
@@ -191,6 +195,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.snt_emd_smem.restype = sz
     lib.snt_emd_rows_per_block.argtypes = []
     lib.snt_emd_rows_per_block.restype = i
+    lib.snt_emd_max_clouds.argtypes = []
+    lib.snt_emd_max_clouds.restype = i
     lib.snt_emd_cost.argtypes = [p, p, i, i, i, i, *[p] * 11, p]
     lib.snt_emd_cost.restype = i
     lib.snt_emd_underflow.argtypes = []

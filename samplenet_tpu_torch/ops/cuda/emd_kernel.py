@@ -41,7 +41,7 @@ from samplenet_tpu_torch.ops.dispatch import count_launch, use_kernel
 KERNEL = "emd"
 # -4^j for j = 8..-1, then 0 (emd_kernel.py:49; tf_approxmatch.cpp:29-33)
 LEVELS = tuple(-(4.0 ** j) for j in range(8, -2, -1)) + (0.0,)
-_MAX_GRID_Y = 65535
+MAX_CLOUDS = 65535   # clouds a launch: the grid's y axis (csrc/emd.cu)
 # csrc/emd.cu's block: kWarps warps, kRows rows of xyz1 of kRowVals values
 # each, the reduction rows kRed = 6 row sums x kGroup rows + 1
 _WARPS, _ROWS, _ROW_VALS, _RED = 8, 64, 8, 6 * 8 + 1
@@ -64,6 +64,13 @@ def max_columns(limit: int) -> int:
     while m > 0 and emd_smem(m) > limit:
         m -= 1
     return m
+
+
+def cloud_chunks(b: int) -> list[tuple[int, int]]:
+    """[start, stop) of the clouds of each launch: at most MAX_CLOUDS a
+    launch, in order. Each cloud is independent, so the bits do not depend
+    on the chunks."""
+    return [(c0, min(c0 + MAX_CLOUDS, b)) for c0 in range(0, b, MAX_CLOUDS)]
 
 
 def saturations(n: int, m: int) -> tuple[float, float]:
@@ -231,14 +238,12 @@ def emd_cost_cuda(xyz1: torch.Tensor, xyz2: torch.Tensor,
         raise TypeError(f"the emd kernel takes float32, got {xyz1.dtype}")
     if not (xyz1.is_contiguous() and xyz2.is_contiguous()):
         raise ValueError("the emd kernel takes contiguous xyz1 and xyz2")
-    b = xyz1.shape[0]
     m = xyz2.shape[1]
-    if b > _MAX_GRID_Y:
-        raise ValueError(f"B={b} exceeds the emd kernel's grid")
     smem, limit = emd_smem(m), max_dynamic_smem(xyz1.device)
-    if library().snt_emd_smem(m) != smem:
+    if (library().snt_emd_smem(m) != smem
+            or library().snt_emd_max_clouds() != MAX_CLOUDS):
         raise RuntimeError("emd_kernel.py and csrc/emd.cu count shared "
-                           "memory apart")
+                           "memory or clouds a launch apart")
     if smem > limit:
         raise ValueError(f"m={m} needs {smem} bytes of shared memory per "
                          f"block, more than the card offers ({limit}: at "
@@ -248,7 +253,19 @@ def emd_cost_cuda(xyz1: torch.Tensor, xyz2: torch.Tensor,
 
 def _launch(xyz1: torch.Tensor, xyz2: torch.Tensor, with_grads: bool
             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The kernel on the clouds in the order they are given."""
+    """The kernel on the clouds in the order they are given, one launch a
+    chunk of at most MAX_CLOUDS clouds (`cloud_chunks`)."""
+    chunks = cloud_chunks(xyz1.shape[0])
+    if len(chunks) == 1:
+        return _launch_clouds(xyz1, xyz2, with_grads)
+    parts = [_launch_clouds(xyz1[c0:c1], xyz2[c0:c1], with_grads)
+             for c0, c1 in chunks]
+    return tuple(torch.cat(t) for t in zip(*parts))
+
+
+def _launch_clouds(xyz1: torch.Tensor, xyz2: torch.Tensor, with_grads: bool
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One launch on at most MAX_CLOUDS clouds."""
     b, n, _ = xyz1.shape
     m = xyz2.shape[1]
     lib = library()

@@ -35,7 +35,7 @@ from samplenet_tpu_torch.ops.cuda._build import (
 )
 from samplenet_tpu_torch.ops.cuda.point_mlp_plan import (
     BF16_MMA_MIN_CIN,
-    MAX_LAYERS as _MAX_LAYERS,
+    PARAM_LAYERS,
     kernel_widths,
     max_smem,
     plan_max,
@@ -139,7 +139,7 @@ def point_mlp_max(x: torch.Tensor, weights_and_biases, *,
             "point_mlp_max has no backward: call it under torch.no_grad() "
             "or on inputs that do not require grad")
     if use_kernel(x):  # checked here too: tracing runs no CUDA impl
-        _check_cuda(x, widths)
+        _check_cuda(x)
     elif x.device.type == "cuda":                  # under plain_on_cuda()
         return point_mlp_max_plain(x, weights_and_biases, bf16)
     return point_mlp_max_op(x, _flat_params(pairs), widths, bool(bf16))
@@ -211,16 +211,10 @@ def _params(pairs, bf16: bool) -> torch.Tensor:
     return torch.cat(parts)
 
 
-def _check_cuda(x, widths) -> None:
+def _check_cuda(x) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"the point_mlp_max kernel takes CUDA tensors, got "
                          f"{x.device}")
-    if not x.is_contiguous():
-        raise ValueError("the point_mlp_max kernel takes a contiguous x")
-    if len(widths) - 1 > _MAX_LAYERS:
-        raise ValueError(
-            f"the point_mlp_max kernel takes at most {_MAX_LAYERS} layers, "
-            f"got {widths}")
 
 
 def padded_pairs(pairs, widths) -> tuple[list, tuple[int, ...]]:
@@ -237,7 +231,8 @@ def padded_pairs(pairs, widths) -> tuple[list, tuple[int, ...]]:
 
 @point_mlp_max_op.register_kernel("cuda")
 def _point_mlp_max_cuda(x, params, widths, bf16):
-    _check_cuda(x, widths)
+    _check_cuda(x)
+    x = x.contiguous()              # strided x: the kernel reads rows
     width = widths[-1]
     pairs = _unflatten(params, widths)
     if kernel_widths(widths) != tuple(widths):
@@ -250,17 +245,23 @@ def _point_mlp_max_cuda(x, params, widths, bf16):
     if plan_max(widths, max_dynamic_smem(x.device), bf16) is None:
         raise ValueError(f"widths {widths} need {smem} bytes of shared "
                          f"memory per block, more than the card offers")
-    if smem != max_smem(widths, bf16):
+    if (smem != max_smem(widths, bf16)
+            or lib.snt_point_mlp_max_param_layers() != PARAM_LAYERS):
         raise RuntimeError("point_mlp_plan.py and csrc/point_mlp_max.cu "
-                           "count shared memory apart")
+                           "count shared memory or layers apart")
     params = _params(pairs, True) if bf16 else params.contiguous()
     out = torch.empty((x.shape[0], widths[-1]), dtype=torch.float32,
                       device=x.device)
     name = KERNEL_BF16 if bf16 else KERNEL
+    # a chain deeper than the kernel's parameters hold reads its layer
+    # table (widths and offsets, which the C entry fills) from here
+    table = (torch.empty(3 * layers + 1, dtype=torch.int64, device=x.device)
+             if layers > PARAM_LAYERS else None)
     with torch.cuda.device(x.device):
         err = lib.snt_point_mlp_max(
             x.data_ptr(), params.data_ptr(), c_widths, layers, int(bf16),
-            out.data_ptr(), x.shape[0], x.shape[1], stream_handle(x))
+            None if table is None else table.data_ptr(), out.data_ptr(),
+            x.shape[0], x.shape[1], stream_handle(x))
     check(err, name)
     count_launch(name)
     return out if widths[-1] == width else out[:, :width].contiguous()

@@ -240,7 +240,8 @@ def plan_bwd(widths, n_blocks: int, m: int, sms: int, limit: int,
 
 FWD_THREADS = 256     # mma::kThreads: 8 warps
 FWD_MIN_BLOCKS = 2    # both forward kernels' launch bounds (registers)
-MAX_LAYERS = 8        # point_mlp_max.cu kMaxLayers
+PARAM_LAYERS = 8      # point_mlp_max.cu kMaxLayers: deeper chains read their
+                      # layer table from device memory
 DENSE_CHUNK = 64      # pmt_dense's output channels at a time (kChunk)
 BF16_MMA_MIN_CIN = 16  # point_mlp_max in bf16: a first layer with fewer
                        # input channels runs on the FP32 pipes (kBf16K)
@@ -319,12 +320,12 @@ class MaxPlan:
 def plan_max(widths, limit: int, bf16: bool = False) -> MaxPlan | None:
     """point_mlp_max's plan for the chain `widths` (widths[0] is the
     input's), with f32 or bf16 operands, at `kernel_widths(widths)`, or
-    None where the kernel does not take it (more than 8 layers, or more
-    shared memory than `limit`)."""
+    None where the kernel does not take it: more shared memory than
+    `limit`, the only bound, as VMEM is the TPU kernel's (any number of
+    layers)."""
     widths = kernel_widths(widths)
     smem = max_smem(widths, bf16)
-    if not 1 <= len(widths) - 1 <= MAX_LAYERS or widths[0] < 1 \
-            or smem > limit:
+    if len(widths) < 2 or widths[0] < 1 or smem > limit:
         return None
     return MaxPlan(widths, max_rows(widths, bf16), smem,
                    blocks_per_sm(smem, FWD_THREADS, limit))

@@ -149,16 +149,25 @@ def fwd_plan(device: int, b: int, n: int, m: int) -> spp.FwdPlan:
 
 
 @functools.lru_cache(maxsize=256)
-def fwd_wide_plan(b: int, n: int, m: int, k: int) -> spp.WideFwdPlan:
-    """The wide forward's plan; checks that the kernels count their
-    register k and the wide block as the plan does."""
+def fwd_wide_plan(device: int, b: int, n: int, m: int, k: int
+                  ) -> spp.WideFwdPlan:
+    """The wide forward's plan on CUDA device `device`; checks that the
+    kernels count their register k, their limits and shared memory as the
+    plan does."""
     lib = library()
+    limits = [lib.snt_soft_project_fwd_wide_limit(i) for i in range(8)]
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    plan = spp.plan_fwd_wide(b, n, m, k, sms=sms)
     if (lib.snt_soft_project_max_register_k() != spp.MAX_REGISTER_K
-            or lib.snt_soft_project_fwd_wide_warps() != spp.WIDE_WARPS):
+            or limits != [spp.WIDE_WARPS, spp.PRUNE_WARPS, spp.SLOTS,
+                          spp.MAX_GROUPS, spp.MAX_CAP, spp.MAX_CLUSTER,
+                          spp.MAX_VISITS, spp.PRUNE_CHUNK]
+            or not plan.radix and lib.snt_soft_project_fwd_pruned_smem(
+                plan.ws, plan.cap, plan.chunk, plan.span) != plan.smem):
         raise RuntimeError("csrc/soft_projection.cu and soft_projection_plan"
-                           ".py disagree on the register k or the wide "
-                           "block")
-    return spp.plan_fwd_wide(b, n, m, k)
+                           ".py disagree on the register k, the wide "
+                           "kernels' limits or shared memory")
+    return plan
 
 
 @functools.lru_cache(maxsize=256)
@@ -173,7 +182,7 @@ def soft_project_fwd_cuda(points, queries, sigma, k: int):
     m = queries.shape[1]
     if not _takes_register_fwd(points.device.index, b, m, k):
         return launch_fwd_wide(points, queries, sigma, k,
-                               fwd_wide_plan(b, n, m, k))
+                               fwd_wide_plan(points.device.index, b, n, m, k))
     plan = fwd_plan(points.device.index, b, n, m)
     return launch_fwd(points, queries, sigma, k, plan)
 
@@ -197,8 +206,9 @@ def launch_fwd(points, queries, sigma, k: int, plan: spp.FwdPlan):
 
 
 def launch_fwd_wide(points, queries, sigma, k: int, plan: spp.WideFwdPlan):
-    """The wide forward kernel on checked arguments, any 1 <= k <= N (the
-    card tests also run it at k <= 16)."""
+    """The wide forward on checked arguments under `plan`, any 1 <= k <= N
+    (the card tests also run it at k <= 16, and under other plans); the
+    outputs do not depend on the plan."""
     b, n, _ = points.shape
     m = queries.shape[1]
     out = torch.empty((b, m, 3), dtype=torch.float32, device=points.device)
@@ -207,7 +217,8 @@ def launch_fwd_wide(points, queries, sigma, k: int, plan: spp.WideFwdPlan):
     with torch.cuda.device(points.device):
         err = lib.snt_soft_project_fwd_wide(
             points.data_ptr(), queries.data_ptr(), sigma.data_ptr(),
-            out.data_ptr(), idx.data_ptr(), b, n, m, k, stream_handle(points))
+            out.data_ptr(), idx.data_ptr(), b, n, m, k, plan.ws, plan.cs,
+            plan.groups, plan.cap, plan.chunk, stream_handle(points))
     check(err, KERNEL_FWD_WIDE)
     count_launch(KERNEL_FWD_WIDE)
     return out, idx
@@ -267,7 +278,7 @@ def launch_bwd(points, queries, sigma, idx, grad_out, plan: spp.BwdPlan):
             idx.data_ptr(), grad_out.data_ptr(), dpoints.data_ptr(),
             dqueries.data_ptr(), base + 24 * entries, base,
             base + 16 * entries, b, n, m, k, plan.tile, plan.threads,
-            plan.span, stream_handle(points))
+            plan.span, int(plan.count64), stream_handle(points))
     name = KERNEL_BWD if k <= spp.MAX_REGISTER_K else KERNEL_BWD_WIDE
     check(err, name)
     count_launch(name)

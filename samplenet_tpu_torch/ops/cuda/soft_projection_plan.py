@@ -38,13 +38,23 @@ threads on an H100 these rules were fitted to
 (tools/time_soft_projection.py). The outputs do not depend on the plan.
 
 Group sizes above MAX_REGISTER_K, and clouds of more queries than the
-register forward's grid axis holds, take the wide forward kernel
-(`takes_register_fwd`): one warp a query over a flat grid of all B*M
-queries, WIDE_WARPS a block, a radix
-histogram of RADIX_BINS counters a warp in static shared memory and
-nothing that grows with N or k; its plan is that grid. The backward takes
-any k under the plan above (its first kernel loops over k above
-MAX_REGISTER_K).
+register forward's grid axis holds, take the wide forward
+(`takes_register_fwd`), whose plan (`plan_fwd_wide`) picks one of its two
+kernels. The pruned kernel, for k up to PRUNE_MAX_K and at most a quarter
+of N: each query's points split over S = ws * cs warp-slices (ws warps of
+a block, cs blocks of a thread-block cluster), S the fewest that give the
+card FILL_WARPS warps an SM and leave no lane more than MAX_VISITS keys to
+cache, while each slice keeps at least 32 * SLOTS points; the blocks of a
+cluster before the warps of a block, so that a block's queries share its
+staged points, but never more queries a block than the cloud has. G =
+max(64, 2k rounded up to a power of two) group minima a query, a buffer of
+2G candidates. The radix kernel takes the rest: one warp a query over a
+flat grid of all B*M queries, WIDE_WARPS a block, a radix histogram of
+RADIX_BINS counters a warp in static shared memory and nothing that grows
+with N or k. The outputs do not depend on the plan. The backward takes any
+k under the plan above (its first kernel loops over k above
+MAX_REGISTER_K), and any M * k: past INT_ENTRIES entries a cloud its
+point kernel counts them in 64 bits.
 """
 
 from __future__ import annotations
@@ -118,36 +128,124 @@ def plan_fwd(b: int, n: int, m: int, *, sms: int) -> FwdPlan:
                    grid=(b, grid_y))
 
 
-WIDE_WARPS = 8       # kWideWarps: queries a block of the wide forward
+WIDE_WARPS = 8       # kWideWarps: queries a block of the radix kernel
 RADIX_BINS = 256     # kRadixBins: 8 bits a pass
+PRUNE_WARPS = 8      # kPruneWarps: a pruned block's warps
+SLOTS = 8            # kSlots: group minima a lane keeps
+MAX_GROUPS = 128     # kMaxGroups
+MAX_CAP = 256        # kMaxCap
+MAX_CLUSTER = 8      # kMaxCluster: the portable cluster size
+MAX_VISITS = 64      # kMaxVisits: keys a lane caches
+PRUNE_CHUNK = 2048   # kMaxPruneChunk: points staged at a time
+PRUNE_MAX_K = 64
+FILL_WARPS = 16      # warps an SM that the pruned split aims for
 
 
 @dataclass(frozen=True)
 class WideFwdPlan:
-    warps: int       # queries a block, one a warp
-    grid: int        # blocks: ceil(B * M / warps)
+    ws: int          # warps a query in a block; 0: the radix kernel
+    cs: int          # blocks a cluster, each `span` points of the cloud
+    groups: int      # group minima a query (G)
+    cap: int         # candidates a query
+    chunk: int       # points staged at a time
+    span: int        # points a block
+    grid: int        # blocks
+
+    @property
+    def radix(self) -> bool:
+        return self.ws == 0
+
+    @property
+    def split(self) -> int:
+        """Warp-slices a query: S = ws * cs."""
+        return self.ws * self.cs
+
+    @property
+    def queries(self) -> int:
+        """Queries a block (a cluster)."""
+        return WIDE_WARPS if self.radix else PRUNE_WARPS // self.ws
+
+    @property
+    def visits(self) -> int:
+        """Keys a lane caches: every visit of the block's chunks."""
+        return -(-self.span // self.chunk) * self.chunk // (32 * self.ws)
 
     @property
     def smem(self) -> int:
-        """Static shared memory of a block: a histogram a warp."""
-        return wide_smem(self.warps)
+        """Shared memory of a block, as the kernels count it: the radix
+        kernel's static histograms, or the pruned kernel's dynamic layout
+        (the staged chunks, which the queries' states reuse, then the
+        warps' key caches)."""
+        if self.radix:
+            return wide_smem(WIDE_WARPS)
+        staged = (2 if self.span > self.chunk else 1) * self.chunk * 16
+        states = self.queries * (self.cap * 8 + 16)
+        return max(staged, states) + PRUNE_WARPS * 32 * self.visits * 4
 
 
 def wide_smem(warps: int) -> int:
     return warps * RADIX_BINS * 4
 
 
-def plan_fwd_wide(b: int, n: int, m: int, k: int) -> WideFwdPlan:
+def _pow2(v: int) -> int:
+    return 1 << max(0, v - 1).bit_length()
+
+
+def pruned_split(b: int, n: int, m: int, *, sms: int) -> int:
+    """S, the warp-slices a query of the pruned kernel (a power of two up
+    to 64): the fewest that give the card FILL_WARPS warps an SM and no
+    lane more than MAX_VISITS keys, each slice keeping 32 * SLOTS points."""
+    s = 1
+    while s < PRUNE_WARPS * MAX_CLUSTER and (
+            b * m * s < sms * FILL_WARPS or -(-n // s) > 32 * MAX_VISITS) \
+            and -(-n // (2 * s)) >= 32 * SLOTS:
+        s *= 2
+    return s
+
+
+def plan_fwd_wide(b: int, n: int, m: int, k: int, *, sms: int) -> WideFwdPlan:
     """The wide forward's plan for B clouds of n points and m queries, any
-    1 <= k <= n."""
-    if min(b, n, m, k) < 1 or k > n:
+    1 <= k <= n, on a card of `sms` SMs."""
+    if min(b, n, m, k, sms) < 1 or k > n:
         raise ValueError(f"plan_fwd_wide needs positive sizes and k <= n, "
-                         f"got b={b}, n={n}, m={m}, k={k}")
-    grid = -(-b * m // WIDE_WARPS)
+                         f"got b={b}, n={n}, m={m}, k={k}, sms={sms}")
+    s = pruned_split(b, n, m, sms=sms)
+    if k > PRUNE_MAX_K or 4 * k > n or -(-n // s) > 32 * MAX_VISITS:
+        grid = -(-b * m // WIDE_WARPS)
+        if grid > MAX_GRID_X:
+            raise ValueError(f"B={b} x M={m} queries exceed the wide "
+                             f"kernel's grid")
+        return WideFwdPlan(0, 1, 0, 0, 0, 0, grid)
+    cs = min(MAX_CLUSTER, s)
+    ws = s // cs
+    while cs > 1 and PRUNE_WARPS // ws > m:    # queries a block the cloud has
+        cs //= 2
+        ws *= 2
+    return pruned_plan(b, n, m, k, ws, cs)
+
+
+def pruned_plan(b: int, n: int, m: int, k: int, ws: int, cs: int
+                ) -> WideFwdPlan:
+    """The pruned kernel's plan at the split (ws, cs): G = max(64, 2k
+    rounded up to a power of two), a buffer of 2G candidates, a block's
+    span its share of the cloud rounded up to 32 * ws points, and the
+    chunk the smallest multiple of 256 * ws (whole batches of 8 visits a
+    lane) that holds the span, up to PRUNE_CHUNK points. A split that
+    leaves a block no points is refused."""
+    groups = max(64, _pow2(2 * k))
+    span = -(-n // (cs * 32 * ws)) * 32 * ws
+    chunk = min(-(-span // (256 * ws)) * 256 * ws, max(PRUNE_CHUNK, 256 * ws))
+    grid = b * -(-m // (PRUNE_WARPS // ws)) * cs
+    plan = WideFwdPlan(ws, cs, groups, 2 * groups, chunk, span, grid)
+    if (groups > MAX_GROUPS or ws * cs > groups or plan.visits > MAX_VISITS
+            or ws not in (1, 2, 4, 8) or cs not in (1, 2, 4, 8)
+            or (cs - 1) * span >= n):
+        raise ValueError(f"the pruned kernel does not take k={k}, n={n} at "
+                         f"ws={ws}, cs={cs}")
     if grid > MAX_GRID_X:
         raise ValueError(f"B={b} x M={m} queries exceed the wide kernel's "
                          f"grid")
-    return WideFwdPlan(warps=WIDE_WARPS, grid=grid)
+    return plan
 
 
 # the backward: soft_project_bwd_entries and soft_project_bwd_points
@@ -157,7 +255,9 @@ MAX_PER = 4              # kMaxPer: points a thread
 UNROLL = 4               # kUnroll: idx loads a lane holds a round
 STRIPES = 256            # kStripes: d sigma^2's query stripes
 SPAN = 256               # points a point block owns, at most
-MAX_ENTRIES = 2**31 - 1 - 32 * UNROLL * MAX_POINT_THREADS   # M * k, int
+# entries (M * k) a cloud the point kernel counts in int; past them, in
+# 64 bits (kIntEntries)
+INT_ENTRIES = 2**31 - 1 - 32 * UNROLL * MAX_POINT_THREADS
 
 
 @dataclass(frozen=True)
@@ -165,6 +265,14 @@ class BwdPlan:
     tile: int       # queries a block of the first kernel, one a thread
     threads: int    # a point block's threads
     span: int       # points a point block owns, a multiple of threads
+    count64: bool = False   # the point kernel counts entries in 64 bits
+
+
+def counts_in_64_bits(m: int, k: int) -> bool:
+    """Whether the point kernel must count a cloud's M * k entries in 64
+    bits (soft_project_bwd_points64, at any k); a plan may ask for it at
+    any size (the same sums in the same order)."""
+    return m * k > INT_ENTRIES
 
 
 def bwd_smem(threads: int, span: int, entries: int) -> int:
@@ -188,8 +296,9 @@ def plan_bwd(b: int, n: int, m: int, k: int, *, sms: int) -> BwdPlan:
         tile //= 2
     span = min(SPAN, max(32, 1 << (n - 1).bit_length()))
     threads = span if b < sms else max(32, span // MAX_PER)
-    if (m * k > MAX_ENTRIES or -(-b * m // tile) > MAX_GRID_X
+    if (-(-b * m // tile) > MAX_GRID_X
             or b * (-(-n // span) + 1) > MAX_GRID_X):
         raise ValueError(f"B={b}, N={n}, M={m}, k={k} exceed the kernels' "
                          f"grids")
-    return BwdPlan(tile=tile, threads=threads, span=span)
+    return BwdPlan(tile=tile, threads=threads, span=span,
+                   count64=counts_in_64_bits(m, k))

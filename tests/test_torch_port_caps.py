@@ -12,12 +12,20 @@ and (k+1)-th distances lie within 1e-6 relative of each other may take
 another set there: those queries, and the points they reach, are left
 out of the comparison (the share left in is asserted).
 
-The wide forward's selection (csrc/soft_projection.cu,
-soft_project_fwd_wide_kernel) is emulated step by step in numpy: a radix
-select of four 8-bit passes on the distance bits, the row written in
-index order by ballots, and the in-place bitonic sort whose every compare
-puts the smaller entry at the lower index; it is held to the plain
-version's stable sort bit for bit on ties, NaN and k = N.
+The wide forward's selection (csrc/soft_projection.cu) is emulated step
+by step in numpy. The pruned kernel: each warp-slice's visits of its
+block's points, a lane's 8 group minima (visit v into slot v mod 8), the
+slots and lanes merged to G / S a slice, tau the k-th of the query's G
+minima (from every block of the cluster), the keys at or below it, and
+their sort by (key, index); a list longer than its buffer takes the radix
+selection. The radix kernel: a radix select of four 8-bit passes on the
+distance bits, the row written in index order by ballots, and the
+in-place bitonic sort whose every compare puts the smaller entry at the
+lower index. Both are held to the plain version's stable sort bit for bit
+on randn clouds, on ties (every point three times, on an integer grid),
+NaN and +inf points and k = N, the pruned one under its plan and under
+splits over warps and over the blocks of a cluster; the tests also show
+that the overflow path is taken where the ties fill the buffer.
 
 FPS on clouds beyond a block: the launch plan sends every shape the block
 kernel refuses (N above 16,384, or the cloud and the picks beyond a
@@ -141,8 +149,9 @@ def _dist_keys(pts, q):
     return d.view(np.uint32).astype(np.uint64)
 
 
-def _wide_select(keys, k):
-    """idx of one query as soft_project_fwd_wide_kernel computes it."""
+def _radix_select(keys, k):
+    """idx of one query as the radix kernel (soft_project_fwd_wide_kernel)
+    computes it, and the pruned kernel past its buffer."""
     n = keys.size
     prefix, mask, rank, lt = 0, 0, k, 0
     for shift in (24, 16, 8, 0):
@@ -187,6 +196,71 @@ def _wide_select(keys, k):
     return row
 
 
+PAD_KEY = 0xFFFFFFFF        # a visit past the block's points
+INF_KEY = 0x7F800000        # +inf's bits: a real key is at most this
+
+
+def _group_minima(keys, plan):
+    """The G group minima of one query under a pruned plan: every block r
+    of the cluster, warp-slice w and lane, visit v of chunk c taking point
+    r span + c chunk + (v ws + w) 32 + lane into slot v mod 8, then the
+    slots merged to keep_s (slot s into s mod keep_s) and the lanes to
+    keep_l (lane l into l mod keep_l), gs = G / S a slice."""
+    n = keys.size
+    ws, cs = plan.ws, plan.cs
+    gs = plan.groups // plan.split
+    keep_s = gs // 32 if gs >= 32 else 1
+    keep_l = gs // keep_s
+    vpc = plan.chunk // (32 * ws)
+    lanes = np.arange(32)
+    minima = []
+    for r in range(cs):
+        base = r * plan.span
+        length = max(0, min(plan.span, n - base))
+        for w in range(ws):
+            g = np.full((32, spp.SLOTS), PAD_KEY, np.uint64)
+            for c in range(-(-length // plan.chunk)):
+                cn = min(plan.chunk, length - c * plan.chunk)
+                for v in range(vpc):
+                    off = (v * ws + w) * 32 + lanes
+                    at = np.minimum(base + c * plan.chunk + off, n - 1)
+                    key = np.where(off < cn, keys[at], PAD_KEY)
+                    g[:, v % spp.SLOTS] = np.minimum(g[:, v % spp.SLOTS], key)
+            g = g.reshape(32, spp.SLOTS // keep_s, keep_s).min(1)
+            g = g.reshape(32 // keep_l, keep_l, keep_s).min(0)
+            minima.extend(g.ravel().tolist())
+    assert len(minima) == plan.groups
+    return np.array(minima, np.uint64)
+
+
+def _wide_select(keys, k, plan=None):
+    """(idx, overflowed) of one query as the wide forward computes it
+    under `plan` (a pruned plan; None: the radix kernel)."""
+    if plan is None or plan.radix:
+        return _radix_select(keys, k), False
+    tau = min(int(np.sort(_group_minima(keys, plan))[k - 1]), INF_KEY)
+    cand = np.nonzero(keys <= tau)[0]
+    assert cand.size >= k               # tau bounds the k-th neighbour
+    if cand.size > plan.cap:            # past the buffer: the radix path
+        return _radix_select(keys, k), True
+    order = np.lexsort((cand, keys[cand]))
+    return cand[order[:k]], False
+
+
+def _splits(n, k):
+    """Pruned plans of one cloud of n points, k neighbours, 40 queries:
+    the planner's, and every split (ws, cs) of up to 64 slices that the
+    kernel takes (G >= S, at most MAX_VISITS keys a lane)."""
+    plans = []
+    for ws in (1, 2, 4, 8):
+        for cs in (1, 2, 4, 8):
+            try:
+                plans.append(spp.pruned_plan(1, n, 40, k, ws, cs))
+            except ValueError:
+                pass
+    return plans
+
+
 def _selection_input(kind, n, m, seed):
     rng = np.random.default_rng(seed)
     pts = rng.standard_normal((n, 3)).astype(np.float32)
@@ -211,21 +285,88 @@ def test_wide_selection_is_the_stable_sort(kind, n, k):
     _, want = soft_project_fwd_plain(torch.from_numpy(pts[None]),
                                      torch.from_numpy(qs[None]),
                                      torch.tensor([0.5]), k)
+    plans = [None] + _splits(n, k)
+    assert len(plans) > 4 or k > spp.PRUNE_MAX_K
     for qi in range(qs.shape[0]):
-        np.testing.assert_array_equal(
-            _wide_select(_dist_keys(pts, qs[qi]), k), want[0, qi].numpy())
+        keys = _dist_keys(pts, qs[qi])
+        for plan in plans:
+            np.testing.assert_array_equal(_wide_select(keys, k, plan)[0],
+                                          want[0, qi].numpy(), str(plan))
+
+
+@pytest.mark.parametrize("kind,overflows", [("randn", False),
+                                            ("triples", True),
+                                            ("same", True)])
+def test_wide_selection_overflows_to_the_radix_path(kind, overflows):
+    """On a randn cloud of 1024 points at k = 32 the candidates fit the
+    buffer under every split; where ties fill it (every point three times
+    on a small integer grid, or one point 1024 times), the radix path takes
+    the query, and the answer is the stable sort all the same."""
+    n, k = 1024, 32
+    pts, qs = _selection_input("triples" if kind == "same" else kind, n, 8,
+                               7)
+    if kind == "same":
+        pts[:] = pts[0]
+    _, want = soft_project_fwd_plain(torch.from_numpy(pts[None]),
+                                     torch.from_numpy(qs[None]),
+                                     torch.tensor([0.5]), k)
+    taken = []
+    for qi in range(qs.shape[0]):
+        keys = _dist_keys(pts, qs[qi])
+        for plan in _splits(n, k):
+            got, over = _wide_select(keys, k, plan)
+            np.testing.assert_array_equal(got, want[0, qi].numpy())
+            taken.append(over)
+    assert any(taken) == overflows and (all(taken) or not overflows
+                                        or kind == "triples")
+
+
+def test_wide_candidates_stay_few_on_randn():
+    """About k + k^2 / 2G candidates a query (40 at k = 32, G = 64) under
+    the classification step's plan: the sort that follows is of 64 keys."""
+    n, k = 1024, 32
+    pts, qs = _selection_input("randn", n, 64, 11)
+    plan = spp.plan_fwd_wide(1024, n, 32, k, sms=132)
+    counts = []
+    for q in qs:
+        keys = _dist_keys(pts, q)
+        tau = min(int(np.sort(_group_minima(keys, plan))[k - 1]), INF_KEY)
+        counts.append(int((keys <= tau).sum()))
+    assert min(counts) >= k and np.mean(counts) < 48 and max(counts) <= 128
 
 
 def test_wide_plan():
-    plan = spp.plan_fwd_wide(1024, 1024, 32, 32)
-    assert (plan.warps, plan.grid) == (spp.WIDE_WARPS, 1024 * 32 // 8)
-    assert plan.smem == 8 * 256 * 4
-    assert spp.plan_fwd_wide(3, 40, 5, 40).grid == 2      # 15 queries
+    # the classification step at k = 32: one warp a query, no split
+    plan = spp.plan_fwd_wide(1024, 1024, 32, 32, sms=132)
+    assert (plan.ws, plan.cs, plan.groups, plan.cap) == (1, 1, 64, 128)
+    assert (plan.chunk, plan.span, plan.visits) == (1024, 1024, 32)
+    assert plan.grid == 1024 * 32 // 8 and plan.queries == 8
+    assert plan.smem == 1024 * 16 + 8 * 1024 * 4 == 49152
+    # 256 queries over 32768 points: 16 slices, 2 warps of 8-block clusters
+    plan = spp.plan_fwd_wide(4, 32768, 64, 32, sms=132)
+    assert (plan.ws, plan.cs, plan.split, plan.visits) == (2, 8, 16, 64)
+    assert (plan.chunk, plan.span, plan.grid) == (2048, 4096, 4 * 16 * 8)
+    assert plan.smem <= 232448
+    # one query: the slices in warps, not in blocks the query cannot fill
+    plan = spp.plan_fwd_wide(1, 4096, 1, 32, sms=132)
+    assert (plan.ws, plan.cs) == (8, 2) and plan.queries == 1
+    # a tiny cloud is not split; k = 64 takes G = 128
+    assert spp.plan_fwd_wide(3, 200, 40, 17, sms=132).split == 1
+    assert spp.plan_fwd_wide(4, 1024, 64, 64, sms=132).groups == 128
+    # k a large share of N, k past 64, or a cloud the caches cannot hold:
+    # the radix kernel, one warp a query
+    for args in ((4, 1024, 64, 256), (3, 40, 5, 40), (4, 5000, 40, 100),
+                 (1, 2**18, 2, 32)):
+        plan = spp.plan_fwd_wide(*args, sms=132)
+        assert plan.radix and plan.grid == -(-args[0] * args[2] // 8)
+        assert plan.smem == 8 * 256 * 4
     for args in ((1, 10, 4, 11), (0, 10, 4, 4), (1, 10, 4, 0)):
         with pytest.raises(ValueError, match="positive"):
-            spp.plan_fwd_wide(*args)
+            spp.plan_fwd_wide(*args, sms=132)
     with pytest.raises(ValueError, match="grid"):
-        spp.plan_fwd_wide(2**16, 64, 2**16 * 8, 17)
+        spp.plan_fwd_wide(2**16, 64, 2**16 * 8, 17, sms=132)
+    with pytest.raises(ValueError, match="does not take"):
+        spp.pruned_plan(1, 32768, 1, 32, 1, 1)       # 1024 keys a lane
 
 
 def test_register_forward_routes_the_rest_to_the_wide_one():
@@ -236,7 +377,8 @@ def test_register_forward_routes_the_rest_to_the_wide_one():
     assert not spp.takes_register_fwd(1, 16776961, 4, sms=132)
     with pytest.raises(ValueError, match="grid"):
         spp.plan_fwd(1, 16, 16776961, sms=132)
-    assert spp.plan_fwd_wide(1, 16, 16776961, 4).grid == 2097121
+    plan = spp.plan_fwd_wide(1, 16, 16776961, 4, sms=132)
+    assert not plan.radix and plan.grid == 2097121
 
 
 @pytest.mark.parametrize("k", [17, 24, 32, 64, 256, 1024])

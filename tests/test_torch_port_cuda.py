@@ -518,14 +518,18 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     assert launch_counts() == {"fps_cluster": 1}
     ip, xp = fps_plain(*args)
     assert torch.equal(ik, ip) and torch.equal(xk, xp)
+    # 9 layers and a strided x, refused until the layer table moved to
+    # device memory and the entries made their inputs contiguous
     x = torch.zeros(1, 8, 3, device=dev)
-    with pytest.raises(ValueError, match="at most 8 layers"):
-        point_mlp_max(x, (torch.zeros(3, 4, device=dev),
-                          torch.zeros(4, device=dev))
-                      + (torch.zeros(4, 4, device=dev),
-                         torch.zeros(4, device=dev)) * 8)
-    with pytest.raises(ValueError, match="contiguous"):
-        nn_direction(torch.zeros(1, 3, 8, device=dev).transpose(1, 2), x)
+    deep = (torch.zeros(3, 4, device=dev), torch.zeros(4, device=dev)) + (
+        torch.zeros(4, 4, device=dev), torch.ones(4, device=dev)) * 8
+    reset_launch_counts()
+    assert torch.equal(point_mlp_max(x, deep), torch.ones(1, 4, device=dev))
+    assert launch_counts() == {"point_mlp_max": 1}
+    strided = torch.randn(1, 3, 8, device=dev).transpose(1, 2)
+    got = nn_direction(strided, x)
+    want = nn_direction(strided.contiguous(), x)
+    assert all(torch.equal(a, c) for a, c in zip(got, want))
 
 
 def test_samplenet_kernel_path_matches_plain_path(dev):
@@ -890,7 +894,7 @@ def test_soft_projection_backward_under_other_plans(dev, kind, b, n, m, k):
     plan = spk.bwd_plan(args[0].device.index, b, n, m, k)
     others = [BwdPlan(32, 32, 32), BwdPlan(64, 32, 128),
               BwdPlan(128, 128, 512), BwdPlan(256, 256, 1024),
-              BwdPlan(256, 256, 256)]
+              BwdPlan(256, 256, 256), BwdPlan(256, 64, 256, count64=True)]
     assert sum(o != plan for o in others) >= 3
     for other in others:
         got = spk.launch_bwd(*args, other)
@@ -1002,11 +1006,14 @@ def test_soft_projection_wide_forward_at_small_k(dev, kind, k):
 
     b, n, m = 3, 1000, 70
     pts, qs, sigma = _soft_fwd_inputs(kind, b, n, m, k, dev)
-    ow, iw = spk.launch_fwd_wide(pts, qs, sigma, k,
-                                 spp.plan_fwd_wide(b, n, m, k))
-    torch.cuda.synchronize()
-    _soft_fwd_check(pts, qs, sigma, k, ow, iw)
-    assert torch.equal(iw, spk.soft_project_fwd_cuda(pts, qs, sigma, k)[1])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for plan in (spp.plan_fwd_wide(b, n, m, k, sms=sms),
+                 spp.WideFwdPlan(0, 1, 0, 0, 0, 0, -(-b * m // 8))):
+        ow, iw = spk.launch_fwd_wide(pts, qs, sigma, k, plan)
+        torch.cuda.synchronize()
+        _soft_fwd_check(pts, qs, sigma, k, ow, iw)
+        assert torch.equal(iw, spk.soft_project_fwd_cuda(pts, qs, sigma,
+                                                         k)[1])
 
 
 WIDE_BWD_CASES = [
@@ -1036,7 +1043,7 @@ def test_soft_projection_wide_backward_edge_cases(dev, kind, b, n, m, k):
     if kind == "zero":
         assert not any(t.any() for t in got)
     for other in (BwdPlan(32, 32, 32), BwdPlan(128, 128, 512),
-                  BwdPlan(256, 64, 256)):
+                  BwdPlan(256, 64, 256), BwdPlan(32, 32, 32, count64=True)):
         again = spk.launch_bwd(*args, other)
         assert all(torch.equal(a, c) for a, c in zip(again, got)), other
     again = spk.soft_project_bwd_cuda(*args)
@@ -2166,3 +2173,215 @@ def test_kernels_on_weights_gathered_from_a_1x2_mesh(dev):
             assert out[part].keys() == ref[part].keys()
             for k, v in ref[part].items():
                 assert torch.equal(out[part][k], v), (part, k)
+
+
+# ------------------------- the refusals repaired, the pruned wide forward
+
+@pytest.mark.parametrize("layers", [9, 12])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_point_mlp_max_past_eight_layers(dev, layers, bf16):
+    """A chain deeper than the kernel's parameter table (8 layers) reads
+    its table from device memory: against the plain version by the rules
+    of the 5-layer chain (rtol = atol = 1e-4 in f32, norm-wise 1e-3 in
+    bf16), launched."""
+    from samplenet_tpu_torch.ops.cuda import (
+        point_mlp_max,
+        point_mlp_max_plain,
+    )
+    from samplenet_tpu_torch.ops.dispatch import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    rng = np.random.default_rng(layers + 10 * bf16)
+    widths = [3] + [64, 128, 96, 64] * 3
+    widths = widths[:layers + 1]
+    wbs = []
+    for cin, cout in zip(widths[:-1], widths[1:]):
+        wbs += [_randn(rng, cin, cout, dev=dev) / np.sqrt(cin),
+                0.1 * _randn(rng, cout, dev=dev)]
+    x = _randn(rng, 33, 1000, 3, dev=dev)
+    reset_launch_counts()
+    got = point_mlp_max(x, wbs, bf16=bf16)
+    torch.cuda.synchronize()
+    assert launch_counts() == {
+        "point_mlp_max_bf16" if bf16 else "point_mlp_max": 1}
+    want = point_mlp_max_plain(x, wbs, bf16)
+    if bf16:
+        assert float((got - want).norm() / want.norm()) <= 1e-3
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    again = point_mlp_max(x, wbs, bf16=bf16)
+    assert torch.equal(again, got)
+
+
+def test_strided_inputs_give_the_contiguous_bits(dev):
+    """nn_direction, nn_snap and point_mlp_max take strided CUDA tensors,
+    made contiguous at the entry: bit-equal to the contiguous call."""
+    from samplenet_tpu_torch.ops.cuda import (
+        nn_direction,
+        nn_snap,
+        point_mlp_max,
+    )
+
+    rng = np.random.default_rng(3)
+    x = _randn(rng, 4, 3, 700, dev=dev).transpose(1, 2)   # [4, 700, 3]
+    y = _randn(rng, 4, 1000, 6, dev=dev)[..., ::2]        # [4, 1000, 3]
+    assert not x.is_contiguous() and not y.is_contiguous()
+    for fn in (nn_direction, nn_snap):
+        got, want = fn(x, y), fn(x.contiguous(), y.contiguous())
+        assert all(torch.equal(a, c) for a, c in zip(got, want))
+    wbs = [_randn(rng, 3, 64, dev=dev), _randn(rng, 64, dev=dev),
+           _randn(rng, 64, 128, dev=dev) / 8, _randn(rng, 128, dev=dev)]
+    for bf16 in (False, True):
+        assert torch.equal(point_mlp_max(x, wbs, bf16=bf16),
+                           point_mlp_max(x.contiguous(), wbs, bf16=bf16))
+
+
+def test_emd_past_one_launch_of_clouds(dev):
+    """B = 65,537 clouds of 32 points: two launches (65,535 and 2 clouds),
+    each chunk's outputs bit-equal to a call on its clouds alone. Against
+    the plain version in f64, by test_emd_matches_plain_and_f64's rule for
+    the gradients: the kernel's worst relative cost error over the clouds
+    at most 1.5x the plain f32 version's, or 2e-4 (among 65,537 randn
+    clouds some meet the auction's near-ties, where both f32 paths drift
+    from f64 by about 1%), and the second chunk's gradients the same way,
+    or 5e-4."""
+    from samplenet_tpu_torch.ops.cuda import emd_cost, emd_cost_plain
+    from samplenet_tpu_torch.ops.cuda import emd_kernel as ek
+    from samplenet_tpu_torch.ops.dispatch import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    b = ek.MAX_CLOUDS + 2
+    rng = np.random.default_rng(65537)
+    x1, x2 = _randn(rng, b, 32, 3, dev=dev), _randn(rng, b, 32, 3, dev=dev)
+    reset_launch_counts()
+    full = emd_cost(x1, x2)
+    torch.cuda.synchronize()
+    assert launch_counts() == {"emd": 2}
+    for c0, c1 in ek.cloud_chunks(b):
+        part = emd_cost(x1[c0:c1], x2[c0:c1])
+        assert all(torch.equal(f[c0:c1], p) for f, p in zip(full, part))
+    ref = emd_cost_plain(x1.double(), x2.double(), with_grads=False)[0]
+    plain = emd_cost_plain(x1, x2, with_grads=False)[0]
+
+    def cost_err(c):
+        return float(((c.double() - ref).abs() / ref.abs()).max())
+
+    print(f"\nemd B={b}: worst relative cost error against f64, kernel "
+          f"{cost_err(full[0])!r}, plain f32 {cost_err(plain)!r}")
+    assert cost_err(full[0]) <= max(1.5 * cost_err(plain), 2e-4)
+    tail = slice(ek.MAX_CLOUDS, b)
+    _, r1, r2 = emd_cost_plain(x1[tail].double(), x2[tail].double())
+    _, p1, p2 = emd_cost_plain(x1[tail], x2[tail])
+    for got, plain, ref in ((full[1][tail], p1, r1), (full[2][tail], p2, r2)):
+        assert _rel_err(got, ref) <= max(1.5 * _rel_err(plain, ref), 5e-4)
+
+
+def test_soft_projection_backward_past_int_entries(dev):
+    """One cloud of 2^26 queries at k = 32: 2^31 entries, past what an int
+    numbers, so the point kernel counts them in 64 bits. The first half of
+    the queries names points 0..127 only and the second half 128..255, so
+    each point's entries all come from one half, in the same order: d
+    points equals the sum of the two halves' (each under 2^31 entries,
+    the int-counted kernel) bit for bit, d queries their concatenation bit
+    for bit, and d sigma^2 (2^31 f32 terms summed in 256 stripes, grouped
+    otherwise in the halves) within rtol 1e-2 of the halves' sum."""
+    from samplenet_tpu_torch.ops.cuda import soft_projection_kernel as spk
+    from samplenet_tpu_torch.ops.cuda import soft_projection_plan as spp
+
+    n, m, k = 256, 2**26, 32
+    assert spp.counts_in_64_bits(m, k)
+    assert not spp.counts_in_64_bits(m // 2, k)
+    if torch.cuda.get_device_properties(dev).total_memory < 70 * 2**30:
+        pytest.skip("needs about 63 GB of device memory")
+    gen = torch.Generator(device=dev).manual_seed(31)
+    pts = torch.randn(1, n, 3, device=dev, generator=gen)
+    qs = torch.randn(1, m, 3, device=dev, generator=gen)
+    cot = torch.randn(1, m, 3, device=dev, generator=gen)
+    # idx is not sorted by distance: a sigma^2 above the clouds' squared
+    # diameter keeps every weight exp(-(d_j - d_0) / sigma^2) finite
+    sigma = torch.tensor([100.0], device=dev)
+    idx = torch.randint(0, n // 2, (1, m, k), dtype=torch.int32, device=dev,
+                        generator=gen)
+    idx[:, m // 2:] += n // 2
+    dp, dq, ds = spk.soft_project_bwd_cuda(pts, qs, sigma, idx, cot)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    halves = [spk.soft_project_bwd_cuda(
+        pts, qs[:, h].contiguous(), sigma, idx[:, h].contiguous(),
+        cot[:, h].contiguous()) for h in (slice(0, m // 2), slice(m // 2, m))]
+    assert torch.equal(dp, halves[0][0] + halves[1][0])
+    assert torch.equal(dq, torch.cat([halves[0][1], halves[1][1]], 1))
+    assert torch.isfinite(dp).all() and dp.abs().sum() > 0
+    torch.testing.assert_close(ds, halves[0][2] + halves[1][2], rtol=1e-2,
+                               atol=0)
+
+
+# (B, N, M, k) of chip_smoke.py's CAPS_SOFT
+CAPS_SOFT_SHAPES = [(1024, 1024, 32, 32), (4, 1024, 64, 256),
+                    (4, 32768, 64, 32)]
+
+
+def _wide_plans(b, n, m, k, dev):
+    """The planned wide forward and every other plan the kernels take at
+    the shape: the radix kernel, and the pruned one at each split."""
+    from samplenet_tpu_torch.ops.cuda import soft_projection_plan as spp
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plans = [spp.plan_fwd_wide(b, n, m, k, sms=sms),
+             spp.WideFwdPlan(0, 1, 0, 0, 0, 0, -(-b * m // 8))]
+    for ws in (1, 2, 4, 8):
+        for cs in (1, 2, 4, 8):
+            try:
+                plans.append(spp.pruned_plan(b, n, m, k, ws, cs))
+            except ValueError:
+                pass
+    return list(dict.fromkeys(plans))
+
+
+@pytest.mark.parametrize("b,n,m,k", CAPS_SOFT_SHAPES)
+def test_wide_forward_at_the_caps_shapes(dev, b, n, m, k):
+    """The wide forward at each CAPS_SOFT shape: idx bit-equal to the plain
+    version, out within 1e-5, under the plan and, at B = 4, under every
+    other plan the kernels take (each bit-equal to the planned launch)."""
+    from samplenet_tpu_torch.ops.cuda import soft_projection_kernel as spk
+
+    pts, qs, sigma = _soft_fwd_inputs("randn", b, n, m, b + n + k, dev)
+    ok, ik = spk.soft_project_fwd_cuda(pts, qs, sigma, k)
+    torch.cuda.synchronize()
+    _soft_fwd_check(pts, qs, sigma, k, ok, ik)
+    if b > 4:
+        return
+    for plan in _wide_plans(b, n, m, k, dev):
+        o, i = spk.launch_fwd_wide(pts, qs, sigma, k, plan)
+        torch.cuda.synchronize()
+        assert torch.equal(i, ik), plan
+        torch.testing.assert_close(o, ok, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind,b,n,m,k", [
+    ("triples", 4, 1024, 64, 32),    # ties: every point three times
+    ("same", 2, 2048, 40, 32),       # one point 2048 times: the buffer
+    ("nan", 3, 4096, 20, 48),        # NaN points and queries
+    ("cluster", 2, 8192, 9, 20),     # 512 candidates near the first query
+    ("randn", 1, 65536, 3, 64),      # one cloud, few queries: clusters
+])
+def test_pruned_wide_forward_on_ties_and_overflow(dev, kind, b, n, m, k):
+    """Ties, NaN, a candidate list past its buffer (the radix selection
+    over the whole cloud takes the query) and splits over clusters: idx
+    bit-equal to the plain version under the plan and under every other
+    plan the kernels take."""
+    from samplenet_tpu_torch.ops.cuda import soft_projection_kernel as spk
+
+    pts, qs, sigma = _soft_fwd_inputs(
+        "triples" if kind == "same" else kind, b, n, m, n + k, dev)
+    if kind == "same":
+        pts[:] = pts[:, :1]
+    for plan in _wide_plans(b, n, m, k, dev):
+        o, i = spk.launch_fwd_wide(pts, qs, sigma, k, plan)
+        torch.cuda.synchronize()
+        _soft_fwd_check(pts, qs, sigma, k, o, i)
+
