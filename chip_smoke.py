@@ -70,7 +70,10 @@ bottleneck 128, k=8, both clouds sampled, against it frozen), and:
      train_reconstruction --phase ae at --bottleneck-size 1024, each in a
      process of its own under torch.profiler (exit 0, finite losses; the
      exact chain's kernels, pmt_bwd_dz_chunked among them, and
-     point_mlp_max launched);
+     point_mlp_max launched); pmt_bwd_dz_chunked forced on layers whose dz
+     fits whole, in backward modes 0, 1 (ghost blocks) and 2, bit for bit
+     against the whole layouts, and on its own at WIDE's top layer (B=32)
+     against its plain version (dz_layer_plain) within 1e-4;
      and the digests of the exact chain at B=1024 and of the ghost chain
      at the progressive shape (`_chain_digests`), which
      tools/time_exact_chain.py prints for any checkout;
@@ -281,8 +284,9 @@ bottleneck 128, k=8, both clouds sampled, against it frozen), and:
      to the plain path, out within 1e-5, gradients within rtol 1e-4 /
      atol 1e-5) and FPS beyond one block on its cluster variant (50 clouds
      of 32768 points, 2 of 100,003 with a NaN point at k=1024, one of
-     2^20 streamed, k = N = 8192: idx and xyz bit-equal), each launched
-     under its own name; then `train_samplenet --group-size 32` (2 steps)
+     2^20 streamed, k = N = 8192, each under the cluster size its plan
+     takes, the first under every other that holds it too: idx and xyz
+     bit-equal), each launched under its own name; then `train_samplenet --group-size 32` (2 steps)
      and `train_reconstruction --phase samplenet --num-points 32768
      --fps-baseline --group-size 32` (2 steps against a seeded AE), each
      in its own process, both at once: exit 0, finite losses and NRE, the
@@ -448,6 +452,15 @@ WIDE = (3, 64, 64, 64, 128, 1024)
 WIDE_AE = (3, 64, 128, 128, 256, 1024)
 ODD = (3, 64, 64, 64, 128, 130)
 WIDE_OC_CAP = 48               # a narrower chunk, forced through the planner
+# layers whose dz fits whole, with pmt_bwd_dz_chunked forced on them in
+# chunks of the fourth number of channels: (B, N, widths, chunk, ghost block)
+WIDE_WHOLE = ((PROG_B, PROG_N, (3, 64, 64, 64, 128, 256), 48, 4),
+              (8, 1000, (3, 64, 512), 64, 2))
+WIDE_KERNELS = {
+    "pmt_bwd_dz_chunked": (
+        "samplenet_tpu_torch/csrc/point_mlp_train.cu",
+        "samplenet_tpu/ops/pallas/point_mlp_exact_kernel.py:315"),
+}
 WIDE_CLI_KERNELS = ("pmt_dense", "pmt_bwd_dz_chunked", "pmt_bwd_dw",
                     "point_mlp_max")
 REG_STEPS = 3                  # per phase on the main path
@@ -1861,11 +1874,14 @@ print(json.dumps({{"launches": launch_counts(), "kernels": sorted(
 """
 
 
-def _wide_cli(torch, classifier, tmp: str) -> str:
+def _wide_cli(torch, classifier, tmp: str) -> tuple[str, int]:
     """train_samplenet and train_reconstruction --phase ae at
     --bottleneck-size 1024 on the card, each in its own process under
     torch.profiler: exit 0, finite losses, the launch counts of the exact
-    chain and point_mlp_max, and the profiler's kernels."""
+    chain, pmt_bwd_dz_chunked and point_mlp_max, and the profiler's kernels.
+    Returns (a summary, pmt_bwd_dz_chunked's launches in train_samplenet's
+    run: the main path of a wide bottleneck, counted from 0 in its own
+    process)."""
     cls_path = os.path.join(tmp, "classifier.pth")
     torch.save({k: v.cpu() for k, v in classifier.state_dict().items()},
                cls_path)
@@ -1885,7 +1901,7 @@ def _wide_cli(torch, classifier, tmp: str) -> str:
             os.path.join(tmp, "ae1024"), "--seed", str(SEED)],
     }
     keys = {"train_samplenet": "loss=", "train_reconstruction": "train="}
-    lines = []
+    lines, main_path = [], 0
     for name, argv in runs.items():
         t0 = time.monotonic()
         proc = subprocess.run(
@@ -1904,7 +1920,10 @@ def _wide_cli(torch, classifier, tmp: str) -> str:
             raise AssertionError(f"{name} --bottleneck-size 1024 logged no "
                                  f"finite loss:\n{text[-3000:]}")
         missing = [k for k in ("point_mlp_exact_fwd", "point_mlp_exact_bwd",
-                               "point_mlp_max") if not counts.get(k)]
+                               "point_mlp_max", "pmt_bwd_dz_chunked")
+                   if not counts.get(k)]
+        if name == "train_samplenet":
+            main_path = counts["pmt_bwd_dz_chunked"]
         unseen = [k for k in WIDE_CLI_KERNELS
                   if not any(k in n for n in names)]
         if missing or unseen:
@@ -1914,15 +1933,144 @@ def _wide_cli(torch, classifier, tmp: str) -> str:
         lines.append(f"{name} --device cuda --bottleneck-size 1024: exit 0 "
                      f"in {secs:.1f} s, {keys[name]}{losses}, launches "
                      f"{counts}, the profiler saw {list(WIDE_CLI_KERNELS)}")
-    return "; ".join(lines)
+    return "; ".join(lines), main_path
 
 
-def phase_wide(torch, classifier) -> None:
+def _wide_against_whole(torch) -> str:
+    """pmt_bwd_dz_chunked forced (through the planner) on the WIDE_WHOLE
+    layers, whose dz the whole layouts hold: every gradient bit for bit
+    against the whole layouts in backward modes 0 (exact f32), 1 (ghost
+    bf16, blocks of the case's clouds) and 2 (exact bf16), the wide
+    kernel launched in each forced run."""
+    from samplenet_tpu_torch.ops.cuda import point_mlp_exact_kernel as pme
+    from samplenet_tpu_torch.ops.cuda import point_mlp_plan as plan
+    from samplenet_tpu_torch.ops.cuda import point_mlp_train_kernel as pmt
+    from samplenet_tpu_torch.ops.dispatch import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    whole = plan._dz_layout
+    flat = lambda gr: [gr[0], *gr[1], *gr[2], *gr[3]]  # noqa: E731
+    done = []
+    for b, n, widths, oc, bb in WIDE_WHOLE:
+        rng = np.random.default_rng(SEED + 90 + b)
+        x, (ws, _, gs, bes), g = _exact_inputs(torch, rng, b, n, widths)
+        runs = {
+            0: (lambda: pme.point_mlp_exact_fwd_cuda(x, ws, gs, bes, 1e-5)[3],
+                lambda st: pme.point_mlp_exact_bwd_cuda(x, ws, gs, bes, st,
+                                                        g)),
+            1: (lambda: pmt.point_mlp_train_fwd_cuda(x, ws, gs, bes, 1e-5,
+                                                     bb, True)[3],
+                lambda st: pmt.point_mlp_train_bwd_cuda(
+                    x, ws, gs, bes, 1e-5, bb, True, st, g)),
+            2: (lambda: pme.point_mlp_exact_fwd_cuda(x, ws, gs, bes, 1e-5,
+                                                     True)[3],
+                lambda st: pme.point_mlp_exact_bwd_cuda(x, ws, gs, bes, st,
+                                                        g, True)),
+        }
+        for mode, (fwd, bwd) in runs.items():
+            saved = fwd()
+            ref = flat(bwd(saved))
+            plan._dz_layout = (
+                lambda cin_pad, cout, limit, cap=None:
+                (oc, False, oc) if cout > oc
+                else whole(cin_pad, cout, limit, cap))
+            try:
+                reset_launch_counts()
+                got = flat(bwd(saved))
+                torch.cuda.synchronize()
+                launched = launch_counts().get("pmt_bwd_dz_chunked", 0)
+            finally:
+                plan._dz_layout = whole
+            if not launched or not all(torch.equal(a, c)
+                                       for a, c in zip(ref, got)):
+                raise AssertionError(
+                    f"pmt_bwd_dz_chunked forced at {widths}, B={b}, mode "
+                    f"{mode}: launched {launched}; the gradients' bits "
+                    f"differ from the whole layouts'")
+            del saved, ref, got
+        done.append(f"{widths} at B={b}, N={n} in chunks of {oc} "
+                    f"(ghost blocks of {bb} in mode 1)")
+        del x, ws, gs, bes, g
+        torch.cuda.empty_cache()
+    return ("pmt_bwd_dz_chunked forced on layers the whole layouts hold: "
+            "every gradient bit for bit against them in backward modes 0, "
+            "1 and 2 at " + "; ".join(done))
+
+
+def _dz_layer_inputs(torch, b, n, widths=WIDE):
+    """The exact chain's top layer at `widths` (f32, mode 0) as its
+    backward gives pmt_bwd_dz: (z, bn, rstd2, r1, r2, g, argmax, op(W),
+    plan), r1 and r2 from the plain f64 sums of dy and dy * xhat."""
+    from samplenet_tpu_torch.ops.cuda import point_mlp_exact_kernel as pme
+    from samplenet_tpu_torch.ops.cuda import point_mlp_plan as plan
+    from samplenet_tpu_torch.ops.cuda._build import max_dynamic_smem
+
+    rng = np.random.default_rng(SEED + 95 + b)
+    x, (ws, _, gs, bes), g = _exact_inputs(torch, rng, b, n, widths)
+    zs, mus, rstds, argmax = pme.point_mlp_exact_fwd_cuda(x, ws, gs, bes,
+                                                          1e-5)[3]
+    z, mu, rstd, gamma, beta = zs[-1], mus[-1], rstds[-1], gs[-1], bes[-1]
+    cout = widths[-1]
+    dh = torch.zeros((b, n, cout), device=DEVICE)
+    dh.scatter_(1, argmax.long()[:, None, :], g[:, None, :])
+    xhat = ((z.reshape(b, n, cout) - mu.reshape(cout)) * rstd.reshape(cout))
+    dy = torch.where(gamma * xhat + beta > 0, dh, torch.zeros_like(dh))
+    count = b * n
+    r1 = (gamma.double() * dy.double().sum((0, 1)) / count).float()
+    r2 = (gamma.double() * (dy * xhat).double().sum((0, 1)) / count).float()
+    del dh, xhat, dy, x
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    top = plan.plan_bwd(widths, 1, count, sms, max_dynamic_smem(z.device))[-1]
+    return (z, (mu, rstd, gamma, beta), rstd.reshape(1, cout).contiguous(),
+            r1.reshape(1, cout).contiguous(), r2.reshape(1, cout).contiguous(),
+            g, argmax, ws[-1].contiguous(), top)
+
+
+def _dz_layer_check(torch) -> tuple[float, str]:
+    """pmt_bwd_dz_chunked on its own at WIDE's top layer, B=32 (the wide
+    CLI's batch): dz and dh_prev against dz_layer_plain on the same
+    inputs, each within 1e-4 of the plain version's largest entry (dh_prev
+    sums over 1024 channels in another order than the matmul's)."""
+    from samplenet_tpu_torch.ops.cuda import point_mlp_train_kernel as pmt
+    from samplenet_tpu_torch.ops.dispatch import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    z, bn, rstd2, r1, r2, g, argmax, w, top = _dz_layer_inputs(
+        torch, PROG_B, PROG_N)
+    reset_launch_counts()
+    dz, dh = pmt.dz_layer_cuda(z, bn, rstd2, r1, r2, None, g, argmax, w,
+                               top, PROG_B, PROG_N, 0)
+    torch.cuda.synchronize()
+    launched = launch_counts()
+    pz, ph = pmt.dz_layer_plain(z, bn, rstd2, r1, r2, None, g, argmax, w,
+                                PROG_B, PROG_N, 0)
+    errs = (float((dz - pz).abs().max()),
+            float((dh[:, :w.shape[0]] - ph).abs().max()))
+    scales = (float(pz.abs().max()), float(ph.abs().max()))
+    if launched != {"pmt_bwd_dz_chunked": 1} or not all(
+            e <= 1e-4 * sc for e, sc in zip(errs, scales)):
+        raise AssertionError(f"pmt_bwd_dz_chunked at WIDE's top layer, B="
+                             f"{PROG_B}: launches {launched}, max |k - p| "
+                             f"{errs} against scales {scales}")
+    return max(errs), (f"pmt_bwd_dz_chunked alone at WIDE's top layer (B="
+                       f"{PROG_B}, N={PROG_N}, chunks of {top.dz_oc}): max "
+                       f"|k - p| dz {errs[0]!r}, "
+                       f"dh_prev {errs[1]!r} (limits 1e-4 of {scales})")
+
+
+def phase_wide(torch, classifier) -> tuple[dict, dict]:
     """Widths the first kernels refused, held to the plain versions: the
     exact chain at bottleneck 1024 (SampleNet's at B=32 and B=1024, the AE
-    encoder's at B=50, N=2048); every MLP kernel at a bottleneck of 130
-    (padded to 132), each launched; both CLIs at --bottleneck-size 1024;
-    and the digests of the chains at today's widths."""
+    encoder's at B=50, N=2048); pmt_bwd_dz_chunked against the whole layouts
+    in every backward mode and alone against its plain version; every MLP
+    kernel at a bottleneck of 130 (padded to 132), each launched; both
+    CLIs at --bottleneck-size 1024; and the digests of the chains at
+    today's widths. Returns pmt_bwd_dz_chunked's (launches on the main path,
+    max_abs_err)."""
     from samplenet_tpu_torch.ops.cuda import point_mlp_max, point_mlp_max_plain
     from samplenet_tpu_torch.ops.dispatch import (
         launch_counts,
@@ -1937,6 +2085,10 @@ def phase_wide(torch, classifier) -> None:
         log("wide", _wide_exact(torch, label, b, n, widths, floor))
     log("wide", _wide_exact(torch, "exact chain, bottleneck 130", PROG_B,
                             PROG_N, ODD, 1e-5))
+    log("wide", _wide_against_whole(torch))
+    dz_err, line = _dz_layer_check(torch)
+    log("wide", line)
+    torch.cuda.empty_cache()
 
     rng = np.random.default_rng(SEED + 60)
     reset_launch_counts()
@@ -2004,8 +2156,10 @@ def phase_wide(torch, classifier) -> None:
                 f"{GHOST_BF16_OUT}, {GHOST_BF16_BWD}); launches {counts}")
     del xg, groups, ok, gk, op, gp, orf, gr
     with tempfile.TemporaryDirectory() as tmp:
-        log("wide", _wide_cli(torch, classifier, tmp))
+        line, launched = _wide_cli(torch, classifier, tmp)
+    log("wide", line)
     log("wide", f"digests at today's widths: {_chain_digests(torch)}")
+    return {"pmt_bwd_dz_chunked": launched}, {"pmt_bwd_dz_chunked": dz_err}
 
 
 def _caps_cli(torch, classifier, tmp: str) -> tuple[dict[str, int], str]:
@@ -2230,15 +2384,18 @@ def phase_caps(torch, classifier, card) -> tuple[dict, dict, dict, int]:
     (the wide forward and backward through autograd against the plain
     path: idx bit-equal, out within 1e-5, gradients within rtol 1e-4 /
     atol 1e-5), FPS beyond one block (the cluster variant against the plain
-    version bit for bit: idx and xyz), each launched; then the main path,
-    the two CLIs of `_caps_cli`, with the counters reset before and read
+    version bit for bit: idx and xyz; at the first shape under every
+    cluster size that holds the cloud too), each launched; then the main
+    path, the two CLIs of `_caps_cli`, with the counters reset before and read
     after in each process; then each new kernel timed against its plain
     version at its first shape. Between them, `_caps_repairs`: the inputs
     the kernels once refused. Returns (launches, max_abs_err,
     times, the points the timed wide backward gathers)."""
     from samplenet_tpu_torch.ops.cuda import fps_kernel as fk
     from samplenet_tpu_torch.ops.cuda import fps_plain
+    from samplenet_tpu_torch.ops.cuda import fps_plan as fp
     from samplenet_tpu_torch.ops.cuda import soft_projection_kernel as spk
+    from samplenet_tpu_torch.ops.cuda._build import max_dynamic_smem
     from samplenet_tpu_torch.ops.dispatch import (
         launch_counts,
         reset_launch_counts,
@@ -2307,9 +2464,20 @@ def phase_caps(torch, classifier, card) -> tuple[dict, dict, dict, int]:
                                  f"or xyz's bits differ")
         dev = _device_ms(torch, lambda: fk.fps(pts, given, count, k), 3)
         bound = _fps_bound(b, n, k)
+        others = [q for q in fp.cluster_candidates(
+            n, smem_limit=max_dynamic_smem(pts.device)) if q != plan]
+        if i == 0:      # the first shape under every other cluster size too
+            for q in others:
+                iq, xq = fk.launch(pts, given, count, k, q)
+                if not (torch.equal(iq, ip) and _same_bits(torch, xq, xp)):
+                    raise AssertionError(f"fps at (B, N, k) = {(b, n, k)}: "
+                                         f"the bits move under {q}")
         log("caps", f"fps (B, N, k) = {(b, n, k)}, {label}, counts "
                     f"{counts}: idx and xyz bit-equal to the plain version "
-                    f"under {plan}; launches {launched}; device {dev!r} ms "
+                    f"under {plan}"
+                    + (f" and under C = {[q.cluster for q in others]}"
+                       if i == 0 else "")
+                    + f"; launches {launched}; device {dev!r} ms "
                     f"(bound {bound[0]!r}, {bound[1]}) ({card})")
         del pts, ik, xk, ip, xp
     torch.cuda.empty_cache()
@@ -2580,7 +2748,7 @@ def phase_times_train(torch, data, labels, classifier, card
     log("profile", f"point_mlp_exact_bwd at B={B}, N={N}, widths {WIDTHS}: "
                    f"{split} ({card})")
     del saved_k, saved_p
-    _times_wide(torch, card)
+    times.update(_times_wide(torch, card))
 
     xd = torch.from_numpy(data).to(DEVICE)
     yd = torch.from_numpy(labels).to(DEVICE)
@@ -2606,13 +2774,17 @@ def phase_times_train(torch, data, labels, classifier, card
     return times, gathered
 
 
-def _times_wide(torch, card) -> None:
+def _times_wide(torch, card) -> dict[str, tuple]:
     """The exact chain at bottleneck 1024 (WIDE) at B=32 and B=1024: the
     forward and backward kernels against the plain versions, per call and
     device time, with their FP32 bounds (`_exact_bounds`, as
     `kernel_bounds` takes them), and the backward's device time by pass
-    (pmt_bwd_dz's share of it at this width)."""
+    (pmt_bwd_dz's share of it at this width); then pmt_bwd_dz_chunked alone
+    at the top layer, B=1024, against dz_layer_plain, with its bound and,
+    as a yardstick that computes less (dh_prev only), torch.matmul of dz
+    and W^T in f32. Returns pmt_bwd_dz_chunked's (ms, plain ms)."""
     from samplenet_tpu_torch.ops.cuda import point_mlp_exact_kernel as pme
+    from samplenet_tpu_torch.ops.cuda import point_mlp_train_kernel as pmt
 
     for b in (PROG_B, B):
         rng = np.random.default_rng(SEED + 70 + b)
@@ -2644,6 +2816,40 @@ def _times_wide(torch, card) -> None:
                        f"N={N}: {split} ({card})")
         del x, saved_k, saved_p, cases
         torch.cuda.empty_cache()
+
+    z, bn, rstd2, r1, r2, g, argmax, w, top = _dz_layer_inputs(torch, B, N)
+
+    def kernel_fn():
+        return pmt.dz_layer_cuda(z, bn, rstd2, r1, r2, None, g, argmax, w,
+                                 top, B, N, 0)
+
+    def plain_fn():
+        return pmt.dz_layer_plain(z, bn, rstd2, r1, r2, None, g, argmax, w,
+                                  B, N, 0)
+
+    k_ms, p_ms = _pair_ms(torch, kernel_fn, plain_fn, 5)
+    rows, why = _profiled(torch, kernel_fn, 5)
+    mine = [(us, c) for us, c, name in rows if "pmt_bwd_dz_chunked" in name]
+    whole = why is None and sum(c for _, c in mine) == 5
+    # without a whole record, CUDA events around the calls (said below)
+    dev = (sum(us for us, _ in mine) / 5e3 if whole
+           else _time_ms(torch, kernel_fn, 5))
+    dz = kernel_fn()[0]
+    wt = w.t()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mm = _device_ms(torch, lambda: torch.matmul(dz, wt), 5)
+    bound = _dz_chunked_bound(B, N, WIDE)
+    log("times", f"pmt_bwd_dz_chunked at WIDE's top layer ({WIDE[-2]} -> "
+                 f"{WIDE[-1]}), B={B}, N={N}, chunks of {top.dz_oc}, grid "
+                 f"{top.dz_grid}: kernel "
+                 f"{k_ms!r} ms per call, {dev!r} ms device"
+                 f"{'' if whole else ' (CUDA events: no whole record)'}; "
+                 f"plain {p_ms!r} ms per call; bound {bound[0]!r} ms "
+                 f"({bound[1]}); torch.matmul dz W^T in f32, which forms no "
+                 f"dz, {mm!r} ms device ({card})")
+    del z, bn, rstd2, r1, r2, g, argmax, dz
+    torch.cuda.empty_cache()
+    return {"pmt_bwd_dz_chunked": (dev, p_ms)}
 
 
 NN_LIBRARY_SHAPES = ("eval and Chamfer direction 1", "Chamfer direction 2")
@@ -5149,6 +5355,17 @@ def _exact_bounds(b: int, n: int, widths) -> tuple[tuple, tuple]:
                    (p * (4.0 * macs + 12 * chans), FP32_FLOP_PER_S)))
 
 
+def _dz_chunked_bound(b: int, n: int, widths) -> tuple[float, str]:
+    """pmt_bwd_dz_chunked at the chain's top layer (cin -> cout) over B*N
+    points: z read, dz and dh_prev written (the pooled cotangent, argmax
+    and the constants aside, which are B or cout wide), the op(W)^T
+    product (2 FLOP a multiply-add) and dz's 9 operations an entry, on
+    FP32."""
+    p, cin, cout = b * n, widths[-2], widths[-1]
+    return _bound(4.0 * (2 * p * cout + p * cin + b * cout * 2 + cin * cout),
+                  (p * (2.0 * cin * cout + 9 * cout), FP32_FLOP_PER_S))
+
+
 def _nn_bound(b: int, nq: int, nd: int,
               snap: bool = False) -> tuple[float, str]:
     """1-NN of nq queries among nd points: 3 sub, 3 mul, 2 add and 1
@@ -5259,6 +5476,7 @@ def kernel_bounds(soft_gathered: int | None = None,
         "soft_projection_fwd_wide": _soft_fwd_bound(*wide),
         "soft_projection_bwd_wide": _soft_bwd_bound(*wide, wide_gathered),
         "fps_cluster": _fps_bound(*cluster[:3]),
+        "pmt_bwd_dz_chunked": _dz_chunked_bound(B, N, WIDE),
     }
 
 
@@ -6168,7 +6386,7 @@ def main() -> int:
         _timed(phase_artifact, torch, model, weights, tmp)
     train_errs = _timed(phase_compare_train, torch)
     data, labels, classifier = make_train_setup(torch)
-    _timed(phase_wide, torch, classifier)
+    wide_counts, wide_errs = _timed(phase_wide, torch, classifier)
     caps_counts, caps_errs, caps_times, caps_gathered = _timed(
         phase_caps, torch, classifier, card)
     # the phases that only run CLIs, each in processes and a temporary
@@ -6220,9 +6438,10 @@ def main() -> int:
     counts = {**counts, **{k: train_counts[k] for k in TRAIN_KERNELS},
               **{k: recon_counts[k] for k in RECON_KERNELS},
               **{k: prog_counts[k] for k in PROG_KERNELS}, **bf16_counts,
-              **caps_counts}
+              **wide_counts, **caps_counts}
     errs.update(train_errs)
     errs.update(prog_errs)
+    errs.update(wide_errs)
     errs.update(caps_errs)
     times.update(caps_times)
     bounds = kernel_bounds(soft_gathered, caps_gathered)
@@ -6237,7 +6456,8 @@ def main() -> int:
          "library_ms": None}
         for name, (src, rep) in {**KERNELS, **TRAIN_KERNELS,
                                  **RECON_KERNELS, **PROG_KERNELS,
-                                 **BF16_KERNELS, **CAPS_KERNELS}.items()]}
+                                 **BF16_KERNELS, **WIDE_KERNELS,
+                                 **CAPS_KERNELS}.items()]}
     log("done", f"all phases passed in {time.monotonic() - t0:.1f} s")
     print(json.dumps(summary))
     print(card)

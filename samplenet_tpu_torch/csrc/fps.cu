@@ -52,29 +52,39 @@
 // The cluster variant takes the clouds that one block cannot hold: more
 // than 16,384 points, or a cloud and picks beyond a block's shared memory
 // (the plan sends it only the shapes the kernel above refuses). A cloud is
-// one thread-block cluster of C = 8 blocks (the portable size) of 1024
-// threads, so that its running distances spread over C SMs.
+// C blocks of 1024 threads, C in {1, 2, 4, 8} a build (one thread-block
+// cluster where C > 1), so that its running distances spread over C SMs;
+// the launch plan (ops/cuda/fps_plan.py) takes the fewest waves of clouds
+// the card runs at once (cudaOccupancyMaxActiveClusters), then the
+// smallest C.
 //   * Registers (R = 1..16 points a thread, C * 1024 * R >= N): block c
 //     stages its slice, points [c S, c S + S) with S = 1024 R, in its
 //     shared memory (12 bytes a point) and thread t holds the running
 //     distances of slice points t, t + 1024, ... in registers. Streamed
-//     (any N): thread t of block c takes points c * 1024 + t + i * 1024 C,
-//     their running distances in a [B, N] workspace in device memory that
-//     the wrapper allocates, their xyz read from device memory (L2) every
-//     step.
+//     (any N, C = 16, a non-portable cluster: each pick rereads the cloud
+//     from L2, so twice the SMs of C = 8 each read half as much): thread t
+//     of block c takes points c * 1024 + t + i * 1024 C, their running
+//     distances in a [B, N] workspace in device
+//     memory that the wrapper allocates, their xyz read from device memory
+//     (L2) every step.
 //   * The given prefix: its points staged 256 at a time (a fixed buffer,
 //     so k costs no shared memory); each point takes the min over them.
 //   * Each completion step updates the thread's points with the last pick
 //     and keeps their first maximum by bits, as above; the warps meet in
-//     double-buffered slots behind one barrier, then warp 0 posts the
-//     block's (bits, index) and that point's xyz in its slot, and the blocks
-//     meet at one cluster barrier: every warp of every block reads the C
-//     slots through distributed shared memory (cluster.map_shared_rank)
-//     and takes the same maximum, lowest index first, and the pick's xyz
-//     from the winning slot. The slots are double-buffered too, so one
-//     cluster barrier a step is enough. Block 0 writes the picks as they
-//     come; a last cluster barrier keeps every block's slots alive until
-//     all have read them.
+//     double-buffered slots behind one barrier. With C = 1 every warp then
+//     reads the slots and takes the pick, whose xyz is in the slice: one
+//     barrier a step, the picks written straight to device memory. With
+//     C > 1 warp 0 takes the block's (bits, index) and that point's xyz,
+//     and lane j posts them into block j's slot for this block (a store
+//     through distributed shared memory, then an arrival with release at
+//     cluster scope on block j's mbarrier of the step's parity): one
+//     exchange a step. Every thread waits on its own block's mbarrier for
+//     the C posts, reads the C slots locally and takes the same maximum,
+//     lowest index first, and the pick's xyz from the winning slot. A
+//     block posts step t + 2 into a slot only after every block's post of
+//     step t + 1 reached it, which each block makes after all its warps
+//     read step t's slots: two slots and two mbarriers are enough. Block 0
+//     writes the picks as they come.
 // The order of each running minimum and the tie rule are the block
 // variant's, so the outputs equal the plain version's bit for bit under
 // every R.
@@ -265,7 +275,10 @@ cudaError_t launch(const float* points, const int* given, const int* count,
 namespace cg = cooperative_groups;
 
 constexpr int kClusterThreads = 1024;  // a block of the cluster variant
-constexpr int kClusterBlocks = 8;      // blocks a cloud: the portable size
+constexpr int kMaxCluster = 8;         // its largest cluster: the portable size
+constexpr int kStreamCluster = 16;     // the streamed variant's cluster
+                                       // (non-portable: twice the SMs, and
+                                       // their L2 reads, of 8 a cloud)
 constexpr int kGivenChunk = 256;       // given points staged at a time
 constexpr int kMaxClusterPoints = 16;  // R with the slice in shared memory
 
@@ -275,9 +288,38 @@ __host__ __device__ constexpr size_t cluster_smem(int r) {
   return static_cast<size_t>(kClusterThreads) * r * 12;
 }
 
-// R > 0: the slice in shared memory and R running distances a thread in
-// registers; R = 0: streamed, the distances in dist [B, n].
-template <int R>
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// One arrival, with release at cluster scope, on the mbarrier at `bar`'s
+// place in the shared memory of the cluster's block `rank`: the arriving
+// thread's earlier stores (its posts) are seen by whoever waits there.
+__device__ __forceinline__ void arrive_remote(unsigned long long* bar, int rank) {
+  unsigned remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote) : "r"(smem_addr(bar)), "r"(rank));
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n"
+               ::"r"(remote) : "memory");
+}
+
+// Waits, with acquire at cluster scope, until the phase of parity `parity`
+// of this block's mbarrier `bar` completes.
+__device__ __forceinline__ void wait_phase(unsigned long long* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  }
+}
+
+// A cloud is C blocks (one cluster where C > 1). R > 0: the slice in
+// shared memory and R running distances a thread in registers; R = 0:
+// streamed, the distances in dist [B, n].
+template <int C, int R>
 __global__ void __launch_bounds__(kClusterThreads)
 fps_cluster_kernel(const float* __restrict__ points,  // [B, n, 3]
                    const int* __restrict__ given,     // [B, k]
@@ -290,14 +332,14 @@ fps_cluster_kernel(const float* __restrict__ points,  // [B, n, 3]
   constexpr int kWarps = T / 32;
   extern __shared__ float slice[];             // [3 S] if R > 0
   __shared__ uint2 wslots[2][kWarps];
-  __shared__ uint2 ckey[2];                     // the block's (bits, index)
-  __shared__ float4 cxyz[2];                    // and that point's xyz
+  __shared__ uint2 ckey[2][C];                 // each block's (bits, index),
+  __shared__ float4 cxyz[2][C];                // that point's xyz, by rank
+  __shared__ unsigned long long posted[2];     // C posts of a step's parity
   __shared__ float4 gbuf[kGivenChunk];
-  cg::cluster_group cluster = cg::this_cluster();
-  constexpr int csize = kClusterBlocks;        // the launch's cluster
-  const int rank = static_cast<int>(cluster.block_rank());
+  int rank = 0;
+  if constexpr (C > 1) rank = static_cast<int>(cg::this_cluster().block_rank());
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int b = static_cast<int>(blockIdx.x / csize);
+  const int b = static_cast<int>(blockIdx.x / C);
   const float* pb = points + static_cast<size_t>(b) * n * 3;
   const int cnt = min(max(count[b], 0), k);
   const size_t o = static_cast<size_t>(b) * k;
@@ -307,9 +349,19 @@ fps_cluster_kernel(const float* __restrict__ points,  // [B, n, 3]
   const long long s0 = rank * S;
   const int nl = R > 0 ? static_cast<int>(max(0LL, min(S, n - s0))) : 0;
   const long long first = static_cast<long long>(rank) * T + tid;
-  const long long stride = static_cast<long long>(T) * csize;
+  const long long stride = static_cast<long long>(T) * C;
   float* db = dist + (R > 0 ? 0 : static_cast<size_t>(b) * n);
 
+  if constexpr (C > 1) {
+    if (tid == 0) {
+      for (int q = 0; q < 2; ++q) {
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+                     ::"r"(smem_addr(&posted[q])), "r"(C) : "memory");
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    cg::this_cluster().sync();  // no peer arrives before the init
+  }
   float pd[R > 0 ? R : 1];
   if constexpr (R > 0) {
     for (int e = tid; e < 3 * nl; e += T) slice[e] = __ldg(pb + 3 * s0 + e);
@@ -373,8 +425,10 @@ fps_cluster_kernel(const float* __restrict__ points,  // [B, n, 3]
   __syncthreads();  // the slice is staged, even where no prefix ran
 
   float sx = 0.0f, sy = 0.0f, sz = 0.0f;  // the last pick, once there is one
+  unsigned phases = 0u;                   // bit q: the parity posted[q] waits on
   for (int t = cnt; t < k; ++t) {
     const bool update = t > cnt;
+    const int q = t & 1;
     unsigned best = 0u, bi = kNoIndex;
     if constexpr (R > 0) {
       bi = static_cast<unsigned>(s0 + tid);  // point j = 0: a valid start
@@ -409,42 +463,55 @@ fps_cluster_kernel(const float* __restrict__ points,  // [B, n, 3]
     // the warp's, then the block's (bits, lowest index)
     unsigned hi = __reduce_max_sync(kFull, best);
     unsigned lo = __reduce_min_sync(kFull, best == hi ? bi : kNoIndex);
-    if (lane == 0) wslots[t & 1][warp] = make_uint2(hi, lo);
+    if (lane == 0) wslots[q][warp] = make_uint2(hi, lo);
     __syncthreads();
-    if (warp == 0) {
-      const uint2 w = wslots[t & 1][lane];  // kWarps == 32 slots
+    if constexpr (C == 1) {  // every warp reads the slots: the pick
+      const uint2 w = wslots[q][lane];  // kWarps == 32 slots
       hi = __reduce_max_sync(kFull, w.x);
       lo = __reduce_min_sync(kFull, w.x == hi ? w.y : kNoIndex);
-      if (lane == 0) {
-        float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        if (lo < static_cast<unsigned>(n)) {
-          if constexpr (R > 0) {
-            const long long l = lo - s0;
-            v = make_float4(slice[3 * l], slice[3 * l + 1], slice[3 * l + 2],
-                            0.0f);
-          } else {
-            const float* pp = pb + 3 * static_cast<size_t>(lo);
-            v = make_float4(__ldg(pp), __ldg(pp + 1), __ldg(pp + 2), 0.0f);
+      const long long l = lo < static_cast<unsigned>(n) ? lo : 0;
+      sx = slice[3 * l];
+      sy = slice[3 * l + 1];
+      sz = slice[3 * l + 2];
+    } else {
+      if (warp == 0) {  // the block's maximum, posted to every block
+        const uint2 w = wslots[q][lane];
+        hi = __reduce_max_sync(kFull, w.x);
+        lo = __reduce_min_sync(kFull, w.x == hi ? w.y : kNoIndex);
+        if (lane < C) {
+          float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          if (lo < static_cast<unsigned>(n)) {
+            if constexpr (R > 0) {
+              const long long l = lo - s0;
+              v = make_float4(slice[3 * l], slice[3 * l + 1], slice[3 * l + 2],
+                              0.0f);
+            } else {
+              const float* pp = pb + 3 * static_cast<size_t>(lo);
+              v = make_float4(__ldg(pp), __ldg(pp + 1), __ldg(pp + 2), 0.0f);
+            }
           }
+          cg::cluster_group cluster = cg::this_cluster();
+          *cluster.map_shared_rank(&ckey[q][rank], lane) = make_uint2(hi, lo);
+          *cluster.map_shared_rank(&cxyz[q][rank], lane) = v;
+          arrive_remote(&posted[q], lane);
         }
-        ckey[t & 1] = make_uint2(hi, lo);
-        cxyz[t & 1] = v;
       }
+      // the cluster's: every warp reads the C posts in its own block
+      wait_phase(&posted[q], (phases >> q) & 1u);
+      phases ^= 1u << q;
+      uint2 c = make_uint2(0u, kNoIndex);
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (lane < C) {
+        c = ckey[q][lane];
+        v = cxyz[q][lane];
+      }
+      hi = __reduce_max_sync(kFull, c.x);
+      lo = __reduce_min_sync(kFull, c.x == hi ? c.y : kNoIndex);
+      const int src = __ffs(__ballot_sync(kFull, c.x == hi && c.y == lo)) - 1;
+      sx = __shfl_sync(kFull, v.x, src);
+      sy = __shfl_sync(kFull, v.y, src);
+      sz = __shfl_sync(kFull, v.z, src);
     }
-    cluster.sync();
-    // the cluster's: every warp reads the C blocks' slots
-    uint2 c = make_uint2(0u, kNoIndex);
-    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (lane < csize) {
-      c = *cluster.map_shared_rank(&ckey[t & 1], lane);
-      v = *cluster.map_shared_rank(&cxyz[t & 1], lane);
-    }
-    hi = __reduce_max_sync(kFull, c.x);
-    lo = __reduce_min_sync(kFull, c.x == hi ? c.y : kNoIndex);
-    const int src = __ffs(__ballot_sync(kFull, c.x == hi && c.y == lo)) - 1;
-    sx = __shfl_sync(kFull, v.x, src);
-    sy = __shfl_sync(kFull, v.y, src);
-    sz = __shfl_sync(kFull, v.z, src);
     if (rank == 0 && tid == 0) {
       idx_out[o + t] = static_cast<int>(lo);
       xyz_out[(o + t) * 3 + 0] = sx;
@@ -452,43 +519,83 @@ fps_cluster_kernel(const float* __restrict__ points,  // [B, n, 3]
       xyz_out[(o + t) * 3 + 2] = sz;
     }
   }
-  cluster.sync();  // no block leaves while another may read its slots
+  if constexpr (C > 1) cg::this_cluster().sync();  // the last posts landed
 }
 
-template <int R>
+template <int C, int R>
+cudaError_t cluster_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
+                           int b, cudaStream_t stream) {
+  const size_t smem = cluster_smem(R);
+  if (smem > 0) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fps_cluster_kernel<C, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  if (C > kMaxCluster) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fps_cluster_kernel<C, R>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  *cfg = {};
+  cfg->gridDim = dim3(static_cast<unsigned>(b) * C);
+  cfg->blockDim = dim3(kClusterThreads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = C > 1 ? 1 : 0;
+  return cudaSuccess;
+}
+
+template <int C, int R>
 cudaError_t launch_cluster(const float* points, const int* given,
                            const int* count, int* idx, float* xyz,
                            float* dist, int b, int n, int k,
                            cudaStream_t stream) {
   if (R == 0 ? dist == nullptr
-             : static_cast<long long>(kClusterBlocks) * kClusterThreads * R <
-                   n) {
+             : static_cast<long long>(C) * kClusterThreads * R < n) {
     return cudaErrorInvalidValue;
   }
-  const size_t smem = cluster_smem(R);
-  if (smem > 0) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fps_cluster_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(b) * kClusterBlocks);
-  cfg.blockDim = dim3(kClusterThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
+  cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kClusterBlocks;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, fps_cluster_kernel<R>, points, given, count, idx, xyz, dist, n,
-      k);
+  cudaError_t err = cluster_config<C, R>(&cfg, attr, b, stream);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&cfg, fps_cluster_kernel<C, R>, points, given,
+                           count, idx, xyz, dist, n, k);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// Clouds of the kernel for (C, R) that the card runs at once (a cloud a
+// cluster), or -1 where the query fails
+template <int C, int R>
+int active_clouds() {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  if (cluster_config<C, R>(&cfg, attr, 1, nullptr) != cudaSuccess) return -1;
+  int clouds = -1;
+  if constexpr (C > 1) {
+    if (cudaOccupancyMaxActiveClusters(&clouds, fps_cluster_kernel<C, R>, &cfg) !=
+        cudaSuccess) {
+      return -1;
+    }
+  } else {
+    int per_sm = 0, device = 0, sms = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, fps_cluster_kernel<C, R>, kClusterThreads,
+            cfg.dynamicSmemBytes) != cudaSuccess ||
+        cudaGetDevice(&device) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
+            cudaSuccess) {
+      return -1;
+    }
+    clouds = per_sm * sms;
+  }
+  return clouds;
 }
 
 }  // namespace
@@ -540,41 +647,52 @@ extern "C" int snt_fps(const float* points, const int* given,
 
 extern "C" size_t snt_fps_cluster_smem(int r) { return cluster_smem(r); }
 
-// The cluster variant's limits: 0 its blocks a cloud, 1 its block's
-// threads, 2 the given points staged at a time, 3 its largest R.
+// The cluster variant's limits: 0 its largest cluster, 1 its block's
+// threads, 2 the given points staged at a time, 3 its largest R, 4 the
+// streamed variant's cluster.
 extern "C" int snt_fps_cluster_limit(int which) {
-  const int limits[] = {kClusterBlocks, kClusterThreads, kGivenChunk,
-                        kMaxClusterPoints};
-  return which >= 0 && which < 4 ? limits[which] : -1;
+  const int limits[] = {kMaxCluster, kClusterThreads, kGivenChunk,
+                        kMaxClusterPoints, kStreamCluster};
+  return which >= 0 && which < 5 ? limits[which] : -1;
 }
 
-// The cluster variant: 8 blocks a cloud (a cluster), r points a thread in
-// registers (1, 2, 4, 8 or 16; 8 * 1024 * r >= n), or r = 0, the
-// running distances streamed through dist [B, n], the caller's workspace.
+// The cluster variant's builds: C in {1, 2, 4, 8} with R in {1, 2, 4, 8,
+// 16}, and the streamed R = 0 at C = kStreamCluster.
+#define SNT_FPS_CLUSTER_BUILDS(X) \
+  X(1, 1) X(1, 2) X(1, 4) X(1, 8) X(1, 16) \
+  X(2, 1) X(2, 2) X(2, 4) X(2, 8) X(2, 16) \
+  X(4, 1) X(4, 2) X(4, 4) X(4, 8) X(4, 16) \
+  X(8, 1) X(8, 2) X(8, 4) X(8, 8) X(8, 16) X(kStreamCluster, 0)
+
+// Clouds the card runs at once with the build (c, r), or -1 where there is
+// no such build or the query fails.
+extern "C" int snt_fps_cluster_active(int c, int r) {
+#define SNT_FPS_ACTIVE(CC, RR) \
+  if (c == CC && r == RR) return active_clouds<CC, RR>();
+  SNT_FPS_CLUSTER_BUILDS(SNT_FPS_ACTIVE)
+#undef SNT_FPS_ACTIVE
+  return -1;
+}
+
+// The cluster variant: c blocks a cloud (one cluster where c > 1), r points
+// a thread in registers (c * 1024 * r >= n), or r = 0, the running
+// distances streamed through dist [B, n], the caller's workspace; (c, r)
+// one of SNT_FPS_CLUSTER_BUILDS.
 extern "C" int snt_fps_cluster(const float* points, const int* given,
                                const int* count, int* idx, float* xyz,
-                               float* dist, int b, int n, int k, int r,
+                               float* dist, int b, int n, int k, int c, int r,
                                cudaStream_t stream) {
   if (b < 1 || n < 1 || k < 1 ||
-      static_cast<long long>(b) * kClusterBlocks > INT_MAX) {
+      static_cast<long long>(b) * kStreamCluster > INT_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaErrorInvalidValue;
-  switch (r) {
-#define SNT_FPS_CLUSTER(R)                                                  \
-  case R:                                                                   \
-    err = launch_cluster<R>(points, given, count, idx, xyz, dist, b, n, k,  \
-                            stream);                                        \
-    break;
-    SNT_FPS_CLUSTER(0)
-    SNT_FPS_CLUSTER(1)
-    SNT_FPS_CLUSTER(2)
-    SNT_FPS_CLUSTER(4)
-    SNT_FPS_CLUSTER(8)
-    SNT_FPS_CLUSTER(16)
-#undef SNT_FPS_CLUSTER
-    default:
-      break;
+#define SNT_FPS_LAUNCH(CC, RR)                                               \
+  if (c == CC && r == RR) {                                                  \
+    return static_cast<int>(launch_cluster<CC, RR>(points, given, count, idx, \
+                                                   xyz, dist, b, n, k,       \
+                                                   stream));                 \
   }
-  return static_cast<int>(err);
+  SNT_FPS_CLUSTER_BUILDS(SNT_FPS_LAUNCH)
+#undef SNT_FPS_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
 }

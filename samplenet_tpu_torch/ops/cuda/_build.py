@@ -137,12 +137,14 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.snt_fps_max_threads.restype = i
     lib.snt_fps_shared_points.argtypes = []
     lib.snt_fps_shared_points.restype = i
-    lib.snt_fps_cluster.argtypes = [*[p] * 6, *[i] * 4, p]
+    lib.snt_fps_cluster.argtypes = [*[p] * 6, *[i] * 5, p]
     lib.snt_fps_cluster.restype = i
     lib.snt_fps_cluster_smem.argtypes = [i]
     lib.snt_fps_cluster_smem.restype = sz
     lib.snt_fps_cluster_limit.argtypes = [i]
     lib.snt_fps_cluster_limit.restype = i
+    lib.snt_fps_cluster_active.argtypes = [i, i]
+    lib.snt_fps_cluster_active.restype = i
     lib.snt_point_mlp_max_smem.argtypes = [ctypes.POINTER(i), i, i]
     lib.snt_point_mlp_max_smem.restype = ctypes.c_size_t
     lib.snt_point_mlp_max.argtypes = [p, p, ctypes.POINTER(i), i, i, p, p, i,

@@ -16,7 +16,8 @@ the JAX package.
 Clouds the block kernel cannot take (N above 16,384, or the cloud and the
 picks beyond a block's shared memory) run its cluster variant, counted
 as KERNEL_CLUSTER: any N up to int32 indexing and any k, with the same
-bits. Off the TPU the JAX package runs these through its XLA scan
+bits, C blocks a cloud as the plan picks from what the card runs at once
+(`cluster_active`). Off the TPU the JAX package runs these through its XLA scan
 (samplenet_tpu/ops/fps.py:36-43).
 
 Precondition, as in the JAX package: given[b, :count[b]] lie in [0, N).
@@ -141,6 +142,21 @@ def _fps_bwd(ctx, _g_idx, g_xyz):
 fps_op.register_autograd(_fps_bwd, setup_context=_fps_setup)
 
 
+@functools.lru_cache(maxsize=8)
+def cluster_active(device: int) -> dict[tuple[int, int], int]:
+    """{(C, R): clouds the card runs at once} of every cluster build, from
+    the CUDA occupancy API on CUDA device `device`."""
+    lib = library()
+    builds = [(c, r) for c in fp.CLUSTER_SIZES for r in fp.CLUSTER_POINTS]
+    builds.append((fp.STREAM_CLUSTER, 0))
+    with torch.cuda.device(device):
+        active = {cr: lib.snt_fps_cluster_active(*cr) for cr in builds}
+    if min(active.values()) < 0:
+        raise RuntimeError(f"fps_cluster: the occupancy query failed: "
+                           f"{active}")
+    return active
+
+
 @functools.lru_cache(maxsize=256)
 def kernel_plan(device: int, b: int, n: int, k: int) -> fp.FpsPlan:
     """The kernel's launch plan on CUDA device `device`; checks that the
@@ -151,9 +167,9 @@ def kernel_plan(device: int, b: int, n: int, k: int) -> fp.FpsPlan:
             or lib.snt_fps_shared_points() != fp.SHARED_POINTS
             or any(lib.snt_fps_max_threads(r, s) != fp.max_threads(r, s)
                    for r, s in widths)
-            or [lib.snt_fps_cluster_limit(i) for i in range(4)]
-            != [fp.CLUSTER_BLOCKS, fp.CLUSTER_THREADS, fp.GIVEN_CHUNK,
-                fp.CLUSTER_POINTS[-1]]
+            or [lib.snt_fps_cluster_limit(i) for i in range(5)]
+            != [fp.CLUSTER_SIZES[-1], fp.CLUSTER_THREADS, fp.GIVEN_CHUNK,
+                fp.CLUSTER_POINTS[-1], fp.STREAM_CLUSTER]
             or any(lib.snt_fps_cluster_smem(r) != fp.cluster_smem(r)
                    for r in (0, *fp.CLUSTER_POINTS))):
         raise RuntimeError("csrc/fps.cu and fps_plan.py disagree on shared "
@@ -161,7 +177,8 @@ def kernel_plan(device: int, b: int, n: int, k: int) -> fp.FpsPlan:
     props = torch.cuda.get_device_properties(device)
     return fp.plan_fps(b, n, k, sms=props.multi_processor_count,
                        smem_limit=max_dynamic_smem(torch.device("cuda",
-                                                                device)))
+                                                                device)),
+                       active=lambda c, r: cluster_active(device)[c, r])
 
 
 def _check_cuda(points, given, count) -> None:
@@ -198,7 +215,7 @@ def launch(points, given, count, npoint: int, plan: fp.FpsPlan):
                 points.data_ptr(), given.data_ptr(), count.data_ptr(),
                 idx.data_ptr(), xyz.data_ptr(),
                 None if dist is None else dist.data_ptr(), b, n, npoint,
-                plan.points, stream_handle(points))
+                plan.cluster, plan.points, stream_handle(points))
         check(err, KERNEL_CLUSTER)
         count_launch(KERNEL_CLUSTER)
         return idx, xyz

@@ -65,6 +65,8 @@ from samplenet_tpu_torch.ops.dispatch import count_launch, use_kernel
 
 KERNEL_FWD = "point_mlp_train_fwd"
 KERNEL_BWD = "point_mlp_train_bwd"
+# pmt_bwd_dz_chunked, counted apart where either chain's backward launches it
+KERNEL_DZ_CHUNKED = "pmt_bwd_dz_chunked"
 _TILE = 64                          # csrc/point_mlp_train.cu kTileP
 _VMEM_BUDGET = 10 * 1024 * 1024     # the TPU kernel's (:54)
 
@@ -458,20 +460,9 @@ def bwd_cuda(x, weights, gammas, betas, eps, block_b, mode, saved, g,
             gamma64 = gammas[i].double()
             r1 = (gamma64 * s[:, 0] / m_stat).float().contiguous()
             r2 = (gamma64 * s[:, 1] / m_stat).float().contiguous()
-            wt = F.pad(w_op.t(), (0, plan.cin_pad - cin)).contiguous()
-            dz = torch.empty((b * n, cout), dtype=torch.float32,
-                             device=x.device)
-            dh_prev = torch.empty((b * n, plan.cin_pad), dtype=torch.float32,
-                                  device=x.device)
-            err = lib.snt_pmt_bwd_dz(
-                zs[i].data_ptr(), bns[i], rstd2.data_ptr(), r1.data_ptr(),
-                r2.data_ptr(), cout, mode,
-                None if dh is None else dh.data_ptr(), g.data_ptr(),
-                argmax.data_ptr(), wt.data_ptr(), plan.cin_pad,
-                dz.data_ptr(), dh_prev.data_ptr(), p, block_b, n, plan.dz_rp,
-                plan.dz_kc, int(plan.dz_stage), plan.dz_oc, plan.dz_grid,
-                stream)
-            check(err, kernel)
+            dz, dh_prev = dz_layer_cuda(
+                zs[i], (mus[i], rstds[i], gammas[i], betas[i]), rstd2, r1,
+                r2, dh, g, argmax, w_op, plan, block_b, n, mode, kernel)
             dw_part = torch.empty((plan.dw_splits, plan.cin_pad, cout),
                                   dtype=torch.float64, device=x.device)
             h_in = x.contiguous() if i == 0 else zs[i - 1]
@@ -484,6 +475,65 @@ def bwd_cuda(x, weights, gammas, betas, eps, block_b, mode, saved, g,
             dws[i] = dw_part.sum(0)[:cin].float()
             dh = dh_prev
     return dh[:, :c0].reshape(b, n, c0), dws, dgammas, dbetas
+
+
+def dz_layer_cuda(z, bn, rstd2, r1, r2, dh, g, argmax, w_op, plan,
+                  block_b: int, n: int, mode: int,
+                  kernel: str = KERNEL_DZ_CHUNKED):
+    """One layer's pmt_bwd_dz under its LayerPlan `plan` (pmt_bwd_dz_chunked,
+    counted as KERNEL_DZ_CHUNKED, where the plan chunks the layer): (dz
+    [P*m, cout], dh_prev [P*m, cin_pad]) from the layer's pre-BN z
+    [P*m, cout] (m = block_b * n points a ghost block), bn = (mu, rstd,
+    gamma, beta) ([P, cout] and [cout]), rstd2, r1, r2 [P, cout], the
+    layer above's dh [P*m, cout] or, for the top layer, None (the pooled
+    cotangent g [B, cout] at argmax [B, cout]), and op(W) [cin, cout]; with
+    the roundings of backward `mode`; `kernel` names the caller in
+    errors."""
+    lib = library()
+    cout = z.shape[1]
+    p = r1.shape[0]
+    wt = F.pad(w_op.t(), (0, plan.cin_pad - w_op.shape[0])).contiguous()
+    dz = torch.empty((z.shape[0], cout), dtype=torch.float32, device=z.device)
+    dh_prev = torch.empty((z.shape[0], plan.cin_pad), dtype=torch.float32,
+                          device=z.device)
+    args = (z.data_ptr(), ptrs(*bn), rstd2.data_ptr(), r1.data_ptr(),
+            r2.data_ptr(), cout, mode, None if dh is None else dh.data_ptr(),
+            g.data_ptr(), argmax.data_ptr(), wt.data_ptr(), plan.cin_pad,
+            dz.data_ptr(), dh_prev.data_ptr(), p, block_b, n)
+    with torch.cuda.device(z.device):
+        check(lib.snt_pmt_bwd_dz(*args, plan.dz_rp, plan.dz_kc,
+                                 int(plan.dz_stage), plan.dz_oc, plan.dz_grid,
+                                 stream_handle(z)), kernel)
+    if plan.dz_oc < cout:
+        count_launch(KERNEL_DZ_CHUNKED)
+    return dz, dh_prev
+
+
+def dz_layer_plain(z, bn, rstd2, r1, r2, dh, g, argmax, w_op, block_b: int,
+                   n: int, mode: int):
+    """`dz_layer_cuda`'s function in tensor ops, on the same arguments: per
+    ghost block, xhat = (z - mu) * rstd (rounded to bf16 in mode 1), dy =
+    dh where gamma * xhat + beta > 0 (dh rounded to bf16 in mode 2), dz =
+    rstd2 * (gamma * dy - r1 - xhat * r2) (rounded to bf16 in modes 1 and
+    2), dh_prev = dz op(W)^T in f32 [P*m, cin] (cin unpadded)."""
+    cout = z.shape[1]
+    p = r1.shape[0]
+    mu, rstd, gamma, beta = (t.reshape(-1, cout) for t in bn)
+    zb = z.reshape(p, -1, cout)
+    if dh is None:               # the pooled cotangent, never rounded
+        b = g.shape[0]
+        dhb = torch.zeros((b, n, cout), dtype=g.dtype, device=g.device)
+        dhb.scatter_(1, argmax.long()[:, None, :], g[:, None, :])
+        dhb = dhb.reshape(p, -1, cout)
+    else:
+        dhb = round_op(dh.reshape(p, -1, cout), mode == 2)
+    xhat = round_op((zb - mu[:, None]) * rstd[:, None], mode == 1)
+    dy = torch.where(gamma * xhat + beta > 0, dhb, torch.zeros_like(dhb))
+    dz = round_op(rstd2.reshape(p, 1, cout) * (
+        gamma * dy - r1.reshape(p, 1, cout) - xhat * r2.reshape(p, 1, cout)),
+        mode != 0).reshape(-1, cout)
+    with full_f32_matmul():
+        return dz, torch.matmul(dz, w_op.t())
 
 
 def point_mlp_train_bwd_cuda(x, weights, gammas, betas, eps, block_b, bf16,

@@ -390,20 +390,21 @@ def test_backward_plan_takes_any_k(k):
 
 # ------------------------------------------------ FPS beyond one block
 
-# (B, N, k, the cluster variant's R; 0 streamed)
-CLUSTER_SHAPES = [(2, 16385, 64, 4), (4, 16385, 1024, 4), (2, 32768, 64, 4),
-                  (2, 32768, 1024, 4), (3, 100003, 64, 16),
-                  (2, 100003, 1024, 16), (1, 2**20, 256, 0),
-                  (2, 8192, 8192, 1), (1, 17600, 1024, 4),
-                  (1, 131072, 8, 16), (1, 131073, 8, 0), (1024, 20000, 32, 4)]
+# (B, N, k, the cluster variant's C and R; R = 0 streamed)
+CLUSTER_SHAPES = [(2, 16385, 64, 2, 16), (4, 16385, 1024, 2, 16),
+                  (2, 32768, 64, 2, 16), (2, 32768, 1024, 2, 16),
+                  (3, 100003, 64, 8, 16), (2, 100003, 1024, 8, 16),
+                  (1, 2**20, 256, 16, 0), (2, 8192, 8192, 1, 8),
+                  (1, 17600, 1024, 2, 16), (1, 131072, 8, 8, 16),
+                  (1, 131073, 8, 16, 0), (1024, 20000, 32, 2, 16)]
 
 
-@pytest.mark.parametrize("b,n,k,r", CLUSTER_SHAPES)
-def test_plan_sends_what_a_block_cannot_hold_to_the_cluster(b, n, k, r):
+@pytest.mark.parametrize("b,n,k,c,r", CLUSTER_SHAPES)
+def test_plan_sends_what_a_block_cannot_hold_to_the_cluster(b, n, k, c, r):
     plan = fp.plan_fps(b, n, k, **H100)
-    assert plan.cluster and plan.points == r
+    assert (plan.cluster, plan.points) == (c, r)
     assert plan.stream == (r == 0) and fp.valid(plan, n)
-    assert fp.cluster_smem(r) + 4656 <= H100["smem_limit"]
+    assert fp.cluster_smem(r) + 4720 <= H100["smem_limit"]
 
 
 @pytest.mark.parametrize("b,n,k", [(1024, 1024, 32), (50, 2048, 64),
@@ -418,18 +419,34 @@ def test_todays_shapes_keep_the_block_kernel(b, n, k):
 
 
 def test_plan_cluster_rules():
-    assert fp.plan_cluster(8192, smem_limit=232448).points == 1
-    assert fp.plan_cluster(8193, smem_limit=232448).points == 2
-    # a card with less shared memory streams what its slice cannot hold
-    assert fp.plan_cluster(100003, smem_limit=100000).stream
-    assert fp.valid(fp.FpsPlan(32, 1, False, True), 8192)
-    assert not fp.valid(fp.FpsPlan(32, 1, False, True), 8193)
-    assert not fp.valid(fp.FpsPlan(32, 1, True, True), 10)
-    assert not fp.valid(fp.FpsPlan(16, 1, False, True), 10)
-    assert not fp.valid(fp.FpsPlan(32, 3, False, True), 10)
-    assert not fp.valid(fp.FpsPlan(32, 32, False, True), 10)
-    assert fp.valid(fp.FpsPlan(32, 0, False, True), 10**9)    # streamed
-    assert not fp.valid(fp.FpsPlan(32, 0, False, False), 10)
+    def plan(b, n, **kw):
+        return fp.plan_cluster(b, n, sms=132, smem_limit=232448, **kw)
+
+    # the fewest R that hold the cloud at the chosen C
+    assert (plan(2, 8192).cluster, plan(2, 8192).points) == (1, 8)
+    assert (plan(2, 8193).cluster, plan(2, 8193).points) == (1, 16)
+    assert (plan(2, 16385).cluster, plan(2, 16385).points) == (2, 16)
+    # fewer waves first: 132 clouds of 8192 points take C = 1 in one wave
+    assert plan(132, 8192).cluster == 1
+    # where the card holds fewer clouds of a C at once, another C may
+    # take fewer waves: C = 4 holds 16,385 points at R = 8
+    assert plan(40, 16385, active=lambda c, r: 16 if c == 2 else 40) \
+        .cluster == 4
+    # a card with less shared memory streams what its slices cannot hold
+    assert fp.plan_cluster(2, 100003, sms=132, smem_limit=100000).stream
+    assert fp.valid(fp.FpsPlan(32, 1, False, 8), 8192)
+    assert not fp.valid(fp.FpsPlan(32, 1, False, 8), 8193)
+    assert not fp.valid(fp.FpsPlan(32, 1, True, 8), 10)
+    assert not fp.valid(fp.FpsPlan(16, 1, False, 8), 10)
+    assert not fp.valid(fp.FpsPlan(32, 3, False, 8), 10)
+    assert not fp.valid(fp.FpsPlan(32, 32, False, 8), 10)
+    assert fp.valid(fp.FpsPlan(32, 0, False, 16), 10**9)   # streamed
+    assert not fp.valid(fp.FpsPlan(32, 0, False, 8), 10)   # at C = 16 only
+    assert not fp.valid(fp.FpsPlan(32, 0, False, 2), 10)
+    assert not fp.valid(fp.FpsPlan(32, 16, False, 16), 10)  # 16 streams
+    assert not fp.valid(fp.FpsPlan(32, 0, False, 0), 10)
+    for c in (3, 5, 16):                                     # no such build
+        assert not fp.valid(fp.FpsPlan(32, 16, False, c), 10)
 
 
 def _cluster_fps(pts, given, count, k, csize, threads, r):
@@ -481,10 +498,11 @@ def _sq(xyz, s):
 
 
 @pytest.mark.parametrize("kind", ["randn", "grid", "nan", "all_nan"])
-@pytest.mark.parametrize("threads,r", [(32, 2), (64, 1), (32, 16), (16, 4),
-                                       (1024, 1), (16, 0), (1024, 0)])
-def test_cluster_layout_emulated_matches_plain(kind, threads, r):
-    csize = fp.CLUSTER_BLOCKS
+@pytest.mark.parametrize("threads,r,csize", [
+    (32, 2, 8), (64, 1, 8), (32, 16, 8), (16, 4, 8), (1024, 1, 8),
+    (16, 0, 8), (1024, 0, 8), (32, 16, 1), (64, 8, 1), (16, 16, 2),
+    (64, 4, 2), (32, 4, 4), (128, 1, 4), (1024, 1, 1)])
+def test_cluster_layout_emulated_matches_plain(kind, threads, r, csize):
     b, n, k = 2, 300, 24
     rng = np.random.default_rng(csize * threads + r)
     if kind == "grid":

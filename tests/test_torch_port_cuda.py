@@ -73,7 +73,7 @@ chain and point_mlp_max (f32 and bf16) at 130 and 1024 against their
 plain versions by their rules, each launched. Group sizes above 16 on
 the wide soft-projection kernels, and clouds beyond one FPS block on its
 cluster variant (N above 16,384 up to 2^20, streamed past 131,072 points,
-k = N = 8192, every R), by the same rules as the kernels
+k = N = 8192, every cluster size C and R), by the same rules as the kernels
 they extend: idx bit-equal, out within 1e-5, gradients at rtol 1e-4 /
 atol 1e-5, the backward bit for bit across plans and runs; FPS's idx
 and xyz bit for bit; today's shapes still on today's kernels.
@@ -641,66 +641,99 @@ def test_point_mlp_exact_backward_is_deterministic(dev, b, widths):
     assert all(torch.equal(a, c) for a, c in zip(first, second))
 
 
-@pytest.mark.parametrize("b,n,widths,caps", [
-    (32, 1024, (3, 64, 64, 64, 128, 1024), (64, 36)),   # sums in registers
-    (2, 300, (3, 64, 512, 1024), (16, 8)),              # through dh_prev
-    (50, 2048, (3, 64, 128, 128, 256, 1024), (40,)),    # the AE encoder
+def _dz_modes(x, ws, gs, bes, g, block_b):
+    """(name, forward, backward(saved, oc_cap)) of the backward's three
+    rounding modes: the exact chain in f32 (mode 0) and in bf16 (mode 2),
+    and the ghost chain in bf16 (mode 1) with blocks of `block_b` clouds."""
+    from samplenet_tpu_torch.ops.cuda import point_mlp_exact_kernel as pme
+    from samplenet_tpu_torch.ops.cuda import point_mlp_train_kernel as pmt
+
+    def exact(bf16):
+        return (lambda: pme.point_mlp_exact_fwd_cuda(x, ws, gs, bes, 1e-5,
+                                                     bf16)[3],
+                lambda saved, cap=None: pme.point_mlp_exact_bwd_cuda(
+                    x, ws, gs, bes, saved, g, bf16, oc_cap=cap))
+
+    def ghost():
+        return (lambda: pmt.point_mlp_train_fwd_cuda(x, ws, gs, bes, 1e-5,
+                                                     block_b, True)[3],
+                lambda saved, cap=None: pmt.bwd_cuda(
+                    x, ws, gs, bes, 1e-5, block_b, pmt.MODE_GHOST_BF16,
+                    saved, g, pmt.KERNEL_BWD, oc_cap=cap))
+
+    return [("mode 0", *exact(False)), ("mode 2", *exact(True)),
+            (f"mode 1, blocks of {block_b}", *ghost())]
+
+
+def _flat(gr):
+    return [gr[0], *gr[1], *gr[2], *gr[3]]
+
+
+@pytest.mark.parametrize("b,n,widths,caps,block_b", [
+    (32, 1024, (3, 64, 64, 64, 128, 1024), (64, 36), 4),   # sums in registers
+    (2, 300, (3, 64, 512, 1024), (16, 8), 1),              # through dh_prev
+    (50, 2048, (3, 64, 128, 128, 256, 1024), (40,), 10),   # the AE encoder
+    (3, 700, (3, 64, 4096), (100, 4), 1),                  # 4096 outputs
 ])
-def test_chunked_dz_does_not_depend_on_the_chunk(dev, b, n, widths, caps):
+def test_chunked_dz_does_not_depend_on_the_chunk(dev, b, n, widths, caps,
+                                                 block_b):
     """pmt_bwd_dz_chunked under its plan's chunks and under narrower ones
     (`oc_cap`, through the planner): dx, every dW, dgamma and dbeta bit
-    for bit, in f32 and in the exact chain's bf16 mode."""
-    from samplenet_tpu_torch.ops.cuda import point_mlp_exact_kernel as pme
+    for bit, in backward modes 0, 1 (ghost blocks) and 2; the chunked
+    kernel launched once a backward."""
     from samplenet_tpu_torch.ops.cuda import point_mlp_plan as plan
     from samplenet_tpu_torch.ops.cuda._build import max_dynamic_smem
+    from samplenet_tpu_torch.ops.dispatch import (
+        launch_counts,
+        reset_launch_counts,
+    )
 
     rng = np.random.default_rng(b + n)
     x, (ws, _, gs, bes), g = _ghost_args(rng, b, n, widths, dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     limit = max_dynamic_smem(dev)
-    base = plan.plan_bwd(widths, 1, b * n, sms, limit)[-1].dz_oc
-    assert base < widths[-1]
-    for bf16 in (False, True):
-        saved = pme.point_mlp_exact_fwd_cuda(x, ws, gs, bes, 1e-5, bf16)[3]
-        flat = lambda gr: [gr[0], *gr[1], *gr[2], *gr[3]]  # noqa: E731
-        ref = flat(pme.point_mlp_exact_bwd_cuda(x, ws, gs, bes, saved, g,
-                                                bf16))
+    top = plan.plan_bwd(widths, 1, b * n, sms, limit)[-1]
+    assert top.dz_oc < widths[-1]
+    for name, fwd, bwd in _dz_modes(x, ws, gs, bes, g, block_b):
+        saved = fwd()
+        reset_launch_counts()
+        ref = _flat(bwd(saved))
+        assert launch_counts().get("pmt_bwd_dz_chunked") == 1, name
         for cap in caps:
             assert plan.plan_bwd(widths, 1, b * n, sms, limit,
-                                 cap)[-1].dz_oc == cap < base
-            got = flat(pme.point_mlp_exact_bwd_cuda(x, ws, gs, bes, saved,
-                                                    g, bf16, oc_cap=cap))
-            assert all(torch.equal(a, c) for a, c in zip(got, ref)), cap
+                                 cap)[-1].dz_oc == cap < top.dz_oc
+            got = _flat(bwd(saved, cap))
+            assert all(torch.equal(a, c) for a, c in zip(got, ref)), \
+                (name, cap)
 
 
-@pytest.mark.parametrize("b,n,widths,oc", [
-    (50, 2048, (3, 64, 128, 128, 256, 256), 64),   # K chunks of W^T
-    (8, 1024, (3, 64, 256), 48),                   # op(W)^T resident
-    (4, 512, (3, 64, 512, 512), 64),               # sums through dh_prev
+@pytest.mark.parametrize("b,n,widths,oc,block_b", [
+    (50, 2048, (3, 64, 128, 128, 256, 256), 64, 10),   # K chunks of W^T
+    (8, 1024, (3, 64, 256), 48, 2),                    # op(W)^T resident
+    (4, 512, (3, 64, 512, 512), 64, 2),                # sums through dh_prev
+    (6, 300, (3, 64, 128, 1024), 36, 3),               # chunked either way
 ])
 def test_chunked_dz_equals_the_layouts_that_hold_dz_whole(dev, b, n, widths,
-                                                          oc, monkeypatch):
-    """Where a layer fits whole, the chunked layout forced on it (chunks
-    of `oc` output channels) gives the whole layouts' bits: every
-    gradient, in f32 and in the exact chain's bf16 mode."""
-    from samplenet_tpu_torch.ops.cuda import point_mlp_exact_kernel as pme
+                                                          oc, block_b,
+                                                          monkeypatch):
+    """Where a layer fits whole, pmt_bwd_dz_chunked forced on it (chunks of
+    `oc` output channels) gives the whole layouts' bits: every gradient,
+    in backward modes 0, 1 (ghost blocks) and 2; at 128 -> 1024, chunks of
+    `oc` give the plan's bits."""
     from samplenet_tpu_torch.ops.cuda import point_mlp_plan as plan
 
     rng = np.random.default_rng(b + n + oc)
     x, (ws, _, gs, bes), g = _ghost_args(rng, b, n, widths, dev)
-    flat = lambda gr: [gr[0], *gr[1], *gr[2], *gr[3]]  # noqa: E731
     whole = plan._dz_layout
-    for bf16 in (False, True):
-        saved = pme.point_mlp_exact_fwd_cuda(x, ws, gs, bes, 1e-5, bf16)[3]
-        ref = flat(pme.point_mlp_exact_bwd_cuda(x, ws, gs, bes, saved, g,
-                                                bf16))
+    for name, fwd, bwd in _dz_modes(x, ws, gs, bes, g, block_b):
+        saved = fwd()
+        ref = _flat(bwd(saved))
         monkeypatch.setattr(plan, "_dz_layout", lambda cin_pad, cout, limit,
                             cap=None: (oc, False, oc) if cout > oc
                             else whole(cin_pad, cout, limit, cap))
-        got = flat(pme.point_mlp_exact_bwd_cuda(x, ws, gs, bes, saved, g,
-                                                bf16))
+        got = _flat(bwd(saved))
         monkeypatch.setattr(plan, "_dz_layout", whole)
-        assert all(torch.equal(a, c) for a, c in zip(ref, got)), bf16
+        assert all(torch.equal(a, c) for a, c in zip(ref, got)), name
 
 
 def _soft_run(pts, qs, sigma, k, g, plain=False):
@@ -1115,9 +1148,24 @@ def test_fps_cluster_bit_equal(dev, b, n, k, counts):
     assert launch_counts() == {"fps_cluster": 1}
 
 
+def _cluster_plans(n):
+    """Every cluster build's plan that holds a cloud of n points: each C
+    with each R that holds it, and the streamed build."""
+    from samplenet_tpu_torch.ops.cuda import fps_plan
+
+    plans = [fps_plan.FpsPlan(32, r, False, c)
+             for c in fps_plan.CLUSTER_SIZES for r in fps_plan.CLUSTER_POINTS]
+    plans.append(fps_plan.FpsPlan(32, 0, False, fps_plan.STREAM_CLUSTER))
+    return [p for p in plans if fps_plan.valid(p, n)]
+
+
 @pytest.mark.parametrize("kind", ["nan_picked", "nan_given", "all_nan",
                                   "grid"])
 def test_fps_cluster_on_nan_clouds_and_ties(dev, kind):
+    """Under the plan and under every C that holds the cloud (its fewest
+    R) and streamed: idx and xyz bit for bit."""
+    from samplenet_tpu_torch.ops.cuda import fps_plan
+
     b, n, k = 3, 20000, 64
     rng = np.random.default_rng(len(kind))
     pts = _randn(rng, b, n, 3, dev=dev)
@@ -1133,25 +1181,29 @@ def test_fps_cluster_on_nan_clouds_and_ties(dev, kind):
         g = torch.arange(28, dtype=torch.float32, device=dev)
         grid = torch.stack(torch.meshgrid(g, g, g, indexing="ij"), -1)
         pts = grid.reshape(1, -1, 3)[:, :n].repeat(b, 1, 1).contiguous()
-    ik = _fps_check(pts.contiguous(), given, count, k)
+    pts = pts.contiguous()
+    ik = _fps_check(pts, given, count, k)
     if kind == "all_nan":
         assert not ik[1, int(count[1]):].any()
+    plans = fps_plan.cluster_candidates(n, smem_limit=232448)
+    assert [p.cluster for p in plans] == [2, 4, 8]
+    for plan in plans + [fps_plan.FpsPlan(32, 0, False,
+                                          fps_plan.STREAM_CLUSTER)]:
+        _fps_check(pts, given, count, k, plan)
 
 
-@pytest.mark.parametrize("n", [20000, 5000])
+@pytest.mark.parametrize("n", [20000, 5000, 8192])
 def test_fps_cluster_under_every_plan(dev, n):
-    """The outputs do not depend on R or streaming, nor on the run."""
-    from samplenet_tpu_torch.ops.cuda import fps_plan
-
+    """The outputs do not depend on C, R or streaming, nor on the run."""
     b, k = 2, 300
     rng = np.random.default_rng(n)
     pts = _randn(rng, b, n, 3, dev=dev)
     pts[0, n // 2, 1] = float("nan")
     given, count = _fps_given(rng, b, n, k, "random", dev)
-    plans = [p for p in (fps_plan.FpsPlan(32, r, False, True)  # streamed: 0
-                         for r in (0, *fps_plan.CLUSTER_POINTS))
-             if fps_plan.valid(p, n)]
-    assert len(plans) >= 4
+    plans = _cluster_plans(n)
+    assert len(plans) >= 7 and {p.cluster for p in plans} >= {2, 4, 8}
+    if n <= 16384:
+        assert any(p.cluster == 1 for p in plans)
     for plan in plans:
         _fps_check(pts, given, count, k, plan)
 
@@ -1192,11 +1244,31 @@ def test_fps_cluster_refuses_a_plan_it_does_not_take(dev):
     pts = torch.zeros(1, 9000, 3, device=dev)
     given, count = _fps_given(np.random.default_rng(0), 1, 9000, 8, "one",
                               dev)
-    for bad in (fps_plan.FpsPlan(32, 1, False, True),   # holds 8192 points
-                fps_plan.FpsPlan(32, 3, False, True),   # R = 3
-                fps_plan.FpsPlan(32, 32, False, True)):  # R above 16
+    for bad in (fps_plan.FpsPlan(32, 1, False, 8),   # holds 8192 points
+                fps_plan.FpsPlan(32, 3, False, 8),   # R = 3
+                fps_plan.FpsPlan(32, 32, False, 8)):  # R above 16
         with pytest.raises(RuntimeError, match="fps_cluster"):
             fps_kernel.launch(pts, given, count, 8, bad)
+
+
+@pytest.mark.parametrize("c,r", [(3, 4), (16, 1), (6, 2), (1, 0), (2, 0),
+                                 (8, 0), (32, 0)])
+def test_fps_cluster_refuses_a_cluster_size_the_build_lacks(dev, c, r):
+    """C outside {1, 2, 4, 8} (and streaming but at C = 16): the plan
+    does not take it, the library has no occupancy for it, and the launch
+    raises."""
+    from samplenet_tpu_torch.ops.cuda import fps_kernel, fps_plan
+    from samplenet_tpu_torch.ops.cuda._build import library
+
+    plan = fps_plan.FpsPlan(32, r, False, c)
+    assert not fps_plan.valid(plan, 9000)
+    assert library().snt_fps_cluster_active(c, r) == -1
+    assert all(v >= 1 for v in fps_kernel.cluster_active(0).values())
+    pts = torch.zeros(1, 9000, 3, device=dev)
+    given, count = _fps_given(np.random.default_rng(0), 1, 9000, 8, "one",
+                              dev)
+    with pytest.raises(RuntimeError, match="fps_cluster"):
+        fps_kernel.launch(pts, given, count, 8, plan)
 
 
 def test_train_kernels_refuse_what_they_do_not_take(dev):

@@ -338,6 +338,90 @@ def test_kernel_emulation_matches_plain(kind, counts, b, n, k):
     assert _bits_equal(want_xyz, np.take_along_axis(pts, want[..., None], 1))
 
 
+def _redux(keys, owns):
+    """(max bits, least index among them) along the last axis: redux.sync
+    max, then min over the lanes that hold the max."""
+    hi = keys.max(axis=-1)
+    lo = np.where(keys == hi[..., None], owns, NO_INDEX).min(axis=-1)
+    return hi, lo
+
+
+def _exchange_fps(pts, given, count, k, c, threads, r):
+    """csrc/fps.cu's cluster variant for every cloud, exchange included,
+    in numpy: C blocks of `threads` threads, block j's slice the points
+    j S .. j S + S - 1 (S = threads R, padding at distance 0), thread t
+    its points j S + t + i threads; a thread's first maximum by bits, its
+    warp's (bits, least index), the block's over its warps' slots; with
+    C > 1 each block's (bits, index, xyz) posted into every block's slot
+    of its rank, and in each block the slots' maximum, least index, xyz
+    from the first slot that holds both (with C = 1 the block's own, xyz
+    from its slice). Returns (idx, xyz)."""
+    b, n, _ = pts.shape
+    size = threads * r
+    p = (np.arange(c)[:, None, None] * size + np.arange(threads)[None, None]
+         + np.arange(r)[None, :, None] * threads)           # [C, R, T]
+    real = p < n
+    lanes = np.arange(threads)
+    idx = np.zeros((b, k), np.int32)
+    xyz_out = np.zeros((b, k, 3), np.float32)
+    for bi in range(b):
+        cloud = pts[bi]
+        xyz = cloud[np.minimum(p, n - 1)]
+        pd = np.where(real, np.float32(np.inf), np.float32(0))
+        cnt = min(max(int(count[bi]), 0), k)
+        for t in range(cnt):
+            g = int(given[bi, t])
+            s = cloud[g] if 0 <= g < n else np.zeros(3, np.float32)
+            pd = np.where(real, _update(pd, xyz, s), pd)
+            idx[bi, t], xyz_out[bi, t] = g, s
+        for t in range(cnt, k):
+            keys = _keys(pd)                                 # [C, R, T]
+            j = np.argmax(keys, axis=1)                      # first maximum
+            best = np.take_along_axis(keys, j[:, None], 1)[:, 0]   # [C, T]
+            own = (p[np.arange(c)[:, None], j, lanes[None]]
+                   .astype(np.uint32))
+            warp = _redux(best.reshape(c, -1, 32), own.reshape(c, -1, 32))
+            hi_b, lo_b = _redux(*warp)                       # [C] posts
+            post = np.where((lo_b < n)[:, None],
+                            cloud[np.minimum(lo_b, n - 1)], np.float32(0))
+            hi, lo = _redux(hi_b, lo_b)
+            src = int(np.flatnonzero((hi_b == hi) & (lo_b == lo))[0])
+            far, s = int(lo), post[src]
+            assert far < n and _bits_equal(s, cloud[far])
+            idx[bi, t], xyz_out[bi, t] = far, s
+            pd = np.where(real, _update(pd, xyz, s), pd)
+    return idx, xyz_out
+
+
+@pytest.mark.parametrize("kind", ["randn", "inf", "grid", "nan", "all_nan"])
+@pytest.mark.parametrize("counts", ["one", "random"])
+@pytest.mark.parametrize("c,threads,r", [(1, 64, 8), (1, 32, 16),
+                                         (2, 32, 8), (2, 64, 4),
+                                         (4, 32, 4), (4, 64, 2),
+                                         (8, 32, 2), (8, 64, 1)])
+def test_cluster_exchange_emulation_matches_plain(kind, counts, c, threads,
+                                                  r):
+    """The cluster variant's pick at every C (the warps, the block's slots
+    and the C blocks' posted slots) gives fps_plain's idx and xyz bit for
+    bit: lowest index on ties across every level, NaN above every
+    number, a NaN pick making the next pick index 0."""
+    b, n, k = 3, 300, 24
+    pts = _emulation_input(kind if kind in ("inf", "nan") else "randn", b,
+                           n, c + r)
+    if kind == "grid":
+        g = np.arange(7, dtype=np.float32)
+        grid = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1)
+        pts = np.repeat(grid.reshape(1, -1, 3)[:, :n], b, axis=0).copy()
+    elif kind == "all_nan":
+        pts[1] = np.nan
+    given, count = _given(b, n, k, counts, c * threads + r)
+    assert c * threads * r >= n
+    want, want_xyz = _port_fps(pts, given, count, k)
+    idx, xyz = _exchange_fps(pts, given, count, k, c, threads, r)
+    np.testing.assert_array_equal(idx, want)
+    assert _bits_equal(xyz, want_xyz)
+
+
 def test_kernel_emulation_in_the_shared_variant():
     pts = _emulation_input("nan", 1, 300, 3)
     given, count = _given(1, 300, 10, "one", 3)
@@ -400,6 +484,50 @@ def test_plan_refuses_what_the_kernel_cannot_take():
         fp.plan_fps(0, 10, 4, **H100)
     with pytest.raises(ValueError, match="int32"):
         fp.plan_fps(1, 2**31, 4, **H100)
+
+
+CAPS_FPS = {(50, 32768, 64): (2, 16), (2, 100003, 1024): (8, 16),
+            (1, 2**20, 256): (16, 0), (2, 8192, 8192): (1, 8)}
+
+
+@pytest.mark.parametrize("shape", list(CAPS_FPS))
+def test_cluster_size_at_the_caps_shapes(shape):
+    """chip_smoke.py's CAPS_FPS: C = 2 holds 50 clouds of 32,768 points in
+    one wave (R = 16, 192 KB of slice), C = 1 takes k = N = 8192 with no
+    cluster barrier, 100,003 points need C = 8, 2^20 stream at C = 16."""
+    b, n, k = shape
+    plan = fp.plan_fps(b, n, k, **H100)
+    assert (plan.cluster, plan.points) == CAPS_FPS[shape]
+    assert fp.valid(plan, n)
+    if plan.points:
+        at_once = fp.default_active(plan.cluster, plan.points, 132)
+        assert -(-b // at_once) == 1
+
+
+@pytest.mark.parametrize("n", [8193, 16385, 32768, 65536, 100003, 131072,
+                               131073, 2**20])
+def test_cluster_size_over_batches(n):
+    """At B = 1 .. 4096 (k = N where a block's registers would hold the
+    cloud): every plan holds the cloud; no C that holds it
+    runs in fewer waves of what the card holds at once; on a tie the
+    smallest C; streamed only where no build's slices hold the cloud."""
+    cands = fp.cluster_candidates(n, smem_limit=H100["smem_limit"])
+    k = n if n <= 16384 else 8     # k = N: the picks beyond one block
+    for b in range(1, 4097):
+        plan = fp.plan_fps(b, n, k, **H100)
+        assert plan.cluster and fp.valid(plan, n), b
+        assert plan.capacity >= n
+        if not cands:
+            assert plan.stream and plan.cluster == fp.STREAM_CLUSTER
+            continue
+
+        def waves(q):
+            return -(-b // fp.default_active(q.cluster, q.points, 132))
+
+        assert plan in cands, b
+        assert all(waves(plan) < waves(q) or (waves(plan) == waves(q)
+                                              and plan.cluster <= q.cluster)
+                   for q in cands), b
 
 
 def test_shared_memory_counts_the_kernels_layout():

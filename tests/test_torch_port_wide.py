@@ -410,3 +410,78 @@ def test_nn_grid_cap_is_beyond_what_either_card_holds():
     with pytest.raises(ValueError, match=r"flat grid \(2147483647 blocks\)"):
         nn_plan.plan(2 ** 30, 100_000, 10, 132)
     assert 32 * nn_plan.MAX_GRID * 12 > 800e9
+
+
+def _top_layer(x, w, gamma, beta, g, bf16):
+    """The one-layer exact chain's saved state and its top layer's
+    pmt_bwd_dz arguments (r1, r2 from the plain sums, as the plain
+    backward forms them)."""
+    from samplenet_tpu_torch.ops.cuda.point_mlp_exact_kernel import (
+        point_mlp_exact_fwd_plain,
+    )
+
+    b, n, _ = x.shape
+    zs, mus, rstds, argmax = point_mlp_exact_fwd_plain(
+        x, [w], [gamma], [beta], 1e-5, bf16)[3]
+    cout = w.shape[1]
+    dh = torch.zeros((b, n, cout))
+    dh.scatter_(1, argmax[:, None, :], g[:, None, :])
+    xhat = (zs[0] - mus[0]) * rstds[0]
+    dy = torch.where(torch.relu(gamma * xhat + beta) > 0, dh.reshape(-1, cout),
+                     torch.zeros(()))
+    r1 = gamma * dy.sum(0) / (b * n)
+    r2 = gamma * (dy * xhat).sum(0) / (b * n)
+    bn = (mus[0], rstds[0], gamma, beta)
+    return (zs, mus, rstds, argmax), (zs[0], bn, rstds[0][None], r1[None],
+                                      r2[None])
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_dz_layer_plain_is_the_chains_top_layer(bf16):
+    """`dz_layer_plain`, the plain version of pmt_bwd_dz_chunked (the top
+    layer at 1024 outputs), gives the one-layer exact chain's dx: in f32
+    (mode 0) against the JAX package's XLA chain (the tolerances above),
+    and in f32 and bf16 (mode 2) against the port's plain backward (rtol
+    1e-6: the same operations)."""
+    from samplenet_tpu_torch.ops.cuda.point_mlp_exact_kernel import (
+        point_mlp_exact_bwd_plain,
+    )
+    from samplenet_tpu_torch.ops.cuda.point_mlp_train_kernel import (
+        dz_layer_plain,
+    )
+
+    rng = np.random.RandomState(3)
+    b, n, cin, cout = 4, 96, 16, WIDE
+    x = torch.tensor(rng.randn(b, n, cin), dtype=torch.float32)
+    w = torch.tensor(rng.randn(cin, cout) / 4.0, dtype=torch.float32)
+    gamma = torch.tensor(1 + 0.1 * rng.randn(cout), dtype=torch.float32)
+    beta = torch.tensor(0.1 * rng.randn(cout), dtype=torch.float32)
+    g = torch.tensor(rng.randn(b, cout), dtype=torch.float32)
+    saved, (z, bn, rstd2, r1, r2) = _top_layer(x, w, gamma, beta, g, bf16)
+    mode = 2 if bf16 else 0
+    dz, dh_prev = dz_layer_plain(z, bn, rstd2, r1, r2, None, g, saved[3],
+                                 pmk.round_op(w, bf16), b, n, mode)
+    dx = point_mlp_exact_bwd_plain(x, [w], [gamma], [beta], saved, g,
+                                   bf16)[0]
+    np.testing.assert_allclose(dh_prev.reshape(b, n, cin).numpy(),
+                               dx.numpy(), rtol=1e-6,
+                               atol=1e-6 * float(dx.abs().max()))
+    if bf16:
+        return
+    jm = JaxPointMLP(features=(cout,), fused_train=False)
+    v = jm.init(jax.random.PRNGKey(0), jnp.asarray(x.numpy()[:1]),
+                training=False)
+    params = {"dense_0": {"kernel": jnp.asarray(w.numpy()),
+                          "bias": jnp.zeros(cout)},
+              "bn_0": {"scale": jnp.asarray(gamma.numpy()),
+                       "bias": jnp.asarray(beta.numpy())}}
+
+    def loss(xx):
+        out, _ = jm.apply({"params": params, "batch_stats": v["batch_stats"]},
+                          xx, training=True, pool_max=True,
+                          mutable=["batch_stats"])
+        return jnp.sum(out * jnp.asarray(g.numpy()))
+
+    gx = np.asarray(jax.grad(loss)(jnp.asarray(x.numpy())))
+    np.testing.assert_allclose(dh_prev.reshape(b, n, cin).numpy(), gx,
+                               rtol=1e-3, atol=1e-4 * float(np.abs(gx).max()))

@@ -28,7 +28,18 @@ events around each call, host time included:
   chip_smoke.py), for the checkout's kernels;
 - where the checkout has them, the bf16 modes: `point_mlp_max(...,
   bf16=True)` at the serving shape, and the exact chain's forward and
-  backward kernels with bf16 at each train-chain shape.
+  backward kernels with bf16 at each train-chain shape;
+- the wide chains (chip_smoke.py's WIDE at B=1024 and B=32, N=1024, and
+  WIDE_AE at B=50, N=2048), whose top layer runs the chunked dz kernel:
+  the f32 backward per call and its device time split by pass, the
+  chunked layer's own device time a launch (the profiler's
+  pmt_bwd_dz_chunked events) and, as a yardstick that
+  computes less (dh_prev only, no dz), torch.matmul of dz and W^T in
+  f32 (TF32 off); then, in backward modes 0 (the exact chain in f32), 1
+  (the ghost chain in bf16, blocks of 4 clouds, 5 at B=50) and 2 (the
+  exact chain in bf16), and in mode 0 under chunks of WIDE_OC_CAP
+  channels, digests of the chunked layer's dz and dh_prev (the backward's
+  first allocations of their shapes) and of the gradients.
 
 To compare two checkouts on one card, run it four times in a row: A, B,
 B, A.
@@ -44,6 +55,7 @@ import sys
 SHAPES = ((1024, 1024, (3, 64, 64, 64, 128, 128)),
           (50, 2048, (3, 64, 128, 128, 256, 128)))
 GHOST = (32, 1024, (3, 64, 64, 64, 128, 128), 4)
+WIDE_CHUNKED = "pmt_bwd_dz_chunked"
 FWD_KERNELS = ("point_mlp_max", "pmt_dense")
 TOOL_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -198,7 +210,107 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"[{tag}] chip_smoke.py's digests: {cs._chain_digests(torch)}",
           flush=True)
+    wide_chains(torch, cs, tag, inputs, median_ms, digest)
     return 0
+
+
+def wide_chains(torch, cs, tag, inputs, median_ms, digest) -> None:
+    """The wide chains' backward: times, the chunked layer alone, and the
+    digests of its dz and dh_prev in each backward mode."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from samplenet_tpu_torch.ops.cuda import point_mlp_exact_kernel as pme
+    from samplenet_tpu_torch.ops.cuda import point_mlp_train_kernel as pmt
+
+    def layer_ms(fn, iters=5):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        times = [e.self_device_time_total / 1e3 for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and WIDE_CHUNKED in e.name]
+        return (sum(times) / len(times), len(times)) if times else (None, 0)
+
+    def recorded(fn):
+        made, real = [], torch.empty
+
+        def empty(*args, **kwargs):
+            t = real(*args, **kwargs)
+            made.append(t)
+            return t
+
+        torch.empty = empty
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.empty = real
+        return out, made
+
+    def layer_bits(fn, rows, cout, cin_pad):
+        out, made = recorded(fn)
+        f32 = [t for t in made if t.dtype == torch.float32]
+        dz = next(i for i, t in enumerate(f32) if tuple(t.shape) == (rows, cout))
+        dh = next(t for t in f32[dz + 1:] if tuple(t.shape) == (rows, cin_pad))
+        return f"dz {digest(f32[dz])}, dh_prev {digest(dh)}, gradients " \
+               f"{digest(out)}"
+
+    for name, b, n in (("WIDE", 1024, 1024), ("WIDE", 32, 1024),
+                       ("WIDE_AE", 50, 2048)):
+        widths = getattr(cs, name)
+        x, params, g = inputs(b, n, widths)
+        ws, _, gs, bes = [[t.detach() for t in grp] for grp in params]
+        xd = x.detach()
+        rows, cout, cin_pad = b * n, widths[-1], -(-widths[-2] // 4) * 4
+        saved = pme.point_mlp_exact_fwd_cuda(xd, ws, gs, bes, 1e-5)[3]
+
+        def backward(saved=saved, cap=None):
+            kw = {} if cap is None else {"oc_cap": cap}
+            return pme.point_mlp_exact_bwd_cuda(xd, ws, gs, bes, saved, g,
+                                                **kw)
+
+        layers = len(widths) - 1
+        per_call = median_ms(backward)
+        split = cs._pass_split(torch, backward, 5, layers)
+        one, launches = layer_ms(backward)
+        dz = torch.randn(rows, cout, device="cuda")
+        wt = ws[-1]
+        torch.backends.cuda.matmul.allow_tf32 = False
+        mm = median_ms(lambda: torch.matmul(dz, wt.t()))
+        del dz
+        print(f"[{tag}] {name} B={b}, N={n}, widths {widths}: f32 backward "
+              f"{per_call!r} ms per call; {split}; the chunked layer "
+              f"{one!r} ms device a launch ({launches} launches in 5 "
+              f"calls); torch.matmul dz W^T (f32, not the same function) "
+              f"{mm!r} ms ({cs.card_line()})", flush=True)
+        bits = [f"mode 0 {layer_bits(backward, rows, cout, cin_pad)}",
+                f"mode 0 under chunks of {cs.WIDE_OC_CAP} "
+                + layer_bits(lambda: backward(cap=cs.WIDE_OC_CAP), rows,
+                             cout, cin_pad)]
+        del saved
+        saved16 = pme.point_mlp_exact_fwd_cuda(xd, ws, gs, bes, 1e-5,
+                                               True)[3]
+        bits.append("mode 2 " + layer_bits(
+            lambda: pme.point_mlp_exact_bwd_cuda(xd, ws, gs, bes, saved16,
+                                                 g, True),
+            rows, cout, cin_pad))
+        del saved16
+        bb = 4 if b % 4 == 0 else 5
+        ghost = pmt.point_mlp_train_fwd_cuda(xd, ws, gs, bes, 1e-5, bb,
+                                             True)[3]
+        bits.append(f"mode 1 (blocks of {bb}) " + layer_bits(
+            lambda: pmt.point_mlp_train_bwd_cuda(xd, ws, gs, bes, 1e-5, bb,
+                                                 True, ghost, g),
+            rows, cout, cin_pad))
+        del ghost, x, params, g, ws, gs, bes, xd
+        torch.cuda.empty_cache()
+        print(f"[{tag}] bits of the chunked layer of {name} B={b}: "
+              + "; ".join(bits), flush=True)
 
 
 if __name__ == "__main__":

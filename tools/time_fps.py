@@ -20,8 +20,11 @@ default_rng(SEED + 51 + i), as chip_smoke.py's `_inputs` makes them:
   against the planned launch's idx, and the plan's choice.
 
 Where the checkout has the cluster variant (fps_plan.plan_cluster), the
-same at each shape of chip_smoke.py's CAPS_FPS, beyond one block (no plan
-sweep there: the cluster variant has one plan a shape).
+same at each shape of chip_smoke.py's CAPS_FPS, beyond one block, with
+the plan's choice; where its cluster size is a build's
+(fps_plan.cluster_candidates), the sweep of every C that holds the cloud
+(its fewest R; and the streamed build), each checked against the planned
+launch's idx.
 
 Then the 1-NN kernels, whose NaN handling shares this tool's change:
 nn_direction at the eval shape (32 queries against 1024 points, B=1024)
@@ -77,6 +80,28 @@ def plan_sweep(torch, cs, fk, pts, given, count, k, idx) -> str:
         parts.append(f"w{plan.warps} r{plan.points}"
                      f"{' shared' if plan.shared else ''} "
                      f"{cs._device_ms(torch, call, 10)!r}")
+    return ", ".join(parts)
+
+
+def cluster_sweep(torch, cs, fk, pts, given, count, k, idx) -> str:
+    from samplenet_tpu_torch.ops.cuda import fps_plan as fp
+
+    b, n, _ = pts.shape
+    chosen = fk.kernel_plan(pts.device.index, b, n, k)
+    active = fk.cluster_active(pts.device.index)
+    plans = fp.cluster_candidates(n, smem_limit=232448)
+    plans.append(fp.FpsPlan(32, 0, False, fp.STREAM_CLUSTER))
+    parts = [f"plan C={chosen.cluster} R={chosen.points}"]
+    for plan in plans:
+        def call(plan=plan):
+            return fk.launch(pts, given, count, k, plan)
+
+        if not torch.equal(call()[0], idx):
+            raise AssertionError(f"idx differ under {plan}")
+        at_once = active[plan.cluster, plan.points]
+        parts.append(f"C={plan.cluster} R={plan.points} ({at_once} clouds "
+                     f"at once, {-(-b // at_once)} waves) "
+                     f"{cs._device_ms(torch, call, 5)!r}")
     return ", ".join(parts)
 
 
@@ -139,11 +164,19 @@ def main() -> int:
               f"{ms!r} ms per call, {dev!r} ms device (bound {bd[0]!r} ms, "
               f"{bd[1]}); bits: idx {digest(idx)}, xyz {digest(xyz)} "
               f"({card})", flush=True)
-        if (hasattr(fk, "kernel_plan")
-                and not getattr(fk.kernel_plan(0, b, n, k), "cluster", 0)):
+        chosen = getattr(fk.kernel_plan(0, b, n, k), "cluster", 0) \
+            if hasattr(fk, "kernel_plan") else 0
+        if hasattr(fk, "kernel_plan") and not chosen:
             print(f"[{tag}] plans at the {name} shape: "
                   + plan_sweep(torch, cs, fk, pts, given, count, k, idx)
                   + f" ({card})", flush=True)
+        elif hasattr(fps_plan, "cluster_candidates"):
+            print(f"[{tag}] cluster sizes at the {name} shape: "
+                  + cluster_sweep(torch, cs, fk, pts, given, count, k, idx)
+                  + f" ({card})", flush=True)
+        elif chosen:
+            print(f"[{tag}] the plan at the {name} shape: "
+                  f"{fk.kernel_plan(0, b, n, k)} ({card})", flush=True)
         del pts, given, count, idx, xyz
         torch.cuda.empty_cache()
 
