@@ -2,10 +2,10 @@
 // shared memory, times a weight matrix W [cin, cout] read through the
 // read-only cache: on the H100's tensor cores (tile_product: the eval
 // chain's layers of 8 or more input channels, point_mlp_max.cu, with f32
-// operands; tile_product_bf16 with bf16 operands) or on the FP32 pipes
-// (simt_product: every layer of the train chains' forward, pmt_dense in
-// point_mlp_train.cu, and the eval chain's first layer of fewer than 8
-// channels, or 16 in bf16).
+// operands; tile_product_bf16 with bf16 operands, also the train chains'
+// forward in bf16, pmt_dense in point_mlp_train.cu) or on the FP32 pipes
+// (simt_product: every layer of the train chains' forward in f32, and a
+// first layer of fewer than 8 channels, or 16 in bf16).
 //
 // tile_product: the block's 8 warps split an output chunk of 64 points x
 // 32*kNT channels 2 x 4: warp w owns points 32*(w & 1) .. +31 (two 16-row
@@ -31,9 +31,9 @@
 // a pre-activation within f32 noise of zero falls on the side of zero its
 // summation order puts it, and with the tensor cores' order some fell on
 // the other side than the plain path's and float64's (one card test
-// failed on 3 of 4.2M points). The ghost chain in bf16 is held to the
-// plain bf16 step's gradients, whose sums of exact bf16 products are f32
-// FMAs in channel order too.
+// failed on 3 of 4.2M points). The train chains' bf16 modes are held
+// norm-wise to the plain bf16 version instead, so they run on
+// tile_product_bf16.
 //
 // tile_product_bf16: the same warp layout on mma.sync m16n8k16 bf16. A row
 // of the tile holds two channels: word (pair row k, point p) carries

@@ -49,13 +49,26 @@
 //               the previous layer's ghost BN + ReLU applied on load from
 //               the block's constants in shared memory (with the stored
 //               xhat in the backward's recompute), rnd() rounding the
-//               operand in bf16. The products run on FP32 FMAs in channel
-//               order, 4 points x 4 channels a thread (mma_tile.cuh's
-//               simt_product): the plain path's sums, which the train
-//               chains' checks hold them to at BN's ReLU kinks
-//               (mma_tile.cuh says why the tensor cores' are not). W comes
-//               through the read-only cache, so shared memory holds only
-//               the tile, and cp.async stages the next tile's raw rows
+//               operand in bf16. In f32 the products run on FP32 FMAs in
+//               channel order, 4 points x 4 channels a thread (mma_tile.cuh's
+//               simt_product): the plain path's sums, which the f32 chains'
+//               checks hold them to at BN's ReLU kinks (mma_tile.cuh says
+//               why the tensor cores' are not). In bf16 a layer of 16 or
+//               more input channels runs on the tensor cores (mma.sync
+//               m16n8k16 in tile_product_bf16's warp layout: the tile holds
+//               act(in) as bf16 pairs, op(W) comes packed the same way and
+//               is copied into shared memory once a block where two blocks
+//               still fit an SM with it, each K step of 16 summed from zero,
+//               then added in f32); the first layer (x, 3 channels) stays
+//               on the FP32 pipes with rounded operands, as in
+//               point_mlp_max; the ghost chain (its forward and its
+//               backward's rstd recompute) stays there too, wmode 0: its
+//               backward rounds each dz to bf16 from sums that follow this
+//               z, and only in the plain path's channel order did those
+//               roundings keep to the plain bf16 version's within its check
+//               (PERF.md). In f32 W comes through the read-only cache,
+//               so shared memory holds only the tile, and cp.async stages
+//               the next tile's raw rows
 //               while the tile's products run where two blocks still fit
 //               an SM with them (ops/cuda/point_mlp_plan.py). z goes to HBM
 //               from the registers (unless null: the backward's recompute
@@ -76,7 +89,16 @@
 //               when the block changes: once in the exact chain; dy from
 //               dh read back in bf16 in mode 2), rounded to bf16 when the
 //               mode rounds operands, written to HBM, and dh_prev = dz
-//               op(W)^T. A
+//               op(W)^T. In the exact chain's bf16 mode 2, pmt_bwd_dz_mma
+//               forms dz the same way and runs dh_prev on mma.sync
+//               m16n8k16 (op(W)^T in pairs of output channels, K steps of
+//               16 in order); its product is short and the form's reads
+//               bound it, so the plan stages the rows wherever two blocks
+//               fit with them, op(W)^T in K chunks if it must, a top layer
+//               staging z alone. The ghost chain's mode 1 keeps the FP32
+//               pipes: each layer's dz is rounded to bf16 from dh_prev's
+//               sums, and in the plain path's order those roundings
+//               follow the plain bf16 version's (PERF.md). A
 //               block walks the 64-point tiles and holds op(W)^T (K chunks
 //               reloaded per tile where it would leave room for one block
 //               an SM) and the tile's dz.
@@ -113,8 +135,14 @@
 //               tile (64 KB of shared memory, three blocks an SM) or, where
 //               cout >= 128, 8 x 8 of a 64 x 128 tile (96 KB, two blocks):
 //               4 FMAs per float read from shared memory against 2.7 (the
-//               4 x 8 tile is bound by those reads). The caller sums the f64
-//               partials [S, cin_pad, cout] in order.
+//               4 x 8 tile is bound by those reads). In bf16 (modes 1 and 2,
+//               pmt_bwd_dw_mma, 256 threads) the same output tiles and
+//               split-K grid run on mma.sync m16n8k16 with the points as K:
+//               act(h_prev) of each staged tile is transformed into point
+//               pairs in shared memory, dz's pairs are packed from its staged
+//               rows in registers, each 16-point step summed from zero, the
+//               tile's 4 steps in f32, the tile once into f64. The caller
+//               sums the f64 partials [S, cin_pad, cout] in order.
 //
 // Every partial is reduced by the caller over a grid fixed by the shape
 // and the card, and nothing uses float atomics, so two runs give the same
@@ -135,10 +163,14 @@
 // pmt_bwd_dz is bound by those bytes at the 64-wide layers and nears its
 // FP32 bound at 128 -> 128; pmt_bwd_dw, whose operands pass through shared
 // memory once per tile, by its FP32 multiply-adds. At the progressive
-// step's shape (B=32) it is 2.2 GFLOP forward and 4.3 GFLOP backward, on
-// the SIMT pipes (bf16 only rounds the operands). The tensor cores wait on
-// a check that sees accuracy rather than the plain path's summation order
-// (ROADMAP.md); fusing pmt_rows into pmt_bwd_dz is later work.
+// step's shape (B=32) it is 2.2 GFLOP forward and 4.3 GFLOP backward. In
+// bf16 the products go to the tensor cores (989 TFLOP/s), where they take
+// a tenth of a millisecond at B=1024: the bf16 modes are bound by the bytes
+// above. Their checks hold them norm-wise to the plain bf16 version, which
+// sums in another order already; the f32 chains stay on the FP32 pipes,
+// held to the plain path's order, until a check that sees accuracy rather
+// than summation order (ROADMAP.md). Fusing pmt_rows into pmt_bwd_dz is
+// later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -339,8 +371,184 @@ __device__ __forceinline__ void dense_chunk(const uint32_t* as,
   }
 }
 
+// The bf16 operand pair that the tensor-core passes take: bf16(lo) in the
+// low half, bf16(hi) in the high half, each rounded to nearest as rnd()
+// rounds (the pairs of pmt_dense's tile and of pmt_bwd_dw's act(h_prev))
+__device__ __forceinline__ uint32_t pack_op(float lo, float hi) {
+  return mma::pack_bf16(lo, hi);
+}
+
+// Two floats that hold bf16 values (dz, rounded where it was formed) as
+// one pair, their high halves: no rounding
+__device__ __forceinline__ uint32_t pair_of(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// Words a row of bf16 pairs takes in shared memory where its c columns are
+// an MMA's N (op(W) in pmt_dense, op(W)^T in pmt_bwd_dz_mma;
+// point_mlp_plan.py's wt_stride): c to the N step of 8, plus 8 where that
+// is a multiple of 16, so that the 4 pair rows a B fragment reads start 8
+// (or 24) banks apart and its 32 words hit 32 banks
+__host__ __device__ constexpr int wt_stride(int c) {
+  return (c + 7) / 8 * 8 + ((c + 7) / 8 % 2 == 0 ? 8 : 0);
+}
+
+// Whether pmt_dense runs a layer on the tensor cores: bf16, 16 or more
+// input channels, and `wmode` (its launch argument) 1 (op(W) through the
+// read-only cache) or 2 (op(W) in shared memory); wmode 0 keeps bf16 on the
+// FP32 pipes, in the plain path's channel order
+template <bool kBf16>
+__host__ __device__ __forceinline__ bool dense_pairs(int cin, int wmode) {
+  if constexpr (kBf16) return cin >= mma::kBf16K && wmode != 0;
+  return false;
+}
+
+// Rows of pmt_dense's activation tile: bf16 pairs on the tensor cores
+// (`pairs`), else f32 rows to 4
+template <bool kBf16>
+__host__ __device__ __forceinline__ int dense_rows(int cin, bool pairs) {
+  if constexpr (kBf16) {
+    if (pairs) return mma::pair_rows(cin);
+  }
+  return mma::tile_rows(cin, false);
+}
+
+// load_act_tile's act(in) of tile rows [p0, p0 + np) into the pair tile
+// `as` (mma_tile.cuh's bf16 layout: pair_rows(cin) rows, two channels a
+// word, rounded by pack_op): a thread takes 4 channels of one point, as in
+// load_act_tile, and stores two words; channels past cin and points past
+// np are 0.
+__device__ __forceinline__ void load_act_pairs(uint32_t* as,
+                                               const float* __restrict__ in,
+                                               const float* stage, int cin,
+                                               const float* cs, int store,
+                                               long long p0, int np) {
+  const int cq = mma::pair_rows(cin) / 2;
+  for (int e = threadIdx.x; e < kTileP * cq; e += kThreads) {
+    const int p = e % kTileP, c = (e / kTileP) * 4;
+    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (p < np && c < cin) {
+      const float* src = in + (p0 + p) * cin + c;
+      if (stage != nullptr) {
+        const float4 q = *reinterpret_cast<const float4*>(
+            stage + p * stage_stride(cin) + c);
+        v[0] = q.x;
+        v[1] = q.y;
+        v[2] = q.z;
+        v[3] = q.w;
+      } else if (cin % 4 == 0) {
+        const float4 q = __ldg(reinterpret_cast<const float4*>(src));
+        v[0] = q.x;
+        v[1] = q.y;
+        v[2] = q.z;
+        v[3] = q.w;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) v[j] = c + j < cin ? __ldg(src + j) : 0.0f;
+      }
+      if (cs != nullptr) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int k = c + j;
+          if (k < cin) {
+            v[j] = bn_act(v[j], cs[k], cs[cin + k], cs[2 * cin + k],
+                          cs[3 * cin + k], store);
+          }
+        }
+      }
+    }
+    as[aidx(c / 2, p)] = pack_op(v[0], v[1]);
+    as[aidx(c / 2 + 1, p)] = pack_op(v[2], v[3]);
+  }
+}
+
+// acc[mi][ni] += A W for this thread's fragments of the 64-channel chunk at
+// n0: mma_tile.cuh's tile_product_bf16 (its warp layout, each K step of 16
+// summed from zero, then added in f32) with op(W) in pairs from shared
+// memory, wsm [pair_rows(cin)][ws] words (the rows past ceil(cin/2) zero),
+// columns past cout read as 0. W through the read-only cache, as
+// tile_product_bf16 takes it, measured slower here: beside this kernel's
+// shared memory the L1 keeps too little of it.
+__device__ __forceinline__ void product_pairs(float (&acc)[2][2][4],
+                                              const uint32_t* as,
+                                              const uint32_t* wsm, int cin,
+                                              int ws, int cout, int n0) {
+  const mma::Frag f(n0, 2);
+  const int col0 = f.n - 2 * f.t + f.g;  // this lane's B column, ni = 0
+  const int kp = mma::pair_rows(cin);
+  for (int k0 = 0; k0 < kp; k0 += mma::kBf16K / 2) {
+    const int ka = k0 + f.t, kb = ka + 4;  // pair rows
+    uint32_t a[2][4], b[2][2];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const int p = f.m0 + 16 * mi + f.g;
+      a[mi][0] = as[aidx(ka, p)];
+      a[mi][1] = as[aidx(ka, p + 8)];
+      a[mi][2] = as[aidx(kb, p)];
+      a[mi][3] = as[aidx(kb, p + 8)];
+    }
+#pragma unroll
+    for (int ni = 0; ni < 2; ++ni) {
+      const int c = col0 + 8 * ni;
+      b[ni][0] = c < cout ? wsm[ka * ws + c] : 0u;
+      b[ni][1] = c < cout ? wsm[kb * ws + c] : 0u;
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+      for (int ni = 0; ni < 2; ++ni) {
+        float step[4] = {};
+        mma::mma_bf16(step, a[mi], b[ni]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][ni][e] += step[e];
+      }
+    }
+  }
+}
+
+// dense_chunk on the tensor cores: z[., n0 .. n0 + nc) = act(in) op(W) of
+// one tile from the pair tile and op(W)'s pairs, 64 channels a chunk: from
+// shared memory (product_pairs) where wsm is set, else packed
+// [ceil(cin/2)][cout] in device memory wp (tile_product_bf16). Each
+// thread's fragments go to z in HBM, two channels at a time, and into zt
+// [nc][kStride].
+__device__ __forceinline__ void dense_chunk_mma(const uint32_t* as,
+                                                const uint32_t* __restrict__ wp,
+                                                const uint32_t* wsm, int cin,
+                                                int cout, int n0, int nc,
+                                                float* __restrict__ z, float* zt,
+                                                long long p0, int np) {
+  float acc[2][2][4] = {};
+  if (wsm != nullptr) {
+    product_pairs(acc, as, wsm, cin, wt_stride(cout), cout, n0);
+  } else {
+    mma::tile_product_bf16<2>(acc, as, wp, (cin + 1) / 2, cout, n0);
+  }
+  const mma::Frag f(n0, 2);
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int ni = 0; ni < 2; ++ni) {
+      const int c = f.n + 8 * ni;  // channels c, c + 1
+      if (c >= n0 + nc) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = f.m0 + 16 * mi + f.g + 8 * h;
+        const float v0 = acc[mi][ni][2 * h], v1 = acc[mi][ni][2 * h + 1];
+        if (z != nullptr && p < np) {
+          *reinterpret_cast<float2*>(z + (p0 + p) * cout + c) = make_float2(v0, v1);
+        }
+        zt[(c - n0) * kStride + p] = v0;
+        zt[(c - n0 + 1) * kStride + p] = v1;
+      }
+    }
+  }
+}
+
 // Operands rounded by rnd() with kBf16. With `stage`, cp.async brings the
-// next tile's raw rows in while the tile's products run.
+// next tile's raw rows in while the tile's products run; in bf16 `wmode`
+// picks the tensor cores (dense_pairs; 2: op(W)'s pairs copied into shared
+// memory once a block) or the FP32 pipes (0).
 template <bool kBf16>
 __global__ void __launch_bounds__(kThreads, 2)
 pmt_dense_kernel(const float* __restrict__ in, int cin, GBN prev, int has_prev,
@@ -348,14 +556,28 @@ pmt_dense_kernel(const float* __restrict__ in, int cin, GBN prev, int has_prev,
                  const float* __restrict__ w,  // [cin, cout], op() applied
                  int cout, float* __restrict__ z,  // [P*m, cout] or null
                  double* __restrict__ rows,        // [P, G, 2, cout]
-                 Ghost gh, int stage) {
+                 Ghost gh, int stage, int wmode) {
   extern __shared__ float4 smem4[];
   double* acc = reinterpret_cast<double*>(smem4);        // [2][cout]
   float* zt = reinterpret_cast<float*>(acc + 2 * cout);  // [kChunk][kStride]
   float* cs = zt + min(cout, kChunk) * kStride;          // [4][cin]
   uint32_t* as = reinterpret_cast<uint32_t*>(cs + 4 * cin);  // the tile
-  const int arows = mma::tile_rows(cin, false);
+  const bool pairs = dense_pairs<kBf16>(cin, wmode);
+  const int arows = dense_rows<kBf16>(cin, pairs);
   float* staged = stage ? reinterpret_cast<float*>(as + arows * kTileP) : nullptr;
+  uint32_t* wsm = nullptr;  // bf16 on the tensor cores: op(W)'s pairs
+  if constexpr (kBf16) {
+    if (pairs && wmode == 2) {
+      wsm = as + arows * kTileP + (stage ? kTileP * stage_stride(cin) : 0);
+      const int kp = (cin + 1) / 2, q = cout / 4, ws = wt_stride(cout);
+      const uint4* src = reinterpret_cast<const uint4*>(w);
+      for (int e = threadIdx.x; e < mma::pair_rows(cin) * q; e += kThreads) {
+        const int r = e / q, c = (e % q) * 4;
+        *reinterpret_cast<uint4*>(wsm + r * ws + c) =
+            r < kp ? __ldg(src + e) : make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+  }
   const int blk = blockIdx.y;
   for (int c = threadIdx.x; c < 2 * cout; c += kThreads) acc[c] = 0.0;
   if (has_prev) {  // the layer below's BN for this ghost block
@@ -380,8 +602,17 @@ pmt_dense_kernel(const float* __restrict__ in, int cin, GBN prev, int has_prev,
     tile_of(gh, first + t, &tb, &p0, &np);
     cp_async_wait<0>();
     __syncthreads();  // rows and constants in; the last tile's reads done
-    load_act_tile<kBf16>(as, in, staged, cin, has_prev ? cs : nullptr, store,
-                         p0, np);
+    if constexpr (kBf16) {
+      if (pairs) {
+        load_act_pairs(as, in, staged, cin, has_prev ? cs : nullptr, store, p0, np);
+      } else {
+        load_act_tile<true>(as, in, staged, cin, has_prev ? cs : nullptr, store,
+                            p0, np);
+      }
+    } else {
+      load_act_tile<false>(as, in, staged, cin, has_prev ? cs : nullptr, store,
+                           p0, np);
+    }
     __syncthreads();  // the tile is in; the stage is free
     if (staged != nullptr && t + gridDim.x < gh.tiles) {
       int nb, nn;
@@ -392,7 +623,16 @@ pmt_dense_kernel(const float* __restrict__ in, int cin, GBN prev, int has_prev,
     cp_async_commit();
     for (int n0 = 0; n0 < cout; n0 += kChunk) {
       const int nc = min(kChunk, cout - n0);
-      dense_chunk(as, w, cin, cout, n0, nc, z, zt, p0, np);
+      if constexpr (kBf16) {
+        if (pairs) {
+          dense_chunk_mma(as, reinterpret_cast<const uint32_t*>(w), wsm, cin,
+                          cout, n0, nc, z, zt, p0, np);
+        } else {
+          dense_chunk(as, w, cin, cout, n0, nc, z, zt, p0, np);
+        }
+      } else {
+        dense_chunk(as, w, cin, cout, n0, nc, z, zt, p0, np);
+      }
       __syncthreads();
       // per channel, the tile's sum of z (threads 0 .. nc-1) or of z^2
       // (nc .. 2nc-1) in f32 in point order, then into f64 in tile order
@@ -845,6 +1085,147 @@ pmt_bwd_dz_chunked_kernel(DzArgs a) {
   }
 }
 
+// pair rows [r0, r1) of op(W)^T [pair_rows(cout)][cin_pad] words into wts
+// [.][wt_stride(cin_pad)], 16 bytes a thread
+__device__ __forceinline__ void load_wt_pairs(uint32_t* wts, const DzArgs& a,
+                                              int r0, int r1) {
+  const int q = a.cin_pad / 4, ws = wt_stride(a.cin_pad);
+  const uint4* src = reinterpret_cast<const uint4*>(a.wt) + static_cast<size_t>(r0) * q;
+  for (int e = threadIdx.x; e < (r1 - r0) * q; e += kDzThreads) {
+    const int r = e / q, c = (e % q) * 4;
+    *reinterpret_cast<uint4*>(wts + r * ws + c) = __ldg(src + e);
+  }
+}
+
+// pmt_bwd_dz in the exact chain's bf16 mode (2) with dh_prev = dz op(W)^T
+// on the tensor cores: the tile's dz formed as in pmt_bwd_dz (form_dz, to HBM and
+// to dzs [cout][kStride], rounded to bf16), then mma.sync m16n8k16 with the
+// points as M, the input channels as N and the output channels as K. The
+// 8 warps split a pass of 64 points x 128 input channels 2 x 4: warp w owns
+// points 32*(w & 1) .. +31 (two 16-row tiles, their A fragments packed from
+// dzs' rows, which hold bf16 values) and the 8-channel column tiles
+// (w >> 1) + 4j of the pass; op(W)^T comes packed in pairs of output
+// channels, [pair_rows(cout)][cin_pad] words, resident in shared memory or
+// in K chunks of kc channels (a multiple of 16) reloaded per tile. Each K
+// step of 16 output channels is summed from zero on the tensor cores and
+// added into the f32 accumulator in increasing order, so dh_prev does not
+// depend on the tiling either. Built for 2 or 3 blocks an SM (kMinBlocks:
+// its registers), as the launch plan picks.
+template <int kMode, int kMinBlocks>
+__global__ void __launch_bounds__(kDzThreads, kMinBlocks)
+pmt_bwd_dz_mma_kernel(DzArgs a) {
+  extern __shared__ float4 smem4[];
+  const int cout = a.cout, cin_pad = a.cin_pad, ws = wt_stride(cin_pad);
+  const bool resident = a.kc >= cout;
+  uint32_t* wts = reinterpret_cast<uint32_t*>(smem4);  // [pair_rows(kc)][ws]
+  float* cs = reinterpret_cast<float*>(wts + mma::pair_rows(a.kc) * ws);  // [7][cout]
+  float* dzs = cs + 7 * cout;                    // [cout][kStride]: the tile's dz
+  int* pcl = reinterpret_cast<int*>(dzs + cout * kStride);  // [2][64]: b, point
+  float* stage = reinterpret_cast<float*>(pcl + 2 * kTileP);  // [2][64][cout]
+  const bool top = a.dh == nullptr;
+  const long long total = static_cast<long long>(a.n_blocks) * a.gh.tiles;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3, m0 = 32 * (w & 1), wn = w >> 1;
+  const int ntiles = (cin_pad + 7) / 8;          // 8-channel column tiles
+  const int kend = mma::pair_rows(cout) * 2;     // cout to the K step
+
+  if (resident) load_wt_pairs(wts, a, 0, mma::pair_rows(cout));
+  long long k = blockIdx.x;
+  if (a.stage && k < total) stage_dz_tile(stage, a, k);
+  cp_async_commit();
+  int cur = -1;
+  for (; k < total; k += gridDim.x) {
+    int blk, np;
+    long long p0;
+    tile_of(a.gh, k, &blk, &p0, &np);
+    cp_async_wait<0>();
+    __syncthreads();  // rows staged; the last tile's product is done with dzs
+    if (blk != cur) {  // the ghost block's constants (once in the exact chain)
+      load_dz_consts(cs, a, blk, 0, cout);
+      cur = blk;
+    }
+    if (top) load_clouds(pcl, a, p0, np);
+    __syncthreads();
+    if (a.stage) {
+      form_dz<true, kMode>(a, stage, top ? nullptr : stage + kTileP * cout, cs, pcl,
+                           dzs, p0, np, 0, cout);
+    } else {
+      form_dz<false, kMode>(a, a.z + p0 * cout,
+                            top ? nullptr : a.dh + p0 * cout, cs, pcl, dzs, p0, np,
+                            0, cout);
+    }
+    __syncthreads();  // dzs complete; the stage is free for the next tile
+    if (a.stage && k + gridDim.x < total) stage_dz_tile(stage, a, k + gridDim.x);
+    cp_async_commit();
+    for (int nb = 0; nb < ntiles; nb += 16) {  // passes of 128 input channels
+      float acc[2][4][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.0f;
+        }
+      }
+      const int kc = resident ? kend : a.kc;  // K chunks: multiples of 16
+      for (int c0 = 0; c0 < kend; c0 += kc) {
+        const int c1 = min(kend, c0 + kc);
+        if (!resident) {  // K chunks: every thread takes part in the loads
+          __syncthreads();  // the last chunk's products are done with wts
+          load_wt_pairs(wts, a, c0 / 2, c1 / 2);
+          __syncthreads();
+        }
+        for (int o0 = c0; o0 < c1; o0 += mma::kBf16K) {  // K steps in order
+          uint32_t af[2][4];
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+            const int p = m0 + 16 * mi + g;
+#pragma unroll
+            for (int hk = 0; hk < 2; ++hk) {  // output channels o, o + 1
+              const int o = o0 + 2 * t + 8 * hk;
+              const bool in = o < cout;
+              const float* d = dzs + o * kStride + p;
+              af[mi][2 * hk] = in ? pair_of(d[0], d[kStride]) : 0u;
+              af[mi][2 * hk + 1] = in ? pair_of(d[8], d[kStride + 8]) : 0u;
+            }
+          }
+          const uint32_t* wr = wts + ((o0 - (resident ? 0 : c0)) / 2 + t) * ws + g;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int nt = nb + wn + 4 * j;
+            if (nt >= ntiles) break;
+            const uint32_t b[2] = {wr[nt * 8], wr[4 * ws + nt * 8]};
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi) {  // the step's sum, then one f32 add
+              float step[4] = {};
+              mma::mma_bf16(step, af[mi], b);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[mi][j][e] += step[e];
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = (nb + wn + 4 * j) * 8 + 2 * t;  // channels col, col + 1
+        if (col >= cin_pad) continue;
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int p = m0 + 16 * mi + g + 8 * h;
+            if (p < np) {
+              *reinterpret_cast<float2*>(a.dh_prev + (p0 + p) * cin_pad + col) =
+                  make_float2(acc[mi][j][2 * h], acc[mi][j][2 * h + 1]);
+            }
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
 struct DwArgs {
   const float* in;   // [P*m, cin]: x, or the layer below's pre-BN z
   int cin;
@@ -1020,6 +1401,213 @@ pmt_bwd_dw_kernel(DwArgs a) {
   }
 }
 
+constexpr int kPairStride = 36;  // words a row of point pairs: 4g + t hits 32 banks
+constexpr int kDwMmaThreads = 256;
+
+// pmt_bwd_dw_mma's shared memory for an output tile of 64 input x `to`
+// output channels (64 or 128, as dw_to<4>() and dw_to<8>()): the raw rows
+// of a tile of `in` [64][68] and of dz [64][to + 4], op(act(in)) in point
+// pairs [64][kPairStride] words, and the BN constants of the tile's 64
+// input channels [4][64]
+__host__ __device__ constexpr size_t dw_mma_smem(int to) {
+  return sizeof(float) * (static_cast<size_t>(kTileP) * (kDwTile + 4 + to + 4) +
+                          static_cast<size_t>(kDwTile) * kPairStride + 4 * kDwTile);
+}
+
+// cp.async of tile k's rows of in, channels i0 .. i0+ti (those below cin),
+// into A [64][kDwTile + 4]
+__device__ __forceinline__ void stage_dw_in(float* A, const DwArgs& a, long long k,
+                                            int i0, int ti) {
+  constexpr int kQA = kDwTile / 4;
+  int blk, np;
+  long long p0;
+  tile_of(a.gh, k, &blk, &p0, &np);
+  if (a.cin % 4 == 0) {
+    for (int c = threadIdx.x; c < np * kQA; c += kDwMmaThreads) {
+      const int p = c / kQA, j = (c % kQA) * 4;
+      if (j < ti) cp_async16(A + p * (kDwTile + 4) + j, a.in + (p0 + p) * a.cin + i0 + j);
+    }
+  } else {  // x with 3 channels: 4 bytes at a time
+    const int na = min(ti, a.cin - i0);
+    for (int c = threadIdx.x; c < np * na; c += kDwMmaThreads) {
+      const int p = c / na, j = c % na;
+      cp_async4(A + p * (kDwTile + 4) + j, a.in + (p0 + p) * a.cin + i0 + j);
+    }
+  }
+}
+
+// cp.async of tile k's rows of dz, channels o0 .. o0+to, into D [64][kTO + 4]
+template <int kTO>
+__device__ __forceinline__ void stage_dw_dz(float* D, const DwArgs& a, long long k,
+                                            int o0, int to) {
+  constexpr int kQD = kTO / 4;
+  int blk, np;
+  long long p0;
+  tile_of(a.gh, k, &blk, &p0, &np);
+  for (int c = threadIdx.x; c < np * kQD; c += kDwMmaThreads) {
+    const int p = c / kQD, j = (c % kQD) * 4;
+    if (j < to) cp_async16(D + p * (kTO + 4) + j, a.dz + (p0 + p) * a.cout + o0 + j);
+  }
+}
+
+// Item e of a transform pass over `rows` channels x 32 point pairs: lanes
+// take 8 channels x 4 pairs, so that the raw reads (rows 68 floats apart)
+// and the pair stores (kPairStride words apart) hit 32 banks
+__device__ __forceinline__ void pair_item(int e, int rows, int* c, int* q) {
+  const int grp = e >> 5, cg = rows / 8;
+  *c = 8 * (grp % cg) + (e & 7);
+  *q = 4 * (grp / cg) + ((e >> 3) & 3);
+}
+
+// dW = op(act(in))^T dz in bf16 on the tensor cores, by the split-K grid of
+// pmt_bwd_dw, with the points as K. A block stages each 64-point tile of
+// `in` and of dz with cp.async, writes op(act(in)) (the layer below's BN +
+// ReLU, the roundings of kMode, pack_op) as point pairs, the A operand's
+// layout, for the 16-channel row tiles below ti only, and packs each B
+// fragment from the staged dz rows in registers (dz is bf16 already: its
+// high halves, pair_of; the points past a ragged tile's end as 0). The next
+// tile's rows of `in` load while the tile's products run, its dz rows once
+// they are done. The 8 warps split the output tile 4 x 2 (kTO 64: a warp
+// owns 16 input x 32 output channels) or 2 x 4 (kTO 128: 32 x 32); warps
+// whose rows lie past ti skip the products. Each 16-point K step is summed
+// from zero, the tile's 4 steps added in f32 registers, and the tile's sum
+// once into f64 registers. The caller sums the f64 partials as for
+// pmt_bwd_dw, so two runs give the same bits.
+template <int kTO, int kMode>
+__global__ void __launch_bounds__(kDwMmaThreads, kTO == 64 ? 3 : 2)
+pmt_bwd_dw_mma_kernel(DwArgs a) {
+  using R = Rounds<kMode>;
+  constexpr int kAS = kDwTile + 4, kDS = kTO + 4;
+  constexpr int kMT = kTO == 64 ? 1 : 2;  // 16-row tiles a warp
+  extern __shared__ float4 smem4[];
+  float* A = reinterpret_cast<float*>(smem4);                    // [64][kAS]
+  float* D = A + kTileP * kAS;                                   // [64][kDS]
+  uint32_t* Ap = reinterpret_cast<uint32_t*>(D + kTileP * kDS);  // [64][kPairStride]
+  float* cs = reinterpret_cast<float*>(Ap + kDwTile * kPairStride);  // [4][64]
+  const int n_o = (a.cout + kTO - 1) / kTO;
+  const int i0 = (blockIdx.x / n_o) * kDwTile, o0 = (blockIdx.x % n_o) * kTO;
+  const int ti = min(kDwTile, a.cin_pad - i0), to = min(kTO, a.cout - o0);
+  const int arows = min(kDwTile, (ti + 15) / 16 * 16);  // A's row tiles in use
+  const long long total = static_cast<long long>(a.n_blocks) * a.gh.tiles;
+  const long long k0 = total * blockIdx.y / a.splits;
+  const long long k1 = total * (blockIdx.y + 1) / a.splits;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wi = 16 * kMT * (w % (4 / kMT)), wo = 32 * (w / (4 / kMT));
+  double acc[kMT][4][4];
+#pragma unroll
+  for (int mi = 0; mi < kMT; ++mi) {
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.0;
+    }
+  }
+  if (k0 < k1) {
+    stage_dw_in(A, a, k0, i0, ti);
+    stage_dw_dz<kTO>(D, a, k0, o0, to);
+  }
+  cp_async_commit();
+  int cur = -1;
+  for (long long k = k0; k < k1; ++k) {
+    int blk, np;
+    long long p0;
+    tile_of(a.gh, k, &blk, &p0, &np);
+    cp_async_wait<0>();
+    __syncthreads();  // tile k is in; the last tile's products are done
+    if (a.has_prev && blk != cur) {  // the tile's channels' BN constants
+      for (int c = threadIdx.x; c < kDwTile; c += kDwMmaThreads) {
+        const int ch = min(i0 + c, a.cin - 1);
+        const size_t kb = static_cast<size_t>(blk) * a.cin + ch;
+        cs[c] = a.prev.mu[kb];
+        cs[kDwTile + c] = a.prev.rstd[kb];
+        cs[2 * kDwTile + c] = a.prev.gamma[ch];
+        cs[3 * kDwTile + c] = a.prev.beta[ch];
+      }
+      cur = blk;
+      __syncthreads();
+    }
+    // op(act(in)) as point pairs; channels past cin and points past np are 0
+    for (int e = threadIdx.x; e < arows * 32; e += kDwMmaThreads) {
+      int c, q;
+      pair_item(e, arows, &c, &q);
+      float v[2] = {0.0f, 0.0f};
+      if (c < ti && i0 + c < a.cin) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int p = 2 * q + h;
+          if (p < np) {
+            float x = A[p * kAS + c];
+            if (a.has_prev) {
+              const float xh = rnd(__fmul_rn(__fsub_rn(x, cs[c]), cs[kDwTile + c]),
+                                   R::xhat);
+              x = relu_nan(__fmaf_rn(cs[2 * kDwTile + c], xh, cs[3 * kDwTile + c]));
+            }
+            v[h] = x;
+          }
+        }
+      }
+      Ap[c * kPairStride + q] = pack_op(v[0], v[1]);
+    }
+    __syncthreads();  // the pairs are in; the raw rows of `in` are free
+    if (k + 1 < k1) stage_dw_in(A, a, k + 1, i0, ti);
+    cp_async_commit();
+#pragma unroll
+    for (int mi = 0; mi < kMT; ++mi) {
+      const int r0 = wi + 16 * mi;
+      if (r0 >= ti) continue;
+      float s[4][4];
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[ni][e] = 0.0f;
+      }
+      const uint32_t* ar = Ap + (r0 + g) * kPairStride + t;
+#pragma unroll
+      for (int ks = 0; ks < kTileP / mma::kBf16K; ++ks) {  // K steps in order
+        const uint32_t af[4] = {ar[8 * ks], ar[8 * kPairStride + 8 * ks],
+                                ar[8 * ks + 4], ar[8 * kPairStride + 8 * ks + 4]};
+        const int p = mma::kBf16K * ks + 2 * t;  // points p, p + 1, p + 8, p + 9
+        const bool in0 = p < np, in1 = p + 1 < np, in8 = p + 8 < np, in9 = p + 9 < np;
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          const float* d = D + p * kDS + wo + 8 * ni + g;
+          const uint32_t b[2] = {
+              pair_of(in0 ? d[0] : 0.0f, in1 ? d[kDS] : 0.0f),
+              pair_of(in8 ? d[8 * kDS] : 0.0f, in9 ? d[9 * kDS] : 0.0f)};
+          float step[4] = {};
+          mma::mma_bf16(step, af, b);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[ni][e] += step[e];
+        }
+      }
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][ni][e] += static_cast<double>(s[ni][e]);
+      }
+    }
+    __syncthreads();  // the products are done with the dz rows
+    if (k + 1 < k1) stage_dw_dz<kTO>(D, a, k + 1, o0, to);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+  double* out = a.dw_part + static_cast<size_t>(blockIdx.y) * a.cin_pad * a.cout;
+#pragma unroll
+  for (int mi = 0; mi < kMT; ++mi) {
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ii = wi + 16 * mi + g + 8 * (e >> 1), oo = wo + 8 * ni + 2 * t + (e & 1);
+        if (ii < ti && oo < to) {
+          out[static_cast<size_t>(i0 + ii) * a.cout + o0 + oo] = acc[mi][ni][e];
+        }
+      }
+    }
+  }
+}
+
 // pmt_bwd_dz for kRP points a thread, or null for another kRP
 template <int kMode>
 const void* dz_kernel(int rp) {
@@ -1029,6 +1617,17 @@ const void* dz_kernel(int rp) {
     case 4: return reinterpret_cast<const void*>(pmt_bwd_dz_kernel<4, kMode>);
     case 8: return reinterpret_cast<const void*>(pmt_bwd_dz_kernel<8, kMode>);
     case 16: return reinterpret_cast<const void*>(pmt_bwd_dz_kernel<16, kMode>);
+    default: return nullptr;
+  }
+}
+
+// pmt_bwd_dz_mma in backward mode kMode built for `blocks` blocks an SM,
+// or null for another number
+template <int kMode>
+const void* dz_mma_kernel(int blocks) {
+  switch (blocks) {
+    case 2: return reinterpret_cast<const void*>(pmt_bwd_dz_mma_kernel<kMode, 2>);
+    case 3: return reinterpret_cast<const void*>(pmt_bwd_dz_mma_kernel<kMode, 3>);
     default: return nullptr;
   }
 }
@@ -1052,6 +1651,17 @@ const void* dw_kernel(int ri) {
   switch (ri) {
     case 4: return reinterpret_cast<const void*>(pmt_bwd_dw_kernel<4, kMode>);
     case 8: return reinterpret_cast<const void*>(pmt_bwd_dw_kernel<8, kMode>);
+    default: return nullptr;
+  }
+}
+
+// pmt_bwd_dw_mma for the output tile of ri x 8 outputs a thread in mode 0,
+// in backward mode kMode, or null for another ri
+template <int kMode>
+const void* dw_mma_kernel(int ri) {
+  switch (ri) {
+    case 4: return reinterpret_cast<const void*>(pmt_bwd_dw_mma_kernel<64, kMode>);
+    case 8: return reinterpret_cast<const void*>(pmt_bwd_dw_mma_kernel<128, kMode>);
     default: return nullptr;
   }
 }
@@ -1081,38 +1691,59 @@ Ghost make_ghost(int bb, int n) {
 
 // A pmt_dense block (ops/cuda/point_mlp_plan.py counts the same): the f64
 // sums [2, cout], a chunk of the tile's z [min(cout, 64)][68], the layer
-// below's BN constants [4, cin], the activation tile of 64 words a row
-// and, with `stage`, the next tile's raw rows [64, cin + 4].
-extern "C" size_t snt_pmt_dense_smem(int cin, int cout, int stage) {
+// below's BN constants [4, cin], the activation tile of 64 words a row (in
+// bf16 rows of channel pairs from 16 input channels on) and, with `stage`,
+// the next tile's raw rows [64, cin + 4]; bf16 as snt_pmt_dense takes it,
+// with 2 (op(W) in shared memory) from 16 input channels on op(W)'s pairs
+// [pair_rows(cin)][wt_stride(cout)] words.
+extern "C" size_t snt_pmt_dense_smem(int cin, int cout, int stage, int bf16) {
+  const int rows = dense_rows<true>(cin, dense_pairs<true>(cin, bf16 == 3 ? 0 : bf16));
+  const size_t wsm = bf16 == 2 && cin >= mma::kBf16K
+                         ? static_cast<size_t>(mma::pair_rows(cin)) * wt_stride(cout)
+                         : 0;
   return 2 * static_cast<size_t>(cout) * sizeof(double) +
          (static_cast<size_t>(cout < kChunk ? cout : kChunk) * kStride + 4 * cin +
-          static_cast<size_t>(mma::tile_rows(cin, false)) * kTileP +
+          static_cast<size_t>(rows) * kTileP + wsm +
           (stage ? static_cast<size_t>(kTileP) * stage_stride(cin) : 0)) *
              sizeof(float);
 }
 
-// A pmt_bwd_dz block: op(W)^T rows [kc, cin_pad], 7 per-channel constants
-// and dz [oc, 68] for a chunk of oc output channels (oc = cout but in
-// pmt_bwd_dz_chunked), each point's cloud and index [2, 64], and with `stage`
-// the raw z and dh rows [2, 64, cout] (the launch planner,
-// ops/cuda/point_mlp_plan.py, counts the same).
+// A pmt_bwd_dz block: op(W)^T rows [kc, cin_pad] (in bf16, unchunked:
+// pmt_bwd_dz_mma's pairs [pair_rows(kc)][wt_stride(cin_pad)] words), 7
+// per-channel constants and dz [oc, 68] for a chunk of oc output channels
+// (oc = cout but in pmt_bwd_dz_chunked), each point's cloud and index
+// [2, 64], and with `stage` the raw z and dh rows [2, 64, cout]; for
+// pmt_bwd_dz_mma `stage` counts the staged row sets, 1 (z: a top layer) or 2
+// (the launch planner, ops/cuda/point_mlp_plan.py, counts the same).
 extern "C" size_t snt_pmt_bwd_dz_smem(int cin_pad, int cout, int kc, int stage,
-                                      int oc) {
-  return sizeof(float) * (static_cast<size_t>(kc) * cin_pad + 7 * oc +
+                                      int oc, int bf16) {
+  const bool pairs = bf16 && oc == cout;
+  const size_t wt = pairs ? static_cast<size_t>(mma::pair_rows(kc)) * wt_stride(cin_pad)
+                          : static_cast<size_t>(kc) * cin_pad;
+  const size_t sets = pairs ? stage : 2 * (stage != 0);
+  return sizeof(float) * (wt + 7 * oc +
                           static_cast<size_t>(oc) * kStride + 2 * kTileP +
-                          (stage ? 2 * static_cast<size_t>(kTileP) * cout : 0));
+                          sets * kTileP * cout);
 }
 
 // A pmt_bwd_dw block for ri x 8 outputs a thread: two stages of a tile of
-// act(in), 64 channels, and of dz, 16 * ri channels.
-extern "C" size_t snt_pmt_bwd_dw_smem(int ri) {
-  return sizeof(float) * 2 * kTileP * (kDwTile + kDwThreads * ri * 8 / kDwTile);
+// act(in), 64 channels, and of dz, 16 * ri channels; in bf16 the layout of
+// pmt_bwd_dw_mma for the same output tile (dw_mma_smem).
+extern "C" size_t snt_pmt_bwd_dw_smem(int ri, int bf16) {
+  const int to = kDwThreads * ri * 8 / kDwTile;
+  if (bf16) return dw_mma_smem(to);
+  return sizeof(float) * 2 * kTileP * (kDwTile + to);
 }
 
 // prev_bn holds (mu, rstd, gamma, beta) of the layer below, or is null for
 // the first layer (then `in` is x itself); `store` applies the backward's
-// stored-xhat rounding to it. z may be null (sums only). bf16 rounds the
-// operands; `stage` (the launch plan's, taken where cin is a multiple of
+// stored-xhat rounding to it. z may be null (sums only). bf16 (nonzero)
+// rounds the operands: 1 on the tensor cores where cin >= 16 (w: op(W)
+// packed in pairs, [ceil(cin/2)][cout] words; else its rounded values), 2
+// the same with those pairs copied into shared memory once a block (the
+// launch plan's `w_smem`), 3 on the FP32 pipes (w: op(W)'s rounded values:
+// the plain path's channel order, which the ghost backward's rstd
+// recompute keeps); `stage` (the launch plan's, taken where cin is a multiple of
 // 4) stages the next tile's rows with cp.async.
 extern "C" int snt_pmt_dense(const float* in, int cin, const float* const* prev_bn,
                              int store, int bf16, const float* w, int cout,
@@ -1123,14 +1754,15 @@ extern "C" int snt_pmt_dense(const float* in, int cin, const float* const* prev_
   }
   const void* kernel = bf16 ? reinterpret_cast<const void*>(pmt_dense_kernel<true>)
                             : reinterpret_cast<const void*>(pmt_dense_kernel<false>);
-  const size_t smem = snt_pmt_dense_smem(cin, cout, stage);
+  const size_t smem = snt_pmt_dense_smem(cin, cout, stage, bf16);
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   GBN prev = make_gbn(prev_bn);
   int has_prev = prev_bn != nullptr;
   Ghost gh = make_ghost(bb, n);
+  int wmode = bf16 == 3 ? 0 : bf16;
   void* args[] = {&in, &cin, &prev, &has_prev, &store, &w, &cout, &z, &rows,
-                  &gh, &stage};
+                  &gh, &stage, &wmode};
   err = cudaLaunchKernel(kernel, dim3(grid, n_blocks), dim3(kThreads), args,
                          smem, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1162,7 +1794,13 @@ extern "C" int snt_pmt_rows(const float* z, const float* const* bn, int c_out,
 // cotangent g at argmax) over 64-point tiles, `grid` blocks, with the
 // roundings of backward mode `mode` (Rounds: 0 f32, 1 ghost bf16, 2 exact
 // bf16); oc < cout takes pmt_bwd_dz_chunked, in chunks of oc = kc output
-// channels, unstaged.
+// channels, unstaged, with wt op(W)^T [cout][cin_pad]; else mode 2 takes
+// pmt_bwd_dz_mma, wt then op(W)^T in pairs [pair_rows(cout)][cin_pad]
+// words, kc a multiple of 16 or all cout, and rp the blocks an SM its build
+// is for (2 or 3) instead of the points a thread. Mode 1 keeps
+// pmt_bwd_dz on the FP32 pipes: its dz rounds to bf16 after dh_prev's
+// sums feed it, and in the tensor cores' order those roundings parted the
+// ghost chain from the plain bf16 version past its check (PERF.md).
 extern "C" int snt_pmt_bwd_dz(const float* z, const float* const* bn,
                               const float* rstd2, const float* r1,
                               const float* r2, int cout, int mode,
@@ -1174,16 +1812,17 @@ extern "C" int snt_pmt_bwd_dz(const float* z, const float* const* bn,
   const bool chunked = oc < cout;
   if (cout % 4 || cin_pad % 4 || cin_pad < 4 || kc % 4 || kc < 4 || grid < 1 ||
       n_blocks < 1 || oc % 4 || oc < 4 || oc > cout ||
-      (chunked && (kc != oc || stage))) {
+      (chunked && (kc != oc || stage)) ||
+      (!chunked && mode == 2 && kc < cout && kc % mma::kBf16K)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const DzArgs a{z, make_gbn(bn), rstd2, r1, r2, dh, g, argmax, n, cout, wt,
                  cin_pad, kc, stage, dz, dh_prev, make_ghost(bb, n), n_blocks};
-  const size_t smem = snt_pmt_bwd_dz_smem(cin_pad, cout, kc, stage, oc);
+  const size_t smem = snt_pmt_bwd_dz_smem(cin_pad, cout, kc, stage, oc, mode == 2);
   const void* kernel =
       chunked ? of_mode(mode, rp, dz_chunked_kernel<0>, dz_chunked_kernel<1>,
                         dz_chunked_kernel<2>)
-              : of_mode(mode, rp, dz_kernel<0>, dz_kernel<1>, dz_kernel<2>);
+              : of_mode(mode, rp, dz_kernel<0>, dz_kernel<1>, dz_mma_kernel<2>);
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1195,8 +1834,9 @@ extern "C" int snt_pmt_bwd_dz(const float* z, const float* const* bn,
 
 // f64 partials dw_part [splits, cin_pad, cout] of dW = op(act(in))^T dz:
 // grid (output tiles of 64 x 16*ri) x splits runs of consecutive 64-point
-// tiles, ri x 8 outputs a thread, with the roundings of backward mode
-// `mode` (Rounds).
+// tiles, ri x 8 outputs a thread (mode 0), or on the tensor cores with the
+// roundings of backward mode `mode` (Rounds) 1 or 2: pmt_bwd_dw_mma, 256
+// threads.
 extern "C" int snt_pmt_bwd_dw(const float* in, int cin, int cin_pad,
                               const float* const* prev_bn, int mode,
                               const float* dz, int cout, double* dw_part,
@@ -1206,8 +1846,9 @@ extern "C" int snt_pmt_bwd_dw(const float* in, int cin, int cin_pad,
       n_blocks < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = snt_pmt_bwd_dw_smem(ri);
-  const void* kernel = of_mode(mode, ri, dw_kernel<0>, dw_kernel<1>, dw_kernel<2>);
+  const size_t smem = snt_pmt_bwd_dw_smem(ri, mode != 0);
+  const void* kernel = of_mode(mode, ri, dw_kernel<0>, dw_mma_kernel<1>,
+                               dw_mma_kernel<2>);
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1216,7 +1857,8 @@ extern "C" int snt_pmt_bwd_dw(const float* in, int cin, int cin_pad,
   const int to = kDwThreads * ri * 8 / kDwTile;
   const int out_tiles = ((cin_pad + kDwTile - 1) / kDwTile) * ((cout + to - 1) / to);
   void* args[] = {const_cast<DwArgs*>(&a)};
-  err = cudaLaunchKernel(kernel, dim3(out_tiles, splits), dim3(kDwThreads), args,
+  const int threads = mode == 0 ? kDwThreads : kDwMmaThreads;
+  err = cudaLaunchKernel(kernel, dim3(out_tiles, splits), dim3(threads), args,
                          smem, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

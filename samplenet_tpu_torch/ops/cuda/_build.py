@@ -175,11 +175,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.snt_soft_project_bwd_limit.restype = i
     lib.snt_soft_project_bwd.argtypes = [*[p] * 10, *[i] * 8, p]
     lib.snt_soft_project_bwd.restype = i
-    lib.snt_pmt_dense_smem.argtypes = [i, i, i]
+    lib.snt_pmt_dense_smem.argtypes = [i, i, i, i]
     lib.snt_pmt_dense_smem.restype = sz
-    lib.snt_pmt_bwd_dz_smem.argtypes = [i, i, i, i, i]
+    lib.snt_pmt_bwd_dz_smem.argtypes = [i, i, i, i, i, i]
     lib.snt_pmt_bwd_dz_smem.restype = sz
-    lib.snt_pmt_bwd_dw_smem.argtypes = [i]
+    lib.snt_pmt_bwd_dw_smem.argtypes = [i, i]
     lib.snt_pmt_bwd_dw_smem.restype = sz
     lib.snt_pmt_dense.argtypes = [p, i, pp, i, i, p, i, p, p, i, i, i, i, i,
                                   p]

@@ -54,6 +54,8 @@ from samplenet_tpu_torch.ops.cuda.point_mlp_train_kernel import (
     bwd_cuda,
     check_args,
     check_cuda,
+    dense_mode,
+    dense_weights,
     launch_grid,
     padded_call,
     ptrs,
@@ -184,7 +186,7 @@ def point_mlp_exact_fwd_cuda(x, weights, gammas, betas, eps, bf16=False,
                              blocks=None):
     name = KERNEL_FWD_BF16 if bf16 else KERNEL_FWD
     widths = [x.shape[-1], *(w.shape[1] for w in weights)]
-    dense = check_cuda(x, widths, "point_mlp_exact")[1]
+    dense = check_cuda(x, widths, "point_mlp_exact", bf16=bf16)[1]
     b, n, _ = x.shape
     count = b * n
     lib = library()
@@ -198,9 +200,9 @@ def point_mlp_exact_fwd_cuda(x, weights, gammas, betas, eps, bf16=False,
             z = torch.empty((count, cout), dtype=torch.float32, device=x.device)
             rows = torch.empty((grid, 2, cout), dtype=torch.float64,
                                device=x.device)
-            w_op = round_op(w, bf16).contiguous()
+            w_op = dense_weights(w, bf16)
             err = lib.snt_pmt_dense(
-                h_in.data_ptr(), cin, prev, 0, int(bf16), w_op.data_ptr(),
+                h_in.data_ptr(), cin, prev, 0, dense_mode(dp), w_op.data_ptr(),
                 cout, z.data_ptr(), rows.data_ptr(), 1, b, n, int(dp.stage),
                 grid, stream)
             check(err, name)

@@ -59,6 +59,19 @@ Per layer (cin -> cout) the backward runs two passes:
   `dw_splits` depends only on the shape and the SM count, so the bits
   repeat from run to run.
 
+With bf16 operands (backward modes 1 and 2, and the bf16 forward) the
+passes run on the tensor cores (mma.sync m16n8k16), but for pmt_bwd_dz in
+the ghost chain's mode 1 (`dz_bf16=False`), and their layouts
+(`bf16=True`) hold bf16 pairs: pmt_dense's tile two channels a word
+(`pair_rows`, but for a layer of fewer than 16 input channels, which
+stays on the FP32 pipes); pmt_bwd_dz's op(W)^T as [pair_rows(kc),
+wt_stride(cin_pad)] words, K chunks a multiple of the K step of 16
+(`kc` = cout where it stays whole); pmt_bwd_dw's raw tiles staged once
+([64, 68] of act(h_prev), [64, dw_to + 4] of dz) beside their transformed
+copies in point pairs ([64 + dw_to, 36] words) and the tile's BN
+constants. The chunked pmt_bwd_dz stays on the FP32 pipes in every mode,
+with its f32 layout.
+
 Output widths that are not multiples of 4 are planned at the next
 multiple of 4 (`kernel_widths`): the wrappers pad the layer with zero
 weight columns and bias, and BN's gamma = beta = 0, so that a padded
@@ -102,9 +115,17 @@ def dw_ri(cout: int) -> int:
     return 8 if cout >= dw_to(8) else 4
 
 
-def dw_smem(ri: int) -> int:
+PAIR_STRIDE = 36      # pmt_bwd_dw in bf16: words a row of point pairs
+
+
+def dw_smem(ri: int, bf16: bool = False) -> int:
     """Two stages of a 64-point tile of act(h_prev), 64 channels, and of
-    dz, dw_to(ri) channels (snt_pmt_bwd_dw_smem)."""
+    dz, dw_to(ri) channels; in bf16 one stage of each (rows padded by 4),
+    op(act(h_prev)) in point pairs [64, 36] words and the BN constants
+    [4, 64] (snt_pmt_bwd_dw_smem)."""
+    if bf16:
+        return 4 * (TILE * (DW_TILE + 4 + dw_to(ri) + 4)
+                    + DW_TILE * PAIR_STRIDE + 4 * DW_TILE)
     return 4 * 2 * TILE * (DW_TILE + dw_to(ri))
 
 
@@ -130,22 +151,46 @@ class LayerPlan:
     dw_out_tiles: int
     dw_splits: int
     dw_smem: int
+    bf16: bool = False  # the bf16 layout of pmt_bwd_dw (on the tensor cores)
+    dz_blocks: int = 2  # pmt_bwd_dz_mma: the blocks an SM its build is for
+    top: bool = False   # the chain's top layer (its dh: the pooled cotangent)
+    dz_mma: bool = False  # pmt_bwd_dz_mma's layout (bf16, unchunked)
 
 
 def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def wt_stride(cin_pad: int) -> int:
+    """Words a row of op(W)^T pairs takes in a bf16 pmt_bwd_dz block:
+    cin_pad to the MMA's N step of 8, plus 8 where that is a multiple of
+    16, so that a B fragment's rows start 8 or 24 banks apart."""
+    n8 = _ceil(cin_pad, 8) * 8
+    return n8 + (8 if n8 % 16 == 0 else 0)
+
+
+def stage_sets(stage: bool, bf16: bool, top: bool) -> int:
+    """Row sets a pmt_bwd_dz block stages a point (its `stage` argument in
+    bf16): z and dh, or in bf16 for a top layer z alone (the pooled
+    cotangent stands for dh there)."""
+    return int(stage) * (1 if bf16 and top else 2)
+
+
 def dz_smem(cin_pad: int, cout: int, kc: int, stage: bool,
-            oc: int | None = None) -> int:
+            oc: int | None = None, bf16: bool = False,
+            top: bool = False) -> int:
     """Bytes of a pmt_bwd_dz block (csrc: snt_pmt_bwd_dz_smem): op(W)^T
-    rows [kc, cin_pad], 7 per-channel constants and dz channel-major
-    [oc, 68] for a chunk of `oc` output channels (all cout by default),
-    each point's cloud and index [2, 64], and with `stage` the raw z and
-    dh rows [2, 64, cout]."""
+    rows [kc, cin_pad] (in bf16, unchunked: [pair_rows(kc),
+    wt_stride(cin_pad)] words of pairs), 7 per-channel constants and dz
+    channel-major [oc, 68] for a chunk of `oc` output channels (all cout
+    by default), each point's cloud and index [2, 64], and with `stage`
+    the raw z and dh rows [2, 64, cout] (in bf16 for a `top` layer z
+    alone, [64, cout])."""
     oc = cout if oc is None else oc
-    return 4 * (kc * cin_pad + 7 * oc + oc * (TILE + 4) + 2 * TILE
-                + (2 * TILE * cout if stage else 0))
+    pairs = bf16 and oc == cout
+    wt = pair_rows(kc) * wt_stride(cin_pad) if pairs else kc * cin_pad
+    return 4 * (wt + 7 * oc + oc * (TILE + 4) + 2 * TILE
+                + stage_sets(stage, pairs, top) * TILE * cout)
 
 
 def blocks_per_sm(smem: int, threads: int,
@@ -165,8 +210,25 @@ def _fit(room: int, n: int, least: int, cap: int | None = None):
     return min(most, _ceil(_ceil(n, _ceil(n, most)), 4) * 4)
 
 
+K_STEP = 16           # mma.sync m16n8k16's K (mma::kBf16K)
+
+
+def _fit_pairs(room: int, cin_pad: int, cout: int, least: int):
+    """bf16: channels of op(W)^T a block holds in `room` bytes, cout where
+    all its pair rows fit, else the fewest equal K chunks, multiples of
+    the K step of 16 and at least `least` (None where none fits)."""
+    per_step = 4 * (K_STEP // 2) * wt_stride(cin_pad)
+    if room >= per_step * _ceil(cout, K_STEP):
+        return cout
+    most = max(room, 0) // per_step * K_STEP
+    if least >= cout or most < max(K_STEP, least):
+        return None
+    return _ceil(_ceil(cout, _ceil(cout, most)), K_STEP) * K_STEP
+
+
 def _dz_layout(cin_pad: int, cout: int, limit: int,
-               oc_cap: int | None = None):
+               oc_cap: int | None = None, bf16: bool = False,
+               top: bool = False):
     """(kc, stage, oc) for pmt_bwd_dz, the first that fits of: two blocks
     to an SM with op(W)^T whole and the rows staged; the same unstaged;
     two blocks with K chunks of at least 32 rows, unstaged; one block with
@@ -174,13 +236,26 @@ def _dz_layout(cin_pad: int, cout: int, limit: int,
     whole); then the chunked layout, two blocks to an SM with chunks of at
     least 32 output channels, then one with at least 4 (kc = oc, at most
     `oc_cap` where given). Chunks are the fewest equal multiples of 4
-    that fit."""
+    that fit. In bf16 the K chunks of op(W)^T pairs are multiples of 16,
+    and the staged layouts come first, with K chunks where op(W)^T does
+    not fit whole beside the staged rows: the form's reads of z and dh
+    bound pmt_bwd_dz_mma, and the stage puts a whole tile's in flight (a
+    `top` layer stages z alone). The chunked layout is the f32 one."""
     half = (limit + SMEM_RESERVED) // 2 - SMEM_RESERVED
-    for budget, stage, kc_min in ((half, True, cout), (half, False, cout),
-                                  (half, False, min(cout, 32)),
-                                  (limit, True, 4), (limit, False, 4)):
-        room = (budget - dz_smem(cin_pad, cout, 0, stage)) // (4 * cin_pad)
-        kc = _fit(room, cout, kc_min)
+    order = ((half, True, cout), (half, False, cout),
+             (half, False, min(cout, 32)), (limit, True, 4),
+             (limit, False, 4))
+    if bf16:
+        order = ((half, True, cout), (half, True, K_STEP)) + order[1:]
+    for budget, stage, kc_min in order:
+        if bf16:
+            kc = _fit_pairs(budget - dz_smem(cin_pad, cout, 0, stage,
+                                             bf16=True, top=top),
+                            cin_pad, cout, kc_min)
+        else:
+            room = (budget - dz_smem(cin_pad, cout, 0, stage)) \
+                // (4 * cin_pad)
+            kc = _fit(room, cout, kc_min)
         if kc is not None:
             return kc, stage, cout
     per_channel = dz_smem(cin_pad, 1, 1, False, 1) - dz_smem(cin_pad, 0, 0,
@@ -204,35 +279,53 @@ def _dz_rp(cin_pad: int) -> int:
 
 
 def plan_layer(cin: int, cout: int, n_blocks: int, m: int, sms: int,
-               limit: int, oc_cap: int | None = None) -> LayerPlan | None:
+               limit: int, oc_cap: int | None = None,
+               bf16: bool = False, top: bool = False,
+               dz_bf16: bool | None = None) -> LayerPlan | None:
     """The plan of one layer for `n_blocks` ghost blocks of `m` points
     each, on a card with `sms` SMs and `limit` bytes of shared memory per
-    block; None where a pass does not fit. cout is planned at `pad4`; a
-    chunked layer takes chunks of at most `oc_cap` output channels where
-    given (the others ignore it)."""
+    block, in the bf16 layouts where `bf16` (pmt_bwd_dz's where `dz_bf16`,
+    `bf16` by default; `top`: the chain's top layer, `_dz_layout`); None
+    where a pass does not fit. cout is planned at
+    `pad4`; a chunked layer takes chunks of at most `oc_cap` output
+    channels where given (the others ignore it). The grids are the f32
+    plan's but for pmt_bwd_dz's, which follows its shared memory;
+    pmt_bwd_dz_mma is built for three blocks an SM where three fit and
+    the layer has 16 or more input channels (measured faster there, and
+    slower at the 4 of layer 0, on the H100), else two."""
     cin_pad, cout = pad4(cin), pad4(cout)
-    layout = _dz_layout(cin_pad, cout, limit, oc_cap)
+    dz_bf16 = bf16 if dz_bf16 is None else dz_bf16
+    layout = _dz_layout(cin_pad, cout, limit, oc_cap, True, top) if dz_bf16 \
+        else _dz_layout(cin_pad, cout, limit, oc_cap)
     ri = dw_ri(cout)
-    if layout is None or dw_smem(ri) > limit:
+    if layout is None or dw_smem(ri, bf16) > limit:
         return None
     kc, stage, oc = layout
-    smem = dz_smem(cin_pad, cout, kc, stage, oc)
+    smem = dz_smem(cin_pad, cout, kc, stage, oc, dz_bf16, top)
     tiles = n_blocks * _ceil(m, TILE)
     dz_grid = max(1, min(tiles, blocks_per_sm(smem, DZ_THREADS, limit) * sms))
     out_tiles = _ceil(cin_pad, DW_TILE) * _ceil(cout, dw_to(ri))
     splits = max(1, min(tiles, _ceil(DW_BLOCKS_PER_SM[ri] * sms, out_tiles)))
+    mma = dz_bf16 and oc == cout
+    three = mma and cin_pad >= K_STEP \
+        and blocks_per_sm(smem, DZ_THREADS, limit) >= 3
     return LayerPlan(cin, cout, cin_pad, _dz_rp(cin_pad), kc, stage, oc,
-                     smem, dz_grid, ri, out_tiles, splits, dw_smem(ri))
+                     smem, dz_grid, ri, out_tiles, splits, dw_smem(ri, bf16),
+                     bf16, 3 if three else 2, top, mma)
 
 
 def plan_bwd(widths, n_blocks: int, m: int, sms: int, limit: int,
-             oc_cap: int | None = None) -> list[LayerPlan] | None:
+             oc_cap: int | None = None, bf16: bool = False,
+             dz_bf16: bool | None = None) -> list[LayerPlan] | None:
     """One plan per layer of the chain `widths` (widths[0] is the input's;
     the kernels run `kernel_widths(widths)`), or None where any layer does
-    not fit; `oc_cap` as in `plan_layer`."""
+    not fit; `oc_cap`, `bf16` and `dz_bf16` as in `plan_layer`, the last
+    layer the top one."""
     widths = kernel_widths(widths)
-    plans = [plan_layer(ci, co, n_blocks, m, sms, limit, oc_cap)
-             for ci, co in zip(widths[:-1], widths[1:])]
+    pairs = list(zip(widths[:-1], widths[1:]))
+    plans = [plan_layer(ci, co, n_blocks, m, sms, limit, oc_cap, bf16,
+                        i == len(pairs) - 1, dz_bf16)
+             for i, (ci, co) in enumerate(pairs)]
     return None if None in plans else plans
 
 
@@ -253,11 +346,26 @@ def tile_rows(cin: int, mma_path: bool) -> int:
     return _ceil(cin, 8) * 8 if mma_path else _ceil(cin, 4) * 4
 
 
-def dense_smem(cin: int, cout: int, stage: bool) -> int:
-    """Bytes of a pmt_dense block (csrc: snt_pmt_dense_smem)."""
+def dense_rows(cin: int, bf16: bool = False) -> int:
+    """Rows of pmt_dense's activation tile: bf16 pairs (`pair_rows`) where
+    the layer runs on the tensor cores (bf16 and 16 or more input
+    channels), else f32 rows to 4 (the FP32 pipes)."""
+    if bf16 and cin >= BF16_MMA_MIN_CIN:
+        return pair_rows(cin)
+    return tile_rows(cin, False)
+
+
+def dense_smem(cin: int, cout: int, stage: bool, bf16: bool = False,
+               w_smem: bool = False) -> int:
+    """Bytes of a pmt_dense block (csrc: snt_pmt_dense_smem, its bf16
+    argument 2 with `w_smem`); on the tensor cores with `w_smem` also
+    op(W)'s pairs [pair_rows(cin), wt_stride(cout)] words."""
+    mma = bf16 and w_smem and cin >= BF16_MMA_MIN_CIN
     return 8 * 2 * cout + 4 * (min(cout, DENSE_CHUNK) * (TILE + 4) + 4 * cin
-                               + tile_rows(cin, False) * TILE
-                               + (TILE * (cin + 4) if stage else 0))
+                               + dense_rows(cin, bf16) * TILE
+                               + (TILE * (cin + 4) if stage else 0)
+                               + (pair_rows(cin) * wt_stride(cout)
+                                  if mma else 0))
 
 
 @dataclass(frozen=True)
@@ -267,20 +375,29 @@ class DensePlan:
     stage: bool        # cp.async stages the next tile's rows
     smem: int          # bytes per block
     blocks_per_sm: int  # by shared memory and threads
+    bf16: bool = False  # bf16 operands (pairs where cin >= 16)
+    w_smem: bool = False  # bf16: op(W)'s pairs in shared memory
 
 
-def plan_dense(cin: int, cout: int, limit: int) -> DensePlan | None:
+def plan_dense(cin: int, cout: int, limit: int,
+               bf16: bool = False) -> DensePlan | None:
     """pmt_dense's plan for one layer of `cin` input channels as the
-    kernel reads them and cout planned at `pad4`, or None where it needs
-    more shared memory than `limit`."""
+    kernel reads them and cout planned at `pad4`, with bf16 operands where
+    `bf16`, or None where it needs more shared memory than `limit`."""
     cout = pad4(cout)
-    if cin < 1 or dense_smem(cin, cout, False) > limit:
+    if cin < 1 or dense_smem(cin, cout, False, bf16) > limit:
         return None
+    # on the tensor cores op(W) goes to shared memory where two blocks
+    # still fit an SM with it (beside it the L1 keeps too little of W)
+    w_smem = bf16 and cin >= BF16_MMA_MIN_CIN and blocks_per_sm(
+        dense_smem(cin, cout, False, bf16, True), FWD_THREADS,
+        limit) >= FWD_MIN_BLOCKS
     stage = cin % 4 == 0 and blocks_per_sm(
-        dense_smem(cin, cout, True), FWD_THREADS, limit) >= FWD_MIN_BLOCKS
-    smem = dense_smem(cin, cout, stage)
+        dense_smem(cin, cout, True, bf16, w_smem), FWD_THREADS,
+        limit) >= FWD_MIN_BLOCKS
+    smem = dense_smem(cin, cout, stage, bf16, w_smem)
     return DensePlan(cin, cout, stage, smem,
-                     blocks_per_sm(smem, FWD_THREADS, limit))
+                     blocks_per_sm(smem, FWD_THREADS, limit), bf16, w_smem)
 
 
 def pair_rows(c: int) -> int:

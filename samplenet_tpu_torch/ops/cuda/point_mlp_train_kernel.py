@@ -22,7 +22,10 @@ own VJP (:120-196), not the gradient of the forward: the ReLU mask comes
 from gamma * xhat_stored + beta, h_prev is rebuilt from the layer below's
 stored xhat, rstd from z recomputed on that h_prev, and the max-pool
 cotangent goes to the f32 chain's first argmax. With bf16 off these are
-the forward's own values.
+the forward's own values. In bf16 this chain's dW runs on the tensor
+cores; its forward, dz pass and rstd recompute stay on the FP32 pipes in
+the plain path's channel order, because its check against the plain bf16
+version follows those sums (PERF.md §6).
 
 `auto_block_b` is the TPU's VMEM-budget formula, copied as it is: the block
 size sets the statistics, so it is part of the result, not a tiling
@@ -51,15 +54,19 @@ from samplenet_tpu_torch.ops.cuda._build import (
     stream_handle,
 )
 from samplenet_tpu_torch.ops.cuda.point_mlp_kernel import (
+    _bf16_pairs,
     full_f32_matmul,
     round_op,
 )
 from samplenet_tpu_torch.ops.cuda.point_mlp_plan import (
+    BF16_MMA_MIN_CIN,
     DensePlan,
     LayerPlan,
     kernel_widths,
+    pair_rows,
     plan_bwd,
     plan_dense,
+    stage_sets,
 )
 from samplenet_tpu_torch.ops.dispatch import count_launch, use_kernel
 
@@ -288,14 +295,62 @@ def ptrs(*tensors) -> ctypes.Array:
     return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
 
 
+def dense_weights(w: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """op(W) [cin, cout] as pmt_dense reads it: W itself; in bf16 its
+    rounded values where the layer runs on the FP32 pipes (fewer than 16
+    input channels), else bf16(W) in pairs of rows, [ceil(cin/2), cout]
+    words (`point_mlp_kernel._bf16_pairs`), as point_mlp_max takes it."""
+    if not bf16:
+        return w.contiguous()
+    if w.shape[0] < BF16_MMA_MIN_CIN:
+        return round_op(w, True).contiguous()
+    return _bf16_pairs(w)
+
+
+# snt_pmt_dense's bf16 argument for bf16 operands on the FP32 pipes, in the
+# plain matmul's channel order (the ghost backward's rstd recompute)
+DENSE_BF16_FP32 = 3
+
+
+def dense_mode(plan: DensePlan) -> int:
+    """snt_pmt_dense's bf16 argument for a pmt_dense plan: 0 f32, 1 bf16
+    (on the tensor cores where cin >= 16), 2 bf16 with op(W)'s pairs in
+    shared memory."""
+    return 2 if plan.w_smem else int(plan.bf16)
+
+
+def dz_weights(w_op: torch.Tensor, cin_pad: int,
+               pairs: bool) -> torch.Tensor:
+    """op(W)^T as pmt_bwd_dz reads it, from op(W) [cin, cout] (rounded in
+    the bf16 modes): [cout, cin_pad] f32, zero-padded; or, for the tensor
+    cores (`pairs`), its rows in pairs of output channels, [pair_rows(cout),
+    cin_pad] words (row 2k low), the rows past cout zero."""
+    cin, cout = w_op.shape
+    if not pairs:
+        return F.pad(w_op.t(), (0, cin_pad - cin)).contiguous()
+    # bf16(W)[i, 2k] and [i, 2k + 1] are adjacent: one 32-bit word, 2k low
+    wb = F.pad(w_op, (0, 2 * pair_rows(cout) - cout, 0, cin_pad - cin))
+    return wb.to(torch.bfloat16).view(torch.int32).t().contiguous() \
+        .view(torch.float32).reshape(-1)
+
+
+def _stage_arg(plan: LayerPlan) -> int:
+    """pmt_bwd_dz's `stage` argument: staged or not, and for
+    pmt_bwd_dz_mma the row sets it stages (`point_mlp_plan.stage_sets`)."""
+    return stage_sets(plan.dz_stage, True, plan.top) if plan.dz_mma \
+        else int(plan.dz_stage)
+
+
 def check_cuda(x, widths, name: str, block_b: int | None = None,
-               oc_cap: int | None = None
+               oc_cap: int | None = None, bf16: bool = False,
+               dense_bf16: bool | None = None, dz_bf16: bool | None = None
                ) -> tuple[list[LayerPlan], list[DensePlan]]:
     """Checks what the kernels take, for ghost blocks of `block_b` clouds
     (all B: the exact chain) at `widths` (each output width a multiple of
     4: `padded_call`); returns each layer's backward plan (chunked layers
     in chunks of at most `oc_cap` channels where given) and pmt_dense
-    plan."""
+    plan, in the bf16 layouts where `bf16` (pmt_dense's where `dense_bf16`
+    and pmt_bwd_dz's where `dz_bf16`, `bf16` by default)."""
     if x.device.type != "cuda":
         raise ValueError(f"the {name} kernels take CUDA tensors, got "
                          f"{x.device}")
@@ -310,17 +365,21 @@ def check_cuda(x, widths, name: str, block_b: int | None = None,
     limit = max_dynamic_smem(x.device)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     pairs = list(zip(widths[:-1], widths[1:]))
-    dense = [plan_dense(ci, co, limit) for ci, co in pairs]
-    plans = plan_bwd(widths, b // bb, bb * n, sms, limit, oc_cap)
+    dense = [plan_dense(ci, co, limit,
+                        bf16 if dense_bf16 is None else dense_bf16)
+             for ci, co in pairs]
+    plans = plan_bwd(widths, b // bb, bb * n, sms, limit, oc_cap, bf16,
+                     dz_bf16)
     if None in dense or plans is None:
         raise ValueError(f"widths {widths} need more shared memory per block "
                          f"than the card offers")
     for pl, dp in zip(plans, dense):  # the planner counts what they count
         if (lib.snt_pmt_bwd_dz_smem(pl.cin_pad, pl.cout, pl.dz_kc,
-                                    int(pl.dz_stage), pl.dz_oc) != pl.dz_smem
-                or lib.snt_pmt_bwd_dw_smem(pl.dw_ri) != pl.dw_smem
-                or lib.snt_pmt_dense_smem(dp.cin, dp.cout,
-                                          int(dp.stage)) != dp.smem):
+                                    _stage_arg(pl), pl.dz_oc,
+                                    int(pl.dz_mma)) != pl.dz_smem
+                or lib.snt_pmt_bwd_dw_smem(pl.dw_ri, int(bf16)) != pl.dw_smem
+                or lib.snt_pmt_dense_smem(dp.cin, dp.cout, int(dp.stage),
+                                          dense_mode(dp)) != dp.smem):
             raise RuntimeError("point_mlp_plan.py and csrc/point_mlp_train.cu "
                                "count shared memory apart")
     return plans, dense
@@ -345,7 +404,12 @@ def point_mlp_train_fwd_cuda(x, weights, gammas, betas, eps, block_b, bf16,
     backward kernels. Under `blocks`, block_b is its sub-block and the
     statistics are its blocks'."""
     widths = [x.shape[-1], *(w.shape[1] for w in weights)]
-    dense = check_cuda(x, widths, "point_mlp_train", block_b)[1]
+    # bf16 stays on the FP32 pipes here, in the plain path's channel order:
+    # the ghost backward's bf16 roundings follow this forward's z, and with
+    # the tensor cores' sums they parted the chain from the plain bf16
+    # version past its check (PERF.md §6)
+    dense = check_cuda(x, widths, "point_mlp_train", block_b, bf16=bf16,
+                       dense_bf16=False)[1]
     b, n, _ = x.shape
     p, m = b // block_b, block_b * n
     m_stat = m * (1 if blocks is None else blocks.group)
@@ -364,7 +428,8 @@ def point_mlp_train_fwd_cuda(x, weights, gammas, betas, eps, block_b, bf16,
                                device=x.device)
             w_op = round_op(w, bf16).contiguous()
             err = lib.snt_pmt_dense(
-                h_in.data_ptr(), cin, prev, 0, int(bf16), w_op.data_ptr(),
+                h_in.data_ptr(), cin, prev, 0,
+                DENSE_BF16_FP32 if bf16 else 0, w_op.data_ptr(),
                 cout, z.data_ptr(), rows.data_ptr(), p, block_b, n,
                 int(dp.stage), grid, stream)
             check(err, KERNEL_FWD)
@@ -409,7 +474,11 @@ def bwd_cuda(x, weights, gammas, betas, eps, block_b, mode, saved, g,
     outputs do not depend on it."""
     zs, mus, rstds, argmax = saved
     widths = [x.shape[-1], *(w.shape[1] for w in weights)]
-    plans, dense = check_cuda(x, widths, kernel, block_b, oc_cap)
+    # the rstd recompute's pmt_dense plans: the FP32 pipes' layout; the
+    # ghost chain's pmt_bwd_dz stays on them too (its forward's reason)
+    plans, dense = check_cuda(x, widths, kernel, block_b, oc_cap,
+                              mode != MODE_F32, dense_bf16=False,
+                              dz_bf16=mode == MODE_EXACT_BF16)
     b, n, c0 = x.shape
     p, m = b // block_b, block_b * n
     m_stat = m * (1 if blocks is None else blocks.group)
@@ -432,13 +501,15 @@ def bwd_cuda(x, weights, gammas, betas, eps, block_b, mode, saved, g,
             if store and i > 0:
                 # rstd from z recomputed on h_prev rebuilt from the stored
                 # (bf16) xhat of the layer below (:173-184); with bf16 off
-                # that z is the forward's, bit for bit
+                # that z is the forward's, bit for bit. On the FP32 pipes,
+                # as the ghost forward
                 grid = launch_grid(tiles, x.device, per_sm=4, n_blocks=p)
                 rows = torch.empty((p, grid, 2, cout), dtype=torch.float64,
                                    device=x.device)
                 err = lib.snt_pmt_dense(
-                    zs[i - 1].data_ptr(), cin, bns[i - 1], 1, 1,
-                    w_op.data_ptr(), cout, None, rows.data_ptr(), p, block_b,
+                    zs[i - 1].data_ptr(), cin, bns[i - 1], 1,
+                    DENSE_BF16_FP32, w_op.data_ptr(), cout, None,
+                    rows.data_ptr(), p, block_b,
                     n, int(dense[i].stage), grid, stream)
                 check(err, kernel)
                 rstd2 = _block_stats(rows, m_stat, eps, blocks)[1] \
@@ -481,7 +552,9 @@ def dz_layer_cuda(z, bn, rstd2, r1, r2, dh, g, argmax, w_op, plan,
                   block_b: int, n: int, mode: int,
                   kernel: str = KERNEL_DZ_CHUNKED):
     """One layer's pmt_bwd_dz under its LayerPlan `plan` (pmt_bwd_dz_chunked,
-    counted as KERNEL_DZ_CHUNKED, where the plan chunks the layer): (dz
+    counted as KERNEL_DZ_CHUNKED, where the plan chunks the layer; else, in
+    mode 2, pmt_bwd_dz_mma on the tensor cores, whose plan has `dz_mma`):
+    (dz
     [P*m, cout], dh_prev [P*m, cin_pad]) from the layer's pre-BN z
     [P*m, cout] (m = block_b * n points a ghost block), bn = (mu, rstd,
     gamma, beta) ([P, cout] and [cout]), rstd2, r1, r2 [P, cout], the
@@ -492,7 +565,15 @@ def dz_layer_cuda(z, bn, rstd2, r1, r2, dh, g, argmax, w_op, plan,
     lib = library()
     cout = z.shape[1]
     p = r1.shape[0]
-    wt = F.pad(w_op.t(), (0, plan.cin_pad - w_op.shape[0])).contiguous()
+    pairs = plan.dz_mma
+    if pairs != (mode == MODE_EXACT_BF16 and plan.dz_oc == cout):
+        raise ValueError(f"{kernel}: backward mode {mode} with a plan of "
+                         f"pmt_bwd_dz{'_mma' if pairs else ''}'s layout")
+    if pairs and plan.dz_stage and plan.top != (dh is None):
+        raise ValueError(f"{kernel}: a plan that stages "
+                         f"{'z alone' if plan.top else 'z and dh'} for a "
+                         f"layer {'without' if dh is None else 'with'} dh")
+    wt = dz_weights(w_op, plan.cin_pad, pairs)
     dz = torch.empty((z.shape[0], cout), dtype=torch.float32, device=z.device)
     dh_prev = torch.empty((z.shape[0], plan.cin_pad), dtype=torch.float32,
                           device=z.device)
@@ -501,8 +582,9 @@ def dz_layer_cuda(z, bn, rstd2, r1, r2, dh, g, argmax, w_op, plan,
             g.data_ptr(), argmax.data_ptr(), wt.data_ptr(), plan.cin_pad,
             dz.data_ptr(), dh_prev.data_ptr(), p, block_b, n)
     with torch.cuda.device(z.device):
-        check(lib.snt_pmt_bwd_dz(*args, plan.dz_rp, plan.dz_kc,
-                                 int(plan.dz_stage), plan.dz_oc, plan.dz_grid,
+        check(lib.snt_pmt_bwd_dz(*args, plan.dz_blocks if pairs else
+                                 plan.dz_rp, plan.dz_kc, _stage_arg(plan),
+                                 plan.dz_oc, plan.dz_grid,
                                  stream_handle(z)), kernel)
     if plan.dz_oc < cout:
         count_launch(KERNEL_DZ_CHUNKED)

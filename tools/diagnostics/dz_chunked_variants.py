@@ -197,10 +197,10 @@ def main() -> int:
               f"{top.dz_grid}; {card})", flush=True)
     dll = ctypes.CDLL(libs["kernel"])
     smem_of = dll.snt_pmt_bwd_dz_smem
-    smem_of.argtypes, smem_of.restype = [i, i, i, i, i], ctypes.c_size_t
+    smem_of.argtypes, smem_of.restype = [i, i, i, i, i, i], ctypes.c_size_t
     sweep = []
     for oc in (16, 32, 64, 96, 128):
-        smem = smem_of(top.cin_pad, cout, oc, 0, oc)
+        smem = smem_of(top.cin_pad, cout, oc, 0, oc, 0)
         if smem > max_dynamic_smem(dev):
             continue
         grid = min(rows // 64, plan.blocks_per_sm(smem, plan.DZ_THREADS)

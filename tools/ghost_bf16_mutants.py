@@ -5,7 +5,8 @@
 
 Run it from the root of a checkout on a machine with an NVIDIA H100. For
 the checkout itself, and for each mutant (a copy of it under the temp
-directory with one of the ghost kernel's bf16 roundings left out), it
+directory with one of the ghost kernel's bf16 roundings left out, or,
+where the tensor cores need the operand in bf16, rounded toward zero), it
 builds the kernels and prints the check's two readings at chip_smoke.py's
 own input (B=32, N=1024, block 4): the outputs against the plain bf16
 version, and the backward kernel against the plain VJP run on the kernel
@@ -26,28 +27,52 @@ import tempfile
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CU = "samplenet_tpu_torch/csrc/point_mlp_train.cu"
 PY = "samplenet_tpu_torch/ops/cuda/point_mlp_train_kernel.py"
+# The tensor cores take bf16 operands, so where a rounding packs an operand
+# pair (pack_op) the mutant cannot leave it out: it rounds toward zero there
+# instead (pack_rz, added beside pair_of).
+PACK_RZ = """__device__ __forceinline__ uint32_t pack_rz(float lo, float hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rz(lo))) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rz(hi))) << 16);
+}
+
+"""
+ADD_PACK_RZ = (CU, "// Two floats that hold bf16 values",
+               PACK_RZ + "// Two floats that hold bf16 values")
 MUTANTS = {  # name -> edits (file, text, its replacement), each text once
-    "rounds nothing": [(
-        CU, "return bf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;",
-        "return v;")],
-    # the forward's (pmt_dense's loader), and pmt_bwd_dw's h_prev
+    # every rnd() left out, and every operand pair packed toward zero
+    "rounds nothing": [
+        (CU, "return bf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;",
+         "return v;"),
+        (CU, "  return mma::pack_bf16(lo, hi);", "  return pack_rz(lo, hi);"),
+        (CU, "__device__ __forceinline__ uint32_t pack_op(",
+         PACK_RZ + "__device__ __forceinline__ uint32_t pack_op(")],
+    # the forward's loader (x unrounded on the FP32 pipes, the pairs toward
+    # zero on the tensor cores), and pmt_bwd_dw_mma's h_prev toward zero
     "activations unrounded": [
         (CU, "__float_as_uint(rnd(v[j], kBf16));", "__float_as_uint(v[j]);"),
-        (CU, "          v = rnd(v, R::op);", "          v = v;")],
+        (CU, "    as[aidx(c / 2, p)] = pack_op(v[0], v[1]);\n"
+             "    as[aidx(c / 2 + 1, p)] = pack_op(v[2], v[3]);",
+         "    as[aidx(c / 2, p)] = pack_rz(v[0], v[1]);\n"
+         "    as[aidx(c / 2 + 1, p)] = pack_rz(v[2], v[3]);"),
+        (CU, "      Ap[c * kPairStride + q] = pack_op(v[0], v[1]);",
+         "      Ap[c * kPairStride + q] = pack_rz(v[0], v[1]);"),
+        ADD_PACK_RZ],
+    # dz as formed, f32: the tensor cores' operands then take its high
+    # halves (pair_of), which rounds it toward zero
     "dz unrounded": [(
         CU, "v[j] = rnd(rstd2 * (gamma * dy - r1 - xh * r2), R::op);",
         "v[j] = rstd2 * (gamma * dy - r1 - xh * r2);")],
-    "mask from unrounded xhat": [  # the rows pass's, and pmt_bwd_dz's
+    "mask from unrounded xhat": [  # the rows pass's, and form_dz's
         (CU, "*xh = rnd(ghost_xhat(bn, blk, c, c_out, z[gp * c_out + c]), "
              "store);",
          "*xh = ghost_xhat(bn, blk, c, c_out, z[gp * c_out + c]);"),
         (CU, "const float xh = rnd(__fmul_rn(__fsub_rn(zv[j], mu), rstd), "
              "R::xhat);",
          "const float xh = __fmul_rn(__fsub_rn(zv[j], mu), rstd);")],
-    "h_prev from unrounded xhat": [(
-        CU, "const float xh = rnd(__fmul_rn(__fsub_rn(v, mu), rstd), "
-            "R::xhat);",
-        "const float xh = __fmul_rn(__fsub_rn(v, mu), rstd);")],
+    "h_prev from unrounded xhat": [(  # pmt_bwd_dw_mma's
+        CU, "const float xh = rnd(__fmul_rn(__fsub_rn(x, cs[c]), "
+            "cs[kDwTile + c]),\n                                   R::xhat);",
+        "const float xh = __fmul_rn(__fsub_rn(x, cs[c]), cs[kDwTile + c]);")],
     "rstd not recomputed": [(PY, "if store and i > 0:", "if False:")],
 }
 

@@ -19,7 +19,9 @@ events around each call, host time included:
   torch.profiler, split by pass (chip_smoke.py's `_pass_split`, read from
   this script's own checkout);
 - the ghost chain (bf16, block 4) at the progressive step's shape (B=32,
-  N=1024): its forward and its backward per call, and their splits;
+  N=1024) and at the classification step's (B=1024, N=1024, the block
+  `train_samplenet --fused-train` takes there): its forward and its
+  backward per call, and their splits;
 - for each train-chain shape, a digest (SHA-1) of the forward kernels'
   outputs (pooled, statistics, z, argmax) and of the backward kernels'
   gradients, and one of `point_mlp_max`'s output: equal digests from two
@@ -28,7 +30,8 @@ events around each call, host time included:
   chip_smoke.py), for the checkout's kernels;
 - where the checkout has them, the bf16 modes: `point_mlp_max(...,
   bf16=True)` at the serving shape, and the exact chain's forward and
-  backward kernels with bf16 at each train-chain shape;
+  backward kernels with bf16 at each train-chain shape, per call and
+  split by pass;
 - the wide chains (chip_smoke.py's WIDE at B=1024 and B=32, N=1024, and
   WIDE_AE at B=50, N=2048), whose top layer runs the chunked dz kernel:
   the f32 backward per call and its device time split by pass, the
@@ -54,7 +57,8 @@ import sys
 
 SHAPES = ((1024, 1024, (3, 64, 64, 64, 128, 128)),
           (50, 2048, (3, 64, 128, 128, 256, 128)))
-GHOST = (32, 1024, (3, 64, 64, 64, 128, 128), 4)
+GHOST = ((32, 1024, (3, 64, 64, 64, 128, 128), 4),
+         (1024, 1024, (3, 64, 64, 64, 128, 128), 4))
 WIDE_CHUNKED = "pmt_bwd_dz_chunked"
 FWD_KERNELS = ("point_mlp_max", "pmt_dense")
 TOOL_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -171,43 +175,54 @@ def main() -> int:
         if has_bf16:
             saved16 = pme.point_mlp_exact_fwd_cuda(xd, ws, gs, bes, 1e-5,
                                                    True)[3]
-            f16 = median_ms(lambda: pme.point_mlp_exact_fwd_cuda(
-                xd, ws, gs, bes, 1e-5, True))
-            b16 = median_ms(lambda: pme.point_mlp_exact_bwd_cuda(
-                xd, ws, gs, bes, saved16, g, True))
-            print(f"[{tag}] B={b}, N={n} in bf16: forward kernels {f16!r} "
-                  f"ms, backward kernels {b16!r} ms per call", flush=True)
+            def fwd16():
+                pme.point_mlp_exact_fwd_cuda(xd, ws, gs, bes, 1e-5, True)
+
+            def bwd16():
+                pme.point_mlp_exact_bwd_cuda(xd, ws, gs, bes, saved16, g,
+                                             True)
+
+            print(f"[{tag}] B={b}, N={n} in bf16: forward kernels "
+                  f"{median_ms(fwd16)!r} ms, backward kernels "
+                  f"{median_ms(bwd16)!r} ms per call; forward "
+                  f"{cs._pass_split(torch, fwd16, 5, layers, cs.FWD_PASSES)}"
+                  f"; backward {cs._pass_split(torch, bwd16, 5, layers)}",
+                  flush=True)
             del saved16
         del saved, fwd, bwd
         torch.cuda.empty_cache()
 
-    b, n, widths, bb = GHOST
-    x, params, g = inputs(b, n, widths)
-    ws, _, gs, bes = [[t.detach() for t in grp] for grp in params]
-    xd = x.detach()
-    saved = pmt.point_mlp_train_fwd_cuda(xd, ws, gs, bes, 1e-5, bb, True)[3]
+    for b, n, widths, bb in GHOST:
+        x, params, g = inputs(b, n, widths)
+        ws, _, gs, bes = [[t.detach() for t in grp] for grp in params]
+        xd = x.detach()
+        saved = pmt.point_mlp_train_fwd_cuda(xd, ws, gs, bes, 1e-5, bb,
+                                             True)[3]
 
-    def ghost_forward():
-        pmt.point_mlp_train_fwd_cuda(xd, ws, gs, bes, 1e-5, bb, True)
+        def ghost_forward():
+            pmt.point_mlp_train_fwd_cuda(xd, ws, gs, bes, 1e-5, bb, True)
 
-    def ghost_backward():
-        pmt.point_mlp_train_bwd_cuda(xd, ws, gs, bes, 1e-5, bb, True, saved,
-                                     g)
+        def ghost_backward():
+            pmt.point_mlp_train_bwd_cuda(xd, ws, gs, bes, 1e-5, bb, True,
+                                         saved, g)
 
-    layers = len(widths) - 1
-    print(f"[{tag}] ghost B={b}, N={n}, bf16, block {bb}: forward "
-          f"{median_ms(ghost_forward)!r} ms per call; "
-          f"{cs._pass_split(torch, ghost_forward, 5, layers, cs.FWD_PASSES)}"
-          f"; backward {median_ms(ghost_backward)!r} ms per call; "
-          f"{cs._pass_split(torch, ghost_backward, 5, layers)}",
-          flush=True)
-    fwd = pmt.point_mlp_train_fwd_cuda(xd, ws, gs, bes, 1e-5, bb, True)
-    bwd = pmt.point_mlp_train_bwd_cuda(xd, ws, gs, bes, 1e-5, bb, True,
-                                       fwd[3], g)
-    print(f"[{tag}] bits of the ghost chain: forward {digest(fwd)}, "
-          f"backward {digest(bwd)}", flush=True)
-    del saved, fwd, bwd
-    torch.cuda.empty_cache()
+        layers = len(widths) - 1
+        print(f"[{tag}] ghost B={b}, N={n}, bf16, block {bb}: forward "
+              f"{median_ms(ghost_forward)!r} ms per call; "
+              f"{cs._pass_split(torch, ghost_forward, 5, layers, cs.FWD_PASSES)}"
+              f"; backward {median_ms(ghost_backward)!r} ms per call; "
+              f"{cs._pass_split(torch, ghost_backward, 5, layers)}",
+              flush=True)
+        if b == GHOST[0][0]:
+            fwd = pmt.point_mlp_train_fwd_cuda(xd, ws, gs, bes, 1e-5, bb,
+                                               True)
+            bwd = pmt.point_mlp_train_bwd_cuda(xd, ws, gs, bes, 1e-5, bb,
+                                               True, fwd[3], g)
+            print(f"[{tag}] bits of the ghost chain: forward {digest(fwd)}, "
+                  f"backward {digest(bwd)}", flush=True)
+            del fwd, bwd
+        del saved, x, params, g, ws, gs, bes, xd
+        torch.cuda.empty_cache()
     print(f"[{tag}] chip_smoke.py's digests: {cs._chain_digests(torch)}",
           flush=True)
     wide_chains(torch, cs, tag, inputs, median_ms, digest)
