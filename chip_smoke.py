@@ -37,7 +37,10 @@ bottleneck 128, k=8, both clouds sampled, against it frozen), and:
      and the snapped points bit for bit, distances equal with NaN at the
      same places; then nn_direction and nn_snap at every shape the five
      paths give them (NN_SHAPES), each under its launch plan and one other
-     plan, bit for bit against the plain version;
+     plan, bit for bit against the plain version; then point_mlp_max with
+     a cloud's tiles split over S blocks at the registration eval's shape
+     (B=32) and the NRE eval's (B=50, 2048 points), f32 and bf16: the
+     plan's S and S = 2, 4, 16 bit-equal to S = 1;
   4. checks the eval forward of the kernel path against the plain path,
      then resets the launch counters, serves B=1024 clouds through
      BatchedSampler, and requires every kernel to have launched;
@@ -299,8 +302,8 @@ bottleneck 128, k=8, both clouds sampled, against it frozen), and:
      (`_caps_repairs`) the inputs the kernels once refused:
      point_mlp_max at 9 layers (f32 and bf16), the EMD at 65,537 clouds
      (two launches), strided inputs to point_mlp_max and nn_direction,
-     and the soft projection's backward with its entries counted in 64
-     bits, each against its plain version.
+     and the register backward with its entries counted in 64 bits, each
+     against its plain version.
 
 The phases that only run CLIs (the train, reconstruction, progressive,
 registration and bf16 CLIs) run CLI_WORKERS at a time beside the
@@ -833,7 +836,36 @@ def phase_compare(torch) -> dict[str, float]:
             errs = {"nn_direction": float((dk - dp).abs().max()),
                     "fps": float((xk - xp).abs().max()),
                     "point_mlp_max": err}
+    _max_splits_check(torch, rng)
     return errs
+
+
+def _max_splits_check(torch, rng) -> None:
+    """point_mlp_max with a cloud's tiles split over S blocks, at the
+    registration eval's shape (B=32, 1024 points) and the NRE eval's (B=50,
+    2048 points, the AE encoder's widths), f32 and bf16: the plan's S and
+    S = 2, 4, 16 each bit-equal to one block a cloud (S = 1)."""
+    from samplenet_tpu_torch.ops.cuda import point_mlp_kernel as pmk
+
+    for b, n, widths in ((REG_B, REG_N, WIDTHS),
+                         (RECON_B, RECON_N, RECON_WIDTHS)):
+        x = _randn(torch, rng, b, n, 3)
+        wbs = _mlp_weights(torch, rng, DEVICE, widths)
+        for bf16 in (False, True):
+            plan = pmk.max_splits_for(x, widths, bf16)
+            with torch.no_grad():
+                one = pmk.launch_max(x, wbs, bf16=bf16, splits=1)
+                got = {s: pmk.launch_max(x, wbs, bf16=bf16, splits=s)
+                       for s in sorted({plan, 2, 4, 16})}
+            torch.cuda.synchronize()
+            moved = [s for s, o in got.items() if not torch.equal(o, one)]
+            if plan < 2 or moved:
+                raise AssertionError(f"point_mlp_max at B={b}, N={n}, bf16="
+                                     f"{bf16}: plan S={plan}, bits move at "
+                                     f"S={moved}")
+            log("compare", f"point_mlp_max at B={b}, N={n}, widths "
+                           f"{widths}, bf16={bf16}: the plan's S={plan} and "
+                           f"S={sorted(got)} bit-equal to S=1")
 
 
 def _f64_reading(torch, x, wbs, k, p) -> str:
@@ -2360,7 +2392,9 @@ def _caps_repairs(torch, card) -> None:
 
     from dataclasses import replace
 
-    for b, n, m, k in ((B, N, M, K), next(iter(CAPS_SOFT.values()))):
+    # the register kernels' 64-bit count (the wide point kernel numbers its
+    # entries in 64 bits at every size)
+    for b, n, m, k in ((B, N, M, K),):
         rng = np.random.default_rng(SEED + 91 + k)
         pts, qs, sigma, cot = _soft_inputs(torch, rng, b, n, m)
         sigma = sigma.reshape(1)
@@ -2383,7 +2417,8 @@ def _caps_repairs(torch, card) -> None:
         log("caps", f"soft projection backward at (B, N, M, k) = "
                     f"{(b, n, m, k)} with its entries counted in 64 bits "
                     f"(soft_project_bwd_points64, which a cloud past "
-                    f"{spp.INT_ENTRIES} entries takes): bit-equal to the "
+                    f"{spp.INT_ENTRIES} entries takes at k <= "
+                    f"{spp.MAX_REGISTER_K}): bit-equal to the "
                     f"int count, max |d| {err!r} from plain (rtol 1e-4, "
                     f"atol 1e-5); launches {counts}; 2^31 entries in one "
                     f"cloud: the card test "
@@ -2445,8 +2480,10 @@ def phase_caps(torch, classifier, card) -> tuple[dict, dict, dict, int]:
         bounds = (_soft_fwd_bound(b, n, m, k),
                   _soft_bwd_bound(b, n, m, k, _gathered(torch, ik, n)))
         plan = spk.fwd_wide_plan(torch.cuda.current_device(), b, n, m, k)
+        bplan = spk.bwd_plan(torch.cuda.current_device(), b, n, m, k)
         log("caps", f"soft projection (B, N, M, k) = {(b, n, m, k)}, "
-                    f"{label}, wide forward {plan}: idx bit-equal, max "
+                    f"{label}, wide forward {plan}, backward {bplan}: idx "
+                    f"bit-equal, max "
                     f"|out - plain| {e_fwd!r} "
                     f"(1e-5), gradients {e_bwd!r} (rtol 1e-4, atol 1e-5); "
                     f"launches {counts}; device ms forward {dev[0]!r} "
@@ -4877,6 +4914,7 @@ def phase_times_registration(torch, per_step, card) -> None:
     from samplenet_tpu_torch.models import FPSSampler
     from samplenet_tpu_torch.ops.cuda import fps, fps_plain
     from samplenet_tpu_torch.ops.cuda import point_mlp_exact_kernel as pme
+    from samplenet_tpu_torch.ops.cuda import point_mlp_kernel as pmk
     from samplenet_tpu_torch.ops.cuda import point_mlp_max, point_mlp_max_plain
     from samplenet_tpu_torch.ops.cuda import soft_projection_kernel as spk
     from samplenet_tpu_torch.ops.dispatch import plain_on_cuda
@@ -4935,9 +4973,11 @@ def phase_times_registration(torch, per_step, card) -> None:
         k_dev = _device_ms(torch, kernel_fn, 10)
         p_dev = _device_ms(torch, plain_fn, 3)
         launches = per_step[part].get(name.split(" ")[0], 0)
+        split = (f", S={pmk.max_splits_for(y, WIDTHS)} blocks a cloud"
+                 if name == "point_mlp_max" else "")
         log("times-registration",
             f"{name} at the registration shape (B={b}, N={n}, M={m}"
-            f"{f', k={k}' if name.startswith('soft') else ''}): kernel "
+            f"{f', k={k}' if name.startswith('soft') else ''}{split}): kernel "
             f"{k_ms!r} ms per call, {k_dev!r} ms device; plain {p_ms!r} ms "
             f"per call, {p_dev!r} ms device; bound {bound[0]!r} ms "
             f"({bound[1]}); {launches!r} launches per {part} step ({card})")
@@ -5263,6 +5303,7 @@ def phase_times_bf16(torch, model, clouds, data, labels, classifier,
     sampler step with the exact chain in bf16 and with the compute dtype,
     per step and device time."""
     from samplenet_tpu_torch.ops.cuda import point_mlp_exact_kernel as pme
+    from samplenet_tpu_torch.ops.cuda import point_mlp_kernel as pmk
     from samplenet_tpu_torch.ops.cuda import point_mlp_max, point_mlp_max_plain
 
     x = torch.from_numpy(clouds).to(DEVICE)
@@ -5304,7 +5345,10 @@ def phase_times_bf16(torch, model, clouds, data, labels, classifier,
             ms, plain_ms = _pair_ms(torch, fns["kernel"], fns["plain"], 20)
             dev = {k: _device_ms(torch, f, 10) for k, f in fns.items()}
             f32_ms = _time_ms(torch, fns["f32 kernel"], 20)
-        log("times-bf16", f"point_mlp_max bf16 at B={b}: {ms!r} ms per call, "
+        log("times-bf16", f"point_mlp_max bf16 at B={b}, S="
+                          f"{pmk.max_splits_for(x, WIDTHS, True)} blocks a "
+                          f"cloud (f32 S={pmk.max_splits_for(x, WIDTHS)}): "
+                          f"{ms!r} ms per call, "
                           f"device {dev['kernel']!r} (plain bf16 "
                           f"{plain_ms!r}, device {dev['plain']!r}; the f32 "
                           f"kernel {f32_ms!r}, device {dev['f32 kernel']!r}) "

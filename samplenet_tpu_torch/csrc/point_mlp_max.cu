@@ -45,6 +45,17 @@
 // FMAs with x and W rounded to bf16 (exact products, f32 sums), its
 // epilogue writing bf16 pairs. wgmma is later work.
 //
+// Below the card's block slots (B=32 at registration, B=50 at the NRE
+// eval) one block a cloud leaves most SMs idle while each block walks its
+// tiles in turn. So a cloud's tiles may be split over S blocks (gridDim.y,
+// from the launch plan, ops/cuda/point_mlp_plan.py::max_splits; kernels
+// of their own, so that S = 1 runs the code of one block a cloud): block
+// (b, s) walks tiles s, s + S, ... of cloud b, each tile computed as with
+// S = 1, and folds its per-channel max into the output by atomicMax on the
+// int bit pattern, the rule the block already uses in shared memory, over
+// an output zeroed first (0 is the max's identity after ReLU). Max is
+// exact and order-free, so the output's bits do not depend on S.
+//
 // Any number of layers: a chain of up to kMaxLayers passes its layer table
 // (pointers and widths) among the kernel's parameters; a deeper one takes
 // point_mlp_max_deep_kernel, the same body reading its table from device
@@ -241,7 +252,9 @@ __device__ void mma_layer(const uint32_t* hin, uint32_t* hout, int ci, int co,
   }
 }
 
-template <bool kBf16, class Args>
+// kSplit: the cloud's tiles are split over gridDim.y blocks (S > 1); the
+// kernels of S = 1 take kSplit = false, the code of one block a cloud.
+template <bool kBf16, bool kSplit, class Args>
 __device__ __forceinline__ void mlp_max(const float* __restrict__ x,
                                         float* __restrict__ out, int n,
                                         const Args& args) {
@@ -252,6 +265,9 @@ __device__ __forceinline__ void mlp_max(const float* __restrict__ x,
   const int cout_last = args.c[args.layers];
   int* smax = reinterpret_cast<int*>(buf1 + args.rows1 * kTileP);
   const int b = blockIdx.x;
+  // blocks a cloud: this one takes tiles blockIdx.y, blockIdx.y + S, ...
+  const int splits = kSplit ? gridDim.y : 1;
+  const int first = kSplit ? blockIdx.y * kTileP : 0;
   for (int o = threadIdx.x; o < cout_last; o += kThreads) smax[o] = 0;
   const float* xb = x + static_cast<size_t>(b) * n * cin;
   // x as f32 rows (rounded to bf16 for a bf16 first layer on the FP32
@@ -259,7 +275,7 @@ __device__ __forceinline__ void mlp_max(const float* __restrict__ x,
   const bool x_pairs = kBf16 && !simt_at(true, 0, cin);
   const int cin_rows = x_pairs ? mma::pair_rows(cin) : mma::tile_rows(cin, cin >= 8);
 
-  for (int p0 = 0; p0 < n; p0 += kTileP) {
+  for (int p0 = first; p0 < n; p0 += splits * kTileP) {
     const int np = min(kTileP, n - p0);
     __syncthreads();  // the previous tile no longer reads buf0
     for (int e = threadIdx.x; e < kTileP * cin_rows; e += kThreads) {
@@ -302,7 +318,12 @@ __device__ __forceinline__ void mlp_max(const float* __restrict__ x,
   }
   __syncthreads();
   for (int o = threadIdx.x; o < cout_last; o += kThreads) {
-    out[static_cast<size_t>(b) * cout_last + o] = __int_as_float(smax[o]);
+    if constexpr (kSplit) {  // out was zeroed; the blocks fold in any order
+      atomicMax(reinterpret_cast<int*>(out + static_cast<size_t>(b) * cout_last + o),
+                smax[o]);
+    } else {
+      out[static_cast<size_t>(b) * cout_last + o] = __int_as_float(smax[o]);
+    }
   }
 }
 
@@ -311,14 +332,29 @@ __global__ void __launch_bounds__(kThreads, 2)
 point_mlp_max_kernel(const float* __restrict__ x,  // [B, n, c_0]
                      float* __restrict__ out,      // [B, c_L]
                      int n, MLPArgs args) {
-  mlp_max<kBf16>(x, out, n, args);
+  mlp_max<kBf16, false>(x, out, n, args);
 }
 
 template <bool kBf16>
 __global__ void __launch_bounds__(kThreads, 2)
 point_mlp_max_deep_kernel(const float* __restrict__ x, float* __restrict__ out,
                           int n, DeepArgs args) {
-  mlp_max<kBf16>(x, out, n, args);
+  mlp_max<kBf16, false>(x, out, n, args);
+}
+
+// S > 1 blocks a cloud: grid (B, S)
+template <bool kBf16>
+__global__ void __launch_bounds__(kThreads, 2)
+point_mlp_max_split_kernel(const float* __restrict__ x, float* __restrict__ out,
+                           int n, MLPArgs args) {
+  mlp_max<kBf16, true>(x, out, n, args);
+}
+
+template <bool kBf16>
+__global__ void __launch_bounds__(kThreads, 2)
+point_mlp_max_deep_split_kernel(const float* __restrict__ x,
+                                float* __restrict__ out, int n, DeepArgs args) {
+  mlp_max<kBf16, true>(x, out, n, args);
 }
 
 // Rows of each activation buffer: buffer 0 holds x and the outputs of
@@ -351,18 +387,59 @@ extern "C" size_t snt_point_mlp_max_smem(const int* widths, int layers, int bf16
          static_cast<size_t>(widths[layers]) * sizeof(int);
 }
 
+namespace {
+
+// The kernel of a chain of `layers` layers, one block a cloud or split.
+const void* max_kernel(int layers, bool bf16, bool split) {
+  const void* k[2][2][2] = {
+      {{reinterpret_cast<const void*>(point_mlp_max_kernel<false>),
+        reinterpret_cast<const void*>(point_mlp_max_kernel<true>)},
+       {reinterpret_cast<const void*>(point_mlp_max_split_kernel<false>),
+        reinterpret_cast<const void*>(point_mlp_max_split_kernel<true>)}},
+      {{reinterpret_cast<const void*>(point_mlp_max_deep_kernel<false>),
+        reinterpret_cast<const void*>(point_mlp_max_deep_kernel<true>)},
+       {reinterpret_cast<const void*>(point_mlp_max_deep_split_kernel<false>),
+        reinterpret_cast<const void*>(point_mlp_max_deep_split_kernel<true>)}}};
+  return k[layers > kMaxLayers][split][bf16];
+}
+
+cudaError_t allow_smem(const void* kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+}  // namespace
+
+// Blocks of the chain's kernel (one block a cloud) an SM holds at once
+// (registers, shared memory and threads, as the card counts them), or -1
+// on an error: the launch plan's block slots.
+extern "C" int snt_point_mlp_max_resident(const int* widths, int layers, int bf16) {
+  const void* kernel = max_kernel(layers, bf16 != 0, false);
+  const size_t smem = snt_point_mlp_max_smem(widths, layers, bf16);
+  int blocks = 0;
+  if (allow_smem(kernel, smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, smem) !=
+          cudaSuccess) {
+    return -1;
+  }
+  return blocks;
+}
+
 // params holds, for each layer, W_l then b_l [c_{l+1}] packed back to back:
 // W_l [c_l, c_{l+1}] f32, or in bf16 its rounded values where the layer runs
 // on the FP32 pipes and else [ceil(c_l / 2), c_{l+1}] words of bf16 pairs
 // (row 2k low); widths is a host array of layers + 1 ints. table: device
 // memory of 3 * layers + 1 64-bit ints, which a chain of more than
 // kMaxLayers layers reads (widths, then W's and b's offsets in params,
-// copied here from the host), else unused.
+// copied here from the host), else unused. splits: blocks a cloud (S,
+// 1 to 65535), from the launch plan; above 1 out is zeroed first.
 extern "C" int snt_point_mlp_max(const float* x, const float* params,
                                  const int* widths, int layers, int bf16,
                                  long long* table, float* out, int b, int n,
-                                 cudaStream_t stream) {
-  if (layers < 1 || (layers > kMaxLayers && table == nullptr)) {
+                                 int splits, cudaStream_t stream) {
+  if (layers < 1 || (layers > kMaxLayers && table == nullptr) || splits < 1 ||
+      splits > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   MLPArgs args;
@@ -410,20 +487,16 @@ extern "C" int snt_point_mlp_max(const float* x, const float* params,
     deep.b.at = table + 2 * layers + 1;
   }
   const size_t smem = snt_point_mlp_max_smem(widths, layers, bf16);
-  const void* kernel =
-      in_params ? (bf16 ? reinterpret_cast<const void*>(point_mlp_max_kernel<true>)
-                        : reinterpret_cast<const void*>(point_mlp_max_kernel<false>))
-                : (bf16 ? reinterpret_cast<const void*>(point_mlp_max_deep_kernel<true>)
-                        : reinterpret_cast<const void*>(point_mlp_max_deep_kernel<false>));
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  const void* kernel = max_kernel(layers, bf16 != 0, splits > 1);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (splits > 1) {
+    err = cudaMemsetAsync(out, 0, sizeof(float) * b * widths[layers], stream);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   void* kargs[] = {&x, &out, &n, in_params ? static_cast<void*>(&args)
                                            : static_cast<void*>(&deep)};
-  const cudaError_t err =
-      cudaLaunchKernel(kernel, dim3(b), dim3(kThreads), kargs, smem, stream);
+  err = cudaLaunchKernel(kernel, dim3(b, splits), dim3(kThreads), kargs, smem, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -148,14 +148,16 @@
 // (sqdist.cuh), never the tensor cores, so each key is the plain
 // version's. The weighted sum runs a lane's ranks in order, then a
 // butterfly.
-// Wide backward: the entries kernel loops over the query's k neighbours
-// three times (d_0 and the sum of weights, the output, the entries),
-// rereading each from device memory instead of holding k in registers,
-// and carries the query's sums in float64; the point kernel takes k at
-// run time (K = 0), its sums in the same orders as at K <= 16. A cloud of
+// Wide backward (k > 16): a group of 8 or 32 lanes a query gathers each
+// neighbour once, a lane a few ranks, and carries the query's sums in
+// float64 in a fixed order (soft_project_bwd_entries_warp); its point kernel reads its
+// cloud's entries in windows and keeps only its own, each point's
+// entries put in entry order by a count, a scan and a sort of the
+// point's segment (soft_project_bwd_points_wide): each point's sum in
+// entry order, as at k <= 16, at any entry count. At k <= 16, a cloud of
 // more entries (M * k) than an int numbers with a round to spare takes
-// soft_project_bwd_points64 at any k: the same body counting entries in
-// 64 bits, the same entry order, so the same sums.
+// soft_project_bwd_points64: the same body counting entries in 64 bits,
+// the same entry order, so the same sums.
 
 #include <climits>
 #include <cstdint>
@@ -190,9 +192,20 @@ constexpr int kMaxPointThreads = 256;  // backward: a point block's threads
 constexpr int kMaxPer = 4;          // backward: points a thread
 constexpr int kStripes = 256;       // d sigma^2: query stripes, then a tree
 constexpr int kUnroll = 4;          // backward: idx loads a lane a round
+constexpr int kWideBwdWarps = 8;    // wide backward: warps a block
+constexpr int kWideRanks = 8;       // wide backward: ranks a lane holds
+constexpr int kWideGroup = 8;       // wide backward: lanes a query, k <= 64
+constexpr int kWidePointThreads = 1024;  // wide point kernel: threads, most
+constexpr int kWideSpan = 4096;     // wide point kernel: points a block, most
+constexpr int kWindowPer = 4;       // wide point kernel: entries a thread a window
+constexpr int kWidePointsPer = 4;   // wide point kernel: points a thread
+constexpr int kFusedEntries = 4096;  // the fused wide backward: M*k, most
 // a point block's static shared memory: wcnt and red
 constexpr size_t kPointStatic =
     (kMaxPointThreads / 32) * sizeof(int) + kStripes * sizeof(float);
+// a wide point block's: red in float64 and the warps' totals
+constexpr size_t kWideStatic =
+    kStripes * sizeof(double) + (kWidePointThreads / 32) * sizeof(int);
 
 // (d, i) comes strictly before (bd, bi)
 __device__ __forceinline__ bool before(float d, int i, float bd, int bi) {
@@ -1092,29 +1105,46 @@ soft_project_bwd_entries(const float* __restrict__ points,    // [B, n, 3]
   dqueries[qrow * 3 + 2] = dqz;
 }
 
-// The entries kernel for k > kMaxK: each neighbour reread from device
-// memory in each of three loops instead of held in registers, and the
-// query's sums (the weights' total, the output, u - ubar and d queries)
-// carried in float64, since with more neighbours their f32 round-off
-// grows past the tolerances the k <= 16 kernels meet (1/17 is inexact,
-// and u - ubar cancels). Each distance and weight term is the f32 one
-// of the k <= 16 kernel; the outputs are rounded to f32 once.
-__global__ void __launch_bounds__(kMaxTile)
-soft_project_bwd_entries_wide(const float* __restrict__ points,    // [B, n, 3]
-                              const float* __restrict__ queries,   // [B, m, 3]
-                              const float* __restrict__ sigma,     // [1]
-                              const int* __restrict__ idx,         // [B, m, k]
-                              const float* __restrict__ grad_out,  // [B, m, 3]
-                              float* __restrict__ dqueries,        // [B, m, 3]
-                              float4* __restrict__ contrib,        // [B, k, m]
-                              float2* __restrict__ esd,            // [B, k, m]
-                              int n, int m, int k, long long total) {
-  const long long g = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (g >= total) return;
-  const int b = static_cast<int>(g / m);
-  const int q = static_cast<int>(g - static_cast<long long>(b) * m);
-  const size_t qrow = static_cast<size_t>(g);
+// The wide backward (k > kMaxK), first kernel: a group of G lanes a
+// query (G = 8 for k up to 64, four queries a warp; else 32, a warp), over
+// a flat grid of all B*M queries, `warps` warps a block (from the plan).
+// Lane l of a group holds ranks l, l + G, ... (J a lane in registers,
+// kWideRanks at most: k above 32 * kWideRanks rereads its ranks in
+// batches of G * J for each pass), gathering each neighbour once. The
+// query's sums (the weights' total and the weighted points, then d
+// queries and its d sigma^2 term) are carried in float64, since with more
+// neighbours their f32 round-off grows past the tolerances the k <= 16
+// kernels meet (1/17 is inexact, and u - ubar cancels): a lane adds its
+// ranks in order, then the group's G partials meet in a butterfly of
+// shuffles (xor G/2, ..., 2, 1), where each lane adds its partner's value
+// to its own, so every lane holds the same bits; G and J follow from k
+// alone, so no order depends on the launch plan. Each distance and weight
+// term is the f32 one of the k <= 16 kernel; the outputs are rounded to
+// f32 once. It writes each entry's contribution to d points in entry order
+// (contrib [B, M, k] of float4: a group's stores are contiguous) and the
+// query's d sigma^2 term e . (d - d_0) (dsq [B, M], float64); no other
+// workspace.
+template <int G>
+__device__ __forceinline__ double group_sum(double v) {
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
+  return v;
+}
+
+// Query qrow of the wide backward, served by a group of G lanes (this
+// lane the group's lane gl): put(j, point, contribution) for each rank j
+// the lane holds, and the group's sums of d queries and of the d sigma^2
+// term, the same bits in every lane of the group.
+template <int G, int J, class Put>
+__device__ __forceinline__ void wide_query(const float* __restrict__ points,
+                                           const float* __restrict__ queries,
+                                           const float* __restrict__ sigma,
+                                           const int* __restrict__ idx,
+                                           const float* __restrict__ grad_out,
+                                           int n, int m, int k, size_t qrow,
+                                           int gl, Put put, double (&dq)[3],
+                                           double& ds) {
+  const int b = static_cast<int>(qrow / m);
   const float* pb = points + static_cast<size_t>(b) * n * 3;
   const int* iq = idx + qrow * k;
   const float s = *sigma;
@@ -1122,58 +1152,398 @@ soft_project_bwd_entries_wide(const float* __restrict__ points,    // [B, n, 3]
               qz = queries[qrow * 3 + 2];
   const double gx = grad_out[qrow * 3 + 0], gy = grad_out[qrow * 3 + 1],
                gz = grad_out[qrow * 3 + 2];
-  auto point = [&](int j) {
-    const float* p = pb + static_cast<size_t>(iq[j]) * 3;
-    return make_float3(p[0], p[1], p[2]);
+  const float* p0 = pb + static_cast<size_t>(__ldg(iq)) * 3;
+  const float d0 = sqdist(qx, qy, qz, p0[0], p0[1], p0[2]);
+  const int batches = (k + G * J - 1) / (G * J);
+  float px[J], py[J], pz[J], d[J], tw[J];  // tw: the weight terms w~
+  int pi[J];
+  auto rank = [&](int bt, int i) { return bt * G * J + G * i + gl; };
+  // rank(bt, i) into slot i
+  auto gather = [&](int bt) {
+#pragma unroll
+    for (int i = 0; i < J; ++i) {
+      if (rank(bt, i) < k) {
+        pi[i] = __ldg(iq + rank(bt, i));
+        const float* p = pb + static_cast<size_t>(pi[i]) * 3;
+        px[i] = p[0];
+        py[i] = p[1];
+        pz[i] = p[2];
+        d[i] = sqdist(qx, qy, qz, px[i], py[i], pz[i]);
+      }
+    }
   };
-  const float3 p0 = point(0);
-  const float d0 = sqdist(qx, qy, qz, p0.x, p0.y, p0.z);
-  double den = 0.0;
-  for (int j = 0; j < k; ++j) {
-    const float3 p = point(j);
-    den += softmax_term(sqdist(qx, qy, qz, p.x, p.y, p.z), d0, s);
+  if (batches == 1) gather(0);
+  double den = 0.0, tx = 0.0, ty = 0.0, tz = 0.0;  // sum w~, sum w~ p
+  for (int bt = 0; bt < batches; ++bt) {
+    if (batches > 1) gather(bt);
+#pragma unroll
+    for (int i = 0; i < J; ++i) {
+      if (rank(bt, i) < k) {
+        tw[i] = softmax_term(d[i], d0, s);
+        const double t = tw[i];
+        den += t;
+        tx += t * px[i];
+        ty += t * py[i];
+        tz += t * pz[i];
+      }
+    }
   }
-  double ox = 0.0, oy = 0.0, oz = 0.0;
-  for (int j = 0; j < k; ++j) {
-    const float3 p = point(j);
-    const double w =
-        softmax_term(sqdist(qx, qy, qz, p.x, p.y, p.z), d0, s) / den;
-    ox += w * p.x;
-    oy += w * p.y;
-    oz += w * p.z;
+  den = group_sum<G>(den);
+  tx = group_sum<G>(tx);
+  ty = group_sum<G>(ty);
+  tz = group_sum<G>(tz);
+  const double inv = 1.0 / den;  // w_j = w~_j / den
+  const double ubar = (gx * tx + gy * ty + gz * tz) * inv;
+  const double two_s = -2.0 / s;   // 2 dL/dd_j = e_j * two_s
+  double dqx = 0.0, dqy = 0.0, dqz = 0.0, dsl = 0.0;
+  for (int bt = 0; bt < batches; ++bt) {
+    if (batches > 1) gather(bt);
+#pragma unroll
+    for (int i = 0; i < J; ++i) {
+      if (rank(bt, i) >= k) continue;
+      if (batches > 1) tw[i] = softmax_term(d[i], d0, s);
+      const double w = tw[i] * inv;
+      const double u = gx * px[i] + gy * py[i] + gz * pz[i];
+      const double e = w * (u - ubar);              // dL/d(-d_j / s)
+      const double two_dd = e * two_s;              // 2 dL/dd_j
+      const double ex = static_cast<double>(px[i]) - qx,
+                   ey = static_cast<double>(py[i]) - qy,
+                   ez = static_cast<double>(pz[i]) - qz;
+      put(rank(bt, i), pi[i],
+          make_float4(static_cast<float>(w * gx + two_dd * ex),
+                      static_cast<float>(w * gy + two_dd * ey),
+                      static_cast<float>(w * gz + two_dd * ez), 0.0f));
+      dqx -= two_dd * ex;
+      dqy -= two_dd * ey;
+      dqz -= two_dd * ez;
+      dsl += e * (d[i] - d0);
+    }
   }
-  const double ubar = gx * ox + gy * oy + gz * oz;
-  double dqx = 0.0, dqy = 0.0, dqz = 0.0;
-  float4* cq = contrib + static_cast<size_t>(b) * k * m + q;
-  float2* eq = esd + static_cast<size_t>(b) * k * m + q;
-  for (int j = 0; j < k; ++j) {
-    const float3 p = point(j);
-    const float dj = sqdist(qx, qy, qz, p.x, p.y, p.z);
-    const double w = softmax_term(dj, d0, s) / den;
-    const double u = gx * p.x + gy * p.y + gz * p.z;
-    const double e = w * (u - ubar);              // dL/d(-d_j / s)
-    const double two_dd = -2.0 * e / s;           // 2 dL/dd_j
-    const double ex = static_cast<double>(p.x) - qx,
-                 ey = static_cast<double>(p.y) - qy,
-                 ez = static_cast<double>(p.z) - qz;
-    cq[static_cast<size_t>(j) * m] = make_float4(
-        static_cast<float>(w * gx + two_dd * ex),
-        static_cast<float>(w * gy + two_dd * ey),
-        static_cast<float>(w * gz + two_dd * ez), 0.0f);
-    eq[static_cast<size_t>(j) * m] =
-        make_float2(static_cast<float>(e), dj - d0);
-    dqx -= two_dd * ex;
-    dqy -= two_dd * ey;
-    dqz -= two_dd * ez;
+  dq[0] = group_sum<G>(dqx);
+  dq[1] = group_sum<G>(dqy);
+  dq[2] = group_sum<G>(dqz);
+  ds = group_sum<G>(dsl);
+}
+
+template <int G, int J>
+__global__ void __launch_bounds__(kWideBwdWarps * 32, J <= 4 ? 4 : 2)
+soft_project_bwd_entries_warp(const float* __restrict__ points,    // [B, n, 3]
+                              const float* __restrict__ queries,   // [B, m, 3]
+                              const float* __restrict__ sigma,     // [1]
+                              const int* __restrict__ idx,         // [B, m, k]
+                              const float* __restrict__ grad_out,  // [B, m, 3]
+                              float* __restrict__ dqueries,        // [B, m, 3]
+                              float4* __restrict__ contrib,        // [B, m, k]
+                              double* __restrict__ dsq,            // [B, m]
+                              int n, int m, int k, long long total) {
+  const int lane = threadIdx.x & 31, gl = lane % G;
+  const long long warp =
+      static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (warp * (32 / G) >= total) return;  // the whole warp
+  const long long g = warp * (32 / G) + lane / G;
+  const bool live = g < total;  // a group past the last query runs it again
+  const size_t qrow = static_cast<size_t>(live ? g : total - 1);
+  float4* cq = contrib + qrow * k;
+  double dq[3], ds;
+  wide_query<G, J>(points, queries, sigma, idx, grad_out, n, m, k, qrow, gl,
+                   [&](int j, int, float4 c) {
+                     if (live) cq[j] = c;
+                   },
+                   dq, ds);
+  if (live && gl == 0) {
+    dqueries[qrow * 3 + 0] = static_cast<float>(dq[0]);
+    dqueries[qrow * 3 + 1] = static_cast<float>(dq[1]);
+    dqueries[qrow * 3 + 2] = static_cast<float>(dq[2]);
+    dsq[qrow] = ds;
   }
-  dqueries[qrow * 3 + 0] = static_cast<float>(dqx);
-  dqueries[qrow * 3 + 1] = static_cast<float>(dqy);
-  dqueries[qrow * 3 + 2] = static_cast<float>(dqz);
+}
+
+// d sigma^2 of cloud b from its queries' terms db[0..m) (global or shared
+// memory), by the whole block: 256 stripes of queries (q = s mod 256),
+// each adding its queries' terms in order, then a 256-way tree, in
+// float64; thread 0 writes the partial (the caller sums the clouds').
+__device__ void cloud_dsigma(const double* db, int m, const float* sigma,
+                             double* red, float* dsigma_b) {
+  const int t = threadIdx.x, threads = blockDim.x;
+  for (int st = t; st < kStripes; st += threads) {
+    double v = 0.0;
+    for (int q = st; q < m; q += kStripes) v += db[q];
+    red[st] = v;
+  }
+  __syncthreads();
+  for (int half = kStripes / 2; half > 0; half >>= 1) {
+    for (int st = t; st < half; st += threads) red[st] += red[st + half];
+    __syncthreads();
+  }
+  if (t == 0) {
+    const double s = *sigma;
+    *dsigma_b = static_cast<float>(red[0] / (s * s));
+  }
+}
+
+// The exclusive scan of cnt[0..np) into off[0..np] and cur (cur's counts
+// become each segment's start), by the whole block: `per` consecutive
+// counts a thread, then the warps' totals (wtot, a slot a warp).
+__device__ void block_scan(int* cnt, int* off, int np, int* wtot) {
+  const int t = threadIdx.x, lane = t & 31, wid = t >> 5;
+  const int threads = blockDim.x, warps = threads >> 5;
+  const int per = (np + threads - 1) / threads;
+  int mine = 0;
+  for (int i = 0; i < per; ++i) {
+    const int pp = t * per + i;
+    if (pp < np) mine += cnt[pp];
+  }
+  int incl = mine;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += v;
+  }
+  if (lane == 31) wtot[wid] = incl;
+  __syncthreads();
+  if (wid == 0) {
+    int v = lane < warps ? wtot[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int x = __shfl_up_sync(kFull, v, o);
+      if (lane >= o) v += x;
+    }
+    if (lane < warps) wtot[lane] = v;
+  }
+  __syncthreads();
+  int at = (wid > 0 ? wtot[wid - 1] : 0) + incl - mine;
+  for (int i = 0; i < per; ++i) {
+    const int pp = t * per + i;
+    if (pp < np) {
+      const int c = cnt[pp];
+      off[pp] = at;
+      cnt[pp] = at;
+      at += c;
+    }
+  }
+  if (t == 0) off[np] = wtot[warps - 1];
+}
+
+// Thread t's points t + r * threads (r < kWidePointsPer, below np): each
+// segment [off[p], off[p + 1]) of list sorted by entry, then its
+// contributions cw[entry] added to the point's sum in that order.
+__device__ __forceinline__ void add_segments(int* list, const int* off,
+                                             const float4* cw, int np,
+                                             float (&ax)[kWidePointsPer],
+                                             float (&ay)[kWidePointsPer],
+                                             float (&az)[kWidePointsPer]) {
+#pragma unroll
+  for (int r = 0; r < kWidePointsPer; ++r) {
+    const int pp = threadIdx.x + r * blockDim.x;
+    if (pp >= np) break;
+    const int a = off[pp], z = off[pp + 1];
+    for (int i = a + 1; i < z; ++i) {  // the segment in entry order
+      const int v = list[i];
+      int j = i - 1;
+      while (j >= a && list[j] > v) {
+        list[j + 1] = list[j];
+        --j;
+      }
+      list[j + 1] = v;
+    }
+    for (int i = a; i < z; ++i) {
+      const float4 c = cw[list[i]];
+      ax[r] += c.x;
+      ay[r] += c.y;
+      az[r] += c.z;
+    }
+  }
+}
+
+// The wide backward in one kernel, where a block holds a cloud: its M*k
+// contributions (and each one's point) in shared memory, and its N points
+// at most kWidePointsPer a thread. Block b: the groups of its warps take
+// the cloud's queries in turn (wide_query, as the entries kernel), each
+// lane counting its entries' points; then the point kernel's scan,
+// places, sorted segments and sums in entry order, over the whole cloud
+// at once, and d sigma^2 from the queries' terms. The same values in the
+// same orders as the two kernels: the same bits, without the
+// contributions' round trip through device memory.
+template <int G, int J>
+__global__ void __launch_bounds__(kWideBwdWarps * 32, J <= 4 ? 4 : 2)
+soft_project_bwd_fused(const float* __restrict__ points,    // [B, n, 3]
+                       const float* __restrict__ queries,   // [B, m, 3]
+                       const float* __restrict__ sigma,     // [1]
+                       const int* __restrict__ idx,         // [B, m, k]
+                       const float* __restrict__ grad_out,  // [B, m, 3]
+                       float* __restrict__ dpoints,         // [B, n, 3]
+                       float* __restrict__ dqueries,        // [B, m, 3]
+                       float* __restrict__ dsigma,          // [B]
+                       int n, int m, int k) {
+  extern __shared__ float4 fsm4[];
+  __shared__ double red[kStripes];
+  __shared__ int wtot[kWideBwdWarps];
+  const int entries = m * k;
+  float4* cw = fsm4;                                       // [entries]
+  double* dsq = reinterpret_cast<double*>(cw + entries);  // [m]
+  int* pw = reinterpret_cast<int*>(dsq + m);              // [entries]: points
+  int* list = pw + entries;                               // [entries]
+  int* off = list + entries;                              // [n + 1]
+  int* cur = off + n + 1;                                 // [n]
+  const int b = blockIdx.x;
+  const int t = threadIdx.x, lane = t & 31, wid = t >> 5;
+  const int threads = blockDim.x;
+  for (int i = t; i < n; i += threads) cur[i] = 0;
+  __syncthreads();
+  const int per_pass = (threads >> 5) * (32 / G);  // queries a pass
+  for (int q0 = 0; q0 < m; q0 += per_pass) {
+    const int first = q0 + wid * (32 / G);
+    if (first >= m) continue;  // the whole warp
+    const int q = first + lane / G;
+    const bool live = q < m;  // a group past the last query runs it again
+    const size_t qrow = static_cast<size_t>(b) * m + (live ? q : m - 1);
+    const int gl = lane % G;
+    double dq[3], ds;
+    wide_query<G, J>(points, queries, sigma, idx, grad_out, n, m, k, qrow, gl,
+                     [&](int j, int p, float4 c) {
+                       if (!live) return;
+                       const bool on = static_cast<unsigned>(p) < static_cast<unsigned>(n);
+                       pw[q * k + j] = on ? p : -1;
+                       if (on) {
+                         cw[q * k + j] = c;
+                         atomicAdd(cur + p, 1);
+                       }
+                     },
+                     dq, ds);
+    if (live && gl == 0) {
+      dqueries[qrow * 3 + 0] = static_cast<float>(dq[0]);
+      dqueries[qrow * 3 + 1] = static_cast<float>(dq[1]);
+      dqueries[qrow * 3 + 2] = static_cast<float>(dq[2]);
+      dsq[q] = ds;
+    }
+  }
+  __syncthreads();
+  cloud_dsigma(dsq, m, sigma, red, dsigma + b);
+  block_scan(cur, off, n, wtot);
+  __syncthreads();
+  for (int e = t; e < entries; e += threads) {
+    const int p = pw[e];
+    if (static_cast<unsigned>(p) < static_cast<unsigned>(n)) {
+      list[atomicAdd(cur + p, 1)] = e;
+    }
+  }
+  __syncthreads();
+  float ax[kWidePointsPer], ay[kWidePointsPer], az[kWidePointsPer];
+#pragma unroll
+  for (int r = 0; r < kWidePointsPer; ++r) ax[r] = ay[r] = az[r] = 0.0f;
+  add_segments(list, off, cw, n, ax, ay, az);
+  float* out = dpoints + static_cast<size_t>(b) * n * 3;
+#pragma unroll
+  for (int r = 0; r < kWidePointsPer; ++r) {
+    const int pp = t + r * threads;
+    if (pp < n) {
+      out[pp * 3 + 0] = ax[r];
+      out[pp * 3 + 1] = ay[r];
+      out[pp * 3 + 2] = az[r];
+    }
+  }
+}
+
+// The wide backward's second kernel: d points of `span` points of one
+// cloud a block, each point's entries added in entry order; block
+// ranges * b + r takes range r of cloud b, and the block of range 0 also
+// sums the cloud's d sigma^2. A block takes its cloud's M*k entries in
+// windows of kWindowPer * threads, in order, each thread holding
+// kWindowPer idx loads. In a window it keeps only the entries on its own
+// points: a count a point (shared-memory int atomics), their
+// contributions staged in shared memory by coalesced loads, an exclusive
+// scan of the counts, then each such entry placed in its point's segment
+// of the window's list (an int atomic on the point's cursor, so a
+// segment's order is arbitrary). The thread that owns a point (up to
+// kWidePointsPer a thread, summed in registers) sorts its segment by
+// entry (insertion: about M*k / N entries a point a window on k-NN input)
+// and adds the staged contributions from +0.0f, on across windows: entry
+// order, whatever the plan, and no float atomics. Shared memory holds the
+// span's offsets and cursors and one window's contributions and list,
+// never the cloud or its entries. d sigma^2: 256 stripes of queries (q =
+// s mod 256), each adding its queries' terms in order, then a 256-way
+// tree, in float64; the caller sums the clouds' partials.
+__global__ void __launch_bounds__(kWidePointThreads)
+soft_project_bwd_points_wide(const int* __restrict__ idx,         // [B, m, k]
+                             const float4* __restrict__ contrib,  // [B, m, k]
+                             const double* __restrict__ dsq,      // [B, m]
+                             const float* __restrict__ sigma,     // [1]
+                             float* __restrict__ dpoints,         // [B, n, 3]
+                             float* __restrict__ dsigma,          // [B]
+                             int n, int m, int k, int span) {
+  extern __shared__ float4 wsm4[];
+  __shared__ double red[kStripes];
+  __shared__ int wtot[kWidePointThreads / 32];
+  const int ranges = (n + span - 1) / span;
+  const int b = static_cast<int>(blockIdx.x / static_cast<unsigned>(ranges));
+  const int range = static_cast<int>(blockIdx.x - b * static_cast<unsigned>(ranges));
+  const int t = threadIdx.x, threads = blockDim.x;
+
+  if (range == 0) {  // d sigma^2 of cloud b
+    cloud_dsigma(dsq + static_cast<size_t>(b) * m, m, sigma, red, dsigma + b);
+  }
+
+  const long long entries = static_cast<long long>(m) * k;
+  const int window = kWindowPer * threads;
+  float4* cw = wsm4;                                  // [window]: contributions
+  int* list = reinterpret_cast<int*>(cw + window);    // [window]: by point
+  int* off = list + window;                           // [span + 1]: segments
+  int* cur = off + span + 1;                          // [span]: counts, places
+  const int p0 = range * span;
+  const int np = min(span, n - p0);
+  const int* ib = idx + static_cast<size_t>(b) * entries;
+  const float4* cb = contrib + static_cast<size_t>(b) * entries;
+  float ax[kWidePointsPer], ay[kWidePointsPer], az[kWidePointsPer];
+#pragma unroll
+  for (int r = 0; r < kWidePointsPer; ++r) ax[r] = ay[r] = az[r] = 0.0f;
+
+  for (long long w0 = 0; w0 < entries; w0 += window) {
+    for (int i = t; i < np; i += threads) cur[i] = 0;
+    int p[kWindowPer];  // entry w0 + u * threads + t's point, from p0
+#pragma unroll
+    for (int u = 0; u < kWindowPer; ++u) {
+      const long long e = w0 + u * threads + t;
+      p[u] = e < entries ? __ldg(ib + e) - p0 : -1;
+    }
+    __syncthreads();  // cur is clear; the last window's sums are done
+#pragma unroll
+    for (int u = 0; u < kWindowPer; ++u) {
+      if (static_cast<unsigned>(p[u]) < static_cast<unsigned>(np)) {
+        atomicAdd(cur + p[u], 1);
+        cw[u * threads + t] = __ldg(cb + w0 + u * threads + t);
+      }
+    }
+    __syncthreads();
+    block_scan(cur, off, np, wtot);
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < kWindowPer; ++u) {
+      if (static_cast<unsigned>(p[u]) < static_cast<unsigned>(np)) {
+        list[atomicAdd(cur + p[u], 1)] = u * threads + t;
+      }
+    }
+    __syncthreads();
+    add_segments(list, off, cw, np, ax, ay, az);
+  }
+  __syncthreads();  // the window's contributions are read: stage the rows
+  float* stage = reinterpret_cast<float*>(cw);  // [span * 3] <= window * 4
+#pragma unroll
+  for (int r = 0; r < kWidePointsPer; ++r) {
+    const int pp = t + r * threads;
+    if (pp < np) {
+      stage[pp * 3 + 0] = ax[r];
+      stage[pp * 3 + 1] = ay[r];
+      stage[pp * 3 + 2] = az[r];
+    }
+  }
+  __syncthreads();
+  float* out = dpoints + (static_cast<size_t>(b) * n + p0) * 3;
+  for (int i = t; i < np * 3; i += threads) out[i] = stage[i];
 }
 
 // d points of `span` points of one cloud a block, in entry order: block
 // (ranges + 1) * b + r takes range r of cloud b, and r = ranges sums the
-// cloud's d sigma^2. K = 0 takes k at run time (k_run, the wide path).
+// cloud's d sigma^2. K = 0 takes k at run time (k_run).
 // Count numbers a cloud's entries: int, or long long where M * k passes
 // what an int holds with a round to spare (soft_project_bwd_points64).
 template <int K, class Count>
@@ -1359,7 +1729,7 @@ soft_project_bwd_points(const int* __restrict__ idx,         // [B, m, k]
                      k_run);
 }
 
-// Clouds of more entries than an int numbers, any k: the same sums in the
+// Clouds of more entries than an int numbers, k <= kMaxK: the same sums in the
 // same orders (the d sigma^2 loop of K = 0 adds a query's terms in rank
 // order, as the unrolled one of K > 0 does).
 __global__ void __launch_bounds__(kMaxPointThreads, 4)
@@ -1416,8 +1786,24 @@ size_t bwd_smem(int threads, int span, long long entries) {
 // spare, so that no entry number they form passes INT_MAX.
 constexpr long long kIntEntries = INT_MAX - 32 * kUnroll * kMaxPointThreads;
 
-// K = 0: the wide kernels, k at run time. A cloud of more than kIntEntries
-// entries, or a plan's count64, takes soft_project_bwd_points64 at any k.
+// Dynamic shared memory of a fused wide backward block: the cloud's
+// contributions (float4), its queries' d sigma^2 terms (double), each
+// entry's point and the list, then the offsets [n + 1] and cursors [n].
+size_t bwd_fused_smem(int n, int m, int k) {
+  const size_t entries = static_cast<size_t>(m) * k;
+  return entries * (sizeof(float4) + 2 * sizeof(int)) + m * sizeof(double) +
+         (2 * static_cast<size_t>(n) + 1) * sizeof(int);
+}
+
+// Dynamic shared memory of a wide point block: a window's contributions
+// (float4) and list, then the span's offsets [span + 1] and cursors [span].
+size_t bwd_wide_smem(int threads, int span) {
+  return static_cast<size_t>(kWindowPer) * threads * (sizeof(float4) + sizeof(int)) +
+         (2 * static_cast<size_t>(span) + 1) * sizeof(int);
+}
+
+// K = 1..kMaxK. A cloud of more than kIntEntries entries, or a plan's
+// count64, takes soft_project_bwd_points64.
 template <int K>
 cudaError_t launch_bwd(const float* points, const float* queries,
                        const float* sigma, const int* idx,
@@ -1427,15 +1813,9 @@ cudaError_t launch_bwd(const float* points, const float* queries,
                        bool count64, cudaStream_t stream) {
   const long long total = static_cast<long long>(b) * m;
   const unsigned blocks = static_cast<unsigned>((total + tile - 1) / tile);
-  if constexpr (K > 0) {
-    soft_project_bwd_entries<K><<<blocks, tile, 0, stream>>>(
-        points, queries, sigma, idx, grad_out, dqueries, contrib, esd, n, m,
-        total);
-  } else {
-    soft_project_bwd_entries_wide<<<blocks, tile, 0, stream>>>(
-        points, queries, sigma, idx, grad_out, dqueries, contrib, esd, n, m,
-        k, total);
-  }
+  soft_project_bwd_entries<K><<<blocks, tile, 0, stream>>>(
+      points, queries, sigma, idx, grad_out, dqueries, contrib, esd, n, m,
+      total);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long entries = static_cast<long long>(m) * k;
@@ -1655,6 +2035,118 @@ extern "C" int snt_soft_project_bwd(const float* points, const float* queries,
                                  dpoints, dqueries, dsigma, c4, e2, b, n,    \
                                  m, k, tile, threads, span, count64 != 0,   \
                                  stream))
-  SNT_SWITCH_K(k, SNT_BWD, SNT_BWD(0))
+  SNT_SWITCH_K(k, SNT_BWD, static_cast<int>(cudaErrorInvalidValue))
 #undef SNT_BWD
+}
+
+// The wide backward's limits: 0 warps a block of its first kernel, 1
+// ranks a lane holds, 2 threads and 3 points a block of its point kernel,
+// 4 entries a thread a window, 5 the stripes of d sigma^2, 6 lanes a
+// query up to k = 64, 7 points a thread of the point kernel, 8 the fused
+// kernel's most entries a cloud.
+extern "C" int snt_soft_project_bwd_wide_limit(int which) {
+  const int limits[] = {kWideBwdWarps, kWideRanks, kWidePointThreads,
+                        kWideSpan, kWindowPer, kStripes, kWideGroup,
+                        kWidePointsPer, kFusedEntries};
+  return which >= 0 && which < 9 ? limits[which] : -1;
+}
+
+extern "C" size_t snt_soft_project_bwd_wide_smem(int threads, int span) {
+  return bwd_wide_smem(threads, span);
+}
+
+extern "C" size_t snt_soft_project_bwd_fused_smem(int n, int m, int k) {
+  return bwd_fused_smem(n, m, k);
+}
+
+// The wide backward, any 1 <= k <= n (the wrapper sends it k > kMaxK):
+// contrib [B, M, k] of float4 and dsq [B, M] of double are the caller's
+// workspace, dsigma [B] the clouds' partials; warps (a block of the first
+// kernel), threads and span (a block of the point kernel) come from the
+// launch plan, or with `fused` one kernel of `threads` threads a cloud;
+// the outputs do not depend on it.
+extern "C" int snt_soft_project_bwd_wide(const float* points,
+                                         const float* queries,
+                                         const float* sigma, const int* idx,
+                                         const float* grad_out, float* dpoints,
+                                         float* dqueries, float* dsigma,
+                                         float* contrib, double* dsq, int b,
+                                         int n, int m, int k, int warps,
+                                         int threads, int span, int fused,
+                                         cudaStream_t stream) {
+  if (fused) {
+    if (k < 1 || k > n || b < 1 || m < 1 || threads < 32 ||
+        threads > kWideBwdWarps * 32 || threads % 32 != 0 ||
+        n > kWidePointsPer * threads ||
+        static_cast<long long>(m) * k > kFusedEntries) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const size_t smem = bwd_fused_smem(n, m, k);
+#define SNT_FUSED(G, J)                                                          \
+  do {                                                                           \
+    if (smem + kWideStatic > 48 * 1024) {                                        \
+      const cudaError_t e = cudaFuncSetAttribute(                                \
+          soft_project_bwd_fused<G, J>,                                          \
+          cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));  \
+      if (e != cudaSuccess) return static_cast<int>(e);                          \
+    }                                                                            \
+    soft_project_bwd_fused<G, J><<<b, threads, smem, stream>>>(                  \
+        points, queries, sigma, idx, grad_out, dpoints, dqueries, dsigma, n, m, \
+        k);                                                                      \
+  } while (0)
+    if (k <= 4 * kWideGroup) {
+      SNT_FUSED(kWideGroup, 4);
+    } else if (k <= kWideRanks * kWideGroup) {
+      SNT_FUSED(kWideGroup, kWideRanks);
+    } else if (k <= 4 * 32) {
+      SNT_FUSED(32, 4);
+    } else {
+      SNT_FUSED(32, kWideRanks);
+    }
+#undef SNT_FUSED
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (k < 1 || k > n || b < 1 || m < 1 || warps < 1 ||
+      warps > kWideBwdWarps || threads < 32 || threads > kWidePointThreads ||
+      threads % 32 != 0 || span < 1 || span > kWideSpan ||
+      span > kWidePointsPer * threads) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long total = static_cast<long long>(b) * m;
+  const int group = k <= kWideRanks * kWideGroup ? kWideGroup : 32;
+  const long long per_block = static_cast<long long>(warps) * (32 / group);
+  const long long blocks = (total + per_block - 1) / per_block;
+  const long long grid = static_cast<long long>(b) * ((n + span - 1) / span);
+  if (blocks > INT_MAX || grid > INT_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  float4* c4 = reinterpret_cast<float4*>(contrib);
+  // G lanes a query (group) and J ranks a lane, from k alone
+#define SNT_ENTRIES(G, J)                                                    \
+  soft_project_bwd_entries_warp<G, J><<<static_cast<unsigned>(blocks),       \
+                                        32 * warps, 0, stream>>>(            \
+      points, queries, sigma, idx, grad_out, dqueries, c4, dsq, n, m, k, total)
+  if (k <= 4 * kWideGroup) {
+    SNT_ENTRIES(kWideGroup, 4);
+  } else if (k <= kWideRanks * kWideGroup) {
+    SNT_ENTRIES(kWideGroup, kWideRanks);
+  } else if (k <= 4 * 32) {
+    SNT_ENTRIES(32, 4);
+  } else {
+    SNT_ENTRIES(32, kWideRanks);
+  }
+#undef SNT_ENTRIES
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = bwd_wide_smem(threads, span);
+  if (smem + kWideStatic > 48 * 1024) {
+    err = cudaFuncSetAttribute(soft_project_bwd_points_wide,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  soft_project_bwd_points_wide<<<static_cast<unsigned>(grid), threads, smem,
+                                 stream>>>(idx, c4, dsq, sigma, dpoints,
+                                           dsigma, n, m, k, span);
+  return static_cast<int>(cudaGetLastError());
 }

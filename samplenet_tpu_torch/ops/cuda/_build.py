@@ -148,8 +148,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.snt_point_mlp_max_smem.argtypes = [ctypes.POINTER(i), i, i]
     lib.snt_point_mlp_max_smem.restype = ctypes.c_size_t
     lib.snt_point_mlp_max.argtypes = [p, p, ctypes.POINTER(i), i, i, p, p, i,
-                                      i, p]
+                                      i, i, p]
     lib.snt_point_mlp_max.restype = i
+    lib.snt_point_mlp_max_resident.argtypes = [ctypes.POINTER(i), i, i]
+    lib.snt_point_mlp_max_resident.restype = i
     lib.snt_point_mlp_max_param_layers.argtypes = []
     lib.snt_point_mlp_max_param_layers.restype = i
     lib.snt_soft_project_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
@@ -175,6 +177,14 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.snt_soft_project_bwd_limit.restype = i
     lib.snt_soft_project_bwd.argtypes = [*[p] * 10, *[i] * 8, p]
     lib.snt_soft_project_bwd.restype = i
+    lib.snt_soft_project_bwd_wide.argtypes = [*[p] * 10, *[i] * 8, p]
+    lib.snt_soft_project_bwd_wide.restype = i
+    lib.snt_soft_project_bwd_wide_limit.argtypes = [i]
+    lib.snt_soft_project_bwd_wide_limit.restype = i
+    lib.snt_soft_project_bwd_wide_smem.argtypes = [i, i]
+    lib.snt_soft_project_bwd_wide_smem.restype = sz
+    lib.snt_soft_project_bwd_fused_smem.argtypes = [i, i, i]
+    lib.snt_soft_project_bwd_fused_smem.restype = sz
     lib.snt_pmt_dense_smem.argtypes = [i, i, i, i]
     lib.snt_pmt_dense_smem.restype = sz
     lib.snt_pmt_bwd_dz_smem.argtypes = [i, i, i, i, i, i]

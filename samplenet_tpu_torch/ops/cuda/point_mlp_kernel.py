@@ -14,6 +14,10 @@ bounds it and how it is laid out. It has two modes:
   summed in f32, bias and ReLU in f32, the max over points; on the tensor
   cores as one bf16 product a multiply-add.
 
+Where B clouds leave the card's block slots idle, a cloud's 64-point tiles
+are split over S blocks (point_mlp_plan.py::max_splits); the output's bits
+do not depend on S.
+
 Sums run in another order than the plain version's matmuls, so the two
 agree to f32 round-off (in bf16, to the roundings that round-off can
 move), not bit for bit.
@@ -23,6 +27,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -38,6 +43,7 @@ from samplenet_tpu_torch.ops.cuda.point_mlp_plan import (
     PARAM_LAYERS,
     kernel_widths,
     max_smem,
+    max_splits,
     plan_max,
 )
 from samplenet_tpu_torch.ops.dispatch import count_launch, use_kernel
@@ -231,6 +237,40 @@ def padded_pairs(pairs, widths) -> tuple[list, tuple[int, ...]]:
 
 @point_mlp_max_op.register_kernel("cuda")
 def _point_mlp_max_cuda(x, params, widths, bf16):
+    return _launch(x, params, widths, bf16, None)
+
+
+@functools.lru_cache(maxsize=256)
+def _resident(device: int, widths: tuple[int, ...], bf16: bool) -> int:
+    """Blocks of the chain's kernel an SM of CUDA device `device` holds."""
+    with torch.cuda.device(device):
+        blocks = library().snt_point_mlp_max_resident(
+            (ctypes.c_int * len(widths))(*widths), len(widths) - 1, int(bf16))
+    if blocks < 1:
+        raise RuntimeError(f"point_mlp_max at widths {list(widths)}: no "
+                           f"block fits an SM ({blocks})")
+    return blocks
+
+
+def max_splits_for(x: torch.Tensor, widths, bf16: bool = False) -> int:
+    """The plan's S (blocks a cloud) for x [B, N, C] on its card at the
+    chain `widths`."""
+    kw = kernel_widths(widths)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    return max_splits(x.shape[0], x.shape[1], sms=sms,
+                      resident=_resident(x.device.index, kw, bool(bf16)))
+
+
+def launch_max(x: torch.Tensor, weights_and_biases, *, bf16: bool = False,
+               splits: int) -> torch.Tensor:
+    """The kernel on CUDA x under a forced S (the card tests and
+    chip_smoke.py hold every S to the plan's bits)."""
+    pairs = _pairs(weights_and_biases)
+    widths = _check_args(x, pairs)
+    return _launch(x, _flat_params(pairs), widths, bool(bf16), splits)
+
+
+def _launch(x, params, widths, bf16, splits):
     _check_cuda(x)
     x = x.contiguous()              # strided x: the kernel reads rows
     width = widths[-1]
@@ -257,11 +297,13 @@ def _point_mlp_max_cuda(x, params, widths, bf16):
     # table (widths and offsets, which the C entry fills) from here
     table = (torch.empty(3 * layers + 1, dtype=torch.int64, device=x.device)
              if layers > PARAM_LAYERS else None)
+    if splits is None:
+        splits = max_splits_for(x, widths, bf16)
     with torch.cuda.device(x.device):
         err = lib.snt_point_mlp_max(
             x.data_ptr(), params.data_ptr(), c_widths, layers, int(bf16),
             None if table is None else table.data_ptr(), out.data_ptr(),
-            x.shape[0], x.shape[1], stream_handle(x))
+            x.shape[0], x.shape[1], splits, stream_handle(x))
     check(err, name)
     count_launch(name)
     return out if widths[-1] == width else out[:, :width].contiguous()

@@ -24,7 +24,10 @@ width the tracks run:
   per-channel max [cout_last]. With bf16 operands a row holds two
   channels (a pair of bf16 in each word) and the K step is 16 channels,
   so a layer's rows are half as many; a first layer of fewer than 16
-  channels runs on the FP32 pipes and keeps x in f32 rows.
+  channels runs on the FP32 pipes and keeps x in f32 rows. Where the B
+  clouds alone do not fill the card's block slots, a cloud's tiles are
+  split over S blocks (`max_splits`), which fold their maxima into the
+  output; the output does not depend on S.
 
 The backward:
 
@@ -446,3 +449,31 @@ def plan_max(widths, limit: int, bf16: bool = False) -> MaxPlan | None:
         return None
     return MaxPlan(widths, max_rows(widths, bf16), smem,
                    blocks_per_sm(smem, FWD_THREADS, limit))
+
+
+# point_mlp_max's split: blocks a cloud where B alone leaves block slots idle
+SPLIT_BLOCK_COST = 0.25  # a block's own work (zeroing, the fold), in tiles
+MAX_SPLITS = 65535       # the grid's y axis
+
+
+def max_splits(b: int, n: int, *, sms: int, resident: int) -> int:
+    """S, the blocks point_mlp_max gives each of B clouds of n points on a
+    card of `sms` SMs holding `resident` of its blocks each: 1 where the
+    clouds alone fill those slots, as the kernel ran before it split
+    (B=1024 at the eval shape); else the S, 1 to the cloud's 64-point
+    tiles, whose blocks finish first, each walking ceil(tiles / S) tiles
+    plus its own work (SPLIT_BLOCK_COST), in waves of the card's slots;
+    the fewest on a tie."""
+    if min(b, n, sms, resident) < 1:
+        raise ValueError(f"max_splits needs positive sizes, got b={b}, "
+                         f"n={n}, sms={sms}, resident={resident}")
+    slots = sms * resident
+    if b >= slots:
+        return 1
+    tiles = _ceil(n, TILE)
+    best, best_cost = 1, None
+    for s in range(1, min(tiles, slots, MAX_SPLITS) + 1):
+        cost = _ceil(b * s, slots) * (_ceil(tiles, s) + SPLIT_BLOCK_COST)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = s, cost
+    return best

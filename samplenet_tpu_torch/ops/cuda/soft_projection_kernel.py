@@ -20,7 +20,8 @@ points staged at a time) and the backward's (queries a block, threads
 and points a block) come from soft_projection_plan.py; their
 outputs do not depend on them. The backward's scatter into the points is a
 one-hot bmm here, and in the kernels each point's entries summed in entry
-order (query, rank): no float atomics, and no cap on N.
+order (query, rank): no float atomics, and no cap on N. Above k = 16 the
+backward's kernels are the wide ones (plan `plan_bwd_wide`).
 The kernels take f32; the plain versions also take f64 (a reference).
 
 Any 1 <= k <= N runs a kernel: k <= 16 the register kernels, as the JAX
@@ -225,12 +226,28 @@ def launch_fwd_wide(points, queries, sigma, k: int, plan: spp.WideFwdPlan):
 
 
 @functools.lru_cache(maxsize=256)
-def bwd_plan(device: int, b: int, n: int, m: int, k: int) -> spp.BwdPlan:
-    """The backward kernels' launch plan on CUDA device `device`; checks
-    that the kernels count their limits and shared memory as the plan
-    does."""
+def bwd_plan(device: int, b: int, n: int, m: int, k: int
+             ) -> spp.BwdPlan | spp.WideBwdPlan:
+    """The backward kernels' launch plan on CUDA device `device` (above
+    MAX_REGISTER_K the wide kernels'); checks that the kernels count their
+    limits and shared memory as the plan does."""
     lib = library()
     sms = torch.cuda.get_device_properties(device).multi_processor_count
+    if k > spp.MAX_REGISTER_K:
+        plan = spp.plan_bwd_wide(b, n, m, k, sms=sms)
+        limits = [lib.snt_soft_project_bwd_wide_limit(i) for i in range(9)]
+        if (limits != [spp.WIDE_BWD_WARPS, spp.WIDE_RANKS,
+                       spp.WIDE_POINT_THREADS, spp.WIDE_SPAN, spp.WINDOW_PER,
+                       spp.STRIPES, spp.WIDE_GROUP, spp.WIDE_POINTS_PER,
+                       spp.FUSED_ENTRIES]
+                or lib.snt_soft_project_bwd_wide_smem(plan.threads, plan.span)
+                != plan.smem
+                or lib.snt_soft_project_bwd_fused_smem(n, m, k)
+                != spp.fused_bwd_smem(n, m, k)):
+            raise RuntimeError("csrc/soft_projection.cu and soft_projection_"
+                               "plan.py disagree on the wide backward's "
+                               "limits or shared memory")
+        return plan
     plan = spp.plan_bwd(b, n, m, k, sms=sms)
     limits = [lib.snt_soft_project_bwd_limit(i) for i in range(5)]
     if (limits != [spp.MAX_TILE, spp.MAX_POINT_THREADS, spp.MAX_PER,
@@ -258,13 +275,34 @@ def soft_project_bwd_cuda(points, queries, sigma, idx, grad_out):
     return launch_bwd(points, queries, sigma, idx, grad_out, plan)
 
 
-def launch_bwd(points, queries, sigma, idx, grad_out, plan: spp.BwdPlan):
-    """The backward kernels on checked arguments under `plan`; the outputs
-    do not depend on the plan (the card tests run others)."""
+def launch_bwd(points, queries, sigma, idx, grad_out,
+               plan: spp.BwdPlan | spp.WideBwdPlan):
+    """The backward kernels on checked arguments under `plan` (a
+    WideBwdPlan: the wide kernels, which take any k; a BwdPlan: the
+    register kernels, k up to MAX_REGISTER_K); the outputs do not depend
+    on the plan (the card tests run others)."""
     b, n, _ = points.shape
     m, k = idx.shape[1], idx.shape[2]
     dpoints = torch.empty_like(points)
     dqueries = torch.empty_like(queries)
+    if isinstance(plan, spp.WideBwdPlan):
+        # contrib [B, M, k] of float4, dsq [B, M] of float64, then the
+        # per-cloud partials of d sigma (the fused kernel: the partials)
+        entries = 0 if plan.fused else b * m * k
+        bm = 0 if plan.fused else b * m
+        ws = torch.empty((4 * entries + 2 * bm + b,), dtype=torch.float32,
+                         device=points.device)
+        base = ws.data_ptr()
+        with torch.cuda.device(points.device):
+            err = library().snt_soft_project_bwd_wide(
+                points.data_ptr(), queries.data_ptr(), sigma.data_ptr(),
+                idx.data_ptr(), grad_out.data_ptr(), dpoints.data_ptr(),
+                dqueries.data_ptr(), base + 16 * entries + 8 * bm, base,
+                base + 16 * entries, b, n, m, k, plan.warps, plan.threads,
+                plan.span, int(plan.fused), stream_handle(points))
+        check(err, KERNEL_BWD_WIDE)
+        count_launch(KERNEL_BWD_WIDE)
+        return dpoints, dqueries, ws[4 * entries + 2 * bm:].sum().reshape(1)
     # one allocation: the kernels' workspace, contrib [B, k, M] of float4
     # then esd [B, k, M] of float2, and the per-cloud partials of d sigma
     entries = b * k * m
@@ -279,9 +317,8 @@ def launch_bwd(points, queries, sigma, idx, grad_out, plan: spp.BwdPlan):
             dqueries.data_ptr(), base + 24 * entries, base,
             base + 16 * entries, b, n, m, k, plan.tile, plan.threads,
             plan.span, int(plan.count64), stream_handle(points))
-    name = KERNEL_BWD if k <= spp.MAX_REGISTER_K else KERNEL_BWD_WIDE
-    check(err, name)
-    count_launch(name)
+    check(err, KERNEL_BWD)
+    count_launch(KERNEL_BWD)
     # the partials summed in a fixed order
     return dpoints, dqueries, ws[6 * entries:].sum().reshape(1)
 

@@ -51,10 +51,23 @@ max(64, 2k rounded up to a power of two) group minima a query, a buffer of
 2G candidates. The radix kernel takes the rest: one warp a query over a
 flat grid of all B*M queries, WIDE_WARPS a block, a radix histogram of
 RADIX_BINS counters a warp in static shared memory and nothing that grows
-with N or k. The outputs do not depend on the plan. The backward takes any
-k under the plan above (its first kernel loops over k above
-MAX_REGISTER_K), and any M * k: past INT_ENTRIES entries a cloud its
-point kernel counts them in 64 bits.
+with N or k. The outputs do not depend on the plan. The backward takes k
+up to MAX_REGISTER_K under the plan above, and any M * k: past
+INT_ENTRIES entries a cloud its point kernel counts them in 64 bits.
+
+Above MAX_REGISTER_K the backward runs the wide kernels under
+`plan_bwd_wide`: the first a group of `wide_group(k)` lanes a query
+(WIDE_GROUP up to k = 64, else a warp), `warps` warps a block (the most up
+to WIDE_BWD_WARPS that still give every SM a block); the second `span`
+points of a cloud a block (WIDE_POINTS_PER a thread at most), `threads`
+threads, reading the cloud's entries in windows of WINDOW_PER * threads
+and keeping its own. Its rules: 256 threads where the clouds alone fill
+the card, else WIDE_POINT_THREADS (fewer windows, each longer, on the few
+clouds); the widest span up to WIDE_SPAN that still gives every SM a
+block, down to 32 points. Where the clouds fill the card and a block holds
+a cloud's entries and points (`takes_fused`), one fused kernel of a block
+a cloud runs both, its contributions in shared memory. The outputs do not
+depend on the plan.
 """
 
 from __future__ import annotations
@@ -269,9 +282,10 @@ class BwdPlan:
 
 
 def counts_in_64_bits(m: int, k: int) -> bool:
-    """Whether the point kernel must count a cloud's M * k entries in 64
-    bits (soft_project_bwd_points64, at any k); a plan may ask for it at
-    any size (the same sums in the same order)."""
+    """Whether the register point kernel must count a cloud's M * k
+    entries in 64 bits (soft_project_bwd_points64); a plan may ask for it
+    at any size (the same sums in the same order). The wide point kernel
+    numbers its windows in 64 bits at every size."""
     return m * k > INT_ENTRIES
 
 
@@ -302,3 +316,95 @@ def plan_bwd(b: int, n: int, m: int, k: int, *, sms: int) -> BwdPlan:
                          f"grids")
     return BwdPlan(tile=tile, threads=threads, span=span,
                    count64=counts_in_64_bits(m, k))
+
+
+# the wide backward (k > MAX_REGISTER_K): soft_project_bwd_entries_warp and
+# soft_project_bwd_points_wide
+WIDE_BWD_WARPS = 8          # kWideBwdWarps: warps a block, most
+WIDE_RANKS = 8              # kWideRanks: ranks a lane holds in registers
+WIDE_GROUP = 8              # kWideGroup: lanes a query up to k = 64
+WIDE_POINT_THREADS = 1024   # kWidePointThreads: a point block's most
+WIDE_SPAN = 4096            # kWideSpan: points a point block owns, most
+WINDOW_PER = 4              # kWindowPer: entries a thread a window
+WIDE_POINTS_PER = 4         # kWidePointsPer: points a thread of a point block
+FUSED_ENTRIES = 4096        # kFusedEntries: the fused kernel's M*k, most
+FUSED_THREADS = 256         # the fused kernel's block (kWideBwdWarps warps)
+MIN_WIDE_SPAN = 32
+
+
+def wide_group(k: int) -> int:
+    """Lanes a query of the wide backward's first kernel: WIDE_GROUP up to
+    k = WIDE_RANKS * WIDE_GROUP, else a warp (k alone sets it, and with it
+    the order of the query's sums)."""
+    return WIDE_GROUP if k <= WIDE_RANKS * WIDE_GROUP else 32
+
+
+@dataclass(frozen=True)
+class WideBwdPlan:
+    warps: int      # warps a block of the first kernel
+    threads: int    # a point block's threads (fused: the one kernel's)
+    span: int       # points a point block owns
+    fused: bool = False  # one kernel, a block a cloud (warps, span unused)
+
+    @property
+    def smem(self) -> int:
+        return wide_bwd_smem(self.threads, self.span)
+
+    def grids(self, b: int, n: int, m: int, k: int) -> tuple[int, int]:
+        """Blocks of the two kernels: the first's over all B*M queries,
+        32 / wide_group(k) a warp, the point kernel's B * point ranges
+        (fused: B blocks, and no second kernel)."""
+        if self.fused:
+            return b, 0
+        per_block = self.warps * (32 // wide_group(k))
+        return -(-b * m // per_block), b * -(-n // self.span)
+
+
+def fused_bwd_smem(n: int, m: int, k: int) -> int:
+    """Dynamic shared memory of a fused wide backward block: the cloud's M*k
+    contributions (float4), each one's point and the list (ints), its
+    queries' d sigma^2 terms (double), the offsets [n + 1] and cursors
+    [n]."""
+    return m * k * 24 + 8 * m + 4 * (2 * n + 1)
+
+
+def takes_fused(b: int, n: int, m: int, k: int, *, sms: int) -> bool:
+    """Whether the fused kernel takes the shape: the clouds fill the card,
+    a cloud's entries fit FUSED_ENTRIES and its points WIDE_POINTS_PER a
+    thread of a FUSED_THREADS block."""
+    return (b >= sms and m * k <= FUSED_ENTRIES
+            and n <= WIDE_POINTS_PER * FUSED_THREADS)
+
+
+def wide_bwd_smem(threads: int, span: int) -> int:
+    """Dynamic shared memory of a wide point block, as the kernel counts
+    it: a window's WINDOW_PER * threads contributions (float4) and list,
+    then the span's offsets [span + 1] and cursors [span]."""
+    return WINDOW_PER * threads * 20 + 4 * (2 * span + 1)
+
+
+def plan_bwd_wide(b: int, n: int, m: int, k: int, *, sms: int
+                  ) -> WideBwdPlan:
+    """The wide backward's plan for B clouds of n points, m queries and k
+    neighbours each, on a card of `sms` SMs (k moves only the choice of
+    the fused kernel)."""
+    if min(b, n, m, k, sms) < 1:
+        raise ValueError(f"plan_bwd_wide needs positive sizes, got b={b}, "
+                         f"n={n}, m={m}, k={k}, sms={sms}")
+    warps = WIDE_BWD_WARPS
+    while warps > 1 and -(-b * m // warps) < sms:
+        warps //= 2
+    threads = 256 if b >= sms else WIDE_POINT_THREADS
+    span = min(WIDE_SPAN, WIDE_POINTS_PER * threads,
+               max(MIN_WIDE_SPAN, 1 << (n - 1).bit_length()))
+    while span > MIN_WIDE_SPAN and b * -(-n // span) < sms:
+        span //= 2
+    if takes_fused(b, n, m, k, sms=sms):
+        plan = WideBwdPlan(warps=WIDE_BWD_WARPS, threads=FUSED_THREADS,
+                           span=span, fused=True)
+    else:
+        plan = WideBwdPlan(warps=warps, threads=threads, span=span)
+    if max(plan.grids(b, n, m, k)) > MAX_GRID_X:
+        raise ValueError(f"B={b}, N={n}, M={m}, k={k} exceed the wide "
+                         f"backward's grids")
+    return plan

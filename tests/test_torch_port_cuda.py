@@ -1066,6 +1066,8 @@ WIDE_BWD_CASES = [
     ("knn", 5, 77, 300, 77),       # k = N
     ("zero", 3, 1000, 70, 24),     # a zero cotangent
     ("knn", 4, 1024, 64, 256),
+    ("knn", 150, 1024, 32, 32),    # the fused kernel: a block a cloud
+    ("knn", 140, 300, 40, 100),    # fused, a warp a query
 ]
 
 
@@ -1074,7 +1076,8 @@ def test_soft_projection_wide_backward_edge_cases(dev, kind, b, n, m, k):
     """Against the plain version, and bit for bit under other launch plans
     and from run to run."""
     from samplenet_tpu_torch.ops.cuda import soft_projection_kernel as spk
-    from samplenet_tpu_torch.ops.cuda.soft_projection_plan import BwdPlan
+    from samplenet_tpu_torch.ops.cuda import soft_projection_plan as spp
+    from samplenet_tpu_torch.ops.cuda.soft_projection_plan import WideBwdPlan
 
     args = _soft_bwd_inputs(kind, b, n, m, k, b + n + m + k, dev)
     got = spk.soft_project_bwd_cuda(*args)
@@ -1084,12 +1087,52 @@ def test_soft_projection_wide_backward_edge_cases(dev, kind, b, n, m, k):
         torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-5)
     if kind == "zero":
         assert not any(t.any() for t in got)
-    for other in (BwdPlan(32, 32, 32), BwdPlan(128, 128, 512),
-                  BwdPlan(256, 64, 256), BwdPlan(32, 32, 32, count64=True)):
+    plan = spk.bwd_plan(args[0].device.index, b, n, m, k)
+    others = [WideBwdPlan(1, 32, 1), WideBwdPlan(8, 32, 32),
+              WideBwdPlan(2, 128, 100), WideBwdPlan(4, 256, 1024),
+              WideBwdPlan(8, 1024, 4096), WideBwdPlan(1, 64, 77)]
+    # the fused kernel where a block holds the cloud (the plan's at B=150)
+    others += [WideBwdPlan(8, t, 32, fused=True) for t in (256, 128, 64)
+               if m * k <= spp.FUSED_ENTRIES and n <= 4 * t]
+    assert sum(o != plan for o in others) >= 5
+    for other in others:
         again = spk.launch_bwd(*args, other)
         assert all(torch.equal(a, c) for a, c in zip(again, got)), other
     again = spk.soft_project_bwd_cuda(*args)
     assert all(torch.equal(a, c) for a, c in zip(again, got))
+
+
+def test_soft_projection_wide_backward_refuses_a_plan_it_does_not_take(
+        dev, monkeypatch):
+    from samplenet_tpu_torch.ops.cuda import soft_projection_kernel as spk
+    from samplenet_tpu_torch.ops.cuda import soft_projection_plan as spp
+
+    args = _soft_bwd_inputs("knn", 2, 300, 40, 20, 5, dev)
+    # the plan's limits or shared memory off the kernel's: the wrapper
+    # raises before it launches
+    for name, value in (("WINDOW_PER", 2 * spp.WINDOW_PER),
+                        ("WIDE_SPAN", 8192), ("WIDE_RANKS", 4),
+                        ("WIDE_POINTS_PER", 8), ("FUSED_ENTRIES", 2048)):
+        with monkeypatch.context() as mp:
+            mp.setattr(spp, name, value)
+            spk.bwd_plan.cache_clear()
+            with pytest.raises(RuntimeError, match="disagree"):
+                spk.soft_project_bwd_cuda(*args)
+    spk.bwd_plan.cache_clear()
+    # a plan the C entry refuses: no warps or more than 8, threads not a
+    # multiple of 32 or past 1024, no points, more than 4096 a block or
+    # more than 4 a thread
+    # a fused kernel of more than 256 threads, of more than 4 points a
+    # thread, or of more entries than FUSED_ENTRIES
+    for bad in (spp.WideBwdPlan(0, 256, 64), spp.WideBwdPlan(9, 256, 64),
+                spp.WideBwdPlan(8, 48, 64), spp.WideBwdPlan(8, 2048, 64),
+                spp.WideBwdPlan(8, 256, 0), spp.WideBwdPlan(8, 1024, 8192),
+                spp.WideBwdPlan(8, 64, 257),
+                spp.WideBwdPlan(8, 512, 64, fused=True),
+                spp.WideBwdPlan(8, 64, 64, fused=True)):
+        with pytest.raises(RuntimeError, match="soft_projection_bwd_wide"):
+            spk.launch_bwd(*args, bad)
+    spk.soft_project_bwd_cuda(*args)
 
 
 def test_soft_projection_more_queries_than_the_register_grid(dev):
@@ -2357,6 +2400,52 @@ def test_point_mlp_max_past_eight_layers(dev, layers, bf16):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     again = point_mlp_max(x, wbs, bf16=bf16)
     assert torch.equal(again, got)
+
+
+# a cloud's tiles over S blocks: the chains (f32, bf16 and 9 layers, past
+# the kernel's parameter table) at B below, at and above the SM count
+SPLIT_MODES = {"f32": (False, (3, 64, 64, 64, 128, 128)),
+               "bf16": (True, (3, 64, 64, 64, 128, 128)),
+               "9 layers": (False, (3, 64, 128, 96, 64, 64, 128, 96, 64, 64))}
+
+
+@pytest.mark.parametrize("n", [77, 1000, 1024, 2048])
+@pytest.mark.parametrize("b", [1, 3, 32, 50, 131, 133])
+@pytest.mark.parametrize("mode", list(SPLIT_MODES))
+def test_point_mlp_max_split_is_bit_equal(dev, mode, b, n):
+    """point_mlp_max with each cloud's 64-point tiles split over S = 2, 4
+    and 16 blocks (and the plan's S) bit-equal to one block a cloud: max
+    is exact and every tile computes what it computes at S = 1; the plan's
+    launch through point_mlp_max, counted once."""
+    from samplenet_tpu_torch.ops.cuda import point_mlp_kernel as pmk
+    from samplenet_tpu_torch.ops.cuda import point_mlp_plan as mp
+    from samplenet_tpu_torch.ops.dispatch import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    bf16, widths = SPLIT_MODES[mode]
+    rng = np.random.default_rng(b * 7 + n)
+    wbs = []
+    for cin, cout in zip(widths[:-1], widths[1:]):
+        wbs += [_randn(rng, cin, cout, dev=dev) / np.sqrt(cin),
+                0.1 * _randn(rng, cout, dev=dev)]
+    x = _randn(rng, b, n, 3, dev=dev)
+    one = pmk.launch_max(x, wbs, bf16=bf16, splits=1)
+    for s in (2, 4, 16):
+        assert torch.equal(pmk.launch_max(x, wbs, bf16=bf16, splits=s),
+                           one), s
+    plan = pmk.max_splits_for(x, widths, bf16)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    resident = pmk._resident(x.device.index, mp.kernel_widths(widths), bf16)
+    assert resident >= 1
+    assert plan == mp.max_splits(b, n, sms=sms, resident=resident)
+    reset_launch_counts()
+    got = pmk.point_mlp_max(x, wbs, bf16=bf16)
+    torch.cuda.synchronize()
+    assert launch_counts() == {
+        "point_mlp_max_bf16" if bf16 else "point_mlp_max": 1}
+    assert torch.equal(got, one), plan
 
 
 def test_strided_inputs_give_the_contiguous_bits(dev):

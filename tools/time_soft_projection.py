@@ -38,6 +38,12 @@ Where the checkout has the wide kernels (k above 16), the same lines at
 each shape of chip_smoke.py's CAPS_SOFT, but for the plan sweeps, which
 are the register kernels'.
 
+With a third argument `sweep`, where the checkout has the wide
+backward's plan (`plan_bwd_wide`), its device time at each CAPS_SOFT shape
+under the chosen plan and under every plan that differs from it in one of
+its choices (queries a block, threads, points a block), each checked bit
+for bit against the planned launch.
+
 To compare two checkouts on one card, run it four times in a row: A, B,
 B, A.
 """
@@ -112,6 +118,42 @@ def bwd_sweep(torch, cs, spk, pts, qs, sigma, idx, cot) -> str:
             raise AssertionError(f"the backward differs under {other}")
         parts.append(f"tile {other.tile} threads {other.threads} span "
                      f"{other.span} "
+                     f"{cs._device_ms(torch, call, 10)!r}")
+    return ", ".join(parts)
+
+
+def wide_sweep(torch, cs, spk, pts, qs, sigma, idx, cot) -> str:
+    """Device ms of the wide backward under the chosen plan and under
+    plans that differ from it in one choice (the two kernels', and the
+    fused kernel's where it takes the shape), each bit-equal to the chosen
+    one."""
+    from dataclasses import replace
+
+    spp = spk.spp
+
+    b, n, _ = pts.shape
+    m, k = idx.shape[1], idx.shape[2]
+    plan = spk.bwd_plan(pts.device.index, b, n, m, k)
+    want = spk.launch_bwd(pts, qs, sigma, idx, cot, plan)
+    base = replace(plan, fused=False)
+    others = ([replace(base, warps=w) for w in (1, 2, 4, 8)]
+              + [replace(base, threads=t) for t in (128, 256, 512, 1024)]
+              + [replace(base, span=s)
+                 for s in (32, 64, 128, 256, 512, 1024, 2048, 4096)]
+              + [replace(base, threads=t, fused=True) for t in (64, 128, 256)])
+    others = [o for o in others if o.span <= spp.WIDE_POINTS_PER * o.threads
+              and (not o.fused or spp.takes_fused(
+                  b, n, m, k, sms=1) and n <= spp.WIDE_POINTS_PER * o.threads)]
+    parts = [f"plan warps {plan.warps}, threads {plan.threads}, span "
+             f"{plan.span}, fused {plan.fused}"]
+    for other in dict.fromkeys(others):
+        def call(other=other):
+            return spk.launch_bwd(pts, qs, sigma, idx, cot, other)
+
+        if not all(torch.equal(a, c) for a, c in zip(call(), want)):
+            raise AssertionError(f"the backward differs under {other}")
+        parts.append(f"warps {other.warps} threads {other.threads} span "
+                     f"{other.span} fused {other.fused} "
                      f"{cs._device_ms(torch, call, 10)!r}")
     return ", ".join(parts)
 
@@ -206,6 +248,10 @@ def main() -> int:
         if hasattr(spk, "launch_bwd") and k <= 16:
             print(f"[{tag}] backward plans at the {path}'s shape: "
                   + bwd_sweep(torch, cs, spk, pts, qs, sigma, idx, cot)
+                  + f" ({card})", flush=True)
+        if hasattr(spk.spp, "plan_bwd_wide") and k > 16 and "sweep" in sys.argv:
+            print(f"[{tag}] wide backward plans at the {path}'s shape: "
+                  + wide_sweep(torch, cs, spk, pts, qs, sigma, idx, cot)
                   + f" ({card})", flush=True)
         del pts, qs, cot, out, idx, dp, dq, ds
         torch.cuda.empty_cache()
